@@ -1,0 +1,27 @@
+"""fluid — the Fluid v1.7 front end of paddle_tpu_torch (counterpart of
+paddle_tpu/fluid; this slice: Program building, the layers of the BERT
+encoder, and the interpreter Executor)."""
+from . import core
+from .core import (CPUPlace, CUDAPlace, TPUPlace, LoDTensor, Scope,
+                   global_scope)
+from . import framework
+from .framework import (Program, Variable, Parameter, program_guard,
+                        default_main_program, default_startup_program,
+                        cpu_places, cuda_places)
+from . import unique_name
+from . import initializer
+from .param_attr import ParamAttr
+from . import layers
+from .layers.io import data
+from . import executor
+from .executor import Executor, scope_guard
+from . import param_bridge
+
+__all__ = [
+    "core", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor", "Scope",
+    "global_scope", "scope_guard", "Program", "Variable", "Parameter",
+    "program_guard", "default_main_program", "default_startup_program",
+    "cpu_places", "cuda_places", "unique_name",
+    "initializer", "ParamAttr", "layers", "data", "Executor",
+    "param_bridge",
+]

@@ -1,0 +1,385 @@
+"""Runtime core: dtypes, places, tensors, scopes and flags.
+
+Counterpart of ``paddle_tpu/fluid/core.py`` with ``torch.Tensor`` buffers
+in place of ``jax.Array``. A place names a ``torch.device`` explicitly;
+nothing here falls back from the GPU to the CPU on its own.
+
+Contents (this slice):
+  * VarDesc.VarType enum (wire values of framework.proto VarType).
+  * Places: CPUPlace, CUDAPlace; TPUPlace is an alias of the default
+    accelerator, i.e. CUDAPlace.
+  * LoDTensor over torch.Tensor, Variable, hierarchical Scope.
+  * the FLAGS_ registry, limited to the flags the port reads.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+__all__ = [
+    "VarDesc", "Place", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor",
+    "Variable", "Scope", "globals_", "get_flag", "set_flag",
+    "convert_np_dtype_to_dtype_", "dtype_to_np", "dtype_to_torch",
+    "is_float_dtype", "global_scope",
+]
+
+
+# --------------------------------------------------------------------------
+# dtypes (values of framework.proto VarType.Type)
+# --------------------------------------------------------------------------
+class _VarTypeEnum:
+    BOOL = 0
+    INT16 = 1
+    INT32 = 2
+    INT64 = 3
+    FP16 = 4
+    FP32 = 5
+    FP64 = 6
+    SIZE_T = 19
+    UINT8 = 20
+    INT8 = 21
+    BF16 = 22
+
+    LOD_TENSOR = 7
+    SELECTED_ROWS = 8
+    FEED_MINIBATCH = 9
+    FETCH_LIST = 10
+    STEP_SCOPES = 11
+    LOD_RANK_TABLE = 12
+    LOD_TENSOR_ARRAY = 13
+    PLACE_LIST = 14
+    READER = 15
+    RAW = 17
+    TUPLE = 18
+
+
+class VarDesc:
+    VarType = _VarTypeEnum
+
+
+_DTYPE_TO_NP = {
+    _VarTypeEnum.BOOL: np.bool_,
+    _VarTypeEnum.INT16: np.int16,
+    _VarTypeEnum.INT32: np.int32,
+    _VarTypeEnum.INT64: np.int64,
+    _VarTypeEnum.FP16: np.float16,
+    _VarTypeEnum.FP32: np.float32,
+    _VarTypeEnum.FP64: np.float64,
+    _VarTypeEnum.UINT8: np.uint8,
+    _VarTypeEnum.INT8: np.int8,
+}
+
+_NP_TO_DTYPE = {np.dtype(v): k for k, v in _DTYPE_TO_NP.items()}
+
+_STR_TO_DTYPE = {
+    "bool": _VarTypeEnum.BOOL,
+    "int16": _VarTypeEnum.INT16,
+    "int32": _VarTypeEnum.INT32,
+    "int64": _VarTypeEnum.INT64,
+    "float16": _VarTypeEnum.FP16,
+    "bfloat16": _VarTypeEnum.BF16,
+    "float32": _VarTypeEnum.FP32,
+    "float64": _VarTypeEnum.FP64,
+    "uint8": _VarTypeEnum.UINT8,
+    "int8": _VarTypeEnum.INT8,
+}
+
+_DTYPE_TO_TORCH = {
+    _VarTypeEnum.BOOL: torch.bool,
+    _VarTypeEnum.INT16: torch.int16,
+    _VarTypeEnum.INT32: torch.int32,
+    _VarTypeEnum.INT64: torch.int64,
+    _VarTypeEnum.FP16: torch.float16,
+    _VarTypeEnum.FP32: torch.float32,
+    _VarTypeEnum.FP64: torch.float64,
+    _VarTypeEnum.UINT8: torch.uint8,
+    _VarTypeEnum.INT8: torch.int8,
+    _VarTypeEnum.BF16: torch.bfloat16,
+}
+_TORCH_TO_DTYPE = {v: k for k, v in _DTYPE_TO_TORCH.items()}
+
+
+def convert_np_dtype_to_dtype_(np_dtype) -> int:
+    if isinstance(np_dtype, int):
+        return np_dtype
+    if isinstance(np_dtype, str):
+        return _STR_TO_DTYPE[np_dtype]
+    if isinstance(np_dtype, torch.dtype):
+        return _TORCH_TO_DTYPE[np_dtype]
+    d = np.dtype(np_dtype) if not isinstance(np_dtype, np.dtype) else np_dtype
+    if d in _NP_TO_DTYPE:
+        return _NP_TO_DTYPE[d]
+    if str(d) == "bfloat16":
+        return _VarTypeEnum.BF16
+    raise ValueError(f"unsupported numpy dtype {np_dtype}")
+
+
+def dtype_to_np(dtype: int):
+    """Host dtype. bf16 has no numpy type here; its host form is float32."""
+    if dtype == _VarTypeEnum.BF16:
+        return np.float32
+    return _DTYPE_TO_NP[dtype]
+
+
+def dtype_to_torch(dtype: int) -> torch.dtype:
+    """Device dtype. Unlike the TPU package, INT64 and FP64 keep their
+    width: CUDA has 64-bit integer indexing, and ids index embeddings
+    as ``long``."""
+    return _DTYPE_TO_TORCH[dtype]
+
+
+def is_float_dtype(dtype: int) -> bool:
+    return dtype in (_VarTypeEnum.FP16, _VarTypeEnum.BF16, _VarTypeEnum.FP32,
+                     _VarTypeEnum.FP64)
+
+
+# --------------------------------------------------------------------------
+# Places
+# --------------------------------------------------------------------------
+class Place:
+    """Base place. ``torch_device()`` names the device explicitly."""
+
+    def __eq__(self, other):
+        return type(self) is type(other) and getattr(self, "_device_id", 0) \
+            == getattr(other, "_device_id", 0)
+
+    def __hash__(self):
+        return hash((type(self).__name__, getattr(self, "_device_id", 0)))
+
+    def torch_device(self) -> torch.device:
+        raise NotImplementedError
+
+
+class CPUPlace(Place):
+    def __repr__(self):
+        return "CPUPlace"
+
+    def torch_device(self) -> torch.device:
+        return torch.device("cpu")
+
+
+class CUDAPlace(Place):
+    """One GPU by ordinal. Resolving it on a host without CUDA raises;
+    it never stands in for the CPU."""
+
+    def __init__(self, device_id: int = 0):
+        self._device_id = int(device_id)
+
+    def __repr__(self):
+        return f"CUDAPlace({self._device_id})"
+
+    def get_device_id(self):
+        return self._device_id
+
+    def torch_device(self) -> torch.device:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{self!r}: CUDA is not available on this host. Pass "
+                "fluid.CPUPlace() to run on the CPU.")
+        return torch.device("cuda", self._device_id)
+
+
+# Programs written against the TPU package say TPUPlace for "the
+# accelerator"; in this package the accelerator is the GPU.
+TPUPlace = CUDAPlace
+
+
+# --------------------------------------------------------------------------
+# Tensors
+# --------------------------------------------------------------------------
+def _to_device_tensor(data, place: Place) -> torch.Tensor:
+    dev = place.torch_device()
+    if isinstance(data, torch.Tensor):
+        return data.to(dev)
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(data))).to(dev)
+
+
+class LoDTensor:
+    """Dense tensor + level-of-detail offsets (reference
+    framework/lod_tensor.h:104). The buffer is a torch.Tensor on the
+    tensor's place; LoD is host-side metadata."""
+
+    __slots__ = ("_array", "_lod")
+
+    def __init__(self, array=None, lod: Optional[List[List[int]]] = None):
+        self._array = array
+        self._lod = [list(l) for l in lod] if lod else []
+
+    def set(self, np_array, place: Optional[Place] = None):
+        self._array = _to_device_tensor(np_array, place or CPUPlace())
+
+    def set_lod(self, lod):
+        self._lod = [list(l) for l in lod]
+
+    def lod(self):
+        return [list(l) for l in self._lod]
+
+    def shape(self):
+        return list(self._array.shape) if self._array is not None else []
+
+    def _dtype(self):
+        return self._array.dtype if self._array is not None else None
+
+    def numpy(self) -> np.ndarray:
+        a = self._array.detach()
+        if a.dtype == torch.bfloat16:
+            a = a.float()
+        return a.cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    @property
+    def array(self):
+        return self._array
+
+    def __len__(self):
+        return int(self._array.shape[0]) if self._array is not None else 0
+
+    def __repr__(self):
+        return f"LoDTensor(shape={self.shape()}, lod={self._lod})"
+
+
+# --------------------------------------------------------------------------
+# Variable / Scope (reference: framework/variable.h:26, scope.h:46)
+# --------------------------------------------------------------------------
+class Variable:
+    """Any-container runtime variable."""
+
+    __slots__ = ("_holder",)
+
+    def __init__(self):
+        self._holder = None
+
+    def get_tensor(self) -> LoDTensor:
+        if self._holder is None:
+            self._holder = LoDTensor()
+        if not isinstance(self._holder, LoDTensor):
+            raise TypeError(f"variable holds {type(self._holder).__name__}")
+        return self._holder
+
+    def set_value(self, v):
+        self._holder = v
+
+    def value(self):
+        return self._holder
+
+    def is_initialized(self):
+        h = self._holder
+        if h is None:
+            return False
+        if isinstance(h, LoDTensor):
+            return h.array is not None
+        return True
+
+
+class Scope:
+    """Hierarchical name → Variable map with child scopes."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self._vars: Dict[str, Variable] = {}
+        self._parent = parent
+        self._kids: List[Scope] = []
+        self._lock = threading.Lock()
+
+    def var(self, name: str) -> Variable:
+        with self._lock:
+            v = self._vars.get(name)
+            if v is None:
+                v = Variable()
+                self._vars[name] = v
+            return v
+
+    def find_var(self, name: str) -> Optional[Variable]:
+        s: Optional[Scope] = self
+        while s is not None:
+            v = s._vars.get(name)
+            if v is not None:
+                return v
+            s = s._parent
+        return None
+
+    def erase(self, name: str):
+        self._vars.pop(name, None)
+
+    def new_scope(self) -> "Scope":
+        kid = Scope(self)
+        self._kids.append(kid)
+        return kid
+
+    def __contains__(self, name):
+        return self.find_var(name) is not None
+
+
+_global_scope = Scope()
+
+
+def global_scope() -> Scope:
+    return _global_scope
+
+
+def _switch_scope(scope: Scope) -> Scope:
+    global _global_scope
+    old = _global_scope
+    _global_scope = scope
+    return old
+
+
+# --------------------------------------------------------------------------
+# FLAGS — env-backed global config (reference: platform/flags.cc); only
+# the flags this package reads
+# --------------------------------------------------------------------------
+class _GlobalFlags:
+    _DEFAULTS: Dict[str, Any] = {
+        "FLAGS_seed": 0,
+        # f32 mul/matmul and attention take bf16 operands with f32
+        # accumulation (the TPU package's MXU mode; on the GPU it runs
+        # through bf16 tensor cores)
+        "FLAGS_use_bf16_matmul": False,
+    }
+
+    def __init__(self):
+        self._values: Dict[str, Any] = {}
+        for k, dv in self._DEFAULTS.items():
+            env = os.environ.get(k)
+            self._values[k] = self._parse(env, dv) if env is not None else dv
+
+    @staticmethod
+    def _parse(s: str, like: Any):
+        if isinstance(like, bool):
+            return s.lower() in ("1", "true", "yes")
+        if isinstance(like, int):
+            return int(s)
+        if isinstance(like, float):
+            return float(s)
+        return s
+
+    def __getitem__(self, key):
+        return self._values[key]
+
+    def __setitem__(self, key, value):
+        if key not in self._values:
+            raise KeyError(f"unknown flag {key}")
+        self._values[key] = value
+
+    def __contains__(self, key):
+        return key in self._values
+
+    def keys(self):
+        return self._values.keys()
+
+
+globals_ = _GlobalFlags()
+
+
+def get_flag(name: str):
+    return globals_[name]
+
+
+def set_flag(name: str, value):
+    globals_[name] = value

@@ -1,0 +1,5 @@
+"""fluid.layers — op-builder functions (counterpart of
+paddle_tpu/fluid/layers/). Each function appends ops to the current
+program block and returns its output Variables."""
+from .nn import *  # noqa: F401,F403
+from .io import *  # noqa: F401,F403

@@ -1,0 +1,134 @@
+"""Tensor creation / manipulation op kernels (counterpart of
+paddle_tpu/ops/tensor_ops.py; this slice: fill_constant, uniform_random,
+gaussian_random, truncated_gaussian_random, reshape2, unsqueeze2).
+
+Random ops draw from the ``torch.Generator`` that ``attrs["_rng"]()``
+returns (the executor builds it on first call, seeded from the program's random_seed, the step and
+the op index) — no global RNG state is read or advanced.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .registry import register_op, first, seq, out
+
+
+def _dtype(attrs):
+    from ..fluid.core import dtype_to_torch
+    return dtype_to_torch(attrs.get("dtype", 5))
+
+
+def _shape_from(ins, attrs, key="shape"):
+    """Resolve shape from ShapeTensor/ShapeTensorList inputs or attr."""
+    st = first(ins, "ShapeTensor")
+    if st is not None:
+        return [int(x) for x in st.tolist()]
+    stl = seq(ins, "ShapeTensorList")
+    if stl:
+        return [int(s.reshape(()).item()) for s in stl]
+    return [int(s) for s in attrs.get(key, [])]
+
+
+# --------------------------------------------------------------------------
+# creation
+# --------------------------------------------------------------------------
+@register_op("fill_constant",
+             inputs=("ShapeTensor", "ShapeTensorList", "ValueTensor"),
+             no_grad=True, needs_device=True,
+             attr_defaults={"value": 0.0, "shape": [], "dtype": 5,
+                            "str_value": ""})
+def _fill_constant(ins, attrs):
+    shape = _shape_from(ins, attrs)
+    dt = _dtype(attrs)
+    vt = first(ins, "ValueTensor")
+    if vt is not None:
+        return out(Out=vt.to(dt).reshape(()).expand(shape).clone())
+    sv = attrs.get("str_value", "")
+    val = float(sv) if sv not in ("", None) else attrs.get("value", 0.0)
+    return out(Out=torch.full(shape, val, dtype=dt, device=attrs["_device"]))
+
+
+# --------------------------------------------------------------------------
+# random
+# --------------------------------------------------------------------------
+@register_op("uniform_random", needs_rng=True, needs_device=True,
+             no_grad=True, inputs=("ShapeTensor", "ShapeTensorList"),
+             attr_defaults={"shape": [], "min": -1.0, "max": 1.0, "seed": 0,
+                            "dtype": 5})
+def _uniform_random(ins, attrs):
+    shape = _shape_from(ins, attrs)
+    o = torch.empty(shape, dtype=_dtype(attrs), device=attrs["_device"])
+    return out(Out=o.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
+                              generator=attrs["_rng"]()))
+
+
+@register_op("gaussian_random", needs_rng=True, needs_device=True,
+             no_grad=True, inputs=("ShapeTensor", "ShapeTensorList"),
+             attr_defaults={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
+                            "dtype": 5})
+def _gaussian_random(ins, attrs):
+    shape = _shape_from(ins, attrs)
+    o = torch.empty(shape, dtype=_dtype(attrs), device=attrs["_device"])
+    return out(Out=o.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
+                             generator=attrs["_rng"]()))
+
+
+def _normal_cdf(x):
+    return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+
+
+@register_op("truncated_gaussian_random", needs_rng=True, needs_device=True,
+             no_grad=True,
+             attr_defaults={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
+                            "dtype": 5})
+def _truncated_gaussian_random(ins, attrs):
+    """Standard normal truncated to [-2, 2] by inverse-CDF sampling (the
+    method jax.random.truncated_normal uses), then mean + std·t."""
+    shape = [int(s) for s in attrs["shape"]]
+    lo, hi = _normal_cdf(-2.0), _normal_cdf(2.0)
+    u = torch.empty(shape, dtype=torch.float32, device=attrs["_device"])
+    u.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=attrs["_rng"]())
+    t = torch.clamp(math.sqrt(2.0) * torch.erfinv(u), -2.0, 2.0)
+    return out(Out=(attrs.get("mean", 0.0)
+                    + attrs.get("std", 1.0) * t).to(_dtype(attrs)))
+
+
+# --------------------------------------------------------------------------
+# shape manipulation
+# --------------------------------------------------------------------------
+def _infer_reshape(x_shape, target):
+    target = list(target)
+    for i, t in enumerate(target):
+        if t == 0:
+            target[i] = x_shape[i]
+    if -1 in target:
+        known = math.prod(t for t in target if t != -1)
+        target[target.index(-1)] = math.prod(x_shape) // max(known, 1)
+    return target
+
+
+def _xshape(x):
+    """XShape output: a zero-size tensor whose dims record X's shape."""
+    return torch.empty((0,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+
+
+@register_op("reshape2", inputs=("X", "Shape", "ShapeTensor"),
+             attr_defaults={"shape": []})
+def _reshape2(ins, attrs):
+    x = first(ins, "X")
+    sh = first(ins, "Shape")
+    target = ([int(v) for v in sh.tolist()] if sh is not None
+              else _shape_from(ins, attrs))
+    return out(Out=x.reshape(_infer_reshape(tuple(x.shape), target)),
+               XShape=_xshape(x))
+
+
+@register_op("unsqueeze2", inputs=("X",), attr_defaults={"axes": []})
+def _unsqueeze2(ins, attrs):
+    x = first(ins, "X")
+    o = x
+    for a in sorted(attrs["axes"]):
+        o = o.unsqueeze(a)
+    return out(Out=o, XShape=_xshape(x))
