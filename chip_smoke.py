@@ -2,29 +2,46 @@
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build  — compile every CUDA kernel of the served path from csrc/.
+  1. build  — compile every CUDA kernel from csrc/, one nvcc per source,
+              all started together.
   2. kernel — hold each kernel against its plain PyTorch version on the
-              card (BERT-base shapes in f32 and bf16 with a key-padding
-              bias; ragged S/Sk, causal, a dead row, dropout 0.1, other
-              head dims), checking O and lse; time the kernel, the plain
-              version and one PyTorch library call as a yardstick.
-  3. slice  — build the BERT-base encoder (12 layers, hidden 768, 12
+              card: the forward (O and lse) and the backward's dK/dV and dQ
+              kernels (dQ, dK, dV), over BERT-base shapes in f32 and bf16
+              with a key-padding bias, ragged S/Sk, causal, a dead row,
+              dropout 0.1 and head dims 8 to 128; time each kernel, its
+              plain version and one PyTorch library call as a yardstick
+              (scaled_dot_product_attention, and its backward).
+  3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
               and 32 at S=128 through fluid.Executor(CUDAPlace(0)).run with
               random padding, back to back for a fixed window per batch
-              size. Checks: finite outputs, exactly 12 flash launches per
+              size. Checks: finite outputs, exactly 12 forward launches per
               request, and one request against the same program and
               weights run by the port on the CPU. Reports latency p50/p99
               over every request of the window and sequences/s as all the
               sequences over all the time spent in Executor.run.
+  4. train  — build the BERT-base masked-LM pretraining step with the port
+              (build_bert_pretrain_program: dropout 0.1, input mask, Adam
+              lr 1e-4), run its startup on the card and train at batch 32,
+              S=128, 15 % of positions masked: 3 warm-up steps, then a
+              fixed window of steps, then 10 steps on one repeated batch.
+              Checks: a finite loss every step, exact kernel launches per
+              step (12 forward + 12 forward re-run by the generic grad,
+              12 dK/dV, 12 dQ), the loss falling on the repeated batch, and
+              at batch 2 with dropout 0 one step on the card against the
+              port on the CPU from the same weights (loss and the grads of
+              the word embedding, layer 0's Q weight and the MLM head).
+              Reports step time p50/p90/p99, samples/s and peak device
+              memory.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
-CUDA is missing or any phase fails. ``--profile`` adds a torch.profiler
-pass over one request of each batch size: device time by kernel name, and
-the device's idle share against the same request's unprofiled wall time.
+CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
+passes over one request of each batch size and over one training step:
+device time by kernel name, and the device's idle share against the same
+work's unprofiled wall time.
 """
 from __future__ import annotations
 
@@ -44,6 +61,17 @@ POOL = 16                     # distinct requests per batch size, cycled
 F32_TOL = 1e-4                # kernel vs plain, f32: sums in other orders
 BF16_TOL = 2e-2               # kernel vs plain, bf16 operands
 SLICE_TOL = 1e-3              # GPU vs CPU through 12 f32 encoder layers
+TRAIN_BATCH = 32
+TRAIN_WARMUP = 3              # steps before the window
+TRAIN_WINDOW = 100            # steps timed: p90 has 10 beyond it
+FALL_STEPS = 10               # steps on one repeated batch
+TRAIN_LR = 1e-4               # bench.py's BERT-base lane
+TRAIN_DROPOUT = 0.1           # BERT's pretraining hidden/attention dropout
+MLM_FRAC = 0.15               # masked positions per batch (bench.py)
+CHECK_BATCH = 2               # card vs CPU step
+LOSS_TOL = 1e-4               # card vs CPU loss, relative: f32 sums in
+GRAD_TOL = 1e-3               # other orders; grads: of each max |grad|,
+                              # after 12 layers forward and back
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (published)
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32, bf16 TC
 
@@ -78,15 +106,22 @@ def _cuda_ms(fn, iters=50, warmup=5) -> float:
 # 1. build
 # --------------------------------------------------------------------------
 def phase_build():
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from paddle_tpu_torch.ops.cuda import build, flash_attention as fa
+    sources = (fa.KERNEL_SOURCE, fa.BWD_KERNEL_SOURCE)
     t0 = time.perf_counter()
-    build.load(fa.KERNEL_SOURCE)
-    _log(f"[build] {fa.KERNEL_SOURCE}: {time.perf_counter() - t0:.1f} s "
-         "(nvcc -gencode arch=compute_90a,code=sm_90a)")
-    for line in build.build_log.get(fa.KERNEL_SOURCE, {}).get(
-            "ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
-            _log("[build] ptxas:", line.strip())
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.build, sources))
+    for src in sources:
+        build.load(src)
+    _log(f"[build] {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
+         "(nvcc -gencode arch=compute_90a,code=sm_90a, in parallel)")
+    for src in sources:
+        for line in build.build_log.get(src, {}).get("ptxas",
+                                                     "").splitlines():
+            if "registers" in line or "spill" in line:
+                _log(f"[build] {src} ptxas:", line.strip())
 
 
 # --------------------------------------------------------------------------
@@ -202,6 +237,135 @@ def phase_kernel():
     return rows
 
 
+def _check_bwd(name, got, want, tol):
+    import torch
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, want)]
+    ok = all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+             for g, w in zip(got, want))
+    _log(f"[kernel] bwd {name}: max|d dQ| {errs[0]:.3e} max|d dK| "
+         f"{errs[1]:.3e} max|d dV| {errs[2]:.3e} tol {tol:g} -> "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"backward kernels disagree with their plain "
+                             f"version: {name}")
+    return errs
+
+
+def _bwd_bound(B, H, S, Sk, D, flop_units, n_out):
+    """(bound_ms, bound_by, flop, bytes) of a backward function doing
+    ``flop_units``·B·H·S·Sk·D FLOP on f32 CUDA cores that reads q, k, v,
+    dO, lse, delta and the bias once and writes ``n_out`` outputs of q's
+    or k's size once (n_out: "q" = dQ, "kv" = dK and dV, "qkv" = all)."""
+    flop = flop_units * B * H * S * Sk * D
+    q_b, kv_b = B * H * S * D * 4, B * H * Sk * D * 4
+    nbytes = 2 * q_b + 2 * kv_b + 2 * B * H * S * 4 + B * Sk * 4
+    nbytes += {"q": q_b, "kv": 2 * kv_b, "qkv": q_b + 2 * kv_b}[n_out]
+    t_ops = flop / PEAK_OPS["float32"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes", flop, nbytes
+
+
+def phase_kernel_bwd():
+    """The dK/dV and dQ kernels against the plain backward, on the forward
+    kernel's O and lse, over the forward phase's cases; then each timed
+    at the training shape."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    sm = 0.125
+    errs = []
+
+    def both(name, q, k, v, scale, tol, causal=False, rate=0.0, seed=None,
+             bias=None):
+        o, lse = fa.flash_attention_cuda(q, k, v, scale, causal, rate, seed,
+                                         bias)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale, causal,
+                                          rate, seed, bias)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale,
+                                                causal, rate, seed, bias)
+        torch.cuda.synchronize()
+        err = max(_check_bwd(name, got, want, tol))
+        if q.dtype == torch.float32:
+            errs.append(err)
+        return got
+
+    seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
+    B, H, D = TRAIN_BATCH, 12, 64
+    for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v = _qkv(B, H, S, S, D, dt, gen)
+        both(f"bert B={B} H={H} S={S} D={D} {dt} bias dropout 0.1", q, k, v,
+             sm, tol, rate=0.1, seed=seed, bias=_padding_bias(B, S, gen))
+    f32 = torch.float32
+    q, k, v = _qkv(2, 3, 200, 77, 64, f32, gen)
+    both("ragged S=200 Sk=77 bias", q, k, v, sm, F32_TOL,
+         bias=_padding_bias(2, 77, gen))
+    q, k, v = _qkv(2, 3, 200, 200, 64, f32, gen)
+    both("causal ragged S=Sk=200", q, k, v, sm, F32_TOL, causal=True)
+    q, k, v = _qkv(2, 3, 256, 256, 64, f32, gen)
+    dead = torch.zeros(2, 256, device="cuda")
+    dead[0] = -1e30
+    dq, dk, dv = both("dead row (bias -1e30 on every key of batch 0)",
+                      q, k, v, sm, F32_TOL, bias=dead)
+    if not (dq[0].eq(0).all() and dk[0].eq(0).all() and dv[0].eq(0).all()):
+        raise AssertionError("dead rows must give zero dQ, dK and dV")
+    both("dropout 0.1 seed 1234 causal bias", q, k, v, sm, F32_TOL,
+         causal=True, rate=0.1, seed=seed, bias=_padding_bias(2, 256, gen))
+    for d in (8, 16, 32, 128):
+        q, k, v = _qkv(2, 2, 96, 80, d, f32, gen)
+        both(f"head dim {d}", q, k, v, d ** -0.5, F32_TOL,
+             bias=_padding_bias(2, 80, gen))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        both(f"head dim {d} bf16", q, k, v, d ** -0.5, BF16_TOL)
+    max_err = max(errs)  # over the f32 cases, as the forward's row
+
+    # time at the training shape: B=32, H=12, S=128, D=64, f32, bias
+    q, k, v = _qkv(B, H, S, S, D, f32, gen)
+    bias = _padding_bias(B, S, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    o, lse = fa.flash_attention_cuda(q, k, v, sm, bias=bias)
+    delta = fa.bwd_delta(o, do)
+    kv_ms = _cuda_ms(lambda: fa.flash_attention_bwd_kv_cuda(
+        q, k, v, do, lse, delta, sm, bias=bias))
+    q_ms = _cuda_ms(lambda: fa.flash_attention_bwd_q_cuda(
+        q, k, v, do, lse, delta, sm, bias=bias))
+    kv_plain = _cuda_ms(lambda: fa.flash_attention_bwd_kv_reference(
+        q, k, v, do, lse, delta, sm, bias=bias))
+    q_plain = _cuda_ms(lambda: fa.flash_attention_bwd_q_reference(
+        q, k, v, do, lse, delta, sm, bias=bias))
+    fwd_ms = _cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, sm,
+                                                      bias=bias))
+    # the library yardstick: SDPA's backward alone (its forward once,
+    # outside the timing), the whole of dQ, dK and dV in one call
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs,
+                                         attn_mask=bias[:, None, None, :],
+                                         scale=sm)
+    lib_ms = _cuda_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True))
+    rows = {}
+    for name, ms, plain, units, outs in (
+            ("flash_attention_bwd_kv", kv_ms, kv_plain, 8, "kv"),
+            ("flash_attention_bwd_q", q_ms, q_plain, 6, "q")):
+        bound, by, flop, nbytes = _bwd_bound(B, H, S, S, D, units, outs)
+        _log(f"[kernel] time {name} f32 B={B} H={H} S={S} D={D} bias: "
+             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA backward "
+             f"(dQ, dK, dV together) {lib_ms:.4f} ms, bound {bound:.4f} ms "
+             f"({by}: {flop} FLOP, {nbytes} B)")
+        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                          bound_ms=bound, bound_by=by, max_abs_err=max_err)
+    bound, by, flop, nbytes = _bwd_bound(B, H, S, S, D, 10, "qkv")
+    _log(f"[kernel] time whole backward f32 B={B}: both kernels "
+         f"{kv_ms + q_ms:.4f} ms vs bound {bound:.4f} ms ({by}: {flop} "
+         f"FLOP = 10·B·H·S·Sk·D, {nbytes} B); the two kernels execute "
+         f"14·B·H·S·Sk·D, recomputing QK^T and dO·V^T in each; forward "
+         f"kernel at this shape {fwd_ms:.4f} ms")
+    return rows
+
+
 # --------------------------------------------------------------------------
 # 3. slice
 # --------------------------------------------------------------------------
@@ -260,7 +424,7 @@ def phase_slice(profile=False):
     pools = {bs: [_request(rng, bs, cfg) for _ in range(POOL)]
              for bs in SERVE_BATCHES}
     first = None
-    fa.launch_count = 0
+    _reset_launch_counts()
     n_req = 0
     for bs in SERVE_BATCHES:
         pool = pools[bs]
@@ -293,9 +457,11 @@ def phase_slice(profile=False):
              f"latency p50 {np.percentile(ms, 50):.3f} ms "
              f"p99 {np.percentile(ms, 99):.3f} ms "
              f"max {ms.max():.3f} ms")
-    launches = fa.launch_count
+    launches, kv_n, q_n = _launch_counts()
     _log(f"[slice] {n_req} requests, flash kernel launches {launches} "
-         f"(= {cfg['layers']} per request)")
+         f"(= {cfg['layers']} per request), backward launches {kv_n + q_n}")
+    if kv_n or q_n:
+        raise AssertionError("serving launched a backward kernel")
 
     # the first request again, by the port on the CPU with the same weights
     cpu_scope = fluid.Scope()
@@ -349,6 +515,198 @@ def _profile(exe, main, enc, scope, feed, bs):
 
 
 # --------------------------------------------------------------------------
+# 4. train
+# --------------------------------------------------------------------------
+def _train_batch(rng, bs, cfg):
+    """A pretraining batch as bench.py's BERT lane makes it, with random
+    padding lengths: 15 % of the B·S positions masked, at random."""
+    import numpy as np
+    lens = rng.randint(S // 4, S + 1, size=bs)
+    mask = (np.arange(S)[None, :] < lens[:, None]).astype(np.float32)
+    n_mask = max(1, int(bs * S * MLM_FRAC))
+    return {"src_ids": rng.randint(0, cfg["vocab_size"], (bs, S)),
+            "pos_ids": np.tile(np.arange(S), (bs, 1)),
+            "sent_ids": rng.randint(0, cfg["type_vocab"], (bs, S)),
+            "mask_pos": rng.randint(0, bs * S, (n_mask, 1)),
+            "mask_label": rng.randint(0, cfg["vocab_size"], (n_mask, 1)),
+            "input_mask": mask}
+
+
+def _pretrain_program(cfg, dropout):
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    with fluid.unique_name.guard():
+        main, startup, _, (loss,) = bert.build_bert_pretrain_program(
+            cfg, seq_len=S, dropout=dropout, lr=TRAIN_LR,
+            use_input_mask=True)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, loss
+
+
+def _launch_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    return (fa.launch_count, fa.bwd_kv_launch_count, fa.bwd_q_launch_count)
+
+
+def _reset_launch_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    fa.launch_count = fa.bwd_kv_launch_count = fa.bwd_q_launch_count = 0
+
+
+def phase_train(profile=False):
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    L = cfg["layers"]
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
+    ops = main.global_block().ops
+    n_fwd = sum(op.type == "fused_attention_qkv" for op in ops)
+    n_grad = sum(op.type == "fused_attention_qkv_grad" for op in ops)
+    if n_fwd != L or n_grad != L:
+        raise AssertionError(f"{n_fwd} attention ops and {n_grad} grads, "
+                             f"want {L} each")
+    # per step: each attention op launches the forward once; its grad op
+    # re-runs the forward under autograd (the generic grad), whose
+    # backward launches the dK/dV and the dQ kernel once each
+    want = (2 * L, L, L)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    params = main.global_block().all_parameters()
+    n_params = sum(scope.find_var(p.name).value().array.numel()
+                   for p in params)
+    _log(f"[train] BERT-base pretraining step: {len(ops)} ops, "
+         f"{len(params)} parameters ({n_params} values), dropout "
+         f"{TRAIN_DROPOUT}, Adam lr {TRAIN_LR}; startup on the card "
+         f"{time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.RandomState(SEED + 2)
+    pool = [_train_batch(rng, TRAIN_BATCH, cfg) for _ in range(POOL)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+
+    def step(feed):
+        before = _launch_counts()
+        t = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        dt = time.perf_counter() - t
+        got = tuple(a - b for a, b in zip(_launch_counts(), before))
+        if got != want:
+            raise AssertionError(f"kernel launches in one step (fwd, dK/dV, "
+                                 f"dQ) = {got}, want {want}")
+        value = float(out.reshape(-1)[0])
+        if not np.isfinite(value):
+            raise AssertionError(f"non-finite loss {value}")
+        return value, dt
+
+    for i in range(TRAIN_WARMUP):
+        step(pool[i])
+    times, losses = [], []
+    for i in range(TRAIN_WINDOW):
+        value, dt = step(pool[(TRAIN_WARMUP + i) % POOL])
+        times.append(dt)
+        losses.append(value)
+    fall = [step(pool[0])[0] for _ in range(FALL_STEPS)]
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = TRAIN_WARMUP + TRAIN_WINDOW + FALL_STEPS
+    if launches != tuple(n_steps * w for w in want):
+        raise AssertionError(f"launches {launches} over {n_steps} steps")
+    ms = np.asarray(times) * 1e3
+    _log(f"[train] batch {TRAIN_BATCH}: {TRAIN_WINDOW} steps in "
+         f"{ms.sum() / 1e3:.3f} s of Executor.run, "
+         f"{TRAIN_BATCH * TRAIN_WINDOW / (ms.sum() / 1e3):.2f} samples/s, "
+         f"step p50 {np.percentile(ms, 50):.3f} ms p90 "
+         f"{np.percentile(ms, 90):.3f} ms p99 {np.percentile(ms, 99):.3f} "
+         f"ms max {ms.max():.3f} ms (n={len(ms)}); losses "
+         f"{losses[0]:.4f} .. {losses[-1]:.4f}")
+    _log(f"[train] peak device memory {peak / 2**30:.3f} GiB "
+         f"(max_memory_allocated over warm-up, window and repeated steps)")
+    _log(f"[train] launches over {n_steps} steps: forward {launches[0]}, "
+         f"dK/dV {launches[1]}, dQ {launches[2]} (= {want} per step)")
+    _log(f"[train] repeated batch, {FALL_STEPS} steps: " +
+         " ".join(f"{x:.4f}" for x in fall))
+    if not (fall[-1] < fall[0] and np.mean(fall[-3:]) < np.mean(fall[:3])):
+        raise AssertionError("the loss does not fall on a repeated batch")
+    if profile:
+        _profile_step(exe, main, loss, scope, pool[1])
+    _check_train_against_cpu(cfg)
+    return launches
+
+
+def _check_train_against_cpu(cfg):
+    """One step at batch 2, dropout 0, on the card and by the port on the
+    CPU from the same weights: the loss and three grads. Post-Adam
+    parameters are not compared: Adam's m/(√v+ε) turns rounding noise on
+    a near-zero grad into a step of ±lr."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, loss = _pretrain_program(cfg, 0.0)
+    muls = [op for op in main.global_block().ops if op.type == "mul"]
+    names = ["word_embedding", muls[0].input("Y")[0],
+             muls[-1].input("Y")[0]]  # layer 0's Q weight, the MLM head
+    fetch = [loss] + [n + "@GRAD" for n in names]
+    gpu_scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=gpu_scope)
+    for v in main.global_block().vars.values():
+        if v.persistable:
+            cpu_scope.var(v.name).set_value(fluid.LoDTensor(
+                gpu_scope.find_var(v.name).value().array.cpu()))
+    feed = _train_batch(np.random.RandomState(SEED + 3), CHECK_BATCH, cfg)
+    gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
+                                               fetch_list=fetch,
+                                               scope=cpu_scope)
+    ok = abs(float(gpu[0][0]) - float(cpu[0][0])) \
+        <= LOSS_TOL * abs(float(cpu[0][0]))
+    _log(f"[train] batch {CHECK_BATCH} dropout 0, card vs CPU: loss "
+         f"{float(gpu[0][0]):.6f} vs {float(cpu[0][0]):.6f} "
+         f"(tol {LOSS_TOL:g} relative)")
+    for name, g, c in zip(names, gpu[1:], cpu[1:]):
+        scale = float(np.abs(c).max())
+        err = float(np.abs(g - c).max())
+        ok = ok and err <= GRAD_TOL * scale
+        _log(f"[train]   {name}@GRAD {tuple(c.shape)}: max|d| {err:.3e}, "
+             f"max|grad| {scale:.3e} (tol {GRAD_TOL:g} of it)")
+    if not ok:
+        raise AssertionError("the training step on the card disagrees with "
+                             "the CPU run")
+
+
+def _profile_step(exe, main, loss, scope, feed):
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        t = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    wall = float(np.median([run() for _ in range(7)][2:])) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = run() * 1e3
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evts) / 1e3
+    _log(f"[profile] train step batch {TRAIN_BATCH}: wall {wall:.3f} ms "
+         f"unprofiled (median of 5), {prof_wall:.3f} ms under the profiler; "
+         f"device busy {busy:.3f} ms, idle {100 - 100 * busy / wall:.1f}% "
+         f"of the unprofiled wall; {sum(e.count for e in evts)} device "
+         "events")
+    for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:15]:
+        _log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+             f"x{e.count:5d}  {e.key[:90]}")
+
+
+# --------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -368,21 +726,31 @@ def main(argv=None) -> int:
          f"python {sys.version.split()[0]}")
     phase_build()
     rows = phase_kernel()
-    launches = phase_slice(profile=args.profile)
+    bwd_rows = phase_kernel_bwd()
+    serve_launches = phase_slice(profile=args.profile)
+    train_launches = phase_train(profile=args.profile)
     f32 = rows[0]
-    kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:298",
-        "launches": launches,
-        "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"],
-    }]
+    src = "paddle_tpu_torch/ops/cuda/csrc/"
+    replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
+    kernels = [dict(
+        name="flash_attention_fwd", route="cuda",
+        source=src + "flash_attention_fwd.cu", replaces=replaces + "298",
+        launches=train_launches[0],
+        launches_by_path={"serve": serve_launches,
+                          "train": train_launches[0]},
+        **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")})]
+    for name, line, n in (("flash_attention_bwd_kv", "514",
+                           train_launches[1]),
+                          ("flash_attention_bwd_q", "543",
+                           train_launches[2])):
+        r = bwd_rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "flash_attention_bwd.cu",
+            replaces=replaces + line, launches=n,
+            launches_by_path={"serve": 0, "train": n},
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ op kernel written against ``torch.Tensor`` and the Pallas TPU kernels
 replaced by hand-written Hopper kernels (``ops/cuda/``). Entry points run
 on the GPU unless the caller asks for ``fluid.CPUPlace()``.
 
-This slice covers the BERT encoder inference path; see ROADMAP.md for
-what is still queued."""
+So far it covers BERT: encoder inference and the masked-LM pretraining
+step; see ROADMAP.md for what is still queued."""
 
 __version__ = "0.1.0"
 

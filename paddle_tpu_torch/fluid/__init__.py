@@ -1,6 +1,7 @@
 """fluid — the Fluid v1.7 front end of paddle_tpu_torch (counterpart of
-paddle_tpu/fluid; this slice: Program building, the layers of the BERT
-encoder, and the interpreter Executor)."""
+paddle_tpu/fluid; so far: Program building, the layers of the BERT-base
+pretraining step, append_backward, SGD and Adam, and the interpreter
+Executor)."""
 from . import core
 from .core import (CPUPlace, CUDAPlace, TPUPlace, LoDTensor, Scope,
                    global_scope)
@@ -10,9 +11,14 @@ from .framework import (Program, Variable, Parameter, program_guard,
                         cpu_places, cuda_places)
 from . import unique_name
 from . import initializer
+from . import regularizer
+from . import clip
 from .param_attr import ParamAttr
 from . import layers
 from .layers.io import data
+from . import backward
+from .backward import append_backward
+from . import optimizer
 from . import executor
 from .executor import Executor, scope_guard
 from . import param_bridge
@@ -22,6 +28,6 @@ __all__ = [
     "global_scope", "scope_guard", "Program", "Variable", "Parameter",
     "program_guard", "default_main_program", "default_startup_program",
     "cpu_places", "cuda_places", "unique_name",
-    "initializer", "ParamAttr", "layers", "data", "Executor",
-    "param_bridge",
+    "initializer", "regularizer", "clip", "ParamAttr", "layers", "data",
+    "backward", "append_backward", "optimizer", "Executor", "param_bridge",
 ]

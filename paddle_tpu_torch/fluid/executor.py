@@ -1,11 +1,15 @@
 """Executor (counterpart of paddle_tpu/fluid/executor.py; reference:
 python/paddle/fluid/executor.py:457).
 
-This slice has the interpreter path only (the TPU package's
-``_run_block_eager`` / ``_run_op_eager_impl``, executor.py:2625-2700): the
+This package has the interpreter path only (the TPU package's
+``_run_block_eager`` / ``_run_op_eager_impl``, executor.py:2625-2704): the
 ops of the global block run in order over the scope, one kernel call each,
-with feeds and fetches as plain dicts and lists. The compiled step,
-segmentation, step windows, NaN guards and backward come in later slices.
+with feeds and fetches as plain dicts and lists. A ``<op>_grad`` op that
+no kernel is registered for runs through the generic grad
+(``ops.registry.run_generic_grad``), which re-runs the forward kernel under
+autograd. Every intermediate and every grad stays in the scope until the
+next run overwrites it. The compiled step, segmentation, step windows and
+NaN guards come in later slices.
 
 Randomness: each run advances a per-scope step counter, and each op that
 declares ``needs_rng`` gets ``attrs["_rng"]``, a callable that returns a
@@ -14,7 +18,10 @@ step, op index) — the counterpart of
 ``jax.random.fold_in(fold_in(key(seed), step), idx)``. The generator is
 built on the first call only, so an op that draws nothing (attention at
 dropout 0) costs no generator. An op with a nonzero ``seed`` attr (or
-``fix_seed``) is seeded from that attr alone.
+``fix_seed``) is seeded from that attr alone. The grad op of a random op
+gets the generator of its forward op's index (``_fwd_idx``): the re-run
+forward draws what the forward drew — for attention, the same dropout
+seed, so the backward kernels regenerate the forward's mask.
 """
 from __future__ import annotations
 
@@ -27,11 +34,12 @@ import torch
 from . import core
 from .core import CUDAPlace, LoDTensor, Place, Scope, global_scope
 from .framework import Program, Variable, default_main_program
-from ..ops.registry import OPS
+from ..ops.registry import OPS, run_generic_grad
 
 __all__ = ["Executor", "global_scope", "scope_guard"]
 
 _RNG_COUNTER = "@RNG_COUNTER@"
+_EMPTY = "@EMPTY@"  # append_backward's name for "no var in this slot"
 _M64 = (1 << 64) - 1
 
 
@@ -147,7 +155,7 @@ class Executor:
         produced = set(fed)
         for op in block.ops:
             for n in op.input_arg_names:
-                if n in produced:
+                if n in produced or n == _EMPTY:
                     continue
                 var = block._find_var_recursive(n)
                 if var is not None and var.is_data:
@@ -188,16 +196,24 @@ class Executor:
         return rng
 
     def _run_op(self, op, scope: Scope, seed: int, step: int, idx: int):
-        if not OPS.has(op.type):
-            raise NotImplementedError(f"op '{op.type}' is not implemented "
-                                      "in paddle_tpu_torch yet")
-        info = OPS.get(op.type)
+        otype = op.type
         attrs = op.attrs
+        grad_of = None  # the forward op type whose generic grad this is
+        if OPS.has(otype):
+            info, rng_idx = OPS.get(otype), idx
+        elif otype.endswith("_grad") and OPS.has(otype[:-5]):
+            grad_of = otype[:-5]
+            info = OPS.get(grad_of)
+            rng_idx = int(attrs.get("_fwd_idx", idx))
+        else:
+            raise NotImplementedError(f"op '{otype}' is not implemented "
+                                      "in paddle_tpu_torch yet")
         if info.needs_rng or info.needs_device:
             attrs = dict(attrs)
             attrs["_device"] = self.device
             if info.needs_rng:
-                attrs["_rng"] = self._lazy_generator(attrs, seed, step, idx)
+                attrs["_rng"] = self._lazy_generator(attrs, seed, step,
+                                                     rng_idx)
         ins: Dict[str, list] = {}
         for slot, names in op.inputs.items():
             vals = []
@@ -206,9 +222,13 @@ class Executor:
                 vals.append(v.value().array if v is not None
                             and v.is_initialized() else None)
             ins[slot] = vals
-        outs = info.kernel(ins, attrs)
+        if grad_of is None:
+            outs = info.kernel(ins, attrs)
+        else:
+            outs = run_generic_grad(
+                grad_of, ins, attrs, wanted_grad_slots=list(op.outputs),
+                fwd_input_slots=attrs.get("_fwd_in", list(op.inputs)))
         for slot, names in op.outputs.items():
             for n, val in zip(names, (outs or {}).get(slot) or []):
-                if val is not None:
+                if val is not None and n != _EMPTY:
                     scope.var(n).set_value(LoDTensor(val))
-

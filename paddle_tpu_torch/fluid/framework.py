@@ -16,13 +16,14 @@ import torch
 
 from . import core, unique_name
 from .core import VarDesc, convert_np_dtype_to_dtype_
-from ..ops.registry import OPS
+from ..ops.registry import OPS, grad_var_name
 
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
     "default_main_program", "default_startup_program", "program_guard",
-    "cpu_places", "cuda_places",
+    "cpu_places", "cuda_places", "grad_var_name",
 ]
+
 
 def cpu_places(device_count: Optional[int] = None):
     if device_count is None:
@@ -287,6 +288,7 @@ class Program:
         self._seed = 0
         self._version = 0  # bumped on mutation
         self._is_start_up_program = False
+        self._appending_grad_times = 0  # append_backward calls so far
 
     def global_block(self) -> Block:
         return self.blocks[0]

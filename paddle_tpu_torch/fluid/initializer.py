@@ -6,10 +6,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
 __all__ = [
     "Constant", "Uniform", "Normal", "TruncatedNormal", "Xavier",
     "ConstantInitializer", "UniformInitializer", "NormalInitializer",
     "TruncatedNormalInitializer", "XavierInitializer",
+    "NumpyArrayInitializer",
 ]
 
 
@@ -93,6 +96,25 @@ class XavierInitializer(Initializer):
             type="gaussian_random", outputs={"Out": var},
             attrs={"shape": list(var.shape), "dtype": var.dtype,
                    "mean": 0.0, "std": std, "seed": self._seed})
+
+
+class NumpyArrayInitializer(Initializer):
+    """The given array, written by an ``assign_value`` op (float values as
+    fp32_values, others as int32_values, as in the reference)."""
+
+    def __init__(self, value):
+        self._value = np.asarray(value)
+
+    def __call__(self, var, block):
+        v = self._value
+        if v.dtype in (np.float32, np.float64, np.float16):
+            attr = {"fp32_values": [float(x) for x in
+                                    v.astype(np.float32).flatten()]}
+        else:
+            attr = {"int32_values": [int(x) for x in v.flatten()]}
+        return block.append_op(
+            type="assign_value", outputs={"Out": var},
+            attrs={"shape": list(v.shape), "dtype": var.dtype, **attr})
 
 
 Constant = ConstantInitializer

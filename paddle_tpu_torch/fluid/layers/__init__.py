@@ -3,3 +3,5 @@ paddle_tpu/fluid/layers/). Each function appends ops to the current
 program block and returns its output Variables."""
 from .nn import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403

@@ -1,18 +1,20 @@
 """Core NN layers (counterpart of paddle_tpu/fluid/layers/nn.py; reference:
 python/paddle/fluid/layers/nn.py). Op-builder functions with inline shape
-inference; -1 marks unknown dims. This slice: fc, embedding, layer_norm,
-reshape, unsqueeze, elementwise_add, scale."""
+inference; -1 marks unknown dims. So far: fc, embedding, layer_norm,
+dropout, reshape, unsqueeze, gather, mean, elementwise_add,
+elementwise_sub, scale."""
 from __future__ import annotations
 
 import math
 
-from ..core import convert_np_dtype_to_dtype_
+from ..core import VarDesc, convert_np_dtype_to_dtype_
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import Constant
 
-__all__ = ["fc", "embedding", "layer_norm", "reshape", "unsqueeze",
-           "elementwise_add", "scale"]
+__all__ = ["fc", "embedding", "layer_norm", "dropout", "reshape",
+           "unsqueeze", "gather", "mean", "elementwise_add",
+           "elementwise_sub", "scale"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -100,6 +102,22 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(out)
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    mask = helper.create_variable_for_type_inference(
+        VarDesc.VarType.UINT8, stop_gradient=True)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "fix_seed": seed is not None, "seed": seed or 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper = LayerHelper("reshape2", **locals())
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -145,6 +163,24 @@ def unsqueeze(input, axes, name=None):
     return out
 
 
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx_rows = index.shape[0] if index.shape else -1
+    out.shape = tuple([idx_rows] + list(input.shape[1:]))
+    helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = (1,)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -157,6 +193,10 @@ def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_sub", x, y, axis, act, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -1,3 +1,3 @@
 """Model zoo of paddle_tpu_torch (counterpart of paddle_tpu/models);
-this slice: the BERT encoder."""
+so far: BERT — the encoder and its masked-LM pretraining step."""
 from . import bert  # noqa: F401

@@ -7,6 +7,10 @@ Q/K/V [B, S, H·D] → context [B, S, H·D].
 op (reference: operators/fused/multihead_matmul_op.cu — packed QKV +
 BiasQK additive mask).
 
+Both are differentiable: the flash path through
+``FlashAttentionFunction`` (its backward runs the dK/dV and dQ kernels),
+the einsum path through torch autograd.
+
 Dispatch rule of the TPU package, unchanged: no bias, or a bias of the
 exact key-padding form [B, 1, 1, Sk], goes to the flash kernel
 (ops/cuda/flash_attention.py: the CUDA kernel for CUDA tensors, its plain

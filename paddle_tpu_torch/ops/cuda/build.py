@@ -43,9 +43,14 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """The library's path, named by a hash of the source and of every
+    shared header under ``csrc/`` (a header edit rebuilds its users)."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

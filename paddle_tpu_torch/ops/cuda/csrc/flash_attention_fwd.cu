@@ -37,49 +37,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+#include "keep_mask.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BM = 64;   // query rows per block
-constexpr int BN = 64;   // keys per K/V tile
-constexpr int NT = 256;  // threads per block: 16 row groups x 16 lanes
-constexpr int RPT = 4;   // query rows per thread (BM / 16)
-constexpr int CPT = 4;   // score columns per thread (BN / 16)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// The TPU kernel feeds P to the PV product in V's dtype: round it the same.
-template <typename T>
-__device__ __forceinline__ float as_operand(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// `_keep_mask` (flash_attention.py:149): a Wang-style uint32 mix over
-// (seed, batch*head, absolute row, absolute col) with wrap-around
-// multiplies; keep when the low 24 bits reach rate * 2^24.
-__device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, uint32_t row,
-                                     uint32_t col, uint32_t thresh) {
-  uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u) ^
-               (seed + 0x27D4EB2Fu * bh);
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return (x & 0xFFFFFFu) >= thresh;
-}
+using namespace paddle_fa;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -113,11 +76,7 @@ __global__ void __launch_bounds__(NT)
   const size_t q_base = (size_t)bh * S * D;
   const size_t kv_base = (size_t)bh * Sk * D;
 
-  for (int e = tid; e < BM * D; e += NT) {
-    const int r = e / D, c = e % D;
-    Qs[r * DP + c] =
-        q0 + r < S ? to_f32(q[q_base + (size_t)(q0 + r) * D + c]) : 0.f;
-  }
+  load_tile<T, D>(Qs, q + q_base, q0, S);
   const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
 
   float m_i[RPT], l_i[RPT], acc[RPT][DC];
@@ -135,7 +94,7 @@ __global__ void __launch_bounds__(NT)
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BN;
     __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
-    for (int e = tid; e < BN * D; e += NT) {
+    for (int e = tid; e < BN * D; e += NT) {  // K and V in one pass
       const int r = e / D, c = e % D;
       const bool in = k0 + r < Sk;
       const size_t g = kv_base + (size_t)(k0 + r) * D + c;
@@ -144,41 +103,18 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
 
-    // S = Q K^T for this thread's 4 x 4 scores
+    // S = Q K^T for this thread's 4 x 4 scores, then scale, bias (clamped
+    // so -inf never meets -inf), ragged and causal masks
     float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(ty * RPT + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = Ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    // scale, bias (clamped so -inf never meets -inf), ragged and causal
-    // masks — in the TPU kernel's order
+    tile_dot<D>(Qs, Ks, s, ty, tx);
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int col = k0 + tx + 16 * j;
-      const float bj = (bias != nullptr && col < Sk)
-                           ? fmaxf(bias[(size_t)b * Sk + col], NEG_INF)
-                           : 0.f;
+      const float bj = bias_at(bias, b, col, Sk);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + ty * RPT + i;
-        float x = __fadd_rn(__fmul_rn(s[i][j], sm_scale), bj);
-        if (col >= Sk) x = NEG_INF;
-        if (causal && col > row) x = NEG_INF;
-        s[i][j] = x;
-      }
+      for (int i = 0; i < RPT; ++i)
+        s[i][j] = masked_score(s[i][j], sm_scale, bj, q0 + ty * RPT + i, col,
+                               Sk, causal);
     }
 
     // online softmax: l takes the full probabilities, dropout scales only
@@ -253,33 +189,15 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// The shared-memory opt-in is a per-device property of each template
-// instance: set it on the first launch on a device, not on every launch.
-// Two threads racing here both set the same value, which is harmless.
-template <typename T, int D>
-cudaError_t ensure_smem_attr() {
-  static bool done[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool cached = dev >= 0 && dev < kMaxDevices;
-  if (cached && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes<D>());
-  if (err == cudaSuccess && cached) done[dev] = true;
-  return err;
-}
-
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* seed, void* o, void* lse, int B, int H, int S, int Sk,
            float sm_scale, int causal, int dropout, float keep_div,
            uint32_t thresh, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  const cudaError_t err = ensure_smem_attr<T, D>();
+  static bool attr_set[kMaxDevices] = {};
+  const cudaError_t err = ensure_smem_attr(
+      reinterpret_cast<const void*>(flash_fwd_kernel<T, D>), smem, attr_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BM - 1) / BM, B * H);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(

@@ -1,23 +1,32 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions and
+the autograd Function that joins them.
 
-Replaces the Pallas TPU kernel of paddle_tpu/ops/pallas/flash_attention.py
-(`_fwd_kernel` / `_pallas_fwd`, :219 / :298). The kernel is
-``csrc/flash_attention_fwd.cu`` (CUDA C++ for sm_90a, built at first use by
-``build.py``); its header says what bounds it and how it is laid out.
+Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
+the forward (`_fwd_kernel` / `_pallas_fwd`, :219 / :298) is
+``csrc/flash_attention_fwd.cu``; the backward's dK/dV kernel
+(`_bwd_kv_kernel`, pallas_call :514) and dQ kernel (`_bwd_q_kernel`,
+pallas_call :543) are ``csrc/flash_attention_bwd.cu``. All are CUDA C++ for
+sm_90a, built at first use by ``build.py``; each source's header says what
+bounds it and how it is laid out. Both share the counter-hash dropout mask
+(``csrc/keep_mask.cuh``), so the backward regenerates the forward's mask.
 
 Dispatch is by the tensors' device, never by a fallback: a CUDA tensor goes
-to the kernel (or raises), a CPU tensor goes to the plain PyTorch version
-``flash_attention_reference`` below, which computes the same function —
-the key-padding bias clamp, top-left causal masking, the counter-hash
-dropout mask and the dead-row rule included. The CPU tests hold the plain
-version against the Pallas kernel; chip_smoke.py holds the kernel against
-the plain version on the card.
+to the kernels (or raises), a CPU tensor goes to the plain PyTorch versions
+``flash_attention_reference`` and ``flash_attention_bwd_reference`` below,
+which compute the same functions — the key-padding bias clamp, top-left
+causal masking, the counter-hash dropout mask, the dead-row rule and the
+operand-dtype rounding points included. The CPU tests hold the plain
+versions against the Pallas kernels; chip_smoke.py holds the kernels
+against the plain versions on the card.
 
-``launch_count`` counts the kernel's launches: the wrapper adds one where
-it launches and nowhere else.
+``flash_attention`` is differentiable through ``FlashAttentionFunction``
+(the counterpart of `_flash_pallas`'s custom vjp, :639-666): its residual
+is (q, k, v, o, lse, seed, bias); the bias gets a zero grad and the seed
+none.
 
-The backward kernels (`_bwd_kv_kernel`, `_bwd_q_kernel`) come with the
-training slice; this module is forward only.
+``launch_count``, ``bwd_kv_launch_count`` and ``bwd_q_launch_count`` count
+each kernel's launches: a wrapper adds one where it launches its kernel
+and nowhere else.
 """
 from __future__ import annotations
 
@@ -29,8 +38,11 @@ import torch
 NEG_INF = -1e30  # finite mask value: avoids inf-inf → NaN in the rescale
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 KERNEL_SOURCE = "flash_attention_fwd.cu"
+BWD_KERNEL_SOURCE = "flash_attention_bwd.cu"
 
 launch_count = 0
+bwd_kv_launch_count = 0
+bwd_q_launch_count = 0
 
 _M32 = 0xFFFFFFFF
 
@@ -110,26 +122,120 @@ def flash_attention_reference(q, k, v, sm_scale, causal=False,
     return o, lse.reshape(B * H, S)
 
 
-# --------------------------------------------------------------------------
-# CUDA kernel wrapper
-# --------------------------------------------------------------------------
-_lib = None
+def bwd_delta(o, do) -> torch.Tensor:
+    """delta = rowsum(dO ∘ O) in f32 (`_pallas_bwd`, :492), as [B·H, S]:
+    taken from the O the forward wrote. A torch expression, not a kernel."""
+    B, H, S, _ = o.shape
+    return (o.float() * do.float()).sum(-1).reshape(B * H, S)
 
 
-def _library():
-    global _lib
-    if _lib is None:
+def _bwd_probs(q, k, v, do, lse, delta, sm_scale, causal, dropout_rate,
+               dropout_seed, bias):
+    """The two backward kernels' shared recomputation, step by step as in
+    `_bwd_kv_kernel` / `_bwd_q_kernel` (:369-405, :445-464), in f32:
+    P = exp(scale·QKᵀ + bias − lse) with the forward's masks, dP = dO·Vᵀ,
+    P′ and dP′ after the regenerated dropout mask and its 1/(1−rate),
+    dS = P∘(dP′ − delta)·scale. Returns (P′, dS), each [B, H, S, Sk]."""
+    B, H, S, _ = q.shape
+    Sk = k.shape[2]
+    dev = q.device
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + torch.clamp(bias.float(), min=NEG_INF)[:, None, None, :]
+    if causal:
+        rows = torch.arange(S, device=dev)[:, None]
+        cols = torch.arange(Sk, device=dev)[None, :]
+        s = s.masked_fill(rows < cols, NEG_INF)
+    # dead rows carry lse = +1e30, so their P underflows to 0
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    p_eff = p
+    if dropout_rate > 0.0:
+        keep = keep_mask(_seed_value(dropout_seed),
+                         torch.arange(B * H, device=dev).reshape(B, H, 1, 1),
+                         torch.arange(S, device=dev)[:, None],
+                         torch.arange(Sk, device=dev)[None, :],
+                         dropout_rate).to(torch.float32)
+        p_eff = p * keep / (1.0 - dropout_rate)
+        dp = dp * keep / (1.0 - dropout_rate)
+    ds = p * (dp - delta.reshape(B, H, S, 1)) * sm_scale
+    return p_eff, ds
+
+
+def flash_attention_bwd_kv_reference(q, k, v, do, lse, delta, sm_scale,
+                                     causal=False, dropout_rate=0.0,
+                                     dropout_seed=None, bias=None):
+    """Plain version of the dK/dV kernel: dV = P′ᵀ·dO with P′ rounded to
+    dO's dtype (:397), dK = dSᵀ·Q with dS rounded to q's dtype (:405);
+    sums in f32, results in k's / v's dtype."""
+    p_eff, ds = _bwd_probs(q, k, v, do, lse, delta, sm_scale, causal,
+                           dropout_rate, dropout_seed, bias)
+    dv = torch.matmul(p_eff.to(do.dtype).float().transpose(-1, -2),
+                      do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_q_reference(q, k, v, do, lse, delta, sm_scale,
+                                    causal=False, dropout_rate=0.0,
+                                    dropout_seed=None, bias=None):
+    """Plain version of the dQ kernel: dQ = dS·K with dS rounded to k's
+    dtype (:465); sums in f32, the result in q's dtype."""
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, sm_scale, causal,
+                       dropout_rate, dropout_seed, bias)
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, sm_scale,
+                                  causal=False, dropout_rate=0.0,
+                                  dropout_seed=None, bias=None):
+    """Plain version of the whole backward (`_pallas_bwd`, :480): q/o/do
+    [B,H,S,D], k/v [B,H,Sk,D], lse [B·H,S] from the forward → (dq, dk, dv)
+    in q's, k's and v's dtypes."""
+    delta = bwd_delta(o, do)
+    dk, dv = flash_attention_bwd_kv_reference(
+        q, k, v, do, lse, delta, sm_scale, causal, dropout_rate,
+        dropout_seed, bias)
+    dq = flash_attention_bwd_q_reference(
+        q, k, v, do, lse, delta, sm_scale, causal, dropout_rate,
+        dropout_seed, bias)
+    return dq, dk, dv
+
+
+# --------------------------------------------------------------------------
+# CUDA kernel wrappers
+# --------------------------------------------------------------------------
+_PTR, _INT, _F32, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_uint32)
+_TAIL = [_INT] * 6 + [_F32, _INT, _INT, _F32, _U32, _PTR]
+# each source's C entry points and their argument types
+_SIGNATURES = {
+    KERNEL_SOURCE: {"paddle_flash_attention_fwd": [_PTR] * 7 + _TAIL},
+    BWD_KERNEL_SOURCE: {"paddle_flash_attention_bwd_kv": [_PTR] * 10 + _TAIL,
+                        "paddle_flash_attention_bwd_q": [_PTR] * 9 + _TAIL},
+}
+_libs = {}
+
+
+def _library(source: str):
+    lib = _libs.get(source)
+    if lib is None:
         from . import build
-        lib = build.load(KERNEL_SOURCE)
-        fn = lib.paddle_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_uint32, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        lib = build.load(source)
+        for name, argtypes in _SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return lib
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.paddle_cuda_error_string(rc).decode())
 
 
 def _check_cuda_inputs(q, k, v):
@@ -159,15 +265,9 @@ def _check_cuda_inputs(q, k, v):
                          "65535")
 
 
-def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
-                         dropout_seed=None,
-                         bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream: → (o, lse)."""
-    global launch_count
-    _check_cuda_inputs(q, k, v)
-    B, H, S, D = q.shape
-    Sk = k.shape[2]
-    dev = q.device
+def _device_bias_seed(bias, dropout_rate, dropout_seed, B, Sk, dev):
+    """The bias as contiguous f32 [B, Sk] and the seed as int32 [1], both
+    on ``dev`` (the seed only when dropout is on)."""
     if bias is not None:
         if tuple(bias.shape) != (B, Sk):
             raise ValueError(f"flash_attention: bias must be [B, Sk] = "
@@ -179,51 +279,190 @@ def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
                 if isinstance(dropout_seed, torch.Tensor)
                 else torch.tensor([int(dropout_seed)], dtype=torch.int32,
                                   device=dev)).contiguous()
+    return bias, seed
+
+
+def _common_args(q, k, sm_scale, causal, dropout_rate):
+    """The scalar tail every C entry point takes, from B to the stream."""
+    B, H, S, D = q.shape
+    dev = q.device
+    return (B, H, S, k.shape[2], D, int(q.dtype == torch.bfloat16),
+            float(sm_scale), int(causal), int(dropout_rate > 0.0),
+            float(1.0 - dropout_rate), _keep_threshold(dropout_rate),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
+                         dropout_seed=None,
+                         bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on the current stream: → (o, lse)."""
+    global launch_count
+    _check_cuda_inputs(q, k, v)
+    B, H, S, D = q.shape
+    dev = q.device
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
+                                   k.shape[2], dev)
     o = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=dev)
     if S == 0:
         return o, lse
-    lib = _library()
+    lib = _library(KERNEL_SOURCE)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paddle_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if seed is None else seed.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, H, S, Sk, D,
-            int(q.dtype == torch.bfloat16), float(sm_scale), int(causal),
-            int(dropout_rate > 0.0), float(1.0 - dropout_rate),
-            _keep_threshold(dropout_rate), stream)
-    if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.paddle_cuda_error_string(rc).decode())
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(seed),
+            o.data_ptr(), lse.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention forward")
     launch_count += 1
     return o, lse
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta):
+    _check_cuda_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous():
+        raise ValueError(f"flash_attention backward: dO must be contiguous "
+                         f"like q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    rows = (q.shape[0] * q.shape[1], q.shape[2])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != rows or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"contiguous f32 {list(rows)} on {q.device}, "
+                             f"got {list(t.shape)} {t.dtype} on {t.device}")
+
+
+def flash_attention_bwd_kv_cuda(q, k, v, do, lse, delta, sm_scale,
+                                causal=False, dropout_rate=0.0,
+                                dropout_seed=None, bias=None):
+    """Launch the dK/dV kernel on the current stream: → (dk, dv)."""
+    global bwd_kv_launch_count
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed,
+                                   q.shape[0], k.shape[2], q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.shape[2] == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _library(BWD_KERNEL_SOURCE)
+    with torch.cuda.device(q.device):
+        rc = lib.paddle_flash_attention_bwd_kv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(bias), _ptr(seed),
+            dk.data_ptr(), dv.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention dK/dV")
+    bwd_kv_launch_count += 1
+    return dk, dv
+
+
+def flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale,
+                               causal=False, dropout_rate=0.0,
+                               dropout_seed=None, bias=None):
+    """Launch the dQ kernel on the current stream: → dq."""
+    global bwd_q_launch_count
+    _check_bwd_inputs(q, k, v, do, lse, delta)
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed,
+                                   q.shape[0], k.shape[2], q.device)
+    dq = torch.empty_like(q)
+    if q.shape[2] == 0:
+        return dq
+    lib = _library(BWD_KERNEL_SOURCE)
+    with torch.cuda.device(q.device):
+        rc = lib.paddle_flash_attention_bwd_q(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(bias), _ptr(seed),
+            dq.data_ptr(), *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention dQ")
+    bwd_q_launch_count += 1
+    return dq
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale, causal=False,
+                             dropout_rate=0.0, dropout_seed=None, bias=None):
+    """The backward on the card: delta, then the dK/dV and the dQ kernels
+    → (dq, dk, dv)."""
+    delta = bwd_delta(o, do)
+    dk, dv = flash_attention_bwd_kv_cuda(q, k, v, do, lse, delta, sm_scale,
+                                         causal, dropout_rate, dropout_seed,
+                                         bias)
+    dq = flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale, causal,
+                                    dropout_rate, dropout_seed, bias)
+    return dq, dk, dv
 
 
 # --------------------------------------------------------------------------
 # entry
 # --------------------------------------------------------------------------
+def _dispatch(q, cuda_fn, plain_fn, *args):
+    if q.is_cuda:
+        return cuda_fn(*args)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return plain_fn(*args)
+
+
 def flash_attention_fwd(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
                         dropout_seed=None, bias=None):
     """(o, lse): the kernel for CUDA tensors, the plain version for CPU
     tensors."""
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, sm_scale, causal, dropout_rate,
-                                    dropout_seed, bias)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return flash_attention_reference(q, k, v, sm_scale, causal,
-                                     dropout_rate, dropout_seed, bias)
+    return _dispatch(q, flash_attention_cuda, flash_attention_reference,
+                     q, k, v, sm_scale, causal, dropout_rate, dropout_seed,
+                     bias)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, sm_scale, causal=False,
+                        dropout_rate=0.0, dropout_seed=None, bias=None):
+    """(dq, dk, dv): the kernels for CUDA tensors, the plain version for
+    CPU tensors."""
+    return _dispatch(q, flash_attention_bwd_cuda,
+                     flash_attention_bwd_reference, q, k, v, o, lse, do,
+                     sm_scale, causal, dropout_rate, dropout_seed, bias)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``_flash_pallas``'s custom vjp (:639-666) as an autograd Function:
+    apply(q, k, v, seed, bias, sm_scale, causal, dropout_rate) → (o, lse),
+    lse not differentiable. The residual is (q, k, v, o, lse, seed, bias);
+    the backward runs the dK/dV and dQ kernels (or their plain version on
+    the CPU) with the forward's seed, so the dropout mask it regenerates is
+    the forward's. The bias gets a zero grad, the seed none."""
+
+    # forward(ctx, ...) and not setup_context: with setup_context torch
+    # binds the arguments through inspect.signature on every call
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, bias, sm_scale, causal, dropout_rate):
+        o, lse = flash_attention_fwd(q, k, v, sm_scale, causal,
+                                     dropout_rate, seed, bias)
+        ctx.save_for_backward(q, k, v, o, lse, seed, bias)
+        ctx.mark_non_differentiable(lse)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.dropout_rate = dropout_rate
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, seed, bias = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), ctx.sm_scale, ctx.causal,
+            ctx.dropout_rate, seed, bias)
+        dbias = torch.zeros_like(bias) if ctx.needs_input_grad[4] else None
+        return dq, dk, dv, None, dbias, None, None, None
 
 
 def flash_attention(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
                     dropout_seed=None, bias: Optional[torch.Tensor] = None):
-    """q,k,v: [B,H,S,D] → [B,H,S,D] (entry rules of the TPU package's
-    flash_attention, :673). ``bias`` is an additive key-padding mask
-    [B, Sk] broadcast over query rows; dropout_rate > 0 applies the
-    counter-hash attention dropout inside the kernel and needs
-    ``dropout_seed`` (an int32 [1] tensor or an int)."""
+    """q,k,v: [B,H,S,D] → [B,H,S,D], differentiable in q, k and v (entry
+    rules of the TPU package's flash_attention, :673). ``bias`` is an
+    additive key-padding mask [B, Sk] broadcast over query rows, constant
+    for the gradient; dropout_rate > 0 applies the counter-hash attention
+    dropout inside the kernels and needs ``dropout_seed`` (an int32 [1]
+    tensor or an int)."""
     if dropout_rate > 0.0 and dropout_seed is None:
         # a silent default seed would drop the SAME attention entries
         # every step — training bias with no symptom
@@ -234,6 +473,17 @@ def flash_attention(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
         ct = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                  v.dtype)
         q, k, v = (t.to(ct) for t in (q, k, v))
-    o, _ = flash_attention_fwd(q, k, v, sm_scale, causal,
-                               float(dropout_rate), dropout_seed, bias)
+    seed = None
+    if dropout_rate > 0.0:
+        seed = (dropout_seed if isinstance(dropout_seed, torch.Tensor)
+                else torch.tensor([int(dropout_seed)], dtype=torch.int32,
+                                  device=q.device))
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        # nothing to differentiate (serving, the forward op of a training
+        # step): the same kernel without autograd's per-call bookkeeping
+        return flash_attention_fwd(q, k, v, sm_scale, causal,
+                                   float(dropout_rate), seed, bias)[0]
+    o, _ = FlashAttentionFunction.apply(q, k, v, seed, bias, float(sm_scale),
+                                        bool(causal), float(dropout_rate))
     return o

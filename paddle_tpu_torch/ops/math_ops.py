@@ -1,5 +1,6 @@
-"""Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; this
-slice: elementwise_add, mul, scale, gelu).
+"""Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
+far: elementwise_add, elementwise_sub, mul, scale, gelu, square, mean,
+sum).
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -15,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-from .registry import register_op, first, out
+from .registry import register_op, first, out, seq
 
 
 # --------------------------------------------------------------------------
@@ -43,10 +44,16 @@ def _align_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@register_op("elementwise_add", inputs=("X", "Y"), attr_defaults={"axis": -1})
-def _elementwise_add(ins, attrs):
-    x, y = first(ins, "X"), first(ins, "Y")
-    return out(Out=x + _align_y(x, y, attrs.get("axis", -1)))
+def _register_elementwise(name, fn):
+    @register_op(name, inputs=("X", "Y"), attr_defaults={"axis": -1})
+    def _kernel(ins, attrs, _fn=fn):
+        x, y = first(ins, "X"), first(ins, "Y")
+        return out(Out=_fn(x, _align_y(x, y, attrs.get("axis", -1))))
+    return _kernel
+
+
+_register_elementwise("elementwise_add", lambda x, y: x + y)
+_register_elementwise("elementwise_sub", lambda x, y: x - y)
 
 
 # --------------------------------------------------------------------------
@@ -96,6 +103,29 @@ def _gelu(ins, attrs):
         return out(Out=0.5 * x * (1.0 + torch.tanh(
             _SQRT_2_OVER_PI * (x + 0.044715 * x ** 3))))
     return out(Out=0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0))))
+
+
+@register_op("square", inputs=("X",))
+def _square(ins, attrs):
+    return out(Out=torch.square(first(ins, "X")))
+
+
+# --------------------------------------------------------------------------
+# reductions
+# --------------------------------------------------------------------------
+@register_op("mean", inputs=("X",))
+def _mean(ins, attrs):
+    return out(Out=torch.mean(first(ins, "X")).reshape((1,)))
+
+
+@register_op("sum", inputs=("X",))
+def _sum(ins, attrs):
+    """Elementwise sum of the X list (the grad fan-in of append_backward)."""
+    xs = seq(ins, "X")
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = acc + x
+    return out(Out=acc)
 
 
 # --------------------------------------------------------------------------

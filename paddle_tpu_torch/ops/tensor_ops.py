@@ -1,6 +1,7 @@
 """Tensor creation / manipulation op kernels (counterpart of
-paddle_tpu/ops/tensor_ops.py; this slice: fill_constant, uniform_random,
-gaussian_random, truncated_gaussian_random, reshape2, unsqueeze2).
+paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value,
+uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
+unsqueeze2, gather).
 
 Random ops draw from the ``torch.Generator`` that ``attrs["_rng"]()``
 returns (the executor builds it on first call, seeded from the program's random_seed, the step and
@@ -48,6 +49,18 @@ def _fill_constant(ins, attrs):
     sv = attrs.get("str_value", "")
     val = float(sv) if sv not in ("", None) else attrs.get("value", 0.0)
     return out(Out=torch.full(shape, val, dtype=dt, device=attrs["_device"]))
+
+
+@register_op("assign_value", no_grad=True, needs_device=True,
+             attr_defaults={"shape": [], "dtype": 5, "fp32_values": [],
+                            "int32_values": [], "int64_values": [],
+                            "bool_values": []})
+def _assign_value(ins, attrs):
+    vals = (attrs.get("fp32_values") or attrs.get("int32_values")
+            or attrs.get("int64_values") or attrs.get("bool_values") or [])
+    return out(Out=torch.tensor(vals, dtype=_dtype(attrs),
+                                device=attrs["_device"]).reshape(
+        [int(s) for s in attrs["shape"]]))
 
 
 # --------------------------------------------------------------------------
@@ -132,3 +145,12 @@ def _unsqueeze2(ins, attrs):
     for a in sorted(attrs["axes"]):
         o = o.unsqueeze(a)
     return out(Out=o, XShape=_xshape(x))
+
+
+# --------------------------------------------------------------------------
+# indexing
+# --------------------------------------------------------------------------
+@register_op("gather", inputs=("X", "Index"), diff_inputs=("X",))
+def _gather(ins, attrs):
+    x, idx = first(ins, "X"), first(ins, "Index")
+    return out(Out=x.index_select(0, idx.reshape(-1).long()))
