@@ -10,7 +10,11 @@ Phases, each fatal on failure:
               with a key-padding bias, ragged S/Sk, causal, a dead row,
               dropout 0.1 and head dims 8 to 128; time each kernel, its
               plain version and one PyTorch library call as a yardstick
-              (scaled_dot_product_attention, and its backward).
+              (scaled_dot_product_attention, and its backward): the
+              forward at the served shape (batch 8) and the trained one
+              (batch 32, also with dropout 0.1), the backward kernels at
+              batch 32 (dK/dV also with dropout 0.1), each beside its bound
+              and what sets it; a kernel timed faster than its bound fails.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -73,7 +77,11 @@ LOSS_TOL = 1e-4               # card vs CPU loss, relative: f32 sums in
 GRAD_TOL = 1e-3               # other orders; grads: of each max |grad|,
                               # after 12 layers forward and back
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (published)
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32, bf16 TC
+# FLOP/s of the card's fastest route to each dtype's product (H100 SXM,
+# dense, published): an f32-accurate product as split TF32, three TF32
+# products for each at 495 TFLOP/s (faster than the CUDA cores' 67);
+# bf16 on the tensor cores at 989
+PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 
 
 def _log(*a):
@@ -87,19 +95,63 @@ def _card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, iters=50, warmup=5) -> float:
+def _cuda_ms(fn, iters=50, warmup=5, graph=True) -> float:
+    """Milliseconds per call of ``fn`` on the card: CUDA events around
+    ``iters`` back-to-back calls, after ``warmup`` calls. With ``graph``
+    the calls are captured into one CUDA graph and the graph is replayed,
+    so the time is the device's alone: the host's dispatch of each call
+    (Python, ctypes, PyTorch's dispatcher) is not in it. Without, the
+    calls are issued from Python one by one, and a call whose host cost
+    exceeds its device time is timed by the host."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        run = g.replay
+        run()  # the first replay uploads the graph
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
+    torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(iters):
-        fn()
+    run()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def bound(flop, nbytes, dtype):
+    """(ms, what bounds it): the least time the card could take for
+    ``flop`` FLOP of ``dtype`` products moving ``nbytes`` bytes."""
+    t_ops = flop / PEAK_OPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fwd_bound(B, H, S, Sk, D, dtype):
+    """(bound_ms, bound_by, flop, bytes) of the forward with a key-padding
+    bias: 4·B·H·S·Sk·D FLOP; q, k, v and the bias read once, o and lse
+    written once."""
+    elt = 4 if dtype == "float32" else 2
+    flop = 4 * B * H * S * Sk * D
+    nbytes = (2 * B * H * S * D + 2 * B * H * Sk * D) * elt \
+        + B * Sk * 4 + B * H * S * 4
+    return (*bound(flop, nbytes, dtype), flop, nbytes)
+
+
+def _check_bound(name, ms, bound_ms):
+    if ms < bound_ms:
+        raise AssertionError(f"{name} timed at {ms:.4f} ms, under its bound "
+                             f"{bound_ms:.4f} ms: the timing or the bound "
+                             "is wrong")
 
 
 # --------------------------------------------------------------------------
@@ -181,6 +233,11 @@ def phase_kernel():
         bias = _padding_bias(B, S, gen)
         errs[str(dt)] = _check(f"bert B={B} H={H} S={S} D={D} {dt} bias",
                                *both(q, k, v, sm, bias=bias), tol)
+    seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
+    q, k, v = _qkv(TRAIN_BATCH, H, S, S, D, torch.float32, gen)
+    _check(f"bert B={TRAIN_BATCH} H={H} S={S} D={D} f32 bias dropout 0.1",
+           *both(q, k, v, sm, rate=0.1, seed=seed,
+                 bias=_padding_bias(TRAIN_BATCH, S, gen)), F32_TOL)
     # ragged, causal, dead row, dropout, other head dims (f32)
     f32 = torch.float32
     q, k, v = _qkv(2, 3, 200, 77, 64, f32, gen)
@@ -197,7 +254,6 @@ def phase_kernel():
            F32_TOL)
     if not (got[0][0].eq(0).all() and got[1][:3].eq(1e30).all()):
         raise AssertionError("dead rows must write O = 0 and lse = +1e30")
-    seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
     _check("dropout 0.1 seed 1234 causal bias", *both(
         q, k, v, sm, causal=True, rate=0.1, seed=seed,
         bias=_padding_bias(2, 256, gen)), F32_TOL)
@@ -209,31 +265,41 @@ def phase_kernel():
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         _check(f"head dim {d} bf16", *both(q, k, v, d ** -0.5), BF16_TOL)
 
-    # time the served shape
+    # time the served shape (batch 8, f32 and bf16) and the trained one
+    # (batch 32, f32, also with dropout 0.1), SDPA beside each
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
-        q, k, v = _qkv(B, H, S, S, D, dt, gen)
-        bias = _padding_bias(B, S, gen)
+    for bs, dt, rate in ((B, torch.float32, 0.0), (B, torch.bfloat16, 0.0),
+                         (TRAIN_BATCH, torch.float32, 0.0),
+                         (TRAIN_BATCH, torch.float32, 0.1)):
+        q, k, v = _qkv(bs, H, S, S, D, dt, gen)
+        bias = _padding_bias(bs, S, gen)
         mask = bias[:, None, None, :].to(dt)
-        ms = _cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, sm,
-                                                      bias=bias))
+
+        def kernel():
+            return fa.flash_attention_cuda(q, k, v, sm, False, rate, seed,
+                                           bias)
+        ms = _cuda_ms(kernel)
+        eager_ms = _cuda_ms(kernel, graph=False)
+        # the plain version's dropout mask reads the seed on the host,
+        # which a graph cannot capture: with dropout it is timed eagerly
         plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(
-            q, k, v, sm, bias=bias))
+            q, k, v, sm, False, rate, seed, bias), graph=not rate)
         lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=sm))
+            q, k, v, attn_mask=mask, dropout_p=rate, scale=sm))
         name = str(dt).replace("torch.", "")
-        ops = 4 * B * H * S * S * D
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
-            + bias.numel() * 4 + B * H * S * 4
-        t_ops, t_bytes = ops / PEAK_OPS[name] * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        _log(f"[kernel] time {name} B={B} H={H} S={S} D={D}: kernel "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-             f"bound {bound_ms:.4f} ms ({bound_by}: {ops} FLOP, {nbytes} B)")
-        rows.append(dict(dtype=name, ms=ms, plain_ms=plain_ms,
+        bound_ms, bound_by, ops, nbytes = fwd_bound(bs, H, S, S, D, name)
+        what = f"{name} B={bs} H={H} S={S} D={D} bias" + (
+            f" dropout {rate}" if rate else "")
+        _log(f"[kernel] time forward {what}: kernel {ms:.4f} ms (issued "
+             f"one by one from Python {eager_ms:.4f} ms), plain "
+             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+             f"{bound_ms:.4f} ms ({bound_by}: {ops} FLOP, {nbytes} B)")
+        _check_bound(f"forward {what}", ms, bound_ms)
+        rows.append(dict(shape=what, ms=ms, eager_ms=eager_ms,
+                         plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, max_abs_err=errs[str(dt)]))
+                         bound_by=bound_by,
+                         max_abs_err=errs[str(dt)]))
     return rows
 
 
@@ -252,19 +318,18 @@ def _check_bwd(name, got, want, tol):
     return errs
 
 
-def _bwd_bound(B, H, S, Sk, D, flop_units, n_out):
+def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32"):
     """(bound_ms, bound_by, flop, bytes) of a backward function doing
-    ``flop_units``·B·H·S·Sk·D FLOP on f32 CUDA cores that reads q, k, v,
-    dO, lse, delta and the bias once and writes ``n_out`` outputs of q's
-    or k's size once (n_out: "q" = dQ, "kv" = dK and dV, "qkv" = all)."""
+    ``flop_units``·B·H·S·Sk·D FLOP of ``dtype`` products that reads q, k,
+    v, dO, lse, delta and the bias once and writes ``n_out`` outputs of
+    q's or k's size once (n_out: "q" = dQ, "kv" = dK and dV, "qkv" =
+    all)."""
+    elt = 4 if dtype == "float32" else 2
     flop = flop_units * B * H * S * Sk * D
-    q_b, kv_b = B * H * S * D * 4, B * H * Sk * D * 4
+    q_b, kv_b = B * H * S * D * elt, B * H * Sk * D * elt
     nbytes = 2 * q_b + 2 * kv_b + 2 * B * H * S * 4 + B * Sk * 4
     nbytes += {"q": q_b, "kv": 2 * kv_b, "qkv": q_b + 2 * kv_b}[n_out]
-    t_ops = flop / PEAK_OPS["float32"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes", flop, nbytes
+    return (*bound(flop, nbytes, dtype), flop, nbytes)
 
 
 def phase_kernel_bwd():
@@ -322,47 +387,59 @@ def phase_kernel_bwd():
         both(f"head dim {d} bf16", q, k, v, d ** -0.5, BF16_TOL)
     max_err = max(errs)  # over the f32 cases, as the forward's row
 
-    # time at the training shape: B=32, H=12, S=128, D=64, f32, bias
+    # time at the training shape: B=32, H=12, S=128, D=64, f32, bias; the
+    # dK/dV kernel also with dropout 0.1, as the training step runs it
     q, k, v = _qkv(B, H, S, S, D, f32, gen)
     bias = _padding_bias(B, S, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda")
-    o, lse = fa.flash_attention_cuda(q, k, v, sm, bias=bias)
-    delta = fa.bwd_delta(o, do)
-    kv_ms = _cuda_ms(lambda: fa.flash_attention_bwd_kv_cuda(
-        q, k, v, do, lse, delta, sm, bias=bias))
-    q_ms = _cuda_ms(lambda: fa.flash_attention_bwd_q_cuda(
-        q, k, v, do, lse, delta, sm, bias=bias))
-    kv_plain = _cuda_ms(lambda: fa.flash_attention_bwd_kv_reference(
-        q, k, v, do, lse, delta, sm, bias=bias))
-    q_plain = _cuda_ms(lambda: fa.flash_attention_bwd_q_reference(
-        q, k, v, do, lse, delta, sm, bias=bias))
-    fwd_ms = _cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, sm,
-                                                      bias=bias))
-    # the library yardstick: SDPA's backward alone (its forward once,
-    # outside the timing), the whole of dQ, dK and dV in one call
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs,
-                                         attn_mask=bias[:, None, None, :],
-                                         scale=sm)
-    lib_ms = _cuda_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), do, retain_graph=True))
-    rows = {}
-    for name, ms, plain, units, outs in (
-            ("flash_attention_bwd_kv", kv_ms, kv_plain, 8, "kv"),
-            ("flash_attention_bwd_q", q_ms, q_plain, 6, "q")):
-        bound, by, flop, nbytes = _bwd_bound(B, H, S, S, D, units, outs)
-        _log(f"[kernel] time {name} f32 B={B} H={H} S={S} D={D} bias: "
-             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA backward "
-             f"(dQ, dK, dV together) {lib_ms:.4f} ms, bound {bound:.4f} ms "
-             f"({by}: {flop} FLOP, {nbytes} B)")
-        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                          bound_ms=bound, bound_by=by, max_abs_err=max_err)
-    bound, by, flop, nbytes = _bwd_bound(B, H, S, S, D, 10, "qkv")
+    rows, timings = {}, {}
+    for rate in (0.0, 0.1):
+        o, lse = fa.flash_attention_cuda(q, k, v, sm, False, rate, seed, bias)
+        delta = fa.bwd_delta(o, do)
+        args = (q, k, v, do, lse, delta, sm, False, rate, seed, bias)
+        kernels = [("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
+                    fa.flash_attention_bwd_kv_reference, 8, "kv")]
+        if rate == 0.0:
+            kernels.append(("flash_attention_bwd_q",
+                            fa.flash_attention_bwd_q_cuda,
+                            fa.flash_attention_bwd_q_reference, 6, "q"))
+        # the library yardstick: SDPA's backward alone (its forward once,
+        # outside the timing), the whole of dQ, dK and dV in one call;
+        # issued from Python, since a graph cannot capture a backward whose
+        # forward ran outside it (0.2 ms of device work a call)
+        out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=bias[:, None, None, :], dropout_p=rate,
+            scale=sm)
+        lib_ms = _cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), graph=False)
+        for name, cuda_fn, plain_fn, units, outs in kernels:
+            ms = _cuda_ms(lambda: cuda_fn(*args))
+            eager_ms = _cuda_ms(lambda: cuda_fn(*args), graph=False)
+            plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate)
+            bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, units, outs)
+            what = f"f32 B={B} H={H} S={S} D={D} bias" + (
+                f" dropout {rate}" if rate else "")
+            _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms (issued "
+                 f"one by one from Python {eager_ms:.4f} ms), plain "
+                 f"{plain:.4f} ms, SDPA backward (dQ, dK, dV together) "
+                 f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}: {flop} FLOP, "
+                 f"{nbytes} B)")
+            _check_bound(f"{name} {what}", ms, bnd)
+            row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain,
+                       library_ms=lib_ms,
+                       bound_ms=bnd, bound_by=by, max_abs_err=max_err)
+            rows.setdefault(name, row)  # the row without dropout first
+            timings.setdefault(name, []).append(row)
+    for name in rows:
+        rows[name] = dict(rows[name], timings=timings[name])
+    bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, 10, "qkv")
+    both_ms = (rows["flash_attention_bwd_kv"]["ms"]
+               + rows["flash_attention_bwd_q"]["ms"])
     _log(f"[kernel] time whole backward f32 B={B}: both kernels "
-         f"{kv_ms + q_ms:.4f} ms vs bound {bound:.4f} ms ({by}: {flop} "
-         f"FLOP = 10·B·H·S·Sk·D, {nbytes} B); the two kernels execute "
-         f"14·B·H·S·Sk·D, recomputing QK^T and dO·V^T in each; forward "
-         f"kernel at this shape {fwd_ms:.4f} ms")
+         f"{both_ms:.4f} ms vs bound {bnd:.4f} ms ({by}: {flop} FLOP = "
+         f"10·B·H·S·Sk·D, {nbytes} B); the two kernels execute "
+         f"14·B·H·S·Sk·D, recomputing QK^T and dO·V^T in each")
     return rows
 
 
@@ -701,9 +778,18 @@ def _profile_step(exe, main, loss, scope, feed):
          f"device busy {busy:.3f} ms, idle {100 - 100 * busy / wall:.1f}% "
          f"of the unprofiled wall; {sum(e.count for e in evts)} device "
          "events")
-    for e in sorted(evts, key=lambda e: -e.self_device_time_total)[:15]:
+    top = sorted(evts, key=lambda e: -e.self_device_time_total)
+    for e in top[:15]:
         _log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
              f"x{e.count:5d}  {e.key[:90]}")
+    attn = [e for e in top if "flash_" in e.key]
+    for e in attn:
+        if e not in top[:15]:
+            _log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+                 f"x{e.count:5d}  {e.key[:90]}")
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
+    _log(f"[profile] attention kernels {attn_ms:.3f} ms of the step's "
+         f"{busy:.3f} ms device time ({100 * attn_ms / busy:.1f}%)")
 
 
 # --------------------------------------------------------------------------
@@ -739,7 +825,8 @@ def main(argv=None) -> int:
         launches_by_path={"serve": serve_launches,
                           "train": train_launches[0]},
         **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")})]
+                               "bound_by", "library_ms", "shape")},
+        timings=rows)]
     for name, line, n in (("flash_attention_bwd_kv", "514",
                            train_launches[1]),
                           ("flash_attention_bwd_q", "543",
@@ -750,7 +837,8 @@ def main(argv=None) -> int:
             replaces=replaces + line, launches=n,
             launches_by_path={"serve": 0, "train": n},
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms")}))
+                                 "bound_by", "library_ms", "shape",
+                                 "timings")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,55 +13,86 @@
 // with every sum in f32, P' rounded to dO's dtype before P'^T dO and dS
 // rounded to the operands' dtype before dS^T Q and dS K (the TPU kernels'
 // rounding points, :397 / :405 / :465). The dropout mask is the forward's,
-// regenerated from the same seed by keep_mask.cuh; the scores come from
-// the same tile_dot loop as the forward's (flash_common.cuh), so P is the
-// forward's P.
+// regenerated from the same seed by keep_mask.cuh. The scores are
+// recomputed, not stored: the dK/dV kernel on the tensor cores (split TF32
+// or bf16, tc_common.cuh), the dQ kernel on the CUDA cores (tile_dot), so
+// each kernel's P agrees with the forward's within rounding, not bit for
+// bit; each is held to its plain version within tolerance.
 //
-// What bounds it on this card. The function does 10*S*Sk*D FLOP per
-// (batch, head): QK^T, dO V^T, P'^T dO, dS^T Q and dS K. At the training
-// shape (S = Sk = 128, D = 64, f32) that is 10.5 MFLOP on about 230 KB of
-// inputs and outputs, some 45 FLOP per byte: bound by operations on the
-// f32 CUDA cores. The two-kernel design recomputes QK^T and dO V^T in both
-// kernels (14*S*Sk*D FLOP executed), the price of writing dK/dV and dQ
-// without atomics. Like the forward, this first version runs every product
-// on the CUDA cores in f32 (bf16 operands are widened on load); wgmma/TMA
-// come in a later version. PERF.md has the measured times beside the bound.
+// What bounds them on this card. The function does 10*S*Sk*D FLOP per
+// (batch, head): QK^T, dO V^T, P'^T dO, dS^T Q and dS K. The two-kernel
+// design recomputes QK^T and dO V^T in both kernels (8 + 6 = 14*S*Sk*D
+// FLOP executed), the price of writing dK/dV and dQ without atomics. At
+// the training shape (B = 32, H = 12, S = Sk = 128, D = 64, f32) the dK/dV
+// kernel does 3.22 GFLOP and moves Q, K, V, dO, lse, delta and the bias in
+// and dK, dV out, 75.9 MB: 22.7 us of bytes at 3.35 TB/s against 19.5 us
+// of split-TF32 products (3 x FLOP at 495 TFLOP/s), so it is bound by
+// bytes. PERF.md has the measured times beside the bounds.
 //
-// Design. The TPU runs an "arbitrary" (sequential) grid dimension and
-// carries the dK/dV (or dQ) accumulator across it in VMEM. Here a block
-// owns one output tile and a loop inside the block walks the other
-// dimension, the accumulator in registers:
-//   dK/dV: a block owns 64 keys of one (batch, head) and loops over the Q
-//          tiles; K and V stay in shared memory, each Q tile brings Q, dO,
-//          lse and delta. P' and dS go through shared memory to be
-//          transposed into the dV and dK products. No atomics: the result
-//          is deterministic.
-//   dQ:    a block owns 64 query rows and loops over the K tiles; Q, dO,
-//          lse and delta stay, each K tile brings K and V.
-// 256 threads form a 16 x 16 grid as in the forward: for the score tile
-// thread (ty, tx) owns rows 4*ty .. 4*ty+3 and columns tx + 16*j; for the
-// accumulators it owns tile rows 4*ty .. 4*ty+3 and head-dim columns
-// tx + 16*c. Causal tiles wholly above the diagonal are cut by the loop
-// bounds. Ragged edges: rows past S get P = 0 and dS = 0 explicitly (a
-// load that returned 0 for lse would give P = exp(s), not 0); columns past
-// Sk are masked before the exp. A dead row (lse = +1e30) gets P = 0 and
-// adds nothing.
+// The dK/dV kernel. The TPU runs an "arbitrary" (sequential) grid
+// dimension and carries the dK/dV accumulator across it in VMEM. Here a
+// block owns 64 keys of one (batch, head) and loops over the query rows,
+// 32 at a time, dK and dV in registers; no atomics, so the result is
+// deterministic.
+// - Four warps; warp w owns keys 16w .. 16w+15. Every product is computed
+//   key-major, so that the score tiles come out with keys as rows:
+//   S^T = K Q^T and dP^T = V dO^T, then P'^T and dS^T are formed in the
+//   accumulator registers and fed, without a trip through shared memory,
+//   as the A operand of dV += P'^T dO and dK += dS^T Q (tc::a_from_acc).
+//   P is __expf(x - lse) (ex2.approx, a few ulp) and dropout multiplies by
+//   1 / (1 - rate), as in the forward.
+// - Products on the tensor cores with mma.sync: f32 as split TF32
+//   (m16n8k8, three products), bf16 as it is (m16n8k16), sums in f32. Not
+//   wgmma: its TF32 form reads B only K-major from shared memory, and dV
+//   and dK take dO and Q along query rows, which are stored row by row:
+//   they would need transposed copies, and split TF32 would need hi and lo
+//   copies of every B tile besides. mma.sync loads fragments from any
+//   layout into registers and splits them there (tc::load_b_kn). In f32
+//   those instructions (three mma.sync and two operand splits a product),
+//   not the bytes, set the kernel's time: PERF.md has it beside the bound.
+// - K and V are copied once; Q, dO, lse and delta arrive by cp.async into
+//   a two-stage ring of 32 query rows a stage, the copy of stage t + 1
+//   issued before the products of stage t. Rows past S are zero-filled by
+//   the copy and get P = 0 and dS = 0 explicitly (a zero lse would give
+//   P = exp(s), not 0); columns past Sk are masked before the exp. A dead
+//   row (lse = +1e30) gets P = 0 and adds nothing.
+// - Causal: query stages whose last row precedes the block's first key
+//   are cut by the loop bound.
+// - Occupancy: 768 blocks at the training shape. Shared memory is K, V and
+//   two stages of Q and dO, 4 x 64 x (D + 16 B) rows, plus 512 B of lse
+//   and delta: 70,144 B for f32 at D = 64, 37,376 B for bf16, 135,680 B
+//   for f32 at D = 128. ptxas (chip_smoke.py prints it): 168 registers for
+//   f32 at D = 64, 166 for bf16, no spills, so three blocks (12 warps) an
+//   SM; the 32-row stages are what keep the score tiles, and with them
+//   the registers, small enough for the third.
+//
+// The dQ kernel (on the CUDA cores; the next to redesign, ROADMAP.md).
+// A block owns 64 query rows and loops over the K tiles; Q, dO, lse and
+// delta stay in shared memory, each K tile brings K and V, staged in f32
+// with synchronous loads (load_tile). 256 threads form a 16 x 16 grid:
+// thread (ty, tx) owns score rows 4*ty .. 4*ty+3 and columns tx + 16*j and
+// the head-dim columns tx + 16*c of dQ; every product runs on the CUDA
+// cores in f32 (bf16 widened on load), dS going through shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
 #include "keep_mask.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
 using namespace paddle_fa;
 
-template <int D>
+constexpr int BQ = 32;  // query rows a stage of the dK/dV kernel's ring
+
+template <typename T, int D>
 constexpr size_t kv_smem_bytes() {
-  // Ks, Vs [BN][D+1]; Qs, dOs [BM][D+1]; Ps, dSs [BM][BN+1]; lse, delta [BM]
-  return sizeof(float) * (2 * BN * (D + 1) + 2 * BM * (D + 1) +
-                          2 * BM * (BN + 1) + 2 * BM);
+  // Ks, Vs [64][ST], then two stages of (Qs, dOs) [BQ][ST] and two of
+  // (lse, delta) [BQ] f32
+  return sizeof(T) * (2 + 2) * tc::Tile<T, D>::ELEMS +
+         sizeof(float) * 4 * BQ;
 }
 
 template <int D>
@@ -71,8 +102,9 @@ constexpr size_t q_smem_bytes() {
          (2 * BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
 }
 
+// registers: three blocks an SM up to D = 64 (168 a thread), one above
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
     flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
@@ -82,120 +114,160 @@ __global__ void __launch_bounds__(NT)
                         T* __restrict__ dv, int H, int S, int Sk,
                         float sm_scale, int causal, int dropout,
                         float keep_div, uint32_t thresh) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D >= 16 ? D / 16 : 1;  // head-dim columns per thread
-  constexpr int PP = BN + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BN * DP;
-  float* Qs = Vs + BN * DP;
-  float* dOs = Qs + BM * DP;
-  float* Ps = dOs + BM * DP;
-  float* dSs = Ps + BM * PP;
-  float* lse_s = dSs + BM * PP;
-  float* delta_s = lse_s + BM;
+  using M = tc::Mma<T>;
+  constexpr int ST = tc::Tile<T, D>::STRIDE;
+  constexpr int TILE = tc::Tile<T, D>::ELEMS;
+  constexpr int QTILE = BQ * ST;  // a stage's Q or dO rows
+  constexpr int NJ = BQ / 8;      // 8-row query tiles of a stage
+  constexpr int DN = D / 8;       // 8-column tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + TILE;
+  T* ring = Vs + TILE;  // stage s: Q at ring + 2 s QTILE, dO after it
+  float* rowstat = reinterpret_cast<float*>(ring + 4 * QTILE);
+  // stage s: lse at rowstat + 2 s BQ, delta after it
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int k0 = blockIdx.x * BN;
   const size_t q_base = (size_t)bh * S * D;
   const size_t kv_base = (size_t)bh * Sk * D;
   const size_t row_base = (size_t)bh * S;
+  const int m0 = warp * 16;               // the warp's keys in the tile
+  const int keys[2] = {k0 + m0 + g, k0 + m0 + g + 8};
 
-  load_tile<T, D>(Ks, k + kv_base, k0, Sk);
-  load_tile<T, D>(Vs, v + kv_base, k0, Sk);
+  auto issue_q = [&](int tile, int stage) {
+    T* Qs = ring + 2 * stage * QTILE;
+    const int q0 = tile * BQ;
+    tc::copy_tile_async<T, D, tc::THREADS, BQ>(Qs, q + q_base, q0, S);
+    tc::copy_tile_async<T, D, tc::THREADS, BQ>(Qs + QTILE, dout + q_base,
+                                               q0, S);
+    const int e = threadIdx.x;  // BQ lse, then BQ delta
+    if (e < 2 * BQ) {
+      const int r = e % BQ;
+      const bool in = q0 + r < S;
+      const float* src = e < BQ ? lse : delta;
+      tc::cp_async4(rowstat + 2 * stage * BQ + e,
+                    in ? src + row_base + q0 + r : src, in);
+    }
+  };
+
+  // causal: query rows before this tile's first key add nothing
+  // (`k_start <= q_start + blk_q - 1`, :408-413)
+  const int t_begin = causal ? k0 / BQ : 0;
+  const int n_tiles = (S + BQ - 1) / BQ;
+  tc::copy_tile_async<T, D>(Ks, k + kv_base, k0, Sk);
+  tc::copy_tile_async<T, D>(Vs, v + kv_base, k0, Sk);
+  if (t_begin < n_tiles) issue_q(t_begin, 0);
+  tc::cp_async_commit();
+
   const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
-  float bj[CPT];
+  const float keep_scale = 1.f / keep_div;
+  float bk[2];
 #pragma unroll
-  for (int j = 0; j < CPT; ++j) bj[j] = bias_at(bias, b, k0 + tx + 16 * j, Sk);
+  for (int h = 0; h < 2; ++h) bk[h] = bias_at(bias, b, keys[h], Sk);
 
-  float dk_acc[RPT][DC], dv_acc[RPT][DC];
+  float dk_acc[DN][4], dv_acc[DN][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int n = 0; n < DN; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
 
-  // causal: Q tiles whose last row precedes this tile's first key add
-  // nothing (`k_start <= q_start + blk_q - 1`, :408-413)
-  const int t_begin = causal ? k0 / BM : 0;
-  const int n_tiles = (S + BM - 1) / BM;
-  for (int t = t_begin; t < n_tiles; ++t) {
-    const int q0 = t * BM;
-    __syncthreads();  // the previous tile's Qs / dOs / Ps / dSs are consumed
-    load_tile<T, D>(Qs, q + q_base, q0, S);
-    load_tile<T, D>(dOs, dout + q_base, q0, S);
-    for (int e = tid; e < BM; e += NT) {
-      const bool in = q0 + e < S;
-      lse_s[e] = in ? lse[row_base + q0 + e] : -NEG_INF;
-      delta_s[e] = in ? delta[row_base + q0 + e] : 0.f;
+  for (int it = t_begin; it < n_tiles; ++it) {
+    const int stage = (it - t_begin) & 1;
+    if (it + 1 < n_tiles) {
+      issue_q(it + 1, stage ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile it (and K, V) have landed for every thread
+    const int q0 = it * BQ;
+    const T* Qs = ring + 2 * stage * QTILE;
+    const T* dOs = Qs + QTILE;
+    const float* lse_s = rowstat + 2 * stage * BQ;
+    const float* delta_s = lse_s + BQ;
 
-    float s[RPT][CPT], dp[RPT][CPT];
-    tile_dot<D>(Qs, Ks, s, ty, tx);
-    tile_dot<D>(dOs, Vs, dp, ty, tx);
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys by BQ query rows
+    float s[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty * RPT + i;
-      const int row = q0 + r;
-      const bool valid = row < S;  // ragged S: P = 0 and dS = 0 explicitly
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float x =
-            masked_score(s[i][j], sm_scale, bj[j], row, col, Sk, causal);
-        const float p = valid ? expf(x - lse_s[r]) : 0.f;
-        float pe = p, dpv = dp[i][j];
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += M::K) {
+      typename M::A a;
+      tc::load_a<ST, D>(a, Ks, m0, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        typename M::B bq;
+        tc::load_b_nk<ST, D>(bq, Qs, 8 * j, kk, g, t);
+        tc::mma(s[j], a, bq);
+      }
+      tc::load_a<ST, D>(a, Vs, m0, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        typename M::B bo;
+        tc::load_b_nk<ST, D>(bo, dOs, 8 * j, kk, g, t);
+        tc::mma(dp[j], a, bo);
+      }
+    }
+
+    // element (key, query row) of each accumulator: s becomes P'^T and dp
+    // becomes dS^T, in place
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1;
+        const int r = 8 * j + tc::acc_col(t, i);  // query row in the stage
+        const int row = q0 + r;
+        const bool valid = row < S;  // ragged S: P = 0 and dS = 0 explicitly
+        const float x = masked_score(s[j][i], sm_scale, bk[h], row, keys[h],
+                                     Sk, causal);
+        const float p = valid ? __expf(x - lse_s[r]) : 0.f;
+        float pe = p, dpv = dp[j][i];
         if (dropout) {
-          const bool kp =
-              keep(seed, (uint32_t)bh, (uint32_t)row, (uint32_t)col, thresh);
-          pe = kp ? p / keep_div : 0.f;
-          dpv = kp ? dpv / keep_div : 0.f;
+          const bool kp = keep(seed, (uint32_t)bh, (uint32_t)row,
+                               (uint32_t)keys[h], thresh);
+          pe = kp ? p * keep_scale : 0.f;
+          dpv = kp ? dpv * keep_scale : 0.f;
         }
-        const float ds = valid ? p * (dpv - delta_s[r]) * sm_scale : 0.f;
-        Ps[r * PP + tx + 16 * j] = as_operand<T>(pe);
-        dSs[r * PP + tx + 16 * j] = as_operand<T>(ds);
+        s[j][i] = pe;
+        dp[j][i] = valid ? p * (dpv - delta_s[r]) * sm_scale : 0.f;
       }
-    }
-    __syncthreads();
 
-    // dV += P'^T dO and dK += dS^T Q over this tile's query rows
-#pragma unroll 4
-    for (int i = 0; i < BM; ++i) {
-      float dov[DC], qv[DC];
+    // dV += P'^T dO and dK += dS^T Q over this stage's query rows
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        dov[c] = col < D ? dOs[i * DP + col] : 0.f;
-        qv[c] = col < D ? Qs[i * DP + col] : 0.f;
-      }
+    for (int kk = 0; kk < BQ; kk += M::K) {
+      typename M::A pa, da;
+      tc::a_from_acc(pa, s, kk / M::K);
+      tc::a_from_acc(da, dp, kk / M::K);
 #pragma unroll
-      for (int jj = 0; jj < RPT; ++jj) {
-        const float pv = Ps[i * PP + ty * RPT + jj];
-        const float dsv = dSs[i * PP + ty * RPT + jj];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dv_acc[jj][c] = fmaf(pv, dov[c], dv_acc[jj][c]);
-          dk_acc[jj][c] = fmaf(dsv, qv[c], dk_acc[jj][c]);
-        }
+      for (int n = 0; n < DN; ++n) {
+        typename M::B bo, bq;
+        tc::load_b_kn<ST>(bo, dOs, kk, 8 * n, g, t);
+        tc::mma(dv_acc[n], pa, bo);
+        tc::load_b_kn<ST>(bq, Qs, kk, 8 * n, g, t);
+        tc::mma(dk_acc[n], da, bq);
       }
     }
+    __syncthreads();  // stage `stage` is free for tile it + 2
   }
+  tc::cp_async_wait<0>();  // no copy outlives the block (causal, no tiles)
 
 #pragma unroll
-  for (int jj = 0; jj < RPT; ++jj) {
-    const int key = k0 + ty * RPT + jj;
+  for (int h = 0; h < 2; ++h) {
+    const int key = keys[h];
     if (key >= Sk) continue;
+    const size_t g0 = kv_base + (size_t)key * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) {
-        const size_t g = kv_base + (size_t)key * D + col;
-        dk[g] = from_f32<T>(dk_acc[jj][c]);
-        dv[g] = from_f32<T>(dv_acc[jj][c]);
-      }
+    for (int n = 0; n < DN; ++n) {
+      tc::store2(dk + g0 + 8 * n, dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+      tc::store2(dv + g0 + 8 * n, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
   }
 }
@@ -324,14 +396,17 @@ struct BwdArgs {
 
 template <typename T, int D>
 int launch_kv(const BwdArgs& a, void* dk, void* dv, cudaStream_t stream) {
-  constexpr size_t smem = kv_smem_bytes<D>();
+  if (!(tc::aligned16(a.q) && tc::aligned16(a.k) && tc::aligned16(a.v) &&
+        tc::aligned16(a.dout)))
+    return kErrAlign;
+  constexpr size_t smem = kv_smem_bytes<T, D>();
   static bool attr_set[kMaxDevices] = {};
   const cudaError_t err = ensure_smem_attr(
       reinterpret_cast<const void*>(flash_bwd_kv_kernel<T, D>), smem,
       attr_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sk + BN - 1) / BN, a.B * a.H);
-  flash_bwd_kv_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_bwd_kv_kernel<T, D><<<grid, tc::THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -375,7 +450,7 @@ int dispatch(int which, int D, const BwdArgs& a, void* out0, void* out1,
     PADDLE_FA_BWD_CASE(64)
     PADDLE_FA_BWD_CASE(128)
     default:
-      return -1;
+      return kErrHeadDim;
   }
 #undef PADDLE_FA_BWD_CASE
 }
@@ -400,7 +475,9 @@ extern "C" {
 // dtype, f32 (is_bf16 = 0) or bf16. lse, delta: [B*H, S] f32; bias: [B, Sk]
 // f32 or null; seed: int32 [1] on the device, read only when dropout != 0.
 // Each launches one kernel on `stream` and returns the launch's
-// cudaError_t (0 on success), or -1 for an unsupported head dim.
+// cudaError_t (0 on success), or a negative code (paddle_cuda_error_string
+// names it). The dK/dV kernel reads q, k, v and dout with cp.async: they
+// must be 16-byte aligned.
 
 // dk, dv: like k.
 int paddle_flash_attention_bwd_kv(const void* q, const void* k,
@@ -430,8 +507,7 @@ int paddle_flash_attention_bwd_q(const void* q, const void* k, const void* v,
 }
 
 const char* paddle_cuda_error_string(int err) {
-  return err < 0 ? "unsupported head dim"
-                 : cudaGetErrorString(static_cast<cudaError_t>(err));
+  return error_string(err);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
-// What the flash-attention kernels share besides the dropout mask: the
-// mask value, the f32 / bf16 conversions, the tile shape, the score-tile
-// product and the once-per-device shared-memory opt-in.
+// What the flash-attention kernels share besides the dropout mask and the
+// tensor-core blocks (tc_common.cuh): the mask value, the f32 / bf16
+// conversions, the tile shape, the score masks, the dQ kernel's CUDA-core
+// tile product, the entry points' error codes and the once-per-device
+// shared-memory opt-in.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,6 +13,7 @@ namespace paddle_fa {
 constexpr float NEG_INF = -1e30f;  // finite: -inf - -inf never happens
 constexpr int BM = 64;             // query rows per tile
 constexpr int BN = 64;             // keys per tile
+// the dQ kernel's thread layout (the others use tc::THREADS)
 constexpr int NT = 256;            // threads per block: 16 row groups x 16
 constexpr int RPT = 4;             // tile rows per thread (BM / 16)
 constexpr int CPT = 4;             // tile columns per thread (BN / 16)
@@ -36,9 +39,9 @@ __device__ __forceinline__ float as_operand(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// Stage rows [r0, r0 + 64) of a [rows, D] matrix at `src` into shared
-// memory as f32 with row stride D + 1 (odd: a half-warp's column reads hit
-// 16 banks). Rows at or past `limit` read as 0.
+// The dQ kernel's synchronous staging: rows [r0, r0 + 64) of a [rows, D]
+// matrix at `src` into shared memory as f32 with row stride D + 1 (odd: a
+// half-warp's column reads hit 16 banks). Rows at or past `limit` read as 0.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
                                           int limit) {
@@ -50,9 +53,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
 }
 
 // s[i][j] = sum_d A[4 ty + i][d] * B[tx + 16 j][d] over two staged tiles,
-// summed in d order with fmaf: the forward's QK^T and the backward's QK^T
-// and dO V^T all run this one loop, so the backward recomputes the
-// forward's scores bit for bit.
+// summed in d order with fmaf on the CUDA cores: the dQ kernel's QK^T and
+// dO V^T. The forward and the dK/dV kernel compute the same scores on the
+// tensor cores in split TF32 (or bf16), in another order, so the three
+// kernels' scores agree within rounding, not bit for bit; each kernel is
+// held to its plain version within tolerance.
 template <int D>
 __device__ __forceinline__ void tile_dot(const float* A, const float* B,
                                          float (&s)[RPT][CPT], int ty,
@@ -95,6 +100,17 @@ __device__ __forceinline__ float bias_at(const float* bias, int b, int col,
   return (bias != nullptr && col < Sk) ? fmaxf(bias[(size_t)b * Sk + col],
                                                NEG_INF)
                                        : 0.f;
+}
+
+// negative return codes of the C entry points (a cudaError_t is >= 0)
+constexpr int kErrHeadDim = -1;
+constexpr int kErrAlign = -2;
+
+inline const char* error_string(int err) {
+  if (err == kErrHeadDim) return "unsupported head dim";
+  if (err == kErrAlign)
+    return "operands read by cp.async must be 16-byte aligned";
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 constexpr int kMaxDevices = 64;

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Serving A/B of two checkouts of paddle_tpu_torch on one card.
+"""Serving (or training) A/B of two checkouts of paddle_tpu_torch on one card.
 
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT [--pairs N] [--batch B ...]
+    python3 tools/torch_serve_ab.py OTHER_CHECKOUT --train [--pairs N]
 
 Runs the build and serve phases of each checkout's chip_smoke.py (BERT-base
 encoder served for a 5 s window per batch size) in a fresh process per
@@ -10,8 +11,10 @@ with ``git archive``) and the checkout this script lives in, and flipping
 which side goes first in each pair: other, this, this, other, ... Both
 sides therefore share one card and one host, in turns. Prints each run's
 [slice] lines prefixed with its side and number, then per batch size the
-p50 latencies of each side and their medians. Exits non-zero when CUDA is
-missing or a run fails.
+p50 latencies of each side and their medians. With --train each run is
+the build and train phases instead (BERT-base pretraining at batch 32, a
+100-step window), and the p50 is the step time's. Exits non-zero when
+CUDA is missing or a run fails.
 """
 from __future__ import annotations
 
@@ -23,19 +26,23 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-P50 = re.compile(r"^\[slice\] batch\s+(\d+):.*latency p50 ([0-9.]+) ms")
+P50 = {"serve": re.compile(r"^\[slice\] batch\s+(\d+):.*latency p50 "
+                           r"([0-9.]+) ms"),
+       "train": re.compile(r"^\[train\] batch\s+(\d+):.*step p50 "
+                           r"([0-9.]+) ms")}
 
 
-def _serve(checkout: str, batches) -> str:
+def _run(checkout: str, batches, mode: str) -> str:
+    phase = ("cs.phase_train()" if mode == "train" else
+             f"cs.SERVE_BATCHES = {tuple(batches)!r}; cs.phase_slice()")
     code = ("import sys, torch; sys.path.insert(0, '.'); "
             "import chip_smoke as cs; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
-            f"cs.SERVE_BATCHES = {tuple(batches)!r}; "
-            "cs.phase_build(); cs.phase_slice()")
+            "cs.phase_build(); " + phase)
     res = subprocess.run([sys.executable, "-c", code], cwd=checkout,
                          capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
-        raise RuntimeError(f"serve run in {checkout} failed:\n"
+        raise RuntimeError(f"{mode} run in {checkout} failed:\n"
                            f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
     return res.stdout
 
@@ -45,12 +52,15 @@ def main(argv=None) -> int:
     ap.add_argument("other", help="the other checkout, e.g. the parent")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--batch", type=int, action="append")
+    ap.add_argument("--train", action="store_true",
+                    help="alternate the training phase, not serving")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_serve_ab: CUDA is not available", file=sys.stderr)
         return 2
-    batches = args.batch or [1, 8, 32]
+    mode = "train" if args.train else "serve"
+    batches = [32] if args.train else (args.batch or [1, 8, 32])
     sides = {"other": os.path.abspath(args.other), "this": HERE}
     p50 = {(s, b): [] for s in sides for b in batches}
     run = 0
@@ -58,8 +68,8 @@ def main(argv=None) -> int:
         order = ("other", "this") if pair % 2 == 0 else ("this", "other")
         for side in order:
             run += 1
-            for line in _serve(sides[side], batches).splitlines():
-                m = P50.match(line)
+            for line in _run(sides[side], batches, mode).splitlines():
+                m = P50[mode].match(line)
                 if m:
                     p50[(side, int(m.group(1)))].append(float(m.group(2)))
                     print(f"{side} {run} {line}", flush=True)
