@@ -13,8 +13,11 @@ Phases, each fatal on failure:
               (scaled_dot_product_attention, and its backward): the
               forward at the served shape (batch 8) and the trained one
               (batch 32, also with dropout 0.1), the backward kernels at
-              batch 32 (dK/dV also with dropout 0.1), each beside its bound
-              and what sets it; a kernel timed faster than its bound fails.
+              batch 32 in f32 (also with dropout 0.1) and bf16, each beside
+              its bound and what sets it; the whole backward of SDPA and
+              of the port timed alike, as (forward + backward) minus the
+              forward, each captured in a CUDA graph; a kernel timed
+              faster than its bound fails.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -37,7 +40,7 @@ Phases, each fatal on failure:
               port on the CPU from the same weights (loss and the grads of
               the word embedding, layer 0's Q weight and the MLM head).
               Reports step time p50/p90/p99, samples/s and peak device
-              memory.
+              memory (less what earlier phases left allocated).
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} and, last, the JSON result line
@@ -52,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -100,14 +104,20 @@ def _cuda_ms(fn, iters=50, warmup=5, graph=True) -> float:
     ``iters`` back-to-back calls, after ``warmup`` calls. With ``graph``
     the calls are captured into one CUDA graph and the graph is replayed,
     so the time is the device's alone: the host's dispatch of each call
-    (Python, ctypes, PyTorch's dispatcher) is not in it. Without, the
-    calls are issued from Python one by one, and a call whose host cost
-    exceeds its device time is timed by the host."""
+    (Python, ctypes, PyTorch's dispatcher) is not in it. The warm-up then
+    runs on a side stream, as torch.cuda.graphs asks of a capture that
+    runs autograd's backward. Without, the calls are issued from Python
+    one by one, and a call whose host cost exceeds its device time is
+    timed by the host."""
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
     if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             for _ in range(iters):
@@ -115,6 +125,9 @@ def _cuda_ms(fn, iters=50, warmup=5, graph=True) -> float:
         run = g.replay
         run()  # the first replay uploads the graph
     else:
+        for _ in range(warmup):
+            fn()
+
         def run():
             for _ in range(iters):
                 fn()
@@ -157,6 +170,35 @@ def _check_bound(name, ms, bound_ms):
 # --------------------------------------------------------------------------
 # 1. build
 # --------------------------------------------------------------------------
+# a kernel instance's mangled name: <length>flash_..._kernel I <T> Li<D> E
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '\w*?\d(flash_[a-z_]+_kernel)"
+    r"I(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def ptxas_report(text):
+    """[(kernel, dtype, head dim, registers, spill stores B, spill loads
+    B)] of each kernel instance in ``nvcc -Xptxas -v`` output."""
+    out, cur, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+                   int(m.group(3)))
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out.append((*cur, int(m.group(1)), *spill))
+            cur = None
+    return out
+
+
 def phase_build():
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -170,10 +212,10 @@ def phase_build():
     _log(f"[build] {', '.join(sources)}: {time.perf_counter() - t0:.1f} s "
          "(nvcc -gencode arch=compute_90a,code=sm_90a, in parallel)")
     for src in sources:
-        for line in build.build_log.get(src, {}).get("ptxas",
-                                                     "").splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"[build] {src} ptxas:", line.strip())
+        text = build.build_log.get(src, {}).get("ptxas", "")
+        for kern, dt, d, regs, st, ld in ptxas_report(text):
+            _log(f"[build] ptxas {kern} {dt} D={d}: {regs} registers, "
+                 f"spill stores {st} B, spill loads {ld} B")
 
 
 # --------------------------------------------------------------------------
@@ -332,16 +374,44 @@ def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32"):
     return (*bound(flop, nbytes, dtype), flop, nbytes)
 
 
-def phase_kernel_bwd():
-    """The dK/dV and dQ kernels against the plain backward, on the forward
-    kernel's O and lse, over the forward phase's cases; then each timed
-    at the training shape."""
+def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed):
+    """The whole backward (dQ, dK and dV) of SDPA and of the port, each
+    timed on the device as (forward + backward) minus the forward alone,
+    both captured into CUDA graphs (SDPA's dropout RNG captures too): →
+    (sdpa_ms, port_ms). The port's backward is bwd_delta and its two
+    kernels."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    mask = bias[:, None, None, :].to(q.dtype)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              dropout_p=rate, scale=sm)
+
+    def port():
+        return fa.flash_attention_cuda(q, k, v, sm, False, rate, seed, bias)
+
+    def port_fwd_bwd():
+        o, lse = port()
+        return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, sm, False,
+                                           rate, seed, bias)
+    sdpa_ms = _cuda_ms(lambda: torch.autograd.grad(
+        sdpa(), (qs, ks, vs), do)) - _cuda_ms(sdpa)
+    return sdpa_ms, _cuda_ms(port_fwd_bwd) - _cuda_ms(port)
+
+
+def phase_kernel_bwd():
+    """The dK/dV and dQ kernels against the plain backward, on the forward
+    kernel's O and lse, over the forward phase's cases; then each timed
+    at the training shape, in f32 without and with dropout 0.1 and in
+    bf16, beside the graph-timed whole backward of SDPA and of the port."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     sm = 0.125
-    errs = []
+    errs = {}  # (kernel, dtype) -> max |kernel - plain| over the cases
 
     def both(name, q, k, v, scale, tol, causal=False, rate=0.0, seed=None,
              bias=None):
@@ -353,18 +423,20 @@ def phase_kernel_bwd():
         want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale,
                                                 causal, rate, seed, bias)
         torch.cuda.synchronize()
-        err = max(_check_bwd(name, got, want, tol))
-        if q.dtype == torch.float32:
-            errs.append(err)
+        e_q, e_k, e_v = _check_bwd(name, got, want, tol)
+        for kern, e in (("flash_attention_bwd_q", e_q),
+                        ("flash_attention_bwd_kv", max(e_k, e_v))):
+            key = (kern, q.dtype)
+            errs[key] = max(errs.get(key, 0.0), e)
         return got
 
     seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
     B, H, D = TRAIN_BATCH, 12, 64
-    for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
         q, k, v = _qkv(B, H, S, S, D, dt, gen)
         both(f"bert B={B} H={H} S={S} D={D} {dt} bias dropout 0.1", q, k, v,
              sm, tol, rate=0.1, seed=seed, bias=_padding_bias(B, S, gen))
-    f32 = torch.float32
     q, k, v = _qkv(2, 3, 200, 77, 64, f32, gen)
     both("ragged S=200 Sk=77 bias", q, k, v, sm, F32_TOL,
          bias=_padding_bias(2, 77, gen))
@@ -383,63 +455,58 @@ def phase_kernel_bwd():
         q, k, v = _qkv(2, 2, 96, 80, d, f32, gen)
         both(f"head dim {d}", q, k, v, d ** -0.5, F32_TOL,
              bias=_padding_bias(2, 80, gen))
-        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        q, k, v = (t.to(bf16) for t in (q, k, v))
         both(f"head dim {d} bf16", q, k, v, d ** -0.5, BF16_TOL)
-    max_err = max(errs)  # over the f32 cases, as the forward's row
 
-    # time at the training shape: B=32, H=12, S=128, D=64, f32, bias; the
-    # dK/dV kernel also with dropout 0.1, as the training step runs it
-    q, k, v = _qkv(B, H, S, S, D, f32, gen)
-    bias = _padding_bias(B, S, gen)
-    do = torch.randn(q.shape, generator=gen, device="cuda")
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    # time at the training shape: B=32, H=12, S=128, D=64, bias; f32
+    # without and with dropout 0.1 (as the training step runs them), bf16
+    kernels = (("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
+                fa.flash_attention_bwd_kv_reference, 8, "kv"),
+               ("flash_attention_bwd_q", fa.flash_attention_bwd_q_cuda,
+                fa.flash_attention_bwd_q_reference, 6, "q"))
     rows, timings = {}, {}
-    for rate in (0.0, 0.1):
+    for dt, rate in ((f32, 0.0), (f32, 0.1), (bf16, 0.0)):
+        q, k, v = _qkv(B, H, S, S, D, dt, gen)
+        bias = _padding_bias(B, S, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
         o, lse = fa.flash_attention_cuda(q, k, v, sm, False, rate, seed, bias)
         delta = fa.bwd_delta(o, do)
         args = (q, k, v, do, lse, delta, sm, False, rate, seed, bias)
-        kernels = [("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
-                    fa.flash_attention_bwd_kv_reference, 8, "kv")]
-        if rate == 0.0:
-            kernels.append(("flash_attention_bwd_q",
-                            fa.flash_attention_bwd_q_cuda,
-                            fa.flash_attention_bwd_q_reference, 6, "q"))
-        # the library yardstick: SDPA's backward alone (its forward once,
-        # outside the timing), the whole of dQ, dK and dV in one call;
-        # issued from Python, since a graph cannot capture a backward whose
-        # forward ran outside it (0.2 ms of device work a call)
-        out = F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=bias[:, None, None, :], dropout_p=rate,
-            scale=sm)
-        lib_ms = _cuda_ms(lambda: torch.autograd.grad(
-            out, (qs, ks, vs), do, retain_graph=True), graph=False)
+        name_dt = str(dt).replace("torch.", "")
+        what = f"{name_dt} B={B} H={H} S={S} D={D} bias" + (
+            f" dropout {rate}" if rate else "")
+        lib_ms, port_ms = _bwd_yardstick(q, k, v, do, bias, sm, rate, seed)
+        kern_ms = 0.0
         for name, cuda_fn, plain_fn, units, outs in kernels:
             ms = _cuda_ms(lambda: cuda_fn(*args))
             eager_ms = _cuda_ms(lambda: cuda_fn(*args), graph=False)
+            # the plain version's dropout mask reads the seed on the host,
+            # which a graph cannot capture: with dropout it is timed eagerly
             plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate)
-            bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, units, outs)
-            what = f"f32 B={B} H={H} S={S} D={D} bias" + (
-                f" dropout {rate}" if rate else "")
+            bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, units, outs,
+                                               name_dt)
             _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms (issued "
                  f"one by one from Python {eager_ms:.4f} ms), plain "
-                 f"{plain:.4f} ms, SDPA backward (dQ, dK, dV together) "
-                 f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}: {flop} FLOP, "
-                 f"{nbytes} B)")
+                 f"{plain:.4f} ms, SDPA backward (dQ, dK, dV together, "
+                 f"graph-timed) {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
+                 f"{flop} FLOP, {nbytes} B)")
             _check_bound(f"{name} {what}", ms, bnd)
+            kern_ms += ms
             row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain,
-                       library_ms=lib_ms,
-                       bound_ms=bnd, bound_by=by, max_abs_err=max_err)
-            rows.setdefault(name, row)  # the row without dropout first
+                       library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                       max_abs_err=errs[(name, dt)])
+            rows.setdefault(name, row)  # f32 without dropout first
             timings.setdefault(name, []).append(row)
+        bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, 10, "qkv", name_dt)
+        _log(f"[kernel] time whole backward {what}, graph-timed as (forward "
+             f"+ backward) - forward: the port (bwd_delta, dK/dV, dQ) "
+             f"{port_ms:.4f} ms, SDPA {lib_ms:.4f} ms; the two kernels alone "
+             f"{kern_ms:.4f} ms; bound {bnd:.4f} ms ({by}: {flop} FLOP = "
+             f"10·B·H·S·Sk·D, {nbytes} B; the two kernels execute "
+             f"14·B·H·S·Sk·D, recomputing QK^T and dO·V^T in each)")
+        _check_bound(f"the port's whole backward {what}", port_ms, bnd)
     for name in rows:
         rows[name] = dict(rows[name], timings=timings[name])
-    bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, 10, "qkv")
-    both_ms = (rows["flash_attention_bwd_kv"]["ms"]
-               + rows["flash_attention_bwd_q"]["ms"])
-    _log(f"[kernel] time whole backward f32 B={B}: both kernels "
-         f"{both_ms:.4f} ms vs bound {bnd:.4f} ms ({by}: {flop} FLOP = "
-         f"10·B·H·S·Sk·D, {nbytes} B); the two kernels execute "
-         f"14·B·H·S·Sk·D, recomputing QK^T and dO·V^T in each")
     return rows
 
 
@@ -650,6 +717,10 @@ def phase_train(profile=False):
     want = (2 * L, L, L)
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
+    # what earlier phases of this process left allocated (the cuBLAS
+    # workspace of each stream they used) is not the step's memory
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
@@ -689,7 +760,7 @@ def phase_train(profile=False):
         losses.append(value)
     fall = [step(pool[0])[0] for _ in range(FALL_STEPS)]
     launches = _launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - before
     n_steps = TRAIN_WARMUP + TRAIN_WINDOW + FALL_STEPS
     if launches != tuple(n_steps * w for w in want):
         raise AssertionError(f"launches {launches} over {n_steps} steps")
@@ -702,7 +773,8 @@ def phase_train(profile=False):
          f"ms max {ms.max():.3f} ms (n={len(ms)}); losses "
          f"{losses[0]:.4f} .. {losses[-1]:.4f}")
     _log(f"[train] peak device memory {peak / 2**30:.3f} GiB "
-         f"(max_memory_allocated over warm-up, window and repeated steps)")
+         f"(max_memory_allocated over warm-up, window and repeated steps, "
+         f"less the {before / 2**30:.3f} GiB allocated before the phase)")
     _log(f"[train] launches over {n_steps} steps: forward {launches[0]}, "
          f"dK/dV {launches[1]}, dQ {launches[2]} (= {want} per step)")
     _log(f"[train] repeated batch, {FALL_STEPS} steps: " +

@@ -14,20 +14,44 @@
 // rounded to the operands' dtype before dS^T Q and dS K (the TPU kernels'
 // rounding points, :397 / :405 / :465). The dropout mask is the forward's,
 // regenerated from the same seed by keep_mask.cuh. The scores are
-// recomputed, not stored: the dK/dV kernel on the tensor cores (split TF32
-// or bf16, tc_common.cuh), the dQ kernel on the CUDA cores (tile_dot), so
-// each kernel's P agrees with the forward's within rounding, not bit for
-// bit; each is held to its plain version within tolerance.
+// recomputed, not stored, on the tensor cores (split TF32 or bf16,
+// tc_common.cuh) in both kernels, so each kernel's P agrees with the
+// forward's within rounding, not bit for bit; each is held to its plain
+// version within tolerance.
 //
 // What bounds them on this card. The function does 10*S*Sk*D FLOP per
 // (batch, head): QK^T, dO V^T, P'^T dO, dS^T Q and dS K. The two-kernel
 // design recomputes QK^T and dO V^T in both kernels (8 + 6 = 14*S*Sk*D
 // FLOP executed), the price of writing dK/dV and dQ without atomics. At
-// the training shape (B = 32, H = 12, S = Sk = 128, D = 64, f32) the dK/dV
-// kernel does 3.22 GFLOP and moves Q, K, V, dO, lse, delta and the bias in
-// and dK, dV out, 75.9 MB: 22.7 us of bytes at 3.35 TB/s against 19.5 us
-// of split-TF32 products (3 x FLOP at 495 TFLOP/s), so it is bound by
-// bytes. PERF.md has the measured times beside the bounds.
+// the training shape (B = 32, H = 12, S = Sk = 128, D = 64, f32):
+// - the dK/dV kernel does 3.22 GFLOP and moves Q, K, V, dO, lse, delta and
+//   the bias in and dK, dV out, 75.9 MB: 22.7 us of bytes at 3.35 TB/s
+//   against 19.5 us of split-TF32 products (3 x FLOP at 495 TFLOP/s);
+// - the dQ kernel does 6*S*Sk*D FLOP (QK^T, dO V^T, dS K), 2.42 GFLOP, and
+//   moves the same inputs in and dQ out, 63.3 MB: 18.9 us of bytes against
+//   14.6 us of split-TF32 products.
+// Both are bound by bytes on paper; in f32 the tensor-core instruction
+// stream (three mma.sync and two operand splits a product) sets their
+// time. PERF.md has the measured times beside the bounds.
+//
+// Shared by both kernels:
+// - Products on the tensor cores with mma.sync: f32 as split TF32
+//   (m16n8k8, three products), bf16 as it is (m16n8k16), sums in f32. Not
+//   wgmma: its TF32 form reads B only K-major from shared memory, and dV,
+//   dK and dQ take dO, Q and K along their rows, which are stored row by
+//   row: they would need transposed copies, and split TF32 would need hi
+//   and lo copies of every B tile besides. mma.sync loads fragments from
+//   any layout into registers and splits them there (tc::load_b_kn).
+// - The score tile is formed in the accumulator registers and fed, without
+//   a trip through shared memory, as the A operand of the next product
+//   (tc::a_from_acc). P is __expf(x - lse) (ex2.approx, a few ulp) and
+//   dropout multiplies by 1 / (1 - rate): a full expf and a division per
+//   element cost measurable time.
+// - Operands arrive by cp.async into a two-stage ring, the copy of tile
+//   t + 1 issued before the products of tile t. Rows past S or Sk are
+//   zero-filled by the copy; a padded query row gets P = 0 explicitly (a
+//   zero lse would give P = exp(s), not 0), and columns past Sk are masked
+//   before the exp. A dead row (lse = +1e30) gets P = 0 and adds nothing.
 //
 // The dK/dV kernel. The TPU runs an "arbitrary" (sequential) grid
 // dimension and carries the dK/dV accumulator across it in VMEM. Here a
@@ -37,25 +61,10 @@
 // - Four warps; warp w owns keys 16w .. 16w+15. Every product is computed
 //   key-major, so that the score tiles come out with keys as rows:
 //   S^T = K Q^T and dP^T = V dO^T, then P'^T and dS^T are formed in the
-//   accumulator registers and fed, without a trip through shared memory,
-//   as the A operand of dV += P'^T dO and dK += dS^T Q (tc::a_from_acc).
-//   P is __expf(x - lse) (ex2.approx, a few ulp) and dropout multiplies by
-//   1 / (1 - rate), as in the forward.
-// - Products on the tensor cores with mma.sync: f32 as split TF32
-//   (m16n8k8, three products), bf16 as it is (m16n8k16), sums in f32. Not
-//   wgmma: its TF32 form reads B only K-major from shared memory, and dV
-//   and dK take dO and Q along query rows, which are stored row by row:
-//   they would need transposed copies, and split TF32 would need hi and lo
-//   copies of every B tile besides. mma.sync loads fragments from any
-//   layout into registers and splits them there (tc::load_b_kn). In f32
-//   those instructions (three mma.sync and two operand splits a product),
-//   not the bytes, set the kernel's time: PERF.md has it beside the bound.
-// - K and V are copied once; Q, dO, lse and delta arrive by cp.async into
-//   a two-stage ring of 32 query rows a stage, the copy of stage t + 1
-//   issued before the products of stage t. Rows past S are zero-filled by
-//   the copy and get P = 0 and dS = 0 explicitly (a zero lse would give
-//   P = exp(s), not 0); columns past Sk are masked before the exp. A dead
-//   row (lse = +1e30) gets P = 0 and adds nothing.
+//   accumulator registers and become the A operand of dV += P'^T dO and
+//   dK += dS^T Q.
+// - K and V are copied once; Q, dO, lse and delta arrive in the ring, 32
+//   query rows a stage.
 // - Causal: query stages whose last row precedes the block's first key
 //   are cut by the loop bound.
 // - Occupancy: 768 blocks at the training shape. Shared memory is K, V and
@@ -66,13 +75,31 @@
 //   SM; the 32-row stages are what keep the score tiles, and with them
 //   the registers, small enough for the third.
 //
-// The dQ kernel (on the CUDA cores; the next to redesign, ROADMAP.md).
-// A block owns 64 query rows and loops over the K tiles; Q, dO, lse and
-// delta stay in shared memory, each K tile brings K and V, staged in f32
-// with synchronous loads (load_tile). 256 threads form a 16 x 16 grid:
-// thread (ty, tx) owns score rows 4*ty .. 4*ty+3 and columns tx + 16*j and
-// the head-dim columns tx + 16*c of dQ; every product runs on the CUDA
-// cores in f32 (bf16 widened on load), dS going through shared memory.
+// The dQ kernel. The TPU carries the dQ accumulator across the key grid
+// dimension; here a block owns 64 query rows of one (batch, head) and
+// loops over the key tiles, dQ in registers; no atomics.
+// - The forward's layout: two warpgroups (eight warps). Warp w of group g
+//   owns rows 16 (w % 4) .. +15 and, of every 64-key tile, keys
+//   32 g .. 32 g + 31: S = Q K^T and dP = dO V^T (A = Q or dO by load_a,
+//   B = K or V by load_b_nk), dS formed in place of dP, then dQ += dS K
+//   (A = dS by a_from_acc, B = K rows by load_b_kn, in the TF32 k order
+//   of the forward's P V). The two groups' partial dQ tiles are summed
+//   through shared memory at the end, a plain sum with no rescale, in a
+//   fixed order, so dQ is deterministic.
+// - Q, dO, lse and delta of the block's rows arrive by cp.async once; K
+//   and V in the ring, 64 keys a stage.
+// - Causal: key tiles past the block's last row are cut by the loop bound
+//   (:468-473).
+// - Occupancy: 768 blocks at the training shape (two per (batch, head)).
+//   Shared memory is Q, dO and two stages of K and V, 6 x 64 x (D + 16 B)
+//   rows, plus 512 B of lse and delta: 104,960 B for f32 at D = 64,
+//   55,808 B for bf16, 203,264 B for f32 at D = 128, so two blocks (16
+//   warps) an SM up to D = 64, one above. Two blocks of 256 threads allow
+//   128 registers a thread, for 16 values each of S and dP beside 32 dQ
+//   accumulators at D = 64. ptxas (chip_smoke.py prints it): 124
+//   registers for f32 at D = 64, 122 for bf16, no spills; 181 and 180 at
+//   D = 128. A variant that held half of that score tile at a time, to
+//   leave more room, ran 1.8 times slower in f32 (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,11 +122,14 @@ constexpr size_t kv_smem_bytes() {
          sizeof(float) * 4 * BQ;
 }
 
-template <int D>
+// the dQ kernel: two warpgroups, each taking half of every key tile
+constexpr int Q_THREADS = 2 * tc::THREADS;
+constexpr int Q_SLICE = BN / 2;  // keys of a tile a warp takes
+
+template <typename T, int D>
 constexpr size_t q_smem_bytes() {
-  // Qs, dOs [BM][D+1]; Ks, Vs [BN][D+1]; dSs [BM][BN+1]
-  return sizeof(float) *
-         (2 * BM * (D + 1) + 2 * BN * (D + 1) + BM * (BN + 1));
+  // Qs, dOs [64][ST], two stages of (Ks, Vs) [64][ST], lse and delta [BM]
+  return sizeof(T) * 6 * tc::Tile<T, D>::ELEMS + sizeof(float) * 2 * BM;
 }
 
 // registers: three blocks an SM up to D = 64 (168 a thread), one above
@@ -272,8 +302,9 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
   }
 }
 
+// registers: two blocks an SM up to D = 64 (128 a thread), one above
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Q_THREADS, D <= 64 ? 2 : 1)
     flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse,
@@ -282,105 +313,175 @@ __global__ void __launch_bounds__(NT)
                        const int* __restrict__ seed_ptr, T* __restrict__ dq,
                        int H, int S, int Sk, float sm_scale, int causal,
                        int dropout, float keep_div, uint32_t thresh) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D >= 16 ? D / 16 : 1;
-  constexpr int PP = BN + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BM * DP;
-  float* Ks = dOs + BM * DP;
-  float* Vs = Ks + BN * DP;
-  float* dSs = Vs + BN * DP;
+  using M = tc::Mma<T>;
+  constexpr int ST = tc::Tile<T, D>::STRIDE;
+  constexpr int TILE = tc::Tile<T, D>::ELEMS;
+  constexpr int NJ = Q_SLICE / 8;  // 8-key accumulator tiles of a warp
+  constexpr int DN = D / 8;        // 8-column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + TILE;
+  T* ring = dOs + TILE;  // stage s: K at ring + 2 s TILE, V after it
+  float* lse_s = reinterpret_cast<float*>(ring + 4 * TILE);
+  float* delta_s = lse_s + BM;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp >> 2;          // which keys of each tile
+  const int m0 = (warp & 3) * 16;       // the warp's rows in the tile
+  const int c0 = group * Q_SLICE;       // the warp's keys in the tile
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int q0 = blockIdx.x * BM;
   const size_t q_base = (size_t)bh * S * D;
   const size_t kv_base = (size_t)bh * Sk * D;
   const size_t row_base = (size_t)bh * S;
-
-  load_tile<T, D>(Qs, q + q_base, q0, S);
-  load_tile<T, D>(dOs, dout + q_base, q0, S);
-  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
-  // rows past S: lse = +1e30 makes P = 0 (their dQ is never stored)
-  float lse_r[RPT], delta_r[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty * RPT + i;
-    lse_r[i] = row < S ? lse[row_base + row] : -NEG_INF;
-    delta_r[i] = row < S ? delta[row_base + row] : 0.f;
-  }
-
-  float acc[RPT][DC];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  const int rows[2] = {q0 + m0 + g, q0 + m0 + g + 8};
+  // ragged S: P = 0 explicitly (the zero-filled lse would give exp(s))
+  const bool valid[2] = {rows[0] < S, rows[1] < S};
 
   int n_tiles = (Sk + BN - 1) / BN;
   if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);  // :468-473
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BN;
-    __syncthreads();  // the previous tile's Ks / Vs / dSs are consumed
-    load_tile<T, D>(Ks, k + kv_base, k0, Sk);
-    load_tile<T, D>(Vs, v + kv_base, k0, Sk);
-    __syncthreads();
-
-    float s[RPT][CPT], dp[RPT][CPT];
-    tile_dot<D>(Qs, Ks, s, ty, tx);
-    tile_dot<D>(dOs, Vs, dp, ty, tx);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = k0 + tx + 16 * j;
-      const float bj = bias_at(bias, b, col, Sk);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + ty * RPT + i;
-        // ragged Sk: masked_score sets columns past Sk to NEG_INF
-        const float x =
-            masked_score(s[i][j], sm_scale, bj, row, col, Sk, causal);
-        const float p = expf(x - lse_r[i]);
-        float dpv = dp[i][j];
-        if (dropout)
-          dpv = keep(seed, (uint32_t)bh, (uint32_t)row, (uint32_t)col, thresh)
-                    ? dpv / keep_div
-                    : 0.f;
-        const float ds = p * (dpv - delta_r[i]) * sm_scale;
-        dSs[(ty * RPT + i) * PP + tx + 16 * j] = as_operand<T>(ds);
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K
-#pragma unroll 4
-    for (int j = 0; j < BN; ++j) {
-      float kv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        kv[c] = col < D ? Ks[j * DP + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float dsv = dSs[(ty * RPT + i) * PP + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(dsv, kv[c], acc[i][c]);
-      }
+  auto issue_kv = [&](int tile, int stage) {
+    T* Ks = ring + 2 * stage * TILE;
+    tc::copy_tile_async<T, D, Q_THREADS>(Ks, k + kv_base, tile * BN, Sk);
+    tc::copy_tile_async<T, D, Q_THREADS>(Ks + TILE, v + kv_base, tile * BN,
+                                         Sk);
+  };
+  tc::copy_tile_async<T, D, Q_THREADS>(Qs, q + q_base, q0, S);
+  tc::copy_tile_async<T, D, Q_THREADS>(dOs, dout + q_base, q0, S);
+  {
+    const int e = threadIdx.x;  // BM lse, then BM delta
+    if (e < 2 * BM) {
+      const int r = e % BM;
+      const bool in = q0 + r < S;
+      const float* src = e < BM ? lse : delta;
+      tc::cp_async4(lse_s + e, in ? src + row_base + q0 + r : src, in);
     }
   }
+  issue_kv(0, 0);
+  tc::cp_async_commit();
 
+  const uint32_t seed = dropout ? (uint32_t)seed_ptr[0] : 0u;
+  const float keep_scale = 1.f / keep_div;
+  float acc[DN][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty * RPT + i;
-    if (row >= S) continue;
+  for (int n = 0; n < DN; ++n)
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) dq[q_base + (size_t)row * D + col] = from_f32<T>(acc[i][c]);
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      issue_kv(it + 1, (it + 1) & 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
     }
+    __syncthreads();  // tile it (and Q, dO, lse, delta) landed for all
+    const T* Ks = ring + 2 * (it & 1) * TILE;
+    const T* Vs = Ks + TILE;
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lse_r[h] = lse_s[m0 + g + 8 * h];
+      delta_r[h] = delta_s[m0 + g + 8 * h];
+    }
+
+    const int k0 = it * BN + c0;  // the warp's first key
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 rows by its 32 keys
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += M::K) {
+      typename M::A a;
+      tc::load_a<ST, D>(a, Qs, m0, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        typename M::B bk;
+        tc::load_b_nk<ST, D>(bk, Ks, c0 + 8 * j, kk, g, t);
+        tc::mma(s[j], a, bk);
+      }
+      tc::load_a<ST, D>(a, dOs, m0, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        typename M::B bv;
+        tc::load_b_nk<ST, D>(bv, Vs, c0 + 8 * j, kk, g, t);
+        tc::mma(dp[j], a, bv);
+      }
+    }
+
+    // dS = P (dP' - delta) scale in place of dP, at each element's
+    // absolute (row, key): scale, clamped bias, ragged and causal masks
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + 2 * t + e;
+        const float bj = bias_at(bias, b, col, Sk);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 2 * h + e;
+          const float x = masked_score(s[j][i], sm_scale, bj, rows[h], col,
+                                       Sk, causal);
+          const float p = valid[h] ? __expf(x - lse_r[h]) : 0.f;
+          float dpv = dp[j][i];
+          if (dropout)
+            dpv = keep(seed, (uint32_t)bh, (uint32_t)rows[h], (uint32_t)col,
+                       thresh)
+                      ? dpv * keep_scale
+                      : 0.f;
+          dp[j][i] = p * (dpv - delta_r[h]) * sm_scale;
+        }
+      }
+
+    // dQ += dS K over the warp's keys, dS from the registers it was formed
+    // in (rounded to the operands' dtype there, :465)
+#pragma unroll
+    for (int kk = 0; kk < Q_SLICE; kk += M::K) {
+      typename M::A a;
+      tc::a_from_acc(a, dp, kk / M::K);
+#pragma unroll
+      for (int n = 0; n < DN; ++n) {
+        typename M::B bk;
+        tc::load_b_kn<ST>(bk, Ks, c0 + kk, 8 * n, g, t);
+        tc::mma(acc[n], a, bk);
+      }
+    }
+    __syncthreads();  // stage it & 1 is free for tile it + 2
+  }
+
+  // sum the two warpgroups' partial dQ of each row through the free ring:
+  // group 1 hands over, group 0 adds and stores (rows past S never)
+  float* xch = reinterpret_cast<float*>(ring);
+  const int slot = threadIdx.x & (tc::THREADS - 1);
+  static_assert(4 * DN * tc::THREADS * sizeof(float) <=
+                    4 * sizeof(T) * tc::Tile<T, D>::ELEMS,
+                "the merge fits in the ring");
+  if (group == 1) {
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xch[(4 * n + i) * tc::THREADS + slot] = acc[n][i];
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!valid[h]) continue;
+    T* row = dq + q_base + (size_t)rows[h] * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      tc::store2(row + 8 * n,
+                 acc[n][2 * h] + xch[(4 * n + 2 * h) * tc::THREADS + slot],
+                 acc[n][2 * h + 1] +
+                     xch[(4 * n + 2 * h + 1) * tc::THREADS + slot]);
   }
 }
 
@@ -418,14 +519,17 @@ int launch_kv(const BwdArgs& a, void* dk, void* dv, cudaStream_t stream) {
 
 template <typename T, int D>
 int launch_q(const BwdArgs& a, void* dq, cudaStream_t stream) {
-  constexpr size_t smem = q_smem_bytes<D>();
+  if (!(tc::aligned16(a.q) && tc::aligned16(a.k) && tc::aligned16(a.v) &&
+        tc::aligned16(a.dout)))
+    return kErrAlign;
+  constexpr size_t smem = q_smem_bytes<T, D>();
   static bool attr_set[kMaxDevices] = {};
   const cudaError_t err = ensure_smem_attr(
       reinterpret_cast<const void*>(flash_bwd_q_kernel<T, D>), smem,
       attr_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.S + BM - 1) / BM, a.B * a.H);
-  flash_bwd_q_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_bwd_q_kernel<T, D><<<grid, Q_THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -476,8 +580,8 @@ extern "C" {
 // f32 or null; seed: int32 [1] on the device, read only when dropout != 0.
 // Each launches one kernel on `stream` and returns the launch's
 // cudaError_t (0 on success), or a negative code (paddle_cuda_error_string
-// names it). The dK/dV kernel reads q, k, v and dout with cp.async: they
-// must be 16-byte aligned.
+// names it). Both kernels read q, k, v and dout with cp.async: they must
+// be 16-byte aligned.
 
 // dk, dv: like k.
 int paddle_flash_attention_bwd_kv(const void* q, const void* k,

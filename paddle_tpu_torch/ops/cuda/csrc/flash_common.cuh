@@ -1,11 +1,9 @@
 // What the flash-attention kernels share besides the dropout mask and the
-// tensor-core blocks (tc_common.cuh): the mask value, the f32 / bf16
-// conversions, the tile shape, the score masks, the dQ kernel's CUDA-core
-// tile product, the entry points' error codes and the once-per-device
+// tensor-core blocks (tc_common.cuh): the mask value, the tile shape, the
+// score masks, the entry points' error codes and the once-per-device
 // shared-memory opt-in.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace paddle_fa {
@@ -13,73 +11,6 @@ namespace paddle_fa {
 constexpr float NEG_INF = -1e30f;  // finite: -inf - -inf never happens
 constexpr int BM = 64;             // query rows per tile
 constexpr int BN = 64;             // keys per tile
-// the dQ kernel's thread layout (the others use tc::THREADS)
-constexpr int NT = 256;            // threads per block: 16 row groups x 16
-constexpr int RPT = 4;             // tile rows per thread (BM / 16)
-constexpr int CPT = 4;             // tile columns per thread (BN / 16)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// The TPU kernels feed P (and dS) to their products in the operands'
-// dtype: round the same way.
-template <typename T>
-__device__ __forceinline__ float as_operand(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// The dQ kernel's synchronous staging: rows [r0, r0 + 64) of a [rows, D]
-// matrix at `src` into shared memory as f32 with row stride D + 1 (odd: a
-// half-warp's column reads hit 16 banks). Rows at or past `limit` read as 0.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int limit) {
-  for (int e = threadIdx.x; e < 64 * D; e += NT) {
-    const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] =
-        r0 + r < limit ? to_f32(src[(size_t)(r0 + r) * D + c]) : 0.f;
-  }
-}
-
-// s[i][j] = sum_d A[4 ty + i][d] * B[tx + 16 j][d] over two staged tiles,
-// summed in d order with fmaf on the CUDA cores: the dQ kernel's QK^T and
-// dO V^T. The forward and the dK/dV kernel compute the same scores on the
-// tensor cores in split TF32 (or bf16), in another order, so the three
-// kernels' scores agree within rounding, not bit for bit; each kernel is
-// held to its plain version within tolerance.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         float (&s)[RPT][CPT], int ty,
-                                         int tx) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[RPT], bv[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) av[i] = A[(ty * RPT + i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) bv[j] = B[(tx + 16 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
 
 // scale, then the clamped key-padding bias, then the ragged and causal
 // masks: the TPU kernels' order, with the rounding of each step pinned

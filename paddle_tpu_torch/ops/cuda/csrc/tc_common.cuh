@@ -1,7 +1,7 @@
-// Tensor-core building blocks of the forward and the dK/dV flash-attention
-// kernels: 16-byte asynchronous copies into a ring of shared-memory tiles,
-// the split-TF32 form of an f32 operand, and the mma.sync fragments of
-// both operand types with their (row, column) maps.
+// Tensor-core building blocks of all three flash-attention kernels (the
+// forward, dK/dV and dQ): 16-byte asynchronous copies into a ring of
+// shared-memory tiles, the split-TF32 form of an f32 operand, and the
+// mma.sync fragments of both operand types with their (row, column) maps.
 //
 // Numerics. TF32 keeps 10 of f32's 23 mantissa bits, about three decimal
 // digits: one TF32 product of the attention scores misses the f32 plain
@@ -181,8 +181,8 @@ __device__ __forceinline__ void load_a(FragA16& a, const __nv_bfloat16* s,
   a.x[3] = k0 + 8 < D ? ld32(p + 8 * ST + 8) : 0u;
 }
 
-// B (k x n) whose tile is stored n-major: row n, column k (the K tile for
-// Q K^T, the Q and dO tiles for K Q^T and V dO^T).
+// B (k x n) whose tile is stored n-major: row n, column k (the K and V
+// tiles for Q K^T and dO V^T, the Q and dO tiles for K Q^T and V dO^T).
 template <int ST, int D>
 __device__ __forceinline__ void load_b_nk(FragB32& b, const float* s, int n0,
                                           int k0, int g, int t) {
@@ -199,7 +199,7 @@ __device__ __forceinline__ void load_b_nk(FragB16& b, const __nv_bfloat16* s,
 }
 
 // B (k x n) whose tile is stored k-major: row k, column n (V for P V; dO
-// and Q for P'^T dO and dS^T Q), in the k order of a_from_acc.
+// and Q for P'^T dO and dS^T Q; K for dS K), in the k order of a_from_acc.
 template <int ST>
 __device__ __forceinline__ void load_b_kn(FragB32& b, const float* s, int k0,
                                           int n0, int g, int t) {

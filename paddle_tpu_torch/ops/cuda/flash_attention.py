@@ -5,9 +5,11 @@ Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 the forward (`_fwd_kernel` / `_pallas_fwd`, :219 / :298) is
 ``csrc/flash_attention_fwd.cu``; the backward's dK/dV kernel
 (`_bwd_kv_kernel`, pallas_call :514) and dQ kernel (`_bwd_q_kernel`,
-pallas_call :543) are ``csrc/flash_attention_bwd.cu``. All are CUDA C++ for
-sm_90a, built at first use by ``build.py``; each source's header says what
-bounds it and how it is laid out. Both share the counter-hash dropout mask
+pallas_call :543) are ``csrc/flash_attention_bwd.cu``. All three are CUDA
+C++ for sm_90a that run their products on the tensor cores (``mma.sync``:
+split TF32 for f32, bf16 as it is; ``csrc/tc_common.cuh``), built at first
+use by ``build.py``; each source's header says what bounds it and how it
+is laid out. Both sources share the counter-hash dropout mask
 (``csrc/keep_mask.cuh``), so the backward regenerates the forward's mask.
 
 Dispatch is by the tensors' device, never by a fallback: a CUDA tensor goes

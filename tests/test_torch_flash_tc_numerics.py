@@ -1,13 +1,13 @@
 """The numerics and the interface of the tensor-core flash kernels, on the CPU.
 
-The forward and the dK/dV kernels (paddle_tpu_torch/ops/cuda/csrc/) run
+The forward, dK/dV and dQ kernels (paddle_tpu_torch/ops/cuda/csrc/) run
 their f32 products as split TF32: each operand x becomes hi = tf32(x) and
 lo = tf32(x - hi), and a product is lo·hi + hi·lo + hi·hi, each term on
 the tensor cores with f32 sums. Here a torch emulation of that rounding
 (cvt.rna.tf32.f32: round to nearest, ties away from zero, on the low 13
-mantissa bits) shows, at the BERT-base shape and from a numpy seed, why:
-the three-term products QKᵀ and PV stay within chip_smoke.py's F32_TOL of
-the f32 products, and a one-term TF32 QKᵀ does not.
+mantissa bits) shows, at the BERT-base shapes and from a numpy seed, why:
+the three-term products QKᵀ, PV and dQ = dS·K stay within chip_smoke.py's
+F32_TOL of the f32 products, and one-term TF32 QKᵀ and dS·K do not.
 
 Also held here, since no CUDA compiler runs on the CPU: each kernel
 source's ``extern "C"`` prototypes against the ctypes signatures the
@@ -27,7 +27,9 @@ from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(tfa.__file__)), "csrc")
 B, H, S, D = 8, 12, 128, 64  # BERT-base at the served batch
+TRAIN_B = 32                 # and at the trained batch
 SEED = 3141
+DQ_SEED = 1234               # the dropout mask's seed
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -116,6 +118,73 @@ def test_three_term_attention_matches_the_plain_version(bert_operands):
     assert _close(o, o_ref)
 
 
+@pytest.fixture(scope="module")
+def bert_train_operands():
+    """q, k, v, dO and the key-padding bias at the training shape (batch
+    32), from a numpy seed."""
+    r = np.random.RandomState(SEED + 1)
+    q, k, v, do = (torch.from_numpy(
+        r.normal(size=(TRAIN_B, H, S, D)).astype(np.float32))
+        for _ in range(4))
+    bias = np.zeros((TRAIN_B, S), np.float32)
+    for i in range(TRAIN_B):
+        bias[i, r.randint(S // 4, S + 1):] = -1e9
+    return q, k, v, do, torch.from_numpy(bias)
+
+
+def _dq_chain(operands, rate):
+    """(dS, lse, delta, the plain f32 dQ) of the plain backward at dropout
+    ``rate``, the forward's lse and O from the plain forward."""
+    q, k, v, do, bias = operands
+    o, lse = tfa.flash_attention_reference(q, k, v, D ** -0.5, False, rate,
+                                           DQ_SEED, bias)
+    delta = tfa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, D ** -0.5, False, rate, DQ_SEED, bias)
+    _, ds = tfa._bwd_probs(*args)
+    return ds, lse, delta, tfa.flash_attention_bwd_q_reference(*args)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_three_term_dq_within_f32_tol_and_one_term_not(bert_train_operands,
+                                                       rate):
+    """dQ = dS·K as the dQ kernel's last product computes it, at the
+    training shape, with dropout 0 and 0.1 (dS carries keep_mask's mask
+    and 1/(1 - rate)): split TF32 within F32_TOL of the plain f32 dQ, one
+    TF32 product not."""
+    k = bert_train_operands[1]
+    ds, _, _, want = _dq_chain(bert_train_operands, rate)
+    assert _close(split_tf32_matmul(ds, k), want)
+    one_term = tf32(ds) @ tf32(k)
+    assert not _close(one_term, want)
+    err1 = (one_term - want).abs().max().item()
+    err3 = (split_tf32_matmul(ds, k) - want).abs().max().item()
+    assert err1 > 50 * err3
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_three_term_dq_chain_matches_the_plain_version(bert_train_operands,
+                                                       rate):
+    """The whole dQ kernel with every product in split TF32: S = QKᵀ and
+    dP = dO·Vᵀ recomputed, dS = P∘(dP′ − delta)·scale with dropout as a
+    multiply by 1/(1 - rate), then dS·K; within F32_TOL of the plain f32
+    dQ, as chip_smoke.py holds the kernel."""
+    q, k, v, do, bias = bert_train_operands
+    _, lse, delta, want = _dq_chain(bert_train_operands, rate)
+    s = split_tf32_matmul(q, k.transpose(-1, -2)) * D ** -0.5 \
+        + torch.clamp(bias, min=tfa.NEG_INF)[:, None, None, :]
+    p = torch.exp(s - lse.reshape(TRAIN_B, H, S, 1))
+    dp = split_tf32_matmul(do, v.transpose(-1, -2))
+    if rate:
+        keep = tfa.keep_mask(DQ_SEED,
+                             torch.arange(TRAIN_B * H).reshape(TRAIN_B, H, 1,
+                                                               1),
+                             torch.arange(S)[:, None],
+                             torch.arange(S)[None, :], rate)
+        dp = dp * keep.to(dp.dtype) * (1.0 / (1.0 - rate))
+    ds = p * (dp - delta.reshape(TRAIN_B, H, S, 1)) * D ** -0.5
+    assert _close(split_tf32_matmul(ds, k), want)
+
+
 # --------------------------------------------------------------------------
 # the C interface: prototypes against the wrapper's ctypes signatures
 # --------------------------------------------------------------------------
@@ -173,6 +242,13 @@ def test_kernel_sources_include_only_headers_of_the_package(source):
     ("fwd_bound", (8, 12, 128, 128, 64, "bfloat16"), 0.0019, "bytes"),
     ("_bwd_bound", (32, 12, 128, 128, 64, 8, "kv"), 0.0227, "bytes"),
     ("_bwd_bound", (32, 12, 128, 128, 64, 6, "q"), 0.0189, "bytes"),
+    ("_bwd_bound", (32, 12, 128, 128, 64, 8, "kv", "bfloat16"), 0.0114,
+     "bytes"),
+    ("_bwd_bound", (32, 12, 128, 128, 64, 6, "q", "bfloat16"), 0.0095,
+     "bytes"),
+    ("_bwd_bound", (32, 12, 128, 128, 64, 10, "qkv"), 0.0264, "bytes"),
+    ("_bwd_bound", (32, 12, 128, 128, 64, 10, "qkv", "bfloat16"), 0.0133,
+     "bytes"),
 ])
 def test_chip_smoke_bounds(fn, args, ms, by):
     bound_ms, bound_by, flop, nbytes = getattr(chip_smoke, fn)(*args)
@@ -191,3 +267,64 @@ def test_chip_smoke_f32_rate_is_split_tf32():
         pytest.approx(3 * flop / 495e12 * 1e3), "operations")
     assert chip_smoke.bound(flop, 0, "bfloat16")[0] == pytest.approx(
         flop / 989e12 * 1e3)
+
+
+def test_dq_bounds_worked_by_hand():
+    """The dQ rows' bounds from their parts, at B=32 H=12 S=Sk=128 D=64:
+    q, k, v and dO are 32·12·128·64 = 3,145,728 values each; lse and delta
+    2 · 49,152 f32; the bias 32·128 f32; dQ one more of q's size. Dropout
+    adds no byte the bound counts (the seed is one int32), so the dropout
+    row's bound is the f32 row's."""
+    n = 32 * 12 * 128 * 64
+    rowstats = 2 * 32 * 12 * 128 * 4 + 32 * 128 * 4
+    f32 = chip_smoke._bwd_bound(32, 12, 128, 128, 64, 6, "q")
+    assert f32[3] == 5 * n * 4 + rowstats == 63_324_160  # the header's 63.3 MB
+    assert f32[2] == 6 * 32 * 12 * 128 * 128 * 64 == 2_415_919_104
+    assert round(3 * f32[2] / 495e12 * 1e3, 4) == 0.0146  # split-TF32 time
+    assert round(f32[3] / 3.35e12 * 1e3, 4) == 0.0189
+    bf16 = chip_smoke._bwd_bound(32, 12, 128, 128, 64, 6, "q", "bfloat16")
+    assert bf16[3] == 5 * n * 2 + rowstats == 31_866_880
+    assert round(bf16[2] / 989e12 * 1e3, 4) == 0.0024
+    kv = chip_smoke._bwd_bound(32, 12, 128, 128, 64, 8, "kv", "bfloat16")
+    assert kv[3] == 6 * n * 2 + rowstats == 38_158_336
+
+
+def test_no_cuda_core_product_loop_remains():
+    """Every product of the three kernels runs on the tensor cores: no
+    source under csrc/ keeps the CUDA-core tile product, its staging or a
+    scalar fmaf loop; the dQ kernel takes its K/V tiles by cp.async and
+    its products from tc_common.cuh."""
+    for name in os.listdir(CSRC):
+        with open(os.path.join(CSRC, name)) as f:
+            text = f.read()
+        assert not re.search(r"\b(tile_dot|load_tile|fmaf)\b", text), name
+    with open(os.path.join(CSRC, tfa.BWD_KERNEL_SOURCE)) as f:
+        text = f.read()
+    body = text[text.index("flash_bwd_q_kernel("):
+                text.index("struct BwdArgs")]
+    for call in ("tc::copy_tile_async", "tc::cp_async_wait<1>", "tc::mma",
+                 "tc::a_from_acc", "tc::load_b_kn", "tc::load_b_nk"):
+        assert call in body, call
+
+
+def test_ptxas_report_names_each_kernel_instance():
+    """chip_smoke.py's [build] lines: the kernel, dtype, head dim,
+    registers and spills of each instance, from nvcc -Xptxas -v output
+    whose entry names carry the anonymous namespace's per-file prefix."""
+    text = (
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__flash_"
+        "attention_bwd_cu_56a507fd18flash_bwd_q_kernelIfLi64EEEvPKT_' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN45_GLOBAL__N__flash_"
+        "attention_bwd_cu_56a507fd18flash_bwd_q_kernelIfLi64EEEvPKT_\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 124 registers, used 1 barriers, 460 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__flash_"
+        "attention_bwd_cu_56a507fd19flash_bwd_kv_kernelI13__nv_bfloat16Li8EE"
+        "EvPKT_' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_report(text) == [
+        ("flash_bwd_q_kernel", "f32", 64, 124, 0, 0),
+        ("flash_bwd_kv_kernel", "bf16", 8, 96, 8, 12)]
