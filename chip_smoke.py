@@ -5,8 +5,9 @@ Phases, each fatal on failure:
   1. build  — compile every CUDA kernel from csrc/, one nvcc per source,
               all started together.
   2. kernel — hold each kernel against its plain PyTorch version on the
-              card: the forward (O and lse) and the backward's dK/dV and dQ
-              kernels (dQ, dK, dV), over BERT-base shapes in f32 and bf16
+              card: the forward (O and lse), the backward's dK/dV and dQ
+              kernels (dQ, dK, dV) and the dropout kernel (mask and
+              output), over BERT-base shapes in f32 and bf16
               with a key-padding bias, ragged S/Sk, causal, a dead row,
               dropout 0.1 and head dims 8 to 128; time each kernel, its
               plain version and one PyTorch library call as a yardstick
@@ -16,34 +17,58 @@ Phases, each fatal on failure:
               batch 32 in f32 (also with dropout 0.1) and bf16, each beside
               its bound and what sets it; the whole backward of SDPA and
               of the port timed alike, as (forward + backward) minus the
-              forward, each captured in a CUDA graph; a kernel timed
-              faster than its bound fails.
+              forward, each captured in a CUDA graph; the dropout kernel
+              at the step's shape beside torch.native_dropout; a kernel
+              timed faster than its bound fails.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
               and 32 at S=128 through fluid.Executor(CUDAPlace(0)).run with
               random padding, back to back for a fixed window per batch
-              size. Checks: finite outputs, exactly 12 forward launches per
-              request, and one request against the same program and
-              weights run by the port on the CPU. Reports latency p50/p99
-              over every request of the window and sequences/s as all the
-              sequences over all the time spent in Executor.run.
+              size, on the compiled path: per batch size an eager warm-up,
+              a CUDA-graph capture, then one graph replay per request.
+              Checks: every run compiled; finite outputs; exactly 12
+              forward launches per request (through the wrapper in a
+              warm-up or a capture, recorded in the graph for a replay,
+              and counted by name in a profiler trace of one replay); a
+              weight replaced by the caller is copied into the graph's
+              tensor before the next replay; replayed outputs against the
+              interpreter (the oracle) on the card; one request against
+              the port on the CPU. Reports latency p50/p99 over every
+              request of the window and sequences/s as all the sequences
+              over all the time spent in Executor.run, and the
+              interpreter's latency over a shorter window.
   4. train  — build the BERT-base masked-LM pretraining step with the port
               (build_bert_pretrain_program: dropout 0.1, input mask, Adam
               lr 1e-4), run its startup on the card and train at batch 32,
-              S=128, 15 % of positions masked: 3 warm-up steps, then a
-              fixed window of steps, then 10 steps on one repeated batch.
-              Checks: a finite loss every step, exact kernel launches per
-              step (12 forward + 12 forward re-run by the generic grad,
-              12 dK/dV, 12 dQ), the loss falling on the repeated batch, and
-              at batch 2 with dropout 0 one step on the card against the
-              port on the CPU from the same weights (loss and the grads of
-              the word embedding, layer 0's Q weight and the MLM head).
-              Reports step time p50/p90/p99, samples/s and peak device
-              memory (less what earlier phases left allocated).
+              S=128, 15 % of positions masked, compiled: 3 warm-up steps
+              (eager, capture, replay), then a fixed window of replayed
+              steps, then 10 steps on one repeated batch. Checks: every
+              step compiled, a finite loss every step, exact kernel
+              launches per step (12 forward + 12 forward re-run by the
+              generic grad, 12 dK/dV, 12 dQ, one dropout launch per
+              dropout op; for replays as recorded in the graph and in a
+              profiler trace, which must hold device events), dropout
+              masks that
+              differ from step to step under replay, the loss falling on
+              the repeated batch; at batch 2 with dropout 0 one step on
+              the card against the port on the CPU from the same weights
+              (loss and the grads of the word embedding, layer 0's Q
+              weight and the MLM head); at batch 2 with dropout 0.1 three
+              steps compiled (eager, capture, replay) against interpreted
+              (losses, masks). Reports step time p50/p90/p99, samples/s,
+              peak device memory (less what earlier phases left
+              allocated), capture time, and the interpreter's step time
+              and peak memory.
+  5. big    — bench.py's BERT lane: 5 compiled training steps at batch
+              256, or at the largest of 128 and 64 that fits; finite
+              losses, each step's time and the peak device memory.
 
 Output: the card's name and power limit first, results as lines of text,
-then one JSON line {"kernels": [...]} and, last, the JSON result line
+then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
+``launches_by_path``: what the main path ran on the card, replays
+included; ``wrapper_calls_by_path``: the wrappers' counts, warm-ups and
+captures only) and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
 passes over one request of each batch size and over one training step:
@@ -80,12 +105,33 @@ CHECK_BATCH = 2               # card vs CPU step
 LOSS_TOL = 1e-4               # card vs CPU loss, relative: f32 sums in
 GRAD_TOL = 1e-3               # other orders; grads: of each max |grad|,
                               # after 12 layers forward and back
+INTERP_WINDOW_S = 2.0         # seconds served per batch size, interpreted
+INTERP_STEPS = 8              # interpreted training steps (2 warm-up)
+GRAPH_TOL = 1e-6              # graph replay vs interpreted on the card,
+                              # relative: the same kernels in the same
+                              # order, so expected bit for bit
+GRAPH_BATCH = 2               # compiled vs interpreted training steps
+GRAPH_STEPS = 3               # eager warm-up, capture, replay
+BIG_BATCHES = (256, 128, 64)  # bench.py's BERT lane, then what fits
+BIG_STEPS = 5
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
+           "flash_attention_bwd_q", "dropout_fwd")
+DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
+                  "flash_bwd_q_kernel", "dropout_fwd_kernel")
+DROPOUT_TOL = 1e-6            # dropout kernel vs plain, relative: the same
+                              # f32 product, so expected bit for bit
+DROPOUT_SETS = 4              # input sets cycled when timing dropout: 4 x
+                              # 28 MB exceeds the 50 MB L2
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (published)
 # FLOP/s of the card's fastest route to each dtype's product (H100 SXM,
 # dense, published): an f32-accurate product as split TF32, three TF32
 # products for each at 495 TFLOP/s (faster than the CUDA cores' 67);
 # bf16 on the tensor cores at 989
-PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12,
+            # integer ops on the CUDA cores: half the published 67 TFLOP/s
+            # of f32 outside the tensor cores (Hopper issues 64 INT32 and
+            # 128 FP32 lanes per SM and clock)
+            "int32": 67e12 / 2}
 
 
 def _log(*a):
@@ -172,8 +218,8 @@ def _check_bound(name, ms, bound_ms):
 # --------------------------------------------------------------------------
 # a kernel instance's mangled name: <length>flash_..._kernel I <T> Li<D> E
 _PTXAS_ENTRY = re.compile(
-    r"Compiling entry function '\w*?\d(flash_[a-z_]+_kernel)"
-    r"I(f|13__nv_bfloat16)Li(\d+)E")
+    r"Compiling entry function '\w*?\d(flash_[a-z_]+_kernel|"
+    r"dropout_fwd_kernel)I(f|13__nv_bfloat16)(?:Li(\d+))?E")
 
 
 def ptxas_report(text):
@@ -184,7 +230,7 @@ def ptxas_report(text):
         m = _PTXAS_ENTRY.search(line)
         if m:
             cur = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
-                   int(m.group(3)))
+                   int(m.group(3) or 0))
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -202,8 +248,9 @@ def ptxas_report(text):
 def phase_build():
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
-    from paddle_tpu_torch.ops.cuda import build, flash_attention as fa
-    sources = (fa.KERNEL_SOURCE, fa.BWD_KERNEL_SOURCE)
+    from paddle_tpu_torch.ops.cuda import build, dropout as dk
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    sources = (fa.KERNEL_SOURCE, fa.BWD_KERNEL_SOURCE, dk.KERNEL_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -214,7 +261,8 @@ def phase_build():
     for src in sources:
         text = build.build_log.get(src, {}).get("ptxas", "")
         for kern, dt, d, regs, st, ld in ptxas_report(text):
-            _log(f"[build] ptxas {kern} {dt} D={d}: {regs} registers, "
+            _log(f"[build] ptxas {kern} {dt}" + (f" D={d}" if d else "") +
+                 f": {regs} registers, "
                  f"spill stores {st} B, spill loads {ld} B")
 
 
@@ -510,6 +558,77 @@ def phase_kernel_bwd():
     return rows
 
 
+def phase_kernel_dropout():
+    """The dropout kernel against its plain version on the card: the mask
+    exactly and the output within DROPOUT_TOL, at the training step's
+    shape ([32, 128, 768] f32, rate 0.1, both implementations), in bf16,
+    at a size that is no multiple of 4 and on a misaligned view; then
+    timed at the training shape beside its plain version, the library's
+    dropout and its bound, cycling DROPOUT_SETS input sets so that the
+    inputs come from HBM, as they would after the step's other ops."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import dropout as dk
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    shape = (TRAIN_BATCH, S, 768)
+    rate = TRAIN_DROPOUT
+    err = 0.0
+    cases = [("f32 upscale_in_train", shape, torch.float32, True, None),
+             ("f32 downgrade_in_infer", shape, torch.float32, False, None),
+             ("bf16 upscale_in_train", shape, torch.bfloat16, True, None),
+             ("f32 n=4099", (4099,), torch.float32, True, None),
+             ("f32 view at offset 1", (4097,), torch.float32, True, 1)]
+    for i, (what, shp, dt, up, offset) in enumerate(cases):
+        x = torch.randn(shp, generator=gen, device="cuda").to(dt)
+        if offset:
+            x = x[offset:]
+        key = torch.tensor([0xC0FFEE + 7919 * i], dtype=torch.int64,
+                           device="cuda")
+        o, m = dk.dropout_cuda(x, key, rate, up)
+        ro, rm = dk.dropout_reference(x, key, rate, up)
+        torch.cuda.synchronize()
+        e = (o.float() - ro.float()).abs().max().item()
+        scale = ro.float().abs().max().item()
+        ok = torch.equal(m, rm) and e <= DROPOUT_TOL * scale
+        _log(f"[kernel] dropout {what} {tuple(x.shape)}: masks "
+             f"{'equal' if torch.equal(m, rm) else 'DIFFER'}, kept "
+             f"{m.float().mean().item():.4f}, max|d out| {e:.3e} of max "
+             f"{scale:.3e} (tol {DROPOUT_TOL:g} relative) -> "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"dropout kernel disagrees with its plain "
+                                 f"version: {what}")
+        if dt == torch.float32 and offset is None:
+            err = max(err, e)
+    xs = [torch.randn(shape, generator=gen, device="cuda")
+          for _ in range(DROPOUT_SETS)]
+    key = torch.tensor([99], dtype=torch.int64, device="cuda")
+    turn = [0]
+
+    def cycled(fn):
+        def call():
+            turn[0] += 1
+            return fn(xs[turn[0] % DROPOUT_SETS])
+        return call
+    ms = _cuda_ms(cycled(lambda x: dk.dropout_cuda(x, key, rate, True)))
+    plain_ms = _cuda_ms(cycled(
+        lambda x: dk.dropout_reference(x, key, rate, True)))
+    lib_ms = _cuda_ms(cycled(lambda x: torch.native_dropout(x, rate, True)))
+    n = xs[0].numel()
+    # x read once, out (f32) and the mask (uint8) written once, the key
+    # read; the hash's 11 integer operations, the compare and the select
+    # per element, and the product by 1 / (1 - rate)
+    nbytes = n * (4 + 4 + 1) + 8
+    bnd, by = bound(13 * n, nbytes, "int32")
+    _log(f"[kernel] time dropout f32 {shape} rate {rate}: kernel {ms:.4f} "
+         f"ms, plain {plain_ms:.4f} ms, torch.native_dropout (philox: the "
+         f"same distribution, other bits) {lib_ms:.4f} ms, bound "
+         f"{bnd:.4f} ms ({by}: {nbytes} B, {13 * n} integer operations)")
+    _check_bound("dropout", ms, bnd)
+    return dict(shape=f"float32 {list(shape)} rate {rate} upscale_in_train",
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                bound_by=by, max_abs_err=err)
+
+
 # --------------------------------------------------------------------------
 # 3. slice
 # --------------------------------------------------------------------------
@@ -540,26 +659,112 @@ def _request(rng, bs, cfg):
             "input_mask": mask}
 
 
+def _gate_run(exe, delta, want, what):
+    """One Executor.run on the compiled path against the exact kernel
+    launches ``want`` (forward, dK/dV, dQ, dropout) of one request or
+    step. An
+    eager run launches them through the wrappers; a capture launches them
+    through the wrappers into the graph, which must record exactly
+    ``want``; a replay calls no wrapper and launches what its graph
+    recorded. → how the run executed: "eager", "capture" or "replay"."""
+    if exe._last_run_mode != "compiled":
+        raise AssertionError(f"{what} ran {exe._last_run_mode}, "
+                             "want compiled")
+    cb = exe._last_block
+    graph = tuple(cb.graph_launches.get(k, 0) for k in KERNELS)
+    if cb.last_exec == "replay":
+        ok = not any(delta) and graph == want
+    elif cb.last_exec == "capture":
+        ok = delta == want and graph == want
+    else:
+        ok = delta == want
+    if not ok:
+        raise AssertionError(
+            f"{what} ({cb.last_exec}): launches through the wrappers "
+            f"{delta}, recorded in the graph {graph}; want {want} a run")
+    return cb.last_exec
+
+
+def _device_kernel_counts(fn):
+    """(forward, dK/dV, dQ, dropout) kernels the card ran during ``fn()``,
+    counted by name in a torch.profiler trace. A trace that holds no
+    device event at all fails: the gate would rest on the launches
+    recorded at capture alone."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not evts:
+        raise AssertionError("the profiler recorded no device event on the "
+                             "card: the replay's kernels cannot be counted")
+    return tuple(sum(e.count for e in evts if name in e.key)
+                 for name in DEVICE_KERNELS)
+
+
+def _check_trace(counts, want, what):
+    if counts != want:
+        raise AssertionError(f"{what}: the card ran {counts} (forward, "
+                             f"dK/dV, dQ, dropout) kernels, want {want}")
+    _log(f"[graph] {what}: the trace of one replay holds {counts} "
+         "(forward, dK/dV, dQ, dropout) kernels, as recorded")
+
+
+def _agree(what, got, ref):
+    """Graph replay against the interpreter on the card: bitwise, or
+    within GRAPH_TOL of the reference's largest magnitude."""
+    import numpy as np
+    same = np.array_equal(got, ref)
+    err = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    ok = same or err <= GRAPH_TOL * scale
+    _log(f"[graph] {what}, compiled (graph replay) vs interpreted: " +
+         ("bitwise equal" if same else
+          f"max|d| {err:.3e} of max {scale:.3e}") +
+         f" (tol {GRAPH_TOL:g} relative) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the graph replay disagrees with the "
+                             "interpreter")
+    return same
+
+
+def _latency_line(prefix, bs, times):
+    import numpy as np
+    ms = np.asarray(times) * 1e3
+    _log(f"{prefix} {bs:2d}: {len(times)} requests in "
+         f"{ms.sum() / 1e3:.3f} s of Executor.run, "
+         f"{bs * len(times) / (ms.sum() / 1e3):.1f} sequences/s, "
+         f"latency p50 {np.percentile(ms, 50):.3f} ms "
+         f"p99 {np.percentile(ms, 99):.3f} ms "
+         f"max {ms.max():.3f} ms")
+
+
 def phase_slice(profile=False):
+    import collections
     import numpy as np
     import torch
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
     cfg = bert.bert_base_config()
+    L = cfg["layers"]
+    want = (L, 0, 0, 0)
     main, startup, enc = _build_encoder(cfg)
     n_attn = sum(op.type == "fused_attention_qkv"
                  for op in main.global_block().ops)
-    if n_attn != cfg["layers"]:
-        raise AssertionError(f"{n_attn} attention ops, want {cfg['layers']}")
+    if n_attn != L:
+        raise AssertionError(f"{n_attn} attention ops, want {L}")
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     t0 = time.perf_counter()
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in (
-        scope.find_var(v.name).value().array
-        for v in main.global_block().all_parameters()))
+    params = main.global_block().all_parameters()
+    n_params = sum(scope.find_var(v.name).value().array.numel()
+                   for v in params)
     _log(f"[slice] BERT-base encoder: {len(main.global_block().ops)} ops, "
          f"{n_params} parameters, startup on the card "
          f"{time.perf_counter() - t0:.2f} s")
@@ -567,49 +772,108 @@ def phase_slice(profile=False):
     rng = np.random.RandomState(SEED)
     pools = {bs: [_request(rng, bs, cfg) for _ in range(POOL)]
              for bs in SERVE_BATCHES}
-    first = None
+    runs = collections.Counter()
+
+    def request(feed, what):
+        before = _launch_counts()
+        t = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[enc], scope=scope)
+        dt = time.perf_counter() - t
+        delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+        runs[_gate_run(exe, delta, want, what)] += 1
+        if out.shape != (feed["src_ids"].shape[0], S, cfg["hidden"]) \
+                or not np.isfinite(out).all():
+            raise AssertionError(f"bad output {out.shape} "
+                                 f"finite={np.isfinite(out).all()}")
+        return out, dt
+
+    first, replayed = None, {}
     _reset_launch_counts()
-    n_req = 0
     for bs in SERVE_BATCHES:
         pool = pools[bs]
         for i in range(WARMUP):
-            exe.run(main, feed=pool[i], fetch_list=[enc], scope=scope)
-        n_req += WARMUP
+            request(pool[i], f"batch-{bs} warm-up request {i}")
         times, served = [], 0.0
         while served < WINDOW_S:
             feed = pool[len(times) % POOL]
-            before = fa.launch_count
-            t = time.perf_counter()
-            out, = exe.run(main, feed=feed, fetch_list=[enc], scope=scope)
-            times.append(time.perf_counter() - t)
-            served += times[-1]
-            if fa.launch_count - before != cfg["layers"]:
-                raise AssertionError(
-                    f"flash kernel launched {fa.launch_count - before} "
-                    f"times in one request, want {cfg['layers']}")
-            if out.shape != (bs, S, cfg["hidden"]) \
-                    or not np.isfinite(out).all():
-                raise AssertionError(f"bad output {out.shape} "
-                                     f"finite={np.isfinite(out).all()}")
+            out, dt = request(feed, f"a batch-{bs} request")
+            times.append(dt)
+            served += dt
+            replayed.setdefault(bs, (feed, out))
             if first is None:
                 first = (feed, out)
-        n_req += len(times)
-        ms = np.asarray(times) * 1e3
-        _log(f"[slice] batch {bs:2d}: {len(times)} requests in "
-             f"{ms.sum() / 1e3:.3f} s of Executor.run, "
-             f"{bs * len(times) / (ms.sum() / 1e3):.1f} sequences/s, "
-             f"latency p50 {np.percentile(ms, 50):.3f} ms "
-             f"p99 {np.percentile(ms, 99):.3f} ms "
-             f"max {ms.max():.3f} ms")
-    launches, kv_n, q_n = _launch_counts()
-    _log(f"[slice] {n_req} requests, flash kernel launches {launches} "
-         f"(= {cfg['layers']} per request), backward launches {kv_n + q_n}")
-    if kv_n or q_n:
-        raise AssertionError("serving launched a backward kernel")
+        _latency_line("[slice] batch", bs, times)
+    mid = SERVE_BATCHES[len(SERVE_BATCHES) // 2]
+    _check_trace(_device_kernel_counts(
+        lambda: request(pools[mid][1], "a traced request")), want,
+        f"batch-{mid} request")
+    # a caller replaces a weight: the next replay must read the new one
+    w_var = scope.find_var("word_embedding")
+    w = w_var.value().array
+    orig = w.clone()
+    w_var.set_value(fluid.LoDTensor(w * 0.5))
+    new_out, _ = request(pools[mid][2], "a request after a weight was "
+                         "replaced")
+    if exe._last_block.last_exec != "replay" \
+            or scope.find_var("word_embedding").value().array is not w \
+            or not torch.equal(w, orig * 0.5):
+        raise AssertionError("a replaced weight was not copied into the "
+                             "graph's tensor before the replay")
+    launches = _launch_counts()
+    n_runs = sum(runs.values())
+    if launches != tuple((runs["eager"] + runs["capture"]) * x
+                         for x in want):
+        raise AssertionError(f"launches {launches} over runs {dict(runs)}")
+    st = exe.graph_stats()
+    _log(f"[slice] {n_runs} requests, compiled: {runs['eager']} eager "
+         f"warm-ups, {runs['capture']} captures ({st['capture_s']:.2f} s "
+         f"in all), {runs['replay']} replays; flash kernel launches "
+         f"{launches[0]} through the wrapper (warm-ups and captures), "
+         f"{n_runs * L} run on the card (= {L} per request); backward "
+         f"and dropout launches {sum(launches[1:])}")
+
+    # the interpreter on the same weights: replays against the eager plan,
+    # and its own latency in this run
+    iexe, iscope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    for v in params:
+        iscope.var(v.name).set_value(fluid.LoDTensor(
+            scope.find_var(v.name).value().array))
+    fluid.core.set_flag("FLAGS_executor_mode", "interpreted")
+    try:
+        def interp(feed):
+            t = time.perf_counter()
+            out, = iexe.run(main, feed=feed, fetch_list=[enc], scope=iscope)
+            dt = time.perf_counter() - t
+            if iexe._last_run_mode != "interpreted":
+                raise AssertionError("the oracle did not run interpreted")
+            return out, dt
+        _agree(f"batch-{mid} request, word embedding replaced",
+               new_out, interp(pools[mid][2])[0])
+        w.copy_(orig)
+        for bs in SERVE_BATCHES:
+            _agree(f"batch-{bs} request", replayed[bs][1],
+                   interp(replayed[bs][0])[0])
+        # the interpreter's latency, each window followed by a compiled
+        # one of the same length: host-bound latency drifts within a run
+        for bs in SERVE_BATCHES:
+            for mode, label, fn in (
+                    ("interpreted", "interpreted", interp),
+                    ("compiled", "compiled again,",
+                     lambda f: request(f, "a request"))):
+                fluid.core.set_flag("FLAGS_executor_mode", mode)
+                for i in range(2):
+                    fn(pools[bs][i])
+                times = []
+                while sum(times) < INTERP_WINDOW_S:
+                    times.append(fn(pools[bs][len(times) % POOL])[1])
+                _latency_line(f"[slice] {label} batch", bs, times)
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    del iexe, iscope
 
     # the first request again, by the port on the CPU with the same weights
     cpu_scope = fluid.Scope()
-    for v in main.global_block().all_parameters():
+    for v in params:
         cpu_scope.var(v.name).set_value(fluid.LoDTensor(
             scope.find_var(v.name).value().array.cpu()))
     cpu_out, = fluid.Executor(fluid.CPUPlace()).run(
@@ -623,7 +887,9 @@ def phase_slice(profile=False):
     if profile:
         for bs in SERVE_BATCHES:
             _profile(exe, main, enc, scope, pools[bs][0], bs)
-    return launches
+    exe.close()
+    return {"wrapper": launches, "executed": (n_runs * L, 0, 0, 0),
+            "runs": dict(runs)}
 
 
 def _profile(exe, main, enc, scope, feed, bs):
@@ -688,16 +954,29 @@ def _pretrain_program(cfg, dropout):
 
 
 def _launch_counts():
+    from paddle_tpu_torch.ops.cuda import dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    return (fa.launch_count, fa.bwd_kv_launch_count, fa.bwd_q_launch_count)
+    return (fa.launch_count, fa.bwd_kv_launch_count, fa.bwd_q_launch_count,
+            dk.launch_count)
 
 
 def _reset_launch_counts():
+    from paddle_tpu_torch.ops.cuda import dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     fa.launch_count = fa.bwd_kv_launch_count = fa.bwd_q_launch_count = 0
+    dk.launch_count = 0
+
+
+def _dropout_ops(ops):
+    """Dropout ops that draw in a training step (each launches the
+    dropout kernel once)."""
+    return sum(op.type == "dropout" and not op.attr("is_test")
+               for op in ops)
 
 
 def phase_train(profile=False):
+    import collections
+    import gc
     import numpy as np
     import torch
     from paddle_tpu_torch import fluid
@@ -713,12 +992,17 @@ def phase_train(profile=False):
                              f"want {L} each")
     # per step: each attention op launches the forward once; its grad op
     # re-runs the forward under autograd (the generic grad), whose
-    # backward launches the dK/dV and the dQ kernel once each
-    want = (2 * L, L, L)
+    # backward launches the dK/dV and the dQ kernel once each; each
+    # dropout op launches the dropout kernel once (its grad is a mask
+    # product: no re-draw)
+    want = (2 * L, L, L, _dropout_ops(ops))
+    if not want[3]:
+        raise AssertionError("the training step has no dropout op")
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     # what earlier phases of this process left allocated (the cuBLAS
     # workspace of each stream they used) is not the step's memory
+    gc.collect()
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -734,36 +1018,56 @@ def phase_train(profile=False):
 
     rng = np.random.RandomState(SEED + 2)
     pool = [_train_batch(rng, TRAIN_BATCH, cfg) for _ in range(POOL)]
+    mask = [op for op in ops if op.type == "dropout"][0].output("Mask")[0]
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
+    runs = collections.Counter()
 
-    def step(feed):
+    def step(feed, fetch=(loss,)):
         before = _launch_counts()
         t = time.perf_counter()
-        out, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        out = exe.run(main, feed=feed, fetch_list=list(fetch), scope=scope)
         dt = time.perf_counter() - t
-        got = tuple(a - b for a, b in zip(_launch_counts(), before))
-        if got != want:
-            raise AssertionError(f"kernel launches in one step (fwd, dK/dV, "
-                                 f"dQ) = {got}, want {want}")
-        value = float(out.reshape(-1)[0])
+        delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+        runs[_gate_run(exe, delta, want, "a training step")] += 1
+        value = float(out[0].reshape(-1)[0])
         if not np.isfinite(value):
             raise AssertionError(f"non-finite loss {value}")
-        return value, dt
+        return value, dt, out
 
     for i in range(TRAIN_WARMUP):
         step(pool[i])
     times, losses = [], []
     for i in range(TRAIN_WINDOW):
-        value, dt = step(pool[(TRAIN_WARMUP + i) % POOL])
+        value, dt, _ = step(pool[(TRAIN_WARMUP + i) % POOL])
         times.append(dt)
         losses.append(value)
     fall = [step(pool[0])[0] for _ in range(FALL_STEPS)]
-    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated() - before
-    n_steps = TRAIN_WARMUP + TRAIN_WINDOW + FALL_STEPS
-    if launches != tuple(n_steps * w for w in want):
-        raise AssertionError(f"launches {launches} over {n_steps} steps")
+    _check_trace(_device_kernel_counts(lambda: step(pool[1])), want,
+                 "training step")
+    # the fetch list is part of the key: a graph of its own, whose
+    # replays (steps 3 and 4) must draw new masks
+    masks = [step(pool[2 + i], (loss, mask))[2][1] for i in range(4)]
+    if exe._last_block.stats != dict(exe._last_block.stats, eager=1,
+                                     captures=1, replays=3):
+        raise AssertionError(f"mask runs: {exe._last_block.stats}")
+    for i in range(1, 4):
+        for j in range(i):
+            if np.array_equal(masks[i], masks[j]):
+                raise AssertionError(f"steps {j} and {i} drew the same "
+                                     "dropout mask")
+    keep = [float(m.mean()) for m in masks]
+    if not all(abs(k - (1 - TRAIN_DROPOUT)) < 0.01 for k in keep):
+        raise AssertionError(f"kept fractions {keep}")
+    _log(f"[graph] dropout masks of 4 steps (eager, capture, 2 replays) "
+         f"all differ; kept fractions " + " ".join(f"{k:.4f}" for k in keep))
+    launches = _launch_counts()
+    n_runs = sum(runs.values())
+    if launches != tuple((runs["eager"] + runs["capture"]) * w
+                         for w in want):
+        raise AssertionError(f"launches {launches} over runs {dict(runs)}")
+    st = exe.graph_stats()
     ms = np.asarray(times) * 1e3
     _log(f"[train] batch {TRAIN_BATCH}: {TRAIN_WINDOW} steps in "
          f"{ms.sum() / 1e3:.3f} s of Executor.run, "
@@ -775,16 +1079,126 @@ def phase_train(profile=False):
     _log(f"[train] peak device memory {peak / 2**30:.3f} GiB "
          f"(max_memory_allocated over warm-up, window and repeated steps, "
          f"less the {before / 2**30:.3f} GiB allocated before the phase)")
-    _log(f"[train] launches over {n_steps} steps: forward {launches[0]}, "
-         f"dK/dV {launches[1]}, dQ {launches[2]} (= {want} per step)")
+    _log(f"[train] {n_runs} steps, compiled: {runs['eager']} eager "
+         f"warm-ups, {runs['capture']} captures ({st['capture_s']:.2f} s in "
+         f"all), {runs['replay']} replays; launches through the wrappers "
+         f"(warm-ups and captures) forward {launches[0]}, dK/dV "
+         f"{launches[1]}, dQ {launches[2]}, dropout {launches[3]}; run on "
+         f"the card "
+         f"{tuple(n_runs * w for w in want)} (= {want} per step)")
     _log(f"[train] repeated batch, {FALL_STEPS} steps: " +
          " ".join(f"{x:.4f}" for x in fall))
     if not (fall[-1] < fall[0] and np.mean(fall[-3:]) < np.mean(fall[:3])):
         raise AssertionError("the loss does not fall on a repeated batch")
     if profile:
         _profile_step(exe, main, loss, scope, pool[1])
+    exe.close()
+    del exe, scope
+    _interpreted_train(main, startup, loss, pool)
     _check_train_against_cpu(cfg)
-    return launches
+    _check_graph_against_interpreter(cfg)
+    return {"wrapper": launches,
+            "executed": tuple(n_runs * w for w in want), "runs": dict(runs)}
+
+
+
+def _interpreted_train(main, startup, loss, pool):
+    """The oracle's step time and memory in this run, for comparison."""
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fluid.core.set_flag("FLAGS_executor_mode", "interpreted")
+    try:
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        times = []
+        for i in range(INTERP_STEPS):
+            t = time.perf_counter()
+            out, = exe.run(main, feed=pool[i % POOL], fetch_list=[loss],
+                           scope=scope)
+            times.append(time.perf_counter() - t)
+            if exe._last_run_mode != "interpreted" \
+                    or not np.isfinite(out).all():
+                raise AssertionError("the interpreted step failed")
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    peak = torch.cuda.max_memory_allocated() - before
+    ms = np.asarray(times[2:]) * 1e3
+    _log(f"[train] interpreted batch {TRAIN_BATCH}: step p50 "
+         f"{np.percentile(ms, 50):.3f} ms max {ms.max():.3f} ms "
+         f"(n={len(ms)}, after 2 warm-ups); peak device memory "
+         f"{peak / 2**30:.3f} GiB")
+
+
+def _check_graph_against_interpreter(cfg):
+    """GRAPH_STEPS steps at batch GRAPH_BATCH, dropout 0.1, on the card:
+    compiled (eager warm-up, capture, replay) against interpreted, each
+    from its own startup run. The losses agree bitwise or within
+    GRAPH_TOL, the first dropout mask of each step exactly, and the
+    startup weights exactly."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
+    mask = [op for op in main.global_block().ops
+            if op.type == "dropout"][0].output("Mask")[0]
+    rng = np.random.RandomState(SEED + 4)
+    feeds = [_train_batch(rng, GRAPH_BATCH, cfg) for _ in range(GRAPH_STEPS)]
+    params = main.global_block().all_parameters()
+    got, scopes, init = {}, {}, {}
+    try:
+        # the interpreter twice: how far two eager runs of the step drift
+        # apart on their own
+        for mode in ("compiled", "interpreted", "interpreted again"):
+            fluid.core.set_flag("FLAGS_executor_mode", mode.split()[0])
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            exe.run(startup, scope=scope)
+            scopes[mode] = scope
+            init[mode] = [scope.find_var(p.name).value().array.clone()
+                          for p in params]
+            got[mode] = []
+            for f in feeds:
+                got[mode].append(exe.run(main, feed=f,
+                                         fetch_list=[loss, mask],
+                                         scope=scope))
+                got[mode][-1].append(exe._last_run_mode + (
+                    ":" + exe._last_block.last_exec
+                    if mode == "compiled" else ""))
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    for p, a, b in zip(params, init["compiled"], init["interpreted"]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"the two startup runs differ: {p.name}")
+    def param_diff(a, b):
+        """(max |d|, the parameter where it is) between two scopes."""
+        return max((float((scopes[a].find_var(p.name).value().array
+                           - scopes[b].find_var(p.name).value().array)
+                          .abs().max()), p.name) for p in params)
+
+    twice = [float(np.abs(a[0] - b[0]).max()) for a, b in
+             zip(got["interpreted"], got["interpreted again"])]
+    _log(f"[graph] the interpreter against itself, {GRAPH_STEPS} steps: "
+         f"loss max|d| " + " ".join(f"{x:.3e}" for x in twice) +
+         "; parameters max|d| {:.3e} ({})".format(
+             *param_diff("interpreted", "interpreted again")))
+    kinds = [r[2] for r in got["compiled"]]
+    if kinds != ["compiled:eager", "compiled:capture", "compiled:replay"]:
+        raise AssertionError(f"compiled runs {kinds}")
+    for i, (c, r) in enumerate(zip(got["compiled"], got["interpreted"])):
+        _agree(f"training step {i} ({kinds[i]}) loss {float(c[0][0]):.7f}, "
+               f"batch {GRAPH_BATCH} dropout {TRAIN_DROPOUT}", c[0], r[0])
+        if not np.array_equal(c[1], r[1]):
+            raise AssertionError(f"step {i}: dropout masks differ")
+    _log(f"[graph] dropout masks equal at each step; parameters after "
+         f"{GRAPH_STEPS} steps: max|d| " + "{:.3e} ({})".format(
+             *param_diff("compiled", "interpreted")) +
+         f" over {len(params)} tensors")
+
 
 
 def _check_train_against_cpu(cfg):
@@ -862,6 +1276,70 @@ def _profile_step(exe, main, loss, scope, feed):
     attn_ms = sum(e.self_device_time_total for e in attn) / 1e3
     _log(f"[profile] attention kernels {attn_ms:.3f} ms of the step's "
          f"{busy:.3f} ms device time ({100 * attn_ms / busy:.1f}%)")
+    drop = [e for e in top if "dropout_fwd_kernel" in e.key]
+    drop_ms = sum(e.self_device_time_total for e in drop) / 1e3
+    _log(f"[profile] dropout kernel {drop_ms:.3f} ms for "
+         f"{sum(e.count for e in drop)} launches "
+         f"({100 * drop_ms / busy:.2f}% of the step's device time)")
+
+
+def phase_big():
+    """bench.py's BERT lane: BIG_STEPS compiled training steps at batch
+    256 (dropout 0.1, input mask, Adam), or at the largest batch of
+    BIG_BATCHES that fits: finite losses, the steps' times and peak
+    memory."""
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    L = cfg["layers"]
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
+    n_drop = _dropout_ops(main.global_block().ops)
+    for bs in BIG_BATCHES:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        rng = np.random.RandomState(SEED + 5)
+        steps = []
+        try:
+            exe.run(startup, scope=scope)
+            for _ in range(BIG_STEPS):
+                feed = _train_batch(rng, bs, cfg)
+                b = _launch_counts()
+                t = time.perf_counter()
+                out, = exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope)
+                dt = time.perf_counter() - t
+                delta = tuple(x - y for x, y in zip(_launch_counts(), b))
+                kind = _gate_run(exe, delta, (2 * L, L, L, n_drop),
+                                 f"a batch-{bs} step")
+                steps.append((kind, dt * 1e3, float(out.reshape(-1)[0])))
+        except torch.cuda.OutOfMemoryError as e:
+            _log(f"[big] batch {bs}: out of memory after {len(steps)} "
+                 f"steps ({str(e).splitlines()[0][:160]})")
+            exe.close()
+            del exe, scope
+            continue
+        peak = torch.cuda.max_memory_allocated() - before
+        if not all(np.isfinite(x[2]) for x in steps):
+            raise AssertionError(f"batch {bs}: non-finite loss {steps}")
+        _log(f"[big] batch {bs} (bench.py's BERT lane is 256), "
+             f"{BIG_STEPS} compiled steps: " + "; ".join(
+                 f"{k} {ms:.1f} ms loss {x:.4f}" for k, ms, x in steps))
+        _log(f"[big] batch {bs}: peak device memory {peak / 2**30:.3f} GiB "
+             f"(max_memory_allocated less the {before / 2**30:.3f} GiB "
+             f"allocated before), reserved "
+             f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB at most, "
+             f"of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
+             " GiB on the card")
+        exe.close()
+        return bs, peak
+    raise AssertionError(f"no batch of {BIG_BATCHES} fits")
 
 
 # --------------------------------------------------------------------------
@@ -885,32 +1363,39 @@ def main(argv=None) -> int:
     phase_build()
     rows = phase_kernel()
     bwd_rows = phase_kernel_bwd()
-    serve_launches = phase_slice(profile=args.profile)
-    train_launches = phase_train(profile=args.profile)
+    drop_row = phase_kernel_dropout()
+    serve = phase_slice(profile=args.profile)
+    train = phase_train(profile=args.profile)
+    phase_big()
+    # launches: what the training path ran on the card (each warm-up or
+    # capture through the wrappers, each replay as its graph recorded and
+    # as the profiler counted), by path beside it; wrapper_calls: the
+    # wrappers' own counts, which a replay does not move
     f32 = rows[0]
     src = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
-    kernels = [dict(
-        name="flash_attention_fwd", route="cuda",
-        source=src + "flash_attention_fwd.cu", replaces=replaces + "298",
-        launches=train_launches[0],
-        launches_by_path={"serve": serve_launches,
-                          "train": train_launches[0]},
-        **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms", "shape")},
-        timings=rows)]
-    for name, line, n in (("flash_attention_bwd_kv", "514",
-                           train_launches[1]),
-                          ("flash_attention_bwd_q", "543",
-                           train_launches[2])):
-        r = bwd_rows[name]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
+    entries = [("flash_attention_fwd", "flash_attention_fwd.cu",
+                replaces + "298", dict(f32, timings=rows)),
+               ("flash_attention_bwd_kv", "flash_attention_bwd.cu",
+                replaces + "514", bwd_rows["flash_attention_bwd_kv"]),
+               ("flash_attention_bwd_q", "flash_attention_bwd.cu",
+                replaces + "543", bwd_rows["flash_attention_bwd_q"]),
+               # no Pallas kernel: jax.random.bernoulli in an XLA fusion
+               ("dropout_fwd", "dropout.cu", "paddle_tpu/ops/nn_ops.py:263",
+                drop_row)]
+    kernels = []
+    for i, (name, source, repl, r) in enumerate(entries):
         kernels.append(dict(
-            name=name, route="cuda", source=src + "flash_attention_bwd.cu",
-            replaces=replaces + line, launches=n,
-            launches_by_path={"serve": 0, "train": n},
-            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms", "shape",
-                                 "timings")}))
+            name=name, route="cuda", source=src + source, replaces=repl,
+            launches=train["executed"][i],
+            launches_by_path={"serve": serve["executed"][i],
+                              "train": train["executed"][i]},
+            wrapper_calls_by_path={"serve": serve["wrapper"][i],
+                                   "train": train["wrapper"][i]},
+            **{k: r[k] for k in keys},
+            **({"timings": r["timings"]} if "timings" in r else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -341,6 +341,11 @@ class _GlobalFlags:
         # accumulation (the TPU package's MXU mode; on the GPU it runs
         # through bf16 tensor cores)
         "FLAGS_use_bf16_matmul": False,
+        # Executor.run: "compiled" plans each block once and, on the GPU,
+        # replays it as one CUDA graph; "interpreted" runs op by op over
+        # the scope (the oracle). Counterpart of the TPU package's flag
+        # (core.py:1542).
+        "FLAGS_executor_mode": "compiled",
     }
 
     def __init__(self):

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from . import rng
 from .registry import register_op, first, out
 from .math_ops import bf16_matmul_enabled
 from .cuda.flash_attention import flash_attention
@@ -51,7 +52,7 @@ def _merge_heads(x):
 
 
 def _einsum_attention(q, k, v, scale, bias, causal=False, drop=0.0,
-                      rng=None):
+                      key=None):
     """Plain attention for biases the kernel does not take, with the same
     f32-accumulation contract: scores and softmax in f32, P rounded to the
     operand dtype before the PV product."""
@@ -65,7 +66,7 @@ def _einsum_attention(q, k, v, scale, bias, causal=False, drop=0.0,
         s = s.masked_fill(~mask, torch.finfo(torch.float32).min)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     if drop > 0.0:
-        keep = torch.rand(p.shape, generator=rng, device=p.device) >= drop
+        keep = rng.keep_mask(key, p.shape, drop)
         p = torch.where(keep, p / (1.0 - drop),
                         torch.zeros((), dtype=p.dtype, device=p.device))
     return torch.matmul(p.float(), v.float())
@@ -79,8 +80,9 @@ def _fused_attention_qkv(ins, attrs):
     """Optional Bias: additive attention mask broadcastable to
     [B, H, Sq, Sk] (e.g. padding mask [B, 1, 1, Sk]). Causal masking is
     top-left aligned (query i sees keys <= i) on both paths. Attention
-    dropout draws its seed (kernel path) or its mask (einsum path) from
-    the op's generator; at rate 0 nothing is drawn."""
+    dropout takes its seed (kernel path: an int32 device tensor, so a
+    replayed CUDA graph reads each step's seed) or its mask (einsum path)
+    from the op's key; at rate 0 nothing is drawn."""
     q = first(ins, "Q")
     k = first(ins, "K")
     v = first(ins, "V")
@@ -95,11 +97,7 @@ def _fused_attention_qkv(ins, attrs):
     drop = float(attrs.get("dropout_rate", 0.0) or 0.0)
     kp_bias = _keypad_bias(bias, qh, kh)
     if bias is None or kp_bias is not None:
-        seed = None
-        if drop > 0.0:
-            gen = attrs["_rng"]()
-            seed = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32,
-                                 generator=gen, device=gen.device)
+        seed = rng.attention_seed(attrs["_rng"]()) if drop > 0.0 else None
         o = flash_attention(qh, kh, vh, sm_scale, causal, dropout_rate=drop,
                             dropout_seed=seed, bias=kp_bias)
     else:

@@ -46,6 +46,16 @@ launch_count = 0
 bwd_kv_launch_count = 0
 bwd_q_launch_count = 0
 
+
+def launch_counts():
+    """Each kernel's launch count by name. A CUDA graph replays the
+    launches it captured without calling a wrapper: the executor reads
+    these counts around a capture to know what each replay launches."""
+    return {"flash_attention_fwd": launch_count,
+            "flash_attention_bwd_kv": bwd_kv_launch_count,
+            "flash_attention_bwd_q": bwd_q_launch_count}
+
+
 _M32 = 0xFFFFFFFF
 
 

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from .cuda import dropout as cuda_dropout
 from .registry import register_grad_maker, register_op, first, out
 
 
@@ -94,24 +95,19 @@ def _softmax_with_cross_entropy(ins, attrs):
                             "dropout_implementation": "downgrade_in_infer",
                             "fix_seed": False, "seed": 0})
 def _dropout(ins, attrs):
-    """Keeps each element with probability 1 - dropout_prob, drawn from
-    the op's generator (the TPU package draws from jax.random: the same
-    distribution, other bits)."""
+    """Keeps each element with probability 1 - dropout_prob, a
+    counter-based draw from the op's key (ops/rng.py; the TPU package
+    draws from jax.random: the same distribution, other bits), in one
+    kernel on the card (ops/cuda/dropout.py)."""
     x = first(ins, "X")
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
     if attrs.get("is_test", False):
         o = x if impl == "upscale_in_train" else x * (1.0 - p)
         return out(Out=o, Mask=torch.ones_like(x, dtype=torch.uint8))
-    gen = attrs["_rng"]()
-    keep = torch.rand(x.shape, generator=gen, device=gen.device) < 1.0 - p
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    if impl == "upscale_in_train":
-        o = torch.where(keep, x / max(1.0 - p, 1e-10), zero) if p < 1.0 \
-            else torch.zeros_like(x)
-    else:
-        o = torch.where(keep, x, zero)
-    return out(Out=o, Mask=keep.to(torch.uint8))
+    o, mask = cuda_dropout.dropout(x, attrs["_rng"](), p,
+                                   impl == "upscale_in_train")
+    return out(Out=o, Mask=mask)
 
 
 @register_op("dropout_grad", no_grad=True)

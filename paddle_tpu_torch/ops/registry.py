@@ -4,7 +4,14 @@ op_registry.h:223).
 Every op has ONE kernel ``kernel(ins, attrs) -> outs`` over torch
 tensors, which the executor applies op by op. Device placement follows
 the input tensors; ops that create tensors from nothing take the device
-from ``attrs["_device"]`` and their random stream from ``attrs["_rng"]()``.
+from ``attrs["_device"]`` and their random key from ``attrs["_rng"]()``.
+
+What the executor's compiled step needs to know of an op (counterpart of
+the TPU package's registry.py:48-71): ``stateful`` (side effects beyond
+its outputs: the block runs interpreted) and ``host_inputs`` (input slots
+whose VALUES the kernel reads on the host, such as a shape tensor: a
+block that connects one of them runs interpreted, since a CUDA graph
+cannot replay a host read).
 
 Gradients (counterpart of the TPU package's registry.py:201-321): by
 default an op's grad is derived mechanically from its forward kernel.
@@ -20,9 +27,9 @@ Kernel calling convention:
     ins:   dict slot_name -> list of tensors (or None for absent
            dispensable slots).
     attrs: dict of python attr values. The executor injects:
-           ``_rng``    (a callable returning the op's torch.Generator on
-                       its device, built on first call) if the op
-                       declared needs_rng,
+           ``_rng``    (a callable returning the op's random key, an
+                       int64 [1] tensor on its device, derived on first
+                       call: ops/rng.py) if the op declared needs_rng,
            ``_device`` (torch.device) if the op declared needs_device.
     returns: dict slot_name -> list of tensors.
 """
@@ -41,8 +48,9 @@ def grad_var_name(name: str) -> str:
 
 class OpInfo:
     __slots__ = ("type", "kernel", "infer_shape", "grad_maker", "no_grad",
-                 "needs_rng", "needs_device", "diff_input_slots",
-                 "attr_defaults", "input_slots", "output_slots")
+                 "needs_rng", "needs_device", "stateful", "diff_input_slots",
+                 "attr_defaults", "input_slots", "output_slots",
+                 "host_inputs")
 
     def __init__(self, type_: str):
         self.type = type_
@@ -53,10 +61,12 @@ class OpInfo:
         self.no_grad = False
         self.needs_rng = False
         self.needs_device = False
+        self.stateful = False
         self.diff_input_slots: Optional[Sequence[str]] = None
         self.attr_defaults: Dict[str, Any] = {}
         self.input_slots: Optional[Sequence[str]] = None
         self.output_slots: Optional[Sequence[str]] = None
+        self.host_inputs: Sequence[str] = ()
 
 
 class OpInfoMap:
@@ -98,12 +108,13 @@ def resolve_base_info(op_type: str) -> Optional[OpInfo]:
 
 
 def register_op(type_: str, *, no_grad: bool = False, needs_rng: bool = False,
-                needs_device: bool = False,
+                needs_device: bool = False, stateful: bool = False,
                 diff_inputs: Optional[Sequence[str]] = None,
                 infer_shape: Optional[Callable] = None,
                 attr_defaults: Optional[Dict[str, Any]] = None,
                 inputs: Optional[Sequence[str]] = None,
-                outputs: Optional[Sequence[str]] = None):
+                outputs: Optional[Sequence[str]] = None,
+                host_inputs: Optional[Sequence[str]] = None):
     """Decorator registering a forward kernel under op name ``type_``."""
     def deco(fn: Callable):
         info = OPS.get_or_create(type_)
@@ -111,11 +122,13 @@ def register_op(type_: str, *, no_grad: bool = False, needs_rng: bool = False,
         info.no_grad = no_grad
         info.needs_rng = needs_rng
         info.needs_device = needs_device
+        info.stateful = stateful
         info.diff_input_slots = diff_inputs
         info.infer_shape = infer_shape
         info.attr_defaults = dict(attr_defaults or {})
         info.input_slots = inputs
         info.output_slots = outputs
+        info.host_inputs = tuple(host_inputs or ())
         return fn
     return deco
 

@@ -3,9 +3,14 @@ paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value,
 uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
 unsqueeze2, gather).
 
-Random ops draw from the ``torch.Generator`` that ``attrs["_rng"]()``
-returns (the executor builds it on first call, seeded from the program's random_seed, the step and
-the op index) — no global RNG state is read or advanced.
+Random ops draw from the key that ``attrs["_rng"]()`` returns (the
+executor derives it on the device from the program's random_seed, the
+step and the op index) through the counter-based draws of ops/rng.py — no
+generator state is read or advanced.
+
+Ops that take a shape from a tensor (``ShapeTensor``, ``ShapeTensorList``,
+reshape2's ``Shape``) read its values on the host: they declare those
+slots as ``host_inputs``, and a block that connects one runs interpreted.
 """
 from __future__ import annotations
 
@@ -13,7 +18,10 @@ import math
 
 import torch
 
+from . import rng
 from .registry import register_op, first, seq, out
+
+_SHAPE_TENSORS = ("ShapeTensor", "ShapeTensorList")
 
 
 def _dtype(attrs):
@@ -37,7 +45,7 @@ def _shape_from(ins, attrs, key="shape"):
 # --------------------------------------------------------------------------
 @register_op("fill_constant",
              inputs=("ShapeTensor", "ShapeTensorList", "ValueTensor"),
-             no_grad=True, needs_device=True,
+             no_grad=True, needs_device=True, host_inputs=_SHAPE_TENSORS,
              attr_defaults={"value": 0.0, "shape": [], "dtype": 5,
                             "str_value": ""})
 def _fill_constant(ins, attrs):
@@ -66,33 +74,35 @@ def _assign_value(ins, attrs):
 # --------------------------------------------------------------------------
 # random
 # --------------------------------------------------------------------------
-@register_op("uniform_random", needs_rng=True, needs_device=True,
+@register_op("uniform_random", needs_rng=True,
              no_grad=True, inputs=("ShapeTensor", "ShapeTensorList"),
+             host_inputs=_SHAPE_TENSORS,
              attr_defaults={"shape": [], "min": -1.0, "max": 1.0, "seed": 0,
                             "dtype": 5})
 def _uniform_random(ins, attrs):
     shape = _shape_from(ins, attrs)
-    o = torch.empty(shape, dtype=_dtype(attrs), device=attrs["_device"])
-    return out(Out=o.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
-                              generator=attrs["_rng"]()))
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    u = rng.uniform(attrs["_rng"](), shape)
+    return out(Out=(lo + (hi - lo) * u).to(_dtype(attrs)))
 
 
-@register_op("gaussian_random", needs_rng=True, needs_device=True,
+@register_op("gaussian_random", needs_rng=True,
              no_grad=True, inputs=("ShapeTensor", "ShapeTensorList"),
+             host_inputs=_SHAPE_TENSORS,
              attr_defaults={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
                             "dtype": 5})
 def _gaussian_random(ins, attrs):
     shape = _shape_from(ins, attrs)
-    o = torch.empty(shape, dtype=_dtype(attrs), device=attrs["_device"])
-    return out(Out=o.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
-                             generator=attrs["_rng"]()))
+    z = rng.normal(attrs["_rng"](), shape)
+    return out(Out=(attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z)
+               .to(_dtype(attrs)))
 
 
 def _normal_cdf(x):
     return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
 
 
-@register_op("truncated_gaussian_random", needs_rng=True, needs_device=True,
+@register_op("truncated_gaussian_random", needs_rng=True,
              no_grad=True,
              attr_defaults={"shape": [], "mean": 0.0, "std": 1.0, "seed": 0,
                             "dtype": 5})
@@ -101,8 +111,8 @@ def _truncated_gaussian_random(ins, attrs):
     method jax.random.truncated_normal uses), then mean + std·t."""
     shape = [int(s) for s in attrs["shape"]]
     lo, hi = _normal_cdf(-2.0), _normal_cdf(2.0)
-    u = torch.empty(shape, dtype=torch.float32, device=attrs["_device"])
-    u.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=attrs["_rng"]())
+    u = (2.0 * lo - 1.0) + (2.0 * (hi - lo)) * rng.uniform(attrs["_rng"](),
+                                                           shape)
     t = torch.clamp(math.sqrt(2.0) * torch.erfinv(u), -2.0, 2.0)
     return out(Out=(attrs.get("mean", 0.0)
                     + attrs.get("std", 1.0) * t).to(_dtype(attrs)))
@@ -128,6 +138,7 @@ def _xshape(x):
 
 
 @register_op("reshape2", inputs=("X", "Shape", "ShapeTensor"),
+             host_inputs=("Shape",) + _SHAPE_TENSORS,
              attr_defaults={"shape": []})
 def _reshape2(ins, attrs):
     x = first(ins, "X")

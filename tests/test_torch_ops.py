@@ -163,17 +163,80 @@ def test_multihead_matmul(layout, bias_kind):
 
 
 def test_fused_attention_dropout_draws_from_generator():
-    """Rate > 0 draws the kernel seed from the op's generator: the same
-    generator state gives the same output, another state another one."""
+    """Rate > 0 takes the kernel seed from the op's random key: the same
+    key gives the same output, another key another one."""
     r = _r(9)
     q, k, v = (torch.from_numpy(r.normal(size=(B, S, H * D)).astype(
         np.float32)) for _ in range(3))
     kern = TOPS.get("fused_attention_qkv").kernel
 
     def run(seed):
-        g = torch.Generator().manual_seed(seed)
+        key = torch.tensor([seed], dtype=torch.int64)
         return kern({"Q": [q], "K": [k], "V": [v]},
                     {"num_heads": H, "dropout_rate": 0.3, "causal": False,
-                     "_rng": lambda: g})["Out"][0]
+                     "_rng": lambda: key})["Out"][0]
     a, b, c = run(1), run(1), run(2)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+# ------------------------------------------------ the dropout kernel module
+@pytest.mark.parametrize("impl", ["upscale_in_train", "downgrade_in_infer"])
+def test_dropout_op_against_jax(impl):
+    """The dropout op on a CPU tensor runs the plain version of
+    ops/cuda/dropout.py: the counter-hash mask of ops/rng.py, no kernel
+    launch. Against the TPU package's op on the same x: the masks are
+    other bits (jax.random) with the same keep fraction, and where both
+    keep, the outputs agree to 1e-5."""
+    import jax
+    from paddle_tpu_torch.ops import rng as trng
+    from paddle_tpu_torch.ops.cuda import dropout as cuda_dropout
+    x = _r(11).normal(size=(64, 256)).astype(np.float32)
+    attrs = {"dropout_prob": 0.1, "dropout_implementation": impl}
+    key = torch.tensor([12345], dtype=torch.int64)
+    before = cuda_dropout.launch_count
+    tout = TOPS.get("dropout").kernel(
+        {"X": [torch.from_numpy(x)]}, dict(attrs, _rng=lambda: key))
+    assert cuda_dropout.launch_count == before
+    jout = JOPS.get("dropout").kernel(
+        {"X": [jnp.asarray(x)]}, dict(attrs, _rng=jax.random.PRNGKey(3)))
+    tm, jm = tout["Mask"][0].numpy(), np.asarray(jout["Mask"][0])
+    assert np.array_equal(tm, trng.keep_mask(key, x.shape, 0.1).numpy())
+    assert abs(tm.mean() - 0.9) < 0.01 and abs(jm.mean() - 0.9) < 0.01
+    both = (tm == 1) & (jm == 1)
+    np.testing.assert_allclose(tout["Out"][0].numpy()[both],
+                               np.asarray(jout["Out"][0])[both],
+                               rtol=TOL, atol=TOL)
+    assert not tout["Out"][0].numpy()[tm == 0].any()
+
+
+def test_dropout_kernel_wrapper_takes_cuda_tensors_only():
+    from paddle_tpu_torch.ops.cuda import dropout as cuda_dropout
+    x = torch.ones(8)
+    key = torch.tensor([1], dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_dropout.dropout_cuda(x, key, 0.1, True)
+    o, m = cuda_dropout.dropout(x, key, 0.1, True)
+    ro, rm = cuda_dropout.dropout_reference(x, key, 0.1, True)
+    assert torch.equal(o, ro) and torch.equal(m, rm)
+
+
+def test_dropout_kernel_hashes_as_the_plain_version():
+    """The kernel's hash (csrc/dropout.cu, `bits24`) has ops/rng.py's
+    constants and shifts, in its order: the two draw the same bits."""
+    import os
+    import re
+    from paddle_tpu_torch.ops import rng as trng
+    from paddle_tpu_torch.ops.cuda import build
+    src = open(os.path.join(build.CSRC, "dropout.cu")).read()
+    consts = dict(re.findall(r"constexpr uint32_t (C\d) = (0x[0-9A-F]+)u;",
+                             src))
+    assert int(consts["C1"], 16) == trng._C1
+    assert int(consts["C2"], 16) == trng._C2
+    body = src[src.index("uint32_t bits24("):]
+    body = body[:body.index("}")]
+    assert "uint32_t x = i ^ key;" in body
+    steps = re.findall(r"x (\^|\*)= (key|x >> \d+|C\d)|return x >> (\d+)",
+                       body)
+    assert steps == [("^", "x >> 16", ""), ("*", "C1", ""),
+                     ("^", "key", ""), ("^", "x >> 15", ""),
+                     ("*", "C2", ""), ("^", "x >> 15", ""), ("", "", "8")]

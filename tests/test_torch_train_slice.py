@@ -34,7 +34,7 @@ from paddle_tpu.ops.pallas import flash_attention as fa
 from paddle_tpu.ops.registry import OPS as JOPS
 from paddle_tpu.ops.registry import run_generic_grad as j_generic_grad
 from paddle_tpu_torch import fluid as tfluid
-from paddle_tpu_torch.fluid import executor as texecutor
+from paddle_tpu_torch.ops import rng as trng
 from paddle_tpu_torch.fluid.param_bridge import set_params_from_numpy
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
@@ -143,7 +143,7 @@ def _grad_both(op_type, ins, attrs, tol=OP_TOL):
     ``<slot>@GRAD`` compared."""
     tattrs = dict(TOPS.get(op_type).attr_defaults, **attrs)
     jattrs = dict(JOPS.get(op_type).attr_defaults, **attrs)
-    tattrs["_rng"] = lambda: torch.Generator().manual_seed(0)
+    tattrs["_rng"] = lambda: torch.zeros(1, dtype=torch.int64)
     jattrs["_rng"] = jax.random.key(0)
     tins = {s: [None if a is None else torch.from_numpy(np.asarray(a))]
             for s, a in ins.items()}
@@ -273,9 +273,9 @@ def test_dropout_mask_contract_and_grad(impl):
     p = 0.3
     attrs = dict(TOPS.get("dropout").attr_defaults, dropout_prob=p,
                  dropout_implementation=impl)
-    gen = torch.Generator().manual_seed(3)
+    key = torch.tensor([3], dtype=torch.int64)
     outs = TOPS.get("dropout").kernel({"X": [torch.from_numpy(x)]},
-                                      dict(attrs, _rng=lambda: gen))
+                                      dict(attrs, _rng=lambda: key))
     mask = outs["Mask"][0]
     assert mask.dtype == torch.uint8
     scale = 1.0 / (1.0 - p) if impl == "upscale_in_train" else 1.0
@@ -368,7 +368,8 @@ def test_l2_decay_regularization_matches_jax():
 # --------------------------------------------------- golden trajectories
 def _run_encoder_golden(fixture, make_optimizer, prefix):
     """tests/test_book_models.py's encoder-layer golden harness, built with
-    the port on the CPU."""
+    the port on the CPU: → (losses, golden losses, the executor's
+    ``_last_run_mode``)."""
     fluid = tfluid
     fx = np.load(os.path.join(FIXTURES, fixture))
     ini = fluid.initializer.NumpyArrayInitializer
@@ -415,7 +416,7 @@ def _run_encoder_golden(fixture, make_optimizer, prefix):
                                    "t": fx["T"].astype("float32")},
                        fetch_list=[loss], scope=scope)
         got.append(float(np.asarray(l).ravel()[0]))
-    return got, fx["losses"]
+    return got, fx["losses"], exe._last_run_mode
 
 
 @pytest.mark.parametrize("fixture,opt,prefix", [
@@ -426,7 +427,8 @@ def _run_encoder_golden(fixture, make_optimizer, prefix):
                                    epsilon=1e-8), "gea"),
 ])
 def test_encoder_golden_trajectory(fixture, opt, prefix):
-    got, golden = _run_encoder_golden(fixture, opt, prefix)
+    got, golden, run_mode = _run_encoder_golden(fixture, opt, prefix)
+    assert run_mode == "compiled"  # the default path
     np.testing.assert_allclose(got, golden, rtol=1e-4, atol=1e-5)
 
 
@@ -472,8 +474,8 @@ def test_attention_dropout_grads_use_the_forward_seed():
     under autograd; it must draw the forward's dropout seed, or the
     backward regenerates another mask and training is silently wrong. The
     executor's Out and grads must equal a direct autograd of
-    ``flash_attention`` with the seed drawn from the forward op's
-    generator, and differ from those of any other seed."""
+    ``flash_attention`` with the seed of the forward op's key, and differ
+    from those of any other seed."""
     h, d, bsz, s = 2, 8, 2, 16
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
@@ -501,9 +503,9 @@ def test_attention_dropout_grads_use_the_forward_seed():
 
     def direct(idx):
         """Out and grads with the seed op ``idx`` would draw in step 0."""
-        gen = torch.Generator().manual_seed(texecutor._mix64(77, 0, idx))
-        seed = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32,
-                             generator=gen)
+        step_key = trng.step_key(77, torch.zeros(1, dtype=torch.int64))
+        seed = trng.attention_seed(trng.op_keys(
+            step_key, trng.hashed_indices([idx], "cpu")))
         tq, tk, tv = (torch.from_numpy(feed[n]).reshape(bsz, s, h, d)
                       .permute(0, 2, 1, 3).contiguous().requires_grad_()
                       for n in "qkv")
