@@ -9,17 +9,25 @@ Phases, each fatal on failure:
               kernels (dQ, dK, dV) and the dropout kernel (mask and
               output), over BERT-base shapes in f32 and bf16
               with a key-padding bias, ragged S/Sk, causal, a dead row,
-              dropout 0.1 and head dims 8 to 128; time each kernel, its
+              dropout 0.1, head dims 8 to 128 (40 and 96 zero-padded to
+              the next instance), B·H above 65535 and the bench lane's
+              shape (batch 256, bf16, no bias); time each kernel, its
               plain version and one PyTorch library call as a yardstick
               (scaled_dot_product_attention, and its backward): the
-              forward at the served shape (batch 8) and the trained one
-              (batch 32, also with dropout 0.1), the backward kernels at
-              batch 32 in f32 (also with dropout 0.1) and bf16, each beside
-              its bound and what sets it; the whole backward of SDPA and
-              of the port timed alike, as (forward + backward) minus the
-              forward, each captured in a CUDA graph; the dropout kernel
-              at the step's shape beside torch.native_dropout; a kernel
-              timed faster than its bound fails.
+              forward at the served shape (batch 8), the trained one
+              (batch 32, also with dropout 0.1) and the lane's, the
+              backward kernels at batch 32 in f32 (also with dropout 0.1)
+              and bf16 and at the lane's shape, each beside its bound and
+              what sets it; the whole backward of SDPA and of the port
+              timed alike, as (forward + backward) minus the forward, each
+              captured in a CUDA graph, and bwd_delta alone; the dropout
+              kernel at the step's shape beside torch.native_dropout; a
+              kernel timed faster than its bound fails. Then the
+              attention op's route: at D = 96 the kernels (one launch
+              each, forward and backward, against the plain versions); a
+              bias the kernels do not take, the einsum path with the flash
+              kernels' dropout mask; D = 192 and f16, which have no kernel
+              instance, raise and launch nothing.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -54,15 +62,32 @@ Phases, each fatal on failure:
               the repeated batch; at batch 2 with dropout 0 one step on
               the card against the port on the CPU from the same weights
               (loss and the grads of the word embedding, layer 0's Q
-              weight and the MLM head); at batch 2 with dropout 0.1 three
+              weight and the MLM head); the backward of the step's index
+              ops (gather_grad, lookup_table_v2's grad) 20 times on the
+              same inputs, bitwise alike; at batch 2 with dropout 0.1 three
               steps compiled (eager, capture, replay) against interpreted
-              (losses, masks). Reports step time p50/p90/p99, samples/s,
+              and interpreted again: masks equal, parameters bitwise
+              equal. Reports step time p50/p90/p99, samples/s,
               peak device memory (less what earlier phases left
               allocated), capture time, and the interpreter's step time
               and peak memory.
-  5. big    — bench.py's BERT lane: 5 compiled training steps at batch
-              256, or at the largest of 128 and 64 that fits; finite
-              losses, each step's time and the peak device memory.
+  5. window — Executor.run(n_steps=4) on BERT-base at batch 2, dropout
+              0.1: a window of 4 distinct batches against 4 single
+              compiled runs and 4 interpreted runs, fetches and parameters
+              bitwise; the window's kernel launches as its graph recorded
+              them and a profiler trace of one more replay counts them; a
+              window of the same feeds stacked (compiled) or the final
+              step's (interpreted).
+  6. lane   — bench.py's two lanes through paddle_tpu_torch.bench (the
+              port's ``python3 -m paddle_tpu_torch.bench``): BERT-base in
+              bf16 at batch 256 (OOM ladder 256/128/64/32), dropout 0, 20
+              steps as one window after a warm one, and the MNIST MLP at
+              batch 256, 60 steps; each prints its JSON line. Checks: a
+              finite loss, the compiled path, a timed window of replays
+              only, and (24, 12, 12, 0) forward, dK/dV, dQ and dropout
+              kernels in a profiler trace of one replayed BERT step. Then
+              each lane's window again with FLAGS_feed_device_cache on
+              and off in turn (every feed a cache hit when on).
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -112,8 +137,9 @@ GRAPH_TOL = 1e-6              # graph replay vs interpreted on the card,
                               # order, so expected bit for bit
 GRAPH_BATCH = 2               # compiled vs interpreted training steps
 GRAPH_STEPS = 3               # eager warm-up, capture, replay
-BIG_BATCHES = (256, 128, 64)  # bench.py's BERT lane, then what fits
-BIG_STEPS = 5
+LANE_BATCH = 256              # bench.py's BERT lane (bf16, no bias)
+BIG_BH = (5462, 12)           # B·H = 65544, above gridDim.y's 65535
+WINDOW_K = 4                  # steps of phase_window's windows
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
            "flash_attention_bwd_q", "dropout_fwd")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
@@ -195,14 +221,14 @@ def bound(flop, nbytes, dtype):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def fwd_bound(B, H, S, Sk, D, dtype):
+def fwd_bound(B, H, S, Sk, D, dtype, bias=True):
     """(bound_ms, bound_by, flop, bytes) of the forward with a key-padding
-    bias: 4·B·H·S·Sk·D FLOP; q, k, v and the bias read once, o and lse
-    written once."""
+    bias (or without, ``bias`` False): 4·B·H·S·Sk·D FLOP; q, k, v and the
+    bias read once, o and lse written once."""
     elt = 4 if dtype == "float32" else 2
     flop = 4 * B * H * S * Sk * D
     nbytes = (2 * B * H * S * D + 2 * B * H * Sk * D) * elt \
-        + B * Sk * 4 + B * H * S * 4
+        + B * Sk * 4 * bias + B * H * S * 4
     return (*bound(flop, nbytes, dtype), flop, nbytes)
 
 
@@ -347,23 +373,38 @@ def phase_kernel():
     _check("dropout 0.1 seed 1234 causal bias", *both(
         q, k, v, sm, causal=True, rate=0.1, seed=seed,
         bias=_padding_bias(2, 256, gen)), F32_TOL)
-    for d in (8, 16, 32, 128):
+    # head dims off the kernels' instances (40, 96) run zero-padded
+    for d in (8, 16, 32, 40, 96, 128):
         q, k, v = _qkv(2, 2, 96, 80, d, f32, gen)
         _check(f"head dim {d}", *both(q, k, v, d ** -0.5,
                                       bias=_padding_bias(2, 80, gen)),
                F32_TOL)
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         _check(f"head dim {d} bf16", *both(q, k, v, d ** -0.5), BF16_TOL)
+    # B·H above 65535, gridDim.y's limit: one linear grid takes it
+    q, k, v = _qkv(BIG_BH[0], BIG_BH[1], 16, 16, 64, f32, gen)
+    _check(f"B*H = {BIG_BH[0] * BIG_BH[1]} S=Sk=16 bias dropout 0.1", *both(
+        q, k, v, sm, rate=0.1, seed=seed,
+        bias=_padding_bias(BIG_BH[0], 16, gen)), F32_TOL)
+    del q, k, v
+    # the bench lane's shape
+    q, k, v = _qkv(LANE_BATCH, H, S, S, D, torch.bfloat16, gen)
+    errs["lane"] = _check(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} "
+                          "bf16 no bias", *both(q, k, v, sm), BF16_TOL)
+    del q, k, v
 
-    # time the served shape (batch 8, f32 and bf16) and the trained one
-    # (batch 32, f32, also with dropout 0.1), SDPA beside each
+    # time the served shape (batch 8, f32 and bf16), the trained one
+    # (batch 32, f32, also with dropout 0.1) and the bench lane's (batch
+    # 256, bf16, no bias), SDPA beside each
     rows = []
-    for bs, dt, rate in ((B, torch.float32, 0.0), (B, torch.bfloat16, 0.0),
-                         (TRAIN_BATCH, torch.float32, 0.0),
-                         (TRAIN_BATCH, torch.float32, 0.1)):
+    for bs, dt, rate, with_bias in (
+            (B, torch.float32, 0.0, True), (B, torch.bfloat16, 0.0, True),
+            (TRAIN_BATCH, torch.float32, 0.0, True),
+            (TRAIN_BATCH, torch.float32, 0.1, True),
+            (LANE_BATCH, torch.bfloat16, 0.0, False)):
         q, k, v = _qkv(bs, H, S, S, D, dt, gen)
-        bias = _padding_bias(bs, S, gen)
-        mask = bias[:, None, None, :].to(dt)
+        bias = _padding_bias(bs, S, gen) if with_bias else None
+        mask = None if bias is None else bias[:, None, None, :].to(dt)
 
         def kernel():
             return fa.flash_attention_cuda(q, k, v, sm, False, rate, seed,
@@ -377,8 +418,10 @@ def phase_kernel():
         lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=rate, scale=sm))
         name = str(dt).replace("torch.", "")
-        bound_ms, bound_by, ops, nbytes = fwd_bound(bs, H, S, S, D, name)
-        what = f"{name} B={bs} H={H} S={S} D={D} bias" + (
+        bound_ms, bound_by, ops, nbytes = fwd_bound(bs, H, S, S, D, name,
+                                                    with_bias)
+        what = f"{name} B={bs} H={H} S={S} D={D}" + (
+            " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
         _log(f"[kernel] time forward {what}: kernel {ms:.4f} ms (issued "
              f"one by one from Python {eager_ms:.4f} ms), plain "
@@ -389,7 +432,9 @@ def phase_kernel():
                          plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
                          bound_by=bound_by,
-                         max_abs_err=errs[str(dt)]))
+                         max_abs_err=errs[str(dt) if with_bias
+                                          else "lane"]))
+        del q, k, v
     return rows
 
 
@@ -408,16 +453,17 @@ def _check_bwd(name, got, want, tol):
     return errs
 
 
-def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32"):
+def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
+               bias=True):
     """(bound_ms, bound_by, flop, bytes) of a backward function doing
     ``flop_units``·B·H·S·Sk·D FLOP of ``dtype`` products that reads q, k,
-    v, dO, lse, delta and the bias once and writes ``n_out`` outputs of
-    q's or k's size once (n_out: "q" = dQ, "kv" = dK and dV, "qkv" =
-    all)."""
+    v, dO, lse, delta and the bias (if ``bias``) once and writes ``n_out``
+    outputs of q's or k's size once (n_out: "q" = dQ, "kv" = dK and dV,
+    "qkv" = all)."""
     elt = 4 if dtype == "float32" else 2
     flop = flop_units * B * H * S * Sk * D
     q_b, kv_b = B * H * S * D * elt, B * H * Sk * D * elt
-    nbytes = 2 * q_b + 2 * kv_b + 2 * B * H * S * 4 + B * Sk * 4
+    nbytes = 2 * q_b + 2 * kv_b + 2 * B * H * S * 4 + B * Sk * 4 * bias
     nbytes += {"q": q_b, "kv": 2 * kv_b, "qkv": q_b + 2 * kv_b}[n_out]
     return (*bound(flop, nbytes, dtype), flop, nbytes)
 
@@ -432,7 +478,7 @@ def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    mask = bias[:, None, None, :].to(q.dtype)
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
 
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
@@ -454,7 +500,9 @@ def phase_kernel_bwd():
     """The dK/dV and dQ kernels against the plain backward, on the forward
     kernel's O and lse, over the forward phase's cases; then each timed
     at the training shape, in f32 without and with dropout 0.1 and in
-    bf16, beside the graph-timed whole backward of SDPA and of the port."""
+    bf16, and at the bench lane's (batch 256, bf16, no bias), beside the
+    graph-timed whole backward of SDPA and of the port and bwd_delta
+    alone."""
     import torch
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -462,7 +510,7 @@ def phase_kernel_bwd():
     errs = {}  # (kernel, dtype) -> max |kernel - plain| over the cases
 
     def both(name, q, k, v, scale, tol, causal=False, rate=0.0, seed=None,
-             bias=None):
+             bias=None, tag=None):
         o, lse = fa.flash_attention_cuda(q, k, v, scale, causal, rate, seed,
                                          bias)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
@@ -474,7 +522,7 @@ def phase_kernel_bwd():
         e_q, e_k, e_v = _check_bwd(name, got, want, tol)
         for kern, e in (("flash_attention_bwd_q", e_q),
                         ("flash_attention_bwd_kv", max(e_k, e_v))):
-            key = (kern, q.dtype)
+            key = (kern, tag or q.dtype)
             errs[key] = max(errs.get(key, 0.0), e)
         return got
 
@@ -499,40 +547,55 @@ def phase_kernel_bwd():
         raise AssertionError("dead rows must give zero dQ, dK and dV")
     both("dropout 0.1 seed 1234 causal bias", q, k, v, sm, F32_TOL,
          causal=True, rate=0.1, seed=seed, bias=_padding_bias(2, 256, gen))
-    for d in (8, 16, 32, 128):
+    for d in (8, 16, 32, 40, 96, 128):
         q, k, v = _qkv(2, 2, 96, 80, d, f32, gen)
         both(f"head dim {d}", q, k, v, d ** -0.5, F32_TOL,
              bias=_padding_bias(2, 80, gen))
         q, k, v = (t.to(bf16) for t in (q, k, v))
         both(f"head dim {d} bf16", q, k, v, d ** -0.5, BF16_TOL)
+    q, k, v = _qkv(BIG_BH[0], BIG_BH[1], 16, 16, 64, f32, gen)
+    both(f"B*H = {BIG_BH[0] * BIG_BH[1]} S=Sk=16 bias dropout 0.1", q, k, v,
+         sm, F32_TOL, rate=0.1, seed=seed,
+         bias=_padding_bias(BIG_BH[0], 16, gen))
+    q, k, v = _qkv(LANE_BATCH, H, S, S, D, bf16, gen)
+    both(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} bf16 no bias", q, k,
+         v, sm, BF16_TOL, tag="lane")
+    lane_errs = {key[0]: e for key, e in errs.items() if key[1] == "lane"}
+    del q, k, v
 
     # time at the training shape: B=32, H=12, S=128, D=64, bias; f32
-    # without and with dropout 0.1 (as the training step runs them), bf16
+    # without and with dropout 0.1 (as the training step runs them), bf16;
+    # and at the bench lane's: B=256, bf16, no bias
     kernels = (("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
                 fa.flash_attention_bwd_kv_reference, 8, "kv"),
                ("flash_attention_bwd_q", fa.flash_attention_bwd_q_cuda,
                 fa.flash_attention_bwd_q_reference, 6, "q"))
     rows, timings = {}, {}
-    for dt, rate in ((f32, 0.0), (f32, 0.1), (bf16, 0.0)):
-        q, k, v = _qkv(B, H, S, S, D, dt, gen)
-        bias = _padding_bias(B, S, gen)
+    for bs, dt, rate, with_bias in ((B, f32, 0.0, True), (B, f32, 0.1, True),
+                                    (B, bf16, 0.0, True),
+                                    (LANE_BATCH, bf16, 0.0, False)):
+        q, k, v = _qkv(bs, H, S, S, D, dt, gen)
+        bias = _padding_bias(bs, S, gen) if with_bias else None
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
         o, lse = fa.flash_attention_cuda(q, k, v, sm, False, rate, seed, bias)
         delta = fa.bwd_delta(o, do)
         args = (q, k, v, do, lse, delta, sm, False, rate, seed, bias)
         name_dt = str(dt).replace("torch.", "")
-        what = f"{name_dt} B={B} H={H} S={S} D={D} bias" + (
+        what = f"{name_dt} B={bs} H={H} S={S} D={D}" + (
+            " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
         lib_ms, port_ms = _bwd_yardstick(q, k, v, do, bias, sm, rate, seed)
+        delta_ms = _cuda_ms(lambda: fa.bwd_delta(o, do))
         kern_ms = 0.0
         for name, cuda_fn, plain_fn, units, outs in kernels:
             ms = _cuda_ms(lambda: cuda_fn(*args))
             eager_ms = _cuda_ms(lambda: cuda_fn(*args), graph=False)
             # the plain version's dropout mask reads the seed on the host,
             # which a graph cannot capture: with dropout it is timed eagerly
-            plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate)
-            bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, units, outs,
-                                               name_dt)
+            plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate,
+                             iters=50 if bs <= B else 10)
+            bnd, by, flop, nbytes = _bwd_bound(bs, H, S, S, D, units, outs,
+                                               name_dt, with_bias)
             _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms (issued "
                  f"one by one from Python {eager_ms:.4f} ms), plain "
                  f"{plain:.4f} ms, SDPA backward (dQ, dK, dV together, "
@@ -542,20 +605,144 @@ def phase_kernel_bwd():
             kern_ms += ms
             row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain,
                        library_ms=lib_ms, bound_ms=bnd, bound_by=by,
-                       max_abs_err=errs[(name, dt)])
-            rows.setdefault(name, row)  # f32 without dropout first
+                       max_abs_err=errs[(name, dt)] if with_bias
+                       else lane_errs[name])
+            if not with_bias:  # the lane's row heads the kernel's entry
+                rows[name] = row
             timings.setdefault(name, []).append(row)
-        bnd, by, flop, nbytes = _bwd_bound(B, H, S, S, D, 10, "qkv", name_dt)
+        bnd, by, flop, nbytes = _bwd_bound(bs, H, S, S, D, 10, "qkv", name_dt,
+                                           with_bias)
         _log(f"[kernel] time whole backward {what}, graph-timed as (forward "
              f"+ backward) - forward: the port (bwd_delta, dK/dV, dQ) "
              f"{port_ms:.4f} ms, SDPA {lib_ms:.4f} ms; the two kernels alone "
-             f"{kern_ms:.4f} ms; bound {bnd:.4f} ms ({by}: {flop} FLOP = "
+             f"{kern_ms:.4f} ms; bwd_delta alone {delta_ms:.4f} ms; bound "
+             f"{bnd:.4f} ms ({by}: {flop} FLOP = "
              f"10·B·H·S·Sk·D, {nbytes} B; the two kernels execute "
              f"14·B·H·S·Sk·D, recomputing QK^T and dO·V^T in each)")
         _check_bound(f"the port's whole backward {what}", port_ms, bnd)
-    for name in rows:
-        rows[name] = dict(rows[name], timings=timings[name])
+        if not with_bias:
+            rows["bwd_delta_ms"] = delta_ms
+        del q, k, v, do, o, lse, delta, args
+    for name, ts in timings.items():
+        rows[name] = dict(rows[name], timings=ts)
     return rows
+
+
+def _op_attention(q, k, v, heads, bias, rate, key, do):
+    """fused_attention_qkv's kernel on the card on q, k, v [B, S, heads·D]
+    and its backward by autograd against ``do`` → (route the op took, out,
+    dq, dk, dv, kernel launches of forward, dK/dV, dQ and dropout)."""
+    import torch
+    from paddle_tpu_torch.ops import attention_ops
+    from paddle_tpu_torch.ops.registry import OPS
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    B, Sq, hd = q.shape
+    route = attention_ops.attention_route(
+        (B, heads, Sq, hd // heads), (B, heads, k.shape[1], hd // heads),
+        None if bias is None else tuple(bias.shape))
+    before = _launch_counts()
+    o = OPS.get("fused_attention_qkv").kernel(
+        {"Q": [qs], "K": [ks], "V": [vs], "Bias": [bias]},
+        {"num_heads": heads, "dropout_rate": rate, "causal": False,
+         "_rng": lambda: key})["Out"][0]
+    grads = torch.autograd.grad(o, (qs, ks, vs), do)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+    return (route, o.detach(), *grads, launched)
+
+
+def _plain_attention(q, k, v, heads, bias, rate, seed, do):
+    """The same attention by the flash kernels' plain versions on the
+    card (they take any head dim) → (out, dq, dk, dv)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    def split(t):
+        B, S_, hd = t.shape
+        return t.reshape(B, S_, heads, hd // heads).permute(0, 2, 1, 3) \
+            .contiguous()
+
+    def merge(t):
+        B, H, S_, d = t.shape
+        return t.permute(0, 2, 1, 3).reshape(B, S_, H * d)
+    qh, kh, vh, doh = (split(t) for t in (q, k, v, do))
+    sm = (q.shape[-1] // heads) ** -0.5
+    kp = None if bias is None else \
+        bias.expand(q.shape[0], 1, 1, -1).reshape(q.shape[0], -1)
+    o, lse = fa.flash_attention_reference(qh, kh, vh, sm, False, rate, seed,
+                                          kp)
+    grads = fa.flash_attention_bwd_reference(qh, kh, vh, o, lse, doh, sm,
+                                             False, rate, seed, kp)
+    return (merge(o), *(merge(g) for g in grads))
+
+
+def phase_attention_routes():
+    """The attention ops' route on the card (ROADMAP C1): at hidden 768
+    with 8 heads (D = 96, which the kernels run zero-padded to 128) the
+    op launches the forward, dK/dV and dQ kernels once each and agrees
+    with the plain versions, in f32 and bf16; a bias the kernels do not
+    take ([1, 1, 1, Sk]) takes the einsum path, launches no kernel, and
+    its dropout mask is the flash kernels' (its output and grads agree
+    with the plain flash version at the same seed); a head dim above 128
+    (D = 192) and an f16 operand, which have no kernel instance, raise
+    and launch nothing."""
+    import torch
+    from paddle_tpu_torch.ops import rng
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    key = torch.tensor([987654321], dtype=torch.int64, device="cuda")
+    seed = rng.attention_seed(key)
+    for hidden, heads, dt, rate, bias_kind, want_route, want in (
+            (768, 8, torch.float32, 0.0, "key-padding", "flash",
+             (1, 1, 1, 0)),
+            (768, 8, torch.bfloat16, 0.0, "key-padding", "flash",
+             (1, 1, 1, 0)),
+            (768, 8, torch.float32, 0.1, "key-padding", "flash",
+             (1, 1, 1, 0)),
+            (768, 12, torch.float32, 0.1, "[1,1,1,Sk]", "einsum",
+             (0, 0, 0, 0))):
+        q, k, v, do = (torch.randn(2, S, hidden, generator=gen,
+                                   device="cuda").to(dt) for _ in range(4))
+        bias = _padding_bias(2, S, gen)[:, None, None, :]
+        if bias_kind != "key-padding":
+            bias = bias[:1]
+        route, *got, launched = _op_attention(q, k, v, heads, bias, rate,
+                                              key, do)
+        want_vals = _plain_attention(q, k, v, heads, bias, rate, seed, do)
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want_vals)]
+        ok = route == want_route and launched == want and all(
+            torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+            for g, w in zip(got, want_vals))
+        _log(f"[route] fused_attention_qkv hidden {hidden} heads {heads} "
+             f"(D={hidden // heads}) {str(dt)[6:]} {bias_kind} bias dropout "
+             f"{rate}: route {route}, launches (forward, dK/dV, dQ, dropout) "
+             f"{launched}, against the plain flash version max|d| out "
+             f"{errs[0]:.3e} dQ {errs[1]:.3e} dK {errs[2]:.3e} dV "
+             f"{errs[3]:.3e} tol {tol:g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"attention route at D={hidden // heads} "
+                                 f"{bias_kind} bias: want {want_route} "
+                                 f"with {want} launches")
+    for hidden, heads, dt, err in ((384, 2, torch.float32, ValueError),
+                                   (768, 12, torch.float16, TypeError)):
+        q = torch.randn(2, S, hidden, generator=gen, device="cuda").to(dt)
+        bias = _padding_bias(2, S, gen)[:, None, None, :]
+        before = _launch_counts()
+        try:
+            _op_attention(q, q, q, heads, bias, 0.1, key, q)
+        except err as e:
+            raised = str(e)
+        else:
+            raised = None
+        launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+        ok = raised is not None and launched == (0, 0, 0, 0)
+        _log(f"[route] fused_attention_qkv D={hidden // heads} "
+             f"{str(dt)[6:]}: no kernel instance, raised "
+             f"{err.__name__}: {raised}; launches {launched} -> "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"attention at D={hidden // heads} "
+                                 f"{dt}: want {err.__name__}, no launch")
 
 
 def phase_kernel_dropout():
@@ -1135,15 +1322,75 @@ def _interpreted_train(main, startup, loss, pool):
          f"{peak / 2**30:.3f} GiB")
 
 
+def _index_grad_repeats(cfg, repeats=20):
+    """The backward of the step's index ops at its shapes (batch 2, 32 and
+    256, S = 128, hidden 768), each run ``repeats`` times on the same
+    inputs on the card; prints how many repeats differ from the first.
+    Autograd's grad of ``index_select`` (``index_add_``, atomics) is
+    shown beside the registered ``gather_grad`` that replaces it; the
+    latter, and lookup_table_v2's generic grad (autograd's ``w[ids]``
+    backward) for the word, position and sentence tables, must not
+    differ (ROADMAP C2)."""
+    import torch
+    from paddle_tpu_torch.ops.registry import OPS, run_generic_grad
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    hidden = cfg["hidden"]
+    drift = []
+
+    def count(name, fn, gated):
+        ref = fn()
+        n = sum(not torch.equal(ref, fn()) for _ in range(repeats))
+        _log(f"[C2] {name}: {n}/{repeats} repeats differ from the first"
+             + ("" if gated else " (replaced)"))
+        if gated and n:
+            drift.append(name)
+
+    for B in (2, 32, 256):
+        n_mask = int(B * S * MLM_FRAC)
+        idx = torch.randint(0, B * S, (n_mask, 1), generator=gen,
+                            device="cuda")
+        go = torch.randn(n_mask, hidden, generator=gen, device="cuda")
+        x = torch.randn(B * S, hidden, generator=gen, device="cuda",
+                        requires_grad=True)
+        count(f"gather B={B}: autograd index_select backward",
+              lambda: torch.autograd.grad(x.index_select(0, idx[:, 0]), x,
+                                          go)[0], False)
+        count(f"gather B={B}: gather_grad",
+              lambda: OPS.get("gather_grad").kernel(
+                  {"X": [x], "Index": [idx], "Out@GRAD": [go]},
+                  {})["X@GRAD"][0], True)
+        for table, V, ids in (
+                ("word", cfg["vocab_size"],
+                 torch.randint(0, cfg["vocab_size"], (B, S), generator=gen,
+                               device="cuda")),
+                ("pos", cfg["max_len"],
+                 torch.arange(S, device="cuda").repeat(B, 1)),
+                ("sent", cfg["type_vocab"],
+                 torch.zeros(B, S, dtype=torch.long, device="cuda"))):
+            w = torch.randn(V, hidden, generator=gen, device="cuda")
+            gl = torch.randn(B, S, hidden, generator=gen, device="cuda")
+            count(f"lookup_table_v2 {table} B={B}: generic grad",
+                  lambda: run_generic_grad(
+                      "lookup_table_v2",
+                      {"W": [w], "Ids": [ids], "Out@GRAD": [gl]},
+                      dict(OPS.get("lookup_table_v2").attr_defaults),
+                      ["W@GRAD"], ["W", "Ids"])["W@GRAD"][0], True)
+    if drift:
+        raise AssertionError(f"index grads not reproducible: {drift}")
+
+
 def _check_graph_against_interpreter(cfg):
     """GRAPH_STEPS steps at batch GRAPH_BATCH, dropout 0.1, on the card:
-    compiled (eager warm-up, capture, replay) against interpreted, each
-    from its own startup run. The losses agree bitwise or within
-    GRAPH_TOL, the first dropout mask of each step exactly, and the
-    startup weights exactly."""
+    compiled (eager warm-up, capture, replay) against interpreted, and
+    interpreted again, each from its own startup run. The startup weights
+    and the first dropout mask of each step agree exactly, the losses
+    bitwise or within GRAPH_TOL, and the parameters after the steps
+    bitwise: compiled against interpreted, and the two interpreted runs
+    (ROADMAP C2, the gate that step windows rest on)."""
     import numpy as np
     import torch
     from paddle_tpu_torch import fluid
+    _index_grad_repeats(cfg)
     main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
     mask = [op for op in main.global_block().ops
             if op.type == "dropout"][0].output("Mask")[0]
@@ -1174,18 +1421,14 @@ def _check_graph_against_interpreter(cfg):
     for p, a, b in zip(params, init["compiled"], init["interpreted"]):
         if not torch.equal(a, b):
             raise AssertionError(f"the two startup runs differ: {p.name}")
-    def param_diff(a, b):
-        """(max |d|, the parameter where it is) between two scopes."""
-        return max((float((scopes[a].find_var(p.name).value().array
-                           - scopes[b].find_var(p.name).value().array)
-                          .abs().max()), p.name) for p in params)
-
-    twice = [float(np.abs(a[0] - b[0]).max()) for a, b in
-             zip(got["interpreted"], got["interpreted again"])]
-    _log(f"[graph] the interpreter against itself, {GRAPH_STEPS} steps: "
-         f"loss max|d| " + " ".join(f"{x:.3e}" for x in twice) +
-         "; parameters max|d| {:.3e} ({})".format(
-             *param_diff("interpreted", "interpreted again")))
+    # C2: two interpreted runs of the step are bitwise equal
+    _bitwise(f"the interpreter against itself, {GRAPH_STEPS} steps: losses",
+             [r[0] for r in got["interpreted"]],
+             [r[0] for r in got["interpreted again"]])
+    _bitwise(f"the interpreter against itself after {GRAPH_STEPS} steps: "
+             f"{len(params)} parameters",
+             _params(scopes["interpreted"], params),
+             _params(scopes["interpreted again"], params))
     kinds = [r[2] for r in got["compiled"]]
     if kinds != ["compiled:eager", "compiled:capture", "compiled:replay"]:
         raise AssertionError(f"compiled runs {kinds}")
@@ -1194,10 +1437,10 @@ def _check_graph_against_interpreter(cfg):
                f"batch {GRAPH_BATCH} dropout {TRAIN_DROPOUT}", c[0], r[0])
         if not np.array_equal(c[1], r[1]):
             raise AssertionError(f"step {i}: dropout masks differ")
-    _log(f"[graph] dropout masks equal at each step; parameters after "
-         f"{GRAPH_STEPS} steps: max|d| " + "{:.3e} ({})".format(
-             *param_diff("compiled", "interpreted")) +
-         f" over {len(params)} tensors")
+    _log("[graph] dropout masks equal at each step")
+    _bitwise(f"compiled against interpreted after {GRAPH_STEPS} steps: "
+             f"{len(params)} parameters", _params(scopes["compiled"], params),
+             _params(scopes["interpreted"], params))
 
 
 
@@ -1241,7 +1484,8 @@ def _check_train_against_cpu(cfg):
                              "the CPU run")
 
 
-def _profile_step(exe, main, loss, scope, feed):
+def _profile_step(exe, main, loss, scope, feed,
+                  what=f"train step batch {TRAIN_BATCH}"):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1259,7 +1503,7 @@ def _profile_step(exe, main, loss, scope, feed):
     evts = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in evts) / 1e3
-    _log(f"[profile] train step batch {TRAIN_BATCH}: wall {wall:.3f} ms "
+    _log(f"[profile] {what}: wall {wall:.3f} ms "
          f"unprofiled (median of 5), {prof_wall:.3f} ms under the profiler; "
          f"device busy {busy:.3f} ms, idle {100 - 100 * busy / wall:.1f}% "
          f"of the unprofiled wall; {sum(e.count for e in evts)} device "
@@ -1283,63 +1527,250 @@ def _profile_step(exe, main, loss, scope, feed):
          f"({100 * drop_ms / busy:.2f}% of the step's device time)")
 
 
-def phase_big():
-    """bench.py's BERT lane: BIG_STEPS compiled training steps at batch
-    256 (dropout 0.1, input mask, Adam), or at the largest batch of
-    BIG_BATCHES that fits: finite losses, the steps' times and peak
-    memory."""
-    import gc
+def _feed_cache_ab(lane, pairs, what):
+    """The lane's window again, FLAGS_feed_device_cache on and off in
+    turn (on, off, on, ...), each window timed as the lane times it (to
+    its last loss on the host). With the cache on every feed must be a
+    cache hit; with it off each window copies the feed to the card. →
+    (median seconds on, median seconds off)."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.fluid import core
+    exe, steps = lane.exe, lane.res["steps"]
+    cb = exe._last_block
+    times = {True: [], False: []}
+    hits = {True: 0, False: 0}
+    uploads = {True: 0, False: 0}
+    try:
+        for i in range(2 * pairs):
+            on = i % 2 == 0
+            core.set_flag("FLAGS_feed_device_cache", on)
+            before = dict(exe.feed_stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = exe.run(lane.main, feed=lane.feed,
+                          fetch_list=lane.fetches, scope=lane.scope,
+                          return_numpy=False, n_steps=steps)
+            float(out[0].numpy().ravel()[-1])
+            times[on].append(time.perf_counter() - t0)
+            if exe._last_block is not cb or cb.last_exec != "replay":
+                raise AssertionError(f"{what}: the feed-cache window was "
+                                     "not a replay of the lane's graph")
+            hits[on] += exe.feed_stats["cache_hits"] - before["cache_hits"]
+            uploads[on] += exe.feed_stats["uploads"] - before["uploads"]
+    finally:
+        core.set_flag("FLAGS_feed_device_cache", True)
+    n_feeds = len(lane.feed)
+    nbytes = sum(np.asarray(a).nbytes for a in lane.feed.values())
+    med = {on: float(np.median(t)) for on, t in times.items()}
+    ok = hits[True] == pairs * n_feeds and uploads[True] == 0 \
+        and hits[False] == uploads[False] == 0
+    _log(f"[lane] {what} feed cache, {pairs} pairs of {steps}-step windows "
+         f"alternated: on {med[True] * 1e3:.3f} ms a window (min "
+         f"{min(times[True]) * 1e3:.3f}, {hits[True]} hits, "
+         f"{uploads[True]} uploads), off {med[False] * 1e3:.3f} ms (min "
+         f"{min(times[False]) * 1e3:.3f}; each window copies {n_feeds} "
+         f"feeds, {nbytes} bytes, to the card) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: feed cache on {hits[True]} hits "
+                             f"{uploads[True]} uploads over {pairs} windows "
+                             f"of {n_feeds} feeds")
+    return med[True], med[False]
+
+
+def phase_lane(profile=False):
+    """bench.py's lanes on the port, through ``paddle_tpu_torch.bench``
+    (what ``python3 -m paddle_tpu_torch.bench bert|mnist`` runs): the
+    BERT-base pretraining step in bf16 at batch 256 (or the largest rung
+    of the OOM ladder that fits), then the MNIST MLP. Gates: a finite loss,
+    the compiled path, a timed window of graph replays only, and the
+    kernels of one replayed bf16 step counted by name in a profiler trace.
+    Each lane's JSON line is printed as the entry point prints it. Then
+    each lane's window runs with the feed cache on and off in turn."""
+    import numpy as np
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.fluid import core
+    _reset_launch_counts()
+    lane = bench.run_bert_base()
+    wrapper = _launch_counts()
+    res = lane.res
+    print(json.dumps(res), flush=True)
+    exe = lane.exe
+    ops = lane.main.global_block().ops
+    L = sum(op.type == "fused_attention_qkv" for op in ops)
+    # each attention op launches the forward once and its grad re-runs it
+    # under autograd (the generic grad) before dK/dV and dQ; dropout 0
+    want = (2 * L, L, L, _dropout_ops(ops))
+    cb = exe._last_block
+    steps = res["steps"]
+    if not (np.isfinite(res["loss"]) and res["executor_mode"] == "compiled"
+            and res["timed_window"] == {"eager": 0, "captures": 0,
+                                        "replays": steps}
+            and want[3] == 0 and L == 12):
+        raise AssertionError(f"bert lane: {res}; {L} attention ops, "
+                             f"want {want} launches a step")
+    runs = dict(cb.stats)
+    if wrapper != tuple((runs["eager"] + runs["captures"]) * w
+                        for w in want) \
+            or tuple(cb.graph_launches.get(k, 0) for k in KERNELS) != want:
+        raise AssertionError(f"bert lane launches {wrapper} through the "
+                             f"wrappers over {runs}, {cb.graph_launches} in "
+                             f"the graph; want {want} a step")
+    executed = tuple((runs["eager"] + runs["replays"]) * w for w in want)
+    core.set_flag("FLAGS_use_bf16_matmul", True)  # the lane's cache key
+    try:
+        def one_step():
+            exe.run(lane.main, feed=lane.feed, fetch_list=lane.fetches,
+                    scope=lane.scope)
+            if exe._last_block is not cb or cb.last_exec != "replay":
+                raise AssertionError("the traced lane step was not a replay "
+                                     "of the lane's graph")
+        _check_trace(_device_kernel_counts(one_step), want,
+                     f"bench lane bf16 batch {res['batch']} step")
+        if profile:
+            _profile_step(exe, lane.main, lane.fetches[0], lane.scope,
+                          lane.feed, f"bench lane bf16 batch {res['batch']}")
+        _log(f"[lane] bert: batch {res['batch']}, {res['value']} "
+             f"samples/s, {res['step_ms']} ms a step, peak "
+             f"{res['peak_memory_gib']} GiB, mfu_vs_h100_bf16_peak "
+             f"{res['mfu_vs_h100_bf16_peak']}; {runs['eager']} eager, "
+             f"{runs['captures']} capture, {runs['replays']} replays before "
+             f"the trace; kernels run {executed}")
+        _feed_cache_ab(lane, 2, f"bert batch {res['batch']}")
+    finally:
+        core.set_flag("FLAGS_use_bf16_matmul", False)
+    lane.close()
+    del exe, cb, lane
+    lane = bench.run_mnist_mlp()
+    mres = lane.res
+    print(json.dumps(mres), flush=True)
+    if not (np.isfinite(mres["loss"]) and mres["executor_mode"] == "compiled"
+            and mres["timed_window"] == {"eager": 0, "captures": 0,
+                                         "replays": mres["steps"]}):
+        raise AssertionError(f"mnist lane: {mres}")
+    _log(f"[lane] mnist: batch {mres['batch']}, {mres['value']} samples/s, "
+         f"{mres['step_ms']} ms a step")
+    _feed_cache_ab(lane, 10, f"mnist batch {mres['batch']}")
+    lane.close()
+    return {"wrapper": wrapper, "executed": executed, "bert": res,
+            "mnist": mres}
+
+
+def _params(scope, params):
+    return [scope.find_var(p.name).value().array.clone() for p in params]
+
+
+def _bitwise(what, a, b):
+    """Two lists of tensors or arrays equal bit for bit, or fail."""
+    import numpy as np
+    import torch
+
+    def host(x):
+        return x.cpu().double() if isinstance(x, torch.Tensor) \
+            else torch.from_numpy(np.asarray(x, dtype=np.float64))
+    same = [torch.equal(host(x), host(y)) for x, y in zip(a, b)]
+    diff = max((float((host(x) - host(y)).abs().max())
+                for x, y, ok in zip(a, b, same) if not ok), default=0.0)
+    _log(f"[window] {what}: " + ("bitwise equal" if all(same) else
+                                 f"{same.count(False)} of {len(same)} "
+                                 f"differ, max|d| {diff:.3e}") +
+         f" -> {'ok' if all(same) else 'FAIL'}")
+    if not all(same):
+        raise AssertionError(f"{what}: not bitwise equal")
+
+
+def phase_window(cfg=None):
+    """Executor.run(n_steps=k) on the card: BERT-base at full width and
+    depth, batch 2, dropout 0.1, input mask. A window of WINDOW_K distinct
+    batches gives fetches and parameters bitwise equal to WINDOW_K single
+    compiled runs and to WINDOW_K interpreted runs, each from its own
+    startup run; a window of the same feeds gives its fetches stacked
+    [k, 1] on the compiled path and the final step's [1] interpreted."""
+    import numpy as np
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
-    cfg = bert.bert_base_config()
-    L = cfg["layers"]
+    cfg = cfg or bert.bert_base_config()
     main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
-    n_drop = _dropout_ops(main.global_block().ops)
-    for bs in BIG_BATCHES:
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
-        rng = np.random.RandomState(SEED + 5)
-        steps = []
-        try:
+    params = main.global_block().all_parameters()
+    rng = np.random.RandomState(SEED + 6)
+    batches = [_train_batch(rng, GRAPH_BATCH, cfg) for _ in range(WINDOW_K)]
+    stacked = {n: np.stack([b[n] for b in batches]) for n in batches[0]}
+    got = {}
+    _reset_launch_counts()
+    try:
+        for how in ("window", "single", "interpreted"):
+            fluid.core.set_flag("FLAGS_executor_mode", "interpreted"
+                                if how == "interpreted" else "compiled")
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
             exe.run(startup, scope=scope)
-            for _ in range(BIG_STEPS):
-                feed = _train_batch(rng, bs, cfg)
-                b = _launch_counts()
-                t = time.perf_counter()
-                out, = exe.run(main, feed=feed, fetch_list=[loss],
-                               scope=scope)
-                dt = time.perf_counter() - t
-                delta = tuple(x - y for x, y in zip(_launch_counts(), b))
-                kind = _gate_run(exe, delta, (2 * L, L, L, n_drop),
-                                 f"a batch-{bs} step")
-                steps.append((kind, dt * 1e3, float(out.reshape(-1)[0])))
-        except torch.cuda.OutOfMemoryError as e:
-            _log(f"[big] batch {bs}: out of memory after {len(steps)} "
-                 f"steps ({str(e).splitlines()[0][:160]})")
+            if how == "window":
+                losses, = exe.run(main, feed=stacked, fetch_list=[loss],
+                                  scope=scope, n_steps=WINDOW_K)
+                cb = exe._last_block
+                runs = dict(cb.stats)
+                if exe._last_run_mode != "compiled" or runs != dict(
+                        runs, eager=1, captures=1, replays=WINDOW_K - 1):
+                    raise AssertionError(f"window ran {exe._last_run_mode} "
+                                         f"{runs}")
+                if losses.shape != (WINDOW_K, 1):
+                    raise AssertionError(f"window fetch {losses.shape}")
+                wrapper = _launch_counts()
+            else:
+                losses = np.stack([exe.run(main, feed=b, fetch_list=[loss],
+                                           scope=scope)[0] for b in batches])
+            got[how] = (losses, _params(scope, params))
+            if how == "window":
+                # one more step, a replay of the window's graph, traced
+                def one_step():
+                    exe.run(main, feed=batches[0], fetch_list=[loss],
+                            scope=scope)
+                    if exe._last_block is not cb \
+                            or cb.last_exec != "replay":
+                        raise AssertionError("the traced step was not a "
+                                             "replay of the window's graph")
+                traced = _device_kernel_counts(one_step)
             exe.close()
-            del exe, scope
-            continue
-        peak = torch.cuda.max_memory_allocated() - before
-        if not all(np.isfinite(x[2]) for x in steps):
-            raise AssertionError(f"batch {bs}: non-finite loss {steps}")
-        _log(f"[big] batch {bs} (bench.py's BERT lane is 256), "
-             f"{BIG_STEPS} compiled steps: " + "; ".join(
-                 f"{k} {ms:.1f} ms loss {x:.4f}" for k, ms, x in steps))
-        _log(f"[big] batch {bs}: peak device memory {peak / 2**30:.3f} GiB "
-             f"(max_memory_allocated less the {before / 2**30:.3f} GiB "
-             f"allocated before), reserved "
-             f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB at most, "
-             f"of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
-             " GiB on the card")
-        exe.close()
-        return bs, peak
-    raise AssertionError(f"no batch of {BIG_BATCHES} fits")
+        # a window of the same feeds: stacked compiled, final interpreted
+        shapes = {}
+        for mode in ("compiled", "interpreted"):
+            fluid.core.set_flag("FLAGS_executor_mode", mode)
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            exe.run(startup, scope=scope)
+            out, = exe.run(main, feed=batches[0], fetch_list=[loss],
+                           scope=scope, n_steps=2)
+            shapes[mode] = out.shape
+            exe.close()
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    _log(f"[window] k={WINDOW_K} batch {GRAPH_BATCH} dropout "
+         f"{TRAIN_DROPOUT}: window losses " +
+         " ".join(f"{x:.6f}" for x in got["window"][0].ravel()))
+    for other in ("single", "interpreted"):
+        _bitwise(f"window of {WINDOW_K} vs {WINDOW_K} {other} runs: losses",
+                 [got["window"][0]], [got[other][0]])
+        _bitwise(f"window of {WINDOW_K} vs {WINDOW_K} {other} runs: "
+                 f"{len(params)} parameters", got["window"][1],
+                 got[other][1])
+    if shapes != {"compiled": (2, 1), "interpreted": (1,)}:
+        raise AssertionError(f"same-feed windows gave {shapes}")
+    _log(f"[window] same feeds, n_steps=2: compiled fetch "
+         f"{shapes['compiled']} (stacked), interpreted {shapes['interpreted']}"
+         " (the final step's) -> ok")
+    L = cfg["layers"]
+    want = (2 * L, L, L, _dropout_ops(main.global_block().ops))
+    # the window's eager step and capture went through the wrappers, its
+    # replays ran what the graph recorded
+    graph = tuple(cb.graph_launches.get(k, 0) for k in KERNELS)
+    if wrapper != tuple((runs["eager"] + runs["captures"]) * w
+                        for w in want) or graph != want:
+        raise AssertionError(f"window launches {wrapper} through the "
+                             f"wrappers over {runs}, {graph} in the graph; "
+                             f"want {want} a step")
+    _check_trace(traced, want, f"window graph batch {GRAPH_BATCH} step")
+    executed = tuple((runs["eager"] + runs["replays"]) * g for g in graph)
+    _log(f"[window] {runs['eager']} eager, {runs['captures']} capture, "
+         f"{runs['replays']} replays in the window; kernels run {executed}")
+    return {"wrapper": wrapper, "executed": executed}
 
 
 # --------------------------------------------------------------------------
@@ -1354,30 +1785,43 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout
+    from paddle_tpu_torch.fluid import core
     # f32 products in full f32 everywhere, the kernel's plain version too
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _log(f"[card] {_card_line()}")
     _log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
          f"python {sys.version.split()[0]}")
+    _log(f"[card] a fetched bf16 var comes back as numpy "
+         f"{core.BF16_HOST_DTYPE}" + (
+             "" if core.BF16_HOST_DTYPE.name == "bfloat16"
+             else " (ml_dtypes is not installed)"))
     phase_build()
     rows = phase_kernel()
     bwd_rows = phase_kernel_bwd()
+    phase_attention_routes()
     drop_row = phase_kernel_dropout()
-    serve = phase_slice(profile=args.profile)
-    train = phase_train(profile=args.profile)
-    phase_big()
-    # launches: what the training path ran on the card (each warm-up or
-    # capture through the wrappers, each replay as its graph recorded and
-    # as the profiler counted), by path beside it; wrapper_calls: the
-    # wrappers' own counts, which a replay does not move
-    f32 = rows[0]
+    paths = {"serve": phase_slice(profile=args.profile),
+             "train": phase_train(profile=args.profile),
+             "window": phase_window(),
+             "lane": phase_lane(profile=args.profile)}
+    # launches: what the card ran over the main paths of this run, each
+    # path counted from zero just before it (launches_by_path: warm-ups
+    # and captures through the wrappers, each replay as its graph recorded
+    # and as the profiler counted); wrapper_calls_by_path: the wrappers'
+    # own counts, which a replay does not move. The heading numbers of
+    # each flash kernel are at the bench lane's shape (bf16, batch 256, no
+    # bias); "timings" holds every shape timed.
+    _log(f"[lane] bwd_delta at the lane's shape: "
+         f"{bwd_rows['bwd_delta_ms']:.4f} ms a call, x12 = "
+         f"{12 * bwd_rows['bwd_delta_ms']:.3f} ms of the lane's "
+         f"{paths['lane']['bert']['step_ms']} ms step")
     src = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     entries = [("flash_attention_fwd", "flash_attention_fwd.cu",
-                replaces + "298", dict(f32, timings=rows)),
+                replaces + "298", dict(rows[-1], timings=rows)),
                ("flash_attention_bwd_kv", "flash_attention_bwd.cu",
                 replaces + "514", bwd_rows["flash_attention_bwd_kv"]),
                ("flash_attention_bwd_q", "flash_attention_bwd.cu",
@@ -1387,13 +1831,12 @@ def main(argv=None) -> int:
                 drop_row)]
     kernels = []
     for i, (name, source, repl, r) in enumerate(entries):
+        by_path = {p: v["executed"][i] for p, v in paths.items()}
         kernels.append(dict(
             name=name, route="cuda", source=src + source, replaces=repl,
-            launches=train["executed"][i],
-            launches_by_path={"serve": serve["executed"][i],
-                              "train": train["executed"][i]},
-            wrapper_calls_by_path={"serve": serve["wrapper"][i],
-                                   "train": train["wrapper"][i]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            wrapper_calls_by_path={p: v["wrapper"][i]
+                                   for p, v in paths.items()},
             **{k: r[k] for k in keys},
             **({"timings": r["timings"]} if "timings" in r else {})))
     print(json.dumps({"kernels": kernels}), flush=True)

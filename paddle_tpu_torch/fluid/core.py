@@ -20,11 +20,20 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+try:  # numpy's bfloat16 (ml_dtypes, which jax also uses; not jax itself)
+    from ml_dtypes import bfloat16 as _np_bfloat16
+except ImportError:  # absent: bf16 comes back to the host as float32
+    _np_bfloat16 = None
+
+# the numpy dtype a fetched bf16 tensor comes back as
+BF16_HOST_DTYPE = np.dtype(_np_bfloat16 if _np_bfloat16 is not None
+                           else np.float32)
+
 __all__ = [
     "VarDesc", "Place", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor",
     "Variable", "Scope", "globals_", "get_flag", "set_flag",
     "convert_np_dtype_to_dtype_", "dtype_to_np", "dtype_to_torch",
-    "is_float_dtype", "global_scope",
+    "is_float_dtype", "global_scope", "BF16_HOST_DTYPE",
 ]
 
 
@@ -225,9 +234,14 @@ class LoDTensor:
         return self._array.dtype if self._array is not None else None
 
     def numpy(self) -> np.ndarray:
+        """The tensor on the host. bf16 comes back as ``ml_dtypes.bfloat16``
+        bit for bit, as in the TPU package, or as float32 (exact) where
+        ml_dtypes is not installed (``BF16_HOST_DTYPE`` says which)."""
         a = self._array.detach()
         if a.dtype == torch.bfloat16:
-            a = a.float()
+            if _np_bfloat16 is None:
+                return a.float().cpu().numpy()
+            return a.view(torch.int16).cpu().numpy().view(_np_bfloat16)
         return a.cpu().numpy()
 
     def __array__(self, dtype=None, copy=None):
@@ -346,6 +360,11 @@ class _GlobalFlags:
         # the scope (the oracle). Counterpart of the TPU package's flag
         # (core.py:1542).
         "FLAGS_executor_mode": "compiled",
+        # Executor.run reuses the device copy of a feed when the SAME
+        # ndarray object is fed again with the same content (CRC32), and
+        # skips its host-to-device copy (the TPU package's flag,
+        # core.py:1608)
+        "FLAGS_feed_device_cache": True,
     }
 
     def __init__(self):

@@ -24,6 +24,18 @@ Two paths, chosen by ``FLAGS_executor_mode`` as in the TPU package:
     that is not compilable runs here too (the TPU package's segmented
     path comes in a later slice).
 
+Windows (``Executor.run(..., n_steps=k)``, the TPU package's contract,
+executor.py:2026): a feed whose rank is its var's rank + 1, on a var whose
+first dim is -1, with leading dim k, is k distinct batches, one slice a
+step; the other feeds feed every step. The compiled path runs k steps of
+the one-step plan (on the GPU: k replays of its graph, the stacks
+uploaded once, each slice copied into the graph's feed buffers) and
+returns every fetch stacked [k, ...] with one copy to the host; the step
+counter advances once a step, so a window draws what k single runs draw.
+The interpreter runs windowed feeds step by step with the same stacked
+contract; with the same feeds and ``n_steps`` > 1 it returns the final
+step's fetches, as the TPU package's interpreted branch does.
+
 A ``<op>_grad`` op that no kernel is registered for runs through the
 generic grad (``ops.registry.run_generic_grad``), which re-runs the
 forward kernel under autograd, on both paths.
@@ -46,7 +58,8 @@ from __future__ import annotations
 import contextlib
 import time
 import weakref
-from typing import Dict, List, Optional, Sequence
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +106,44 @@ def _to_fetch_names(fetch_list) -> List[str]:
         else:
             raise TypeError(f"bad fetch entry {f!r}")
     return names
+
+
+def _window_feed_names(program, feed, n_steps: int) -> Tuple[str, ...]:
+    """Feeds carrying a leading window dimension (reference
+    executor.py:185): the value's rank is the var's rank + 1, the var's
+    first dim is -1 (the ``fluid.data`` shape: a var of concrete shape may
+    take feeds of any rank through rank-polymorphic kernels) and the
+    leading dim equals ``n_steps``. A window-ranked feed whose leading dim
+    disagrees with ``n_steps`` > 1 raises ValueError, and a windowed feed
+    with LoD raises NotImplementedError: one LoD cannot describe a stack
+    of batches."""
+    names = []
+    block = program.global_block()
+    for name, data in feed.items():
+        arr = data.array if isinstance(data, LoDTensor) else data
+        shp = getattr(arr, "shape", None)
+        if not shp:
+            continue
+        v = block._find_var_recursive(name)
+        vshape = getattr(v, "shape", None) if v is not None else None
+        if vshape is None or len(shp) != len(vshape) + 1 \
+                or vshape[0] != -1:
+            continue
+        if shp[0] != n_steps:
+            if n_steps == 1:
+                continue
+            raise ValueError(
+                f"feed '{name}' has shape {tuple(shp)}: its rank says it "
+                f"carries a leading window dimension (var rank "
+                f"{len(vshape)}), but the window length {shp[0]} does not "
+                f"match n_steps={n_steps}")
+        if isinstance(data, LoDTensor) and data.lod():
+            raise NotImplementedError(
+                f"windowed feed '{name}' carries LoD: one LoD cannot "
+                "describe a stack of batches; feed dense windows or run "
+                "per step (n_steps=1)")
+        names.append(name)
+    return tuple(names)
 
 
 def _initialized(scope: Scope, name: str) -> bool:
@@ -421,10 +472,7 @@ class _CompiledBlock:
             # overwrites them
             self._stream.wait_stream(cur)
             with torch.cuda.stream(self._stream):
-                if self._graph is None and not self.stats["eager"]:
-                    fetched = self._run_eager(scope, feeds)
-                else:
-                    fetched = self._run_graph(scope, feeds)
+                fetched = self._run_on_stream(scope, feeds)
                 if not return_numpy:
                     # a later replay overwrites graph outputs and updates
                     # the state in place
@@ -435,6 +483,57 @@ class _CompiledBlock:
         if return_numpy:
             return [LoDTensor(t).numpy() for t in fetched]
         return [LoDTensor(t) for t in fetched]
+
+    def run_window(self, scope: Scope, feeds: Dict[str, torch.Tensor],
+                   window_names: Sequence[str], n_steps: int,
+                   return_numpy: bool = True):
+        """``n_steps`` steps as one window (reference executor.py:979):
+        the feeds named in ``window_names`` are [n_steps, ...] stacks of
+        distinct batches, slice i feeding step i; the others feed every
+        step. The stacks go to the device once; on the GPU each step is a
+        run of the one-step plan as ``run`` makes it (after a key's warm-up
+        and capture, a graph replay, its feed buffers filled from the
+        slices on the device), whose fetches are copied into row i of
+        stacked device buffers; the host reads them once, at the end.
+        Returns the fetches stacked [n_steps, ...]."""
+        feeds = {n: t.to(self.device) for n, t in feeds.items()}
+        stacked: List[torch.Tensor] = []
+
+        def step(i):
+            f = {n: t[i] if n in window_names else t
+                 for n, t in feeds.items()}
+            fetched = (self._run_eager(scope, f) if self._stream is None
+                       else self._run_on_stream(scope, f))
+            if not stacked:
+                stacked.extend(torch.empty((n_steps,) + tuple(t.shape),
+                                           dtype=t.dtype, device=t.device)
+                               for t in fetched)
+            for buf, t in zip(stacked, fetched):
+                buf[i].copy_(t)
+
+        if self._stream is None:
+            for i in range(n_steps):
+                step(i)
+        else:
+            cur = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                for i in range(n_steps):
+                    step(i)
+            cur.wait_stream(self._stream)
+            for t in stacked:
+                t.record_stream(cur)
+        if return_numpy:
+            return [LoDTensor(t).numpy() for t in stacked]
+        return [LoDTensor(t) for t in stacked]
+
+    def _run_on_stream(self, scope, feeds):
+        """One step on the executor's stream, which the caller entered: a
+        key's first run is the eager warm-up, its second the capture, and
+        every later one a replay."""
+        if self._graph is None and not self.stats["eager"]:
+            return self._run_eager(scope, feeds)
+        return self._run_graph(scope, feeds)
 
     def _run_eager(self, scope, feeds):
         dev_feeds = {n: t.to(self.device) for n, t in feeds.items()}
@@ -557,10 +656,19 @@ class Executor:
         # at a time, and each run copies its fetches out
         self._stream = None
         self._pool = None
+        # FLAGS_feed_device_cache: name → (identity, CRC32, the ndarray,
+        # its device tensor, [misses in a row]) or "uncacheable"
+        self._feed_cache: Dict[str, object] = {}
+        self.feed_stats = {"uploads": 0, "cache_hits": 0}
 
     def close(self):
+        """Drop the compiled blocks with their CUDA graphs, the graphs'
+        memory pool and the cached feeds: once nothing else holds them,
+        ``torch.cuda.empty_cache()`` can return their memory."""
         self._compiled_cache.clear()
         self._last_block = None
+        self._feed_cache.clear()
+        self._stream = self._pool = None
 
     def graph_stats(self) -> Dict[str, float]:
         """Eager runs, captures, replays and capture seconds summed over
@@ -576,31 +684,82 @@ class Executor:
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list=None, feed_var_name="feed", fetch_var_name="fetch",
             scope: Optional[Scope] = None, return_numpy: bool = True,
-            use_program_cache: bool = False):
-        """Run ``program``'s global block once. ``feed``: name → array;
+            use_program_cache: bool = False, n_steps: int = 1):
+        """Run ``program``'s global block. ``feed``: name → array;
         ``fetch_list``: Variables or names. Returns numpy arrays, or
         LoDTensors on the executor's device when ``return_numpy`` is
         False. ``feed_var_name``, ``fetch_var_name`` and
         ``use_program_cache`` are accepted for the reference signature and
-        change nothing here: compiled blocks are always cached."""
+        change nothing here: compiled blocks are always cached.
+
+        ``n_steps`` > 1 runs that many steps as one window (the module
+        docstring): windowed feeds ([n_steps, ...] stacks) give one slice
+        to each step, the others feed every step; the compiled path and
+        windowed feeds return every fetch stacked [n_steps, ...], the
+        interpreter with the same feeds the final step's fetches. A feed
+        with an int attribute ``k`` (the TPU package's WindowBatch) is k
+        stacked batches: it sets ``n_steps``, or raises if ``n_steps``
+        says otherwise."""
         program = default_main_program() if program is None else program
         scope = global_scope() if scope is None else scope
-        feed = feed or {}
+        feed = {} if feed is None else feed
         fetch_names = _to_fetch_names(fetch_list)
         seed = int(program.random_seed or core.globals_["FLAGS_seed"])
         mode = core.globals_["FLAGS_executor_mode"]
         if mode not in _MODES:
             raise ValueError(f"FLAGS_executor_mode={mode!r}: expected one "
                              f"of {_MODES}")
-        if mode == "compiled" and self._is_compilable(program):
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise ValueError(f"n_steps={n_steps}: expected >= 1")
+        window_names: Tuple[str, ...] = ()
+        wk = getattr(feed, "k", None)
+        if isinstance(wk, int) and not isinstance(wk, bool) and wk > 0:
+            if n_steps == 1:
+                n_steps = wk
+            elif n_steps != wk:
+                raise ValueError(f"feed is a window of {wk} stacked batches "
+                                 f"but n_steps={n_steps} was requested")
+            window_names = tuple(feed)
+        elif feed and n_steps > 1:
+            window_names = _window_feed_names(program, feed, n_steps)
+        compiled = mode == "compiled" and self._is_compilable(program)
+        if window_names and not compiled:
+            return self._run_window_fallback(program, feed, fetch_list,
+                                             scope, return_numpy, n_steps,
+                                             window_names)
+        if compiled:
             fetched = self._run_compiled(program, scope, feed, fetch_names,
-                                         return_numpy, seed)
+                                         return_numpy, seed, n_steps,
+                                         window_names)
             self._last_run_mode = "compiled"
             return fetched
         fetched = self._run_interpreted(program, scope, feed, fetch_names,
-                                        return_numpy, seed)
+                                        return_numpy, seed, n_steps)
         self._last_run_mode = "interpreted"
         return fetched
+
+    def _run_window_fallback(self, program, feed, fetch_list, scope,
+                             return_numpy, n_steps, window_names):
+        """Windowed feeds on the interpreter (reference executor.py:2499):
+        one ``run`` a step on slice i of every windowed feed, the others
+        as they are; the fetches stacked [n_steps, ...]."""
+        def piece(name, v, i):
+            if name not in window_names:
+                return v
+            return (v.array if isinstance(v, LoDTensor) else v)[i]
+        per_step = [self.run(program, feed={n: piece(n, v, i)
+                                            for n, v in feed.items()},
+                             fetch_list=fetch_list, scope=scope,
+                             return_numpy=return_numpy)
+                    for i in range(n_steps)]
+        if not per_step[0]:
+            return per_step[-1]
+        if return_numpy:
+            return [np.stack([s[j] for s in per_step])
+                    for j in range(len(per_step[0]))]
+        return [LoDTensor(torch.stack([s[j].array for s in per_step]))
+                for j in range(len(per_step[0]))]
 
     def _is_compilable(self, program: Program) -> bool:
         """``_ops_compilable`` of the global block, once per program
@@ -623,11 +782,63 @@ class Executor:
         return t.to(dtype=core.dtype_to_torch(var.dtype)) if var is not None \
             else t
 
-    def _to_device(self, block, name: str, data) -> torch.Tensor:
-        return self._feed_tensor(block, name, data).to(self.device)
+    # the feed cache's limits (the TPU package's): arrays up to 4 MiB are
+    # fingerprinted, and a name fed a new array 8 times in a row is not
+    # looked at again
+    _FEED_CACHE_MAX_BYTES = 4 << 20
+    _FEED_CACHE_MISS_LIMIT = 8
+
+    def _feed_value(self, block, name: str, data) -> torch.Tensor:
+        """The feed as a tensor in its var's dtype: its device copy from
+        the feed cache (``FLAGS_feed_device_cache``), or, for what the
+        cache does not take, the tensor where it lies."""
+        if core.globals_["FLAGS_feed_device_cache"]:
+            t = self._feed_device_cached(block, name, data)
+            if t is not None:
+                return t
+        return self._feed_tensor(block, name, data)
+
+    def _feed_device_cached(self, block, name: str,
+                            data) -> Optional[torch.Tensor]:
+        """The reference's feed cache (executor.py:2583): when the SAME
+        ndarray object (same buffer address, shape and dtype) is fed again
+        and its CRC32 matches the one taken at upload, the device tensor
+        of that upload is reused and no host-to-device copy is made; a
+        mutated array is uploaded again. The entry pins the array, so its
+        id cannot be recycled by another. None for what the cache does
+        not take (not an ndarray, above the size limit, or a name whose
+        arrays keep changing)."""
+        if not isinstance(data, np.ndarray) \
+                or data.nbytes > self._FEED_CACHE_MAX_BYTES:
+            return None
+        entry = self._feed_cache.get(name)
+        if entry == "uncacheable":
+            return None
+        var = block._find_var_recursive(name)
+        ident = (id(data), data.__array_interface__["data"][0], data.shape,
+                 data.dtype.str, None if var is None else var.dtype)
+        fp = zlib.crc32(np.ascontiguousarray(data).reshape(-1)
+                        .view(np.uint8))
+        if entry is not None and entry[0] == ident and entry[1] == fp:
+            entry[4][0] = 0
+            self.feed_stats["cache_hits"] += 1
+            return entry[3]
+        misses = [0]
+        if entry is not None and entry[0] != ident:
+            misses = entry[4]
+            misses[0] += 1
+            if misses[0] >= self._FEED_CACHE_MISS_LIMIT:
+                self._feed_cache[name] = "uncacheable"
+                return None
+        t = self._feed_tensor(block, name, data).to(self.device)
+        if t.device.type == "cpu":
+            t = t.clone()  # a host tensor shares the ndarray's memory
+        self._feed_cache[name] = (ident, fp, data, t, misses)
+        self.feed_stats["uploads"] += 1
+        return t
 
     def _run_compiled(self, program, scope, feed, fetch_names, return_numpy,
-                      seed):
+                      seed, n_steps=1, window_names=()):
         block = program.global_block()
         for n, d in feed.items():
             if isinstance(d, LoDTensor) and d.lod():
@@ -635,12 +846,13 @@ class Executor:
                     f"feed '{n}' carries LoD: the compiled step of "
                     "paddle_tpu_torch takes dense feeds only (run with "
                     "FLAGS_executor_mode=interpreted)")
-        feeds = {n: self._feed_tensor(block, n, d) for n, d in feed.items()}
+        feeds = {n: self._feed_value(block, n, d) for n, d in feed.items()}
         names = tuple(sorted(feeds))
+        # a windowed feed's step shape is a slice's
         key = (id(program), program._version, names, tuple(fetch_names),
                id(scope),
-               tuple((n, tuple(feeds[n].shape), feeds[n].dtype)
-                     for n in names),
+               tuple((n, tuple(feeds[n].shape[n in window_names:]),
+                      feeds[n].dtype) for n in names),
                seed, core.globals_["FLAGS_use_bf16_matmul"])
         cb = self._compiled_cache.get(key)
         # an id() of a dead scope can be reused by a new one: validate
@@ -652,22 +864,28 @@ class Executor:
                                 self.device, self._stream, self._pool)
             self._compiled_cache[key] = cb
         self._last_block = cb
+        if n_steps > 1 or window_names:
+            return cb.run_window(scope, feeds, window_names, n_steps,
+                                 return_numpy)
         return cb.run(scope, feeds, return_numpy)
 
     # ------------------------------------------------------- interpreter
     def _run_interpreted(self, program, scope, feed, fetch_names,
-                         return_numpy, seed):
+                         return_numpy, seed, n_steps=1):
+        """``n_steps`` steps on the same feeds; the final step's fetches
+        (reference executor.py:2273-2290)."""
         block = program.global_block()
         for name, data in feed.items():
-            scope.var(name).set_value(
-                LoDTensor(self._to_device(block, name, data)))
+            scope.var(name).set_value(LoDTensor(
+                self._feed_value(block, name, data).to(self.device)))
         self._check_inputs(block, scope, set(feed))
         keys = _StepKeys(seed, _rng_indices(block.ops), self.device)
-        keys.begin(_step_counter(scope, self.device))
-        for idx, op in enumerate(block.ops):
-            self._run_op(op, idx, scope, keys)
-        keys.counter.add_(1)
-        keys.end()
+        for _ in range(n_steps):
+            keys.begin(_step_counter(scope, self.device))
+            for idx, op in enumerate(block.ops):
+                self._run_op(op, idx, scope, keys)
+            keys.counter.add_(1)
+            keys.end()
         fetched = []
         for n in fetch_names:
             v = scope.find_var(n)

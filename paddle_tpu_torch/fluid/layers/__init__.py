@@ -4,4 +4,5 @@ program block and returns its output Variables."""
 from .nn import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
+from .metric_op import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403

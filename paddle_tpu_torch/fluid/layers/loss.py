@@ -1,10 +1,24 @@
 """Loss layers (counterpart of paddle_tpu/fluid/layers/loss.py; reference:
-python/paddle/fluid/layers/loss.py). So far: softmax_with_cross_entropy."""
+python/paddle/fluid/layers/loss.py). So far: cross_entropy and
+softmax_with_cross_entropy."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["softmax_with_cross_entropy"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy"]
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log(input[label]) of probabilities ``input``, [..., 1]."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = tuple(list(input.shape[:-1]) + [1])
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -1,7 +1,7 @@
 """Core NN layers (counterpart of paddle_tpu/fluid/layers/nn.py; reference:
 python/paddle/fluid/layers/nn.py). Op-builder functions with inline shape
 inference; -1 marks unknown dims. So far: fc, embedding, layer_norm,
-dropout, reshape, unsqueeze, gather, mean, elementwise_add,
+dropout, reshape, unsqueeze, gather, topk, mean, elementwise_add,
 elementwise_sub, scale."""
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from ..layer_helper import LayerHelper
 from ..initializer import Constant
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout", "reshape",
-           "unsqueeze", "gather", "mean", "elementwise_add",
+           "unsqueeze", "gather", "topk", "mean", "elementwise_add",
            "elementwise_sub", "scale"]
 
 
@@ -171,6 +171,26 @@ def gather(input, index, overwrite=True):
     helper.append_op(type="gather", inputs={"X": [input], "Index": [index]},
                      outputs={"Out": [out]})
     return out
+
+
+def topk(input, k, name=None):
+    """reference: layers/nn.py topk → top_k op: (values, int64 indices)
+    of the k largest along the last axis; ``k`` may be a Variable."""
+    helper = LayerHelper("top_k", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    inputs = {"X": [input]}
+    attrs = {"k": k if not isinstance(k, Variable) else 1}
+    if isinstance(k, Variable):
+        inputs["K"] = [k]
+    else:
+        values.shape = tuple(list(input.shape[:-1]) + [k])
+        indices.shape = values.shape
+    helper.append_op(type="top_k", inputs=inputs,
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs=attrs)
+    indices.stop_gradient = True
+    return values, indices
 
 
 def mean(x, name=None):

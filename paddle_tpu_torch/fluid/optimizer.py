@@ -1,6 +1,6 @@
 """Optimizers (counterpart of paddle_tpu/fluid/optimizer.py; reference:
-python/paddle/fluid/optimizer.py — Optimizer:55, SGD:842, Adam:1714).
-Static graph only; so far the base, SGD and Adam.
+python/paddle/fluid/optimizer.py — Optimizer:55, SGD:842, Momentum,
+Adam:1714). Static graph only; so far the base, SGD, Momentum and Adam.
 
 ``minimize`` = append_backward + grad clip + regularization + one update
 op per parameter, the reference's contract. Accumulators (moments, beta
@@ -23,7 +23,8 @@ from .initializer import Constant
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer"]
 
 
 class Optimizer:
@@ -166,6 +167,36 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [param_and_grad[0]]})
 
 
+class MomentumOptimizer(Optimizer):
+    """v ← mu·v + g, p ← p − lr·v (Nesterov: p − lr·(g + mu·v)); one
+    velocity accumulator per parameter."""
+
+    def __init__(self, learning_rate, momentum, parameter_list=None,
+                 use_nesterov=False, regularization=None, name=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameter_list, regularization, name,
+                         grad_clip)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator("velocity", param_and_grad[0])
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param_and_grad[0]], "Grad": [param_and_grad[1]],
+                    "Velocity": [velocity],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameter_list=None, regularization=None,
@@ -208,4 +239,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -11,11 +11,16 @@ Both are differentiable: the flash path through
 ``FlashAttentionFunction`` (its backward runs the dK/dV and dQ kernels),
 the einsum path through torch autograd.
 
-Dispatch rule of the TPU package, unchanged: no bias, or a bias of the
-exact key-padding form [B, 1, 1, Sk], goes to the flash kernel
-(ops/cuda/flash_attention.py: the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors); any other bias shape goes to the op's own einsum
-path in plain torch. Both paths accumulate in f32.
+Route (``attention_route``, the TPU package's rule, a pure function of
+the shapes): no bias, or a bias of the exact key-padding form
+[B, 1, 1, Sk], goes to the flash kernels (ops/cuda/flash_attention.py: the
+CUDA kernels for CUDA tensors, their plain versions for CPU tensors); any
+other bias shape goes to the op's own einsum path in plain torch, which at
+dropout > 0 draws the flash kernels' own counter-hash mask, so the mask
+does not depend on the route. On the card the kernels take f32 or bf16 at
+any head dim up to 128 (zero-padded to their next instance) and any B·H;
+a head dim above 128 or another dtype raises there, as nothing else runs
+the flash route on the card. Both paths accumulate in f32.
 """
 from __future__ import annotations
 
@@ -26,18 +31,25 @@ import torch
 from . import rng
 from .registry import register_op, first, out
 from .math_ops import bf16_matmul_enabled
-from .cuda.flash_attention import flash_attention
+from .cuda.flash_attention import flash_attention, keep_mask
 
 
-def _keypad_bias(bias, q, k):
-    """[B, Sk] view of ``bias`` iff it is EXACTLY the key-padding form
-    [B, 1, 1, Sk] (else None). A merely broadcastable bias (e.g.
-    [B,1,1,1] or [1,1,1,Sk]) does not qualify. q, k: [B, H, S, D]."""
-    if bias is not None and bias.dim() == 4 and bias.shape[1] == 1 \
-            and bias.shape[2] == 1 and bias.shape[0] == q.shape[0] \
-            and bias.shape[3] == k.shape[2]:
-        return bias.reshape(bias.shape[0], bias.shape[3])
-    return None
+def _is_keypad(bias_shape, q_shape, k_shape) -> bool:
+    """A bias of EXACTLY the key-padding form [B, 1, 1, Sk]; a merely
+    broadcastable one (e.g. [B,1,1,1] or [1,1,1,Sk]) does not qualify.
+    q, k: [B, H, S, D]."""
+    return bias_shape is not None and len(bias_shape) == 4 \
+        and bias_shape[1] == 1 and bias_shape[2] == 1 \
+        and bias_shape[0] == q_shape[0] and bias_shape[3] == k_shape[2]
+
+
+def attention_route(q_shape, k_shape, bias_shape=None) -> str:
+    """"flash" or "einsum" for q [B, H, S, D], k [B, H, Sk, D] and an
+    additive bias of ``bias_shape`` (None: no bias): the flash kernels take
+    no bias or the key-padding form, whatever the head dim and dtype (the
+    TPU package's Pallas kernel refuses no shape)."""
+    return "flash" if bias_shape is None \
+        or _is_keypad(bias_shape, q_shape, k_shape) else "einsum"
 
 
 def _split_heads(x, n_head):
@@ -52,23 +64,29 @@ def _merge_heads(x):
 
 
 def _einsum_attention(q, k, v, scale, bias, causal=False, drop=0.0,
-                      key=None):
-    """Plain attention for biases the kernel does not take, with the same
-    f32-accumulation contract: scores and softmax in f32, P rounded to the
-    operand dtype before the PV product."""
+                      seed=None):
+    """Plain attention for the biases the kernels do not take, with the
+    same f32-accumulation contract: scores and softmax in f32, P rounded
+    to the operand dtype before the PV product. At ``drop`` > 0 the keep
+    mask is the flash kernels' counter hash over (seed, b·H + h, row,
+    col)."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
+    B, H, S, Sk = s.shape
+    dev = q.device
     if causal:
-        S, Sk = q.shape[2], k.shape[2]
-        mask = torch.arange(S, device=q.device)[:, None] \
-            >= torch.arange(Sk, device=q.device)[None, :]
+        mask = torch.arange(S, device=dev)[:, None] \
+            >= torch.arange(Sk, device=dev)[None, :]
         s = s.masked_fill(~mask, torch.finfo(torch.float32).min)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     if drop > 0.0:
-        keep = rng.keep_mask(key, p.shape, drop)
+        keep = keep_mask(seed,
+                         torch.arange(B * H, device=dev).reshape(B, H, 1, 1),
+                         torch.arange(S, device=dev)[:, None],
+                         torch.arange(Sk, device=dev)[None, :], drop)
         p = torch.where(keep, p / (1.0 - drop),
-                        torch.zeros((), dtype=p.dtype, device=p.device))
+                        torch.zeros((), dtype=p.dtype, device=dev))
     return torch.matmul(p.float(), v.float())
 
 
@@ -95,14 +113,14 @@ def _fused_attention_qkv(ins, attrs):
     qh, kh, vh = (_split_heads(t, h) for t in (q, k, v))
     causal = attrs.get("causal", False)
     drop = float(attrs.get("dropout_rate", 0.0) or 0.0)
-    kp_bias = _keypad_bias(bias, qh, kh)
-    if bias is None or kp_bias is not None:
-        seed = rng.attention_seed(attrs["_rng"]()) if drop > 0.0 else None
+    seed = rng.attention_seed(attrs["_rng"]()) if drop > 0.0 else None
+    if attention_route(qh.shape, kh.shape,
+                       None if bias is None else bias.shape) == "flash":
+        kp = None if bias is None else bias.reshape(bias.shape[0], -1)
         o = flash_attention(qh, kh, vh, sm_scale, causal, dropout_rate=drop,
-                            dropout_seed=seed, bias=kp_bias)
+                            dropout_seed=seed, bias=kp)
     else:
-        o = _einsum_attention(qh, kh, vh, sm_scale, bias, causal, drop,
-                              attrs["_rng"]() if drop > 0.0 else None)
+        o = _einsum_attention(qh, kh, vh, sm_scale, bias, causal, drop, seed)
     return out(Out=_merge_heads(o).to(out_dtype))
 
 
@@ -136,9 +154,11 @@ def _multihead_matmul(ins, attrs):
             x5 = x.reshape(bsz, s, 3, h, hd3 // (3 * h))
         q, k, v = (x5[:, :, i].permute(0, 2, 1, 3).contiguous()
                    for i in range(3))
-    kp_bias = _keypad_bias(bias_qk, q, k)
-    if bias_qk is None or kp_bias is not None:
-        o = flash_attention(q, k, v, alpha, causal=False, bias=kp_bias)
+    if attention_route(q.shape, k.shape, None if bias_qk is None
+                       else bias_qk.shape) == "flash":
+        kp = None if bias_qk is None else \
+            bias_qk.reshape(bias_qk.shape[0], -1)
+        o = flash_attention(q, k, v, alpha, causal=False, bias=kp)
     else:
         o = _einsum_attention(q, k, v, alpha, bias_qk).to(q.dtype)
     return out(Out=_merge_heads(o))

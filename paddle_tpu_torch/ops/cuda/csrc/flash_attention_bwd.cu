@@ -159,9 +159,12 @@ __global__ void __launch_bounds__(tc::THREADS, D <= 64 ? 3 : 1)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  // one linear grid, the key tiles of a (batch, head) adjacent: B*H is
+  // not held to gridDim.y's 65535
+  const int k_tiles = (Sk + BN - 1) / BN;
+  const int bh = blockIdx.x / k_tiles;
   const int b = bh / H;
-  const int k0 = blockIdx.x * BN;
+  const int k0 = (blockIdx.x % k_tiles) * BN;
   const size_t q_base = (size_t)bh * S * D;
   const size_t kv_base = (size_t)bh * Sk * D;
   const size_t row_base = (size_t)bh * S;
@@ -330,9 +333,10 @@ __global__ void __launch_bounds__(Q_THREADS, D <= 64 ? 2 : 1)
   const int group = warp >> 2;          // which keys of each tile
   const int m0 = (warp & 3) * 16;       // the warp's rows in the tile
   const int c0 = group * Q_SLICE;       // the warp's keys in the tile
-  const int bh = blockIdx.y;
+  const int q_tiles = (S + BM - 1) / BM;  // one linear grid, as dK/dV's
+  const int bh = blockIdx.x / q_tiles;
   const int b = bh / H;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = (blockIdx.x % q_tiles) * BM;
   const size_t q_base = (size_t)bh * S * D;
   const size_t kv_base = (size_t)bh * Sk * D;
   const size_t row_base = (size_t)bh * S;
@@ -506,7 +510,8 @@ int launch_kv(const BwdArgs& a, void* dk, void* dv, cudaStream_t stream) {
       reinterpret_cast<const void*>(flash_bwd_kv_kernel<T, D>), smem,
       attr_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.Sk + BN - 1) / BN, a.B * a.H);
+  const dim3 grid((unsigned)((a.Sk + BN - 1) / BN) *
+                  (unsigned)(a.B * a.H));
   flash_bwd_kv_kernel<T, D><<<grid, tc::THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -528,7 +533,8 @@ int launch_q(const BwdArgs& a, void* dq, cudaStream_t stream) {
       reinterpret_cast<const void*>(flash_bwd_q_kernel<T, D>), smem,
       attr_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.S + BM - 1) / BM, a.B * a.H);
+  const dim3 grid((unsigned)((a.S + BM - 1) / BM) *
+                  (unsigned)(a.B * a.H));
   flash_bwd_q_kernel<T, D><<<grid, Q_THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),

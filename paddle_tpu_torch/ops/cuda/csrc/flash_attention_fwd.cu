@@ -102,9 +102,12 @@ __global__ void __launch_bounds__(FWD_THREADS, D <= 64 ? 2 : 1)
   const int group = warp >> 2;            // which keys of each tile
   const int m0 = (warp & 3) * 16;         // the warp's rows in the tile
   const int c0 = group * SLICE;           // the warp's keys in the tile
-  const int bh = blockIdx.y;
+  // one linear grid, the query tiles of a (batch, head) adjacent: B*H is
+  // not held to gridDim.y's 65535
+  const int q_tiles = (S + BM - 1) / BM;
+  const int bh = blockIdx.x / q_tiles;
   const int b = bh / H;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = (blockIdx.x % q_tiles) * BM;
   const size_t q_base = (size_t)bh * S * D;
   const size_t kv_base = (size_t)bh * Sk * D;
   const int rows[2] = {q0 + m0 + g, q0 + m0 + g + 8};
@@ -293,7 +296,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   const cudaError_t err = ensure_smem_attr(
       reinterpret_cast<const void*>(flash_fwd_kernel<T, D>), smem, attr_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BM - 1) / BM, B * H);
+  const dim3 grid((unsigned)((S + BM - 1) / BM) * (unsigned)(B * H));
   flash_fwd_kernel<T, D><<<grid, FWD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),

@@ -21,6 +21,14 @@ operand-dtype rounding points included. The CPU tests hold the plain
 versions against the Pallas kernels; chip_smoke.py holds the kernels
 against the plain versions on the card.
 
+Any head dim up to 128 and any B·H run on the kernels: the wrappers pad a
+head dim the kernels have no instance for with zero columns to the next
+one (``kernel_head_dim``; exact, the padded columns are sliced off), and
+each kernel walks one linear grid of (batch·head, 64-row tile) blocks. A
+head dim above 128, or a dtype other than f32 and bf16, raises on CUDA
+tensors: there is no instance, and nothing falls back to a plain version
+on the card.
+
 ``flash_attention`` is differentiable through ``FlashAttentionFunction``
 (the counterpart of `_flash_pallas`'s custom vjp, :639-666): its residual
 is (q, k, v, o, lse, seed, bias); the bias gets a zero grad and the seed
@@ -38,7 +46,10 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30  # finite mask value: avoids inf-inf → NaN in the rescale
+# the head dims each kernel is instantiated for; any other D up to the
+# largest runs at the next one, zero-padded (``kernel_head_dim``)
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
+MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 KERNEL_SOURCE = "flash_attention_fwd.cu"
 BWD_KERNEL_SOURCE = "flash_attention_bwd.cu"
 
@@ -69,15 +80,21 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
 
 
-def keep_mask(seed: int, bh, rows, cols, rate: float) -> torch.Tensor:
+def keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
     """Dropout keep mask over (seed, batch·head, absolute row, absolute
     col): the Wang-style uint32 mix of the TPU kernel, bit for bit. ``bh``,
     ``rows`` and ``cols`` are int tensors that broadcast against each
-    other; the result is a bool tensor of their broadcast shape."""
+    other; the result is a bool tensor of their broadcast shape. ``seed``
+    is an int, or an int32 [1] tensor on the mask's device, which is read
+    there and not on the host (a CUDA graph can capture the mask)."""
     bh, rows, cols = (torch.as_tensor(t).to(torch.int64) & _M32
                       for t in (bh, rows, cols))
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(-1)[:1].to(torch.int64)
+    else:
+        seed = int(seed)
     x = (_mul32(rows, 0x9E3779B1) ^ _mul32(cols, 0x85EBCA77)
-         ^ ((int(seed) + _mul32(bh, 0x27D4EB2F)) & _M32))
+         ^ ((seed + _mul32(bh, 0x27D4EB2F)) & _M32))
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -250,6 +267,24 @@ def _raise_on(lib, rc: int, what: str):
                            + lib.paddle_cuda_error_string(rc).decode())
 
 
+def kernel_head_dim(d: int) -> Optional[int]:
+    """The instance a head dim ``d`` runs at: the smallest supported head
+    dim ≥ d, or None above MAX_HEAD_DIM. A padded head dim is exact: the
+    zero columns add exact zeros to QKᵀ and give zero columns of O, dQ,
+    dK and dV, which the wrappers slice off (sm_scale is always passed,
+    never derived from D)."""
+    for dp in SUPPORTED_HEAD_DIMS:
+        if d <= dp:
+            return dp
+    return None
+
+
+def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t`` [..., D] zero-padded to [..., dp], contiguous."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
 def _check_cuda_inputs(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention: q, k and v must all be CUDA "
@@ -264,17 +299,18 @@ def _check_cuda_inputs(q, k, v):
             or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if q.shape[3] not in SUPPORTED_HEAD_DIMS:
+    if kernel_head_dim(q.shape[3]) is None:
         raise ValueError(f"flash_attention kernel: head dim {q.shape[3]} "
-                         f"not in {SUPPORTED_HEAD_DIMS}")
+                         f"above {MAX_HEAD_DIM}: no kernel instance")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel: q, k, v must be "
                          "contiguous [B, H, S, D]")
     if k.shape[2] == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("flash_attention kernel: B*H above the grid limit "
-                         "65535")
+    tiles = -(-max(q.shape[2], k.shape[2]) // 64) * q.shape[0] * q.shape[1]
+    if tiles >= 2 ** 31:
+        raise ValueError("flash_attention kernel: more than 2^31 - 1 blocks "
+                         "of 64 rows over B*H")
 
 
 def _device_bias_seed(bias, dropout_rate, dropout_seed, B, Sk, dev):
@@ -315,6 +351,12 @@ def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
     global launch_count
     _check_cuda_inputs(q, k, v)
     B, H, S, D = q.shape
+    dp = kernel_head_dim(D)
+    if dp != D:
+        o, lse = flash_attention_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v)), sm_scale, causal,
+            dropout_rate, dropout_seed, bias)
+        return o[..., :D].contiguous(), lse
     dev = q.device
     bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
                                    k.shape[2], dev)
@@ -355,6 +397,12 @@ def flash_attention_bwd_kv_cuda(q, k, v, do, lse, delta, sm_scale,
     """Launch the dK/dV kernel on the current stream: → (dk, dv)."""
     global bwd_kv_launch_count
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    if dp != d:
+        dk, dv = flash_attention_bwd_kv_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v, do)), lse, delta,
+            sm_scale, causal, dropout_rate, dropout_seed, bias)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed,
                                    q.shape[0], k.shape[2], q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -378,6 +426,12 @@ def flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale,
     """Launch the dQ kernel on the current stream: → dq."""
     global bwd_q_launch_count
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    if dp != d:
+        return flash_attention_bwd_q_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v, do)), lse, delta,
+            sm_scale, causal, dropout_rate, dropout_seed,
+            bias)[..., :d].contiguous()
     bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed,
                                    q.shape[0], k.shape[2], q.device)
     dq = torch.empty_like(q)
@@ -397,13 +451,21 @@ def flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale,
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale, causal=False,
                              dropout_rate=0.0, dropout_seed=None, bias=None):
     """The backward on the card: delta, then the dK/dV and the dQ kernels
-    → (dq, dk, dv)."""
+    → (dq, dk, dv). A head dim off the instances is padded once for both
+    kernels; delta is taken from the unpadded O and dO (the padded
+    columns would add zeros)."""
     delta = bwd_delta(o, do)
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    padded = dp is not None and dp != d
+    if padded:
+        q, k, v, do = (pad_head_dim(t, dp) for t in (q, k, v, do))
     dk, dv = flash_attention_bwd_kv_cuda(q, k, v, do, lse, delta, sm_scale,
                                          causal, dropout_rate, dropout_seed,
                                          bias)
     dq = flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale, causal,
                                     dropout_rate, dropout_seed, bias)
+    if padded:
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -1,6 +1,6 @@
 """Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
-far: elementwise_add, elementwise_sub, mul, scale, gelu, square, mean,
-sum).
+far: elementwise_add, elementwise_sub, mul, scale, relu, gelu, square,
+mean, sum).
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -92,6 +92,15 @@ def _mul(ins, attrs):
 # activations
 # --------------------------------------------------------------------------
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+@register_op("relu", inputs=("X",))
+def _relu(ins, attrs):
+    """max(x, 0) as the TPU package's ``jnp.maximum(x, 0)``: at x = 0 the
+    grad is split evenly between the two sides (½), as JAX's is."""
+    x = first(ins, "X")
+    return out(Out=torch.maximum(x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device)))
 
 
 @register_op("gelu", inputs=("X",), attr_defaults={"approximate": False})

@@ -1,6 +1,7 @@
 """NN op kernels (counterpart of paddle_tpu/ops/nn_ops.py; so far:
-lookup_table_v2, layer_norm, softmax_with_cross_entropy and dropout with
-its dropout_grad)."""
+lookup_table_v2, layer_norm, softmax, cross_entropy,
+softmax_with_cross_entropy, accuracy and dropout with its
+dropout_grad)."""
 from __future__ import annotations
 
 import torch
@@ -58,8 +59,38 @@ def _layer_norm(ins, attrs):
 
 
 # --------------------------------------------------------------------------
-# losses
+# softmax & losses
 # --------------------------------------------------------------------------
+@register_op("softmax", inputs=("X",), attr_defaults={"axis": -1})
+def _softmax(ins, attrs):
+    return out(Out=torch.softmax(first(ins, "X"), dim=attrs.get("axis", -1)))
+
+
+@register_op("cross_entropy", inputs=("X", "Label"), diff_inputs=("X",),
+             attr_defaults={"soft_label": False, "ignore_index": -100})
+def _cross_entropy(ins, attrs):
+    """-log(x[label] + 1e-20) over probabilities x (the TPU package's
+    kernel); an ignored label gives 0."""
+    x, label = first(ins, "X"), first(ins, "Label")
+    eps = 1e-20
+    if attrs.get("soft_label", False):
+        return out(Y=-torch.sum(label * torch.log(x + eps), dim=-1,
+                                keepdim=True))
+    lbl = label
+    if lbl.dim() == x.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.squeeze(-1)
+    lbl = lbl.long()[..., None]
+    ign = attrs.get("ignore_index", -100)
+    # an ignored label may lie outside the classes: gather at 0, then
+    # zero the loss
+    picked = torch.gather(x, -1, torch.where(lbl == ign, 0, lbl))
+    loss = -torch.log(picked + eps)
+    return out(Y=torch.where(lbl == ign, torch.zeros((), dtype=loss.dtype,
+                                                     device=loss.device),
+                             loss))
+
+
+
 @register_op("softmax_with_cross_entropy", inputs=("Logits", "Label"),
              diff_inputs=("Logits",),
              attr_defaults={"soft_label": False, "ignore_index": -100,
@@ -85,6 +116,24 @@ def _softmax_with_cross_entropy(ins, attrs):
                            torch.zeros((), dtype=logp.dtype,
                                        device=logp.device), -picked)
     return out(Softmax=softmax, Loss=loss)
+
+
+# --------------------------------------------------------------------------
+# metrics
+# --------------------------------------------------------------------------
+@register_op("accuracy", inputs=("Out", "Indices", "Label"), no_grad=True)
+def _accuracy(ins, attrs):
+    """Top-k accuracy from top_k's Indices: a row counts when any of its k
+    indices is its label. Total is a device fill, not a host copy, so a
+    CUDA graph can capture the op."""
+    idx, label = first(ins, "Indices"), first(ins, "Label")
+    correct = torch.any(idx == label.reshape(-1, 1).to(idx.dtype), dim=1)
+    num_correct = torch.sum(correct.to(torch.float32))
+    total = idx.shape[0]
+    return out(Accuracy=(num_correct / total).reshape((1,)),
+               Correct=num_correct.to(torch.int32).reshape((1,)),
+               Total=torch.full((1,), total, dtype=torch.int32,
+                                device=idx.device))
 
 
 # --------------------------------------------------------------------------

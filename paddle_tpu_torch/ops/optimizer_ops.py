@@ -1,6 +1,6 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py;
-reference: paddle/fluid/operators/optimizers/sgd_op.cc, adam_op.cc; so
-far: sgd and adam).
+reference: paddle/fluid/operators/optimizers/sgd_op.cc, momentum_op.cc,
+adam_op.cc; so far: sgd, momentum and adam).
 
 Each op returns ParamOut / MomentOut tensors that the executor writes back
 under the same var names as Param / Moment (the optimizer wires each
@@ -21,6 +21,26 @@ def _sgd(ins, attrs):
     p, g = first(ins, "Param"), first(ins, "Grad")
     lr = first(ins, "LearningRate")
     return out(ParamOut=p - lr.reshape(()).to(p.dtype) * g.to(p.dtype))
+
+
+@register_op("momentum", no_grad=True,
+             attr_defaults={"mu": 0.9, "use_nesterov": False,
+                            "regularization_method": "",
+                            "regularization_coeff": 0.0})
+def _momentum(ins, attrs):
+    """v ← mu·v + g; p ← p − lr·v, or p − lr·(g + mu·v) with Nesterov."""
+    p, g = first(ins, "Param"), first(ins, "Grad")
+    v = first(ins, "Velocity")
+    lr = first(ins, "LearningRate").reshape(()).to(p.dtype)
+    mu = attrs.get("mu", 0.9)
+    if attrs.get("regularization_method", "") == "l2_decay":
+        g = g + attrs.get("regularization_coeff", 0.0) * p
+    v_new = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return out(ParamOut=p_new, VelocityOut=v_new)
 
 
 @register_op("adam", no_grad=True,

@@ -1,7 +1,7 @@
 """Tensor creation / manipulation op kernels (counterpart of
 paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value,
 uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
-unsqueeze2, gather).
+unsqueeze2, gather and its grad, top_k).
 
 Random ops draw from the key that ``attrs["_rng"]()`` returns (the
 executor derives it on the device from the program's random_seed, the
@@ -165,3 +165,43 @@ def _unsqueeze2(ins, attrs):
 def _gather(ins, attrs):
     x, idx = first(ins, "X"), first(ins, "Index")
     return out(Out=x.index_select(0, idx.reshape(-1).long()))
+
+
+@register_op("top_k", inputs=("X", "K"), diff_inputs=("X",),
+             host_inputs=("K",), attr_defaults={"k": 1})
+def _top_k(ins, attrs):
+    """The k largest along the last axis, descending, with their int64
+    indices (the var's dtype). ``K``, a tensor, overrides the attr and is
+    read on the host."""
+    x, kt = first(ins, "X"), first(ins, "K")
+    k = int(kt.reshape(()).item()) if kt is not None else attrs.get("k", 1)
+    vals, idx = torch.topk(x, k, dim=-1, largest=True, sorted=True)
+    return out(Out=vals, Indices=idx)
+
+
+def scatter_rows_add(n_rows: int, idx: torch.Tensor,
+                     g: torch.Tensor) -> torch.Tensor:
+    """[n_rows, ...] zeros with row ``idx[i]`` += ``g[i]``, duplicates
+    summed in an order that does not change from run to run, so a step
+    that repeats indices is bitwise reproducible. On the card
+    ``index_put_(accumulate=True)``: it sorts the indices (a stable radix
+    sort) and adds each run of equal indices in that order, where
+    ``index_add_``, what autograd gives ``index_select``, adds with
+    atomics in an order that changes from run to run. On the CPU the
+    other way round: ``index_add_`` adds in index order, and
+    ``index_put_(accumulate=True)`` splits the rows over threads."""
+    z = torch.zeros((n_rows,) + tuple(g.shape[1:]), dtype=g.dtype,
+                    device=g.device)
+    if g.is_cuda:
+        return z.index_put_((idx,), g, accumulate=True)
+    return z.index_add_(0, idx, g)
+
+
+@register_op("gather_grad", no_grad=True)
+def _gather_grad(ins, attrs):
+    """X@GRAD of gather: Out@GRAD's rows summed into X's rows by Index
+    (the masked positions of the BERT step repeat), in a fixed order."""
+    x, idx = first(ins, "X"), first(ins, "Index")
+    g = first(ins, "Out@GRAD").to(x.dtype)
+    return out(**{"X@GRAD": scatter_rows_add(x.shape[0],
+                                             idx.reshape(-1).long(), g)})
