@@ -88,6 +88,29 @@ Phases, each fatal on failure:
               kernels in a profiler trace of one replayed BERT step. Then
               each lane's window again with FLAGS_feed_device_cache on
               and off in turn (every feed a cache hit when on).
+  7. remat  — the bert lane again with PADDLE_TPU_BENCH_RECOMPUTE=1
+              (per-layer checkpoints, the remat schedule in the graph),
+              its JSON line printed. Checks: the plan engaged with no
+              fallback warning, a timed window of replays only, (24, 12,
+              12, 0) kernels a step from the graph and a trace, peak
+              memory below the plain lane's of this run, the last loss
+              within 2e-5 relative of the plain lane's.
+  8. amp    — build_bert_pretrain_program(use_amp=True): bf16 products,
+              f32 master weights, dropout 0.1, input mask, Adam, at batch
+              32 compiled as the train phase runs it (step p50/p90,
+              samples/s, peak memory beside the train phase's). Checks:
+              (24, 12, 12, 37) kernels a step (wrappers, graph, trace), a
+              falling loss on a repeated batch, and 3 steps at batch 2
+              compiled against interpreted bitwise, with f32 Q/K/V.
+  9. guard  — the numeric fault guard: the TPU package's dynamic loss
+              scaling program with an inf at step 2 gives the scales
+              [8, 16, 8, 8, 16, 16] compiled (the bad step a replay), and
+              with an empty white list compiled against interpreted
+              bitwise; FLAGS_nan_inf_action=skip on BERT-base at batch 2
+              leaves every parameter and Adam slot bitwise at its
+              pre-step value when a replay is fed an inf; then the train
+              phase's step with FLAGS_check_nan_inf off and on (skip),
+              alternated, p50 of each.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -96,9 +119,9 @@ included; ``wrapper_calls_by_path``: the wrappers' counts, warm-ups and
 captures only) and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
-passes over one request of each batch size and over one training step:
-device time by kernel name, and the device's idle share against the same
-work's unprofiled wall time.
+passes over one request of each batch size and over one step of the
+train, lane, remat and AMP phases: device time by kernel name, and the
+device's idle share against the same work's unprofiled wall time.
 """
 from __future__ import annotations
 
@@ -140,6 +163,12 @@ GRAPH_STEPS = 3               # eager warm-up, capture, replay
 LANE_BATCH = 256              # bench.py's BERT lane (bf16, no bias)
 BIG_BH = (5462, 12)           # B·H = 65544, above gridDim.y's 65535
 WINDOW_K = 4                  # steps of phase_window's windows
+REMAT_LOSS_RTOL = 2e-5        # remat lane vs plain lane, last loss: the
+                              # reference's remat tolerance
+                              # (tests/test_models.py:172)
+AMP_WINDOW = 50               # AMP training steps timed
+GUARD_WINDOW = 30             # f32 steps timed in each guard block
+GUARD_BLOCKS = 2              # guard off/on pairs, alternated
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
            "flash_attention_bwd_q", "dropout_fwd")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
@@ -1129,13 +1158,15 @@ def _train_batch(rng, bs, cfg):
             "input_mask": mask}
 
 
-def _pretrain_program(cfg, dropout):
+def _pretrain_program(cfg, dropout, **options):
+    """The pretraining step with the input mask; ``options`` go to
+    build_bert_pretrain_program (use_amp)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
     with fluid.unique_name.guard():
         main, startup, _, (loss,) = bert.build_bert_pretrain_program(
             cfg, seq_len=S, dropout=dropout, lr=TRAIN_LR,
-            use_input_mask=True)
+            use_input_mask=True, **options)
     startup.random_seed = main.random_seed = SEED
     return main, startup, loss
 
@@ -1285,7 +1316,10 @@ def phase_train(profile=False):
     _check_train_against_cpu(cfg)
     _check_graph_against_interpreter(cfg)
     return {"wrapper": launches,
-            "executed": tuple(n_runs * w for w in want), "runs": dict(runs)}
+            "executed": tuple(n_runs * w for w in want), "runs": dict(runs),
+            "p50_ms": float(np.percentile(ms, 50)),
+            "samples_s": TRAIN_BATCH * TRAIN_WINDOW / (ms.sum() / 1e3),
+            "peak_gib": peak / 2**30}
 
 
 
@@ -1774,6 +1808,455 @@ def phase_window(cfg=None):
 
 
 # --------------------------------------------------------------------------
+# 7. remat, 8. amp, 9. guard
+# --------------------------------------------------------------------------
+def _persistables(scope, program):
+    """Every initialized persistable of ``program`` (parameters, Adam's
+    moments and beta powers, the learning rate), cloned."""
+    out = {}
+    for v in program.list_vars():
+        sv = scope.find_var(v.name) if v.persistable else None
+        if sv is not None and sv.is_initialized():
+            out[v.name] = sv.value().array.clone()
+    return out
+
+
+def _train_steps(exe, main, loss, scope, feeds, want, runs, what):
+    """One compiled Executor.run a feed, each gated on its kernel
+    launches (``_gate_run``) → (seconds of each run, losses)."""
+    import numpy as np
+    times, losses = [], []
+    for feed in feeds:
+        before = _launch_counts()
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        times.append(time.perf_counter() - t)
+        delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+        runs[_gate_run(exe, delta, want, what)] += 1
+        losses.append(float(out[0].reshape(-1)[0]))
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"{what}: non-finite loss {losses[-1]}")
+    return times, losses
+
+
+def _remat_want(main, plan):
+    """(forward, dK/dV, dQ, dropout) launches of one remat step: each
+    attention op's forward once, again in its segment's span (autograd's
+    forward) or, outside the segments, in its generic grad; then dK/dV and
+    dQ once each."""
+    ops = main.global_block().ops
+    L = sum(op.type == "fused_attention_qkv" for op in ops)
+    in_segments = sum(op.type == "fused_attention_qkv"
+                      for seg in plan.segments for op in seg.ops)
+    in_spans = {id(op) for span in plan.spans if span for op in span}
+    outside = sum(op.type == "fused_attention_qkv_grad" and id(op)
+                  not in in_spans for op in ops)
+    return (L + in_segments + outside, L, L, _dropout_ops(ops))
+
+
+def phase_remat(plain, profile=False):
+    """bench.py's bert lane with PADDLE_TPU_BENCH_RECOMPUTE=1, through
+    paddle_tpu_torch.bench as the lane phase ran it without: per-layer
+    checkpoints, the remat schedule in the lane's graph. Gates: the plan
+    engaged with no fallback warning, the timed window all replays, the
+    kernels of one step from the graph and from a trace of one replay,
+    peak memory below the plain lane's (``plain``, its JSON line from this
+    run) and the last loss of the window within REMAT_LOSS_RTOL of the
+    plain lane's."""
+    import warnings
+    import numpy as np
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.fluid import core
+    _reset_launch_counts()
+    os.environ["PADDLE_TPU_BENCH_RECOMPUTE"] = "1"
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            lane = bench.run_bert_base()
+    finally:
+        del os.environ["PADDLE_TPU_BENCH_RECOMPUTE"]
+    wrapper = _launch_counts()
+    res = lane.res
+    print(json.dumps(res), flush=True)
+    fallback = [str(w.message) for w in rec
+                if "not lowerable" in str(w.message)]
+    exe, cb = lane.exe, lane.exe._last_block
+    plan = cb._remat_plan
+    if fallback or plan is None or res["recompute"] is not True:
+        raise AssertionError(f"remat lane: the plan did not engage: "
+                             f"{fallback or res}")
+    want = _remat_want(lane.main, plan)
+    steps = res["steps"]
+    runs = dict(cb.stats)
+    if not (np.isfinite(res["loss"]) and res["executor_mode"] == "compiled"
+            and res["timed_window"] == {"eager": 0, "captures": 0,
+                                        "replays": steps}
+            and want == (24, 12, 12, 0)) \
+            or wrapper != tuple((runs["eager"] + runs["captures"]) * w
+                                for w in want) \
+            or tuple(cb.graph_launches.get(k, 0) for k in KERNELS) != want:
+        raise AssertionError(f"remat lane: {res}; launches {wrapper} "
+                             f"through the wrappers over {runs}, "
+                             f"{cb.graph_launches} in the graph; want {want} "
+                             "a step")
+    executed = tuple((runs["eager"] + runs["replays"]) * w for w in want)
+    core.set_flag("FLAGS_use_bf16_matmul", True)  # the lane's cache key
+    try:
+        def one_step():
+            exe.run(lane.main, feed=lane.feed, fetch_list=lane.fetches,
+                    scope=lane.scope)
+            if exe._last_block is not cb or cb.last_exec != "replay":
+                raise AssertionError("the traced remat step was not a "
+                                     "replay of the lane's graph")
+        _check_trace(_device_kernel_counts(one_step), want,
+                     f"remat lane bf16 batch {res['batch']} step")
+        if profile:
+            _profile_step(exe, lane.main, lane.fetches[0], lane.scope,
+                          lane.feed, f"remat lane bf16 batch {res['batch']}")
+    finally:
+        core.set_flag("FLAGS_use_bf16_matmul", False)
+    executed = tuple(e + w for e, w in zip(executed, want))
+    rel = abs(res["loss"] - plain["loss"]) / abs(plain["loss"])
+    _log(f"[remat] bert lane, PADDLE_TPU_BENCH_RECOMPUTE=1: "
+         f"{len(plan.segments)} segments; batch {res['batch']}, "
+         f"{res['value']} samples/s, {res['step_ms']} ms a step, peak "
+         f"{res['peak_memory_gib']} GiB, mfu_vs_h100_bf16_peak "
+         f"{res['mfu_vs_h100_bf16_peak']}; the plain lane of this run: "
+         f"batch {plain['batch']}, {plain['value']} samples/s, "
+         f"{plain['step_ms']} ms, peak {plain['peak_memory_gib']} GiB; step "
+         f"time x{res['step_ms'] / plain['step_ms']:.3f}, peak "
+         f"x{res['peak_memory_gib'] / plain['peak_memory_gib']:.3f}; "
+         f"kernels a step {want} (graph and trace), run {executed}")
+    _log(f"[remat] last loss of the window {res['loss']!r} against the "
+         f"plain lane's {plain['loss']!r}: {rel:.3e} relative (tol "
+         f"{REMAT_LOSS_RTOL:g}) -> {'ok' if rel <= REMAT_LOSS_RTOL else 'FAIL'}")
+    if res["batch"] != plain["batch"] \
+            or res["peak_memory_gib"] >= plain["peak_memory_gib"]:
+        raise AssertionError("remat lane: peak memory not below the plain "
+                             "lane's at the same batch")
+    if rel > REMAT_LOSS_RTOL:
+        raise AssertionError("remat lane: loss disagrees with the plain "
+                             "lane's")
+    lane.close()
+    return {"wrapper": wrapper, "executed": executed, "bert": res}
+
+
+def _amp_against_interpreter(cfg):
+    """GRAPH_STEPS steps of the AMP step at batch GRAPH_BATCH, dropout
+    0.1, compiled (eager, capture, replay) and interpreted, each from its
+    own startup run: losses and parameters bitwise. The attention's Q, K
+    and V, read from the interpreter's scope, are f32."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT,
+                                            use_amp=True)
+    rng = np.random.RandomState(SEED + 8)
+    feeds = [_train_batch(rng, GRAPH_BATCH, cfg) for _ in range(GRAPH_STEPS)]
+    params = main.global_block().all_parameters()
+    got, kinds = {}, []
+    try:
+        for mode in ("compiled", "interpreted"):
+            fluid.core.set_flag("FLAGS_executor_mode", mode)
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            exe.run(startup, scope=scope)
+            losses = []
+            for f in feeds:
+                losses.append(exe.run(main, feed=f, fetch_list=[loss],
+                                      scope=scope)[0])
+                if mode == "compiled":
+                    kinds.append(exe._last_block.last_exec)
+            got[mode] = (losses, _params(scope, params))
+            if mode == "interpreted":
+                qkv = {str(scope.find_var(op.input(s)[0]).value().array
+                           .dtype) for op in main.global_block().ops
+                       if op.type == "fused_attention_qkv"
+                       for s in ("Q", "K", "V")}
+                if qkv != {"torch.float32"}:
+                    raise AssertionError(f"AMP attention inputs {qkv}")
+            exe.close()
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    if kinds != ["eager", "capture", "replay"]:
+        raise AssertionError(f"AMP compiled runs {kinds}")
+    _log(f"[amp] batch {GRAPH_BATCH} dropout {TRAIN_DROPOUT}: losses " +
+         " ".join(f"{float(x[0]):.6f}" for x in got["compiled"][0]) +
+         "; the attention's Q, K, V are f32 (bf16 products plus f32 biases)")
+    _bitwise(f"AMP, {GRAPH_STEPS} steps compiled (eager, capture, replay) "
+             "vs interpreted: losses", got["compiled"][0],
+             got["interpreted"][0])
+    _bitwise(f"AMP, compiled vs interpreted after {GRAPH_STEPS} steps: "
+             f"{len(params)} parameters", got["compiled"][1],
+             got["interpreted"][1])
+
+
+def phase_amp(f32, profile=False):
+    """BERT-base pretraining with use_amp=True (bf16 products through
+    contrib.mixed_precision, f32 master weights), dropout 0.1, input
+    mask, Adam, compiled, at TRAIN_BATCH: warm-up, a window of AMP_WINDOW
+    steps timed, FALL_STEPS on one repeated batch. Gates: the kernels of
+    every step (through the wrappers, in the graph, in a trace of one
+    replay), a finite loss, the loss falling on the repeated batch, and 3
+    steps compiled against interpreted bitwise. ``f32``: the train
+    phase's figures of this run, printed beside."""
+    import collections
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT,
+                                            use_amp=True)
+    ops = main.global_block().ops
+    L = sum(op.type == "fused_attention_qkv" for op in ops)
+    want = (2 * L, L, L, _dropout_ops(ops))
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 7)
+    pool = [_train_batch(rng, TRAIN_BATCH, cfg) for _ in range(POOL)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    runs = collections.Counter()
+    what = "an AMP training step"
+    _train_steps(exe, main, loss, scope, pool[:TRAIN_WARMUP], want, runs,
+                 what)
+    times, losses = _train_steps(
+        exe, main, loss, scope,
+        [pool[(TRAIN_WARMUP + i) % POOL] for i in range(AMP_WINDOW)], want,
+        runs, what)
+    fall = _train_steps(exe, main, loss, scope, [pool[0]] * FALL_STEPS,
+                        want, runs, what)[1]
+    peak = torch.cuda.max_memory_allocated() - before
+    _check_trace(_device_kernel_counts(lambda: _train_steps(
+        exe, main, loss, scope, [pool[1]], want, runs, what)), want,
+        "AMP training step")
+    launches = _launch_counts()
+    n_runs = sum(runs.values())
+    if launches != tuple((runs["eager"] + runs["capture"]) * w
+                         for w in want):
+        raise AssertionError(f"AMP launches {launches} over {dict(runs)}")
+    ms = np.asarray(times) * 1e3
+    n_cast = sum(op.type == "cast" for op in ops)
+    _log(f"[amp] BERT-base use_amp=True: {len(ops)} ops ({n_cast} casts to "
+         f"bf16), batch {TRAIN_BATCH}, dropout {TRAIN_DROPOUT}: "
+         f"{AMP_WINDOW} steps, step p50 {np.percentile(ms, 50):.3f} ms p90 "
+         f"{np.percentile(ms, 90):.3f} ms, "
+         f"{TRAIN_BATCH * AMP_WINDOW / (ms.sum() / 1e3):.2f} samples/s, "
+         f"peak {peak / 2**30:.3f} GiB; the f32 train phase of this run: "
+         f"p50 {f32['p50_ms']:.3f} ms, {f32['samples_s']:.2f} samples/s, "
+         f"peak {f32['peak_gib']:.3f} GiB; losses {losses[0]:.4f} .. "
+         f"{losses[-1]:.4f}")
+    _log(f"[amp] {n_runs} steps: {dict(runs)}; kernels a step {want} "
+         f"(graph and trace), through the wrappers {launches}")
+    _log(f"[amp] repeated batch, {FALL_STEPS} steps: " +
+         " ".join(f"{x:.4f}" for x in fall))
+    if not (fall[-1] < fall[0] and np.mean(fall[-3:]) < np.mean(fall[:3])):
+        raise AssertionError("AMP: the loss does not fall on a repeated "
+                             "batch")
+    if profile:
+        _profile_step(exe, main, loss, scope, pool[1],
+                      f"AMP train step batch {TRAIN_BATCH}")
+    exe.close()
+    del exe, scope
+    _amp_against_interpreter(cfg)
+    return {"wrapper": launches,
+            "executed": tuple(n_runs * w for w in want)}
+
+
+def _dyn_scale_run(mode, white_list=None):
+    """The TPU package's dynamic-scaling program (tests/test_quant_amp.py
+    :91: MLP, SGD 0.1, scale 8, x2 every 2 clean steps, x0.5 every bad
+    one) on the card, 6 steps with x[0, 0] = inf at step 2 → (losses,
+    scales, how each compiled step ran)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid.contrib.mixed_precision import (
+        AutoMixedPrecisionLists, decorate)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.data("x", shape=[8], dtype="float32")
+        y = fluid.data("y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(x, 16, act="relu")
+        pred = fluid.layers.fc(h, 4, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, y))
+        lists = AutoMixedPrecisionLists()
+        if white_list is not None:
+            lists.white_list = set(white_list)
+        opt = decorate(fluid.optimizer.SGD(0.1), amp_lists=lists,
+                       init_loss_scaling=8.0, incr_every_n_steps=2,
+                       decr_every_n_nan_or_inf=1, incr_ratio=2.0,
+                       decr_ratio=0.5, use_fp16=True)
+        opt.minimize(loss)
+    rng = np.random.RandomState(0)
+    X = rng.rand(16, 8).astype("float32")
+    Y = rng.randint(0, 4, (16, 1)).astype("int64")
+    Xbad = X.copy()
+    Xbad[0, 0] = np.inf
+    losses, scales, kinds = [], [], []
+    fluid.core.set_flag("FLAGS_executor_mode", mode)
+    try:
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        for i in range(6):
+            (lv,) = exe.run(main, feed={"x": Xbad if i == 2 else X, "y": Y},
+                            fetch_list=[loss], scope=scope)
+            losses.append(float(lv.reshape(-1)[0]))
+            scales.append(float(scope.find_var(opt._loss_scaling_var.name)
+                                .value().array.item()))
+            kinds.append(exe._last_block.last_exec if mode == "compiled"
+                         else exe._last_run_mode)
+        exe.close()
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    return losses, scales, kinds
+
+
+def _skip_replay(cfg):
+    """``skip`` on BERT-base at batch GRAPH_BATCH, dropout 0.1: clean
+    steps (eager, capture, replay), then a replay fed an inf in the input
+    mask, then a clean replay. The poisoned step's loss is NaN and its
+    health False; every parameter and Adam slot is bitwise its pre-step
+    value; the next step is finite and healthy. Then a window of 4 with
+    its third step poisoned: health [True, True, False, True]."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
+    rng = np.random.RandomState(SEED + 9)
+    feeds = [_train_batch(rng, GRAPH_BATCH, cfg) for _ in range(4)]
+    bad = dict(feeds[3], input_mask=feeds[3]["input_mask"].copy())
+    bad["input_mask"][0, 0] = np.inf
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    for f in feeds[:3]:
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+    before = _persistables(scope, main)
+    (lv,) = exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
+    cb = exe._last_block
+    health = bool(exe._last_health)
+    after = _persistables(scope, main)
+    (lv2,) = exe.run(main, feed=feeds[0], fetch_list=[loss], scope=scope)
+    health2 = bool(exe._last_health)
+    ok = (cb.last_exec == "replay" and cb._guard_action == "skip"
+          and np.isnan(lv).all() and not health
+          and np.isfinite(lv2).all() and health2)
+    # a window of the same graph's replays, its third step poisoned: each
+    # step carries its own health and only that step is discarded
+    window = [feeds[0], feeds[1], bad, feeds[2]]
+    (wl,) = exe.run(main, feed={n: np.stack([f[n] for f in window])
+                                for n in bad}, fetch_list=[loss],
+                    scope=scope, n_steps=len(window))
+    flags = exe._last_health.tolist()
+    wl = wl.ravel()
+    ok = ok and exe._last_block is cb and flags == [True, True, False, True] \
+        and np.isnan(wl[2]) and np.isfinite(wl[[0, 1, 3]]).all()
+    _log(f"[guard] skip, a window of {len(window)} replays with step 2 fed "
+         f"an inf: health {flags}, losses "
+         + " ".join(f"{x:.6f}" for x in wl))
+    same = [torch.equal(before[n], after[n]) for n in before]
+    n_slots = sum("moment" in n or "pow_acc" in n for n in before)
+    _log(f"[guard] skip, BERT-base batch {GRAPH_BATCH}: a replay fed an inf "
+         f"gives loss {float(lv[0])} and health {health}; "
+         f"{same.count(True)} of {len(same)} persistables ({n_slots} Adam "
+         "slots) bitwise at their pre-step values; the next replay loss "
+         f"{float(lv2[0]):.6f}, health {health2} -> "
+         f"{'ok' if ok and all(same) else 'FAIL'}")
+    exe.close()
+    if not (ok and all(same)):
+        raise AssertionError("skip did not discard the poisoned replay")
+
+
+def phase_guard():
+    """The numeric fault guard on the card. The dynamic-scaling program
+    with an inf at step 2: the scale trajectory [8, 16, 8, 8, 16, 16]
+    compiled (the bad step a replay), and with an empty white list
+    compiled against interpreted bitwise. ``skip`` on BERT-base discards
+    a poisoned replay (``_skip_replay``). Then the cost of
+    FLAGS_check_nan_inf with skip on the train phase's step (f32, batch
+    TRAIN_BATCH, dropout 0.1): GUARD_WINDOW steps with the guard off and
+    on, alternated GUARD_BLOCKS times, each block after its own warm-up
+    steps, every step gated on its kernels."""
+    import collections
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    traj = [8.0, 16.0, 8.0, 8.0, 16.0, 16.0]
+    losses, scales, kinds = _dyn_scale_run("compiled")
+    ok = (scales == traj and np.isnan(losses[2])
+          and np.isfinite(losses[:2] + losses[3:]).all()
+          and kinds == ["eager", "capture"] + ["replay"] * 4)
+    _log(f"[guard] dynamic loss scaling, inf at step 2, compiled "
+         f"({', '.join(kinds)}): scales {scales}, losses "
+         + " ".join(f"{x:.6f}" for x in losses)
+         + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dynamic scaling on the card: {scales}")
+    lc, sc, _ = _dyn_scale_run("compiled", white_list=())
+    li, si, _ = _dyn_scale_run("interpreted", white_list=())
+    same = sc == si == traj and np.array_equal(np.asarray(lc),
+                                               np.asarray(li), equal_nan=True)
+    _log(f"[guard] empty white list: compiled scales {sc}, interpreted "
+         f"{si}; losses compiled against interpreted "
+         f"{'bitwise equal' if same else 'DIFFER'} -> "
+         f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("dynamic scaling: compiled and interpreted "
+                             "differ")
+    cfg = bert.bert_base_config()
+    flags = ("FLAGS_check_nan_inf", "FLAGS_nan_inf_action")
+    fluid.core.set_flag("FLAGS_nan_inf_action", "skip")
+    try:
+        fluid.core.set_flag("FLAGS_check_nan_inf", True)
+        _skip_replay(cfg)
+        main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
+        want = (2 * cfg["layers"], cfg["layers"], cfg["layers"],
+                _dropout_ops(main.global_block().ops))
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        rng = np.random.RandomState(SEED + 2)
+        pool = [_train_batch(rng, TRAIN_BATCH, cfg) for _ in range(POOL)]
+        _reset_launch_counts()
+        runs = collections.Counter()
+        times = {False: [], True: []}
+        for i in range(2 * GUARD_BLOCKS):
+            on = i % 2 == 1
+            fluid.core.set_flag("FLAGS_check_nan_inf", on)
+            what = f"a training step, guard {'on' if on else 'off'}"
+            _train_steps(exe, main, loss, scope, pool[:TRAIN_WARMUP], want,
+                         runs, what)
+            if exe._last_block._guard_active != on:
+                raise AssertionError(f"{what} ran a block built for the "
+                                     "other setting")
+            times[on] += _train_steps(
+                exe, main, loss, scope,
+                [pool[(TRAIN_WARMUP + j) % POOL] for j in
+                 range(GUARD_WINDOW)], want, runs, what)[0]
+        launches = _launch_counts()
+        exe.close()
+    finally:
+        fluid.core.set_flag("FLAGS_check_nan_inf", False)
+        fluid.core.set_flag("FLAGS_nan_inf_action", "raise")
+    if launches != tuple((runs["eager"] + runs["capture"]) * w
+                         for w in want):
+        raise AssertionError(f"guard launches {launches} over {dict(runs)}")
+    p50 = {on: float(np.percentile(np.asarray(t) * 1e3, 50))
+           for on, t in times.items()}
+    _log(f"[guard] FLAGS_check_nan_inf with skip, f32 step batch "
+         f"{TRAIN_BATCH} dropout {TRAIN_DROPOUT}: p50 off {p50[False]:.3f} "
+         f"ms, on {p50[True]:.3f} ms "
+         f"({100 * (p50[True] / p50[False] - 1):+.2f} %), {GUARD_BLOCKS} "
+         f"blocks of {GUARD_WINDOW} steps each, alternated; {dict(runs)}; "
+         f"flags {flags} restored")
+    n_runs = sum(runs.values())
+    return {"wrapper": launches,
+            "executed": tuple(n_runs * w for w in want)}
+
+
+# --------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -1805,6 +2288,10 @@ def main(argv=None) -> int:
              "train": phase_train(profile=args.profile),
              "window": phase_window(),
              "lane": phase_lane(profile=args.profile)}
+    paths["remat"] = phase_remat(paths["lane"]["bert"],
+                                 profile=args.profile)
+    paths["amp"] = phase_amp(paths["train"], profile=args.profile)
+    paths["guard"] = phase_guard()
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

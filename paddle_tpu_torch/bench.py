@@ -12,7 +12,11 @@ is all graph replays).
 
   bert   BERT-base masked-LM pretraining step, FLAGS_use_bf16_matmul on,
          dropout 0, no input mask, Adam lr 1e-4, batch 256 at S=128 with
-         the OOM ladder 256/128/64/32, 20 steps.
+         the OOM ladder 256/128/64/32, 20 steps. bench.py's switches:
+         PADDLE_TPU_BENCH_BATCH and PADDLE_TPU_BENCH_SEQ set the batch
+         (the ladder walks down from it) and S on the card (the CPU smoke
+         configuration ignores them); PADDLE_TPU_BENCH_RECOMPUTE=1 builds
+         the step with per-layer recompute checkpoints.
   mnist  MLP 784-1024-1024-10 with relu and softmax, cross-entropy,
          Momentum(0.01, 0.9), batch 256, 60 steps.
 
@@ -25,7 +29,7 @@ Keys of the line: ``metric``, ``value`` (samples/s), ``unit``,
 ``vs_baseline``, ``batch``, ``steps``, ``step_ms``, ``device``,
 ``executor_mode``, ``timed_window`` (the timed window's eager runs,
 captures and replays), ``loss`` (its last step's) and, for bert,
-``seq_len``. On the card also ``power_limit`` (as nvidia-smi reports the
+``seq_len`` and ``recompute``. On the card also ``power_limit`` (as nvidia-smi reports the
 card's name and power limit) and ``peak_memory_gib``
 (``torch.cuda.max_memory_allocated``), and for bert
 ``mfu_vs_h100_bf16_peak``: bench.py's FLOP count (6·N·tokens + attention)
@@ -44,6 +48,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -217,22 +222,28 @@ def bert_flops_per_sample(cfg, seq_len):
 
 
 def run_bert_base(batch=256, seq_len=128, steps=20, device="cuda") -> Lane:
-    """bench.py's bert lane (bench.py:463-527)."""
+    """bench.py's bert lane (bench.py:463-527), with its environment
+    switches (bench.py:481-488)."""
     from .fluid import core
     from .models import bert
 
-    core.set_flag("FLAGS_use_bf16_matmul", True)  # bf16 tensor cores
     cfg = bert.bert_base_config()
     smoke = device == "cpu"
     if smoke:  # bench.py's CPU configuration: the path, not the number
         cfg.update(BERT_CPU_SMOKE)
         batch, seq_len, steps = 8, 64, 3
+    else:
+        batch = int(os.environ.get("PADDLE_TPU_BENCH_BATCH", batch))
+        seq_len = int(os.environ.get("PADDLE_TPU_BENCH_SEQ", seq_len))
+    recompute = os.environ.get("PADDLE_TPU_BENCH_RECOMPUTE") == "1"
+    core.set_flag("FLAGS_use_bf16_matmul", True)  # bf16 tensor cores
 
     def build():
         from . import fluid
         with fluid.unique_name.guard():
             main, startup, _, fetches = bert.build_bert_pretrain_program(
-                cfg, seq_len=seq_len, dropout=0.0, lr=1e-4)
+                cfg, seq_len=seq_len, dropout=0.0, lr=1e-4,
+                recompute=recompute)
         return main, startup, fetches
 
     rng = np.random.RandomState(0)
@@ -259,6 +270,7 @@ def run_bert_base(batch=256, seq_len=128, steps=20, device="cuda") -> Lane:
     res = _result("bert_base_samples_per_sec_per_chip", batch, steps, dt,
                   window, loss, peak, ran[0]._last_run_mode, device)
     res["seq_len"] = seq_len
+    res["recompute"] = recompute
     if smoke:
         res["cpu_smoke"] = True
     else:

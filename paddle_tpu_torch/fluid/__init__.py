@@ -1,7 +1,7 @@
 """fluid — the Fluid v1.7 front end of paddle_tpu_torch (counterpart of
 paddle_tpu/fluid; so far: Program building, the layers of the BERT-base
-pretraining step, append_backward, SGD and Adam, and the interpreter
-Executor)."""
+pretraining step, append_backward, SGD, Momentum, Adam and
+RecomputeOptimizer, contrib.mixed_precision, and the Executor)."""
 from . import core
 from .core import (CPUPlace, CUDAPlace, TPUPlace, LoDTensor, Scope,
                    global_scope)
@@ -22,6 +22,7 @@ from . import optimizer
 from . import executor
 from .executor import Executor, scope_guard
 from . import param_bridge
+from . import contrib
 
 __all__ = [
     "core", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor", "Scope",
@@ -30,4 +31,5 @@ __all__ = [
     "cpu_places", "cuda_places", "unique_name",
     "initializer", "regularizer", "clip", "ParamAttr", "layers", "data",
     "backward", "append_backward", "optimizer", "Executor", "param_bridge",
+    "contrib",
 ]

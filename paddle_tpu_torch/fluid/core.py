@@ -9,6 +9,7 @@ Contents (this slice):
   * Places: CPUPlace, CUDAPlace; TPUPlace is an alias of the default
     accelerator, i.e. CUDAPlace.
   * LoDTensor over torch.Tensor, Variable, hierarchical Scope.
+  * NumericFaultError, the numeric fault plane's typed error.
   * the FLAGS_ registry, limited to the flags the port reads.
 """
 from __future__ import annotations
@@ -34,7 +35,16 @@ __all__ = [
     "Variable", "Scope", "globals_", "get_flag", "set_flag",
     "convert_np_dtype_to_dtype_", "dtype_to_np", "dtype_to_torch",
     "is_float_dtype", "global_scope", "BF16_HOST_DTYPE",
+    "NumericFaultError",
 ]
+
+
+class NumericFaultError(FloatingPointError):
+    """The numeric fault plane (FLAGS_check_nan_inf with
+    FLAGS_nan_inf_action; the TPU package's core.py:97) could not contain
+    a NaN/Inf: a tripped step under ``rollback`` with no checkpoint plane
+    to restore from, or a ``raise`` whose interpreter re-run reproduced no
+    non-finite op output."""
 
 
 # --------------------------------------------------------------------------
@@ -365,6 +375,24 @@ class _GlobalFlags:
         # skips its host-to-device copy (the TPU package's flag,
         # core.py:1608)
         "FLAGS_feed_device_cache": True,
+        # the numeric fault plane (the TPU package's core.py:1398-1417):
+        # FLAGS_check_nan_inf reduces one health scalar a step (every
+        # element of the param grads and the float fetches finite) and
+        # FLAGS_nan_inf_action says what a non-finite step does:
+        #   raise    - re-run the step through the interpreter, name the
+        #              first op whose output is not finite and raise
+        #              FloatingPointError
+        #   skip     - select the params and optimizer slots back to
+        #              their pre-step values on the device; no host sync
+        #   rollback - skip, then restore a checkpoint after
+        #              FLAGS_nan_inf_tolerance bad steps in a row, at most
+        #              FLAGS_nan_inf_max_rollbacks times (no checkpoint
+        #              plane in this package yet: a tripped step raises
+        #              NumericFaultError)
+        "FLAGS_check_nan_inf": False,
+        "FLAGS_nan_inf_action": "raise",
+        "FLAGS_nan_inf_tolerance": 3,
+        "FLAGS_nan_inf_max_rollbacks": 2,
     }
 
     def __init__(self):

@@ -36,6 +36,22 @@ The interpreter runs windowed feeds step by step with the same stacked
 contract; with the same feeds and ``n_steps`` > 1 it returns the final
 step's fetches, as the TPU package's interpreted branch does.
 
+The numeric fault plane (``FLAGS_check_nan_inf``, ``FLAGS_nan_inf_action``;
+the TPU package's executor.py:508-700) runs on both paths. A guarded
+compiled step ends in an epilogue on the device: one health scalar (every
+param grad and float fetch finite), a select of the state the step
+overwrites back to its pre-step value where the step is not healthy, and
+the AMP dynamic loss-scale update from the same scalar; under a graph all
+of it is captured. ``skip`` never reads the scalar on the host;
+``raise`` reads it after the fetches and re-runs a tripped step through
+the interpreter, whose per-op check names the op; ``rollback`` has no
+checkpoint plane yet and raises ``core.NumericFaultError``. The
+interpreter runs the same classification and the same arithmetic.
+
+A program of ``RecomputeOptimizer`` runs its compiled step through the
+remat schedule of ``fluid/recompute_lowering.py``; the interpreter does
+not remat (same numerics, more memory).
+
 A ``<op>_grad`` op that no kernel is registered for runs through the
 generic grad (``ops.registry.run_generic_grad``), which re-runs the
 forward kernel under autograd, on both paths.
@@ -57,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 import weakref
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -68,7 +85,8 @@ from . import core
 from .core import CUDAPlace, LoDTensor, Place, Scope, global_scope
 from .framework import Program, Variable, default_main_program
 from ..ops import rng
-from ..ops.registry import OPS, resolve_base_info, run_generic_grad
+from ..ops.registry import (GRAD_SUFFIX, OPS, resolve_base_info,
+                            run_generic_grad)
 
 __all__ = ["Executor", "global_scope", "scope_guard"]
 
@@ -79,6 +97,7 @@ _MODES = ("compiled", "interpreted")
 # primitives; not lowered here yet
 _CONTROL = frozenset({"while", "conditional_block", "conditional_block_infer",
                       "select_input"})
+_GUARD_ACTIONS = ("raise", "skip", "rollback")
 
 
 @contextlib.contextmanager
@@ -311,23 +330,156 @@ def _launch_counts() -> Dict[str, int]:
     return {**flash_attention.launch_counts(), **dropout.launch_counts()}
 
 
+# --------------------------------------------------------------------------
+# the numeric fault plane (reference executor.py:382-430, 1880-2010)
+# --------------------------------------------------------------------------
+def _guard_flags() -> Tuple[bool, str]:
+    """(FLAGS_check_nan_inf, FLAGS_nan_inf_action); an unknown action
+    with the check on raises ValueError rather than guard nothing."""
+    check = bool(core.globals_["FLAGS_check_nan_inf"])
+    action = str(core.globals_["FLAGS_nan_inf_action"])
+    if check and action not in _GUARD_ACTIONS:
+        raise ValueError(f"FLAGS_nan_inf_action={action!r} is not one of "
+                         f"{sorted(_GUARD_ACTIONS)}")
+    return check, action
+
+
+def _block_reads_amp_scale(ops, amp) -> bool:
+    """True when an op of the block reads the AMP loss scale: the scaled
+    loss and the unscale survived into this program. A program without
+    them must not run the scale update."""
+    return any(amp["scale"] in op.input_arg_names for op in ops)
+
+
+def _amp_scale_update(healthy, scale, good, bad, cfg):
+    """The dynamic loss-scale transition (reference:
+    operators/amp/update_loss_scaling_op.h), from the step's health
+    scalar, on the device:
+
+      healthy: good += 1, bad = 0; good == incr_every_n_steps:
+               scale *= incr_ratio, good = 0
+      tripped: bad += 1, good = 0; bad == decr_every_n_nan_or_inf:
+               scale = max(scale * decr_ratio, 1), bad = 0
+
+    ``scale`` is f32 [1], the counters int32 [1]. Both paths run this
+    same arithmetic, so their scales agree bit for bit."""
+    good_i = good + 1
+    bad_i = bad + 1
+    incr_hit = good_i >= int(cfg["incr_every_n_steps"])
+    decr_hit = bad_i >= int(cfg["decr_every_n_nan_or_inf"])
+    scale_good = torch.where(incr_hit, scale * float(cfg["incr_ratio"]),
+                             scale)
+    scale_bad = torch.where(decr_hit, torch.clamp_min(
+        scale * float(cfg["decr_ratio"]), 1.0), scale)
+    zero = torch.zeros_like(good)
+    new_scale = torch.where(healthy, scale_good, scale_bad)
+    new_good = torch.where(healthy, torch.where(incr_hit, zero, good_i),
+                           zero)
+    new_bad = torch.where(healthy, zero, torch.where(decr_hit, zero, bad_i))
+    return new_scale, new_good, new_bad
+
+
+def _check_op_outputs_finite(op, idx: int, outs) -> None:
+    """The ``raise`` action's per-op check (interpreter): one host read
+    of the stacked finite flags of the op's float outputs; on a trip a
+    FloatingPointError names the op's index and type, the output slot,
+    var, dtype and shape, the NaN and Inf counts and the first offending
+    flat indices."""
+    flat = []
+    for slot, vals in (outs or {}).items():
+        names = op.outputs.get(slot) or []
+        for k, v in enumerate(vals or []):
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                flat.append((slot, names[k] if k < len(names) else f"[{k}]",
+                             v))
+    if not flat:
+        return
+    ok = torch.stack([torch.isfinite(v).all() for _, _, v in flat]).tolist()
+    if all(ok):
+        return
+    problems = []
+    for good, (slot, name, v) in zip(ok, flat):
+        if good:
+            continue
+        flat_v = v.detach().reshape(-1)
+        bad = torch.nonzero(~torch.isfinite(flat_v))[:8].reshape(-1)
+        problems.append(
+            f"output {slot} (var '{name}', dtype "
+            f"{str(v.dtype).replace('torch.', '')}, shape "
+            f"{tuple(v.shape)}): {int(torch.isnan(flat_v).sum())} NaN / "
+            f"{int(torch.isinf(flat_v).sum())} Inf, first offending flat "
+            f"indices {bad.tolist()}")
+    raise FloatingPointError(f"NaN/Inf in output of op #{idx} '{op.type}': "
+                             + "; ".join(problems))
+
+
+def _no_checkpoint_plane(step: int) -> core.NumericFaultError:
+    return core.NumericFaultError(
+        f"FLAGS_nan_inf_action=rollback tripped at global step {step} but "
+        "no checkpoint plane is configured: paddle_tpu_torch has no "
+        "checkpoint save/load yet (use skip, or raise to localize)")
+
+
+# --------------------------------------------------------------------------
 class _Step:
     """One op of a plan, bound: its kernel (or the forward op whose
-    generic grad it is), attrs, input and output names, and the names to
-    drop from the env after it."""
+    generic grad it is), attrs, input and output names, the names it
+    reads and writes, and the names to drop from the env after it."""
 
     __slots__ = ("kernel", "grad_of", "attrs", "ins", "outs", "frees",
-                 "wanted", "fwd_in")
+                 "wanted", "fwd_in", "reads", "writes")
 
-    def __init__(self, op, info, grad_of, attrs, frees):
+    def __init__(self, op, info, grad_of, attrs):
         self.kernel = info.kernel
         self.grad_of = grad_of
         self.attrs = attrs
         self.ins = tuple((s, tuple(n)) for s, n in op.inputs.items())
         self.outs = tuple((s, tuple(n)) for s, n in op.outputs.items())
-        self.frees = tuple(frees)
+        self.frees = ()
         self.wanted = list(op.outputs)
         self.fwd_in = attrs.get("_fwd_in", list(op.inputs))
+        self.reads = tuple(op.input_arg_names)
+        self.writes = tuple(op.output_arg_names)
+
+    def run(self, env: Dict[str, torch.Tensor]):
+        ins = {s: [env.get(n) for n in names] for s, names in self.ins}
+        if self.grad_of is None:
+            outs = self.kernel(ins, self.attrs)
+        else:
+            outs = run_generic_grad(self.grad_of, ins, self.attrs,
+                                    wanted_grad_slots=self.wanted,
+                                    fwd_input_slots=self.fwd_in)
+        outs = outs or {}
+        for slot, names in self.outs:
+            for n, v in zip(names, outs.get(slot) or []):
+                if v is not None and n != _EMPTY:
+                    env[n] = v
+
+
+def set_liveness(units, keep) -> None:
+    """Give each unit of an execution order (a ``_Step``, or a remat unit
+    with ``reads``, ``writes`` and ``run``) the names to drop from the env
+    after it: every name that is not in ``keep`` leaves after the last
+    unit that reads or writes it."""
+    last: Dict[str, int] = {}
+    for i, u in enumerate(units):
+        for n in u.reads + u.writes:
+            last[n] = i
+    frees: List[List[str]] = [[] for _ in units]
+    for n, i in last.items():
+        if n not in keep and n != _EMPTY:
+            frees[i].append(n)
+    for u, f in zip(units, frees):
+        u.frees = tuple(f)
+
+
+def exec_units(units, env: Dict[str, torch.Tensor]) -> None:
+    """Run an execution order over ``env``, dropping each unit's frees
+    after it."""
+    for u in units:
+        u.run(env)
+        for n in u.frees:
+            env.pop(n, None)
 
 
 # --------------------------------------------------------------------------
@@ -345,7 +497,10 @@ class _CompiledBlock:
     ``stats`` counts eager runs, captures, replays (the run after a
     capture included) and the seconds spent capturing; ``last_exec`` says
     which the last run was; ``graph_launches`` holds each kernel's
-    launches recorded in the graph, i.e. launched by each replay."""
+    launches recorded in the graph, i.e. launched by each replay.
+    ``last_health`` is the last run's health on the device (a bool
+    scalar, [n_steps] for a window; None when the guard is off).
+    ``_remat_plan`` is the recompute plan, or None."""
 
     kind = "compiled"
 
@@ -374,8 +529,15 @@ class _CompiledBlock:
         self.extra_writeback = tuple(sorted(
             n for n in written if n in persistable
             and n not in self.mut_state and n not in self.feed_names))
+        self._init_guard(program, scope)
+        self._remat_plan = None
+        ropt = getattr(program, "_recompute_opt", None)
+        if ropt:
+            from .recompute_lowering import build_plan
+            self._remat_plan = build_plan(self, ropt["checkpoints"])
         self._keys = _StepKeys(seed, _rng_indices(self.ops), device)
-        self._plan = self._build_plan()
+        self._units = self._build_plan()
+        self.last_health: Optional[torch.Tensor] = None
         self._stream, self._pool = stream, pool
         self._graph = None
         self._static_feeds: Dict[str, torch.Tensor] = {}
@@ -386,55 +548,145 @@ class _CompiledBlock:
         self.stats = {"eager": 0, "captures": 0, "replays": 0,
                       "capture_s": 0.0}
         self.last_exec: Optional[str] = None
+        self._static_health: Optional[torch.Tensor] = None
+        self._warned: set = set()
 
-    def _build_plan(self) -> List[_Step]:
-        """Each op bound, with liveness: a name that is neither fetched
-        nor written back leaves the env after the last op that reads or
-        writes it."""
-        keep = set(self.fetch_names) | set(self.mut_state) \
-            | set(self.extra_writeback)
-        last: Dict[str, int] = {}
-        for i, op in enumerate(self.ops):
-            for n in op.input_arg_names + op.output_arg_names:
-                last[n] = i
-        frees: List[List[str]] = [[] for _ in self.ops]
-        for n, i in last.items():
-            if n not in keep and n != _EMPTY:
-                frees[i].append(n)
-        plan = []
+    def _build_plan(self) -> list:
+        """Each op bound, in execution order (the program's, or the remat
+        schedule), with liveness: a name that is neither fetched, written
+        back nor read by the guard's health leaves the env after the last
+        unit that reads or writes it. Under remat a segment's interior
+        lives only inside its forward and its span."""
+        steps = []
         for i, op in enumerate(self.ops):
             info, grad_of, ridx = _resolve(op, i)
-            plan.append(_Step(op, info, grad_of, _kernel_attrs(
-                op, info, ridx, self.device, self._keys), frees[i]))
-        return plan
+            steps.append(_Step(op, info, grad_of, _kernel_attrs(
+                op, info, ridx, self.device, self._keys)))
+        if self._remat_plan is not None:
+            from .recompute_lowering import schedule
+            units = schedule(self._remat_plan,
+                             {id(op): st for op, st in zip(self.ops, steps)})
+        else:
+            units = steps
+        set_liveness(units, set(self.fetch_names) | set(self.mut_state)
+                     | set(self.extra_writeback) | set(self._health_names))
+        return units
+
+    # ------------------------------------------------ numeric fault guard
+    def _init_guard(self, program: Program, scope: Scope):
+        """The guard's configuration, fixed at build (the cache key holds
+        the flags, so flipping one builds a new block; reference
+        executor.py:508):
+
+          _guard_check  FLAGS_check_nan_inf
+          _guard_action raise | skip | rollback
+          _amp          program._amp_dynamic (the loss-scale var names and
+                        hyperparameters) or None
+          _guard_active either: the step keeps its pre-step state
+                        reachable and selects it back on a bad step
+                        (under AMP an overflowed step is dropped, its
+                        scale update applied; under raise the select keeps
+                        the state for the interpreter's re-run)
+
+        When active, the initialized extra-writeback persistables join
+        ``mut_state``, so the discard covers every persistable the step
+        writes, and the AMP vars join it, so the epilogue's updates are
+        written back. The health reduces over the param grads (a grad
+        that is finite into a finite update keeps the params finite),
+        else over every grad, else over the written state; the fetches
+        are added in the epilogue."""
+        self._guard_check, self._guard_action = _guard_flags()
+        self._amp = getattr(program, "_amp_dynamic", None)
+        if self._amp is not None and not _block_reads_amp_scale(
+                self.ops, self._amp):
+            self._amp = None
+        self._guard_active = self._amp is not None or self._guard_check
+        self._select_names: Tuple[str, ...] = ()
+        self._health_names: Tuple[str, ...] = ()
+        if not self._guard_active:
+            return
+        promoted = tuple(n for n in self.extra_writeback
+                         if _scope_tensor(scope, n) is not None)
+        self.mut_state += promoted
+        self.extra_writeback = tuple(n for n in self.extra_writeback
+                                     if n not in promoted)
+        amp_names = ()
+        if self._amp is not None:
+            amp_names = tuple(self._amp[k] for k in ("scale", "good", "bad"))
+            for n in amp_names:
+                self.ro_state = tuple(x for x in self.ro_state if x != n)
+                if n not in self.mut_state:
+                    if _scope_tensor(scope, n) is None:
+                        raise RuntimeError(
+                            f"AMP dynamic loss scaling var '{n}' is not "
+                            "initialized in the scope: run the startup "
+                            "program first")
+                    self.mut_state += (n,)
+        # the discard covers the state the step overwrites; the AMP vars
+        # are the epilogue's own (a dropped step still updates the scale)
+        self._select_names = tuple(n for n in self.mut_state
+                                   if n in self.written
+                                   and n not in amp_names)
+        grads = {n for n in self.written if n.endswith(GRAD_SUFFIX)}
+        self._health_names = tuple(
+            n + GRAD_SUFFIX for n in self._select_names
+            if n + GRAD_SUFFIX in grads) or tuple(sorted(grads))
+
+    def _guard_epilogue(self, orig, new, fetches, env) -> torch.Tensor:
+        """The guard's tail of one step, on the device: the health scalar
+        over the health names (else the written state) and the float
+        fetches, then ``_apply_discard`` over ``new``. Returns the
+        health."""
+        from .ir import fused_health
+        vals = [env[n] for n in self._health_names if n in env]
+        if not vals:
+            vals = [new[n] for n in self._select_names if n in new]
+        health = fused_health(vals + list(fetches), self.device)
+        self._apply_discard(new, orig, health)
+        return health
+
+    def _apply_discard(self, store, orig, health):
+        """Where the step is not healthy, each selected state var goes back
+        to its pre-step value (``torch.where`` on the device; a var whose
+        shape changed cannot be selected and is warned of once); then the
+        AMP scale update. Under ``raise`` a tripped step keeps its
+        pre-step scale and counters, so the interpreter's re-run sees the
+        scale that overflowed."""
+        for n in self._select_names:
+            nv, ov = store.get(n), orig.get(n)
+            if nv is None or ov is None or nv is ov:
+                continue
+            if nv.shape == ov.shape:
+                store[n] = torch.where(health, nv, ov)
+            elif n not in self._warned:
+                self._warned.add(n)
+                warnings.warn(
+                    f"numeric fault guard: state var '{n}' changes shape "
+                    f"during the step ({tuple(ov.shape)} -> "
+                    f"{tuple(nv.shape)}) and cannot be covered by the "
+                    "bad-step discard: on a tripped step it keeps its "
+                    "post-step value", stacklevel=3)
+        if self._amp is not None:
+            a = self._amp
+            olds = (store[a["scale"]], store[a["good"]], store[a["bad"]])
+            news = _amp_scale_update(health, *olds, a)
+            if self._guard_check and self._guard_action == "raise":
+                news = tuple(torch.where(health, nv, ov)
+                             for nv, ov in zip(news, olds))
+            store[a["scale"]], store[a["good"]], store[a["bad"]] = news
 
     # ---------------------------------------------------------- one step
-    def _exec_ops(self, env: Dict[str, torch.Tensor]):
-        for st in self._plan:
-            ins = {s: [env.get(n) for n in names] for s, names in st.ins}
-            if st.grad_of is None:
-                outs = st.kernel(ins, st.attrs)
-            else:
-                outs = run_generic_grad(st.grad_of, ins, st.attrs,
-                                        wanted_grad_slots=st.wanted,
-                                        fwd_input_slots=st.fwd_in)
-            outs = outs or {}
-            for slot, names in st.outs:
-                for n, v in zip(names, outs.get(slot) or []):
-                    if v is not None and n != _EMPTY:
-                        env[n] = v
-            for n in st.frees:
-                env.pop(n, None)
-
     def _step(self, feeds, state, counter):
         """The plan once over a local env → (fetches, {name: new value}
-        of the state and persistables to write back). Adds one to the
-        step counter."""
+        of the state and persistables to write back, the health scalar or
+        None). Adds one to the step counter. ``state`` holds the pre-step
+        tensors: no op writes a state tensor in place, so the guard's
+        select reads them intact."""
         env = dict(state)
         env.update(feeds)
         self._keys.begin(counter)
         try:
-            self._exec_ops(env)
+            exec_units(self._units, env)
         finally:
             self._keys.end()
         counter.add_(1)
@@ -445,7 +697,9 @@ class _CompiledBlock:
             fetches.append(env[n])
         new = {n: env[n] for n in self.mut_state}
         new.update((n, env[n]) for n in self.extra_writeback if n in env)
-        return fetches, new
+        health = (self._guard_epilogue(state, new, fetches, env)
+                  if self._guard_active else None)
+        return fetches, new, health
 
     def _read_state(self, scope: Scope) -> Dict[str, torch.Tensor]:
         state = {}
@@ -462,9 +716,10 @@ class _CompiledBlock:
             return_numpy: bool = True):
         """One step. ``feeds``: name → tensor in the var's dtype, on the
         host or the device. Returns the fetches as numpy arrays, or as
-        LoDTensors the caller owns."""
+        LoDTensors the caller owns. The step's health, when the guard is
+        on, stays on the device in ``last_health``."""
         if self._stream is None:  # the CPU: no graph
-            fetched = self._run_eager(scope, feeds)
+            fetched, health = self._run_eager(scope, feeds)
         else:
             cur = torch.cuda.current_stream(self.device)
             # the side stream waits for the current one: for the feeds,
@@ -472,14 +727,17 @@ class _CompiledBlock:
             # overwrites them
             self._stream.wait_stream(cur)
             with torch.cuda.stream(self._stream):
-                fetched = self._run_on_stream(scope, feeds)
+                fetched, health = self._run_on_stream(scope, feeds)
                 if not return_numpy:
                     # a later replay overwrites graph outputs and updates
                     # the state in place
                     fetched = [t.clone() for t in fetched]
+                if health is not None:
+                    health = health.clone()
             cur.wait_stream(self._stream)
-            for t in fetched:
+            for t in fetched + ([] if health is None else [health]):
                 t.record_stream(cur)
+        self.last_health = health
         if return_numpy:
             return [LoDTensor(t).numpy() for t in fetched]
         return [LoDTensor(t) for t in fetched]
@@ -495,21 +753,28 @@ class _CompiledBlock:
         and capture, a graph replay, its feed buffers filled from the
         slices on the device), whose fetches are copied into row i of
         stacked device buffers; the host reads them once, at the end.
-        Returns the fetches stacked [n_steps, ...]."""
+        Returns the fetches stacked [n_steps, ...]; each step's health
+        (each step selects against its own pre-step state, so a bad step
+        is discarded alone) goes to ``last_health`` as [n_steps]."""
         feeds = {n: t.to(self.device) for n, t in feeds.items()}
         stacked: List[torch.Tensor] = []
+        healths = (torch.empty(n_steps, dtype=torch.bool, device=self.device)
+                   if self._guard_active else None)
 
         def step(i):
             f = {n: t[i] if n in window_names else t
                  for n, t in feeds.items()}
-            fetched = (self._run_eager(scope, f) if self._stream is None
-                       else self._run_on_stream(scope, f))
+            fetched, health = (self._run_eager(scope, f)
+                               if self._stream is None
+                               else self._run_on_stream(scope, f))
             if not stacked:
                 stacked.extend(torch.empty((n_steps,) + tuple(t.shape),
                                            dtype=t.dtype, device=t.device)
                                for t in fetched)
             for buf, t in zip(stacked, fetched):
                 buf[i].copy_(t)
+            if healths is not None:
+                healths[i].copy_(health)
 
         if self._stream is None:
             for i in range(n_steps):
@@ -521,8 +786,9 @@ class _CompiledBlock:
                 for i in range(n_steps):
                     step(i)
             cur.wait_stream(self._stream)
-            for t in stacked:
+            for t in stacked + ([] if healths is None else [healths]):
                 t.record_stream(cur)
+        self.last_health = healths
         if return_numpy:
             return [LoDTensor(t).numpy() for t in stacked]
         return [LoDTensor(t) for t in stacked]
@@ -539,13 +805,13 @@ class _CompiledBlock:
         dev_feeds = {n: t.to(self.device) for n, t in feeds.items()}
         for n, t in dev_feeds.items():
             scope.var(n).set_value(LoDTensor(t))
-        fetches, new = self._step(dev_feeds, self._read_state(scope),
-                                  _step_counter(scope, self.device))
+        fetches, new, health = self._step(dev_feeds, self._read_state(scope),
+                                          _step_counter(scope, self.device))
         for n, v in new.items():
             scope.var(n).set_value(LoDTensor(v))
         self.stats["eager"] += 1
         self.last_exec = "eager"
-        return fetches
+        return fetches, health
 
     def _run_graph(self, scope, feeds):
         if self._graph is not None and not self._refresh_state(scope):
@@ -559,7 +825,7 @@ class _CompiledBlock:
             self.last_exec = "replay"
         self._graph.replay()
         self.stats["replays"] += 1
-        return self._static_fetch
+        return self._static_fetch, self._static_health
 
     def _capture(self, scope, feeds):
         """Record the plan into a CUDA graph on the executor's stream and
@@ -583,7 +849,10 @@ class _CompiledBlock:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            fetches, new = self._step(self._static_feeds, state, counter)
+            fetches, new, health = self._step(self._static_feeds, state,
+                                              counter)
+            # the guard's select reads the pre-step state: every select
+            # is recorded before the first copy into the state
             for n, v in new.items():
                 t = targets.get(n)
                 if t is not None and v is not t:
@@ -595,6 +864,7 @@ class _CompiledBlock:
         self.graph_launches = {k: after[k] - before[k] for k in after}
         self._graph = graph
         self._static_fetch = fetches
+        self._static_health = health
         self._captured = dict(state)
         self._captured[_RNG_COUNTER] = counter
         self._extra_targets = {n: targets[n] for n in self.extra_writeback
@@ -627,6 +897,7 @@ class _CompiledBlock:
     def _drop_graph(self):
         self._graph = None
         self._static_fetch, self._static_feeds = [], {}
+        self._static_health = None
         self._captured, self._extra_targets = {}, {}
 
 
@@ -637,7 +908,9 @@ class Executor:
     ``place`` defaults to ``CUDAPlace(0)``. On a host without CUDA that
     raises: the CPU is used only when the caller passes ``CPUPlace()``.
     ``_last_run_mode`` says how the last run executed ("compiled" or
-    "interpreted"), ``_last_block`` which ``_CompiledBlock`` ran it."""
+    "interpreted"), ``_last_block`` which ``_CompiledBlock`` ran it,
+    ``_last_health`` the last guarded run's health on the device (a bool
+    scalar, or [n_steps] for a compiled window)."""
 
     def __init__(self, place: Optional[Place] = None):
         self.place = CUDAPlace(0) if place is None else place
@@ -651,6 +924,7 @@ class Executor:
         self._compilable = weakref.WeakKeyDictionary()
         self._last_run_mode: Optional[str] = None
         self._last_block: Optional[_CompiledBlock] = None
+        self._last_health: Optional[torch.Tensor] = None
         # one side stream for every warm-up, capture and replay, and one
         # memory pool shared by this executor's graphs: they replay one
         # at a time, and each run copies its fetches out
@@ -724,7 +998,11 @@ class Executor:
         elif feed and n_steps > 1:
             window_names = _window_feed_names(program, feed, n_steps)
         compiled = mode == "compiled" and self._is_compilable(program)
-        if window_names and not compiled:
+        check, action = _guard_flags()
+        if (window_names and not compiled) or (
+                compiled and n_steps > 1 and check and action == "raise"):
+            # raise localizes a tripped step from exactly its pre-step
+            # state: a window runs step by step (the reference's rule)
             return self._run_window_fallback(program, feed, fetch_list,
                                              scope, return_numpy, n_steps,
                                              window_names)
@@ -741,9 +1019,11 @@ class Executor:
 
     def _run_window_fallback(self, program, feed, fetch_list, scope,
                              return_numpy, n_steps, window_names):
-        """Windowed feeds on the interpreter (reference executor.py:2499):
-        one ``run`` a step on slice i of every windowed feed, the others
-        as they are; the fetches stacked [n_steps, ...]."""
+        """A window step by step (reference executor.py:2499): windowed
+        feeds on the interpreter, and any compiled window under the
+        guard's raise action. One ``run`` a step on slice i of every
+        windowed feed, the others as they are; the fetches stacked
+        [n_steps, ...]."""
         def piece(name, v, i):
             if name not in window_names:
                 return v
@@ -853,7 +1133,11 @@ class Executor:
                id(scope),
                tuple((n, tuple(feeds[n].shape[n in window_names:]),
                       feeds[n].dtype) for n in names),
-               seed, core.globals_["FLAGS_use_bf16_matmul"])
+               seed, core.globals_["FLAGS_use_bf16_matmul"],
+               # the guard is built into the block: flipping a flag
+               # builds a new one
+               (core.globals_["FLAGS_check_nan_inf"],
+                core.globals_["FLAGS_nan_inf_action"]))
         cb = self._compiled_cache.get(key)
         # an id() of a dead scope can be reused by a new one: validate
         if cb is None or cb._scope_ref() is not scope:
@@ -865,27 +1149,90 @@ class Executor:
             self._compiled_cache[key] = cb
         self._last_block = cb
         if n_steps > 1 or window_names:
-            return cb.run_window(scope, feeds, window_names, n_steps,
-                                 return_numpy)
-        return cb.run(scope, feeds, return_numpy)
+            fetched = cb.run_window(scope, feeds, window_names, n_steps,
+                                    return_numpy)
+        else:
+            fetched = cb.run(scope, feeds, return_numpy)
+        if cb._guard_active:
+            self._last_health = cb.last_health
+            self._act_on_health(cb, program, scope, feeds, seed)
+        return fetched
+
+    def _act_on_health(self, cb, program, scope, feeds, seed):
+        """After a guarded compiled run: ``skip`` and AMP alone leave the
+        health on the device; ``raise`` and ``rollback`` read it (after
+        the fetches, so the stream has drained) and act on a tripped
+        step, whose state the select has already put back."""
+        if not cb._guard_check or cb._guard_action == "skip":
+            return
+        flags = cb.last_health.reshape(-1).tolist()
+        if all(flags):
+            return
+        counter = _step_counter(scope, self.device)
+        step = int(counter.item()) - len(flags) + flags.index(False)
+        if cb._guard_action == "rollback":
+            raise _no_checkpoint_plane(step)
+        self._localize_and_raise(program, scope, feeds, seed, step)
+
+    def _localize_and_raise(self, program, scope, feeds, seed, step):
+        """``raise``: the step tripped and its select kept the pre-step
+        state and scale. Re-run it through the interpreter with the same
+        feeds and random keys, checking every op's outputs; the first
+        non-finite one raises FloatingPointError naming it."""
+        block = program.global_block()
+        for n, t in feeds.items():
+            scope.var(n).set_value(LoDTensor(t.to(self.device)))
+        counter = _step_counter(scope, self.device)
+        counter.sub_(1)
+        keys = _StepKeys(seed, _rng_indices(block.ops), self.device)
+        keys.begin(counter)
+        try:
+            for idx, op in enumerate(block.ops):
+                self._run_op(op, idx, scope, keys, check=True)
+        except FloatingPointError as e:
+            raise FloatingPointError(
+                f"numeric fault at global step {step}: {e}") from e
+        finally:
+            keys.end()
+            counter.add_(1)
+        raise core.NumericFaultError(
+            f"health guard tripped at global step {step} but the "
+            "interpreter re-run reproduced no non-finite op output: the "
+            "fault did not replay")
 
     # ------------------------------------------------------- interpreter
     def _run_interpreted(self, program, scope, feed, fetch_names,
                          return_numpy, seed, n_steps=1):
         """``n_steps`` steps on the same feeds; the final step's fetches
-        (reference executor.py:2273-2290)."""
+        (reference executor.py:2273-2290). Under the guard each step ends
+        in the compiled epilogue's counterpart (``_interp_guard``)."""
         block = program.global_block()
         for name, data in feed.items():
             scope.var(name).set_value(LoDTensor(
                 self._feed_value(block, name, data).to(self.device)))
         self._check_inputs(block, scope, set(feed))
+        guard = self._interp_guard_cfg(program, set(feed), scope)
+        check_ops = guard is not None and guard["check"] \
+            and guard["action"] == "raise"
         keys = _StepKeys(seed, _rng_indices(block.ops), self.device)
         for _ in range(n_steps):
-            keys.begin(_step_counter(scope, self.device))
-            for idx, op in enumerate(block.ops):
-                self._run_op(op, idx, scope, keys)
-            keys.counter.add_(1)
-            keys.end()
+            counter = _step_counter(scope, self.device)
+            snap = {}
+            if guard is not None and guard["select"]:
+                for n in guard["select_names"]:
+                    t = _scope_tensor(scope, n)
+                    if t is not None:
+                        snap[n] = t
+            keys.begin(counter)
+            try:
+                for idx, op in enumerate(block.ops):
+                    self._run_op(op, idx, scope, keys, check=check_ops)
+            finally:
+                counter.add_(1)
+                keys.end()
+            if guard is not None:
+                self._interp_guard(guard, scope, snap, fetch_names,
+                                   int(counter.item()) - 1)
         fetched = []
         for n in fetch_names:
             v = scope.find_var(n)
@@ -894,6 +1241,88 @@ class Executor:
             t = v.value()
             fetched.append(t.numpy() if return_numpy else t)
         return fetched
+
+    def _interp_guard_cfg(self, program, feed_names, scope):
+        """The interpreter's guard plan (reference executor.py:1880),
+        classified as ``_CompiledBlock._init_guard`` classifies, so both
+        paths reduce the health over the same vars and select the same
+        state. None when the guard is off and the program has no dynamic
+        loss scale. Cached on the program per (version, feeds, flags)."""
+        check, action = _guard_flags()
+        amp = getattr(program, "_amp_dynamic", None)
+        if not check and amp is None:
+            return None
+        ckey = (program._version, tuple(sorted(feed_names)), check, action)
+        cache = program.__dict__.setdefault("_interp_guard_cache", {})
+        hit = cache.get(ckey)
+        if hit is not None and hit[0]() is scope:
+            return hit[1]
+        ops = program.global_block().ops
+        if amp is not None and not _block_reads_amp_scale(ops, amp):
+            amp = None
+        cfg = None
+        if check or amp is not None:
+            written: set = set()
+            rbw: List[str] = []
+            for op in ops:
+                for n in op.input_arg_names:
+                    if n not in written and n not in feed_names \
+                            and n not in rbw \
+                            and _scope_tensor(scope, n) is not None:
+                        rbw.append(n)
+                written.update(op.output_arg_names)
+            persistable = {v.name for v in program.global_block()
+                           .vars.values() if v.persistable}
+            amp_names = (set() if amp is None else
+                         {amp["scale"], amp["good"], amp["bad"]})
+            sel = [n for n in rbw if n in written and n not in amp_names]
+            sel += [n for n in sorted(written)
+                    if n in persistable and n not in sel
+                    and n not in feed_names and n not in amp_names
+                    and _scope_tensor(scope, n) is not None]
+            cfg = {"check": check, "action": action, "amp": amp,
+                   "select_names": tuple(sel),
+                   "health_names": tuple(
+                       n + GRAD_SUFFIX for n in sel
+                       if n + GRAD_SUFFIX in written) or tuple(
+                       n for n in sorted(written)
+                       if n.endswith(GRAD_SUFFIX)),
+                   "select": amp is not None or (
+                       check and action in ("skip", "rollback"))}
+        cache[ckey] = (weakref.ref(scope), cfg)
+        return cfg
+
+    def _interp_guard(self, guard, scope, snap, fetch_names, step):
+        """The compiled epilogue's counterpart after an interpreted step:
+        the same health, the same scale arithmetic; on a tripped step the
+        selected state goes back to ``snap``, its pre-step tensors (the
+        interpreter replaces scope values, never writes them in place)."""
+        from .ir import fused_health
+        vals = [t for t in (_scope_tensor(scope, n)
+                            for n in guard["health_names"]) if t is not None]
+        if not vals:
+            vals = [t for t in (_scope_tensor(scope, n)
+                                for n in guard["select_names"])
+                    if t is not None]
+        vals += [t for t in (_scope_tensor(scope, n) for n in fetch_names)
+                 if t is not None]
+        health = fused_health(vals, self.device)
+        healthy = bool(health)
+        a = guard["amp"]
+        if a is not None and not (guard["check"]
+                                  and guard["action"] == "raise"
+                                  and not healthy):
+            news = _amp_scale_update(health, *(_scope_tensor(scope, a[k])
+                                               for k in ("scale", "good",
+                                                         "bad")), a)
+            for k, v in zip(("scale", "good", "bad"), news):
+                scope.var(a[k]).set_value(LoDTensor(v))
+        self._last_health = health
+        if not healthy:
+            for n, t in snap.items():
+                scope.var(n).set_value(LoDTensor(t))
+            if guard["check"] and guard["action"] == "rollback":
+                raise _no_checkpoint_plane(step)
 
     @staticmethod
     def _check_inputs(block, scope: Scope, fed):
@@ -921,7 +1350,10 @@ class Executor:
                                    "before anything writes it")
             produced.update(op.output_arg_names)
 
-    def _run_op(self, op, idx: int, scope: Scope, keys: _StepKeys):
+    def _run_op(self, op, idx: int, scope: Scope, keys: _StepKeys,
+                check: bool = False):
+        """One op over the scope; ``check``: the raise action's per-op
+        finite check, before the outputs are written."""
         info, grad_of, ridx = _resolve(op, idx)
         attrs = _kernel_attrs(op, info, ridx, self.device, keys)
         ins: Dict[str, list] = {}
@@ -938,6 +1370,8 @@ class Executor:
             outs = run_generic_grad(
                 grad_of, ins, attrs, wanted_grad_slots=list(op.outputs),
                 fwd_input_slots=attrs.get("_fwd_in", list(op.inputs)))
+        if check:
+            _check_op_outputs_finite(op, idx, outs)
         for slot, names in op.outputs.items():
             for n, val in zip(names, (outs or {}).get(slot) or []):
                 if val is not None and n != _EMPTY:

@@ -264,6 +264,20 @@ class Block:
             info.infer_shape(op, self)
         return op
 
+    def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
+                   attrs=None, **kwargs) -> Operator:
+        """An op placed at ``index`` of the block (the AMP pass splices its
+        casts before their consumers)."""
+        op = Operator(self, type, inputs=inputs, outputs=outputs, attrs=attrs)
+        self.ops.insert(index, op)
+        self.program._version += 1
+        for names in op.outputs.values():
+            for n in names:
+                v = self.vars.get(n)
+                if v is not None:
+                    v.op = op
+        return op
+
     def to_string(self, throw_on_error=False, with_details=False):
         lines = [f"block idx={self.idx} parent={self.parent_idx}"]
         for v in self.vars.values():
@@ -313,6 +327,10 @@ class Program:
 
     def all_parameters(self):
         return self.global_block().all_parameters()
+
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
 
     def to_string(self, throw_on_error=False, with_details=False):
         return "\n".join(b.to_string() for b in self.blocks)

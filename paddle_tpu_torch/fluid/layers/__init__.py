@@ -6,3 +6,4 @@ from .io import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
+from .tensor import *  # noqa: F401,F403

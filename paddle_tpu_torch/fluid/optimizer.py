@@ -1,6 +1,7 @@
 """Optimizers (counterpart of paddle_tpu/fluid/optimizer.py; reference:
 python/paddle/fluid/optimizer.py — Optimizer:55, SGD:842, Momentum,
-Adam:1714). Static graph only; so far the base, SGD, Momentum and Adam.
+Adam:1714, RecomputeOptimizer:3850). Static graph only; so far the base,
+SGD, Momentum, Adam and RecomputeOptimizer.
 
 ``minimize`` = append_backward + grad clip + regularization + one update
 op per parameter, the reference's contract. Accumulators (moments, beta
@@ -24,7 +25,7 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
 __all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
-           "AdamOptimizer"]
+           "AdamOptimizer", "RecomputeOptimizer"]
 
 
 class Optimizer:
@@ -122,6 +123,13 @@ class Optimizer:
         params_grads = append_regularization_ops(params_grads,
                                                  self.regularization)
         return self._create_optimization_pass(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        """The update ops for ``params_grads`` (the second half of the
+        split backward()/apply_optimize() API)."""
+        with program_guard(default_main_program(),
+                           startup_program or default_startup_program()):
+            return self.apply_gradients(params_grads)
 
     def _create_optimization_pass(self, parameters_and_grads):
         block = default_main_program().current_block()
@@ -236,6 +244,46 @@ class AdamOptimizer(Optimizer):
                      "Beta1PowOut": [b1p], "Beta2PowOut": [b2p]},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
                    "epsilon": self._epsilon, "lazy_mode": self._lazy_mode})
+
+
+class RecomputeOptimizer(Optimizer):
+    """Rematerialization (reference optimizer.py:3850). The checkpoint
+    var names are recorded on the program (``_recompute_opt``) and the
+    compiled executor lowers the segments between them
+    (fluid/recompute_lowering.py): a segment's forward keeps only its
+    boundary values, and its backward span runs the segment's forward
+    again under autograd, so only segment boundaries stay live between
+    forward and backward. A shape the lowering cannot split runs without
+    remat (same numerics, more memory), with a warning."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return self._optimizer.backward(loss, startup_program,
+                                        parameter_list, no_grad_set,
+                                        callbacks)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self._optimizer.apply_optimize(loss, startup_program,
+                                              params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        optimize_ops = self.apply_optimize(loss, startup_program,
+                                           params_grads)
+        if self._checkpoints:
+            names = [v.name if hasattr(v, "name") else str(v)
+                     for v in self._checkpoints]
+            loss.block.program._recompute_opt = {"checkpoints": names}
+        return optimize_ops, params_grads
 
 
 SGD = SGDOptimizer

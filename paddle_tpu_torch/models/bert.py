@@ -141,16 +141,11 @@ def build_bert_pretrain_program(cfg=None, seq_len=128, dropout=0.0,
     excluded from attention). ``dropout`` is the hidden and attention
     dropout (BERT pretrains at 0.1). Returns (main, startup, feed vars,
     [loss]). ``mlm_frac`` is the caller's business (it sizes M) and is
-    accepted for the TPU package's signature. use_amp (bf16 activations)
-    and recompute (per-layer checkpoints) come in a later slice."""
-    if use_amp:
-        raise NotImplementedError("build_bert_pretrain_program: use_amp "
-                                  "(bf16 mixed precision) comes in a later "
-                                  "slice of paddle_tpu_torch")
-    if recompute:
-        raise NotImplementedError("build_bert_pretrain_program: recompute "
-                                  "(per-layer checkpoints) comes in a "
-                                  "later slice of paddle_tpu_torch")
+    accepted for the TPU package's signature. use_amp: bf16 activations
+    through contrib.mixed_precision (f32 master weights, f32 norm and
+    softmax). recompute: per-encoder-layer RecomputeOptimizer checkpoints
+    (each layer's activations recomputed in its backward instead of
+    stored)."""
     cfg = cfg or bert_base_config()
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -168,13 +163,22 @@ def build_bert_pretrain_program(cfg=None, seq_len=128, dropout=0.0,
             attn_bias = padding_attn_bias(input_mask)
             extra_feeds = [input_mask]
         x = bert_embedding(src, pos, sent, cfg, dropout)
+        layer_outs = [] if recompute else None
         enc = encoder(x, cfg["layers"], cfg["hidden"], cfg["heads"],
-                      cfg["ffn"], dropout, attn_bias=attn_bias)
+                      cfg["ffn"], dropout, attn_bias=attn_bias,
+                      collect_layer_outs=layer_outs)
         flat = layers.reshape(enc, [-1, cfg["hidden"]])
         picked = layers.gather(flat, mask_pos)
         logits = layers.fc(picked, cfg["vocab_size"])
         loss = layers.mean(
             layers.softmax_with_cross_entropy(logits, mask_label))
-        fluid.optimizer.Adam(lr).minimize(loss)
+        opt = fluid.optimizer.Adam(lr)
+        if use_amp:
+            from ..fluid.contrib import mixed_precision
+            opt = mixed_precision.decorate(opt)
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(layer_outs[:-1])
+        opt.minimize(loss)
     return main, startup, \
         [src, pos, sent, mask_pos, mask_label] + extra_feeds, [loss]

@@ -1,6 +1,6 @@
 """Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
-far: elementwise_add, elementwise_sub, mul, scale, relu, gelu, square,
-mean, sum).
+far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
+mul, scale, relu, gelu, square, mean, sum, isfinite).
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -54,6 +54,8 @@ def _register_elementwise(name, fn):
 
 _register_elementwise("elementwise_add", lambda x, y: x + y)
 _register_elementwise("elementwise_sub", lambda x, y: x - y)
+_register_elementwise("elementwise_mul", lambda x, y: x * y)
+_register_elementwise("elementwise_div", lambda x, y: x / y)
 
 
 # --------------------------------------------------------------------------
@@ -135,6 +137,12 @@ def _sum(ins, attrs):
     for x in xs[1:]:
         acc = acc + x
     return out(Out=acc)
+
+
+@register_op("isfinite", inputs=("X",), no_grad=True)
+def _isfinite(ins, attrs):
+    """[1] bool: every element of X finite."""
+    return out(Out=torch.all(torch.isfinite(first(ins, "X"))).reshape((1,)))
 
 
 # --------------------------------------------------------------------------

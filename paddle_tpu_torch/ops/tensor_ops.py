@@ -1,5 +1,5 @@
 """Tensor creation / manipulation op kernels (counterpart of
-paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value,
+paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value, cast,
 uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
 unsqueeze2, gather and its grad, top_k).
 
@@ -69,6 +69,15 @@ def _assign_value(ins, attrs):
     return out(Out=torch.tensor(vals, dtype=_dtype(attrs),
                                 device=attrs["_device"]).reshape(
         [int(s) for s in attrs["shape"]]))
+
+
+@register_op("cast", inputs=("X",),
+             attr_defaults={"in_dtype": 5, "out_dtype": 5})
+def _cast(ins, attrs):
+    """X in ``out_dtype``, on X's device: one conversion kernel and no host
+    tensor, so a CUDA graph captures it. Its grad (the generic one) is the
+    cast back to X's dtype."""
+    return out(Out=first(ins, "X").to(_dtype({"dtype": attrs["out_dtype"]})))
 
 
 # --------------------------------------------------------------------------
@@ -161,10 +170,29 @@ def _unsqueeze2(ins, attrs):
 # --------------------------------------------------------------------------
 # indexing
 # --------------------------------------------------------------------------
+class _GatherRows(torch.autograd.Function):
+    """``x.index_select(0, idx)`` whose backward sums the rows of repeated
+    indices in a fixed order (``scatter_rows_add``), where
+    ``index_select``'s own backward adds with atomics on the card. The
+    gather's grad op is a registered kernel; this backward is what
+    autograd runs when it differentiates a gather itself (a remat span)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = x.shape[0]
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return scatter_rows_add(ctx.n_rows, idx, g), None
+
+
 @register_op("gather", inputs=("X", "Index"), diff_inputs=("X",))
 def _gather(ins, attrs):
     x, idx = first(ins, "X"), first(ins, "Index")
-    return out(Out=x.index_select(0, idx.reshape(-1).long()))
+    return out(Out=_GatherRows.apply(x, idx.reshape(-1).long()))
 
 
 @register_op("top_k", inputs=("X", "K"), diff_inputs=("X",),

@@ -3,8 +3,10 @@ the CPU, in a subprocess that cannot import jax or paddle_tpu: each lane
 with ``--device cpu`` prints one JSON line in bench.py's form with the
 documented keys (the bert lane at bench.py's CPU smoke configuration);
 without ``--device cpu`` on a host without CUDA it prints the lane's
-error line and exits non-zero. What the lanes measure on the card is
-chip_smoke.py's (its lane phase)."""
+error line and exits non-zero. bench.py's switches of the bert lane
+(PADDLE_TPU_BENCH_BATCH, _SEQ, _RECOMPUTE) reach its program and its feed,
+and the line says whether it recomputes. What the lanes measure on the
+card is chip_smoke.py's (its lane and remat phases)."""
 import json
 import os
 import subprocess
@@ -23,8 +25,9 @@ KEYS = {"metric", "value", "unit", "vs_baseline", "batch", "steps",
         "step_ms", "device", "executor_mode", "timed_window", "loss"}
 
 
-def _bench(*args):
-    env = dict(os.environ, OMP_NUM_THREADS="4", CUDA_VISIBLE_DEVICES="")
+def _bench(*args, **env_vars):
+    env = dict(os.environ, OMP_NUM_THREADS="4", CUDA_VISIBLE_DEVICES="",
+               **env_vars)
     p = subprocess.run([sys.executable, "-c", RUN, *args], cwd=REPO,
                        env=env, capture_output=True, text=True, timeout=600)
     lines = p.stdout.strip().splitlines()
@@ -60,3 +63,52 @@ def test_lane_without_a_card_fails(lane):
     assert rc == 1
     assert res["metric"] == f"{lane}_error" and res["unit"] == "error"
     assert "CUDA is not available" in res["error"]
+
+
+def test_bert_lane_recompute_on_the_cpu():
+    """PADDLE_TPU_BENCH_RECOMPUTE=1 in the CPU smoke configuration: the
+    lane trains through the remat plan and says so; the batch and S
+    switches are the card's, ignored here as bench.py ignores them."""
+    rc, res, err = _bench("bert", "--device", "cpu",
+                          PADDLE_TPU_BENCH_RECOMPUTE="1",
+                          PADDLE_TPU_BENCH_BATCH="4",
+                          PADDLE_TPU_BENCH_SEQ="32")
+    assert rc == 0, err[-2000:]
+    assert res["recompute"] is True and res["cpu_smoke"] is True
+    assert res["batch"] == 8 and res["seq_len"] == 64
+    assert "not lowerable" not in err  # the plan engaged
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+def test_bert_lane_switches_reach_the_program(monkeypatch, recompute):
+    """On the card's path the switches set the first rung of the OOM
+    ladder, the feed's S and the program's recompute; the lane's run is
+    replaced by a stand-in that builds the program and the feed only."""
+    from paddle_tpu_torch import bench
+    monkeypatch.setenv("PADDLE_TPU_BENCH_BATCH", "48")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_SEQ", "64")
+    monkeypatch.setenv("PADDLE_TPU_BENCH_RECOMPUTE",
+                       "1" if recompute else "0")
+    seen = {}
+
+    class _Exe:
+        _last_run_mode = "compiled"
+
+    def run_lane(name, build, feed_of, batches, steps, device):
+        main, startup, fetches = build()
+        feed = feed_of(batches[0])
+        seen.update(batches=batches, main=main, feed=feed)
+        return (batches[0], 1.0, {"eager": 0, "captures": 0,
+                                  "replays": steps}, 1.0, 2 ** 30,
+                (_Exe(), None, main, feed, fetches))
+    monkeypatch.setattr(bench, "_run_lane", run_lane)
+    monkeypatch.setattr(bench, "_card", lambda: ("stand-in", "0 W"))
+    res = bench.run_bert_base().res
+    assert seen["batches"] == (48, 24, 12, 6)
+    assert seen["feed"]["src_ids"].shape == (48, 64)
+    assert res["batch"] == 48 and res["seq_len"] == 64
+    assert res["recompute"] is recompute
+    ckpts = getattr(seen["main"], "_recompute_opt", None)
+    assert (ckpts is not None) is recompute
+    if recompute:
+        assert len(ckpts["checkpoints"]) == 11  # layers 1-11 of 12

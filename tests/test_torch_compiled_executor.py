@@ -16,7 +16,7 @@ runs only on the card: ``python3 chip_smoke.py``).
 - The contracts: state classification errors, intermediates absent from
   the scope but fetchable, the cache key, a replaced state var, the mode
   flag, per-step dropout masks, routing of a block with a host read, what
-  the compiled step refuses (LoD feeds; the NaN guard has no flag yet),
+  the compiled step refuses (LoD feeds; an unknown NaN guard action),
   the routing cache, and a compiled step with JAX blocked from the
   process.
 """
@@ -334,15 +334,24 @@ def test_mode_flag_routes_to_the_interpreter(mode):
 
 @pytest.mark.parametrize("asked", ["nan_guard", "lod_feed"])
 def test_compiled_step_refuses_what_it_does_not_lower(asked):
-    """The NaN guard is not ported: its flag is unknown, so asking for it
-    fails at set_flag. A LoD feed is refused by the compiled step."""
-    if asked == "nan_guard":
-        with pytest.raises(KeyError):
-            tcore.set_flag("FLAGS_check_nan_inf", True)
-        return
+    """The NaN guard takes the actions raise, skip and rollback
+    (tests/test_torch_numeric_guard.py): any other action is refused when
+    the block is built, rather than guard nothing. A LoD feed is refused
+    by the compiled step."""
     main, startup, loss = _mlp()
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     exe.run(startup, scope=scope)
+    if asked == "nan_guard":
+        tcore.set_flag("FLAGS_check_nan_inf", True)
+        tcore.set_flag("FLAGS_nan_inf_action", "warn")
+        try:
+            with pytest.raises(ValueError, match="FLAGS_nan_inf_action"):
+                exe.run(main, feed=_mlp_feed(0), fetch_list=[loss],
+                        scope=scope)
+        finally:
+            tcore.set_flag("FLAGS_check_nan_inf", False)
+            tcore.set_flag("FLAGS_nan_inf_action", "raise")
+        return
     feed = _mlp_feed(0)
     feed["x"] = tfluid.LoDTensor(torch.from_numpy(feed["x"]), [[0, 2, 6]])
     with pytest.raises(NotImplementedError, match="LoD"):

@@ -122,10 +122,16 @@ def test_pretrain_programs_are_identical(dropout):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="use_amp"):
-        tbert.build_bert_pretrain_program(CFG, seq_len=S, use_amp=True)
-    with pytest.raises(NotImplementedError, match="recompute"):
-        tbert.build_bert_pretrain_program(CFG, seq_len=S, recompute=True)
+    """use_amp and recompute are ported (tests/test_torch_amp.py,
+    tests/test_torch_recompute.py); the optimizer's grad_clip is not, and
+    asking for it raises rather than train unclipped."""
+    with tfluid.unique_name.guard():
+        main, _, _, (loss,) = tbert.build_bert_pretrain_program(
+            CFG, seq_len=S, use_amp=True, recompute=True)
+    assert main._recompute_opt["checkpoints"]
+    assert "cast" in [op.type for op in main.global_block().ops]
+    with pytest.raises(NotImplementedError, match="grad_clip"):
+        tfluid.optimizer.Adam(1e-3, grad_clip=object())
 
 
 # ---------------------------------------------------------- per-op grads
