@@ -111,6 +111,26 @@ Phases, each fatal on failure:
               pre-step value when a replay is fed an inf; then the train
               phase's step with FLAGS_check_nan_inf off and on (skip),
               alternated, p50 of each.
+ 10. resnet — with torch's default cuDNN flags restored (TF32 allowed):
+              the conv op's f32 forward and grad at a ResNet-50 shape
+              bitwise what they give with TF32 off, and within 1e-5 of a
+              float64 conv; bench.py's resnet lane through
+              paddle_tpu_torch.bench (ResNet-50, 224x224, bf16
+              convolutions, batch 64 with the OOM ladder 64/32/16,
+              Momentum(0.1, 0.9), 10 steps as one window after a warm
+              one), its JSON line printed. Checks: a finite loss, the
+              compiled path, a timed window of replays only, no flash or
+              dropout kernel in a step (wrappers, graph, a trace of one
+              replay); the lane again with cuDNN free to pick
+              non-deterministic algorithms, then pinned again (the cost
+              of the pin); the loss falling over 10 steps on a repeated
+              batch of 16 at lr 0.01; at batch 4, 3 steps compiled
+              against interpreted and interpreted against itself, every
+              persistable bitwise; one f32 step at batch 2 on the card
+              against the CPU (loss, and the grads of the stem, a middle
+              and the last conv and the classifier in relative L2); the
+              LeNet conv net of models/mnist.py at batch 64: one step
+              against the CPU, then 4 more compiled.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -120,12 +140,14 @@ captures only) and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
 passes over one request of each batch size and over one step of the
-train, lane, remat and AMP phases: device time by kernel name, and the
-device's idle share against the same work's unprofiled wall time.
+train, lane, remat, AMP and resnet phases: device time by kernel name,
+and the device's idle share against the same work's unprofiled wall
+time.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -169,6 +191,23 @@ REMAT_LOSS_RTOL = 2e-5        # remat lane vs plain lane, last loss: the
 AMP_WINDOW = 50               # AMP training steps timed
 GUARD_WINDOW = 30             # f32 steps timed in each guard block
 GUARD_BLOCKS = 2              # guard off/on pairs, alternated
+RESNET_GRAPH_BATCH = 4       # ResNet-50 compiled vs interpreted, 224x224
+RESNET_CHECK_BATCH = 2       # ResNet-50 card vs CPU, f32
+RESNET_FALL_BATCH = 16       # ResNet-50 on one repeated batch
+RESNET_FALL_LR = 0.01        # where its loss falls (the lane's 0.1 rings:
+                             # tests/test_models.py:12-20)
+RESNET_FALL_STEPS = 10
+KINK_L2_TOL = 5e-2           # conv-net grads, card vs CPU, relative L2:
+                             # f32 rounding moves ReLU and max-pool kinks
+                             # (an input near 0, a near-tied window), and
+                             # the 0/1 grad on either side moves with them;
+                             # ResNet-50's conv grads at batch 2 differ by
+                             # up to 0.8 % in L2 (13 % in one channel's
+                             # max) between two CPU runs that differ only
+                             # in their thread count, by 2.8 % between an
+                             # H100 and the CPU
+LENET_BATCH = 64             # the conv net of models/mnist.py
+LENET_STEPS = 5
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
            "flash_attention_bwd_q", "dropout_fwd")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
@@ -1478,18 +1517,11 @@ def _check_graph_against_interpreter(cfg):
 
 
 
-def _check_train_against_cpu(cfg):
-    """One step at batch 2, dropout 0, on the card and by the port on the
-    CPU from the same weights: the loss and three grads. Post-Adam
-    parameters are not compared: Adam's m/(√v+ε) turns rounding noise on
-    a near-zero grad into a step of ±lr."""
-    import numpy as np
+def _card_and_cpu_step(main, startup, fetch, feed):
+    """One step of ``main`` on the card and by the port on the CPU, both
+    from the card's startup values → (card fetches, CPU fetches, (card
+    executor, scope), (CPU executor, scope))."""
     from paddle_tpu_torch import fluid
-    main, startup, loss = _pretrain_program(cfg, 0.0)
-    muls = [op for op in main.global_block().ops if op.type == "mul"]
-    names = ["word_embedding", muls[0].input("Y")[0],
-             muls[-1].input("Y")[0]]  # layer 0's Q weight, the MLM head
-    fetch = [loss] + [n + "@GRAD" for n in names]
     gpu_scope, cpu_scope = fluid.Scope(), fluid.Scope()
     exe = fluid.Executor(fluid.CUDAPlace(0))
     exe.run(startup, scope=gpu_scope)
@@ -1497,11 +1529,25 @@ def _check_train_against_cpu(cfg):
         if v.persistable:
             cpu_scope.var(v.name).set_value(fluid.LoDTensor(
                 gpu_scope.find_var(v.name).value().array.cpu()))
-    feed = _train_batch(np.random.RandomState(SEED + 3), CHECK_BATCH, cfg)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
     gpu = exe.run(main, feed=feed, fetch_list=fetch, scope=gpu_scope)
-    cpu = fluid.Executor(fluid.CPUPlace()).run(main, feed=feed,
-                                               fetch_list=fetch,
-                                               scope=cpu_scope)
+    cpu = cpu_exe.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    return gpu, cpu, (exe, gpu_scope), (cpu_exe, cpu_scope)
+
+
+def _check_train_against_cpu(cfg):
+    """One step at batch 2, dropout 0, on the card and by the port on the
+    CPU from the same weights: the loss and three grads. Post-Adam
+    parameters are not compared: Adam's m/(√v+ε) turns rounding noise on
+    a near-zero grad into a step of ±lr."""
+    import numpy as np
+    main, startup, loss = _pretrain_program(cfg, 0.0)
+    muls = [op for op in main.global_block().ops if op.type == "mul"]
+    names = ["word_embedding", muls[0].input("Y")[0],
+             muls[-1].input("Y")[0]]  # layer 0's Q weight, the MLM head
+    fetch = [loss] + [n + "@GRAD" for n in names]
+    feed = _train_batch(np.random.RandomState(SEED + 3), CHECK_BATCH, cfg)
+    gpu, cpu, _, _ = _card_and_cpu_step(main, startup, fetch, feed)
     ok = abs(float(gpu[0][0]) - float(cpu[0][0])) \
         <= LOSS_TOL * abs(float(cpu[0][0]))
     _log(f"[train] batch {CHECK_BATCH} dropout 0, card vs CPU: loss "
@@ -1559,6 +1605,7 @@ def _profile_step(exe, main, loss, scope, feed,
     _log(f"[profile] dropout kernel {drop_ms:.3f} ms for "
          f"{sum(e.count for e in drop)} launches "
          f"({100 * drop_ms / busy:.2f}% of the step's device time)")
+    return busy, top
 
 
 def _feed_cache_ab(lane, pairs, what):
@@ -1612,6 +1659,52 @@ def _feed_cache_ab(lane, pairs, what):
     return med[True], med[False]
 
 
+@contextlib.contextmanager
+def _lane_flags():
+    """FLAGS_use_bf16_matmul on, as the bench lanes run: the ops read it,
+    and it is part of the compiled cache key, so a run of a lane's
+    program reuses the lane's graph only with it."""
+    from paddle_tpu_torch.fluid import core
+    core.set_flag("FLAGS_use_bf16_matmul", True)
+    try:
+        yield
+    finally:
+        core.set_flag("FLAGS_use_bf16_matmul", False)
+
+
+def _gate_lane(lane, wrapper, want, what):
+    """A bench lane's gates: a finite loss, the compiled path, a timed
+    window of replays only, ``want`` (forward, dK/dV, dQ, dropout)
+    launches a step through the wrappers (``wrapper``: warm-ups and
+    captures) and in the graph, and in a profiler trace of one more
+    replay. → the compiled block's runs before the trace."""
+    import numpy as np
+    res, exe = lane.res, lane.exe
+    cb = exe._last_block
+    runs = dict(cb.stats)
+    if not (np.isfinite(res["loss"]) and res["executor_mode"] == "compiled"
+            and res["timed_window"] == {"eager": 0, "captures": 0,
+                                        "replays": res["steps"]}):
+        raise AssertionError(f"{what}: {res}")
+    if wrapper != tuple((runs["eager"] + runs["captures"]) * w
+                        for w in want) \
+            or tuple(cb.graph_launches.get(k, 0) for k in KERNELS) != want:
+        raise AssertionError(f"{what} launches {wrapper} through the "
+                             f"wrappers over {runs}, {cb.graph_launches} in "
+                             f"the graph; want {want} a step")
+
+    def one_step():
+        exe.run(lane.main, feed=lane.feed, fetch_list=lane.fetches,
+                scope=lane.scope)
+        if exe._last_block is not cb or cb.last_exec != "replay":
+            raise AssertionError(f"the traced {what} step was not a replay "
+                                 "of the lane's graph")
+    with _lane_flags():
+        _check_trace(_device_kernel_counts(one_step), want,
+                     f"{what} bf16 batch {res['batch']} step")
+    return runs
+
+
 def phase_lane(profile=False):
     """bench.py's lanes on the port, through ``paddle_tpu_torch.bench``
     (what ``python3 -m paddle_tpu_torch.bench bert|mnist`` runs): the
@@ -1623,46 +1716,24 @@ def phase_lane(profile=False):
     each lane's window runs with the feed cache on and off in turn."""
     import numpy as np
     from paddle_tpu_torch import bench
-    from paddle_tpu_torch.fluid import core
     _reset_launch_counts()
     lane = bench.run_bert_base()
     wrapper = _launch_counts()
     res = lane.res
     print(json.dumps(res), flush=True)
-    exe = lane.exe
     ops = lane.main.global_block().ops
     L = sum(op.type == "fused_attention_qkv" for op in ops)
     # each attention op launches the forward once and its grad re-runs it
     # under autograd (the generic grad) before dK/dV and dQ; dropout 0
     want = (2 * L, L, L, _dropout_ops(ops))
-    cb = exe._last_block
-    steps = res["steps"]
-    if not (np.isfinite(res["loss"]) and res["executor_mode"] == "compiled"
-            and res["timed_window"] == {"eager": 0, "captures": 0,
-                                        "replays": steps}
-            and want[3] == 0 and L == 12):
-        raise AssertionError(f"bert lane: {res}; {L} attention ops, "
-                             f"want {want} launches a step")
-    runs = dict(cb.stats)
-    if wrapper != tuple((runs["eager"] + runs["captures"]) * w
-                        for w in want) \
-            or tuple(cb.graph_launches.get(k, 0) for k in KERNELS) != want:
-        raise AssertionError(f"bert lane launches {wrapper} through the "
-                             f"wrappers over {runs}, {cb.graph_launches} in "
-                             f"the graph; want {want} a step")
+    if want[3] or L != 12:
+        raise AssertionError(f"bert lane: {L} attention ops, want {want} "
+                             "launches a step")
+    runs = _gate_lane(lane, wrapper, want, "bench lane")
     executed = tuple((runs["eager"] + runs["replays"]) * w for w in want)
-    core.set_flag("FLAGS_use_bf16_matmul", True)  # the lane's cache key
-    try:
-        def one_step():
-            exe.run(lane.main, feed=lane.feed, fetch_list=lane.fetches,
-                    scope=lane.scope)
-            if exe._last_block is not cb or cb.last_exec != "replay":
-                raise AssertionError("the traced lane step was not a replay "
-                                     "of the lane's graph")
-        _check_trace(_device_kernel_counts(one_step), want,
-                     f"bench lane bf16 batch {res['batch']} step")
+    with _lane_flags():
         if profile:
-            _profile_step(exe, lane.main, lane.fetches[0], lane.scope,
+            _profile_step(lane.exe, lane.main, lane.fetches[0], lane.scope,
                           lane.feed, f"bench lane bf16 batch {res['batch']}")
         _log(f"[lane] bert: batch {res['batch']}, {res['value']} "
              f"samples/s, {res['step_ms']} ms a step, peak "
@@ -1671,10 +1742,8 @@ def phase_lane(profile=False):
              f"{runs['captures']} capture, {runs['replays']} replays before "
              f"the trace; kernels run {executed}")
         _feed_cache_ab(lane, 2, f"bert batch {res['batch']}")
-    finally:
-        core.set_flag("FLAGS_use_bf16_matmul", False)
     lane.close()
-    del exe, cb, lane
+    del lane
     lane = bench.run_mnist_mlp()
     mres = lane.res
     print(json.dumps(mres), flush=True)
@@ -1694,7 +1763,7 @@ def _params(scope, params):
     return [scope.find_var(p.name).value().array.clone() for p in params]
 
 
-def _bitwise(what, a, b):
+def _bitwise(what, a, b, tag="[window]"):
     """Two lists of tensors or arrays equal bit for bit, or fail."""
     import numpy as np
     import torch
@@ -1705,7 +1774,7 @@ def _bitwise(what, a, b):
     same = [torch.equal(host(x), host(y)) for x, y in zip(a, b)]
     diff = max((float((host(x) - host(y)).abs().max())
                 for x, y, ok in zip(a, b, same) if not ok), default=0.0)
-    _log(f"[window] {what}: " + ("bitwise equal" if all(same) else
+    _log(f"{tag} {what}: " + ("bitwise equal" if all(same) else
                                  f"{same.count(False)} of {len(same)} "
                                  f"differ, max|d| {diff:.3e}") +
          f" -> {'ok' if all(same) else 'FAIL'}")
@@ -1864,9 +1933,7 @@ def phase_remat(plain, profile=False):
     run) and the last loss of the window within REMAT_LOSS_RTOL of the
     plain lane's."""
     import warnings
-    import numpy as np
     from paddle_tpu_torch import bench
-    from paddle_tpu_torch.fluid import core
     _reset_launch_counts()
     os.environ["PADDLE_TPU_BENCH_RECOMPUTE"] = "1"
     try:
@@ -1880,42 +1947,21 @@ def phase_remat(plain, profile=False):
     print(json.dumps(res), flush=True)
     fallback = [str(w.message) for w in rec
                 if "not lowerable" in str(w.message)]
-    exe, cb = lane.exe, lane.exe._last_block
-    plan = cb._remat_plan
+    plan = lane.exe._last_block._remat_plan
     if fallback or plan is None or res["recompute"] is not True:
         raise AssertionError(f"remat lane: the plan did not engage: "
                              f"{fallback or res}")
     want = _remat_want(lane.main, plan)
-    steps = res["steps"]
-    runs = dict(cb.stats)
-    if not (np.isfinite(res["loss"]) and res["executor_mode"] == "compiled"
-            and res["timed_window"] == {"eager": 0, "captures": 0,
-                                        "replays": steps}
-            and want == (24, 12, 12, 0)) \
-            or wrapper != tuple((runs["eager"] + runs["captures"]) * w
-                                for w in want) \
-            or tuple(cb.graph_launches.get(k, 0) for k in KERNELS) != want:
-        raise AssertionError(f"remat lane: {res}; launches {wrapper} "
-                             f"through the wrappers over {runs}, "
-                             f"{cb.graph_launches} in the graph; want {want} "
-                             "a step")
-    executed = tuple((runs["eager"] + runs["replays"]) * w for w in want)
-    core.set_flag("FLAGS_use_bf16_matmul", True)  # the lane's cache key
-    try:
-        def one_step():
-            exe.run(lane.main, feed=lane.feed, fetch_list=lane.fetches,
-                    scope=lane.scope)
-            if exe._last_block is not cb or cb.last_exec != "replay":
-                raise AssertionError("the traced remat step was not a "
-                                     "replay of the lane's graph")
-        _check_trace(_device_kernel_counts(one_step), want,
-                     f"remat lane bf16 batch {res['batch']} step")
-        if profile:
-            _profile_step(exe, lane.main, lane.fetches[0], lane.scope,
+    if want != (24, 12, 12, 0):
+        raise AssertionError(f"remat lane: want {want} launches a step")
+    runs = _gate_lane(lane, wrapper, want, "remat lane")
+    # the traced replay ran one step more
+    executed = tuple((runs["eager"] + runs["replays"] + 1) * w
+                     for w in want)
+    if profile:
+        with _lane_flags():
+            _profile_step(lane.exe, lane.main, lane.fetches[0], lane.scope,
                           lane.feed, f"remat lane bf16 batch {res['batch']}")
-    finally:
-        core.set_flag("FLAGS_use_bf16_matmul", False)
-    executed = tuple(e + w for e, w in zip(executed, want))
     rel = abs(res["loss"] - plain["loss"]) / abs(plain["loss"])
     _log(f"[remat] bert lane, PADDLE_TPU_BENCH_RECOMPUTE=1: "
          f"{len(plan.segments)} segments; batch {res['batch']}, "
@@ -2257,6 +2303,409 @@ def phase_guard():
 
 
 # --------------------------------------------------------------------------
+# 10. resnet
+# --------------------------------------------------------------------------
+CONV_F32_TOL = 1e-5          # the conv op's f32 result against float64,
+                             # relative to the largest magnitude: f32 sums
+                             # (TF32 operands sit near 1e-3)
+# substrings of the names of cuDNN's and cuBLAS's kernels (convolutions,
+# their layout transforms, the classifier's GEMM)
+_CONV_KERNEL_KEYS = ("conv", "xmma", "cudnn", "cutlass", "dgrad", "wgrad",
+                     "fprop", "implicit", "gemm")
+
+
+def _resnet_program(**kw):
+    """ResNet-50 at bench.py's widths (1000 classes, 224×224), seeded;
+    ``kw`` goes to build_resnet_train_program (lr)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = resnet.build_resnet_train_program(
+            depth=50, class_dim=1000, image_size=224, **kw)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, fetches
+
+
+def _image_batch(rng, bs):
+    return {"image": rng.rand(bs, 3, 224, 224).astype("float32"),
+            "label": rng.randint(0, 1000, (bs, 1)).astype("int64")}
+
+
+def _cudnn_free():
+    """The conv op's cuDNN flags with deterministic algorithms off: what
+    the op would run without its determinism pin."""
+    import torch
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=False, allow_tf32=False)
+
+
+def _conv_pin_check():
+    """With torch's default cuDNN flags (allow_tf32 True) the conv op's
+    f32 forward and generic grad at a ResNet-50 shape equal bitwise what
+    they give with TF32 off process-wide, and the forward lies within
+    CONV_F32_TOL of a float64 conv; F.conv2d under the same defaults is
+    printed beside it."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.registry import OPS, run_generic_grad
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the check needs torch's default cuDNN flags")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    x = torch.randn(32, 64, 56, 56, generator=gen, device="cuda")
+    w = torch.randn(64, 64, 3, 3, generator=gen, device="cuda") * 0.05
+    g = torch.randn(32, 64, 56, 56, generator=gen, device="cuda")
+    attrs = dict(OPS.get("conv2d").attr_defaults, paddings=[1, 1])
+
+    def op():
+        o = OPS.get("conv2d").kernel({"Input": [x], "Filter": [w]},
+                                     attrs)["Output"][0]
+        gr = run_generic_grad("conv2d", {"Input": [x], "Filter": [w],
+                                         "Output@GRAD": [g]}, attrs,
+                              ["Input@GRAD", "Filter@GRAD"],
+                              ["Input", "Filter"])
+        return [o, gr["Input@GRAD"][0], gr["Filter@GRAD"][0]]
+    default = op()
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        off = op()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    what = "conv2d f32 [32, 64, 56, 56] * [64, 64, 3, 3]"
+    _bitwise(f"{what}, forward, Input and Filter grads: torch's default "
+             "cuDNN flags (allow_tf32 True) against TF32 off process-wide",
+             default, off, tag="[resnet]")
+    ref = F.conv2d(x.double(), w.double(), padding=1)
+    scale = float(ref.abs().max())
+    err = float((default[0].double() - ref).abs().max()) / scale
+    err_lib = float((F.conv2d(x, w, padding=1).double() - ref).abs().max()
+                    ) / scale
+    ok = err <= CONV_F32_TOL
+    _log(f"[resnet] {what} against float64: the op {err:.3e}, F.conv2d "
+         f"under torch's defaults {err_lib:.3e} of max|out| {scale:.3e} "
+         f"(tol {CONV_F32_TOL:g} for the op) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the conv op is not f32-accurate under torch's "
+                             "default cuDNN flags")
+
+
+def _resnet_kernel_shares(busy, top):
+    conv = [e for e in top
+            if any(k in e.key.lower() for k in _CONV_KERNEL_KEYS)]
+    conv_ms = sum(e.self_device_time_total for e in conv) / 1e3
+    _log(f"[profile] cuDNN/cuBLAS kernels (convolutions, their layout "
+         f"transforms, the classifier's GEMM) {conv_ms:.3f} ms "
+         f"({100 * conv_ms / busy:.1f}%) in {sum(e.count for e in conv)} "
+         f"launches; everything else (elementwise passes, reductions, "
+         f"copies, casts) {busy - conv_ms:.3f} ms "
+         f"({100 - 100 * conv_ms / busy:.1f}%)")
+
+
+def _op_type_shares(lane, what):
+    """Device time of ``lane``'s step by op type: each op of its compiled
+    plan (a forward op, or the grad op that re-runs a forward under
+    autograd and differentiates it) captured into a CUDA graph of its own
+    and replayed (``_cuda_ms``), in the plan's order over the outputs of
+    the ops before it, from the lane's state and feeds; summed by op
+    type. The sum stands beside the whole step's replay. Run it under
+    the lane's flags (``_lane_flags``): the ops read them."""
+    import collections
+    import torch
+    from paddle_tpu_torch.fluid import executor as ex
+    cb = lane.exe._last_block
+    if cb._remat_plan is not None or len(cb._units) != len(cb.ops):
+        raise AssertionError("the op-type profile takes a plan of plain ops")
+    env = dict(cb._read_state(lane.scope))
+    env.update((n, torch.as_tensor(v).to(cb.device))
+               for n, v in lane.feed.items())
+    by_type = collections.Counter()
+    cb._keys.begin(ex._step_counter(lane.scope, cb.device))
+    try:
+        for op, u in zip(cb.ops, cb._units):
+            by_type[op.type] += _cuda_ms(lambda: u.run(env), iters=5,
+                                         warmup=1)
+            for n in u.frees:
+                env.pop(n, None)
+    finally:
+        cb._keys.end()
+    total = sum(by_type.values())
+    _log(f"[profile] {what}, each op's kernels replayed in a graph of its "
+         f"own: {total:.3f} ms in all ({len(cb.ops)} ops), by op type:")
+    for t, ms in by_type.most_common(16):
+        _log(f"[profile]   {ms:9.3f} ms ({100 * ms / total:5.1f}%)  {t}")
+    bn = by_type["batch_norm"] + by_type["batch_norm_grad"]
+    _log(f"[profile] {what}: batch_norm and its grad {bn:.3f} ms "
+         f"({100 * bn / total:.1f}%)")
+
+
+def _deterministic_cost(pinned):
+    """The lane at the batch it landed on, again with cuDNN free to pick
+    non-deterministic algorithms, then pinned again: step times side by
+    side (the op keeps the pin: ROADMAP C2)."""
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops import nn_ops
+    pin = nn_ops._cudnn_pinned
+    ms = {True: [pinned["step_ms"]], False: []}
+    for det in (False, True):
+        nn_ops._cudnn_pinned = pin if det else _cudnn_free
+        try:
+            r = bench.bench_resnet50(batch=pinned["batch"])
+        finally:
+            nn_ops._cudnn_pinned = pin
+        if r["batch"] != pinned["batch"] or not r["timed_window"][
+                "replays"] == r["steps"]:
+            raise AssertionError(f"resnet lane rerun: {r}")
+        ms[det].append(r["step_ms"])
+    _log(f"[resnet] cuDNN deterministic algorithms: lane step "
+         f"{' / '.join(f'{t:.3f}' for t in ms[True])} ms pinned (the lane, "
+         f"then the last run), {ms[False][0]:.3f} ms free (run between "
+         f"them), batch {pinned['batch']}: "
+         f"{100 * (ms[True][0] + ms[True][1]) / 2 / ms[False][0] - 100:+.2f}"
+         " % for the pin")
+    return ms
+
+
+def _resnet_falls():
+    """RESNET_FALL_STEPS compiled steps of the lane's program at lr
+    RESNET_FALL_LR on one repeated batch: the loss falls."""
+    import collections
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, fetches = _resnet_program(lr=RESNET_FALL_LR)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = _image_batch(np.random.RandomState(SEED + 21), RESNET_FALL_BATCH)
+    runs = collections.Counter()
+    with _lane_flags():
+        _, fall = _train_steps(exe, main, fetches[0], scope,
+                               [feed] * RESNET_FALL_STEPS, (0, 0, 0, 0),
+                               runs, "a ResNet-50 step")
+    exe.close()
+    ok = fall[-1] < fall[0] and np.mean(fall[-3:]) < np.mean(fall[:3])
+    _log(f"[resnet] repeated batch {RESNET_FALL_BATCH}, bf16, Momentum("
+         f"{RESNET_FALL_LR}, 0.9), {RESNET_FALL_STEPS} steps ({dict(runs)}): "
+         + " ".join(f"{x:.4f}" for x in fall)
+         + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the ResNet-50 loss does not fall on a "
+                             "repeated batch")
+
+
+def _resnet_runs(main, startup, fetches, feeds, mode):
+    """``feeds`` as one step each on the card, from a startup run, in
+    FLAGS_executor_mode ``mode`` → (fetches a step, how each ran, the
+    persistables after the startup run, and after the steps)."""
+    from paddle_tpu_torch import fluid
+    fluid.core.set_flag("FLAGS_executor_mode", mode)
+    try:
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        init = _persistables(scope, main)
+        got, kinds = [], []
+        for f in feeds:
+            got.append(exe.run(main, feed=f, fetch_list=fetches,
+                               scope=scope))
+            kinds.append(exe._last_run_mode + (
+                ":" + exe._last_block.last_exec
+                if exe._last_run_mode == "compiled" else ""))
+        exe.close()
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    return got, kinds, init, _persistables(scope, main)
+
+
+def _resnet_bitwise():
+    """GRAPH_STEPS steps of the lane's program (bf16 convolutions) at
+    batch RESNET_GRAPH_BATCH, 224×224: compiled (eager, capture, replay)
+    against interpreted, and interpreted against itself, each from its
+    own startup run; the fetches and every persistable (parameters,
+    velocities, moving statistics) bitwise. Then, not gated, two
+    interpreted runs with cuDNN free to pick non-deterministic
+    algorithms."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import nn_ops
+    main, startup, fetches = _resnet_program()
+    rng = np.random.RandomState(SEED + 22)
+    feeds = [_image_batch(rng, RESNET_GRAPH_BATCH)
+             for _ in range(GRAPH_STEPS)]
+    with _lane_flags():
+        runs = {m: _resnet_runs(main, startup, fetches, feeds, m.split()[0])
+                for m in ("compiled", "interpreted", "interpreted again")}
+        pin = nn_ops._cudnn_pinned
+        nn_ops._cudnn_pinned = _cudnn_free
+        try:
+            free = [_resnet_runs(main, startup, fetches, feeds,
+                                 "interpreted") for _ in range(2)]
+        finally:
+            nn_ops._cudnn_pinned = pin
+    kinds = runs["compiled"][1]
+    if kinds != ["compiled:eager", "compiled:capture", "compiled:replay"]:
+        raise AssertionError(f"compiled runs {kinds}")
+    names = sorted(runs["compiled"][3])
+    what = (f"ResNet-50 bf16 batch {RESNET_GRAPH_BATCH}, {GRAPH_STEPS} "
+            "steps")
+    for m in ("interpreted", "interpreted again"):
+        if any(not torch.equal(runs["compiled"][2][n], runs[m][2][n])
+               for n in names):
+            raise AssertionError("the startup runs differ")
+    for a, b in (("interpreted", "interpreted again"),
+                 ("compiled", "interpreted")):
+        _bitwise(f"{what}, {a} against {b}: losses and accuracies",
+                 [x for r in runs[a][0] for x in r],
+                 [x for r in runs[b][0] for x in r], tag="[resnet]")
+        _bitwise(f"{what}, {a} against {b}: {len(names)} persistables "
+                 "(parameters, velocities, moving statistics)",
+                 [runs[a][3][n] for n in names],
+                 [runs[b][3][n] for n in names], tag="[resnet]")
+    differ = sum(not torch.equal(free[0][3][n], free[1][3][n])
+                 for n in names)
+    _log(f"[resnet] {what}, cuDNN free to pick non-deterministic "
+         f"algorithms, interpreted against itself: "
+         f"{differ} of {len(names)} persistables differ (not gated: the "
+         "op pins deterministic algorithms)")
+
+
+def _card_against_cpu(main, startup, fetch, feed, what):
+    """``_card_and_cpu_step`` of a conv net: the loss (first fetch) gated
+    at LOSS_TOL relative, each grad at KINK_L2_TOL in relative L2 (its
+    largest difference printed beside it). → ((card executor, scope),
+    (CPU executor, scope)) for further steps."""
+    import numpy as np
+    gpu, cpu, card, host = _card_and_cpu_step(main, startup, fetch, feed)
+    ok = abs(float(gpu[0][0]) - float(cpu[0][0])) \
+        <= LOSS_TOL * abs(float(cpu[0][0]))
+    _log(f"[resnet] {what}, card vs CPU: loss {float(gpu[0][0]):.6f} vs "
+         f"{float(cpu[0][0]):.6f} (tol {LOSS_TOL:g} relative)")
+    for name, g, c in zip(fetch[1:], gpu[1:], cpu[1:]):
+        rel = float(np.linalg.norm(g - c) / np.linalg.norm(c))
+        ok = ok and rel <= KINK_L2_TOL
+        _log(f"[resnet]   {name} {tuple(c.shape)}: relative L2 {rel:.3e} "
+             f"(tol {KINK_L2_TOL:g}); max|d| {np.abs(g - c).max():.3e} of "
+             f"max|grad| {np.abs(c).max():.3e}")
+    if not ok:
+        raise AssertionError(f"{what}: the card disagrees with the CPU")
+    return card, host
+
+
+def _resnet_against_cpu():
+    """ResNet-50 in f32 (FLAGS_use_bf16_matmul off) at batch
+    RESNET_CHECK_BATCH, 224×224: one step's loss and the grads of the
+    stem conv, a middle conv, the last conv and the classifier."""
+    import numpy as np
+    main, startup, fetches = _resnet_program()
+    ops = main.global_block().ops
+    convs = [op.input("Filter")[0] for op in ops if op.type == "conv2d"]
+    fc = [op.input("Y")[0] for op in ops if op.type == "mul"]
+    fetch = [fetches[0]] + [n + "@GRAD" for n in
+                            (convs[0], convs[len(convs) // 2], convs[-1],
+                             fc[-1])]
+    feed = _image_batch(np.random.RandomState(SEED + 23), RESNET_CHECK_BATCH)
+    _card_against_cpu(main, startup, fetch, feed,
+                      f"ResNet-50 f32 batch {RESNET_CHECK_BATCH}")
+
+
+def _lenet_on_the_card():
+    """models/mnist.py's conv net (conv, relu, max pool, batch norm, conv,
+    relu, max pool, fc softmax; Adam 0.01) at batch LENET_BATCH: the first
+    step's loss and every grad against the CPU, then the rest of
+    LENET_STEPS steps on one batch, compiled (the later fetch list makes
+    an eager run, a capture and replays), each on the card and the CPU."""
+    import collections
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import mnist
+    with fluid.unique_name.guard():
+        main, startup, _, loss, _ = mnist.build_mnist_program(net="conv")
+    startup.random_seed = main.random_seed = SEED
+    rng = np.random.RandomState(SEED + 24)
+    feed = {"img": rng.rand(LENET_BATCH, 1, 28, 28).astype("float32"),
+            "label": rng.randint(0, 10, (LENET_BATCH, 1)).astype("int64")}
+    grads = [p.name + "@GRAD" for p in main.global_block().all_parameters()
+             if p.trainable]
+    (exe, scope), (cpu_exe, cpu_scope) = _card_against_cpu(
+        main, startup, [loss.name] + grads, feed,
+        f"LeNet conv net batch {LENET_BATCH}")
+    runs = collections.Counter()
+    _, card = _train_steps(exe, main, loss, scope,
+                           [feed] * (LENET_STEPS - 1), (0, 0, 0, 0), runs,
+                           "a LeNet step")
+    exe.close()
+    cpu = [float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=cpu_scope)[0][0])
+           for _ in range(LENET_STEPS - 1)]
+    d = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    ok = runs == {"eager": 1, "capture": 1, "replay": LENET_STEPS - 3} \
+        and card[-1] < card[0]
+    _log(f"[resnet] LeNet steps 2-{LENET_STEPS} on one batch, compiled "
+         f"({dict(runs)}): card " + " ".join(f"{x:.6f}" for x in card)
+         + ", CPU " + " ".join(f"{x:.6f}" for x in cpu)
+         + f" (max relative difference {d:.2e}, not gated: Adam's m/(√v+ε) "
+         f"turns rounding noise on a near-zero grad into ±lr) -> "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("LeNet on the card: the steps did not replay "
+                             "or the loss did not fall")
+
+
+def phase_resnet(profile=False):
+    """bench.py's resnet lane on the port through paddle_tpu_torch.bench
+    (ResNet-50, bf16 convolutions, batch 64 or the ladder's next rung,
+    224×224, Momentum(0.1, 0.9)), with torch's default cuDNN flags
+    restored for the whole phase (TF32 allowed): the conv op must pin full
+    f32 itself (``_conv_pin_check``). Gates: the conv pin; the lane's
+    finite loss, compiled path and timed window of replays only; no flash
+    or dropout kernel in a step (wrappers, graph, a trace of one replay);
+    a falling loss on a repeated batch; compiled against interpreted and
+    interpreted against itself bitwise; card against CPU in f32; LeNet on
+    the card against the CPU. Also the cost of cuDNN's deterministic
+    algorithms, and with ``profile`` the lane step's device time by
+    kernel and idle share."""
+    import torch
+    from paddle_tpu_torch import bench
+    want = (0, 0, 0, 0)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # torch's default
+    try:
+        _conv_pin_check()
+        _reset_launch_counts()
+        lane = bench.run_resnet50()
+        wrapper = _launch_counts()
+        res = lane.res
+        print(json.dumps(res), flush=True)
+        n_conv = sum(op.type == "conv2d"
+                     for op in lane.main.global_block().ops)
+        if n_conv != 53:
+            raise AssertionError(f"resnet lane: {n_conv} conv2d ops")
+        runs = _gate_lane(lane, wrapper, want, "resnet lane")
+        _log(f"[resnet] lane: batch {res['batch']} (OOM ladder 64/32/16), "
+             f"image {res['image_size']}, {res['value']} samples/s, "
+             f"{res['step_ms']} ms a step, peak {res['peak_memory_gib']} "
+             f"GiB, mfu_vs_h100_bf16_peak {res['mfu_vs_h100_bf16_peak']}, "
+             f"last loss {res['loss']:.4f}; {runs['eager']} eager, "
+             f"{runs['captures']} capture, {runs['replays']} replays")
+        if profile:
+            with _lane_flags():
+                _resnet_kernel_shares(*_profile_step(
+                    lane.exe, lane.main, lane.fetches[0], lane.scope,
+                    lane.feed, f"resnet lane bf16 batch {res['batch']}"))
+                _op_type_shares(lane,
+                                f"resnet lane bf16 batch {res['batch']}")
+        lane.close()
+        del lane
+        _deterministic_cost(res)
+        _resnet_falls()
+        _resnet_bitwise()
+        _resnet_against_cpu()
+        _lenet_on_the_card()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    if _launch_counts() != want:
+        raise AssertionError(f"the resnet phase launched {_launch_counts()} "
+                             "flash or dropout kernels")
+    return {"wrapper": wrapper, "executed": want, "lane": res}
+
+
+# --------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -2292,6 +2741,7 @@ def main(argv=None) -> int:
                                  profile=args.profile)
     paths["amp"] = phase_amp(paths["train"], profile=args.profile)
     paths["guard"] = phase_guard()
+    paths["resnet"] = phase_resnet(profile=args.profile)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

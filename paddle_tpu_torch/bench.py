@@ -1,6 +1,6 @@
 """The port's benchmark entry point; prints ONE JSON line:
 
-    python3 -m paddle_tpu_torch.bench [bert|mnist] [--device cpu]
+    python3 -m paddle_tpu_torch.bench [bert|mnist|resnet] [--device cpu]
 
 Each lane is the function of the same name in the repository's bench.py
 (the TPU package's), with what it configures ported unchanged: the model,
@@ -19,28 +19,34 @@ is all graph replays).
          the step with per-layer recompute checkpoints.
   mnist  MLP 784-1024-1024-10 with relu and softmax, cross-entropy,
          Momentum(0.01, 0.9), batch 256, 60 steps.
+  resnet ResNet-50 ImageNet training step (1000 classes, 224×224 images
+         from ``rand``, labels from ``randint(0, 1000)``),
+         FLAGS_use_bf16_matmul on (bf16 convolutions), Momentum(0.1,
+         0.9), batch 64 with the OOM ladder 64/32/16, 10 steps.
 
 The lanes run on the card (``cuda``); ``--device cpu`` runs them on the
 CPU, the bert lane at bench.py's CPU smoke configuration (2 layers, hidden
-256, 4 heads, ffn 1024, batch 8, S=64, 3 steps). Without a card and
-without ``--device cpu`` the lane fails: nothing falls back to the CPU.
+256, 4 heads, ffn 1024, batch 8, S=64, 3 steps), the resnet lane at its
+own (batch 8, image 64, 3 steps). Without a card and without ``--device
+cpu`` the lane fails: nothing falls back to the CPU.
 
 Keys of the line: ``metric``, ``value`` (samples/s), ``unit``,
 ``vs_baseline``, ``batch``, ``steps``, ``step_ms``, ``device``,
 ``executor_mode``, ``timed_window`` (the timed window's eager runs,
 captures and replays), ``loss`` (its last step's) and, for bert,
-``seq_len`` and ``recompute``. On the card also ``power_limit`` (as nvidia-smi reports the
-card's name and power limit) and ``peak_memory_gib``
-(``torch.cuda.max_memory_allocated``), and for bert
-``mfu_vs_h100_bf16_peak``: bench.py's FLOP count (6·N·tokens + attention)
-over the H100's 989 TFLOP/s of dense bf16. A failure prints bench.py's
-error form (``<lane>_error``) and exits with 1.
+``seq_len`` and ``recompute``, for resnet ``image_size``. On the card
+also ``power_limit`` (as nvidia-smi reports the card's name and power
+limit) and ``peak_memory_gib`` (``torch.cuda.max_memory_allocated``), and
+for bert and resnet ``mfu_vs_h100_bf16_peak``: bench.py's FLOP count
+(bert: 6·N·tokens + attention; resnet: 3 · 3.8 GFLOP a 224×224 sample,
+scaled with the pixels) over the H100's 989 TFLOP/s of dense bf16. A
+failure prints bench.py's error form (``<lane>_error``) and exits with 1.
 
-``run_bert_base`` and ``run_mnist_mlp`` run a lane and return a ``Lane``:
-the result with the executor, scope, program, feed and fetches it ran,
-for a caller that looks further into the run; ``Lane.close()`` frees the
-card. ``bench_bert_base`` and ``bench_mnist_mlp`` return the result
-alone.
+``run_bert_base``, ``run_mnist_mlp`` and ``run_resnet50`` run a lane and
+return a ``Lane``: the result with the executor, scope, program, feed and
+fetches it ran, for a caller that looks further into the run;
+``Lane.close()`` frees the card. ``bench_bert_base``, ``bench_mnist_mlp``
+and ``bench_resnet50`` return the result alone.
 """
 from __future__ import annotations
 
@@ -280,6 +286,55 @@ def run_bert_base(batch=256, seq_len=128, steps=20, device="cuda") -> Lane:
     return Lane(res, *ran)
 
 
+def resnet50_flops_per_sample(image_size):
+    """bench.py's count: ~3.8 GFLOP forward a 224×224 sample, scaled with
+    the pixels; ×3 for forward and backward."""
+    return 3 * 3.8e9 * (image_size / 224.0) ** 2
+
+
+def run_resnet50(batch=64, image_size=224, steps=10,
+                 device="cuda") -> Lane:
+    """bench.py's resnet lane (bench.py:530-565)."""
+    from .fluid import core
+    from .models.resnet import build_resnet_train_program
+
+    smoke = device == "cpu"
+    if smoke:  # bench.py's CPU configuration: the path, not the number
+        batch, image_size, steps = 8, 64, 3
+    core.set_flag("FLAGS_use_bf16_matmul", True)  # bf16 convolutions
+
+    def build():
+        from . import fluid
+        with fluid.unique_name.guard():
+            main, startup, _, fetches = build_resnet_train_program(
+                depth=50, class_dim=1000, image_size=image_size)
+        return main, startup, fetches[:1]
+
+    rng = np.random.RandomState(0)
+
+    def feed_of(b):
+        return {"image": rng.rand(b, 3, image_size,
+                                  image_size).astype("float32"),
+                "label": rng.randint(0, 1000, (b, 1)).astype("int64")}
+
+    try:
+        batch, dt, window, loss, peak, ran = _run_lane(
+            "resnet", build, feed_of, (batch, batch // 2, batch // 4),
+            steps, device)
+    finally:
+        core.set_flag("FLAGS_use_bf16_matmul", False)
+    res = _result("resnet50_samples_per_sec_per_chip", batch, steps, dt,
+                  window, loss, peak, ran[0]._last_run_mode, device)
+    res["image_size"] = image_size
+    if smoke:
+        res["cpu_smoke"] = True
+    else:
+        res["mfu_vs_h100_bf16_peak"] = round(
+            res["value"] * resnet50_flops_per_sample(image_size)
+            / H100_BF16_PEAK_FLOPS, 4)
+    return Lane(res, *ran)
+
+
 def bench_bert_base(**kw) -> dict:
     """``run_bert_base``'s result line, the card freed."""
     lane = run_bert_base(**kw)
@@ -293,7 +348,15 @@ def bench_mnist_mlp(**kw) -> dict:
     lane.close()
     return lane.res
 
-LANES = {"bert": bench_bert_base, "mnist": bench_mnist_mlp}
+def bench_resnet50(**kw) -> dict:
+    """``run_resnet50``'s result line, the card freed."""
+    lane = run_resnet50(**kw)
+    lane.close()
+    return lane.res
+
+
+LANES = {"bert": bench_bert_base, "mnist": bench_mnist_mlp,
+         "resnet": bench_resnet50}
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,8 @@
 """Core NN layers (counterpart of paddle_tpu/fluid/layers/nn.py; reference:
 python/paddle/fluid/layers/nn.py). Op-builder functions with inline shape
-inference; -1 marks unknown dims. So far: fc, embedding, layer_norm,
-dropout, reshape, unsqueeze, gather, topk, mean, elementwise_add,
-elementwise_sub, scale."""
+inference; -1 marks unknown dims. So far: fc, embedding, conv2d, pool2d,
+batch_norm, layer_norm, dropout, reshape, unsqueeze, flatten, gather,
+topk, mean, elementwise_add, elementwise_sub, scale."""
 from __future__ import annotations
 
 import math
@@ -10,11 +10,13 @@ import math
 from ..core import VarDesc, convert_np_dtype_to_dtype_
 from ..framework import Variable
 from ..layer_helper import LayerHelper
-from ..initializer import Constant
+from ..initializer import Constant, Normal
+from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "reshape",
-           "unsqueeze", "gather", "topk", "mean", "elementwise_add",
-           "elementwise_sub", "scale"]
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "dropout", "reshape", "unsqueeze", "flatten",
+           "gather", "topk", "mean", "elementwise_add", "elementwise_sub",
+           "scale"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -72,6 +74,133 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                             "remote_prefetch": False,
                             "padding_idx": pad})
     return out
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v] * n
+
+
+def _conv_out_size(i, k, p0, p1, s, d=1):
+    if i < 0:
+        return -1
+    return (i + p0 + p1 - (d * (k - 1) + 1)) // s + 1
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """reference: layers/nn.py conv2d — the conv2d op (Filter OIHW, by
+    default Normal(0, sqrt(2 / fan_in))), the bias over the channel axis,
+    the activation. ``padding`` may be "SAME" or "VALID"."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    ksize = _pair(filter_size)
+    stride = _pair(stride)
+    dilation = _pair(dilation)
+    pad_algo = "EXPLICIT"
+    if isinstance(padding, str):
+        pad_algo = padding.upper()
+        padding = [0, 0]
+    padding = _pair(padding)
+    ch_axis = 1 if data_format == "NCHW" else 3
+    num_channels = input.shape[ch_axis]
+    w_shape = [num_filters, num_channels // groups] + ksize
+    default_init = Normal(
+        0.0, (2.0 / (num_channels // groups * math.prod(ksize))) ** 0.5)
+    w = helper.create_parameter(attr=helper.param_attr, shape=w_shape,
+                                dtype=dtype, default_initializer=default_init)
+    out = helper.create_variable_for_type_inference(dtype)
+    if data_format == "NCHW":
+        h = _conv_out_size(input.shape[2], ksize[0], padding[0], padding[0],
+                           stride[0], dilation[0])
+        wd = _conv_out_size(input.shape[3], ksize[1], padding[1], padding[1],
+                            stride[1], dilation[1])
+        out.shape = (input.shape[0], num_filters, h, wd)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups, "use_cudnn": use_cudnn,
+               "padding_algorithm": pad_algo, "data_format": data_format})
+    pre_act = helper.append_bias_op(out, dim_start=ch_axis,
+                                    dim_end=ch_axis + 1)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCHW"):
+    """reference: layers/nn.py pool2d — max or avg pooling, or global."""
+    helper = LayerHelper("pool2d", **locals())
+    ksize = _pair(pool_size)
+    stride = _pair(pool_stride)
+    padding = _pair(pool_padding)
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    if global_pooling:
+        out.shape = (input.shape[0], input.shape[1], 1, 1)
+    elif data_format == "NCHW" and len(input.shape) == 4:
+        h = _conv_out_size(input.shape[2], ksize[0], padding[0], padding[0],
+                           stride[0])
+        w = _conv_out_size(input.shape[3], ksize[1], padding[1], padding[1],
+                           stride[1])
+        out.shape = (input.shape[0], input.shape[1], h, w)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": ksize,
+               "global_pooling": global_pooling, "strides": stride,
+               "paddings": padding, "use_cudnn": use_cudnn,
+               "ceil_mode": ceil_mode, "exclusive": exclusive,
+               "data_format": data_format, "padding_algorithm": "EXPLICIT"})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    """reference: layers/nn.py batch_norm. The parameters in the TPU
+    package's order (scale, bias, moving mean, moving variance), so they
+    get the same names; the op writes the moving statistics (MeanOut,
+    VarianceOut) into the vars it reads them from."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=[c],
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[c],
+                                   dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                       trainable=False), shape=[c], dtype=dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                       trainable=False), shape=[c], dtype=dtype)
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = (input if in_place
+           else helper.create_variable_for_type_inference(dtype))
+    out.shape = input.shape
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -160,6 +289,19 @@ def unsqueeze(input, axes, name=None):
     helper.append_op(type="unsqueeze2", inputs={"X": [input]},
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axes": axes})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    """reference: layers/nn.py flatten → the flatten2 op."""
+    helper = LayerHelper("flatten", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    out.shape = (math.prod(x.shape[:axis]), math.prod(x.shape[axis:]))
+    helper.append_op(type="flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
     return out
 
 

@@ -1,12 +1,18 @@
 """NN op kernels (counterpart of paddle_tpu/ops/nn_ops.py; so far:
-lookup_table_v2, layer_norm, softmax, cross_entropy,
-softmax_with_cross_entropy, accuracy and dropout with its
-dropout_grad)."""
+lookup_table_v2, conv2d, depthwise_conv2d, pool2d, batch_norm,
+layer_norm, softmax, cross_entropy, softmax_with_cross_entropy, accuracy
+and dropout with its dropout_grad).
+
+The convolution is cuDNN's, through ``torch.nn.functional.conv2d``, as
+the TPU package's is XLA's ``lax.conv_general_dilated``; pooling and
+batch norm are torch expressions of the TPU package's own formulas."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .cuda import dropout as cuda_dropout
+from .math_ops import bf16_matmul_enabled
 from .registry import register_grad_maker, register_op, first, out
 
 
@@ -31,8 +37,270 @@ def _lookup_table_v2(ins, attrs):
 
 
 # --------------------------------------------------------------------------
+# conv / pool
+# --------------------------------------------------------------------------
+def _conv_padding(paddings, algo, ndim, ksize, strides, dilations, in_shape):
+    """[(before, after)] a spatial dim. SAME pads what keeps ceil(in /
+    stride) outputs, the odd element after (unevenly with an even kernel
+    or a stride of 2); VALID pads nothing; EXPLICIT gives one pad a dim
+    for both sides, or a (before, after) pair a dim."""
+    if algo == "SAME":
+        pads = []
+        for i in range(ndim):
+            o = -(-in_shape[i] // strides[i])
+            eff = (ksize[i] - 1) * dilations[i] + 1
+            total = max((o - 1) * strides[i] + eff - in_shape[i], 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    if algo == "VALID":
+        return [(0, 0)] * ndim
+    p = list(paddings)
+    if len(p) == ndim:
+        return [(x, x) for x in p]
+    return [(p[2 * i], p[2 * i + 1]) for i in range(ndim)]
+
+
+def _cudnn_pinned():
+    """cuDNN set to compute as the TPU package's convolution does: f32
+    operands in full f32 (torch lets cuDNN round them to TF32 by default),
+    deterministic algorithms (no atomics, so a step is bitwise
+    reproducible: ROADMAP C2), and no algorithm search (it cannot run
+    inside a CUDA-graph capture). Only this op's calls see the flags."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+class _Conv2d(torch.autograd.Function):
+    """NCHW ``F.conv2d`` without bias whose backward runs under
+    ``_cudnn_pinned`` too: autograd runs it after the forward's ``with``
+    block has closed, and cuDNN reads the flags when it runs."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation, groups)
+        with _cudnn_pinned():
+            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        with _cudnn_pinned():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, dilation, False, [0, 0],
+                groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                         False])
+        return gx, gw, None, None, None, None
+
+
+_CONV_ATTRS = {"strides": [1, 1], "paddings": [0, 0], "dilations": [1, 1],
+               "groups": 1, "padding_algorithm": "EXPLICIT",
+               "data_format": "NCHW"}
+
+
+@register_op("conv2d", inputs=("Input", "Filter", "Bias", "ResidualData"),
+             diff_inputs=("Input", "Filter", "Bias"),
+             attr_defaults=dict(_CONV_ATTRS, use_cudnn=True,
+                                exhaustive_search=False))
+def _conv2d(ins, attrs):
+    """Input NCHW (or NHWC), Filter OIHW. Uneven padding goes through
+    ``F.pad`` first (``F.conv2d`` pads both sides alike). Under
+    FLAGS_use_bf16_matmul on the card: bf16 operands AND a bf16 output
+    (cuDNN accumulates in f32), cast back to f32, as the TPU package's
+    conv rounds its output to bf16 once (unlike ``mul``, whose output is
+    f32)."""
+    x, w = first(ins, "Input"), first(ins, "Filter")
+    nchw = attrs.get("data_format", "NCHW") in ("NCHW", "AnyLayout")
+    if not nchw:
+        x = x.permute(0, 3, 1, 2)
+    strides = [int(s) for s in attrs.get("strides", [1, 1])]
+    dil = [int(d) for d in attrs.get("dilations", [1, 1])]
+    (pt, pb), (pl, pr) = _conv_padding(
+        attrs.get("paddings", [0, 0]),
+        attrs.get("padding_algorithm", "EXPLICIT"), 2, w.shape[2:],
+        strides, dil, x.shape[2:])
+    orig_dtype = x.dtype
+    if bf16_matmul_enabled(x):
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    if pt != pb or pl != pr:
+        x = F.pad(x, (pl, pr, pt, pb))
+        pt = pl = 0
+    o = _Conv2d.apply(x, w, strides, [pt, pl], dil,
+                      int(attrs.get("groups", 1))).to(orig_dtype)
+    if not nchw:
+        o = o.permute(0, 2, 3, 1)
+    b = first(ins, "Bias")
+    if b is not None:
+        o = o + b.reshape([1, -1, 1, 1] if nchw else [1, 1, 1, -1])
+    return out(Output=o)
+
+
+@register_op("depthwise_conv2d", inputs=("Input", "Filter", "Bias"),
+             diff_inputs=("Input", "Filter", "Bias"),
+             attr_defaults=dict(_CONV_ATTRS, use_cudnn=False))
+def _depthwise_conv2d(ins, attrs):
+    return _conv2d(ins, attrs)
+
+
+def _window_slices(xp, ksize, strides, oh, ow):
+    """The kh·kw strided slices of padded NCHW ``xp``, one a window
+    offset, each [n, c, oh, ow] (views)."""
+    (kh, kw), (sh, sw) = ksize, strides
+    for i in range(kh):
+        for j in range(kw):
+            yield xp[:, :, i:i + (oh - 1) * sh + 1:sh,
+                     j:j + (ow - 1) * sw + 1:sw]
+
+
+def _pool_out(hw, ksize, strides, pads):
+    return tuple((hw[d] + sum(pads[d]) - ksize[d]) // strides[d] + 1
+                 for d in range(2))
+
+
+def _avg_pool_slices(x, ksize, strides, pads, exclusive):
+    """NCHW average pool: the sum of the kh·kw strided slices in window
+    order, over the count of the window's elements that are not padding
+    (``exclusive`` and padded) or over kh·kw. The count map is summed on
+    x's device from a padded tensor of ones: no host copy, so a CUDA
+    graph captures it."""
+    (pt, pb), (pl, pr) = pads
+    oh, ow = _pool_out(x.shape[2:], ksize, strides, pads)
+    o = None
+    for s in _window_slices(F.pad(x, (pl, pr, pt, pb)), ksize, strides,
+                            oh, ow):
+        o = s if o is None else o + s
+    if exclusive and (pt or pb or pl or pr):
+        ones = F.pad(torch.ones((1, 1) + tuple(x.shape[2:]),
+                                dtype=torch.float32, device=x.device),
+                     (pl, pr, pt, pb))
+        cnt = None
+        for s in _window_slices(ones, ksize, strides, oh, ow):
+            cnt = s if cnt is None else cnt + s
+        return o / torch.clamp(cnt, min=1.0).to(x.dtype)
+    return o / float(ksize[0] * ksize[1])
+
+
+def _max_pool_slices(x, ksize, strides, pads, init):
+    """NCHW max pool: ``torch.maximum`` chained over the kh·kw strided
+    slices of x padded with ``init``. Its grad splits a tie evenly at
+    each link, as the TPU package's chained ``jnp.maximum`` does (for
+    three equal slices ¼, ¼, ½), where ``F.max_pool2d`` sends the whole
+    grad to one element."""
+    (pt, pb), (pl, pr) = pads
+    oh, ow = _pool_out(x.shape[2:], ksize, strides, pads)
+    o = None
+    for s in _window_slices(F.pad(x, (pl, pr, pt, pb), value=init), ksize,
+                            strides, oh, ow):
+        o = s if o is None else torch.maximum(o, s)
+    return o
+
+
+def _pool2d_impl(x, attrs):
+    """pool2d over NCHW or NHWC ``x``: global (or adaptive to 1×1) as one
+    reduction, adaptive at sizes that divide, else the strided-slice max
+    or average with EXPLICIT, SAME or VALID padding. ``ceil_mode`` is
+    ignored, as in the TPU package."""
+    ptype = attrs.get("pooling_type", "max")
+    ksize = [int(k) for k in attrs.get("ksize", [1, 1])]
+    strides = [int(s) for s in attrs.get("strides", [1, 1])]
+    ch_last = attrs.get("data_format", "NCHW") == "NHWC"
+    hw = tuple(x.shape[1:3] if ch_last else x.shape[2:4])
+    axes = (1, 2) if ch_last else (2, 3)
+    if attrs.get("global_pooling", False) or (
+            attrs.get("adaptive", False) and ksize == [1, 1]):
+        if ptype == "max":
+            return torch.amax(x, dim=axes, keepdim=True)
+        return torch.mean(x, dim=axes, keepdim=True)
+    if attrs.get("adaptive", False):
+        oh, ow = ksize
+        if hw[0] % oh or hw[1] % ow:
+            raise ValueError("adaptive pool requires divisible sizes in "
+                             "this build")
+        n, c = x.shape[0], x.shape[3 if ch_last else 1]
+        if ch_last:
+            xr = x.reshape(n, oh, hw[0] // oh, ow, hw[1] // ow, c)
+            rax = (2, 4)
+        else:
+            xr = x.reshape(n, c, oh, hw[0] // oh, ow, hw[1] // ow)
+            rax = (3, 5)
+        if ptype == "max":
+            return torch.amax(xr, dim=rax)
+        return torch.mean(xr, dim=rax)
+    pads = _conv_padding(attrs.get("paddings", [0, 0]),
+                         attrs.get("padding_algorithm", "EXPLICIT"),
+                         2, ksize, strides, [1, 1], hw)
+    if ch_last:
+        x = x.permute(0, 3, 1, 2)
+    if ptype == "max":
+        init = (float("-inf") if x.is_floating_point()
+                else torch.iinfo(x.dtype).min)
+        o = _max_pool_slices(x, ksize, strides, pads, init)
+    else:
+        o = _avg_pool_slices(x, ksize, strides, pads,
+                             attrs.get("exclusive", True))
+    return o.permute(0, 2, 3, 1) if ch_last else o
+
+
+@register_op("pool2d", inputs=("X",),
+             attr_defaults={"pooling_type": "max", "ksize": [1, 1],
+                            "global_pooling": False, "strides": [1, 1],
+                            "paddings": [0, 0], "exclusive": True,
+                            "adaptive": False, "ceil_mode": False,
+                            "use_cudnn": True, "data_format": "NCHW",
+                            "padding_algorithm": "EXPLICIT"})
+def _pool2d(ins, attrs):
+    return out(Out=_pool2d_impl(first(ins, "X"), attrs))
+
+
+# --------------------------------------------------------------------------
 # normalization
 # --------------------------------------------------------------------------
+@register_op("batch_norm",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance",
+                     "MomentumTensor"),
+             diff_inputs=("X", "Scale", "Bias"),
+             attr_defaults={"momentum": 0.9, "epsilon": 1e-5,
+                            "data_layout": "NCHW", "is_test": False,
+                            "use_global_stats": False,
+                            "trainable_statistics": False,
+                            "fuse_with_relu": False})
+def _batch_norm(ins, attrs):
+    """The TPU package's formulas: in training the batch statistics in
+    f32, the mean and the biased variance mean(x²) − mean(x)², and the
+    moving statistics momentum·old + (1 − momentum)·batch; under
+    ``is_test`` or ``use_global_stats`` the moving ones. SavedVariance is
+    the inverse std rsqrt(var + eps). (``F.batch_norm`` is not this op:
+    it computes the variance another way, and its running variance is
+    the unbiased one.) ``MomentumTensor`` is ignored, as there."""
+    x = first(ins, "X")
+    scale, bias = first(ins, "Scale"), first(ins, "Bias")
+    mean, var = first(ins, "Mean"), first(ins, "Variance")
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    c_axis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != c_axis)
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        bm, bv = mean, var
+        new_mean, new_var = mean, var
+    else:
+        x32 = x.to(torch.float32)
+        bm = torch.mean(x32, axes)
+        bv = torch.mean(torch.square(x32), axes) - torch.square(bm)
+        bm, bv = bm.to(x.dtype), bv.to(x.dtype)
+        new_mean = momentum * mean + (1 - momentum) * bm
+        new_var = momentum * var + (1 - momentum) * bv
+    saved_var_inv = torch.rsqrt(bv + eps)
+    bshape = [1] * x.dim()
+    bshape[c_axis] = x.shape[c_axis]
+    y = (x - bm.reshape(bshape)) * saved_var_inv.reshape(bshape)
+    y = y * scale.reshape(bshape) + bias.reshape(bshape)
+    if attrs.get("fuse_with_relu", False):
+        y = torch.maximum(y, torch.zeros((), dtype=y.dtype, device=y.device))
+    return out(Y=y, MeanOut=new_mean, VarianceOut=new_var, SavedMean=bm,
+               SavedVariance=saved_var_inv)
+
+
 @register_op("layer_norm", inputs=("X", "Scale", "Bias"),
              diff_inputs=("X", "Scale", "Bias"),
              attr_defaults={"epsilon": 1e-5, "begin_norm_axis": 1})

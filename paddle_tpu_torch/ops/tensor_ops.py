@@ -1,7 +1,7 @@
 """Tensor creation / manipulation op kernels (counterpart of
 paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value, cast,
 uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
-unsqueeze2, gather and its grad, top_k).
+unsqueeze2, flatten, flatten2, gather and its grad, top_k).
 
 Random ops draw from the key that ``attrs["_rng"]()`` returns (the
 executor derives it on the device from the program's random_seed, the
@@ -165,6 +165,23 @@ def _unsqueeze2(ins, attrs):
     for a in sorted(attrs["axes"]):
         o = o.unsqueeze(a)
     return out(Out=o, XShape=_xshape(x))
+
+
+def _flatten_2d(x, axis):
+    return x.reshape((math.prod(x.shape[:axis]), -1))
+
+
+@register_op("flatten", inputs=("X",), attr_defaults={"axis": 1})
+def _flatten(ins, attrs):
+    """[prod(shape[:axis]), prod(shape[axis:])]."""
+    return out(Out=_flatten_2d(first(ins, "X"), attrs.get("axis", 1)))
+
+
+@register_op("flatten2", inputs=("X",), attr_defaults={"axis": 1})
+def _flatten2(ins, attrs):
+    """flatten, and XShape (X's shape after a 0) as reshape2 gives it."""
+    x = first(ins, "X")
+    return out(Out=_flatten_2d(x, attrs.get("axis", 1)), XShape=_xshape(x))
 
 
 # --------------------------------------------------------------------------

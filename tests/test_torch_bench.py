@@ -1,7 +1,8 @@
 """The port's bench entry point, ``python -m paddle_tpu_torch.bench``, on
 the CPU, in a subprocess that cannot import jax or paddle_tpu: each lane
 with ``--device cpu`` prints one JSON line in bench.py's form with the
-documented keys (the bert lane at bench.py's CPU smoke configuration);
+documented keys (the bert and resnet lanes at bench.py's CPU smoke
+configurations);
 without ``--device cpu`` on a host without CUDA it prints the lane's
 error line and exits non-zero. bench.py's switches of the bert lane
 (PADDLE_TPU_BENCH_BATCH, _SEQ, _RECOMPUTE) reach its program and its feed,
@@ -37,7 +38,8 @@ def _bench(*args, **env_vars):
 
 @pytest.mark.parametrize("lane,metric,batch", [
     ("bert", "bert_base_samples_per_sec_per_chip", 8),
-    ("mnist", "mnist_mlp_samples_per_sec", 256)])
+    ("mnist", "mnist_mlp_samples_per_sec", 256),
+    ("resnet", "resnet50_samples_per_sec_per_chip", 8)])
 def test_lane_on_the_cpu(lane, metric, batch):
     rc, res, err = _bench(lane, "--device", "cpu")
     assert rc == 0, err[-2000:]
@@ -53,11 +55,14 @@ def test_lane_on_the_cpu(lane, metric, batch):
     if lane == "bert":
         assert res["seq_len"] == 64 and res["cpu_smoke"] is True
         assert res["steps"] == 3
+    elif lane == "resnet":  # bench.py's CPU smoke: batch 8, image 64
+        assert res["image_size"] == 64 and res["cpu_smoke"] is True
+        assert res["steps"] == 3
     else:
         assert res["steps"] == 60
 
 
-@pytest.mark.parametrize("lane", ["bert", "mnist"])
+@pytest.mark.parametrize("lane", ["bert", "mnist", "resnet"])
 def test_lane_without_a_card_fails(lane):
     rc, res, err = _bench(lane)
     assert rc == 1

@@ -6,7 +6,8 @@ mnist lane) against the TPU package, on the CPU:
   1e-5, and the generic grads of relu, softmax, cross_entropy and top_k
   against ``jax.vjp`` of the reference kernels at 1e-5 (the tolerance of
   tests/test_torch_train_slice.py); relu's grad at 0 is JAX's ½;
-- the MNIST builders of both packages emit the same op lists;
+- the MNIST builders of both packages emit the same op lists, the MLP's
+  and the conv net's;
 - ``golden_mnist_trajectory.npz`` (tests/test_book_models.py:220): ten SGD
   steps of the fixture's MLP through the port at rtol 1e-4, atol 1e-5;
 - a few Momentum steps of the MNIST program from the same weights,
@@ -177,8 +178,20 @@ def test_mnist_builder_op_lists_match():
 
 
 def test_mnist_conv_net_names_its_slice():
-    with pytest.raises(NotImplementedError, match="A9"):
-        tmnist.build_mnist_program(net="conv")
+    """The LeNet-style conv net (ROADMAP A9): both builders emit the same
+    op lists, in the main and the startup program."""
+    with tfluid.unique_name.guard():
+        tmain, tstart, tfeeds, _, _ = tmnist.build_mnist_program(net="conv")
+    with jfluid.unique_name.guard():
+        jmain, jstart, jfeeds, _, _ = jmnist.build_mnist_program(net="conv")
+    assert _types(tmain) == _types(jmain)
+    assert _types(tstart) == _types(jstart)
+    assert tfeeds == jfeeds == ["img", "label"]
+    assert _types(tmain).count("conv2d") == 2
+    assert {"pool2d", "batch_norm", "conv2d_grad", "pool2d_grad",
+            "batch_norm_grad", "adam"} <= set(_types(tmain))
+    with pytest.raises(ValueError, match="'mlp' or 'conv'"):
+        tmnist.build_mnist_program(net="lenet")
 
 
 def test_mnist_golden_trajectory():
