@@ -5,29 +5,43 @@ Phases, each fatal on failure:
   1. build  — compile every CUDA kernel from csrc/, one nvcc per source,
               all started together.
   2. kernel — hold each kernel against its plain PyTorch version on the
-              card: the forward (O and lse), the backward's dK/dV and dQ
-              kernels (dQ, dK, dV) and the dropout kernel (mask and
-              output), over BERT-base shapes in f32 and bf16
-              with a key-padding bias, ragged S/Sk, causal, a dead row,
-              dropout 0.1, head dims 8 to 128 (40 and 96 zero-padded to
-              the next instance), B·H above 65535 and the bench lane's
-              shape (batch 256, bf16, no bias); time each kernel, its
-              plain version and one PyTorch library call as a yardstick
+              card: the forward (O and lse); the backward (dQ, dK, dV)
+              by the route bwd_route picks, the fused kernel (bf16, S and
+              Sk up to 128: delta, dQ, dK and dV in one launch, each case
+              run twice and bitwise alike) or the dK/dV and dQ kernels
+              (f32, and S or Sk above 128, in either dtype); and the
+              dropout kernel (mask and output); over BERT-base shapes in
+              f32 and bf16 with a key-padding bias, ragged S/Sk (200 x 77,
+              and 100 x 77 in bf16), causal, a dead row, dropout 0.1 (the
+              last three also at S = Sk = 256 in bf16, on the split
+              kernels), head dims 8 to 128 (40 and 96 zero-padded to the
+              next instance; in bf16 at 96 x 80 on the fused kernel and at
+              200 x 144 on the split ones), S = Sk = 1,
+              B·H above 65535 and the bench lane's shape (batch 256,
+              bf16, no bias); time each kernel, its plain version and one
+              PyTorch library call as a yardstick
               (scaled_dot_product_attention, and its backward): the
               forward at the served shape (batch 8), the trained one
-              (batch 32, also with dropout 0.1) and the lane's, the
-              backward kernels at batch 32 in f32 (also with dropout 0.1)
-              and bf16 and at the lane's shape, each beside its bound and
-              what sets it; the whole backward of SDPA and of the port
-              timed alike, as (forward + backward) minus the forward, each
-              captured in a CUDA graph, and bwd_delta alone; the dropout
-              kernel at the step's shape beside torch.native_dropout; a
-              kernel timed faster than its bound fails. Then the
-              attention op's route: at D = 96 the kernels (one launch
-              each, forward and backward, against the plain versions); a
+              (batch 32, also with dropout 0.1) and the lane's; the
+              dK/dV and dQ kernels at batch 32 in f32 (also with dropout
+              0.1), the fused kernel at batch 32 in bf16 with the bias and
+              at the lane's shape, beside the split route's whole
+              backward on the same inputs; each beside its bound (the
+              whole backward's: q, k, v, O, dO and lse read, dQ, dK and
+              dV written once) and what sets it; the whole backward of
+              SDPA and of the port timed alike, as (forward + backward)
+              minus the forward, each captured in a CUDA graph, and
+              bwd_delta alone in f32; the dropout kernel at the step's
+              shape beside torch.native_dropout; a kernel timed faster
+              than its bound fails. Then the
+              attention op's route: at D = 96 the kernels (the forward
+              once, the backward once: dK/dV and dQ in f32, the fused
+              kernel in bf16; against the plain versions); a
               bias the kernels do not take, the einsum path with the flash
               kernels' dropout mask; D = 192 and f16, which have no kernel
-              instance, raise and launch nothing.
+              instance, raise and launch nothing. Every launch gate below
+              counts (forward, dK/dV, dQ, fused backward, dropout)
+              kernels.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -54,8 +68,9 @@ Phases, each fatal on failure:
               steps, then 10 steps on one repeated batch. Checks: every
               step compiled, a finite loss every step, exact kernel
               launches per step (12 forward + 12 forward re-run by the
-              generic grad, 12 dK/dV, 12 dQ, one dropout launch per
-              dropout op; for replays as recorded in the graph and in a
+              generic grad, 12 dK/dV, 12 dQ (f32: the split route), one
+              dropout launch per dropout op: (24, 12, 12, 0, 37); for
+              replays as recorded in the graph and in a
               profiler trace, which must hold device events), dropout
               masks that
               differ from step to step under replay, the loss falling on
@@ -84,22 +99,25 @@ Phases, each fatal on failure:
               steps as one window after a warm one, and the MNIST MLP at
               batch 256, 60 steps; each prints its JSON line. Checks: a
               finite loss, the compiled path, a timed window of replays
-              only, and (24, 12, 12, 0) forward, dK/dV, dQ and dropout
-              kernels in a profiler trace of one replayed BERT step. Then
+              only, and (24, 0, 0, 12, 0) kernels (bf16 at S = 128: the
+              fused backward) in a profiler trace of one replayed BERT
+              step. Then
               each lane's window again with FLAGS_feed_device_cache on
               and off in turn (every feed a cache hit when on).
   7. remat  — the bert lane again with PADDLE_TPU_BENCH_RECOMPUTE=1
               (per-layer checkpoints, the remat schedule in the graph),
               its JSON line printed. Checks: the plan engaged with no
-              fallback warning, a timed window of replays only, (24, 12,
-              12, 0) kernels a step from the graph and a trace, peak
+              fallback warning, a timed window of replays only, (24, 0,
+              0, 12, 0) kernels a step from the graph and a trace, peak
               memory below the plain lane's of this run, the last loss
               within 2e-5 relative of the plain lane's.
   8. amp    — build_bert_pretrain_program(use_amp=True): bf16 products,
               f32 master weights, dropout 0.1, input mask, Adam, at batch
               32 compiled as the train phase runs it (step p50/p90,
               samples/s, peak memory beside the train phase's). Checks:
-              (24, 12, 12, 37) kernels a step (wrappers, graph, trace), a
+              the kernels a step (wrappers, graph, trace) that the route
+              of the attention's dtype, read from the program, gives
+              ((24, 12, 12, 0, 37): its Q, K, V stay f32), a
               falling loss on a repeated batch, and 3 steps at batch 2
               compiled against interpreted bitwise, with f32 Q/K/V.
   9. guard  — the numeric fault guard: the TPU package's dynamic loss
@@ -208,10 +226,20 @@ KINK_L2_TOL = 5e-2           # conv-net grads, card vs CPU, relative L2:
                              # H100 and the CPU
 LENET_BATCH = 64             # the conv net of models/mnist.py
 LENET_STEPS = 5
+# every launch gate below counts these kernels, in this order: (forward,
+# dK/dV, dQ, fused backward, dropout)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
-           "flash_attention_bwd_q", "dropout_fwd")
+           "flash_attention_bwd_q", "flash_attention_bwd_fused",
+           "dropout_fwd")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
-                  "flash_bwd_q_kernel", "dropout_fwd_kernel")
+                  "flash_bwd_q_kernel", "flash_bwd_fused_kernel",
+                  "dropout_fwd_kernel")
+NO_KERNELS = (0,) * len(KERNELS)
+LANE_STEP_WANT = (24, 0, 0, 12, 0)  # bench's bert lane step, plain or remat:
+                                    # bf16, the fused backward, no dropout
+TRAIN_STEP_WANT = (24, 12, 12, 0, 37)  # the f32 BERT-base pretraining step
+                                       # (train, window, guard): the split
+                                       # kernels, dropout 0.1
 DROPOUT_TOL = 1e-6            # dropout kernel vs plain, relative: the same
                               # f32 product, so expected bit for bit
 DROPOUT_SETS = 4              # input sets cycled when timing dropout: 4 x
@@ -313,7 +341,7 @@ def _check_bound(name, ms, bound_ms):
 # a kernel instance's mangled name: <length>flash_..._kernel I <T> Li<D> E
 _PTXAS_ENTRY = re.compile(
     r"Compiling entry function '\w*?\d(flash_[a-z_]+_kernel|"
-    r"dropout_fwd_kernel)I(f|13__nv_bfloat16)(?:Li(\d+))?E")
+    r"dropout_fwd_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+))?E")
 
 
 def ptxas_report(text):
@@ -323,6 +351,8 @@ def ptxas_report(text):
     for line in text.splitlines():
         m = _PTXAS_ENTRY.search(line)
         if m:
+            # an instance without a type parameter is bf16 (the fused
+            # backward takes nothing else)
             cur = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
                    int(m.group(3) or 0))
             spill = (0, 0)
@@ -344,7 +374,8 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from paddle_tpu_torch.ops.cuda import build, dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    sources = (fa.KERNEL_SOURCE, fa.BWD_KERNEL_SOURCE, dk.KERNEL_SOURCE)
+    sources = (fa.KERNEL_SOURCE, fa.BWD_KERNEL_SOURCE, fa.BWD_FUSED_SOURCE,
+               dk.KERNEL_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -524,15 +555,20 @@ def _check_bwd(name, got, want, tol):
 def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
                bias=True):
     """(bound_ms, bound_by, flop, bytes) of a backward function doing
-    ``flop_units``·B·H·S·Sk·D FLOP of ``dtype`` products that reads q, k,
-    v, dO, lse, delta and the bias (if ``bias``) once and writes ``n_out``
-    outputs of q's or k's size once (n_out: "q" = dQ, "kv" = dK and dV,
-    "qkv" = all)."""
+    ``flop_units``·B·H·S·Sk·D FLOP of ``dtype`` products, reading the bias
+    (if ``bias``) once. ``n_out`` "q" (dQ) or "kv" (dK and dV): a split
+    kernel, which reads q, k, v, dO, lse and delta once and writes its
+    outputs once; "qkv": the whole backward, the function SDPA's backward
+    computes, which reads its inputs q, k, v, O, dO and lse once and
+    writes dQ, dK and dV once."""
     elt = 4 if dtype == "float32" else 2
     flop = flop_units * B * H * S * Sk * D
     q_b, kv_b = B * H * S * D * elt, B * H * Sk * D * elt
-    nbytes = 2 * q_b + 2 * kv_b + 2 * B * H * S * 4 + B * Sk * 4 * bias
-    nbytes += {"q": q_b, "kv": 2 * kv_b, "qkv": q_b + 2 * kv_b}[n_out]
+    rows = B * H * S * 4  # lse or delta, f32
+    nbytes = B * Sk * 4 * bias + {
+        "q": 2 * q_b + 2 * kv_b + 2 * rows + q_b,
+        "kv": 2 * q_b + 2 * kv_b + 2 * rows + 2 * kv_b,
+        "qkv": 3 * q_b + 2 * kv_b + rows + q_b + 2 * kv_b}[n_out]
     return (*bound(flop, nbytes, dtype), flop, nbytes)
 
 
@@ -540,8 +576,9 @@ def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed):
     """The whole backward (dQ, dK and dV) of SDPA and of the port, each
     timed on the device as (forward + backward) minus the forward alone,
     both captured into CUDA graphs (SDPA's dropout RNG captures too): →
-    (sdpa_ms, port_ms). The port's backward is bwd_delta and its two
-    kernels."""
+    (sdpa_ms, port_ms). The port's backward is flash_attention_bwd_cuda:
+    the fused kernel or bwd_delta and the split kernels, as bwd_route
+    picks."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -565,31 +602,46 @@ def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed):
 
 
 def phase_kernel_bwd():
-    """The dK/dV and dQ kernels against the plain backward, on the forward
-    kernel's O and lse, over the forward phase's cases; then each timed
-    at the training shape, in f32 without and with dropout 0.1 and in
-    bf16, and at the bench lane's (batch 256, bf16, no bias), beside the
-    graph-timed whole backward of SDPA and of the port and bwd_delta
-    alone."""
+    """The backward kernels against the plain backward, on the forward
+    kernel's O and lse: each case runs the route bwd_route picks, the
+    fused kernel (bf16, S and Sk up to 128) or the dK/dV and dQ kernels
+    (f32; S or Sk above 128 in either dtype: the bf16 cases run on both
+    sides of 128, and each split kernel must have met both dtypes). The
+    fused kernel runs every case twice and
+    must give bitwise equal results. Then, at the training shape (B=32,
+    H=12, S=128, D=64, bias) in f32 without and with dropout 0.1 and in
+    bf16, and at the bench lane's (batch 256, bf16, no bias), each kernel
+    of the shape's route timed beside its bound and plain version, and
+    the graph-timed whole backward of SDPA and of the port; in bf16 also
+    the split route's whole backward (bwd_delta, dK/dV, dQ) on the same
+    inputs, and in f32 bwd_delta alone."""
     import torch
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     sm = 0.125
-    errs = {}  # (kernel, dtype) -> max |kernel - plain| over the cases
+    errs = {}  # (kernel, dtype or tag) -> max |kernel - plain| over cases
 
     def both(name, q, k, v, scale, tol, causal=False, rate=0.0, seed=None,
              bias=None, tag=None):
         o, lse = fa.flash_attention_cuda(q, k, v, scale, causal, rate, seed,
                                          bias)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-        got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, scale, causal,
-                                          rate, seed, bias)
-        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, scale,
-                                                causal, rate, seed, bias)
+        args = (q, k, v, o, lse, do, scale, causal, rate, seed, bias)
+        route = fa.bwd_route(q.shape, k.shape, q.dtype)
+        got = fa.flash_attention_bwd_cuda(*args)
+        want = fa.flash_attention_bwd_reference(*args)
         torch.cuda.synchronize()
-        e_q, e_k, e_v = _check_bwd(name, got, want, tol)
-        for kern, e in (("flash_attention_bwd_q", e_q),
-                        ("flash_attention_bwd_kv", max(e_k, e_v))):
+        e_q, e_k, e_v = _check_bwd(f"{name} ({route})", got, want, tol)
+        if route == "fused":
+            again = fa.flash_attention_bwd_cuda(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"the fused backward's rerun differs: "
+                                     f"{name}")
+            found = (("flash_attention_bwd_fused", max(e_q, e_k, e_v)),)
+        else:
+            found = (("flash_attention_bwd_q", e_q),
+                     ("flash_attention_bwd_kv", max(e_k, e_v)))
+        for kern, e in found:
             key = (kern, tag or q.dtype)
             errs[key] = max(errs.get(key, 0.0), e)
         return got
@@ -601,43 +653,62 @@ def phase_kernel_bwd():
         q, k, v = _qkv(B, H, S, S, D, dt, gen)
         both(f"bert B={B} H={H} S={S} D={D} {dt} bias dropout 0.1", q, k, v,
              sm, tol, rate=0.1, seed=seed, bias=_padding_bias(B, S, gen))
-    q, k, v = _qkv(2, 3, 200, 77, 64, f32, gen)
-    both("ragged S=200 Sk=77 bias", q, k, v, sm, F32_TOL,
-         bias=_padding_bias(2, 77, gen))
+    for dt, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+        q, k, v = _qkv(2, 3, 200, 77, 64, dt, gen)
+        both(f"ragged S=200 Sk=77 bias {dt}", q, k, v, sm, tol,
+             bias=_padding_bias(2, 77, gen))
     q, k, v = _qkv(2, 3, 200, 200, 64, f32, gen)
     both("causal ragged S=Sk=200", q, k, v, sm, F32_TOL, causal=True)
-    q, k, v = _qkv(2, 3, 256, 256, 64, f32, gen)
-    dead = torch.zeros(2, 256, device="cuda")
-    dead[0] = -1e30
-    dq, dk, dv = both("dead row (bias -1e30 on every key of batch 0)",
-                      q, k, v, sm, F32_TOL, bias=dead)
-    if not (dq[0].eq(0).all() and dk[0].eq(0).all() and dv[0].eq(0).all()):
-        raise AssertionError("dead rows must give zero dQ, dK and dV")
-    both("dropout 0.1 seed 1234 causal bias", q, k, v, sm, F32_TOL,
-         causal=True, rate=0.1, seed=seed, bias=_padding_bias(2, 256, gen))
+    for dt, tol, n in ((f32, F32_TOL, 256), (bf16, BF16_TOL, S),
+                       (bf16, BF16_TOL, 256)):
+        q, k, v = _qkv(2, 3, n, n, 64, dt, gen)
+        dead = torch.zeros(2, n, device="cuda")
+        dead[0] = -1e30
+        dq, dk, dv = both(f"dead row S=Sk={n} {dt} (bias -1e30 on every "
+                          "key of batch 0)", q, k, v, sm, tol, bias=dead)
+        if not (dq[0].eq(0).all() and dk[0].eq(0).all()
+                and dv[0].eq(0).all()):
+            raise AssertionError("dead rows must give zero dQ, dK and dV")
+        both(f"dropout 0.1 seed 1234 causal bias S=Sk={n} {dt}", q, k, v,
+             sm, tol, causal=True, rate=0.1, seed=seed,
+             bias=_padding_bias(2, n, gen))
+    q, k, v = _qkv(2, 3, 100, 77, 64, bf16, gen)
+    both("ragged S=100 Sk=77 bias dropout 0.1 bf16", q, k, v, sm, BF16_TOL,
+         rate=0.1, seed=seed, bias=_padding_bias(2, 77, gen))
+    q, k, v = _qkv(3, 2, 1, 1, 64, bf16, gen)
+    both("S=Sk=1 bf16", q, k, v, sm, BF16_TOL)
     for d in (8, 16, 32, 40, 96, 128):
         q, k, v = _qkv(2, 2, 96, 80, d, f32, gen)
         both(f"head dim {d}", q, k, v, d ** -0.5, F32_TOL,
              bias=_padding_bias(2, 80, gen))
         q, k, v = (t.to(bf16) for t in (q, k, v))
         both(f"head dim {d} bf16", q, k, v, d ** -0.5, BF16_TOL)
-    q, k, v = _qkv(BIG_BH[0], BIG_BH[1], 16, 16, 64, f32, gen)
-    both(f"B*H = {BIG_BH[0] * BIG_BH[1]} S=Sk=16 bias dropout 0.1", q, k, v,
-         sm, F32_TOL, rate=0.1, seed=seed,
-         bias=_padding_bias(BIG_BH[0], 16, gen))
+        q, k, v = _qkv(2, 2, 200, 144, d, bf16, gen)
+        both(f"head dim {d} S=200 Sk=144 bias bf16", q, k, v, d ** -0.5,
+             BF16_TOL, bias=_padding_bias(2, 144, gen))
+    for dt, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+        q, k, v = _qkv(BIG_BH[0], BIG_BH[1], 16, 16, 64, dt, gen)
+        both(f"B*H = {BIG_BH[0] * BIG_BH[1]} S=Sk=16 bias dropout 0.1 {dt}",
+             q, k, v, sm, tol, rate=0.1, seed=seed,
+             bias=_padding_bias(BIG_BH[0], 16, gen))
     q, k, v = _qkv(LANE_BATCH, H, S, S, D, bf16, gen)
     both(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} bf16 no bias", q, k,
          v, sm, BF16_TOL, tag="lane")
-    lane_errs = {key[0]: e for key, e in errs.items() if key[1] == "lane"}
     del q, k, v
+    # every kernel ran in each dtype it has an instance of (bf16 beyond
+    # S, Sk = 128 takes the split kernels)
+    ran = {(kern, tag) for kern, tag in errs}
+    for kern in ("flash_attention_bwd_q", "flash_attention_bwd_kv"):
+        if not {(kern, f32), (kern, bf16)} <= ran:
+            raise AssertionError(f"{kern}: no case in each of f32 and bf16")
 
     # time at the training shape: B=32, H=12, S=128, D=64, bias; f32
     # without and with dropout 0.1 (as the training step runs them), bf16;
     # and at the bench lane's: B=256, bf16, no bias
-    kernels = (("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
-                fa.flash_attention_bwd_kv_reference, 8, "kv"),
-               ("flash_attention_bwd_q", fa.flash_attention_bwd_q_cuda,
-                fa.flash_attention_bwd_q_reference, 6, "q"))
+    split = (("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
+              fa.flash_attention_bwd_kv_reference, 8, "kv"),
+             ("flash_attention_bwd_q", fa.flash_attention_bwd_q_cuda,
+              fa.flash_attention_bwd_q_reference, 6, "q"))
     rows, timings = {}, {}
     for bs, dt, rate, with_bias in ((B, f32, 0.0, True), (B, f32, 0.1, True),
                                     (B, bf16, 0.0, True),
@@ -646,60 +717,94 @@ def phase_kernel_bwd():
         bias = _padding_bias(bs, S, gen) if with_bias else None
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
         o, lse = fa.flash_attention_cuda(q, k, v, sm, False, rate, seed, bias)
-        delta = fa.bwd_delta(o, do)
-        args = (q, k, v, do, lse, delta, sm, False, rate, seed, bias)
         name_dt = str(dt).replace("torch.", "")
         what = f"{name_dt} B={bs} H={H} S={S} D={D}" + (
             " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
+        route = fa.bwd_route(q.shape, k.shape, dt)
+        err_tag = dt if with_bias else "lane"
         lib_ms, port_ms = _bwd_yardstick(q, k, v, do, bias, sm, rate, seed)
-        delta_ms = _cuda_ms(lambda: fa.bwd_delta(o, do))
-        kern_ms = 0.0
-        for name, cuda_fn, plain_fn, units, outs in kernels:
-            ms = _cuda_ms(lambda: cuda_fn(*args))
-            eager_ms = _cuda_ms(lambda: cuda_fn(*args), graph=False)
-            # the plain version's dropout mask reads the seed on the host,
-            # which a graph cannot capture: with dropout it is timed eagerly
-            plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate,
-                             iters=50 if bs <= B else 10)
-            bnd, by, flop, nbytes = _bwd_bound(bs, H, S, S, D, units, outs,
-                                               name_dt, with_bias)
-            _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms (issued "
-                 f"one by one from Python {eager_ms:.4f} ms), plain "
-                 f"{plain:.4f} ms, SDPA backward (dQ, dK, dV together, "
-                 f"graph-timed) {lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}: "
-                 f"{flop} FLOP, {nbytes} B)")
-            _check_bound(f"{name} {what}", ms, bnd)
-            kern_ms += ms
+        # the plain version's dropout mask reads the seed on the host,
+        # which a graph cannot capture: with dropout it is timed eagerly
+        plain_iters = 50 if bs <= B else 10
+        bnd, by, flop, nbytes = _bwd_bound(bs, H, S, S, D, 10, "qkv",
+                                           name_dt, with_bias)
+        if route == "fused":
+            bwd_args = (q, k, v, o, lse, do, sm, False, rate, seed, bias)
+            ms = _cuda_ms(lambda: fa.flash_attention_bwd_fused_cuda(
+                *bwd_args))
+            eager_ms = _cuda_ms(lambda: fa.flash_attention_bwd_fused_cuda(
+                *bwd_args), graph=False)
+            plain = _cuda_ms(lambda: fa.flash_attention_bwd_reference(
+                *bwd_args), graph=not rate, iters=plain_iters)
+            split_ms = _cuda_ms(lambda: fa.flash_attention_bwd_split_cuda(
+                *bwd_args))
+            _log(f"[kernel] time flash_attention_bwd_fused {what}: kernel "
+                 f"{ms:.4f} ms (issued one by one from Python "
+                 f"{eager_ms:.4f} ms), plain {plain:.4f} ms, SDPA backward "
+                 f"(dQ, dK, dV together, graph-timed) {lib_ms:.4f} ms, "
+                 f"{ms / lib_ms:.3f}x SDPA; bound {bnd:.4f} ms ({by}: {flop} "
+                 f"FLOP, {nbytes} B = q, k, v, O, dO, lse read and dQ, dK, "
+                 f"dV written once), {bnd / ms:.1%} of it; the split route "
+                 f"on the same inputs (bwd_delta, dK/dV, dQ; graph-timed) "
+                 f"{split_ms:.4f} ms")
+            _check_bound(f"flash_attention_bwd_fused {what}", ms, bnd)
             row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain,
                        library_ms=lib_ms, bound_ms=bnd, bound_by=by,
-                       max_abs_err=errs[(name, dt)] if with_bias
-                       else lane_errs[name])
+                       split_route_ms=split_ms,
+                       max_abs_err=errs[("flash_attention_bwd_fused",
+                                         err_tag)])
+            timings.setdefault("flash_attention_bwd_fused", []).append(row)
             if not with_bias:  # the lane's row heads the kernel's entry
-                rows[name] = row
-            timings.setdefault(name, []).append(row)
-        bnd, by, flop, nbytes = _bwd_bound(bs, H, S, S, D, 10, "qkv", name_dt,
-                                           with_bias)
+                rows["flash_attention_bwd_fused"] = row
+            alone = f"the fused kernel alone {ms:.4f} ms"
+        else:
+            delta = fa.bwd_delta(o, do)
+            args = (q, k, v, do, lse, delta, sm, False, rate, seed, bias)
+            delta_ms = _cuda_ms(lambda: fa.bwd_delta(o, do))
+            kern_ms = 0.0
+            for name, cuda_fn, plain_fn, units, outs in split:
+                ms = _cuda_ms(lambda: cuda_fn(*args))
+                eager_ms = _cuda_ms(lambda: cuda_fn(*args), graph=False)
+                plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate,
+                                 iters=plain_iters)
+                kbnd, kby, kflop, kbytes = _bwd_bound(
+                    bs, H, S, S, D, units, outs, name_dt, with_bias)
+                _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms "
+                     f"(issued one by one from Python {eager_ms:.4f} ms), "
+                     f"plain {plain:.4f} ms, SDPA backward (dQ, dK, dV "
+                     f"together, graph-timed) {lib_ms:.4f} ms, bound "
+                     f"{kbnd:.4f} ms ({kby}: {kflop} FLOP, {kbytes} B)")
+                _check_bound(f"{name} {what}", ms, kbnd)
+                kern_ms += ms
+                row = dict(shape=what, ms=ms, eager_ms=eager_ms,
+                           plain_ms=plain, library_ms=lib_ms, bound_ms=kbnd,
+                           bound_by=kby, max_abs_err=errs[(name, dt)])
+                timings.setdefault(name, []).append(row)
+                if rate:  # the f32 train step's row heads the entry
+                    rows[name] = row
+            alone = (f"the two kernels alone {kern_ms:.4f} ms (they "
+                     f"execute 14·B·H·S·Sk·D FLOP, recomputing QK^T and "
+                     f"dO·V^T in each); bwd_delta alone {delta_ms:.4f} ms")
+            del delta, args
         _log(f"[kernel] time whole backward {what}, graph-timed as (forward "
-             f"+ backward) - forward: the port (bwd_delta, dK/dV, dQ) "
-             f"{port_ms:.4f} ms, SDPA {lib_ms:.4f} ms; the two kernels alone "
-             f"{kern_ms:.4f} ms; bwd_delta alone {delta_ms:.4f} ms; bound "
-             f"{bnd:.4f} ms ({by}: {flop} FLOP = "
-             f"10·B·H·S·Sk·D, {nbytes} B; the two kernels execute "
-             f"14·B·H·S·Sk·D, recomputing QK^T and dO·V^T in each)")
+             f"+ backward) - forward: the port ({route} route) "
+             f"{port_ms:.4f} ms, SDPA {lib_ms:.4f} ms; {alone}; bound "
+             f"{bnd:.4f} ms ({by}: {flop} FLOP = 10·B·H·S·Sk·D, {nbytes} B)")
         _check_bound(f"the port's whole backward {what}", port_ms, bnd)
-        if not with_bias:
-            rows["bwd_delta_ms"] = delta_ms
-        del q, k, v, do, o, lse, delta, args
+        del q, k, v, do, o, lse
     for name, ts in timings.items():
-        rows[name] = dict(rows[name], timings=ts)
+        rows[name] = dict(rows[name], timings=ts, max_abs_err_by_dtype={
+            str(tag).replace("torch.", ""): e
+            for (kern, tag), e in errs.items() if kern == name})
     return rows
 
 
 def _op_attention(q, k, v, heads, bias, rate, key, do):
     """fused_attention_qkv's kernel on the card on q, k, v [B, S, heads·D]
     and its backward by autograd against ``do`` → (route the op took, out,
-    dq, dk, dv, kernel launches of forward, dK/dV, dQ and dropout)."""
+    dq, dk, dv, kernel launches of forward, dK/dV, dQ, fused backward and
+    dropout)."""
     import torch
     from paddle_tpu_torch.ops import attention_ops
     from paddle_tpu_torch.ops.registry import OPS
@@ -746,8 +851,9 @@ def _plain_attention(q, k, v, heads, bias, rate, seed, do):
 def phase_attention_routes():
     """The attention ops' route on the card (ROADMAP C1): at hidden 768
     with 8 heads (D = 96, which the kernels run zero-padded to 128) the
-    op launches the forward, dK/dV and dQ kernels once each and agrees
-    with the plain versions, in f32 and bf16; a bias the kernels do not
+    op launches the forward once and its backward once, the dK/dV and dQ
+    kernels in f32 and the fused kernel in bf16 (S = 128), and agrees
+    with the plain versions; a bias the kernels do not
     take ([1, 1, 1, Sk]) takes the einsum path, launches no kernel, and
     its dropout mask is the flash kernels' (its output and grads agree
     with the plain flash version at the same seed); a head dim above 128
@@ -760,13 +866,15 @@ def phase_attention_routes():
     seed = rng.attention_seed(key)
     for hidden, heads, dt, rate, bias_kind, want_route, want in (
             (768, 8, torch.float32, 0.0, "key-padding", "flash",
-             (1, 1, 1, 0)),
+             (1, 1, 1, 0, 0)),
             (768, 8, torch.bfloat16, 0.0, "key-padding", "flash",
-             (1, 1, 1, 0)),
+             (1, 0, 0, 1, 0)),
             (768, 8, torch.float32, 0.1, "key-padding", "flash",
-             (1, 1, 1, 0)),
+             (1, 1, 1, 0, 0)),
+            (768, 8, torch.bfloat16, 0.1, "key-padding", "flash",
+             (1, 0, 0, 1, 0)),
             (768, 12, torch.float32, 0.1, "[1,1,1,Sk]", "einsum",
-             (0, 0, 0, 0))):
+             NO_KERNELS)):
         q, k, v, do = (torch.randn(2, S, hidden, generator=gen,
                                    device="cuda").to(dt) for _ in range(4))
         bias = _padding_bias(2, S, gen)[:, None, None, :]
@@ -783,7 +891,8 @@ def phase_attention_routes():
             for g, w in zip(got, want_vals))
         _log(f"[route] fused_attention_qkv hidden {hidden} heads {heads} "
              f"(D={hidden // heads}) {str(dt)[6:]} {bias_kind} bias dropout "
-             f"{rate}: route {route}, launches (forward, dK/dV, dQ, dropout) "
+             f"{rate}: route {route}, launches (forward, dK/dV, dQ, fused "
+             f"backward, dropout) "
              f"{launched}, against the plain flash version max|d| out "
              f"{errs[0]:.3e} dQ {errs[1]:.3e} dK {errs[2]:.3e} dV "
              f"{errs[3]:.3e} tol {tol:g} -> {'ok' if ok else 'FAIL'}")
@@ -803,7 +912,7 @@ def phase_attention_routes():
         else:
             raised = None
         launched = tuple(a - b for a, b in zip(_launch_counts(), before))
-        ok = raised is not None and launched == (0, 0, 0, 0)
+        ok = raised is not None and launched == NO_KERNELS
         _log(f"[route] fused_attention_qkv D={hidden // heads} "
              f"{str(dt)[6:]}: no kernel instance, raised "
              f"{err.__name__}: {raised}; launches {launched} -> "
@@ -916,8 +1025,8 @@ def _request(rng, bs, cfg):
 
 def _gate_run(exe, delta, want, what):
     """One Executor.run on the compiled path against the exact kernel
-    launches ``want`` (forward, dK/dV, dQ, dropout) of one request or
-    step. An
+    launches ``want`` (forward, dK/dV, dQ, fused backward, dropout) of one
+    request or step. An
     eager run launches them through the wrappers; a capture launches them
     through the wrappers into the graph, which must record exactly
     ``want``; a replay calls no wrapper and launches what its graph
@@ -941,7 +1050,8 @@ def _gate_run(exe, delta, want, what):
 
 
 def _device_kernel_counts(fn):
-    """(forward, dK/dV, dQ, dropout) kernels the card ran during ``fn()``,
+    """(forward, dK/dV, dQ, fused backward, dropout) kernels the card ran
+    during ``fn()``,
     counted by name in a torch.profiler trace. A trace that holds no
     device event at all fails: the gate would rest on the launches
     recorded at capture alone."""
@@ -964,9 +1074,11 @@ def _device_kernel_counts(fn):
 def _check_trace(counts, want, what):
     if counts != want:
         raise AssertionError(f"{what}: the card ran {counts} (forward, "
-                             f"dK/dV, dQ, dropout) kernels, want {want}")
+                             f"dK/dV, dQ, fused backward, dropout) kernels, "
+                             f"want {want}")
     _log(f"[graph] {what}: the trace of one replay holds {counts} "
-         "(forward, dK/dV, dQ, dropout) kernels, as recorded")
+         "(forward, dK/dV, dQ, fused backward, dropout) kernels, as "
+         "recorded")
 
 
 def _agree(what, got, ref):
@@ -1006,7 +1118,7 @@ def phase_slice(profile=False):
     from paddle_tpu_torch.models import bert
     cfg = bert.bert_base_config()
     L = cfg["layers"]
-    want = (L, 0, 0, 0)
+    want = (L, 0, 0, 0, 0)
     main, startup, enc = _build_encoder(cfg)
     n_attn = sum(op.type == "fused_attention_qkv"
                  for op in main.global_block().ops)
@@ -1143,7 +1255,7 @@ def phase_slice(profile=False):
         for bs in SERVE_BATCHES:
             _profile(exe, main, enc, scope, pools[bs][0], bs)
     exe.close()
-    return {"wrapper": launches, "executed": (n_runs * L, 0, 0, 0),
+    return {"wrapper": launches, "executed": (n_runs * L, 0, 0, 0, 0),
             "runs": dict(runs)}
 
 
@@ -1214,14 +1326,51 @@ def _launch_counts():
     from paddle_tpu_torch.ops.cuda import dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     return (fa.launch_count, fa.bwd_kv_launch_count, fa.bwd_q_launch_count,
-            dk.launch_count)
+            fa.bwd_fused_launch_count, dk.launch_count)
 
 
 def _reset_launch_counts():
     from paddle_tpu_torch.ops.cuda import dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     fa.launch_count = fa.bwd_kv_launch_count = fa.bwd_q_launch_count = 0
-    dk.launch_count = 0
+    fa.bwd_fused_launch_count = dk.launch_count = 0
+
+
+def _attention_route(main):
+    """The backward route (``bwd_route``: "fused" or "split") that the
+    attention ops of ``main`` take on the card, read from the program: the
+    shape and dtype of each op's Q and K inputs. (The AMP step's, whose
+    dtype its rewrite decides; the other paths' routes are constants.)"""
+    from paddle_tpu_torch.fluid import core
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    block = main.global_block()
+    routes = set()
+    for op in block.ops:
+        if op.type != "fused_attention_qkv":
+            continue
+        heads = op.attr("num_heads")
+        q, k = (block.var(op.input(n)[0]) for n in ("Q", "K"))
+        dt = core.dtype_to_torch(q.dtype)
+        routes.add(fa.bwd_route(
+            (1, heads, q.shape[1], q.shape[2] // heads),
+            (1, heads, k.shape[1], k.shape[2] // heads), dt))
+    if len(routes) != 1:
+        raise AssertionError(f"attention backward routes {routes}: want "
+                             "one for every attention op")
+    return routes.pop()
+
+
+def _step_want(ops, route, forwards=None):
+    """(forward, dK/dV, dQ, fused backward, dropout) launches of one
+    training step: each attention op launches the forward once and its
+    grad re-runs it under autograd (the generic grad; ``forwards``
+    overrides the count), whose backward launches the dK/dV and the dQ
+    kernel once each on the split route or the fused kernel once; each
+    dropout op launches the dropout kernel once (its grad is a mask
+    product: no re-draw)."""
+    L = sum(op.type == "fused_attention_qkv" for op in ops)
+    bwd = (L, L, 0) if route == "split" else (0, 0, L)
+    return (2 * L if forwards is None else forwards, *bwd, _dropout_ops(ops))
 
 
 def _dropout_ops(ops):
@@ -1247,14 +1396,10 @@ def phase_train(profile=False):
     if n_fwd != L or n_grad != L:
         raise AssertionError(f"{n_fwd} attention ops and {n_grad} grads, "
                              f"want {L} each")
-    # per step: each attention op launches the forward once; its grad op
-    # re-runs the forward under autograd (the generic grad), whose
-    # backward launches the dK/dV and the dQ kernel once each; each
-    # dropout op launches the dropout kernel once (its grad is a mask
-    # product: no re-draw)
-    want = (2 * L, L, L, _dropout_ops(ops))
-    if not want[3]:
-        raise AssertionError("the training step has no dropout op")
+    want = _step_want(ops, "split")
+    if want != TRAIN_STEP_WANT:
+        raise AssertionError(f"the training step: want {want} launches, "
+                             f"not {TRAIN_STEP_WANT}")
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
     # what earlier phases of this process left allocated (the cuBLAS
@@ -1723,10 +1868,8 @@ def phase_lane(profile=False):
     print(json.dumps(res), flush=True)
     ops = lane.main.global_block().ops
     L = sum(op.type == "fused_attention_qkv" for op in ops)
-    # each attention op launches the forward once and its grad re-runs it
-    # under autograd (the generic grad) before dK/dV and dQ; dropout 0
-    want = (2 * L, L, L, _dropout_ops(ops))
-    if want[3] or L != 12:
+    want = _step_want(ops, "fused")
+    if want != LANE_STEP_WANT or L != 12:
         raise AssertionError(f"bert lane: {L} attention ops, want {want} "
                              "launches a step")
     runs = _gate_lane(lane, wrapper, want, "bench lane")
@@ -1782,7 +1925,7 @@ def _bitwise(what, a, b, tag="[window]"):
         raise AssertionError(f"{what}: not bitwise equal")
 
 
-def phase_window(cfg=None):
+def phase_window():
     """Executor.run(n_steps=k) on the card: BERT-base at full width and
     depth, batch 2, dropout 0.1, input mask. A window of WINDOW_K distinct
     batches gives fetches and parameters bitwise equal to WINDOW_K single
@@ -1792,7 +1935,7 @@ def phase_window(cfg=None):
     import numpy as np
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
-    cfg = cfg or bert.bert_base_config()
+    cfg = bert.bert_base_config()
     main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
     params = main.global_block().all_parameters()
     rng = np.random.RandomState(SEED + 6)
@@ -1859,8 +2002,10 @@ def phase_window(cfg=None):
     _log(f"[window] same feeds, n_steps=2: compiled fetch "
          f"{shapes['compiled']} (stacked), interpreted {shapes['interpreted']}"
          " (the final step's) -> ok")
-    L = cfg["layers"]
-    want = (2 * L, L, L, _dropout_ops(main.global_block().ops))
+    want = _step_want(main.global_block().ops, "split")
+    if want != TRAIN_STEP_WANT:
+        raise AssertionError(f"window: want {want} launches a step, not "
+                             f"{TRAIN_STEP_WANT}")
     # the window's eager step and capture went through the wrappers, its
     # replays ran what the graph recorded
     graph = tuple(cb.graph_launches.get(k, 0) for k in KERNELS)
@@ -1909,10 +2054,10 @@ def _train_steps(exe, main, loss, scope, feeds, want, runs, what):
 
 
 def _remat_want(main, plan):
-    """(forward, dK/dV, dQ, dropout) launches of one remat step: each
-    attention op's forward once, again in its segment's span (autograd's
-    forward) or, outside the segments, in its generic grad; then dK/dV and
-    dQ once each."""
+    """(forward, dK/dV, dQ, fused backward, dropout) launches of one remat
+    step (bf16 operands, as the lane runs it): each attention op's forward
+    once, again in its segment's span (autograd's forward) or, outside the
+    segments, in its generic grad; then its backward once."""
     ops = main.global_block().ops
     L = sum(op.type == "fused_attention_qkv" for op in ops)
     in_segments = sum(op.type == "fused_attention_qkv"
@@ -1920,7 +2065,7 @@ def _remat_want(main, plan):
     in_spans = {id(op) for span in plan.spans if span for op in span}
     outside = sum(op.type == "fused_attention_qkv_grad" and id(op)
                   not in in_spans for op in ops)
-    return (L + in_segments + outside, L, L, _dropout_ops(ops))
+    return _step_want(ops, "fused", forwards=L + in_segments + outside)
 
 
 def phase_remat(plain, profile=False):
@@ -1952,7 +2097,7 @@ def phase_remat(plain, profile=False):
         raise AssertionError(f"remat lane: the plan did not engage: "
                              f"{fallback or res}")
     want = _remat_want(lane.main, plan)
-    if want != (24, 12, 12, 0):
+    if want != LANE_STEP_WANT:
         raise AssertionError(f"remat lane: want {want} launches a step")
     runs = _gate_lane(lane, wrapper, want, "remat lane")
     # the traced replay ran one step more
@@ -2054,8 +2199,10 @@ def phase_amp(f32, profile=False):
     main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT,
                                             use_amp=True)
     ops = main.global_block().ops
-    L = sum(op.type == "fused_attention_qkv" for op in ops)
-    want = (2 * L, L, L, _dropout_ops(ops))
+    # the route follows the dtype the AMP rewrite leaves the attention's
+    # operands in
+    route = _attention_route(main)
+    want = _step_want(ops, route)
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     gc.collect()
     torch.cuda.synchronize()
@@ -2095,7 +2242,8 @@ def phase_amp(f32, profile=False):
          f"p50 {f32['p50_ms']:.3f} ms, {f32['samples_s']:.2f} samples/s, "
          f"peak {f32['peak_gib']:.3f} GiB; losses {losses[0]:.4f} .. "
          f"{losses[-1]:.4f}")
-    _log(f"[amp] {n_runs} steps: {dict(runs)}; kernels a step {want} "
+    _log(f"[amp] {n_runs} steps: {dict(runs)}; attention backward route "
+         f"{route} (read from the program); kernels a step {want} "
          f"(graph and trace), through the wrappers {launches}")
     _log(f"[amp] repeated batch, {FALL_STEPS} steps: " +
          " ".join(f"{x:.4f}" for x in fall))
@@ -2259,8 +2407,10 @@ def phase_guard():
         fluid.core.set_flag("FLAGS_check_nan_inf", True)
         _skip_replay(cfg)
         main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
-        want = (2 * cfg["layers"], cfg["layers"], cfg["layers"],
-                _dropout_ops(main.global_block().ops))
+        want = _step_want(main.global_block().ops, "split")
+        if want != TRAIN_STEP_WANT:
+            raise AssertionError(f"guard: want {want} launches a step, not "
+                                 f"{TRAIN_STEP_WANT}")
         exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
         exe.run(startup, scope=scope)
         rng = np.random.RandomState(SEED + 2)
@@ -2477,7 +2627,7 @@ def _resnet_falls():
     runs = collections.Counter()
     with _lane_flags():
         _, fall = _train_steps(exe, main, fetches[0], scope,
-                               [feed] * RESNET_FALL_STEPS, (0, 0, 0, 0),
+                               [feed] * RESNET_FALL_STEPS, NO_KERNELS,
                                runs, "a ResNet-50 step")
     exe.close()
     ok = fall[-1] < fall[0] and np.mean(fall[-3:]) < np.mean(fall[:3])
@@ -2627,7 +2777,7 @@ def _lenet_on_the_card():
         f"LeNet conv net batch {LENET_BATCH}")
     runs = collections.Counter()
     _, card = _train_steps(exe, main, loss, scope,
-                           [feed] * (LENET_STEPS - 1), (0, 0, 0, 0), runs,
+                           [feed] * (LENET_STEPS - 1), NO_KERNELS, runs,
                            "a LeNet step")
     exe.close()
     cpu = [float(cpu_exe.run(main, feed=feed, fetch_list=[loss],
@@ -2662,7 +2812,7 @@ def phase_resnet(profile=False):
     kernel and idle share."""
     import torch
     from paddle_tpu_torch import bench
-    want = (0, 0, 0, 0)
+    want = NO_KERNELS
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True  # torch's default
     try:
@@ -2747,12 +2897,10 @@ def main(argv=None) -> int:
     # and captures through the wrappers, each replay as its graph recorded
     # and as the profiler counted); wrapper_calls_by_path: the wrappers'
     # own counts, which a replay does not move. The heading numbers of
-    # each flash kernel are at the bench lane's shape (bf16, batch 256, no
-    # bias); "timings" holds every shape timed.
-    _log(f"[lane] bwd_delta at the lane's shape: "
-         f"{bwd_rows['bwd_delta_ms']:.4f} ms a call, x12 = "
-         f"{12 * bwd_rows['bwd_delta_ms']:.3f} ms of the lane's "
-         f"{paths['lane']['bert']['step_ms']} ms step")
+    # the forward and the fused backward are at the bench lane's shape
+    # (bf16, batch 256, no bias), those of the dK/dV and dQ kernels at the
+    # f32 training step's (batch 32, bias, dropout 0.1); "timings" holds
+    # every shape timed.
     src = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2763,6 +2911,9 @@ def main(argv=None) -> int:
                 replaces + "514", bwd_rows["flash_attention_bwd_kv"]),
                ("flash_attention_bwd_q", "flash_attention_bwd.cu",
                 replaces + "543", bwd_rows["flash_attention_bwd_q"]),
+               # both pallas_calls of _pallas_bwd and its delta prologue
+               ("flash_attention_bwd_fused", "flash_attention_bwd_fused.cu",
+                replaces + "480", bwd_rows["flash_attention_bwd_fused"]),
                # no Pallas kernel: jax.random.bernoulli in an XLA fusion
                ("dropout_fwd", "dropout.cu", "paddle_tpu/ops/nn_ops.py:263",
                 drop_row)]
@@ -2775,7 +2926,8 @@ def main(argv=None) -> int:
             wrapper_calls_by_path={p: v["wrapper"][i]
                                    for p, v in paths.items()},
             **{k: r[k] for k in keys},
-            **({"timings": r["timings"]} if "timings" in r else {})))
+            **{k: r[k] for k in ("max_abs_err_by_dtype", "timings")
+               if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,13 @@ the forward (`_fwd_kernel` / `_pallas_fwd`, :219 / :298) is
 (`_bwd_kv_kernel`, pallas_call :514) and dQ kernel (`_bwd_q_kernel`,
 pallas_call :543) are ``csrc/flash_attention_bwd.cu``. All three are CUDA
 C++ for sm_90a that run their products on the tensor cores (``mma.sync``:
-split TF32 for f32, bf16 as it is; ``csrc/tc_common.cuh``), built at first
-use by ``build.py``; each source's header says what bounds it and how it
-is laid out. Both sources share the counter-hash dropout mask
+split TF32 for f32, bf16 as it is; ``csrc/tc_common.cuh``). Where one block
+holds a (batch, head)'s whole key range in bf16 (S and Sk up to 128, every
+BERT path), one kernel takes the place of both backward kernels and of the
+delta prologue (:492): ``csrc/flash_attention_bwd_fused.cu``, on wgmma and
+TMA; ``bwd_route`` picks it by shape and dtype alone. Every source is built
+at first use by ``build.py``; each source's header says what bounds it and
+how it is laid out. All share the counter-hash dropout mask
 (``csrc/keep_mask.cuh``), so the backward regenerates the forward's mask.
 
 Dispatch is by the tensors' device, never by a fallback: a CUDA tensor goes
@@ -34,9 +38,9 @@ on the card.
 is (q, k, v, o, lse, seed, bias); the bias gets a zero grad and the seed
 none.
 
-``launch_count``, ``bwd_kv_launch_count`` and ``bwd_q_launch_count`` count
-each kernel's launches: a wrapper adds one where it launches its kernel
-and nowhere else.
+``launch_count``, ``bwd_kv_launch_count``, ``bwd_q_launch_count`` and
+``bwd_fused_launch_count`` count each kernel's launches: a wrapper adds one
+where it launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -52,10 +56,14 @@ SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 KERNEL_SOURCE = "flash_attention_fwd.cu"
 BWD_KERNEL_SOURCE = "flash_attention_bwd.cu"
+BWD_FUSED_SOURCE = "flash_attention_bwd_fused.cu"
+# the fused backward holds a (batch, head)'s query rows and keys in one block
+FUSED_MAX_LEN = 128
 
 launch_count = 0
 bwd_kv_launch_count = 0
 bwd_q_launch_count = 0
+bwd_fused_launch_count = 0
 
 
 def launch_counts():
@@ -64,7 +72,8 @@ def launch_counts():
     these counts around a capture to know what each replay launches."""
     return {"flash_attention_fwd": launch_count,
             "flash_attention_bwd_kv": bwd_kv_launch_count,
-            "flash_attention_bwd_q": bwd_q_launch_count}
+            "flash_attention_bwd_q": bwd_q_launch_count,
+            "flash_attention_bwd_fused": bwd_fused_launch_count}
 
 
 _M32 = 0xFFFFFFFF
@@ -242,6 +251,8 @@ _SIGNATURES = {
     KERNEL_SOURCE: {"paddle_flash_attention_fwd": [_PTR] * 7 + _TAIL},
     BWD_KERNEL_SOURCE: {"paddle_flash_attention_bwd_kv": [_PTR] * 10 + _TAIL,
                         "paddle_flash_attention_bwd_q": [_PTR] * 9 + _TAIL},
+    BWD_FUSED_SOURCE: {
+        "paddle_flash_attention_bwd_fused": [_PTR] * 11 + _TAIL},
 }
 _libs = {}
 
@@ -277,6 +288,19 @@ def kernel_head_dim(d: int) -> Optional[int]:
         if d <= dp:
             return dp
     return None
+
+
+def bwd_route(q_shape, k_shape, dtype) -> str:
+    """Which backward runs on the card for q [B, H, S, D], k [B, H, Sk, D]
+    of ``dtype``: "fused" (one kernel: delta, dQ, dK and dV) for bf16 with
+    S and Sk up to FUSED_MAX_LEN at a head dim the kernels take, else
+    "split" (delta, then the dK/dV and the dQ kernels). A choice by shape
+    between two kernels, never a fallback: what neither takes raises in
+    the wrapper."""
+    S, Sk, d = q_shape[2], k_shape[2], q_shape[3]
+    fused = (dtype == torch.bfloat16 and S <= FUSED_MAX_LEN
+             and Sk <= FUSED_MAX_LEN and kernel_head_dim(d) is not None)
+    return "fused" if fused else "split"
 
 
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -375,15 +399,18 @@ def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
     return o, lse
 
 
-def _check_bwd_inputs(q, k, v, do, lse, delta):
+def _check_bwd_inputs(q, k, v, like_q, row_stats):
+    """``like_q``: name → a tensor that must be contiguous like q (dO, O);
+    ``row_stats``: name → a contiguous f32 [B·H, S] tensor (lse, delta)."""
     _check_cuda_inputs(q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
-            or not do.is_contiguous():
-        raise ValueError(f"flash_attention backward: dO must be contiguous "
-                         f"like q {tuple(q.shape)} {q.dtype}, got "
-                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    for name, t in like_q.items():
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"contiguous like q {tuple(q.shape)} {q.dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
     rows = (q.shape[0] * q.shape[1], q.shape[2])
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in row_stats.items():
         if tuple(t.shape) != rows or t.dtype != torch.float32 \
                 or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"flash_attention backward: {name} must be "
@@ -396,7 +423,7 @@ def flash_attention_bwd_kv_cuda(q, k, v, do, lse, delta, sm_scale,
                                 dropout_seed=None, bias=None):
     """Launch the dK/dV kernel on the current stream: → (dk, dv)."""
     global bwd_kv_launch_count
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+    _check_bwd_inputs(q, k, v, {"dO": do}, {"lse": lse, "delta": delta})
     d, dp = q.shape[3], kernel_head_dim(q.shape[3])
     if dp != d:
         dk, dv = flash_attention_bwd_kv_cuda(
@@ -425,7 +452,7 @@ def flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale,
                                dropout_seed=None, bias=None):
     """Launch the dQ kernel on the current stream: → dq."""
     global bwd_q_launch_count
-    _check_bwd_inputs(q, k, v, do, lse, delta)
+    _check_bwd_inputs(q, k, v, {"dO": do}, {"lse": lse, "delta": delta})
     d, dp = q.shape[3], kernel_head_dim(q.shape[3])
     if dp != d:
         return flash_attention_bwd_q_cuda(
@@ -448,11 +475,49 @@ def flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale,
     return dq
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale, causal=False,
-                             dropout_rate=0.0, dropout_seed=None, bias=None):
-    """The backward on the card: delta, then the dK/dV and the dQ kernels
-    → (dq, dk, dv). A head dim off the instances is padded once for both
-    kernels; delta is taken from the unpadded O and dO (the padded
+def flash_attention_bwd_fused_cuda(q, k, v, o, lse, do, sm_scale,
+                                   causal=False, dropout_rate=0.0,
+                                   dropout_seed=None, bias=None):
+    """Launch the fused backward kernel on the current stream (bf16, S and
+    Sk up to FUSED_MAX_LEN): delta, dQ, dK and dV in one launch → (dq, dk,
+    dv). A head dim off the instances is padded with zero columns, O and
+    dO too (they add zeros to delta)."""
+    global bwd_fused_launch_count
+    _check_bwd_inputs(q, k, v, {"O": o, "dO": do}, {"lse": lse})
+    if bwd_route(q.shape, k.shape, q.dtype) != "fused":
+        raise ValueError(f"flash_attention fused backward: takes bf16 with "
+                         f"S, Sk <= {FUSED_MAX_LEN}, got q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} {q.dtype}")
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    if dp != d:
+        grads = flash_attention_bwd_fused_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v, o)), lse,
+            pad_head_dim(do, dp), sm_scale, causal, dropout_rate,
+            dropout_seed, bias)
+        return tuple(g[..., :d].contiguous() for g in grads)
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed,
+                                   q.shape[0], k.shape[2], q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.shape[2] == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lib = _library(BWD_FUSED_SOURCE)
+    with torch.cuda.device(q.device):
+        rc = lib.paddle_flash_attention_bwd_fused(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), _ptr(bias), _ptr(seed),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention fused backward")
+    bwd_fused_launch_count += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_split_cuda(q, k, v, o, lse, do, sm_scale,
+                                   causal=False, dropout_rate=0.0,
+                                   dropout_seed=None, bias=None):
+    """The split route on the card: delta, then the dK/dV and the dQ
+    kernels → (dq, dk, dv). A head dim off the instances is padded once for
+    both kernels; delta is taken from the unpadded O and dO (the padded
     columns would add zeros)."""
     delta = bwd_delta(o, do)
     d, dp = q.shape[3], kernel_head_dim(q.shape[3])
@@ -467,6 +532,17 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale, causal=False,
     if padded:
         return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale, causal=False,
+                             dropout_rate=0.0, dropout_seed=None, bias=None):
+    """The backward on the card → (dq, dk, dv), by ``bwd_route``: the fused
+    kernel or the split route."""
+    fn = (flash_attention_bwd_fused_cuda
+          if bwd_route(q.shape, k.shape, q.dtype) == "fused"
+          else flash_attention_bwd_split_cuda)
+    return fn(q, k, v, o, lse, do, sm_scale, causal, dropout_rate,
+              dropout_seed, bias)
 
 
 # --------------------------------------------------------------------------
@@ -502,8 +578,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     """``_flash_pallas``'s custom vjp (:639-666) as an autograd Function:
     apply(q, k, v, seed, bias, sm_scale, causal, dropout_rate) → (o, lse),
     lse not differentiable. The residual is (q, k, v, o, lse, seed, bias);
-    the backward runs the dK/dV and dQ kernels (or their plain version on
-    the CPU) with the forward's seed, so the dropout mask it regenerates is
+    the backward runs the backward kernels (or their plain version on the
+    CPU) with the forward's seed, so the dropout mask it regenerates is
     the forward's. The bias gets a zero grad, the seed none."""
 
     # forward(ctx, ...) and not setup_context: with setup_context torch

@@ -246,8 +246,10 @@ def test_kernel_sources_include_only_headers_of_the_package(source):
      "bytes"),
     ("_bwd_bound", (32, 12, 128, 128, 64, 6, "q", "bfloat16"), 0.0095,
      "bytes"),
-    ("_bwd_bound", (32, 12, 128, 128, 64, 10, "qkv"), 0.0264, "bytes"),
-    ("_bwd_bound", (32, 12, 128, 128, 64, 10, "qkv", "bfloat16"), 0.0133,
+    # the whole backward reads q, k, v, O, dO and lse: 8 tensors of q's
+    # size moved, 100,876,288 B in f32
+    ("_bwd_bound", (32, 12, 128, 128, 64, 10, "qkv"), 0.0301, "bytes"),
+    ("_bwd_bound", (32, 12, 128, 128, 64, 10, "qkv", "bfloat16"), 0.0151,
      "bytes"),
 ])
 def test_chip_smoke_bounds(fn, args, ms, by):

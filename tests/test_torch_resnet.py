@@ -34,6 +34,21 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "golden_lenet_trajectory.npz")
 
 
+@pytest.fixture(autouse=True)
+def _default_flags_seed():
+    """The TPU package's startup draws its parameters from
+    ``program.random_seed or FLAGS_seed``, and these programs leave their
+    seed at 0. ``paddle.manual_seed`` sets FLAGS_seed for the whole
+    process (tests/test_paddle20_api.py calls it), so a test file that ran
+    earlier in the same worker changed the weights these tests start from.
+    Each test here runs at the flag's default, and the flag is put back
+    afterwards."""
+    old = jcore.globals_["FLAGS_seed"]
+    jcore.globals_["FLAGS_seed"] = 0
+    yield
+    jcore.globals_["FLAGS_seed"] = old
+
+
 def _types(program):
     return [op.type for op in program.global_block().ops]
 
