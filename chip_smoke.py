@@ -5,8 +5,11 @@ Phases, each fatal on failure:
   1. build  — compile every CUDA kernel from csrc/, one nvcc per source,
               all started together.
   2. kernel — hold each kernel against its plain PyTorch version on the
-              card: the forward (O and lse); the backward (dQ, dK, dV)
-              by the route bwd_route picks, the fused kernel (bf16, S and
+              card: the forward (O and lse) by the route fwd_route picks,
+              the whole-block kernel (bf16, S and Sk up to 128, each case
+              run twice and bitwise alike) or the tiled one (f32, and S
+              or Sk above 128); the backward (dQ, dK, dV)
+              by the route bwd_route picks (the same predicate), the fused kernel (bf16, S and
               Sk up to 128: delta, dQ, dK and dV in one launch, each case
               run twice and bitwise alike) or the dK/dV and dQ kernels
               (f32, and S or Sk above 128, in either dtype); and the
@@ -22,7 +25,9 @@ Phases, each fatal on failure:
               PyTorch library call as a yardstick
               (scaled_dot_product_attention, and its backward): the
               forward at the served shape (batch 8), the trained one
-              (batch 32, also with dropout 0.1) and the lane's; the
+              (batch 32, also with dropout 0.1, and bf16 with dropout
+              0.1) and the lane's, a whole-block time beside the tiled
+              kernel's on the same inputs; the
               dK/dV and dQ kernels at batch 32 in f32 (also with dropout
               0.1), the fused kernel at batch 32 in bf16 with the bias and
               at the lane's shape, beside the split route's whole
@@ -35,13 +40,14 @@ Phases, each fatal on failure:
               shape beside torch.native_dropout; a kernel timed faster
               than its bound fails. Then the
               attention op's route: at D = 96 the kernels (the forward
-              once, the backward once: dK/dV and dQ in f32, the fused
-              kernel in bf16; against the plain versions); a
+              once, the backward once: the tiled forward, dK/dV and dQ
+              in f32, the whole-block forward and the fused kernel in
+              bf16; against the plain versions); a
               bias the kernels do not take, the einsum path with the flash
               kernels' dropout mask; D = 192 and f16, which have no kernel
               instance, raise and launch nothing. Every launch gate below
-              counts (forward, dK/dV, dQ, fused backward, dropout)
-              kernels.
+              counts (tiled forward, dK/dV, dQ, fused backward, dropout,
+              whole forward) kernels.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -69,7 +75,7 @@ Phases, each fatal on failure:
               step compiled, a finite loss every step, exact kernel
               launches per step (12 forward + 12 forward re-run by the
               generic grad, 12 dK/dV, 12 dQ (f32: the split route), one
-              dropout launch per dropout op: (24, 12, 12, 0, 37); for
+              dropout launch per dropout op: (24, 12, 12, 0, 37, 0); for
               replays as recorded in the graph and in a
               profiler trace, which must hold device events), dropout
               masks that
@@ -99,16 +105,17 @@ Phases, each fatal on failure:
               steps as one window after a warm one, and the MNIST MLP at
               batch 256, 60 steps; each prints its JSON line. Checks: a
               finite loss, the compiled path, a timed window of replays
-              only, and (24, 0, 0, 12, 0) kernels (bf16 at S = 128: the
-              fused backward) in a profiler trace of one replayed BERT
+              only, and (0, 0, 0, 12, 0, 24) kernels (bf16 at S = 128:
+              the whole-block forward and the fused backward) in a
+              profiler trace of one replayed BERT
               step. Then
               each lane's window again with FLAGS_feed_device_cache on
               and off in turn (every feed a cache hit when on).
   7. remat  — the bert lane again with PADDLE_TPU_BENCH_RECOMPUTE=1
               (per-layer checkpoints, the remat schedule in the graph),
               its JSON line printed. Checks: the plan engaged with no
-              fallback warning, a timed window of replays only, (24, 0,
-              0, 12, 0) kernels a step from the graph and a trace, peak
+              fallback warning, a timed window of replays only, (0, 0,
+              0, 12, 0, 24) kernels a step from the graph and a trace, peak
               memory below the plain lane's of this run, the last loss
               within 2e-5 relative of the plain lane's.
   8. amp    — build_bert_pretrain_program(use_amp=True): bf16 products,
@@ -117,7 +124,7 @@ Phases, each fatal on failure:
               samples/s, peak memory beside the train phase's). Checks:
               the kernels a step (wrappers, graph, trace) that the route
               of the attention's dtype, read from the program, gives
-              ((24, 12, 12, 0, 37): its Q, K, V stay f32), a
+              ((24, 12, 12, 0, 37, 0): its Q, K, V stay f32), a
               falling loss on a repeated batch, and 3 steps at batch 2
               compiled against interpreted bitwise, with f32 Q/K/V.
   9. guard  — the numeric fault guard: the TPU package's dynamic loss
@@ -226,20 +233,26 @@ KINK_L2_TOL = 5e-2           # conv-net grads, card vs CPU, relative L2:
                              # H100 and the CPU
 LENET_BATCH = 64             # the conv net of models/mnist.py
 LENET_STEPS = 5
-# every launch gate below counts these kernels, in this order: (forward,
-# dK/dV, dQ, fused backward, dropout)
+# every launch gate below counts these kernels, in this order: (tiled
+# forward, dK/dV, dQ, fused backward, dropout, whole forward); no name of
+# DEVICE_KERNELS is a substring of another (a trace counts by substring)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
            "flash_attention_bwd_q", "flash_attention_bwd_fused",
-           "dropout_fwd")
+           "dropout_fwd", "flash_attention_fwd_whole")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
                   "flash_bwd_q_kernel", "flash_bwd_fused_kernel",
-                  "dropout_fwd_kernel")
+                  "dropout_fwd_kernel", "flash_fwd_whole_kernel")
+GATE_NAMES = ("(tiled forward, dK/dV, dQ, fused backward, dropout, whole "
+              "forward)")
 NO_KERNELS = (0,) * len(KERNELS)
-LANE_STEP_WANT = (24, 0, 0, 12, 0)  # bench's bert lane step, plain or remat:
-                                    # bf16, the fused backward, no dropout
-TRAIN_STEP_WANT = (24, 12, 12, 0, 37)  # the f32 BERT-base pretraining step
-                                       # (train, window, guard): the split
-                                       # kernels, dropout 0.1
+LANE_STEP_WANT = (0, 0, 0, 12, 0, 24)  # bench's bert lane step, plain or
+                                       # remat: bf16, the whole-block
+                                       # forward and the fused backward, no
+                                       # dropout
+TRAIN_STEP_WANT = (24, 12, 12, 0, 37, 0)  # the f32 BERT-base pretraining
+                                          # step (train, window, guard): the
+                                          # tiled forward, the split
+                                          # kernels, dropout 0.1
 DROPOUT_TOL = 1e-6            # dropout kernel vs plain, relative: the same
                               # f32 product, so expected bit for bit
 DROPOUT_SETS = 4              # input sets cycled when timing dropout: 4 x
@@ -374,8 +387,8 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from paddle_tpu_torch.ops.cuda import build, dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    sources = (fa.KERNEL_SOURCE, fa.BWD_KERNEL_SOURCE, fa.BWD_FUSED_SOURCE,
-               dk.KERNEL_SOURCE)
+    sources = (fa.KERNEL_SOURCE, fa.FWD_WHOLE_SOURCE, fa.BWD_KERNEL_SOURCE,
+               fa.BWD_FUSED_SOURCE, dk.KERNEL_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -426,94 +439,132 @@ def _check(name, got, want, tol):
 
 
 def phase_kernel():
+    """The forward kernels against the plain version on the card, each
+    case by the route fwd_route picks: the whole-block kernel (bf16, S and
+    Sk up to 128; every case run twice and bitwise alike) or the tiled one
+    (f32, and S or Sk above 128 in bf16; each kernel must meet every dtype
+    it has an instance of). Then each forward timed at the served shape
+    (batch 8, f32 and bf16, bias), the trained one (batch 32, f32 without
+    and with dropout 0.1, bf16 with dropout 0.1) and the bench lane's
+    (batch 256, bf16, no bias), beside its bound, its plain version and
+    SDPA; a whole-block timing also beside the tiled kernel on the same
+    inputs. → {kernel name: its heading row, with "timings" (every shape
+    timed) and "max_abs_err_by_dtype"}: the tiled kernel's heading row is
+    the f32 train step's (batch 32, dropout 0.1), the whole-block one's the
+    lane's."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sm = 0.125
-    errs = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    tiled, whole = "flash_attention_fwd", "flash_attention_fwd_whole"
+    errs = {}  # (kernel, dtype or tag) -> max |kernel - plain| over cases
 
-    def both(q, k, v, scale, causal=False, rate=0.0, seed=None, bias=None):
-        got = fa.flash_attention_cuda(q, k, v, scale, causal, rate, seed,
-                                      bias)
-        want = fa.flash_attention_reference(q, k, v, scale, causal, rate,
-                                            seed, bias)
+    def both(name, q, k, v, scale, tol, causal=False, rate=0.0, seed=None,
+             bias=None, tag=None):
+        args = (q, k, v, scale, causal, rate, seed, bias)
+        route = fa.fwd_route(q.shape, k.shape, q.dtype)
+        got = fa.flash_attention_cuda(*args)
+        want = fa.flash_attention_reference(*args)
         torch.cuda.synchronize()
-        return got, want
+        err = _check(f"{name} {str(q.dtype)[6:]} ({route})", got, want, tol)
+        if route == "whole":
+            again = fa.flash_attention_cuda(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"the whole-block forward's rerun "
+                                     f"differs: {name}")
+        key = (whole if route == "whole" else tiled, tag or q.dtype)
+        errs[key] = max(errs.get(key, 0.0), err)
+        return got
 
-    # the served shape: BERT-base, batch 8, key-padding bias
-    B, H, D = 8, 12, 64
-    for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        q, k, v = _qkv(B, H, S, S, D, dt, gen)
-        bias = _padding_bias(B, S, gen)
-        errs[str(dt)] = _check(f"bert B={B} H={H} S={S} D={D} {dt} bias",
-                               *both(q, k, v, sm, bias=bias), tol)
     seed = torch.tensor([1234], dtype=torch.int32, device="cuda")
-    q, k, v = _qkv(TRAIN_BATCH, H, S, S, D, torch.float32, gen)
-    _check(f"bert B={TRAIN_BATCH} H={H} S={S} D={D} f32 bias dropout 0.1",
-           *both(q, k, v, sm, rate=0.1, seed=seed,
-                 bias=_padding_bias(TRAIN_BATCH, S, gen)), F32_TOL)
-    # ragged, causal, dead row, dropout, other head dims (f32)
-    f32 = torch.float32
-    q, k, v = _qkv(2, 3, 200, 77, 64, f32, gen)
-    _check("ragged S=200 Sk=77 bias", *both(
-        q, k, v, sm, bias=_padding_bias(2, 77, gen)), F32_TOL)
-    q, k, v = _qkv(2, 3, 200, 200, 64, f32, gen)
-    _check("causal ragged S=Sk=200", *both(q, k, v, sm, causal=True),
-           F32_TOL)
-    q, k, v = _qkv(2, 3, 256, 256, 64, f32, gen)
-    dead = torch.zeros(2, 256, device="cuda")
-    dead[0] = -1e30
-    got, want = both(q, k, v, sm, bias=dead)
-    _check("dead row (bias -1e30 on every key of batch 0)", got, want,
-           F32_TOL)
-    if not (got[0][0].eq(0).all() and got[1][:3].eq(1e30).all()):
-        raise AssertionError("dead rows must write O = 0 and lse = +1e30")
-    _check("dropout 0.1 seed 1234 causal bias", *both(
-        q, k, v, sm, causal=True, rate=0.1, seed=seed,
-        bias=_padding_bias(2, 256, gen)), F32_TOL)
+    B, H, D = 8, 12, 64
+    # the served shape (batch 8) and the trained one with dropout (batch
+    # 32), key-padding bias
+    for dt, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+        q, k, v = _qkv(B, H, S, S, D, dt, gen)
+        both(f"bert B={B} H={H} S={S} D={D} bias", q, k, v, sm, tol,
+             bias=_padding_bias(B, S, gen))
+        q, k, v = _qkv(TRAIN_BATCH, H, S, S, D, dt, gen)
+        both(f"bert B={TRAIN_BATCH} H={H} S={S} D={D} bias dropout 0.1", q,
+             k, v, sm, tol, rate=0.1, seed=seed,
+             bias=_padding_bias(TRAIN_BATCH, S, gen))
+    # ragged, causal, dead row, dropout: f32 beyond 128 (tiled), bf16 on
+    # both sides of 128
+    for dt, tol, sq, sk in ((f32, F32_TOL, 200, 77), (bf16, BF16_TOL, 200, 77),
+                            (bf16, BF16_TOL, 100, 77)):
+        q, k, v = _qkv(2, 3, sq, sk, 64, dt, gen)
+        both(f"ragged S={sq} Sk={sk} bias", q, k, v, sm, tol,
+             bias=_padding_bias(2, sk, gen))
+    for dt, tol, n in ((f32, F32_TOL, 200), (bf16, BF16_TOL, S)):
+        q, k, v = _qkv(2, 3, n, n, 64, dt, gen)
+        both(f"causal S=Sk={n}", q, k, v, sm, tol, causal=True)
+    for dt, tol, n in ((f32, F32_TOL, 256), (bf16, BF16_TOL, 256),
+                       (bf16, BF16_TOL, S)):
+        q, k, v = _qkv(2, 3, n, n, 64, dt, gen)
+        dead = torch.zeros(2, n, device="cuda")
+        dead[0] = -1e30
+        got = both(f"dead row S=Sk={n} (bias -1e30 on every key of batch 0)",
+                   q, k, v, sm, tol, bias=dead)
+        if not (got[0][0].eq(0).all() and got[1][:3].eq(1e30).all()):
+            raise AssertionError("dead rows must write O = 0 and lse = +1e30")
+        both(f"dropout 0.1 seed 1234 causal bias S=Sk={n}", q, k, v, sm, tol,
+             causal=True, rate=0.1, seed=seed, bias=_padding_bias(2, n, gen))
+    q, k, v = _qkv(3, 2, 1, 1, 64, bf16, gen)
+    both("S=Sk=1", q, k, v, sm, BF16_TOL)
     # head dims off the kernels' instances (40, 96) run zero-padded
-    for d in (8, 16, 32, 40, 96, 128):
+    for d in (8, 16, 32, 40, 64, 96, 128):
         q, k, v = _qkv(2, 2, 96, 80, d, f32, gen)
-        _check(f"head dim {d}", *both(q, k, v, d ** -0.5,
-                                      bias=_padding_bias(2, 80, gen)),
-               F32_TOL)
-        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        _check(f"head dim {d} bf16", *both(q, k, v, d ** -0.5), BF16_TOL)
+        both(f"head dim {d} S=96 Sk=80 bias", q, k, v, d ** -0.5, F32_TOL,
+             bias=_padding_bias(2, 80, gen))
+        q, k, v = (t.to(bf16) for t in (q, k, v))
+        both(f"head dim {d} S=96 Sk=80", q, k, v, d ** -0.5, BF16_TOL)
+        q, k, v = _qkv(2, 2, 200, 144, d, bf16, gen)
+        both(f"head dim {d} S=200 Sk=144 bias", q, k, v, d ** -0.5, BF16_TOL,
+             bias=_padding_bias(2, 144, gen))
     # B·H above 65535, gridDim.y's limit: one linear grid takes it
-    q, k, v = _qkv(BIG_BH[0], BIG_BH[1], 16, 16, 64, f32, gen)
-    _check(f"B*H = {BIG_BH[0] * BIG_BH[1]} S=Sk=16 bias dropout 0.1", *both(
-        q, k, v, sm, rate=0.1, seed=seed,
-        bias=_padding_bias(BIG_BH[0], 16, gen)), F32_TOL)
+    for dt, tol in ((f32, F32_TOL), (bf16, BF16_TOL)):
+        q, k, v = _qkv(BIG_BH[0], BIG_BH[1], 16, 16, 64, dt, gen)
+        both(f"B*H = {BIG_BH[0] * BIG_BH[1]} S=Sk=16 bias dropout 0.1", q, k,
+             v, sm, tol, rate=0.1, seed=seed,
+             bias=_padding_bias(BIG_BH[0], 16, gen))
     del q, k, v
     # the bench lane's shape
-    q, k, v = _qkv(LANE_BATCH, H, S, S, D, torch.bfloat16, gen)
-    errs["lane"] = _check(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} "
-                          "bf16 no bias", *both(q, k, v, sm), BF16_TOL)
+    q, k, v = _qkv(LANE_BATCH, H, S, S, D, bf16, gen)
+    both(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} no bias", q, k, v, sm,
+         BF16_TOL, tag="lane")
     del q, k, v
+    if not {(tiled, f32), (tiled, bf16), (whole, bf16)} <= set(errs):
+        raise AssertionError(f"forward cases by kernel and dtype: "
+                             f"{sorted(map(str, errs))}")
 
     # time the served shape (batch 8, f32 and bf16), the trained one
-    # (batch 32, f32, also with dropout 0.1) and the bench lane's (batch
-    # 256, bf16, no bias), SDPA beside each
-    rows = []
+    # (batch 32: f32, also with dropout 0.1; bf16 with dropout 0.1) and
+    # the bench lane's (batch 256, bf16, no bias), SDPA beside each, the
+    # tiled kernel beside the whole-block one
+    timings = {tiled: [], whole: []}
+    heads = {}
     for bs, dt, rate, with_bias in (
-            (B, torch.float32, 0.0, True), (B, torch.bfloat16, 0.0, True),
-            (TRAIN_BATCH, torch.float32, 0.0, True),
-            (TRAIN_BATCH, torch.float32, 0.1, True),
-            (LANE_BATCH, torch.bfloat16, 0.0, False)):
+            (B, f32, 0.0, True), (B, bf16, 0.0, True),
+            (TRAIN_BATCH, f32, 0.0, True), (TRAIN_BATCH, f32, 0.1, True),
+            (TRAIN_BATCH, bf16, 0.1, True), (LANE_BATCH, bf16, 0.0, False)):
         q, k, v = _qkv(bs, H, S, S, D, dt, gen)
         bias = _padding_bias(bs, S, gen) if with_bias else None
         mask = None if bias is None else bias[:, None, None, :].to(dt)
-
-        def kernel():
-            return fa.flash_attention_cuda(q, k, v, sm, False, rate, seed,
-                                           bias)
-        ms = _cuda_ms(kernel)
-        eager_ms = _cuda_ms(kernel, graph=False)
+        args = (q, k, v, sm, False, rate, seed, bias)
+        kern = whole if fa.fwd_route(q.shape, k.shape, dt) == "whole" \
+            else tiled
+        fn = (fa.flash_attention_fwd_whole_cuda if kern == whole
+              else fa.flash_attention_fwd_tiled_cuda)
+        ms = _cuda_ms(lambda: fn(*args))
+        eager_ms = _cuda_ms(lambda: fn(*args), graph=False)
+        tiled_ms = (_cuda_ms(lambda: fa.flash_attention_fwd_tiled_cuda(*args))
+                    if kern == whole else ms)
         # the plain version's dropout mask reads the seed on the host,
         # which a graph cannot capture: with dropout it is timed eagerly
-        plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(
-            q, k, v, sm, False, rate, seed, bias), graph=not rate)
+        plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(*args),
+                            graph=not rate)
         lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=rate, scale=sm))
         name = str(dt).replace("torch.", "")
@@ -522,19 +573,27 @@ def phase_kernel():
         what = f"{name} B={bs} H={H} S={S} D={D}" + (
             " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
-        _log(f"[kernel] time forward {what}: kernel {ms:.4f} ms (issued "
-             f"one by one from Python {eager_ms:.4f} ms), plain "
-             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-             f"{bound_ms:.4f} ms ({bound_by}: {ops} FLOP, {nbytes} B)")
-        _check_bound(f"forward {what}", ms, bound_ms)
-        rows.append(dict(shape=what, ms=ms, eager_ms=eager_ms,
-                         plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by,
-                         max_abs_err=errs[str(dt) if with_bias
-                                          else "lane"]))
+        beside = (f"; the tiled kernel on the same inputs {tiled_ms:.4f} ms, "
+                  f"whole/tiled {ms / tiled_ms:.3f}" if kern == whole else "")
+        _log(f"[kernel] time {kern} {what}: kernel {ms:.4f} ms (issued one "
+             f"by one from Python {eager_ms:.4f} ms), plain {plain_ms:.4f} "
+             f"ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.3f}x SDPA), bound "
+             f"{bound_ms:.4f} ms ({bound_by}: {ops} FLOP, {nbytes} B), "
+             f"{bound_ms / ms:.1%} of it{beside}")
+        _check_bound(f"{kern} {what}", ms, bound_ms)
+        row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=errs[(kern, dt if with_bias else "lane")])
+        if kern == whole:
+            row["tiled_ms"] = tiled_ms
+        timings[kern].append(row)
+        if (kern == tiled and rate) or not with_bias:
+            heads[kern] = row  # the f32 train step's row, the lane's row
         del q, k, v
-    return rows
+    return {kern: dict(heads[kern], timings=ts, max_abs_err_by_dtype={
+        str(tag).replace("torch.", ""): e
+        for (kn, tag), e in errs.items() if kn == kern})
+        for kern, ts in timings.items()}
 
 
 def _check_bwd(name, got, want, tol):
@@ -803,8 +862,7 @@ def phase_kernel_bwd():
 def _op_attention(q, k, v, heads, bias, rate, key, do):
     """fused_attention_qkv's kernel on the card on q, k, v [B, S, heads·D]
     and its backward by autograd against ``do`` → (route the op took, out,
-    dq, dk, dv, kernel launches of forward, dK/dV, dQ, fused backward and
-    dropout)."""
+    dq, dk, dv, GATE_NAMES kernel launches)."""
     import torch
     from paddle_tpu_torch.ops import attention_ops
     from paddle_tpu_torch.ops.registry import OPS
@@ -851,8 +909,9 @@ def _plain_attention(q, k, v, heads, bias, rate, seed, do):
 def phase_attention_routes():
     """The attention ops' route on the card (ROADMAP C1): at hidden 768
     with 8 heads (D = 96, which the kernels run zero-padded to 128) the
-    op launches the forward once and its backward once, the dK/dV and dQ
-    kernels in f32 and the fused kernel in bf16 (S = 128), and agrees
+    op launches the forward once and its backward once, the tiled forward
+    and the dK/dV and dQ kernels in f32, the whole-block forward and the
+    fused kernel in bf16 (S = 128), and agrees
     with the plain versions; a bias the kernels do not
     take ([1, 1, 1, Sk]) takes the einsum path, launches no kernel, and
     its dropout mask is the flash kernels' (its output and grads agree
@@ -866,13 +925,13 @@ def phase_attention_routes():
     seed = rng.attention_seed(key)
     for hidden, heads, dt, rate, bias_kind, want_route, want in (
             (768, 8, torch.float32, 0.0, "key-padding", "flash",
-             (1, 1, 1, 0, 0)),
+             (1, 1, 1, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.0, "key-padding", "flash",
-             (1, 0, 0, 1, 0)),
+             (0, 0, 0, 1, 0, 1)),
             (768, 8, torch.float32, 0.1, "key-padding", "flash",
-             (1, 1, 1, 0, 0)),
+             (1, 1, 1, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.1, "key-padding", "flash",
-             (1, 0, 0, 1, 0)),
+             (0, 0, 0, 1, 0, 1)),
             (768, 12, torch.float32, 0.1, "[1,1,1,Sk]", "einsum",
              NO_KERNELS)):
         q, k, v, do = (torch.randn(2, S, hidden, generator=gen,
@@ -891,8 +950,7 @@ def phase_attention_routes():
             for g, w in zip(got, want_vals))
         _log(f"[route] fused_attention_qkv hidden {hidden} heads {heads} "
              f"(D={hidden // heads}) {str(dt)[6:]} {bias_kind} bias dropout "
-             f"{rate}: route {route}, launches (forward, dK/dV, dQ, fused "
-             f"backward, dropout) "
+             f"{rate}: route {route}, launches {GATE_NAMES} "
              f"{launched}, against the plain flash version max|d| out "
              f"{errs[0]:.3e} dQ {errs[1]:.3e} dK {errs[2]:.3e} dV "
              f"{errs[3]:.3e} tol {tol:g} -> {'ok' if ok else 'FAIL'}")
@@ -1025,8 +1083,7 @@ def _request(rng, bs, cfg):
 
 def _gate_run(exe, delta, want, what):
     """One Executor.run on the compiled path against the exact kernel
-    launches ``want`` (forward, dK/dV, dQ, fused backward, dropout) of one
-    request or step. An
+    launches ``want`` (GATE_NAMES) of one request or step. An
     eager run launches them through the wrappers; a capture launches them
     through the wrappers into the graph, which must record exactly
     ``want``; a replay calls no wrapper and launches what its graph
@@ -1050,18 +1107,25 @@ def _gate_run(exe, delta, want, what):
 
 
 def _device_kernel_counts(fn):
-    """(forward, dK/dV, dQ, fused backward, dropout) kernels the card ran
-    during ``fn()``,
-    counted by name in a torch.profiler trace. A trace that holds no
-    device event at all fails: the gate would rest on the launches
-    recorded at capture alone."""
+    """The GATE_NAMES kernels the card ran during ``fn()``, counted by
+    name in a torch.profiler trace. A trace that holds no device event at
+    all fails: the gate would rest on the launches recorded at capture
+    alone. The trace has a warm-up cycle first, which runs one small
+    kernel while tracing starts up: a trace that begins with ``fn()`` can
+    lose the first kernels ``fn()`` launches (seen on the card: a training
+    step's first seven). ``fn()`` runs once, in the one recorded cycle."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         fn()
         torch.cuda.synchronize()
+        prof.step()
     evts = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     if not evts:
@@ -1073,12 +1137,10 @@ def _device_kernel_counts(fn):
 
 def _check_trace(counts, want, what):
     if counts != want:
-        raise AssertionError(f"{what}: the card ran {counts} (forward, "
-                             f"dK/dV, dQ, fused backward, dropout) kernels, "
-                             f"want {want}")
+        raise AssertionError(f"{what}: the card ran {counts} {GATE_NAMES} "
+                             f"kernels, want {want}")
     _log(f"[graph] {what}: the trace of one replay holds {counts} "
-         "(forward, dK/dV, dQ, fused backward, dropout) kernels, as "
-         "recorded")
+         f"{GATE_NAMES} kernels, as recorded")
 
 
 def _agree(what, got, ref):
@@ -1118,7 +1180,7 @@ def phase_slice(profile=False):
     from paddle_tpu_torch.models import bert
     cfg = bert.bert_base_config()
     L = cfg["layers"]
-    want = (L, 0, 0, 0, 0)
+    want = (L,) + (0,) * (len(KERNELS) - 1)  # f32: the tiled forward
     main, startup, enc = _build_encoder(cfg)
     n_attn = sum(op.type == "fused_attention_qkv"
                  for op in main.global_block().ops)
@@ -1255,7 +1317,7 @@ def phase_slice(profile=False):
         for bs in SERVE_BATCHES:
             _profile(exe, main, enc, scope, pools[bs][0], bs)
     exe.close()
-    return {"wrapper": launches, "executed": (n_runs * L, 0, 0, 0, 0),
+    return {"wrapper": launches, "executed": tuple(n_runs * w for w in want),
             "runs": dict(runs)}
 
 
@@ -1326,7 +1388,8 @@ def _launch_counts():
     from paddle_tpu_torch.ops.cuda import dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     return (fa.launch_count, fa.bwd_kv_launch_count, fa.bwd_q_launch_count,
-            fa.bwd_fused_launch_count, dk.launch_count)
+            fa.bwd_fused_launch_count, dk.launch_count,
+            fa.fwd_whole_launch_count)
 
 
 def _reset_launch_counts():
@@ -1334,6 +1397,7 @@ def _reset_launch_counts():
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     fa.launch_count = fa.bwd_kv_launch_count = fa.bwd_q_launch_count = 0
     fa.bwd_fused_launch_count = dk.launch_count = 0
+    fa.fwd_whole_launch_count = 0
 
 
 def _attention_route(main):
@@ -1361,16 +1425,19 @@ def _attention_route(main):
 
 
 def _step_want(ops, route, forwards=None):
-    """(forward, dK/dV, dQ, fused backward, dropout) launches of one
-    training step: each attention op launches the forward once and its
-    grad re-runs it under autograd (the generic grad; ``forwards``
-    overrides the count), whose backward launches the dK/dV and the dQ
-    kernel once each on the split route or the fused kernel once; each
-    dropout op launches the dropout kernel once (its grad is a mask
-    product: no re-draw)."""
+    """GATE_NAMES launches of one training step: each attention op
+    launches the forward once and its grad re-runs it under autograd (the
+    generic grad; ``forwards`` overrides the count), whose backward
+    launches the dK/dV and the dQ kernel once each on the split route or
+    the fused kernel once; each dropout op launches the dropout kernel
+    once (its grad is a mask product: no re-draw). The forward is the
+    tiled kernel on the split route and the whole-block one on the fused
+    route: one predicate (``holds_whole``) picks both."""
     L = sum(op.type == "fused_attention_qkv" for op in ops)
-    bwd = (L, L, 0) if route == "split" else (0, 0, L)
-    return (2 * L if forwards is None else forwards, *bwd, _dropout_ops(ops))
+    fwd = 2 * L if forwards is None else forwards
+    if route == "split":
+        return (fwd, L, L, 0, _dropout_ops(ops), 0)
+    return (0, 0, 0, L, _dropout_ops(ops), fwd)
 
 
 def _dropout_ops(ops):
@@ -1485,7 +1552,7 @@ def phase_train(profile=False):
          f"warm-ups, {runs['capture']} captures ({st['capture_s']:.2f} s in "
          f"all), {runs['replay']} replays; launches through the wrappers "
          f"(warm-ups and captures) forward {launches[0]}, dK/dV "
-         f"{launches[1]}, dQ {launches[2]}, dropout {launches[3]}; run on "
+         f"{launches[1]}, dQ {launches[2]}, dropout {launches[4]}; run on "
          f"the card "
          f"{tuple(n_runs * w for w in want)} (= {want} per step)")
     _log(f"[train] repeated batch, {FALL_STEPS} steps: " +
@@ -1819,8 +1886,8 @@ def _lane_flags():
 
 def _gate_lane(lane, wrapper, want, what):
     """A bench lane's gates: a finite loss, the compiled path, a timed
-    window of replays only, ``want`` (forward, dK/dV, dQ, dropout)
-    launches a step through the wrappers (``wrapper``: warm-ups and
+    window of replays only, ``want`` (GATE_NAMES) launches a step
+    through the wrappers (``wrapper``: warm-ups and
     captures) and in the graph, and in a profiler trace of one more
     replay. → the compiled block's runs before the trace."""
     import numpy as np
@@ -2054,10 +2121,10 @@ def _train_steps(exe, main, loss, scope, feeds, want, runs, what):
 
 
 def _remat_want(main, plan):
-    """(forward, dK/dV, dQ, fused backward, dropout) launches of one remat
-    step (bf16 operands, as the lane runs it): each attention op's forward
-    once, again in its segment's span (autograd's forward) or, outside the
-    segments, in its generic grad; then its backward once."""
+    """GATE_NAMES launches of one remat step (bf16 operands, as the lane
+    runs it): each attention op's forward once, again in its segment's
+    span (autograd's forward) or, outside the segments, in its generic
+    grad; then its backward once."""
     ops = main.global_block().ops
     L = sum(op.type == "fused_attention_qkv" for op in ops)
     in_segments = sum(op.type == "fused_attention_qkv"
@@ -2879,7 +2946,7 @@ def main(argv=None) -> int:
              "" if core.BF16_HOST_DTYPE.name == "bfloat16"
              else " (ml_dtypes is not installed)"))
     phase_build()
-    rows = phase_kernel()
+    fwd_rows = phase_kernel()
     bwd_rows = phase_kernel_bwd()
     phase_attention_routes()
     drop_row = phase_kernel_dropout()
@@ -2897,16 +2964,17 @@ def main(argv=None) -> int:
     # and captures through the wrappers, each replay as its graph recorded
     # and as the profiler counted); wrapper_calls_by_path: the wrappers'
     # own counts, which a replay does not move. The heading numbers of
-    # the forward and the fused backward are at the bench lane's shape
-    # (bf16, batch 256, no bias), those of the dK/dV and dQ kernels at the
-    # f32 training step's (batch 32, bias, dropout 0.1); "timings" holds
-    # every shape timed.
+    # the whole-block forward and the fused backward are at the bench
+    # lane's shape (bf16, batch 256, no bias), those of the tiled forward
+    # and the dK/dV and dQ kernels at the f32 training step's (batch 32,
+    # bias, dropout 0.1); "timings" holds every shape timed. The entries
+    # are in KERNELS' order.
     src = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     entries = [("flash_attention_fwd", "flash_attention_fwd.cu",
-                replaces + "298", dict(rows[-1], timings=rows)),
+                replaces + "298", fwd_rows["flash_attention_fwd"]),
                ("flash_attention_bwd_kv", "flash_attention_bwd.cu",
                 replaces + "514", bwd_rows["flash_attention_bwd_kv"]),
                ("flash_attention_bwd_q", "flash_attention_bwd.cu",
@@ -2916,7 +2984,11 @@ def main(argv=None) -> int:
                 replaces + "480", bwd_rows["flash_attention_bwd_fused"]),
                # no Pallas kernel: jax.random.bernoulli in an XLA fusion
                ("dropout_fwd", "dropout.cu", "paddle_tpu/ops/nn_ops.py:263",
-                drop_row)]
+                drop_row),
+               ("flash_attention_fwd_whole", "flash_attention_fwd_whole.cu",
+                replaces + "298", fwd_rows["flash_attention_fwd_whole"])]
+    if tuple(e[0] for e in entries) != KERNELS:
+        raise AssertionError("the kernels line's entries are not KERNELS")
     kernels = []
     for i, (name, source, repl, r) in enumerate(entries):
         by_path = {p: v["executed"][i] for p, v in paths.items()}
@@ -2926,8 +2998,8 @@ def main(argv=None) -> int:
             wrapper_calls_by_path={p: v["wrapper"][i]
                                    for p, v in paths.items()},
             **{k: r[k] for k in keys},
-            **{k: r[k] for k in ("max_abs_err_by_dtype", "timings")
-               if k in r}))
+            **{k: r[k] for k in ("max_abs_err_by_dtype", "timings",
+                                 "tiled_ms") if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

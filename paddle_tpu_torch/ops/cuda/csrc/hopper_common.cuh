@@ -1,0 +1,244 @@
+// Hopper (sm_90a) building blocks of the two whole-block flash-attention
+// kernels, the fused backward (flash_attention_bwd_fused.cu) and the
+// whole-block forward (flash_attention_fwd_whole.cu): TMA copies between
+// device memory and 128-byte-swizzled shared memory reported to mbarriers,
+// the wgmma matrix descriptors and products (bf16 operands, f32
+// accumulators, m64n64k16), and, on the host, the tensor maps of
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that no library links against libcuda.
+//
+// Layout. A tile is [128 rows][64 bf16 columns] a region (16 KB, one TMA
+// box), rows 128 bytes apart, the 16-byte chunk j of row r stored at chunk
+// j ^ (r % 8): the 128-byte swizzle that TMA writes and wgmma reads. A
+// head dim of 128 is two such regions side by side.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace paddle_fa {
+namespace hopper {
+
+constexpr int ROWS = 128;  // rows of a region: query rows or keys
+constexpr int COLS = 64;   // bf16 columns of one 128-byte swizzled row
+constexpr int REGION = ROWS * COLS * 2;  // one [128][64] bf16 box: 16 KB
+
+// the C entry points' return code when no tensor map can be made (besides
+// flash_common.cuh's codes)
+constexpr int kErrTensorMap = -3;
+
+// ---- shared memory, TMA and mbarriers -------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// arrive once and expect `bytes` from the copies that signal `bar`
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 3-D tensor map at (column c0, row c1, head c2)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// one box from shared memory to a 3-D tensor map at (c0, c1, c2); what
+// lies past the tensor's extent is not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// close this thread's group of TMA stores and wait until their reads of
+// shared memory are done (the block may then exit or reuse it)
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// generic-proxy stores to shared memory made visible to wgmma's reads and
+// to TMA stores
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) under id `id` (1..15;
+// 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+__device__ __forceinline__ uint64_t desc_field(uint32_t bytes) {
+  return (uint64_t)((bytes & 0x3FFFF) >> 4);
+}
+
+// A 128-byte-swizzled operand in shared memory (PTX ISA, matrix
+// descriptor): start address, leading and stride byte offsets, layout 1.
+// K-major: rows of 64 bf16 along K, 8-row groups 1024 B apart (the
+// leading offset is unused); a k step of 16 adds 32 B to the start.
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return desc_field(addr) | desc_field(16) << 16 | desc_field(1024) << 32 |
+         1ull << 62;
+}
+// MN-major: rows of 64 bf16 along M or N, one row per K index, 8-row
+// groups along K 1024 B apart; a k step of 16 adds 2048 B. The stride
+// between 64-wide blocks along M or N is never used at M = N = 64: it is
+// given the same 1024.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return desc_field(addr) | desc_field(1024) << 16 | desc_field(1024) << 32 |
+         1ull << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving an accumulator across the asynchronous
+// product that writes it (read before the commit, after the wait)
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PADDLE_ACC32(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define PADDLE_D32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d += A B, m64n64k16, both operands from shared memory; TA / TB = 1 reads
+// that operand MN-major (transposed)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PADDLE_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : PADDLE_ACC32(d)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += A B, m64n64k16, A from registers (four bf16 pairs a thread, the
+// mma.sync m16n8k16 A layout per warp), B from shared memory
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PADDLE_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : PADDLE_ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TB));
+}
+
+#undef PADDLE_ACC32
+#undef PADDLE_D32
+
+// the byte offset of (row, column pair starting at 8 j + 2 t) in a
+// [128][64] bf16 region with the 128-byte swizzle TMA and wgmma use: the
+// 16-byte chunk j of a row is stored at chunk j ^ (row % 8)
+__device__ __forceinline__ int swz(int row, int j, int t) {
+  return row * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
+}
+
+// ---- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no link against libcuda
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a contiguous bf16 [BH, rows, D] tensor in boxes of 64
+// columns x `box_rows` rows x 1 head, 128-byte swizzle; a load zero-fills
+// what lies past D or past `rows`, a store leaves it unwritten.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int rows,
+                       int D, int box_rows = ROWS) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper
+}  // namespace paddle_fa

@@ -9,12 +9,16 @@ pallas_call :543) are ``csrc/flash_attention_bwd.cu``. All three are CUDA
 C++ for sm_90a that run their products on the tensor cores (``mma.sync``:
 split TF32 for f32, bf16 as it is; ``csrc/tc_common.cuh``). Where one block
 holds a (batch, head)'s whole key range in bf16 (S and Sk up to 128, every
-BERT path), one kernel takes the place of both backward kernels and of the
-delta prologue (:492): ``csrc/flash_attention_bwd_fused.cu``, on wgmma and
-TMA; ``bwd_route`` picks it by shape and dtype alone. Every source is built
-at first use by ``build.py``; each source's header says what bounds it and
-how it is laid out. All share the counter-hash dropout mask
-(``csrc/keep_mask.cuh``), so the backward regenerates the forward's mask.
+BERT path; ``holds_whole``), two kernels on wgmma and TMA
+(``csrc/hopper_common.cuh``) take their place: the whole-block forward
+``csrc/flash_attention_fwd_whole.cu`` (one softmax pass over all keys),
+and the fused backward ``csrc/flash_attention_bwd_fused.cu`` in place of
+both backward kernels and of the delta prologue (:492). ``fwd_route`` and
+``bwd_route`` pick by shape and dtype alone, through the one predicate.
+Every source is built at first use by ``build.py``; each source's header
+says what bounds it and how it is laid out. All share the counter-hash
+dropout mask (``csrc/keep_mask.cuh``), so the backward regenerates the
+forward's mask.
 
 Dispatch is by the tensors' device, never by a fallback: a CUDA tensor goes
 to the kernels (or raises), a CPU tensor goes to the plain PyTorch versions
@@ -38,7 +42,8 @@ on the card.
 is (q, k, v, o, lse, seed, bias); the bias gets a zero grad and the seed
 none.
 
-``launch_count``, ``bwd_kv_launch_count``, ``bwd_q_launch_count`` and
+``launch_count`` (the tiled forward), ``fwd_whole_launch_count``,
+``bwd_kv_launch_count``, ``bwd_q_launch_count`` and
 ``bwd_fused_launch_count`` count each kernel's launches: a wrapper adds one
 where it launches its kernel and nowhere else.
 """
@@ -57,10 +62,13 @@ MAX_HEAD_DIM = SUPPORTED_HEAD_DIMS[-1]
 KERNEL_SOURCE = "flash_attention_fwd.cu"
 BWD_KERNEL_SOURCE = "flash_attention_bwd.cu"
 BWD_FUSED_SOURCE = "flash_attention_bwd_fused.cu"
-# the fused backward holds a (batch, head)'s query rows and keys in one block
-FUSED_MAX_LEN = 128
+FWD_WHOLE_SOURCE = "flash_attention_fwd_whole.cu"
+# the whole-block kernels (the forward and the fused backward) hold a
+# (batch, head)'s query rows and keys in one block
+WHOLE_MAX_LEN = 128
 
 launch_count = 0
+fwd_whole_launch_count = 0
 bwd_kv_launch_count = 0
 bwd_q_launch_count = 0
 bwd_fused_launch_count = 0
@@ -71,6 +79,7 @@ def launch_counts():
     launches it captured without calling a wrapper: the executor reads
     these counts around a capture to know what each replay launches."""
     return {"flash_attention_fwd": launch_count,
+            "flash_attention_fwd_whole": fwd_whole_launch_count,
             "flash_attention_bwd_kv": bwd_kv_launch_count,
             "flash_attention_bwd_q": bwd_q_launch_count,
             "flash_attention_bwd_fused": bwd_fused_launch_count}
@@ -249,6 +258,7 @@ _TAIL = [_INT] * 6 + [_F32, _INT, _INT, _F32, _U32, _PTR]
 # each source's C entry points and their argument types
 _SIGNATURES = {
     KERNEL_SOURCE: {"paddle_flash_attention_fwd": [_PTR] * 7 + _TAIL},
+    FWD_WHOLE_SOURCE: {"paddle_flash_attention_fwd_whole": [_PTR] * 7 + _TAIL},
     BWD_KERNEL_SOURCE: {"paddle_flash_attention_bwd_kv": [_PTR] * 10 + _TAIL,
                         "paddle_flash_attention_bwd_q": [_PTR] * 9 + _TAIL},
     BWD_FUSED_SOURCE: {
@@ -290,17 +300,32 @@ def kernel_head_dim(d: int) -> Optional[int]:
     return None
 
 
-def bwd_route(q_shape, k_shape, dtype) -> str:
-    """Which backward runs on the card for q [B, H, S, D], k [B, H, Sk, D]
-    of ``dtype``: "fused" (one kernel: delta, dQ, dK and dV) for bf16 with
-    S and Sk up to FUSED_MAX_LEN at a head dim the kernels take, else
-    "split" (delta, then the dK/dV and the dQ kernels). A choice by shape
-    between two kernels, never a fallback: what neither takes raises in
-    the wrapper."""
+def holds_whole(q_shape, k_shape, dtype) -> bool:
+    """Whether one block of the whole-block kernels holds a (batch, head)
+    of q [B, H, S, D], k [B, H, Sk, D] of ``dtype`` whole: bf16, S and Sk
+    up to WHOLE_MAX_LEN, at a head dim the kernels take. ``fwd_route`` and
+    ``bwd_route`` both ask it, so the forward and the backward never
+    disagree about what "short" means."""
     S, Sk, d = q_shape[2], k_shape[2], q_shape[3]
-    fused = (dtype == torch.bfloat16 and S <= FUSED_MAX_LEN
-             and Sk <= FUSED_MAX_LEN and kernel_head_dim(d) is not None)
-    return "fused" if fused else "split"
+    return (dtype == torch.bfloat16 and S <= WHOLE_MAX_LEN
+            and Sk <= WHOLE_MAX_LEN and kernel_head_dim(d) is not None)
+
+
+def fwd_route(q_shape, k_shape, dtype) -> str:
+    """Which forward runs on the card: "whole" (one block a (batch, head),
+    one softmax pass over all its keys) where ``holds_whole``, else
+    "tiled" (64-row query tiles, an online softmax over 64-key tiles). A
+    choice by shape between two kernels, never a fallback: what neither
+    takes raises in the wrapper."""
+    return "whole" if holds_whole(q_shape, k_shape, dtype) else "tiled"
+
+
+def bwd_route(q_shape, k_shape, dtype) -> str:
+    """Which backward runs on the card: "fused" (one kernel: delta, dQ, dK
+    and dV) where ``holds_whole``, else "split" (delta, then the dK/dV and
+    the dQ kernels). A choice by shape between two kernels, never a
+    fallback: what neither takes raises in the wrapper."""
+    return "fused" if holds_whole(q_shape, k_shape, dtype) else "split"
 
 
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -371,13 +396,25 @@ def _ptr(t: Optional[torch.Tensor]):
 def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
                          dropout_seed=None,
                          bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on the current stream: → (o, lse)."""
+    """The forward on the card → (o, lse), by ``fwd_route``: the
+    whole-block kernel or the tiled one."""
+    fn = (flash_attention_fwd_whole_cuda
+          if fwd_route(q.shape, k.shape, q.dtype) == "whole"
+          else flash_attention_fwd_tiled_cuda)
+    return fn(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, bias)
+
+
+def flash_attention_fwd_tiled_cuda(q, k, v, sm_scale, causal=False,
+                                   dropout_rate=0.0, dropout_seed=None,
+                                   bias=None):
+    """Launch the tiled forward kernel on the current stream (f32 or bf16,
+    any S and Sk): → (o, lse)."""
     global launch_count
     _check_cuda_inputs(q, k, v)
     B, H, S, D = q.shape
     dp = kernel_head_dim(D)
     if dp != D:
-        o, lse = flash_attention_cuda(
+        o, lse = flash_attention_fwd_tiled_cuda(
             *(pad_head_dim(t, dp) for t in (q, k, v)), sm_scale, causal,
             dropout_rate, dropout_seed, bias)
         return o[..., :D].contiguous(), lse
@@ -396,6 +433,43 @@ def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
             *_common_args(q, k, sm_scale, causal, dropout_rate))
     _raise_on(lib, rc, "flash_attention forward")
     launch_count += 1
+    return o, lse
+
+
+def flash_attention_fwd_whole_cuda(q, k, v, sm_scale, causal=False,
+                                   dropout_rate=0.0, dropout_seed=None,
+                                   bias=None):
+    """Launch the whole-block forward kernel on the current stream (bf16,
+    S and Sk up to WHOLE_MAX_LEN): one block a (batch, head) → (o, lse). A
+    head dim off the instances is padded with zero columns."""
+    global fwd_whole_launch_count
+    _check_cuda_inputs(q, k, v)
+    if fwd_route(q.shape, k.shape, q.dtype) != "whole":
+        raise ValueError(f"flash_attention whole-block forward: takes bf16 "
+                         f"with S, Sk <= {WHOLE_MAX_LEN}, got "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
+    B, H, S, D = q.shape
+    dp = kernel_head_dim(D)
+    if dp != D:
+        o, lse = flash_attention_fwd_whole_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v)), sm_scale, causal,
+            dropout_rate, dropout_seed, bias)
+        return o[..., :D].contiguous(), lse
+    dev = q.device
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
+                                   k.shape[2], dev)
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=dev)
+    if S == 0:
+        return o, lse
+    lib = _library(FWD_WHOLE_SOURCE)
+    with torch.cuda.device(dev):
+        rc = lib.paddle_flash_attention_fwd_whole(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(seed),
+            o.data_ptr(), lse.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention whole-block forward")
+    fwd_whole_launch_count += 1
     return o, lse
 
 
@@ -479,14 +553,14 @@ def flash_attention_bwd_fused_cuda(q, k, v, o, lse, do, sm_scale,
                                    causal=False, dropout_rate=0.0,
                                    dropout_seed=None, bias=None):
     """Launch the fused backward kernel on the current stream (bf16, S and
-    Sk up to FUSED_MAX_LEN): delta, dQ, dK and dV in one launch → (dq, dk,
+    Sk up to WHOLE_MAX_LEN): delta, dQ, dK and dV in one launch → (dq, dk,
     dv). A head dim off the instances is padded with zero columns, O and
     dO too (they add zeros to delta)."""
     global bwd_fused_launch_count
     _check_bwd_inputs(q, k, v, {"O": o, "dO": do}, {"lse": lse})
     if bwd_route(q.shape, k.shape, q.dtype) != "fused":
         raise ValueError(f"flash_attention fused backward: takes bf16 with "
-                         f"S, Sk <= {FUSED_MAX_LEN}, got q{tuple(q.shape)} "
+                         f"S, Sk <= {WHOLE_MAX_LEN}, got q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} {q.dtype}")
     d, dp = q.shape[3], kernel_head_dim(q.shape[3])
     if dp != d:

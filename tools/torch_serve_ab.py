@@ -4,6 +4,7 @@
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT [--pairs N] [--batch B ...]
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT --train [--pairs N]
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT --lane [--pairs N]
+    python3 tools/torch_serve_ab.py OTHER_CHECKOUT --kernels [--pairs N]
 
 Runs the build and serve phases of each checkout's chip_smoke.py (BERT-base
 encoder served for a 5 s window per batch size) in a fresh process per
@@ -17,8 +18,12 @@ the build and train phases instead (BERT-base pretraining at batch 32, a
 100-step window), and the p50 is the step time's. With --lane each run is
 ``python3 -m paddle_tpu_torch.bench bert`` (bench.py's BERT-base lane: bf16,
 batch 256, a window of 20 steps), and the figure is its ``step_ms``, the
-window's time over its steps. Exits non-zero when CUDA is missing or a run
-fails.
+window's time over its steps. With --kernels each run times, at the bench
+lane's shape (batch 256, H=12, S=128, D=64, bf16, no bias), the forward
+that ``flash_attention_cuda`` routes to and the fused backward
+(``flash_attention_bwd_fused_cuda``), each as chip_smoke.py's ``_cuda_ms``
+times a kernel (a CUDA graph of 50 calls, device time). Exits non-zero
+when CUDA is missing or a run fails.
 """
 from __future__ import annotations
 
@@ -35,6 +40,21 @@ P50 = {"serve": re.compile(r"^\[slice\] batch\s+(\d+):.*latency p50 "
                            r"([0-9.]+) ms"),
        "train": re.compile(r"^\[train\] batch\s+(\d+):.*step p50 "
                            r"([0-9.]+) ms")}
+# one run of --kernels: the lane's shape, each kernel timed in a graph
+KERNELS_CODE = """
+import json, sys, torch
+sys.path.insert(0, '.')
+import chip_smoke as cs
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
+gen = torch.Generator(device='cuda').manual_seed(cs.SEED)
+q, k, v = cs._qkv(cs.LANE_BATCH, 12, cs.S, cs.S, 64, torch.bfloat16, gen)
+do = torch.randn(q.shape, generator=gen, device='cuda').to(torch.bfloat16)
+o, lse = fa.flash_attention_cuda(q, k, v, 0.125)
+fwd = cs._cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, 0.125))
+bwd = cs._cuda_ms(lambda: fa.flash_attention_bwd_fused_cuda(
+    q, k, v, o, lse, do, 0.125))
+print('[kernels] ' + json.dumps({'forward_ms': fwd, 'bwd_fused_ms': bwd}))
+"""
 
 
 def _run(checkout: str, batches, mode: str) -> str:
@@ -46,12 +66,16 @@ def _run(checkout: str, batches, mode: str) -> str:
             raise RuntimeError(f"lane run in {checkout} failed:\n"
                                f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
         return res.stdout
-    phase = ("cs.phase_train()" if mode == "train" else
-             f"cs.SERVE_BATCHES = {tuple(batches)!r}; cs.phase_slice()")
-    code = ("import sys, torch; sys.path.insert(0, '.'); "
-            "import chip_smoke as cs; "
-            "torch.backends.cuda.matmul.allow_tf32 = False; "
-            "cs.phase_build(); " + phase)
+    if mode == "kernels":
+        code = KERNELS_CODE
+    else:
+        phase = ("cs.phase_train()" if mode == "train" else
+                 f"cs.SERVE_BATCHES = {tuple(batches)!r}; "
+                 "cs.phase_slice()")
+        code = ("import sys, torch; sys.path.insert(0, '.'); "
+                "import chip_smoke as cs; "
+                "torch.backends.cuda.matmul.allow_tf32 = False; "
+                "cs.phase_build(); " + phase)
     res = subprocess.run([sys.executable, "-c", code], cwd=checkout,
                          capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
@@ -69,14 +93,19 @@ def main(argv=None) -> int:
                     help="alternate the training phase, not serving")
     ap.add_argument("--lane", action="store_true",
                     help="alternate bench.py's bert lane, not serving")
+    ap.add_argument("--kernels", action="store_true",
+                    help="alternate the flash kernels' times at the lane's "
+                         "shape, not serving")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_serve_ab: CUDA is not available", file=sys.stderr)
         return 2
-    mode = "lane" if args.lane else "train" if args.train else "serve"
-    batches = {"lane": [256], "train": [32]}.get(mode,
-                                                 args.batch or [1, 8, 32])
+    mode = ("lane" if args.lane else "train" if args.train else
+            "kernels" if args.kernels else "serve")
+    batches = {"lane": [256], "train": [32],
+               "kernels": ["forward_ms", "bwd_fused_ms"]}.get(
+        mode, args.batch or [1, 8, 32])
     sides = {"other": os.path.abspath(args.other), "this": HERE}
     p50 = {(s, b): [] for s in sides for b in batches}
     run = 0
@@ -85,6 +114,13 @@ def main(argv=None) -> int:
         for side in order:
             run += 1
             for line in _run(sides[side], batches, mode).splitlines():
+                if mode == "kernels":
+                    if line.startswith("[kernels] "):
+                        res = json.loads(line[len("[kernels] "):])
+                        for name in batches:
+                            p50[(side, name)].append(res[name])
+                        print(f"{side} {run} {line}", flush=True)
+                    continue
                 if mode == "lane":
                     if line.startswith("{"):
                         res = json.loads(line)
@@ -97,8 +133,9 @@ def main(argv=None) -> int:
                     print(f"{side} {run} {line}", flush=True)
     for b in batches:
         o, t = p50[("other", b)], p50[("this", b)]
-        what = "step_ms" if mode == "lane" else "p50 ms"
-        print(f"batch {b}: {what} other {o} (median "
+        what = {"lane": "step_ms", "kernels": "ms at the lane's shape"}.get(
+            mode, "p50 ms")
+        print(f"{'batch ' if mode != 'kernels' else ''}{b}: {what} other {o} (median "
               f"{statistics.median(o):.3f}), this {t} (median "
               f"{statistics.median(t):.3f})", flush=True)
     return 0
