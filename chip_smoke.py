@@ -20,8 +20,15 @@ Phases, each fatal on failure:
               kernels), head dims 8 to 128 (40 and 96 zero-padded to the
               next instance; in bf16 at 96 x 80 on the fused kernel and at
               200 x 144 on the split ones), S = Sk = 1,
-              B·H above 65535 and the bench lane's shape (batch 256,
-              bf16, no bias); time each kernel, its plain version and one
+              B·H above 65535, the bench lane's shape (batch 256,
+              bf16, no bias) and transformer_big's (H = 16: the bf16
+              step's causal self-attention with the bias and dropout 0.3
+              at B = 48, S = 64 on the whole-block forward and the fused
+              backward; greedy decode's f32 cross-attention, S = 80 over
+              Sk = 64, and causal self-attention, 80 x 80, on the tiled
+              forward; bf16 at S = Sk = 256 with the bias on the tiled
+              forward and the split backward, ROADMAP B3, each also
+              timed); time each kernel, its plain version and one
               PyTorch library call as a yardstick
               (scaled_dot_product_attention, and its backward): the
               forward at the served shape (batch 8), the trained one
@@ -156,6 +163,33 @@ Phases, each fatal on failure:
               and the last conv and the classifier in relative L2); the
               LeNet conv net of models/mnist.py at batch 64: one step
               against the CPU, then 4 more compiled.
+ 11. transformer — transformer_big (models/transformer.py) uncut: 6 + 6
+              layers, d_model 1024, d_inner 4096, 16 heads, vocab 37000,
+              label smoothing 0.1. Training in bf16 products
+              (FLAGS_use_bf16_matmul), dropout 0.3, Noam decay (warm-up
+              4000), Adam, batch 48 x 64 source and target tokens, random
+              ids and ragged masks from RandomState(0): 3 warm-up steps,
+              20 timed, 8 on one repeated batch. Checks: every step
+              compiled with (0, 0, 0, 18, 42, 36) launches (wrappers,
+              graph, a trace of one replay), the fetched LR equal to
+              Noam's formula at rtol 1e-6 every step, the loss falling;
+              at 1 + 1 layers, 3 bf16 steps compiled (eager, capture,
+              replay) against interpreted, losses, LRs and persistables
+              bitwise; one f32 step at 1 + 1 layers (the tiled forward
+              and split backward) on the card against the CPU port, loss
+              and three grads. Greedy decode in f32 at dropout 0, batch
+              8, 64 source tokens, 80 positions: 79 runs of one compiled
+              program, each argmax written into the fed target array in
+              place, each run (18, 0, 0, 0, 0, 0) launches and one upload
+              (the mutated array; the other feeds cache hits); then the
+              CPU port decodes greedily from the card's weights and on its
+              tokens (teacher forcing) the card's logits at every
+              position hold to the CPU's within 1e-3 of the largest.
+              Then bench's transformer lane (``python3 -m
+              paddle_tpu_torch.bench transformer``), its JSON line
+              printed, (0, 0, 0, 6, 0, 12) kernels a step. Reports step
+              p50/p90, tokens/s, MFU and peak memory of the training
+              step, p50/p99 ms and tokens/s of a decode step.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -165,7 +199,8 @@ captures only) and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
 passes over one request of each batch size and over one step of the
-train, lane, remat, AMP and resnet phases: device time by kernel name,
+train, lane, remat, AMP, resnet and transformer phases (and one decode
+run): device time by kernel name,
 and the device's idle share against the same work's unprofiled wall
 time.
 """
@@ -208,6 +243,26 @@ GRAPH_TOL = 1e-6              # graph replay vs interpreted on the card,
 GRAPH_BATCH = 2               # compiled vs interpreted training steps
 GRAPH_STEPS = 3               # eager warm-up, capture, replay
 LANE_BATCH = 256              # bench.py's BERT lane (bf16, no bias)
+WMT_HEADS = 16                # transformer_big: 16 heads of D = 64
+WMT_BATCH = 48                # the transformer phase's bf16 step: 48 x 64
+WMT_LEN = 64                  # = 3072 source and 3072 target tokens, about
+#                               a GPU's share of the paper's ~25k-token
+#                               batches over 8 GPUs (Vaswani et al. 2017)
+WMT_DROPOUT = 0.3             # transformer_big's dropout
+WMT_DECODE_BATCH = 8          # greedy decode: 8 sentences of 64 source
+WMT_DECODE_OUT = 80           # tokens, 80 target positions
+# transformer_big's attention shapes, by name: (B, S, Sk, dtype,
+# dropout, key-padding bias, causal); the kernel phases check and time
+# each (the backward those with a backward on a path or in ROADMAP B3)
+TRANSFORMER_FWD_CASES = {
+    "train self-attention": (WMT_BATCH, WMT_LEN, WMT_LEN, "bf16",
+                             WMT_DROPOUT, True, True),
+    "decode cross-attention": (WMT_DECODE_BATCH, WMT_DECODE_OUT, WMT_LEN,
+                               "f32", 0.0, True, False),
+    "decode self-attention": (WMT_DECODE_BATCH, WMT_DECODE_OUT,
+                              WMT_DECODE_OUT, "f32", 0.0, False, True),
+    "B3 S=256": (WMT_BATCH, 256, 256, "bf16", 0.0, True, False),
+}
 BIG_BH = (5462, 12)           # B·H = 65544, above gridDim.y's 65535
 WINDOW_K = 4                  # steps of phase_window's windows
 REMAT_LOSS_RTOL = 2e-5        # remat lane vs plain lane, last loss: the
@@ -330,12 +385,14 @@ def bound(flop, nbytes, dtype):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def fwd_bound(B, H, S, Sk, D, dtype, bias=True):
+def fwd_bound(B, H, S, Sk, D, dtype, bias=True, causal=False):
     """(bound_ms, bound_by, flop, bytes) of the forward with a key-padding
-    bias (or without, ``bias`` False): 4·B·H·S·Sk·D FLOP; q, k, v and the
-    bias read once, o and lse written once."""
+    bias (or without, ``bias`` False): 4·B·H·S·Sk·D FLOP, or with
+    ``causal`` (S = Sk) 4·B·H·D over the S·(S+1)/2 pairs it keeps; q, k, v
+    and the bias read once, o and lse written once."""
     elt = 4 if dtype == "float32" else 2
-    flop = 4 * B * H * S * Sk * D
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    flop = 4 * B * H * pairs * D
     nbytes = (2 * B * H * S * D + 2 * B * H * Sk * D) * elt \
         + B * Sk * 4 * bias + B * H * S * 4
     return (*bound(flop, nbytes, dtype), flop, nbytes)
@@ -422,6 +479,19 @@ def _padding_bias(B, Sk, gen, neg=-1e9):
     return torch.where(keep, 0.0, neg).float()
 
 
+def _sdpa_mask(bias, sq, sk, causal, dtype):
+    """The additive mask SDPA takes for the port's key-padding ``bias``
+    [B, Sk] and ``causal`` (SDPA takes no causal flag beside a mask), or
+    None."""
+    import torch
+    mask = None if bias is None else bias[:, None, None, :].to(dtype)
+    if causal:
+        above = torch.ones(sq, sk, dtype=torch.bool, device="cuda").triu(1)
+        mask = (torch.zeros((), dtype=dtype, device="cuda") if mask is None
+                else mask).masked_fill(above, float("-inf"))
+    return mask
+
+
 def _check(name, got, want, tol):
     import torch
     o, lse = got
@@ -459,6 +529,7 @@ def phase_kernel():
     sm = 0.125
     f32, bf16 = torch.float32, torch.bfloat16
     tiled, whole = "flash_attention_fwd", "flash_attention_fwd_whole"
+    by_name = {"f32": f32, "bf16": bf16}
     errs = {}  # (kernel, dtype or tag) -> max |kernel - plain| over cases
 
     def both(name, q, k, v, scale, tol, causal=False, rate=0.0, seed=None,
@@ -535,24 +606,42 @@ def phase_kernel():
     both(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} no bias", q, k, v, sm,
          BF16_TOL, tag="lane")
     del q, k, v
+    # transformer_big's shapes (H = 16, D = 64): the bf16 training step's
+    # causal self-attention with the bias and attention dropout (whole);
+    # greedy decode's f32 cross-attention (S = 80 over Sk = 64) and causal
+    # self-attention (tiled); bf16 at S = Sk = 256 (tiled, ROADMAP B3)
+    for name, (bs, sq, sk, dt, rate, with_bias, causal) in \
+            TRANSFORMER_FWD_CASES.items():
+        q, k, v = _qkv(bs, WMT_HEADS, sq, sk, D, by_name[dt], gen)
+        both(f"transformer {name} B={bs} H={WMT_HEADS} S={sq} Sk={sk}", q,
+             k, v, sm, F32_TOL if dt == "f32" else BF16_TOL, causal=causal,
+             rate=rate, seed=seed,
+             bias=_padding_bias(bs, sk, gen) if with_bias else None)
+        del q, k, v
     if not {(tiled, f32), (tiled, bf16), (whole, bf16)} <= set(errs):
         raise AssertionError(f"forward cases by kernel and dtype: "
                              f"{sorted(map(str, errs))}")
 
     # time the served shape (batch 8, f32 and bf16), the trained one
-    # (batch 32: f32, also with dropout 0.1; bf16 with dropout 0.1) and
-    # the bench lane's (batch 256, bf16, no bias), SDPA beside each, the
-    # tiled kernel beside the whole-block one
+    # (batch 32: f32, also with dropout 0.1; bf16 with dropout 0.1), the
+    # bench lane's (batch 256, bf16, no bias) and transformer_big's, SDPA
+    # beside each, the tiled kernel beside the whole-block one
     timings = {tiled: [], whole: []}
     heads = {}
-    for bs, dt, rate, with_bias in (
-            (B, f32, 0.0, True), (B, bf16, 0.0, True),
-            (TRAIN_BATCH, f32, 0.0, True), (TRAIN_BATCH, f32, 0.1, True),
-            (TRAIN_BATCH, bf16, 0.1, True), (LANE_BATCH, bf16, 0.0, False)):
-        q, k, v = _qkv(bs, H, S, S, D, dt, gen)
-        bias = _padding_bias(bs, S, gen) if with_bias else None
-        mask = None if bias is None else bias[:, None, None, :].to(dt)
-        args = (q, k, v, sm, False, rate, seed, bias)
+    for bs, hh, sq, sk, dt, rate, with_bias, causal in (
+            (B, H, S, S, f32, 0.0, True, False),
+            (B, H, S, S, bf16, 0.0, True, False),
+            (TRAIN_BATCH, H, S, S, f32, 0.0, True, False),
+            (TRAIN_BATCH, H, S, S, f32, 0.1, True, False),
+            (TRAIN_BATCH, H, S, S, bf16, 0.1, True, False),
+            (LANE_BATCH, H, S, S, bf16, 0.0, False, False),
+            *((bs, WMT_HEADS, sq, sk, by_name[dt], rate, with_bias, causal)
+              for bs, sq, sk, dt, rate, with_bias, causal
+              in TRANSFORMER_FWD_CASES.values())):
+        q, k, v = _qkv(bs, hh, sq, sk, D, dt, gen)
+        bias = _padding_bias(bs, sk, gen) if with_bias else None
+        mask = _sdpa_mask(bias, sq, sk, causal, dt)
+        args = (q, k, v, sm, causal, rate, seed, bias)
         kern = whole if fa.fwd_route(q.shape, k.shape, dt) == "whole" \
             else tiled
         fn = (fa.flash_attention_fwd_whole_cuda if kern == whole
@@ -568,9 +657,11 @@ def phase_kernel():
         lib_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=rate, scale=sm))
         name = str(dt).replace("torch.", "")
-        bound_ms, bound_by, ops, nbytes = fwd_bound(bs, H, S, S, D, name,
-                                                    with_bias)
-        what = f"{name} B={bs} H={H} S={S} D={D}" + (
+        bound_ms, bound_by, ops, nbytes = fwd_bound(bs, hh, sq, sk, D, name,
+                                                    with_bias, causal)
+        what = f"{name} B={bs} H={hh} S={sq}" + (
+            f" Sk={sk}" if sk != sq else "") + f" D={D}" + (
+            " causal" if causal else "") + (
             " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
         beside = (f"; the tiled kernel on the same inputs {tiled_ms:.4f} ms, "
@@ -583,11 +674,12 @@ def phase_kernel():
         _check_bound(f"{kern} {what}", ms, bound_ms)
         row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   max_abs_err=errs[(kern, dt if with_bias else "lane")])
+                   max_abs_err=errs[(kern, "lane" if bs == LANE_BATCH
+                                     else dt)])
         if kern == whole:
             row["tiled_ms"] = tiled_ms
         timings[kern].append(row)
-        if (kern == tiled and rate) or not with_bias:
+        if hh == H and ((kern == tiled and rate) or not with_bias):
             heads[kern] = row  # the f32 train step's row, the lane's row
         del q, k, v
     return {kern: dict(heads[kern], timings=ts, max_abs_err_by_dtype={
@@ -612,16 +704,18 @@ def _check_bwd(name, got, want, tol):
 
 
 def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
-               bias=True):
+               bias=True, causal=False):
     """(bound_ms, bound_by, flop, bytes) of a backward function doing
-    ``flop_units``·B·H·S·Sk·D FLOP of ``dtype`` products, reading the bias
-    (if ``bias``) once. ``n_out`` "q" (dQ) or "kv" (dK and dV): a split
+    ``flop_units``·B·H·S·Sk·D FLOP of ``dtype`` products (with ``causal``,
+    S = Sk, over the S·(S+1)/2 pairs it keeps), reading the bias (if
+    ``bias``) once. ``n_out`` "q" (dQ) or "kv" (dK and dV): a split
     kernel, which reads q, k, v, dO, lse and delta once and writes its
     outputs once; "qkv": the whole backward, the function SDPA's backward
     computes, which reads its inputs q, k, v, O, dO and lse once and
     writes dQ, dK and dV once."""
     elt = 4 if dtype == "float32" else 2
-    flop = flop_units * B * H * S * Sk * D
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    flop = flop_units * B * H * pairs * D
     q_b, kv_b = B * H * S * D * elt, B * H * Sk * D * elt
     rows = B * H * S * 4  # lse or delta, f32
     nbytes = B * Sk * 4 * bias + {
@@ -631,7 +725,7 @@ def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
     return (*bound(flop, nbytes, dtype), flop, nbytes)
 
 
-def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed):
+def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed, causal=False):
     """The whole backward (dQ, dK and dV) of SDPA and of the port, each
     timed on the device as (forward + backward) minus the forward alone,
     both captured into CUDA graphs (SDPA's dropout RNG captures too): →
@@ -642,18 +736,19 @@ def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    mask = _sdpa_mask(bias, q.shape[2], k.shape[2], causal, q.dtype)
 
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                               dropout_p=rate, scale=sm)
 
     def port():
-        return fa.flash_attention_cuda(q, k, v, sm, False, rate, seed, bias)
+        return fa.flash_attention_cuda(q, k, v, sm, causal, rate, seed,
+                                       bias)
 
     def port_fwd_bwd():
         o, lse = port()
-        return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, sm, False,
+        return fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, sm, causal,
                                            rate, seed, bias)
     sdpa_ms = _cuda_ms(lambda: torch.autograd.grad(
         sdpa(), (qs, ks, vs), do)) - _cuda_ms(sdpa)
@@ -754,6 +849,15 @@ def phase_kernel_bwd():
     both(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} bf16 no bias", q, k,
          v, sm, BF16_TOL, tag="lane")
     del q, k, v
+    # transformer_big's bf16 training step (fused) and bf16 at S = 256
+    # (split, ROADMAP B3)
+    for name in ("train self-attention", "B3 S=256"):
+        bs, sq, sk, _, rate, with_bias, causal = TRANSFORMER_FWD_CASES[name]
+        q, k, v = _qkv(bs, WMT_HEADS, sq, sk, D, bf16, gen)
+        both(f"transformer {name} B={bs} H={WMT_HEADS} S={sq} Sk={sk}", q,
+             k, v, sm, BF16_TOL, causal=causal, rate=rate, seed=seed,
+             bias=_padding_bias(bs, sk, gen) if with_bias else None)
+        del q, k, v
     # every kernel ran in each dtype it has an instance of (bf16 beyond
     # S, Sk = 128 takes the split kernels)
     ran = {(kern, tag) for kern, tag in errs}
@@ -763,33 +867,42 @@ def phase_kernel_bwd():
 
     # time at the training shape: B=32, H=12, S=128, D=64, bias; f32
     # without and with dropout 0.1 (as the training step runs them), bf16;
-    # and at the bench lane's: B=256, bf16, no bias
+    # at the bench lane's: B=256, bf16, no bias; at transformer_big's bf16
+    # step (B=48, H=16, S=64, causal, bias, dropout 0.3); and bf16 at
+    # S = 256 (ROADMAP B3)
     split = (("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
               fa.flash_attention_bwd_kv_reference, 8, "kv"),
              ("flash_attention_bwd_q", fa.flash_attention_bwd_q_cuda,
               fa.flash_attention_bwd_q_reference, 6, "q"))
     rows, timings = {}, {}
-    for bs, dt, rate, with_bias in ((B, f32, 0.0, True), (B, f32, 0.1, True),
-                                    (B, bf16, 0.0, True),
-                                    (LANE_BATCH, bf16, 0.0, False)):
-        q, k, v = _qkv(bs, H, S, S, D, dt, gen)
-        bias = _padding_bias(bs, S, gen) if with_bias else None
+    b3_batch, b3_len = TRANSFORMER_FWD_CASES["B3 S=256"][:2]
+    for bs, hh, n, dt, rate, with_bias, causal in (
+            (B, H, S, f32, 0.0, True, False), (B, H, S, f32, 0.1, True, False),
+            (B, H, S, bf16, 0.0, True, False),
+            (LANE_BATCH, H, S, bf16, 0.0, False, False),
+            (WMT_BATCH, WMT_HEADS, WMT_LEN, bf16, WMT_DROPOUT, True, True),
+            (b3_batch, WMT_HEADS, b3_len, bf16, 0.0, True, False)):
+        q, k, v = _qkv(bs, hh, n, n, D, dt, gen)
+        bias = _padding_bias(bs, n, gen) if with_bias else None
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-        o, lse = fa.flash_attention_cuda(q, k, v, sm, False, rate, seed, bias)
+        o, lse = fa.flash_attention_cuda(q, k, v, sm, causal, rate, seed,
+                                         bias)
         name_dt = str(dt).replace("torch.", "")
-        what = f"{name_dt} B={bs} H={H} S={S} D={D}" + (
+        what = f"{name_dt} B={bs} H={hh} S={n} D={D}" + (
+            " causal" if causal else "") + (
             " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
         route = fa.bwd_route(q.shape, k.shape, dt)
-        err_tag = dt if with_bias else "lane"
-        lib_ms, port_ms = _bwd_yardstick(q, k, v, do, bias, sm, rate, seed)
+        err_tag = "lane" if bs == LANE_BATCH else dt
+        lib_ms, port_ms = _bwd_yardstick(q, k, v, do, bias, sm, rate, seed,
+                                         causal)
         # the plain version's dropout mask reads the seed on the host,
         # which a graph cannot capture: with dropout it is timed eagerly
         plain_iters = 50 if bs <= B else 10
-        bnd, by, flop, nbytes = _bwd_bound(bs, H, S, S, D, 10, "qkv",
-                                           name_dt, with_bias)
+        bnd, by, flop, nbytes = _bwd_bound(bs, hh, n, n, D, 10, "qkv",
+                                           name_dt, with_bias, causal)
         if route == "fused":
-            bwd_args = (q, k, v, o, lse, do, sm, False, rate, seed, bias)
+            bwd_args = (q, k, v, o, lse, do, sm, causal, rate, seed, bias)
             ms = _cuda_ms(lambda: fa.flash_attention_bwd_fused_cuda(
                 *bwd_args))
             eager_ms = _cuda_ms(lambda: fa.flash_attention_bwd_fused_cuda(
@@ -819,7 +932,7 @@ def phase_kernel_bwd():
             alone = f"the fused kernel alone {ms:.4f} ms"
         else:
             delta = fa.bwd_delta(o, do)
-            args = (q, k, v, do, lse, delta, sm, False, rate, seed, bias)
+            args = (q, k, v, do, lse, delta, sm, causal, rate, seed, bias)
             delta_ms = _cuda_ms(lambda: fa.bwd_delta(o, do))
             kern_ms = 0.0
             for name, cuda_fn, plain_fn, units, outs in split:
@@ -828,7 +941,7 @@ def phase_kernel_bwd():
                 plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate,
                                  iters=plain_iters)
                 kbnd, kby, kflop, kbytes = _bwd_bound(
-                    bs, H, S, S, D, units, outs, name_dt, with_bias)
+                    bs, hh, n, n, D, units, outs, name_dt, with_bias, causal)
                 _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms "
                      f"(issued one by one from Python {eager_ms:.4f} ms), "
                      f"plain {plain:.4f} ms, SDPA backward (dQ, dK, dV "
@@ -840,7 +953,7 @@ def phase_kernel_bwd():
                            plain_ms=plain, library_ms=lib_ms, bound_ms=kbnd,
                            bound_by=kby, max_abs_err=errs[(name, dt)])
                 timings.setdefault(name, []).append(row)
-                if rate:  # the f32 train step's row heads the entry
+                if rate and dt == f32:  # the f32 train step's row heads it
                     rows[name] = row
             alone = (f"the two kernels alone {kern_ms:.4f} ms (they "
                      f"execute 14·B·H·S·Sk·D FLOP, recomputing QK^T and "
@@ -1760,19 +1873,28 @@ def _check_train_against_cpu(cfg):
     fetch = [loss] + [n + "@GRAD" for n in names]
     feed = _train_batch(np.random.RandomState(SEED + 3), CHECK_BATCH, cfg)
     gpu, cpu, _, _ = _card_and_cpu_step(main, startup, fetch, feed)
+    _loss_and_grads_agree(f"[train] batch {CHECK_BATCH} dropout 0", names,
+                          gpu, cpu)
+
+
+def _loss_and_grads_agree(what, names, gpu, cpu):
+    """A step's fetches on the card against the CPU's: the loss within
+    LOSS_TOL relative, each grad of ``names`` within GRAD_TOL of its
+    largest magnitude; logged under ``what``, else a failure."""
+    import numpy as np
+    tag = what.split()[0]
     ok = abs(float(gpu[0][0]) - float(cpu[0][0])) \
         <= LOSS_TOL * abs(float(cpu[0][0]))
-    _log(f"[train] batch {CHECK_BATCH} dropout 0, card vs CPU: loss "
-         f"{float(gpu[0][0]):.6f} vs {float(cpu[0][0]):.6f} "
-         f"(tol {LOSS_TOL:g} relative)")
+    _log(f"{what}, card vs CPU: loss {float(gpu[0][0]):.6f} vs "
+         f"{float(cpu[0][0]):.6f} (tol {LOSS_TOL:g} relative)")
     for name, g, c in zip(names, gpu[1:], cpu[1:]):
         scale = float(np.abs(c).max())
         err = float(np.abs(g - c).max())
         ok = ok and err <= GRAD_TOL * scale
-        _log(f"[train]   {name}@GRAD {tuple(c.shape)}: max|d| {err:.3e}, "
+        _log(f"{tag}   {name}@GRAD {tuple(c.shape)}: max|d| {err:.3e}, "
              f"max|grad| {scale:.3e} (tol {GRAD_TOL:g} of it)")
     if not ok:
-        raise AssertionError("the training step on the card disagrees with "
+        raise AssertionError(f"{what}: the step on the card disagrees with "
                              "the CPU run")
 
 
@@ -2923,6 +3045,386 @@ def phase_resnet(profile=False):
 
 
 # --------------------------------------------------------------------------
+# 11. transformer
+# --------------------------------------------------------------------------
+WMT_STEP_WANT = (0, 0, 0, 18, 42, 36)  # transformer_big's bf16 step: 18
+#                               attention ops (6 encoder, 6 + 6 decoder) on
+#                               the fused route, each forward run twice (the
+#                               generic grad re-runs it), 42 dropout ops
+WMT_DECODE_WANT = (18, 0, 0, 0, 0, 0)  # a decode run: the 18 forwards, f32
+WMT_LANE_WANT = (0, 0, 0, 6, 0, 12)  # bench's transformer lane, 2 + 2 layers
+WMT_WARMUP = 3                # steps before the timed ones
+WMT_STEPS = 20                # bf16 steps timed
+WMT_FALL_STEPS = 8            # steps on one repeated batch
+WMT_NOAM_WARMUP = 4000        # transformer_big's Noam warm-up
+WMT_LR_RTOL = 1e-6            # the Noam LR against its formula in float64
+WMT_CHECK_BATCH = 4           # f32 card vs CPU at 1 + 1 layers
+WMT_GRAPH_BATCH = 8           # bf16 compiled vs interpreted at 1 + 1 layers
+WMT_LOGIT_TOL = 1e-3          # decode logits, card vs CPU, of max |logit|
+
+
+def _wmt_cfg(**kw):
+    """transformer_big_config(), uncut unless ``kw`` says otherwise."""
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.transformer_big_config()
+    cfg.update(kw)
+    return cfg
+
+
+def _wmt_train_program(cfg, batch=None):
+    """build_wmt_train_program at WMT_LEN, Noam decay (lr None), the
+    phase's seed → (main, startup, loss, the Adam ops' LR var)."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer
+    with fluid.unique_name.guard():
+        main, startup, _, loss = transformer.build_wmt_train_program(
+            cfg, src_len=WMT_LEN, trg_len=WMT_LEN, lr=None,
+            warmup_steps=WMT_NOAM_WARMUP)
+    startup.random_seed = main.random_seed = SEED
+    lr = [op for op in main.global_block().ops
+          if op.type == "adam"][0].input("LearningRate")[0]
+    return main, startup, loss, lr
+
+
+def _ragged_mask(rng, bs, n):
+    """[bs, n] 1/0 keep-mask: every other row padded at its end."""
+    import numpy as np
+    m = np.ones((bs, n), "float32")
+    for i in range(0, bs, 2):
+        m[i, rng.randint(n // 2, n):] = 0.0
+    return m
+
+
+def _wmt_batch(rng, bs, cfg):
+    """Random ids from ``rng`` and ragged masks (labels at padding
+    positions are masked out of the loss)."""
+    return {"src_ids": rng.randint(0, cfg["src_vocab"],
+                                   (bs, WMT_LEN)).astype("int64"),
+            "src_mask": _ragged_mask(rng, bs, WMT_LEN),
+            "trg_ids": rng.randint(0, cfg["trg_vocab"],
+                                   (bs, WMT_LEN)).astype("int64"),
+            "trg_mask": _ragged_mask(rng, bs, WMT_LEN),
+            "labels": rng.randint(0, cfg["trg_vocab"],
+                                  (bs, WMT_LEN, 1)).astype("int64")}
+
+
+def _noam(step, d_model):
+    """Noam decay at ``step`` (from 1), in float64."""
+    return d_model ** -0.5 * min(step ** -0.5,
+                                 step * WMT_NOAM_WARMUP ** -1.5)
+
+
+def _wmt_train_bf16(profile):
+    """transformer_big's training step in bf16 products at B = 48, S = 64,
+    dropout 0.3, Noam: gated launches each step, the LR against Noam's
+    formula, a trace of one replay, the loss falling on a repeated batch.
+    → (launches through the wrappers, launches run on the card)."""
+    import collections
+    import gc
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import bench, fluid
+    cfg = _wmt_cfg()
+    main, startup, loss, lr = _wmt_train_program(cfg)
+    ops = main.global_block().ops
+    want = _step_want(ops, "fused")
+    if want != WMT_STEP_WANT:
+        raise AssertionError(f"transformer step: want {want} launches, not "
+                             f"{WMT_STEP_WANT}")
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = main.global_block().all_parameters()
+    n_params = sum(scope.find_var(p.name).value().array.numel()
+                   for p in params)
+    _log(f"[transformer] transformer_big training step: {cfg['enc_layers']} "
+         f"+ {cfg['dec_layers']} layers, d_model {cfg['d_model']}, d_inner "
+         f"{cfg['d_inner']}, {cfg['heads']} heads, vocab {cfg['trg_vocab']}, "
+         f"label smoothing {cfg['label_smooth']}, dropout {cfg['dropout']}, "
+         f"Noam (warm-up {WMT_NOAM_WARMUP}), Adam; {len(ops)} ops, "
+         f"{len(params)} parameters ({n_params} values); batch {WMT_BATCH} x "
+         f"{WMT_LEN} source and target tokens, bf16 products")
+    rng = np.random.RandomState(0)
+    pool = [_wmt_batch(rng, WMT_BATCH, cfg) for _ in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    runs = collections.Counter()
+    lrs = []
+
+    def step(feed):
+        b = _launch_counts()
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+        dt = time.perf_counter() - t
+        delta = tuple(x - y for x, y in zip(_launch_counts(), b))
+        runs[_gate_run(exe, delta, want, "a transformer step")] += 1
+        value = float(out[0].reshape(-1)[0])
+        if not np.isfinite(value):
+            raise AssertionError(f"non-finite loss {value}")
+        lrs.append(float(out[1].reshape(-1)[0]))
+        return value, dt
+
+    with _lane_flags():
+        for i in range(WMT_WARMUP):
+            step(pool[i % len(pool)])
+        times = [step(pool[i % len(pool)])[1] for i in range(WMT_STEPS)]
+        fall = [step(pool[0])[0] for _ in range(WMT_FALL_STEPS)]
+        peak = torch.cuda.max_memory_allocated() - before
+        wrapper = _launch_counts()
+        _check_trace(_device_kernel_counts(lambda: step(pool[1])), want,
+                     f"transformer bf16 batch {WMT_BATCH} step")
+        if profile:
+            _profile_step(exe, main, loss, scope, pool[1],
+                          f"transformer bf16 batch {WMT_BATCH} step")
+    want_lr = [_noam(i + 1, cfg["d_model"]) for i in range(len(lrs))]
+    lr_err = max(abs(a - b) / b for a, b in zip(lrs, want_lr))
+    _log(f"[transformer] Noam LR over {len(lrs)} runs: {lrs[0]:.6e} .. "
+         f"{lrs[-1]:.6e}, max relative error {lr_err:.2e} against "
+         f"d^-0.5 min(t^-0.5, t w^-1.5) (tol {WMT_LR_RTOL:g})")
+    if lr_err > WMT_LR_RTOL:
+        raise AssertionError("the LR does not follow Noam decay")
+    ms = np.asarray(times) * 1e3
+    p50 = float(np.percentile(ms, 50))
+    tokens = 2 * WMT_BATCH * WMT_LEN
+    mfu = bench.transformer_flops_per_step(cfg, WMT_BATCH, WMT_LEN, WMT_LEN) \
+        / (p50 / 1e3) / bench.H100_BF16_PEAK_FLOPS
+    _log(f"[transformer] bf16 batch {WMT_BATCH}: {WMT_STEPS} steps, step "
+         f"p50 {p50:.3f} ms p90 {np.percentile(ms, 90):.3f} ms max "
+         f"{ms.max():.3f} ms, {tokens / (p50 / 1e3):.0f} tokens/s (source "
+         f"and target), {WMT_BATCH / (p50 / 1e3):.2f} sentence pairs/s, "
+         f"mfu_vs_h100_bf16_peak {mfu:.4f}; peak device memory "
+         f"{peak / 2**30:.3f} GiB (less the {before / 2**30:.3f} GiB "
+         f"allocated before)")
+    _log(f"[transformer] {dict(runs)} runs; launches through the wrappers "
+         f"{wrapper}, {want} a step {GATE_NAMES}")
+    _log(f"[transformer] repeated batch, {WMT_FALL_STEPS} steps: " +
+         " ".join(f"{x:.4f}" for x in fall))
+    if not (fall[-1] < fall[0]
+            and np.mean(fall[-3:]) < np.mean(fall[:3])):
+        raise AssertionError("the transformer's loss does not fall on a "
+                             "repeated batch")
+    exe.close()
+    del exe, scope
+    return wrapper, tuple(sum(runs.values()) * w for w in want)
+
+
+def _wmt_graph_against_interpreter():
+    """At 1 + 1 layers of the full widths, bf16 products, dropout 0.3:
+    3 steps compiled (eager, capture, replay) against 3 interpreted, from
+    the same startup: losses, LRs and every persistable bitwise."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    cfg = _wmt_cfg(enc_layers=1, dec_layers=1)
+    main, startup, loss, lr = _wmt_train_program(cfg)
+    rng = np.random.RandomState(1)
+    feeds = [_wmt_batch(rng, WMT_GRAPH_BATCH, cfg) for _ in range(3)]
+    got, state = {}, {}
+    try:
+        with _lane_flags():
+            for mode in ("compiled", "interpreted"):
+                fluid.core.set_flag("FLAGS_executor_mode", mode)
+                exe, scope = fluid.Executor(fluid.CUDAPlace(0)), \
+                    fluid.Scope()
+                exe.run(startup, scope=scope)
+                got[mode] = [exe.run(main, feed=f, fetch_list=[loss, lr],
+                                     scope=scope) for f in feeds]
+                if mode == "compiled" and \
+                        exe._last_block.last_exec != "replay":
+                    raise AssertionError("the third compiled step was not "
+                                         "a replay")
+                state[mode] = _persistables(scope, main)
+                exe.close()
+    finally:
+        fluid.core.set_flag("FLAGS_executor_mode", "compiled")
+    _bitwise("transformer 1 + 1 layers bf16, 3 steps (eager, capture, "
+             "replay) vs interpreted: losses and LRs",
+             [x for r in got["compiled"] for x in r],
+             [x for r in got["interpreted"] for x in r], "[transformer]")
+    names = sorted(state["compiled"])
+    _bitwise(f"the same after 3 steps: {len(names)} persistables",
+             [state["compiled"][n] for n in names],
+             [state["interpreted"][n] for n in names], "[transformer]")
+
+
+def _wmt_f32_against_cpu():
+    """One f32 step at 1 + 1 layers of the full widths, dropout 0, on the
+    card (the tiled forward and the split backward) and by the port on
+    the CPU from the same weights: the loss and three grads at the train
+    phase's tolerances."""
+    import numpy as np
+    cfg = _wmt_cfg(enc_layers=1, dec_layers=1, dropout=0.0)
+    main, startup, loss, _ = _wmt_train_program(cfg)
+    ops = main.global_block().ops
+    want = _step_want(ops, "split")
+    muls = [op for op in ops if op.type == "mul"]
+    names = ["src_embedding", muls[0].input("Y")[0], "trg_proj"]
+    fetch = [loss] + [n + "@GRAD" for n in names]
+    feed = _wmt_batch(np.random.RandomState(2), WMT_CHECK_BATCH, cfg)
+    before = _launch_counts()
+    gpu, cpu, (exe, _), _ = _card_and_cpu_step(main, startup, fetch, feed)
+    delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+    _gate_run(exe, delta, want, "the f32 transformer step")
+    _loss_and_grads_agree(f"[transformer] f32 1 + 1 layers batch "
+                          f"{WMT_CHECK_BATCH}, {want} launches", names, gpu,
+                          cpu)
+    exe.close()
+
+
+def _greedy(exe, main, logits, scope, src, smask, trg, each=None):
+    """Greedy decode in place: run ``main`` once a position and write each
+    argmax into ``trg`` (the same array, fed again each run); ``each``
+    is called after every run with (position, seconds)."""
+    for pos in range(trg.shape[1] - 1):
+        t = time.perf_counter()
+        out, = exe.run(main, feed={"src_ids": src, "src_mask": smask,
+                                   "trg_ids": trg},
+                       fetch_list=[logits], scope=scope)
+        dt = time.perf_counter() - t
+        trg[:, pos + 1] = out[:, pos].argmax(-1)
+        if each is not None:
+            each(pos, dt)
+    return trg
+
+
+def _wmt_decode(profile=False):
+    """Greedy decode of transformer_big in f32 at dropout 0: B = 8, 64
+    source tokens, 80 target positions, 79 runs of one compiled program
+    (the tiled forward: cross-attention 80 over 64 keys, causal
+    self-attention 80 x 80). Gates: every run compiled with (18, 0, ...)
+    launches, each run re-feeds the mutated target array (an upload, the
+    other feeds cache hits), a trace of one replay. Then the CPU port
+    decodes greedily from the same weights, and on its tokens (a
+    teacher-forced prefix) the card's logits at every position against
+    the CPU's. → (wrapper launches, executed launches)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import transformer
+    cfg = _wmt_cfg(dropout=0.0)
+    with fluid.unique_name.guard():
+        main, startup, _, logits = transformer.build_greedy_decode_program(
+            cfg, src_len=WMT_LEN, max_out_len=WMT_DECODE_OUT)
+    startup.random_seed = main.random_seed = SEED
+    rng = np.random.RandomState(3)
+    src = rng.randint(0, cfg["src_vocab"],
+                      (WMT_DECODE_BATCH, WMT_LEN)).astype("int64")
+    smask = _ragged_mask(rng, WMT_DECODE_BATCH, WMT_LEN)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    _reset_launch_counts()
+    times, kinds = [], []
+    last = [_launch_counts(), (0, 0)]
+
+    def gate(pos, dt):
+        """The run's launches, and its feeds: the first uploads all three,
+        each later one the mutated trg_ids alone."""
+        now = _launch_counts()
+        delta = tuple(a - b for a, b in zip(now, last[0]))
+        kinds.append(_gate_run(exe, delta, WMT_DECODE_WANT, "a decode run"))
+        fs = (exe.feed_stats["uploads"], exe.feed_stats["cache_hits"])
+        moved = tuple(a - b for a, b in zip(fs, last[1]))
+        if moved != ((3, 0) if pos == 0 else (1, 2)):
+            raise AssertionError(f"decode run {pos}: {moved[0]} uploads, "
+                                 f"{moved[1]} cache hits; want the mutated "
+                                 "trg_ids uploaded, the 2 others hit")
+        last[:] = [now, fs]
+        times.append(dt)
+
+    last[1] = (exe.feed_stats["uploads"], exe.feed_stats["cache_hits"])
+    trg = _greedy(exe, main, logits, scope, src, smask,
+                  np.zeros((WMT_DECODE_BATCH, WMT_DECODE_OUT), "int64"),
+                  gate)  # BOS = 0
+    wrapper = _launch_counts()
+    n_runs = len(kinds)
+    if kinds[:3] != ["eager", "capture", "replay"] \
+            or set(kinds[2:]) != {"replay"}:
+        raise AssertionError(f"decode runs {kinds[:4]} ...")
+    if wrapper != tuple(2 * w for w in WMT_DECODE_WANT):
+        raise AssertionError(f"decode launches through the wrappers "
+                             f"{wrapper}: want the eager run's and the "
+                             "capture's")
+    feed = {"src_ids": src, "src_mask": smask, "trg_ids": trg}
+    _check_trace(_device_kernel_counts(lambda: exe.run(
+        main, feed=feed, fetch_list=[logits], scope=scope)),
+        WMT_DECODE_WANT, f"decode run batch {WMT_DECODE_BATCH}")
+    if profile:
+        _profile_step(exe, main, logits, scope, feed,
+                      f"greedy decode run batch {WMT_DECODE_BATCH}")
+    ms = np.asarray(times[2:]) * 1e3
+    _log(f"[transformer] greedy decode f32 batch {WMT_DECODE_BATCH}, "
+         f"{WMT_LEN} source tokens, {WMT_DECODE_OUT} positions: {n_runs} "
+         f"runs (eager, capture, {n_runs - 2} replays); per decode step "
+         f"(replays) p50 {np.percentile(ms, 50):.3f} ms p99 "
+         f"{np.percentile(ms, 99):.3f} ms, "
+         f"{WMT_DECODE_BATCH / (np.percentile(ms, 50) / 1e3):.1f} tokens/s; "
+         f"each run uploaded only the mutated trg_ids")
+    # the CPU port from the card's weights: its own greedy tokens, then
+    # both sides' logits on those tokens
+    cpu_scope = fluid.Scope()
+    for v in main.global_block().vars.values():
+        if v.persistable:
+            cpu_scope.var(v.name).set_value(fluid.LoDTensor(
+                scope.find_var(v.name).value().array.cpu()))
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    t = time.perf_counter()
+    cpu_trg = _greedy(cpu_exe, main, logits, cpu_scope, src, smask,
+                      np.zeros_like(trg))
+    cpu_s = time.perf_counter() - t
+    fed = {"src_ids": src, "src_mask": smask, "trg_ids": cpu_trg}
+    card_l, = exe.run(main, feed=fed, fetch_list=[logits], scope=scope)
+    cpu_l, = cpu_exe.run(main, feed=fed, fetch_list=[logits],
+                         scope=cpu_scope)
+    err = float(np.abs(card_l - cpu_l).max())
+    scale = float(np.abs(cpu_l).max())
+    same = float((trg == cpu_trg).mean())
+    _log(f"[transformer] decode logits on the CPU port's greedy tokens "
+         f"({n_runs} CPU runs, {cpu_s:.1f} s): card vs CPU max|d| "
+         f"{err:.3e} of max|logit| {scale:.3e} over all "
+         f"{WMT_DECODE_OUT} positions (tol {WMT_LOGIT_TOL:g} of it); the "
+         f"card's own greedy tokens equal the CPU's at {same:.1%} of "
+         f"positions (random weights: an argmax flips on rounding)")
+    if not err <= WMT_LOGIT_TOL * scale:
+        raise AssertionError("decode logits on the card disagree with the "
+                             "CPU's")
+    exe.close()
+    return wrapper, tuple(n_runs * w for w in WMT_DECODE_WANT)
+
+
+def _wmt_lane():
+    """bench's transformer lane (``python3 -m paddle_tpu_torch.bench
+    transformer``): its JSON line, and the bench lanes' gates."""
+    from paddle_tpu_torch import bench
+    _reset_launch_counts()
+    lane = bench.run_transformer()
+    wrapper = _launch_counts()
+    res = lane.res
+    print(json.dumps(res), flush=True)
+    want = _step_want(lane.main.global_block().ops, "fused")
+    if want != WMT_LANE_WANT:
+        raise AssertionError(f"transformer lane: want {want} launches a "
+                             f"step, not {WMT_LANE_WANT}")
+    runs = _gate_lane(lane, wrapper, want, "transformer lane")
+    _log(f"[transformer] lane: batch {res['batch']}, {res['value']} ms a "
+         f"step, {res['samples_per_sec']} samples/s, peak "
+         f"{res['peak_memory_gib']} GiB, mfu_vs_h100_bf16_peak "
+         f"{res['mfu_vs_h100_bf16_peak']}; {want} launches a step")
+    lane.close()
+    return wrapper, tuple((runs["eager"] + runs["replays"]) * w
+                          for w in want)
+
+
+def phase_transformer(profile=False):
+    """Phase 11: transformer_big on the port (the docstring's phase 11)."""
+    parts = [_wmt_train_bf16(profile)]
+    _wmt_graph_against_interpreter()
+    _wmt_f32_against_cpu()
+    parts.append(_wmt_decode(profile))
+    parts.append(_wmt_lane())
+    return {"wrapper": tuple(map(sum, zip(*(p[0] for p in parts)))),
+            "executed": tuple(map(sum, zip(*(p[1] for p in parts))))}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -2959,6 +3461,7 @@ def main(argv=None) -> int:
     paths["amp"] = phase_amp(paths["train"], profile=args.profile)
     paths["guard"] = phase_guard()
     paths["resnet"] = phase_resnet(profile=args.profile)
+    paths["transformer"] = phase_transformer(profile=args.profile)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

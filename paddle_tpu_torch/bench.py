@@ -1,6 +1,7 @@
 """The port's benchmark entry point; prints ONE JSON line:
 
-    python3 -m paddle_tpu_torch.bench [bert|mnist|resnet] [--device cpu]
+    python3 -m paddle_tpu_torch.bench [bert|mnist|resnet|transformer]
+                                      [--device cpu]
 
 Each lane is the function of the same name in the repository's bench.py
 (the TPU package's), with what it configures ported unchanged: the model,
@@ -23,30 +24,42 @@ is all graph replays).
          from ``rand``, labels from ``randint(0, 1000)``),
          FLAGS_use_bf16_matmul on (bf16 convolutions), Momentum(0.1,
          0.9), batch 64 with the OOM ladder 64/32/16, 10 steps.
+  transformer
+         bench.py's bench_allreduce_dp at one device: the WMT Transformer
+         training step at transformer_big's widths (d_model 1024, d_inner
+         4096, 16 heads) with vocab 4096, 2 + 2 layers, dropout 0,
+         FLAGS_use_bf16_matmul on, Adam lr 1e-4, batch 8 at S = 64, random
+         ids and all-ones masks, 10 steps timed after a warm window of 3.
 
 The lanes run on the card (``cuda``); ``--device cpu`` runs them on the
 CPU, the bert lane at bench.py's CPU smoke configuration (2 layers, hidden
 256, 4 heads, ffn 1024, batch 8, S=64, 3 steps), the resnet lane at its
-own (batch 8, image 64, 3 steps). Without a card and without ``--device
-cpu`` the lane fails: nothing falls back to the CPU.
+own (batch 8, image 64, 3 steps), the transformer lane at its own
+(d_model 128, d_inner 256, 4 heads, batch 2, S = 16). Without a card and
+without ``--device cpu`` the lane fails: nothing falls back to the CPU.
 
 Keys of the line: ``metric``, ``value`` (samples/s), ``unit``,
 ``vs_baseline``, ``batch``, ``steps``, ``step_ms``, ``device``,
 ``executor_mode``, ``timed_window`` (the timed window's eager runs,
 captures and replays), ``loss`` (its last step's) and, for bert,
-``seq_len`` and ``recompute``, for resnet ``image_size``. On the card
+``seq_len`` and ``recompute``, for resnet ``image_size``. The transformer
+lane's line is bench.py's (``metric`` fleet_dp_step_ms_transformer_big,
+``value`` in ms/step, ``devices`` 1, ``batch``) with ``samples_per_sec``,
+``seq_len`` and the keys above. On the card
 also ``power_limit`` (as nvidia-smi reports the card's name and power
 limit) and ``peak_memory_gib`` (``torch.cuda.max_memory_allocated``), and
-for bert and resnet ``mfu_vs_h100_bf16_peak``: bench.py's FLOP count
-(bert: 6·N·tokens + attention; resnet: 3 · 3.8 GFLOP a 224×224 sample,
-scaled with the pixels) over the H100's 989 TFLOP/s of dense bf16. A
+for bert, resnet and transformer ``mfu_vs_h100_bf16_peak``: bench.py's
+FLOP count (bert: 6·N·tokens + attention; resnet: 3 · 3.8 GFLOP a 224×224
+sample, scaled with the pixels; transformer: ``transformer_flops_per_step``)
+over the H100's 989 TFLOP/s of dense bf16. A
 failure prints bench.py's error form (``<lane>_error``) and exits with 1.
 
-``run_bert_base``, ``run_mnist_mlp`` and ``run_resnet50`` run a lane and
+``run_bert_base``, ``run_mnist_mlp``, ``run_resnet50`` and
+``run_transformer`` run a lane and
 return a ``Lane``: the result with the executor, scope, program, feed and
 fetches it ran, for a caller that looks further into the run;
-``Lane.close()`` frees the card. ``bench_bert_base``, ``bench_mnist_mlp``
-and ``bench_resnet50`` return the result alone.
+``Lane.close()`` frees the card. ``bench_bert_base``, ``bench_mnist_mlp``,
+``bench_resnet50`` and ``bench_transformer`` return the result alone.
 """
 from __future__ import annotations
 
@@ -102,15 +115,16 @@ def _card():
     return name, limit
 
 
-def _timed_steps(exe, main, feed, fetch_list, steps, scope):
-    """bench.py's harness: a warm window of ``steps`` steps, then the
-    timed one, each ONE Executor.run(n_steps=steps); the clock stops after
-    the timed window's last loss is on the host. → (seconds, the timed
-    window's eager/capture/replay counts, its last loss)."""
+def _timed_steps(exe, main, feed, fetch_list, steps, scope, warmup=None):
+    """bench.py's harness: a warm window of ``warmup`` steps (default
+    ``steps``), then the timed one of ``steps``, each ONE
+    Executor.run(n_steps=...); the clock stops after the timed window's
+    last loss is on the host. → (seconds, the timed window's
+    eager/capture/replay counts, its last loss)."""
     from .fluid import core
     core.set_flag("FLAGS_feed_device_cache", True)
     exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope,
-            return_numpy=False, n_steps=steps)
+            return_numpy=False, n_steps=steps if warmup is None else warmup)
     blocks = list(exe._compiled_cache.values())
     before = [dict(cb.stats) for cb in blocks]
     if exe.device.type == "cuda":
@@ -134,7 +148,7 @@ def _is_oom(e) -> bool:
         or "out of memory" in str(e)
 
 
-def _run_lane(name, build, feed_of, batches, steps, device):
+def _run_lane(name, build, feed_of, batches, steps, device, warmup=None):
     """Run ``steps``-step windows at the first batch of ``batches`` that
     fits (bench.py's OOM ladder): on an OOM the executor's graphs, memory
     pool and cached feeds and the scope are dropped and the cache emptied
@@ -159,7 +173,7 @@ def _run_lane(name, build, feed_of, batches, steps, device):
         try:
             exe.run(startup, scope=scope)
             dt, window, loss = _timed_steps(exe, main, feed, fetches, steps,
-                                            scope)
+                                            scope, warmup)
         except Exception as e:  # noqa: BLE001 — the ladder's own test
             exe.close()
             del exe, scope
@@ -335,6 +349,78 @@ def run_resnet50(batch=64, image_size=224, steps=10,
     return Lane(res, *ran)
 
 
+def transformer_flops_per_step(cfg, batch, src_len, trg_len):
+    """FLOPs of one training step of the WMT Transformer, counted from the
+    program's shapes: every GEMM at 2 FLOP a multiply-add (the Q, K, V
+    and output projections, the FFN's two, the vocabulary projection)
+    plus the attention's two products, 4·B·H·S·Sk·D a forward (causal
+    attention counted whole), and ×3 for the forward and backward."""
+    d, f, v = cfg["d_model"], cfg["d_inner"], cfg["trg_vocab"]
+    ts, tt = batch * src_len, batch * trg_len
+    enc = 8 * d * d * ts + 4 * d * f * ts + 4 * batch * src_len ** 2 * d
+    dec = (8 * d * d * tt + 4 * batch * trg_len ** 2 * d  # self-attention
+           + 4 * d * d * tt + 4 * d * d * ts             # cross: Q, O; K, V
+           + 4 * batch * trg_len * src_len * d
+           + 4 * d * f * tt)
+    fwd = (cfg["enc_layers"] * enc + cfg["dec_layers"] * dec
+           + 2 * d * v * tt)
+    return 3 * fwd
+
+
+def run_transformer(batch=8, seq_len=64, steps=10, warmup=3,
+                    device="cuda") -> Lane:
+    """bench.py's bench_allreduce_dp lane (bench.py:568-609) at one
+    device."""
+    from .fluid import core
+    from .models import transformer
+
+    cfg = transformer.transformer_big_config()
+    cfg.update(src_vocab=4096, trg_vocab=4096, enc_layers=2, dec_layers=2,
+               dropout=0.0)
+    smoke = device == "cpu"
+    if smoke:  # bench.py's CPU configuration: the path, not the number
+        cfg.update(d_model=128, d_inner=256, heads=4)
+        batch, seq_len = 2, 16
+    core.set_flag("FLAGS_use_bf16_matmul", True)  # bf16 tensor cores
+
+    def build():
+        from . import fluid
+        with fluid.unique_name.guard():
+            main, startup, _, loss = transformer.build_wmt_train_program(
+                cfg, src_len=seq_len, trg_len=seq_len, lr=1e-4)
+        return main, startup, [loss]
+
+    rng = np.random.RandomState(0)
+
+    def feed_of(b):
+        sv, tv = cfg["src_vocab"], cfg["trg_vocab"]
+        return {
+            "src_ids": rng.randint(0, sv, (b, seq_len)).astype("int64"),
+            "src_mask": np.ones((b, seq_len), "float32"),
+            "trg_ids": rng.randint(0, tv, (b, seq_len)).astype("int64"),
+            "trg_mask": np.ones((b, seq_len), "float32"),
+            "labels": rng.randint(0, tv, (b, seq_len, 1)).astype("int64"),
+        }
+
+    try:
+        batch, dt, window, loss, peak, ran = _run_lane(
+            "transformer", build, feed_of, (batch,), steps, device, warmup)
+    finally:
+        core.set_flag("FLAGS_use_bf16_matmul", False)
+    res = _result("fleet_dp_step_ms_transformer_big", batch, steps, dt,
+                  window, loss, peak, ran[0]._last_run_mode, device)
+    res["samples_per_sec"] = res["value"]
+    res.update(value=res["step_ms"], unit="ms/step", devices=1,
+               seq_len=seq_len)
+    if smoke:
+        res["cpu_smoke"] = True
+    else:
+        res["mfu_vs_h100_bf16_peak"] = round(
+            transformer_flops_per_step(cfg, batch, seq_len, seq_len)
+            / (dt / steps) / H100_BF16_PEAK_FLOPS, 4)
+    return Lane(res, *ran)
+
+
 def bench_bert_base(**kw) -> dict:
     """``run_bert_base``'s result line, the card freed."""
     lane = run_bert_base(**kw)
@@ -355,8 +441,15 @@ def bench_resnet50(**kw) -> dict:
     return lane.res
 
 
+def bench_transformer(**kw) -> dict:
+    """``run_transformer``'s result line, the card freed."""
+    lane = run_transformer(**kw)
+    lane.close()
+    return lane.res
+
+
 LANES = {"bert": bench_bert_base, "mnist": bench_mnist_mlp,
-         "resnet": bench_resnet50}
+         "resnet": bench_resnet50, "transformer": bench_transformer}
 
 
 def main(argv=None) -> int:

@@ -4,7 +4,9 @@ Counterpart of paddle_tpu/fluid/framework.py (reference:
 python/paddle/fluid/framework.py — Program:3843, Block:2386, Operator:1817,
 Variable:830). The Python objects are the source of truth and the Program
 lives in memory; serialization to the wire-compatible ProgramDesc comes in
-a later slice. An Operator is pure metadata; the Executor runs it.
+a later slice. An Operator is pure metadata; the Executor runs it. A
+Variable's arithmetic and comparison operators append ops, as the
+reference's do (framework.py:206-222 of the TPU package).
 """
 from __future__ import annotations
 
@@ -80,6 +82,31 @@ class Variable:
                 f".stop_gradient({self.stop_gradient})")
 
     __repr__ = __str__ = lambda self: self.to_string()
+
+    # operator sugar, so that ``a + b`` builds an op in a static graph; a
+    # Python number becomes a fill_constant [1] of the Variable's dtype
+    def _binary(self, other, op_type, reverse=False):
+        from .layers.tensor import fill_constant, math_op
+        if reverse:
+            o = fill_constant([1], self.dtype, float(other))
+            return math_op(op_type, o, self)
+        return math_op(op_type, self, other)
+
+    __add__ = lambda self, o: self._binary(o, "elementwise_add")
+    __radd__ = __add__
+    __sub__ = lambda self, o: self._binary(o, "elementwise_sub")
+    __rsub__ = lambda self, o: self._binary(o, "elementwise_sub", True)
+    __mul__ = lambda self, o: self._binary(o, "elementwise_mul")
+    __rmul__ = __mul__
+    __truediv__ = lambda self, o: self._binary(o, "elementwise_div")
+    __rtruediv__ = lambda self, o: self._binary(o, "elementwise_div", True)
+    __pow__ = lambda self, o: self._binary(o, "elementwise_pow")
+    __rpow__ = lambda self, o: self._binary(o, "elementwise_pow", True)
+    __neg__ = lambda self: self._binary(-1.0, "elementwise_mul")
+    __lt__ = lambda self, o: self._binary(o, "less_than")
+    __le__ = lambda self, o: self._binary(o, "less_equal")
+    __gt__ = lambda self, o: self._binary(o, "greater_than")
+    __ge__ = lambda self, o: self._binary(o, "greater_equal")
 
 
 def _type_name(t):
@@ -263,6 +290,12 @@ class Block:
         if info is not None and info.infer_shape is not None:
             info.infer_shape(op, self)
         return op
+
+    def _prepend_op(self, type: str, inputs=None, outputs=None, attrs=None,
+                    **kwargs) -> Operator:
+        """An op placed first in the block (the LR schedules' step
+        counter)."""
+        return self._insert_op(0, type, inputs, outputs, attrs)
 
     def _insert_op(self, index: int, type: str, inputs=None, outputs=None,
                    attrs=None, **kwargs) -> Operator:

@@ -113,6 +113,23 @@ class LayerHelper:
                 ".".join([self.name, "tmp"])),
             dtype=dtype, persistable=False, stop_gradient=stop_gradient)
 
+    def create_or_get_global_variable(self, name, *args, **kwargs):
+        """The main program's global var ``name``, created (persistable by
+        default) if it is not there yet."""
+        block = self.main_program.global_block()
+        if name in block.vars:
+            return block.vars[name]
+        kwargs.setdefault("persistable", True)
+        return block.create_var(*args, name=name, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        """``initializer``'s op for ``var`` in the startup program."""
+        startup = self.startup_program.global_block()
+        sv = startup.create_var(name=var.name, dtype=var.dtype,
+                                shape=var.shape, persistable=True)
+        initializer(sv, startup)
+        return var
+
     # ------------------------------------------------------------------
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         bias_attr = self.bias_attr

@@ -7,3 +7,4 @@ from .loss import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403

@@ -1,8 +1,10 @@
 """Core NN layers (counterpart of paddle_tpu/fluid/layers/nn.py; reference:
 python/paddle/fluid/layers/nn.py). Op-builder functions with inline shape
 inference; -1 marks unknown dims. So far: fc, embedding, conv2d, pool2d,
-batch_norm, layer_norm, dropout, reshape, unsqueeze, flatten, gather,
-topk, mean, elementwise_add, elementwise_sub, scale."""
+batch_norm, layer_norm, dropout, softmax, reshape, squeeze, unsqueeze,
+flatten, gather, topk, mean, reduce_sum, reduce_mean, one_hot,
+elementwise_add, _sub, _mul, _div and _min, scale, label_smooth,
+add_position_encoding and autoincreased_step_counter."""
 from __future__ import annotations
 
 import math
@@ -14,9 +16,12 @@ from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
-           "layer_norm", "dropout", "reshape", "unsqueeze", "flatten",
-           "gather", "topk", "mean", "elementwise_add", "elementwise_sub",
-           "scale"]
+           "layer_norm", "dropout", "softmax", "reshape", "squeeze",
+           "unsqueeze", "flatten", "gather", "topk", "mean", "reduce_sum",
+           "reduce_mean", "one_hot", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "elementwise_min", "scale",
+           "label_smooth", "add_position_encoding",
+           "autoincreased_step_counter"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -247,6 +252,15 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
     return out
 
 
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper = LayerHelper("reshape2", **locals())
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -275,6 +289,21 @@ def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper.append_op(type="reshape2", inputs=inputs,
                      outputs={"Out": [out], "XShape": [xshape]}, attrs=attrs)
     return helper.append_activation(out)
+
+
+def squeeze(input, axes, name=None):
+    """reference: layers/nn.py squeeze → the squeeze2 op."""
+    helper = LayerHelper("squeeze", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    xshape = helper.create_variable_for_type_inference(input.dtype,
+                                                       stop_gradient=True)
+    nd = max(len(input.shape), 1)
+    out.shape = tuple(s for i, s in enumerate(input.shape)
+                      if not (i in [a % nd for a in axes] and s == 1))
+    helper.append_op(type="squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": axes})
+    return out
 
 
 def unsqueeze(input, axes, name=None):
@@ -343,6 +372,60 @@ def mean(x, name=None):
     return out
 
 
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is None:
+        dims = []
+        reduce_all = True
+        out.shape = (1,)
+    else:
+        dims = [dim] if isinstance(dim, int) else list(dim)
+        reduce_all = len(dims) == len(input.shape)
+        nd = [d % len(input.shape) for d in dims]
+        if keep_dim:
+            out.shape = tuple(1 if i in nd else s
+                              for i, s in enumerate(input.shape))
+        else:
+            out.shape = tuple(s for i, s in enumerate(input.shape)
+                              if i not in nd) or (1,)
+    helper.append_op(type=op_type, inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"dim": dims or [0], "keep_dim": keep_dim,
+                            "reduce_all": reduce_all})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """f32 one-hot rows of ids [..., 1] (the trailing 1 dropped); ``depth``
+    may be a Variable."""
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.FP32)
+    shp = list(input.shape)
+    if shp and shp[-1] == 1:
+        shp = shp[:-1]
+    out.shape = tuple(shp + [depth if not isinstance(depth, Variable)
+                             else -1])
+    inputs = {"X": [input]}
+    attrs = {"allow_out_of_range": allow_out_of_range}
+    if isinstance(depth, Variable):
+        inputs["depth_tensor"] = [depth]
+        attrs["depth"] = 1
+    else:
+        attrs["depth"] = depth
+    helper.append_op(type="one_hot", inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
 def _elementwise(op_type, x, y, axis=-1, act=None, name=None):
     helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -361,6 +444,18 @@ def elementwise_sub(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_sub", x, y, axis, act, name)
 
 
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
           name=None):
     helper = LayerHelper("scale", **locals())
@@ -371,3 +466,46 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
                      attrs={"scale": float(scale), "bias": float(bias),
                             "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", **locals())
+    out = helper.create_variable_for_type_inference(label.dtype)
+    out.shape = label.shape
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    helper = LayerHelper("add_position_encoding", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="add_position_encoding", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"alpha": float(alpha), "beta": float(beta)})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """An INT64 [1] persistable counter, ``begin - 1`` after the startup
+    program, that an ``increment`` op placed first in the main program
+    advances by ``step`` each run (so a run reads ``begin``, then
+    ``begin + step``, ...). One counter a name: a second call returns it."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype=VarDesc.VarType.INT64, shape=[1],
+        persistable=True)
+    if not getattr(counter, "_step_init", False):
+        helper.set_variable_initializer(counter, Constant(float(begin - 1)))
+        counter._step_init = True
+        helper.main_program.global_block()._prepend_op(
+            type="increment", inputs={"X": [counter]},
+            outputs={"Out": [counter]}, attrs={"step": float(step)})
+        counter.stop_gradient = True
+    return counter

@@ -1,11 +1,36 @@
 """Tensor layers (counterpart of paddle_tpu/fluid/layers/tensor.py;
-reference: python/paddle/fluid/layers/tensor.py). So far: cast."""
+reference: python/paddle/fluid/layers/tensor.py). So far: cast,
+fill_constant, and ``math_op``, the helper of the Variable operators."""
 from __future__ import annotations
 
 from ..core import convert_np_dtype_to_dtype_
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast"]
+__all__ = ["cast", "fill_constant"]
+
+
+def _dtype(d):
+    return d if isinstance(d, int) else convert_np_dtype_to_dtype_(d)
+
+
+def math_op(op_type, x, y):
+    """``op_type`` of ``x`` and ``y`` (a Variable, or a Python number that
+    becomes a fill_constant [1] of x's dtype): the Variable operators'
+    helper."""
+    helper = LayerHelper(op_type)
+    if not isinstance(y, Variable):
+        yv = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(type="fill_constant", outputs={"Out": [yv]},
+                         attrs={"shape": [1], "dtype": x.dtype,
+                                "value": float(y)})
+        yv.shape = (1,)
+        y = yv
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape if len(x.shape) >= len(y.shape) else y.shape
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": -1})
+    return out
 
 
 def cast(x, dtype):
@@ -18,3 +43,32 @@ def cast(x, dtype):
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
     return out
 
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    """A tensor of ``shape`` filled with ``value``; the shape may hold
+    Variables (read on the host when the op runs)."""
+    helper = LayerHelper("fill_constant")
+    attrs = {"value": float(value), "dtype": _dtype(dtype)}
+    inputs = {}
+    if isinstance(shape, Variable):
+        inputs["ShapeTensor"] = [shape]
+        attrs["shape"] = []
+        known = None
+    elif isinstance(shape, (list, tuple)) and any(
+            isinstance(s, Variable) for s in shape):
+        inputs["ShapeTensorList"] = [s for s in shape
+                                     if isinstance(s, Variable)]
+        attrs["shape"] = [s if not isinstance(s, Variable) else -1
+                          for s in shape]
+        known = None
+    else:
+        attrs["shape"] = [int(s) for s in shape]
+        known = tuple(int(s) for s in shape)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=attrs["dtype"])
+    out.stop_gradient = True
+    if known is not None:
+        out.shape = known
+    helper.append_op(type="fill_constant", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out

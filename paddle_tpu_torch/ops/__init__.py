@@ -1,12 +1,15 @@
 """Operator kernel library — importing this package registers the ops.
 
 Counterpart of paddle_tpu/ops; so far the ops of the BERT-base
-pretraining step: the encoder forward, the masked-LM loss, dropout, the
-optimizer updates and the startup program."""
+pretraining step (the encoder forward, the masked-LM loss, dropout, the
+optimizer updates and the startup program), the conv nets' ops and the
+Transformer's (position encoding, one-hot, label smoothing, reductions,
+the LR schedule's step counter)."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
 from . import tensor_ops     # noqa: F401
 from . import nn_ops         # noqa: F401
+from . import nn_extra_ops   # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401

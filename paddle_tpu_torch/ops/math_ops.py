@@ -1,6 +1,8 @@
 """Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
 far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
-mul, scale, relu, gelu, square, mean, sum, isfinite).
+elementwise_max, elementwise_min, elementwise_pow, mul, scale, increment,
+relu, gelu, square, mean, sum, the reduce_* family, isfinite, and the
+comparisons less_than, less_equal, greater_than, greater_equal).
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -8,6 +10,13 @@ Semantics follow the reference op contracts:
     (reference: operators/elementwise/elementwise_op_function.h).
   * mul: flatten X and Y by their num_col_dims into 2-D (reference:
     operators/mul_op.cc).
+  * reduce_*: dim list + keep_dim + reduce_all; a 0-d result becomes [1]
+    (reference: operators/reduce_ops/).
+  * a Python scalar that meets a tensor is first rounded to the tensor's
+    dtype on the host (``scalar_as``): the TPU package's
+    ``jnp.asarray(v, x.dtype)`` or JAX's weak typing, which make bf16
+    arithmetic round its scalars to bf16, where torch would apply them in
+    f32.
 """
 from __future__ import annotations
 
@@ -17,6 +26,13 @@ import numpy as np
 import torch
 
 from .registry import register_op, first, out, seq
+
+
+def scalar_as(v, dtype: torch.dtype):
+    """The Python number ``v`` rounded to ``dtype``, as a Python number:
+    a host-side cast, no device copy, so an op that uses it stays
+    capture-safe."""
+    return torch.tensor(v, dtype=dtype).item()
 
 
 # --------------------------------------------------------------------------
@@ -56,6 +72,24 @@ _register_elementwise("elementwise_add", lambda x, y: x + y)
 _register_elementwise("elementwise_sub", lambda x, y: x - y)
 _register_elementwise("elementwise_mul", lambda x, y: x * y)
 _register_elementwise("elementwise_div", lambda x, y: x / y)
+_register_elementwise("elementwise_max", torch.maximum)
+_register_elementwise("elementwise_min", torch.minimum)
+_register_elementwise("elementwise_pow", lambda x, y: x ** y)
+
+
+def _register_cmp(name, fn):
+    @register_op(name, inputs=("X", "Y"), no_grad=True,
+                 attr_defaults={"axis": -1})
+    def _kernel(ins, attrs, _fn=fn):
+        x, y = first(ins, "X"), first(ins, "Y")
+        return out(Out=_fn(x, _align_y(x, y, attrs.get("axis", -1))))
+    return _kernel
+
+
+_register_cmp("less_than", torch.lt)
+_register_cmp("less_equal", torch.le)
+_register_cmp("greater_than", torch.gt)
+_register_cmp("greater_equal", torch.ge)
 
 
 # --------------------------------------------------------------------------
@@ -111,8 +145,13 @@ def _gelu(ins, attrs):
     (same formula as the TPU package's kernel)."""
     x = first(ins, "X")
     if attrs.get("approximate", False):
-        return out(Out=0.5 * x * (1.0 + torch.tanh(
-            _SQRT_2_OVER_PI * (x + 0.044715 * x ** 3))))
+        # the TPU kernel's sqrt(2/pi) is a numpy f64 scalar, which JAX does
+        # not weak-type: the tanh's argument, and so the result, promote a
+        # bf16 x to f32 there, and so they do here
+        inner = x + scalar_as(0.044715, x.dtype) * x ** 3
+        wide = torch.promote_types(x.dtype, torch.float32)
+        return out(Out=(0.5 * x).to(wide) * (1.0 + torch.tanh(
+            _SQRT_2_OVER_PI * inner.to(wide))))
     return out(Out=0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0))))
 
 
@@ -139,6 +178,60 @@ def _sum(ins, attrs):
     return out(Out=acc)
 
 
+def _reduce_axes(x, attrs):
+    """The reduced axes, or None for all of them."""
+    if attrs.get("reduce_all", False):
+        return None
+    dims = attrs.get("dim", [0])
+    if isinstance(dims, int):
+        dims = [dims]
+    if not dims:
+        return None
+    return tuple(int(d) % x.dim() for d in dims)
+
+
+def _prod(x, dim, keepdim):
+    """torch.prod over several axes (it takes one at a time)."""
+    if dim is None:
+        o = torch.prod(x)
+        return o.reshape((1,) * x.dim()) if keepdim else o
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, d, keepdim=True)
+    return x if keepdim else x.squeeze(dim)
+
+
+def _over(fn):
+    """``fn(x, dim=axes, keepdim=)`` with None for every axis."""
+    def reduce(x, dim, keepdim):
+        if dim is None:
+            o = fn(x)
+            return o.reshape((1,) * x.dim()) if keepdim else o
+        return fn(x, dim=dim, keepdim=keepdim)
+    return reduce
+
+
+def _register_reduce(name, fn):
+    @register_op(name, inputs=("X",),
+                 attr_defaults={"dim": [0], "keep_dim": False,
+                                "reduce_all": False})
+    def _kernel(ins, attrs, _fn=fn):
+        x = first(ins, "X")
+        o = _fn(x, _reduce_axes(x, attrs), attrs.get("keep_dim", False))
+        if o.dim() == 0:
+            o = o.reshape((1,))
+        return out(Out=o)
+    return _kernel
+
+
+_register_reduce("reduce_sum", _over(torch.sum))
+_register_reduce("reduce_mean", _over(torch.mean))
+_register_reduce("reduce_max", _over(torch.amax))
+_register_reduce("reduce_min", _over(torch.amin))
+_register_reduce("reduce_prod", _prod)
+_register_reduce("reduce_all", _over(torch.all))
+_register_reduce("reduce_any", _over(torch.any))
+
+
 @register_op("isfinite", inputs=("X",), no_grad=True)
 def _isfinite(ins, attrs):
     """[1] bool: every element of X finite."""
@@ -154,11 +247,19 @@ def _isfinite(ins, attrs):
 def _scale(ins, attrs):
     x = first(ins, "X")
     s = first(ins, "ScaleTensor")
-    # scalars are cast to X's dtype, as the TPU kernel's jnp.asarray(.,
-    # x.dtype) does; python scalars keep the op free of host→device copies
-    cast = float if x.is_floating_point() else int
-    s = cast(attrs.get("scale", 1.0)) if s is None else s.to(x.dtype)
-    b = cast(attrs.get("bias", 0.0))
+    # the scalars in X's dtype, as the TPU kernel's jnp.asarray(., x.dtype):
+    # rounded on the host, so the op makes no host-to-device copy
+    s = scalar_as(attrs.get("scale", 1.0), x.dtype) if s is None \
+        else s.to(x.dtype)
+    b = scalar_as(attrs.get("bias", 0.0), x.dtype)
     if attrs.get("bias_after_scale", True):
         return out(Out=x * s + b)
     return out(Out=(x + b) * s)
+
+
+@register_op("increment", inputs=("X",), attr_defaults={"step": 1.0})
+def _increment(ins, attrs):
+    """X + step, the step in X's dtype (the LR schedules' step counter is
+    an int64 [1] that this op advances once a run)."""
+    x = first(ins, "X")
+    return out(Out=x + scalar_as(attrs.get("step", 1.0), x.dtype))

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda import dropout as cuda_dropout
-from .math_ops import bf16_matmul_enabled
+from .math_ops import bf16_matmul_enabled, scalar_as
 from .registry import register_grad_maker, register_op, first, out
 
 
@@ -288,9 +288,12 @@ def _batch_norm(ins, attrs):
         bm = torch.mean(x32, axes)
         bv = torch.mean(torch.square(x32), axes) - torch.square(bm)
         bm, bv = bm.to(x.dtype), bv.to(x.dtype)
-        new_mean = momentum * mean + (1 - momentum) * bm
-        new_var = momentum * var + (1 - momentum) * bv
-    saved_var_inv = torch.rsqrt(bv + eps)
+        # the scalars in the statistics' dtype, as JAX's weak typing
+        mom, rest = (scalar_as(m, mean.dtype) for m in (momentum,
+                                                        1 - momentum))
+        new_mean = mom * mean + rest * bm
+        new_var = mom * var + rest * bv
+    saved_var_inv = torch.rsqrt(bv + scalar_as(eps, bv.dtype))
     bshape = [1] * x.dim()
     bshape[c_axis] = x.shape[c_axis]
     y = (x - bm.reshape(bshape)) * saved_var_inv.reshape(bshape)
@@ -420,7 +423,8 @@ def _dropout(ins, attrs):
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
     if attrs.get("is_test", False):
-        o = x if impl == "upscale_in_train" else x * (1.0 - p)
+        o = x if impl == "upscale_in_train" \
+            else x * scalar_as(1.0 - p, x.dtype)
         return out(Out=o, Mask=torch.ones_like(x, dtype=torch.uint8))
     o, mask = cuda_dropout.dropout(x, attrs["_rng"](), p,
                                    impl == "upscale_in_train")

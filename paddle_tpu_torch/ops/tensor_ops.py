@@ -1,7 +1,8 @@
 """Tensor creation / manipulation op kernels (counterpart of
 paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value, cast,
 uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
-unsqueeze2, flatten, flatten2, gather and its grad, top_k).
+squeeze, squeeze2, unsqueeze2, flatten, flatten2, gather and its grad,
+top_k, one_hot, one_hot_v2, label_smooth).
 
 Random ops draw from the key that ``attrs["_rng"]()`` returns (the
 executor derives it on the device from the program's random_seed, the
@@ -19,6 +20,7 @@ import math
 import torch
 
 from . import rng
+from .math_ops import scalar_as
 from .registry import register_op, first, seq, out
 
 _SHAPE_TENSORS = ("ShapeTensor", "ShapeTensorList")
@@ -158,6 +160,25 @@ def _reshape2(ins, attrs):
                XShape=_xshape(x))
 
 
+def _squeezed(x, axes):
+    """X without the size-1 dims among ``axes`` (every size-1 dim when
+    ``axes`` is empty); an axis whose dim is not 1 stays."""
+    axes = [a % x.dim() for a in axes] if axes else range(x.dim())
+    keep = [s for i, s in enumerate(x.shape) if not (i in axes and s == 1)]
+    return x.reshape(keep)
+
+
+@register_op("squeeze", inputs=("X",), attr_defaults={"axes": []})
+def _squeeze(ins, attrs):
+    return out(Out=_squeezed(first(ins, "X"), attrs.get("axes", [])))
+
+
+@register_op("squeeze2", inputs=("X",), attr_defaults={"axes": []})
+def _squeeze2(ins, attrs):
+    x = first(ins, "X")
+    return out(Out=_squeezed(x, attrs.get("axes", [])), XShape=_xshape(x))
+
+
 @register_op("unsqueeze2", inputs=("X",), attr_defaults={"axes": []})
 def _unsqueeze2(ins, attrs):
     x = first(ins, "X")
@@ -222,6 +243,50 @@ def _top_k(ins, attrs):
     k = int(kt.reshape(()).item()) if kt is not None else attrs.get("k", 1)
     vals, idx = torch.topk(x, k, dim=-1, largest=True, sorted=True)
     return out(Out=vals, Indices=idx)
+
+
+def _one_hot(x, ins, attrs):
+    """[..., depth] rows of ``dtype`` with a 1 at each id (an id outside
+    [0, depth) gives a row of zeros, as jax.nn.one_hot); ``depth_tensor``
+    overrides the attr and is read on the host."""
+    dt = first(ins, "depth_tensor")
+    depth = int(dt.reshape(()).item()) if dt is not None else attrs["depth"]
+    classes = torch.arange(depth, dtype=x.dtype, device=x.device)
+    return out(Out=(x.unsqueeze(-1) == classes).to(_dtype(attrs)))
+
+
+@register_op("one_hot", inputs=("X", "depth_tensor"), no_grad=True,
+             host_inputs=("depth_tensor",),
+             attr_defaults={"depth": 1, "dtype": 5,
+                            "allow_out_of_range": False})
+def _one_hot_v1(ins, attrs):
+    """one_hot of ids whose trailing dim of 1 is dropped."""
+    x = first(ins, "X")
+    return _one_hot(x.squeeze(-1) if x.shape[-1] == 1 else x, ins, attrs)
+
+
+@register_op("one_hot_v2", inputs=("X", "depth_tensor"), no_grad=True,
+             host_inputs=("depth_tensor",),
+             attr_defaults={"depth": 1, "dtype": 5,
+                            "allow_out_of_range": False})
+def _one_hot_v2(ins, attrs):
+    return _one_hot(first(ins, "X"), ins, attrs)
+
+
+@register_op("label_smooth", inputs=("X", "PriorDist"), diff_inputs=("X",),
+             attr_defaults={"epsilon": 0.0})
+def _label_smooth(ins, attrs):
+    """(1 - ε)·X + ε/K, or + ε·PriorDist; the scalars in X's dtype (the
+    TPU kernel's Python floats are weak-typed)."""
+    x = first(ins, "X")
+    eps = attrs.get("epsilon", 0.0)
+    prior = first(ins, "PriorDist")
+    k = x.shape[-1]
+    keep = scalar_as(1 - eps, x.dtype) * x
+    if prior is None:
+        return out(Out=keep + scalar_as(eps / k, x.dtype))
+    return out(Out=keep + scalar_as(eps, x.dtype) * prior.reshape(
+        (1,) * (x.dim() - 1) + (k,)))
 
 
 def scatter_rows_add(n_rows: int, idx: torch.Tensor,

@@ -322,3 +322,142 @@ def test_lodtensor_numpy_bf16_bits():
     if a.dtype.name == "bfloat16":
         assert np.array_equal(a.view(np.int16), t.view(torch.int16).numpy())
     np.testing.assert_array_equal(a.astype(np.float32), t.float().numpy())
+
+
+# ------------------------------------------------- bf16 scalars (ROADMAP C1)
+# Every registered op of the port that does arithmetic with Python
+# scalars, on bf16 inputs, against the TPU package's kernel on the same
+# inputs. JAX rounds a weak-typed Python scalar (and ``jnp.asarray(v,
+# x.dtype)``) to bf16 before the arithmetic; the port rounds its scalars
+# to X's dtype on the host (``math_ops.scalar_as``). Bitwise where the
+# reference's arithmetic allows it, else within BF16_TOL with the
+# reference's output dtype. Dropout's training upscale is left as it is
+# (the roadmap's note: the bias is the reference's).
+BF16_TOL = 2e-2
+BF16 = torch.bfloat16
+
+
+def _bf16(a):
+    return np.asarray(a, np.float32).astype(jnp.bfloat16)
+
+
+def _sc_inputs(case):
+    r = _r(100)
+    x = _bf16(r.normal(size=(64, 64)))
+    probs = np.abs(r.normal(size=(16, 12))) + 0.05
+    probs /= probs.sum(-1, keepdims=True)
+    onehot = np.eye(16)[r.randint(0, 16, (3, 5))]
+    img = _bf16(r.normal(size=(4, 3, 5, 5)))
+    c3 = (_bf16(r.normal(size=3)), _bf16(r.normal(size=3)),
+          _bf16(r.normal(size=3)), _bf16(np.abs(r.normal(size=3)) + 0.1))
+    return {
+        "scale": {"X": x},
+        "scale_tensor": {"X": x, "ScaleTensor": np.array([0.1], np.float32)},
+        "gelu": {"X": _bf16(np.linspace(-6, 6, 8192).reshape(1, -1))},
+        "cross_entropy": {"X": _bf16(probs),
+                          "Label": r.randint(0, 12, (16, 1)).astype(np.int64)},
+        "cross_entropy_soft": {"X": _bf16(probs),
+                               "Label": _bf16(np.eye(12)[
+                                   r.randint(0, 12, 16)] * 0.9 + 0.1 / 12)},
+        "softmax_with_cross_entropy": {
+            "Logits": _bf16(r.normal(size=(16, 12)) * 3),
+            "Label": r.randint(0, 12, (16, 1)).astype(np.int64)},
+        "label_smooth": {"X": _bf16(onehot)},
+        "label_smooth_prior": {"X": _bf16(onehot),
+                               "PriorDist": _bf16(np.full(16, 1 / 16))},
+        "add_position_encoding": {"X": _bf16(r.normal(size=(2, 80, 64)))},
+        "increment": {"X": _bf16([3.0])},
+        "dropout": {"X": x},
+        "batch_norm": {"X": img, "Scale": c3[0], "Bias": c3[1],
+                       "Mean": c3[2], "Variance": c3[3]},
+        "layer_norm": {"X": _bf16(r.normal(size=(4, 6, 8))),
+                       "Scale": _bf16(r.normal(size=8)),
+                       "Bias": _bf16(r.normal(size=8))},
+        "pool2d": {"X": img},
+    }[case]
+
+
+# (case, op, attrs, bitwise): what is not bitwise is held at BF16_TOL
+SCALAR_CASES = [
+    ("scale", "scale", {"scale": 0.1}, True),
+    ("scale", "scale", {"scale": 1 / 3, "bias": 0.7}, True),
+    ("scale", "scale", {"scale": 1 / 3, "bias": 0.7,
+                        "bias_after_scale": False}, True),
+    ("scale", "scale", {"scale": -1e9, "bias": 1.0}, True),
+    ("scale_tensor", "scale", {"bias": 0.7}, True),
+    ("gelu", "gelu", {"approximate": True}, False),
+    ("gelu", "gelu", {"approximate": False}, False),
+    ("cross_entropy", "cross_entropy", {}, True),
+    ("cross_entropy_soft", "cross_entropy", {"soft_label": True}, True),
+    ("softmax_with_cross_entropy", "softmax_with_cross_entropy", {}, False),
+    ("label_smooth", "label_smooth", {"epsilon": 0.1}, True),
+    ("label_smooth_prior", "label_smooth", {"epsilon": 0.1}, True),
+    ("add_position_encoding", "add_position_encoding", {}, True),
+    ("add_position_encoding", "add_position_encoding",
+     {"alpha": 0.5, "beta": 3.0}, True),
+    ("increment", "increment", {"step": 0.1}, True),
+    ("dropout", "dropout", {"is_test": True, "dropout_prob": 0.1}, True),
+    ("batch_norm", "batch_norm", {"momentum": 0.9, "epsilon": 1e-5}, False),
+    ("layer_norm", "layer_norm", {"begin_norm_axis": 2}, True),
+    ("pool2d", "pool2d", {"pooling_type": "avg", "ksize": [3, 3],
+                          "paddings": [1, 1], "exclusive": False}, True),
+]
+
+
+@pytest.mark.parametrize("case,op,attrs,bitwise", SCALAR_CASES,
+                         ids=[f"{c[1]}-{i}" for i, c in
+                              enumerate(SCALAR_CASES)])
+def test_bf16_scalar_ops_match_reference(case, op, attrs, bitwise):
+    ins = _sc_inputs(case)
+    jattrs = dict(JOPS.get(op).attr_defaults, **attrs)
+    tattrs = dict(TOPS.get(op).attr_defaults, **attrs)
+    tattrs["_rng"] = lambda: torch.zeros(1, dtype=torch.int64)
+    jout = JOPS.get(op).kernel({s: [jnp.asarray(a)] for s, a in ins.items()},
+                               jattrs)
+    tout = TOPS.get(op).kernel(
+        {s: [torch.from_numpy(np.asarray(a, np.float32)).to(BF16)
+             if np.asarray(a).dtype == jnp.bfloat16
+             else torch.from_numpy(np.asarray(a))] for s, a in ins.items()},
+        tattrs)
+    for slot in jout:
+        j = np.asarray(jout[slot][0])
+        t = tout[slot][0]
+        if slot == "XShape" or j.size == 0:
+            continue
+        assert str(t.dtype).replace("torch.", "") == str(j.dtype), slot
+        got, want = t.float().numpy(), j.astype(np.float32)
+        if bitwise:
+            np.testing.assert_array_equal(got, want, err_msg=slot)
+        else:
+            np.testing.assert_allclose(got, want, rtol=BF16_TOL,
+                                       atol=BF16_TOL, err_msg=slot)
+
+
+def test_approximate_gelu_returns_f32_for_bf16():
+    """The reference's sqrt(2/pi) is a numpy f64 scalar, not weak-typed:
+    a bf16 x gives f32 there, and here. The values agree to f32 rounding
+    (measured 5.8e-7), far inside BF16_TOL."""
+    x = np.linspace(-6, 6, 8192).reshape(1, -1).astype(jnp.bfloat16)
+    j = np.asarray(JOPS.get("gelu").kernel({"X": [jnp.asarray(x)]},
+                                           {"approximate": True})["Out"][0])
+    t = TOPS.get("gelu").kernel(
+        {"X": [torch.from_numpy(x.astype(np.float32)).to(BF16)]},
+        {"approximate": True})["Out"][0]
+    assert j.dtype == np.float32 and t.dtype == torch.float32
+    np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=1e-6)
+    # f32 in, f32 out: unchanged
+    t32 = TOPS.get("gelu").kernel(
+        {"X": [torch.from_numpy(x.astype(np.float32))]},
+        {"approximate": True})["Out"][0]
+    assert t32.dtype == torch.float32
+
+
+def test_scale_rounds_its_scalars_on_the_host():
+    """``scalar_as`` is a host-side cast: a Python number, bf16's value of
+    the scalar, and the op makes no tensor of it."""
+    from paddle_tpu_torch.ops.math_ops import scalar_as
+    assert scalar_as(0.1, BF16) == 0.10009765625
+    assert scalar_as(10000.0, BF16) == 9984.0
+    assert scalar_as(0.1, torch.float32) == float(np.float32(0.1))
+    assert scalar_as(2.7, torch.int64) == 2 and isinstance(
+        scalar_as(2.7, torch.int64), int)
