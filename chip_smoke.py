@@ -7,28 +7,37 @@ Phases, each fatal on failure:
   2. kernel — hold each kernel against its plain PyTorch version on the
               card: the forward (O and lse) by the route fwd_route picks,
               the whole-block kernel (bf16, S and Sk up to 128, each case
-              run twice and bitwise alike) or the tiled one (f32, and S
-              or Sk above 128); the backward (dQ, dK, dV)
-              by the route bwd_route picks (the same predicate), the fused kernel (bf16, S and
-              Sk up to 128: delta, dQ, dK and dV in one launch, each case
-              run twice and bitwise alike) or the dK/dV and dQ kernels
-              (f32, and S or Sk above 128, in either dtype); and the
+              run twice and bitwise alike), the streamed one (bf16, S or
+              Sk above 128: 128 query rows a block, 128-key tiles by TMA
+              through a two-stage ring, each case twice and bitwise
+              alike) or the tiled one (f32); the backward (dQ, dK, dV) by
+              the route bwd_route picks (the same predicate), the fused
+              kernel (bf16, S and Sk up to 128: delta, dQ, dK and dV in one
+              launch), the streamed pair (bf16 above 128: the dQ kernel
+              with delta inside, then the dK/dV kernel; each case twice
+              and bitwise alike) or the dK/dV and dQ kernels (f32); and the
               dropout kernel (mask and output); over BERT-base shapes in
               f32 and bf16 with a key-padding bias, ragged S/Sk (200 x 77,
               and 100 x 77 in bf16), causal, a dead row, dropout 0.1 (the
               last three also at S = Sk = 256 in bf16, on the split
               kernels), head dims 8 to 128 (40 and 96 zero-padded to the
               next instance; in bf16 at 96 x 80 on the fused kernel and at
-              200 x 144 on the split ones), S = Sk = 1,
+              200 x 144 on the streamed ones), S = Sk = 1, on the streamed
+              kernels ragged 200 x 300 and 77 x 300, causal 200 x 300 and
+              300 x 200, dropout 0.3, D = 128 causal with dropout, and the
+              S = 512 lane's shape (batch 64, H = 12, no bias),
               B·H above 65535, the bench lane's shape (batch 256,
               bf16, no bias) and transformer_big's (H = 16: the bf16
               step's causal self-attention with the bias and dropout 0.3
               at B = 48, S = 64 on the whole-block forward and the fused
               backward; greedy decode's f32 cross-attention, S = 80 over
               Sk = 64, and causal self-attention, 80 x 80, on the tiled
-              forward; bf16 at S = Sk = 256 with the bias on the tiled
-              forward and the split backward, ROADMAP B3, each also
-              timed); time each kernel, its plain version and one
+              forward; bf16 at S = Sk = 256 with the bias on the streamed
+              kernels, ROADMAP B3, each also timed, with the S = 512
+              lane's shape, beside the old route, the tiled forward and
+              the split backward, on the same inputs, held to the plain
+              versions too; a streamed kernel slower than the old route
+              fails); time each kernel, its plain version and one
               PyTorch library call as a yardstick
               (scaled_dot_product_attention, and its backward): the
               forward at the served shape (batch 8), the trained one
@@ -54,7 +63,9 @@ Phases, each fatal on failure:
               kernels' dropout mask; D = 192 and f16, which have no kernel
               instance, raise and launch nothing. Every launch gate below
               counts (tiled forward, dK/dV, dQ, fused backward, dropout,
-              whole forward) kernels.
+              whole forward, streamed forward, streamed dQ, streamed
+              dK/dV) kernels; a tuple written below with six entries has
+              the three streamed zeros after them.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -190,6 +201,17 @@ Phases, each fatal on failure:
               printed, (0, 0, 0, 6, 0, 12) kernels a step. Reports step
               p50/p90, tokens/s, MFU and peak memory of the training
               step, p50/p99 ms and tokens/s of a decode step.
+ 12. lane512 — bench.py's bert lane at BERT's phase-2 pretraining length,
+              as ``PADDLE_TPU_BENCH_SEQ=512 PADDLE_TPU_BENCH_BATCH=64
+              python3 -m paddle_tpu_torch.bench bert`` runs it (bf16,
+              batch 64 pinned: 32768 tokens a step, as the S = 128 lane;
+              dropout 0, 20 steps as one window after a warm one), its
+              JSON line printed. Checks: a finite loss, the compiled path,
+              a timed window of replays only, and (0, 0, 0, 0, 0, 0, 24,
+              12, 12) kernels a step (the streamed forward, dQ and dK/dV)
+              through the wrappers, in the graph and in a profiler trace
+              of one replay. Reports step time, samples/s, MFU and peak
+              memory.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -199,8 +221,8 @@ captures only) and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
 passes over one request of each batch size and over one step of the
-train, lane, remat, AMP, resnet and transformer phases (and one decode
-run): device time by kernel name,
+train, lane, remat, AMP, resnet, transformer and lane512 phases (and one
+decode run): device time by kernel name,
 and the device's idle share against the same work's unprofiled wall
 time.
 """
@@ -289,25 +311,39 @@ KINK_L2_TOL = 5e-2           # conv-net grads, card vs CPU, relative L2:
 LENET_BATCH = 64             # the conv net of models/mnist.py
 LENET_STEPS = 5
 # every launch gate below counts these kernels, in this order: (tiled
-# forward, dK/dV, dQ, fused backward, dropout, whole forward); no name of
-# DEVICE_KERNELS is a substring of another (a trace counts by substring)
+# forward, dK/dV, dQ, fused backward, dropout, whole forward, streamed
+# forward, streamed dQ, streamed dK/dV); no name of DEVICE_KERNELS is a
+# substring of another (a trace counts by substring)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
            "flash_attention_bwd_q", "flash_attention_bwd_fused",
-           "dropout_fwd", "flash_attention_fwd_whole")
+           "dropout_fwd", "flash_attention_fwd_whole",
+           "flash_attention_fwd_streamed", "flash_attention_bwd_dq_streamed",
+           "flash_attention_bwd_dkdv_streamed")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
                   "flash_bwd_q_kernel", "flash_bwd_fused_kernel",
-                  "dropout_fwd_kernel", "flash_fwd_whole_kernel")
+                  "dropout_fwd_kernel", "flash_fwd_whole_kernel",
+                  "flash_fwd_streamed_kernel", "flash_bwd_dq_streamed_kernel",
+                  "flash_bwd_dkdv_streamed_kernel")
 GATE_NAMES = ("(tiled forward, dK/dV, dQ, fused backward, dropout, whole "
-              "forward)")
+              "forward, streamed forward, streamed dQ, streamed dK/dV)")
 NO_KERNELS = (0,) * len(KERNELS)
-LANE_STEP_WANT = (0, 0, 0, 12, 0, 24)  # bench's bert lane step, plain or
-                                       # remat: bf16, the whole-block
-                                       # forward and the fused backward, no
-                                       # dropout
-TRAIN_STEP_WANT = (24, 12, 12, 0, 37, 0)  # the f32 BERT-base pretraining
-                                          # step (train, window, guard): the
-                                          # tiled forward, the split
-                                          # kernels, dropout 0.1
+LANE_STEP_WANT = (0, 0, 0, 12, 0, 24, 0, 0, 0)  # bench's bert lane step,
+                                                # plain or remat: bf16, the
+                                                # whole-block forward and
+                                                # the fused backward, no
+                                                # dropout
+TRAIN_STEP_WANT = (24, 12, 12, 0, 37, 0, 0, 0, 0)  # the f32 BERT-base
+                                                   # pretraining step (train,
+                                                   # window, guard): the tiled
+                                                   # forward, the split
+                                                   # kernels, dropout 0.1
+LANE512_STEP_WANT = (0, 0, 0, 0, 0, 0, 24, 12, 12)  # the bert lane at S =
+                                                    # 512: bf16, the streamed
+                                                    # kernels, no dropout
+LANE512_SEQ = 512             # BERT's phase-2 pretraining length
+LANE512_BATCH = 64            # pinned: 32768 tokens a step, the S = 128
+                              # lane's; no OOM attempts
+LANE512_HEADS = 12
 DROPOUT_TOL = 1e-6            # dropout kernel vs plain, relative: the same
                               # f32 product, so expected bit for bit
 DROPOUT_SETS = 4              # input sets cycled when timing dropout: 4 x
@@ -445,7 +481,8 @@ def phase_build():
     from paddle_tpu_torch.ops.cuda import build, dropout as dk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     sources = (fa.KERNEL_SOURCE, fa.FWD_WHOLE_SOURCE, fa.BWD_KERNEL_SOURCE,
-               fa.BWD_FUSED_SOURCE, dk.KERNEL_SOURCE)
+               fa.BWD_FUSED_SOURCE, fa.FWD_STREAMED_SOURCE,
+               fa.BWD_STREAMED_SOURCE, dk.KERNEL_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -511,17 +548,18 @@ def _check(name, got, want, tol):
 def phase_kernel():
     """The forward kernels against the plain version on the card, each
     case by the route fwd_route picks: the whole-block kernel (bf16, S and
-    Sk up to 128; every case run twice and bitwise alike) or the tiled one
-    (f32, and S or Sk above 128 in bf16; each kernel must meet every dtype
-    it has an instance of). Then each forward timed at the served shape
-    (batch 8, f32 and bf16, bias), the trained one (batch 32, f32 without
-    and with dropout 0.1, bf16 with dropout 0.1) and the bench lane's
-    (batch 256, bf16, no bias), beside its bound, its plain version and
-    SDPA; a whole-block timing also beside the tiled kernel on the same
-    inputs. → {kernel name: its heading row, with "timings" (every shape
-    timed) and "max_abs_err_by_dtype"}: the tiled kernel's heading row is
-    the f32 train step's (batch 32, dropout 0.1), the whole-block one's the
-    lane's."""
+    Sk up to 128), the streamed one (bf16 above 128; both run every case
+    twice, bitwise alike) or the tiled one (f32). Then each forward timed
+    at the served shape (batch 8, f32 and bf16, bias), the trained one
+    (batch 32, f32 without and with dropout 0.1, bf16 with dropout 0.1),
+    the bench lane's (batch 256, bf16, no bias), transformer_big's and the
+    S = 512 lane's, beside its bound, its plain version and SDPA; a
+    whole-block or streamed timing also beside the tiled kernel on the same
+    inputs (the old route, held to the plain version where it is the
+    streamed one's). → {kernel name: its heading row, with "timings"
+    (every shape timed) and "max_abs_err_by_dtype"}: the tiled kernel's
+    heading row is the f32 train step's (batch 32, dropout 0.1), the
+    whole-block one's the lane's, the streamed one's the S = 512 lane's."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -529,6 +567,11 @@ def phase_kernel():
     sm = 0.125
     f32, bf16 = torch.float32, torch.bfloat16
     tiled, whole = "flash_attention_fwd", "flash_attention_fwd_whole"
+    streamed = "flash_attention_fwd_streamed"
+    kern_of = {"tiled": tiled, "whole": whole, "streamed": streamed}
+    fn_of = {tiled: fa.flash_attention_fwd_tiled_cuda,
+             whole: fa.flash_attention_fwd_whole_cuda,
+             streamed: fa.flash_attention_fwd_streamed_cuda}
     by_name = {"f32": f32, "bf16": bf16}
     errs = {}  # (kernel, dtype or tag) -> max |kernel - plain| over cases
 
@@ -540,12 +583,12 @@ def phase_kernel():
         want = fa.flash_attention_reference(*args)
         torch.cuda.synchronize()
         err = _check(f"{name} {str(q.dtype)[6:]} ({route})", got, want, tol)
-        if route == "whole":
+        if route != "tiled":
             again = fa.flash_attention_cuda(*args)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"the whole-block forward's rerun "
+                raise AssertionError(f"the {route} forward's rerun "
                                      f"differs: {name}")
-        key = (whole if route == "whole" else tiled, tag or q.dtype)
+        key = (kern_of[route], tag or q.dtype)
         errs[key] = max(errs.get(key, 0.0), err)
         return got
 
@@ -562,12 +605,26 @@ def phase_kernel():
              k, v, sm, tol, rate=0.1, seed=seed,
              bias=_padding_bias(TRAIN_BATCH, S, gen))
     # ragged, causal, dead row, dropout: f32 beyond 128 (tiled), bf16 on
-    # both sides of 128
+    # both sides of 128 (whole, streamed)
     for dt, tol, sq, sk in ((f32, F32_TOL, 200, 77), (bf16, BF16_TOL, 200, 77),
-                            (bf16, BF16_TOL, 100, 77)):
+                            (bf16, BF16_TOL, 100, 77),
+                            (bf16, BF16_TOL, 200, 300),
+                            (bf16, BF16_TOL, 77, 300)):
         q, k, v = _qkv(2, 3, sq, sk, 64, dt, gen)
         both(f"ragged S={sq} Sk={sk} bias", q, k, v, sm, tol,
              bias=_padding_bias(2, sk, gen))
+    # the streamed kernel: causal with S != Sk (keys past every row's
+    # diagonal; rows past every key), dropout 0.3 over ragged tiles, D = 128
+    for sq, sk in ((200, 300), (300, 200)):
+        q, k, v = _qkv(2, 3, sq, sk, 64, bf16, gen)
+        both(f"causal S={sq} Sk={sk} bias", q, k, v, sm, BF16_TOL,
+             causal=True, bias=_padding_bias(2, sk, gen))
+        both(f"dropout 0.3 S={sq} Sk={sk} bias", q, k, v, sm, BF16_TOL,
+             rate=0.3, seed=seed, bias=_padding_bias(2, sk, gen))
+    q, k, v = _qkv(2, 3, 300, 300, 128, bf16, gen)
+    both("D=128 causal dropout 0.1 S=Sk=300 bias", q, k, v, 128 ** -0.5,
+         BF16_TOL, causal=True, rate=0.1, seed=seed,
+         bias=_padding_bias(2, 300, gen))
     for dt, tol, n in ((f32, F32_TOL, 200), (bf16, BF16_TOL, S)):
         q, k, v = _qkv(2, 3, n, n, 64, dt, gen)
         both(f"causal S=Sk={n}", q, k, v, sm, tol, causal=True)
@@ -601,10 +658,15 @@ def phase_kernel():
              v, sm, tol, rate=0.1, seed=seed,
              bias=_padding_bias(BIG_BH[0], 16, gen))
     del q, k, v
-    # the bench lane's shape
+    # the bench lane's shape, and the S = 512 lane's
     q, k, v = _qkv(LANE_BATCH, H, S, S, D, bf16, gen)
     both(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} no bias", q, k, v, sm,
          BF16_TOL, tag="lane")
+    del q, k, v
+    q, k, v = _qkv(LANE512_BATCH, LANE512_HEADS, LANE512_SEQ, LANE512_SEQ, D,
+                   bf16, gen)
+    both(f"S=512 lane B={LANE512_BATCH} H={LANE512_HEADS} S={LANE512_SEQ} "
+         f"D={D} no bias", q, k, v, sm, BF16_TOL)
     del q, k, v
     # transformer_big's shapes (H = 16, D = 64): the bf16 training step's
     # causal self-attention with the bias and attention dropout (whole);
@@ -618,15 +680,17 @@ def phase_kernel():
              rate=rate, seed=seed,
              bias=_padding_bias(bs, sk, gen) if with_bias else None)
         del q, k, v
-    if not {(tiled, f32), (tiled, bf16), (whole, bf16)} <= set(errs):
+    if not {(tiled, f32), (whole, bf16), (streamed, bf16)} <= set(errs):
         raise AssertionError(f"forward cases by kernel and dtype: "
                              f"{sorted(map(str, errs))}")
 
     # time the served shape (batch 8, f32 and bf16), the trained one
     # (batch 32: f32, also with dropout 0.1; bf16 with dropout 0.1), the
-    # bench lane's (batch 256, bf16, no bias) and transformer_big's, SDPA
-    # beside each, the tiled kernel beside the whole-block one
-    timings = {tiled: [], whole: []}
+    # bench lane's (batch 256, bf16, no bias), transformer_big's and the
+    # S = 512 lane's, SDPA beside each, the tiled kernel (the old route,
+    # held to the plain version too) beside the whole-block and the
+    # streamed ones; a streamed kernel must beat it
+    timings = {tiled: [], whole: [], streamed: []}
     heads = {}
     for bs, hh, sq, sk, dt, rate, with_bias, causal in (
             (B, H, S, S, f32, 0.0, True, False),
@@ -637,19 +701,26 @@ def phase_kernel():
             (LANE_BATCH, H, S, S, bf16, 0.0, False, False),
             *((bs, WMT_HEADS, sq, sk, by_name[dt], rate, with_bias, causal)
               for bs, sq, sk, dt, rate, with_bias, causal
-              in TRANSFORMER_FWD_CASES.values())):
+              in TRANSFORMER_FWD_CASES.values()),
+            (LANE512_BATCH, LANE512_HEADS, LANE512_SEQ, LANE512_SEQ, bf16,
+             0.0, False, False)):
         q, k, v = _qkv(bs, hh, sq, sk, D, dt, gen)
         bias = _padding_bias(bs, sk, gen) if with_bias else None
         mask = _sdpa_mask(bias, sq, sk, causal, dt)
         args = (q, k, v, sm, causal, rate, seed, bias)
-        kern = whole if fa.fwd_route(q.shape, k.shape, dt) == "whole" \
-            else tiled
-        fn = (fa.flash_attention_fwd_whole_cuda if kern == whole
-              else fa.flash_attention_fwd_tiled_cuda)
+        kern = kern_of[fa.fwd_route(q.shape, k.shape, dt)]
+        fn = fn_of[kern]
         ms = _cuda_ms(lambda: fn(*args))
         eager_ms = _cuda_ms(lambda: fn(*args), graph=False)
         tiled_ms = (_cuda_ms(lambda: fa.flash_attention_fwd_tiled_cuda(*args))
-                    if kern == whole else ms)
+                    if kern != tiled else ms)
+        if kern == streamed:
+            old = _check(f"old route (tiled) {str(dt)[6:]} B={bs} H={hh} "
+                         f"S={sq} Sk={sk}",
+                         fa.flash_attention_fwd_tiled_cuda(*args),
+                         fa.flash_attention_reference(*args), BF16_TOL)
+            errs[(tiled, "old route")] = max(
+                errs.get((tiled, "old route"), 0.0), old)
         # the plain version's dropout mask reads the seed on the host,
         # which a graph cannot capture: with dropout it is timed eagerly
         plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(*args),
@@ -665,18 +736,22 @@ def phase_kernel():
             " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
         beside = (f"; the tiled kernel on the same inputs {tiled_ms:.4f} ms, "
-                  f"whole/tiled {ms / tiled_ms:.3f}" if kern == whole else "")
+                  f"{'whole' if kern == whole else 'streamed'}/tiled "
+                  f"{ms / tiled_ms:.3f}" if kern != tiled else "")
         _log(f"[kernel] time {kern} {what}: kernel {ms:.4f} ms (issued one "
              f"by one from Python {eager_ms:.4f} ms), plain {plain_ms:.4f} "
              f"ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.3f}x SDPA), bound "
              f"{bound_ms:.4f} ms ({bound_by}: {ops} FLOP, {nbytes} B), "
              f"{bound_ms / ms:.1%} of it{beside}")
         _check_bound(f"{kern} {what}", ms, bound_ms)
+        if kern == streamed and ms >= tiled_ms:
+            raise AssertionError(f"the streamed forward at {what} takes "
+                                 f"{ms:.4f} ms, the old route {tiled_ms:.4f}")
         row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                    max_abs_err=errs[(kern, "lane" if bs == LANE_BATCH
                                      else dt)])
-        if kern == whole:
+        if kern != tiled:
             row["tiled_ms"] = tiled_ms
         timings[kern].append(row)
         if hh == H and ((kern == tiled and rate) or not with_bias):
@@ -710,9 +785,11 @@ def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
     S = Sk, over the S·(S+1)/2 pairs it keeps), reading the bias (if
     ``bias``) once. ``n_out`` "q" (dQ) or "kv" (dK and dV): a split
     kernel, which reads q, k, v, dO, lse and delta once and writes its
-    outputs once; "qkv": the whole backward, the function SDPA's backward
-    computes, which reads its inputs q, k, v, O, dO and lse once and
-    writes dQ, dK and dV once."""
+    outputs once (the streamed dK/dV kernel alike: lse and delta come in
+    one buffer); "q_streamed": the streamed dQ kernel, which reads q, k,
+    v, O, dO and lse and writes dQ, lse and delta; "qkv": the whole
+    backward, the function SDPA's backward computes, which reads its
+    inputs q, k, v, O, dO and lse once and writes dQ, dK and dV once."""
     elt = 4 if dtype == "float32" else 2
     pairs = S * (S + 1) // 2 if causal else S * Sk
     flop = flop_units * B * H * pairs * D
@@ -721,6 +798,7 @@ def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
     nbytes = B * Sk * 4 * bias + {
         "q": 2 * q_b + 2 * kv_b + 2 * rows + q_b,
         "kv": 2 * q_b + 2 * kv_b + 2 * rows + 2 * kv_b,
+        "q_streamed": 3 * q_b + 2 * kv_b + rows + q_b + 2 * rows,
         "qkv": 3 * q_b + 2 * kv_b + rows + q_b + 2 * kv_b}[n_out]
     return (*bound(flop, nbytes, dtype), flop, nbytes)
 
@@ -758,17 +836,18 @@ def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed, causal=False):
 def phase_kernel_bwd():
     """The backward kernels against the plain backward, on the forward
     kernel's O and lse: each case runs the route bwd_route picks, the
-    fused kernel (bf16, S and Sk up to 128) or the dK/dV and dQ kernels
-    (f32; S or Sk above 128 in either dtype: the bf16 cases run on both
-    sides of 128, and each split kernel must have met both dtypes). The
-    fused kernel runs every case twice and
-    must give bitwise equal results. Then, at the training shape (B=32,
-    H=12, S=128, D=64, bias) in f32 without and with dropout 0.1 and in
-    bf16, and at the bench lane's (batch 256, bf16, no bias), each kernel
-    of the shape's route timed beside its bound and plain version, and
-    the graph-timed whole backward of SDPA and of the port; in bf16 also
-    the split route's whole backward (bwd_delta, dK/dV, dQ) on the same
-    inputs, and in f32 bwd_delta alone."""
+    fused kernel (bf16, S and Sk up to 128), the streamed dQ and dK/dV
+    kernels (bf16 above 128) or the split dK/dV and dQ kernels (f32). The
+    fused and streamed kernels run every case twice and must give bitwise
+    equal results. Then, at the training shape (B=32, H=12, S=128, D=64,
+    bias) in f32 without and with dropout 0.1 and in bf16, at the bench
+    lane's (batch 256, bf16, no bias), transformer_big's step, B3's
+    (S = 256) and the S = 512 lane's, each kernel of the shape's route
+    timed beside its bound and plain version, and the graph-timed whole
+    backward of SDPA and of the port; in bf16 also the split route's
+    whole backward (bwd_delta, dK/dV, dQ) on the same inputs (the old
+    route beside the streamed pair, held to the plain version and beaten
+    by it), and in f32 bwd_delta alone."""
     import torch
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -786,12 +865,16 @@ def phase_kernel_bwd():
         want = fa.flash_attention_bwd_reference(*args)
         torch.cuda.synchronize()
         e_q, e_k, e_v = _check_bwd(f"{name} ({route})", got, want, tol)
-        if route == "fused":
+        if route != "split":
             again = fa.flash_attention_bwd_cuda(*args)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"the fused backward's rerun differs: "
-                                     f"{name}")
+                raise AssertionError(f"the {route} backward's rerun "
+                                     f"differs: {name}")
+        if route == "fused":
             found = (("flash_attention_bwd_fused", max(e_q, e_k, e_v)),)
+        elif route == "streamed":
+            found = (("flash_attention_bwd_dq_streamed", e_q),
+                     ("flash_attention_bwd_dkdv_streamed", max(e_k, e_v)))
         else:
             found = (("flash_attention_bwd_q", e_q),
                      ("flash_attention_bwd_kv", max(e_k, e_v)))
@@ -829,6 +912,20 @@ def phase_kernel_bwd():
     q, k, v = _qkv(2, 3, 100, 77, 64, bf16, gen)
     both("ragged S=100 Sk=77 bias dropout 0.1 bf16", q, k, v, sm, BF16_TOL,
          rate=0.1, seed=seed, bias=_padding_bias(2, 77, gen))
+    # the streamed kernels: ragged 200 x 300 and 77 x 300, causal with S !=
+    # Sk (keys no row reaches get dK = dV = 0), dropout 0.3, D = 128
+    for sq, sk in ((200, 300), (77, 300), (300, 200)):
+        q, k, v = _qkv(2, 3, sq, sk, 64, bf16, gen)
+        both(f"ragged S={sq} Sk={sk} bias bf16", q, k, v, sm, BF16_TOL,
+             bias=_padding_bias(2, sk, gen))
+        both(f"causal S={sq} Sk={sk} bias bf16", q, k, v, sm, BF16_TOL,
+             causal=True, bias=_padding_bias(2, sk, gen))
+        both(f"dropout 0.3 S={sq} Sk={sk} bias bf16", q, k, v, sm, BF16_TOL,
+             rate=0.3, seed=seed, bias=_padding_bias(2, sk, gen))
+    q, k, v = _qkv(2, 3, 300, 300, 128, bf16, gen)
+    both("D=128 causal dropout 0.1 S=Sk=300 bias bf16", q, k, v,
+         128 ** -0.5, BF16_TOL, causal=True, rate=0.1, seed=seed,
+         bias=_padding_bias(2, 300, gen))
     q, k, v = _qkv(3, 2, 1, 1, 64, bf16, gen)
     both("S=Sk=1 bf16", q, k, v, sm, BF16_TOL)
     for d in (8, 16, 32, 40, 96, 128):
@@ -849,6 +946,11 @@ def phase_kernel_bwd():
     both(f"bench lane B={LANE_BATCH} H={H} S={S} D={D} bf16 no bias", q, k,
          v, sm, BF16_TOL, tag="lane")
     del q, k, v
+    q, k, v = _qkv(LANE512_BATCH, LANE512_HEADS, LANE512_SEQ, LANE512_SEQ, D,
+                   bf16, gen)
+    both(f"S=512 lane B={LANE512_BATCH} H={LANE512_HEADS} S={LANE512_SEQ} "
+         f"D={D} bf16 no bias", q, k, v, sm, BF16_TOL)
+    del q, k, v
     # transformer_big's bf16 training step (fused) and bf16 at S = 256
     # (split, ROADMAP B3)
     for name in ("train self-attention", "B3 S=256"):
@@ -858,18 +960,24 @@ def phase_kernel_bwd():
              k, v, sm, BF16_TOL, causal=causal, rate=rate, seed=seed,
              bias=_padding_bias(bs, sk, gen) if with_bias else None)
         del q, k, v
-    # every kernel ran in each dtype it has an instance of (bf16 beyond
-    # S, Sk = 128 takes the split kernels)
+    # every kernel ran (the split ones in f32: bf16 beyond S, Sk = 128
+    # takes the streamed kernels; the split ones' bf16 instances are held
+    # to the plain version in the timing rows below, as the old route)
     ran = {(kern, tag) for kern, tag in errs}
-    for kern in ("flash_attention_bwd_q", "flash_attention_bwd_kv"):
-        if not {(kern, f32), (kern, bf16)} <= ran:
-            raise AssertionError(f"{kern}: no case in each of f32 and bf16")
+    for kern, dt in (("flash_attention_bwd_q", f32),
+                     ("flash_attention_bwd_kv", f32),
+                     ("flash_attention_bwd_fused", bf16),
+                     ("flash_attention_bwd_dq_streamed", bf16),
+                     ("flash_attention_bwd_dkdv_streamed", bf16)):
+        if (kern, dt) not in ran:
+            raise AssertionError(f"{kern}: no case in {dt}")
 
     # time at the training shape: B=32, H=12, S=128, D=64, bias; f32
     # without and with dropout 0.1 (as the training step runs them), bf16;
     # at the bench lane's: B=256, bf16, no bias; at transformer_big's bf16
-    # step (B=48, H=16, S=64, causal, bias, dropout 0.3); and bf16 at
-    # S = 256 (ROADMAP B3)
+    # step (B=48, H=16, S=64, causal, bias, dropout 0.3); bf16 at S = 256
+    # (ROADMAP B3) and the S = 512 lane's (B=64, no bias) on the streamed
+    # kernels, beside the old split route on the same inputs
     split = (("flash_attention_bwd_kv", fa.flash_attention_bwd_kv_cuda,
               fa.flash_attention_bwd_kv_reference, 8, "kv"),
              ("flash_attention_bwd_q", fa.flash_attention_bwd_q_cuda,
@@ -881,7 +989,9 @@ def phase_kernel_bwd():
             (B, H, S, bf16, 0.0, True, False),
             (LANE_BATCH, H, S, bf16, 0.0, False, False),
             (WMT_BATCH, WMT_HEADS, WMT_LEN, bf16, WMT_DROPOUT, True, True),
-            (b3_batch, WMT_HEADS, b3_len, bf16, 0.0, True, False)):
+            (b3_batch, WMT_HEADS, b3_len, bf16, 0.0, True, False),
+            (LANE512_BATCH, LANE512_HEADS, LANE512_SEQ, bf16, 0.0, False,
+             False)):
         q, k, v = _qkv(bs, hh, n, n, D, dt, gen)
         bias = _padding_bias(bs, n, gen) if with_bias else None
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
@@ -930,6 +1040,71 @@ def phase_kernel_bwd():
             if not with_bias:  # the lane's row heads the kernel's entry
                 rows["flash_attention_bwd_fused"] = row
             alone = f"the fused kernel alone {ms:.4f} ms"
+        elif route == "streamed":
+            bwd_args = (q, k, v, o, lse, do, sm, causal, rate, seed, bias)
+            tail = (sm, causal, rate, seed, bias)
+            delta = fa.bwd_delta(o, do)
+            stats = fa.flash_attention_bwd_dq_streamed_cuda(
+                q, k, v, o, lse, do, *tail)[1]
+            pair_ms = _cuda_ms(lambda: fa.flash_attention_bwd_streamed_cuda(
+                *bwd_args))
+            split_ms = _cuda_ms(lambda: fa.flash_attention_bwd_split_cuda(
+                *bwd_args))
+            # the old route's bf16 instances, held to the plain version
+            old = _check_bwd(f"old route (split) {what}",
+                             fa.flash_attention_bwd_split_cuda(*bwd_args),
+                             fa.flash_attention_bwd_reference(*bwd_args),
+                             BF16_TOL)
+            for kern, e in (("flash_attention_bwd_q", old[0]),
+                            ("flash_attention_bwd_kv", max(old[1:]))):
+                errs[(kern, "old route")] = max(
+                    errs.get((kern, "old route"), 0.0), e)
+            if pair_ms >= split_ms:
+                raise AssertionError(f"the streamed backward at {what} "
+                                     f"takes {pair_ms:.4f} ms, the old "
+                                     f"route {split_ms:.4f}")
+            parts = (
+                ("flash_attention_bwd_dq_streamed",
+                 lambda: fa.flash_attention_bwd_dq_streamed_cuda(
+                     q, k, v, o, lse, do, *tail),
+                 lambda: fa.flash_attention_bwd_q_reference(
+                     q, k, v, do, lse, fa.bwd_delta(o, do), *tail),
+                 6, "q_streamed"),
+                ("flash_attention_bwd_dkdv_streamed",
+                 lambda: fa.flash_attention_bwd_dkdv_streamed_cuda(
+                     q, k, v, do, stats, *tail),
+                 lambda: fa.flash_attention_bwd_kv_reference(
+                     q, k, v, do, lse, delta, *tail),
+                 8, "kv"))
+            for name, cuda_fn, plain_fn, units, outs in parts:
+                ms = _cuda_ms(cuda_fn)
+                eager_ms = _cuda_ms(cuda_fn, graph=False)
+                plain = _cuda_ms(plain_fn, graph=not rate,
+                                 iters=plain_iters)
+                kbnd, kby, kflop, kbytes = _bwd_bound(
+                    bs, hh, n, n, D, units, outs, name_dt, with_bias, causal)
+                _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms "
+                     f"(issued one by one from Python {eager_ms:.4f} ms), "
+                     f"plain {plain:.4f} ms, SDPA backward (dQ, dK, dV "
+                     f"together, graph-timed) {lib_ms:.4f} ms, bound "
+                     f"{kbnd:.4f} ms ({kby}: {kflop} FLOP, {kbytes} B), "
+                     f"{kbnd / ms:.1%} of it")
+                _check_bound(f"{name} {what}", ms, kbnd)
+                row = dict(shape=what, ms=ms, eager_ms=eager_ms,
+                           plain_ms=plain, library_ms=lib_ms, bound_ms=kbnd,
+                           bound_by=kby, max_abs_err=errs[(name, dt)],
+                           pair_ms=pair_ms, split_route_ms=split_ms)
+                timings.setdefault(name, []).append(row)
+                if not with_bias:  # the S = 512 lane's row heads it
+                    rows[name] = row
+            alone = (f"the streamed pair alone {pair_ms:.4f} ms (the dQ "
+                     f"kernel with delta, then dK/dV: 14·B·H·S·Sk·D FLOP "
+                     f"executed, recomputing QK^T and dO·V^T in each; "
+                     f"whole bound {bnd:.4f} ms, {bnd / pair_ms:.1%} of "
+                     f"it); the old route on the same inputs (bwd_delta, "
+                     f"dK/dV, dQ; graph-timed) {split_ms:.4f} ms, "
+                     f"streamed/split {pair_ms / split_ms:.3f}")
+            del delta, stats
         else:
             delta = fa.bwd_delta(o, do)
             args = (q, k, v, do, lse, delta, sm, causal, rate, seed, bias)
@@ -1038,13 +1213,13 @@ def phase_attention_routes():
     seed = rng.attention_seed(key)
     for hidden, heads, dt, rate, bias_kind, want_route, want in (
             (768, 8, torch.float32, 0.0, "key-padding", "flash",
-             (1, 1, 1, 0, 0, 0)),
+             (1, 1, 1, 0, 0, 0, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.0, "key-padding", "flash",
-             (0, 0, 0, 1, 0, 1)),
+             (0, 0, 0, 1, 0, 1, 0, 0, 0)),
             (768, 8, torch.float32, 0.1, "key-padding", "flash",
-             (1, 1, 1, 0, 0, 0)),
+             (1, 1, 1, 0, 0, 0, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.1, "key-padding", "flash",
-             (0, 0, 0, 1, 0, 1)),
+             (0, 0, 0, 1, 0, 1, 0, 0, 0)),
             (768, 12, torch.float32, 0.1, "[1,1,1,Sk]", "einsum",
              NO_KERNELS)):
         q, k, v, do = (torch.randn(2, S, hidden, generator=gen,
@@ -1502,7 +1677,9 @@ def _launch_counts():
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     return (fa.launch_count, fa.bwd_kv_launch_count, fa.bwd_q_launch_count,
             fa.bwd_fused_launch_count, dk.launch_count,
-            fa.fwd_whole_launch_count)
+            fa.fwd_whole_launch_count, fa.fwd_streamed_launch_count,
+            fa.bwd_dq_streamed_launch_count,
+            fa.bwd_dkdv_streamed_launch_count)
 
 
 def _reset_launch_counts():
@@ -1510,7 +1687,8 @@ def _reset_launch_counts():
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     fa.launch_count = fa.bwd_kv_launch_count = fa.bwd_q_launch_count = 0
     fa.bwd_fused_launch_count = dk.launch_count = 0
-    fa.fwd_whole_launch_count = 0
+    fa.fwd_whole_launch_count = fa.fwd_streamed_launch_count = 0
+    fa.bwd_dq_streamed_launch_count = fa.bwd_dkdv_streamed_launch_count = 0
 
 
 def _attention_route(main):
@@ -1541,16 +1719,18 @@ def _step_want(ops, route, forwards=None):
     """GATE_NAMES launches of one training step: each attention op
     launches the forward once and its grad re-runs it under autograd (the
     generic grad; ``forwards`` overrides the count), whose backward
-    launches the dK/dV and the dQ kernel once each on the split route or
-    the fused kernel once; each dropout op launches the dropout kernel
-    once (its grad is a mask product: no re-draw). The forward is the
-    tiled kernel on the split route and the whole-block one on the fused
-    route: one predicate (``holds_whole``) picks both."""
+    launches the dK/dV and the dQ kernel once each on the split route, the
+    fused kernel once, or the streamed dQ and dK/dV kernels once each;
+    each dropout op launches the dropout kernel once (its grad is a mask
+    product: no re-draw). The forward is the tiled kernel on the split
+    route, the whole-block one on the fused route and the streamed one on
+    the streamed route: ``bwd_route`` maps ``fwd_route``'s answer."""
     L = sum(op.type == "fused_attention_qkv" for op in ops)
     fwd = 2 * L if forwards is None else forwards
-    if route == "split":
-        return (fwd, L, L, 0, _dropout_ops(ops), 0)
-    return (0, 0, 0, L, _dropout_ops(ops), fwd)
+    drop = _dropout_ops(ops)
+    return {"split": (fwd, L, L, 0, drop, 0, 0, 0, 0),
+            "fused": (0, 0, 0, L, drop, fwd, 0, 0, 0),
+            "streamed": (0, 0, 0, 0, drop, 0, fwd, L, L)}[route]
 
 
 def _dropout_ops(ops):
@@ -3047,12 +3227,12 @@ def phase_resnet(profile=False):
 # --------------------------------------------------------------------------
 # 11. transformer
 # --------------------------------------------------------------------------
-WMT_STEP_WANT = (0, 0, 0, 18, 42, 36)  # transformer_big's bf16 step: 18
+WMT_STEP_WANT = (0, 0, 0, 18, 42, 36, 0, 0, 0)  # transformer_big's bf16 step: 18
 #                               attention ops (6 encoder, 6 + 6 decoder) on
 #                               the fused route, each forward run twice (the
 #                               generic grad re-runs it), 42 dropout ops
-WMT_DECODE_WANT = (18, 0, 0, 0, 0, 0)  # a decode run: the 18 forwards, f32
-WMT_LANE_WANT = (0, 0, 0, 6, 0, 12)  # bench's transformer lane, 2 + 2 layers
+WMT_DECODE_WANT = (18, 0, 0, 0, 0, 0, 0, 0, 0)  # a decode run: the 18 forwards, f32
+WMT_LANE_WANT = (0, 0, 0, 6, 0, 12, 0, 0, 0)  # bench's transformer lane, 2 + 2 layers
 WMT_WARMUP = 3                # steps before the timed ones
 WMT_STEPS = 20                # bf16 steps timed
 WMT_FALL_STEPS = 8            # steps on one repeated batch
@@ -3425,6 +3605,59 @@ def phase_transformer(profile=False):
             "executed": tuple(map(sum, zip(*(p[1] for p in parts))))}
 
 
+LANE512_STEPS = 20            # the S = 512 lane's window (bench's 20): the
+                              # first thing to cut if the run outgrows its
+                              # time limit
+
+
+def phase_lane512(profile=False):
+    """Phase 12: bench.py's bert lane at S = 512 (the docstring's phase
+    12), as ``PADDLE_TPU_BENCH_SEQ=512 PADDLE_TPU_BENCH_BATCH=64 python3 -m
+    paddle_tpu_torch.bench bert`` runs it: the batch pinned at 64, so the
+    ladder tries no larger batch first."""
+    from paddle_tpu_torch import bench
+    env = {"PADDLE_TPU_BENCH_SEQ": str(LANE512_SEQ),
+           "PADDLE_TPU_BENCH_BATCH": str(LANE512_BATCH)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        _reset_launch_counts()
+        lane = bench.run_bert_base(steps=LANE512_STEPS)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wrapper = _launch_counts()
+    res = lane.res
+    print(json.dumps(res), flush=True)
+    if (res["batch"], res["seq_len"]) != (LANE512_BATCH, LANE512_SEQ):
+        raise AssertionError(f"S=512 lane ran batch {res['batch']} at S = "
+                             f"{res['seq_len']}, want {LANE512_BATCH} at "
+                             f"{LANE512_SEQ}")
+    ops = lane.main.global_block().ops
+    want = _step_want(ops, "streamed")
+    if want != LANE512_STEP_WANT:
+        raise AssertionError(f"S=512 lane: want {want} launches a step, not "
+                             f"{LANE512_STEP_WANT}")
+    runs = _gate_lane(lane, wrapper, want, "S=512 lane")
+    executed = tuple((runs["eager"] + runs["replays"]) * w for w in want)
+    with _lane_flags():
+        if profile:
+            _profile_step(lane.exe, lane.main, lane.fetches[0], lane.scope,
+                          lane.feed, f"S=512 lane bf16 batch {res['batch']}")
+    _log(f"[lane512] bert S={res['seq_len']}: batch {res['batch']}, "
+         f"{res['value']} samples/s, {res['step_ms']} ms a step, peak "
+         f"{res['peak_memory_gib']} GiB, mfu_vs_h100_bf16_peak "
+         f"{res['mfu_vs_h100_bf16_peak']}; gate {want} {GATE_NAMES} "
+         f"launches a step (wrappers, graph, trace) -> ok; {runs['eager']} "
+         f"eager, {runs['captures']} capture, {runs['replays']} replays "
+         f"before the trace; kernels run {executed}")
+    lane.close()
+    return {"wrapper": wrapper, "executed": executed, "bert": res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -3462,6 +3695,7 @@ def main(argv=None) -> int:
     paths["guard"] = phase_guard()
     paths["resnet"] = phase_resnet(profile=args.profile)
     paths["transformer"] = phase_transformer(profile=args.profile)
+    paths["lane512"] = phase_lane512(profile=args.profile)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded
@@ -3470,8 +3704,9 @@ def main(argv=None) -> int:
     # the whole-block forward and the fused backward are at the bench
     # lane's shape (bf16, batch 256, no bias), those of the tiled forward
     # and the dK/dV and dQ kernels at the f32 training step's (batch 32,
-    # bias, dropout 0.1); "timings" holds every shape timed. The entries
-    # are in KERNELS' order.
+    # bias, dropout 0.1), those of the streamed kernels at the S = 512
+    # lane's (bf16, batch 64, no bias); "timings" holds every shape timed.
+    # The entries are in KERNELS' order.
     src = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3489,7 +3724,17 @@ def main(argv=None) -> int:
                ("dropout_fwd", "dropout.cu", "paddle_tpu/ops/nn_ops.py:263",
                 drop_row),
                ("flash_attention_fwd_whole", "flash_attention_fwd_whole.cu",
-                replaces + "298", fwd_rows["flash_attention_fwd_whole"])]
+                replaces + "298", fwd_rows["flash_attention_fwd_whole"]),
+               ("flash_attention_fwd_streamed",
+                "flash_attention_fwd_streamed.cu", replaces + "298",
+                fwd_rows["flash_attention_fwd_streamed"]),
+               # _bwd_q_kernel's pallas_call and the delta prologue (:492)
+               ("flash_attention_bwd_dq_streamed",
+                "flash_attention_bwd_streamed.cu", replaces + "543",
+                bwd_rows["flash_attention_bwd_dq_streamed"]),
+               ("flash_attention_bwd_dkdv_streamed",
+                "flash_attention_bwd_streamed.cu", replaces + "514",
+                bwd_rows["flash_attention_bwd_dkdv_streamed"])]
     if tuple(e[0] for e in entries) != KERNELS:
         raise AssertionError("the kernels line's entries are not KERNELS")
     kernels = []
@@ -3502,7 +3747,8 @@ def main(argv=None) -> int:
                                    for p, v in paths.items()},
             **{k: r[k] for k in keys},
             **{k: r[k] for k in ("max_abs_err_by_dtype", "timings",
-                                 "tiled_ms") if k in r}))
+                                 "tiled_ms", "pair_ms", "split_route_ms")
+               if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,24 +104,6 @@ struct Smem {
   static constexpr int BYTES = BAR + 8 + 1024;  // + room to align the base
 };
 
-// ---- small helpers ---------------------------------------------------------
-
-// the sum of the elementwise products of eight bf16 pairs, in f32
-__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
-  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
-  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 u = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(x + i));
-    const float2 v = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(y + i));
-    s += u.x * v.x + u.y * v.y;
-  }
-  return s;
-}
-
 // ---- the kernel ------------------------------------------------------------
 
 // Block bh: batch * head bh. Warpgroup wg owns query rows 64 wg .. 64 wg

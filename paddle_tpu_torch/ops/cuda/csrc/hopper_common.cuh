@@ -1,9 +1,12 @@
-// Hopper (sm_90a) building blocks of the two whole-block flash-attention
-// kernels, the fused backward (flash_attention_bwd_fused.cu) and the
-// whole-block forward (flash_attention_fwd_whole.cu): TMA copies between
-// device memory and 128-byte-swizzled shared memory reported to mbarriers,
-// the wgmma matrix descriptors and products (bf16 operands, f32
-// accumulators, m64n64k16), and, on the host, the tensor maps of
+// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels on
+// wgmma and TMA: the whole-block ones, the fused backward
+// (flash_attention_bwd_fused.cu) and the whole-block forward
+// (flash_attention_fwd_whole.cu), and the streamed ones for S or Sk above
+// 128 (flash_attention_fwd_streamed.cu, flash_attention_bwd_streamed.cu):
+// TMA copies between device memory and 128-byte-swizzled shared memory
+// reported to mbarriers, plain bulk copies, the wgmma matrix descriptors
+// and products (bf16 operands, f32 accumulators, m64n64k16), a row's dot
+// product of bf16 chunks, and, on the host, the tensor maps of
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
 // so that no library links against libcuda.
 //
@@ -14,6 +17,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +63,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// arrive once on `bar` (a consumer releasing a stage of a ring)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 // one box of a 3-D tensor map at (column c0, row c1, head c2)
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          int c0, int c1, int c2,
@@ -68,6 +78,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, reported to `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -134,6 +155,12 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed groups of products are in flight (the
+// N youngest): an older group's accumulators may then be read
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // keep the compiler from moving an accumulator across the asynchronous
 // product that writes it (read before the commit, after the wait)
@@ -185,11 +212,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
 #undef PADDLE_ACC32
 #undef PADDLE_D32
 
+// d = A B^T as one committed group of products: A [64 rows][DP] and B [64
+// rows][DP] both K-major in 64-column regions of shared memory (a and b
+// the addresses of their first rows); d is zeroed first
+template <int DP>
+__device__ __forceinline__ void wgmma_abt(float (&d)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  fence_acc(d);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int off = (kk / 4) * REGION + (kk % 4) * 32;
+    wgmma_ss<0, 0>(d, desc_k(a + off), desc_k(b + off));
+  }
+  wg_commit();
+}
+
+// acc += A B, uncommitted: A [64][64] from registers (a[4 kk .. 4 kk + 3]
+// at k step kk, the accumulator layout packed to bf16), B [64 rows][DP]
+// read MN-major from 64-column regions (b the address of its first row)
+template <int NC>
+__device__ __forceinline__ void wgmma_rab(float (&acc)[NC][32],
+                                          const uint32_t (&a)[16],
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      wgmma_rs<1>(acc[c], a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                  a[4 * kk + 3], desc_mn(b + c * REGION + 16 * kk * 128));
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x by the special-function unit (ex2.approx, what __expf runs on after
+// its multiply by log2 e): the streamed kernels fold the softmax scale and
+// log2 e into one multiply-add before it
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // the byte offset of (row, column pair starting at 8 j + 2 t) in a
 // [128][64] bf16 region with the 128-byte swizzle TMA and wgmma use: the
 // 16-byte chunk j of a row is stored at chunk j ^ (row % 8)
 __device__ __forceinline__ int swz(int row, int j, int t) {
   return row * 128 + ((j ^ (row & 7)) << 4) + 4 * t;
+}
+
+// the sum of the elementwise products of eight bf16 pairs, in f32 (two
+// 16-byte chunks of a row: delta = rowsum(dO * O) chunk by chunk)
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(x + i));
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(y + i));
+    s += u.x * v.x + u.y * v.y;
+  }
+  return s;
 }
 
 // ---- host side -------------------------------------------------------------

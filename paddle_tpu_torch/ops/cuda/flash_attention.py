@@ -13,8 +13,15 @@ BERT path; ``holds_whole``), two kernels on wgmma and TMA
 (``csrc/hopper_common.cuh``) take their place: the whole-block forward
 ``csrc/flash_attention_fwd_whole.cu`` (one softmax pass over all keys),
 and the fused backward ``csrc/flash_attention_bwd_fused.cu`` in place of
-both backward kernels and of the delta prologue (:492). ``fwd_route`` and
-``bwd_route`` pick by shape and dtype alone, through the one predicate.
+both backward kernels and of the delta prologue (:492). In bf16 above
+128, where no block holds a (batch, head) whole, three more kernels on
+wgmma and TMA stream the keys (or the query rows) through a two-stage ring
+of shared memory: the streamed forward ``csrc/flash_attention_fwd_streamed.cu``
+(an online softmax across 128-key tiles), and the streamed backward
+``csrc/flash_attention_bwd_streamed.cu``, a dQ kernel that takes delta
+itself, then a dK/dV kernel. ``fwd_route`` picks by shape and dtype
+alone, "whole", "streamed" or "tiled" (f32: the tiled forward), and
+``bwd_route`` maps its answer ("fused", "streamed", "split").
 Every source is built at first use by ``build.py``; each source's header
 says what bounds it and how it is laid out. All share the counter-hash
 dropout mask (``csrc/keep_mask.cuh``), so the backward regenerates the
@@ -43,9 +50,11 @@ is (q, k, v, o, lse, seed, bias); the bias gets a zero grad and the seed
 none.
 
 ``launch_count`` (the tiled forward), ``fwd_whole_launch_count``,
-``bwd_kv_launch_count``, ``bwd_q_launch_count`` and
-``bwd_fused_launch_count`` count each kernel's launches: a wrapper adds one
-where it launches its kernel and nowhere else.
+``bwd_kv_launch_count``, ``bwd_q_launch_count``,
+``bwd_fused_launch_count``, ``fwd_streamed_launch_count``,
+``bwd_dq_streamed_launch_count`` and ``bwd_dkdv_streamed_launch_count``
+count each kernel's launches: a wrapper adds one where it launches its
+kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -63,6 +72,8 @@ KERNEL_SOURCE = "flash_attention_fwd.cu"
 BWD_KERNEL_SOURCE = "flash_attention_bwd.cu"
 BWD_FUSED_SOURCE = "flash_attention_bwd_fused.cu"
 FWD_WHOLE_SOURCE = "flash_attention_fwd_whole.cu"
+FWD_STREAMED_SOURCE = "flash_attention_fwd_streamed.cu"
+BWD_STREAMED_SOURCE = "flash_attention_bwd_streamed.cu"
 # the whole-block kernels (the forward and the fused backward) hold a
 # (batch, head)'s query rows and keys in one block
 WHOLE_MAX_LEN = 128
@@ -72,6 +83,9 @@ fwd_whole_launch_count = 0
 bwd_kv_launch_count = 0
 bwd_q_launch_count = 0
 bwd_fused_launch_count = 0
+fwd_streamed_launch_count = 0
+bwd_dq_streamed_launch_count = 0
+bwd_dkdv_streamed_launch_count = 0
 
 
 def launch_counts():
@@ -82,7 +96,11 @@ def launch_counts():
             "flash_attention_fwd_whole": fwd_whole_launch_count,
             "flash_attention_bwd_kv": bwd_kv_launch_count,
             "flash_attention_bwd_q": bwd_q_launch_count,
-            "flash_attention_bwd_fused": bwd_fused_launch_count}
+            "flash_attention_bwd_fused": bwd_fused_launch_count,
+            "flash_attention_fwd_streamed": fwd_streamed_launch_count,
+            "flash_attention_bwd_dq_streamed": bwd_dq_streamed_launch_count,
+            "flash_attention_bwd_dkdv_streamed":
+                bwd_dkdv_streamed_launch_count}
 
 
 _M32 = 0xFFFFFFFF
@@ -263,6 +281,11 @@ _SIGNATURES = {
                         "paddle_flash_attention_bwd_q": [_PTR] * 9 + _TAIL},
     BWD_FUSED_SOURCE: {
         "paddle_flash_attention_bwd_fused": [_PTR] * 11 + _TAIL},
+    FWD_STREAMED_SOURCE: {
+        "paddle_flash_attention_fwd_streamed": [_PTR] * 7 + _TAIL},
+    BWD_STREAMED_SOURCE: {
+        "paddle_flash_attention_bwd_dq_streamed": [_PTR] * 10 + _TAIL,
+        "paddle_flash_attention_bwd_dkdv_streamed": [_PTR] * 9 + _TAIL},
 }
 _libs = {}
 
@@ -303,9 +326,7 @@ def kernel_head_dim(d: int) -> Optional[int]:
 def holds_whole(q_shape, k_shape, dtype) -> bool:
     """Whether one block of the whole-block kernels holds a (batch, head)
     of q [B, H, S, D], k [B, H, Sk, D] of ``dtype`` whole: bf16, S and Sk
-    up to WHOLE_MAX_LEN, at a head dim the kernels take. ``fwd_route`` and
-    ``bwd_route`` both ask it, so the forward and the backward never
-    disagree about what "short" means."""
+    up to WHOLE_MAX_LEN, at a head dim the kernels take."""
     S, Sk, d = q_shape[2], k_shape[2], q_shape[3]
     return (dtype == torch.bfloat16 and S <= WHOLE_MAX_LEN
             and Sk <= WHOLE_MAX_LEN and kernel_head_dim(d) is not None)
@@ -313,19 +334,29 @@ def holds_whole(q_shape, k_shape, dtype) -> bool:
 
 def fwd_route(q_shape, k_shape, dtype) -> str:
     """Which forward runs on the card: "whole" (one block a (batch, head),
-    one softmax pass over all its keys) where ``holds_whole``, else
-    "tiled" (64-row query tiles, an online softmax over 64-key tiles). A
-    choice by shape between two kernels, never a fallback: what neither
-    takes raises in the wrapper."""
-    return "whole" if holds_whole(q_shape, k_shape, dtype) else "tiled"
+    one softmax pass over all its keys) where ``holds_whole``; "streamed"
+    (128 query rows a block, an online softmax over 128-key tiles) for the
+    rest of bf16 at a head dim the kernels take (S or Sk above
+    WHOLE_MAX_LEN); else "tiled" (64-row query tiles on mma.sync: f32, and
+    what no kernel takes, which raises in the tiled wrapper). A choice by
+    shape between kernels, never a fallback. ``bwd_route`` maps this
+    answer, so the forward and the backward never disagree."""
+    if holds_whole(q_shape, k_shape, dtype):
+        return "whole"
+    if dtype == torch.bfloat16 and kernel_head_dim(q_shape[3]) is not None:
+        return "streamed"
+    return "tiled"
+
+
+_BWD_OF_FWD = {"whole": "fused", "streamed": "streamed", "tiled": "split"}
 
 
 def bwd_route(q_shape, k_shape, dtype) -> str:
-    """Which backward runs on the card: "fused" (one kernel: delta, dQ, dK
-    and dV) where ``holds_whole``, else "split" (delta, then the dK/dV and
-    the dQ kernels). A choice by shape between two kernels, never a
-    fallback: what neither takes raises in the wrapper."""
-    return "fused" if holds_whole(q_shape, k_shape, dtype) else "split"
+    """Which backward runs on the card, the one of ``fwd_route``'s answer:
+    "fused" (one kernel: delta, dQ, dK and dV), "streamed" (the dQ kernel
+    with delta inside, then the dK/dV kernel) or "split" (delta in torch
+    passes, then the dK/dV and the dQ kernels)."""
+    return _BWD_OF_FWD[fwd_route(q_shape, k_shape, dtype)]
 
 
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -397,10 +428,11 @@ def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
                          dropout_seed=None,
                          bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward on the card → (o, lse), by ``fwd_route``: the
-    whole-block kernel or the tiled one."""
-    fn = (flash_attention_fwd_whole_cuda
-          if fwd_route(q.shape, k.shape, q.dtype) == "whole"
-          else flash_attention_fwd_tiled_cuda)
+    whole-block kernel, the streamed one or the tiled one."""
+    route = fwd_route(q.shape, k.shape, q.dtype)
+    fn = (flash_attention_fwd_whole_cuda if route == "whole" else
+          flash_attention_fwd_streamed_cuda if route == "streamed" else
+          flash_attention_fwd_tiled_cuda)
     return fn(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, bias)
 
 
@@ -470,6 +502,44 @@ def flash_attention_fwd_whole_cuda(q, k, v, sm_scale, causal=False,
             *_common_args(q, k, sm_scale, causal, dropout_rate))
     _raise_on(lib, rc, "flash_attention whole-block forward")
     fwd_whole_launch_count += 1
+    return o, lse
+
+
+def flash_attention_fwd_streamed_cuda(q, k, v, sm_scale, causal=False,
+                                      dropout_rate=0.0, dropout_seed=None,
+                                      bias=None):
+    """Launch the streamed forward kernel on the current stream (bf16, S
+    or Sk above WHOLE_MAX_LEN): one block a (batch, head, 128 query rows),
+    the keys streamed in 128-key tiles → (o, lse). A head dim off the
+    instances is padded with zero columns."""
+    global fwd_streamed_launch_count
+    _check_cuda_inputs(q, k, v)
+    if fwd_route(q.shape, k.shape, q.dtype) != "streamed":
+        raise ValueError(f"flash_attention streamed forward: takes bf16 "
+                         f"with S or Sk above {WHOLE_MAX_LEN}, got "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
+    B, H, S, D = q.shape
+    dp = kernel_head_dim(D)
+    if dp != D:
+        o, lse = flash_attention_fwd_streamed_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v)), sm_scale, causal,
+            dropout_rate, dropout_seed, bias)
+        return o[..., :D].contiguous(), lse
+    dev = q.device
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
+                                   k.shape[2], dev)
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=dev)
+    if S == 0:
+        return o, lse
+    lib = _library(FWD_STREAMED_SOURCE)
+    with torch.cuda.device(dev):
+        rc = lib.paddle_flash_attention_fwd_streamed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(seed),
+            o.data_ptr(), lse.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention streamed forward")
+    fwd_streamed_launch_count += 1
     return o, lse
 
 
@@ -608,13 +678,113 @@ def flash_attention_bwd_split_cuda(q, k, v, o, lse, do, sm_scale,
     return dq, dk, dv
 
 
+ROW_TILE = 128  # query rows of a tile of the streamed dQ kernel
+
+
+def _check_streamed(q, k, what):
+    if bwd_route(q.shape, k.shape, q.dtype) != "streamed":
+        raise ValueError(f"flash_attention streamed {what}: takes bf16 with "
+                         f"S or Sk above {WHOLE_MAX_LEN}, got "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
+    if kernel_head_dim(q.shape[3]) != q.shape[3]:
+        raise ValueError(f"flash_attention streamed {what}: head dim "
+                         f"{q.shape[3]} is no instance (pad it first)")
+
+
+def flash_attention_bwd_dq_streamed_cuda(q, k, v, o, lse, do, sm_scale,
+                                         causal=False, dropout_rate=0.0,
+                                         dropout_seed=None, bias=None):
+    """Launch the streamed dQ kernel on the current stream (bf16, S or Sk
+    above WHOLE_MAX_LEN, a head dim with an instance): it takes delta =
+    rowsum(dO∘O) itself and writes it with lse, a 128-row tile at a time,
+    to a scratch buffer [B·H, ceil(S / 128), 2, 128] f32 that the dK/dV
+    kernel streams → (dq, that buffer)."""
+    global bwd_dq_streamed_launch_count
+    _check_bwd_inputs(q, k, v, {"O": o, "dO": do}, {"lse": lse})
+    _check_streamed(q, k, "dQ")
+    B, H, S = q.shape[:3]
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
+                                   k.shape[2], q.device)
+    dq = torch.empty_like(q)
+    stats = torch.empty((B * H, -(-S // ROW_TILE), 2, ROW_TILE),
+                        dtype=torch.float32, device=q.device)
+    if S == 0:
+        return dq, stats
+    lib = _library(BWD_STREAMED_SOURCE)
+    with torch.cuda.device(q.device):
+        rc = lib.paddle_flash_attention_bwd_dq_streamed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), _ptr(bias), _ptr(seed),
+            dq.data_ptr(), stats.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention streamed dQ")
+    bwd_dq_streamed_launch_count += 1
+    return dq, stats
+
+
+def flash_attention_bwd_dkdv_streamed_cuda(q, k, v, do, stats, sm_scale,
+                                           causal=False, dropout_rate=0.0,
+                                           dropout_seed=None, bias=None):
+    """Launch the streamed dK/dV kernel on the current stream, after the
+    dQ kernel that wrote ``stats`` (lse and delta by 128-row tile) →
+    (dk, dv)."""
+    global bwd_dkdv_streamed_launch_count
+    _check_bwd_inputs(q, k, v, {"dO": do}, {})
+    _check_streamed(q, k, "dK/dV")
+    B, H, S = q.shape[:3]
+    rows = (B * H, -(-S // ROW_TILE), 2, ROW_TILE)
+    if tuple(stats.shape) != rows or stats.dtype != torch.float32 \
+            or stats.device != q.device or not stats.is_contiguous():
+        raise ValueError(f"flash_attention streamed dK/dV: stats must be "
+                         f"contiguous f32 {list(rows)} on {q.device}")
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
+                                   k.shape[2], q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if S == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _library(BWD_STREAMED_SOURCE)
+    with torch.cuda.device(q.device):
+        rc = lib.paddle_flash_attention_bwd_dkdv_streamed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            _ptr(bias), _ptr(seed), stats.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_common_args(q, k, sm_scale, causal,
+                                         dropout_rate))
+    _raise_on(lib, rc, "flash_attention streamed dK/dV")
+    bwd_dkdv_streamed_launch_count += 1
+    return dk, dv
+
+
+def flash_attention_bwd_streamed_cuda(q, k, v, o, lse, do, sm_scale,
+                                      causal=False, dropout_rate=0.0,
+                                      dropout_seed=None, bias=None):
+    """The streamed backward on the card (bf16, S or Sk above
+    WHOLE_MAX_LEN): the dQ kernel (delta inside), then the dK/dV kernel →
+    (dq, dk, dv). A head dim off the instances is padded with zero
+    columns, O and dO too (they add zeros to delta)."""
+    _check_bwd_inputs(q, k, v, {"O": o, "dO": do}, {"lse": lse})
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    if dp is not None and dp != d:
+        grads = flash_attention_bwd_streamed_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v, o)), lse,
+            pad_head_dim(do, dp), sm_scale, causal, dropout_rate,
+            dropout_seed, bias)
+        return tuple(g[..., :d].contiguous() for g in grads)
+    tail = (sm_scale, causal, dropout_rate, dropout_seed, bias)
+    dq, stats = flash_attention_bwd_dq_streamed_cuda(q, k, v, o, lse, do,
+                                                     *tail)
+    dk, dv = flash_attention_bwd_dkdv_streamed_cuda(q, k, v, do, stats,
+                                                    *tail)
+    return dq, dk, dv
+
+
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale, causal=False,
                              dropout_rate=0.0, dropout_seed=None, bias=None):
     """The backward on the card → (dq, dk, dv), by ``bwd_route``: the fused
-    kernel or the split route."""
-    fn = (flash_attention_bwd_fused_cuda
-          if bwd_route(q.shape, k.shape, q.dtype) == "fused"
-          else flash_attention_bwd_split_cuda)
+    kernel, the streamed pair or the split route."""
+    route = bwd_route(q.shape, k.shape, q.dtype)
+    fn = (flash_attention_bwd_fused_cuda if route == "fused" else
+          flash_attention_bwd_streamed_cuda if route == "streamed" else
+          flash_attention_bwd_split_cuda)
     return fn(q, k, v, o, lse, do, sm_scale, causal, dropout_rate,
               dropout_seed, bias)
 

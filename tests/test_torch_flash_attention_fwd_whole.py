@@ -102,9 +102,9 @@ def test_plain_fwd_matches_pallas_at_whole_lengths(dtype, S, Sk, causal,
 
 @pytest.mark.parametrize("S,Sk,dtype,want", [
     (128, 128, torch.bfloat16, "whole"),
-    (129, 128, torch.bfloat16, "tiled"),
-    (128, 129, torch.bfloat16, "tiled"),
-    (129, 129, torch.bfloat16, "tiled"),
+    (129, 128, torch.bfloat16, "streamed"),
+    (128, 129, torch.bfloat16, "streamed"),
+    (129, 129, torch.bfloat16, "streamed"),
     (1, 1, torch.bfloat16, "whole"),
     (100, 77, torch.bfloat16, "whole"),
     (128, 128, torch.float32, "tiled"),
@@ -128,8 +128,9 @@ def test_fwd_route_by_head_dim(d, want):
 
 def test_fwd_route_is_bwd_route_over_a_grid():
     """One predicate decides both: the whole-block forward runs exactly
-    where the fused backward does."""
-    both = {"whole": "fused", "tiled": "split"}
+    where the fused backward does, the streamed forward exactly where the
+    streamed backward does."""
+    both = {"whole": "fused", "streamed": "streamed", "tiled": "split"}
     seen = set()
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for S in (1, 16, 64, 100, 127, 128, 129, 200, 256):
@@ -140,17 +141,18 @@ def test_fwd_route_is_bwd_route_over_a_grid():
                     assert tfa.bwd_route(q, k, dtype) == both[fwd]
                     assert (fwd == "whole") == tfa.holds_whole(q, k, dtype)
                     seen.add(fwd)
-    assert seen == {"whole", "tiled"}
+    assert seen == {"whole", "streamed", "tiled"}
 
 
 @pytest.mark.parametrize("S,dtype,want", [
-    (128, torch.bfloat16, "whole"), (129, torch.bfloat16, "tiled"),
+    (128, torch.bfloat16, "whole"), (129, torch.bfloat16, "streamed"),
     (128, torch.float32, "tiled")])
 def test_cuda_forward_dispatches_by_fwd_route(monkeypatch, S, dtype, want):
     """flash_attention_cuda hands its arguments to the wrapper fwd_route
     names (both replaced here by recorders: no card)."""
     called = []
     for route, name in (("whole", "flash_attention_fwd_whole_cuda"),
+                        ("streamed", "flash_attention_fwd_streamed_cuda"),
                         ("tiled", "flash_attention_fwd_tiled_cuda")):
         monkeypatch.setattr(tfa, name,
                             lambda *a, route=route: called.append(route))

@@ -15,7 +15,8 @@
   and atol 1e-5 (tests/test_book_models.py:388-418).
 - Five Adam steps of the small pretraining program at dropout 0, from the
   same numpy parameters: the same losses and final parameters (tolerances
-  at the test).
+  at the test); again at seq_len 256 (max_len 256), the length at which
+  the card runs bf16 attention on the streamed kernels.
 - The ``_fwd_idx`` rule: with attention dropout 0.1, the executor's grads
   equal a direct autograd of the attention with the seed the forward drew.
 """
@@ -466,6 +467,65 @@ def test_five_adam_steps_match_jax():
                                  scope=tscope)[0][0]))
     np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-5)
     # the K projection of each layer is the 2nd fc of its attention
+    k_bias = {f"fc_{6 * i + 1}.b_0" for i in range(CFG["layers"])}
+    for name in arrays:
+        want = np.asarray(jscope.find_var(name).get_tensor())
+        got = tscope.find_var(name).value().array.numpy()
+        atol = 2 * lr * 5 if name in k_bias else 1e-5
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol,
+                                   err_msg=name)
+
+
+# BERT's pretraining at a length where the card runs bf16 attention on the
+# streamed kernels (S above 128): the narrow config at max_len 256
+CFG_256 = dict(CFG, max_len=256)
+S_256, B_256, N_MASK_256 = 256, 2, 64
+
+
+def _pretrain_feed_256(step):
+    r = np.random.RandomState(100 + step)
+    mask = np.ones((B_256, S_256), np.float32)
+    mask[0, 200:] = 0.0
+    mask[1, 131:] = 0.0
+    return {"src_ids": r.randint(0, CFG["vocab_size"], (B_256, S_256)),
+            "pos_ids": np.tile(np.arange(S_256), (B_256, 1)),
+            "sent_ids": r.randint(0, CFG["type_vocab"], (B_256, S_256)),
+            "mask_pos": r.randint(0, B_256 * S_256, (N_MASK_256, 1)),
+            "mask_label": r.randint(0, CFG["vocab_size"], (N_MASK_256, 1)),
+            "input_mask": mask}
+
+
+def test_five_adam_steps_match_jax_at_seq_len_256():
+    """test_five_adam_steps_match_jax at seq_len 256 (2 layers, hidden 64,
+    4 heads, max_len 256, an input mask that pads each row past 128): the
+    model whose attention takes the streamed route on the card, held to
+    the reference on the CPU from the same numpy parameters, at that
+    test's tolerances."""
+    lr = 1e-3
+    progs = []
+    for fluid, bert in ((jfluid, jbert), (tfluid, tbert)):
+        with fluid.unique_name.guard():
+            main, startup, _, fetches = bert.build_bert_pretrain_program(
+                CFG_256, seq_len=S_256, dropout=0.0, lr=lr,
+                use_input_mask=True)
+        startup.random_seed = 5
+        progs.append((main, startup, fetches))
+    (jm, js, jfetch), (tm, ts, tfetch) = progs
+    jscope, jexe = jfluid.Scope(), jfluid.Executor(jfluid.CPUPlace())
+    jexe.run(js, scope=jscope)
+    arrays = {v.name: np.asarray(jscope.find_var(v.name).get_tensor())
+              for v in jm.global_block().vars.values() if v.persistable}
+    tscope, texe = tfluid.Scope(), tfluid.Executor(tfluid.CPUPlace())
+    texe.run(ts, scope=tscope)
+    set_params_from_numpy(tscope, arrays)
+    jl, tl = [], []
+    for step in range(5):
+        feed = _pretrain_feed_256(step)
+        jl.append(float(jexe.run(jm, feed=feed, fetch_list=jfetch,
+                                 scope=jscope)[0][0]))
+        tl.append(float(texe.run(tm, feed=feed, fetch_list=tfetch,
+                                 scope=tscope)[0][0]))
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-5)
     k_bias = {f"fc_{6 * i + 1}.b_0" for i in range(CFG["layers"])}
     for name in arrays:
         want = np.asarray(jscope.find_var(name).get_tensor())

@@ -4,6 +4,7 @@
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT [--pairs N] [--batch B ...]
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT --train [--pairs N]
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT --lane [--pairs N]
+                                    [--seq S] [--profile]
     python3 tools/torch_serve_ab.py OTHER_CHECKOUT --kernels [--pairs N]
 
 Runs the build and serve phases of each checkout's chip_smoke.py (BERT-base
@@ -18,7 +19,13 @@ the build and train phases instead (BERT-base pretraining at batch 32, a
 100-step window), and the p50 is the step time's. With --lane each run is
 ``python3 -m paddle_tpu_torch.bench bert`` (bench.py's BERT-base lane: bf16,
 batch 256, a window of 20 steps), and the figure is its ``step_ms``, the
-window's time over its steps. With --kernels each run times, at the bench
+window's time over its steps; --seq S runs it at S (bench.py's
+PADDLE_TPU_BENCH_SEQ) with the batch pinned at 256·128 / S
+(PADDLE_TPU_BENCH_BATCH: 64 at S = 512, the tokens of a step unchanged),
+and --profile adds a torch.profiler pass over one more step of each run
+(chip_smoke.py's ``_profile_step``: device time by kernel name, idle
+share), this checkout's chip_smoke.py driving either side's package.
+With --kernels each run times, at the bench
 lane's shape (batch 256, H=12, S=128, D=64, bf16, no bias), the forward
 that ``flash_attention_cuda`` routes to and the fused backward
 (``flash_attention_bwd_fused_cuda``), each as chip_smoke.py's ``_cuda_ms``
@@ -57,11 +64,37 @@ print('[kernels] ' + json.dumps({'forward_ms': fwd, 'bwd_fused_ms': bwd}))
 """
 
 
-def _run(checkout: str, batches, mode: str) -> str:
+# one run of --lane --profile: the lane, then one profiled step, by this
+# checkout's chip_smoke.py over the package of the checkout it runs in
+LANE_PROFILE_CODE = """
+import importlib.util, json, sys
+sys.path.insert(0, '.')
+spec = importlib.util.spec_from_file_location('chip_smoke_ab', {path!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from paddle_tpu_torch import bench
+lane = bench.run_bert_base()
+print(json.dumps(lane.res), flush=True)
+with cs._lane_flags():
+    cs._profile_step(lane.exe, lane.main, lane.fetches[0], lane.scope,
+                     lane.feed, 'bert lane batch %d S %d'
+                     % (lane.res['batch'], lane.res['seq_len']))
+"""
+
+
+def _run(checkout: str, batches, mode: str, seq=None,
+         profile=False) -> str:
     if mode == "lane":
         cmd = [sys.executable, "-m", "paddle_tpu_torch.bench", "bert"]
+        if profile:
+            cmd = [sys.executable, "-c", LANE_PROFILE_CODE.format(
+                path=os.path.join(HERE, "chip_smoke.py"))]
+        env = dict(os.environ)
+        if seq:
+            env.update(PADDLE_TPU_BENCH_SEQ=str(seq),
+                       PADDLE_TPU_BENCH_BATCH=str(batches[0]))
         res = subprocess.run(cmd, cwd=checkout, capture_output=True,
-                             text=True, timeout=900)
+                             text=True, timeout=900, env=env)
         if res.returncode != 0:
             raise RuntimeError(f"lane run in {checkout} failed:\n"
                                f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
@@ -93,6 +126,11 @@ def main(argv=None) -> int:
                     help="alternate the training phase, not serving")
     ap.add_argument("--lane", action="store_true",
                     help="alternate bench.py's bert lane, not serving")
+    ap.add_argument("--seq", type=int,
+                    help="with --lane: the lane at this S, the batch "
+                         "pinned at 256*128/S")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --lane: a profiled step after each run")
     ap.add_argument("--kernels", action="store_true",
                     help="alternate the flash kernels' times at the lane's "
                          "shape, not serving")
@@ -103,7 +141,7 @@ def main(argv=None) -> int:
         return 2
     mode = ("lane" if args.lane else "train" if args.train else
             "kernels" if args.kernels else "serve")
-    batches = {"lane": [256], "train": [32],
+    batches = {"lane": [256 * 128 // (args.seq or 128)], "train": [32],
                "kernels": ["forward_ms", "bwd_fused_ms"]}.get(
         mode, args.batch or [1, 8, 32])
     sides = {"other": os.path.abspath(args.other), "this": HERE}
@@ -113,7 +151,8 @@ def main(argv=None) -> int:
         order = ("other", "this") if pair % 2 == 0 else ("this", "other")
         for side in order:
             run += 1
-            for line in _run(sides[side], batches, mode).splitlines():
+            for line in _run(sides[side], batches, mode, args.seq,
+                             args.profile).splitlines():
                 if mode == "kernels":
                     if line.startswith("[kernels] "):
                         res = json.loads(line[len("[kernels] "):])
@@ -122,6 +161,8 @@ def main(argv=None) -> int:
                         print(f"{side} {run} {line}", flush=True)
                     continue
                 if mode == "lane":
+                    if line.startswith("[profile]"):
+                        print(f"{side} {run} {line}", flush=True)
                     if line.startswith("{"):
                         res = json.loads(line)
                         p50[(side, batches[0])].append(res["step_ms"])
