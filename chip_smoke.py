@@ -10,12 +10,18 @@ Phases, each fatal on failure:
               run twice and bitwise alike), the streamed one (bf16, S or
               Sk above 128: 128 query rows a block, 128-key tiles by TMA
               through a two-stage ring, each case twice and bitwise
-              alike) or the tiled one (f32); the backward (dQ, dK, dV) by
-              the route bwd_route picks (the same predicate), the fused
-              kernel (bf16, S and Sk up to 128: delta, dQ, dK and dV in one
-              launch), the streamed pair (bf16 above 128: the dQ kernel
-              with delta inside, then the dK/dV kernel; each case twice
-              and bitwise alike) or the dK/dV and dQ kernels (f32); and the
+              alike), the f32 one (f32 at head dims up to 64: split-TF32
+              wgmma on TMA-loaded tiles, 64 query rows a block, each case
+              twice and bitwise alike) or the tiled one (f32 at head dims
+              65 to 128); the backward (dQ, dK, dV) by the route bwd_route
+              picks (the same predicate), the fused kernel (bf16, S and Sk
+              up to 128: delta, dQ, dK and dV in one launch), the
+              streamed pair (bf16 above 128: the dQ kernel with delta
+              inside, then the dK/dV kernel; each case twice and bitwise
+              alike), the f32 route (the f32 dK/dV kernel on split-TF32
+              wgmma, then the split route's dQ kernel; each case twice
+              and bitwise alike) or the split dK/dV and dQ kernels (f32
+              at head dims 65 to 128); and the
               dropout kernel (mask and output); over BERT-base shapes in
               f32 and bf16 with a key-padding bias, ragged S/Sk (200 x 77,
               and 100 x 77 in bf16), causal, a dead row, dropout 0.1 (the
@@ -24,27 +30,31 @@ Phases, each fatal on failure:
               next instance; in bf16 at 96 x 80 on the fused kernel and at
               200 x 144 on the streamed ones), S = Sk = 1, on the streamed
               kernels ragged 200 x 300 and 77 x 300, causal 200 x 300 and
-              300 x 200, dropout 0.3, D = 128 causal with dropout, and the
+              300 x 200, dropout 0.3, D = 128 causal with dropout, on the
+              f32 kernels S = Sk = 1, dropout 0.3 and causal at 200 x 300
+              and 300 x 200, and the
               S = 512 lane's shape (batch 64, H = 12, no bias),
               B·H above 65535, the bench lane's shape (batch 256,
               bf16, no bias) and transformer_big's (H = 16: the bf16
               step's causal self-attention with the bias and dropout 0.3
               at B = 48, S = 64 on the whole-block forward and the fused
               backward; greedy decode's f32 cross-attention, S = 80 over
-              Sk = 64, and causal self-attention, 80 x 80, on the tiled
+              Sk = 64, and causal self-attention, 80 x 80, on the f32
               forward; bf16 at S = Sk = 256 with the bias on the streamed
               kernels, ROADMAP B3, each also timed, with the S = 512
               lane's shape, beside the old route, the tiled forward and
               the split backward, on the same inputs, held to the plain
               versions too; a streamed kernel slower than the old route
-              fails); time each kernel, its plain version and one
+              fails, and an f32 kernel slower than it at batch 32); time
+              each kernel, its plain version and one
               PyTorch library call as a yardstick
               (scaled_dot_product_attention, and its backward): the
               forward at the served shape (batch 8), the trained one
               (batch 32, also with dropout 0.1, and bf16 with dropout
-              0.1) and the lane's, a whole-block time beside the tiled
-              kernel's on the same inputs; the
-              dK/dV and dQ kernels at batch 32 in f32 (also with dropout
+              0.1) and the lane's, a whole-block or f32 time beside the
+              tiled kernel's on the same inputs; the f32 dK/dV kernel
+              (beside the split dK/dV kernel on the same inputs) and the
+              dQ kernel at batch 8 and 32 in f32 (also with dropout
               0.1), the fused kernel at batch 32 in bf16 with the bias and
               at the lane's shape, beside the split route's whole
               backward on the same inputs; each beside its bound (the
@@ -57,15 +67,17 @@ Phases, each fatal on failure:
               than its bound fails. Then the
               attention op's route: at D = 96 the kernels (the forward
               once, the backward once: the tiled forward, dK/dV and dQ
-              in f32, the whole-block forward and the fused kernel in
+              in f32 (D = 96 pads to 128, above the f32 kernels'
+              instances), the whole-block forward and the fused kernel in
               bf16; against the plain versions); a
               bias the kernels do not take, the einsum path with the flash
               kernels' dropout mask; D = 192 and f16, which have no kernel
               instance, raise and launch nothing. Every launch gate below
               counts (tiled forward, dK/dV, dQ, fused backward, dropout,
               whole forward, streamed forward, streamed dQ, streamed
-              dK/dV) kernels; a tuple written below with six entries has
-              the three streamed zeros after them.
+              dK/dV, f32 forward, f32 dK/dV) kernels; a tuple written
+              below with six entries has the three streamed and the two
+              f32 zeros after them, one with nine the two f32 zeros.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -92,8 +104,9 @@ Phases, each fatal on failure:
               steps, then 10 steps on one repeated batch. Checks: every
               step compiled, a finite loss every step, exact kernel
               launches per step (12 forward + 12 forward re-run by the
-              generic grad, 12 dK/dV, 12 dQ (f32: the split route), one
-              dropout launch per dropout op: (24, 12, 12, 0, 37, 0); for
+              generic grad on the f32 forward, 12 f32 dK/dV, 12 dQ (f32:
+              the f32 route), one dropout launch per dropout op: (0, 0,
+              12, 0, 37, 0, 0, 0, 0, 24, 12); for
               replays as recorded in the graph and in a
               profiler trace, which must hold device events), dropout
               masks that
@@ -142,7 +155,8 @@ Phases, each fatal on failure:
               samples/s, peak memory beside the train phase's). Checks:
               the kernels a step (wrappers, graph, trace) that the route
               of the attention's dtype, read from the program, gives
-              ((24, 12, 12, 0, 37, 0): its Q, K, V stay f32), a
+              ((0, 0, 12, 0, 37, 0, 0, 0, 0, 24, 12): its Q, K, V stay
+              f32), a
               falling loss on a repeated batch, and 3 steps at batch 2
               compiled against interpreted bitwise, with f32 Q/K/V.
   9. guard  — the numeric fault guard: the TPU package's dynamic loss
@@ -186,12 +200,13 @@ Phases, each fatal on failure:
               Noam's formula at rtol 1e-6 every step, the loss falling;
               at 1 + 1 layers, 3 bf16 steps compiled (eager, capture,
               replay) against interpreted, losses, LRs and persistables
-              bitwise; one f32 step at 1 + 1 layers (the tiled forward
-              and split backward) on the card against the CPU port, loss
+              bitwise; one f32 step at 1 + 1 layers (the f32 forward and
+              the f32 route's backward) on the card against the CPU port, loss
               and three grads. Greedy decode in f32 at dropout 0, batch
               8, 64 source tokens, 80 positions: 79 runs of one compiled
               program, each argmax written into the fed target array in
-              place, each run (18, 0, 0, 0, 0, 0) launches and one upload
+              place, each run (0, 0, 0, 0, 0, 0, 0, 0, 0, 18, 0)
+              launches (the f32 forward) and one upload
               (the mutated array; the other feeds cache hits); then the
               CPU port decodes greedily from the card's weights and on its
               tokens (teacher forcing) the card's logits at every
@@ -312,34 +327,44 @@ LENET_BATCH = 64             # the conv net of models/mnist.py
 LENET_STEPS = 5
 # every launch gate below counts these kernels, in this order: (tiled
 # forward, dK/dV, dQ, fused backward, dropout, whole forward, streamed
-# forward, streamed dQ, streamed dK/dV); no name of DEVICE_KERNELS is a
-# substring of another (a trace counts by substring)
+# forward, streamed dQ, streamed dK/dV, f32 forward, f32 dK/dV); no name
+# of DEVICE_KERNELS is a substring of another (a trace counts by
+# substring)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
            "flash_attention_bwd_q", "flash_attention_bwd_fused",
            "dropout_fwd", "flash_attention_fwd_whole",
            "flash_attention_fwd_streamed", "flash_attention_bwd_dq_streamed",
-           "flash_attention_bwd_dkdv_streamed")
+           "flash_attention_bwd_dkdv_streamed", "flash_attention_fwd_f32",
+           "flash_attention_bwd_dkdv_f32")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
                   "flash_bwd_q_kernel", "flash_bwd_fused_kernel",
                   "dropout_fwd_kernel", "flash_fwd_whole_kernel",
                   "flash_fwd_streamed_kernel", "flash_bwd_dq_streamed_kernel",
-                  "flash_bwd_dkdv_streamed_kernel")
+                  "flash_bwd_dkdv_streamed_kernel", "flash_fwd_f32_kernel",
+                  "flash_bwd_dkdv_f32_kernel")
 GATE_NAMES = ("(tiled forward, dK/dV, dQ, fused backward, dropout, whole "
-              "forward, streamed forward, streamed dQ, streamed dK/dV)")
+              "forward, streamed forward, streamed dQ, streamed dK/dV, f32 "
+              "forward, f32 dK/dV)")
 NO_KERNELS = (0,) * len(KERNELS)
-LANE_STEP_WANT = (0, 0, 0, 12, 0, 24, 0, 0, 0)  # bench's bert lane step,
-                                                # plain or remat: bf16, the
-                                                # whole-block forward and
-                                                # the fused backward, no
-                                                # dropout
-TRAIN_STEP_WANT = (24, 12, 12, 0, 37, 0, 0, 0, 0)  # the f32 BERT-base
-                                                   # pretraining step (train,
-                                                   # window, guard): the tiled
-                                                   # forward, the split
-                                                   # kernels, dropout 0.1
-LANE512_STEP_WANT = (0, 0, 0, 0, 0, 0, 24, 12, 12)  # the bert lane at S =
-                                                    # 512: bf16, the streamed
-                                                    # kernels, no dropout
+LANE_STEP_WANT = (0, 0, 0, 12, 0, 24, 0, 0, 0, 0, 0)  # bench's bert lane
+                                                      # step, plain or
+                                                      # remat: bf16, the
+                                                      # whole-block forward
+                                                      # and the fused
+                                                      # backward, no dropout
+TRAIN_STEP_WANT = (0, 0, 12, 0, 37, 0, 0, 0, 0, 24, 12)  # the f32 BERT-base
+                                                         # pretraining step
+                                                         # (train, window,
+                                                         # guard, AMP): the
+                                                         # f32 forward and
+                                                         # dK/dV, the split
+                                                         # route's dQ,
+                                                         # dropout 0.1
+LANE512_STEP_WANT = (0, 0, 0, 0, 0, 0, 24, 12, 12, 0, 0)  # the bert lane at
+                                                          # S = 512: bf16,
+                                                          # the streamed
+                                                          # kernels, no
+                                                          # dropout
 LANE512_SEQ = 512             # BERT's phase-2 pretraining length
 LANE512_BATCH = 64            # pinned: 32768 tokens a step, the S = 128
                               # lane's; no OOM attempts
@@ -446,7 +471,7 @@ def _check_bound(name, ms, bound_ms):
 # --------------------------------------------------------------------------
 # a kernel instance's mangled name: <length>flash_..._kernel I <T> Li<D> E
 _PTXAS_ENTRY = re.compile(
-    r"Compiling entry function '\w*?\d(flash_[a-z_]+_kernel|"
+    r"Compiling entry function '\w*?\d(flash_[a-z0-9_]+_kernel|"
     r"dropout_fwd_kernel)I(f|13__nv_bfloat16)?(?:Li(\d+))?E")
 
 
@@ -458,8 +483,10 @@ def ptxas_report(text):
         m = _PTXAS_ENTRY.search(line)
         if m:
             # an instance without a type parameter is bf16 (the fused
-            # backward takes nothing else)
-            cur = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+            # and streamed kernels take nothing else) or, by its name,
+            # f32
+            f32 = m.group(2) == "f" or "_f32_" in m.group(1)
+            cur = (m.group(1), "f32" if f32 else "bf16",
                    int(m.group(3) or 0))
             spill = (0, 0)
             continue
@@ -482,7 +509,8 @@ def phase_build():
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     sources = (fa.KERNEL_SOURCE, fa.FWD_WHOLE_SOURCE, fa.BWD_KERNEL_SOURCE,
                fa.BWD_FUSED_SOURCE, fa.FWD_STREAMED_SOURCE,
-               fa.BWD_STREAMED_SOURCE, dk.KERNEL_SOURCE)
+               fa.BWD_STREAMED_SOURCE, fa.FWD_F32_SOURCE,
+               fa.BWD_DKDV_F32_SOURCE, dk.KERNEL_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -548,18 +576,22 @@ def _check(name, got, want, tol):
 def phase_kernel():
     """The forward kernels against the plain version on the card, each
     case by the route fwd_route picks: the whole-block kernel (bf16, S and
-    Sk up to 128), the streamed one (bf16 above 128; both run every case
-    twice, bitwise alike) or the tiled one (f32). Then each forward timed
+    Sk up to 128), the streamed one (bf16 above 128), the f32 one (f32 at
+    head dims up to 64; all three run every case twice, bitwise alike) or
+    the tiled one (f32 at head dims 65 to 128). Then each forward timed
     at the served shape (batch 8, f32 and bf16, bias), the trained one
     (batch 32, f32 without and with dropout 0.1, bf16 with dropout 0.1),
-    the bench lane's (batch 256, bf16, no bias), transformer_big's and the
-    S = 512 lane's, beside its bound, its plain version and SDPA; a
-    whole-block or streamed timing also beside the tiled kernel on the same
-    inputs (the old route, held to the plain version where it is the
-    streamed one's). → {kernel name: its heading row, with "timings"
-    (every shape timed) and "max_abs_err_by_dtype"}: the tiled kernel's
-    heading row is the f32 train step's (batch 32, dropout 0.1), the
-    whole-block one's the lane's, the streamed one's the S = 512 lane's."""
+    the bench lane's (batch 256, bf16, no bias), transformer_big's (greedy
+    decode's f32 80 x 64 and causal 80 x 80 among them) and the S = 512
+    lane's, beside its bound, its plain version and SDPA; a whole-block,
+    streamed or f32 timing also beside the tiled kernel on the same inputs
+    (the old route, held to the plain version where it is the streamed or
+    the f32 one's; a streamed kernel, and the f32 one at batch 32, slower
+    than it fails). → {kernel name: its heading row, with "timings" (every
+    shape timed) and "max_abs_err_by_dtype"}: the f32 kernel's heading row
+    is the f32 train step's (batch 32, dropout 0.1), and so is the tiled
+    kernel's (its old-route timing there), the whole-block one's the
+    lane's, the streamed one's the S = 512 lane's."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -567,11 +599,13 @@ def phase_kernel():
     sm = 0.125
     f32, bf16 = torch.float32, torch.bfloat16
     tiled, whole = "flash_attention_fwd", "flash_attention_fwd_whole"
-    streamed = "flash_attention_fwd_streamed"
-    kern_of = {"tiled": tiled, "whole": whole, "streamed": streamed}
+    streamed, f32k = "flash_attention_fwd_streamed", "flash_attention_fwd_f32"
+    kern_of = {"tiled": tiled, "whole": whole, "streamed": streamed,
+               "f32": f32k}
     fn_of = {tiled: fa.flash_attention_fwd_tiled_cuda,
              whole: fa.flash_attention_fwd_whole_cuda,
-             streamed: fa.flash_attention_fwd_streamed_cuda}
+             streamed: fa.flash_attention_fwd_streamed_cuda,
+             f32k: fa.flash_attention_fwd_f32_cuda}
     by_name = {"f32": f32, "bf16": bf16}
     errs = {}  # (kernel, dtype or tag) -> max |kernel - plain| over cases
 
@@ -604,8 +638,8 @@ def phase_kernel():
         both(f"bert B={TRAIN_BATCH} H={H} S={S} D={D} bias dropout 0.1", q,
              k, v, sm, tol, rate=0.1, seed=seed,
              bias=_padding_bias(TRAIN_BATCH, S, gen))
-    # ragged, causal, dead row, dropout: f32 beyond 128 (tiled), bf16 on
-    # both sides of 128 (whole, streamed)
+    # ragged, causal, dead row, dropout: f32 beyond 128 (the f32 kernel),
+    # bf16 on both sides of 128 (whole, streamed)
     for dt, tol, sq, sk in ((f32, F32_TOL, 200, 77), (bf16, BF16_TOL, 200, 77),
                             (bf16, BF16_TOL, 100, 77),
                             (bf16, BF16_TOL, 200, 300),
@@ -625,6 +659,16 @@ def phase_kernel():
     both("D=128 causal dropout 0.1 S=Sk=300 bias", q, k, v, 128 ** -0.5,
          BF16_TOL, causal=True, rate=0.1, seed=seed,
          bias=_padding_bias(2, 300, gen))
+    # the f32 kernel: dropout 0.3 over ragged 64-key tiles, causal with S
+    # != Sk, S = Sk = 1
+    for sq, sk in ((200, 300), (300, 200)):
+        q, k, v = _qkv(2, 3, sq, sk, 64, f32, gen)
+        both(f"dropout 0.3 S={sq} Sk={sk} bias", q, k, v, sm, F32_TOL,
+             rate=0.3, seed=seed, bias=_padding_bias(2, sk, gen))
+        both(f"causal S={sq} Sk={sk} bias", q, k, v, sm, F32_TOL,
+             causal=True, bias=_padding_bias(2, sk, gen))
+    q, k, v = _qkv(3, 2, 1, 1, 64, f32, gen)
+    both("S=Sk=1", q, k, v, sm, F32_TOL)
     for dt, tol, n in ((f32, F32_TOL, 200), (bf16, BF16_TOL, S)):
         q, k, v = _qkv(2, 3, n, n, 64, dt, gen)
         both(f"causal S=Sk={n}", q, k, v, sm, tol, causal=True)
@@ -671,7 +715,7 @@ def phase_kernel():
     # transformer_big's shapes (H = 16, D = 64): the bf16 training step's
     # causal self-attention with the bias and attention dropout (whole);
     # greedy decode's f32 cross-attention (S = 80 over Sk = 64) and causal
-    # self-attention (tiled); bf16 at S = Sk = 256 (tiled, ROADMAP B3)
+    # self-attention (the f32 kernel); bf16 at S = Sk = 256 (streamed)
     for name, (bs, sq, sk, dt, rate, with_bias, causal) in \
             TRANSFORMER_FWD_CASES.items():
         q, k, v = _qkv(bs, WMT_HEADS, sq, sk, D, by_name[dt], gen)
@@ -680,7 +724,8 @@ def phase_kernel():
              rate=rate, seed=seed,
              bias=_padding_bias(bs, sk, gen) if with_bias else None)
         del q, k, v
-    if not {(tiled, f32), (whole, bf16), (streamed, bf16)} <= set(errs):
+    if not {(tiled, f32), (whole, bf16), (streamed, bf16),
+            (f32k, f32)} <= set(errs):
         raise AssertionError(f"forward cases by kernel and dtype: "
                              f"{sorted(map(str, errs))}")
 
@@ -688,9 +733,10 @@ def phase_kernel():
     # (batch 32: f32, also with dropout 0.1; bf16 with dropout 0.1), the
     # bench lane's (batch 256, bf16, no bias), transformer_big's and the
     # S = 512 lane's, SDPA beside each, the tiled kernel (the old route,
-    # held to the plain version too) beside the whole-block and the
-    # streamed ones; a streamed kernel must beat it
-    timings = {tiled: [], whole: [], streamed: []}
+    # held to the plain version too) beside the whole-block, the streamed
+    # and the f32 ones; a streamed kernel must beat it, and the f32 one at
+    # batch 32
+    timings = {tiled: [], whole: [], streamed: [], f32k: []}
     heads = {}
     for bs, hh, sq, sk, dt, rate, with_bias, causal in (
             (B, H, S, S, f32, 0.0, True, False),
@@ -714,13 +760,15 @@ def phase_kernel():
         eager_ms = _cuda_ms(lambda: fn(*args), graph=False)
         tiled_ms = (_cuda_ms(lambda: fa.flash_attention_fwd_tiled_cuda(*args))
                     if kern != tiled else ms)
-        if kern == streamed:
+        old_tag = "old route" if dt == bf16 else "old route f32"
+        if kern in (streamed, f32k):
             old = _check(f"old route (tiled) {str(dt)[6:]} B={bs} H={hh} "
                          f"S={sq} Sk={sk}",
                          fa.flash_attention_fwd_tiled_cuda(*args),
-                         fa.flash_attention_reference(*args), BF16_TOL)
-            errs[(tiled, "old route")] = max(
-                errs.get((tiled, "old route"), 0.0), old)
+                         fa.flash_attention_reference(*args),
+                         BF16_TOL if dt == bf16 else F32_TOL)
+            errs[(tiled, old_tag)] = max(errs.get((tiled, old_tag), 0.0),
+                                         old)
         # the plain version's dropout mask reads the seed on the host,
         # which a graph cannot capture: with dropout it is timed eagerly
         plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(*args),
@@ -736,17 +784,19 @@ def phase_kernel():
             " bias" if with_bias else " no bias") + (
             f" dropout {rate}" if rate else "")
         beside = (f"; the tiled kernel on the same inputs {tiled_ms:.4f} ms, "
-                  f"{'whole' if kern == whole else 'streamed'}/tiled "
-                  f"{ms / tiled_ms:.3f}" if kern != tiled else "")
+                  f"{kern[len(tiled) + 1:]}/tiled {ms / tiled_ms:.3f}"
+                  if kern != tiled else "")
         _log(f"[kernel] time {kern} {what}: kernel {ms:.4f} ms (issued one "
              f"by one from Python {eager_ms:.4f} ms), plain {plain_ms:.4f} "
              f"ms, sdpa {lib_ms:.4f} ms ({ms / lib_ms:.3f}x SDPA), bound "
              f"{bound_ms:.4f} ms ({bound_by}: {ops} FLOP, {nbytes} B), "
              f"{bound_ms / ms:.1%} of it{beside}")
         _check_bound(f"{kern} {what}", ms, bound_ms)
-        if kern == streamed and ms >= tiled_ms:
-            raise AssertionError(f"the streamed forward at {what} takes "
-                                 f"{ms:.4f} ms, the old route {tiled_ms:.4f}")
+        if (kern == streamed or (kern == f32k and bs == TRAIN_BATCH)) \
+                and ms >= tiled_ms:
+            raise AssertionError(f"the {kern[len(tiled) + 1:]} forward at "
+                                 f"{what} takes {ms:.4f} ms, the old route "
+                                 f"{tiled_ms:.4f}")
         row = dict(shape=what, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
                    max_abs_err=errs[(kern, "lane" if bs == LANE_BATCH
@@ -754,8 +804,16 @@ def phase_kernel():
         if kern != tiled:
             row["tiled_ms"] = tiled_ms
         timings[kern].append(row)
-        if hh == H and ((kern == tiled and rate) or not with_bias):
-            heads[kern] = row  # the f32 train step's row, the lane's row
+        if kern == f32k:
+            # the old route on the same inputs: the tiled kernel's row
+            old_row = dict(row, ms=tiled_ms, eager_ms=None,
+                           max_abs_err=errs[(tiled, old_tag)])
+            del old_row["tiled_ms"]
+            timings[tiled].append(old_row)
+            if rate and hh == H:  # the f32 train step's rows
+                heads[f32k], heads[tiled] = row, old_row
+        elif hh == H and not with_bias:
+            heads[kern] = row  # the lane's row, the S = 512 lane's
         del q, k, v
     return {kern: dict(heads[kern], timings=ts, max_abs_err_by_dtype={
         str(tag).replace("torch.", ""): e
@@ -808,8 +866,8 @@ def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed, causal=False):
     timed on the device as (forward + backward) minus the forward alone,
     both captured into CUDA graphs (SDPA's dropout RNG captures too): →
     (sdpa_ms, port_ms). The port's backward is flash_attention_bwd_cuda:
-    the fused kernel or bwd_delta and the split kernels, as bwd_route
-    picks."""
+    the fused kernel, the streamed pair, or bwd_delta and the f32 or the
+    split kernels, as bwd_route picks."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -837,17 +895,21 @@ def phase_kernel_bwd():
     """The backward kernels against the plain backward, on the forward
     kernel's O and lse: each case runs the route bwd_route picks, the
     fused kernel (bf16, S and Sk up to 128), the streamed dQ and dK/dV
-    kernels (bf16 above 128) or the split dK/dV and dQ kernels (f32). The
-    fused and streamed kernels run every case twice and must give bitwise
-    equal results. Then, at the training shape (B=32, H=12, S=128, D=64,
-    bias) in f32 without and with dropout 0.1 and in bf16, at the bench
-    lane's (batch 256, bf16, no bias), transformer_big's step, B3's
-    (S = 256) and the S = 512 lane's, each kernel of the shape's route
-    timed beside its bound and plain version, and the graph-timed whole
-    backward of SDPA and of the port; in bf16 also the split route's
-    whole backward (bwd_delta, dK/dV, dQ) on the same inputs (the old
-    route beside the streamed pair, held to the plain version and beaten
-    by it), and in f32 bwd_delta alone."""
+    kernels (bf16 above 128), the f32 route (f32 at head dims up to 64:
+    the f32 dK/dV kernel and the split route's dQ kernel) or the split
+    dK/dV and dQ kernels (f32 at head dims 65 to 128). The fused, streamed
+    and f32 routes run every case twice and must give bitwise equal
+    results. Then, at the served shape (B=8, H=12, S=128, D=64, f32,
+    bias), the training shape (B=32) in f32 without and with dropout 0.1
+    and in bf16, at the bench lane's (batch 256, bf16, no bias),
+    transformer_big's step, B3's (S = 256) and the S = 512 lane's, each
+    kernel of the shape's route timed beside its bound and plain version,
+    and the graph-timed whole backward of SDPA and of the port; in bf16
+    also the split route's whole backward (bwd_delta, dK/dV, dQ) on the
+    same inputs (the old route beside the streamed pair, held to the plain
+    version and beaten by it); in f32 the split route's dK/dV kernel on
+    the same inputs (the old route beside the f32 one, held to the plain
+    version, and at batch 32 beaten by it), and bwd_delta alone."""
     import torch
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -875,6 +937,9 @@ def phase_kernel_bwd():
         elif route == "streamed":
             found = (("flash_attention_bwd_dq_streamed", e_q),
                      ("flash_attention_bwd_dkdv_streamed", max(e_k, e_v)))
+        elif route == "f32":
+            found = (("flash_attention_bwd_q", e_q),
+                     ("flash_attention_bwd_dkdv_f32", max(e_k, e_v)))
         else:
             found = (("flash_attention_bwd_q", e_q),
                      ("flash_attention_bwd_kv", max(e_k, e_v)))
@@ -928,6 +993,16 @@ def phase_kernel_bwd():
          bias=_padding_bias(2, 300, gen))
     q, k, v = _qkv(3, 2, 1, 1, 64, bf16, gen)
     both("S=Sk=1 bf16", q, k, v, sm, BF16_TOL)
+    # the f32 route: S = Sk = 1, dropout 0.3 and causal with S != Sk over
+    # ragged stages and key tiles
+    q, k, v = _qkv(3, 2, 1, 1, 64, f32, gen)
+    both("S=Sk=1 f32", q, k, v, sm, F32_TOL)
+    for sq, sk in ((200, 300), (300, 200)):
+        q, k, v = _qkv(2, 3, sq, sk, 64, f32, gen)
+        both(f"dropout 0.3 S={sq} Sk={sk} bias f32", q, k, v, sm, F32_TOL,
+             rate=0.3, seed=seed, bias=_padding_bias(2, sk, gen))
+        both(f"causal S={sq} Sk={sk} bias f32", q, k, v, sm, F32_TOL,
+             causal=True, bias=_padding_bias(2, sk, gen))
     for d in (8, 16, 32, 40, 96, 128):
         q, k, v = _qkv(2, 2, 96, 80, d, f32, gen)
         both(f"head dim {d}", q, k, v, d ** -0.5, F32_TOL,
@@ -960,12 +1035,14 @@ def phase_kernel_bwd():
              k, v, sm, BF16_TOL, causal=causal, rate=rate, seed=seed,
              bias=_padding_bias(bs, sk, gen) if with_bias else None)
         del q, k, v
-    # every kernel ran (the split ones in f32: bf16 beyond S, Sk = 128
-    # takes the streamed kernels; the split ones' bf16 instances are held
-    # to the plain version in the timing rows below, as the old route)
+    # every kernel ran (the split ones in f32 at head dims above 64: bf16
+    # beyond S, Sk = 128 takes the streamed kernels; the split dK/dV
+    # kernel's instances are held to the plain version in the timing rows
+    # below too, as the old route)
     ran = {(kern, tag) for kern, tag in errs}
     for kern, dt in (("flash_attention_bwd_q", f32),
                      ("flash_attention_bwd_kv", f32),
+                     ("flash_attention_bwd_dkdv_f32", f32),
                      ("flash_attention_bwd_fused", bf16),
                      ("flash_attention_bwd_dq_streamed", bf16),
                      ("flash_attention_bwd_dkdv_streamed", bf16)):
@@ -985,6 +1062,7 @@ def phase_kernel_bwd():
     rows, timings = {}, {}
     b3_batch, b3_len = TRANSFORMER_FWD_CASES["B3 S=256"][:2]
     for bs, hh, n, dt, rate, with_bias, causal in (
+            (SERVE_BATCHES[1], H, S, f32, 0.0, True, False),
             (B, H, S, f32, 0.0, True, False), (B, H, S, f32, 0.1, True, False),
             (B, H, S, bf16, 0.0, True, False),
             (LANE_BATCH, H, S, bf16, 0.0, False, False),
@@ -1106,33 +1184,70 @@ def phase_kernel_bwd():
                      f"streamed/split {pair_ms / split_ms:.3f}")
             del delta, stats
         else:
+            # the f32 route: bwd_delta, the f32 dK/dV kernel, the dQ
+            # kernel; the old route's dK/dV kernel (the split route's)
+            # timed beside it on the same inputs and held to the plain
+            # version
+            kv_old = "flash_attention_bwd_kv"
             delta = fa.bwd_delta(o, do)
             args = (q, k, v, do, lse, delta, sm, causal, rate, seed, bias)
+            bwd_args = (q, k, v, o, lse, do, sm, causal, rate, seed, bias)
             delta_ms = _cuda_ms(lambda: fa.bwd_delta(o, do))
-            kern_ms = 0.0
-            for name, cuda_fn, plain_fn, units, outs in split:
+            split_ms = _cuda_ms(lambda: fa.flash_attention_bwd_split_cuda(
+                *bwd_args))
+            old = _check_bwd(f"old route (split) {what}",
+                             fa.flash_attention_bwd_split_cuda(*bwd_args),
+                             fa.flash_attention_bwd_reference(*bwd_args),
+                             F32_TOL)
+            errs[(kv_old, "old route f32")] = max(
+                errs.get((kv_old, "old route f32"), 0.0), max(old[1:]))
+            kern_ms, times = 0.0, {}
+            for name, cuda_fn, plain_fn, units, outs in (
+                    ("flash_attention_bwd_dkdv_f32",
+                     fa.flash_attention_bwd_dkdv_f32_cuda,
+                     fa.flash_attention_bwd_kv_reference, 8, "kv"),
+                    *split):
                 ms = _cuda_ms(lambda: cuda_fn(*args))
                 eager_ms = _cuda_ms(lambda: cuda_fn(*args), graph=False)
                 plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate,
                                  iters=plain_iters)
                 kbnd, kby, kflop, kbytes = _bwd_bound(
                     bs, hh, n, n, D, units, outs, name_dt, with_bias, causal)
-                _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms "
-                     f"(issued one by one from Python {eager_ms:.4f} ms), "
-                     f"plain {plain:.4f} ms, SDPA backward (dQ, dK, dV "
-                     f"together, graph-timed) {lib_ms:.4f} ms, bound "
-                     f"{kbnd:.4f} ms ({kby}: {kflop} FLOP, {kbytes} B)")
+                _log(f"[kernel] time {name} {what}"
+                     + (" (old route)" if name == kv_old else "") +
+                     f": kernel {ms:.4f} ms (issued one by one from Python "
+                     f"{eager_ms:.4f} ms), plain {plain:.4f} ms, SDPA "
+                     f"backward (dQ, dK, dV together, graph-timed) "
+                     f"{lib_ms:.4f} ms, bound {kbnd:.4f} ms ({kby}: {kflop} "
+                     f"FLOP, {kbytes} B), {kbnd / ms:.1%} of it")
                 _check_bound(f"{name} {what}", ms, kbnd)
-                kern_ms += ms
+                times[name] = ms
+                if name != kv_old:
+                    kern_ms += ms
                 row = dict(shape=what, ms=ms, eager_ms=eager_ms,
                            plain_ms=plain, library_ms=lib_ms, bound_ms=kbnd,
-                           bound_by=kby, max_abs_err=errs[(name, dt)])
+                           bound_by=kby, max_abs_err=errs[
+                               (name, "old route f32" if name == kv_old
+                                else dt)])
                 timings.setdefault(name, []).append(row)
-                if rate and dt == f32:  # the f32 train step's row heads it
+                if rate and bs == B:  # the f32 train step's row heads it
                     rows[name] = row
-            alone = (f"the two kernels alone {kern_ms:.4f} ms (they "
+            new_ms, old_ms = times["flash_attention_bwd_dkdv_f32"], \
+                times[kv_old]
+            timings["flash_attention_bwd_dkdv_f32"][-1].update(
+                old_route_ms=old_ms, split_route_ms=split_ms)
+            if bs == B and new_ms >= old_ms:
+                raise AssertionError(f"the f32 dK/dV kernel at {what} takes "
+                                     f"{new_ms:.4f} ms, the old route "
+                                     f"{old_ms:.4f}")
+            alone = (f"the f32 route's two kernels alone {kern_ms:.4f} ms "
+                     f"(the f32 dK/dV kernel and the dQ kernel: they "
                      f"execute 14·B·H·S·Sk·D FLOP, recomputing QK^T and "
-                     f"dO·V^T in each); bwd_delta alone {delta_ms:.4f} ms")
+                     f"dO·V^T in each); the old route's dK/dV kernel on the "
+                     f"same inputs {old_ms:.4f} ms, f32/old "
+                     f"{new_ms / old_ms:.3f}; the split route's whole "
+                     f"backward (bwd_delta, dK/dV, dQ; graph-timed) "
+                     f"{split_ms:.4f} ms; bwd_delta alone {delta_ms:.4f} ms")
             del delta, args
         _log(f"[kernel] time whole backward {what}, graph-timed as (forward "
              f"+ backward) - forward: the port ({route} route) "
@@ -1198,8 +1313,9 @@ def phase_attention_routes():
     """The attention ops' route on the card (ROADMAP C1): at hidden 768
     with 8 heads (D = 96, which the kernels run zero-padded to 128) the
     op launches the forward once and its backward once, the tiled forward
-    and the dK/dV and dQ kernels in f32, the whole-block forward and the
-    fused kernel in bf16 (S = 128), and agrees
+    and the dK/dV and dQ kernels in f32 (128 is above the f32 kernels'
+    instances), the whole-block forward and the fused kernel in bf16 (S =
+    128), and agrees
     with the plain versions; a bias the kernels do not
     take ([1, 1, 1, Sk]) takes the einsum path, launches no kernel, and
     its dropout mask is the flash kernels' (its output and grads agree
@@ -1213,13 +1329,13 @@ def phase_attention_routes():
     seed = rng.attention_seed(key)
     for hidden, heads, dt, rate, bias_kind, want_route, want in (
             (768, 8, torch.float32, 0.0, "key-padding", "flash",
-             (1, 1, 1, 0, 0, 0, 0, 0, 0)),
+             (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.0, "key-padding", "flash",
-             (0, 0, 0, 1, 0, 1, 0, 0, 0)),
+             (0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0)),
             (768, 8, torch.float32, 0.1, "key-padding", "flash",
-             (1, 1, 1, 0, 0, 0, 0, 0, 0)),
+             (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.1, "key-padding", "flash",
-             (0, 0, 0, 1, 0, 1, 0, 0, 0)),
+             (0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0)),
             (768, 12, torch.float32, 0.1, "[1,1,1,Sk]", "einsum",
              NO_KERNELS)):
         q, k, v, do = (torch.randn(2, S, hidden, generator=gen,
@@ -1468,7 +1584,8 @@ def phase_slice(profile=False):
     from paddle_tpu_torch.models import bert
     cfg = bert.bert_base_config()
     L = cfg["layers"]
-    want = (L,) + (0,) * (len(KERNELS) - 1)  # f32: the tiled forward
+    # f32 at D = 64: the f32 forward
+    want = tuple(L if k == "flash_attention_fwd_f32" else 0 for k in KERNELS)
     main, startup, enc = _build_encoder(cfg)
     n_attn = sum(op.type == "fused_attention_qkv"
                  for op in main.global_block().ops)
@@ -1544,10 +1661,9 @@ def phase_slice(profile=False):
     st = exe.graph_stats()
     _log(f"[slice] {n_runs} requests, compiled: {runs['eager']} eager "
          f"warm-ups, {runs['capture']} captures ({st['capture_s']:.2f} s "
-         f"in all), {runs['replay']} replays; flash kernel launches "
-         f"{launches[0]} through the wrapper (warm-ups and captures), "
-         f"{n_runs * L} run on the card (= {L} per request); backward "
-         f"and dropout launches {sum(launches[1:])}")
+         f"in all), {runs['replay']} replays; launches through the "
+         f"wrappers (warm-ups and captures) {GATE_NAMES} {launches}, "
+         f"{n_runs * L} forwards run on the card (= {L} per request)")
 
     # the interpreter on the same weights: replays against the eager plan,
     # and its own latency in this run
@@ -1679,7 +1795,8 @@ def _launch_counts():
             fa.bwd_fused_launch_count, dk.launch_count,
             fa.fwd_whole_launch_count, fa.fwd_streamed_launch_count,
             fa.bwd_dq_streamed_launch_count,
-            fa.bwd_dkdv_streamed_launch_count)
+            fa.bwd_dkdv_streamed_launch_count, fa.fwd_f32_launch_count,
+            fa.bwd_dkdv_f32_launch_count)
 
 
 def _reset_launch_counts():
@@ -1689,10 +1806,11 @@ def _reset_launch_counts():
     fa.bwd_fused_launch_count = dk.launch_count = 0
     fa.fwd_whole_launch_count = fa.fwd_streamed_launch_count = 0
     fa.bwd_dq_streamed_launch_count = fa.bwd_dkdv_streamed_launch_count = 0
+    fa.fwd_f32_launch_count = fa.bwd_dkdv_f32_launch_count = 0
 
 
 def _attention_route(main):
-    """The backward route (``bwd_route``: "fused" or "split") that the
+    """The backward route (``bwd_route``: "fused", "f32", ...) that the
     attention ops of ``main`` take on the card, read from the program: the
     shape and dtype of each op's Q and K inputs. (The AMP step's, whose
     dtype its rewrite decides; the other paths' routes are constants.)"""
@@ -1720,17 +1838,20 @@ def _step_want(ops, route, forwards=None):
     launches the forward once and its grad re-runs it under autograd (the
     generic grad; ``forwards`` overrides the count), whose backward
     launches the dK/dV and the dQ kernel once each on the split route, the
-    fused kernel once, or the streamed dQ and dK/dV kernels once each;
-    each dropout op launches the dropout kernel once (its grad is a mask
+    fused kernel once, the streamed dQ and dK/dV kernels once each, or the
+    f32 dK/dV kernel and the dQ kernel once each on the f32 route; each
+    dropout op launches the dropout kernel once (its grad is a mask
     product: no re-draw). The forward is the tiled kernel on the split
-    route, the whole-block one on the fused route and the streamed one on
-    the streamed route: ``bwd_route`` maps ``fwd_route``'s answer."""
+    route, the whole-block one on the fused route, the streamed one on the
+    streamed route and the f32 one on the f32 route: ``bwd_route`` maps
+    ``fwd_route``'s answer."""
     L = sum(op.type == "fused_attention_qkv" for op in ops)
     fwd = 2 * L if forwards is None else forwards
     drop = _dropout_ops(ops)
-    return {"split": (fwd, L, L, 0, drop, 0, 0, 0, 0),
-            "fused": (0, 0, 0, L, drop, fwd, 0, 0, 0),
-            "streamed": (0, 0, 0, 0, drop, 0, fwd, L, L)}[route]
+    return {"split": (fwd, L, L, 0, drop, 0, 0, 0, 0, 0, 0),
+            "fused": (0, 0, 0, L, drop, fwd, 0, 0, 0, 0, 0),
+            "streamed": (0, 0, 0, 0, drop, 0, fwd, L, L, 0, 0),
+            "f32": (0, 0, L, 0, drop, 0, 0, 0, 0, fwd, L)}[route]
 
 
 def _dropout_ops(ops):
@@ -1756,7 +1877,7 @@ def phase_train(profile=False):
     if n_fwd != L or n_grad != L:
         raise AssertionError(f"{n_fwd} attention ops and {n_grad} grads, "
                              f"want {L} each")
-    want = _step_want(ops, "split")
+    want = _step_want(ops, _attention_route(main))
     if want != TRAIN_STEP_WANT:
         raise AssertionError(f"the training step: want {want} launches, "
                              f"not {TRAIN_STEP_WANT}")
@@ -1844,9 +1965,7 @@ def phase_train(profile=False):
     _log(f"[train] {n_runs} steps, compiled: {runs['eager']} eager "
          f"warm-ups, {runs['capture']} captures ({st['capture_s']:.2f} s in "
          f"all), {runs['replay']} replays; launches through the wrappers "
-         f"(warm-ups and captures) forward {launches[0]}, dK/dV "
-         f"{launches[1]}, dQ {launches[2]}, dropout {launches[4]}; run on "
-         f"the card "
+         f"(warm-ups and captures) {launches}; run on the card "
          f"{tuple(n_runs * w for w in want)} (= {want} per step)")
     _log(f"[train] repeated batch, {FALL_STEPS} steps: " +
          " ".join(f"{x:.4f}" for x in fall))
@@ -2371,7 +2490,7 @@ def phase_window():
     _log(f"[window] same feeds, n_steps=2: compiled fetch "
          f"{shapes['compiled']} (stacked), interpreted {shapes['interpreted']}"
          " (the final step's) -> ok")
-    want = _step_want(main.global_block().ops, "split")
+    want = _step_want(main.global_block().ops, _attention_route(main))
     if want != TRAIN_STEP_WANT:
         raise AssertionError(f"window: want {want} launches a step, not "
                              f"{TRAIN_STEP_WANT}")
@@ -2776,7 +2895,7 @@ def phase_guard():
         fluid.core.set_flag("FLAGS_check_nan_inf", True)
         _skip_replay(cfg)
         main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
-        want = _step_want(main.global_block().ops, "split")
+        want = _step_want(main.global_block().ops, _attention_route(main))
         if want != TRAIN_STEP_WANT:
             raise AssertionError(f"guard: want {want} launches a step, not "
                                  f"{TRAIN_STEP_WANT}")
@@ -3227,12 +3346,14 @@ def phase_resnet(profile=False):
 # --------------------------------------------------------------------------
 # 11. transformer
 # --------------------------------------------------------------------------
-WMT_STEP_WANT = (0, 0, 0, 18, 42, 36, 0, 0, 0)  # transformer_big's bf16 step: 18
-#                               attention ops (6 encoder, 6 + 6 decoder) on
-#                               the fused route, each forward run twice (the
-#                               generic grad re-runs it), 42 dropout ops
-WMT_DECODE_WANT = (18, 0, 0, 0, 0, 0, 0, 0, 0)  # a decode run: the 18 forwards, f32
-WMT_LANE_WANT = (0, 0, 0, 6, 0, 12, 0, 0, 0)  # bench's transformer lane, 2 + 2 layers
+# transformer_big's bf16 step: 18 attention ops (6 encoder, 6 + 6
+# decoder) on the fused route, each forward run twice (the generic grad
+# re-runs it), 42 dropout ops
+WMT_STEP_WANT = (0, 0, 0, 18, 42, 36, 0, 0, 0, 0, 0)
+# a decode run: the 18 forwards, f32 (the f32 forward)
+WMT_DECODE_WANT = (0, 0, 0, 0, 0, 0, 0, 0, 0, 18, 0)
+# bench's transformer lane, 2 + 2 layers
+WMT_LANE_WANT = (0, 0, 0, 6, 0, 12, 0, 0, 0, 0, 0)
 WMT_WARMUP = 3                # steps before the timed ones
 WMT_STEPS = 20                # bf16 steps timed
 WMT_FALL_STEPS = 8            # steps on one repeated batch
@@ -3430,14 +3551,14 @@ def _wmt_graph_against_interpreter():
 
 def _wmt_f32_against_cpu():
     """One f32 step at 1 + 1 layers of the full widths, dropout 0, on the
-    card (the tiled forward and the split backward) and by the port on
-    the CPU from the same weights: the loss and three grads at the train
-    phase's tolerances."""
+    card (the f32 forward, the f32 dK/dV kernel and the dQ kernel) and by
+    the port on the CPU from the same weights: the loss and three grads at
+    the train phase's tolerances."""
     import numpy as np
     cfg = _wmt_cfg(enc_layers=1, dec_layers=1, dropout=0.0)
     main, startup, loss, _ = _wmt_train_program(cfg)
     ops = main.global_block().ops
-    want = _step_want(ops, "split")
+    want = _step_want(ops, _attention_route(main))
     muls = [op for op in ops if op.type == "mul"]
     names = ["src_embedding", muls[0].input("Y")[0], "trg_proj"]
     fetch = [loss] + [n + "@GRAD" for n in names]
@@ -3471,8 +3592,8 @@ def _greedy(exe, main, logits, scope, src, smask, trg, each=None):
 def _wmt_decode(profile=False):
     """Greedy decode of transformer_big in f32 at dropout 0: B = 8, 64
     source tokens, 80 target positions, 79 runs of one compiled program
-    (the tiled forward: cross-attention 80 over 64 keys, causal
-    self-attention 80 x 80). Gates: every run compiled with (18, 0, ...)
+    (the f32 forward: cross-attention 80 over 64 keys, causal
+    self-attention 80 x 80). Gates: every run compiled with (0, ..., 18, 0)
     launches, each run re-feeds the mutated target array (an upload, the
     other feeds cache hits), a trace of one replay. Then the CPU port
     decodes greedily from the same weights, and on its tokens (a
@@ -3702,10 +3823,12 @@ def main(argv=None) -> int:
     # and as the profiler counted); wrapper_calls_by_path: the wrappers'
     # own counts, which a replay does not move. The heading numbers of
     # the whole-block forward and the fused backward are at the bench
-    # lane's shape (bf16, batch 256, no bias), those of the tiled forward
-    # and the dK/dV and dQ kernels at the f32 training step's (batch 32,
-    # bias, dropout 0.1), those of the streamed kernels at the S = 512
-    # lane's (bf16, batch 64, no bias); "timings" holds every shape timed.
+    # lane's shape (bf16, batch 256, no bias), those of the f32 forward and
+    # dK/dV kernels, of the tiled forward and the split dK/dV kernel (the
+    # old route, timed on the same inputs) and of the dQ kernel at the f32
+    # training step's (batch 32, bias, dropout 0.1), those of the streamed
+    # kernels at the S = 512 lane's (bf16, batch 64, no bias); "timings"
+    # holds every shape timed.
     # The entries are in KERNELS' order.
     src = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
@@ -3734,7 +3857,12 @@ def main(argv=None) -> int:
                 bwd_rows["flash_attention_bwd_dq_streamed"]),
                ("flash_attention_bwd_dkdv_streamed",
                 "flash_attention_bwd_streamed.cu", replaces + "514",
-                bwd_rows["flash_attention_bwd_dkdv_streamed"])]
+                bwd_rows["flash_attention_bwd_dkdv_streamed"]),
+               ("flash_attention_fwd_f32", "flash_attention_fwd_f32.cu",
+                replaces + "298", fwd_rows["flash_attention_fwd_f32"]),
+               ("flash_attention_bwd_dkdv_f32",
+                "flash_attention_bwd_dkdv_f32.cu", replaces + "514",
+                bwd_rows["flash_attention_bwd_dkdv_f32"])]
     if tuple(e[0] for e in entries) != KERNELS:
         raise AssertionError("the kernels line's entries are not KERNELS")
     kernels = []
@@ -3747,7 +3875,8 @@ def main(argv=None) -> int:
                                    for p, v in paths.items()},
             **{k: r[k] for k in keys},
             **{k: r[k] for k in ("max_abs_err_by_dtype", "timings",
-                                 "tiled_ms", "pair_ms", "split_route_ms")
+                                 "tiled_ms", "pair_ms", "split_route_ms",
+                                 "old_route_ms")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

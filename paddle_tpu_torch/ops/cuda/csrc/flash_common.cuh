@@ -1,7 +1,7 @@
 // What the flash-attention kernels share besides the dropout mask and the
 // tensor-core blocks (tc_common.cuh): the mask value, the tile shape, the
-// score masks, the entry points' error codes and the once-per-device
-// shared-memory opt-in.
+// score masks, the entry points' error codes, the once-per-device
+// shared-memory opt-in and the count of blocks a device holds at once.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +62,33 @@ inline cudaError_t ensure_smem_attr(const void* kernel, size_t bytes,
                              (int)bytes);
   if (err == cudaSuccess && cached) done[dev] = true;
   return err;
+}
+
+// the current device, as an index of the per-device caches below
+inline int current_device() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess && dev >= 0 && dev < kMaxDevices
+             ? dev
+             : 0;
+}
+
+// The blocks of `kernel` (`threads` threads, `smem` bytes of dynamic
+// shared memory) that the current device holds at once: its SMs times the
+// blocks an SM takes. A persistent kernel launches that many. Cached in
+// `cache` per device (0: not asked yet).
+inline cudaError_t resident_blocks(const void* kernel, int threads,
+                                   size_t smem, int (&cache)[kMaxDevices]) {
+  const int dev = current_device();
+  if (cache[dev] > 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  cache[dev] = sms * per_sm > 0 ? sms * per_sm : 1;
+  return cudaSuccess;
 }
 
 }  // namespace paddle_fa

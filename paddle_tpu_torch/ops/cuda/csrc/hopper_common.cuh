@@ -8,7 +8,10 @@
 // and products (bf16 operands, f32 accumulators, m64n64k16), a row's dot
 // product of bf16 chunks, and, on the host, the tensor maps of
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so that no library links against libcuda.
+// so that no library links against libcuda. The f32 kernels
+// (flash_attention_fwd_f32.cu, flash_attention_bwd_dkdv_f32.cu) take the
+// TF32 products, the f32 tensor maps and the split-TF32 passes over
+// shared memory from here too.
 //
 // Layout. A tile is [128 rows][64 bf16 columns] a region (16 KB, one TMA
 // box), rows 128 bytes apart, the 16-byte chunk j of row r stored at chunk
@@ -20,6 +23,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace paddle_fa {
 namespace hopper {
@@ -164,9 +169,10 @@ __device__ __forceinline__ void wg_wait() {
 
 // keep the compiler from moving an accumulator across the asynchronous
 // product that writes it (read before the commit, after the wait)
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define PADDLE_ACC32(d)                                                     \
@@ -209,8 +215,196 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1), "n"(TB));
 }
 
+// ---- wgmma in TF32 (the f32 kernels' split-TF32 products) ------------------
+//
+// The .tf32 forms take no transpose: both shared-memory operands are read
+// K-major (rows of 32 f32 along K, 128-byte swizzle, 8-row groups 1024 B
+// apart: desc_k above, a k step of 8 adds 32 B to the start). A from
+// registers is the mma.sync m16n8k8 .tf32 A layout per warp: a0 (row g,
+// k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4).
+// Each operand is a TF32 bit pattern (cvt.rna.tf32.f32).
+
+#define PADDLE_ACC16(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define PADDLE_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d = A B + (accumulate ? d : 0), m64nNk8 TF32 (N = 32 or 64: N / 2
+// accumulators a thread), both operands from shared memory. A chain that
+// starts with accumulate = 0 needs no instruction to zero d: one would
+// make ptxas serialize the products in flight beside it (C7515).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<32>(float (&d)[16], uint64_t da,
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " PADDLE_D16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : PADDLE_ACC16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_ss<64>(float (&d)[32], uint64_t da,
+                                                  uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " PADDLE_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : PADDLE_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A B + (accumulate ? d : 0), m64nNk8 TF32, A from registers (a0 ..
+// a3 as above), B from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db,
+                                              int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " PADDLE_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : PADDLE_ACC16(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " PADDLE_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : PADDLE_ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+#undef PADDLE_ACC16
+#undef PADDLE_D16
 #undef PADDLE_ACC32
 #undef PADDLE_D32
+
+// d = A [64 rows][K] x B [N rows][K]^T in split TF32, uncommitted: the
+// three products lo*hi + hi*lo + hi*hi of each k step of 8, all operands
+// K-major in shared memory, 32-column regions `a_region` and `b_region`
+// bytes apart (ah/al and bh/bl the addresses of the hi and lo copies'
+// first rows). d's old values are not read.
+template <int N, int K>
+__device__ __forceinline__ void wgmma_tf32_split_ss(float (&d)[N / 2],
+                                                    uint32_t ah, uint32_t al,
+                                                    int a_region, uint32_t bh,
+                                                    uint32_t bl,
+                                                    int b_region) {
+#pragma unroll
+  for (int kk = 0; kk < K / 8; ++kk) {
+    const int oa = (kk / 4) * a_region + (kk % 4) * 32;
+    const int ob = (kk / 4) * b_region + (kk % 4) * 32;
+    wgmma_tf32_ss<N>(d, desc_k(al + oa), desc_k(bh + ob), kk > 0);
+    wgmma_tf32_ss<N>(d, desc_k(ah + oa), desc_k(bl + ob), 1);
+    wgmma_tf32_ss<N>(d, desc_k(ah + oa), desc_k(bh + ob), 1);
+  }
+}
+
+// acc (+)= A B in split TF32, uncommitted: A [64][K] from registers, k
+// step j's fragment hi[4 j .. 4 j + 3] / lo[...] in the accumulator's
+// order (a0, a2, a1, a3: an accumulator read as A, see tf32_slot), B [N
+// rows][K] K-major from shared memory, 32-column regions `b_region` bytes
+// apart. With ZERO acc's old values are not read.
+template <int N, int K, bool ZERO = false>
+__device__ __forceinline__ void wgmma_tf32_split_rs(
+    float (&acc)[N / 2], const uint32_t (&hi)[K / 2],
+    const uint32_t (&lo)[K / 2], uint32_t bh, uint32_t bl, int b_region) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const int ob = (j / 4) * b_region + (j % 4) * 32;
+    wgmma_tf32_rs<N>(acc, lo[4 * j], lo[4 * j + 2], lo[4 * j + 1],
+                     lo[4 * j + 3], desc_k(bh + ob), !(ZERO && j == 0));
+    wgmma_tf32_rs<N>(acc, hi[4 * j], hi[4 * j + 2], hi[4 * j + 1],
+                     hi[4 * j + 3], desc_k(bl + ob), 1);
+    wgmma_tf32_rs<N>(acc, hi[4 * j], hi[4 * j + 2], hi[4 * j + 1],
+                     hi[4 * j + 3], desc_k(bh + ob), 1);
+  }
+}
+
+// ---- split TF32 in shared memory -------------------------------------------
+//
+// An f32 tile lands by TMA as 32-column regions of 128-byte rows with the
+// 128-byte swizzle; its hi and lo copies keep that layout, so the split
+// that keeps the layout is a pass over 16-byte chunks, hi written in place.
+// A transposed copy puts element (row r, column c) at (c, tf32_slot(r)):
+// within each 8-group of K the accumulator's column 2 t + e (the A
+// fragment's k slot t + 4 e, tc_common.cuh's relabelling) sits where B's
+// k slot t + 4 e is read.
+
+constexpr int F32_COLS = 32;  // f32 columns of a 128-byte swizzled row
+
+__device__ __forceinline__ int tf32_slot(int x) {
+  return (x & ~7) | ((x & 7) >> 1) | ((x & 1) << 2);
+}
+
+// the byte offset of f32 element (row, col) in a region of 128-byte rows
+// with the 128-byte swizzle (col < 32)
+__device__ __forceinline__ int swz_f32(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4;
+}
+
+// tf32(x) as cvt.rna.tf32.f32 rounds it (to nearest, ties away from zero,
+// the low 13 bits cleared), bit for bit for every finite x, in two integer
+// operations: the conversion unit runs cvt at a quarter of the integer
+// rate, and a kernel that splits every operand and every probability spends
+// more time there than on its products (an Inf or NaN x gives an Inf or
+// NaN hi and a NaN lo, which carry through the product as cvt's would)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, each a TF32 value: tc::split's result, without cvt
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(x);
+  lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ float4 split4(float4 x, float4& lo) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                   __uint_as_float(l[2]), __uint_as_float(l[3]));
+  return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                     __uint_as_float(h[2]), __uint_as_float(h[3]));
+}
+
+// `bytes` of f32 at `src` split into hi (at `hi`, which may be `src`:
+// in place) and lo (at `lo`), all three in one layout, spread over
+// NTHREADS threads
+template <int NTHREADS>
+__device__ __forceinline__ void split_rows(const unsigned char* src,
+                                           unsigned char* hi,
+                                           unsigned char* lo, int bytes) {
+  for (int c = threadIdx.x; c < bytes / 16; c += NTHREADS) {
+    float4 l;
+    const float4 h = split4(reinterpret_cast<const float4*>(src)[c], l);
+    reinterpret_cast<float4*>(hi)[c] = h;
+    reinterpret_cast<float4*>(lo)[c] = l;
+  }
+}
 
 // d = A B^T as one committed group of products: A [64 rows][DP] and B [64
 // rows][DP] both K-major in 64-column regions of shared memory (a and b
@@ -324,6 +518,25 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int BH, int rows,
   const cuuint32_t box[3] = {COLS, (cuuint32_t)box_rows, 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a contiguous f32 [BH, rows, D] tensor in boxes of 32
+// columns (128 bytes) x `box_rows` rows x 1 head, 128-byte swizzle; a load
+// zero-fills what lies past D or past `rows`.
+inline bool tensor_map_f32(CUtensorMap* map, const void* ptr, int BH,
+                           int rows, int D, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4,
+                                 (cuuint64_t)rows * D * 4};
+  const cuuint32_t box[3] = {F32_COLS, (cuuint32_t)box_rows, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

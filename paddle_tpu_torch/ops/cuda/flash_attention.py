@@ -19,9 +19,17 @@ wgmma and TMA stream the keys (or the query rows) through a two-stage ring
 of shared memory: the streamed forward ``csrc/flash_attention_fwd_streamed.cu``
 (an online softmax across 128-key tiles), and the streamed backward
 ``csrc/flash_attention_bwd_streamed.cu``, a dQ kernel that takes delta
-itself, then a dK/dV kernel. ``fwd_route`` picks by shape and dtype
-alone, "whole", "streamed" or "tiled" (f32: the tiled forward), and
-``bwd_route`` maps its answer ("fused", "streamed", "split").
+itself, then a dK/dV kernel. In f32 at head dims up to 64 (every f32
+path), two kernels on split-TF32 wgmma and TMA take the place of the
+tiled forward and of the split route's dK/dV kernel: the forward
+``csrc/flash_attention_fwd_f32.cu`` and the dK/dV kernel
+``csrc/flash_attention_bwd_dkdv_f32.cu``, between ``bwd_delta`` and the
+split route's dQ kernel. ``fwd_route`` picks by shape and dtype alone,
+"whole", "streamed", "f32" or "tiled" (f32 at head dims 65 to 128: the
+tiled forward), and ``bwd_route`` maps its answer ("fused", "streamed",
+"f32", "split"). The tiled forward and the split backward stay callable
+as the old route (``flash_attention_fwd_tiled_cuda``,
+``flash_attention_bwd_split_cuda``).
 Every source is built at first use by ``build.py``; each source's header
 says what bounds it and how it is laid out. All share the counter-hash
 dropout mask (``csrc/keep_mask.cuh``), so the backward regenerates the
@@ -52,8 +60,9 @@ none.
 ``launch_count`` (the tiled forward), ``fwd_whole_launch_count``,
 ``bwd_kv_launch_count``, ``bwd_q_launch_count``,
 ``bwd_fused_launch_count``, ``fwd_streamed_launch_count``,
-``bwd_dq_streamed_launch_count`` and ``bwd_dkdv_streamed_launch_count``
-count each kernel's launches: a wrapper adds one where it launches its
+``bwd_dq_streamed_launch_count``, ``bwd_dkdv_streamed_launch_count``,
+``fwd_f32_launch_count`` and ``bwd_dkdv_f32_launch_count`` count each
+kernel's launches: a wrapper adds one where it launches its
 kernel and nowhere else.
 """
 from __future__ import annotations
@@ -74,9 +83,16 @@ BWD_FUSED_SOURCE = "flash_attention_bwd_fused.cu"
 FWD_WHOLE_SOURCE = "flash_attention_fwd_whole.cu"
 FWD_STREAMED_SOURCE = "flash_attention_fwd_streamed.cu"
 BWD_STREAMED_SOURCE = "flash_attention_bwd_streamed.cu"
+FWD_F32_SOURCE = "flash_attention_fwd_f32.cu"
+BWD_DKDV_F32_SOURCE = "flash_attention_bwd_dkdv_f32.cu"
 # the whole-block kernels (the forward and the fused backward) hold a
 # (batch, head)'s query rows and keys in one block
 WHOLE_MAX_LEN = 128
+# the f32 kernels on wgmma (the forward and dK/dV) have instances up to
+# this head dim; f32 above it runs the tiled forward and the split route
+F32_MAX_HEAD_DIM = 64
+# the shared memory a block may ask for on an H100 (227 KB)
+SMEM_LIMIT = 232448
 
 launch_count = 0
 fwd_whole_launch_count = 0
@@ -86,6 +102,8 @@ bwd_fused_launch_count = 0
 fwd_streamed_launch_count = 0
 bwd_dq_streamed_launch_count = 0
 bwd_dkdv_streamed_launch_count = 0
+fwd_f32_launch_count = 0
+bwd_dkdv_f32_launch_count = 0
 
 
 def launch_counts():
@@ -100,7 +118,9 @@ def launch_counts():
             "flash_attention_fwd_streamed": fwd_streamed_launch_count,
             "flash_attention_bwd_dq_streamed": bwd_dq_streamed_launch_count,
             "flash_attention_bwd_dkdv_streamed":
-                bwd_dkdv_streamed_launch_count}
+                bwd_dkdv_streamed_launch_count,
+            "flash_attention_fwd_f32": fwd_f32_launch_count,
+            "flash_attention_bwd_dkdv_f32": bwd_dkdv_f32_launch_count}
 
 
 _M32 = 0xFFFFFFFF
@@ -286,6 +306,9 @@ _SIGNATURES = {
     BWD_STREAMED_SOURCE: {
         "paddle_flash_attention_bwd_dq_streamed": [_PTR] * 10 + _TAIL,
         "paddle_flash_attention_bwd_dkdv_streamed": [_PTR] * 9 + _TAIL},
+    FWD_F32_SOURCE: {"paddle_flash_attention_fwd_f32": [_PTR] * 7 + _TAIL},
+    BWD_DKDV_F32_SOURCE: {
+        "paddle_flash_attention_bwd_dkdv_f32": [_PTR] * 10 + _TAIL},
 }
 _libs = {}
 
@@ -337,26 +360,52 @@ def fwd_route(q_shape, k_shape, dtype) -> str:
     one softmax pass over all its keys) where ``holds_whole``; "streamed"
     (128 query rows a block, an online softmax over 128-key tiles) for the
     rest of bf16 at a head dim the kernels take (S or Sk above
-    WHOLE_MAX_LEN); else "tiled" (64-row query tiles on mma.sync: f32, and
-    what no kernel takes, which raises in the tiled wrapper). A choice by
-    shape between kernels, never a fallback. ``bwd_route`` maps this
-    answer, so the forward and the backward never disagree."""
+    WHOLE_MAX_LEN); "f32" (64 query rows a block on split-TF32 wgmma, any
+    S and Sk) for f32 at head dims up to F32_MAX_HEAD_DIM; else "tiled"
+    (64-row query tiles on mma.sync: f32 at head dims 65 to 128, whose
+    hi, lo and transposed tiles the f32 kernels do not hold, and what no
+    kernel takes, which raises in the tiled wrapper). A choice by shape
+    between kernels, never a fallback. ``bwd_route`` maps this answer, so
+    the forward and the backward never disagree."""
     if holds_whole(q_shape, k_shape, dtype):
         return "whole"
-    if dtype == torch.bfloat16 and kernel_head_dim(q_shape[3]) is not None:
+    dp = kernel_head_dim(q_shape[3])
+    if dtype == torch.bfloat16 and dp is not None:
         return "streamed"
+    if dtype == torch.float32 and dp is not None and dp <= F32_MAX_HEAD_DIM:
+        return "f32"
     return "tiled"
 
 
-_BWD_OF_FWD = {"whole": "fused", "streamed": "streamed", "tiled": "split"}
+_BWD_OF_FWD = {"whole": "fused", "streamed": "streamed", "f32": "f32",
+               "tiled": "split"}
 
 
 def bwd_route(q_shape, k_shape, dtype) -> str:
     """Which backward runs on the card, the one of ``fwd_route``'s answer:
     "fused" (one kernel: delta, dQ, dK and dV), "streamed" (the dQ kernel
-    with delta inside, then the dK/dV kernel) or "split" (delta in torch
-    passes, then the dK/dV and the dQ kernels)."""
+    with delta inside, then the dK/dV kernel), "f32" (delta in torch
+    passes, then the wgmma dK/dV kernel and the split route's dQ kernel)
+    or "split" (delta in torch passes, then the dK/dV and the dQ
+    kernels)."""
     return _BWD_OF_FWD[fwd_route(q_shape, k_shape, dtype)]
+
+
+def fwd_f32_smem_bytes(dp: int) -> int:
+    """Shared memory a block of the f32 forward asks for at instance
+    ``dp`` (32 or 64), as its source lays it out: five [64][dp] f32 tiles
+    (Q as it lands, K and V^T each hi and lo), two mbarriers, 1024 bytes
+    to align."""
+    return 5 * 64 * dp * 4 + 2 * 8 + 1024
+
+
+def bwd_dkdv_f32_smem_bytes(dp: int) -> int:
+    """Shared memory a block of the f32 dK/dV kernel asks for at instance
+    ``dp``: K and V hi and lo and the next K and V as they land ([64][dp]
+    f32 each), a ring slot for each of two warpgroups of Q, dO and their
+    transposes hi and lo ([32][dp] each), three mbarriers, 1024 bytes to
+    align."""
+    return 6 * 64 * dp * 4 + 2 * 8 * 32 * dp * 4 + 3 * 8 + 1024
 
 
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -428,11 +477,12 @@ def flash_attention_cuda(q, k, v, sm_scale, causal=False, dropout_rate=0.0,
                          dropout_seed=None,
                          bias=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward on the card → (o, lse), by ``fwd_route``: the
-    whole-block kernel, the streamed one or the tiled one."""
-    route = fwd_route(q.shape, k.shape, q.dtype)
-    fn = (flash_attention_fwd_whole_cuda if route == "whole" else
-          flash_attention_fwd_streamed_cuda if route == "streamed" else
-          flash_attention_fwd_tiled_cuda)
+    whole-block kernel, the streamed one, the f32 one or the tiled one."""
+    fn = {"whole": flash_attention_fwd_whole_cuda,
+          "streamed": flash_attention_fwd_streamed_cuda,
+          "f32": flash_attention_fwd_f32_cuda,
+          "tiled": flash_attention_fwd_tiled_cuda}[
+        fwd_route(q.shape, k.shape, q.dtype)]
     return fn(q, k, v, sm_scale, causal, dropout_rate, dropout_seed, bias)
 
 
@@ -540,6 +590,45 @@ def flash_attention_fwd_streamed_cuda(q, k, v, sm_scale, causal=False,
             *_common_args(q, k, sm_scale, causal, dropout_rate))
     _raise_on(lib, rc, "flash_attention streamed forward")
     fwd_streamed_launch_count += 1
+    return o, lse
+
+
+def flash_attention_fwd_f32_cuda(q, k, v, sm_scale, causal=False,
+                                 dropout_rate=0.0, dropout_seed=None,
+                                 bias=None):
+    """Launch the f32 forward kernel on the current stream (f32, head dims
+    up to F32_MAX_HEAD_DIM, any S and Sk): 64 query rows of a (batch,
+    head) a work item, persistent blocks, split-TF32 wgmma products, the
+    keys streamed in 64-key tiles → (o, lse). A head dim off the instances
+    is padded with zero columns."""
+    global fwd_f32_launch_count
+    _check_cuda_inputs(q, k, v)
+    if fwd_route(q.shape, k.shape, q.dtype) != "f32":
+        raise ValueError(f"flash_attention f32 forward: takes f32 at head "
+                         f"dims up to {F32_MAX_HEAD_DIM}, got "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
+    B, H, S, D = q.shape
+    dp = kernel_head_dim(D)
+    if dp != D:
+        o, lse = flash_attention_fwd_f32_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v)), sm_scale, causal,
+            dropout_rate, dropout_seed, bias)
+        return o[..., :D].contiguous(), lse
+    dev = q.device
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
+                                   k.shape[2], dev)
+    o = torch.empty_like(q)
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=dev)
+    if S == 0:
+        return o, lse
+    lib = _library(FWD_F32_SOURCE)
+    with torch.cuda.device(dev):
+        rc = lib.paddle_flash_attention_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), _ptr(seed),
+            o.data_ptr(), lse.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention f32 forward")
+    fwd_f32_launch_count += 1
     return o, lse
 
 
@@ -656,26 +745,79 @@ def flash_attention_bwd_fused_cuda(q, k, v, o, lse, do, sm_scale,
     return dq, dk, dv
 
 
-def flash_attention_bwd_split_cuda(q, k, v, o, lse, do, sm_scale,
-                                   causal=False, dropout_rate=0.0,
-                                   dropout_seed=None, bias=None):
-    """The split route on the card: delta, then the dK/dV and the dQ
-    kernels → (dq, dk, dv). A head dim off the instances is padded once for
-    both kernels; delta is taken from the unpadded O and dO (the padded
+def _bwd_after_delta(kv_fn, q, k, v, o, lse, do, sm_scale, causal,
+                     dropout_rate, dropout_seed, bias):
+    """delta, then ``kv_fn`` (a dK/dV kernel's wrapper) and the dQ kernel
+    → (dq, dk, dv). A head dim off the instances is padded once for both
+    kernels; delta is taken from the unpadded O and dO (the padded
     columns would add zeros)."""
     delta = bwd_delta(o, do)
     d, dp = q.shape[3], kernel_head_dim(q.shape[3])
     padded = dp is not None and dp != d
     if padded:
         q, k, v, do = (pad_head_dim(t, dp) for t in (q, k, v, do))
-    dk, dv = flash_attention_bwd_kv_cuda(q, k, v, do, lse, delta, sm_scale,
-                                         causal, dropout_rate, dropout_seed,
-                                         bias)
-    dq = flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, sm_scale, causal,
-                                    dropout_rate, dropout_seed, bias)
+    tail = (sm_scale, causal, dropout_rate, dropout_seed, bias)
+    dk, dv = kv_fn(q, k, v, do, lse, delta, *tail)
+    dq = flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, *tail)
     if padded:
         return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
+
+
+def flash_attention_bwd_split_cuda(q, k, v, o, lse, do, sm_scale,
+                                   causal=False, dropout_rate=0.0,
+                                   dropout_seed=None, bias=None):
+    """The split route on the card: delta, then the dK/dV and the dQ
+    kernels → (dq, dk, dv)."""
+    return _bwd_after_delta(flash_attention_bwd_kv_cuda, q, k, v, o, lse,
+                            do, sm_scale, causal, dropout_rate,
+                            dropout_seed, bias)
+
+
+def flash_attention_bwd_dkdv_f32_cuda(q, k, v, do, lse, delta, sm_scale,
+                                      causal=False, dropout_rate=0.0,
+                                      dropout_seed=None, bias=None):
+    """Launch the f32 dK/dV kernel on the current stream (f32, head dims
+    up to F32_MAX_HEAD_DIM): 64 keys of a (batch, head) a work item,
+    persistent blocks of two warpgroups, split-TF32 wgmma products, the
+    query rows streamed in 32-row stages → (dk, dv)."""
+    global bwd_dkdv_f32_launch_count
+    _check_bwd_inputs(q, k, v, {"dO": do}, {"lse": lse, "delta": delta})
+    if bwd_route(q.shape, k.shape, q.dtype) != "f32":
+        raise ValueError(f"flash_attention f32 dK/dV: takes f32 at head "
+                         f"dims up to {F32_MAX_HEAD_DIM}, got "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}")
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    if dp != d:
+        dk, dv = flash_attention_bwd_dkdv_f32_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v, do)), lse, delta,
+            sm_scale, causal, dropout_rate, dropout_seed, bias)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed,
+                                   q.shape[0], k.shape[2], q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.shape[2] == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _library(BWD_DKDV_F32_SOURCE)
+    with torch.cuda.device(q.device):
+        rc = lib.paddle_flash_attention_bwd_dkdv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(bias), _ptr(seed),
+            dk.data_ptr(), dv.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention f32 dK/dV")
+    bwd_dkdv_f32_launch_count += 1
+    return dk, dv
+
+
+def flash_attention_bwd_f32_cuda(q, k, v, o, lse, do, sm_scale,
+                                 causal=False, dropout_rate=0.0,
+                                 dropout_seed=None, bias=None):
+    """The f32 backward on the card: delta, then the f32 dK/dV kernel and
+    the split route's dQ kernel → (dq, dk, dv)."""
+    return _bwd_after_delta(flash_attention_bwd_dkdv_f32_cuda, q, k, v, o,
+                            lse, do, sm_scale, causal, dropout_rate,
+                            dropout_seed, bias)
 
 
 ROW_TILE = 128  # query rows of a tile of the streamed dQ kernel
@@ -780,11 +922,12 @@ def flash_attention_bwd_streamed_cuda(q, k, v, o, lse, do, sm_scale,
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale, causal=False,
                              dropout_rate=0.0, dropout_seed=None, bias=None):
     """The backward on the card → (dq, dk, dv), by ``bwd_route``: the fused
-    kernel, the streamed pair or the split route."""
-    route = bwd_route(q.shape, k.shape, q.dtype)
-    fn = (flash_attention_bwd_fused_cuda if route == "fused" else
-          flash_attention_bwd_streamed_cuda if route == "streamed" else
-          flash_attention_bwd_split_cuda)
+    kernel, the streamed pair, the f32 route or the split route."""
+    fn = {"fused": flash_attention_bwd_fused_cuda,
+          "streamed": flash_attention_bwd_streamed_cuda,
+          "f32": flash_attention_bwd_f32_cuda,
+          "split": flash_attention_bwd_split_cuda}[
+        bwd_route(q.shape, k.shape, q.dtype)]
     return fn(q, k, v, o, lse, do, sm_scale, causal, dropout_rate,
               dropout_seed, bias)
 

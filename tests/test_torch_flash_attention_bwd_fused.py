@@ -79,8 +79,8 @@ def test_plain_bwd_matches_pallas_causal_at_fused_lengths(dtype, S, Sk,
     (128, 129, torch.bfloat16, "streamed"),
     (1, 1, torch.bfloat16, "fused"),
     (100, 77, torch.bfloat16, "fused"),
-    (128, 128, torch.float32, "split"),
-    (100, 77, torch.float32, "split"),
+    (128, 128, torch.float32, "f32"),
+    (100, 77, torch.float32, "f32"),
     (128, 128, torch.float16, "split"),
 ])
 def test_bwd_route_by_length_and_dtype(S, Sk, dtype, want):

@@ -107,9 +107,9 @@ def test_plain_fwd_matches_pallas_at_whole_lengths(dtype, S, Sk, causal,
     (129, 129, torch.bfloat16, "streamed"),
     (1, 1, torch.bfloat16, "whole"),
     (100, 77, torch.bfloat16, "whole"),
-    (128, 128, torch.float32, "tiled"),
-    (129, 128, torch.float32, "tiled"),
-    (1, 1, torch.float32, "tiled"),
+    (128, 128, torch.float32, "f32"),
+    (129, 128, torch.float32, "f32"),
+    (1, 1, torch.float32, "f32"),
     (128, 128, torch.float16, "tiled"),
 ])
 def test_fwd_route_by_length_and_dtype(S, Sk, dtype, want):
@@ -130,7 +130,8 @@ def test_fwd_route_is_bwd_route_over_a_grid():
     """One predicate decides both: the whole-block forward runs exactly
     where the fused backward does, the streamed forward exactly where the
     streamed backward does."""
-    both = {"whole": "fused", "streamed": "streamed", "tiled": "split"}
+    both = {"whole": "fused", "streamed": "streamed", "f32": "f32",
+            "tiled": "split"}
     seen = set()
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for S in (1, 16, 64, 100, 127, 128, 129, 200, 256):
@@ -141,18 +142,19 @@ def test_fwd_route_is_bwd_route_over_a_grid():
                     assert tfa.bwd_route(q, k, dtype) == both[fwd]
                     assert (fwd == "whole") == tfa.holds_whole(q, k, dtype)
                     seen.add(fwd)
-    assert seen == {"whole", "streamed", "tiled"}
+    assert seen == {"whole", "streamed", "f32", "tiled"}
 
 
 @pytest.mark.parametrize("S,dtype,want", [
     (128, torch.bfloat16, "whole"), (129, torch.bfloat16, "streamed"),
-    (128, torch.float32, "tiled")])
+    (128, torch.float32, "f32")])
 def test_cuda_forward_dispatches_by_fwd_route(monkeypatch, S, dtype, want):
     """flash_attention_cuda hands its arguments to the wrapper fwd_route
     names (both replaced here by recorders: no card)."""
     called = []
     for route, name in (("whole", "flash_attention_fwd_whole_cuda"),
                         ("streamed", "flash_attention_fwd_streamed_cuda"),
+                        ("f32", "flash_attention_fwd_f32_cuda"),
                         ("tiled", "flash_attention_fwd_tiled_cuda")):
         monkeypatch.setattr(tfa, name,
                             lambda *a, route=route: called.append(route))
@@ -178,8 +180,9 @@ def test_chip_smoke_gates_count_every_kernel_once():
     """chip_smoke's launch gates: one entry for each count the executor's
     graph accounting reads, in KERNELS' order; no device kernel's name a
     substring of another's (a trace counts kernels by substring); the
-    whole-block forward and the fused backward on the bf16 lane, the tiled
-    forward and the split kernels on the f32 train step."""
+    whole-block forward and the fused backward on the bf16 lane, the f32
+    forward and dK/dV kernels and the split route's dQ kernel on the f32
+    train step."""
     assert set(chip_smoke.KERNELS) == set(executor._launch_counts())
     names = chip_smoke.DEVICE_KERNELS
     assert len(names) == len(chip_smoke.KERNELS)
@@ -189,8 +192,12 @@ def test_chip_smoke_gates_count_every_kernel_once():
     train = dict(zip(chip_smoke.KERNELS, chip_smoke.TRAIN_STEP_WANT))
     assert lane["flash_attention_fwd_whole"] == 24 \
         and lane["flash_attention_fwd"] == 0
-    assert train["flash_attention_fwd"] == 24 \
+    assert train["flash_attention_fwd_f32"] == 24 \
+        and train["flash_attention_fwd"] == 0 \
         and train["flash_attention_fwd_whole"] == 0
+    assert train["flash_attention_bwd_dkdv_f32"] == 12 \
+        and train["flash_attention_bwd_kv"] == 0 \
+        and train["flash_attention_bwd_q"] == 12
 
 
 def test_whole_block_sources_share_the_hopper_helpers():

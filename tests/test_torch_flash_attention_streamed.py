@@ -143,8 +143,8 @@ def test_dropout_mask_is_the_pallas_kernels_on_the_ragged_grid():
     (200, 300, torch.bfloat16, "streamed"),
     (1, 4096, torch.bfloat16, "streamed"),
     (128, 128, torch.bfloat16, "whole"),
-    (512, 512, torch.float32, "tiled"),
-    (129, 128, torch.float32, "tiled"),
+    (512, 512, torch.float32, "f32"),
+    (129, 128, torch.float32, "f32"),
     (512, 512, torch.float16, "tiled"),
 ])
 def test_three_way_route_by_length_and_dtype(S, Sk, dtype, want):
@@ -152,6 +152,7 @@ def test_three_way_route_by_length_and_dtype(S, Sk, dtype, want):
     assert tfa.fwd_route(q, k, dtype) == want
     assert tfa.bwd_route(q, k, dtype) == {"whole": "fused",
                                           "streamed": "streamed",
+                                          "f32": "f32",
                                           "tiled": "split"}[want]
 
 
@@ -159,7 +160,8 @@ def test_three_way_route_grid_forward_and_backward_agree():
     """Over dtype x S x Sk x D: the backward route is the forward's pair,
     bf16 above 128 at a head dim the kernels take is streamed, and every
     route occurs."""
-    pairs = {"whole": "fused", "streamed": "streamed", "tiled": "split"}
+    pairs = {"whole": "fused", "streamed": "streamed", "f32": "f32",
+             "tiled": "split"}
     seen = set()
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for S in (1, 64, 128, 129, 200, 256, 512):
@@ -178,7 +180,7 @@ def test_three_way_route_grid_forward_and_backward_agree():
 
 @pytest.mark.parametrize("S,Sk,dtype,want", [
     (256, 256, torch.bfloat16, "streamed"), (100, 77, torch.bfloat16, "whole"),
-    (256, 256, torch.float32, "tiled")])
+    (256, 256, torch.float32, "f32")])
 def test_cuda_forward_dispatches_to_the_streamed_wrapper(monkeypatch, S, Sk,
                                                          dtype, want):
     """flash_attention_cuda hands its arguments to the wrapper fwd_route
@@ -186,6 +188,7 @@ def test_cuda_forward_dispatches_to_the_streamed_wrapper(monkeypatch, S, Sk,
     called = []
     for route, name in (("whole", "flash_attention_fwd_whole_cuda"),
                         ("streamed", "flash_attention_fwd_streamed_cuda"),
+                        ("f32", "flash_attention_fwd_f32_cuda"),
                         ("tiled", "flash_attention_fwd_tiled_cuda")):
         monkeypatch.setattr(tfa, name,
                             lambda *a, route=route: called.append(route))
@@ -197,7 +200,7 @@ def test_cuda_forward_dispatches_to_the_streamed_wrapper(monkeypatch, S, Sk,
 
 @pytest.mark.parametrize("S,Sk,dtype,want", [
     (256, 256, torch.bfloat16, "streamed"), (100, 77, torch.bfloat16, "fused"),
-    (256, 256, torch.float32, "split")])
+    (256, 256, torch.float32, "f32")])
 def test_cuda_backward_dispatches_to_the_streamed_wrapper(monkeypatch, S, Sk,
                                                           dtype, want):
     """flash_attention_bwd_cuda hands its arguments to the wrapper
@@ -205,6 +208,7 @@ def test_cuda_backward_dispatches_to_the_streamed_wrapper(monkeypatch, S, Sk,
     called = []
     for route, name in (("fused", "flash_attention_bwd_fused_cuda"),
                         ("streamed", "flash_attention_bwd_streamed_cuda"),
+                        ("f32", "flash_attention_bwd_f32_cuda"),
                         ("split", "flash_attention_bwd_split_cuda")):
         monkeypatch.setattr(tfa, name,
                             lambda *a, route=route: called.append(route))
@@ -284,10 +288,10 @@ def test_chip_smoke_kernels_match_the_executors_counts():
     """chip_smoke's KERNELS are the counts the executor's graph accounting
     reads, one device name each, no name a substring of another (a trace
     counts by substring); every launch tuple has an entry for each, the
-    streamed ones last."""
+    streamed ones seventh to ninth (the f32 ones follow)."""
     assert set(chip_smoke.KERNELS) == set(executor._launch_counts())
-    assert len(chip_smoke.KERNELS) == len(executor._launch_counts()) == 9
-    assert chip_smoke.KERNELS[-3:] == (
+    assert len(chip_smoke.KERNELS) == len(executor._launch_counts()) == 11
+    assert chip_smoke.KERNELS[6:9] == (
         "flash_attention_fwd_streamed", "flash_attention_bwd_dq_streamed",
         "flash_attention_bwd_dkdv_streamed")
     names = chip_smoke.DEVICE_KERNELS
@@ -297,8 +301,9 @@ def test_chip_smoke_kernels_match_the_executors_counts():
     for want in (chip_smoke.LANE_STEP_WANT, chip_smoke.TRAIN_STEP_WANT,
                  chip_smoke.WMT_STEP_WANT, chip_smoke.WMT_LANE_WANT,
                  chip_smoke.WMT_DECODE_WANT):
-        assert len(want) == 9 and want[-3:] == (0, 0, 0)
-    assert chip_smoke.LANE512_STEP_WANT == (0, 0, 0, 0, 0, 0, 24, 12, 12)
+        assert len(want) == 11 and want[6:9] == (0, 0, 0)
+    assert chip_smoke.LANE512_STEP_WANT == (0, 0, 0, 0, 0, 0, 24, 12, 12, 0,
+                                            0)
 
 
 def test_chip_smoke_lane512_gate_follows_from_the_program():

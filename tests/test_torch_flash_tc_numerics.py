@@ -6,8 +6,9 @@ lo = tf32(x - hi), and a product is lo·hi + hi·lo + hi·hi, each term on
 the tensor cores with f32 sums. Here a torch emulation of that rounding
 (cvt.rna.tf32.f32: round to nearest, ties away from zero, on the low 13
 mantissa bits) shows, at the BERT-base shapes and from a numpy seed, why:
-the three-term products QKᵀ, PV and dQ = dS·K stay within chip_smoke.py's
-F32_TOL of the f32 products, and one-term TF32 QKᵀ and dS·K do not.
+the three-term products QKᵀ, PV, dQ = dS·K, dV = P′ᵀ·dO and dK = dSᵀ·Q
+stay within chip_smoke.py's F32_TOL of the f32 products, and one-term TF32
+QKᵀ, dS·K, P′ᵀ·dO and dSᵀ·Q do not.
 
 Also held here, since no CUDA compiler runs on the CPU: each kernel
 source's ``extern "C"`` prototypes against the ctypes signatures the
@@ -183,6 +184,70 @@ def test_three_term_dq_chain_matches_the_plain_version(bert_train_operands,
         dp = dp * keep.to(dp.dtype) * (1.0 / (1.0 - rate))
     ds = p * (dp - delta.reshape(TRAIN_B, H, S, 1)) * D ** -0.5
     assert _close(split_tf32_matmul(ds, k), want)
+
+
+def _dkdv_chain(operands, rate):
+    """(P′, dS, the plain f32 dK and dV) of the plain backward at dropout
+    ``rate``, the forward's lse and O from the plain forward."""
+    q, k, v, do, bias = operands
+    o, lse = tfa.flash_attention_reference(q, k, v, D ** -0.5, False, rate,
+                                           DQ_SEED, bias)
+    delta = tfa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, D ** -0.5, False, rate, DQ_SEED, bias)
+    p_eff, ds = tfa._bwd_probs(*args)
+    dk, dv = tfa.flash_attention_bwd_kv_reference(*args)
+    return p_eff, ds, dk, dv
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_three_term_dv_dk_within_f32_tol_and_one_term_not(
+        bert_train_operands, rate):
+    """dV = P′ᵀ·dO and dK = dSᵀ·Q as the f32 dK/dV kernel's last two
+    products compute them, at the training shape, with dropout 0 and 0.1:
+    split TF32 within F32_TOL of the plain f32 products, one TF32 product
+    not."""
+    q, _, _, do, _ = bert_train_operands
+    p_eff, ds, dk, dv = _dkdv_chain(bert_train_operands, rate)
+    for name, a, b, want in (("dV", p_eff.transpose(-1, -2), do, dv),
+                             ("dK", ds.transpose(-1, -2), q, dk)):
+        three = split_tf32_matmul(a, b)
+        assert _close(three, want), name
+        one_term = tf32(a) @ tf32(b)
+        assert not _close(one_term, want), name
+        err1 = (one_term - want).abs().max().item()
+        err3 = (three - want).abs().max().item()
+        assert err1 > 50 * err3, name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_three_term_dkdv_chain_matches_the_plain_version(bert_train_operands,
+                                                         rate):
+    """The whole f32 dK/dV kernel with every product in split TF32: Sᵀ =
+    K·Qᵀ and dPᵀ = V·dOᵀ recomputed key-major, P′ᵀ and dSᵀ with dropout as
+    a multiply by 1/(1 - rate), then dV = P′ᵀ·dO and dK = dSᵀ·Q; within
+    F32_TOL of the plain f32 dK and dV, as chip_smoke.py holds the
+    kernel."""
+    q, k, v, do, bias = bert_train_operands
+    o, lse = tfa.flash_attention_reference(q, k, v, D ** -0.5, False, rate,
+                                           DQ_SEED, bias)
+    delta = tfa.bwd_delta(o, do)
+    _, _, want_dk, want_dv = _dkdv_chain(bert_train_operands, rate)
+    st = split_tf32_matmul(k, q.transpose(-1, -2)) * D ** -0.5 \
+        + torch.clamp(bias, min=tfa.NEG_INF)[:, None, :, None]
+    pt = torch.exp(st - lse.reshape(TRAIN_B, H, 1, S))
+    dpt = split_tf32_matmul(v, do.transpose(-1, -2))
+    pe = pt
+    if rate:
+        keep = tfa.keep_mask(DQ_SEED,
+                             torch.arange(TRAIN_B * H).reshape(TRAIN_B, H, 1,
+                                                               1),
+                             torch.arange(S)[None, :],
+                             torch.arange(S)[:, None], rate).to(pt.dtype)
+        pe = pt * keep * (1.0 / (1.0 - rate))
+        dpt = dpt * keep * (1.0 / (1.0 - rate))
+    dst = pt * (dpt - delta.reshape(TRAIN_B, H, 1, S)) * D ** -0.5
+    assert _close(split_tf32_matmul(pe, do), want_dv)
+    assert _close(split_tf32_matmul(dst, q), want_dk)
 
 
 # --------------------------------------------------------------------------

@@ -608,8 +608,9 @@ def test_transformer_flops_count():
 def test_chip_smoke_transformer_gates(which):
     """The launch tuples chip_smoke.py holds the card's transformer runs to
     follow from the programs (at any width): the bf16 step at 6 + 6 layers
-    with dropout 0.3 on the fused route, a decode run on the tiled
-    forward, the bench lane's 2 + 2 layers at dropout 0."""
+    with dropout 0.3 on the fused route, a decode run on the f32 forward
+    (f32 at D = 64: the f32 route), the bench lane's 2 + 2 layers at
+    dropout 0."""
     sys.path.insert(0, ROOT)
     import chip_smoke
     big = dict(enc_layers=6, dec_layers=6, dropout=0.3)
@@ -629,5 +630,7 @@ def test_chip_smoke_transformer_gates(which):
                 max_out_len=6)[0]
         n = sum(op.type == "fused_attention_qkv"
                 for op in main.global_block().ops)
-        assert (n,) + (0,) * (len(chip_smoke.KERNELS) - 1) == \
+        assert chip_smoke._attention_route(main) == "f32"
+        assert tuple(n if k == "flash_attention_fwd_f32" else 0
+                     for k in chip_smoke.KERNELS) == \
             chip_smoke.WMT_DECODE_WANT
