@@ -18,10 +18,12 @@ Phases, each fatal on failure:
               up to 128: delta, dQ, dK and dV in one launch), the
               streamed pair (bf16 above 128: the dQ kernel with delta
               inside, then the dK/dV kernel; each case twice and bitwise
-              alike), the f32 route (the f32 dK/dV kernel on split-TF32
-              wgmma, then the split route's dQ kernel; each case twice
-              and bitwise alike) or the split dK/dV and dQ kernels (f32
-              at head dims 65 to 128); and the
+              alike), the f32 route (the f32 dQ kernel on split-TF32
+              wgmma, which takes delta itself and writes it, then the f32
+              dK/dV kernel on that delta; each case twice and bitwise
+              alike, the dQ kernel's dQ and delta also alone against its
+              plain version, twice and bitwise alike) or the split dK/dV
+              and dQ kernels (f32 at head dims 65 to 128); and the
               dropout kernel (mask and output); over BERT-base shapes in
               f32 and bf16 with a key-padding bias, ragged S/Sk (200 x 77,
               and 100 x 77 in bf16), causal, a dead row, dropout 0.1 (the
@@ -54,8 +56,10 @@ Phases, each fatal on failure:
               0.1) and the lane's, a whole-block or f32 time beside the
               tiled kernel's on the same inputs; the f32 dK/dV kernel
               (beside the split dK/dV kernel on the same inputs) and the
-              dQ kernel at batch 8 and 32 in f32 (also with dropout
-              0.1), the fused kernel at batch 32 in bf16 with the bias and
+              f32 dQ kernel (beside bwd_delta with the split dQ kernel on
+              the same inputs; slower than them at batch 32 fails) at
+              batch 8 and 32 in f32 (also with dropout 0.1), the fused
+              kernel at batch 32 in bf16 with the bias and
               at the lane's shape, beside the split route's whole
               backward on the same inputs; each beside its bound (the
               whole backward's: q, k, v, O, dO and lse read, dQ, dK and
@@ -75,9 +79,10 @@ Phases, each fatal on failure:
               instance, raise and launch nothing. Every launch gate below
               counts (tiled forward, dK/dV, dQ, fused backward, dropout,
               whole forward, streamed forward, streamed dQ, streamed
-              dK/dV, f32 forward, f32 dK/dV) kernels; a tuple written
-              below with six entries has the three streamed and the two
-              f32 zeros after them, one with nine the two f32 zeros.
+              dK/dV, f32 forward, f32 dK/dV, f32 dQ) kernels; a tuple
+              written below with six entries has the three streamed and
+              the three f32 zeros after them, one with nine the three f32
+              zeros.
   3. serve  — build the BERT-base encoder (12 layers, hidden 768, 12
               heads, ffn 3072, vocab 30522) with the port, initialise it
               on the card from a seed, and serve requests of batch 1, 8
@@ -104,9 +109,9 @@ Phases, each fatal on failure:
               steps, then 10 steps on one repeated batch. Checks: every
               step compiled, a finite loss every step, exact kernel
               launches per step (12 forward + 12 forward re-run by the
-              generic grad on the f32 forward, 12 f32 dK/dV, 12 dQ (f32:
-              the f32 route), one dropout launch per dropout op: (0, 0,
-              12, 0, 37, 0, 0, 0, 0, 24, 12); for
+              generic grad on the f32 forward, 12 f32 dK/dV, 12 f32 dQ,
+              one dropout launch per dropout op: (0, 0, 0, 0, 37, 0, 0,
+              0, 0, 24, 12, 12); for
               replays as recorded in the graph and in a
               profiler trace, which must hold device events), dropout
               masks that
@@ -155,8 +160,8 @@ Phases, each fatal on failure:
               samples/s, peak memory beside the train phase's). Checks:
               the kernels a step (wrappers, graph, trace) that the route
               of the attention's dtype, read from the program, gives
-              ((0, 0, 12, 0, 37, 0, 0, 0, 0, 24, 12): its Q, K, V stay
-              f32), a
+              ((0, 0, 0, 0, 37, 0, 0, 0, 0, 24, 12, 12): its Q, K, V
+              stay f32), a
               falling loss on a repeated batch, and 3 steps at batch 2
               compiled against interpreted bitwise, with f32 Q/K/V.
   9. guard  — the numeric fault guard: the TPU package's dynamic loss
@@ -205,7 +210,7 @@ Phases, each fatal on failure:
               and three grads. Greedy decode in f32 at dropout 0, batch
               8, 64 source tokens, 80 positions: 79 runs of one compiled
               program, each argmax written into the fed target array in
-              place, each run (0, 0, 0, 0, 0, 0, 0, 0, 0, 18, 0)
+              place, each run (0, 0, 0, 0, 0, 0, 0, 0, 0, 18, 0, 0)
               launches (the f32 forward) and one upload
               (the mutated array; the other feeds cache hits); then the
               CPU port decodes greedily from the card's weights and on its
@@ -223,7 +228,8 @@ Phases, each fatal on failure:
               dropout 0, 20 steps as one window after a warm one), its
               JSON line printed. Checks: a finite loss, the compiled path,
               a timed window of replays only, and (0, 0, 0, 0, 0, 0, 24,
-              12, 12) kernels a step (the streamed forward, dQ and dK/dV)
+              12, 12, 0, 0, 0) kernels a step (the streamed forward, dQ
+              and dK/dV)
               through the wrappers, in the graph and in a profiler trace
               of one replay. Reports step time, samples/s, MFU and peak
               memory.
@@ -274,6 +280,8 @@ GRAD_TOL = 1e-3               # other orders; grads: of each max |grad|,
                               # after 12 layers forward and back
 INTERP_WINDOW_S = 2.0         # seconds served per batch size, interpreted
 INTERP_STEPS = 8              # interpreted training steps (2 warm-up)
+TRACE_GUARD_S = 0.05          # host sleep between a traced window's edges
+                              # and the kernels it counts
 GRAPH_TOL = 1e-6              # graph replay vs interpreted on the card,
                               # relative: the same kernels in the same
                               # order, so expected bit for bit
@@ -327,40 +335,41 @@ LENET_BATCH = 64             # the conv net of models/mnist.py
 LENET_STEPS = 5
 # every launch gate below counts these kernels, in this order: (tiled
 # forward, dK/dV, dQ, fused backward, dropout, whole forward, streamed
-# forward, streamed dQ, streamed dK/dV, f32 forward, f32 dK/dV); no name
-# of DEVICE_KERNELS is a substring of another (a trace counts by
+# forward, streamed dQ, streamed dK/dV, f32 forward, f32 dK/dV, f32 dQ);
+# no name of DEVICE_KERNELS is a substring of another (a trace counts by
 # substring)
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_kv",
            "flash_attention_bwd_q", "flash_attention_bwd_fused",
            "dropout_fwd", "flash_attention_fwd_whole",
            "flash_attention_fwd_streamed", "flash_attention_bwd_dq_streamed",
            "flash_attention_bwd_dkdv_streamed", "flash_attention_fwd_f32",
-           "flash_attention_bwd_dkdv_f32")
+           "flash_attention_bwd_dkdv_f32", "flash_attention_bwd_dq_f32")
 DEVICE_KERNELS = ("flash_fwd_kernel", "flash_bwd_kv_kernel",
                   "flash_bwd_q_kernel", "flash_bwd_fused_kernel",
                   "dropout_fwd_kernel", "flash_fwd_whole_kernel",
                   "flash_fwd_streamed_kernel", "flash_bwd_dq_streamed_kernel",
                   "flash_bwd_dkdv_streamed_kernel", "flash_fwd_f32_kernel",
-                  "flash_bwd_dkdv_f32_kernel")
+                  "flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")
 GATE_NAMES = ("(tiled forward, dK/dV, dQ, fused backward, dropout, whole "
               "forward, streamed forward, streamed dQ, streamed dK/dV, f32 "
-              "forward, f32 dK/dV)")
+              "forward, f32 dK/dV, f32 dQ)")
 NO_KERNELS = (0,) * len(KERNELS)
-LANE_STEP_WANT = (0, 0, 0, 12, 0, 24, 0, 0, 0, 0, 0)  # bench's bert lane
+LANE_STEP_WANT = (0, 0, 0, 12, 0, 24, 0, 0, 0, 0, 0, 0)  # bench's bert lane
                                                       # step, plain or
                                                       # remat: bf16, the
                                                       # whole-block forward
                                                       # and the fused
                                                       # backward, no dropout
-TRAIN_STEP_WANT = (0, 0, 12, 0, 37, 0, 0, 0, 0, 24, 12)  # the f32 BERT-base
-                                                         # pretraining step
-                                                         # (train, window,
-                                                         # guard, AMP): the
-                                                         # f32 forward and
-                                                         # dK/dV, the split
-                                                         # route's dQ,
-                                                         # dropout 0.1
-LANE512_STEP_WANT = (0, 0, 0, 0, 0, 0, 24, 12, 12, 0, 0)  # the bert lane at
+TRAIN_STEP_WANT = (0, 0, 0, 0, 37, 0, 0, 0, 0, 24, 12, 12)  # the f32
+                                                             # BERT-base
+                                                             # pretraining
+                                                             # step (train,
+                                                             # window, guard,
+                                                             # AMP): the f32
+                                                             # forward, dK/dV
+                                                             # and dQ,
+                                                             # dropout 0.1
+LANE512_STEP_WANT = (0, 0, 0, 0, 0, 0, 24, 12, 12, 0, 0, 0)  # the bert lane at
                                                           # S = 512: bf16,
                                                           # the streamed
                                                           # kernels, no
@@ -510,7 +519,7 @@ def phase_build():
     sources = (fa.KERNEL_SOURCE, fa.FWD_WHOLE_SOURCE, fa.BWD_KERNEL_SOURCE,
                fa.BWD_FUSED_SOURCE, fa.FWD_STREAMED_SOURCE,
                fa.BWD_STREAMED_SOURCE, fa.FWD_F32_SOURCE,
-               fa.BWD_DKDV_F32_SOURCE, dk.KERNEL_SOURCE)
+               fa.BWD_DKDV_F32_SOURCE, fa.BWD_DQ_F32_SOURCE, dk.KERNEL_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -821,15 +830,17 @@ def phase_kernel():
         for kern, ts in timings.items()}
 
 
-def _check_bwd(name, got, want, tol):
+def _check_bwd(name, got, want, tol, names=("dQ", "dK", "dV")):
+    """Each of ``got`` against ``want`` (the grads ``names``) within
+    ``tol`` → the max |difference| of each; fails the run if one is off."""
     import torch
     errs = [(g.float() - w.float()).abs().max().item()
             for g, w in zip(got, want)]
     ok = all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
              for g, w in zip(got, want))
-    _log(f"[kernel] bwd {name}: max|d dQ| {errs[0]:.3e} max|d dK| "
-         f"{errs[1]:.3e} max|d dV| {errs[2]:.3e} tol {tol:g} -> "
-         f"{'ok' if ok else 'FAIL'}")
+    _log(f"[kernel] bwd {name}: "
+         + " ".join(f"max|d {n}| {e:.3e}" for n, e in zip(names, errs))
+         + f" tol {tol:g} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"backward kernels disagree with their plain "
                              f"version: {name}")
@@ -845,7 +856,9 @@ def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
     kernel, which reads q, k, v, dO, lse and delta once and writes its
     outputs once (the streamed dK/dV kernel alike: lse and delta come in
     one buffer); "q_streamed": the streamed dQ kernel, which reads q, k,
-    v, O, dO and lse and writes dQ, lse and delta; "qkv": the whole
+    v, O, dO and lse and writes dQ, lse and delta; "q_f32": the f32 dQ
+    kernel, which reads q, k, v, O, dO and lse and writes dQ and delta;
+    "qkv": the whole
     backward, the function SDPA's backward computes, which reads its
     inputs q, k, v, O, dO and lse once and writes dQ, dK and dV once."""
     elt = 4 if dtype == "float32" else 2
@@ -857,6 +870,7 @@ def _bwd_bound(B, H, S, Sk, D, flop_units, n_out, dtype="float32",
         "q": 2 * q_b + 2 * kv_b + 2 * rows + q_b,
         "kv": 2 * q_b + 2 * kv_b + 2 * rows + 2 * kv_b,
         "q_streamed": 3 * q_b + 2 * kv_b + rows + q_b + 2 * rows,
+        "q_f32": 3 * q_b + 2 * kv_b + rows + q_b + rows,
         "qkv": 3 * q_b + 2 * kv_b + rows + q_b + 2 * kv_b}[n_out]
     return (*bound(flop, nbytes, dtype), flop, nbytes)
 
@@ -866,8 +880,9 @@ def _bwd_yardstick(q, k, v, do, bias, sm, rate, seed, causal=False):
     timed on the device as (forward + backward) minus the forward alone,
     both captured into CUDA graphs (SDPA's dropout RNG captures too): →
     (sdpa_ms, port_ms). The port's backward is flash_attention_bwd_cuda:
-    the fused kernel, the streamed pair, or bwd_delta and the f32 or the
-    split kernels, as bwd_route picks."""
+    the fused kernel, the streamed pair, the f32 dQ (delta inside) and
+    dK/dV kernels, or bwd_delta and the split kernels, as bwd_route
+    picks."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -896,10 +911,11 @@ def phase_kernel_bwd():
     kernel's O and lse: each case runs the route bwd_route picks, the
     fused kernel (bf16, S and Sk up to 128), the streamed dQ and dK/dV
     kernels (bf16 above 128), the f32 route (f32 at head dims up to 64:
-    the f32 dK/dV kernel and the split route's dQ kernel) or the split
-    dK/dV and dQ kernels (f32 at head dims 65 to 128). The fused, streamed
-    and f32 routes run every case twice and must give bitwise equal
-    results. Then, at the served shape (B=8, H=12, S=128, D=64, f32,
+    the f32 dQ kernel, which writes delta, then the f32 dK/dV kernel; the
+    dQ kernel's dQ and delta also alone against the plain version) or the
+    split dK/dV and dQ kernels (f32 at head dims 65 to 128). The fused,
+    streamed and f32 routes run every case twice and must give bitwise
+    equal results. Then, at the served shape (B=8, H=12, S=128, D=64, f32,
     bias), the training shape (B=32) in f32 without and with dropout 0.1
     and in bf16, at the bench lane's (batch 256, bf16, no bias),
     transformer_big's step, B3's (S = 256) and the S = 512 lane's, each
@@ -907,9 +923,10 @@ def phase_kernel_bwd():
     and the graph-timed whole backward of SDPA and of the port; in bf16
     also the split route's whole backward (bwd_delta, dK/dV, dQ) on the
     same inputs (the old route beside the streamed pair, held to the plain
-    version and beaten by it); in f32 the split route's dK/dV kernel on
-    the same inputs (the old route beside the f32 one, held to the plain
-    version, and at batch 32 beaten by it), and bwd_delta alone."""
+    version and beaten by it); in f32 the split route's dK/dV kernel, and
+    bwd_delta with its dQ kernel, on the same inputs (the old route beside
+    the f32 kernels, held to the plain version, and at batch 32 beaten by
+    them), and bwd_delta alone."""
     import torch
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -932,13 +949,26 @@ def phase_kernel_bwd():
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"the {route} backward's rerun "
                                      f"differs: {name}")
+        if route == "f32":
+            # the f32 dQ kernel alone: its dQ and the delta it writes (what
+            # the f32 dK/dV kernel reads), against the plain version, and
+            # its rerun bitwise
+            dq1 = fa.flash_attention_bwd_dq_f32_cuda(*args)
+            dq2 = fa.flash_attention_bwd_dq_f32_cuda(*args)
+            e_q = max(e_q, *_check_bwd(
+                f"{name} (the f32 dQ kernel alone)", dq1,
+                fa.flash_attention_bwd_dq_f32_reference(*args), tol,
+                ("dQ", "delta")))
+            if not all(torch.equal(a, b) for a, b in zip(dq1, dq2)):
+                raise AssertionError(f"the f32 dQ kernel's rerun differs: "
+                                     f"{name}")
         if route == "fused":
             found = (("flash_attention_bwd_fused", max(e_q, e_k, e_v)),)
         elif route == "streamed":
             found = (("flash_attention_bwd_dq_streamed", e_q),
                      ("flash_attention_bwd_dkdv_streamed", max(e_k, e_v)))
         elif route == "f32":
-            found = (("flash_attention_bwd_q", e_q),
+            found = (("flash_attention_bwd_dq_f32", e_q),
                      ("flash_attention_bwd_dkdv_f32", max(e_k, e_v)))
         else:
             found = (("flash_attention_bwd_q", e_q),
@@ -1043,6 +1073,7 @@ def phase_kernel_bwd():
     for kern, dt in (("flash_attention_bwd_q", f32),
                      ("flash_attention_bwd_kv", f32),
                      ("flash_attention_bwd_dkdv_f32", f32),
+                     ("flash_attention_bwd_dq_f32", f32),
                      ("flash_attention_bwd_fused", bf16),
                      ("flash_attention_bwd_dq_streamed", bf16),
                      ("flash_attention_bwd_dkdv_streamed", bf16)):
@@ -1184,37 +1215,45 @@ def phase_kernel_bwd():
                      f"streamed/split {pair_ms / split_ms:.3f}")
             del delta, stats
         else:
-            # the f32 route: bwd_delta, the f32 dK/dV kernel, the dQ
-            # kernel; the old route's dK/dV kernel (the split route's)
-            # timed beside it on the same inputs and held to the plain
-            # version
-            kv_old = "flash_attention_bwd_kv"
+            # the f32 route: the f32 dQ kernel (delta inside), then the f32
+            # dK/dV kernel; the old route's kernels (the split route's:
+            # bwd_delta with its dQ kernel, its dK/dV kernel) timed beside
+            # them on the same inputs and held to the plain version
+            kv_old, q_old = "flash_attention_bwd_kv", "flash_attention_bwd_q"
             delta = fa.bwd_delta(o, do)
-            args = (q, k, v, do, lse, delta, sm, causal, rate, seed, bias)
-            bwd_args = (q, k, v, o, lse, do, sm, causal, rate, seed, bias)
+            tail = (sm, causal, rate, seed, bias)
+            args = (q, k, v, do, lse, delta, *tail)
+            bwd_args = (q, k, v, o, lse, do, *tail)
             delta_ms = _cuda_ms(lambda: fa.bwd_delta(o, do))
+            old_dq_ms = _cuda_ms(lambda: fa.flash_attention_bwd_q_cuda(
+                q, k, v, do, lse, fa.bwd_delta(o, do), *tail))
             split_ms = _cuda_ms(lambda: fa.flash_attention_bwd_split_cuda(
                 *bwd_args))
             old = _check_bwd(f"old route (split) {what}",
                              fa.flash_attention_bwd_split_cuda(*bwd_args),
                              fa.flash_attention_bwd_reference(*bwd_args),
                              F32_TOL)
-            errs[(kv_old, "old route f32")] = max(
-                errs.get((kv_old, "old route f32"), 0.0), max(old[1:]))
+            for kern, e in ((q_old, old[0]), (kv_old, max(old[1:]))):
+                errs[(kern, "old route f32")] = max(
+                    errs.get((kern, "old route f32"), 0.0), e)
             kern_ms, times = 0.0, {}
-            for name, cuda_fn, plain_fn, units, outs in (
+            for name, cuda_fn, plain_fn, units, outs, kargs in (
+                    ("flash_attention_bwd_dq_f32",
+                     fa.flash_attention_bwd_dq_f32_cuda,
+                     fa.flash_attention_bwd_dq_f32_reference, 6, "q_f32",
+                     bwd_args),
                     ("flash_attention_bwd_dkdv_f32",
                      fa.flash_attention_bwd_dkdv_f32_cuda,
-                     fa.flash_attention_bwd_kv_reference, 8, "kv"),
-                    *split):
-                ms = _cuda_ms(lambda: cuda_fn(*args))
-                eager_ms = _cuda_ms(lambda: cuda_fn(*args), graph=False)
-                plain = _cuda_ms(lambda: plain_fn(*args), graph=not rate,
+                     fa.flash_attention_bwd_kv_reference, 8, "kv", args),
+                    *((n, c, p, u, out, args) for n, c, p, u, out in split)):
+                ms = _cuda_ms(lambda: cuda_fn(*kargs))
+                eager_ms = _cuda_ms(lambda: cuda_fn(*kargs), graph=False)
+                plain = _cuda_ms(lambda: plain_fn(*kargs), graph=not rate,
                                  iters=plain_iters)
                 kbnd, kby, kflop, kbytes = _bwd_bound(
                     bs, hh, n, n, D, units, outs, name_dt, with_bias, causal)
                 _log(f"[kernel] time {name} {what}"
-                     + (" (old route)" if name == kv_old else "") +
+                     + (" (old route)" if name in (kv_old, q_old) else "") +
                      f": kernel {ms:.4f} ms (issued one by one from Python "
                      f"{eager_ms:.4f} ms), plain {plain:.4f} ms, SDPA "
                      f"backward (dQ, dK, dV together, graph-timed) "
@@ -1222,33 +1261,46 @@ def phase_kernel_bwd():
                      f"FLOP, {kbytes} B), {kbnd / ms:.1%} of it")
                 _check_bound(f"{name} {what}", ms, kbnd)
                 times[name] = ms
-                if name != kv_old:
+                if name not in (kv_old, q_old):
                     kern_ms += ms
                 row = dict(shape=what, ms=ms, eager_ms=eager_ms,
                            plain_ms=plain, library_ms=lib_ms, bound_ms=kbnd,
                            bound_by=kby, max_abs_err=errs[
-                               (name, "old route f32" if name == kv_old
-                                else dt)])
+                               (name, "old route f32"
+                                if name in (kv_old, q_old) else dt)])
                 timings.setdefault(name, []).append(row)
                 if rate and bs == B:  # the f32 train step's row heads it
                     rows[name] = row
-            new_ms, old_ms = times["flash_attention_bwd_dkdv_f32"], \
-                times[kv_old]
+            dkdv_ms, dq_ms = times["flash_attention_bwd_dkdv_f32"], \
+                times["flash_attention_bwd_dq_f32"]
             timings["flash_attention_bwd_dkdv_f32"][-1].update(
-                old_route_ms=old_ms, split_route_ms=split_ms)
-            if bs == B and new_ms >= old_ms:
+                old_route_ms=times[kv_old], split_route_ms=split_ms)
+            timings["flash_attention_bwd_dq_f32"][-1].update(
+                old_route_ms=old_dq_ms, delta_ms=delta_ms,
+                split_route_ms=split_ms)
+            _log(f"[kernel] time flash_attention_bwd_dq_f32 {what}: the f32 "
+                 f"dQ kernel (delta inside) {dq_ms:.4f} ms; the old route on "
+                 f"the same inputs, bwd_delta + the split route's dQ kernel "
+                 f"(graph-timed together) {old_dq_ms:.4f} ms (bwd_delta "
+                 f"alone {delta_ms:.4f} ms, the dQ kernel alone "
+                 f"{times[q_old]:.4f} ms), f32/old {dq_ms / old_dq_ms:.3f}")
+            if bs == B and dkdv_ms >= times[kv_old]:
                 raise AssertionError(f"the f32 dK/dV kernel at {what} takes "
-                                     f"{new_ms:.4f} ms, the old route "
-                                     f"{old_ms:.4f}")
+                                     f"{dkdv_ms:.4f} ms, the old route "
+                                     f"{times[kv_old]:.4f}")
+            if bs == B and dq_ms >= old_dq_ms:
+                raise AssertionError(f"the f32 dQ kernel at {what} takes "
+                                     f"{dq_ms:.4f} ms, the old route "
+                                     f"(bwd_delta + dQ) {old_dq_ms:.4f}")
             alone = (f"the f32 route's two kernels alone {kern_ms:.4f} ms "
-                     f"(the f32 dK/dV kernel and the dQ kernel: they "
-                     f"execute 14·B·H·S·Sk·D FLOP, recomputing QK^T and "
-                     f"dO·V^T in each); the old route's dK/dV kernel on the "
-                     f"same inputs {old_ms:.4f} ms, f32/old "
-                     f"{new_ms / old_ms:.3f}; the split route's whole "
-                     f"backward (bwd_delta, dK/dV, dQ; graph-timed) "
-                     f"{split_ms:.4f} ms; bwd_delta alone {delta_ms:.4f} ms")
-            del delta, args
+                     f"(the f32 dQ kernel with delta, then the f32 dK/dV "
+                     f"kernel: they execute 14·B·H·S·Sk·D FLOP, recomputing "
+                     f"QK^T and dO·V^T in each); the old route's dK/dV "
+                     f"kernel on the same inputs {times[kv_old]:.4f} ms, "
+                     f"f32/old {dkdv_ms / times[kv_old]:.3f}; the split "
+                     f"route's whole backward (bwd_delta, dK/dV, dQ; "
+                     f"graph-timed) {split_ms:.4f} ms")
+            del delta, args, bwd_args
         _log(f"[kernel] time whole backward {what}, graph-timed as (forward "
              f"+ backward) - forward: the port ({route} route) "
              f"{port_ms:.4f} ms, SDPA {lib_ms:.4f} ms; {alone}; bound "
@@ -1329,13 +1381,13 @@ def phase_attention_routes():
     seed = rng.attention_seed(key)
     for hidden, heads, dt, rate, bias_kind, want_route, want in (
             (768, 8, torch.float32, 0.0, "key-padding", "flash",
-             (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+             (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.0, "key-padding", "flash",
-             (0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0)),
+             (0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0)),
             (768, 8, torch.float32, 0.1, "key-padding", "flash",
-             (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0)),
+             (1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
             (768, 8, torch.bfloat16, 0.1, "key-padding", "flash",
-             (0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0)),
+             (0, 0, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0)),
             (768, 12, torch.float32, 0.1, "[1,1,1,Sk]", "einsum",
              NO_KERNELS)):
         q, k, v, do = (torch.randn(2, S, hidden, generator=gen,
@@ -1510,25 +1562,34 @@ def _gate_run(exe, delta, want, what):
     return cb.last_exec
 
 
-def _device_kernel_counts(fn):
-    """The GATE_NAMES kernels the card ran during ``fn()``, counted by
+def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None):
+    """The kernels of ``names`` the card ran during ``fn()``, counted by
     name in a torch.profiler trace. A trace that holds no device event at
     all fails: the gate would rest on the launches recorded at capture
     alone. The trace has a warm-up cycle first, which runs one small
     kernel while tracing starts up: a trace that begins with ``fn()`` can
     lose the first kernels ``fn()`` launches (seen on the card: a training
-    step's first seven). ``fn()`` runs once, in the one recorded cycle."""
+    step's first seven). The profiler keeps only device events inside its
+    recorded window, which it stamps on the host's clock, and the card's
+    timestamps, moved to that clock, can sit a little off it: ``fn()``
+    starts ``guard_s`` (TRACE_GUARD_S) after the window opens, and the
+    window closes ``guard_s`` after ``fn()``'s last kernel has finished
+    (tools/trace_window_check.py measures both ways). ``fn()`` runs once,
+    in the one recorded cycle."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+    guard_s = TRACE_GUARD_S if guard_s is None else guard_s
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(guard_s)
         fn()
         torch.cuda.synchronize()
+        time.sleep(guard_s)
         prof.step()
     evts = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -1536,7 +1597,7 @@ def _device_kernel_counts(fn):
         raise AssertionError("the profiler recorded no device event on the "
                              "card: the replay's kernels cannot be counted")
     return tuple(sum(e.count for e in evts if name in e.key)
-                 for name in DEVICE_KERNELS)
+                 for name in names)
 
 
 def _check_trace(counts, want, what):
@@ -1796,7 +1857,7 @@ def _launch_counts():
             fa.fwd_whole_launch_count, fa.fwd_streamed_launch_count,
             fa.bwd_dq_streamed_launch_count,
             fa.bwd_dkdv_streamed_launch_count, fa.fwd_f32_launch_count,
-            fa.bwd_dkdv_f32_launch_count)
+            fa.bwd_dkdv_f32_launch_count, fa.bwd_dq_f32_launch_count)
 
 
 def _reset_launch_counts():
@@ -1807,6 +1868,7 @@ def _reset_launch_counts():
     fa.fwd_whole_launch_count = fa.fwd_streamed_launch_count = 0
     fa.bwd_dq_streamed_launch_count = fa.bwd_dkdv_streamed_launch_count = 0
     fa.fwd_f32_launch_count = fa.bwd_dkdv_f32_launch_count = 0
+    fa.bwd_dq_f32_launch_count = 0
 
 
 def _attention_route(main):
@@ -1839,7 +1901,7 @@ def _step_want(ops, route, forwards=None):
     generic grad; ``forwards`` overrides the count), whose backward
     launches the dK/dV and the dQ kernel once each on the split route, the
     fused kernel once, the streamed dQ and dK/dV kernels once each, or the
-    f32 dK/dV kernel and the dQ kernel once each on the f32 route; each
+    f32 dQ and dK/dV kernels once each on the f32 route; each
     dropout op launches the dropout kernel once (its grad is a mask
     product: no re-draw). The forward is the tiled kernel on the split
     route, the whole-block one on the fused route, the streamed one on the
@@ -1848,10 +1910,10 @@ def _step_want(ops, route, forwards=None):
     L = sum(op.type == "fused_attention_qkv" for op in ops)
     fwd = 2 * L if forwards is None else forwards
     drop = _dropout_ops(ops)
-    return {"split": (fwd, L, L, 0, drop, 0, 0, 0, 0, 0, 0),
-            "fused": (0, 0, 0, L, drop, fwd, 0, 0, 0, 0, 0),
-            "streamed": (0, 0, 0, 0, drop, 0, fwd, L, L, 0, 0),
-            "f32": (0, 0, L, 0, drop, 0, 0, 0, 0, fwd, L)}[route]
+    return {"split": (fwd, L, L, 0, drop, 0, 0, 0, 0, 0, 0, 0),
+            "fused": (0, 0, 0, L, drop, fwd, 0, 0, 0, 0, 0, 0),
+            "streamed": (0, 0, 0, 0, drop, 0, fwd, L, L, 0, 0, 0),
+            "f32": (0, 0, 0, 0, drop, 0, 0, 0, 0, fwd, L, L)}[route]
 
 
 def _dropout_ops(ops):
@@ -3349,11 +3411,11 @@ def phase_resnet(profile=False):
 # transformer_big's bf16 step: 18 attention ops (6 encoder, 6 + 6
 # decoder) on the fused route, each forward run twice (the generic grad
 # re-runs it), 42 dropout ops
-WMT_STEP_WANT = (0, 0, 0, 18, 42, 36, 0, 0, 0, 0, 0)
+WMT_STEP_WANT = (0, 0, 0, 18, 42, 36, 0, 0, 0, 0, 0, 0)
 # a decode run: the 18 forwards, f32 (the f32 forward)
-WMT_DECODE_WANT = (0, 0, 0, 0, 0, 0, 0, 0, 0, 18, 0)
+WMT_DECODE_WANT = (0, 0, 0, 0, 0, 0, 0, 0, 0, 18, 0, 0)
 # bench's transformer lane, 2 + 2 layers
-WMT_LANE_WANT = (0, 0, 0, 6, 0, 12, 0, 0, 0, 0, 0)
+WMT_LANE_WANT = (0, 0, 0, 6, 0, 12, 0, 0, 0, 0, 0, 0)
 WMT_WARMUP = 3                # steps before the timed ones
 WMT_STEPS = 20                # bf16 steps timed
 WMT_FALL_STEPS = 8            # steps on one repeated batch
@@ -3823,9 +3885,9 @@ def main(argv=None) -> int:
     # and as the profiler counted); wrapper_calls_by_path: the wrappers'
     # own counts, which a replay does not move. The heading numbers of
     # the whole-block forward and the fused backward are at the bench
-    # lane's shape (bf16, batch 256, no bias), those of the f32 forward and
-    # dK/dV kernels, of the tiled forward and the split dK/dV kernel (the
-    # old route, timed on the same inputs) and of the dQ kernel at the f32
+    # lane's shape (bf16, batch 256, no bias), those of the f32 forward,
+    # dK/dV and dQ kernels, of the tiled forward and the split dK/dV and dQ
+    # kernels (the old route, timed on the same inputs) at the f32
     # training step's (batch 32, bias, dropout 0.1), those of the streamed
     # kernels at the S = 512 lane's (bf16, batch 64, no bias); "timings"
     # holds every shape timed.
@@ -3862,7 +3924,11 @@ def main(argv=None) -> int:
                 replaces + "298", fwd_rows["flash_attention_fwd_f32"]),
                ("flash_attention_bwd_dkdv_f32",
                 "flash_attention_bwd_dkdv_f32.cu", replaces + "514",
-                bwd_rows["flash_attention_bwd_dkdv_f32"])]
+                bwd_rows["flash_attention_bwd_dkdv_f32"]),
+               # _bwd_q_kernel's pallas_call and the delta prologue (:492)
+               ("flash_attention_bwd_dq_f32",
+                "flash_attention_bwd_dq_f32.cu", replaces + "543",
+                bwd_rows["flash_attention_bwd_dq_f32"])]
     if tuple(e[0] for e in entries) != KERNELS:
         raise AssertionError("the kernels line's entries are not KERNELS")
     kernels = []
@@ -3876,7 +3942,7 @@ def main(argv=None) -> int:
             **{k: r[k] for k in keys},
             **{k: r[k] for k in ("max_abs_err_by_dtype", "timings",
                                  "tiled_ms", "pair_ms", "split_route_ms",
-                                 "old_route_ms")
+                                 "old_route_ms", "delta_ms")
                if k in r}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,15 +20,18 @@ of shared memory: the streamed forward ``csrc/flash_attention_fwd_streamed.cu``
 (an online softmax across 128-key tiles), and the streamed backward
 ``csrc/flash_attention_bwd_streamed.cu``, a dQ kernel that takes delta
 itself, then a dK/dV kernel. In f32 at head dims up to 64 (every f32
-path), two kernels on split-TF32 wgmma and TMA take the place of the
-tiled forward and of the split route's dK/dV kernel: the forward
-``csrc/flash_attention_fwd_f32.cu`` and the dK/dV kernel
-``csrc/flash_attention_bwd_dkdv_f32.cu``, between ``bwd_delta`` and the
-split route's dQ kernel. ``fwd_route`` picks by shape and dtype alone,
-"whole", "streamed", "f32" or "tiled" (f32 at head dims 65 to 128: the
-tiled forward), and ``bwd_route`` maps its answer ("fused", "streamed",
-"f32", "split"). The tiled forward and the split backward stay callable
-as the old route (``flash_attention_fwd_tiled_cuda``,
+path), three kernels on split-TF32 wgmma and TMA take the place of the
+tiled forward and of the split route's two kernels: the forward
+``csrc/flash_attention_fwd_f32.cu``, the dQ kernel
+``csrc/flash_attention_bwd_dq_f32.cu``, which takes delta itself (the
+delta prologue, :492) and writes it, and the dK/dV kernel
+``csrc/flash_attention_bwd_dkdv_f32.cu``, which reads that delta.
+``fwd_route`` picks by shape and dtype alone, "whole", "streamed", "f32"
+or "tiled" (f32 at head dims 65 to 128: the tiled forward), and
+``bwd_route`` maps its answer ("fused", "streamed", "f32", "split"). The
+tiled forward and the split backward (``bwd_delta``, then the dK/dV and
+dQ kernels of ``csrc/flash_attention_bwd.cu``) stay callable as the old
+route (``flash_attention_fwd_tiled_cuda``,
 ``flash_attention_bwd_split_cuda``).
 Every source is built at first use by ``build.py``; each source's header
 says what bounds it and how it is laid out. All share the counter-hash
@@ -61,7 +64,8 @@ none.
 ``bwd_kv_launch_count``, ``bwd_q_launch_count``,
 ``bwd_fused_launch_count``, ``fwd_streamed_launch_count``,
 ``bwd_dq_streamed_launch_count``, ``bwd_dkdv_streamed_launch_count``,
-``fwd_f32_launch_count`` and ``bwd_dkdv_f32_launch_count`` count each
+``fwd_f32_launch_count``, ``bwd_dkdv_f32_launch_count`` and
+``bwd_dq_f32_launch_count`` count each
 kernel's launches: a wrapper adds one where it launches its
 kernel and nowhere else.
 """
@@ -85,10 +89,11 @@ FWD_STREAMED_SOURCE = "flash_attention_fwd_streamed.cu"
 BWD_STREAMED_SOURCE = "flash_attention_bwd_streamed.cu"
 FWD_F32_SOURCE = "flash_attention_fwd_f32.cu"
 BWD_DKDV_F32_SOURCE = "flash_attention_bwd_dkdv_f32.cu"
+BWD_DQ_F32_SOURCE = "flash_attention_bwd_dq_f32.cu"
 # the whole-block kernels (the forward and the fused backward) hold a
 # (batch, head)'s query rows and keys in one block
 WHOLE_MAX_LEN = 128
-# the f32 kernels on wgmma (the forward and dK/dV) have instances up to
+# the f32 kernels on wgmma (the forward, dQ and dK/dV) have instances up to
 # this head dim; f32 above it runs the tiled forward and the split route
 F32_MAX_HEAD_DIM = 64
 # the shared memory a block may ask for on an H100 (227 KB)
@@ -104,6 +109,7 @@ bwd_dq_streamed_launch_count = 0
 bwd_dkdv_streamed_launch_count = 0
 fwd_f32_launch_count = 0
 bwd_dkdv_f32_launch_count = 0
+bwd_dq_f32_launch_count = 0
 
 
 def launch_counts():
@@ -120,7 +126,8 @@ def launch_counts():
             "flash_attention_bwd_dkdv_streamed":
                 bwd_dkdv_streamed_launch_count,
             "flash_attention_fwd_f32": fwd_f32_launch_count,
-            "flash_attention_bwd_dkdv_f32": bwd_dkdv_f32_launch_count}
+            "flash_attention_bwd_dkdv_f32": bwd_dkdv_f32_launch_count,
+            "flash_attention_bwd_dq_f32": bwd_dq_f32_launch_count}
 
 
 _M32 = 0xFFFFFFFF
@@ -287,6 +294,19 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, sm_scale,
     return dq, dk, dv
 
 
+def flash_attention_bwd_dq_f32_reference(q, k, v, o, lse, do, sm_scale,
+                                         causal=False, dropout_rate=0.0,
+                                         dropout_seed=None, bias=None):
+    """Plain version of the f32 dQ kernel, which takes delta itself:
+    delta = rowsum(dO∘O) (:492), then dQ = dS·K (:465) → (dq, delta
+    [B·H, S] f32)."""
+    delta = bwd_delta(o, do)
+    dq = flash_attention_bwd_q_reference(q, k, v, do, lse, delta, sm_scale,
+                                         causal, dropout_rate, dropout_seed,
+                                         bias)
+    return dq, delta
+
+
 # --------------------------------------------------------------------------
 # CUDA kernel wrappers
 # --------------------------------------------------------------------------
@@ -309,6 +329,8 @@ _SIGNATURES = {
     FWD_F32_SOURCE: {"paddle_flash_attention_fwd_f32": [_PTR] * 7 + _TAIL},
     BWD_DKDV_F32_SOURCE: {
         "paddle_flash_attention_bwd_dkdv_f32": [_PTR] * 10 + _TAIL},
+    BWD_DQ_F32_SOURCE: {
+        "paddle_flash_attention_bwd_dq_f32": [_PTR] * 10 + _TAIL},
 }
 _libs = {}
 
@@ -384,8 +406,8 @@ _BWD_OF_FWD = {"whole": "fused", "streamed": "streamed", "f32": "f32",
 def bwd_route(q_shape, k_shape, dtype) -> str:
     """Which backward runs on the card, the one of ``fwd_route``'s answer:
     "fused" (one kernel: delta, dQ, dK and dV), "streamed" (the dQ kernel
-    with delta inside, then the dK/dV kernel), "f32" (delta in torch
-    passes, then the wgmma dK/dV kernel and the split route's dQ kernel)
+    with delta inside, then the dK/dV kernel), "f32" (the wgmma dQ kernel
+    with delta inside, then the wgmma dK/dV kernel on the delta it wrote)
     or "split" (delta in torch passes, then the dK/dV and the dQ
     kernels)."""
     return _BWD_OF_FWD[fwd_route(q_shape, k_shape, dtype)]
@@ -406,6 +428,14 @@ def bwd_dkdv_f32_smem_bytes(dp: int) -> int:
     transposes hi and lo ([32][dp] each), three mbarriers, 1024 bytes to
     align."""
     return 6 * 64 * dp * 4 + 2 * 8 * 32 * dp * 4 + 3 * 8 + 1024
+
+
+def bwd_dq_f32_smem_bytes(dp: int) -> int:
+    """Shared memory a block of the f32 dQ kernel asks for at instance
+    ``dp``: for each of two warpgroups Q and dO hi and lo ([64][dp] f32
+    each), a ring slot of K, V and K^T hi and lo ([32][dp] each) and delta
+    of 64 rows; four mbarriers, 1024 bytes to align."""
+    return 2 * (4 * 64 * dp * 4 + 6 * 32 * dp * 4 + 64 * 4) + 4 * 8 + 1024
 
 
 def pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -745,33 +775,24 @@ def flash_attention_bwd_fused_cuda(q, k, v, o, lse, do, sm_scale,
     return dq, dk, dv
 
 
-def _bwd_after_delta(kv_fn, q, k, v, o, lse, do, sm_scale, causal,
-                     dropout_rate, dropout_seed, bias):
-    """delta, then ``kv_fn`` (a dK/dV kernel's wrapper) and the dQ kernel
-    → (dq, dk, dv). A head dim off the instances is padded once for both
-    kernels; delta is taken from the unpadded O and dO (the padded
-    columns would add zeros)."""
+def flash_attention_bwd_split_cuda(q, k, v, o, lse, do, sm_scale,
+                                   causal=False, dropout_rate=0.0,
+                                   dropout_seed=None, bias=None):
+    """The split route on the card: delta in torch passes, then the dK/dV
+    and the dQ kernels → (dq, dk, dv). A head dim off the instances is
+    padded once for both kernels; delta is taken from the unpadded O and
+    dO (the padded columns would add zeros)."""
     delta = bwd_delta(o, do)
     d, dp = q.shape[3], kernel_head_dim(q.shape[3])
     padded = dp is not None and dp != d
     if padded:
         q, k, v, do = (pad_head_dim(t, dp) for t in (q, k, v, do))
     tail = (sm_scale, causal, dropout_rate, dropout_seed, bias)
-    dk, dv = kv_fn(q, k, v, do, lse, delta, *tail)
+    dk, dv = flash_attention_bwd_kv_cuda(q, k, v, do, lse, delta, *tail)
     dq = flash_attention_bwd_q_cuda(q, k, v, do, lse, delta, *tail)
     if padded:
         return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
-
-
-def flash_attention_bwd_split_cuda(q, k, v, o, lse, do, sm_scale,
-                                   causal=False, dropout_rate=0.0,
-                                   dropout_seed=None, bias=None):
-    """The split route on the card: delta, then the dK/dV and the dQ
-    kernels → (dq, dk, dv)."""
-    return _bwd_after_delta(flash_attention_bwd_kv_cuda, q, k, v, o, lse,
-                            do, sm_scale, causal, dropout_rate,
-                            dropout_seed, bias)
 
 
 def flash_attention_bwd_dkdv_f32_cuda(q, k, v, do, lse, delta, sm_scale,
@@ -810,14 +831,66 @@ def flash_attention_bwd_dkdv_f32_cuda(q, k, v, do, lse, delta, sm_scale,
     return dk, dv
 
 
+def flash_attention_bwd_dq_f32_cuda(q, k, v, o, lse, do, sm_scale,
+                                    causal=False, dropout_rate=0.0,
+                                    dropout_seed=None, bias=None):
+    """Launch the f32 dQ kernel on the current stream (f32, head dims up to
+    F32_MAX_HEAD_DIM): 128 query rows of a (batch, head) a work item, 64
+    for each of a persistent block's two warpgroups, split-TF32 wgmma products, the
+    keys streamed in 32-key stages; it takes delta = rowsum(dO∘O) itself
+    → (dq, delta [B·H, S] f32, what the f32 dK/dV kernel reads). A head
+    dim off the instances is padded with zero columns, O and dO too (they
+    add zeros to delta)."""
+    global bwd_dq_f32_launch_count
+    _check_bwd_inputs(q, k, v, {"O": o, "dO": do}, {"lse": lse})
+    if bwd_route(q.shape, k.shape, q.dtype) != "f32":
+        raise ValueError(f"flash_attention f32 dQ: takes f32 at head dims "
+                         f"up to {F32_MAX_HEAD_DIM}, got q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} {q.dtype}")
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    if dp != d:
+        dq, delta = flash_attention_bwd_dq_f32_cuda(
+            *(pad_head_dim(t, dp) for t in (q, k, v, o)), lse,
+            pad_head_dim(do, dp), sm_scale, causal, dropout_rate,
+            dropout_seed, bias)
+        return dq[..., :d].contiguous(), delta
+    B, H, S = q.shape[:3]
+    bias, seed = _device_bias_seed(bias, dropout_rate, dropout_seed, B,
+                                   k.shape[2], q.device)
+    dq = torch.empty_like(q)
+    delta = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    if S == 0:
+        return dq, delta
+    lib = _library(BWD_DQ_F32_SOURCE)
+    with torch.cuda.device(q.device):
+        rc = lib.paddle_flash_attention_bwd_dq_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), _ptr(bias), _ptr(seed),
+            dq.data_ptr(), delta.data_ptr(),
+            *_common_args(q, k, sm_scale, causal, dropout_rate))
+    _raise_on(lib, rc, "flash_attention f32 dQ")
+    bwd_dq_f32_launch_count += 1
+    return dq, delta
+
+
 def flash_attention_bwd_f32_cuda(q, k, v, o, lse, do, sm_scale,
                                  causal=False, dropout_rate=0.0,
                                  dropout_seed=None, bias=None):
-    """The f32 backward on the card: delta, then the f32 dK/dV kernel and
-    the split route's dQ kernel → (dq, dk, dv)."""
-    return _bwd_after_delta(flash_attention_bwd_dkdv_f32_cuda, q, k, v, o,
-                            lse, do, sm_scale, causal, dropout_rate,
-                            dropout_seed, bias)
+    """The f32 backward on the card: the f32 dQ kernel (delta inside),
+    then the f32 dK/dV kernel on the delta it wrote → (dq, dk, dv). A head
+    dim off the instances is padded once for both kernels, O and dO too
+    (they add zeros to delta)."""
+    d, dp = q.shape[3], kernel_head_dim(q.shape[3])
+    padded = dp is not None and dp != d
+    if padded:
+        q, k, v, o, do = (pad_head_dim(t, dp) for t in (q, k, v, o, do))
+    tail = (sm_scale, causal, dropout_rate, dropout_seed, bias)
+    dq, delta = flash_attention_bwd_dq_f32_cuda(q, k, v, o, lse, do, *tail)
+    dk, dv = flash_attention_bwd_dkdv_f32_cuda(q, k, v, do, lse, delta,
+                                               *tail)
+    if padded:
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
+    return dq, dk, dv
 
 
 ROW_TILE = 128  # query rows of a tile of the streamed dQ kernel

@@ -1,27 +1,32 @@
-"""The f32 flash-attention route (the forward and dK/dV on split-TF32 wgmma
-and TMA), on the CPU.
+"""The f32 flash-attention route (the forward, dQ and dK/dV on split-TF32
+wgmma and TMA), on the CPU.
 
 On the card, f32 attention at head dims up to 64 runs the f32 kernels:
-``csrc/flash_attention_fwd_f32.cu`` (64 query rows a block, 64-key tiles)
-and, after ``bwd_delta``, ``csrc/flash_attention_bwd_dkdv_f32.cu`` (64 keys
-a block, 32-row query stages) and the split route's dQ kernel. chip_smoke.py
-holds them against ``flash_attention_reference`` and
+``csrc/flash_attention_fwd_f32.cu`` (64 query rows a block, 64-key tiles),
+then in the backward ``csrc/flash_attention_bwd_dq_f32.cu`` (128 query rows
+a block, 64 a warpgroup, 32-key stages; it takes delta = rowsum(dO∘O)
+itself and writes it) and ``csrc/flash_attention_bwd_dkdv_f32.cu`` (64
+keys a block, 32-row query stages), which reads that delta. chip_smoke.py holds them against
+``flash_attention_reference``, ``flash_attention_bwd_dq_f32_reference`` and
 ``flash_attention_bwd_reference``. Here those plain versions are held
 against the TPU package's Pallas kernels in f32 (``_pallas_fwd``,
-pallas_call :318, and ``jax.vjp`` of ``flash_attention``: its backward
-pallas_calls :514 and :543, through the Pallas interpreter, blocks of 64)
-on the same seeded numpy inputs at the lengths that cross the kernels'
-tiles: 200 x 300 ragged with a key-padding bias and dropout 0.3, and S =
-Sk = 256 causal. Tolerances: 1e-4 for O, lse and the grads (chip_smoke's
-F32_TOL: f32 sums in another order on each side).
+pallas_call :318; ``jax.vjp`` of ``flash_attention``: its backward
+pallas_calls :514 and :543; ``_pallas_bwd``'s dQ, pallas_call :543, and its
+delta prologue :492; through the Pallas interpreter, blocks of 64) on the
+same seeded numpy inputs at the lengths that cross the kernels' tiles: 200
+x 300 ragged with a key-padding bias and dropout 0.3, S = Sk = 256 causal,
+and for dQ and delta also 200 x 300 causal. Tolerances: 1e-4 for O, lse,
+delta and the grads (chip_smoke's F32_TOL: f32 sums in another order on
+each side).
 
 Then the route (shapes and dtype alone): f32 up to head dim 64 takes the
 f32 kernels, above it the tiled forward and the split backward, bf16 its
 own kernels, f16 and head dims above 128 no kernel; on tensors that claim
 a CUDA device (no card: they stand in for them) those raise before any
-launch. The dispatch to each wrapper, the f32 backward's order (delta,
-dK/dV, dQ) and its head-dim padding, the launch counters, and each
-instance's shared memory against the 232,448 bytes a block may have.
+launch. The dispatch to each wrapper, the f32 backward's order (dQ with
+delta, then dK/dV on that delta) and its head-dim padding, the launch
+counters, and each instance's shared memory against the 232,448 bytes a
+block may have.
 """
 import os
 
@@ -108,6 +113,46 @@ def test_plain_bwd_matches_pallas_in_f32(case):
                                    err_msg=name)
 
 
+# the dQ cases: CASES and a causal ragged case with S != Sk
+DQ_CASES = dict(CASES, **{"200x300 causal": (200, 300, True, False, 0.0)})
+
+
+@pytest.mark.parametrize("case", sorted(DQ_CASES))
+def test_plain_dq_with_delta_matches_pallas_in_f32(case):
+    """flash_attention_bwd_dq_f32_reference, the f32 dQ kernel's plain
+    version: its dQ against ``_pallas_bwd``'s dQ (pallas_call :543) and its
+    delta against the prologue's expression (:492), on the Pallas
+    forward's O and lse for both sides."""
+    S, Sk, causal, with_bias, rate = DQ_CASES[case]
+    q, k, v, do, bias = _inputs(S, Sk, with_bias, seed=S + 2 * Sk)
+    sm = 1.0 / np.sqrt(D)
+    jseed = jnp.asarray([SEED], jnp.int32)
+    jb = None if bias is None else jnp.asarray(bias)
+    blocks = fa._block_sizes(S, Sk, D)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    jo, jlse = fa._pallas_fwd(jq, jk, jv, jseed, sm, causal, *blocks, rate,
+                              bias=jb)
+    jlse = jlse[:, :, 0]
+    want_dq = np.asarray(fa._pallas_bwd(jq, jk, jv, jo, jlse, jseed, jdo, sm,
+                                        causal, *blocks, rate,
+                                        bias=jb)[0])
+    want_delta = np.asarray(jnp.sum(
+        jo.reshape(4, S, D).astype(jnp.float32)
+        * jdo.reshape(4, S, D).astype(jnp.float32), -1))
+    tseed = torch.tensor([SEED], dtype=torch.int32) if rate else None
+    dq, delta = tfa.flash_attention_bwd_dq_f32_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy(np.array(jo)), torch.from_numpy(np.array(jlse)),
+        torch.from_numpy(do), sm, causal, rate, tseed,
+        None if bias is None else torch.from_numpy(bias))
+    assert dq.dtype == delta.dtype == torch.float32
+    assert tuple(delta.shape) == (4, S)
+    np.testing.assert_allclose(dq.numpy(), want_dq, rtol=F32_TOL,
+                               atol=F32_TOL)
+    np.testing.assert_allclose(delta.numpy(), want_delta, rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
 # --------------------------------------------------------------- routes
 @pytest.mark.parametrize("S,Sk,d,dtype,fwd,bwd", [
     (128, 128, 64, torch.float32, "f32", "f32"),
@@ -174,9 +219,14 @@ def test_no_instance_raises_on_cuda_tensors_and_launches_nothing(
     assert tfa.launch_counts() == before
 
 
-@pytest.mark.parametrize("wrapper,args", [
+F32_WRAPPERS = [
     ("flash_attention_fwd_f32_cuda", ()),
-    ("flash_attention_bwd_dkdv_f32_cuda", ("do", "rows", "rows"))])
+    ("flash_attention_bwd_dkdv_f32_cuda", ("do", "rows", "rows")),
+    # (q, k, v, o, lse, do)
+    ("flash_attention_bwd_dq_f32_cuda", ("do", "rows", "do"))]
+
+
+@pytest.mark.parametrize("wrapper,args", F32_WRAPPERS)
 def test_f32_wrappers_refuse_head_dims_above_64(wrapper, args):
     """f32 at D = 96 is the tiled route's: the f32 wrappers refuse it on
     CUDA tensors, launching nothing."""
@@ -189,7 +239,21 @@ def test_f32_wrappers_refuse_head_dims_above_64(wrapper, args):
     assert tfa.launch_counts() == before
 
 
-@pytest.mark.parametrize("which", ["forward", "dkdv"])
+@pytest.mark.parametrize("wrapper,args", F32_WRAPPERS)
+def test_f32_wrappers_refuse_bf16_and_launch_nothing(wrapper, args):
+    """bf16 at D = 64 is the whole-block and fused kernels' (S = 16): the
+    f32 wrappers refuse it on CUDA tensors, launching nothing."""
+    q = _OnCard(torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16))
+    rows = _OnCard(torch.zeros(2, 16))
+    extra = [q if a == "do" else rows for a in args]
+    assert tfa.bwd_route(q.shape, q.shape, q.dtype) == "fused"
+    before = tfa.launch_counts()
+    with pytest.raises(ValueError, match="takes f32"):
+        getattr(tfa, wrapper)(q, q, q, *extra, 0.5)
+    assert tfa.launch_counts() == before
+
+
+@pytest.mark.parametrize("which", ["forward", "dkdv", "dq"])
 def test_f32_wrappers_refuse_cpu_tensors_and_launch_nothing(which):
     q = torch.zeros(1, 2, 100, 64)
     rows = torch.zeros(2, 100)
@@ -197,9 +261,11 @@ def test_f32_wrappers_refuse_cpu_tensors_and_launch_nothing(which):
     with pytest.raises(ValueError, match="CUDA tensors"):
         if which == "forward":
             tfa.flash_attention_fwd_f32_cuda(q, q, q, 0.5)
-        else:
+        elif which == "dkdv":
             tfa.flash_attention_bwd_dkdv_f32_cuda(q, q, q, q, rows, rows,
                                                   0.5)
+        else:
+            tfa.flash_attention_bwd_dq_f32_cuda(q, q, q, q, rows, q, 0.5)
     assert tfa.launch_counts() == before
     # the CPU entries take the plain versions for the same tensors
     o, lse = tfa.flash_attention_fwd(q, q, q, 0.5)
@@ -209,24 +275,35 @@ def test_f32_wrappers_refuse_cpu_tensors_and_launch_nothing(which):
 
 
 def test_f32_backward_takes_delta_then_dkdv_then_dq(monkeypatch):
-    """flash_attention_bwd_f32_cuda: delta from the unpadded O and dO, the
-    f32 dK/dV kernel, then the split route's dQ kernel, both on operands
-    padded to the instance's head dim (40 → 64), the grads sliced back."""
+    """flash_attention_bwd_f32_cuda: the f32 dQ kernel on q, k, v, O and dO
+    padded to the instance's head dim (40 → 64), which returns dQ and
+    delta, then the f32 dK/dV kernel on the same padded operands reading
+    that delta; no torch pass of bwd_delta and no split-route dQ kernel;
+    the grads sliced back."""
     calls = []
+    made = torch.full((2, 16), 7.0)
+
+    def dq(q, k, v, o, lse, do, *tail):
+        calls.append(("dq", *(t.shape[-1] for t in (q, k, v, o, do))))
+        return 3 * torch.ones_like(q), made
 
     def dkdv(q, k, v, do, lse, delta, *tail):
-        calls.append(("dkdv", q.shape[-1], tuple(delta.shape)))
+        calls.append(("dkdv", *(t.shape[-1] for t in (q, k, v, do)),
+                      delta is made))
         return torch.ones_like(k), 2 * torch.ones_like(v)
 
-    def dq(q, k, v, do, lse, delta, *tail):
-        calls.append(("dq", q.shape[-1], tuple(delta.shape)))
-        return 3 * torch.ones_like(q)
+    def never(*a, **kw):
+        raise AssertionError("the f32 route took the old route's delta or "
+                             "dQ kernel")
+    monkeypatch.setattr(tfa, "flash_attention_bwd_dq_f32_cuda", dq)
     monkeypatch.setattr(tfa, "flash_attention_bwd_dkdv_f32_cuda", dkdv)
-    monkeypatch.setattr(tfa, "flash_attention_bwd_q_cuda", dq)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_q_cuda", never)
+    monkeypatch.setattr(tfa, "bwd_delta", never)
     q = torch.zeros(1, 2, 16, 40)
     lse = torch.zeros(2, 16)
     dq_, dk_, dv_ = tfa.flash_attention_bwd_f32_cuda(q, q, q, q, lse, q, 0.5)
-    assert calls == [("dkdv", 64, (2, 16)), ("dq", 64, (2, 16))]
+    assert calls == [("dq", 64, 64, 64, 64, 64), ("dkdv", 64, 64, 64, 64,
+                                                  True)]
     assert dq_.shape == dk_.shape == dv_.shape == q.shape
     assert dq_.eq(3).all() and dk_.eq(1).all() and dv_.eq(2).all()
 
@@ -250,6 +327,8 @@ def test_f32_counts_are_launch_counts():
     assert counts["flash_attention_fwd_f32"] == tfa.fwd_f32_launch_count
     assert counts["flash_attention_bwd_dkdv_f32"] == \
         tfa.bwd_dkdv_f32_launch_count
+    assert counts["flash_attention_bwd_dq_f32"] == \
+        tfa.bwd_dq_f32_launch_count
 
 
 # ------------------------------------------------------------ shared memory
@@ -260,13 +339,16 @@ def test_f32_instances_fit_the_shared_memory_of_a_block(dp):
     leaves room for a second block an SM (228 KB an SM, 1 KB of it kept
     for each block), as its header says."""
     fwd, bwd = tfa.fwd_f32_smem_bytes(dp), tfa.bwd_dkdv_f32_smem_bytes(dp)
+    dq = tfa.bwd_dq_f32_smem_bytes(dp)
     assert fwd <= tfa.SMEM_LIMIT and bwd <= tfa.SMEM_LIMIT
+    assert dq <= tfa.SMEM_LIMIT
     assert 2 * (fwd + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("source,fn", [
     ("FWD_F32_SOURCE", "fwd_f32_smem_bytes"),
-    ("BWD_DKDV_F32_SOURCE", "bwd_dkdv_f32_smem_bytes")])
+    ("BWD_DKDV_F32_SOURCE", "bwd_dkdv_f32_smem_bytes"),
+    ("BWD_DQ_F32_SOURCE", "bwd_dq_f32_smem_bytes")])
 def test_f32_sources_state_the_budget_the_wrapper_computes(source, fn):
     """The byte count each source's header gives for its D = 64 instance
     is the one the wrapper computes: the layout and its note agree."""

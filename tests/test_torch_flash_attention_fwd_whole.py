@@ -181,8 +181,7 @@ def test_chip_smoke_gates_count_every_kernel_once():
     graph accounting reads, in KERNELS' order; no device kernel's name a
     substring of another's (a trace counts kernels by substring); the
     whole-block forward and the fused backward on the bf16 lane, the f32
-    forward and dK/dV kernels and the split route's dQ kernel on the f32
-    train step."""
+    forward, dK/dV and dQ kernels on the f32 train step."""
     assert set(chip_smoke.KERNELS) == set(executor._launch_counts())
     names = chip_smoke.DEVICE_KERNELS
     assert len(names) == len(chip_smoke.KERNELS)
@@ -197,7 +196,8 @@ def test_chip_smoke_gates_count_every_kernel_once():
         and train["flash_attention_fwd_whole"] == 0
     assert train["flash_attention_bwd_dkdv_f32"] == 12 \
         and train["flash_attention_bwd_kv"] == 0 \
-        and train["flash_attention_bwd_q"] == 12
+        and train["flash_attention_bwd_dq_f32"] == 12 \
+        and train["flash_attention_bwd_q"] == 0
 
 
 def test_whole_block_sources_share_the_hopper_helpers():

@@ -288,9 +288,9 @@ def test_chip_smoke_kernels_match_the_executors_counts():
     """chip_smoke's KERNELS are the counts the executor's graph accounting
     reads, one device name each, no name a substring of another (a trace
     counts by substring); every launch tuple has an entry for each, the
-    streamed ones seventh to ninth (the f32 ones follow)."""
+    streamed ones seventh to ninth (the three f32 ones follow)."""
     assert set(chip_smoke.KERNELS) == set(executor._launch_counts())
-    assert len(chip_smoke.KERNELS) == len(executor._launch_counts()) == 11
+    assert len(chip_smoke.KERNELS) == len(executor._launch_counts()) == 12
     assert chip_smoke.KERNELS[6:9] == (
         "flash_attention_fwd_streamed", "flash_attention_bwd_dq_streamed",
         "flash_attention_bwd_dkdv_streamed")
@@ -301,9 +301,9 @@ def test_chip_smoke_kernels_match_the_executors_counts():
     for want in (chip_smoke.LANE_STEP_WANT, chip_smoke.TRAIN_STEP_WANT,
                  chip_smoke.WMT_STEP_WANT, chip_smoke.WMT_LANE_WANT,
                  chip_smoke.WMT_DECODE_WANT):
-        assert len(want) == 11 and want[6:9] == (0, 0, 0)
+        assert len(want) == 12 and want[6:9] == (0, 0, 0)
     assert chip_smoke.LANE512_STEP_WANT == (0, 0, 0, 0, 0, 0, 24, 12, 12, 0,
-                                            0)
+                                            0, 0)
 
 
 def test_chip_smoke_lane512_gate_follows_from_the_program():

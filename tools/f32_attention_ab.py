@@ -3,16 +3,19 @@
 
     python3 tools/f32_attention_ab.py [--turns N]
 
-Builds each variant of ``csrc/flash_attention_fwd_f32.cu`` and
-``csrc/flash_attention_bwd_dkdv_f32.cu`` from the repository's source with
+Builds each variant of ``csrc/flash_attention_fwd_f32.cu``,
+``csrc/flash_attention_bwd_dkdv_f32.cu`` and
+``csrc/flash_attention_bwd_dq_f32.cu`` from the repository's source with
 its own preprocessor defines (VARIANTS; one nvcc per variant, all started
 together), then, at the shapes the f32 paths run them (BERT-base at batch
 8 and 32 with the key-padding bias, batch 32 with dropout 0.1 too; greedy
 decode's 80 x 64 cross-attention and causal 80 x 80 self-attention, forward
 only), holds every variant to the plain version at chip_smoke.py's
-F32_TOL and times it beside the old route on the same inputs (the tiled
-forward, the split route's dK/dV kernel) in turns: each turn runs every
-variant and the old route once, the order reversed on every other turn.
+F32_TOL (the dQ kernel's dQ and delta) and times it beside the old route
+on the same inputs (the tiled forward; the split route's dK/dV kernel;
+``bwd_delta`` and the split route's dQ kernel, in one graph) in turns:
+each turn runs every variant and the old route once, the order reversed
+on every other turn.
 A time is chip_smoke.py's ``_cuda_ms``: CUDA events around the replay of
 a graph of 50 calls, device time. Prints the card's name and power limit,
 each variant's ptxas registers and spills, a line a shape with each side's
@@ -40,11 +43,20 @@ VARIANTS = {
     "fwd one block an item": ("fwd", ["-DPADDLE_F32_PERSISTENT=0"]),
     "dkdv persistent": ("dkdv", ["-DPADDLE_F32_PERSISTENT=1"]),
     "dkdv one block an item": ("dkdv", ["-DPADDLE_F32_PERSISTENT=0"]),
+    # 128 rows an item, 64 a warpgroup, each on every key stage (the
+    # source's default), persistent or not
+    "dq persistent": ("dq", ["-DPADDLE_DQ_SHARED_ROWS=0",
+                             "-DPADDLE_F32_PERSISTENT=1"]),
+    "dq one block an item": ("dq", ["-DPADDLE_DQ_SHARED_ROWS=0",
+                                    "-DPADDLE_F32_PERSISTENT=0"]),
+    # 64 rows an item, both warpgroups on them, alternate 32-key stages
+    "dq 64 rows, alternate stages": ("dq", ["-DPADDLE_DQ_SHARED_ROWS=1",
+                                            "-DPADDLE_F32_PERSISTENT=1"]),
 }
 # (B, H, S, Sk, dropout, bias, causal, which kernels)
-SHAPES = [(8, 12, 128, 128, 0.0, True, False, ("fwd", "dkdv")),
-          (32, 12, 128, 128, 0.0, True, False, ("fwd", "dkdv")),
-          (32, 12, 128, 128, 0.1, True, False, ("fwd", "dkdv")),
+SHAPES = [(8, 12, 128, 128, 0.0, True, False, ("fwd", "dkdv", "dq")),
+          (32, 12, 128, 128, 0.0, True, False, ("fwd", "dkdv", "dq")),
+          (32, 12, 128, 128, 0.1, True, False, ("fwd", "dkdv", "dq")),
           (8, 16, 80, 64, 0.0, True, False, ("fwd",)),
           (8, 16, 80, 80, 0.0, False, True, ("fwd",))]
 
@@ -87,7 +99,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     print(f"[card] {cs._card_line()}", flush=True)
-    source = {"fwd": fa.FWD_F32_SOURCE, "dkdv": fa.BWD_DKDV_F32_SOURCE}
+    source = {"fwd": fa.FWD_F32_SOURCE, "dkdv": fa.BWD_DKDV_F32_SOURCE,
+              "dq": fa.BWD_DQ_F32_SOURCE}
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         built = dict(zip(VARIANTS, pool.map(
             lambda n: _build(n, source[VARIANTS[n][0]], VARIANTS[n][1]),
@@ -108,24 +121,33 @@ def main(argv=None) -> int:
         o, lse = fa.flash_attention_reference(*fargs)
         do = torch.randn(q.shape, generator=gen, device="cuda")
         delta = fa.bwd_delta(o, do)
-        bargs = (q, k, v, do, lse, delta, 0.125, causal, rate, seed, bias)
-        want_kv = fa.flash_attention_bwd_kv_reference(*bargs)
+        tail = (0.125, causal, rate, seed, bias)
+        bargs = (q, k, v, do, lse, delta, *tail)
+        qargs = (q, k, v, o, lse, do, *tail)
+        # each kernel: its plain version's result, its new and old routes
+        want = {"fwd": (o, lse),
+                "dkdv": fa.flash_attention_bwd_kv_reference(*bargs),
+                "dq": fa.flash_attention_bwd_dq_f32_reference(*qargs)}
+        new = {"fwd": lambda: fa.flash_attention_fwd_f32_cuda(*fargs),
+               "dkdv": lambda: fa.flash_attention_bwd_dkdv_f32_cuda(*bargs),
+               "dq": lambda: fa.flash_attention_bwd_dq_f32_cuda(*qargs)}
+
+        def old_dq():
+            d = fa.bwd_delta(o, do)
+            return fa.flash_attention_bwd_q_cuda(q, k, v, do, lse, d,
+                                                 *tail), d
+        old = {"fwd": lambda: fa.flash_attention_fwd_tiled_cuda(*fargs),
+               "dkdv": lambda: fa.flash_attention_bwd_kv_cuda(*bargs),
+               "dq": old_dq}
         what = (f"B={bs} H={hh} S={sq} Sk={sk} D=64" +
                 (" causal" if causal else "") +
                 (" bias" if with_bias else "") +
                 (f" dropout {rate}" if rate else ""))
         for kind in kinds:
-            sides = {"old route": (
-                (lambda: fa.flash_attention_fwd_tiled_cuda(*fargs))
-                if kind == "fwd" else
-                (lambda: fa.flash_attention_bwd_kv_cuda(*bargs)), None)}
+            sides = {"old route": (old[kind], None)}
             for name, (vk, _) in VARIANTS.items():
                 if vk == kind:
-                    sides[name] = (
-                        (lambda: fa.flash_attention_fwd_f32_cuda(*fargs))
-                        if kind == "fwd" else
-                        (lambda: fa.flash_attention_bwd_dkdv_f32_cuda(
-                            *bargs)), libs[name])
+                    sides[name] = (new[kind], libs[name])
 
             def run(side):
                 fn, lib = sides[side]
@@ -134,11 +156,10 @@ def main(argv=None) -> int:
                 return fn()
             for side in sides:
                 got = run(side)
-                want = (o, lse) if kind == "fwd" else want_kv
                 torch.cuda.synchronize()
                 if not all(torch.allclose(g, w, rtol=cs.F32_TOL,
                                           atol=cs.F32_TOL)
-                           for g, w in zip(got, want)):
+                           for g, w in zip(got, want[kind])):
                     print(f"[ab] {kind} {what} {side}: disagrees with the "
                           "plain version", flush=True)
                     return 1

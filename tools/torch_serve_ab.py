@@ -35,8 +35,9 @@ lane's shape (batch 256, H=12, S=128, D=64, bf16, no bias), the forward
 that ``flash_attention_cuda`` routes to and the fused backward
 (``flash_attention_bwd_fused_cuda``), and at the f32 training step's
 (batch 32, H=12, S=128, D=64, f32, key-padding bias, dropout 0.1) the
-forward and the whole backward (``flash_attention_bwd_cuda``: bwd_delta
-and the kernels of the route) that the checkout routes f32 to, each as
+forward and the whole backward (``flash_attention_bwd_cuda``: the
+kernels of the route, and bwd_delta where the route takes it) that the
+checkout routes f32 to, each as
 chip_smoke.py's ``_cuda_ms`` times a kernel (a CUDA graph of 50 calls,
 device time). Exits non-zero
 when CUDA is missing or a run fails.
