@@ -233,6 +233,27 @@ Phases, each fatal on failure:
               through the wrappers, in the graph and in a profiler trace
               of one replay. Reports step time, samples/s, MFU and peak
               memory.
+ 13. wide_deep — Wide&Deep CTR training (models/wide_deep.py) at
+              bench.py's widths uncut: 13 dense features, 26 slots of 1e6
+              ids, embeddings of 16, hidden 400-400-400, Adam lr 1e-3,
+              batch 4096 from ctr_reader, with the streaming AUC in the
+              program, so the block runs segmented: the forward as one
+              CUDA graph, the auc op as an eager island, the backward and
+              Adam as a second graph. 5 steps segmented (eager, capture,
+              3 replays) and 5 interpreted from the same startup values
+              and batches: loss, AUC and every persistable (parameters, Adam
+              moments and beta powers, the AUC histograms) bitwise; 10
+              more steps: the loss falls and the AUC ends above 0.5. At
+              1e4 ids a slot, 3 steps on the card against the port on the
+              CPU (loss at LOSS_TOL, three grads at GRAD_TOL, the AUC
+              within 1e-3, the histograms' totals equal). Then bench's
+              wide_deep lane (``python3 -m paddle_tpu_torch.bench
+              wide_deep``), its JSON line printed, and 20 more steps, each
+              synchronized. Checks: every run segmented, 2 graphs captured
+              a key, then 2 replays and 1 island dispatch a run,
+              ``compiled_metric`` true, and no kernel of KERNELS through
+              the wrappers, in the graphs or in a profiler trace of one
+              step. Reports step p50/p90, samples/s and peak memory.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -242,8 +263,8 @@ captures only) and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
 passes over one request of each batch size and over one step of the
-train, lane, remat, AMP, resnet, transformer and lane512 phases (and one
-decode run): device time by kernel name,
+train, lane, remat, AMP, resnet, transformer, lane512 and wide_deep
+phases (and one decode run): device time by kernel name,
 and the device's idle share against the same work's unprofiled wall
 time.
 """
@@ -2260,7 +2281,7 @@ def _loss_and_grads_agree(what, names, gpu, cpu):
 
 
 def _profile_step(exe, main, loss, scope, feed,
-                  what=f"train step batch {TRAIN_BATCH}"):
+                  what=f"train step batch {TRAIN_BATCH}", fetch=None):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2268,7 +2289,7 @@ def _profile_step(exe, main, loss, scope, feed,
 
     def run():
         t = time.perf_counter()
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        exe.run(main, feed=feed, fetch_list=fetch or [loss], scope=scope)
         torch.cuda.synchronize()
         return time.perf_counter() - t
     wall = float(np.median([run() for _ in range(7)][2:])) * 1e3
@@ -3841,6 +3862,258 @@ def phase_lane512(profile=False):
     return {"wrapper": wrapper, "executed": executed, "bert": res}
 
 
+WD_SPARSE_DIM = int(1e6)      # bench.py's wide_deep widths, uncut
+WD_BATCH = 4096
+WD_BITWISE_STEPS = 5          # segmented (eager, capture, 3 replays)
+                              # against interpreted on the card, from one
+                              # startup
+WD_CHECK_DIM = int(1e4)       # card vs CPU: ids a slot
+WD_CHECK_STEPS = 3
+WD_FALL_STEPS = 10            # ctr_reader batches, one a step
+WD_TIMED_STEPS = 20           # steps timed one by one, each synchronized
+WD_AUC_TOL = 1e-3             # card vs CPU AUC: one ulp of sigmoid can move
+                              # a prediction one bucket
+
+
+def _wd_program(sparse_dim=WD_SPARSE_DIM):
+    from paddle_tpu_torch import bench, fluid
+    from paddle_tpu_torch.models import wide_deep
+    with fluid.unique_name.guard():
+        main, startup, _, loss, auc = wide_deep.build_wide_deep_program(
+            sparse_dim=sparse_dim, **bench.WIDE_DEEP)
+    return main, startup, loss, auc
+
+
+def _wd_batches(n, sparse_dim=WD_SPARSE_DIM, seed=SEED):
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.models import wide_deep
+    nb = wide_deep.ctr_reader(WD_BATCH, num_dense=bench.WIDE_DEEP[
+        "num_dense"], num_slots=bench.WIDE_DEEP["num_slots"],
+        sparse_dim=sparse_dim, seed=seed)
+    return [nb() for _ in range(n)]
+
+
+def _wd_gate_step(exe, stats0, want_exec, what):
+    """One segmented run's gates: the segmented path, the run ``want_exec``
+    ("eager", "capture" or "replay"), 2 graphs captured by the capture
+    run, 2 replays a run from it on, 1 island dispatch a run, and no
+    hand-written kernel recorded in a graph. → the block's stats."""
+    cb = exe._last_block
+    got = {k: cb.stats[k] - stats0[k] for k in ("captures", "replays",
+                                                 "islands")}
+    want = {"eager": {"captures": 0, "replays": 0, "islands": 1},
+            "capture": {"captures": 2, "replays": 2, "islands": 1},
+            "replay": {"captures": 0, "replays": 2, "islands": 1}}[want_exec]
+    graph = tuple(cb.graph_launches.get(k, 0) for k in KERNELS)
+    if exe._last_run_mode != "segmented" or cb.last_exec != want_exec \
+            or got != want or graph != NO_KERNELS:
+        raise AssertionError(
+            f"{what}: ran {exe._last_run_mode} ({cb.last_exec}), {got} "
+            f"over the run, {graph} kernels in the graphs; want segmented "
+            f"({want_exec}), {want}, {NO_KERNELS}")
+    return dict(cb.stats)
+
+
+def _wd_segmented_vs_interpreted():
+    """Wide&Deep at full width: WD_BITWISE_STEPS steps segmented (eager,
+    capture, then replays: from the second replay on an island's outputs
+    refill a graph's static buffers and the first graph reads state the
+    last one wrote in place) and as many interpreted, on the card from the
+    same startup values and batches. Loss, AUC, the histograms and every
+    parameter and Adam moment bitwise. The segmented scope then trains WD_FALL_STEPS more
+    steps: the loss falls and the AUC ends above 0.5. → (the executor,
+    scope, program, fetches, one feed), for a traced step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import core
+    main, startup, loss, auc = _wd_program()
+    fetch = [loss, auc]
+    seg_scope, int_scope = fluid.Scope(), fluid.Scope()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(startup, scope=seg_scope)
+    for n, t in _persistables(seg_scope, main).items():
+        int_scope.var(n).set_value(fluid.LoDTensor(t))
+    feeds = _wd_batches(WD_BITWISE_STEPS + WD_FALL_STEPS)
+    seg, stats = [], {"captures": 0, "replays": 0, "islands": 0}
+    for i in range(WD_BITWISE_STEPS):
+        want = ("eager", "capture")[i] if i < 2 else "replay"
+        seg.append(exe.run(main, feed=feeds[i], fetch_list=fetch,
+                           scope=seg_scope))
+        stats = _wd_gate_step(exe, stats, want, f"[wide_deep] step {i}")
+    core.set_flag("FLAGS_executor_mode", "interpreted")
+    try:
+        iexe = fluid.Executor(fluid.CUDAPlace(0))
+        interp = [iexe.run(main, feed=feeds[i], fetch_list=fetch,
+                           scope=int_scope)
+                  for i in range(WD_BITWISE_STEPS)]
+        if iexe._last_run_mode != "interpreted":
+            raise AssertionError("the oracle did not run interpreted")
+    finally:
+        core.set_flag("FLAGS_executor_mode", "compiled")
+    for i, (s, r) in enumerate(zip(seg, interp)):
+        _bitwise(f"step {i} loss and AUC", s, r, tag="[wide_deep]")
+    names = sorted(_persistables(int_scope, main))
+    differ = [n for n in names if not torch.equal(
+        seg_scope.find_var(n).value().array,
+        int_scope.find_var(n).value().array)]
+    _log(f"[wide_deep] {len(names)} persistables after {WD_BITWISE_STEPS} "
+         "steps (parameters, Adam moments and beta powers, the AUC "
+         "histograms), segmented vs interpreted on the card: " +
+         (f"{len(differ)} differ: {differ[:5]}" if differ
+          else "bitwise equal") + f" -> {'FAIL' if differ else 'ok'}")
+    if differ:
+        raise AssertionError("[wide_deep]: segmented and interpreted "
+                             "state differ")
+    del int_scope, iexe
+    losses, aucs = [], []
+    for f in feeds[WD_BITWISE_STEPS:]:
+        lv, av = exe.run(main, feed=f, fetch_list=fetch, scope=seg_scope)
+        losses.append(float(lv[0]))
+        aucs.append(float(av[0]))
+        stats = _wd_gate_step(exe, stats, "replay", "[wide_deep] falls")
+    ok = losses[-1] < losses[0] and aucs[-1] > 0.5 \
+        and all(np.isfinite(losses))
+    _log(f"[wide_deep] {WD_FALL_STEPS} more steps on ctr_reader batches: "
+         f"loss {losses[0]:.6f} -> {losses[-1]:.6f}, AUC {aucs[0]:.4f} -> "
+         f"{aucs[-1]:.4f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[wide_deep]: the loss does not fall, or the "
+                             "AUC ends at or under 0.5")
+    torch.cuda.synchronize()
+    return exe, seg_scope, main, fetch, feeds[0]
+
+
+def _wd_card_against_cpu():
+    """Wide&Deep at WD_CHECK_DIM ids a slot, WD_CHECK_STEPS steps on the
+    card and by the port on the CPU from the card's startup values: each
+    step's loss within LOSS_TOL relative, the first step's grads of three
+    tables within GRAD_TOL of their largest, the last AUC within
+    WD_AUC_TOL and the histograms' totals equal."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, loss, auc = _wd_program(WD_CHECK_DIM)
+    names = ["deep_emb_0", "wide_emb_3", "deep_fc_w_0"]
+    fetch = [loss, auc] + [n + "@GRAD" for n in names]
+    feeds = _wd_batches(WD_CHECK_STEPS, WD_CHECK_DIM, SEED + 1)
+    gpu, cpu, (exe, gscope), (cexe, cscope) = _card_and_cpu_step(
+        main, startup, fetch, feeds[0])
+    _loss_and_grads_agree("[wide_deep] step 0 at sparse_dim "
+                          f"{WD_CHECK_DIM}", names,
+                          [gpu[0]] + gpu[2:], [cpu[0]] + cpu[2:])
+    for i, f in enumerate(feeds[1:], 1):
+        g = exe.run(main, feed=f, fetch_list=[loss, auc], scope=gscope)
+        c = cexe.run(main, feed=f, fetch_list=[loss, auc], scope=cscope)
+        _loss_and_grads_agree(f"[wide_deep] step {i}", [], g, c)
+    op = [o for o in main.global_block().ops if o.type == "auc"][0]
+    hist = {}
+    for tag, sc in (("card", gscope), ("cpu", cscope)):
+        hist[tag] = [int(sc.find_var(op.input(s)[0]).value().array.sum())
+                     for s in ("StatPos", "StatNeg")]
+    err = abs(float(g[1][0]) - float(c[1][0]))
+    ok = err <= WD_AUC_TOL and hist["card"] == hist["cpu"] \
+        and exe._last_run_mode == cexe._last_run_mode == "segmented"
+    _log(f"[wide_deep] AUC after {WD_CHECK_STEPS} steps, card vs CPU: "
+         f"{float(g[1][0]):.6f} vs {float(c[1][0]):.6f} (tol {WD_AUC_TOL:g})"
+         f"; histogram totals (positives, negatives) {hist['card']} vs "
+         f"{hist['cpu']} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[wide_deep]: the card's AUC or histograms "
+                             "disagree with the CPU run")
+    exe.close()
+
+
+def _wd_lane(profile):
+    """bench's wide_deep lane (``python3 -m paddle_tpu_torch.bench
+    wide_deep``): its JSON line; then WD_TIMED_STEPS more steps of the
+    lane's program, each synchronized, for p50 and p90. Gates: the
+    segmented path (``compiled_metric``), a timed window of 2 replays and
+    1 island run a step, no hand-written kernel through the wrappers, in
+    the graphs or in a profiler trace of one step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import bench
+    _reset_launch_counts()
+    lane = bench.run_wide_deep()
+    wrapper = _launch_counts()
+    res = lane.res
+    print(json.dumps(res), flush=True)
+    steps = res["steps"]
+    if not (np.isfinite(res["loss"]) and res["compiled_metric"] is True
+            and res["executor_mode"] == "segmented"
+            and res["timed_window"] == {"eager": 0, "captures": 0,
+                                        "replays": 2 * steps,
+                                        "islands": steps}):
+        raise AssertionError(f"wide_deep lane: {res}")
+    exe, cb = lane.exe, lane.exe._last_block
+    if wrapper != NO_KERNELS or cb.stats["captures"] != 2 \
+            or tuple(cb.graph_launches.get(k, 0) for k in KERNELS) \
+            != NO_KERNELS:
+        raise AssertionError(f"wide_deep lane: {wrapper} launches through "
+                             f"the wrappers, {cb.stats}, "
+                             f"{cb.graph_launches} in the graphs")
+
+    def one_step():
+        exe.run(lane.main, feed=lane.feed, fetch_list=lane.fetches,
+                scope=lane.scope)
+        if exe._last_block is not cb or cb.last_exec != "replay":
+            raise AssertionError("the traced wide_deep step was not a "
+                                 "replay of the lane's graphs")
+    _check_trace(_device_kernel_counts(one_step), NO_KERNELS,
+                 f"wide_deep lane batch {res['batch']} step")
+    times = []
+    s0 = dict(cb.stats)
+    for _ in range(WD_TIMED_STEPS):
+        t = time.perf_counter()
+        exe.run(lane.main, feed=lane.feed, fetch_list=lane.fetches,
+                scope=lane.scope, return_numpy=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    per = {k: (cb.stats[k] - s0[k]) / WD_TIMED_STEPS
+           for k in ("captures", "replays", "islands")}
+    ms = np.asarray(times) * 1e3
+    _log(f"[wide_deep] lane: batch {res['batch']}, {res['value']} samples/s"
+         f", {res['step_ms']} ms a step over the lane's {steps} steps; "
+         f"{WD_TIMED_STEPS} steps each synchronized: p50 "
+         f"{np.percentile(ms, 50):.3f} ms p90 {np.percentile(ms, 90):.3f} "
+         f"ms; peak {res['peak_memory_gib']} GiB; AUC {res['auc']}; "
+         f"captures {cb.stats['captures']}, {per['replays']:g} replays and "
+         f"{per['islands']:g} island runs a step; {NO_KERNELS} "
+         f"{GATE_NAMES} launches (wrappers, graphs, trace) -> ok "
+         f"({_card_line()})")
+    if per != {"captures": 0, "replays": 2, "islands": 1}:
+        raise AssertionError(f"wide_deep lane: {per} a timed step")
+    if profile:
+        _profile_step(exe, lane.main, lane.fetches[0], lane.scope,
+                      lane.feed, f"wide_deep lane batch {res['batch']}",
+                      fetch=lane.fetches)
+    lane.close()
+    return res
+
+
+def phase_wide_deep(profile=False):
+    """Phase 13: Wide&Deep CTR training on the port (the docstring's phase
+    13)."""
+    import torch
+    _reset_launch_counts()
+    exe, scope, main, fetch, feed = _wd_segmented_vs_interpreted()
+    wrapper = _launch_counts()
+    if wrapper != NO_KERNELS:
+        raise AssertionError(f"[wide_deep] {wrapper} launches through the "
+                             "wrappers")
+    _check_trace(_device_kernel_counts(
+        lambda: exe.run(main, feed=feed, fetch_list=fetch, scope=scope)),
+        NO_KERNELS, "wide_deep step")
+    exe.close()
+    del exe, scope
+    torch.cuda.empty_cache()
+    _wd_card_against_cpu()
+    _reset_launch_counts()
+    res = _wd_lane(profile)
+    return {"wrapper": _launch_counts(), "executed": NO_KERNELS,
+            "wide_deep": res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -3879,6 +4152,7 @@ def main(argv=None) -> int:
     paths["resnet"] = phase_resnet(profile=args.profile)
     paths["transformer"] = phase_transformer(profile=args.profile)
     paths["lane512"] = phase_lane512(profile=args.profile)
+    paths["wide_deep"] = phase_wide_deep(profile=args.profile)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

@@ -1,7 +1,7 @@
 """The port's benchmark entry point; prints ONE JSON line:
 
-    python3 -m paddle_tpu_torch.bench [bert|mnist|resnet|transformer]
-                                      [--device cpu]
+    python3 -m paddle_tpu_torch.bench
+        [bert|mnist|resnet|transformer|wide_deep] [--device cpu]
 
 Each lane is the function of the same name in the repository's bench.py
 (the TPU package's), with what it configures ported unchanged: the model,
@@ -30,12 +30,20 @@ is all graph replays).
          4096, 16 heads) with vocab 4096, 2 + 2 layers, dropout 0,
          FLAGS_use_bf16_matmul on, Adam lr 1e-4, batch 8 at S = 64, random
          ids and all-ones masks, 10 steps timed after a warm window of 3.
+  wide_deep
+         Wide&Deep CTR training (13 dense features, 26 slots of 1e6 ids,
+         embeddings of 16, hidden 400-400-400, Adam lr 1e-3) with the
+         streaming AUC in the program, batch 4096, one feed from
+         ``ctr_reader(4096, seed=0)``: a warm window of 5 steps, then 20
+         timed steps (the block runs segmented: a window is a host loop
+         of single steps, its auc island acting every step).
 
 The lanes run on the card (``cuda``); ``--device cpu`` runs them on the
 CPU, the bert lane at bench.py's CPU smoke configuration (2 layers, hidden
 256, 4 heads, ffn 1024, batch 8, S=64, 3 steps), the resnet lane at its
 own (batch 8, image 64, 3 steps), the transformer lane at its own
-(d_model 128, d_inner 256, 4 heads, batch 2, S = 16). Without a card and
+(d_model 128, d_inner 256, 4 heads, batch 2, S = 16), the wide_deep lane
+at bench.py's (batch 256, 5 steps). Without a card and
 without ``--device cpu`` the lane fails: nothing falls back to the CPU.
 
 Keys of the line: ``metric``, ``value`` (samples/s), ``unit``,
@@ -45,7 +53,11 @@ captures and replays), ``loss`` (its last step's) and, for bert,
 ``seq_len`` and ``recompute``, for resnet ``image_size``. The transformer
 lane's line is bench.py's (``metric`` fleet_dp_step_ms_transformer_big,
 ``value`` in ms/step, ``devices`` 1, ``batch``) with ``samples_per_sec``,
-``seq_len`` and the keys above. On the card
+``seq_len`` and the keys above. The wide_deep lane's is bench.py's
+(``metric`` wide_deep_ctr_samples_per_sec_per_chip, ``batch``,
+``embedding_params``, ``compiled_metric``: true when the segmented path
+ran, ``executor_mode``, ``auc``: the final step's) with the keys above
+(``timed_window`` also counts island runs). On the card
 also ``power_limit`` (as nvidia-smi reports the card's name and power
 limit) and ``peak_memory_gib`` (``torch.cuda.max_memory_allocated``), and
 for bert, resnet and transformer ``mfu_vs_h100_bf16_peak``: bench.py's
@@ -54,12 +66,13 @@ sample, scaled with the pixels; transformer: ``transformer_flops_per_step``)
 over the H100's 989 TFLOP/s of dense bf16. A
 failure prints bench.py's error form (``<lane>_error``) and exits with 1.
 
-``run_bert_base``, ``run_mnist_mlp``, ``run_resnet50`` and
-``run_transformer`` run a lane and
+``run_bert_base``, ``run_mnist_mlp``, ``run_resnet50``,
+``run_transformer`` and ``run_wide_deep`` run a lane and
 return a ``Lane``: the result with the executor, scope, program, feed and
 fetches it ran, for a caller that looks further into the run;
 ``Lane.close()`` frees the card. ``bench_bert_base``, ``bench_mnist_mlp``,
-``bench_resnet50`` and ``bench_transformer`` return the result alone.
+``bench_resnet50``, ``bench_transformer`` and ``bench_wide_deep`` return
+the result alone.
 """
 from __future__ import annotations
 
@@ -119,8 +132,11 @@ def _timed_steps(exe, main, feed, fetch_list, steps, scope, warmup=None):
     """bench.py's harness: a warm window of ``warmup`` steps (default
     ``steps``), then the timed one of ``steps``, each ONE
     Executor.run(n_steps=...); the clock stops after the timed window's
-    last loss is on the host. → (seconds, the timed window's
-    eager/capture/replay counts, its last loss)."""
+    last loss is on the host. A segmented block runs a window as a host
+    loop of single steps, each with its islands: bench.py's per-step
+    loop less Executor.run's front end on every step after the first. → (seconds, the timed window's
+    eager/capture/replay counts and, for a segmented block, island runs,
+    its last loss)."""
     from .fluid import core
     core.set_flag("FLAGS_feed_device_cache", True)
     exe.run(main, feed=feed, fetch_list=fetch_list, scope=scope,
@@ -137,8 +153,10 @@ def _timed_steps(exe, main, feed, fetch_list, steps, scope, warmup=None):
     dt = time.perf_counter() - t0
     # a timed window that ran another block than the warm one's shows no
     # runs here
-    window = {k: sum(cb.stats[k] - b[k] for cb, b in zip(blocks, before))
-              for k in ("eager", "captures", "replays")}
+    keys = ("eager", "captures", "replays") + (
+        ("islands",) if any("islands" in b for b in before) else ())
+    window = {k: sum(cb.stats.get(k, 0) - b.get(k, 0)
+                     for cb, b in zip(blocks, before)) for k in keys}
     return dt, window, loss
 
 
@@ -149,11 +167,12 @@ def _is_oom(e) -> bool:
 
 
 def _run_lane(name, build, feed_of, batches, steps, device, warmup=None):
-    """Run ``steps``-step windows at the first batch of ``batches`` that
-    fits (bench.py's OOM ladder): on an OOM the executor's graphs, memory
-    pool and cached feeds and the scope are dropped and the cache emptied
-    before the next rung. → (batch, seconds, timed window, loss, peak
-    bytes or None, (exe, scope, main, feed, fetches))."""
+    """Run ``steps``-step windows at the first
+    batch of ``batches`` that fits (bench.py's OOM ladder): on an OOM the
+    executor's graphs, memory pool and cached feeds and the scope are
+    dropped and the cache emptied before the next rung. → (batch,
+    seconds, timed window, loss, peak bytes or None, (exe, scope, main,
+    feed, fetches))."""
     import torch
     from . import fluid
     if device != "cpu" and not torch.cuda.is_available():
@@ -172,8 +191,8 @@ def _run_lane(name, build, feed_of, batches, steps, device, warmup=None):
         feed = feed_of(b)
         try:
             exe.run(startup, scope=scope)
-            dt, window, loss = _timed_steps(exe, main, feed, fetches, steps,
-                                            scope, warmup)
+            dt, window, loss = _timed_steps(exe, main, feed, fetches,
+                                            steps, scope, warmup)
         except Exception as e:  # noqa: BLE001 — the ladder's own test
             exe.close()
             del exe, scope
@@ -421,6 +440,51 @@ def run_transformer(batch=8, seq_len=64, steps=10, warmup=3,
     return Lane(res, *ran)
 
 
+WIDE_DEEP = dict(num_dense=13, num_slots=26, embedding_dim=16,
+                 hidden=(400, 400, 400), lr=1e-3)  # bench.py's widths
+
+
+def run_wide_deep(batch=4096, steps=20, warmup=5, sparse_dim=int(1e6),
+                  device="cuda") -> Lane:
+    """bench.py's wide_deep lane (bench.py:611-652): ``sparse_dim`` ids a
+    slot (1e6 there). The reported AUC is the final step's, swept from
+    the histograms it left (the fetched value to the bit)."""
+    from .models import wide_deep
+    from .utils.metrics import auc_from_histograms
+
+    if device == "cpu":  # bench.py's CPU configuration
+        batch, steps = 256, 5
+
+    def build():
+        from . import fluid
+        with fluid.unique_name.guard():
+            main, startup, _, loss, auc = \
+                wide_deep.build_wide_deep_program(sparse_dim=sparse_dim,
+                                                  **WIDE_DEEP)
+        return main, startup, [loss, auc]
+
+    def feed_of(b):
+        return wide_deep.ctr_reader(b, num_dense=WIDE_DEEP["num_dense"],
+                                    num_slots=WIDE_DEEP["num_slots"],
+                                    sparse_dim=sparse_dim, seed=0)()
+
+    batch, dt, window, loss, peak, ran = _run_lane(
+        "wide_deep", build, feed_of, (batch,), steps, device, warmup)
+    res = _result("wide_deep_ctr_samples_per_sec_per_chip", batch, steps,
+                  dt, window, loss, peak, ran[0]._last_run_mode, device)
+    exe, scope, main = ran[:3]
+    auc_op = next(op for op in main.global_block().ops if op.type == "auc")
+    hist = [scope.find_var(auc_op.output(s)[0]).value().array.cpu()
+            for s in ("StatPosOut", "StatNegOut")]
+    n = WIDE_DEEP["num_slots"] * sparse_dim
+    res.update(embedding_params=n * WIDE_DEEP["embedding_dim"] + n,
+               compiled_metric=exe._last_run_mode == "segmented",
+               auc=round(auc_from_histograms(*hist), 4))
+    if device == "cpu":
+        res["cpu_smoke"] = True
+    return Lane(res, *ran)
+
+
 def bench_bert_base(**kw) -> dict:
     """``run_bert_base``'s result line, the card freed."""
     lane = run_bert_base(**kw)
@@ -448,8 +512,16 @@ def bench_transformer(**kw) -> dict:
     return lane.res
 
 
+def bench_wide_deep(**kw) -> dict:
+    """``run_wide_deep``'s result line, the card freed."""
+    lane = run_wide_deep(**kw)
+    lane.close()
+    return lane.res
+
+
 LANES = {"bert": bench_bert_base, "mnist": bench_mnist_mlp,
-         "resnet": bench_resnet50, "transformer": bench_transformer}
+         "resnet": bench_resnet50, "transformer": bench_transformer,
+         "wide_deep": bench_wide_deep}
 
 
 def main(argv=None) -> int:

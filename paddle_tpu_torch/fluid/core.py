@@ -370,6 +370,16 @@ class _GlobalFlags:
         # the scope (the oracle). Counterpart of the TPU package's flag
         # (core.py:1542).
         "FLAGS_executor_mode": "compiled",
+        # a block that fails the all-or-nothing compiled check (a
+        # stateful or host-reading op such as auc or print among pure
+        # ops) runs as compiled segments around interpreted islands
+        # (executor.py ``_SegmentedBlock``, ir.py
+        # ``analyze_block_segments``); off, such a block runs interpreted
+        # whole. Counterpart of the TPU package's core.py:1549-1553.
+        "FLAGS_executor_segmentation": True,
+        # below this many compilable ops a block is not segmented: it runs
+        # interpreted
+        "FLAGS_executor_seg_min_ops": 8,
         # Executor.run reuses the device copy of a feed when the SAME
         # ndarray object is fed again with the same content (CRC32), and
         # skips its host-to-device copy (the TPU package's flag,

@@ -18,11 +18,25 @@ Two paths, chosen by ``FLAGS_executor_mode`` as in the TPU package:
     graph's input buffers and replays it: one launch per ``run``. The
     graph updates the state in place, into the scope's own tensors (the
     counterpart of buffer donation). On the CPU the plan runs eagerly.
+  * segmented (``FLAGS_executor_segmentation``, on by default; the TPU
+    package's ``_SegmentedBlock``, executor.py:1139-1466): a block that
+    is not compilable because of stateful or host-reading ops (``auc``,
+    ``print``) runs as its maximal compiled segments around those ops,
+    the *islands* (ir.py ``analyze_block_segments``). On the GPU the
+    first run of a key is eager, the second captures each compiled
+    segment into a CUDA graph of its own (replayed at once: a capture
+    does not execute) and runs the islands eagerly between them, and
+    every later run replays the graphs in capture order with the islands
+    between them, all on the executor's stream. A segment's outputs that
+    later segments or islands read stay alive as the graph's outputs;
+    an island's outputs and the feeds are copied into the static input
+    buffers of the segments that read them. A block with fewer than
+    ``FLAGS_executor_seg_min_ops`` compilable ops, or fed LoD (segments
+    take dense feeds), runs interpreted, as such a block did before
+    segments; any other failure to plan, capture or replay raises.
   * interpreted: the oracle (the TPU package's ``_run_interpreted_step``):
     the ops of the global block run in order over the scope, one kernel
-    call each; every intermediate and grad stays in the scope. A block
-    that is not compilable runs here too (the TPU package's segmented
-    path comes in a later slice).
+    call each; every intermediate and grad stays in the scope.
 
 Windows (``Executor.run(..., n_steps=k)``, the TPU package's contract,
 executor.py:2026): a feed whose rank is its var's rank + 1, on a var whose
@@ -34,7 +48,9 @@ returns every fetch stacked [k, ...] with one copy to the host; the step
 counter advances once a step, so a window draws what k single runs draw.
 The interpreter runs windowed feeds step by step with the same stacked
 contract; with the same feeds and ``n_steps`` > 1 it returns the final
-step's fetches, as the TPU package's interpreted branch does.
+step's fetches, as the TPU package's interpreted branch does, and so
+does a segmented block, which runs ``n_steps`` steps as a host loop (its
+islands act every step).
 
 The numeric fault plane (``FLAGS_check_nan_inf``, ``FLAGS_nan_inf_action``;
 the TPU package's executor.py:508-700) runs on both paths. A guarded
@@ -84,6 +100,7 @@ import torch
 from . import core
 from .core import CUDAPlace, LoDTensor, Place, Scope, global_scope
 from .framework import Program, Variable, default_main_program
+from .ir import op_island_reason, op_reads_host_values
 from ..ops import rng
 from ..ops.registry import (GRAD_SUFFIX, OPS, resolve_base_info,
                             run_generic_grad)
@@ -93,11 +110,8 @@ __all__ = ["Executor", "global_scope", "scope_guard"]
 _RNG_COUNTER = "@RNG_COUNTER@"
 _EMPTY = "@EMPTY@"  # append_backward's name for "no var in this slot"
 _MODES = ("compiled", "interpreted")
-# control flow, which the TPU package's compiled step lowers to lax
-# primitives; not lowered here yet
-_CONTROL = frozenset({"while", "conditional_block", "conditional_block_infer",
-                      "select_input"})
 _GUARD_ACTIONS = ("raise", "skip", "rollback")
+_INTERPRET = object()  # _run_compiled: the block is too small to segment
 
 
 @contextlib.contextmanager
@@ -181,19 +195,11 @@ def _scope_tensor(scope: Scope, name: str) -> Optional[torch.Tensor]:
 # --------------------------------------------------------------------------
 # planning (reference executor.py:231-337)
 # --------------------------------------------------------------------------
-def _op_reads_host_values(op) -> bool:
-    """An op whose kernel reads the VALUES of a connected ``host_inputs``
-    slot (registry) cannot be replayed by a CUDA graph."""
-    info = resolve_base_info(op.type)
-    return info is not None and any(op.inputs.get(s)
-                                     for s in info.host_inputs)
+_op_reads_host_values = op_reads_host_values
 
 
 def _op_is_stateful(op) -> bool:
-    info = resolve_base_info(op.type)
-    if info is None:
-        return True  # unknown op: the interpreter raises with context
-    return info.stateful
+    return op_island_reason(op) in ("stateful", "unregistered")
 
 
 def _op_needs_rng(op_type: str) -> bool:
@@ -204,8 +210,7 @@ def _op_needs_rng(op_type: str) -> bool:
 def _ops_compilable(ops) -> bool:
     """True if every op has a pure kernel that reads no tensor value on
     the host; control flow is not compilable yet."""
-    return not any(op.type in _CONTROL or _op_is_stateful(op)
-                   or _op_reads_host_values(op) for op in ops)
+    return not any(op_island_reason(op) for op in ops)
 
 
 def _classify_block_state(ops, block, feed_names, scope):
@@ -506,13 +511,50 @@ class _CompiledBlock:
 
     def __init__(self, program: Program, feed_names, fetch_names,
                  scope: Scope, seed: int, device, stream=None, pool=None):
+        self._init_common(program, feed_names, fetch_names, scope, seed,
+                          device, stream, pool)
+        ropt = getattr(program, "_recompute_opt", None)
+        if ropt:
+            from .recompute_lowering import build_plan
+            self._remat_plan = build_plan(self, ropt["checkpoints"])
+        self._units = self._build_plan()
+        self._graph = None
+        self._static_feeds: Dict[str, torch.Tensor] = {}
+        self._static_fetch: List[torch.Tensor] = []
+        self._static_health: Optional[torch.Tensor] = None
+
+    def _init_common(self, program: Program, feed_names, fetch_names,
+                     scope: Scope, seed: int, device, stream, pool):
+        """The setup a compiled and a segmented block share: the names,
+        the ops, the state and the guard (classified before anything
+        runs), the step keys and the run records."""
         self._scope_ref = weakref.ref(scope)
         self.program = program
         self.feed_names = tuple(feed_names)
         self.fetch_names = tuple(fetch_names)
         self.device = device
+        self.ops = list(program.global_block().ops)
+        self._classify_state(program, scope)
+        self._init_guard(program, scope)
+        self._remat_plan = None
+        self._keys = _StepKeys(seed, _rng_indices(self.ops), device)
+        self.last_health: Optional[torch.Tensor] = None
+        self._stream, self._pool = stream, pool
+        self._captured: Dict[str, torch.Tensor] = {}
+        self._extra_targets: Dict[str, torch.Tensor] = {}
+        self.graph_launches: Dict[str, int] = {}
+        self.stats = {"eager": 0, "captures": 0, "replays": 0,
+                      "capture_s": 0.0}
+        self.last_exec: Optional[str] = None
+        self._warned: set = set()
+
+    def _classify_state(self, program: Program, scope: Scope):
+        """The block's state, from the scope, before anything runs:
+        ``written``, ``mut_state``, ``ro_state`` (a fetched var that no op
+        writes is read from the scope as it is) and ``extra_writeback``.
+        Raises as ``_classify_block_state``, and KeyError for a fetch that
+        is neither produced nor in the scope."""
         block = program.global_block()
-        self.ops = list(block.ops)
         state_names, written = _classify_block_state(
             self.ops, block, set(self.feed_names), scope)
         for n in self.fetch_names:
@@ -521,7 +563,7 @@ class _CompiledBlock:
             if _scope_tensor(scope, n) is None:
                 raise KeyError(f"fetch var '{n}' is not produced by the "
                                "program")
-            state_names.append(n)  # fetched from the scope as it is
+            state_names.append(n)
         self.written = written
         self.mut_state = tuple(n for n in state_names if n in written)
         self.ro_state = tuple(n for n in state_names if n not in written)
@@ -529,27 +571,12 @@ class _CompiledBlock:
         self.extra_writeback = tuple(sorted(
             n for n in written if n in persistable
             and n not in self.mut_state and n not in self.feed_names))
-        self._init_guard(program, scope)
-        self._remat_plan = None
-        ropt = getattr(program, "_recompute_opt", None)
-        if ropt:
-            from .recompute_lowering import build_plan
-            self._remat_plan = build_plan(self, ropt["checkpoints"])
-        self._keys = _StepKeys(seed, _rng_indices(self.ops), device)
-        self._units = self._build_plan()
-        self.last_health: Optional[torch.Tensor] = None
-        self._stream, self._pool = stream, pool
-        self._graph = None
-        self._static_feeds: Dict[str, torch.Tensor] = {}
-        self._static_fetch: List[torch.Tensor] = []
-        self._captured: Dict[str, torch.Tensor] = {}
-        self._extra_targets: Dict[str, torch.Tensor] = {}
-        self.graph_launches: Dict[str, int] = {}
-        self.stats = {"eager": 0, "captures": 0, "replays": 0,
-                      "capture_s": 0.0}
-        self.last_exec: Optional[str] = None
-        self._static_health: Optional[torch.Tensor] = None
-        self._warned: set = set()
+
+    def _bind(self, op, idx: int) -> _Step:
+        """Op ``idx`` of the block bound to its kernel, attrs and key."""
+        info, grad_of, ridx = _resolve(op, idx)
+        return _Step(op, info, grad_of, _kernel_attrs(
+            op, info, ridx, self.device, self._keys))
 
     def _build_plan(self) -> list:
         """Each op bound, in execution order (the program's, or the remat
@@ -557,11 +584,7 @@ class _CompiledBlock:
         back nor read by the guard's health leaves the env after the last
         unit that reads or writes it. Under remat a segment's interior
         lives only inside its forward and its span."""
-        steps = []
-        for i, op in enumerate(self.ops):
-            info, grad_of, ridx = _resolve(op, i)
-            steps.append(_Step(op, info, grad_of, _kernel_attrs(
-                op, info, ridx, self.device, self._keys)))
+        steps = [self._bind(op, i) for i, op in enumerate(self.ops)]
         if self._remat_plan is not None:
             from .recompute_lowering import schedule
             units = schedule(self._remat_plan,
@@ -902,13 +925,332 @@ class _CompiledBlock:
 
 
 # --------------------------------------------------------------------------
+# the segmented step (reference executor.py:1104-1466)
+# --------------------------------------------------------------------------
+class _NotSegmentable(Exception):
+    """Raised when a block has too few compilable ops to gain from
+    segments (``FLAGS_executor_seg_min_ops``): it runs interpreted."""
+
+
+def _sub_block_ops(op):
+    """The ops of ``op``'s sub-blocks, nested ones included."""
+    stack = [op.attrs.get("sub_block")]
+    while stack:
+        b = stack.pop()
+        if b is None:
+            continue
+        for sop in b.ops:
+            yield sop
+            stack.append(sop.attrs.get("sub_block"))
+
+
+def _effective_reads(op) -> List[str]:
+    """Names an op may read, through its sub-blocks too (an island's
+    control flow runs its sub-block's ops over the scope)."""
+    names = list(op.input_arg_names)
+    for sop in _sub_block_ops(op):
+        names.extend(sop.input_arg_names)
+    return names
+
+
+def _effective_writes(op) -> List[str]:
+    names = list(op.output_arg_names)
+    for sop in _sub_block_ops(op):
+        names.extend(sop.output_arg_names)
+    return names
+
+
+class _SegmentedBlock(_CompiledBlock):
+    """One planned step of a block that holds stateful or host-reading
+    ops: its maximal compiled segments (each a list of bound ops, one
+    CUDA graph on the GPU) around the islands, which the interpreter runs
+    op by op over the scope (the module docstring has the GPU schedule).
+
+    A step threads one ``env`` (name → tensor) through the segments in
+    program order: a compiled segment reads its ``in_names`` from it and
+    adds the ``out_names`` that a later segment, an island, the fetches or
+    the write-back need; an island gets the env values its ops read put
+    into the scope and its writes pulled back. Random keys come from the
+    ops' indices in the block, the step counter advances once a step,
+    after the last segment, so the segments draw what the whole compiled
+    step would.
+
+    State that a compiled segment writes lands in the scope's tensors: in
+    place at the end of its graph on the GPU. Under the numeric fault
+    guard the new state stays in the env until the step's epilogue: the
+    health is each compiled segment's flag over its float outputs, each
+    island's over the float values it wrote, and the fetches', ANDed on
+    the device; the select puts a tripped step's state back across the
+    islands, the AMP scale update follows, as in ``_CompiledBlock``. On
+    the GPU the epilogue runs eagerly after the last segment.
+
+    ``stats`` counts eager runs, graph captures, graph replays (a
+    capture's own included) and island dispatches; ``graph_launches``
+    holds each kernel's launches over the step's graphs."""
+
+    kind = "segmented"
+
+    def __init__(self, program: Program, feed_names, fetch_names,
+                 scope: Scope, seed: int, device, stream=None, pool=None):
+        from .ir import analyze_block_segments
+        self.segments = analyze_block_segments(program.global_block().ops)
+        n_compiled = sum(len(s.ops) for s in self.segments
+                         if s.kind == "compiled")
+        if n_compiled < int(core.globals_["FLAGS_executor_seg_min_ops"]):
+            raise _NotSegmentable(f"only {n_compiled} compilable ops (< "
+                                  "FLAGS_executor_seg_min_ops)")
+        self._init_common(program, feed_names, fetch_names, scope, seed,
+                          device, stream, pool)
+        self.stats["islands"] = 0
+        self._plan_segments()
+        # the graphs, by segment start: (graph, static inputs, outputs,
+        # health flag); the state tensors they read and write; the keys
+        # a graph derived, alive for the later graphs that read them
+        self._rt: Dict[int, tuple] = {}
+        self._targets: Dict[str, torch.Tensor] = {}
+        self._held_keys: List[torch.Tensor] = []
+
+    def _plan_segments(self):
+        """Each segment's dataflow: the names it reads from outside
+        itself, the names it writes that someone later needs (a later
+        segment or island, the fetches, the state write-back), and for a
+        compiled one its ops bound with global indices and liveness."""
+        reads_of, writes_of = [], []
+        for seg in self.segments:
+            reads: List[str] = []
+            written: set = set()
+            op_io = []
+            for op in seg.ops:
+                r, w = _effective_reads(op), _effective_writes(op)
+                op_io.append((op, r, w))
+                reads.extend(n for n in r if n not in written
+                             and n not in reads and n != _EMPTY)
+                written.update(w)
+            written.discard(_EMPTY)
+            reads_of.append(reads)
+            writes_of.append(written)
+            seg.op_io = tuple(op_io) if seg.kind == "island" else ()
+        state_out = set(self.mut_state) | set(self.extra_writeback)
+        need_at_end = set(self.fetch_names) | state_out
+        for i, seg in enumerate(self.segments):
+            later: set = set()
+            for r in reads_of[i + 1:]:
+                later.update(r)
+            seg.in_names = tuple(reads_of[i])
+            seg.out_names = tuple(sorted(
+                n for n in writes_of[i] if n in later or n in need_at_end))
+            seg.state_writes = tuple(n for n in seg.out_names
+                                     if n in state_out)
+            seg.guard_names = ()
+            seg.units = ()
+            if seg.kind == "compiled":
+                steps = [self._bind(op, seg.start + j)
+                         for j, op in enumerate(seg.ops)]
+                set_liveness(steps, set(seg.out_names))
+                seg.units = tuple(steps)
+
+    # ---------------------------------------------------------- segments
+    def _seg_compute(self, seg, env):
+        """A compiled segment's ops over its inputs in ``env`` → (its
+        outputs, its health flag under the guard or None)."""
+        local = {n: env[n] for n in seg.in_names if n in env}
+        exec_units(seg.units, local)
+        outs = {n: local[n] for n in seg.out_names if n in local}
+        if not self._guard_active:
+            return outs, None
+        from .ir import fused_health
+        if not seg.guard_names:
+            seg.guard_names = tuple(n for n, v in outs.items()
+                                    if v.is_floating_point())
+        return outs, fused_health(list(outs.values()), self.device)
+
+    def _capture_segment(self, seg, env, stable, rt):
+        """Capture a compiled segment into a CUDA graph on the executor's
+        stream and pool, then replay it (a capture does not execute). An
+        input that is not ``stable`` (a feed, an island's output) gets a
+        static buffer; the others (state, earlier graphs' outputs) are
+        read where they are. Unguarded, the state it writes is copied
+        into the scope's tensors at the graph's end."""
+        inputs, static_in = {}, {}
+        for n in seg.in_names:
+            if n not in env:
+                continue
+            if n in stable:
+                inputs[n] = env[n]
+            else:
+                static_in[n] = inputs[n] = env[n].clone()
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        in_place = []
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            outs, flag = self._seg_compute(seg, inputs)
+            if not self._guard_active:
+                for n in seg.state_writes:
+                    t, v = self._targets.get(n), outs.get(n)
+                    if t is None or v is None or v is t:
+                        continue
+                    if v.shape == t.shape and v.dtype == t.dtype:
+                        t.copy_(v)
+                        in_place.append(n)
+        self.stats["capture_s"] += time.perf_counter() - t0
+        self.stats["captures"] += 1
+        after = _launch_counts()
+        for k in after:
+            self.graph_launches[k] = (self.graph_launches.get(k, 0)
+                                      + after[k] - before[k])
+        for n in in_place:
+            outs[n] = self._targets[n]
+        if self._keys.keys is not None:
+            self._held_keys.append(self._keys.keys)
+        rt[seg.start] = (graph, static_in, outs, flag)
+        graph.replay()
+        self.stats["replays"] += 1
+        return outs, flag
+
+    def _replay_segment(self, seg, env):
+        graph, static_in, outs, flag = self._rt[seg.start]
+        for n, buf in static_in.items():
+            buf.copy_(env[n])
+        graph.replay()
+        self.stats["replays"] += 1
+        return outs, flag
+
+    def _island(self, seg, env, scope) -> List[str]:
+        """An island op by op through the interpreter: the env values each
+        op reads go into the scope (no copy), its writes come back into
+        the env. → the names written."""
+        written: List[str] = []
+        for off, (op, reads, _writes) in enumerate(seg.op_io):
+            for n in reads:
+                if n in env:
+                    scope.var(n).set_value(LoDTensor(env[n]))
+            for n in _interpret_op(op, seg.start + off, scope, self._keys,
+                                   self.device):
+                env[n] = _scope_tensor(scope, n)
+                written.append(n)
+        self.stats["islands"] += 1
+        return written
+
+    # -------------------------------------------------------------- step
+    def _seg_step(self, scope, feeds, mode):
+        """One step through the segments: ``mode`` "eager" (the CPU, and
+        the GPU's warm-up), "capture" or "replay" → (fetches, health or
+        None)."""
+        from .ir import fused_health
+        dev_feeds = {n: t.to(self.device) for n, t in feeds.items()}
+        counter = _step_counter(scope, self.device)
+        if mode == "replay":
+            state = {n: self._targets[n]
+                     for n in self.mut_state + self.ro_state}
+        else:
+            state = self._read_state(scope)
+        rt: Dict[int, tuple] = {}
+        if mode == "capture":
+            self._targets = dict(state)
+            for n in self.extra_writeback:
+                t = _scope_tensor(scope, n)
+                if t is not None:
+                    self._targets[n] = t
+            self.graph_launches, self._held_keys = {}, []
+        env = dict(state)
+        env.update(dev_feeds)
+        orig = ({n: env[n] for n in self._select_names if n in env}
+                if self._guard_active else None)
+        stable = set(state)
+        flags: List[torch.Tensor] = []
+        self._keys.begin(counter)
+        try:
+            for seg in self.segments:
+                if seg.kind == "island":
+                    had_keys = self._keys.keys is not None
+                    written = self._island(seg, env, scope)
+                    if mode == "capture":
+                        stable.difference_update(written)
+                        if not had_keys:
+                            # keys drawn eagerly here: a later graph
+                            # derives its own
+                            self._keys.keys = None
+                    flag = (fused_health([env[n] for n in written],
+                                         self.device)
+                            if self._guard_active else None)
+                elif mode == "eager":
+                    outs, flag = self._seg_compute(seg, env)
+                    env.update(outs)
+                elif mode == "capture":
+                    outs, flag = self._capture_segment(seg, env, stable, rt)
+                    env.update(outs)
+                    stable.update(outs)
+                else:
+                    outs, flag = self._replay_segment(seg, env)
+                    env.update(outs)
+                if flag is not None:
+                    flags.append(flag)
+        except BaseException:
+            if orig is not None:
+                # a guarded step promises its pre-step state on any failure
+                for n, t in orig.items():
+                    scope.var(n).set_value(LoDTensor(t))
+            raise
+        finally:
+            self._keys.end()
+        counter.add_(1)
+        if mode == "capture":
+            self._rt = rt
+            self._captured = dict(self._targets)
+            self._captured[_RNG_COUNTER] = counter
+        fetches = [env[n] for n in self.fetch_names]
+        health = None
+        if self._guard_active:
+            health = torch.stack([fused_health(fetches, self.device)]
+                                 + flags).all()
+        new = {n: env[n] for n in self.mut_state + self.extra_writeback
+               if n in env}
+        if self._guard_active:
+            self._apply_discard(new, orig, health)
+        for n, v in new.items():
+            t = self._targets.get(n) if mode != "eager" else None
+            if t is not None and v is not t and v.shape == t.shape \
+                    and v.dtype == t.dtype:
+                t.copy_(v)
+                v = t
+            if _scope_tensor(scope, n) is not v:
+                scope.var(n).set_value(LoDTensor(v))
+        return fetches, health
+
+    def _run_on_stream(self, scope, feeds):
+        if not self._rt and not self.stats["eager"]:
+            return self._run_eager(scope, feeds)
+        return self._run_graph(scope, feeds)
+
+    def _run_eager(self, scope, feeds):
+        fetched, health = self._seg_step(scope, feeds, "eager")
+        self.stats["eager"] += 1
+        self.last_exec = "eager"
+        return fetched, health
+
+    def _run_graph(self, scope, feeds):
+        if self._rt and not self._refresh_state(scope):
+            self._drop_graph()  # a state var changed shape, dtype or device
+        mode = "replay" if self._rt else "capture"
+        fetched, health = self._seg_step(scope, feeds, mode)
+        self.last_exec = mode
+        return fetched, health
+
+    def _drop_graph(self):
+        self._rt, self._held_keys = {}, []
+        self._targets, self._captured, self._extra_targets = {}, {}, {}
+
+
+# --------------------------------------------------------------------------
 class Executor:
     """fluid.Executor (reference executor.py:457) on one device.
 
     ``place`` defaults to ``CUDAPlace(0)``. On a host without CUDA that
     raises: the CPU is used only when the caller passes ``CPUPlace()``.
-    ``_last_run_mode`` says how the last run executed ("compiled" or
-    "interpreted"), ``_last_block`` which ``_CompiledBlock`` ran it,
+    ``_last_run_mode`` says how the last run executed ("compiled",
+    "segmented" or "interpreted"), ``_last_block`` which
+    ``_CompiledBlock`` (or ``_SegmentedBlock``) ran it,
     ``_last_health`` the last guarded run's health on the device (a bool
     scalar, or [n_steps] for a compiled window)."""
 
@@ -920,6 +1262,8 @@ class Executor:
             # TF32 rounding of the operands
             torch.backends.cuda.matmul.allow_tf32 = False
         self._compiled_cache: Dict[tuple, _CompiledBlock] = {}
+        # keys of blocks too small to segment → their scope (a weakref)
+        self._unsegmentable: Dict[tuple, weakref.ref] = {}
         # program → (its _version, whether its global block compiles)
         self._compilable = weakref.WeakKeyDictionary()
         self._last_run_mode: Optional[str] = None
@@ -940,15 +1284,16 @@ class Executor:
         memory pool and the cached feeds: once nothing else holds them,
         ``torch.cuda.empty_cache()`` can return their memory."""
         self._compiled_cache.clear()
+        self._unsegmentable.clear()
         self._last_block = None
         self._feed_cache.clear()
         self._stream = self._pool = None
 
     def graph_stats(self) -> Dict[str, float]:
-        """Eager runs, captures, replays and capture seconds summed over
-        the cached compiled blocks."""
+        """Eager runs, captures, replays, capture seconds and (segmented
+        blocks) island dispatches summed over the cached blocks."""
         tot = {"blocks": len(self._compiled_cache), "eager": 0,
-               "captures": 0, "replays": 0, "capture_s": 0.0}
+               "captures": 0, "replays": 0, "islands": 0, "capture_s": 0.0}
         for cb in self._compiled_cache.values():
             for k, v in cb.stats.items():
                 tot[k] += v
@@ -970,7 +1315,8 @@ class Executor:
         docstring): windowed feeds ([n_steps, ...] stacks) give one slice
         to each step, the others feed every step; the compiled path and
         windowed feeds return every fetch stacked [n_steps, ...], the
-        interpreter with the same feeds the final step's fetches. A feed
+        segmented path and the interpreter with the same feeds the final
+        step's fetches. A feed
         with an int attribute ``k`` (the TPU package's WindowBatch) is k
         stacked batches: it sets ``n_steps``, or raises if ``n_steps``
         says otherwise."""
@@ -998,6 +1344,12 @@ class Executor:
         elif feed and n_steps > 1:
             window_names = _window_feed_names(program, feed, n_steps)
         compiled = mode == "compiled" and self._is_compilable(program)
+        # a block that does not compile whole and is fed LoD runs
+        # interpreted, as it did before segments: they take dense feeds
+        segmented = mode == "compiled" and not compiled \
+            and bool(core.globals_["FLAGS_executor_segmentation"]) \
+            and not any(isinstance(d, LoDTensor) and d.lod()
+                        for d in feed.values())
         check, action = _guard_flags()
         if (window_names and not compiled) or (
                 compiled and n_steps > 1 and check and action == "raise"):
@@ -1006,12 +1358,14 @@ class Executor:
             return self._run_window_fallback(program, feed, fetch_list,
                                              scope, return_numpy, n_steps,
                                              window_names)
-        if compiled:
+        if compiled or segmented:
             fetched = self._run_compiled(program, scope, feed, fetch_names,
                                          return_numpy, seed, n_steps,
-                                         window_names)
-            self._last_run_mode = "compiled"
-            return fetched
+                                         window_names, segmented)
+            if fetched is not _INTERPRET:
+                self._last_run_mode = "segmented" if segmented \
+                    else "compiled"
+                return fetched
         fetched = self._run_interpreted(program, scope, feed, fetch_names,
                                         return_numpy, seed, n_steps)
         self._last_run_mode = "interpreted"
@@ -1118,7 +1472,9 @@ class Executor:
         return t
 
     def _run_compiled(self, program, scope, feed, fetch_names, return_numpy,
-                      seed, n_steps=1, window_names=()):
+                      seed, n_steps=1, window_names=(), segmented=False):
+        """A compiled (or ``segmented``) run through the cache of planned
+        blocks; ``_INTERPRET`` when the block is too small to segment."""
         block = program.global_block()
         for n, d in feed.items():
             if isinstance(d, LoDTensor) and d.lod():
@@ -1137,17 +1493,36 @@ class Executor:
                # the guard is built into the block: flipping a flag
                # builds a new one
                (core.globals_["FLAGS_check_nan_inf"],
-                core.globals_["FLAGS_nan_inf_action"]))
+                core.globals_["FLAGS_nan_inf_action"]),
+               segmented and core.globals_["FLAGS_executor_seg_min_ops"])
         cb = self._compiled_cache.get(key)
         # an id() of a dead scope can be reused by a new one: validate
         if cb is None or cb._scope_ref() is not scope:
+            small = self._unsegmentable.get(key)
+            if small is not None and small() is scope:
+                return _INTERPRET
             if self.device.type == "cuda" and self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
                 self._pool = torch.cuda.graph_pool_handle()
-            cb = _CompiledBlock(program, names, fetch_names, scope, seed,
-                                self.device, self._stream, self._pool)
+            if segmented:
+                cb = self._build_segmented(program, names, fetch_names,
+                                           scope, seed)
+                if cb is None:
+                    self._unsegmentable[key] = weakref.ref(scope)
+                    return _INTERPRET
+            else:
+                cb = _CompiledBlock(program, names, fetch_names, scope, seed,
+                                    self.device, self._stream, self._pool)
             self._compiled_cache[key] = cb
         self._last_block = cb
+        if segmented:
+            # a host loop: the islands act every step
+            for _ in range(n_steps):
+                fetched = cb.run(scope, feeds, return_numpy)
+                if cb._guard_active:
+                    self._last_health = cb.last_health
+                    self._act_on_health(cb, program, scope, feeds, seed)
+            return fetched
         if n_steps > 1 or window_names:
             fetched = cb.run_window(scope, feeds, window_names, n_steps,
                                     return_numpy)
@@ -1157,6 +1532,20 @@ class Executor:
             self._last_health = cb.last_health
             self._act_on_health(cb, program, scope, feeds, seed)
         return fetched
+
+    def _build_segmented(self, program, feed_names, fetch_names, scope,
+                         seed) -> Optional[_SegmentedBlock]:
+        """The segment plan of a block that is not compilable whole (the
+        TPU package's executor.py:1606), or None when it has too few
+        compilable ops: it then runs interpreted. Any other failure to
+        plan raises (the TPU package warns and interprets instead): a run
+        does not leave the path it was asked for."""
+        try:
+            return _SegmentedBlock(program, feed_names, fetch_names, scope,
+                                   seed, self.device, self._stream,
+                                   self._pool)
+        except _NotSegmentable:
+            return None
 
     def _act_on_health(self, cb, program, scope, feeds, seed):
         """After a guarded compiled run: ``skip`` and AMP alone leave the
@@ -1354,25 +1743,40 @@ class Executor:
                 check: bool = False):
         """One op over the scope; ``check``: the raise action's per-op
         finite check, before the outputs are written."""
-        info, grad_of, ridx = _resolve(op, idx)
-        attrs = _kernel_attrs(op, info, ridx, self.device, keys)
-        ins: Dict[str, list] = {}
-        for slot, names in op.inputs.items():
-            vals = []
-            for n in names:
-                v = scope.find_var(n)
-                vals.append(v.value().array if v is not None
-                            and v.is_initialized() else None)
-            ins[slot] = vals
-        if grad_of is None:
-            outs = info.kernel(ins, attrs)
-        else:
-            outs = run_generic_grad(
-                grad_of, ins, attrs, wanted_grad_slots=list(op.outputs),
-                fwd_input_slots=attrs.get("_fwd_in", list(op.inputs)))
-        if check:
-            _check_op_outputs_finite(op, idx, outs)
-        for slot, names in op.outputs.items():
-            for n, val in zip(names, (outs or {}).get(slot) or []):
-                if val is not None and n != _EMPTY:
-                    scope.var(n).set_value(LoDTensor(val))
+        _interpret_op(op, idx, scope, keys, self.device, check)
+
+
+def _interpret_op(op, idx: int, scope: Scope, keys: _StepKeys, device,
+                  check: bool = False) -> List[str]:
+    """Op ``idx`` of the block over the scope (the interpreter's step, and
+    an island's): its inputs read from the scope, its outputs written
+    there; a stateful op gets its Operator as ``attrs["_op"]``.
+    ``check``: the raise action's per-op finite check, before the outputs
+    are written. → the names written."""
+    info, grad_of, ridx = _resolve(op, idx)
+    attrs = _kernel_attrs(op, info, ridx, device, keys)
+    if info.stateful:
+        attrs = dict(attrs, _op=op)
+    ins: Dict[str, list] = {}
+    for slot, names in op.inputs.items():
+        vals = []
+        for n in names:
+            v = scope.find_var(n)
+            vals.append(v.value().array if v is not None
+                        and v.is_initialized() else None)
+        ins[slot] = vals
+    if grad_of is None:
+        outs = info.kernel(ins, attrs)
+    else:
+        outs = run_generic_grad(
+            grad_of, ins, attrs, wanted_grad_slots=list(op.outputs),
+            fwd_input_slots=attrs.get("_fwd_in", list(op.inputs)))
+    if check:
+        _check_op_outputs_finite(op, idx, outs)
+    written = []
+    for slot, names in op.outputs.items():
+        for n, val in zip(names, (outs or {}).get(slot) or []):
+            if val is not None and n != _EMPTY:
+                scope.var(n).set_value(LoDTensor(val))
+                written.append(n)
+    return written

@@ -8,3 +8,4 @@ from .metric_op import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
+from .control_flow import *  # noqa: F401,F403

@@ -4,7 +4,7 @@ inference; -1 marks unknown dims. So far: fc, embedding, conv2d, pool2d,
 batch_norm, layer_norm, dropout, softmax, reshape, squeeze, unsqueeze,
 flatten, gather, topk, mean, reduce_sum, reduce_mean, one_hot,
 elementwise_add, _sub, _mul, _div and _min, scale, label_smooth,
-add_position_encoding and autoincreased_step_counter."""
+log_loss, add_position_encoding and autoincreased_step_counter."""
 from __future__ import annotations
 
 import math
@@ -20,7 +20,7 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "unsqueeze", "flatten", "gather", "topk", "mean", "reduce_sum",
            "reduce_mean", "one_hot", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min", "scale",
-           "label_smooth", "add_position_encoding",
+           "label_smooth", "log_loss", "add_position_encoding",
            "autoincreased_step_counter"]
 
 
@@ -56,8 +56,8 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
-    """reference: layers/nn.py embedding → lookup_table_v2 op (ids without
-    a trailing 1; the v1 ``lookup_table`` form comes in a later slice)."""
+    """reference: layers/nn.py embedding → the v1 lookup_table op for ids
+    of shape [..., 1], lookup_table_v2 for any other."""
     helper = LayerHelper("embedding", **locals())
     dtype = convert_np_dtype_to_dtype_(dtype)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
@@ -67,11 +67,12 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         padding_idx if padding_idx >= 0 else size[0] + padding_idx)
     ishape = list(input.shape)
     if ishape and ishape[-1] == 1:
-        raise NotImplementedError(
-            "embedding: ids of shape [..., 1] take the v1 lookup_table op, "
-            "which is not ported yet")
-    out.shape = tuple(ishape) + (size[1],)
-    helper.append_op(type="lookup_table_v2",
+        out.shape = tuple(ishape[:-1]) + (size[1],)
+        op_type = "lookup_table"
+    else:
+        out.shape = tuple(ishape) + (size[1],)
+        op_type = "lookup_table_v2"
+    helper.append_op(type=op_type,
                      inputs={"W": [w], "Ids": [input]},
                      outputs={"Out": [out]},
                      attrs={"is_sparse": is_sparse,
@@ -478,6 +479,17 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
         inputs["PriorDist"] = [prior_dist]
     helper.append_op(type="label_smooth", inputs=inputs,
                      outputs={"Out": [out]}, attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    """The log_loss op: -l·log(p + ε) - (1 - l)·log(1 - p + ε), per row."""
+    helper = LayerHelper("log_loss", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [out]}, attrs={"epsilon": epsilon})
     return out
 
 

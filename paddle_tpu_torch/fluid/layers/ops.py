@@ -1,11 +1,11 @@
 """Activation-style layer wrappers (counterpart of
 paddle_tpu/fluid/layers/ops.py; reference: python/paddle/fluid/layers/ops.py
-via layer_function_generator.py). So far: square."""
+via layer_function_generator.py). So far: relu, sigmoid and square."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["square"]
+__all__ = ["relu", "sigmoid", "square"]
 
 
 def _make_act(op_type):
@@ -20,4 +20,6 @@ def _make_act(op_type):
     return layer
 
 
+relu = _make_act("relu")
+sigmoid = _make_act("sigmoid")
 square = _make_act("square")

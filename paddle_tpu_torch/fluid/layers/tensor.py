@@ -1,5 +1,5 @@
 """Tensor layers (counterpart of paddle_tpu/fluid/layers/tensor.py;
-reference: python/paddle/fluid/layers/tensor.py). So far: cast,
+reference: python/paddle/fluid/layers/tensor.py). So far: cast, concat,
 fill_constant, and ``math_op``, the helper of the Variable operators."""
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ from ..core import convert_np_dtype_to_dtype_
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "fill_constant"]
+__all__ = ["cast", "concat", "fill_constant"]
 
 
 def _dtype(d):
@@ -71,4 +71,28 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
         out.shape = known
     helper.append_op(type="fill_constant", inputs=inputs,
                      outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def concat(input, axis=0, name=None):
+    """The Variables of ``input`` joined along ``axis`` (an int, or a
+    Variable read on the host when the op runs)."""
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    inputs = {"X": list(input)}
+    attrs = {}
+    if isinstance(axis, Variable):
+        inputs["AxisTensor"] = [axis]
+        attrs["axis"] = 0
+    else:
+        attrs["axis"] = axis
+    shapes = [list(v.shape) for v in input]
+    if all(shapes):
+        shp = list(shapes[0])
+        ax = 0 if isinstance(axis, Variable) else axis
+        shp[ax] = sum(s[ax] for s in shapes) \
+            if all(s[ax] >= 0 for s in shapes) else -1
+        out.shape = tuple(shp)
+    helper.append_op(type="concat", inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs)
     return out

@@ -4,7 +4,8 @@ Counterpart of paddle_tpu/ops; so far the ops of the BERT-base
 pretraining step (the encoder forward, the masked-LM loss, dropout, the
 optimizer updates and the startup program), the conv nets' ops and the
 Transformer's (position encoding, one-hot, label smoothing, reductions,
-the LR schedule's step counter)."""
+the LR schedule's step counter) and Wide&Deep's (lookup_table, concat,
+sigmoid, log_loss, and the stateful auc and print)."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
@@ -13,3 +14,4 @@ from . import nn_ops         # noqa: F401
 from . import nn_extra_ops   # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import framework_ops  # noqa: F401

@@ -1,8 +1,8 @@
 """Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
 far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
 elementwise_max, elementwise_min, elementwise_pow, mul, scale, increment,
-relu, gelu, square, mean, sum, the reduce_* family, isfinite, and the
-comparisons less_than, less_equal, greater_than, greater_equal).
+relu, sigmoid, gelu, square, mean, sum, the reduce_* family, isfinite,
+and the comparisons less_than, less_equal, greater_than, greater_equal).
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -137,6 +137,11 @@ def _relu(ins, attrs):
     x = first(ins, "X")
     return out(Out=torch.maximum(x, torch.zeros((), dtype=x.dtype,
                                                 device=x.device)))
+
+
+@register_op("sigmoid", inputs=("X",))
+def _sigmoid(ins, attrs):
+    return out(Out=torch.sigmoid(first(ins, "X")))
 
 
 @register_op("gelu", inputs=("X",), attr_defaults={"approximate": False})

@@ -1,7 +1,7 @@
 """NN op kernels (counterpart of paddle_tpu/ops/nn_ops.py; so far:
-lookup_table_v2, conv2d, depthwise_conv2d, pool2d, batch_norm,
-layer_norm, softmax, cross_entropy, softmax_with_cross_entropy, accuracy
-and dropout with its dropout_grad).
+lookup_table, lookup_table_v2, conv2d, depthwise_conv2d, pool2d,
+batch_norm, layer_norm, softmax, cross_entropy, softmax_with_cross_entropy,
+log_loss, accuracy, auc and dropout with its dropout_grad).
 
 The convolution is cuDNN's, through ``torch.nn.functional.conv2d``, as
 the TPU package's is XLA's ``lax.conv_general_dilated``; pooling and
@@ -25,6 +25,17 @@ def _lookup(w, ids, padding_idx):
         o = torch.where((ids == padding_idx)[..., None],
                         torch.zeros((), dtype=o.dtype, device=o.device), o)
     return o
+
+
+@register_op("lookup_table", inputs=("W", "Ids"), diff_inputs=("W",),
+             attr_defaults={"padding_idx": -1, "is_sparse": False,
+                            "is_distributed": False, "remote_prefetch": False})
+def _lookup_table(ins, attrs):
+    """The v1 op: Ids [..., 1], the trailing 1 squeezed; its grad is
+    ``_lookup``'s, the rows summed in a fixed order on the card."""
+    w, ids = first(ins, "W"), first(ins, "Ids")
+    pad = attrs.get("padding_idx", -1)
+    return out(Out=_lookup(w, ids.squeeze(-1), pad if pad >= 0 else None))
 
 
 @register_op("lookup_table_v2", inputs=("W", "Ids"), diff_inputs=("W",),
@@ -392,6 +403,16 @@ def _softmax_with_cross_entropy(ins, attrs):
 # --------------------------------------------------------------------------
 # metrics
 # --------------------------------------------------------------------------
+@register_op("log_loss", inputs=("Predicted", "Labels"),
+             diff_inputs=("Predicted",), attr_defaults={"epsilon": 1e-4})
+def _log_loss(ins, attrs):
+    """-l·log(p + ε) - (1 - l)·log(1 - p + ε), ε = 1e-4 by default."""
+    p, lbl = first(ins, "Predicted"), first(ins, "Labels")
+    eps = attrs.get("epsilon", 1e-4)
+    return out(Loss=-lbl * torch.log(p + eps)
+               - (1 - lbl) * torch.log(1 - p + eps))
+
+
 @register_op("accuracy", inputs=("Out", "Indices", "Label"), no_grad=True)
 def _accuracy(ins, attrs):
     """Top-k accuracy from top_k's Indices: a row counts when any of its k
@@ -405,6 +426,36 @@ def _accuracy(ins, attrs):
                Correct=num_correct.to(torch.int32).reshape((1,)),
                Total=torch.full((1,), total, dtype=torch.int32,
                                 device=idx.device))
+
+
+@register_op("auc", inputs=("Predict", "Label", "StatPos", "StatNeg"),
+             no_grad=True, stateful=True,
+             attr_defaults={"curve": "ROC", "num_thresholds": 4095,
+                            "slide_steps": 1})
+def _auc(ins, attrs):
+    """The streaming ROC AUC (reference: operators/metrics/auc_op.h): each
+    row's positive-class probability falls in bucket min(trunc(p·nt), nt),
+    the product in f32 as the TPU kernel's numpy takes it (a NaN or
+    negative one in bucket 0, so a poisoned step reaches the numeric
+    fault guard rather than an out-of-range scatter); the positive
+    and negative labels are counted into StatPos and StatNeg, and the AUC
+    is ``utils.metrics.auc_from_histograms_device``'s sweep, f32 [1].
+    All on the tensors' device with no host read: the counts are exact
+    integer scatter-adds (``torch.bincount`` reads its input's maximum on
+    the host). Stateful: the histograms accumulate across steps, so a
+    compiled block runs the op as an island."""
+    from ..utils.metrics import auc_from_histograms_device
+    pred, label = first(ins, "Predict"), first(ins, "Label")
+    stat_pos = first(ins, "StatPos").reshape(-1)
+    stat_neg = first(ins, "StatNeg").reshape(-1)
+    nt = int(attrs.get("num_thresholds", 4095))
+    bucket = torch.clamp((pred[:, 1] * nt).to(torch.int64), 0, nt)
+    pos = (label.reshape(-1) != 0).to(stat_pos.dtype)
+    new_pos = stat_pos.scatter_add(0, bucket, pos)
+    new_neg = stat_neg.scatter_add(0, bucket, 1 - pos)
+    auc = auc_from_histograms_device(new_pos, new_neg)
+    return out(AUC=auc.to(torch.float32).reshape(1), StatPosOut=new_pos,
+               StatNegOut=new_neg)
 
 
 # --------------------------------------------------------------------------

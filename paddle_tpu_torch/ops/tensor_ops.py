@@ -1,8 +1,8 @@
 """Tensor creation / manipulation op kernels (counterpart of
 paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value, cast,
 uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
-squeeze, squeeze2, unsqueeze2, flatten, flatten2, gather and its grad,
-top_k, one_hot, one_hot_v2, label_smooth).
+squeeze, squeeze2, unsqueeze2, flatten, flatten2, concat, gather and its
+grad, top_k, one_hot, one_hot_v2, label_smooth).
 
 Random ops draw from the key that ``attrs["_rng"]()`` returns (the
 executor derives it on the device from the program's random_seed, the
@@ -225,6 +225,17 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         return scatter_rows_add(ctx.n_rows, idx, g), None
+
+
+@register_op("concat", inputs=("X", "AxisTensor"),
+             host_inputs=("AxisTensor",), attr_defaults={"axis": 0})
+def _concat(ins, attrs):
+    """The X tensors joined along ``axis``; ``AxisTensor``, a tensor,
+    overrides the attr and is read on the host."""
+    at = first(ins, "AxisTensor")
+    ax = int(at.reshape(()).item()) if at is not None \
+        else int(attrs.get("axis", 0))
+    return out(Out=torch.cat(list(ins.get("X") or []), dim=ax))
 
 
 @register_op("gather", inputs=("X", "Index"), diff_inputs=("X",))

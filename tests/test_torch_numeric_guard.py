@@ -15,9 +15,9 @@ tests/test_numeric_faults.py for the cases the port has:
 - an unknown action is rejected (:418);
 - ``fused_health`` against the TPU package's on the same arrays.
 
-Left out, with the module each waits for (ROADMAP.md): the segmented
-block's guard (A5), HealthMonitor and rollback (A7), the PS guard and the
-trace events (A11).
+Left out, with the module each waits for (ROADMAP.md): HealthMonitor
+and rollback (A7), the PS guard and the trace events (A11). The
+segmented block's guard is in tests/test_torch_segmented_executor.py.
 """
 import numpy as np
 import pytest
