@@ -254,6 +254,40 @@ Phases, each fatal on failure:
               ``compiled_metric`` true, and no kernel of KERNELS through
               the wrappers, in the graphs or in a profiler trace of one
               step. Reports step p50/p90, samples/s and peak memory.
+ 14. predictor — save, load and serve through paddle_tpu_torch.inference
+              (fluid.io.save_inference_model, the ProgramDesc codec,
+              create_predictor(Config(dir)) with the pass pipeline of
+              fluid.ir.INFERENCE_PASSES), on the card, the saved
+              directories in a temporary directory deleted at the end.
+              (a) the BERT-base pretraining program (dropout 0, input
+              mask) after one Adam step, saved with the encoder output
+              and the MLM logits as targets: after the passes 73 fc, 1
+              fused_embedding_eltwise_layernorm, 12 fused_attention_qkv,
+              24 layer_norm and 12 gelu, every persistable on the card;
+              requests of batch 1, 8 and 32 (warm-up, then a window),
+              each compiled, finite, with exactly (0, ..., 0, 12, 0, 0)
+              launches (wrappers, graph, a trace of one replay); outputs
+              against exe.run(main.clone(for_test=True),
+              use_prune=True) on the training scope within rtol 1e-5,
+              atol 1e-6, and whether bitwise; predictor.clone()
+              allocates nothing on the card, shares the scope and
+              answers bitwise alike. (b) a reference-style BERT at full
+              width, its attention decomposed as a reference-serialized
+              program carries it (fc, reshape2, transpose2, scale,
+              matmul, + the [B, 1, 1, S] key-padding bias, softmax,
+              matmul, transpose2, reshape2), saved and loaded:
+              multihead_matmul_fuse_pass_v2 fuses all 12 subgraphs, each
+              request launches the f32 forward 12 times, and with
+              switch_ir_optim(False) none; fused against unfused within
+              1e-4 at 12 layers and 1e-5 at 1 layer (rtol and atol).
+              (c) ResNet-50 (224x224, 1000 classes) saved with the
+              logits that feed softmax and the softmax: 53
+              conv2d_fusion, 49 relu, 16 elementwise_add, 1 fc, 2
+              pool2d, 1 flatten2, 1 softmax; batch-8 requests launch
+              none of the twelve kernels; logits and softmax against the
+              clone for test within rtol 1e-4, atol 1e-5 of the largest
+              (the elementwise bound is reported too). Reports p50, p99
+              and sequences/s of each window.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -262,9 +296,10 @@ included; ``wrapper_calls_by_path``: the wrappers' counts, warm-ups and
 captures only) and, last, the JSON result line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
 CUDA is missing or any phase fails. ``--profile`` adds torch.profiler
-passes over one request of each batch size and over one step of the
-train, lane, remat, AMP, resnet, transformer, lane512 and wide_deep
-phases (and one decode run): device time by kernel name,
+passes over one request of each batch size (of the serve phase and of
+the predictor's BERT-base) and over one step of the train, lane, remat,
+AMP, resnet, transformer, lane512 and wide_deep phases (and one decode
+run): device time by kernel name,
 and the device's idle share against the same work's unprofiled wall
 time.
 """
@@ -4114,6 +4149,426 @@ def phase_wide_deep(profile=False):
             "wide_deep": res}
 
 
+# --------------------------------------------------------------------------
+# 14. predictor — save, load and serve through paddle_tpu_torch.inference
+# --------------------------------------------------------------------------
+PRED_WINDOW_S = 2.0           # seconds served per batch size, after warm-up
+PRED_TOL = (1e-5, 1e-6)       # predictor vs the clone for test (rtol, atol)
+PRED_FEEDS = ("src_ids", "pos_ids", "sent_ids", "input_mask", "mask_pos")
+PRED_CENSUS = {"fc": 73, "fused_embedding_eltwise_layernorm": 1,
+               "fused_attention_qkv": 12, "layer_norm": 24, "gelu": 12}
+REF_BERT_TOL = {1: 1e-5, 12: 1e-4}  # fused vs unfused, rtol = atol, by depth
+RESNET_PRED_BATCH = 8
+RESNET_PRED_IMAGE = 224
+RESNET_PRED_TOL = (1e-4, 1e-5)      # tests/test_ir_passes.py:566
+RESNET_PRED_CENSUS = {"conv2d_fusion": 53, "relu": 49, "elementwise_add": 16,
+                      "fc": 1, "pool2d": 2, "flatten2": 1, "softmax": 1}
+
+
+class _Book:
+    """The runs of a phase by kind ("eager", "capture", "replay", "train"
+    or "reference", the last two eager), the kernel launches they executed
+    on the card, and those that went through the wrappers (every run but
+    a replay)."""
+
+    def __init__(self):
+        import collections
+        self.runs = collections.Counter()
+        self.executed = [0] * len(KERNELS)
+        self.wrapped = [0] * len(KERNELS)
+
+    def add(self, kind, want):
+        self.runs[kind] += 1
+        self.executed = [a + b for a, b in zip(self.executed, want)]
+        if kind != "replay":
+            self.wrapped = [a + b for a, b in zip(self.wrapped, want)]
+
+
+def _census(program):
+    import collections
+    return dict(collections.Counter(
+        op.type for op in program.global_block().ops))
+
+
+def _mlm_targets(main):
+    """The encoder output (what the MLM head gathers from) and the MLM
+    logits (what the loss reads) of the pretraining program."""
+    ops = main.global_block().ops
+    sm = [o for o in ops if o.type == "softmax_with_cross_entropy"][0]
+    gather = [o for o in ops if o.type == "gather"][0]
+    return [gather.input("X")[0], sm.input("Logits")[0]]
+
+
+def _pred_request(rng, bs, cfg):
+    """A request of the served pretraining model: the encoder's feeds with
+    random padding, and 15 % of the positions for the MLM head."""
+    feed = _request(rng, bs, cfg)
+    feed["mask_pos"] = rng.randint(0, bs * S, (max(1, int(bs * S * MLM_FRAC)),
+                                               1))
+    return feed
+
+
+def _on_card(pred, what):
+    """Every persistable of the predictor's rewritten program lies on the
+    card before the first capture (the passes' new weights too)."""
+    block = pred._program.global_block()
+    off = [v.name for v in block.vars.values() if v.persistable
+           and pred._scope.find_var(v.name) is not None
+           and pred._scope.find_var(v.name).value().array.device.type
+           != "cuda"]
+    if off:
+        raise AssertionError(f"{what}: persistables off the card: {off[:5]}")
+
+
+def _serve_window(pred, pools, want, what, book):
+    """Each batch size's warm-up (eager, capture, replay) and a window of
+    replays, every run gated against ``want`` launches; → the first
+    replayed (feed, outputs) of each batch size."""
+    import numpy as np
+    first = {}
+
+    def request(feed, label):
+        before = _launch_counts()
+        t = time.perf_counter()
+        outs = pred.run([feed[n] for n in pred.get_input_names()])
+        dt = time.perf_counter() - t
+        delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+        book.add(_gate_run(pred._exe, delta, want, label), want)
+        for o in outs:
+            if not np.isfinite(o).all():
+                raise AssertionError(f"{label}: non-finite outputs")
+        return outs, dt
+
+    for bs, pool in pools.items():
+        for i in range(WARMUP):
+            request(pool[i], f"{what} batch-{bs} warm-up request {i}")
+        times = []
+        while sum(times) < PRED_WINDOW_S:
+            feed = pool[len(times) % POOL]
+            outs, dt = request(feed, f"{what} batch-{bs} request")
+            times.append(dt)
+            first.setdefault(bs, (feed, outs))
+        _latency_line(f"[predictor] {what} batch", bs, times)
+    return first, request
+
+
+def _compare(what, got, want, rtol, atol):
+    import numpy as np
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    ok = all(np.allclose(g, w, rtol=rtol, atol=atol)
+             for g, w in zip(got, want))
+    _log(f"[predictor] {what}: " + ("bitwise equal" if same else
+                                    f"max|d| {err:.3e}") +
+         f" (rtol {rtol:g}, atol {atol:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: outputs disagree")
+    return same, err
+
+
+def _predictor_bert(tmp, book, profile=False):
+    """(a): the port's BERT-base pretraining program, one Adam step, saved
+    with the encoder output and the MLM logits, served by
+    create_predictor(Config(dir)) on the card."""
+    import collections
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    L = cfg["layers"]
+    want = tuple(L if k == "flash_attention_fwd_f32" else 0 for k in KERNELS)
+    main, startup, loss = _pretrain_program(cfg, 0.0)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    rng = np.random.RandomState(SEED)
+    exe.run(startup, scope=scope)
+    step_want = _step_want(main.global_block().ops, "f32")
+    before = _launch_counts()
+    exe.run(main, feed=_train_batch(rng, 8, cfg), fetch_list=[loss],
+            scope=scope)
+    delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+    if _gate_run(exe, delta, step_want, "(a) the Adam step") != "eager":
+        raise AssertionError("(a) the Adam step did not run eager")
+    book.add("train", step_want)
+    targets = _mlm_targets(main)
+    d = os.path.join(tmp, "bert")
+    t0 = time.perf_counter()
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, list(PRED_FEEDS), targets, exe, main)
+    n_files = len(os.listdir(d))
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    t1 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(d))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    census = _census(pred._program)
+    _log(f"[predictor] (a) BERT-base saved in {t1 - t0:.2f} s ({n_files} "
+         f"files, {size / 2**30:.3f} GiB), loaded and rewritten in "
+         f"{t2 - t1:.2f} s: {len(pred._program.global_block().ops)} ops "
+         f"{census}")
+    if any(census.get(k) != v for k, v in PRED_CENSUS.items()):
+        raise AssertionError(f"(a) census {census}, want {PRED_CENSUS}")
+    if pred.get_output_names() != targets:
+        raise AssertionError(f"(a) outputs {pred.get_output_names()}")
+    _on_card(pred, "(a)")
+    pools = {bs: [_pred_request(rng, bs, cfg) for _ in range(POOL)]
+             for bs in SERVE_BATCHES}
+    first, request = _serve_window(pred, pools, want, "(a)", book)
+    mid = SERVE_BATCHES[len(SERVE_BATCHES) // 2]
+    _check_trace(_device_kernel_counts(
+        lambda: request(pools[mid][1], "(a) a traced request")), want,
+        f"(a) predictor batch-{mid} request")
+    # the clone for test on the training scope, pruned by the executor
+    test_prog = main.clone(for_test=True)
+    for bs in SERVE_BATCHES:
+        feed, outs = first[bs]
+        ref = exe.run(test_prog, feed={n: feed[n] for n in PRED_FEEDS},
+                      fetch_list=targets, scope=scope, use_prune=True)
+        book.add("reference", want)
+        _compare(f"(a) batch-{bs} request vs exe.run(main.clone(for_test="
+                 f"True), use_prune=True)", outs, ref, *PRED_TOL)
+    # a clone shares the scope: no second copy of the weights
+    ptrs = {n: pred._scope.find_var(n).value().array.data_ptr()
+            for n in (v.name for v in pred._program.list_vars()
+                      if v.persistable and v.name not in ("feed", "fetch"))}
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    twin = pred.clone()
+    m1 = torch.cuda.memory_allocated()
+    if twin._scope is not pred._scope or m1 != m0:
+        raise AssertionError(f"(a) clone: scope shared "
+                             f"{twin._scope is pred._scope}, "
+                             f"{m1 - m0} bytes allocated by clone()")
+    got = None
+    for i in range(3):  # its own executor: eager, capture, replay
+        before = _launch_counts()
+        got = twin.run([first[mid][0][n] for n in twin.get_input_names()])
+        delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+        book.add(_gate_run(twin._exe, delta, want, f"(a) clone run {i}"),
+                 want)
+    same, _ = _compare(f"(a) clone vs predictor, batch {mid}", got,
+                       first[mid][1], 0.0, 0.0)
+    if not same or any(pred._scope.find_var(n).value().array.data_ptr() != p
+                       for n, p in ptrs.items()):
+        raise AssertionError("(a) the clone's answer or weights differ")
+    torch.cuda.synchronize()
+    _log(f"[predictor] (a) clone(): {m1 - m0} bytes on the card, the same "
+         f"scope and weight tensors ({len(ptrs)}); its graphs and buffers "
+         f"after 3 runs {(torch.cuda.memory_allocated() - m1) / 2**20:.1f} "
+         f"MiB; answers bitwise")
+    if profile:  # a request's device time, by kernel, and its idle share
+        _log("[predictor] (a) profiled requests (Executor.run of the "
+             "rewritten program, both targets fetched):")
+        for bs in SERVE_BATCHES:
+            _profile(pred._exe, pred._program, pred.get_output_names(),
+                     pred._scope, {n: pools[bs][0][n] for n in PRED_FEEDS},
+                     bs)
+    exe.close()
+    twin._exe.close()
+    pred._exe.close()
+
+
+def _ref_bert_program(cfg, layers):
+    """A reference-style BERT encoder: the embeddings, then each layer's
+    attention decomposed as a reference-serialized program carries it
+    (tests/test_ir_passes.py:572-593: the Q, K and V projections as fc,
+    reshape2, transpose2; the Q scale; QKᵀ by matmul; + BiasQK, the
+    [B, 1, 1, S] key-padding bias; softmax; PV; the head merge), the
+    output projection, residual and layer norm, and the FFN."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import layers as L
+    from paddle_tpu_torch.models import bert
+    H, N = cfg["heads"], cfg["hidden"]
+    D = N // H
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.data("src_ids", [S], dtype="int64")
+        pos = fluid.data("pos_ids", [S], dtype="int64")
+        sent = fluid.data("sent_ids", [S], dtype="int64")
+        mask = fluid.data("input_mask", [S], dtype="float32")
+        bias_qk = bert.padding_attn_bias(mask)
+        x = bert.bert_embedding(src, pos, sent, cfg)
+        for i in range(layers):
+            def proj(tag):
+                p = L.fc(x, H * D, num_flatten_dims=2,
+                         param_attr=fluid.ParamAttr(name=f"l{i}_{tag}_w"),
+                         bias_attr=fluid.ParamAttr(name=f"l{i}_{tag}_b"))
+                return L.transpose(L.reshape(p, [0, 0, H, D]), [0, 2, 1, 3])
+            q, k, v = proj("q"), proj("k"), proj("v")
+            qk = L.matmul(L.scale(q, scale=float(1.0 / np.sqrt(D))), k,
+                          transpose_y=True)
+            attn = L.softmax(L.elementwise_add(qk, bias_qk))
+            ctx = L.reshape(L.transpose(L.matmul(attn, v), [0, 2, 1, 3]),
+                            [0, 0, H * D])
+            x = L.layer_norm(L.elementwise_add(
+                x, L.fc(ctx, N, num_flatten_dims=2)), begin_norm_axis=2)
+            h = L.fc(x, cfg["ffn"], num_flatten_dims=2, act="gelu")
+            x = L.layer_norm(L.elementwise_add(
+                x, L.fc(h, N, num_flatten_dims=2)), begin_norm_axis=2)
+    startup.random_seed = SEED
+    return main, startup, x
+
+
+def _predictor_ref_bert(tmp, book):
+    """(b): the reference-style BERT, saved and loaded;
+    multihead_matmul_fuse_pass_v2 fuses every attention subgraph, and the
+    fused multihead_matmul runs the f32 forward kernel."""
+    import collections
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    feeds = [n for n in PRED_FEEDS if n != "mask_pos"]
+    rng = np.random.RandomState(SEED + 1)
+    for layers in (cfg["layers"], 1):
+        want = tuple(layers if k == "flash_attention_fwd_f32" else 0
+                     for k in KERNELS)
+        main, startup, out = _ref_bert_program(cfg, layers)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        d = os.path.join(tmp, f"ref_bert_{layers}")
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, feeds, [out], exe, main)
+        exe.close()
+        del exe, scope
+        pred = inference.create_predictor(inference.Config(d))
+        census = _census(pred._program)
+        unfused_cfg = inference.Config(d)
+        unfused_cfg.switch_ir_optim(False)
+        plain = inference.create_predictor(unfused_cfg)
+        pcensus = _census(plain._program)
+        _log(f"[predictor] (b) reference-style BERT, {layers} layer(s): "
+             f"{pcensus.get('matmul', 0)} matmul, {pcensus.get('softmax', 0)}"
+             f" softmax, {pcensus.get('transpose2', 0)} transpose2 saved; "
+             f"after the passes {census}")
+        if census.get("multihead_matmul") != layers \
+                or any(t in census for t in ("matmul", "softmax",
+                                             "transpose2")):
+            raise AssertionError(f"(b) {layers} layer(s): census {census}")
+        _on_card(pred, "(b)")
+        batches = SERVE_BATCHES if layers > 1 \
+            else SERVE_BATCHES[len(SERVE_BATCHES) // 2:][:1]
+        pools = {bs: [_request(rng, bs, cfg) for _ in range(POOL)]
+                 for bs in batches}
+        tol = REF_BERT_TOL[layers]
+        if layers > 1:
+            first, request = _serve_window(pred, pools, want, "(b) fused",
+                                           book)
+            mid = SERVE_BATCHES[len(SERVE_BATCHES) // 2]
+            _check_trace(_device_kernel_counts(
+                lambda: request(pools[mid][1], "(b) a traced request")),
+                want, f"(b) predictor batch-{mid} request")
+        else:
+            first, _ = _serve_window(pred, pools, want, "(b) 1 layer", book)
+        # the same directory with switch_ir_optim(False): no kernel
+        for bs, (feed, outs) in first.items():
+            for i in range(3):
+                before = _launch_counts()
+                got = plain.run([feed[n] for n in plain.get_input_names()])
+                delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+                book.add(_gate_run(plain._exe, delta, NO_KERNELS,
+                                   f"(b) unfused batch-{bs} run {i}"),
+                         NO_KERNELS)
+            _compare(f"(b) {layers} layer(s) batch {bs}, fused vs unfused",
+                     outs, got, tol, tol)
+        pred._exe.close()
+        plain._exe.close()
+        del pred, plain
+        torch.cuda.empty_cache()
+
+
+def _predictor_resnet(tmp, book):
+    """(c): ResNet-50 (224x224, 1000 classes) saved with the logits that
+    feed softmax and the softmax; the conv folds turn every conv2d +
+    batch_norm into conv2d_fusion; batch 8."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid, inference
+    from paddle_tpu_torch.models import resnet
+    with fluid.unique_name.guard():
+        main, startup, _, _ = resnet.build_resnet_train_program(
+            image_size=RESNET_PRED_IMAGE)
+    startup.random_seed = SEED
+    sm = [o for o in main.global_block().ops if o.type == "softmax"][-1]
+    targets = [sm.input("X")[0], sm.output("Out")[0]]
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    d = os.path.join(tmp, "resnet50")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["image"], targets, exe, main)
+    pred = inference.create_predictor(inference.Config(d))
+    census = _census(pred._program)
+    _log(f"[predictor] (c) ResNet-50: after the passes {census}")
+    if census != RESNET_PRED_CENSUS:
+        raise AssertionError(f"(c) census {census}, want {RESNET_PRED_CENSUS}")
+    _on_card(pred, "(c)")
+    rng = np.random.RandomState(SEED + 2)
+    pools = {RESNET_PRED_BATCH: [
+        {"image": rng.rand(RESNET_PRED_BATCH, 3, RESNET_PRED_IMAGE,
+                           RESNET_PRED_IMAGE).astype(np.float32)}
+        for _ in range(POOL)]}
+    first, request = _serve_window(pred, pools, NO_KERNELS, "(c)", book)
+    _check_trace(_device_kernel_counts(
+        lambda: request(pools[RESNET_PRED_BATCH][1], "(c) a traced request")),
+        NO_KERNELS, f"(c) predictor batch-{RESNET_PRED_BATCH} request")
+    feed, outs = first[RESNET_PRED_BATCH]
+    ref = exe.run(main.clone(for_test=True), feed=feed, fetch_list=targets,
+                  scope=scope, use_prune=True)
+    book.add("reference", NO_KERNELS)
+    # the folds round differently from conv + batch_norm, and at init the
+    # logits grow to hundreds (running statistics 0 and 1 normalize
+    # nothing): an element far below the largest can miss the elementwise
+    # bound by that rounding alone, as the TPU package's fold does (CPU,
+    # ResNet-50 at 32x32: max|d| 4.1e-4 at a largest logit of 188). Both
+    # are reported; the gate holds the bound to the largest logit.
+    rtol, atol = RESNET_PRED_TOL
+    for what, got, want in (("logits", outs[0], ref[0]),
+                            ("softmax", outs[1], ref[1])):
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        elementwise = bool(np.allclose(got, want, rtol=rtol, atol=atol))
+        ok = err <= rtol * scale + atol
+        _log(f"[predictor] (c) batch-{RESNET_PRED_BATCH} {what} vs exe.run("
+             f"main.clone(for_test=True), use_prune=True): max|d| "
+             f"{err:.3e} of max {scale:.3e}; elementwise at rtol {rtol:g} "
+             f"atol {atol:g}: {'within' if elementwise else 'not within'}; "
+             f"of the largest: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(c) {what} disagree with the clone")
+    exe.close()
+    pred._exe.close()
+
+
+def phase_predictor(profile=False):
+    """Phase 14: save, load and serve through the inference predictor (the
+    docstring's phase 14). → the launches of its runs: through the
+    wrappers (warm-ups and captures) and on the card (every run)."""
+    import shutil
+    import tempfile
+    import torch
+    book = _Book()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predictor_")
+    try:
+        _reset_launch_counts()
+        _predictor_bert(tmp, book, profile)
+        _predictor_ref_bert(tmp, book)
+        _predictor_resnet(tmp, book)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wrapper = _launch_counts()
+    torch.cuda.empty_cache()
+    _log(f"[predictor] runs {dict(book.runs)}; launches through the "
+         f"wrappers {GATE_NAMES} {wrapper}, on the card "
+         f"{tuple(book.executed)}")
+    if wrapper != tuple(book.wrapped):
+        raise AssertionError(f"[predictor] the wrappers launched {wrapper}, "
+                             f"the runs account for {tuple(book.wrapped)}")
+    return {"wrapper": wrapper, "executed": tuple(book.executed),
+            "runs": dict(book.runs)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -4153,6 +4608,7 @@ def main(argv=None) -> int:
     paths["transformer"] = phase_transformer(profile=args.profile)
     paths["lane512"] = phase_lane512(profile=args.profile)
     paths["wide_deep"] = phase_wide_deep(profile=args.profile)
+    paths["predictor"] = phase_predictor(profile=args.profile)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

@@ -1,7 +1,9 @@
 """fluid — the Fluid v1.7 front end of paddle_tpu_torch (counterpart of
 paddle_tpu/fluid; so far: Program building, the layers of the BERT-base
 pretraining step, append_backward, SGD, Momentum, Adam and
-RecomputeOptimizer, contrib.mixed_precision, and the Executor)."""
+RecomputeOptimizer, contrib.mixed_precision, the Executor, the program
+proto with clone and _prune, io (save and load), the pass system of ir,
+and the verifier of analysis)."""
 from . import core
 from .core import (CPUPlace, CUDAPlace, TPUPlace, LoDTensor, Scope,
                    global_scope)
@@ -23,6 +25,9 @@ from . import executor
 from .executor import Executor, scope_guard
 from . import param_bridge
 from . import contrib
+from . import analysis
+from . import ir
+from . import io
 
 __all__ = [
     "core", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor", "Scope",
@@ -31,5 +36,5 @@ __all__ = [
     "cpu_places", "cuda_places", "unique_name",
     "initializer", "regularizer", "clip", "ParamAttr", "layers", "data",
     "backward", "append_backward", "optimizer", "Executor", "param_bridge",
-    "contrib",
+    "contrib", "analysis", "ir", "io",
 ]

@@ -179,6 +179,24 @@ def _window_feed_names(program, feed, n_steps: int) -> Tuple[str, ...]:
     return tuple(names)
 
 
+def _without_feed_fetch(program: Program) -> Program:
+    """``program``, or, when its global block holds ``feed`` or ``fetch``
+    ops, a clone without them, made once for each program version and
+    kept on the program (so the compiled cache sees one program)."""
+    if not any(op.type in ("feed", "fetch")
+               for op in program.global_block().ops):
+        return program
+    cache = program.__dict__.setdefault("_io_free", {})
+    got = cache.get(program._version)
+    if got is None:
+        got = program.clone()
+        got.global_block().ops = [op for op in got.global_block().ops
+                                  if op.type not in ("feed", "fetch")]
+        cache.clear()
+        cache[program._version] = got
+    return got
+
+
 def _initialized(scope: Scope, name: str) -> bool:
     v = scope.find_var(name)
     return v is not None and v.is_initialized()
@@ -1303,13 +1321,23 @@ class Executor:
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list=None, feed_var_name="feed", fetch_var_name="fetch",
             scope: Optional[Scope] = None, return_numpy: bool = True,
-            use_program_cache: bool = False, n_steps: int = 1):
+            use_program_cache: bool = False, use_prune: bool = False,
+            n_steps: int = 1):
         """Run ``program``'s global block. ``feed``: name → array;
         ``fetch_list``: Variables or names. Returns numpy arrays, or
         LoDTensors on the executor's device when ``return_numpy`` is
         False. ``feed_var_name``, ``fetch_var_name`` and
         ``use_program_cache`` are accepted for the reference signature and
-        change nothing here: compiled blocks are always cached.
+        change nothing here: compiled blocks are always cached. The block's
+        ``feed`` and ``fetch`` ops, which a saved inference program
+        carries, do not run: feeds and fetches go by name (the TPU
+        package's compiled path drops them too).
+
+        ``use_prune`` runs the backward slice of the block to the fetches
+        (``Program._prune``; the TPU package's executor.py:2070-2083),
+        made once for each (program version, fetch list) and kept on the
+        program. Pruning a training program to its loss drops the
+        optimizer ops, as in the reference.
 
         ``n_steps`` > 1 runs that many steps as one window (the module
         docstring): windowed feeds ([n_steps, ...] stacks) give one slice
@@ -1324,6 +1352,14 @@ class Executor:
         scope = global_scope() if scope is None else scope
         feed = {} if feed is None else feed
         fetch_names = _to_fetch_names(fetch_list)
+        if use_prune and fetch_names:
+            pkey = (program._version, tuple(fetch_names))
+            cache = program.__dict__.setdefault("_prune_cache", {})
+            pruned = cache.get(pkey)
+            if pruned is None:
+                pruned = cache[pkey] = program._prune(list(fetch_names))
+            program = pruned
+        program = _without_feed_fetch(program)
         seed = int(program.random_seed or core.globals_["FLAGS_seed"])
         mode = core.globals_["FLAGS_executor_mode"]
         if mode not in _MODES:
@@ -1750,13 +1786,14 @@ def _interpret_op(op, idx: int, scope: Scope, keys: _StepKeys, device,
                   check: bool = False) -> List[str]:
     """Op ``idx`` of the block over the scope (the interpreter's step, and
     an island's): its inputs read from the scope, its outputs written
-    there; a stateful op gets its Operator as ``attrs["_op"]``.
+    there; a stateful op gets its Operator as ``attrs["_op"]`` and the
+    scope as ``attrs["_scope"]``.
     ``check``: the raise action's per-op finite check, before the outputs
     are written. → the names written."""
     info, grad_of, ridx = _resolve(op, idx)
     attrs = _kernel_attrs(op, info, ridx, device, keys)
     if info.stateful:
-        attrs = dict(attrs, _op=op)
+        attrs = dict(attrs, _op=op, _scope=scope)
     ins: Dict[str, list] = {}
     for slot, names in op.inputs.items():
         vals = []

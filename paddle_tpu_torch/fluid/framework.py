@@ -2,11 +2,16 @@
 
 Counterpart of paddle_tpu/fluid/framework.py (reference:
 python/paddle/fluid/framework.py — Program:3843, Block:2386, Operator:1817,
-Variable:830). The Python objects are the source of truth and the Program
-lives in memory; serialization to the wire-compatible ProgramDesc comes in
-a later slice. An Operator is pure metadata; the Executor runs it. A
-Variable's arithmetic and comparison operators append ops, as the
-reference's do (framework.py:206-222 of the TPU package).
+Variable:830). The Python objects are the source of truth and serialize
+to the wire-compatible ProgramDesc (``proto/framework.proto``, through the
+plain-Python codec ``proto/framework_pb2.py``), so a program the TPU
+package saves parses here and the other way round, byte for byte. An
+Operator is pure metadata; the Executor runs it. A Variable's arithmetic
+and comparison operators append ops, as the reference's do
+(framework.py:206-222 of the TPU package). ``Program.clone(for_test=)``
+and ``Program._prune`` give the test-mode copy and the backward slice that
+``io.save_inference_model`` writes (the TPU package's framework.py:650,
+:701).
 """
 from __future__ import annotations
 
@@ -14,10 +19,12 @@ import contextlib
 import os
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import core, unique_name
 from .core import VarDesc, convert_np_dtype_to_dtype_
+from .proto import framework_pb2
 from ..ops.registry import OPS, grad_var_name
 
 __all__ = [
@@ -82,6 +89,25 @@ class Variable:
                 f".stop_gradient({self.stop_gradient})")
 
     __repr__ = __str__ = lambda self: self.to_string()
+
+    def _to_proto(self) -> framework_pb2.VarDesc:
+        vd = framework_pb2.VarDesc()
+        vd.name = self.name
+        vd.type.type = self.type
+        vd.persistable = self.persistable
+        vd.need_check_feed = self.need_check_feed
+        if self.type == VarDesc.VarType.LOD_TENSOR:
+            vd.type.lod_tensor.tensor.data_type = self.dtype
+            vd.type.lod_tensor.tensor.dims.extend(self.shape)
+            vd.type.lod_tensor.lod_level = self.lod_level
+        elif self.type == VarDesc.VarType.SELECTED_ROWS:
+            vd.type.selected_rows.data_type = self.dtype
+            vd.type.selected_rows.dims.extend(self.shape)
+        elif self.type == VarDesc.VarType.LOD_TENSOR_ARRAY:
+            vd.type.tensor_array.tensor.data_type = self.dtype
+            vd.type.tensor_array.tensor.dims.extend(self.shape)
+            vd.type.tensor_array.lod_level = self.lod_level
+        return vd
 
     # operator sugar, so that ``a + b`` builds an op in a static graph; a
     # Python number becomes a fill_constant [1] of the Variable's dtype
@@ -193,12 +219,43 @@ class Operator:
     def _set_attr(self, name, val):
         self.attrs[name] = val
 
+    def _rename_input(self, old, new):
+        for ns in self.inputs.values():
+            for i, n in enumerate(ns):
+                if n == old:
+                    ns[i] = new
+
+    def _rename_output(self, old, new):
+        for ns in self.outputs.values():
+            for i, n in enumerate(ns):
+                if n == old:
+                    ns[i] = new
+
     def to_string(self, throw_on_error=False):
         attrs = {k: v for k, v in self.attrs.items() if not k.startswith("_")}
         return f"{self.outputs} = {self.type}(inputs={self.inputs}, " \
                f"attrs={attrs})"
 
     __repr__ = __str__ = lambda self: self.to_string()
+
+    def _to_proto(self) -> framework_pb2.OpDesc:
+        od = framework_pb2.OpDesc()
+        od.type = self.type
+        for slot, names in self.inputs.items():
+            v = od.inputs.add()
+            v.parameter = slot
+            v.arguments.extend(names)
+        for slot, names in self.outputs.items():
+            v = od.outputs.add()
+            v.parameter = slot
+            v.arguments.extend(names)
+        for name, val in sorted(self.attrs.items()):
+            if name.startswith("_"):
+                continue  # runtime-internal attrs do not serialize
+            a = od.attrs.add()
+            a.name = name
+            _attr_to_proto(a, val)
+        return od
 
 
 def _normalize_slots(slots) -> Dict[str, List[str]]:
@@ -214,6 +271,91 @@ def _normalize_slots(slots) -> Dict[str, List[str]]:
         res[slot] = [a if isinstance(a, str) else getattr(a, "name", None)
                      or str(a) for a in args]
     return res
+
+
+def _attr_to_proto(a: framework_pb2.OpDesc.Attr, val):
+    """One attr's typed value (the TPU package's framework.py:374): an int
+    outside int32 is a LONG, a list takes its first element's type, an
+    empty list is INTS."""
+    AT = framework_pb2
+    if isinstance(val, bool):
+        a.type = AT.BOOLEAN
+        a.b = val
+    elif isinstance(val, (int, np.integer)):
+        iv = int(val)
+        if -(2**31) <= iv < 2**31:
+            a.type = AT.INT
+            a.i = iv
+        else:
+            a.type = AT.LONG
+            a.l = iv
+    elif isinstance(val, (float, np.floating)):
+        a.type = AT.FLOAT
+        a.f = float(val)
+    elif isinstance(val, str):
+        a.type = AT.STRING
+        a.s = val
+    elif isinstance(val, Block):
+        a.type = AT.BLOCK
+        a.block_idx = val.idx
+    elif isinstance(val, (list, tuple)):
+        if len(val) == 0:
+            a.type = AT.INTS
+        elif isinstance(val[0], bool):
+            a.type = AT.BOOLEANS
+            a.bools.extend(bool(x) for x in val)
+        elif isinstance(val[0], (int, np.integer)):
+            if all(-(2**31) <= int(x) < 2**31 for x in val):
+                a.type = AT.INTS
+                a.ints.extend(int(x) for x in val)
+            else:
+                a.type = AT.LONGS
+                a.longs.extend(int(x) for x in val)
+        elif isinstance(val[0], (float, np.floating)):
+            a.type = AT.FLOATS
+            a.floats.extend(float(x) for x in val)
+        elif isinstance(val[0], str):
+            a.type = AT.STRINGS
+            a.strings.extend(val)
+        elif isinstance(val[0], Block):
+            a.type = AT.BLOCKS
+            a.blocks_idx.extend(b.idx for b in val)
+        else:
+            raise TypeError(f"unsupported list attr {val!r}")
+    else:
+        raise TypeError(f"unsupported attr {val!r}")
+
+
+def _attr_from_proto(a: framework_pb2.OpDesc.Attr, program: "Program"):
+    """The inverse of ``_attr_to_proto`` (the TPU package's
+    framework.py:424); BLOCK and BLOCKS resolve to ``program``'s blocks."""
+    AT = framework_pb2
+    t = a.type
+    if t == AT.INT:
+        return a.i
+    if t == AT.FLOAT:
+        return a.f
+    if t == AT.STRING:
+        return a.s
+    if t == AT.INTS:
+        return list(a.ints)
+    if t == AT.FLOATS:
+        return list(a.floats)
+    if t == AT.STRINGS:
+        return list(a.strings)
+    if t == AT.BOOLEAN:
+        return a.b
+    if t == AT.BOOLEANS:
+        return list(a.bools)
+    if t == AT.BLOCK:
+        return program.block(a.block_idx)
+    if t == AT.BLOCKS:
+        return [program.block(i) for i in a.blocks_idx]
+    if t == AT.LONG:
+        return a.l
+    if t == AT.LONGS:
+        return list(a.longs)
+    raise TypeError(f"unknown attr type {t}")
 
 
 # --------------------------------------------------------------------------
@@ -272,8 +414,27 @@ class Block:
         except ValueError:
             return None
 
+    def has_var_recursive(self, name: str) -> bool:
+        return self._find_var_recursive(name) is not None
+
     def all_parameters(self) -> List[Parameter]:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
+    def _rename_var(self, old: str, new: str):
+        v = self.vars.pop(old)
+        v.name = new
+        self.vars[new] = v
+        for op in self.ops:
+            op._rename_input(old, new)
+            op._rename_output(old, new)
+        return v
+
+    def _remove_var(self, name: str):
+        self.vars.pop(name, None)
+
+    def _remove_op(self, index: int, end: Optional[int] = None):
+        del self.ops[index:(index + 1) if end is None else end]
+        self.program._version += 1
 
     # -- ops --------------------------------------------------------------
     def append_op(self, type: str, inputs=None, outputs=None, attrs=None,
@@ -321,6 +482,17 @@ class Block:
 
     __repr__ = __str__ = lambda self: self.to_string()
 
+    def _to_proto(self) -> framework_pb2.BlockDesc:
+        bd = framework_pb2.BlockDesc()
+        bd.idx = self.idx
+        bd.parent_idx = self.parent_idx
+        bd.forward_block_idx = self.forward_block_idx
+        for v in self.vars.values():
+            bd.vars.append(v._to_proto())
+        for op in self.ops:
+            bd.ops.append(op._to_proto())
+        return bd
+
 
 # --------------------------------------------------------------------------
 # Program
@@ -365,10 +537,158 @@ class Program:
         for b in self.blocks:
             yield from b.vars.values()
 
+    # -- clone / prune (the TPU package's framework.py:650-726) ------------
+    def clone(self, for_test: bool = False) -> "Program":
+        """A copy with its own blocks, vars and ops. ``for_test`` sets
+        ``is_test`` on every op whose registered attrs have it (dropout,
+        batch_norm). The AMP dynamic loss-scaling state rides along: a
+        clone that keeps the scaled-loss and unscale ops must keep the
+        scale update too."""
+        p = Program()
+        p.blocks = []
+        for b in self.blocks:
+            nb = Block(p, b.idx, b.parent_idx)
+            nb.forward_block_idx = b.forward_block_idx
+            p.blocks.append(nb)
+        for b, nb in zip(self.blocks, p.blocks):
+            for name, v in b.vars.items():
+                if isinstance(v, Parameter):
+                    nv = Parameter(nb, shape=v.shape, dtype=v.dtype,
+                                   name=v.name, trainable=v.trainable,
+                                   optimize_attr=v.optimize_attr,
+                                   regularizer=v.regularizer)
+                    nv.lod_level = v.lod_level
+                else:
+                    nv = Variable(nb, type=v.type, name=v.name,
+                                  shape=v.shape, dtype=v.dtype,
+                                  lod_level=v.lod_level,
+                                  persistable=v.persistable,
+                                  stop_gradient=v.stop_gradient,
+                                  is_data=v.is_data,
+                                  need_check_feed=v.need_check_feed)
+                nb.vars[name] = nv
+            for op in b.ops:
+                attrs = dict(op.attrs)
+                for k, val in attrs.items():
+                    if isinstance(val, Block):
+                        attrs[k] = p.blocks[val.idx]
+                    elif isinstance(val, list) and val \
+                            and isinstance(val[0], Block):
+                        attrs[k] = [p.blocks[x.idx] for x in val]
+                if for_test and "is_test" in _op_attr_names(op.type):
+                    attrs["is_test"] = True
+                nb.ops.append(Operator(
+                    nb, op.type,
+                    inputs={k: list(v) for k, v in op.inputs.items()},
+                    outputs={k: list(v) for k, v in op.outputs.items()},
+                    attrs=attrs))
+        p.current_block_idx = self.current_block_idx
+        p._seed = self._seed
+        amp = getattr(self, "_amp_dynamic", None)
+        if amp is not None:
+            p._amp_dynamic = dict(amp)
+        return p
+
+    def _prune(self, targets) -> "Program":
+        """A clone of the global block's backward slice to ``targets``
+        (Variables or names): the ops whose outputs the targets need, in
+        order; the vars they do not reference dropped, persistables
+        kept."""
+        if not isinstance(targets, (list, tuple)):
+            targets = [targets]
+        p = self.clone()
+        block = p.global_block()
+        needed = {t.name if isinstance(t, Variable) else str(t)
+                  for t in targets}
+        keep = []
+        for op in reversed(block.ops):
+            if any(n in needed for n in op.output_arg_names):
+                keep.append(op)
+                needed.update(op.input_arg_names)
+        block.ops = list(reversed(keep))
+        referenced = set(needed)
+        for op in block.ops:
+            referenced.update(op.output_arg_names)
+        block.vars = {n: v for n, v in block.vars.items()
+                      if n in referenced or v.persistable}
+        p._version += 1
+        return p
+
+    def _inference_optimize(self, prune_read_op=True) -> "Program":
+        return self.clone(for_test=True)
+
+    # -- serialization (the TPU package's framework.py:729-800) ------------
+    def desc_proto(self) -> framework_pb2.ProgramDesc:
+        pd = framework_pb2.ProgramDesc()
+        for b in self.blocks:
+            pd.blocks.append(b._to_proto())
+        pd.version.version = 0
+        return pd
+
+    @property
+    def desc(self):
+        return self.desc_proto()
+
+    def serialize_to_string(self) -> bytes:
+        return self.desc_proto().SerializeToString()
+
+    @staticmethod
+    def parse_from_string(binary: bytes) -> "Program":
+        pd = framework_pb2.ProgramDesc()
+        pd.ParseFromString(binary)
+        return Program._from_proto(pd)
+
+    @staticmethod
+    def _from_proto(pd: framework_pb2.ProgramDesc) -> "Program":
+        """A Program of plain Variables (a parsed program has no
+        Parameter objects: its weights are persistable vars)."""
+        p = Program()
+        p.blocks = []
+        for bd in pd.blocks:
+            b = Block(p, bd.idx, bd.parent_idx)
+            b.forward_block_idx = bd.forward_block_idx
+            p.blocks.append(b)
+        for bd, b in zip(pd.blocks, p.blocks):
+            for vd in bd.vars:
+                vt = vd.type.type
+                shape, dtype, lod_level = (), VarDesc.VarType.FP32, 0
+                if vt == VarDesc.VarType.LOD_TENSOR:
+                    shape = tuple(vd.type.lod_tensor.tensor.dims)
+                    dtype = vd.type.lod_tensor.tensor.data_type
+                    lod_level = vd.type.lod_tensor.lod_level
+                elif vt == VarDesc.VarType.SELECTED_ROWS:
+                    shape = tuple(vd.type.selected_rows.dims)
+                    dtype = vd.type.selected_rows.data_type
+                elif vt == VarDesc.VarType.LOD_TENSOR_ARRAY:
+                    shape = tuple(vd.type.tensor_array.tensor.dims)
+                    dtype = vd.type.tensor_array.tensor.data_type
+                    lod_level = vd.type.tensor_array.lod_level
+                b.vars[vd.name] = Variable(
+                    b, type=vt, name=vd.name, shape=shape, dtype=dtype,
+                    lod_level=lod_level, persistable=vd.persistable,
+                    need_check_feed=vd.need_check_feed)
+            for od in bd.ops:
+                b.ops.append(Operator(
+                    b, od.type,
+                    inputs={v.parameter: list(v.arguments)
+                            for v in od.inputs},
+                    outputs={v.parameter: list(v.arguments)
+                             for v in od.outputs},
+                    attrs={a.name: _attr_from_proto(a, p)
+                           for a in od.attrs}))
+        p.current_block_idx = 0
+        return p
+
     def to_string(self, throw_on_error=False, with_details=False):
         return "\n".join(b.to_string() for b in self.blocks)
 
     __repr__ = __str__ = lambda self: self.to_string()
+
+
+def _op_attr_names(op_type: str):
+    if OPS.has(op_type):
+        return OPS.get(op_type).attr_defaults.keys()
+    return ()
 
 
 # --------------------------------------------------------------------------

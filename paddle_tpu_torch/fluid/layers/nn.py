@@ -17,7 +17,8 @@ from ..param_attr import ParamAttr
 
 __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "softmax", "reshape", "squeeze",
-           "unsqueeze", "flatten", "gather", "topk", "mean", "reduce_sum",
+           "unsqueeze", "transpose", "matmul", "flatten", "gather", "topk",
+           "mean", "reduce_sum",
            "reduce_mean", "one_hot", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min", "scale",
            "label_smooth", "log_loss", "add_position_encoding",
@@ -319,6 +320,41 @@ def unsqueeze(input, axes, name=None):
     helper.append_op(type="unsqueeze2", inputs={"X": [input]},
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axes": axes})
+    return out
+
+
+def transpose(x, perm, name=None):
+    """reference: layers/nn.py transpose → the transpose2 op."""
+    helper = LayerHelper("transpose", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype,
+                                                       stop_gradient=True)
+    if x.shape:
+        out.shape = tuple(x.shape[p] for p in perm)
+    helper.append_op(type="transpose2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    """reference: layers/nn.py matmul."""
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xs, ys = list(x.shape), list(y.shape)
+    if len(xs) >= 2 and len(ys) >= 2:
+        if transpose_x:
+            xs[-1], xs[-2] = xs[-2], xs[-1]
+        if transpose_y:
+            ys[-1], ys[-2] = ys[-2], ys[-1]
+        batch = xs[:-2] if len(xs) >= len(ys) else ys[:-2]
+        out.shape = tuple(batch + [xs[-2], ys[-1]])
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y,
+                            "alpha": float(alpha)})
     return out
 
 

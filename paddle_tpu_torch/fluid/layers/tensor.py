@@ -1,17 +1,30 @@
 """Tensor layers (counterpart of paddle_tpu/fluid/layers/tensor.py;
 reference: python/paddle/fluid/layers/tensor.py). So far: cast, concat,
-fill_constant, and ``math_op``, the helper of the Variable operators."""
+create_parameter, fill_constant, and ``math_op``, the helper of the
+Variable operators."""
 from __future__ import annotations
 
 from ..core import convert_np_dtype_to_dtype_
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "concat", "fill_constant"]
+__all__ = ["cast", "concat", "create_parameter", "fill_constant"]
 
 
 def _dtype(d):
     return d if isinstance(d, int) else convert_np_dtype_to_dtype_(d)
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A parameter of ``shape`` and ``dtype``, initialized by the startup
+    program."""
+    from ..param_attr import ParamAttr
+    helper = LayerHelper("create_parameter", **locals())
+    if attr is None:
+        attr = ParamAttr(name=name)
+    return helper.create_parameter(attr, shape, _dtype(dtype), is_bias,
+                                   default_initializer)
 
 
 def math_op(op_type, x, y):

@@ -5,7 +5,10 @@ pretraining step (the encoder forward, the masked-LM loss, dropout, the
 optimizer updates and the startup program), the conv nets' ops and the
 Transformer's (position encoding, one-hot, label smoothing, reductions,
 the LR schedule's step counter) and Wide&Deep's (lookup_table, concat,
-sigmoid, log_loss, and the stateful auc and print)."""
+sigmoid, log_loss, and the stateful auc and print), and the ops that
+saved and rewritten inference programs carry (feed, fetch, assign,
+transpose2, matmul, and the fused fc, fused_embedding_eltwise_layernorm,
+fused_fc_elementwise_layernorm and conv2d_fusion)."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
@@ -15,3 +18,4 @@ from . import nn_extra_ops   # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import framework_ops  # noqa: F401
+from . import fused_ops      # noqa: F401

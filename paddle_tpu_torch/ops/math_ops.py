@@ -1,6 +1,7 @@
 """Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
 far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
-elementwise_max, elementwise_min, elementwise_pow, mul, scale, increment,
+elementwise_max, elementwise_min, elementwise_pow, mul, matmul, scale,
+increment,
 relu, sigmoid, gelu, square, mean, sum, the reduce_* family, isfinite,
 and the comparisons less_than, less_equal, greater_than, greater_equal).
 
@@ -122,6 +123,38 @@ def _mul(ins, attrs):
     x2 = x.reshape((math.prod(xs[:xn]), -1))
     y2 = y.reshape((math.prod(ys[:yn]), -1))
     return out(Out=_mm(x2, y2).reshape(xs[:xn] + ys[yn:]))
+
+
+@register_op("matmul", inputs=("X", "Y"),
+             attr_defaults={"transpose_X": False, "transpose_Y": False,
+                            "alpha": 1.0})
+def _matmul(ins, attrs):
+    """Batched product with optional transposes of the last two dims and
+    a scale (reference: operators/matmul_op.cc); a 1-D operand is a row
+    (X) or a column (Y), squeezed again after, vec·vec giving [1]."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    alpha = attrs.get("alpha", 1.0)
+    squeeze_front = squeeze_back = False
+    if x.dim() == 1:
+        x = x[None, :]
+        squeeze_front = True
+    if y.dim() == 1:
+        y = y[:, None]
+        squeeze_back = True
+    if attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    o = _mm(x, y)
+    if squeeze_front:
+        o = o.squeeze(-2)
+    if squeeze_back:
+        o = o.squeeze(-1)
+    if squeeze_front and squeeze_back:
+        o = o.reshape((1,))
+    if alpha != 1.0:
+        o = o * scalar_as(alpha, o.dtype)
+    return out(Out=o)
 
 
 # --------------------------------------------------------------------------

@@ -434,10 +434,15 @@ def _accuracy(ins, attrs):
                             "slide_steps": 1})
 def _auc(ins, attrs):
     """The streaming ROC AUC (reference: operators/metrics/auc_op.h): each
-    row's positive-class probability falls in bucket min(trunc(p·nt), nt),
-    the product in f32 as the TPU kernel's numpy takes it (a NaN or
-    negative one in bucket 0, so a poisoned step reaches the numeric
-    fault guard rather than an out-of-range scatter); the positive
+    row's positive-class probability falls in bucket b = min(trunc(p·nt),
+    nt), the product in f32 as the TPU kernel's numpy takes it. A
+    negative b in [-(nt + 1), 0) is b + nt + 1, where numpy's indexing
+    wraps it in the TPU kernel; a NaN, or a b below -(nt + 1), where the
+    TPU kernel raises, counts in bucket 0, so a poisoned step reaches the
+    numeric fault guard rather than an out-of-range scatter. The product
+    is clamped in f32 before the cast, and NaN is tested before it: a
+    cast of NaN or of an out-of-range float to int64 differs between the
+    CPU and the card. The positive
     and negative labels are counted into StatPos and StatNeg, and the AUC
     is ``utils.metrics.auc_from_histograms_device``'s sweep, f32 [1].
     All on the tensors' device with no host read: the counts are exact
@@ -449,7 +454,10 @@ def _auc(ins, attrs):
     stat_pos = first(ins, "StatPos").reshape(-1)
     stat_neg = first(ins, "StatNeg").reshape(-1)
     nt = int(attrs.get("num_thresholds", 4095))
-    bucket = torch.clamp((pred[:, 1] * nt).to(torch.int64), 0, nt)
+    p = pred[:, 1] * nt
+    b = torch.clamp(p, -(nt + 2), nt).to(torch.int64)
+    b = torch.where(b < 0, b + (nt + 1), b)
+    bucket = torch.where(torch.isnan(p) | (b < 0), torch.zeros_like(b), b)
     pos = (label.reshape(-1) != 0).to(stat_pos.dtype)
     new_pos = stat_pos.scatter_add(0, bucket, pos)
     new_neg = stat_neg.scatter_add(0, bucket, 1 - pos)

@@ -1,8 +1,9 @@
 """Tensor creation / manipulation op kernels (counterpart of
-paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign_value, cast,
-uniform_random, gaussian_random, truncated_gaussian_random, reshape2,
-squeeze, squeeze2, unsqueeze2, flatten, flatten2, concat, gather and its
-grad, top_k, one_hot, one_hot_v2, label_smooth).
+paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign,
+assign_value, cast, uniform_random, gaussian_random,
+truncated_gaussian_random, reshape2, transpose2, squeeze, squeeze2,
+unsqueeze2, flatten, flatten2, concat, gather and its grad, top_k,
+one_hot, one_hot_v2, label_smooth).
 
 Random ops draw from the key that ``attrs["_rng"]()`` returns (the
 executor derives it on the device from the program's random_seed, the
@@ -157,6 +158,18 @@ def _reshape2(ins, attrs):
     target = ([int(v) for v in sh.tolist()] if sh is not None
               else _shape_from(ins, attrs))
     return out(Out=x.reshape(_infer_reshape(tuple(x.shape), target)),
+               XShape=_xshape(x))
+
+
+@register_op("assign", inputs=("X",))
+def _assign(ins, attrs):
+    return out(Out=first(ins, "X"))
+
+
+@register_op("transpose2", inputs=("X",), attr_defaults={"axis": []})
+def _transpose2(ins, attrs):
+    x = first(ins, "X")
+    return out(Out=x.permute(*[int(a) for a in attrs["axis"]]),
                XShape=_xshape(x))
 
 

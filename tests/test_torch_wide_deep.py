@@ -202,8 +202,10 @@ def test_auc_bitwise_over_accumulating_calls():
 
 
 def test_auc_buckets_a_nan_prediction_in_range():
-    """A NaN (or negative) prediction counts in bucket 0: the scatter stays
-    in range, so a poisoned step reaches the numeric fault guard."""
+    """A NaN prediction counts in bucket 0: the scatter stays in range, so
+    a poisoned step reaches the numeric fault guard. A negative one wraps
+    as the TPU kernel's numpy index does: -0.5 lands in bucket
+    4096 - 2047 = 2049."""
     nt = 4095
     p = np.array([np.nan, -0.5, 0.25, 1.0], np.float32)
     pred = np.stack([1 - p, p], axis=1)
@@ -211,9 +213,29 @@ def test_auc_buckets_a_nan_prediction_in_range():
     zeros = np.zeros(nt + 1, np.int64)
     _, pos, neg = _auc_run(TOPS.get("auc").kernel, torch.from_numpy, pred,
                            label, zeros, zeros, nt)
-    assert pos[0] == 1 and neg[0] == 1
+    assert pos[0] == 1 and neg[2049] == 1
     assert pos[int(np.float32(0.25) * nt)] == 1 and neg[nt] == 1
     assert int(pos.sum()) + int(neg.sum()) == 4
+
+
+@pytest.mark.parametrize("positive", [False, True])
+def test_auc_out_of_range_predictions_match_reference(positive):
+    """Predictions outside [0, 1] bucket as the TPU kernel's numpy does:
+    min(trunc(p * nt), nt), a negative bucket wrapped by the index."""
+    nt = 4095
+    p = np.array([-0.5, -1.0, 0.0, 0.25, 1.0], np.float32)
+    pred = np.stack([1 - p, p], axis=1)
+    label = np.full((len(p), 1), int(positive), np.int64)
+    zeros = np.zeros(nt + 1, np.int64)
+    ta, tpos, tneg = _auc_run(TOPS.get("auc").kernel, torch.from_numpy,
+                              pred, label, zeros, zeros, nt)
+    ja, jpos, jneg = _auc_run(JOPS.get("auc").kernel, jnp.asarray, pred,
+                              label, zeros, zeros, nt)
+    assert np.array_equal(tpos, jpos.astype(np.int64))
+    assert np.array_equal(tneg, jneg.astype(np.int64))
+    hist = tpos if positive else tneg
+    assert sorted(np.nonzero(hist)[0].tolist()) == [0, 1, 1023, 2049, 4095]
+    assert ta.tobytes() == ja.astype(np.float32).tobytes()
 
 
 def test_auc_device_sweep_is_the_host_loop():
