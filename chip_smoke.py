@@ -76,7 +76,10 @@ Phases, each fatal on failure:
               bf16; against the plain versions); a
               bias the kernels do not take, the einsum path with the flash
               kernels' dropout mask; D = 192 and f16, which have no kernel
-              instance, raise and launch nothing. Every launch gate below
+              instance, raise and launch nothing; a NaN in the bias, at
+              one key or at every key of a batch, makes that batch's O
+              NaN on the f32, tiled, whole-block and streamed forwards,
+              as in the plain version. Every launch gate below
               counts (tiled forward, dK/dV, dQ, fused backward, dropout,
               whole forward, streamed forward, streamed dQ, streamed
               dK/dV, f32 forward, f32 dK/dV, f32 dQ) kernels; a tuple
@@ -288,6 +291,41 @@ Phases, each fatal on failure:
               clone for test within rtol 1e-4, atol 1e-5 of the largest
               (the elementwise bound is reported too). Reports p50, p99
               and sequences/s of each window.
+ 15. resume — fault-tolerant training with the checkpoint plane
+              (fluid.io.save_checkpoint and load_checkpoint,
+              Executor.set_auto_checkpoint, resume_from, the guard's
+              HealthMonitor) and the DataLoader: BERT-base at full width,
+              f32, dropout 0.1, input mask, Adam, batch 32, S = 128 (the
+              train phase's step), 16 distinct batches from a seed fed by
+              DataLoader.from_generator, checkpoints in a temporary
+              directory deleted at the end. (a) The oracle: 12 steps,
+              unbroken. (b) A victim checkpointing every 4 steps of the
+              scope's counter (the startup counts one), dropped (executor,
+              scope, loader) 2 steps past its last checkpoint without a
+              save; a fresh executor, scope and loader run the startup,
+              resume_from() and go on to step 12. (c) The same fed by
+              DataLoader.window(4) with the default prefetch, one
+              run(n_steps=4) a window, checkpointing every 8 steps (a
+              window crosses a boundary of 4 every time), dropped one
+              window past it. (d) FLAGS_check_nan_inf with
+              FLAGS_nan_inf_action=rollback, FLAGS_nan_inf_tolerance=2,
+              a checkpoint every 2 steps, the input mask NaN once at steps
+              5 (one key) and 6 (every key): the monitor restores the
+              last checkpoint and the
+              loader's position, the loop rewinds and replays. (e) Wide&
+              Deep with its auc island, segmented, its tables cut to 1e5
+              ids a slot (bench.py: 1e6), killed and resumed as (b).
+              Checks: every BERT run compiled with (0, 0, 0, 0, 37, 0, 0,
+              0, 0, 24, 12, 12) launches (a window's as its graph recorded
+              them); the losses after each resume, the rollback's replay
+              and the victims' own equal to the oracle's bitwise, and
+              every persistable at the end; rollbacks 1 and trips 2, and
+              after the restore replays only, no capture; Wide&Deep's
+              losses, AUCs and persistables (the auc state among them)
+              bitwise, every run segmented, no kernel of KERNELS. Reports
+              the checkpoint's bytes, the seconds to save, validate and
+              load it, and the step p50 and mean with and without
+              auto-checkpointing every 4 steps.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -1490,6 +1528,50 @@ def phase_attention_routes():
         if not ok:
             raise AssertionError(f"attention at D={hidden // heads} "
                                  f"{dt}: want {err.__name__}, no launch")
+    _nan_bias_routes(gen)
+
+
+def _nan_bias_routes(gen):
+    """A NaN in the key-padding bias (an input mask gone bad) reaches O on
+    every forward route as in the plain version and the TPU kernels
+    (jnp.maximum keeps a NaN where fmaxf drops it): one key's NaN makes
+    its batch's rows NaN, and so does every key's (no row of it is dead);
+    the other batch agrees with the plain version within the route's
+    tolerance."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    for dt, sq, d, want_route in ((torch.float32, S, 64, "f32"),
+                                  (torch.float32, S, 96, "tiled"),
+                                  (torch.bfloat16, S, 64, "whole"),
+                                  (torch.bfloat16, 2 * S, 64, "streamed")):
+        q, k, v = (torch.randn(2, 4, sq, d, generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        for where in ("one key", "every key"):
+            bias = _padding_bias(2, sq, gen)
+            if where == "one key":
+                bias[0, 3] = float("nan")
+            else:
+                bias[0] = float("nan")
+            route = fa.fwd_route(q.shape, k.shape, dt)
+            o, _ = fa.flash_attention_fwd(q, k, v, d ** -0.5, False, 0.0,
+                                          None, bias)
+            ro, _ = fa.flash_attention_reference(q, k, v, d ** -0.5, False,
+                                                 0.0, None, bias)
+            nan_o = torch.isnan(o.float())
+            ok = route == want_route \
+                and torch.equal(nan_o, torch.isnan(ro.float())) \
+                and bool(nan_o[0].all()) and not bool(nan_o[1].any()) \
+                and torch.allclose(o[1].float(), ro[1].float(), rtol=tol,
+                                   atol=tol)
+            _log(f"[route] NaN in the bias at {where} of batch 0, "
+                 f"{str(dt)[6:]} S = Sk = {sq} D = {d}: route {route}, "
+                 f"O NaN in {int(nan_o[0].sum())} of {nan_o[0].numel()} "
+                 f"values of batch 0 and {int(nan_o[1].sum())} of batch 1, "
+                 f"as the plain version -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the {route} forward drops a NaN "
+                                     f"in the bias ({where})")
 
 
 def phase_kernel_dropout():
@@ -4569,6 +4651,464 @@ def phase_predictor(profile=False):
             "runs": dict(book.runs)}
 
 
+# --------------------------------------------------------------------------
+# 15. resume — checkpoints, kill and resume, the guard's rollback
+# --------------------------------------------------------------------------
+RESUME_STEPS = 12             # steps of the oracle; the resumed runs end there
+RESUME_BATCHES = 16           # distinct batches: the loader reads past 12
+RESUME_EVERY = 4              # the victim's checkpoints, per step
+RESUME_PAST = 2               # steps the victim takes past its last one
+RESUME_K = 4                  # windows of DataLoader.window(4)
+RESUME_WINDOW_EVERY = 8       # the windowed victim's checkpoints: windows
+                              # of 4 cross a boundary of 4 at every window
+ROLLBACK_EVERY = 2            # checkpoints under the guard's rollback
+ROLLBACK_TOLERANCE = 2        # tripped steps in a row before a restore
+ROLLBACK_POISONED = (5, 6)    # steps whose input mask is NaN, once: one
+                              # key's, then every key's
+WD_RESUME_DIM = int(1e5)      # Wide&Deep ids a slot (bench.py's 1e6): one
+                              # checkpoint of 26 tables with Adam's moments
+                              # stays near 0.53 GB
+
+
+class _Resume:
+    """What phase 15's runs launched and how long its steps took."""
+
+    def __init__(self):
+        import collections
+        self.runs = collections.Counter()
+        self.executed = [0] * len(KERNELS)
+        self.times = {}
+
+    def step(self, exe, main, feed, fetch, scope, want, what, tag=None,
+             finite=True):
+        """One compiled run of a single step or a window (a WindowBatch
+        sets n_steps), gated on its kernel launches. → its fetches."""
+        import numpy as np
+        before = _launch_counts()
+        stats0 = {id(cb): dict(cb.stats)
+                  for cb in exe._compiled_cache.values()}
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        dt = time.perf_counter() - t
+        delta = tuple(a - b for a, b in zip(_launch_counts(), before))
+        k = getattr(feed, "k", 1)
+        if k == 1:
+            self.runs[_gate_run(exe, delta, want, what)] += 1
+        else:
+            _gate_window(exe, delta, stats0.get(id(exe._last_block), {}),
+                         k, want, what)
+            self.runs["window"] += 1
+        for i, w in enumerate(want):
+            self.executed[i] += k * w
+        if tag is not None:
+            self.times.setdefault(tag, []).append(dt)
+        if finite and not all(np.isfinite(o).all() for o in out):
+            raise AssertionError(f"{what}: a non-finite fetch")
+        return out
+
+
+def _gate_window(exe, delta, s0, k, want, what):
+    """A compiled window of ``k`` steps: its eager step and capture went
+    through the wrappers, every other step replayed the graph, which
+    recorded ``want``."""
+    if exe._last_run_mode != "compiled":
+        raise AssertionError(f"{what} ran {exe._last_run_mode}")
+    cb = exe._last_block
+    d = {n: cb.stats[n] - s0.get(n, 0) for n in ("eager", "captures",
+                                                  "replays")}
+    graph = tuple(cb.graph_launches.get(n, 0) for n in KERNELS)
+    if d["eager"] + d["replays"] != k or graph != want or delta != tuple(
+            (d["eager"] + d["captures"]) * w for w in want):
+        raise AssertionError(
+            f"{what}: {d} over a window of {k}, {delta} launches through "
+            f"the wrappers, {graph} in the graph; want {want} a step")
+
+
+def _resume_loader(batches):
+    from paddle_tpu_torch import fluid
+    ldr = fluid.DataLoader.from_generator(capacity=4)
+    ldr.set_batch_generator(lambda: iter(batches), places=fluid.CUDAPlace(0))
+    return ldr
+
+
+def _fresh(main, startup):
+    from paddle_tpu_torch import fluid
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    return exe, scope
+
+
+def _host_steps(scope):
+    from paddle_tpu_torch import fluid
+    return fluid.Executor._rng_counters[scope]
+
+
+def _drop(exe):
+    """The kill: the executor with its graphs goes, the card's memory is
+    returned."""
+    import gc
+    import torch
+    exe.close()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _same_state(what, got, want, tag="[resume]"):
+    """Two {name: tensor} maps of persistables equal bit for bit."""
+    import torch
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: persistables {sorted(got)[:4]} .. "
+                             f"against {sorted(want)[:4]} ..")
+    differ = [n for n in want if not torch.equal(got[n], want[n])]
+    _log(f"{tag} {what}: {len(want)} persistables " +
+         (f"{len(differ)} differ: {differ[:5]}" if differ
+          else "bitwise equal") + f" -> {'FAIL' if differ else 'ok'}")
+    if differ:
+        raise AssertionError(f"{what}: persistables differ")
+
+
+def _ckpt_bytes(path):
+    import os
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+def _bert_resume(book, root, main, startup, loss, batches, oracle,
+                 oracle_state):
+    """(b): a victim checkpointing every RESUME_EVERY steps through
+    set_auto_checkpoint, dropped RESUME_PAST steps past its last
+    checkpoint; a fresh executor, scope and loader resume_from() it and
+    go on to RESUME_STEPS. → the seconds of the victim's steps that
+    saved."""
+    import os
+    from paddle_tpu_torch import fluid
+    want = TRAIN_STEP_WANT
+    ck = os.path.join(root, "per_step")
+    exe, scope = _fresh(main, startup)
+    ldr = _resume_loader(batches)
+    exe.set_auto_checkpoint(ck, every_n_steps=RESUME_EVERY, program=main,
+                            scope=scope, dataloader=ldr)
+    last = (RESUME_STEPS // RESUME_EVERY - 1) * RESUME_EVERY
+    kill_at = last + RESUME_PAST
+    victim, saving = [], []
+    for b in ldr:
+        (lv,) = book.step(exe, main, b, [loss], scope, want,
+                          "[resume] victim step", tag="with")
+        victim.append(float(lv.reshape(-1)[0]))
+        if _host_steps(scope) % RESUME_EVERY == 0:  # this run saved
+            saving.append(book.times["with"][-1])
+        if _host_steps(scope) >= kill_at:
+            break
+    _bitwise("victim vs oracle: losses", [victim], [oracle[:len(victim)]],
+             tag="[resume]")
+    kept = sorted(os.listdir(ck))
+    _log(f"[resume] victim: {len(victim)} steps, checkpoints {kept}, "
+         f"dropped {RESUME_PAST} steps past the last without a save")
+    _drop(exe)
+    del exe, scope, ldr
+    exe, scope = _fresh(main, startup)
+    ldr = _resume_loader(batches)
+    manifest = exe.resume_from(ck, program=main, scope=scope,
+                               dataloader=ldr)
+    start = manifest["global_step"] - 1
+    if manifest["global_step"] != last or manifest["dataloader"] != {
+            "epoch": 0, "position": start} or _host_steps(scope) != last:
+        raise AssertionError(f"[resume] manifest {manifest['global_step']}"
+                             f" {manifest['dataloader']}")
+    resumed = []
+    for b in ldr:
+        (lv,) = book.step(exe, main, b, [loss], scope, want,
+                          "[resume] resumed step")
+        resumed.append(float(lv.reshape(-1)[0]))
+        if _host_steps(scope) > RESUME_STEPS:
+            break
+    _bitwise(f"resumed at step {start} vs oracle steps {start}.."
+             f"{RESUME_STEPS - 1}: losses", [resumed], [oracle[start:]],
+             tag="[resume]")
+    _same_state("after the resumed run vs the oracle",
+                _persistables(scope, main), oracle_state)
+    # the plane's own costs, on the resumed run's final state
+    t0 = time.perf_counter()
+    path = fluid.save_checkpoint(exe, os.path.join(root, "timed"), main,
+                                 scope=scope, global_step=99)
+    t1 = time.perf_counter()
+    m = fluid.validate_checkpoint(path)
+    t2 = time.perf_counter()
+    fluid.load_checkpoint(exe, path, main, scope=scope)
+    import torch
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    nbytes = _ckpt_bytes(path)
+    _log(f"[resume] BERT-base checkpoint: {len(m['files'])} files, "
+         f"{nbytes} bytes ({nbytes / 2**30:.3f} GiB); save "
+         f"{t1 - t0:.3f} s, validate {t2 - t1:.3f} s, load "
+         f"{t3 - t2:.3f} s ({_card_line()})")
+    _drop(exe)
+    return saving, nbytes
+
+
+def _bert_window_resume(book, root, main, startup, loss, batches, oracle,
+                        oracle_state):
+    """(c): the same kill and resume fed by window(RESUME_K) with the
+    default prefetch, one run(n_steps=RESUME_K) a window."""
+    import os
+    want = TRAIN_STEP_WANT
+    ck = os.path.join(root, "window")
+    exe, scope = _fresh(main, startup)
+    ldr = _resume_loader(batches)
+    exe.set_auto_checkpoint(ck, every_n_steps=RESUME_WINDOW_EVERY,
+                            program=main, scope=scope, dataloader=ldr)
+    victim = []
+    for w in ldr.window(RESUME_K):
+        (lv,) = book.step(exe, main, w, [loss], scope, want,
+                          "[resume] victim window")
+        victim.extend(float(x) for x in lv.reshape(-1))
+        if len(victim) >= RESUME_STEPS:
+            break
+    _bitwise("windowed victim vs oracle: losses", [victim], [oracle],
+             tag="[resume]")
+    kept = sorted(os.listdir(ck))
+    position = ldr.state_dict()["position"]
+    _log(f"[resume] windowed victim: {len(victim)} steps in windows of "
+         f"{RESUME_K}, checkpoints {kept}, loader at {position} handed out "
+         "when dropped")
+    _drop(exe)
+    del exe, scope, ldr
+    exe, scope = _fresh(main, startup)
+    ldr = _resume_loader(batches)
+    manifest = exe.resume_from(ck, program=main, scope=scope,
+                               dataloader=ldr)
+    start = manifest["global_step"] - 1
+    if manifest["dataloader"] != {"epoch": 0, "position": start} \
+            or start % RESUME_K:
+        raise AssertionError(f"[resume] windowed manifest "
+                             f"{manifest['global_step']} "
+                             f"{manifest['dataloader']}")
+    resumed = []
+    for w in ldr.window(RESUME_K):
+        (lv,) = book.step(exe, main, w, [loss], scope, want,
+                          "[resume] resumed window")
+        resumed.extend(float(x) for x in lv.reshape(-1))
+        if start + len(resumed) >= RESUME_STEPS:
+            break
+    _bitwise(f"windows resumed at step {start} vs oracle: losses",
+             [resumed], [oracle[start:]], tag="[resume]")
+    _same_state("after the resumed windows vs the oracle",
+                _persistables(scope, main), oracle_state)
+    _drop(exe)
+
+
+def _bert_rollback(book, root, main, startup, loss, batches, oracle,
+                   oracle_state):
+    """(d): FLAGS_check_nan_inf with the rollback action, tolerance
+    ROLLBACK_TOLERANCE, a checkpoint every ROLLBACK_EVERY steps, the
+    input mask NaN at ROLLBACK_POISONED once; the monitor restores the
+    last checkpoint and the loader's position, the loop rewinds
+    (tests/test_numeric_faults.py:310-370) and replays."""
+    import os
+    import numpy as np
+    from paddle_tpu_torch.fluid import core
+    want = TRAIN_STEP_WANT
+    flags = {"FLAGS_check_nan_inf": True, "FLAGS_nan_inf_action": "rollback",
+             "FLAGS_nan_inf_tolerance": ROLLBACK_TOLERANCE}
+    saved = {n: core.globals_[n] for n in flags}
+    for n, v in flags.items():
+        core.set_flag(n, v)
+    try:
+        exe, scope = _fresh(main, startup)
+        ldr = _resume_loader(batches)
+        ck = os.path.join(root, "rollback")
+        exe.set_auto_checkpoint(ck, every_n_steps=ROLLBACK_EVERY,
+                                program=main, scope=scope, dataloader=ldr)
+        base = _host_steps(scope)
+        got = [None] * RESUME_STEPS
+        poisoned = set(ROLLBACK_POISONED)
+        it, i, seen, captures, after = iter(ldr), 0, 0, None, []
+        while i < RESUME_STEPS:
+            feed = next(it)
+            bad = i in poisoned
+            if bad:  # one key's mask at the first, every key's at the next
+                mask = feed["input_mask"].copy()
+                if i == ROLLBACK_POISONED[0]:
+                    mask[0, 0] = np.nan
+                else:
+                    mask[:] = np.nan
+                feed = dict(feed, input_mask=mask)
+            (lv,) = book.step(exe, main, feed, [loss], scope, want,
+                              f"[resume] rollback step {i}", finite=not bad)
+            cb = exe._last_block
+            if captures is not None:
+                after.append(cb.last_exec)
+            mon = exe._health_monitor
+            if mon is not None and mon.rollbacks > seen:
+                seen = mon.rollbacks
+                i = mon.last_manifest["global_step"] - base
+                if ldr.state_dict() != {"epoch": 0, "position": i}:
+                    raise AssertionError(f"[resume] the loader after the "
+                                         f"rollback: {ldr.state_dict()}")
+                poisoned, it = set(), iter(ldr)
+                captures = cb.stats["captures"]
+                continue
+            got[i] = float(lv.reshape(-1)[0])
+            i += 1
+        mon = exe._health_monitor
+        stats = exe.health_stats()
+        if mon is None or (mon.rollbacks, mon.trips) != (1, 2):
+            raise AssertionError(f"[resume] rollbacks, trips: "
+                                 f"{(mon.rollbacks, mon.trips) if mon else None}")
+        new = cb.stats["captures"] - captures
+        if new or set(after) != {"replay"}:
+            raise AssertionError(f"[resume] after the restore: {new} "
+                                 f"captures, runs {after}")
+        _log(f"[resume] rollback: steps {list(ROLLBACK_POISONED)} "
+             f"poisoned (input mask NaN at one key, then at every key), "
+             f"{mon.trips} trips, "
+             f"{mon.rollbacks} rollback to global step "
+             f"{mon.last_manifest['global_step']} (loader position "
+             f"{mon.last_manifest['dataloader']['position']}); "
+             f"{len(after)} steps after the restore, all replays, no "
+             f"capture; guard stats {stats}")
+        _bitwise("rollback replay vs oracle: losses", [got], [oracle],
+                 tag="[resume]")
+        _same_state("after the rollback run vs the oracle",
+                    _persistables(scope, main), oracle_state)
+        _drop(exe)
+    finally:
+        for n, v in saved.items():
+            core.set_flag(n, v)
+
+
+def _wd_resume(book, root):
+    """(e): Wide&Deep with its auc island, segmented, at WD_RESUME_DIM
+    ids a slot: the same kill and resume per step; the final AUC, the auc
+    op's state and every persistable bitwise the oracle's."""
+    import os
+    main, startup, loss, auc = _wd_program(WD_RESUME_DIM)
+    fetch = [loss, auc]
+    batches = _wd_batches(RESUME_BATCHES, WD_RESUME_DIM, SEED + 15)
+    op = [o for o in main.global_block().ops if o.type == "auc"][0]
+    stat_names = [op.input(s)[0] for s in ("StatPos", "StatNeg")]
+
+    def steps(exe, scope, ldr, what, until):
+        out = []
+        for b in ldr:
+            before = _launch_counts()
+            r = exe.run(main, feed=b, fetch_list=fetch, scope=scope)
+            delta = tuple(a - c for a, c in zip(_launch_counts(), before))
+            if exe._last_run_mode != "segmented" or delta != NO_KERNELS:
+                raise AssertionError(f"[resume] {what}: ran "
+                                     f"{exe._last_run_mode}, {delta}")
+            book.runs["wide_deep " + exe._last_block.last_exec] += 1
+            out.append((float(r[0][0]), float(r[1][0])))
+            if _host_steps(scope) >= until:
+                break
+        return out
+
+    exe, scope = _fresh(main, startup)
+    oracle = steps(exe, scope, _resume_loader(batches), "oracle",
+                   RESUME_STEPS + 1)
+    want = _persistables(scope, main)
+    _drop(exe)
+    ck = os.path.join(root, "wide_deep")
+    exe, scope = _fresh(main, startup)
+    ldr = _resume_loader(batches)
+    exe.set_auto_checkpoint(ck, every_n_steps=RESUME_EVERY, program=main,
+                            scope=scope, dataloader=ldr)
+    last = (RESUME_STEPS // RESUME_EVERY - 1) * RESUME_EVERY
+    victim = steps(exe, scope, ldr, "victim", last + RESUME_PAST)
+    _bitwise("Wide&Deep victim vs oracle: losses and AUCs", [victim],
+             [oracle[:len(victim)]], tag="[resume]")
+    _drop(exe)
+    del exe, scope, ldr
+    exe, scope = _fresh(main, startup)
+    ldr = _resume_loader(batches)
+    manifest = exe.resume_from(ck, program=main, scope=scope,
+                               dataloader=ldr)
+    start = manifest["global_step"] - 1
+    resumed = steps(exe, scope, ldr, "resumed", RESUME_STEPS + 1)
+    _bitwise(f"Wide&Deep resumed at step {start} vs oracle: losses and "
+             "AUCs", [resumed], [oracle[start:]], tag="[resume]")
+    got = _persistables(scope, main)
+    _same_state("Wide&Deep after the resumed run vs the oracle (the auc "
+                f"state {stat_names} among them)", got, want)
+    nbytes = _ckpt_bytes(os.path.join(ck, f"ckpt-{last}"))
+    stats = exe._last_block.stats
+    _log(f"[resume] Wide&Deep segmented (auc island), tables cut to "
+         f"{WD_RESUME_DIM} ids a slot (bench.py: 1000000): final AUC "
+         f"{resumed[-1][1]!r} = oracle's {oracle[-1][1]!r}; positives "
+         f"{int(got[stat_names[0]].sum())}; a "
+         f"checkpoint {nbytes} bytes ({nbytes / 2**30:.3f} GiB); resumed "
+         f"block {stats} ({_card_line()})")
+    _drop(exe)
+
+
+def phase_resume():
+    """Phase 15: fault-tolerant BERT-base training (the docstring's phase
+    15). → the launches of its runs: through the wrappers (warm-ups and
+    captures) and on the card (every step)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
+    want = _step_want(main.global_block().ops, _attention_route(main))
+    if want != TRAIN_STEP_WANT:
+        raise AssertionError(f"[resume] want {want} launches a step, not "
+                             f"{TRAIN_STEP_WANT}")
+    rng = np.random.RandomState(SEED + 15)
+    batches = [_train_batch(rng, TRAIN_BATCH, cfg)
+               for _ in range(RESUME_BATCHES)]
+    book = _Resume()
+    _reset_launch_counts()
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        # (a) the oracle: RESUME_STEPS steps, unbroken, no checkpoint
+        exe, scope = _fresh(main, startup)
+        oracle = []
+        for b in _resume_loader(batches):
+            (lv,) = book.step(exe, main, b, [loss], scope, want,
+                              "[resume] oracle step", tag="without")
+            oracle.append(float(lv.reshape(-1)[0]))
+            if len(oracle) == RESUME_STEPS:
+                break
+        oracle_state = _persistables(scope, main)
+        _drop(exe)
+        del exe, scope
+        _log(f"[resume] BERT-base f32, dropout {TRAIN_DROPOUT}, input mask, "
+             f"Adam, batch {TRAIN_BATCH}, S = {S}: oracle losses " +
+             " ".join(f"{x:.6f}" for x in oracle))
+        saving, nbytes = _bert_resume(book, root, main, startup, loss,
+                                      batches, oracle, oracle_state)
+        _bert_window_resume(book, root, main, startup, loss, batches,
+                            oracle, oracle_state)
+        _bert_rollback(book, root, main, startup, loss, batches, oracle,
+                       oracle_state)
+        del oracle_state
+        _wd_resume(book, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # steps 2.. of the oracle and of the victim are replays; the victim's
+    # saved at each boundary of RESUME_EVERY
+    wo = np.asarray(book.times["without"][2:]) * 1e3
+    wi = np.asarray(book.times["with"][2:]) * 1e3
+    share = (wi.mean() - wo.mean()) / wi.mean()
+    _log(f"[resume] step p50 without auto-checkpointing "
+         f"{np.percentile(wo, 50):.3f} ms (mean {wo.mean():.3f}, n = "
+         f"{len(wo)}), with every_n_steps={RESUME_EVERY} "
+         f"{np.percentile(wi, 50):.3f} ms (mean {wi.mean():.3f}, n = "
+         f"{len(wi)}); the steps that saved {nbytes / 2**30:.3f} GiB: " +
+         " ".join(f"{s * 1e3:.1f}" for s in saving) +
+         f" ms; auto-checkpointing's share of the mean step "
+         f"{share * 100:.1f} % ({_card_line()})")
+    wrapper = _launch_counts()
+    _log(f"[resume] runs {dict(book.runs)}; launches through the wrappers "
+         f"{GATE_NAMES} {wrapper}, on the card {tuple(book.executed)}")
+    return {"wrapper": wrapper, "executed": tuple(book.executed),
+            "runs": dict(book.runs)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -4609,6 +5149,7 @@ def main(argv=None) -> int:
     paths["lane512"] = phase_lane512(profile=args.profile)
     paths["wide_deep"] = phase_wide_deep(profile=args.profile)
     paths["predictor"] = phase_predictor(profile=args.profile)
+    paths["resume"] = phase_resume()
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

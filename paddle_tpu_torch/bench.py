@@ -1,7 +1,8 @@
 """The port's benchmark entry point; prints ONE JSON line:
 
     python3 -m paddle_tpu_torch.bench
-        [bert|mnist|resnet|transformer|wide_deep] [--device cpu]
+        [bert|mnist|resnet|transformer|wide_deep|mnist_realdata|
+         mnist_guard|wide_deep_realdata] [--device cpu]
 
 Each lane is the function of the same name in the repository's bench.py
 (the TPU package's), with what it configures ported unchanged: the model,
@@ -37,6 +38,30 @@ is all graph replays).
          ``ctr_reader(4096, seed=0)``: a warm window of 5 steps, then 20
          timed steps (the block runs segmented: a window is a host loop
          of single steps, its auc island acting every step).
+
+The real-data lanes (bench.py:173-437, ``_realdata_pair``) train on
+distinct batches fed by ``fluid.DataLoader.from_generator``, one full pass
+timed as one ``Executor.run`` a batch (``loop``) and as one
+``Executor.run(n_steps=8)`` a ``DataLoader.window(8)`` (``scan_realdata``,
+the next window copied to the card while this one computes), each after
+two warm runs; ``parity_ok``: the first window's losses within 1e-4 of 8
+single runs.
+
+  mnist_realdata
+         MLP 784-256-256-10, Momentum(0.01, 0.9), batch 64, 64 batches.
+  mnist_guard
+         the mnist_realdata window pass with FLAGS_check_nan_inf off and
+         on (skip), best of 3 each; ``guard_overhead_pct``, and
+         ``parity_ok``: the first window's losses bitwise alike.
+  wide_deep_realdata
+         Wide&Deep without the AUC (the block compiles whole), 26 slots of
+         1e5 ids (1e4 on the CPU), hidden 64-64, Adam lr 1e-3, batch 256,
+         32 batches.
+
+Their lines are bench.py's (``metric``, ``value`` in samples/s of the
+scan pass, ``loop_samples_per_sec``, ``speedup_vs_loop``,
+``executor_mode``, ``parity_ok``, ...) with ``device`` and, on the card,
+``power_limit``.
 
 The lanes run on the card (``cuda``); ``--device cpu`` runs them on the
 CPU, the bert lane at bench.py's CPU smoke configuration (2 layers, hidden
@@ -519,9 +544,262 @@ def bench_wide_deep(**kw) -> dict:
     return lane.res
 
 
+# ---------------------------------------------------------------------------
+# the real-data lanes: distinct batches through the DataLoader
+# ---------------------------------------------------------------------------
+def _realdata_pair(build_fn, batches, k, device, warmup=2):
+    """bench.py's ``_realdata_pair`` (bench.py:173): one full pass over
+    ``batches`` (all distinct) two ways, each from a fresh program and
+    scope fed by ``DataLoader.from_generator`` —
+
+      loop           one ``Executor.run`` a batch
+      scan_realdata  ``DataLoader.window(k)`` stacks k batches and copies
+                     the next window to the device while this one
+                     computes; one ``Executor.run(n_steps=k)`` a window
+
+    and the first window's k losses against k single runs (fresh
+    programs, same seed). → the seconds, steps and run modes of both, and
+    the parity."""
+    from . import fluid
+    cuda = device != "cpu"
+    if cuda:
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available on this host: the "
+                               "lanes run on the card, or on the CPU with "
+                               "--device cpu")
+    place = fluid.CUDAPlace(0) if cuda else fluid.CPUPlace()
+    n = len(batches)
+
+    def loader_of():
+        dl = fluid.DataLoader.from_generator(capacity=4)
+        dl.set_batch_generator(lambda: iter(batches), places=place)
+        return dl
+
+    def fresh():
+        main, startup, fetch_list = build_fn()
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        return main, fetch_list, exe, scope
+
+    def timed_pass(windowed):
+        """Warm both keys (the first run's and the second's) as the timed
+        pass runs them, then time one pass to the last loss on the
+        host."""
+        main, fetch_list, exe, scope = fresh()
+
+        def source():
+            return (loader_of().window(k, drop_last=True) if windowed
+                    else loader_of())
+        for b, _ in zip(source(), range(max(1, warmup))):
+            exe.run(main, feed=b, fetch_list=fetch_list, scope=scope,
+                    return_numpy=False)
+        t0 = time.perf_counter()
+        for b in source():
+            out = exe.run(main, feed=b, fetch_list=fetch_list, scope=scope,
+                          return_numpy=False)
+        float(out[0].numpy().ravel()[-1])  # the sync
+        dt = time.perf_counter() - t0
+        mode = exe._last_run_mode
+        _free(exe)
+        return dt, mode
+
+    loop_dt, loop_mode = timed_pass(False)
+    scan_dt, scan_mode = timed_pass(True)
+    wfeed = {name: np.stack([np.asarray(b[name]) for b in batches[:k]])
+             for name in batches[0]}
+
+    def first_losses(windowed):
+        main, fetch_list, exe, scope = fresh()
+        if windowed:
+            (l,) = exe.run(main, feed=wfeed, fetch_list=fetch_list[:1],
+                           scope=scope, n_steps=k)
+            got = np.asarray(l).ravel()
+        else:
+            got = np.asarray([float(np.asarray(exe.run(
+                main, feed=b, fetch_list=fetch_list[:1],
+                scope=scope)[0]).ravel()[0]) for b in batches[:k]])
+        _free(exe)
+        return got
+
+    diff = float(np.max(np.abs(first_losses(True) - first_losses(False))))
+    return {"loop_dt": loop_dt, "scan_dt": scan_dt,
+            "loop_steps": n, "scan_steps": (n // k) * k,
+            "loop_mode": loop_mode, "scan_mode": scan_mode,
+            "parity_max_diff": diff, "parity_ok": diff < 1e-4}
+
+
+def _realdata_result(metric, batch, k, r, device, **extra):
+    res = {"metric": metric,
+           "value": round(batch * r["scan_steps"] / r["scan_dt"], 1),
+           "unit": "samples/s", "vs_baseline": 1.0,
+           "mode": "scan_realdata", "window": k, "batch": batch, **extra,
+           "loop_samples_per_sec":
+               round(batch * r["loop_steps"] / r["loop_dt"], 1),
+           "speedup_vs_loop":
+               round((batch * r["scan_steps"] / r["scan_dt"])
+                     / (batch * r["loop_steps"] / r["loop_dt"]), 3),
+           "executor_mode": r["scan_mode"],
+           "parity_ok": r["parity_ok"],
+           "parity_max_diff": r["parity_max_diff"]}
+    _device_keys(res, device)
+    return res
+
+
+def _device_keys(res, device):
+    if device == "cpu":
+        res["device"] = "cpu"
+    else:
+        res["device"], res["power_limit"] = _card()
+
+
+def _mnist_realdata_build(hidden):
+    """bench.py's realdata MLP: 784-hidden-hidden-10, relu, softmax,
+    cross-entropy, Momentum(0.01, 0.9), seed 5."""
+    from . import fluid
+
+    def build():
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 5
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.data("img", shape=[784], dtype="float32")
+            label = fluid.data("label", shape=[1], dtype="int64")
+            h = fluid.layers.fc(img, hidden, act="relu")
+            h = fluid.layers.fc(h, hidden, act="relu")
+            pred = fluid.layers.fc(h, 10, act="softmax")
+            loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+            fluid.optimizer.Momentum(0.01, momentum=0.9).minimize(loss)
+        return main, startup, [loss]
+    return build
+
+
+def _mnist_batches(batch, n_batches):
+    rng = np.random.RandomState(0)
+    return [{"img": rng.rand(batch, 784).astype("float32"),
+             "label": rng.randint(0, 10, (batch, 1)).astype("int64")}
+            for _ in range(n_batches)]
+
+
+def bench_mnist_realdata(batch=64, hidden=256, n_batches=64, k=8,
+                         device="cuda") -> dict:
+    """bench.py's mnist_realdata lane (bench.py:265): the MLP trained on
+    ``n_batches`` distinct batches, a window of ``k`` a run, beside one
+    run a batch."""
+    r = _realdata_pair(_mnist_realdata_build(hidden),
+                       _mnist_batches(batch, n_batches), k, device)
+    return _realdata_result("mnist_mlp_realdata_samples_per_sec", batch, k,
+                            r, device, hidden=hidden,
+                            distinct_batches=n_batches)
+
+
+def bench_mnist_realdata_guard(batch=64, hidden=256, n_batches=64, k=8,
+                               repeats=3, device="cuda") -> dict:
+    """bench.py's mnist_guard lane (bench.py:307): the windowed
+    mnist_realdata pass with the numeric guard off and then on
+    (``FLAGS_check_nan_inf``, action ``skip``), the best of ``repeats``
+    passes each; the first window's losses bitwise alike."""
+    from . import fluid
+    from .fluid import core
+    if n_batches < k:
+        raise ValueError(
+            f"mnist_guard needs n_batches >= window k "
+            f"({n_batches} < {k}): drop_last windows would yield "
+            f"nothing to time")
+    build = _mnist_realdata_build(hidden)
+    batches = _mnist_batches(batch, n_batches)
+    place = fluid.CUDAPlace(0) if device != "cpu" else fluid.CPUPlace()
+
+    def scan_pass():
+        """One timed pass over the windowed loader (a fresh program and
+        scope, both keys warm). → (seconds, the first window's losses)."""
+        main, startup, fetch_list = build()
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+
+        def windows():
+            dl = fluid.DataLoader.from_generator(capacity=4)
+            dl.set_batch_generator(lambda: iter(batches), places=place)
+            return dl.window(k, drop_last=True)
+        for w, _ in zip(windows(), range(2)):
+            first = exe.run(main, feed=w, fetch_list=fetch_list,
+                            scope=scope, return_numpy=False)
+        first_losses = first[0].numpy().ravel().copy()
+        t0 = time.perf_counter()
+        for w in windows():
+            out = exe.run(main, feed=w, fetch_list=fetch_list, scope=scope,
+                          return_numpy=False)
+        float(out[0].numpy().ravel()[-1])  # the sync
+        dt = time.perf_counter() - t0
+        _free(exe)
+        return dt, first_losses
+
+    def lane():
+        return min((scan_pass() for _ in range(repeats)), key=lambda r: r[0])
+
+    saved = (core.globals_["FLAGS_check_nan_inf"],
+             core.globals_["FLAGS_nan_inf_action"])
+    try:
+        core.set_flag("FLAGS_check_nan_inf", False)
+        off_dt, off_losses = lane()
+        core.set_flag("FLAGS_check_nan_inf", True)
+        core.set_flag("FLAGS_nan_inf_action", "skip")
+        on_dt, on_losses = lane()
+    finally:
+        core.set_flag("FLAGS_check_nan_inf", saved[0])
+        core.set_flag("FLAGS_nan_inf_action", saved[1])
+    steps = (n_batches // k) * k
+    off_sps = batch * steps / off_dt
+    on_sps = batch * steps / on_dt
+    res = {"metric": "mnist_realdata_guard_samples_per_sec",
+           "value": round(on_sps, 1), "unit": "samples/s",
+           "vs_baseline": 1.0, "mode": "scan_realdata", "window": k,
+           "batch": batch, "hidden": hidden,
+           "guard": "skip", "guard_off_samples_per_sec": round(off_sps, 1),
+           "guard_overhead_pct": round((off_sps / on_sps - 1.0) * 100, 2),
+           "best_of": repeats,
+           "parity_ok": bool(np.array_equal(off_losses, on_losses))}
+    _device_keys(res, device)
+    return res
+
+
+def bench_wide_deep_realdata(batch=256, n_batches=32, k=8,
+                             sparse_dim=int(1e5), device="cuda") -> dict:
+    """bench.py's wide_deep_realdata lane (bench.py:402): Wide&Deep
+    without the AUC (the block compiles whole, so a window is one
+    compiled run), 26 slots of ``sparse_dim`` ids, hidden 64-64, on
+    ``n_batches`` distinct ``ctr_reader`` batches. On the CPU it runs at
+    1e4 ids a slot (the path, not the number)."""
+    from .models import wide_deep
+    smoke = device == "cpu"
+    if smoke:
+        sparse_dim = int(1e4)
+
+    def build():
+        from . import fluid
+        with fluid.unique_name.guard():
+            main, startup, _, loss, _ = wide_deep.build_wide_deep_program(
+                num_dense=13, num_slots=26, sparse_dim=sparse_dim,
+                embedding_dim=16, hidden=(64, 64), lr=1e-3, with_auc=False)
+        main.random_seed = startup.random_seed = 5
+        return main, startup, [loss]
+
+    nb = wide_deep.ctr_reader(batch, num_dense=13, num_slots=26,
+                              sparse_dim=sparse_dim, seed=0)
+    r = _realdata_pair(build, [nb() for _ in range(n_batches)], k, device)
+    res = _realdata_result("wide_deep_realdata_samples_per_sec", batch, k,
+                           r, device, distinct_batches=n_batches,
+                           with_auc=False, sparse_dim=sparse_dim)
+    if smoke:
+        res["cpu_smoke"] = True
+    return res
+
+
 LANES = {"bert": bench_bert_base, "mnist": bench_mnist_mlp,
          "resnet": bench_resnet50, "transformer": bench_transformer,
-         "wide_deep": bench_wide_deep}
+         "wide_deep": bench_wide_deep,
+         "mnist_realdata": bench_mnist_realdata,
+         "mnist_guard": bench_mnist_realdata_guard,
+         "wide_deep_realdata": bench_wide_deep_realdata}
 
 
 def main(argv=None) -> int:
@@ -533,7 +811,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     try:
         res = LANES[args.lane](device=args.device)
-        if not math.isfinite(res["loss"]):
+        if not math.isfinite(res.get("loss", 0.0)):
             raise FloatingPointError(f"non-finite loss {res['loss']}")
     except Exception as e:  # noqa: BLE001 — the contract is one JSON line
         traceback.print_exc(file=sys.stderr)

@@ -2,8 +2,9 @@
 paddle_tpu/fluid; so far: Program building, the layers of the BERT-base
 pretraining step, append_backward, SGD, Momentum, Adam and
 RecomputeOptimizer, contrib.mixed_precision, the Executor, the program
-proto with clone and _prune, io (save and load), the pass system of ir,
-and the verifier of analysis)."""
+proto with clone and _prune, io (save and load, and the checkpoint
+plane), the pass system of ir, the verifier of analysis, and the reader's
+DataLoader, PyReader and DataFeeder)."""
 from . import core
 from .core import (CPUPlace, CUDAPlace, TPUPlace, LoDTensor, Scope,
                    global_scope)
@@ -28,6 +29,13 @@ from . import contrib
 from . import analysis
 from . import ir
 from . import io
+from .io import (save_vars, save_params, save_persistables, load_vars,
+                 load_params, load_persistables, save_inference_model,
+                 load_inference_model, save, load, save_checkpoint,
+                 load_checkpoint, latest_checkpoint, validate_checkpoint)
+from .data_feeder import DataFeeder
+from . import reader
+from .reader import DataLoader, PyReader
 
 __all__ = [
     "core", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor", "Scope",
@@ -36,5 +44,9 @@ __all__ = [
     "cpu_places", "cuda_places", "unique_name",
     "initializer", "regularizer", "clip", "ParamAttr", "layers", "data",
     "backward", "append_backward", "optimizer", "Executor", "param_bridge",
-    "contrib", "analysis", "ir", "io",
+    "contrib", "analysis", "ir", "io", "save_vars", "save_params",
+    "save_persistables", "load_vars", "load_params", "load_persistables",
+    "save_inference_model", "load_inference_model", "save", "load",
+    "save_checkpoint", "load_checkpoint", "latest_checkpoint",
+    "validate_checkpoint", "DataFeeder", "reader", "DataLoader", "PyReader",
 ]

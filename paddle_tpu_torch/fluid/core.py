@@ -9,7 +9,9 @@ Contents (this slice):
   * Places: CPUPlace, CUDAPlace; TPUPlace is an alias of the default
     accelerator, i.e. CUDAPlace.
   * LoDTensor over torch.Tensor, Variable, hierarchical Scope.
-  * NumericFaultError, the numeric fault plane's typed error.
+  * the typed errors: EOFException (a drained non-iterable DataLoader),
+    CheckpointError (a checkpoint that fails validation) and
+    NumericFaultError (the numeric fault plane).
   * the FLAGS_ registry, limited to the flags the port reads.
 """
 from __future__ import annotations
@@ -35,15 +37,31 @@ __all__ = [
     "Variable", "Scope", "globals_", "get_flag", "set_flag",
     "convert_np_dtype_to_dtype_", "dtype_to_np", "dtype_to_torch",
     "is_float_dtype", "global_scope", "BF16_HOST_DTYPE",
-    "NumericFaultError",
+    "EOFException", "CheckpointError", "NumericFaultError",
 ]
+
+
+class EOFException(Exception):
+    """Raised by non-iterable DataLoader/PyReader ``next()`` when the
+    underlying generator is drained (the TPU package's core.py:43;
+    reference: the C++ reader's EnforceNotMet-EOF that ``exe.run``
+    surfaces in the py_reader loop; the user catches it, calls
+    ``reader.reset()`` and starts the next epoch)."""
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint directory failed validation (missing manifest,
+    missing files, size/CRC mismatches) or load_vars found missing
+    files (the TPU package's core.py:66). The message aggregates EVERY
+    bad file, not just the first."""
 
 
 class NumericFaultError(FloatingPointError):
     """The numeric fault plane (FLAGS_check_nan_inf with
     FLAGS_nan_inf_action; the TPU package's core.py:97) could not contain
     a NaN/Inf: a tripped step under ``rollback`` with no checkpoint plane
-    to restore from, or a ``raise`` whose interpreter re-run reproduced no
+    configured, no intact checkpoint to restore or the rollback budget
+    spent, or a ``raise`` whose interpreter re-run reproduced no
     non-finite op output."""
 
 
@@ -237,6 +255,20 @@ class LoDTensor:
     def lod(self):
         return [list(l) for l in self._lod]
 
+    def set_recursive_sequence_lengths(self, seq_lens):
+        """LoD from lengths: [[2, 3]] -> offsets [[0, 2, 5]]."""
+        lod = []
+        for lens in seq_lens:
+            offs = [0]
+            for ln in lens:
+                offs.append(offs[-1] + int(ln))
+            lod.append(offs)
+        self._lod = lod
+
+    def recursive_sequence_lengths(self):
+        return [[offs[i + 1] - offs[i] for i in range(len(offs) - 1)]
+                for offs in self._lod]
+
     def shape(self):
         return list(self._array.shape) if self._array is not None else []
 
@@ -396,9 +428,8 @@ class _GlobalFlags:
         #              their pre-step values on the device; no host sync
         #   rollback - skip, then restore a checkpoint after
         #              FLAGS_nan_inf_tolerance bad steps in a row, at most
-        #              FLAGS_nan_inf_max_rollbacks times (no checkpoint
-        #              plane in this package yet: a tripped step raises
-        #              NumericFaultError)
+        #              FLAGS_nan_inf_max_rollbacks times
+        #              (executor.HealthMonitor; io.rollback_to_latest)
         "FLAGS_check_nan_inf": False,
         "FLAGS_nan_inf_action": "raise",
         "FLAGS_nan_inf_tolerance": 3,

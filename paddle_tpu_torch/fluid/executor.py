@@ -60,9 +60,21 @@ overwrites back to its pre-step value where the step is not healthy, and
 the AMP dynamic loss-scale update from the same scalar; under a graph all
 of it is captured. ``skip`` never reads the scalar on the host;
 ``raise`` reads it after the fetches and re-runs a tripped step through
-the interpreter, whose per-op check names the op; ``rollback`` has no
-checkpoint plane yet and raises ``core.NumericFaultError``. The
-interpreter runs the same classification and the same arithmetic.
+the interpreter, whose per-op check names the op; ``rollback`` reads it
+too and feeds each step's verdict to the ``HealthMonitor``, which after
+``FLAGS_nan_inf_tolerance`` tripped steps in a row restores the newest
+intact checkpoint (``io.rollback_to_latest``), at most
+``FLAGS_nan_inf_max_rollbacks`` times. The interpreter runs the same
+classification and the same arithmetic.
+
+The checkpoint plane (the TPU package's executor.py:1650-1765):
+``set_auto_checkpoint`` saves every ``every_n_steps`` steps of the scope's
+step counter at the end of a ``run`` (``io.save_checkpoint``; never from a
+run whose guard tripped), ``resume_from`` restores the newest valid
+checkpoint and the DataLoader's position. The executor keeps a host count
+of each scope's steps (``_rng_counters``, the reference's), advanced by
+the steps a run takes, so a boundary is found without reading the
+device's counter; each save checks the two against each other.
 
 A program of ``RecomputeOptimizer`` runs its compiled step through the
 remat schedule of ``fluid/recompute_lowering.py``; the interpreter does
@@ -88,11 +100,12 @@ alike, so they draw the same bits.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 import warnings
 import weakref
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,7 +118,7 @@ from ..ops import rng
 from ..ops.registry import (GRAD_SUFFIX, OPS, resolve_base_info,
                             run_generic_grad)
 
-__all__ = ["Executor", "global_scope", "scope_guard"]
+__all__ = ["Executor", "HealthMonitor", "global_scope", "scope_guard"]
 
 _RNG_COUNTER = "@RNG_COUNTER@"
 _EMPTY = "@EMPTY@"  # append_backward's name for "no var in this slot"
@@ -434,13 +447,6 @@ def _check_op_outputs_finite(op, idx: int, outs) -> None:
             f"indices {bad.tolist()}")
     raise FloatingPointError(f"NaN/Inf in output of op #{idx} '{op.type}': "
                              + "; ".join(problems))
-
-
-def _no_checkpoint_plane(step: int) -> core.NumericFaultError:
-    return core.NumericFaultError(
-        f"FLAGS_nan_inf_action=rollback tripped at global step {step} but "
-        "no checkpoint plane is configured: paddle_tpu_torch has no "
-        "checkpoint save/load yet (use skip, or raise to localize)")
 
 
 # --------------------------------------------------------------------------
@@ -1261,6 +1267,88 @@ class _SegmentedBlock(_CompiledBlock):
 
 
 # --------------------------------------------------------------------------
+class HealthMonitor:
+    """The rollback policy of the numeric fault plane
+    (``FLAGS_nan_inf_action=rollback``; the TPU package's
+    executor.py:1468-1561). It takes each step's health verdict; after
+    ``tolerance`` tripped steps in a row it restores the newest intact
+    checkpoint under ``ckpt_dir`` (parameters, optimizer slots, the step
+    counter and, given a ``dataloader``, its position: the replay of the
+    faulted steps matches a run that never saw the fault, bit for bit).
+    At most ``max_rollbacks`` restores; the trip past them, or one with
+    no intact checkpoint, raises ``core.NumericFaultError``. Until the
+    tolerance is reached the guard's select discards each tripped step,
+    so the state never holds a NaN between verdicts."""
+
+    def __init__(self, executor, ckpt_dir, program=None, scope=None,
+                 tolerance: Optional[int] = None,
+                 max_rollbacks: Optional[int] = None, dataloader=None,
+                 on_rollback=None):
+        self.executor = executor
+        self.ckpt_dir = ckpt_dir
+        self.program = program
+        self.scope = scope
+        self.dataloader = dataloader
+        self.on_rollback = on_rollback
+        self.tolerance = max(1, int(
+            core.globals_["FLAGS_nan_inf_tolerance"]
+            if tolerance is None else tolerance))
+        self.max_rollbacks = int(
+            core.globals_["FLAGS_nan_inf_max_rollbacks"]
+            if max_rollbacks is None else max_rollbacks)
+        self.trips = 0
+        self.consecutive_bad = 0
+        self.rollbacks = 0
+        self.last_trip_step: Optional[int] = None
+        self.last_rollback_step: Optional[int] = None
+        self.last_manifest: Optional[Dict[str, Any]] = None
+
+    def observe(self, healthy: bool, step: int) -> str:
+        """One step's verdict. → "ok" | "tripped" | "rolled_back"; raises
+        ``core.NumericFaultError`` when the rollback budget is spent."""
+        if healthy:
+            self.consecutive_bad = 0
+            return "ok"
+        self.trips += 1
+        self.consecutive_bad += 1
+        self.last_trip_step = int(step)
+        if self.consecutive_bad < self.tolerance:
+            return "tripped"
+        return self._rollback(step)
+
+    def _rollback(self, step: int) -> str:
+        from . import io as _io
+        if self.rollbacks >= self.max_rollbacks:
+            raise core.NumericFaultError(
+                f"numeric fault at step {step}: "
+                f"{self.consecutive_bad} consecutive non-finite steps "
+                f"and the rollback budget "
+                f"(FLAGS_nan_inf_max_rollbacks={self.max_rollbacks}) is "
+                f"spent — the fault is persistent, not transient")
+        scope = self.scope if self.scope is not None else global_scope()
+        manifest = _io.rollback_to_latest(self.executor, self.ckpt_dir,
+                                          main_program=self.program,
+                                          scope=scope)
+        if manifest is None:
+            raise core.NumericFaultError(
+                f"numeric fault at step {step}: "
+                f"FLAGS_nan_inf_action=rollback but no intact checkpoint "
+                f"under {self.ckpt_dir!r} to roll back to")
+        if self.dataloader is not None and manifest.get("dataloader"):
+            self.dataloader.load_state_dict(manifest["dataloader"])
+        self.rollbacks += 1
+        self.consecutive_bad = 0
+        self.last_rollback_step = int(step)
+        self.last_manifest = manifest
+        cfg = self.executor._auto_ckpt
+        if cfg is not None:
+            cfg["last_step"] = int(manifest["global_step"])
+        if self.on_rollback is not None:
+            self.on_rollback(manifest)
+        return "rolled_back"
+
+
+# --------------------------------------------------------------------------
 class Executor:
     """fluid.Executor (reference executor.py:457) on one device.
 
@@ -1270,7 +1358,15 @@ class Executor:
     "segmented" or "interpreted"), ``_last_block`` which
     ``_CompiledBlock`` (or ``_SegmentedBlock``) ran it,
     ``_last_health`` the last guarded run's health on the device (a bool
-    scalar, or [n_steps] for a compiled window)."""
+    scalar, or [n_steps] for a compiled window).
+
+    ``_rng_counters`` (shared by every executor, as in the reference)
+    holds each scope's step count on the host: the startup run counts
+    one, a run of ``n_steps`` counts ``n_steps``. It equals the scope's
+    counter on the device, which each step advances, without reading
+    it."""
+
+    _rng_counters = weakref.WeakKeyDictionary()  # scope -> its steps
 
     def __init__(self, place: Optional[Place] = None):
         self.place = CUDAPlace(0) if place is None else place
@@ -1296,6 +1392,17 @@ class Executor:
         # its device tensor, [misses in a row]) or "uncacheable"
         self._feed_cache: Dict[str, object] = {}
         self.feed_stats = {"uploads": 0, "cache_hits": 0}
+        # periodic atomic checkpoints (set_auto_checkpoint, resume_from)
+        self._auto_ckpt: Optional[Dict[str, Any]] = None
+        # the guard's host counters (advanced only where the verdicts are
+        # read: raise, rollback and the interpreter) and the rollback
+        # policy
+        self._health_stats = {"steps_checked": 0, "trips": 0}
+        self._health_monitor: Optional[HealthMonitor] = None
+        # a step of this run tripped (raise or rollback): no checkpoint is
+        # taken from inside a fault window, whose counter would name the
+        # discarded step and break the replay's bit-exactness
+        self._last_step_tripped = False
 
     def close(self):
         """Drop the compiled blocks with their CUDA graphs, the graphs'
@@ -1347,11 +1454,21 @@ class Executor:
         step's fetches. A feed
         with an int attribute ``k`` (the TPU package's WindowBatch) is k
         stacked batches: it sets ``n_steps``, or raises if ``n_steps``
-        says otherwise."""
+        says otherwise; a window the DataLoader uploaded on its own stream
+        (its ``ready`` event) is waited for on the current stream first.
+
+        A run ends with the periodic checkpoint of ``set_auto_checkpoint``
+        when the scope's steps crossed a boundary."""
         program = default_main_program() if program is None else program
         scope = global_scope() if scope is None else scope
         feed = {} if feed is None else feed
         fetch_names = _to_fetch_names(fetch_list)
+        user_program = program
+        self._host_steps(scope)
+        self._last_step_tripped = False
+        ready = getattr(feed, "ready", None)
+        if ready is not None and self.device.type == "cuda":
+            self._await_upload(feed, ready)
         if use_prune and fetch_names:
             pkey = (program._version, tuple(fetch_names))
             cache = program.__dict__.setdefault("_prune_cache", {})
@@ -1394,6 +1511,7 @@ class Executor:
             return self._run_window_fallback(program, feed, fetch_list,
                                              scope, return_numpy, n_steps,
                                              window_names)
+        fetched = _INTERPRET
         if compiled or segmented:
             fetched = self._run_compiled(program, scope, feed, fetch_names,
                                          return_numpy, seed, n_steps,
@@ -1401,11 +1519,174 @@ class Executor:
             if fetched is not _INTERPRET:
                 self._last_run_mode = "segmented" if segmented \
                     else "compiled"
-                return fetched
-        fetched = self._run_interpreted(program, scope, feed, fetch_names,
-                                        return_numpy, seed, n_steps)
-        self._last_run_mode = "interpreted"
+        if fetched is _INTERPRET:
+            fetched = self._run_interpreted(program, scope, feed,
+                                            fetch_names, return_numpy, seed,
+                                            n_steps)
+            self._last_run_mode = "interpreted"
+        # after the state's write-back: the checkpoint holds this run's
+        # last step
+        self._maybe_auto_checkpoint(user_program, scope)
         return fetched
+
+    def _await_upload(self, feed, ready):
+        """A window the DataLoader copied to the device on its own stream:
+        the current stream (which the executor's side stream waits for)
+        waits for the event recorded after the copies, and each tensor is
+        marked in use by it, so the allocator keeps its memory until this
+        run's work is done."""
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(ready)
+        for t in feed.values():
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(cur)
+
+    # ------------------------------------------- fault-tolerant training
+    @staticmethod
+    def _host_steps(scope: Scope) -> int:
+        """The scope's step count on the host; at a scope's first run it
+        is read once from the device counter (0 when there is none)."""
+        n = Executor._rng_counters.get(scope)
+        if n is None:
+            v = scope.find_var(_RNG_COUNTER)
+            n = (int(v.value().array.reshape(-1)[0].item())
+                 if v is not None and v.is_initialized() else 0)
+            Executor._rng_counters[scope] = n
+        return n
+
+    @staticmethod
+    def _count_steps(scope: Scope, n: int) -> int:
+        """Add the ``n`` steps a run took to the scope's host count. → the
+        new count."""
+        n += Executor._host_steps(scope)
+        Executor._rng_counters[scope] = n
+        return n
+
+    def set_auto_checkpoint(self, dirname, every_n_steps: int,
+                            program=None, scope: Optional[Scope] = None,
+                            max_to_keep: int = 3, dataloader=None):
+        """Periodic atomic checkpoints (the TPU package's
+        executor.py:1650): a ``run`` after which the scope's step count
+        has crossed a multiple of ``every_n_steps`` saves every
+        persistable and the step counter to ``dirname/ckpt-<step>``
+        (``io.save_checkpoint``: a temporary directory, fsync, rename).
+        ``program`` and ``scope``, when given, restrict the runs that
+        save: pass the training program, so that startup and evaluation
+        runs do not. ``dataloader``: its ``state_dict()`` goes into the
+        manifest, so a resume continues the input stream where the
+        checkpoint left it. ``every_n_steps <= 0`` turns saving off."""
+        if not dirname or every_n_steps <= 0:
+            self._auto_ckpt = None
+            return
+        self._auto_ckpt = {
+            "dir": dirname, "every": int(every_n_steps),
+            "program": program, "scope": scope,
+            "max_to_keep": int(max_to_keep), "dataloader": dataloader,
+            "last_step": 0,
+        }
+
+    def resume_from(self, path, program=None, scope: Optional[Scope] = None,
+                    dataloader=None) -> Optional[Dict[str, Any]]:
+        """Restore the newest valid checkpoint under ``path`` (or that
+        checkpoint directory; the TPU package's executor.py:1673): the
+        persistables, the step counter and, with ``dataloader``, the
+        input position; a killed and resumed run then gives the losses
+        of an unbroken one, bit for bit. → the manifest, or None when
+        ``path`` holds no checkpoint yet (a fresh start)."""
+        from . import io as _io
+        if scope is None:
+            scope = global_scope()
+        if isinstance(path, str) and not os.path.isdir(path):
+            return None
+        try:
+            manifest = _io.load_checkpoint(self, path,
+                                           main_program=program,
+                                           scope=scope)
+        except core.CheckpointError:
+            if _io.latest_checkpoint(path) is None and \
+                    not os.path.exists(os.path.join(path,
+                                                    _io.CKPT_MANIFEST)):
+                # nothing to restore: a fresh start, said aloud when
+                # checkpoints exist and none validates
+                if _io._checkpoint_steps(path):
+                    warnings.warn(
+                        f"resume_from({path!r}): checkpoints exist but "
+                        f"none validated — starting FRESH from step 0",
+                        stacklevel=2)
+                return None
+            raise
+        if dataloader is not None and manifest.get("dataloader"):
+            dataloader.load_state_dict(manifest["dataloader"])
+        if self._auto_ckpt is not None:
+            self._auto_ckpt["last_step"] = int(manifest["global_step"])
+        return manifest
+
+    def _maybe_auto_checkpoint(self, program, scope: Scope):
+        """The end of a ``run``: save when the scope's step count crossed
+        a boundary since the last save (the TPU package's
+        executor.py:1712). The save reads the device's counter anyway; it
+        must equal the host count."""
+        cfg = self._auto_ckpt
+        if cfg is None or self._last_step_tripped:
+            return
+        if cfg["program"] is not None and program is not cfg["program"]:
+            return
+        if cfg["scope"] is not None and scope is not cfg["scope"]:
+            return
+        step = Executor._rng_counters.get(scope)
+        every = cfg["every"]
+        if step is None or step // every <= cfg["last_step"] // every:
+            return
+        from . import io as _io
+        on_device = _io._scope_rng_counter(scope)
+        if on_device != step:
+            raise RuntimeError(
+                f"the scope's step counter is {on_device} on the device "
+                f"but {step} on the host: a run advanced one without the "
+                "other")
+        dl = cfg["dataloader"]
+        _io.save_checkpoint(self, cfg["dir"],
+                            main_program=cfg["program"] or program,
+                            scope=scope, global_step=step,
+                            dataloader_state=(dl.state_dict()
+                                              if dl is not None else None),
+                            max_to_keep=cfg["max_to_keep"])
+        cfg["last_step"] = step
+
+    def set_health_monitor(self, ckpt_dir, program=None, scope=None,
+                           tolerance=None, max_rollbacks=None,
+                           dataloader=None, on_rollback=None
+                           ) -> HealthMonitor:
+        """The ``FLAGS_nan_inf_action=rollback`` monitor, configured
+        explicitly (the TPU package's executor.py:1741). Without it the
+        monitor is made from the ``set_auto_checkpoint`` configuration at
+        the first tripped step."""
+        self._health_monitor = HealthMonitor(
+            self, ckpt_dir, program=program, scope=scope,
+            tolerance=tolerance, max_rollbacks=max_rollbacks,
+            dataloader=dataloader, on_rollback=on_rollback)
+        return self._health_monitor
+
+    def _ensure_health_monitor(self, program, scope) -> HealthMonitor:
+        if self._health_monitor is not None:
+            return self._health_monitor
+        cfg = self._auto_ckpt
+        if cfg is None or not cfg.get("dir"):
+            raise core.NumericFaultError(
+                "FLAGS_nan_inf_action=rollback tripped but no checkpoint "
+                "plane is configured — call set_auto_checkpoint(), or "
+                "wire set_health_monitor() explicitly")
+        self._health_monitor = HealthMonitor(
+            self, cfg["dir"], program=cfg["program"] or program,
+            scope=cfg["scope"] or scope, dataloader=cfg.get("dataloader"))
+        return self._health_monitor
+
+    def health_stats(self) -> Dict[str, int]:
+        """The guard's host counters: steps checked and steps tripped.
+        Only the actions that read the verdicts (raise, rollback, and
+        every interpreted step) advance them; ``skip`` leaves its
+        verdicts on the device (``_last_health``)."""
+        return dict(self._health_stats)
 
     def _run_window_fallback(self, program, feed, fetch_list, scope,
                              return_numpy, n_steps, window_names):
@@ -1555,6 +1836,7 @@ class Executor:
             # a host loop: the islands act every step
             for _ in range(n_steps):
                 fetched = cb.run(scope, feeds, return_numpy)
+                self._count_steps(scope, 1)
                 if cb._guard_active:
                     self._last_health = cb.last_health
                     self._act_on_health(cb, program, scope, feeds, seed)
@@ -1564,6 +1846,7 @@ class Executor:
                                     return_numpy)
         else:
             fetched = cb.run(scope, feeds, return_numpy)
+        self._count_steps(scope, n_steps)
         if cb._guard_active:
             self._last_health = cb.last_health
             self._act_on_health(cb, program, scope, feeds, seed)
@@ -1584,20 +1867,40 @@ class Executor:
             return None
 
     def _act_on_health(self, cb, program, scope, feeds, seed):
-        """After a guarded compiled run: ``skip`` and AMP alone leave the
-        health on the device; ``raise`` and ``rollback`` read it (after
-        the fetches, so the stream has drained) and act on a tripped
-        step, whose state the select has already put back."""
+        """After a guarded compiled run (one step, or a window's [n_steps]
+        verdicts): ``skip`` and AMP alone leave the health on the device;
+        ``raise`` and ``rollback`` read it (after the fetches, so the
+        stream has drained) and act on a tripped step, whose state the
+        select has already put back (the TPU package's
+        executor.py:1808-1864)."""
         if not cb._guard_check or cb._guard_action == "skip":
             return
-        flags = cb.last_health.reshape(-1).tolist()
-        if all(flags):
-            return
-        counter = _step_counter(scope, self.device)
-        step = int(counter.item()) - len(flags) + flags.index(False)
+        flags = [bool(f) for f in cb.last_health.reshape(-1).tolist()]
+        n_bad = flags.count(False)
+        self._health_stats["steps_checked"] += len(flags)
+        self._health_stats["trips"] += n_bad
+        self._last_step_tripped = self._last_step_tripped or bool(n_bad)
+        step0 = self._host_steps(scope) - len(flags)
         if cb._guard_action == "rollback":
-            raise _no_checkpoint_plane(step)
-        self._localize_and_raise(program, scope, feeds, seed, step)
+            self._observe_health(program, scope, flags, step0)
+        elif n_bad:
+            self._localize_and_raise(program, scope, feeds, seed,
+                                     step0 + flags.index(False))
+
+    def _observe_health(self, program, scope, flags, step0: int):
+        """``rollback``: each step's verdict to the monitor, in order,
+        until one rolls back (the verdicts past a restore describe
+        discarded steps). The monitor is made at the first trip."""
+        mon = self._health_monitor
+        for i, ok in enumerate(flags):
+            if ok:
+                if mon is not None:
+                    mon.observe(True, step0 + i)
+                continue
+            if mon is None:
+                mon = self._ensure_health_monitor(program, scope)
+            if mon.observe(False, step0 + i) == "rolled_back":
+                break
 
     def _localize_and_raise(self, program, scope, feeds, seed, step):
         """``raise``: the step tripped and its select kept the pre-step
@@ -1655,9 +1958,10 @@ class Executor:
             finally:
                 counter.add_(1)
                 keys.end()
+                step = self._count_steps(scope, 1) - 1
             if guard is not None:
-                self._interp_guard(guard, scope, snap, fetch_names,
-                                   int(counter.item()) - 1)
+                self._interp_guard(guard, program, scope, snap, fetch_names,
+                                   step)
         fetched = []
         for n in fetch_names:
             v = scope.find_var(n)
@@ -1717,7 +2021,8 @@ class Executor:
         cache[ckey] = (weakref.ref(scope), cfg)
         return cfg
 
-    def _interp_guard(self, guard, scope, snap, fetch_names, step):
+    def _interp_guard(self, guard, program, scope, snap, fetch_names,
+                      step):
         """The compiled epilogue's counterpart after an interpreted step:
         the same health, the same scale arithmetic; on a tripped step the
         selected state goes back to ``snap``, its pre-step tensors (the
@@ -1743,11 +2048,16 @@ class Executor:
             for k, v in zip(("scale", "good", "bad"), news):
                 scope.var(a[k]).set_value(LoDTensor(v))
         self._last_health = health
+        self._health_stats["steps_checked"] += 1
+        if guard["check"] and guard["action"] in ("raise", "rollback"):
+            self._last_step_tripped = self._last_step_tripped \
+                or not healthy
         if not healthy:
+            self._health_stats["trips"] += 1
             for n, t in snap.items():
                 scope.var(n).set_value(LoDTensor(t))
-            if guard["check"] and guard["action"] == "rollback":
-                raise _no_checkpoint_plane(step)
+        if guard["check"] and guard["action"] == "rollback":
+            self._observe_health(program, scope, [healthy], step)
 
     @staticmethod
     def _check_inputs(block, scope: Scope, fed):

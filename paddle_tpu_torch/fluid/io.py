@@ -19,16 +19,36 @@ is given): the executor reads its state from the scope where it lies.
 ._prune(targets)`` with feed and fetch ops, checked by
 ``analysis.verify_program`` at level "error", and the pruned program's
 persistables; ``load_inference_model`` reads them back. ``save`` and
-``load`` are the 2.0-style pickles of the TPU package. The parameter-
-server slab files and the checkpoint plane (the TPU package's
-io.py:438-785) are not ported yet.
+``load`` are the 2.0-style pickles of the TPU package.
+
+The checkpoint plane (the TPU package's io.py:432-650 and :719-785):
+``save_checkpoint`` writes ``<root>/ckpt-<global_step>/``, one tensor
+stream file a persistable and ``MANIFEST.json`` (format version, global
+step, the scope's step counter, each file's CRC32 and size, the
+DataLoader's state, ``extra``), through a temporary directory: every file
+is fsynced, then the manifest and the directory, then the directory is
+renamed into place, so a kill mid-save leaves only a ``.tmp-*`` directory
+that is never selected. The files and the manifest are byte for byte the
+TPU package's for the same values. ``validate_checkpoint`` reports every
+problem in one ``CheckpointError``; ``latest_checkpoint`` and
+``load_checkpoint`` pick the newest checkpoint that validates;
+``load_checkpoint`` restores the persistables and the step counter (an
+int64 [1] tensor on the executor's device, as ``Executor.run`` keeps it)
+and refuses a program whose persistables the checkpoint does not cover;
+``rollback_to_latest`` is the numeric fault plane's restore. The
+parameter server's slab tables (``LazyEmbeddingTable``) and the handoff
+manifests wait for the PS plane (ROADMAP A9).
 """
 from __future__ import annotations
 
+import json
+import logging
 import os
 import pickle
+import shutil
 import struct
-from typing import List
+import zlib
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -43,20 +63,20 @@ __all__ = [
     "save_vars", "save_params", "save_persistables", "load_vars",
     "load_params", "load_persistables", "save_inference_model",
     "load_inference_model", "save", "load",
+    "save_checkpoint", "load_checkpoint", "latest_checkpoint",
+    "validate_checkpoint", "rollback_to_latest",
 ]
+
+_LOG = logging.getLogger("paddle_tpu_torch.io")
 
 
 # --------------------------------------------------------------------------
 # the LoDTensor stream
 # --------------------------------------------------------------------------
-def _host_bytes(t: torch.Tensor) -> bytes:
-    t = t.detach().contiguous().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.numpy().tobytes()
-
-
-def _serialize_lod_tensor(t: LoDTensor, as_fp16: bool = False) -> bytes:
+def _serialize_parts(t: LoDTensor, as_fp16: bool = False) -> List[bytes]:
+    """The tensor stream of ``t`` in pieces: the header, then the raw
+    buffer (a view of the host copy, not joined: a checkpoint writes and
+    checksums the pieces as they are)."""
     arr = t.array
     if not isinstance(arr, torch.Tensor):
         arr = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
@@ -75,8 +95,15 @@ def _serialize_lod_tensor(t: LoDTensor, as_fp16: bool = False) -> bytes:
     db = desc.SerializeToString()
     parts.append(struct.pack("<i", len(db)))
     parts.append(db)
-    parts.append(_host_bytes(arr))
-    return b"".join(parts)
+    host = arr.detach().contiguous().cpu()
+    if host.dtype == torch.bfloat16:
+        host = host.view(torch.int16)
+    parts.append(host.numpy().reshape(-1).view(np.uint8).data)
+    return parts
+
+
+def _serialize_lod_tensor(t: LoDTensor, as_fp16: bool = False) -> bytes:
+    return b"".join(_serialize_parts(t, as_fp16))
 
 
 def _deserialize_lod_tensor(data: bytes, offset: int = 0,
@@ -201,7 +228,7 @@ def load_vars(executor, dirname, main_program=None, vars=None,
         missing = [os.path.join(dirname, v.name) for v in vars
                    if not os.path.exists(os.path.join(dirname, v.name))]
         if missing:
-            raise RuntimeError(
+            raise core.CheckpointError(
                 f"{len(missing)} checkpoint file(s) missing under "
                 f"{dirname}: " + ", ".join(sorted(missing)))
         for v in vars:
@@ -345,3 +372,270 @@ def load(program: Program, model_path: str, executor=None, var_list=None):
             t = torch.from_numpy(arr)
         scope.var(name).set_value(
             LoDTensor(t if device is None else t.to(device)))
+
+
+# --------------------------------------------------------------------------
+# atomic checkpoints with bit-exact resume (the TPU package's io.py:432-650,
+# :719-785; docs/FAULT_TOLERANCE.md)
+# --------------------------------------------------------------------------
+CKPT_PREFIX = "ckpt-"
+CKPT_MANIFEST = "MANIFEST.json"
+CKPT_FORMAT_VERSION = 1
+RNG_COUNTER_VAR = "@RNG_COUNTER@"
+
+
+def _fsync_path(path: str):
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _scope_rng_counter(scope) -> int:
+    """The scope's step counter (one host read of the device tensor)."""
+    v = scope.find_var(RNG_COUNTER_VAR)
+    if v is None or not v.is_initialized():
+        return 0
+    return int(v.value().array.reshape(-1)[0].item())
+
+
+def save_checkpoint(executor, dirname, main_program=None, scope=None,
+                    global_step: int = 0, dataloader_state=None,
+                    extra=None, max_to_keep: int = 3) -> str:
+    """Write one atomic checkpoint to ``<dirname>/ckpt-<global_step>``:
+    every initialized persistable of ``main_program`` (parameters and the
+    optimizer's slots: Adam's moments and beta powers, Momentum's
+    velocities, the learning rate), the scope's step counter (what makes
+    resumed dropout masks bit-identical), and ``dataloader_state`` (e.g.
+    ``DataLoader.state_dict()``) and ``extra`` in the manifest. Keeps the
+    newest ``max_to_keep`` checkpoints. The values are read on the current
+    stream after it waits for the executor's, which writes the state.
+    → the checkpoint's directory."""
+    if main_program is None:
+        main_program = default_main_program()
+    if scope is None:
+        scope = global_scope()
+    stream = getattr(executor, "_stream", None)
+    if stream is not None:
+        torch.cuda.current_stream(executor.device).wait_stream(stream)
+    step = int(global_step)
+    os.makedirs(dirname, exist_ok=True)
+    tmp = os.path.join(dirname, f".tmp-{CKPT_PREFIX}{step}-{os.getpid()}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    files: Dict[str, Dict[str, int]] = {}
+    for v in main_program.list_vars():
+        if not _is_persistable(v):
+            continue
+        sv = scope.find_var(v.name)
+        if sv is None or not sv.is_initialized():
+            continue
+        val = sv.value()
+        if not isinstance(val, LoDTensor):
+            _LOG.warning("checkpoint: skipping non-dense persistable "
+                         "'%s' (%s)", v.name, type(val).__name__)
+            continue
+        crc, size = 0, 0
+        with open(os.path.join(tmp, v.name), "wb") as f:
+            for part in _serialize_parts(val):
+                f.write(part)
+                crc = zlib.crc32(part, crc)
+                size += len(part)
+            f.flush()
+            os.fsync(f.fileno())
+        files[v.name] = {"crc32": crc & 0xFFFFFFFF, "size": size}
+    manifest = {
+        "format_version": CKPT_FORMAT_VERSION,
+        "global_step": step,
+        "rng_counter": _scope_rng_counter(scope),
+        "files": files,
+        "dataloader": dataloader_state,
+        "extra": extra,
+    }
+    mpath = os.path.join(tmp, CKPT_MANIFEST)
+    with open(mpath, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_path(tmp)
+    final = os.path.join(dirname, f"{CKPT_PREFIX}{step}")
+    aside = None
+    if os.path.exists(final):
+        # a checkpoint of the same step: moved aside first, so that a kill
+        # before the rename below leaves the old copy (an aside directory
+        # is never a resume candidate, and is pruned)
+        aside = f"{final}.old-{os.getpid()}"
+        if os.path.exists(aside):
+            shutil.rmtree(aside)
+        os.rename(final, aside)
+    os.rename(tmp, final)
+    _fsync_path(dirname)
+    if aside is not None:
+        shutil.rmtree(aside, ignore_errors=True)
+    _prune_checkpoints(dirname, max_to_keep)
+    return final
+
+
+def _checkpoint_steps(dirname) -> List[int]:
+    steps = []
+    try:
+        entries = os.listdir(dirname)
+    except OSError:
+        return steps
+    for name in entries:
+        if not name.startswith(CKPT_PREFIX):
+            continue
+        try:
+            steps.append(int(name[len(CKPT_PREFIX):]))
+        except ValueError:
+            continue
+    return sorted(steps)
+
+
+def _prune_checkpoints(dirname, max_to_keep: int):
+    if not max_to_keep or max_to_keep <= 0:
+        return
+    steps = _checkpoint_steps(dirname)
+    for step in steps[:-max_to_keep]:
+        shutil.rmtree(os.path.join(dirname, f"{CKPT_PREFIX}{step}"),
+                      ignore_errors=True)
+    # the temporary and aside directories of killed saves
+    for name in os.listdir(dirname):
+        if name.startswith(".tmp-" + CKPT_PREFIX) or \
+                (name.startswith(CKPT_PREFIX) and ".old-" in name):
+            shutil.rmtree(os.path.join(dirname, name), ignore_errors=True)
+
+
+def validate_checkpoint(ckpt_dir) -> Dict[str, Any]:
+    """Validate one checkpoint directory against its manifest. → the
+    manifest; raises ``core.CheckpointError`` naming EVERY problem (no
+    manifest, missing files, sizes and CRCs that disagree): a truncated or
+    bit-flipped checkpoint is rejected whole."""
+    mpath = os.path.join(ckpt_dir, CKPT_MANIFEST)
+    if not os.path.exists(mpath):
+        raise core.CheckpointError(
+            f"checkpoint {ckpt_dir}: no {CKPT_MANIFEST} — incomplete "
+            f"save (killed mid-write) or not a checkpoint directory")
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+    except (ValueError, OSError) as e:
+        raise core.CheckpointError(
+            f"checkpoint {ckpt_dir}: unreadable manifest: {e}") from e
+    problems = []
+    for name, meta in sorted(manifest.get("files", {}).items()):
+        path = os.path.join(ckpt_dir, name)
+        if not os.path.exists(path):
+            problems.append(f"missing file '{name}'")
+            continue
+        size = os.path.getsize(path)
+        if size != int(meta["size"]):
+            problems.append(
+                f"'{name}' truncated ({size} bytes, manifest says "
+                f"{meta['size']})")
+            continue
+        crc = 0
+        with open(path, "rb") as f:
+            for chunk in iter(lambda: f.read(1 << 20), b""):
+                crc = zlib.crc32(chunk, crc)
+        if (crc & 0xFFFFFFFF) != int(meta["crc32"]):
+            problems.append(f"'{name}' CRC mismatch (corrupted)")
+    if problems:
+        raise core.CheckpointError(
+            f"checkpoint {ckpt_dir} failed validation "
+            f"({len(problems)} problem(s)): " + "; ".join(problems))
+    return manifest
+
+
+def _latest_valid(dirname):
+    """(directory, manifest) of the newest checkpoint under ``dirname``
+    that validates, or (None, None); an invalid newer one is logged and
+    passed over."""
+    for step in reversed(_checkpoint_steps(dirname)):
+        cand = os.path.join(dirname, f"{CKPT_PREFIX}{step}")
+        try:
+            return cand, validate_checkpoint(cand)
+        except core.CheckpointError as e:
+            _LOG.warning("skipping invalid checkpoint %s: %s", cand, e)
+    return None, None
+
+
+def latest_checkpoint(dirname) -> Optional[str]:
+    return _latest_valid(dirname)[0]
+
+
+def rollback_to_latest(executor, dirname, main_program=None, scope=None
+                       ) -> Optional[Dict[str, Any]]:
+    """The numeric fault plane's restore (executor.HealthMonitor): load
+    the newest valid checkpoint under ``dirname`` (persistables and the
+    step counter, so the replay of the faulted steps is bit-exact). → its
+    manifest, or None when nothing under ``dirname`` validates (the caller
+    raises ``core.NumericFaultError`` rather than train on)."""
+    if not dirname or not os.path.isdir(dirname):
+        return None
+    try:
+        return load_checkpoint(executor, dirname,
+                               main_program=main_program, scope=scope)
+    except core.CheckpointError:
+        return None
+
+
+def load_checkpoint(executor, path, main_program=None, scope=None
+                    ) -> Dict[str, Any]:
+    """Restore a checkpoint of ``save_checkpoint``. ``path`` is one
+    ``ckpt-<n>`` directory or a root holding several (the newest valid one
+    is taken). Every var of the manifest goes into ``scope`` on the
+    executor's device (the host without an executor), and the step
+    counter becomes an int64 [1] tensor there, as ``Executor.run`` keeps
+    it; the executor's host count of the scope's steps follows. The next
+    step draws the keys an unbroken run would, so dropout masks and losses
+    are bit-identical. A graph captured over the scope copies the new
+    values into its own tensors before its next replay. → the manifest
+    (global_step, the DataLoader's state, extra).
+
+    With ``main_program``, every initialized persistable of the program
+    must be in the manifest, or ``CheckpointError`` is raised before the
+    scope is touched: a var the checkpoint does not cover would keep its
+    startup value after the "resume" (a net rebuilt without
+    ``fluid.unique_name.guard()`` names its params ``fc_1.*`` where the
+    checkpoint holds ``fc_0.*``)."""
+    if scope is None:
+        scope = global_scope()
+    if os.path.exists(os.path.join(path, CKPT_MANIFEST)):
+        ckpt_dir, manifest = path, validate_checkpoint(path)
+    else:
+        ckpt_dir, manifest = _latest_valid(path)
+        if ckpt_dir is None:
+            raise core.CheckpointError(
+                f"no valid checkpoint found under {path}")
+    if main_program is not None:
+        have = set(manifest.get("files", {}))
+        missing = []
+        for v in main_program.list_vars():
+            if not _is_persistable(v) or v.name in have:
+                continue
+            sv = scope.find_var(v.name)
+            if sv is None or not sv.is_initialized() \
+                    or not isinstance(sv.value(), LoDTensor):
+                continue  # save_checkpoint skips these too
+            missing.append(v.name)
+        if missing:
+            raise core.CheckpointError(
+                f"checkpoint {ckpt_dir} does not cover program "
+                f"persistables {sorted(missing)} — resuming would leave "
+                f"them at their startup init (was the net rebuilt "
+                f"without fluid.unique_name.guard()?)")
+    device = _device_of(executor)
+    for name in manifest.get("files", {}):
+        with open(os.path.join(ckpt_dir, name), "rb") as f:
+            scope.var(name).set_value(
+                _deserialize_lod_tensor(f.read(), device=device))
+    counter = int(manifest.get("rng_counter", 0))
+    scope.var(RNG_COUNTER_VAR).set_value(LoDTensor(torch.tensor(
+        [counter], dtype=torch.int64,
+        device=device if device is not None else "cpu")))
+    from .executor import Executor
+    Executor._rng_counters[scope] = counter
+    return manifest

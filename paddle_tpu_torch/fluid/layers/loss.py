@@ -1,11 +1,23 @@
 """Loss layers (counterpart of paddle_tpu/fluid/layers/loss.py; reference:
-python/paddle/fluid/layers/loss.py). So far: cross_entropy and
-softmax_with_cross_entropy."""
+python/paddle/fluid/layers/loss.py). So far: cross_entropy,
+softmax_with_cross_entropy and square_error_cost."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["cross_entropy", "softmax_with_cross_entropy"]
+__all__ = ["cross_entropy", "softmax_with_cross_entropy",
+           "square_error_cost"]
+
+
+def square_error_cost(input, label):
+    """(input - label)², elementwise."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def cross_entropy(input, label, soft_label=False, ignore_index=-100):

@@ -268,7 +268,9 @@ __global__ void __launch_bounds__(FWD_THREADS, D <= 64 ? 2 : 1)
     const float l = ca * l_i[h] + cb * l_b;
     const int row = rows[h];
     if (row >= S) continue;
-    const bool dead = m <= NEG_INF * 0.5f;
+    // a NaN score makes l NaN: not a dead row, the NaN reaches O
+    // as in `_finalize` (fmaxf kept it out of m)
+    const bool dead = m <= NEG_INF * 0.5f && !isnan(l);
     // O = (ca acc_a + cb acc_b) / l, the weights divided by l once a row;
     // dead rows write zeros
     const float ia = dead ? 0.f : ca / l, ib = dead ? 0.f : cb / l;

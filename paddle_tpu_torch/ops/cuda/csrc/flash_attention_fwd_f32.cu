@@ -369,7 +369,9 @@ __global__ void __launch_bounds__(THREADS)
       l[e2] += __shfl_xor_sync(0xffffffffu, l[e2], 2);
       const int row = rows[e2];
       if (row >= S) continue;
-      const bool dead = m[e2] <= NEG_INF * 0.5f;
+      // a NaN score makes l NaN: not a dead row, the NaN reaches O
+      // as in `_finalize` (fmaxf kept it out of m)
+      const bool dead = m[e2] <= NEG_INF * 0.5f && !isnan(l[e2]);
       const float inv = dead ? 0.f : 1.f / l[e2];
       float* orow = o + ((size_t)bh * S + row) * D;
 #pragma unroll

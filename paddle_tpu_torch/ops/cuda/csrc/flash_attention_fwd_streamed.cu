@@ -347,7 +347,9 @@ __global__ void __launch_bounds__(THREADS, DP == 64 ? 2 : 1)
   for (int e2 = 0; e2 < 2; ++e2) {
     l[e2] += __shfl_xor_sync(0xffffffffu, l[e2], 1);
     l[e2] += __shfl_xor_sync(0xffffffffu, l[e2], 2);
-    const bool dead = m[e2] <= NEG_INF * 0.5f;
+    // a NaN score makes l NaN: not a dead row, the NaN reaches O
+    // as in `_finalize` (fmaxf kept it out of m)
+    const bool dead = m[e2] <= NEG_INF * 0.5f && !isnan(l[e2]);
     const float inv = 1.f / l[e2];
     const int r = rows[e2] - q0;
 #pragma unroll

@@ -266,7 +266,9 @@ __global__ void __launch_bounds__(THREADS, DP == 64 ? 2 : 1)
   // lse to device memory; dead rows write zeros and lse = +1e30
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
-    const bool dead = m[e2] <= NEG_INF * 0.5f;
+    // a NaN score makes l NaN: not a dead row, the NaN reaches O
+    // as in `_finalize` (fmaxf kept it out of m)
+    const bool dead = m[e2] <= NEG_INF * 0.5f && !isnan(l[e2]);
     const float inv = 1.f / l[e2];
 #pragma unroll
     for (int c = 0; c < NC; ++c)

@@ -25,12 +25,15 @@ __device__ __forceinline__ float masked_score(float s, float sm_scale,
 }
 
 // The key-padding bias of column `col` of batch `b`, clamped at NEG_INF so
-// that -inf never meets -inf; 0 without a bias or past Sk.
+// that -inf never meets -inf; 0 without a bias or past Sk. A NaN stays NaN,
+// as jnp.maximum keeps it in the TPU kernels (fmaxf would return NEG_INF
+// and quietly mask the key: a NaN input mask must reach the loss, where the
+// numeric guard sees it).
 __device__ __forceinline__ float bias_at(const float* bias, int b, int col,
                                          int Sk) {
-  return (bias != nullptr && col < Sk) ? fmaxf(bias[(size_t)b * Sk + col],
-                                               NEG_INF)
-                                       : 0.f;
+  if (bias == nullptr || col >= Sk) return 0.f;
+  const float x = bias[(size_t)b * Sk + col];
+  return x < NEG_INF ? NEG_INF : x;
 }
 
 // negative return codes of the C entry points (a cudaError_t is >= 0)

@@ -1,7 +1,8 @@
 """NN op kernels (counterpart of paddle_tpu/ops/nn_ops.py; so far:
 lookup_table, lookup_table_v2, conv2d, depthwise_conv2d, pool2d,
 batch_norm, layer_norm, softmax, cross_entropy, softmax_with_cross_entropy,
-log_loss, accuracy, auc and dropout with its dropout_grad).
+square_error_cost, log_loss, accuracy, auc and dropout with its
+dropout_grad).
 
 The convolution is cuDNN's, through ``torch.nn.functional.conv2d``, as
 the TPU package's is XLA's ``lax.conv_general_dilated``; pooling and
@@ -398,6 +399,11 @@ def _softmax_with_cross_entropy(ins, attrs):
                            torch.zeros((), dtype=logp.dtype,
                                        device=logp.device), -picked)
     return out(Softmax=softmax, Loss=loss)
+
+
+@register_op("square_error_cost", inputs=("X", "Y"))
+def _square_error_cost(ins, attrs):
+    return out(Out=torch.square(first(ins, "X") - first(ins, "Y")))
 
 
 # --------------------------------------------------------------------------

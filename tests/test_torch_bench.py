@@ -117,3 +117,39 @@ def test_bert_lane_switches_reach_the_program(monkeypatch, recompute):
     assert (ckpts is not None) is recompute
     if recompute:
         assert len(ckpts["checkpoints"]) == 11  # layers 1-11 of 12
+
+
+@pytest.mark.parametrize("lane,metric,batch", [
+    ("mnist_realdata", "mnist_mlp_realdata_samples_per_sec", 64),
+    ("mnist_guard", "mnist_realdata_guard_samples_per_sec", 64),
+    ("wide_deep_realdata", "wide_deep_realdata_samples_per_sec", 256)])
+def test_realdata_lane_on_the_cpu(lane, metric, batch):
+    """bench.py's real-data lanes (bench.py:265, :307, :402) on the CPU:
+    one JSON line in bench.py's form, a window of 8 whose losses agree
+    with 8 single runs (mnist_guard: guard off and on bitwise alike), and
+    no device metric."""
+    rc, res, err = _bench(lane, "--device", "cpu")
+    assert rc == 0, err[-2000:]
+    assert res["metric"] == metric and res["unit"] == "samples/s"
+    assert res["batch"] == batch and res["device"] == "cpu"
+    assert res["value"] > 0 and res["window"] == 8
+    assert res["mode"] == "scan_realdata" and res["parity_ok"] is True
+    assert not {"peak_memory_gib", "power_limit"} & set(res)
+    if lane == "mnist_guard":
+        assert res["guard"] == "skip" and res["best_of"] == 3
+        assert "guard_overhead_pct" in res
+    else:
+        assert res["executor_mode"] == "compiled"
+        assert res["parity_max_diff"] == 0.0
+        assert res["loop_samples_per_sec"] > 0
+    if lane == "wide_deep_realdata":  # the CPU's size: 1e4 ids a slot
+        assert res["sparse_dim"] == 10000 and res["cpu_smoke"] is True
+
+
+@pytest.mark.parametrize("lane", ["mnist_realdata", "mnist_guard",
+                                  "wide_deep_realdata"])
+def test_realdata_lane_without_a_card_fails(lane):
+    rc, res, err = _bench(lane)
+    assert rc == 1
+    assert res["metric"] == f"{lane}_error" and res["unit"] == "error"
+    assert "CUDA is not available" in res["error"]

@@ -88,6 +88,33 @@ def test_plain_fwd_matches_pallas_in_f32(case):
                                rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("where", ["one key", "every key"])
+def test_plain_fwd_keeps_a_nan_bias_as_pallas(where):
+    """A NaN in the key-padding bias (an input mask gone bad): Pallas
+    keeps it (``jnp.maximum(bias, NEG_INF)``, a NaN row max, no dead
+    row), so every row of the poisoned batch is NaN, at one key or at
+    every key, and the numeric guard sees it in the loss. The plain
+    version gives NaN at the same places and agrees elsewhere; the card's
+    forwards are held to it (chip_smoke.py's [route] NaN lines)."""
+    S = Sk = 128
+    q, k, v, _, bias = _inputs(S, Sk, True, seed=77)
+    if where == "one key":
+        bias[0, 3] = np.nan
+    else:
+        bias[0] = np.nan
+    sm = 1.0 / np.sqrt(D)
+    jo, _ = fa._pallas_fwd(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray([SEED], jnp.int32),
+        sm, False, *fa._block_sizes(S, Sk, D), 0.0, bias=jnp.asarray(bias))
+    to, _ = tfa.flash_attention_fwd(
+        *(torch.from_numpy(a) for a in (q, k, v)), sm, False, 0.0, None,
+        torch.from_numpy(bias))
+    jo, to = np.asarray(jo), to.numpy()
+    assert np.isnan(jo[0]).all() and not np.isnan(jo[1]).any()
+    np.testing.assert_array_equal(np.isnan(to), np.isnan(jo))
+    np.testing.assert_allclose(to[1], jo[1], rtol=F32_TOL, atol=F32_TOL)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_bwd_matches_pallas_in_f32(case):
     S, Sk, causal, with_bias, rate = CASES[case]

@@ -12,13 +12,21 @@ tests/test_numeric_faults.py for the cases the port has:
 - a window discards only its poisoned step (:170);
 - one compiled block per flag setting, none per step (:244, :282);
 - ``rollback`` without a checkpoint plane raises the typed error (:401);
+- ``rollback`` with the checkpoint plane (:310, :373): two poisoned steps
+  in a row restore the last checkpoint taken outside the fault window,
+  and the replay is bitwise the unfaulted oracle's, compiled, segmented
+  (the net with a Print island) and interpreted, and inside a compiled
+  window (the monitor takes the window's verdicts in order); a
+  persistent fault spends the budget and raises the typed error;
 - an unknown action is rejected (:418);
 - ``fused_health`` against the TPU package's on the same arrays.
 
-Left out, with the module each waits for (ROADMAP.md): HealthMonitor
-and rollback (A7), the PS guard and the trace events (A11). The
-segmented block's guard is in tests/test_torch_segmented_executor.py.
+Left out, with the module each waits for (ROADMAP.md): the PS guard and
+the monitor's trace events (telemetry). The segmented block's guard is
+in tests/test_torch_segmented_executor.py.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +44,8 @@ from paddle_tpu_torch.fluid.param_bridge import set_params_from_numpy
 from tests import faultinject
 
 _FLAGS = ("FLAGS_check_nan_inf", "FLAGS_nan_inf_action",
-          "FLAGS_executor_mode")
+          "FLAGS_executor_mode", "FLAGS_nan_inf_tolerance",
+          "FLAGS_nan_inf_max_rollbacks")
 
 
 @pytest.fixture
@@ -56,8 +65,10 @@ def flags():
         jcore.set_flag(k, v)
 
 
-def _mlp_program(fluid, seed=7, lr=0.1):
-    """The reference's guard MLP (tests/test_numeric_faults.py:23)."""
+def _mlp_program(fluid, seed=7, lr=0.1, with_print=False):
+    """The reference's guard MLP (tests/test_numeric_faults.py:23); with
+    ``with_print`` its loss goes through a Print island, so the block runs
+    segmented."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
@@ -66,6 +77,9 @@ def _mlp_program(fluid, seed=7, lr=0.1):
         h = fluid.layers.fc(x, 16, act="relu")
         pred = fluid.layers.fc(h, 4, act="softmax")
         loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, y))
+        if with_print:
+            loss = fluid.layers.Print(loss, message="l",
+                                      print_phase="forward")
         fluid.optimizer.Momentum(lr, momentum=0.9).minimize(loss)
     return main, startup, loss
 
@@ -91,8 +105,8 @@ def _blocks(exe, main):
     return [cb for cb in exe._compiled_cache.values() if cb.program is main]
 
 
-def _port():
-    main, startup, loss = _mlp_program(tfluid)
+def _port(with_print=False):
+    main, startup, loss = _mlp_program(tfluid, with_print=with_print)
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     exe.run(startup, scope=scope)
     return main, loss, exe, scope
@@ -307,6 +321,155 @@ def test_rollback_without_checkpoint_plane_is_typed(flags, run_mode):
     after = _snapshot(scope, main)
     for n in before:  # the step was discarded before the raise
         np.testing.assert_array_equal(before[n], after[n], err_msg=n)
+
+
+def _rollback_flags(flags, tolerance, max_rollbacks=2):
+    flags("FLAGS_check_nan_inf", True)
+    flags("FLAGS_nan_inf_action", "rollback")
+    flags("FLAGS_nan_inf_tolerance", tolerance)
+    flags("FLAGS_nan_inf_max_rollbacks", max_rollbacks)
+
+
+def _path(flags, run_mode):
+    """(executor mode, with_print) of a run mode: segmented is the
+    compiled mode on the net with a Print island."""
+    flags("FLAGS_executor_mode", "interpreted" if run_mode == "interpreted"
+          else "compiled")
+    return run_mode == "segmented"
+
+
+@pytest.mark.parametrize("run_mode", ["compiled", "segmented",
+                                      "interpreted"])
+def test_rollback_resumes_bit_identical_to_unfaulted_oracle(
+        flags, tmp_path, run_mode):
+    """tests/test_numeric_faults.py:310: steps 4 and 5 poisoned once (a
+    transient fault), tolerance 2, a checkpoint every 2 steps. The second
+    trip restores the last checkpoint, taken outside the fault window
+    (a tripped step never checkpoints); the loop rewinds its feed cursor
+    to the restored step, and every loss, the replayed ones included,
+    equals the unfaulted oracle's bit for bit."""
+    _rollback_flags(flags, 2)
+    with_print = _path(flags, run_mode)
+    rng = np.random.RandomState(3)
+    feeds = [_batch(rng) for _ in range(8)]
+    main, loss, exe, scope = _port(with_print)
+    oracle = [float(exe.run(main, feed=f, fetch_list=[loss],
+                            scope=scope)[0][0]) for f in feeds]
+    oracle_state = _snapshot(scope, main)
+
+    main, loss, exe, scope = _port(with_print)
+    rolled = {}
+    # the startup run counted one step: feed i runs at step base + i
+    base = tfluid.Executor._rng_counters[scope]
+    exe.set_auto_checkpoint(str(tmp_path), every_n_steps=2, program=main,
+                            scope=scope)
+    exe.set_health_monitor(str(tmp_path), program=main, scope=scope,
+                           on_rollback=lambda m: rolled.update(m))
+    got = [None] * len(feeds)
+    poisoned = {4, 5}
+    i = 0
+    while i < len(feeds):
+        feed = feeds[i]
+        if i in poisoned:
+            feed = faultinject.poison_feed(feed, "x", "nan")
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        assert exe._last_run_mode == run_mode
+        if rolled:
+            i = int(rolled["global_step"]) - base
+            assert i < 4, "the checkpoint must predate the fault window"
+            poisoned = set()
+            rolled.clear()
+            continue
+        got[i] = float(lv[0])
+        i += 1
+    mon = exe._health_monitor
+    assert (mon.rollbacks, mon.trips) == (1, 2)
+    assert mon.last_trip_step == base + 5
+    assert exe.health_stats()["trips"] == 2
+    assert got == oracle
+    state = _snapshot(scope, main)
+    for n in oracle_state:
+        np.testing.assert_array_equal(state[n], oracle_state[n], err_msg=n)
+
+
+@pytest.mark.parametrize("run_mode", ["compiled", "segmented",
+                                      "interpreted"])
+def test_rollback_exhausts_retries_with_typed_error(flags, tmp_path,
+                                                    run_mode):
+    """tests/test_numeric_faults.py:373: a persistent fault (the same
+    poisoned feed after each restore) spends the budget and raises
+    core.NumericFaultError."""
+    _rollback_flags(flags, 1, max_rollbacks=1)
+    main, loss, exe, scope = _port(_path(flags, run_mode))
+    clean = _batch(np.random.RandomState(0))
+    bad = faultinject.poison_feed(clean, "x", "nan")
+    exe.set_auto_checkpoint(str(tmp_path), every_n_steps=1, program=main,
+                            scope=scope)
+    exe.run(main, feed=clean, fetch_list=[loss], scope=scope)  # ckpt-2
+    exe.run(main, feed=bad, fetch_list=[loss], scope=scope)  # rollback 1
+    assert exe._health_monitor.rollbacks == 1
+    assert tfluid.Executor._rng_counters[scope] == 2  # restored
+    with pytest.raises(tcore.NumericFaultError) as ei:
+        exe.run(main, feed=bad, fetch_list=[loss], scope=scope)
+    assert "rollback budget" in str(ei.value)
+
+
+def test_rollback_without_intact_checkpoint_is_typed(flags, tmp_path):
+    _rollback_flags(flags, 1)
+    main, loss, exe, scope = _port()
+    exe.set_health_monitor(str(tmp_path / "empty"), program=main,
+                           scope=scope)
+    with pytest.raises(tcore.NumericFaultError,
+                       match="no intact checkpoint"):
+        exe.run(main, feed=faultinject.poison_feed(
+            _batch(np.random.RandomState(0)), "x", "nan"),
+            fetch_list=[loss], scope=scope)
+
+
+def test_rollback_inside_a_compiled_window(flags, tmp_path):
+    """Windows of 2 steps, a checkpoint every 2 steps, tolerance 2: both
+    steps of the third window poisoned. The monitor takes the window's two
+    verdicts in order, the second rolls back to the checkpoint after the
+    second window (none is taken from the tripped one), and the window's
+    replay gives the unfaulted windows' losses and state bitwise."""
+    _rollback_flags(flags, 2)
+    K = 2
+    rng = np.random.RandomState(6)
+    windows = [{"x": rng.rand(K, 16, 8).astype("float32"),
+                "y": rng.randint(0, 4, (K, 16, 1)).astype("int64")}
+               for _ in range(4)]
+    main, loss, exe, scope = _port()
+    oracle = [exe.run(main, feed=w, fetch_list=[loss], scope=scope,
+                      n_steps=K)[0].ravel().tolist() for w in windows]
+    oracle_state = _snapshot(scope, main)
+
+    main, loss, exe, scope = _port()
+    exe.set_auto_checkpoint(str(tmp_path), every_n_steps=2, program=main,
+                            scope=scope)
+    got, j, poisoned = [None] * len(windows), 0, True
+    while j < len(windows):
+        w = windows[j]
+        if j == 2 and poisoned:
+            w = dict(w, x=np.full_like(w["x"], np.nan))
+        out = exe.run(main, feed=w, fetch_list=[loss], scope=scope,
+                      n_steps=K)[0].ravel().tolist()
+        assert exe._last_run_mode == "compiled"
+        mon = exe._health_monitor
+        if mon is not None and mon.rollbacks and poisoned:
+            assert exe._last_health.tolist() == [False, False]
+            assert mon.last_manifest["global_step"] == 5
+            j = (mon.last_manifest["global_step"] - 1) // K
+            poisoned = False
+            continue
+        got[j] = out
+        j += 1
+    assert sorted(os.listdir(str(tmp_path))) == ["ckpt-5", "ckpt-7",
+                                                 "ckpt-9"]
+    assert (mon.rollbacks, mon.trips) == (1, 2)
+    assert got == oracle
+    state = _snapshot(scope, main)
+    for n in oracle_state:
+        np.testing.assert_array_equal(state[n], oracle_state[n], err_msg=n)
 
 
 @pytest.mark.parametrize("run_mode", ["compiled", "interpreted"])
