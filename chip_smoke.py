@@ -326,6 +326,45 @@ Phases, each fatal on failure:
               the checkpoint's bytes, the seconds to save, validate and
               load it, and the step p50 and mean with and without
               auto-checkpointing every 4 steps.
+ 16. control_flow — control flow and the LR schedules (fluid.layers'
+              While, while_loop, cond, Switch, the tensor arrays and
+              every schedule). (a) The train phase's step (BERT-base f32,
+              dropout 0.1, input mask, Adam, batch 32, S = 128) under
+              BERT's schedule, linear_lr_warmup(polynomial_decay(1e-4,
+              12, 0.0, 1.0), 4, 0.0, 1e-4), built from models/bert.py's
+              pieces with Adam(learning_rate=lr): 12 steps compiled and
+              12 interpreted in lock step from one start, then one
+              Executor.run(n_steps=4) over steps 2-5 from the start.
+              Checks: the step compiles whole (its Switch's two
+              conditionals inside the graph), each compiled run one
+              replay after the warm-up and the capture, 0 islands, (0,
+              0, 0, 0, 37, 0, 0, 0, 0, 24, 12, 12) launches (wrappers and
+              graph); loss, LR and every persistable
+              (@LR_DECAY_COUNTER@ and the LR var among them) bitwise the
+              interpreter's after every step; the LR-0 step leaves the
+              parameters bitwise and moves Adam's moments; the window's
+              losses, LRs and state bitwise the single runs'; the LRs
+              equal the CPU port's at rtol 1e-6, atol 1e-6 x the peak.
+              (b) while_loop (an int64 counter, less_than) over one
+              BERT-base encoder layer (hidden 768, 12 heads, ffn 3072,
+              f32, input mask), its parameters made once, 12 iterations
+              at batch 8: the block segmented, the loop's body one CUDA
+              graph replayed each iteration; at dropout 0 each run 12
+              f32 forwards (wrappers, the body's graph x iterations, a
+              trace of one run) and bitwise the interpreter's; at
+              dropout 0.1 (36 dropout launches more) bitwise the
+              interpreter's too. (c) A cond of two pure branches inside
+              the step's graph; a cond with a dropout in its untaken
+              branch segmented (the conditionals islands) with the taken
+              branch exact; a while that writes a tensor array, joined
+              after it; a dropout in a while body drawing a new mask each
+              iteration; a Switch case assigning a numpy constant
+              (captured: the plan binds the constant on the card); each
+              against the interpreter bitwise; piecewise_decay and
+              cosine_decay on the card against the CPU port. Reports (a)'s
+              step p50 beside the train phase's f32 p50, and (b)'s run
+              p50 beside a straight line of 12 layers in one graph (the
+              same work), with the cost of an iteration beyond its body.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -1700,7 +1739,8 @@ def _gate_run(exe, delta, want, what):
     return cb.last_exec
 
 
-def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None):
+def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None,
+                          timing=None, warm=None):
     """The kernels of ``names`` the card ran during ``fn()``, counted by
     name in a torch.profiler trace. A trace that holds no device event at
     all fails: the gate would rest on the launches recorded at capture
@@ -1713,7 +1753,13 @@ def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None):
     starts ``guard_s`` (TRACE_GUARD_S) after the window opens, and the
     window closes ``guard_s`` after ``fn()``'s last kernel has finished
     (tools/trace_window_check.py measures both ways). ``fn()`` runs once,
-    in the one recorded cycle."""
+    in the one recorded cycle. ``timing``, a dict, receives where the
+    trace's device events sit on the host's clock (``_trace_timing``).
+    ``warm``: what the warm-up cycle runs instead of the small kernel. A
+    CUDA graph's first replay inside a profiler session can go
+    unrecorded in a process that ran earlier sessions (ROADMAP C2, PR 18:
+    the loop's first body replay, 36 of 40 traces): pass ``fn`` to replay
+    the graphs once before the recorded cycle."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1721,7 +1767,10 @@ def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        torch.ones(1, device="cuda").add_(1)
+        if warm is None:
+            torch.ones(1, device="cuda").add_(1)
+        else:
+            warm()
         torch.cuda.synchronize()
         prof.step()
         time.sleep(guard_s)
@@ -1734,8 +1783,40 @@ def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None):
     if not evts:
         raise AssertionError("the profiler recorded no device event on the "
                              "card: the replay's kernels cannot be counted")
+    if timing is not None:
+        timing.update(_trace_timing(prof.events(), names))
     return tuple(sum(e.count for e in evts if name in e.key)
                  for name in names)
+
+
+def _trace_timing(events, names):
+    """Where a trace's device events sit on the host's clock, in ms: from
+    the recorded window's start (its first host event) to the first
+    device event (``head``), from the last device event to the window's
+    end (``tail``), and the largest lag from a ``cudaGraphLaunch`` on the
+    host to the first kernel of ``names`` after it on the card
+    (``lag``): a lag far above a launch's microseconds says the card's
+    timestamps sit off the host's clock (ROADMAP C2)."""
+    from torch.autograd import DeviceType
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not host or not dev:
+        return {}
+    start = min(e.time_range.start for e in host)
+    end = max(e.time_range.end for e in host)
+    launches = sorted(e.time_range.start for e in host
+                      if e.name == "cudaGraphLaunch")
+    kern = sorted(e.time_range.start for e in dev
+                  if any(n in e.name for n in names))
+    lags = []
+    for a in launches:
+        after = [k for k in kern if k >= a]
+        if after:
+            lags.append(after[0] - a)
+    return {"head": (min(e.time_range.start for e in dev) - start) / 1e3,
+            "tail": (end - max(e.time_range.end for e in dev)) / 1e3,
+            "lag": max(lags) / 1e3 if lags else None,
+            "launches": len(launches), "kernels": len(kern)}
 
 
 def _check_trace(counts, want, what):
@@ -5109,6 +5190,679 @@ def phase_resume():
             "runs": dict(book.runs)}
 
 
+# --------------------------------------------------------------------------
+# phase 16: control flow and the LR schedules
+# --------------------------------------------------------------------------
+CF_STEPS = 12                 # (a)'s steps: warm-up 4, decay to step 12
+CF_PEAK = 1e-4                # BERT's peak LR (Devlin et al. 2019, §A.2)
+CF_WARMUP = 4                 # BERT's 10,000 warm-up steps, compressed
+CF_WINDOW = (2, 6)            # the window's steps: across the warm-up end
+CF_LR_RTOL = 1e-6             # card LR vs the CPU port's: rtol, and atol
+CF_TIMED = 20                 # (a)'s replays timed back to back after it
+CF_LOOP_TRIPS = 12            # (b): the shared layer applied 12 times
+CF_LOOP_BATCH = 8             # (b): the serve phase's batch 8
+CF_LOOP_RUNS = 20             # (b) and its straight line: runs timed
+CF_TAG = "[control_flow]"
+CF_LOOP_WANT = (0, 0, 0, 0, 0, 0, 0, 0, 0, CF_LOOP_TRIPS, 0, 0)
+CF_LOOP_DROP_WANT = (0, 0, 0, 0, 3 * CF_LOOP_TRIPS, 0, 0, 0, 0,
+                     CF_LOOP_TRIPS, 0, 0)
+
+
+def _cf_schedule(layers):
+    """BERT's schedule at CF_PEAK: linear warm-up over CF_WARMUP steps,
+    then linear decay to 0 at step CF_STEPS."""
+    return layers.linear_lr_warmup(
+        layers.polynomial_decay(CF_PEAK, decay_steps=CF_STEPS,
+                                end_learning_rate=0.0, power=1.0),
+        warmup_steps=CF_WARMUP, start_lr=0.0, end_lr=CF_PEAK)
+
+
+def _cf_pretrain_program(cfg, dropout):
+    """The train phase's step (build_bert_pretrain_program's pieces: f32,
+    input mask, Adam) with BERT's schedule, Adam given the scheduled LR
+    inside the program guard as a reference script does."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.data("src_ids", shape=[S], dtype="int64")
+        pos = fluid.data("pos_ids", shape=[S], dtype="int64")
+        sent = fluid.data("sent_ids", shape=[S], dtype="int64")
+        mask_pos = fluid.data("mask_pos", shape=[1], dtype="int64")
+        mask_label = fluid.data("mask_label", shape=[1], dtype="int64")
+        input_mask = fluid.data("input_mask", shape=[S], dtype="float32")
+        bias = bert.padding_attn_bias(input_mask)
+        x = bert.bert_embedding(src, pos, sent, cfg, dropout)
+        enc = bert.encoder(x, cfg["layers"], cfg["hidden"], cfg["heads"],
+                           cfg["ffn"], dropout, attn_bias=bias)
+        picked = L.gather(L.reshape(enc, [-1, cfg["hidden"]]), mask_pos)
+        loss = L.mean(L.softmax_with_cross_entropy(
+            L.fc(picked, cfg["vocab_size"]), mask_label))
+        lr = _cf_schedule(L)
+        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, loss, lr
+
+
+def _cpu_lrs(schedule, runs):
+    """A schedule's LR over ``runs`` runs of the port on the CPU."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        lr = schedule(fluid.layers)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe.run(startup, scope=scope)
+    return np.asarray([exe.run(main, fetch_list=[lr], scope=scope)[0][0]
+                       for _ in range(runs)], np.float32)
+
+
+def _card_lrs(schedule, runs, what):
+    """The same on the card, compiled (eager, capture, then replays), held
+    to the CPU port's at CF_LR_RTOL."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        lr = schedule(fluid.layers)
+    exe, scope = _fresh(main, startup)
+    got = []
+    for _ in range(runs):
+        got.append(exe.run(main, fetch_list=[lr], scope=scope)[0][0])
+        if exe._last_run_mode != "compiled":
+            raise AssertionError(f"{what} ran {exe._last_run_mode}")
+    got = np.asarray(got, np.float32)
+    _cf_lr_agree(what, got, _cpu_lrs(schedule, runs),
+                 exe._last_block.stats)
+    exe.close()
+    return got
+
+
+def _cf_lr_agree(what, got, cpu, stats=None):
+    import numpy as np
+    peak = float(np.abs(cpu).max())
+    err = float(np.abs(got - cpu).max())
+    ok = np.allclose(got, cpu, rtol=CF_LR_RTOL, atol=CF_LR_RTOL * peak)
+    _log(f"[control_flow] {what}: LR over {len(got)} runs on the card " +
+         " ".join(f"{v:.7g}" for v in got) +
+         f"; vs the CPU port max|d| {err:.3e} (rtol {CF_LR_RTOL:g}, atol "
+         f"{CF_LR_RTOL:g} x {peak:.3g})" +
+         (f"; {stats}" if stats else "") + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the card's LRs differ from the CPU's")
+
+
+class _CfBook:
+    """What phase 16 ran on the card, in KERNELS' order."""
+
+    def __init__(self):
+        self.executed = [0] * len(KERNELS)
+
+    def add(self, counts, times=1):
+        for i, c in enumerate(counts):
+            self.executed[i] += times * c
+
+
+def _cf_bert(book, train_p50):
+    """(a) BERT-base pretraining under BERT's schedule: 12 steps compiled
+    and 12 interpreted in lock step from one start, then a window of 4
+    across the warm-up boundary. → the compiled steps' p50 in ms."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid import core, executor
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    main, startup, loss, lr = _cf_pretrain_program(cfg, TRAIN_DROPOUT)
+    ops = main.global_block().ops
+    want = _step_want(ops, _attention_route(main))
+    if want != TRAIN_STEP_WANT:
+        raise AssertionError(f"[control_flow] want {want} launches a step, "
+                             f"not {TRAIN_STEP_WANT}")
+    n_cond = sum(op.type == "conditional_block" for op in ops)
+    if n_cond != 2 or not executor._whole_compilable(ops):
+        raise AssertionError(f"[control_flow] {n_cond} conditionals, "
+                             "want 2 in a step that compiles whole")
+    rng = np.random.RandomState(SEED + 16)
+    batches = [_train_batch(rng, TRAIN_BATCH, cfg) for _ in range(CF_STEPS)]
+    params = [p.name for p in main.all_parameters()]
+    exe, scope = _fresh(main, startup)
+    iexe, iscope = _fresh(main, startup)
+    start = {n: scope.find_var(n).value().array.clone() for n in params}
+    _same_state("(a) the compiled and the interpreted starts",
+                _persistables(scope, main), _persistables(iscope, main),
+                tag=CF_TAG)
+    lrs, losses, times, execs, at = [], [], [], [], {}
+    mode = core.globals_["FLAGS_executor_mode"]
+    for s, b in enumerate(batches):
+        st0 = exe.graph_stats()
+        before = _launch_counts()
+        t = time.perf_counter()
+        lv, lrv = exe.run(main, feed=b, fetch_list=[loss, lr], scope=scope)
+        times.append(time.perf_counter() - t)
+        delta = tuple(x - y for x, y in zip(_launch_counts(), before))
+        execs.append(_gate_run(exe, delta, want,
+                               f"[control_flow] step {s}"))
+        st = exe.graph_stats()
+        if st["islands"] or (execs[-1] == "replay" and (
+                st["replays"] - st0["replays"] != 1 or st["captures"]
+                != st0["captures"] or st["eager"] != st0["eager"])):
+            raise AssertionError(f"[control_flow] step {s}: {st0} -> {st}")
+        book.add(want)
+        core.set_flag("FLAGS_executor_mode", "interpreted")
+        try:
+            ilv, ilrv = iexe.run(main, feed=b, fetch_list=[loss, lr],
+                                 scope=iscope)
+        finally:
+            core.set_flag("FLAGS_executor_mode", mode)
+        book.add(want)
+        if not (np.array_equal(lv, ilv) and np.array_equal(lrv, ilrv)):
+            raise AssertionError(
+                f"[control_flow] step {s}: compiled loss {lv} LR {lrv}, "
+                f"interpreted {ilv} {ilrv}")
+        state = _persistables(scope, main)
+        _same_state(f"(a) step {s} compiled vs interpreted", state,
+                    _persistables(iscope, main), tag=CF_TAG)
+        if s == 0:
+            moved = [n for n in params if not torch.equal(state[n],
+                                                          start[n])]
+            moments = [n for n in state if "_moment" in n]
+            still = [n for n in moments if not state[n].any()]
+            if float(lrv[0]) != 0.0 or moved or not moments or still:
+                raise AssertionError(
+                    f"[control_flow] the LR-0 step: LR {lrv}, parameters "
+                    f"moved {moved[:3]}, moments still zero {still[:3]}")
+        if s in (CF_WINDOW[0] - 1, CF_WINDOW[1] - 1):
+            at[s] = state
+        del state
+        lrs.append(float(lrv[0]))
+        losses.append(float(lv.reshape(-1)[0]))
+    counter = int(scope.find_var("@LR_DECAY_COUNTER@").value().array[0])
+    _log(f"[control_flow] (a) BERT-base f32, dropout {TRAIN_DROPOUT}, input "
+         f"mask, batch {TRAIN_BATCH}, S = {S}, Adam under linear_lr_warmup"
+         f"(polynomial_decay({CF_PEAK:g}, {CF_STEPS}, 0.0, 1.0), "
+         f"{CF_WARMUP}, 0.0, {CF_PEAK:g}): {CF_STEPS} steps {execs}, each "
+         f"{want} launches, 0 islands; losses and LRs bitwise the "
+         f"interpreter's after every step; the LR-0 step left the "
+         f"{len(params)} parameters bitwise and moved Adam's moments; "
+         f"@LR_DECAY_COUNTER@ {counter} -> ok")
+    _log("[control_flow] (a) losses " + " ".join(f"{x:.6f}" for x in losses))
+    _cf_lr_agree("(a) the step's schedule", np.asarray(lrs, np.float32),
+                 _cpu_lrs(_cf_schedule, CF_STEPS))
+    _drop(iexe)
+    del iexe, iscope
+    # the window: steps CF_WINDOW[0] .. CF_WINDOW[1] - 1 as one run, from
+    # the state the single runs had before them
+    wexe, wscope = _fresh(main, startup)
+    for s in range(CF_WINDOW[0]):
+        before = _launch_counts()
+        wexe.run(main, feed=batches[s], fetch_list=[loss, lr], scope=wscope)
+        _gate_run(wexe, tuple(x - y for x, y in zip(_launch_counts(),
+                                                    before)),
+                  want, f"[control_flow] window prefix step {s}")
+        book.add(want)
+    _same_state("(a) the window's start vs the single runs'",
+                _persistables(wscope, main), at[CF_WINDOW[0] - 1],
+                tag=CF_TAG)
+    k = CF_WINDOW[1] - CF_WINDOW[0]
+    win = {n: np.stack([batches[s][n] for s in range(*CF_WINDOW)])
+           for n in batches[0]}
+    stats0 = {id(cb): dict(cb.stats)
+              for cb in wexe._compiled_cache.values()}
+    before = _launch_counts()
+    wl, wlr = wexe.run(main, feed=win, fetch_list=[loss, lr], scope=wscope,
+                       n_steps=k)
+    _gate_window(wexe, tuple(x - y for x, y in zip(_launch_counts(),
+                                                   before)),
+                 stats0.get(id(wexe._last_block), {}), k, want,
+                 "[control_flow] the window")
+    book.add(want, k)
+    single_l = np.asarray(losses[CF_WINDOW[0]:CF_WINDOW[1]], np.float32)
+    single_lr = np.asarray(lrs[CF_WINDOW[0]:CF_WINDOW[1]], np.float32)
+    _same_state("(a) after the window vs after the single runs",
+                _persistables(wscope, main), at[CF_WINDOW[1] - 1],
+                tag=CF_TAG)
+    if not (np.array_equal(wl.reshape(-1), single_l)
+            and np.array_equal(wlr.reshape(-1), single_lr)):
+        raise AssertionError(
+            f"[control_flow] the window: losses {wl.reshape(-1)} LRs "
+            f"{wlr.reshape(-1)} vs {single_l} {single_lr}")
+    _log(f"[control_flow] (a) Executor.run(n_steps={k}) over steps "
+         f"{CF_WINDOW[0]}..{CF_WINDOW[1] - 1} (LRs " +
+         " ".join(f"{v:.7g}" for v in wlr.reshape(-1)) +
+         "): losses, LRs and every persistable bitwise the single runs' "
+         "-> ok")
+    del at
+    _drop(wexe)
+    del wexe, wscope
+    # the steady state, as the train phase times it: replays back to
+    # back, nothing between them (the lock step above put an interpreted
+    # step and the state compares before each)
+    for j in range(CF_TIMED):
+        before = _launch_counts()
+        t = time.perf_counter()
+        lv, = exe.run(main, feed=batches[j % CF_STEPS], fetch_list=[loss],
+                      scope=scope)
+        times.append(time.perf_counter() - t)
+        _gate_run(exe, tuple(x - y for x, y in zip(_launch_counts(),
+                                                   before)),
+                  want, f"[control_flow] timed step {j}")
+        book.add(want)
+        if not np.isfinite(lv).all():
+            raise AssertionError(f"[control_flow] timed step {j}: loss {lv}")
+    lock = np.asarray(times[2:CF_STEPS]) * 1e3
+    ms = np.asarray(times[CF_STEPS:]) * 1e3
+    p50 = float(np.percentile(ms, 50))
+    _log(f"[control_flow] (a) step p50 {p50:.3f} ms (p90 "
+         f"{np.percentile(ms, 90):.3f}, n = {len(ms)} replays back to back) "
+         f"beside the train phase's f32 step p50 {train_p50:.3f} ms in this "
+         f"call: {100 * (p50 / train_p50 - 1):+.2f} %; in lock step with the "
+         f"interpreter p50 {np.percentile(lock, 50):.3f} ms ({_card_line()})")
+    _drop(exe)
+    return p50
+
+
+def _cf_loop_program(cfg, dropout, loop=True):
+    """(b): one encoder layer of BERT-base applied CF_LOOP_TRIPS times by
+    while_loop (an int64 counter, less_than), its parameters made once; or,
+    ``loop`` False, the straight line: CF_LOOP_TRIPS layers of the same
+    shapes one after another."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    L = fluid.layers
+    H = cfg["hidden"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data("x", shape=[S, H], dtype="float32")
+        mask = fluid.data("input_mask", shape=[S], dtype="float32")
+        bias = bert.padding_attn_bias(mask)
+        if loop:
+            h = L.assign(x)
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", CF_LOOP_TRIPS)
+
+            def body(i, h):
+                return (L.increment(i, in_place=False),
+                        bert.encoder_layer(h, H, cfg["heads"], cfg["ffn"],
+                                           dropout, attn_bias=bias))
+            _, out = L.while_loop(lambda i, h: L.less_than(i, n), body,
+                                  [i, h])
+        else:
+            out = bert.encoder(x, CF_LOOP_TRIPS, H, cfg["heads"],
+                               cfg["ffn"], dropout, attn_bias=bias)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, out
+
+
+def _cf_loop_feed(rng, cfg):
+    import numpy as np
+    lens = rng.randint(S // 4, S + 1, size=CF_LOOP_BATCH)
+    return {"x": rng.randn(CF_LOOP_BATCH, S, cfg["hidden"]).astype(
+                np.float32),
+            "input_mask": (np.arange(S)[None, :] < lens[:, None]).astype(
+                np.float32)}
+
+
+def _cf_loop_run(exe, main, out, scope, feed, want, what, book):
+    """One run of a loop program on the segmented path, gated: the loop
+    iterated CF_LOOP_TRIPS times, eagerly on the key's first run and as
+    replays of its body's graph after, launching ``want`` a run (through
+    the wrappers when eager; a capture records one iteration). →
+    (the output, seconds)."""
+    sb = exe._last_block if exe._last_run_mode == "segmented" else None
+    caps = sb.loop_stats["body_captures"] if sb is not None else 0
+    reps = sb.loop_stats["body_replays"] if sb is not None else 0
+    before = _launch_counts()
+    t = time.perf_counter()
+    o, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    dt = time.perf_counter() - t
+    delta = tuple(x - y for x, y in zip(_launch_counts(), before))
+    sb = exe._last_block
+    if exe._last_run_mode != "segmented" or sb.stats["islands"]:
+        raise AssertionError(f"{what} ran {exe._last_run_mode}, "
+                             f"{sb.stats}")
+    (seg,) = [s for s in sb.segments if s.kind == "loop"]
+    if sb.last_iterations[seg.start] != CF_LOOP_TRIPS:
+        raise AssertionError(f"{what}: {sb.last_iterations} iterations")
+    body = tuple(seg.loop.launches.get(k, 0) for k in KERNELS)
+    graphs = tuple(sb.graph_launches.get(k, 0) for k in KERNELS)
+    if sb.last_exec == "eager":
+        ok = delta == want
+    else:
+        captured = sb.loop_stats["body_captures"] - caps
+        replayed = sb.loop_stats["body_replays"] - reps
+        ok = not any(graphs) and replayed == CF_LOOP_TRIPS and tuple(
+            CF_LOOP_TRIPS * c for c in body) == want and delta == tuple(
+            captured * c for c in body)
+    if not ok:
+        raise AssertionError(f"{what} ({sb.last_exec}): launches through "
+                             f"the wrappers {delta}, one body replay "
+                             f"{body}, the segments' graphs {graphs}, "
+                             f"loop {sb.loop_stats}; want {want} a run")
+    book.add(want)
+    return o, dt
+
+
+def _cf_loop(book):
+    """(b) while_loop over a shared BERT-base encoder layer at batch 8: at
+    dropout 0 bitwise the interpreter's, the body replayed, 12 f32
+    forwards a run (wrappers, the body's graph and a trace of one run),
+    timed beside the straight line of 12 layers; at dropout 0.1 compiled
+    against interpreted bitwise. → (loop p50 ms, straight line p50 ms)."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import core
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    rng = np.random.RandomState(SEED + 160)
+    feeds = [_cf_loop_feed(rng, cfg) for _ in range(4)]
+    mode = core.globals_["FLAGS_executor_mode"]
+    results = {}
+    for dropout, want in ((0.0, CF_LOOP_WANT),
+                          (TRAIN_DROPOUT, CF_LOOP_DROP_WANT)):
+        main, startup, out = _cf_loop_program(cfg, dropout)
+        if len(main.all_parameters()) != 16:
+            raise AssertionError(f"(b) {len(main.all_parameters())} "
+                                 "parameters, want one layer's 16")
+        exe, scope = _fresh(main, startup)
+        iexe, iscope = _fresh(main, startup)
+        execs, times = [], []
+        for j in range(len(feeds) if dropout else 3 + CF_LOOP_RUNS):
+            f = feeds[j % len(feeds)]
+            o, dt = _cf_loop_run(exe, main, out, scope, f, want,
+                                 f"[control_flow] (b) run {j}", book)
+            execs.append(exe._last_block.last_exec)
+            times.append(dt)
+            if j < len(feeds):
+                core.set_flag("FLAGS_executor_mode", "interpreted")
+                try:
+                    io, = iexe.run(main, feed=f, fetch_list=[out],
+                                   scope=iscope)
+                finally:
+                    core.set_flag("FLAGS_executor_mode", mode)
+                book.add(want)
+                if not np.array_equal(o, io) or not np.isfinite(o).all():
+                    raise AssertionError(
+                        f"[control_flow] (b) dropout {dropout} run {j}: "
+                        f"compiled vs interpreted max|d| "
+                        f"{float(np.abs(o - io).max()):.3e}")
+        sb = exe._last_block
+        if dropout == 0.0:
+            timing = {}
+
+            def one_run():
+                exe.run(main, feed=feeds[0], fetch_list=[out], scope=scope)
+            # the loop replays two graphs from the host: the warm-up cycle
+            # replays them once (the docstring of _device_kernel_counts)
+            counts = _device_kernel_counts(one_run, timing=timing,
+                                           warm=one_run)
+            book.add(want, 2)
+            _log(f"[control_flow] (b) the trace of one run: {counts}, "
+                 f"{sb.last_iterations} iterations; on the host's clock "
+                 + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                             else f"{k} {v}" for k, v in timing.items()))
+            if counts != want:
+                raise AssertionError(f"[control_flow] (b): the trace of one "
+                                     f"run holds {counts}, want {want}")
+            results["loop"] = np.asarray(times[3:]) * 1e3
+        _log(f"[control_flow] (b) while_loop over one shared BERT-base "
+             f"encoder layer x {CF_LOOP_TRIPS}, batch {CF_LOOP_BATCH}, "
+             f"dropout {dropout}: runs {execs[:4]}.., each {want} "
+             f"launches ({CF_LOOP_TRIPS} iterations; a body replay "
+             f"{tuple(sb.segments[-1].loop.launches.get(k, 0) for k in KERNELS)}"
+             f"), loop {sb.loop_stats}, segments "
+             f"{[s.kind for s in sb.segments]}; the first "
+             f"{len(feeds)} runs bitwise the interpreter's -> ok")
+        _drop(iexe)
+        _drop(exe)
+        del exe, scope, iexe, iscope
+    # the straight line: the same work as 12 layers of one graph
+    main, startup, out = _cf_loop_program(cfg, 0.0, loop=False)
+    exe, scope = _fresh(main, startup)
+    times = []
+    for j in range(3 + CF_LOOP_RUNS):
+        before = _launch_counts()
+        t = time.perf_counter()
+        exe.run(main, feed=feeds[j % len(feeds)], fetch_list=[out],
+                scope=scope)
+        times.append(time.perf_counter() - t)
+        _gate_run(exe, tuple(x - y for x, y in zip(_launch_counts(),
+                                                   before)),
+                  CF_LOOP_WANT, f"[control_flow] straight line run {j}")
+        book.add(CF_LOOP_WANT)
+    _drop(exe)
+    del exe, scope
+    line = np.asarray(times[3:]) * 1e3
+    loop = results["loop"]
+    lp50, sp50 = float(np.percentile(loop, 50)), float(np.percentile(line,
+                                                                     50))
+    _log(f"[control_flow] (b) run p50 {lp50:.3f} ms (p90 "
+         f"{np.percentile(loop, 90):.3f}, n = {len(loop)}) beside the "
+         f"straight line of {CF_LOOP_TRIPS} layers in one graph "
+         f"{sp50:.3f} ms (p90 {np.percentile(line, 90):.3f}): "
+         f"{100 * (lp50 / sp50 - 1):+.2f} %, "
+         f"{(lp50 - sp50) / CF_LOOP_TRIPS * 1e3:.1f} us an iteration beyond "
+         f"its body (a replay and a host read of the condition; "
+         f"{_card_line()})")
+    return lp50, sp50
+
+
+def _cf_small_program(build):
+    from paddle_tpu_torch import fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        fetch = build(fluid.layers, fluid)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, fetch
+
+
+def _cf_against_interpreter(what, build, feeds, modes, book):
+    """A small program on the card, run compiled once a feed and again
+    interpreted from the same start: each run's fetches bitwise alike,
+    each compiled run in ``modes`` (its run mode and last exec), the
+    graphs recording none of KERNELS. → the compiled fetches."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import core
+    main, startup, fetch = _cf_small_program(build)
+    exe, scope = _fresh(main, startup)
+    iexe, iscope = _fresh(main, startup)
+    mode = core.globals_["FLAGS_executor_mode"]
+    got, seen = [], []
+    for f in feeds:
+        loops0 = _cf_body_replays(exe)
+        before = _launch_counts()
+        o = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+        book.add(tuple(x - y for x, y in zip(_launch_counts(), before)))
+        # a loop's body replays past its capture ran what it recorded
+        for lp, (reps, caps) in _cf_body_replays(exe).items():
+            r0, c0 = loops0.get(lp, (0, 0))
+            book.add(tuple(lp.launches.get(k, 0) for k in KERNELS),
+                     (reps - r0) - (caps - c0))
+        cb = exe._last_block
+        seen.append((exe._last_run_mode, cb.last_exec))
+        if any(cb.graph_launches.get(k, 0) for k in KERNELS):
+            raise AssertionError(f"[control_flow] {what}: a graph holds "
+                                 f"{cb.graph_launches}")
+        before = _launch_counts()
+        core.set_flag("FLAGS_executor_mode", "interpreted")
+        try:
+            io = iexe.run(main, feed=f, fetch_list=fetch, scope=iscope)
+        finally:
+            core.set_flag("FLAGS_executor_mode", mode)
+        book.add(tuple(x - y for x, y in zip(_launch_counts(), before)))
+        for a, b in zip(o, io):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"[control_flow] {what}: compiled "
+                                     f"{a} vs interpreted {b}")
+        got.append(o)
+    if seen != list(modes):
+        raise AssertionError(f"[control_flow] {what}: ran {seen}, want "
+                             f"{list(modes)}")
+    _log(f"[control_flow] (c) {what}: {seen}, bitwise the interpreter's "
+         "-> ok")
+    exe.close()
+    iexe.close()
+    return got
+
+
+def _cf_body_replays(exe):
+    """{loop plan: (body replays, body captures)} of the executor's last
+    block (each plan's share: one loop a block here)."""
+    cb = exe._last_block
+    if getattr(cb, "loop_stats", None) is None:
+        return {}
+    return {s.loop: (cb.loop_stats["body_replays"],
+                     cb.loop_stats["body_captures"])
+            for s in cb.segments if s.loop is not None}
+
+
+def _cf_small(book):
+    """(c) the small checks: a pure cond inside the graph, a cond with a
+    dropout in its untaken branch segmented, a while over tensor arrays,
+    a Switch assigning a numpy constant, a dropout in a while body,
+    piecewise_decay and cosine_decay against the CPU port."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import core
+    r = np.random.RandomState(SEED + 161)
+    x = r.randn(64, 768).astype(np.float32)
+    graph = [("compiled", "eager"), ("compiled", "capture"),
+             ("compiled", "replay"), ("compiled", "replay")]
+
+    def pure_cond(L, fluid):
+        v = fluid.data("x", shape=[64, 768], dtype="float32",
+                       append_batch_size=False)
+        pred = L.reduce_sum(v) > 0.0
+        out = L.cond(pred, lambda: L.scale(v, scale=2.0, bias=1.0),
+                     lambda: L.elementwise_mul(v, v))
+        return [out, pred]
+    feeds = [{"x": x}, {"x": -x}, {"x": x}, {"x": -x}]
+    got = _cf_against_interpreter("a cond of two pure branches", pure_cond,
+                                  feeds, graph, book)
+    for f, o in zip(feeds, got):
+        want = f["x"] * 2.0 + 1.0 if o[1].all() else f["x"] * f["x"]
+        if not np.array_equal(o[0], want.astype(np.float32)):
+            raise AssertionError("[control_flow] the pure cond's branch")
+
+    def rng_cond(L, fluid):
+        v = fluid.data("x", shape=[64, 768], dtype="float32",
+                       append_batch_size=False)
+        p = fluid.data("p", shape=[1], dtype="bool",
+                       append_batch_size=False)
+
+        def untaken():
+            return L.scale(L.dropout(v, 0.5), scale=-1.0)
+        return [L.cond(p, lambda: L.scale(v, scale=2.0), untaken)]
+    saved = core.globals_["FLAGS_executor_seg_min_ops"]
+    core.set_flag("FLAGS_executor_seg_min_ops", 1)
+    try:
+        feeds = [{"x": x, "p": np.array([True])}] * 4
+        seg = [("segmented", e) for _, e in graph]
+        got = _cf_against_interpreter(
+            "a cond with a dropout in its untaken branch", rng_cond,
+            feeds, seg, book)
+        if not all(np.array_equal(o[0], 2.0 * x) for o in got):
+            raise AssertionError("[control_flow] the taken branch is not "
+                                 "exact")
+        got = _cf_against_interpreter(
+            "the same, its dropout branch taken", rng_cond,
+            [{"x": x, "p": np.array([False])}] * 2, seg[:2], book)
+        if not np.all((got[0][0] == 0) | (got[0][0] == -x)):
+            raise AssertionError("[control_flow] the dropout branch")
+
+        def arrays(L, fluid):
+            v = fluid.data("x", shape=[64, 768], dtype="float32",
+                           append_batch_size=False)
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", 4)
+            arr = L.create_array("float32")
+            c = L.less_than(i, n)
+            w = L.While(c)
+            with w.block():
+                L.array_write(L.scale(v, scale=2.0) * L.cast(i, "float32"),
+                              i, arr)
+                L.increment(i)
+                L.less_than(i, n, cond=c)
+            t, _ = L.tensor_array_to_tensor(arr, axis=0)
+            return [t, L.array_length(arr)]
+        got = _cf_against_interpreter(
+            "a while writing a tensor array, joined after it", arrays,
+            [{"x": x}] * 3, [("segmented", "eager"),
+                             ("segmented", "capture"),
+                             ("segmented", "replay")], book)
+        want = np.concatenate([(x * 2.0) * np.float32(k) for k in range(4)])
+        if not np.array_equal(got[0][0], want) or got[0][1].tolist() != [4]:
+            raise AssertionError("[control_flow] the tensor array")
+
+        def drop_loop(L, fluid):
+            ones = L.fill_constant([64, 768], "float32", 1.0)
+            i = L.fill_constant([1], "int64", 0)
+            n = L.fill_constant([1], "int64", 2)
+            acc = L.fill_constant([64, 768], "float32", 0.0)
+
+            def body(i, acc):
+                d = L.dropout(ones, TRAIN_DROPOUT,
+                              dropout_implementation="upscale_in_train")
+                return L.increment(i, in_place=False), acc + d
+            _, acc = L.while_loop(lambda i, a: L.less_than(i, n), body,
+                                  [i, acc])
+            return [acc]
+        got = _cf_against_interpreter(
+            "a dropout in a while body", drop_loop, [{}] * 3,
+            [("segmented", "eager"), ("segmented", "capture"),
+             ("segmented", "replay")], book)
+        vals = np.unique(got[0][0])
+        one = np.float32(1.0) / np.float32(1 - TRAIN_DROPOUT)
+        if one not in vals or np.array_equal(got[0][0], got[1][0]):
+            raise AssertionError(f"[control_flow] a dropout in a while "
+                                 f"body: values {vals}")
+        _log(f"[control_flow] (c) the two iterations' dropout masks differ "
+             f"(values {vals.tolist()}), and each step's -> ok")
+    finally:
+        core.set_flag("FLAGS_executor_seg_min_ops", saved)
+
+    def hand_schedule(L, fluid):
+        step = L.autoincreased_step_counter(
+            counter_name="@LR_DECAY_COUNTER@", begin=0, step=1)
+        lr = L.create_global_var([1], 0.5, "float32", persistable=True,
+                                 name="hand_lr")
+        with L.Switch() as s:
+            with s.case(L.less_than(step, L.fill_constant([1], "int64",
+                                                          2))):
+                L.assign(np.array([0.25], np.float32), lr)
+            with s.default():
+                L.assign(np.array([0.125], np.float32), lr)
+        return [lr]
+    got = _cf_against_interpreter(
+        "a Switch case assigning a numpy constant", hand_schedule,
+        [{}] * 4, graph, book)
+    if [float(o[0][0]) for o in got] != [0.25, 0.25, 0.125, 0.125]:
+        raise AssertionError("[control_flow] the hand schedule")
+    for name, sched in (
+            ("piecewise_decay", lambda L: L.piecewise_decay(
+                [3, 6], [1e-3, 1e-4, 1e-5])),
+            ("cosine_decay", lambda L: L.cosine_decay(1e-3, 2, 5))):
+        _card_lrs(sched, 12, f"(c) {name}")
+
+
+def phase_control_flow(train_p50):
+    """Phase 16: control flow and the LR schedules (the docstring's phase
+    16). ``train_p50``: the train phase's f32 step p50 of this call. →
+    the launches of its runs: through the wrappers (warm-ups, captures,
+    the interpreter) and on the card (every run)."""
+    book = _CfBook()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    step_p50 = _cf_bert(book, train_p50)
+    loop_p50, line_p50 = _cf_loop(book)
+    _cf_small(book)
+    wrapper = _launch_counts()
+    _log(f"[control_flow] phase 16 in {time.perf_counter() - t0:.1f} s: "
+         f"(a) step p50 {step_p50:.3f} ms vs train {train_p50:.3f}; (b) "
+         f"{loop_p50:.3f} ms vs the straight line {line_p50:.3f}; "
+         f"launches through the wrappers {GATE_NAMES} {wrapper}, on the "
+         f"card {tuple(book.executed)}")
+    return {"wrapper": wrapper, "executed": tuple(book.executed)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -5150,6 +5904,7 @@ def main(argv=None) -> int:
     paths["wide_deep"] = phase_wide_deep(profile=args.profile)
     paths["predictor"] = phase_predictor(profile=args.profile)
     paths["resume"] = phase_resume()
+    paths["control_flow"] = phase_control_flow(paths["train"]["p50_ms"])
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

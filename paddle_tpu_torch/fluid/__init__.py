@@ -1,6 +1,7 @@
 """fluid — the Fluid v1.7 front end of paddle_tpu_torch (counterpart of
 paddle_tpu/fluid; so far: Program building, the layers of the BERT-base
-pretraining step, append_backward, SGD, Momentum, Adam and
+pretraining step, control flow (While, cond, Switch, the tensor arrays)
+and the LR schedules, append_backward, SGD, Momentum, Adam and
 RecomputeOptimizer, contrib.mixed_precision, the Executor, the program
 proto with clone and _prune, io (save and load, and the checkpoint
 plane), the pass system of ir, the verifier of analysis, and the reader's

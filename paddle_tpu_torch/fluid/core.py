@@ -8,7 +8,8 @@ Contents (this slice):
   * VarDesc.VarType enum (wire values of framework.proto VarType).
   * Places: CPUPlace, CUDAPlace; TPUPlace is an alias of the default
     accelerator, i.e. CUDAPlace.
-  * LoDTensor over torch.Tensor, Variable, hierarchical Scope.
+  * LoDTensor over torch.Tensor, LoDTensorArray (the tensor arrays of
+    the control-flow layers), Variable, hierarchical Scope.
   * the typed errors: EOFException (a drained non-iterable DataLoader),
     CheckpointError (a checkpoint that fails validation) and
     NumericFaultError (the numeric fault plane).
@@ -34,6 +35,7 @@ BF16_HOST_DTYPE = np.dtype(_np_bfloat16 if _np_bfloat16 is not None
 
 __all__ = [
     "VarDesc", "Place", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor",
+    "LoDTensorArray",
     "Variable", "Scope", "globals_", "get_flag", "set_flag",
     "convert_np_dtype_to_dtype_", "dtype_to_np", "dtype_to_torch",
     "is_float_dtype", "global_scope", "BF16_HOST_DTYPE",
@@ -301,6 +303,12 @@ class LoDTensor:
         return f"LoDTensor(shape={self.shape()}, lod={self._lod})"
 
 
+class LoDTensorArray(list):
+    """A list of LoDTensors (reference: framework/lod_tensor_array.h), the
+    value of a LOD_TENSOR_ARRAY variable: the tensor-array ops write, read
+    and join its entries on the host, through the interpreter."""
+
+
 # --------------------------------------------------------------------------
 # Variable / Scope (reference: framework/variable.h:26, scope.h:46)
 # --------------------------------------------------------------------------
@@ -316,6 +324,14 @@ class Variable:
         if self._holder is None:
             self._holder = LoDTensor()
         if not isinstance(self._holder, LoDTensor):
+            raise TypeError(f"variable holds {type(self._holder).__name__}")
+        return self._holder
+
+    def get_lod_tensor_array(self) -> LoDTensorArray:
+        """The variable's tensor array, made empty at first use."""
+        if self._holder is None:
+            self._holder = LoDTensorArray()
+        if not isinstance(self._holder, LoDTensorArray):
             raise TypeError(f"variable holds {type(self._holder).__name__}")
         return self._holder
 

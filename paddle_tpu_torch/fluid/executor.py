@@ -4,7 +4,7 @@ python/paddle/fluid/executor.py:457).
 Two paths, chosen by ``FLAGS_executor_mode`` as in the TPU package:
 
   * compiled (default): a compilable block (every op pure, no host read
-    of a tensor value, no control flow) runs through a cache of
+    of a tensor value, no ``while``) runs through a cache of
     ``_CompiledBlock``s keyed like the TPU package's (program id and
     version, feeds, fetches, scope), plus each feed's shape and dtype and
     the seed. A block is planned once: its state is classified (read
@@ -37,6 +37,29 @@ Two paths, chosen by ``FLAGS_executor_mode`` as in the TPU package:
   * interpreted: the oracle (the TPU package's ``_run_interpreted_step``):
     the ops of the global block run in order over the scope, one kernel
     call each; every intermediate and grad stays in the scope.
+
+Control flow (the TPU package's executor.py:258-278, :730-826): a
+``conditional_block`` whose sub-block is compilable runs inside the
+compiled step, both branches over copies of the env, a write to a var the
+env holds merged with ``torch.where`` on the scalar condition (so a
+conditional write to a persistable the scope holds reads it as state),
+and ``select_input`` picks on the device: no host read, so a step with a
+``Switch`` LR schedule stays one CUDA graph. A random op inside a
+conditional would draw in the untaken branch too: its block is not
+compiled whole, and runs segmented with the conditional as an island (the
+interpreter, which runs the taken branch alone). A ``while`` cannot be in
+a graph (its trip count depends on data): its block runs segmented, the
+loop a segment of its own whose body (when compilable) is a plan of its
+own; the condition is read on the host before each iteration, and on the
+GPU the body's first iteration is captured into a CUDA graph that every
+iteration replays, the loop-carried values copied into its static
+buffers. A body with a stateful op (the tensor arrays) runs in the
+interpreter, as an island. In a block with other islands, conditionals
+are islands too. A random op of a sub-block is keyed by (program seed,
+step, its block's index and its index) folded with the iteration of each
+enclosing ``while`` (``_SubKeys``), alike in the interpreter and the
+compiled plans, so a dropout in a loop body draws a new mask each
+iteration.
 
 Windows (``Executor.run(..., n_steps=k)``, the TPU package's contract,
 executor.py:2026): a feed whose rank is its var's rank + 1, on a var whose
@@ -115,8 +138,10 @@ from .core import CUDAPlace, LoDTensor, Place, Scope, global_scope
 from .framework import Program, Variable, default_main_program
 from .ir import op_island_reason, op_reads_host_values
 from ..ops import rng
+from ..ops.framework_ops import host_bool
 from ..ops.registry import (GRAD_SUFFIX, OPS, resolve_base_info,
                             run_generic_grad)
+from ..ops.tensor_ops import assign_value_tensor
 
 __all__ = ["Executor", "HealthMonitor", "global_scope", "scope_guard"]
 
@@ -238,10 +263,57 @@ def _op_needs_rng(op_type: str) -> bool:
     return info.needs_rng if info is not None else False
 
 
-def _ops_compilable(ops) -> bool:
+# control flow that the compiled step lowers itself (the TPU package's
+# executor.py:249): a conditional's branches run inside the step, their
+# writes selected on the device, and select_input picks on the device; a
+# while is a loop of its body's own plan, driven from the host by the
+# segmented step
+_LOWERED_CONTROL = frozenset({"while", "conditional_block", "select_input"})
+
+
+def _ops_compilable(ops, in_cond: bool = False) -> bool:
     """True if every op has a pure kernel that reads no tensor value on
-    the host; control flow is not compilable yet."""
-    return not any(op_island_reason(op) for op in ops)
+    the host, or is lowered control flow whose sub-blocks are compilable
+    (the TPU package's executor.py:258). ``in_cond``: inside a
+    conditional's sub-block, whose lowering runs both branches: a random
+    op there would draw in the untaken branch too, so it makes the block
+    not compilable, and the conditional runs in the interpreter, which
+    runs the taken branch alone."""
+    for op in ops:
+        if op.type in _LOWERED_CONTROL:
+            sub = op.attrs.get("sub_block")
+            if sub is not None and not _ops_compilable(
+                    sub.ops, in_cond or op.type == "conditional_block"):
+                return False
+        elif op_island_reason(op) or (in_cond and _op_needs_rng(op.type)):
+            return False
+    return True
+
+
+def _has_while(ops) -> bool:
+    """A ``while`` among ``ops`` or in their sub-blocks."""
+    for op in ops:
+        sub = op.attrs.get("sub_block")
+        if op.type == "while" or (sub is not None and _has_while(sub.ops)):
+            return True
+    return False
+
+
+def _whole_compilable(ops) -> bool:
+    """The block runs as one planned step (one CUDA graph on the card):
+    compilable, and without a ``while``, whose trip count depends on data,
+    which a graph cannot hold: a ``while`` sends its block to the
+    segmented step, which drives the loop from the host."""
+    return _ops_compilable(ops) and not _has_while(ops)
+
+
+def _compiled_loop(op) -> bool:
+    """A ``while`` whose body runs as its own compiled plan: the body is
+    compilable and holds no ``while`` itself. Any other ``while`` runs in
+    the interpreter."""
+    sub = op.attrs.get("sub_block")
+    return op.type == "while" and sub is not None \
+        and _ops_compilable(sub.ops) and not _has_while(sub.ops)
 
 
 def _classify_block_state(ops, block, feed_names, scope):
@@ -256,6 +328,15 @@ def _classify_block_state(ops, block, feed_names, scope):
     state_names: List[str] = []
     block_vars = block.vars
     for op in ops:
+        if op.type == "conditional_block":
+            # a conditional write to a var the scope holds keeps its old
+            # value when the branch is not taken: the lowering selects
+            # between the two, so the old value is read
+            state_names.extend(
+                n for n in op.output_arg_names
+                if n not in written and n not in feed_names
+                and n not in state_names and _scope_tensor(scope, n)
+                is not None)
         for name in op.input_arg_names:
             if name in written or name in feed_names or name in state_names \
                     or name == _EMPTY:
@@ -308,9 +389,11 @@ class _StepKeys:
     """The random keys of one run: the step key from (program seed, the
     scope's step counter) and from it every random op's key at once, on
     the device, derived when the first op draws — a run that draws
-    nothing launches nothing for them."""
+    nothing launches nothing for them. The keys of the global block's
+    ops; ``_SubKeys`` derives a sub-block's from the same counter."""
 
     __slots__ = ("seed", "slot", "hidx", "counter", "keys")
+    its = ()  # no enclosing while
 
     def __init__(self, seed: int, idxs: Sequence[int], device):
         self.seed = seed
@@ -318,6 +401,10 @@ class _StepKeys:
         self.hidx = rng.hashed_indices(idxs, device)
         self.counter = None
         self.keys = None
+
+    @property
+    def root(self) -> "_StepKeys":
+        return self
 
     def begin(self, counter: torch.Tensor):
         self.counter, self.keys = counter, None
@@ -329,6 +416,48 @@ class _StepKeys:
         if self.keys is None:
             self.keys = rng.op_keys(rng.step_key(self.seed, self.counter),
                                     self.hidx)
+        j = self.slot[idx]
+        return self.keys[j:j + 1]
+
+
+def _sub_index(block_idx: int, idx: int) -> int:
+    """The index a sub-block's op is keyed by: its block's index above
+    bit 20, its index in the block below."""
+    return (block_idx << 20) | idx
+
+
+class _SubKeys:
+    """The random keys of a sub-block's ops: from (program seed, the
+    scope's step counter, the block's index, the op's index), each folded
+    with the iteration of every enclosing ``while`` (``its``: int64 [1]
+    tensors on the device, which a captured loop body updates in place),
+    so a dropout in a loop body draws a new mask each iteration. Derived
+    on the device at the first draw after ``reset``, each time anew (a
+    captured body recomputes them at every replay); the interpreter and
+    the compiled plans derive them alike."""
+
+    __slots__ = ("root", "its", "slot", "hidx", "keys")
+
+    def __init__(self, parent, block, device, its=None):
+        self.root = parent.root
+        self.its = parent.its if its is None else tuple(its)
+        idxs = _rng_indices(block.ops)
+        self.slot = {k: j for j, k in enumerate(idxs)}
+        self.hidx = rng.hashed_indices(
+            [_sub_index(block.idx, i) for i in idxs], device) \
+            if idxs else None
+        self.keys = None
+
+    def reset(self):
+        self.keys = None
+
+    def key(self, idx: int) -> torch.Tensor:
+        if self.keys is None:
+            root = self.root
+            k = rng.op_keys(rng.step_key(root.seed, root.counter), self.hidx)
+            for t in self.its:
+                k = rng.fold(k, t)
+            self.keys = k
         j = self.slot[idx]
         return self.keys[j:j + 1]
 
@@ -485,6 +614,83 @@ class _Step:
                     env[n] = v
 
 
+class _CondStep:
+    """A ``conditional_block`` lowered (the TPU package's
+    executor.py:781-811): its sub-block's bound ops run unconditionally
+    over a copy of the env; a write to a var the env already holds merges
+    as ``torch.where(cond, new, old)`` on the scalar condition, on the
+    device (no host read, so a CUDA graph holds it), and a fresh var flows
+    through for ``select_input`` to pick. A write that changes a var's
+    shape cannot be selected and raises NotImplementedError. The taken
+    branch's values are the interpreter's, bit for bit."""
+
+    __slots__ = ("steps", "keys", "cond", "written", "reads", "writes",
+                 "frees")
+
+    def __init__(self, op, steps, keys):
+        self.steps = tuple(steps)
+        self.keys = keys
+        cond = op.inputs.get("Cond") or []
+        self.cond = cond[0] if cond else None
+        self.written = tuple(dict.fromkeys(
+            n for st in steps for n in st.writes if n != _EMPTY))
+        self.reads = tuple(_effective_reads(op))
+        self.writes = tuple(op.output_arg_names)
+        self.frees = ()
+
+    def run(self, env: Dict[str, torch.Tensor]):
+        branch = dict(env)
+        self.keys.reset()
+        exec_units(self.steps, branch)
+        mask = env[self.cond].reshape(()) != 0 \
+            if self.cond in env else None
+        for n in self.written:
+            v, old = branch.get(n), env.get(n)
+            if v is None or v is old:
+                continue
+            if old is None or mask is None:
+                env[n] = v
+            elif old.shape == v.shape:
+                env[n] = torch.where(mask, v, old)
+            else:
+                raise NotImplementedError(
+                    f"conditional_block branch changes the shape of outer "
+                    f"var '{n}' ({tuple(old.shape)} -> {tuple(v.shape)}); "
+                    "conditional shape-changing writes cannot be compiled "
+                    "— produce a new variable instead")
+
+
+class _SelectStep:
+    """``select_input`` lowered: Out = X[1] where Mask holds, else X[0],
+    selected on the device; a branch output that is missing passes the
+    other through. Branch outputs of different shapes raise
+    NotImplementedError."""
+
+    __slots__ = ("mask", "xs", "out", "reads", "writes", "frees")
+
+    def __init__(self, op):
+        self.mask = op.inputs["Mask"][0]
+        self.xs = tuple(op.inputs["X"])
+        self.out = op.outputs["Out"][0]
+        self.reads = tuple(op.input_arg_names)
+        self.writes = tuple(op.output_arg_names)
+        self.frees = ()
+
+    def run(self, env: Dict[str, torch.Tensor]):
+        xf, xt = env.get(self.xs[0]), env.get(self.xs[1])
+        if xf is None or xt is None:
+            picked = xt if xf is None else xf
+        elif xt.shape == xf.shape:
+            picked = torch.where(env[self.mask].reshape(()) != 0, xt, xf)
+        else:
+            raise NotImplementedError(
+                f"cond branches produce different shapes "
+                f"({tuple(xt.shape)} vs {tuple(xf.shape)}) for the same "
+                "output — a compiled step needs matching branch shapes; "
+                "pad or restructure the branches")
+        env[self.out] = picked
+
+
 def set_liveness(units, keep) -> None:
     """Give each unit of an execution order (a ``_Step``, or a remat unit
     with ``reads``, ``writes`` and ``run``) the names to drop from the env
@@ -596,11 +802,26 @@ class _CompiledBlock:
             n for n in written if n in persistable
             and n not in self.mut_state and n not in self.feed_names))
 
-    def _bind(self, op, idx: int) -> _Step:
-        """Op ``idx`` of the block bound to its kernel, attrs and key."""
+    def _bind(self, op, idx: int, keys=None):
+        """Op ``idx`` of its block bound to its kernel, attrs and key
+        (``keys``: its block's, the global block's by default). A
+        conditional binds its sub-block's ops into a ``_CondStep``,
+        ``select_input`` is a ``_SelectStep``, and ``assign_value`` gets
+        its constant made now, on the device, for the op to copy."""
+        keys = self._keys if keys is None else keys
+        if op.type == "conditional_block":
+            sub = op.attrs["sub_block"]
+            skeys = _SubKeys(keys, sub, self.device)
+            return _CondStep(op, [self._bind(sop, j, skeys)
+                                  for j, sop in enumerate(sub.ops)], skeys)
+        if op.type == "select_input":
+            return _SelectStep(op)
         info, grad_of, ridx = _resolve(op, idx)
-        return _Step(op, info, grad_of, _kernel_attrs(
-            op, info, ridx, self.device, self._keys))
+        attrs = _kernel_attrs(op, info, ridx, self.device, keys)
+        if op.type == "assign_value":
+            attrs = dict(attrs, _const=assign_value_tensor(op.attrs,
+                                                           self.device))
+        return _Step(op, info, grad_of, attrs)
 
     def _build_plan(self) -> list:
         """Each op bound, in execution order (the program's, or the remat
@@ -1017,15 +1238,24 @@ class _SegmentedBlock(_CompiledBlock):
     def __init__(self, program: Program, feed_names, fetch_names,
                  scope: Scope, seed: int, device, stream=None, pool=None):
         from .ir import analyze_block_segments
-        self.segments = analyze_block_segments(program.global_block().ops)
-        n_compiled = sum(len(s.ops) for s in self.segments
-                         if s.kind == "compiled")
+        self.segments = _split_loops(analyze_block_segments(
+            program.global_block().ops))
+        # a compiled loop's body counts: it runs as a plan of its own
+        n_compiled = sum(
+            len(s.ops) if s.kind == "compiled"
+            else len(s.ops[0].attrs["sub_block"].ops) if s.kind == "loop"
+            else 0 for s in self.segments)
         if n_compiled < int(core.globals_["FLAGS_executor_seg_min_ops"]):
             raise _NotSegmentable(f"only {n_compiled} compilable ops (< "
                                   "FLAGS_executor_seg_min_ops)")
         self._init_common(program, feed_names, fetch_names, scope, seed,
                           device, stream, pool)
         self.stats["islands"] = 0
+        # compiled loops: iterations run, body replays and captures, and
+        # the last run's iterations by segment start
+        self.loop_stats = {"iterations": 0, "body_replays": 0,
+                           "body_captures": 0}
+        self.last_iterations: Dict[int, int] = {}
         self._plan_segments()
         # the graphs, by segment start: (graph, static inputs, outputs,
         # health flag); the state tensors they read and write; the keys
@@ -1067,11 +1297,37 @@ class _SegmentedBlock(_CompiledBlock):
                                      if n in state_out)
             seg.guard_names = ()
             seg.units = ()
+            seg.loop = None
             if seg.kind == "compiled":
                 steps = [self._bind(op, seg.start + j)
                          for j, op in enumerate(seg.ops)]
                 set_liveness(steps, set(seg.out_names))
                 seg.units = tuple(steps)
+            elif seg.kind == "loop":
+                seg.loop = self._plan_loop(seg.ops[0])
+
+    def _plan_loop(self, op) -> "_LoopPlan":
+        """A compiled ``while``: its body bound as a plan of its own, keyed
+        by the body's block and the loop's iteration tensor."""
+        body = op.attrs["sub_block"]
+        it = torch.zeros(1, dtype=torch.int64, device=self.device)
+        keys = _SubKeys(self._keys, body, self.device, (it,))
+        units = [self._bind(sop, j, keys) for j, sop in enumerate(body.ops)]
+        reads: List[str] = []
+        written: set = set()
+        for u in units:
+            reads.extend(n for n in u.reads if n not in written
+                         and n not in reads and n != _EMPTY)
+            written.update(u.writes)
+        cond = op.input("Condition")[0]
+        outs = set(op.output("Out")) | {cond}
+        set_liveness(units, outs | set(reads))
+        return _LoopPlan(cond, units, keys, it,
+                         carried=tuple(n for n in reads if n in written),
+                         readonly=tuple(n for n in reads
+                                        if n not in written),
+                         outs=tuple(sorted(n for n in outs
+                                           if n in written)))
 
     # ---------------------------------------------------------- segments
     def _seg_compute(self, seg, env):
@@ -1145,16 +1401,130 @@ class _SegmentedBlock(_CompiledBlock):
         op reads go into the scope (no copy), its writes come back into
         the env. → the names written."""
         written: List[str] = []
-        for off, (op, reads, _writes) in enumerate(seg.op_io):
+        for off, (op, reads, writes) in enumerate(seg.op_io):
             for n in reads:
                 if n in env:
                     scope.var(n).set_value(LoDTensor(env[n]))
-            for n in _interpret_op(op, seg.start + off, scope, self._keys,
-                                   self.device):
+            names = _interpret_op(op, seg.start + off, scope, self._keys,
+                                  self.device)
+            if op.attrs.get("sub_block") is not None:
+                # control flow writes through its sub-block, over the
+                # scope: what now differs from the env came from it
+                names = [n for n in dict.fromkeys(writes)
+                         if _scope_tensor(scope, n) is not None
+                         and _scope_tensor(scope, n) is not env.get(n)]
+            for n in names:
                 env[n] = _scope_tensor(scope, n)
                 written.append(n)
         self.stats["islands"] += 1
         return written
+
+    # ------------------------------------------------------------- loops
+    def _run_loop(self, seg, env, mode):
+        """A compiled ``while`` (the TPU package's ``lax.while_loop``,
+        executor.py:730-767): the condition is read on the host before
+        each iteration. Eager (the CPU, the GPU's warm-up), the body's
+        plan runs over a local env; on the GPU its first iteration is
+        captured into a CUDA graph of its own and every iteration replays
+        it (``_LoopPlan``). → (the loop's outputs, the health flag under
+        the guard or None)."""
+        lp = seg.loop
+        if mode == "eager":
+            outs, n = self._loop_eager(seg, lp, env)
+        else:
+            outs, n = self._loop_graph(seg, lp, env)
+        self.last_iterations[seg.start] = n
+        self.loop_stats["iterations"] += n
+        if not self._guard_active:
+            return outs, None
+        from .ir import fused_health
+        return outs, fused_health(list(outs.values()), self.device)
+
+    def _loop_eager(self, seg, lp, env):
+        local = {n: env[n] for n in seg.in_names if n in env}
+        lp.it.zero_()
+        n = 0
+        while host_bool(local[lp.cond]):
+            lp.keys.reset()
+            exec_units(lp.units, local)
+            lp.it.add_(1)
+            n += 1
+            if n > _MAX_LOOP_ITERS:
+                raise RuntimeError("while op exceeded max iterations")
+        return {k: local[k] for k in seg.out_names if k in local}, n
+
+    def _loop_graph(self, seg, lp, env):
+        if lp.graph is not None and any(
+                env.get(k) is not t for k, t in lp.inplace.items()):
+            lp.drop()  # a state var it reads in place was replaced
+        if lp.bufs is None:
+            # the carried values, and the inputs that are not the scope's
+            # state, get static buffers: copied in before the loop
+            lp.inplace = {k: env[k] for k in lp.readonly
+                          if env[k] is self._targets.get(k)}
+            lp.bufs = {k: torch.empty_like(env[k])
+                       for k in lp.carried + lp.readonly
+                       if k not in lp.inplace}
+        for k, b in lp.bufs.items():
+            if env[k] is not b:
+                b.copy_(env[k])
+        lp.it.zero_()
+        cond = env[lp.cond]
+        n = 0
+        while host_bool(cond):
+            if lp.graph is None:
+                self._capture_body(lp)
+            lp.graph.replay()
+            self.loop_stats["body_replays"] += 1
+            n += 1
+            if n > _MAX_LOOP_ITERS:
+                raise RuntimeError("while op exceeded max iterations")
+            cond = lp.current(lp.cond)
+        if not n:
+            return {k: env[k] for k in seg.out_names if k in env}, 0
+        return {k: lp.current(k) for k in seg.out_names
+                if lp.current(k) is not None}, n
+
+    def _capture_body(self, lp):
+        """Record one iteration of the body into a CUDA graph on the
+        executor's stream and pool (a capture does not execute: the
+        caller replays it). It reads the static buffers and the state in
+        place and ends by copying the new carried values into their
+        buffers and adding one to the iteration tensor."""
+        local = dict(lp.inplace)
+        local.update(lp.bufs)
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            lp.gouts = self._body_pass(lp, local)
+        self.stats["capture_s"] += time.perf_counter() - t0
+        self.loop_stats["body_captures"] += 1
+        after = _launch_counts()
+        lp.launches = {k: after[k] - before[k] for k in after}
+        lp.graph = graph
+
+    @staticmethod
+    def _body_pass(lp, local):
+        """One iteration of the body over ``local`` (what a capture
+        records) → the values of the loop's outputs that are not carried
+        in a buffer."""
+        lp.keys.reset()
+        exec_units(lp.units, local)
+        for k in lp.carried:
+            v, b = local[k], lp.bufs[k]
+            if v is b:
+                continue
+            if v.shape != b.shape or v.dtype != b.dtype:
+                raise NotImplementedError(
+                    f"while body changes the shape or dtype of loop-carried "
+                    f"var '{k}' ({tuple(b.shape)} {b.dtype} -> "
+                    f"{tuple(v.shape)} {v.dtype}): a compiled loop needs "
+                    "fixed shapes")
+            b.copy_(v)
+        lp.it.add_(1)
+        return {k: local[k] for k in lp.outs
+                if k in local and k not in lp.carried}
 
     # -------------------------------------------------------------- step
     def _seg_step(self, scope, feeds, mode):
@@ -1198,6 +1568,13 @@ class _SegmentedBlock(_CompiledBlock):
                     flag = (fused_health([env[n] for n in written],
                                          self.device)
                             if self._guard_active else None)
+                elif seg.kind == "loop":
+                    outs, flag = self._run_loop(seg, env, mode)
+                    env.update(outs)
+                    if mode == "capture":
+                        # a loop's outputs are its buffers only when it
+                        # iterated: later graphs copy them in
+                        stable.difference_update(outs)
                 elif mode == "eager":
                     outs, flag = self._seg_compute(seg, env)
                     env.update(outs)
@@ -1264,6 +1641,67 @@ class _SegmentedBlock(_CompiledBlock):
     def _drop_graph(self):
         self._rt, self._held_keys = {}, []
         self._targets, self._captured, self._extra_targets = {}, {}, {}
+        for seg in self.segments:
+            if seg.loop is not None:
+                seg.loop.drop()
+
+
+_MAX_LOOP_ITERS = 10_000_000
+
+
+class _LoopPlan:
+    """A compiled ``while`` of a segmented block: ``cond`` (the condition
+    var), the body's bound ``units`` with their ``keys``, ``it`` (the
+    iteration, an int64 [1] tensor the random keys fold in), ``carried``
+    (names the body reads and writes: the next iteration reads the new
+    value), ``readonly`` (names it only reads) and ``outs`` (the outer
+    names it writes). On the GPU: ``graph``, one iteration captured;
+    ``bufs``, the static buffers of the carried values and of the inputs
+    that are not state; ``inplace``, the state it reads where it lies;
+    ``gouts``, the graph's values of the outputs without a buffer;
+    ``launches``, each kernel's launches in one iteration."""
+
+    __slots__ = ("cond", "units", "keys", "it", "carried", "readonly",
+                 "outs", "graph", "bufs", "inplace", "gouts", "launches")
+
+    def __init__(self, cond, units, keys, it, carried, readonly, outs):
+        self.cond, self.units, self.keys, self.it = cond, units, keys, it
+        self.carried, self.readonly, self.outs = carried, readonly, outs
+        self.launches: Dict[str, int] = {}
+        self.drop()
+
+    def drop(self):
+        self.graph = self.bufs = None
+        self.inplace: Dict[str, torch.Tensor] = {}
+        self.gouts: Dict[str, torch.Tensor] = {}
+
+    def current(self, name) -> Optional[torch.Tensor]:
+        """``name``'s value after the last replay."""
+        if name in self.carried:
+            return self.bufs[name]
+        return self.gouts.get(name)
+
+
+def _split_loops(segments):
+    """Each ``while`` of an island whose body compiles
+    (``_compiled_loop``) becomes a segment of its own, kind "loop"; the
+    rest of the island stays islands, in order."""
+    from .ir import BlockSegment
+    out = []
+    for seg in segments:
+        if seg.kind != "island" or not any(_compiled_loop(op)
+                                           for op in seg.ops):
+            out.append(seg)
+            continue
+        cur = None
+        for j, (op, reason) in enumerate(zip(seg.ops, seg.island_reasons)):
+            kind = "loop" if _compiled_loop(op) else "island"
+            if kind == "loop" or cur is None or cur.kind != "island":
+                cur = BlockSegment(kind, seg.start + j)
+                out.append(cur)
+            cur.ops.append(op)
+            cur.island_reasons.append(reason)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1713,12 +2151,12 @@ class Executor:
                 for j in range(len(per_step[0]))]
 
     def _is_compilable(self, program: Program) -> bool:
-        """``_ops_compilable`` of the global block, once per program
+        """``_whole_compilable`` of the global block, once per program
         version."""
         got = self._compilable.get(program)
         if got is None or got[0] != program._version:
             got = (program._version,
-                   _ops_compilable(program.global_block().ops))
+                   _whole_compilable(program.global_block().ops))
             self._compilable[program] = got
         return got[1]
 
@@ -2103,14 +2541,17 @@ def _interpret_op(op, idx: int, scope: Scope, keys: _StepKeys, device,
     info, grad_of, ridx = _resolve(op, idx)
     attrs = _kernel_attrs(op, info, ridx, device, keys)
     if info.stateful:
-        attrs = dict(attrs, _op=op, _scope=scope)
+        def run_block(block, sc, it=None):
+            _interpret_block(block, sc, keys, device, check, it)
+        attrs = dict(attrs, _op=op, _scope=scope, _run_block=run_block)
     ins: Dict[str, list] = {}
     for slot, names in op.inputs.items():
         vals = []
         for n in names:
             v = scope.find_var(n)
-            vals.append(v.value().array if v is not None
-                        and v.is_initialized() else None)
+            val = v.value() if v is not None else None
+            # a tensor array is read by its op from the scope
+            vals.append(val.array if isinstance(val, LoDTensor) else None)
         ins[slot] = vals
     if grad_of is None:
         outs = info.kernel(ins, attrs)
@@ -2127,3 +2568,18 @@ def _interpret_op(op, idx: int, scope: Scope, keys: _StepKeys, device,
                 scope.var(n).set_value(LoDTensor(val))
                 written.append(n)
     return written
+
+
+def _interpret_block(block, scope: Scope, keys, device, check: bool = False,
+                     it: Optional[int] = None) -> None:
+    """A sub-block op by op over the scope (the TPU package's
+    ``_run_block_eager``), its random ops keyed by ``_SubKeys``: ``keys``
+    are the enclosing block's, ``it`` the iteration of the ``while`` that
+    runs it."""
+    its = keys.its
+    if it is not None:
+        its = its + (torch.full((1,), int(it), dtype=torch.int64,
+                                device=device),)
+    sub = _SubKeys(keys, block, device, its)
+    for idx, op in enumerate(block.ops):
+        _interpret_op(op, idx, scope, sub, device, check)

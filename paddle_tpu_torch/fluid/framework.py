@@ -522,6 +522,21 @@ class Program:
     def num_blocks(self) -> int:
         return len(self.blocks)
 
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block, child of the current one (or of ``parent_idx``),
+        which becomes the current block: the control-flow layers build
+        their sub-blocks in it (the TPU package's framework.py:622)."""
+        b = Block(self, len(self.blocks), self.current_block_idx
+                  if parent_idx is None else parent_idx)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._version += 1
+        return b
+
+    def _rollback(self):
+        """The current block's parent becomes the current block again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     @property
     def random_seed(self):
         return self._seed

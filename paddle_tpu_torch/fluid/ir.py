@@ -44,10 +44,13 @@ __all__ = ["Graph", "OpPattern", "Pass", "PassManager",
            "fused_health", "op_island_reason", "BlockSegment",
            "analyze_block_segments", "segment_summary"]
 
-# control flow, which the TPU package's compiled step lowers to lax
-# primitives; not lowered here yet
+# control flow (the TPU package's _SEG_CONTROL, ir.py:1264). A block
+# that compiles whole lowers its conditionals into its step; in a block
+# that also holds an island they run as islands, in the interpreter, and
+# a ``while`` whose body compiles becomes a loop segment of the executor
 CONTROL_FLOW = frozenset({"while", "conditional_block",
-                          "conditional_block_infer", "select_input"})
+                          "conditional_block_infer", "select_input",
+                          "select_output"})
 
 
 def fused_health(values, device=None) -> torch.Tensor:
@@ -101,7 +104,7 @@ class BlockSegment:
     __slots__ = ("kind", "start", "ops", "island_reasons",
                  # filled by the executor's segment plan
                  "in_names", "out_names", "state_writes", "units", "op_io",
-                 "guard_names")
+                 "guard_names", "loop")
 
     def __init__(self, kind: str, start: int):
         self.kind = kind

@@ -113,6 +113,14 @@ class LayerHelper:
                 ".".join([self.name, "tmp"])),
             dtype=dtype, persistable=False, stop_gradient=stop_gradient)
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        """A new var of the main program's global block, named after the
+        layer."""
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable,
+            name=unique_name.generate_with_ignorable_key(
+                ".".join([self.name, "tmp"])), **kwargs)
+
     def create_or_get_global_variable(self, name, *args, **kwargs):
         """The main program's global var ``name``, created (persistable by
         default) if it is not there yet."""

@@ -4,7 +4,8 @@ inference; -1 marks unknown dims. So far: fc, embedding, conv2d, pool2d,
 batch_norm, layer_norm, dropout, softmax, reshape, squeeze, unsqueeze,
 flatten, gather, topk, mean, reduce_sum, reduce_mean, one_hot,
 elementwise_add, _sub, _mul, _div and _min, scale, label_smooth,
-log_loss, add_position_encoding and autoincreased_step_counter."""
+log_loss, add_position_encoding, autoincreased_step_counter and the
+logical_* layers."""
 from __future__ import annotations
 
 import math
@@ -22,7 +23,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "reduce_mean", "one_hot", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_min", "scale",
            "label_smooth", "log_loss", "add_position_encoding",
-           "autoincreased_step_counter"]
+           "autoincreased_step_counter", "logical_and", "logical_or",
+           "logical_xor", "logical_not"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -537,6 +539,32 @@ def add_position_encoding(input, alpha, beta, name=None):
                      outputs={"Out": [out]},
                      attrs={"alpha": float(alpha), "beta": float(beta)})
     return out
+
+
+def _logical(op_type, x, y, out=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(VarDesc.VarType.BOOL)
+        out.shape = x.shape
+    ins = {"X": [x]} if y is None else {"X": [x], "Y": [y]}
+    helper.append_op(type=op_type, inputs=ins, outputs={"Out": [out]})
+    return out
+
+
+def logical_and(x, y, out=None, name=None):
+    return _logical("logical_and", x, y, out, name)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _logical("logical_or", x, y, out, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _logical("logical_xor", x, y, out, name)
+
+
+def logical_not(x, out=None, name=None):
+    return _logical("logical_not", x, None, out, name)
 
 
 def autoincreased_step_counter(counter_name=None, begin=1, step=1):

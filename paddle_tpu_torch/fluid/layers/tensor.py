@@ -1,14 +1,20 @@
 """Tensor layers (counterpart of paddle_tpu/fluid/layers/tensor.py;
-reference: python/paddle/fluid/layers/tensor.py). So far: cast, concat,
-create_parameter, fill_constant, and ``math_op``, the helper of the
-Variable operators."""
+reference: python/paddle/fluid/layers/tensor.py). So far: assign, cast,
+concat, create_global_var, create_parameter, fill_constant, ones, zeros,
+tensor_array_to_tensor, and ``math_op``, the helper of the Variable
+operators."""
 from __future__ import annotations
 
-from ..core import convert_np_dtype_to_dtype_
+import numpy as np
+
+from ..core import VarDesc, convert_np_dtype_to_dtype_
 from ..framework import Variable
+from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ["cast", "concat", "create_parameter", "fill_constant"]
+__all__ = ["assign", "cast", "concat", "create_global_var",
+           "create_parameter", "fill_constant", "ones", "zeros",
+           "tensor_array_to_tensor"]
 
 
 def _dtype(d):
@@ -25,6 +31,52 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
         attr = ParamAttr(name=name)
     return helper.create_parameter(attr, shape, _dtype(dtype), is_bias,
                                    default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global var of ``shape`` that the startup program fills with
+    ``value``."""
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(dtype=_dtype(dtype), shape=shape,
+                                        persistable=persistable,
+                                        stop_gradient=True)
+    helper.set_variable_initializer(var, Constant(value=float(value)))
+    return var
+
+
+def assign(input, output=None):
+    """``output`` (a new var if None) = ``input``: a Variable gives the
+    ``assign`` op, a numpy array, list or number the ``assign_value`` op
+    with its values in the attrs."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=input.dtype)
+            output.shape = input.shape
+        helper.append_op(type="assign", inputs={"X": [input]},
+                         outputs={"Out": [output]})
+    elif isinstance(input, (np.ndarray, list, tuple, float, int)):
+        arr = np.asarray(input)
+        dtype = convert_np_dtype_to_dtype_(arr.dtype)
+        if output is None:
+            output = helper.create_variable_for_type_inference(dtype=dtype)
+            output.shape = arr.shape
+        if arr.dtype in (np.float32, np.float64):
+            values = {"fp32_values": [float(v) for v in arr.flatten()]}
+        elif arr.dtype == np.bool_:
+            values = {"bool_values": [bool(v) for v in arr.flatten()]}
+        elif arr.dtype == np.int64:
+            values = {"int64_values": [int(v) for v in arr.flatten()]}
+        else:
+            values = {"int32_values": [int(v) for v in arr.flatten()]}
+        helper.append_op(type="assign_value", outputs={"Out": [output]},
+                         attrs={"shape": list(arr.shape), "dtype": dtype,
+                                **values})
+    else:
+        raise TypeError(f"cannot assign {type(input)}")
+    return output
 
 
 def math_op(op_type, x, y):
@@ -109,3 +161,23 @@ def concat(input, axis=0, name=None):
     helper.append_op(type="concat", inputs=inputs, outputs={"Out": [out]},
                      attrs=attrs)
     return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """The entries of the tensor array ``input`` joined along ``axis`` (or
+    stacked), and each entry's size along it (int32)."""
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference(VarDesc.VarType.INT32)
+    helper.append_op(type="tensor_array_to_tensor", inputs={"X": [input]},
+                     outputs={"Out": [out], "OutIndex": [idx]},
+                     attrs={"axis": axis, "use_stack": use_stack})
+    return out, idx

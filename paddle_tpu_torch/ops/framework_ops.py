@@ -1,10 +1,20 @@
 """Framework op kernels (counterpart of paddle_tpu/ops/framework_ops.py).
-So far: feed, fetch and print.
+So far: feed, fetch, print, assert, the control flow (while,
+conditional_block, select_input, select_output) and the tensor-array ops
+(write_to_array, read_from_array, lod_array_length,
+tensor_array_to_tensor, array_to_lod_tensor).
 
 A stateful op runs only in the interpreter (as a whole interpreted block,
 or as an island of a segmented one), which passes it its Operator as
-``attrs["_op"]`` and the scope as ``attrs["_scope"]``: the TPU package's
-kernels read the same through their ``_ctx``.
+``attrs["_op"]``, the scope as ``attrs["_scope"]`` and, to run a
+sub-block, ``attrs["_run_block"](block, scope, iteration=None)``: the
+TPU package's kernels read the same through their ``_ctx``. A sub-block
+runs over the same scope, op by op, its random ops keyed by (program
+seed, step, the block's index, the op's index) and, inside a ``while``,
+the iteration (fluid/executor.py). These kernels are the interpreter's
+semantics, the oracle of the executor's compiled lowering: a conditional
+runs only its taken branch, a ``while`` reads its condition on the host
+before each iteration.
 
 ``feed`` and ``fetch`` are the ops a saved inference program records its
 interface with (reference: operators/feed_op.cc, fetch_op.cc): ``feed``
@@ -17,7 +27,18 @@ from __future__ import annotations
 
 import torch
 
-from .registry import first, out, register_op
+from .registry import first, out, register_op, seq
+
+_MAX_WHILE_ITERS = 10_000_000
+
+
+def host_bool(t: torch.Tensor) -> bool:
+    """The first element of a condition tensor, read on the host."""
+    return bool(t.reshape(-1)[0].item())
+
+
+def _host_int(t: torch.Tensor) -> int:
+    return int(t.reshape(-1)[0].item())
 
 
 @register_op("feed", stateful=True, no_grad=True, attr_defaults={"col": 0})
@@ -65,3 +86,125 @@ def _print(ins, attrs):
     print(f"{attrs.get('message', '')} Variable: {name} shape: "
           f"{list(x.shape)} data: {data.numpy()}")
     return out(Out=x)
+
+
+@register_op("assert", stateful=True, no_grad=True,
+             attr_defaults={"summarize": -1})
+def _assert(ins, attrs):
+    """Raises AssertionError with the Data tensors when any element of
+    Cond is false (a host read)."""
+    if not bool(first(ins, "Cond").all().item()):
+        data = [x.detach().cpu().numpy() for x in seq(ins, "Data")
+                if x is not None]
+        raise AssertionError(f"Assert failed; data={data}")
+    return {}
+
+
+# --------------------------------------------------------------------------
+# control flow (reference: controlflow/while_op.cc,
+# conditional_block_op.cc, select_input_op.cc, select_output_op.cc)
+# --------------------------------------------------------------------------
+@register_op("while", stateful=True, no_grad=True,
+             attr_defaults={"is_test": False})
+def _while(ins, attrs):
+    """Runs ``sub_block`` over the scope while Condition holds, reading
+    the condition on the host before each iteration."""
+    op, scope = attrs["_op"], attrs["_scope"]
+    cond = op.input("Condition")[0]
+    it = 0
+    while host_bool(scope.find_var(cond).value().array):
+        attrs["_run_block"](attrs["sub_block"], scope, it)
+        it += 1
+        if it > _MAX_WHILE_ITERS:
+            raise RuntimeError("while op exceeded max iterations")
+    return {}
+
+
+@register_op("conditional_block", stateful=True, no_grad=True,
+             attr_defaults={"is_scalar_condition": False})
+def _conditional_block(ins, attrs):
+    """Runs ``sub_block`` over the scope when the scalar Cond holds (or,
+    without ``is_scalar_condition``, when every Input is initialized)."""
+    op, scope = attrs["_op"], attrs["_scope"]
+    if attrs.get("is_scalar_condition", False):
+        run = host_bool(first(ins, "Cond"))
+    else:
+        run = all(v is not None for v in seq(ins, "Input"))
+    if run:
+        attrs["_run_block"](attrs["sub_block"], scope)
+    return {}
+
+
+@register_op("select_input", stateful=True, no_grad=True)
+def _select_input(ins, attrs):
+    """Out = X[Mask]: the branch output a ``cond`` took."""
+    return out(Out=seq(ins, "X")[_host_int(first(ins, "Mask"))])
+
+
+@register_op("select_output", stateful=True, no_grad=True)
+def _select_output(ins, attrs):
+    """Out[Mask] = X; the other outputs stay as they are."""
+    n = len(attrs["_op"].output("Out"))
+    m = _host_int(first(ins, "Mask"))
+    return {"Out": [first(ins, "X") if i == m else None for i in range(n)]}
+
+
+# --------------------------------------------------------------------------
+# tensor arrays (reference: controlflow/tensor_array_read_write_op.cc,
+# lod_array_length_op.cc, tensor_array_to_tensor_op.cc,
+# array_to_lod_tensor_op.cc)
+# --------------------------------------------------------------------------
+def _array(attrs, slot):
+    op, scope = attrs["_op"], attrs["_scope"]
+    names = op.input(slot) if slot in op.inputs else op.output(slot)
+    return scope.var(names[0]).get_lod_tensor_array()
+
+
+@register_op("write_to_array", stateful=True, no_grad=True)
+def _write_to_array(ins, attrs):
+    """Entry I of the array Out becomes a copy of X (the array grows with
+    empty entries up to I): a copy, so that a later in-place write of X's
+    storage (a graph's buffer) does not reach the array."""
+    from ..fluid.core import LoDTensor
+    i = _host_int(first(ins, "I"))
+    arr = _array(attrs, "Out")
+    while len(arr) <= i:
+        arr.append(LoDTensor())
+    arr[i] = LoDTensor(first(ins, "X").clone())
+    return {}
+
+
+@register_op("read_from_array", stateful=True, no_grad=True)
+def _read_from_array(ins, attrs):
+    return out(Out=_array(attrs, "X")[_host_int(first(ins, "I"))].array)
+
+
+@register_op("lod_array_length", stateful=True, no_grad=True,
+             needs_device=True)
+def _lod_array_length(ins, attrs):
+    return out(Out=torch.full((1,), len(_array(attrs, "X")),
+                              dtype=torch.int64, device=attrs["_device"]))
+
+
+@register_op("tensor_array_to_tensor", stateful=True, no_grad=True,
+             needs_device=True, attr_defaults={"axis": 0, "use_stack": False})
+def _tensor_array_to_tensor(ins, attrs):
+    """The entries stacked (``use_stack``) or joined along ``axis``, and
+    OutIndex: each entry's size along ``axis`` (int32)."""
+    xs = [t.array for t in _array(attrs, "X")]
+    ax = attrs.get("axis", 0)
+    o = torch.stack(xs, ax) if attrs.get("use_stack", False) \
+        else torch.cat(xs, ax)
+    idx = torch.tensor([x.shape[ax] for x in xs], dtype=torch.int32)
+    return out(Out=o, OutIndex=idx.to(attrs["_device"]))
+
+
+@register_op("array_to_lod_tensor", stateful=True, no_grad=True)
+def _array_to_lod_tensor(ins, attrs):
+    """The entries joined along axis 0. With a RankTable (the sequences of
+    a DynamicRNN) it needs LoD, which comes with ROADMAP A7."""
+    if attrs["_op"].input("RankTable"):
+        raise NotImplementedError(
+            "array_to_lod_tensor with a RankTable needs LoD sequences, "
+            "which come with the DynamicRNN slice (ROADMAP A7)")
+    return out(Out=torch.cat([t.array for t in _array(attrs, "X")], 0))

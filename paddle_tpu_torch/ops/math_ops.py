@@ -2,8 +2,10 @@
 far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
 elementwise_max, elementwise_min, elementwise_pow, mul, matmul, scale,
 increment,
-relu, sigmoid, gelu, square, mean, sum, the reduce_* family, isfinite,
-and the comparisons less_than, less_equal, greater_than, greater_equal).
+relu, sigmoid, gelu, square, ceil, floor, cos, exp, mean, sum, the
+reduce_* family, isfinite, the comparisons less_than, less_equal,
+greater_than, greater_equal, equal and not_equal, and logical_and,
+logical_or, logical_xor and logical_not).
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -91,6 +93,16 @@ _register_cmp("less_than", torch.lt)
 _register_cmp("less_equal", torch.le)
 _register_cmp("greater_than", torch.gt)
 _register_cmp("greater_equal", torch.ge)
+_register_cmp("equal", torch.eq)
+_register_cmp("not_equal", torch.ne)
+_register_cmp("logical_and", torch.logical_and)
+_register_cmp("logical_or", torch.logical_or)
+_register_cmp("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not", inputs=("X",), no_grad=True)
+def _logical_not(ins, attrs):
+    return out(Out=torch.logical_not(first(ins, "X")))
 
 
 # --------------------------------------------------------------------------
@@ -196,6 +208,21 @@ def _gelu(ins, attrs):
 @register_op("square", inputs=("X",))
 def _square(ins, attrs):
     return out(Out=torch.square(first(ins, "X")))
+
+
+def _register_unary(name, fn, **kw):
+    @register_op(name, inputs=("X",), **kw)
+    def _kernel(ins, attrs, _fn=fn):
+        return out(Out=_fn(first(ins, "X")))
+    return _kernel
+
+
+# the LR schedules' arithmetic; ceil and floor have no grad, as in the
+# TPU package
+_register_unary("ceil", torch.ceil, no_grad=True)
+_register_unary("floor", torch.floor, no_grad=True)
+_register_unary("cos", torch.cos)
+_register_unary("exp", torch.exp)
 
 
 # --------------------------------------------------------------------------

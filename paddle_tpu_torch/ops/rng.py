@@ -60,6 +60,13 @@ def op_keys(skey: torch.Tensor, hashed_idx: torch.Tensor) -> torch.Tensor:
     return hash32(hashed_idx ^ skey)
 
 
+def fold(keys: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``keys`` folded with a counter tensor ``t`` (a ``while``
+    iteration), on the device: the hash of each key xor the counter's
+    hash."""
+    return hash32(keys ^ hash32(t & _M32))
+
+
 def fixed_key(seed: int, device) -> torch.Tensor:
     """The key of an op seeded by its own ``seed`` attr: the same every
     run."""

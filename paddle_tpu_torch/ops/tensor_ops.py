@@ -1,6 +1,6 @@
 """Tensor creation / manipulation op kernels (counterpart of
 paddle_tpu/ops/tensor_ops.py; so far: fill_constant, assign,
-assign_value, cast, uniform_random, gaussian_random,
+assign_value, is_empty, cast, uniform_random, gaussian_random,
 truncated_gaussian_random, reshape2, transpose2, squeeze, squeeze2,
 unsqueeze2, flatten, flatten2, concat, gather and its grad, top_k,
 one_hot, one_hot_v2, label_smooth).
@@ -62,16 +62,28 @@ def _fill_constant(ins, attrs):
     return out(Out=torch.full(shape, val, dtype=dt, device=attrs["_device"]))
 
 
+def assign_value_tensor(attrs, device) -> torch.Tensor:
+    """assign_value's constant, made from its attrs on ``device`` (a copy
+    from the host)."""
+    vals = (attrs.get("fp32_values") or attrs.get("int32_values")
+            or attrs.get("int64_values") or attrs.get("bool_values") or [])
+    return torch.tensor(vals, dtype=_dtype(attrs), device=device).reshape(
+        [int(s) for s in attrs["shape"]])
+
+
 @register_op("assign_value", no_grad=True, needs_device=True,
              attr_defaults={"shape": [], "dtype": 5, "fp32_values": [],
                             "int32_values": [], "int64_values": [],
                             "bool_values": []})
 def _assign_value(ins, attrs):
-    vals = (attrs.get("fp32_values") or attrs.get("int32_values")
-            or attrs.get("int64_values") or attrs.get("bool_values") or [])
-    return out(Out=torch.tensor(vals, dtype=_dtype(attrs),
-                                device=attrs["_device"]).reshape(
-        [int(s) for s in attrs["shape"]]))
+    """The constant of the attrs. A compiled plan binds it once, as
+    ``attrs["_const"]`` on the device, and the op copies it (a
+    device-to-device copy, which a CUDA graph captures; the copy from the
+    host cannot be captured). The interpreter makes it at every call."""
+    c = attrs.get("_const")
+    if c is not None:
+        return out(Out=c.clone())
+    return out(Out=assign_value_tensor(attrs, attrs["_device"]))
 
 
 @register_op("cast", inputs=("X",),
@@ -164,6 +176,14 @@ def _reshape2(ins, attrs):
 @register_op("assign", inputs=("X",))
 def _assign(ins, attrs):
     return out(Out=first(ins, "X"))
+
+
+@register_op("is_empty", inputs=("X",), no_grad=True)
+def _is_empty(ins, attrs):
+    """[1] bool: X has no element (made on the device: no host copy)."""
+    x = first(ins, "X")
+    return out(Out=torch.full((1,), x.numel() == 0, dtype=torch.bool,
+                              device=x.device))
 
 
 @register_op("transpose2", inputs=("X",), attr_defaults={"axis": []})
