@@ -365,6 +365,59 @@ Phases, each fatal on failure:
               step p50 beside the train phase's f32 p50, and (b)'s run
               p50 beside a straight line of 12 layers in one graph (the
               same work), with the cost of an iteration beyond its body.
+ 17. optimizers — the optimizer stack (fluid.optimizer's Lamb,
+              LarsMomentum, Adagrad, Adamax, DecayedAdagrad, Adadelta,
+              RMSProp, Ftrl, Dpsgd, DGCMomentum, GradientMergeOptimizer and
+              LookaheadOptimizer, fluid.clip, L1Decay, fluid.gradients).
+              (a) The train phase's step (BERT-base f32, dropout 0.1,
+              input mask, batch 32, S = 128) under Lamb with BERT's
+              schedule, linear_lr_warmup(polynomial_decay(1e-3, 40, 0.0,
+              1.0), 4, 0.0, 1e-3), weight decay 0.01 on every weight but
+              the LayerNorm scales and biases and every bias, and
+              GradientClipByGlobalNorm(1.0): 6 steps compiled and 6
+              interpreted in lock step from one start, 10 on one repeated
+              batch, 20 replays timed alternating with 20 of Adam's step
+              under the same schedule. Checks: the step compiles whole,
+              (0, 0, 0, 0, 37, 0, 0, 0, 0, 24, 12, 12) launches
+              (wrappers, graph, a trace of one replay); loss, LR, the
+              pre-clip global norm, the clip's scale and every persistable
+              (LAMB's moments and beta powers among them) bitwise the
+              interpreter's after every step; at step 1 the global norm
+              within 1e-5 of float64 over the interpreter's 199 grads; the
+              scale clip / max(norm, clip) exactly in f32, and the clip
+              engaged (a norm above 1.0 in some step; else 3 more steps at
+              a clip_norm of half step 0's norm, each scale below 1); the
+              loss falling; one step at batch 2, dropout 0, on the card
+              against the CPU port (the loss, three grads, the global
+              norm). (b) GradientMergeOptimizer(Adam(1e-4), k_steps=4,
+              avg=True) on the same step at dropout 0, micro-batch 8: 8
+              micro-steps compiled and interpreted in lock step, each (0,
+              0, 0, 0, 0, 0, 0, 0, 0, 24, 12, 12) launches (the update and
+              the accumulators' reset in a conditional inside the graph).
+              Checks: bitwise the interpreter's after every micro-step;
+              the parameters bitwise unchanged after micro-steps 1-3;
+              after micro-step 4, against one Adam step at batch 32 on
+              the same 32 rows: the merged, averaged grads (Adam's first
+              moment) each within 1e-3 of its largest magnitude (of the
+              largest grad, where a grad is rounding noise: the K
+              projections' biases); every parameter within 3e-5, those
+              with a noise grad within 2·lr (a sign flip of Adam's first
+              step), at most 1e-3 of the elements beyond 1e-7, which are
+              sorted by cause (a grad near Adam's ε, one ulp). Every
+              interpreted run's launches are counted and held to the
+              compiled run's. (c) On the MLP of the TPU
+              package's optimizer tests: each optimizer above, Dpsgd at
+              sigma 0 and 1, Lookahead, GradientMerge at k = 1, the three
+              clips, a per-parameter clip through
+              set_gradient_clip(param_list=), L1Decay and fluid.gradients,
+              4 runs each compiled (eager, capture, replays), bitwise the
+              interpreter's and within rtol 1e-5, atol 1e-6 of the CPU
+              port; dpsgd's noise on the card (2^20 elements) by its mean
+              and standard deviation. Reports (a)'s step p50 and p90
+              beside Adam's, timed alternating with it, and the train
+              phase's f32 p50, and (b)'s micro-step p50
+              beside a plain Adam step's at batch 8, with the peak memory
+              of each.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -2804,9 +2857,11 @@ def _persistables(scope, program):
     return out
 
 
-def _train_steps(exe, main, loss, scope, feeds, want, runs, what):
+def _train_steps(exe, main, loss, scope, feeds, want, runs, what,
+                 book=None):
     """One compiled Executor.run a feed, each gated on its kernel
-    launches (``_gate_run``) → (seconds of each run, losses)."""
+    launches (``_gate_run``) and booked in ``book`` when one is given →
+    (seconds of each run, losses)."""
     import numpy as np
     times, losses = [], []
     for feed in feeds:
@@ -2816,6 +2871,8 @@ def _train_steps(exe, main, loss, scope, feeds, want, runs, what):
         times.append(time.perf_counter() - t)
         delta = tuple(a - b for a, b in zip(_launch_counts(), before))
         runs[_gate_run(exe, delta, want, what)] += 1
+        if book is not None:
+            book.add(want)
         losses.append(float(out[0].reshape(-1)[0]))
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"{what}: non-finite loss {losses[-1]}")
@@ -5208,19 +5265,27 @@ CF_LOOP_DROP_WANT = (0, 0, 0, 0, 3 * CF_LOOP_TRIPS, 0, 0, 0, 0,
                      CF_LOOP_TRIPS, 0, 0)
 
 
-def _cf_schedule(layers):
-    """BERT's schedule at CF_PEAK: linear warm-up over CF_WARMUP steps,
-    then linear decay to 0 at step CF_STEPS."""
+def _cf_schedule(layers, peak=CF_PEAK, horizon=CF_STEPS):
+    """BERT's schedule at ``peak``: linear warm-up over CF_WARMUP steps,
+    then linear decay to 0 at step ``horizon``."""
     return layers.linear_lr_warmup(
-        layers.polynomial_decay(CF_PEAK, decay_steps=CF_STEPS,
+        layers.polynomial_decay(peak, decay_steps=horizon,
                                 end_learning_rate=0.0, power=1.0),
-        warmup_steps=CF_WARMUP, start_lr=0.0, end_lr=CF_PEAK)
+        warmup_steps=CF_WARMUP, start_lr=0.0, end_lr=peak)
 
 
-def _cf_pretrain_program(cfg, dropout):
+def _cf_adam(fluid, loss):
+    lr = _cf_schedule(fluid.layers)
+    fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return lr
+
+
+def _cf_pretrain_program(cfg, dropout, optimize=_cf_adam):
     """The train phase's step (build_bert_pretrain_program's pieces: f32,
-    input mask, Adam) with BERT's schedule, Adam given the scheduled LR
-    inside the program guard as a reference script does."""
+    input mask) with ``optimize(fluid, loss)``, which appends the update
+    and returns the LR var: by default Adam under BERT's schedule, given
+    the scheduled LR inside the program guard as a reference script
+    does."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import bert
     L = fluid.layers
@@ -5239,8 +5304,7 @@ def _cf_pretrain_program(cfg, dropout):
         picked = L.gather(L.reshape(enc, [-1, cfg["hidden"]]), mask_pos)
         loss = L.mean(L.softmax_with_cross_entropy(
             L.fc(picked, cfg["vocab_size"]), mask_label))
-        lr = _cf_schedule(L)
-        fluid.optimizer.Adam(learning_rate=lr).minimize(loss)
+        lr = optimize(fluid, loss)
     startup.random_seed = main.random_seed = SEED
     return main, startup, loss, lr
 
@@ -5304,13 +5368,69 @@ class _CfBook:
             self.executed[i] += times * c
 
 
+def _delta(before):
+    """The launches through the wrappers since ``before``
+    (``_launch_counts()``)."""
+    return tuple(x - y for x, y in zip(_launch_counts(), before))
+
+
+def _interpreted(iexe, main, feed, fetch, scope, want, book, what):
+    """One run of ``main`` by the interpreter on the card: its launches
+    through the wrappers held to ``want`` and booked as counted. → its
+    fetches."""
+    from paddle_tpu_torch.fluid import core
+    mode = core.globals_["FLAGS_executor_mode"]
+    before = _launch_counts()
+    core.set_flag("FLAGS_executor_mode", "interpreted")
+    try:
+        out = iexe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    finally:
+        core.set_flag("FLAGS_executor_mode", mode)
+    delta = _delta(before)
+    if delta != want:
+        raise AssertionError(f"{what}, interpreted: launches through the "
+                             f"wrappers {delta}, want {want}")
+    book.add(delta)
+    return out
+
+
+def _lock_step(run, interp, main, feed, fetch, want, book, what, tag,
+               extra=()):
+    """One step of ``main`` compiled on ``run`` (executor, scope), gated
+    on ``want`` (``_gate_run``), then interpreted on ``interp`` from the
+    same state (``_interpreted``): each fetch and every persistable
+    bitwise alike. ``extra`` is fetched from the interpreter alone. →
+    (the compiled fetches, the interpreted fetches with ``extra`` after
+    them, how the compiled run executed, its seconds, the compiled
+    persistables)."""
+    import numpy as np
+    exe, scope = run
+    before = _launch_counts()
+    t = time.perf_counter()
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    dt = time.perf_counter() - t
+    kind = _gate_run(exe, _delta(before), want, f"{tag} {what}")
+    book.add(want)
+    iout = _interpreted(interp[0], main, feed, list(fetch) + list(extra),
+                        interp[1], want, book, f"{tag} {what}")
+    for i, (a, c) in enumerate(zip(out, iout)):
+        if not np.array_equal(a, c):
+            raise AssertionError(f"{tag} {what}: fetch {i} compiled {a}, "
+                                 f"interpreted {c}")
+    state = _persistables(scope, main)
+    _same_state(f"{what} compiled vs interpreted", state,
+                _persistables(interp[1], main), tag=tag)
+    return out, iout, kind, dt, state
+
+
 def _cf_bert(book, train_p50):
     """(a) BERT-base pretraining under BERT's schedule: 12 steps compiled
     and 12 interpreted in lock step from one start, then a window of 4
     across the warm-up boundary. → the compiled steps' p50 in ms."""
+    import collections
     import numpy as np
     import torch
-    from paddle_tpu_torch.fluid import core, executor
+    from paddle_tpu_torch.fluid import executor
     from paddle_tpu_torch.models import bert
     cfg = bert.bert_base_config()
     main, startup, loss, lr = _cf_pretrain_program(cfg, TRAIN_DROPOUT)
@@ -5333,36 +5453,18 @@ def _cf_bert(book, train_p50):
                 _persistables(scope, main), _persistables(iscope, main),
                 tag=CF_TAG)
     lrs, losses, times, execs, at = [], [], [], [], {}
-    mode = core.globals_["FLAGS_executor_mode"]
     for s, b in enumerate(batches):
         st0 = exe.graph_stats()
-        before = _launch_counts()
-        t = time.perf_counter()
-        lv, lrv = exe.run(main, feed=b, fetch_list=[loss, lr], scope=scope)
-        times.append(time.perf_counter() - t)
-        delta = tuple(x - y for x, y in zip(_launch_counts(), before))
-        execs.append(_gate_run(exe, delta, want,
-                               f"[control_flow] step {s}"))
+        (lv, lrv), _, kind, dt, state = _lock_step(
+            (exe, scope), (iexe, iscope), main, b, [loss, lr], want, book,
+            f"(a) step {s}", CF_TAG)
+        times.append(dt)
+        execs.append(kind)
         st = exe.graph_stats()
-        if st["islands"] or (execs[-1] == "replay" and (
+        if st["islands"] or (kind == "replay" and (
                 st["replays"] - st0["replays"] != 1 or st["captures"]
                 != st0["captures"] or st["eager"] != st0["eager"])):
             raise AssertionError(f"[control_flow] step {s}: {st0} -> {st}")
-        book.add(want)
-        core.set_flag("FLAGS_executor_mode", "interpreted")
-        try:
-            ilv, ilrv = iexe.run(main, feed=b, fetch_list=[loss, lr],
-                                 scope=iscope)
-        finally:
-            core.set_flag("FLAGS_executor_mode", mode)
-        book.add(want)
-        if not (np.array_equal(lv, ilv) and np.array_equal(lrv, ilrv)):
-            raise AssertionError(
-                f"[control_flow] step {s}: compiled loss {lv} LR {lrv}, "
-                f"interpreted {ilv} {ilrv}")
-        state = _persistables(scope, main)
-        _same_state(f"(a) step {s} compiled vs interpreted", state,
-                    _persistables(iscope, main), tag=CF_TAG)
         if s == 0:
             moved = [n for n in params if not torch.equal(state[n],
                                                           start[n])]
@@ -5394,13 +5496,8 @@ def _cf_bert(book, train_p50):
     # the window: steps CF_WINDOW[0] .. CF_WINDOW[1] - 1 as one run, from
     # the state the single runs had before them
     wexe, wscope = _fresh(main, startup)
-    for s in range(CF_WINDOW[0]):
-        before = _launch_counts()
-        wexe.run(main, feed=batches[s], fetch_list=[loss, lr], scope=wscope)
-        _gate_run(wexe, tuple(x - y for x, y in zip(_launch_counts(),
-                                                    before)),
-                  want, f"[control_flow] window prefix step {s}")
-        book.add(want)
+    _train_steps(wexe, main, loss, wscope, batches[:CF_WINDOW[0]], want,
+                 collections.Counter(), "[control_flow] window prefix step", book)
     _same_state("(a) the window's start vs the single runs'",
                 _persistables(wscope, main), at[CF_WINDOW[0] - 1],
                 tag=CF_TAG)
@@ -5412,8 +5509,7 @@ def _cf_bert(book, train_p50):
     before = _launch_counts()
     wl, wlr = wexe.run(main, feed=win, fetch_list=[loss, lr], scope=wscope,
                        n_steps=k)
-    _gate_window(wexe, tuple(x - y for x, y in zip(_launch_counts(),
-                                                   before)),
+    _gate_window(wexe, _delta(before),
                  stats0.get(id(wexe._last_block), {}), k, want,
                  "[control_flow] the window")
     book.add(want, k)
@@ -5438,20 +5534,12 @@ def _cf_bert(book, train_p50):
     # the steady state, as the train phase times it: replays back to
     # back, nothing between them (the lock step above put an interpreted
     # step and the state compares before each)
-    for j in range(CF_TIMED):
-        before = _launch_counts()
-        t = time.perf_counter()
-        lv, = exe.run(main, feed=batches[j % CF_STEPS], fetch_list=[loss],
-                      scope=scope)
-        times.append(time.perf_counter() - t)
-        _gate_run(exe, tuple(x - y for x, y in zip(_launch_counts(),
-                                                   before)),
-                  want, f"[control_flow] timed step {j}")
-        book.add(want)
-        if not np.isfinite(lv).all():
-            raise AssertionError(f"[control_flow] timed step {j}: loss {lv}")
-    lock = np.asarray(times[2:CF_STEPS]) * 1e3
-    ms = np.asarray(times[CF_STEPS:]) * 1e3
+    timed, _ = _train_steps(exe, main, loss, scope,
+                            [batches[j % CF_STEPS] for j in range(CF_TIMED)],
+                            want, collections.Counter(), "[control_flow] timed step",
+                            book)
+    ms = np.asarray(timed) * 1e3
+    lock = np.asarray(times[2:]) * 1e3
     p50 = float(np.percentile(ms, 50))
     _log(f"[control_flow] (a) step p50 {p50:.3f} ms (p90 "
          f"{np.percentile(ms, 90):.3f}, n = {len(ms)} replays back to back) "
@@ -5549,13 +5637,12 @@ def _cf_loop(book):
     forwards a run (wrappers, the body's graph and a trace of one run),
     timed beside the straight line of 12 layers; at dropout 0.1 compiled
     against interpreted bitwise. → (loop p50 ms, straight line p50 ms)."""
+    import collections
     import numpy as np
-    from paddle_tpu_torch.fluid import core
     from paddle_tpu_torch.models import bert
     cfg = bert.bert_base_config()
     rng = np.random.RandomState(SEED + 160)
     feeds = [_cf_loop_feed(rng, cfg) for _ in range(4)]
-    mode = core.globals_["FLAGS_executor_mode"]
     results = {}
     for dropout, want in ((0.0, CF_LOOP_WANT),
                           (TRAIN_DROPOUT, CF_LOOP_DROP_WANT)):
@@ -5573,13 +5660,8 @@ def _cf_loop(book):
             execs.append(exe._last_block.last_exec)
             times.append(dt)
             if j < len(feeds):
-                core.set_flag("FLAGS_executor_mode", "interpreted")
-                try:
-                    io, = iexe.run(main, feed=f, fetch_list=[out],
-                                   scope=iscope)
-                finally:
-                    core.set_flag("FLAGS_executor_mode", mode)
-                book.add(want)
+                io, = _interpreted(iexe, main, f, [out], iscope, want, book,
+                                   f"[control_flow] (b) run {j}")
                 if not np.array_equal(o, io) or not np.isfinite(o).all():
                     raise AssertionError(
                         f"[control_flow] (b) dropout {dropout} run {j}: "
@@ -5591,11 +5673,15 @@ def _cf_loop(book):
 
             def one_run():
                 exe.run(main, feed=feeds[0], fetch_list=[out], scope=scope)
+
+            def warm_run():
+                _cf_loop_run(exe, main, out, scope, feeds[0], want,
+                             "[control_flow] (b) the trace's warm-up", book)
             # the loop replays two graphs from the host: the warm-up cycle
-            # replays them once (the docstring of _device_kernel_counts)
+            # replays them once (the docstring of _device_kernel_counts),
+            # gated and booked as any run; the traced run books its trace
             counts = _device_kernel_counts(one_run, timing=timing,
-                                           warm=one_run)
-            book.add(want, 2)
+                                           warm=warm_run)
             _log(f"[control_flow] (b) the trace of one run: {counts}, "
                  f"{sb.last_iterations} iterations; on the host's clock "
                  + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
@@ -5603,6 +5689,7 @@ def _cf_loop(book):
             if counts != want:
                 raise AssertionError(f"[control_flow] (b): the trace of one "
                                      f"run holds {counts}, want {want}")
+            book.add(counts)
             results["loop"] = np.asarray(times[3:]) * 1e3
         _log(f"[control_flow] (b) while_loop over one shared BERT-base "
              f"encoder layer x {CF_LOOP_TRIPS}, batch {CF_LOOP_BATCH}, "
@@ -5618,20 +5705,13 @@ def _cf_loop(book):
     # the straight line: the same work as 12 layers of one graph
     main, startup, out = _cf_loop_program(cfg, 0.0, loop=False)
     exe, scope = _fresh(main, startup)
-    times = []
-    for j in range(3 + CF_LOOP_RUNS):
-        before = _launch_counts()
-        t = time.perf_counter()
-        exe.run(main, feed=feeds[j % len(feeds)], fetch_list=[out],
-                scope=scope)
-        times.append(time.perf_counter() - t)
-        _gate_run(exe, tuple(x - y for x, y in zip(_launch_counts(),
-                                                   before)),
-                  CF_LOOP_WANT, f"[control_flow] straight line run {j}")
-        book.add(CF_LOOP_WANT)
+    line, _ = _train_steps(
+        exe, main, out, scope,
+        [feeds[j % len(feeds)] for j in range(3 + CF_LOOP_RUNS)],
+        CF_LOOP_WANT, collections.Counter(), "[control_flow] straight line run", book)
+    line = np.asarray(line[3:]) * 1e3
     _drop(exe)
     del exe, scope
-    line = np.asarray(times[3:]) * 1e3
     loop = results["loop"]
     lp50, sp50 = float(np.percentile(loop, 50)), float(np.percentile(line,
                                                                      50))
@@ -5863,6 +5943,659 @@ def phase_control_flow(train_p50):
     return {"wrapper": wrapper, "executed": tuple(book.executed)}
 
 
+# --------------------------------------------------------------------------
+# 17. optimizers
+# --------------------------------------------------------------------------
+OPT_TAG = "[optimizers]"
+OPT_PEAK = 1e-3               # (a)'s peak LR under LAMB: a weight's step is
+#                               lr·‖p‖/‖r‖ ≈ lr × 0.02 an element at the init
+#                               std of 0.02, so phase 16's 1e-4 would move the
+#                               weights ~50× less than Adam does
+OPT_HORIZON = 40              # (a)'s decay to 0 at step 40: every step of the
+#                               phase after step 0 has a positive LR
+OPT_CLIP = 1.0                # BERT's global-norm clip (Google's BERT
+#                               optimization.py, clip_by_global_norm)
+OPT_WD = 0.01                 # LAMB's weight decay (You et al. 2019)
+OPT_STEPS = 6                 # (a): compiled and interpreted in lock step
+OPT_TIMED = 20                # (a) and (b): replays timed back to back
+NORM_RTOL = 1e-5              # the fetched global norm against float64
+#                               from the fetched grads: f32 sums over 110 M
+#                               squares in a tree
+GM_K = 4                      # (b): micro-steps a window
+GM_MICRO = TRAIN_BATCH // GM_K  # (b): micro-batch 8, GM_K of them = 32 rows
+GM_LR = 1e-4                  # (b): Adam's LR (the train phase's)
+GM_STEPS = 2 * GM_K           # (b): two windows in lock step
+GM_MAXD = 3e-5                # (b): parameters after the window vs the
+#                               batch-32 step, max|d| (8.93e-6 read on the
+#                               card over all of them); Adam's first step
+#                               lr·g/(|g| + ε) does not see the grad's scale,
+#                               so the merged grads are held too, at
+#                               GRAD_TOL. A parameter whose grad is rounding
+#                               noise (GM_NOISE) can step either way: 2·lr
+GM_SHARE = 1e-3               # (b): the share of elements allowed beyond
+#                               1e-7 of the batch-32 step (5.11e-4 read)
+GM_NOISE = 1e-6               # (b): a parameter's grad below this share of
+#                               the largest grad is rounding noise (the K
+#                               projections' biases: softmax does not see a
+#                               shift, so their grad is 0 but for rounding),
+#                               held to GRAD_TOL of the largest grad
+GM_WANT = (0, 0, 0, 0, 0, 0, 0, 0, 0, 24, 12, 12)  # (b): dropout 0
+SMALL_TOL = (1e-5, 1e-6)      # (c): card vs CPU port, rtol and atol
+#                               (tests/test_gradient_merge.py:69)
+SMALL_RUNS = 4                # (c): runs of each case
+SMALL_EXECS = ("eager", "capture", "replay", "replay")  # (c): how they run
+DPSGD_N = 1 << 20             # dpsgd's noise drawn on the card, by law
+
+
+def _lamb(clip_norm=OPT_CLIP):
+    """(a)'s optimizer: LAMB under BERT's schedule at OPT_PEAK, weight
+    decay OPT_WD on every weight but the LayerNorm scales and biases and
+    every bias, the grads clipped by global norm ``clip_norm``."""
+    def optimize(f, loss):
+        lr = _cf_schedule(f.layers, OPT_PEAK, OPT_HORIZON)
+        f.optimizer.Lamb(
+            learning_rate=lr, lamb_weight_decay=OPT_WD,
+            exclude_from_weight_decay_fn=_no_decay,
+            grad_clip=f.clip.GradientClipByGlobalNorm(clip_norm)).minimize(
+                loss)
+        return lr
+    return optimize
+
+
+def _no_decay(param):
+    """BERT's exclusion: LayerNorm's scale and bias, and every bias."""
+    return param.name.startswith("layer_norm") or param.name.endswith(".b_0")
+
+
+def _clip_vars(main):
+    """(the pre-clip global norm, the clip's scale) of a global-norm clip:
+    the ``sqrt`` of the summed squared norms and the ``elementwise_div``
+    of clip_norm by max(norm, clip_norm) after it."""
+    ops = main.global_block().ops
+    i = next(j for j, op in enumerate(ops) if op.type == "sqrt")
+    made = {n: op for op in ops[:i] for n in op.output_arg_names}
+    summed = made[ops[i].input("X")[0]]
+    if summed.type != "sum" or any(made[n].type != "squared_l2_norm"
+                                   for n in summed.input("X")):
+        raise AssertionError(f"{OPT_TAG} the clip's sqrt does not read the "
+                             "summed squared norms")
+    div = next(op for op in ops[i:] if op.type == "elementwise_div")
+    return ops[i].output("Out")[0], div.output("Out")[0]
+
+
+def _opt_lamb_block(book, cfg, clip_norm, steps, batches):
+    """``steps`` steps of (a)'s program, compiled and interpreted in lock
+    step from one start, each gated on its launches; loss, LR, the norm,
+    the clip's scale and every persistable bitwise after each step; at
+    step 1 the global norm against float64 from the interpreter's grads.
+    → (program, loss, the compiled executor and scope, losses, norms,
+    scales, run kinds, the launches a step)."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import executor
+    main, startup, loss, lr = _cf_pretrain_program(
+        cfg, TRAIN_DROPOUT, _lamb(clip_norm))
+    ops = main.global_block().ops
+    want = _step_want(ops, _attention_route(main))
+    if want != TRAIN_STEP_WANT:
+        raise AssertionError(f"{OPT_TAG} want {want} launches a step, not "
+                             f"{TRAIN_STEP_WANT}")
+    if not executor._whole_compilable(ops):
+        raise AssertionError(f"{OPT_TAG} (a)'s step does not compile whole")
+    norm, scale = _clip_vars(main)
+    params = main.all_parameters()
+    grads = [p.name + "@GRAD" for p in params]
+    exe, scope = _fresh(main, startup)
+    iexe, iscope = _fresh(main, startup)
+    losses, norms, scales, execs = [], [], [], []
+    for s in range(steps):
+        out, iout, kind, _, _ = _lock_step(
+            (exe, scope), (iexe, iscope), main, batches[s % len(batches)],
+            [loss, lr, norm, scale], want, book,
+            f"(a) clip {clip_norm:g} step {s}", OPT_TAG,
+            extra=grads if s == 1 else ())
+        execs.append(kind)
+        if s == 1:
+            _norm_agrees(out[2], iout[4:], params)
+        losses.append(float(out[0].reshape(-1)[0]))
+        norms.append(float(out[2][0]))
+        scales.append(float(out[3][0]))
+        want_scale = np.float32(clip_norm) / max(np.float32(norms[-1]),
+                                                 np.float32(clip_norm))
+        if out[3][0] != np.float32(want_scale):
+            raise AssertionError(f"{OPT_TAG} (a) step {s}: scale "
+                                 f"{out[3][0]}, want {want_scale}")
+    _drop(iexe)
+    del iexe, iscope
+    return main, loss, (exe, scope), losses, norms, scales, execs, want
+
+
+def _norm_agrees(fetched, grads, params):
+    """The fetched pre-clip global norm against a float64 recomputation on
+    the host from the fetched grads, at NORM_RTOL."""
+    import numpy as np
+    total = 0.0
+    for g in grads:
+        total += float(np.square(g.astype(np.float64)).sum())
+    ref = float(np.sqrt(total))
+    err = abs(float(fetched[0]) - ref) / ref
+    _log(f"{OPT_TAG} (a) the global norm over {len(params)} grads: fetched "
+         f"{float(fetched[0]):.7g}, float64 from the fetched grads "
+         f"{ref:.9g}: relative {err:.3e} (tol {NORM_RTOL:g}) -> "
+         f"{'ok' if err <= NORM_RTOL else 'FAIL'}")
+    if err > NORM_RTOL:
+        raise AssertionError(f"{OPT_TAG} the global norm disagrees")
+
+
+def _opt_lamb(book, train_p50):
+    """(a) BERT-base pretraining under LAMB with a global-norm clip. →
+    (the step's p50, Adam's step p50 timed alternating with it) in ms."""
+    import collections
+    import numpy as np
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    rng = np.random.RandomState(SEED + 17)
+    batches = [_train_batch(rng, TRAIN_BATCH, cfg) for _ in range(OPT_STEPS)]
+    main, loss, (exe, scope), losses, norms, scales, execs, want = \
+        _opt_lamb_block(book, cfg, OPT_CLIP, OPT_STEPS, batches)
+    _log(f"{OPT_TAG} (a) BERT-base f32, dropout {TRAIN_DROPOUT}, input mask, "
+         f"batch {TRAIN_BATCH}, S = {S}, Lamb(linear_lr_warmup(polynomial_"
+         f"decay({OPT_PEAK:g}, {OPT_HORIZON}, 0.0, 1.0), {CF_WARMUP}, 0.0, "
+         f"{OPT_PEAK:g}), lamb_weight_decay={OPT_WD:g}, LayerNorm and biases "
+         f"excluded, GradientClipByGlobalNorm({OPT_CLIP:g})): {OPT_STEPS} "
+         f"steps {execs}, each {want} launches; loss, LR, norm, scale and "
+         f"every persistable bitwise the interpreter's -> ok")
+    _log(f"{OPT_TAG} (a) losses " + " ".join(f"{x:.6f}" for x in losses))
+    _log(f"{OPT_TAG} (a) pre-clip global norms " +
+         " ".join(f"{x:.6f}" for x in norms) + "; the clip's scales " +
+         " ".join(f"{x:.6f}" for x in scales))
+    engaged = [s for s, n in enumerate(norms) if n > OPT_CLIP]
+    if engaged:
+        _log(f"{OPT_TAG} (a) the clip engaged at steps {engaged} (norm > "
+             f"{OPT_CLIP:g}, scale = {OPT_CLIP:g} / norm < 1) -> ok")
+    else:
+        # no step exceeded the clip: hold the scale < 1 branch with a
+        # clip_norm below the first step's norm
+        low = float(np.float32(norms[0] / 2))
+        _, _, (lexe, _), _, lnorms, lscales, lexecs, _ = \
+            _opt_lamb_block(book, cfg, low, 3, batches)
+        _drop(lexe)
+        if not all(n > low and c < 1 for n, c in zip(lnorms, lscales)):
+            raise AssertionError(f"{OPT_TAG} the clip at {low} did not "
+                                 f"engage: norms {lnorms} scales {lscales}")
+        _log(f"{OPT_TAG} (a) no step's norm exceeded {OPT_CLIP:g}; with "
+             f"clip_norm {low:g} (half step 0's norm): 3 steps {lexecs}, "
+             f"norms {lnorms}, scales {lscales} < 1, bitwise the "
+             "interpreter's -> ok")
+    counts = _device_kernel_counts(lambda: exe.run(
+        main, feed=batches[0], fetch_list=[loss], scope=scope))
+    _check_trace(counts, want, "(a) LAMB step")
+    book.add(counts)
+    # the loss on one repeated batch
+    _, fall = _train_steps(exe, main, loss, scope,
+                           [batches[0]] * FALL_STEPS, want, collections.Counter(),
+                           f"{OPT_TAG} (a) repeated step", book)
+    _log(f"{OPT_TAG} (a) repeated batch, {FALL_STEPS} steps: " +
+         " ".join(f"{x:.4f}" for x in fall))
+    if not (fall[-1] < fall[0] and np.mean(fall[-3:]) < np.mean(fall[:3])):
+        raise AssertionError(f"{OPT_TAG} the loss does not fall under LAMB")
+    # LAMB's step against Adam's under the same schedule, dropout and
+    # batch, their replays alternating so that both see the card's drift
+    amain, astartup, aloss, _ = _cf_pretrain_program(cfg, TRAIN_DROPOUT)
+    awant = _step_want(amain.global_block().ops, _attention_route(amain))
+    if awant != want:
+        raise AssertionError(f"{OPT_TAG} (a) Adam's step launches {awant}, "
+                             f"LAMB's {want}")
+    aexe, ascope = _fresh(amain, astartup)
+    runs = collections.Counter()
+    _train_steps(aexe, amain, aloss, ascope, batches[:2], want, runs,
+                 f"{OPT_TAG} (a) Adam warm-up step", book)
+    ms, ams = [], []
+    for j in range(OPT_TIMED):
+        feed = [batches[j % OPT_STEPS]]
+        ms += _train_steps(exe, main, loss, scope, feed, want, runs,
+                           f"{OPT_TAG} (a) timed step {j}", book)[0]
+        ams += _train_steps(aexe, amain, aloss, ascope, feed, want, runs,
+                            f"{OPT_TAG} (a) timed Adam step {j}", book)[0]
+    ms, ams = np.asarray(ms) * 1e3, np.asarray(ams) * 1e3
+    _drop(aexe)
+    del aexe, ascope
+    p50, ap50 = float(np.percentile(ms, 50)), float(np.percentile(ams, 50))
+    _log(f"{OPT_TAG} (a) step p50 {p50:.3f} ms p90 "
+         f"{np.percentile(ms, 90):.3f} beside Adam's under the same "
+         f"schedule p50 {ap50:.3f} ms p90 {np.percentile(ams, 90):.3f} "
+         f"(n = {OPT_TIMED} replays each, alternating): "
+         f"{p50 - ap50:+.3f} ms, {100 * (p50 / ap50 - 1):+.2f} % for LAMB "
+         f"and the clip; the train phase's f32 Adam step p50 "
+         f"{train_p50:.3f} ms earlier in this call ({_card_line()})")
+    _drop(exe)
+    del exe, scope
+    # one step at CHECK_BATCH, dropout 0, on the card against the CPU
+    main, startup, loss, _ = _cf_pretrain_program(cfg, 0.0, _lamb())
+    norm, _ = _clip_vars(main)
+    route = _attention_route(main)
+    if route != "f32":
+        raise AssertionError(f"{OPT_TAG} (a) batch {CHECK_BATCH}: route "
+                             f"{route}, want f32")
+    cwant = _step_want(main.global_block().ops, route)
+    muls = [op for op in main.global_block().ops if op.type == "mul"]
+    names = ["word_embedding", muls[0].input("Y")[0],
+             muls[-1].input("Y")[0]]
+    feed = _train_batch(np.random.RandomState(SEED + 171), CHECK_BATCH, cfg)
+    before = _launch_counts()
+    gpu, cpu, (gexe, _), _ = _card_and_cpu_step(
+        main, startup, [loss] + [n + "@GRAD" for n in names] + [norm], feed)
+    _gate_run(gexe, _delta(before), cwant,
+              f"{OPT_TAG} (a) batch {CHECK_BATCH} on the card")
+    book.add(cwant)
+    _loss_and_grads_agree(f"{OPT_TAG} (a) batch {CHECK_BATCH} dropout 0",
+                          names, gpu[:-1], cpu[:-1])
+    nerr = abs(float(gpu[-1][0]) - float(cpu[-1][0])) / float(cpu[-1][0])
+    _log(f"{OPT_TAG} (a) the global norm, card vs CPU: {float(gpu[-1][0]):.7g}"
+         f" vs {float(cpu[-1][0]):.7g}, relative {nerr:.3e} (tol "
+         f"{LOSS_TOL:g}) -> {'ok' if nerr <= LOSS_TOL else 'FAIL'}")
+    if nerr > LOSS_TOL:
+        raise AssertionError(f"{OPT_TAG} the card's global norm disagrees")
+    _drop(gexe)
+    return p50, ap50
+
+
+def _gm_batches(rng, cfg):
+    """GM_K micro-batches of GM_MICRO rows, each with its own masked
+    positions, and the batch of their TRAIN_BATCH rows with those
+    positions moved to the rows' new places: one Adam step on it sees the
+    mean of the micro-batches' mean losses (equal counts)."""
+    import numpy as np
+    micro = [_train_batch(rng, GM_MICRO, cfg) for _ in range(GM_K)]
+    big = {n: np.concatenate([m[n] for m in micro]) for n in micro[0]}
+    big["mask_pos"] = np.concatenate(
+        [m["mask_pos"] + i * GM_MICRO * S for i, m in enumerate(micro)])
+    return micro, big
+
+
+def _opt_gm(book):
+    """(b) GradientMerge over BERT-base micro-batches. → (micro-step p50,
+    plain batch-8 step p50) in ms."""
+    import collections
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.fluid import executor
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+
+    def merged(f, loss):
+        f.optimizer.GradientMergeOptimizer(
+            f.optimizer.Adam(GM_LR), k_steps=GM_K, avg=True).minimize(loss)
+
+    def plain(f, loss):
+        f.optimizer.Adam(GM_LR).minimize(loss)
+    main, startup, loss, _ = _cf_pretrain_program(cfg, 0.0, merged)
+    ops = main.global_block().ops
+    want = _step_want(ops, _attention_route(main))
+    n_cond = sum(op.type == "conditional_block" for op in ops)
+    if want != GM_WANT or n_cond != 2 or not executor._whole_compilable(ops):
+        raise AssertionError(f"{OPT_TAG} (b): {want} launches, {n_cond} "
+                             "conditionals; want GM_WANT and a step that "
+                             "compiles whole")
+    rng = np.random.RandomState(SEED + 172)
+    micro, big = _gm_batches(rng, cfg)
+    params = [p.name for p in main.all_parameters()]
+    exe, scope = _fresh(main, startup)
+    iexe, iscope = _fresh(main, startup)
+    start = {n: scope.find_var(n).value().array.clone() for n in params}
+    execs, after = [], None
+    for s in range(GM_STEPS):
+        _, _, kind, _, state = _lock_step(
+            (exe, scope), (iexe, iscope), main, micro[s % GM_K], [loss],
+            want, book, f"(b) micro-step {s + 1}", OPT_TAG)
+        execs.append(kind)
+        if s < GM_K - 1:
+            moved = [n for n in params if not torch.equal(state[n],
+                                                          start[n])]
+            if moved:
+                raise AssertionError(f"{OPT_TAG} (b) micro-step {s + 1} "
+                                     f"moved {moved[:3]}")
+        elif s == GM_K - 1:
+            after = state
+        del state
+    _drop(iexe)
+    _drop(exe)
+    del iexe, iscope, exe, scope
+    _log(f"{OPT_TAG} (b) GradientMergeOptimizer(Adam({GM_LR:g}), k_steps="
+         f"{GM_K}, avg=True), BERT-base f32 at dropout 0, micro-batch "
+         f"{GM_MICRO}: {GM_STEPS} micro-steps {execs}, each {want} launches"
+         f", 2 conditionals in the step; bitwise the interpreter's after "
+         f"every micro-step; micro-steps 1-{GM_K - 1} left the "
+         f"{len(params)} parameters bitwise -> ok")
+    # one plain Adam step on the same 32 rows from the same start
+    bmain, bstartup, bloss, _ = _cf_pretrain_program(cfg, 0.0, plain)
+    bexe, bscope = _fresh(bmain, bstartup)
+    for n in params:
+        bscope.find_var(n).value().array.copy_(start[n])
+    del start
+    _train_steps(bexe, bmain, bloss, bscope, [big], want,
+                 collections.Counter(),
+                 f"{OPT_TAG} (b) the batch-{TRAIN_BATCH} step", book)
+    _gm_against_batch(after, bscope, params)
+    del after
+    _drop(bexe)
+    del bexe, bscope
+    pmain, pstartup, ploss, _ = _cf_pretrain_program(cfg, 0.0, plain)
+    gm_ms, gm_peak = _gm_timed(main, startup, loss, micro, want, book,
+                               "timed micro-step")
+    p_ms, p_peak = _gm_timed(pmain, pstartup, ploss, micro, want, book,
+                             "timed plain step")
+    gp50, pp50 = (float(np.percentile(gm_ms, 50)),
+                  float(np.percentile(p_ms, 50)))
+    _log(f"{OPT_TAG} (b) micro-step p50 {gp50:.3f} ms p90 "
+         f"{np.percentile(gm_ms, 90):.3f} beside a plain Adam step at batch "
+         f"{GM_MICRO} p50 {pp50:.3f} ms p90 {np.percentile(p_ms, 90):.3f} "
+         f"(n = {OPT_TIMED} replays each): {100 * (gp50 / pp50 - 1):+.2f} % "
+         f"(the accumulate and the both-branch update each micro-step); "
+         f"peak memory of a fresh executor (startup, warm-up, capture, "
+         f"replays) {gm_peak:.3f} GiB vs {p_peak:.3f} GiB "
+         f"({gm_peak - p_peak:+.3f}; {_card_line()})")
+    return gp50, pp50
+
+
+def _gm_timed(main, startup, loss, micro, want, book, what):
+    """(b): a fresh executor's startup, eager run, capture and OPT_TIMED
+    replays on the micro-batches → (the replays' ms, the peak memory
+    above what was allocated before, in GiB)."""
+    import collections
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    exe, scope = _fresh(main, startup)
+    times, _ = _train_steps(
+        exe, main, loss, scope,
+        [micro[j % GM_K] for j in range(2 + OPT_TIMED)], want,
+        collections.Counter(), f"{OPT_TAG} (b) {what}", book)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    _drop(exe)
+    return np.asarray(times[2:]) * 1e3, peak
+
+
+def _gm_against_batch(merged, bscope, params):
+    """(b): the persistables after micro-step GM_K against one Adam step
+    at batch TRAIN_BATCH on the same rows from the same start. The
+    merged, averaged grads as Adam's first update left them in its first
+    moment ((1 − β1)·g on both sides): each parameter's within GRAD_TOL of
+    its largest magnitude, or of the largest of all where its grad is
+    rounding noise (GM_NOISE). The parameters within GM_MAXD, those with
+    a noise grad within 2·lr, at most GM_SHARE of all their elements
+    beyond 1e-7; those elements sorted by
+    cause: a grad near Adam's ε, where the first step lr·g/(|g| + ε) moves
+    with the grad's last bits (the step recomputed in float64 from the
+    two moments differs by more than half of 1e-7), or one ulp of the
+    parameter."""
+    import torch
+    beta1, eps = 0.9, 1e-8  # AdamOptimizer's defaults
+    moment = {p: next(n for n in merged if n.startswith(p + "_moment1_"))
+              for p in params}
+    ref = {p: bscope.find_var(moment[p]).value().array for p in params}
+    gmax = max(float(ref[p].abs().max()) for p in params)
+    noise, bad, rel, rel_at = [], [], 0.0, None
+    worst, worst_noise, beyond, total = 0.0, 0.0, 0, 0
+    near_eps, one_ulp, by_param = 0, 0, {}
+    for p in params:
+        a, b = merged[moment[p]], ref[p]
+        own = float(b.abs().max())
+        scale = own if own >= GM_NOISE * gmax else gmax
+        if scale != own:
+            noise.append(p)
+        err = float((a - b).abs().max())
+        if err / scale > rel:
+            rel, rel_at = err / scale, p
+        if err > GRAD_TOL * scale:
+            bad.append(f"{p} max|d| {err:.3e} of {scale:.3e}")
+        w = bscope.find_var(p).value().array
+        d = (merged[p] - w).abs()
+        if scale == own:
+            worst = max(worst, float(d.max()))
+        else:
+            worst_noise = max(worst_noise, float(d.max()))
+        total += d.numel()
+        far = d > 1e-7
+        n = int(far.sum())
+        if not n:
+            continue
+        beyond += n
+        by_param[p] = n
+        ga, gb = (x[far].double() / (1 - beta1) for x in (a, b))
+        step_d = GM_LR * (ga / (ga.abs() + eps) - gb / (gb.abs() + eps))
+        sens = step_d.abs() > 0.5e-7
+        wv = w[far].abs()
+        ulp = (torch.nextafter(wv, torch.full_like(wv, float("inf"))) - wv)
+        near_eps += int(sens.sum())
+        one_ulp += int(((~sens) & (d[far] <= ulp)).sum())
+    share = beyond / total
+    top = sorted(by_param.items(), key=lambda kv: -kv[1])[:4]
+    _log(f"{OPT_TAG} (b) the merged, averaged grads after micro-step "
+         f"{GM_K} (Adam's first moment) vs the batch-{TRAIN_BATCH} step's: "
+         f"worst max|d| {rel:.3e} of the parameter's largest grad, in "
+         f"{rel_at} (tol {GRAD_TOL:g}; "
+         f"{len(noise)} grads rounding noise, below {GM_NOISE:g} of the "
+         f"largest: {noise[:3]}..) -> {'FAIL' if bad else 'ok'}")
+    _log(f"{OPT_TAG} (b) the parameters after micro-step {GM_K} vs one "
+         f"Adam step at batch {TRAIN_BATCH} on the same rows: max|d| "
+         f"{worst:.3e} (tol {GM_MAXD:g}), where the grad is noise "
+         f"{worst_noise:.3e} (tol 2·lr = {2 * GM_LR:g}); {beyond} of {total} "
+         f"elements "
+         f"beyond 1e-7 ({share:.2e}, tol {GM_SHARE:g}): {near_eps} where "
+         f"the grad sits near ε (the float64 step moves by > 5e-8 between "
+         f"the two grads), {one_ulp} one ulp of the parameter, "
+         f"{beyond - near_eps - one_ulp} neither; most in {top}")
+    if bad or worst > GM_MAXD or worst_noise > 2 * GM_LR or \
+            share > GM_SHARE:
+        raise AssertionError(f"{OPT_TAG} (b) the merged step is not the "
+                             f"batch-{TRAIN_BATCH} step: {bad[:3]}")
+
+
+def _opt_mlp(make):
+    """The MLP of the TPU package's optimizer tests
+    (tests/test_backward_executor.py:12), ``make(fluid)`` minimizing its
+    loss (an optimizer, or a callable that builds the update) →
+    (main, startup, fetch list)."""
+    from paddle_tpu_torch import fluid
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.data("x", shape=[8], dtype="float32")
+        label = fluid.data("y", shape=[1], dtype="int64")
+        h = fluid.layers.fc(x, 16, act="relu")
+        pred = fluid.layers.fc(h, 4, act="softmax")
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        extra = make(fluid, loss)
+    startup.random_seed = main.random_seed = SEED
+    return main, startup, [loss] + list(extra or [])
+
+
+def _opt_small_feed(step):
+    import numpy as np
+    r = np.random.RandomState(SEED + 173 + step)
+    return {"x": r.rand(64, 8).astype(np.float32),
+            "y": r.randint(0, 4, (64, 1)).astype(np.int64)}
+
+
+def _opt_small_case(book, what, make):
+    """A small program on the card, SMALL_RUNS runs compiled (eager,
+    capture, replays) and interpreted from one start: fetches and every
+    persistable bitwise; and by the port on the CPU from the same start:
+    fetches and persistables within SMALL_TOL."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import clip
+    main, startup, fetch = _opt_mlp(make)
+    clip._gradient_clip_attr = None  # set_gradient_clip's, once built
+    exe, scope = _fresh(main, startup)
+    iexe, iscope = _fresh(main, startup)
+    cpu, cscope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    # the persistables and the step counter, so that a random op draws
+    # the card's bits
+    for n in [v.name for v in main.global_block().vars.values()
+              if v.persistable] + ["@RNG_COUNTER@"]:
+        if scope.find_var(n) is not None:
+            cscope.var(n).set_value(fluid.LoDTensor(
+                scope.find_var(n).value().array.cpu().clone()))
+    seen = []
+    for s in range(SMALL_RUNS):
+        f = _opt_small_feed(s)
+        before = _launch_counts()
+        o = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+        book.add(tuple(x - y for x, y in zip(_launch_counts(), before)))
+        seen.append((exe._last_run_mode, exe._last_block.last_exec))
+        io = _interpreted(iexe, main, f, fetch, iscope, (0,) * len(KERNELS),
+                          book, f"{OPT_TAG} (c) {what} run {s}")
+        c = cpu.run(main, feed=f, fetch_list=fetch, scope=cscope)
+        for a, b, d in zip(o, io, c):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{OPT_TAG} (c) {what} run {s}: "
+                                     f"compiled {a} vs interpreted {b}")
+            if not np.allclose(a, d, rtol=SMALL_TOL[0], atol=SMALL_TOL[1]):
+                raise AssertionError(f"{OPT_TAG} (c) {what} run {s}: card "
+                                     f"{a} vs CPU {d}")
+    if seen != [("compiled", e) for e in SMALL_EXECS]:
+        raise AssertionError(f"{OPT_TAG} (c) {what}: ran {seen}")
+    state = _persistables(scope, main)
+    _same_state(f"(c) {what} compiled vs interpreted", state,
+                _persistables(iscope, main), tag=OPT_TAG)
+    worst = 0.0
+    for n, t in state.items():
+        c = cscope.find_var(n).value().array
+        if t.is_floating_point():
+            ok = torch.allclose(t.cpu(), c, rtol=SMALL_TOL[0],
+                                atol=SMALL_TOL[1])
+            worst = max(worst, float((t.cpu() - c).abs().max()))
+        else:
+            ok = torch.equal(t.cpu(), c)
+        if not ok:
+            raise AssertionError(f"{OPT_TAG} (c) {what}: {n} on the card "
+                                 "disagrees with the CPU's")
+    _log(f"{OPT_TAG} (c) {what}: {seen[-1][0]} {[e for _, e in seen]}, "
+         f"bitwise the interpreter's; vs the CPU port max|d| {worst:.2e} "
+         f"over {len(state)} persistables (rtol {SMALL_TOL[0]:g}, atol "
+         f"{SMALL_TOL[1]:g}) -> ok")
+    exe.close()
+    iexe.close()
+    return state
+
+
+def _dpsgd_law(device="cuda"):
+    """dpsgd's noise on the card, by its law: at a zero grad, lr 1 and
+    batch 1 the op's step is the noise, sigma·clip·N(0, 1)."""
+    import torch
+    from paddle_tpu_torch.ops import rng
+    from paddle_tpu_torch.ops.registry import OPS
+    sigma, clip = 0.5, 2.0
+    kern = OPS.get("dpsgd").kernel
+    zs = []
+    for seed in (1, 2):
+        key = rng.fixed_key(seed, device)
+        out = kern({"Param": [torch.zeros(DPSGD_N, device=device)],
+                    "Grad": [torch.zeros(DPSGD_N, device=device)],
+                    "LearningRate": [torch.ones(1, device=device)]},
+                   {"clip": clip, "batch_size": 1.0, "sigma": sigma,
+                    "_rng": lambda key=key: key})
+        zs.append(-out["ParamOut"][0].double())
+    std = sigma * clip
+    mean, sd = float(zs[0].mean()), float(zs[0].std())
+    ok = abs(mean) < 4 * std / DPSGD_N ** 0.5 and abs(sd / std - 1) < 0.01 \
+        and not torch.equal(zs[0], zs[1])
+    _log(f"{OPT_TAG} (c) dpsgd at sigma {sigma:g}, clip {clip:g} on the card: "
+         f"the noise over {DPSGD_N} elements has mean {mean:.3e} (tol "
+         f"{4 * std / DPSGD_N ** 0.5:.3e}) and std {sd:.5f} (want {std:g} "
+         f"within 1 %); another key draws other noise -> "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{OPT_TAG} dpsgd's noise on the card")
+
+
+def _opt_small(book):
+    """(c) the small cases."""
+    def opt(build):
+        def make(f, loss):
+            build(f).minimize(loss)
+        return make
+    O = "optimizer"
+    cases = [
+        ("LarsMomentum", opt(lambda f: getattr(f, O).LarsMomentum(
+            0.1, momentum=0.9))),
+        ("Adagrad", opt(lambda f: getattr(f, O).Adagrad(0.1))),
+        ("Adamax", opt(lambda f: getattr(f, O).Adamax(0.1))),
+        ("Dpsgd sigma 0", opt(lambda f: getattr(f, O).Dpsgd(
+            0.01, clip=1.0, batch_size=32, sigma=0.0))),
+        ("Dpsgd sigma 1", opt(lambda f: getattr(f, O).Dpsgd(
+            0.01, clip=1.0, batch_size=32, sigma=1.0))),
+        ("DecayedAdagrad", opt(lambda f: getattr(f, O).DecayedAdagrad(0.1))),
+        ("Adadelta", opt(lambda f: getattr(f, O).Adadelta(0.1))),
+        ("RMSProp centered", opt(lambda f: getattr(f, O).RMSProp(
+            0.01, momentum=0.5, centered=True))),
+        ("Ftrl", opt(lambda f: getattr(f, O).Ftrl(0.1, l1=1e-3, l2=1e-3))),
+        ("Lamb", opt(lambda f: getattr(f, O).Lamb(
+            0.01, exclude_from_weight_decay_fn=_no_decay))),
+        ("DGCMomentum", opt(lambda f: getattr(f, O).DGCMomentum(
+            0.1, momentum=0.9, rampup_begin_step=0))),
+        ("Lookahead(SGD)", opt(lambda f: getattr(f, O).Lookahead(
+            getattr(f, O).SGD(0.3), alpha=0.5, k=3))),
+        ("GradientMerge k 1", opt(lambda f: getattr(f, O)
+                                  .GradientMergeOptimizer(
+                                      getattr(f, O).Adam(0.01), k_steps=1))),
+        ("GradientClipByValue", opt(lambda f: getattr(f, O).Momentum(
+            0.1, 0.9, grad_clip=f.clip.GradientClipByValue(0.05)))),
+        ("GradientClipByNorm", opt(lambda f: getattr(f, O).Momentum(
+            0.1, 0.9, grad_clip=f.clip.GradientClipByNorm(0.1)))),
+        ("GradientClipByGlobalNorm", opt(lambda f: getattr(f, O).Adam(
+            0.01, grad_clip=f.clip.GradientClipByGlobalNorm(0.1)))),
+        ("L1Decay", opt(lambda f: getattr(f, O).Adam(
+            0.01, regularization=f.regularizer.L1Decay(1e-3)))),
+    ]
+
+    def per_param(f, loss):
+        params = f.default_main_program().all_parameters()
+        f.clip.set_gradient_clip(f.clip.GradientClipByNorm(0.05),
+                                 param_list=params[:2])
+        f.optimizer.SGD(0.5).minimize(loss)
+
+    def grads(f, loss):
+        main = f.default_main_program()
+        x, h = main.global_block().var("x"), main.global_block().var(
+            main.global_block().ops[1].output("Out")[0])
+        gx, gh = f.gradients([loss], [x, h])
+        return [gx, gh]
+    cases += [("set_gradient_clip(param_list=)", per_param),
+              ("fluid.gradients", grads)]
+    for what, make in cases:
+        _opt_small_case(book, what, make)
+    _dpsgd_law()
+    return len(cases)
+
+
+def phase_optimizers(train_p50):
+    """Phase 17: the optimizer stack (the docstring's phase 17).
+    ``train_p50``: the train phase's f32 step p50 of this call. → the
+    launches of its runs: through the wrappers (warm-ups, captures, the
+    interpreter) and on the card (every run)."""
+    book = _CfBook()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    step_p50, adam_p50 = _opt_lamb(book, train_p50)
+    gm_p50, plain_p50 = _opt_gm(book)
+    n_small = _opt_small(book)
+    wrapper = _launch_counts()
+    _log(f"{OPT_TAG} phase 17 in {time.perf_counter() - t0:.1f} s: (a) step "
+         f"p50 {step_p50:.3f} ms vs Adam's {adam_p50:.3f} (train "
+         f"{train_p50:.3f}); (b) micro-step "
+         f"{gm_p50:.3f} ms vs plain batch {GM_MICRO} {plain_p50:.3f}; (c) "
+         f"{n_small} cases; launches through the wrappers {GATE_NAMES} "
+         f"{wrapper}, on the card {tuple(book.executed)}")
+    return {"wrapper": wrapper, "executed": tuple(book.executed)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -5905,6 +6638,7 @@ def main(argv=None) -> int:
     paths["predictor"] = phase_predictor(profile=args.profile)
     paths["resume"] = phase_resume()
     paths["control_flow"] = phase_control_flow(paths["train"]["p50_ms"])
+    paths["optimizers"] = phase_optimizers(paths["train"]["p50_ms"])
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

@@ -1,8 +1,9 @@
 """fluid — the Fluid v1.7 front end of paddle_tpu_torch (counterpart of
 paddle_tpu/fluid; so far: Program building, the layers of the BERT-base
 pretraining step, control flow (While, cond, Switch, the tensor arrays)
-and the LR schedules, append_backward, SGD, Momentum, Adam and
-RecomputeOptimizer, contrib.mixed_precision, the Executor, the program
+and the LR schedules, append_backward and gradients, every optimizer but
+PipelineOptimizer, the gradient clips, L1Decay and L2Decay,
+contrib.mixed_precision, the Executor, the program
 proto with clone and _prune, io (save and load, and the checkpoint
 plane), the pass system of ir, the verifier of analysis, and the reader's
 DataLoader, PyReader and DataFeeder)."""
@@ -17,11 +18,13 @@ from . import unique_name
 from . import initializer
 from . import regularizer
 from . import clip
+from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
+                   GradientClipByValue)
 from .param_attr import ParamAttr
 from . import layers
 from .layers.io import data
 from . import backward
-from .backward import append_backward
+from .backward import append_backward, gradients
 from . import optimizer
 from . import executor
 from .executor import Executor, scope_guard
@@ -44,7 +47,8 @@ __all__ = [
     "program_guard", "default_main_program", "default_startup_program",
     "cpu_places", "cuda_places", "unique_name",
     "initializer", "regularizer", "clip", "ParamAttr", "layers", "data",
-    "backward", "append_backward", "optimizer", "Executor", "param_bridge",
+    "backward", "append_backward", "gradients", "optimizer",
+    "GradientClipByGlobalNorm", "GradientClipByNorm", "GradientClipByValue", "Executor", "param_bridge",
     "contrib", "analysis", "ir", "io", "save_vars", "save_params",
     "save_persistables", "load_vars", "load_params", "load_persistables",
     "save_inference_model", "load_inference_model", "save", "load",

@@ -23,7 +23,7 @@ from typing import Dict, List, Set
 from .framework import Block, Operator, Parameter, Variable, grad_var_name
 from ..ops.registry import OPS, resolve_base_info
 
-__all__ = ["append_backward"]
+__all__ = ["append_backward", "calc_gradient", "gradients"]
 
 EMPTY_VAR = "@EMPTY@"
 
@@ -262,3 +262,35 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None,
             result.append((p, block.vars[gname]))
     program._appending_grad_times += 1
     return result
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """reference backward.py:1599: the grads of ``targets`` with respect to
+    ``inputs`` (None for an input no target depends on). The cotangent of
+    every target element is 1: the sweep runs from the sum of each
+    target's ``reduce_sum``; ``target_gradients`` are not supported, as in
+    the TPU package."""
+    targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+    assert target_gradients is None, "target_gradients: pending"
+    from .layers import nn as _nn
+    loss = None
+    for t in targets:
+        m = _nn.reduce_sum(t)
+        loss = m if loss is None else _nn.elementwise_add(loss, m)
+    # the inputs (often data vars, which stop gradients) join the sweep's
+    # requires-grad set for its length, or no grad op would reach them
+    restore = [(iv, iv.stop_gradient) for iv in inputs]
+    for iv in inputs:
+        iv.stop_gradient = False
+    try:
+        append_backward(loss, no_grad_set=no_grad_set)
+    finally:
+        for iv, sg in restore:
+            iv.stop_gradient = sg
+    block = targets[0].block
+    return [block.vars.get(grad_var_name(iv.name)) for iv in inputs]
+
+
+def gradients(targets, inputs, target_gradients=None, no_grad_set=None):
+    return calc_gradient(targets, inputs, target_gradients, no_grad_set)

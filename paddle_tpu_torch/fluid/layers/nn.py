@@ -3,9 +3,10 @@ python/paddle/fluid/layers/nn.py). Op-builder functions with inline shape
 inference; -1 marks unknown dims. So far: fc, embedding, conv2d, pool2d,
 batch_norm, layer_norm, dropout, softmax, reshape, squeeze, unsqueeze,
 flatten, gather, topk, mean, reduce_sum, reduce_mean, one_hot,
-elementwise_add, _sub, _mul, _div and _min, scale, label_smooth,
-log_loss, add_position_encoding, autoincreased_step_counter and the
-logical_* layers."""
+elementwise_add, _sub, _mul, _div, _max, _min, _pow and _mod, scale,
+clip, clip_by_norm, sign, pow, label_smooth, log_loss,
+add_position_encoding, autoincreased_step_counter and the logical_*
+layers."""
 from __future__ import annotations
 
 import math
@@ -21,7 +22,9 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "unsqueeze", "transpose", "matmul", "flatten", "gather", "topk",
            "mean", "reduce_sum",
            "reduce_mean", "one_hot", "elementwise_add", "elementwise_sub",
-           "elementwise_mul", "elementwise_div", "elementwise_min", "scale",
+           "elementwise_mul", "elementwise_div", "elementwise_max",
+           "elementwise_min", "elementwise_pow", "elementwise_mod", "scale",
+           "clip", "clip_by_norm", "sign", "pow",
            "label_smooth", "log_loss", "add_position_encoding",
            "autoincreased_step_counter", "logical_and", "logical_or",
            "logical_xor", "logical_not"]
@@ -491,8 +494,58 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_div", x, y, axis, act, name)
 
 
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_max", x, y, axis, act, name)
+
+
 def elementwise_min(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_pow", x, y, axis, act, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def clip(x, min, max, name=None):
+    """x clipped to [min, max], elementwise."""
+    helper = LayerHelper("clip", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """x scaled down to L2 norm ``max_norm`` where its norm exceeds it."""
+    helper = LayerHelper("clip_by_norm", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
+
+
+def _act_layer(op_type, x, attrs=None, name=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def sign(x):
+    return _act_layer("sign", x)
+
+
+def pow(x, factor=1.0, name=None):
+    return _act_layer("pow", x, {"factor": factor}, name)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

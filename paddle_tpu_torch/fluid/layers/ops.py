@@ -1,12 +1,13 @@
 """Activation-style layer wrappers (counterpart of
 paddle_tpu/fluid/layers/ops.py; reference: python/paddle/fluid/layers/ops.py
 via layer_function_generator.py). So far: relu, sigmoid, square, exp,
-ceil, floor and cos."""
+ceil, floor, cos, sqrt, rsqrt, abs and reciprocal."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["relu", "sigmoid", "square", "exp", "ceil", "floor", "cos"]
+__all__ = ["relu", "sigmoid", "square", "exp", "ceil", "floor", "cos",
+           "sqrt", "rsqrt", "abs", "reciprocal"]
 
 
 def _make_act(op_type):
@@ -28,3 +29,7 @@ exp = _make_act("exp")
 ceil = _make_act("ceil")
 floor = _make_act("floor")
 cos = _make_act("cos")
+sqrt = _make_act("sqrt")
+rsqrt = _make_act("rsqrt")
+abs = _make_act("abs")
+reciprocal = _make_act("reciprocal")

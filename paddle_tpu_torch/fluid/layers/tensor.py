@@ -1,7 +1,7 @@
 """Tensor layers (counterpart of paddle_tpu/fluid/layers/tensor.py;
 reference: python/paddle/fluid/layers/tensor.py). So far: assign, cast,
 concat, create_global_var, create_parameter, fill_constant, ones, zeros,
-tensor_array_to_tensor, and ``math_op``, the helper of the Variable
+sums, tensor_array_to_tensor, and ``math_op``, the helper of the Variable
 operators."""
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
 __all__ = ["assign", "cast", "concat", "create_global_var",
-           "create_parameter", "fill_constant", "ones", "zeros",
+           "create_parameter", "fill_constant", "ones", "zeros", "sums",
            "tensor_array_to_tensor"]
 
 
@@ -160,6 +160,17 @@ def concat(input, axis=0, name=None):
         out.shape = tuple(shp)
     helper.append_op(type="concat", inputs=inputs, outputs={"Out": [out]},
                      attrs=attrs)
+    return out
+
+
+def sums(input, out=None):
+    """The elementwise sum of the list ``input`` (one ``sum`` op)."""
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+        out.shape = input[0].shape
+    helper.append_op(type="sum", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={})
     return out
 
 

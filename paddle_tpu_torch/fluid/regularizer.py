@@ -1,12 +1,13 @@
 """Weight-decay regularizers (counterpart of paddle_tpu/fluid/regularizer.py;
-reference: python/paddle/fluid/regularizer.py). So far: L2Decay and
+reference: python/paddle/fluid/regularizer.py): L1Decay, L2Decay and
 ``append_regularization_ops``, which passes a grad through when no
 regularizer is set and otherwise appends grad + decay."""
 from __future__ import annotations
 
 from .layer_helper import LayerHelper
 
-__all__ = ["L2Decay", "L2DecayRegularizer", "append_regularization_ops"]
+__all__ = ["L1Decay", "L2Decay", "L1DecayRegularizer", "L2DecayRegularizer",
+           "append_regularization_ops"]
 
 
 class WeightDecayRegularizer:
@@ -25,6 +26,26 @@ class L2DecayRegularizer(WeightDecayRegularizer):
         decay = helper.create_variable_for_type_inference(param.dtype)
         decay.shape = param.shape
         block.append_op(type="scale", inputs={"X": [param]},
+                        outputs={"Out": [decay]},
+                        attrs={"scale": self._coeff, "op_role": 1})
+        return decay
+
+
+class L1DecayRegularizer(WeightDecayRegularizer):
+    """decay = coeff · sign(param), added to the grad."""
+
+    def __init__(self, regularization_coeff=0.0):
+        self._coeff = float(regularization_coeff)
+
+    def __call__(self, param, grad, block):
+        helper = LayerHelper("l1_decay")
+        sign = helper.create_variable_for_type_inference(param.dtype)
+        sign.shape = param.shape
+        decay = helper.create_variable_for_type_inference(param.dtype)
+        decay.shape = param.shape
+        block.append_op(type="sign", inputs={"X": [param]},
+                        outputs={"Out": [sign]}, attrs={"op_role": 1})
+        block.append_op(type="scale", inputs={"X": [sign]},
                         outputs={"Out": [decay]},
                         attrs={"scale": self._coeff, "op_role": 1})
         return decay
@@ -51,4 +72,5 @@ def append_regularization_ops(parameters_and_grads, regularization=None):
     return res
 
 
+L1Decay = L1DecayRegularizer
 L2Decay = L2DecayRegularizer

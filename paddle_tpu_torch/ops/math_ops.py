@@ -1,11 +1,11 @@
 """Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
 far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
-elementwise_max, elementwise_min, elementwise_pow, mul, matmul, scale,
-increment,
-relu, sigmoid, gelu, square, ceil, floor, cos, exp, mean, sum, the
-reduce_* family, isfinite, the comparisons less_than, less_equal,
-greater_than, greater_equal, equal and not_equal, and logical_and,
-logical_or, logical_xor and logical_not).
+elementwise_max, elementwise_min, elementwise_pow, elementwise_mod, mul,
+matmul, scale, increment, clip, clip_by_norm, squared_l2_norm, l1_norm,
+relu, sigmoid, gelu, square, ceil, floor, cos, exp, sqrt, rsqrt, abs,
+reciprocal, sign, pow, mean, sum, the reduce_* family, isfinite, the
+comparisons less_than, less_equal, greater_than, greater_equal, equal and
+not_equal, and logical_and, logical_or, logical_xor and logical_not).
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -78,6 +78,9 @@ _register_elementwise("elementwise_div", lambda x, y: x / y)
 _register_elementwise("elementwise_max", torch.maximum)
 _register_elementwise("elementwise_min", torch.minimum)
 _register_elementwise("elementwise_pow", lambda x, y: x ** y)
+# Python's sign convention (the divisor's), as jnp's ``%``: torch.remainder
+# follows it, torch.fmod does not (an int32 step mod k in GradientMerge)
+_register_elementwise("elementwise_mod", torch.remainder)
 
 
 def _register_cmp(name, fn):
@@ -223,6 +226,18 @@ _register_unary("ceil", torch.ceil, no_grad=True)
 _register_unary("floor", torch.floor, no_grad=True)
 _register_unary("cos", torch.cos)
 _register_unary("exp", torch.exp)
+# the clips' and the norms' arithmetic; sign has no grad, as in the TPU
+# package
+_register_unary("sqrt", torch.sqrt)
+_register_unary("rsqrt", torch.rsqrt)
+_register_unary("abs", torch.abs)
+_register_unary("reciprocal", lambda x: 1.0 / x)
+_register_unary("sign", torch.sign, no_grad=True)
+
+
+@register_op("pow", inputs=("X",), attr_defaults={"factor": 1.0})
+def _pow(ins, attrs):
+    return out(Out=first(ins, "X") ** attrs.get("factor", 1.0))
 
 
 # --------------------------------------------------------------------------
@@ -320,6 +335,36 @@ def _scale(ins, attrs):
     if attrs.get("bias_after_scale", True):
         return out(Out=x * s + b)
     return out(Out=(x + b) * s)
+
+
+@register_op("clip", inputs=("X",), attr_defaults={"min": 0.0, "max": 0.0})
+def _clip(ins, attrs):
+    """min(max(x, min), max), as jnp.clip: at a bound the grad is split
+    between the two sides, as JAX's is."""
+    x = first(ins, "X")
+    lo, hi = (torch.full((), attrs.get(k), dtype=x.dtype, device=x.device)
+              for k in ("min", "max"))
+    return out(Out=torch.minimum(torch.maximum(x, lo), hi))
+
+
+@register_op("clip_by_norm", inputs=("X",), attr_defaults={"max_norm": 1.0})
+def _clip_by_norm(ins, attrs):
+    """x · (max_norm / ‖x‖) where ‖x‖ exceeds max_norm, else x; the norm
+    stays on the device."""
+    x = first(ins, "X")
+    mn = attrs.get("max_norm", 1.0)
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return out(Out=torch.where(norm > mn, x * (mn / norm), x))
+
+
+@register_op("squared_l2_norm", inputs=("X",))
+def _squared_l2_norm(ins, attrs):
+    return out(Out=torch.sum(torch.square(first(ins, "X"))).reshape((1,)))
+
+
+@register_op("l1_norm", inputs=("X",))
+def _l1_norm(ins, attrs):
+    return out(Out=torch.sum(torch.abs(first(ins, "X"))).reshape((1,)))
 
 
 @register_op("increment", inputs=("X",), attr_defaults={"step": 1.0})

@@ -21,7 +21,17 @@ from .registry import register_grad_maker, register_op, first, out
 # embedding
 # --------------------------------------------------------------------------
 def _lookup(w, ids, padding_idx):
-    o = w[ids.long()]
+    """Rows ``ids`` of ``w``, written so that autograd sums a repeated
+    id's rows in an order that does not change from run to run: on the
+    card advanced indexing, whose grad is ``index_put_(accumulate=True)``
+    (sorted); on the CPU ``index_select``, whose grad is ``index_add_``
+    (index order), where ``index_put_`` splits the rows over threads
+    (tensor_ops.scatter_rows_add)."""
+    if w.is_cuda:
+        o = w[ids.long()]
+    else:
+        o = w.index_select(0, ids.long().reshape(-1)).reshape(
+            tuple(ids.shape) + tuple(w.shape[1:]))
     if padding_idx is not None and padding_idx >= 0:
         o = torch.where((ids == padding_idx)[..., None],
                         torch.zeros((), dtype=o.dtype, device=o.device), o)

@@ -124,15 +124,25 @@ def test_pretrain_programs_are_identical(dropout):
 
 def test_unported_options_raise():
     """use_amp and recompute are ported (tests/test_torch_amp.py,
-    tests/test_torch_recompute.py); the optimizer's grad_clip is not, and
-    asking for it raises rather than train unclipped."""
+    tests/test_torch_recompute.py), and so is the optimizer's grad_clip
+    (tests/test_torch_optimizers.py): it builds its clip ops, where it
+    raised before it was ported; append_backward's checkpoints still
+    raise."""
     with tfluid.unique_name.guard():
         main, _, _, (loss,) = tbert.build_bert_pretrain_program(
             CFG, seq_len=S, use_amp=True, recompute=True)
     assert main._recompute_opt["checkpoints"]
     assert "cast" in [op.type for op in main.global_block().ops]
-    with pytest.raises(NotImplementedError, match="grad_clip"):
-        tfluid.optimizer.Adam(1e-3, grad_clip=object())
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.data("x", shape=[4], dtype="float32")
+        loss = tfluid.layers.mean(tfluid.layers.fc(x, 2))
+        tfluid.optimizer.Adam(1e-3, grad_clip=tfluid.clip.GradientClipByNorm(
+            1.0)).minimize(loss)
+        with pytest.raises(NotImplementedError, match="checkpoints"):
+            tfluid.append_backward(loss, checkpoints=[x])
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("clip_by_norm") == 2
 
 
 # ---------------------------------------------------------- per-op grads
