@@ -418,6 +418,41 @@ Phases, each fatal on failure:
               phase's f32 p50, and (b)'s micro-step p50
               beside a plain Adam step's at batch 8, with the peak memory
               of each.
+ 18. lod    — LoD sequences and the Dataset path. (a) The book's
+              understand_sentiment conv net (models/book_extra.py: vocab
+              5147, emb 32, two sequence_conv (tanh) + sequence_pool
+              ("sqrt") branches of 32 filters, fc, Adagrad 5e-2) on 50
+              ragged batches of 32 reviews drawn as the synthetic IMDB
+              reader draws them, compiled, every batch a new LoD and so a
+              new plan run eagerly: the first 8 steps and 5 runs of one
+              fixed-LoD batch (eager, capture, 3 replays) compiled and
+              interpreted in lock step, fetches and persistables bitwise;
+              every loss within rtol 1e-4, atol 1e-5 of the CPU port's on
+              the same batches; the loss falling; device memory after the
+              last 40 ragged steps within 1 MiB of after 10 (a plan that
+              never captured is evicted). Reports the p50 of a new-LoD
+              step and of a replayed one, the plans cached, the LoD
+              constants one holds, and device memory before and after.
+              (b) Wide&Deep at the lane's widths (26 slots of 1e6 ids,
+              hidden 400 x 3, Adam, batch 4096, AUC) from 8 batches
+              written as slot files (4 files), loaded by an
+              InMemoryDataset on 4 parser threads and local_shuffle(seed):
+              every slot and the label LoD [0, 1, ..., 4096];
+              two passes of train_from_dataset (segmented around the auc
+              island, captured and replayed) and of it with window_size=4
+              (LoD batches step by step) print the losses and AUCs of the
+              same batches fed dense through Executor.run in the same
+              order and leave every persistable bitwise theirs. Reports
+              parse seconds and samples/s from the dataset against the
+              Executor.run loop, of the second pass (all replays) and the
+              first.
+              (c) Each sequence op, sequence_mask and cos_sim, forward and
+              generic grad, on the card against the CPU port (rtol 1e-5,
+              atol 1e-6) over a LoD with an empty sequence, and 4
+              recommender steps (sequence_pool("sum") over two LoD slots,
+              cos_sim) against the CPU port. Every run of the phase,
+              interpreted ones included, launches none of the twelve
+              kernels: through the wrappers and in every graph.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -6596,6 +6631,523 @@ def phase_optimizers(train_p50):
     return {"wrapper": wrapper, "executed": tuple(book.executed)}
 
 
+# --------------------------------------------------------------------------
+# 18. LoD sequences and the Dataset path
+# --------------------------------------------------------------------------
+LOD_TAG = "[lod]"
+LOD_VOCAB = 5147              # paddle_tpu/dataset/imdb.py:13
+LOD_BATCH = 32                # tests/test_book_extra.py:85
+LOD_LR = 5e-2                 # tests/test_book_extra.py:74's Adagrad LR
+LOD_STEPS = 50                # (a): ragged batches, a new LoD each
+LOD_LOCK = 8                  # (a): of them compiled and interpreted in
+#                               lock step from one start
+LOD_FIXED_RUNS = 5            # (a): one batch: eager, capture, 3 replays
+LOD_TIMED = 20                # (a): replays of the fixed batch timed
+LOD_TOL = (1e-4, 1e-5)        # card vs CPU port losses, rtol and atol
+#                               (tests/test_torch_optimizer_slice.py:51)
+LOD_FIXED_EXECS = ("eager", "capture", "replay", "replay", "replay")
+LOD_DEVICE = "cuda"
+LOD_WD_BATCHES = 8            # (b): batches of WD_BATCH from slot files
+LOD_WD_FILES = 4              # (b): one file a parser thread
+LOD_WD_THREADS = 4
+LOD_WD_WINDOW = 4             # (b): train_from_dataset(window_size=4)
+LOD_REC_STEPS = 4             # (c): recommender steps, card vs CPU port
+
+
+def _sentiment_batch(rng, batch=LOD_BATCH):
+    """(flat word ids [T, 1], offsets, labels [batch, 1]) drawn as the
+    synthetic IMDB reader draws a review (paddle_tpu/dataset/imdb.py
+    ``_synthetic``): 8-119 base ids from the vocabulary and length // 6
+    marker ids from the label's half of 10..109, shuffled."""
+    import numpy as np
+    seqs, labels = [], []
+    for _ in range(batch):
+        label = int(rng.randint(0, 2))
+        length = int(rng.randint(8, 120))
+        base = rng.randint(0, LOD_VOCAB, size=length)
+        marker = rng.choice(np.arange(10, 60) if label == 0
+                            else np.arange(60, 110), size=max(2, length // 6))
+        ids = np.concatenate([base, marker])
+        rng.shuffle(ids)
+        seqs.append(ids)
+        labels.append(label)
+    offs = np.concatenate([[0], np.cumsum([len(x) for x in seqs])])
+    return (np.concatenate(seqs).reshape(-1, 1).astype(np.int64),
+            [int(o) for o in offs], np.array(labels, np.int64).reshape(-1, 1))
+
+
+def _lod_feed(batch):
+    import torch
+    from paddle_tpu_torch import fluid
+    words, offs, label = batch
+    return {"words": fluid.LoDTensor(torch.from_numpy(words), [offs]),
+            "label": label}
+
+
+def _clone_scope(scope, names, device):
+    """A scope holding ``names`` (and the step counter) copied from
+    ``scope`` onto ``device``: a second run from the same start."""
+    from paddle_tpu_torch import fluid
+    out = fluid.Scope()
+    for n in list(names) + ["@RNG_COUNTER@"]:
+        v = scope.find_var(n)
+        if v is not None and v.is_initialized():
+            out.var(n).set_value(fluid.LoDTensor(
+                v.value().array.detach().to(device).clone()))
+    return out
+
+
+def _lod_losses_agree(what, card, cpu):
+    import numpy as np
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    worst = float(np.max(np.abs(card - cpu)))
+    ok = np.allclose(card, cpu, rtol=LOD_TOL[0], atol=LOD_TOL[1])
+    _log(f"{LOD_TAG} {what}: {len(card)} losses on the card vs the CPU "
+         f"port, max|d| {worst:.3e} (rtol {LOD_TOL[0]:g}, atol "
+         f"{LOD_TOL[1]:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{LOD_TAG} {what}: card vs CPU losses")
+
+
+def _lod_sentiment(book):
+    """(a) The book's sentiment conv net on ragged batches. → a dict of
+    its readings."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import book_extra
+    with fluid.unique_name.guard():
+        main, startup, _, loss, acc = book_extra.build_sentiment_program(
+            LOD_VOCAB, lr=LOD_LR)
+    startup.random_seed = main.random_seed = SEED
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe, scope = _fresh(main, startup)
+    iexe = fluid.Executor(fluid.CUDAPlace(0))
+    iscope = _clone_scope(scope, names, LOD_DEVICE)
+    cpu, cscope = fluid.Executor(fluid.CPUPlace()), _clone_scope(
+        scope, names, "cpu")
+    rng = np.random.RandomState(SEED + 18)
+    ragged = [_sentiment_batch(rng) for _ in range(LOD_STEPS)]
+    fixed = _sentiment_batch(rng)
+    fetch = [loss, acc]
+    card, host, kinds = [], [], []
+
+    def cpu_step(feed):
+        host.append(float(cpu.run(main, feed=feed, fetch_list=[loss],
+                                  scope=cscope)[0].reshape(-1)[0]))
+
+    for i in range(LOD_LOCK):
+        feed = _lod_feed(ragged[i])
+        out, *_ = _lock_step((exe, scope), (iexe, iscope), main, feed, fetch,
+                             NO_KERNELS, book, f"(a) ragged step {i}",
+                             LOD_TAG)
+        card.append(float(out[0].reshape(-1)[0]))
+        cpu_step(feed)
+    for i in range(LOD_FIXED_RUNS):
+        feed = _lod_feed(fixed)
+        out, _, kind, _, _ = _lock_step(
+            (exe, scope), (iexe, iscope), main, feed, fetch, NO_KERNELS,
+            book, f"(a) fixed-LoD run {i}", LOD_TAG)
+        kinds.append(kind)
+        card.append(float(out[0].reshape(-1)[0]))
+        cpu_step(feed)
+    if tuple(kinds) != LOD_FIXED_EXECS:
+        raise AssertionError(f"{LOD_TAG} (a) fixed-LoD runs: {kinds}")
+    iexe.close()
+    fixed_cb = exe._last_block
+    torch.cuda.synchronize()
+    mem = [torch.cuda.memory_allocated()]
+    times = []
+    for i in range(LOD_LOCK, LOD_STEPS):
+        feed = _lod_feed(ragged[i])
+        before = _launch_counts()
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        times.append(time.perf_counter() - t)
+        if _gate_run(exe, _delta(before), NO_KERNELS,
+                     f"{LOD_TAG} (a) ragged step {i}") != "eager":
+            raise AssertionError(f"{LOD_TAG} (a) a new LoD did not run "
+                                 "eagerly")
+        book.add(NO_KERNELS)
+        card.append(float(out[0].reshape(-1)[0]))
+        cpu_step(feed)
+        if i == LOD_LOCK + 9:
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+    torch.cuda.synchronize()
+    mem.append(torch.cuda.memory_allocated())
+    _lod_losses_agree("(a) sentiment", card, host)
+    ragged_losses = card[:LOD_LOCK] + card[LOD_LOCK + LOD_FIXED_RUNS:]
+    first, last = np.mean(ragged_losses[:10]), np.mean(ragged_losses[-10:])
+    if not last < first:
+        raise AssertionError(f"{LOD_TAG} (a) the loss did not fall: "
+                             f"{first:.4f} -> {last:.4f}")
+    lod_keys = [k for k in exe._compiled_cache if k[-1]]
+    eager = [exe._compiled_cache[k] for k in lod_keys
+             if not exe._compiled_cache[k].stats["captures"]]
+    consts = [t for st in eager[-1]._units for t in
+              (st.attrs.get("_lodc") or {}).values()]
+    const_bytes = sum(t.numel() * t.element_size() for t in consts)
+    # a plan kept for every batch would add its constants every step:
+    # the last steps may add no more than the kept plans hold
+    if mem[2] - mem[1] > (fluid.Executor._LOD_PLANS_KEPT + 1) * const_bytes:
+        raise AssertionError(f"{LOD_TAG} (a) device memory grew "
+                             f"{mem[2] - mem[1]} B over the last "
+                             f"{LOD_STEPS - LOD_LOCK - 10} ragged steps "
+                             f"(a plan's LoD constants: {const_bytes} B)")
+    # the captured plan's replays, timed
+    feed = _lod_feed(fixed)
+    rtimes = []
+    for _ in range(LOD_TIMED):
+        before = _launch_counts()
+        t = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        rtimes.append(time.perf_counter() - t)
+        if _gate_run(exe, _delta(before), NO_KERNELS,
+                     f"{LOD_TAG} (a) timed replay") != LOD_FIXED_EXECS[-1]:
+            raise AssertionError(f"{LOD_TAG} (a) the fixed LoD's plan did "
+                                 "not replay")
+        book.add(NO_KERNELS)
+    new_p50 = float(np.median(times)) * 1e3
+    rep_p50 = float(np.median(rtimes)) * 1e3
+    _log(f"{LOD_TAG} (a) sentiment conv net (vocab {LOD_VOCAB}, emb 32, hid "
+         f"32, batch {LOD_BATCH}, Adagrad {LOD_LR:g}): {LOD_STEPS} ragged "
+         f"steps, loss {first:.4f} -> {last:.4f} (mean of the first and "
+         f"last 10), the first {LOD_LOCK} and {LOD_FIXED_RUNS} runs of one "
+         f"fixed-LoD batch ({' '.join(kinds)}) bitwise the interpreter's; "
+         f"step p50 {new_p50:.3f} ms with a new LoD (eager), "
+         f"{rep_p50:.3f} ms replayed ({fixed_cb.stats['replays']} "
+         f"replays); {len(lod_keys)} LoD plans cached "
+         f"({len(eager)} never captured, kept "
+         f"{fluid.Executor._LOD_PLANS_KEPT}), one holds {len(consts)} LoD "
+         f"constants, {const_bytes} B on the card; device memory "
+         f"{mem[0]} B before the {LOD_STEPS - LOD_LOCK} ragged steps, "
+         f"{mem[1]} after 10, {mem[2]} after all "
+         f"({mem[2] - mem[0]:+d} B) -> ok")
+    exe.close()
+    return {"new_lod_p50_ms": new_p50, "replay_p50_ms": rep_p50,
+            "plans": len(lod_keys), "mem": mem, "const_bytes": const_bytes}
+
+
+def _write_ctr_files(batches, root, n_files):
+    """``batches`` (ctr_reader feeds) as slot files in the data feed's
+    grammar: label, the 13 dense features, one id a slot; the batches
+    dealt to ``n_files`` files in turn."""
+    paths = [os.path.join(root, f"part-{k}.txt") for k in range(n_files)]
+    outs = [open(p, "w") for p in paths]
+    try:
+        slots = sorted((k for k in batches[0] if k.startswith("slot_")),
+                       key=lambda k: int(k[5:]))
+        for j, b in enumerate(batches):
+            f = outs[j % n_files]
+            cols = [b[k][:, 0] for k in slots]
+            for i in range(len(b["label"])):
+                f.write(" ".join(
+                    ["1", str(int(b["label"][i, 0])),
+                     str(b["dense"].shape[1])]
+                    + [repr(float(v)) for v in b["dense"][i]]
+                    + [f"1 {int(c[i])}" for c in cols]) + "\n")
+    finally:
+        for f in outs:
+            f.close()
+    return paths
+
+
+def _lod_wide_deep(book):
+    """(b) Wide&Deep at the lane's widths from slot files through
+    train_from_dataset, against the same batches fed dense."""
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, loss, auc = _wd_program(WD_SPARSE_DIM)
+    block = main.global_block()
+    slots = sorted((v.name for v in block.vars.values()
+                    if v.name.startswith("slot_")), key=lambda n: int(n[5:]))
+    use = [block.var(n) for n in ["label", "dense"] + slots]
+    root = tempfile.mkdtemp(prefix="lod_wd_")
+    try:
+        files = _write_ctr_files(_wd_batches(LOD_WD_BATCHES, WD_SPARSE_DIM),
+                                 root, LOD_WD_FILES)
+        t = time.perf_counter()
+        ds = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+        ds.set_batch_size(WD_BATCH)
+        ds.set_thread(LOD_WD_THREADS)
+        ds.set_filelist(files)
+        ds.set_use_var(use)
+        ds.load_into_memory()
+        ds.local_shuffle(SEED)
+        parse_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want_lod = [list(range(WD_BATCH + 1))]
+    dense = []
+    for f in ds._iter_batches():
+        bad = [n for n in f if n != "dense" and f[n].lod() != want_lod]
+        if bad or f["dense"].lod():
+            raise AssertionError(f"{LOD_TAG} (b) LoDs of {bad[:3]}")
+        dense.append({n: t.array.numpy() for n, t in f.items()})
+    if len(dense) != LOD_WD_BATCHES:
+        raise AssertionError(f"{LOD_TAG} (b) {len(dense)} batches")
+
+    def gate(exe, what):
+        cb = exe._last_block
+        graph = tuple(cb.graph_launches.get(k, 0) for k in KERNELS)
+        if exe._last_run_mode != "segmented" or graph != NO_KERNELS:
+            raise AssertionError(f"{LOD_TAG} (b) {what}: ran "
+                                 f"{exe._last_run_mode}, graphs {graph}")
+        return cb
+
+    # the oracle: the same batches fed dense through Executor.run, two
+    # passes (the first warms up and captures; the second, all replays,
+    # is timed)
+    exe, scope = _fresh(main, startup)
+    want_lines, dense_s = [], []
+    for _ in range(2):
+        before = _launch_counts()
+        t = time.perf_counter()
+        for i, f in enumerate(dense):
+            lv, av = exe.run(main, feed=f, fetch_list=[loss, auc],
+                             scope=scope)
+            want_lines.append(f"[train_from_dataset] step {i}: "
+                              f"loss={lv.reshape(-1)[-1]:.6f}, "
+                              f"auc={av.reshape(-1)[-1]:.6f}")
+        dense_s.append(time.perf_counter() - t)
+        book.add(_delta(before))
+    cb = gate(exe, "dense feeds")
+    want_exec = cb.last_exec
+    want_state = _persistables(scope, main)
+    _drop(exe)
+    del scope
+    runs = {}
+    for window in (1, LOD_WD_WINDOW):
+        exe, scope = _fresh(main, startup)
+        out = io.StringIO()
+        secs = []
+        for _ in range(2):
+            before = _launch_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                exe.train_from_dataset(main, ds, scope=scope,
+                                       fetch_list=[loss, auc],
+                                       fetch_info=["loss", "auc"],
+                                       print_period=1, window_size=window)
+            secs.append(time.perf_counter() - t)
+            book.add(_delta(before))
+        cb = gate(exe, f"train_from_dataset(window_size={window})")
+        lines = out.getvalue().splitlines()
+        if lines != want_lines or cb.last_exec != want_exec:
+            raise AssertionError(
+                f"{LOD_TAG} (b) window_size={window}: printed {lines[:2]} "
+                f"({cb.last_exec}), want {want_lines[:2]} ({want_exec})")
+        _same_state(f"(b) train_from_dataset(window_size={window}) vs dense "
+                    "Executor.run", _persistables(scope, main), want_state,
+                    tag=LOD_TAG)
+        runs[window] = (secs, dict(cb.stats))
+        _drop(exe)
+        del scope
+    n = LOD_WD_BATCHES * WD_BATCH
+    sps, dense_sps = n / runs[1][0][1], n / dense_s[1]
+    _log(f"{LOD_TAG} (b) Wide&Deep ({WD_SPARSE_DIM} ids a slot, batch "
+         f"{WD_BATCH}): {LOD_WD_BATCHES} batches from {LOD_WD_FILES} slot "
+         f"files, parsed and shuffled on {LOD_WD_THREADS} threads in "
+         f"{parse_s:.3f} s; every slot and the label LoD [0..{WD_BATCH}]; "
+         f"two passes of train_from_dataset (segmented, "
+         f"{runs[1][1]['captures']} captures, {runs[1][1]['replays']} "
+         f"replays) and of window_size={LOD_WD_WINDOW} printed the dense "
+         f"loop's {len(want_lines)} lines and left its persistables "
+         f"bitwise; the second pass (all replays) {sps:.1f} samples/s from "
+         f"the dataset vs {dense_sps:.1f} from the Executor.run loop (the "
+         f"first {n / runs[1][0][0]:.1f} vs {n / dense_s[0]:.1f}) -> ok")
+    return {"parse_s": parse_s, "samples_s": sps, "dense_samples_s": dense_sps}
+
+
+def _lod_op_cases():
+    """(op, inputs, attrs, LoDs, grad) of the small cases phase 18 (c)
+    runs on the card and the CPU: each sequence op, sequence_mask and
+    cos_sim, over a LoD with an empty sequence."""
+    import numpy as np
+    r = np.random.RandomState(SEED)
+    lod = ((0, 3, 3, 7, 8),)
+
+    def x(*shape):
+        return r.normal(size=shape).astype(np.float32)
+    ids = r.randint(1, 9, (8, 1)).astype(np.int64)
+    cases = [("sequence_pool", {"X": [x(8, 3)]},
+              {"pooltype": p, "pad_value": 0.5}, {"X": [lod]}, True)
+             for p in ("SUM", "AVERAGE", "SQRT", "MAX", "FIRST", "LAST")]
+    cases += [
+        ("sequence_softmax", {"X": [x(8, 1)]}, {}, {"X": [lod]}, True),
+        ("sequence_expand", {"X": [x(4, 2)], "Y": [x(8, 1)]},
+         {"ref_level": -1}, {"X": [None], "Y": [lod]}, True),
+        ("sequence_expand_as", {"X": [x(4, 2)], "Y": [x(8, 1)]}, {},
+         {"X": [None], "Y": [lod]}, True),
+        ("sequence_concat", {"X": [x(8, 2), x(5, 2)]}, {},
+         {"X": [lod, ((0, 0, 2, 4, 5),)]}, True),
+        ("sequence_conv", {"X": [x(8, 3)], "Filter": [x(9, 4)]},
+         {"contextLength": 3, "contextStart": -1}, {"X": [lod]}, True),
+        ("sequence_pad", {"X": [x(8, 3)],
+                          "PadValue": [np.array([0.25], np.float32)]},
+         {"padded_length": 6}, {"X": [lod], "PadValue": [None]}, True),
+        ("sequence_unpad", {"X": [x(4, 5, 3)],
+                            "Length": [np.array([2, 0, 5, 1], np.int64)]},
+         {}, {"X": [None], "Length": [None]}, True),
+        ("sequence_reshape", {"X": [x(8, 4)]}, {"new_dim": 2},
+         {"X": [lod]}, True),
+        ("sequence_reverse", {"X": [x(8, 3)]}, {}, {"X": [lod]}, True),
+        ("sequence_slice", {"X": [x(8, 3)],
+                            "Offset": [np.array([[1], [0], [0], [0]])],
+                            "Length": [np.array([[2], [0], [3], [1]])]},
+         {}, {"X": [lod], "Offset": [None], "Length": [None]}, True),
+        ("sequence_scatter", {"X": [x(4, 6)], "Ids": [np.array(
+            [[1], [4], [0], [0], [5], [2]], np.int64)],
+            "Updates": [x(6, 1)]}, {},
+         {"X": [None], "Ids": [((0, 2, 2, 5, 6),)], "Updates": [None]},
+         True),
+        ("sequence_enumerate", {"X": [ids]}, {"win_size": 3},
+         {"X": [lod]}, False),
+        ("sequence_erase", {"X": [ids]}, {"tokens": [2, 5]}, {"X": [lod]},
+         False),
+        ("lod_reset", {"X": [x(8, 2)]}, {"target_lod": [0, 4, 8]},
+         {"X": [lod]}, True),
+        ("lod_append", {"X": [x(8, 2)]}, {"level": [0, 2, 3, 5, 8]},
+         {"X": [((0, 1, 4),)]}, True),
+        ("im2sequence", {"X": [x(2, 3, 5, 5)]},
+         {"kernels": [2, 2], "strides": [1, 2], "paddings": [1, 0, 0, 1]},
+         {"X": [None]}, True),
+        ("sequence_mask", {"X": [np.array([3, 0, 5], np.int64)]},
+         {"maxlen": 6}, {"X": [None]}, False),
+        ("cos_sim", {"X": [x(4, 5)], "Y": [x(4, 5)]}, {},
+         {"X": [None], "Y": [None]}, True),
+    ]
+    return cases
+
+
+def _lod_op_on(device, op, ins, attrs, lods, grad):
+    """The op's kernel (and its generic grad under seeded output grads) on
+    ``device`` → {slot: tensor on the host}, the declared LoD."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.registry import OPS, run_generic_grad
+    info = OPS.get(op)
+    a = dict(info.attr_defaults, **attrs, _lod=lods)
+    t_ins = {s: [torch.from_numpy(np.asarray(v)).to(device) for v in vs]
+             for s, vs in ins.items()}
+    outs = info.kernel(t_ins, a)
+    lod = outs.pop("_lod", None)
+    got = {s: v[0].detach().cpu() for s, v in outs.items()}
+    if grad:
+        r = np.random.RandomState(SEED + 7)
+        for s, v in list(outs.items()):
+            if v[0].is_floating_point():
+                t_ins[s + "@GRAD"] = [torch.from_numpy(r.normal(
+                    size=tuple(v[0].shape)).astype(np.float32)).to(device)]
+        slots = list(ins)
+        g = run_generic_grad(op, t_ins, a, [s + "@GRAD" for s in slots],
+                             slots)
+        for s, vs in g.items():
+            for j, v in enumerate(vs):
+                if v is not None:
+                    got[f"{s}[{j}]"] = v.detach().cpu()
+    return got, lod
+
+
+def _lod_ops(book):
+    """(c) Each sequence op, sequence_mask and cos_sim, forward and grad,
+    card against CPU port; then the recommender, card against CPU port."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import book_extra
+    before = _launch_counts()
+    worst, n = 0.0, 0
+    cases = _lod_op_cases()
+    for op, ins, attrs, lods, grad in cases:
+        card, clod = _lod_op_on(LOD_DEVICE, op, ins, attrs, lods, grad)
+        host, hlod = _lod_op_on("cpu", op, ins, attrs, lods, grad)
+        if clod != hlod or sorted(card) != sorted(host):
+            raise AssertionError(f"{LOD_TAG} (c) {op}: LoD {clod} vs {hlod}"
+                                 f", outputs {sorted(card)} vs "
+                                 f"{sorted(host)}")
+        for k in host:
+            c, h = card[k], host[k]
+            if h.is_floating_point():
+                ok = torch.allclose(c, h, rtol=SMALL_TOL[0],
+                                    atol=SMALL_TOL[1])
+                if h.numel():
+                    worst = max(worst, float((c - h).abs().max()))
+            else:
+                ok = torch.equal(c, h)
+            if not ok:
+                raise AssertionError(f"{LOD_TAG} (c) {op} {k}: card vs CPU")
+            n += 1
+    if _delta(before) != NO_KERNELS:
+        raise AssertionError(f"{LOD_TAG} (c) the ops launched kernels")
+    with fluid.unique_name.guard():
+        main, startup, feeds, loss = book_extra.build_recommender_program(
+            50, 40)
+    startup.random_seed = main.random_seed = SEED
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe, scope = _fresh(main, startup)
+    cpu, cscope = fluid.Executor(fluid.CPUPlace()), _clone_scope(
+        scope, names, "cpu")
+    r = np.random.RandomState(SEED + 3)
+    card, host = [], []
+    for _ in range(LOD_REC_STEPS):
+        def ids(hi):
+            return r.randint(0, hi, (LOD_BATCH, 1)).astype(np.int64)
+
+        def ragged(hi, lo_len, hi_len):
+            lens = r.randint(lo_len, hi_len, LOD_BATCH)
+            offs = [int(o) for o in np.concatenate([[0], np.cumsum(lens)])]
+            return fluid.LoDTensor(torch.from_numpy(r.randint(
+                0, hi, (offs[-1], 1)).astype(np.int64)), [offs])
+        feed = {"user_id": ids(51), "gender_id": ids(2), "age_id": ids(7),
+                "job_id": ids(21), "movie_id": ids(41),
+                "category_id": ragged(18, 1, 4),
+                "movie_title": ragged(1000, 0, 6),
+                "score": r.uniform(1, 5, (LOD_BATCH, 1)).astype(np.float32)}
+        before = _launch_counts()
+        card.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0].reshape(-1)[0]))
+        _gate_run(exe, _delta(before), NO_KERNELS, f"{LOD_TAG} (c) "
+                  "recommender step")
+        book.add(NO_KERNELS)
+        host.append(float(cpu.run(main, feed=feed, fetch_list=[loss],
+                                  scope=cscope)[0].reshape(-1)[0]))
+    _lod_losses_agree("(c) recommender", card, host)
+    _log(f"{LOD_TAG} (c) {len(cases)} cases of the sequence ops, "
+         f"sequence_mask and cos_sim, {n} outputs and grads on the card vs "
+         f"the CPU port, max|d| {worst:.2e} (rtol {SMALL_TOL[0]:g}, atol "
+         f"{SMALL_TOL[1]:g}); {LOD_REC_STEPS} recommender steps -> ok")
+    exe.close()
+
+
+def phase_lod():
+    """Phase 18: LoD sequences and the Dataset path (the docstring's phase
+    18). → the launches of its runs: through the wrappers and on the
+    card, both held to zero."""
+    book = _CfBook()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    a = _lod_sentiment(book)
+    b = _lod_wide_deep(book)
+    _lod_ops(book)
+    wrapper = _launch_counts()
+    if wrapper != NO_KERNELS or tuple(book.executed) != NO_KERNELS:
+        raise AssertionError(f"{LOD_TAG} phase 18 launched {wrapper} through "
+                             f"the wrappers, {tuple(book.executed)} on the "
+                             "card; want none")
+    _log(f"{LOD_TAG} phase 18 in {time.perf_counter() - t0:.1f} s: (a) "
+         f"new-LoD step p50 {a['new_lod_p50_ms']:.3f} ms, replayed "
+         f"{a['replay_p50_ms']:.3f} ms; (b) {b['samples_s']:.1f} samples/s "
+         f"from the dataset vs {b['dense_samples_s']:.1f} dense, parse "
+         f"{b['parse_s']:.3f} s; launches through the wrappers {GATE_NAMES} "
+         f"{wrapper}, on the card {tuple(book.executed)}")
+    return {"wrapper": wrapper, "executed": tuple(book.executed)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -6639,6 +7191,7 @@ def main(argv=None) -> int:
     paths["resume"] = phase_resume()
     paths["control_flow"] = phase_control_flow(paths["train"]["p50_ms"])
     paths["optimizers"] = phase_optimizers(paths["train"]["p50_ms"])
+    paths["lod"] = phase_lod()
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded

@@ -5,8 +5,9 @@ and the LR schedules, append_backward and gradients, every optimizer but
 PipelineOptimizer, the gradient clips, L1Decay and L2Decay,
 contrib.mixed_precision, the Executor, the program
 proto with clone and _prune, io (save and load, and the checkpoint
-plane), the pass system of ir, the verifier of analysis, and the reader's
-DataLoader, PyReader and DataFeeder)."""
+plane), the pass system of ir, the verifier of analysis, the reader's
+DataLoader, PyReader and DataFeeder, nets, and the Dataset API over the
+native data feed)."""
 from . import core
 from .core import (CPUPlace, CUDAPlace, TPUPlace, LoDTensor, Scope,
                    global_scope)
@@ -27,7 +28,7 @@ from . import backward
 from .backward import append_backward, gradients
 from . import optimizer
 from . import executor
-from .executor import Executor, scope_guard
+from .executor import Executor, FetchHandler, scope_guard
 from . import param_bridge
 from . import contrib
 from . import analysis
@@ -40,6 +41,9 @@ from .io import (save_vars, save_params, save_persistables, load_vars,
 from .data_feeder import DataFeeder
 from . import reader
 from .reader import DataLoader, PyReader
+from . import nets
+from . import dataset
+from .dataset import DatasetFactory, InMemoryDataset
 
 __all__ = [
     "core", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor", "Scope",
@@ -54,4 +58,5 @@ __all__ = [
     "save_inference_model", "load_inference_model", "save", "load",
     "save_checkpoint", "load_checkpoint", "latest_checkpoint",
     "validate_checkpoint", "DataFeeder", "reader", "DataLoader", "PyReader",
+    "FetchHandler", "nets", "dataset", "DatasetFactory", "InMemoryDataset",
 ]

@@ -237,25 +237,47 @@ def _to_device_tensor(data, place: Place) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(data))).to(dev)
 
 
+class LoDKey(tuple):
+    """A LoD as a tuple of offset tuples whose hash is computed once: the
+    executor's plan keys hold a batch's LoDs, which can run to thousands
+    of offsets, and are looked up several times a step."""
+
+    def __hash__(self):
+        h = self.__dict__.get("_h")
+        if h is None:
+            h = self.__dict__["_h"] = tuple.__hash__(self)
+        return h
+
+
 class LoDTensor:
     """Dense tensor + level-of-detail offsets (reference
     framework/lod_tensor.h:104). The buffer is a torch.Tensor on the
-    tensor's place; LoD is host-side metadata."""
+    tensor's place; LoD is host-side metadata. ``lod_key()`` is the LoD
+    as a ``LoDKey`` of int tuples (None for none), made once: what the
+    executor keys its plans by."""
 
-    __slots__ = ("_array", "_lod")
+    __slots__ = ("_array", "_lod", "_key")
 
     def __init__(self, array=None, lod: Optional[List[List[int]]] = None):
         self._array = array
         self._lod = [list(l) for l in lod] if lod else []
+        # a LoD given as tuples is its own key
+        self._key = LoDKey(lod) if lod and isinstance(lod, tuple) else None
 
     def set(self, np_array, place: Optional[Place] = None):
         self._array = _to_device_tensor(np_array, place or CPUPlace())
 
     def set_lod(self, lod):
         self._lod = [list(l) for l in lod]
+        self._key = lod if isinstance(lod, LoDKey) and lod else None
 
     def lod(self):
         return [list(l) for l in self._lod]
+
+    def lod_key(self) -> Optional[tuple]:
+        if self._key is None and self._lod:
+            self._key = LoDKey(tuple(map(int, l)) for l in self._lod)
+        return self._key
 
     def set_recursive_sequence_lengths(self, seq_lens):
         """LoD from lengths: [[2, 3]] -> offsets [[0, 2, 5]]."""
@@ -266,6 +288,7 @@ class LoDTensor:
                 offs.append(offs[-1] + int(ln))
             lod.append(offs)
         self._lod = lod
+        self._key = None
 
     def recursive_sequence_lengths(self):
         return [[offs[i + 1] - offs[i] for i in range(len(offs) - 1)]

@@ -31,12 +31,38 @@ Two paths, chosen by ``FLAGS_executor_mode`` as in the TPU package:
     later segments or islands read stay alive as the graph's outputs;
     an island's outputs and the feeds are copied into the static input
     buffers of the segments that read them. A block with fewer than
-    ``FLAGS_executor_seg_min_ops`` compilable ops, or fed LoD (segments
-    take dense feeds), runs interpreted, as such a block did before
-    segments; any other failure to plan, capture or replay raises.
+    ``FLAGS_executor_seg_min_ops`` compilable ops runs interpreted, as
+    such a block did before segments; any other failure to plan, capture
+    or replay raises.
   * interpreted: the oracle (the TPU package's ``_run_interpreted_step``):
     the ops of the global block run in order over the scope, one kernel
     call each; every intermediate and grad stays in the scope.
+
+LoD (the TPU package's executor.py:282-335): a LoDTensor's offsets are
+host-side metadata. The interpreter hands the ops that declare
+``needs_lod`` their inputs' LoD (``attrs["_lod"]``; a grad op through its
+forward op) and writes each output with the LoD its kernel declares, or
+else the first LoD-bearing input's when the output's leading length
+equals that LoD's total (the reference's ShareLoD). A compiled or
+segmented plan's key holds its feeds' LoDs, and its first run, which is
+eager, finds every LoD of the plan and binds it, with a cache of the
+device constants the kernels derive from it, into the ops' attrs: the
+capture and the replays do no LoD work and copy nothing from the host. A
+segmented block's compiled segment keys its plans by the LoD of its
+inputs; an island takes LoDTensors with their LoD and what it writes
+carries its LoD on. A fetch returns its LoD (``return_numpy=False``). A
+ragged epoch gives a new key nearly every batch, whose run is eager; the
+newest ``Executor._LOD_PLANS_KEPT`` such plans that never captured stay
+cached, the older ones are dropped, so neither the cache nor the card's
+memory grows with each batch, and a LoD that comes back captures on its
+second run.
+
+The Dataset path (the TPU package's executor.py:2315-2445):
+``train_from_dataset`` and ``infer_from_dataset`` run a block once per
+batch of a ``fluid.dataset`` Dataset (the native data feed parses the
+slot files on the host), windows of dense batches as one run of
+``n_steps``, with ``print_period``, a ``FetchHandler`` and the checkpoint
+plane.
 
 Control flow (the TPU package's executor.py:258-278, :730-826): a
 ``conditional_block`` whose sub-block is compilable runs inside the
@@ -143,7 +169,8 @@ from ..ops.registry import (GRAD_SUFFIX, OPS, resolve_base_info,
                             run_generic_grad)
 from ..ops.tensor_ops import assign_value_tensor
 
-__all__ = ["Executor", "HealthMonitor", "global_scope", "scope_guard"]
+__all__ = ["Executor", "FetchHandler", "HealthMonitor", "global_scope",
+           "scope_guard"]
 
 _RNG_COUNTER = "@RNG_COUNTER@"
 _EMPTY = "@EMPTY@"  # append_backward's name for "no var in this slot"
@@ -159,6 +186,70 @@ def scope_guard(scope: Scope):
         yield
     finally:
         core._switch_scope(old)
+
+
+class FetchHandler:
+    """Periodic fetches while ``train_from_dataset`` runs (reference:
+    executor.py FetchHandler and the trainer's FetchHandlerMonitor
+    thread): ``handler`` gets {name: numpy array or None} snapshots of
+    ``var_dict``'s vars in the scope every ``period_secs``; override it."""
+
+    def __init__(self, var_dict=None, period_secs=60):
+        if var_dict is None or not isinstance(var_dict, dict):
+            raise TypeError("var_dict must be a {name: Variable} dict")
+        self.var_dict = var_dict
+        self.period_secs = period_secs
+
+    def handler(self, res_dict):
+        for key in res_dict:
+            if isinstance(res_dict[key], np.ndarray):
+                print(f"{key}[0]: {res_dict[key][0]} ")
+
+    @staticmethod
+    def help():
+        print("""
+class FetchHandlerExample(FetchHandler):
+    def handler(self, res_dict):
+        print(res_dict["var1"])  # numpy snapshot (None if not yet set)
+handler = FetchHandlerExample(var_dict={"var1": var1}, period_secs=60)
+""")
+
+
+class _FetchHandlerMonitor:
+    """A daemon thread sampling the scope's vars for a FetchHandler
+    (reference: trainer_factory.py FetchHandlerMonitor). A sample copies
+    each var to the host as the scope holds it at that moment, without
+    waiting for the step in flight: monitoring, not a checkpoint."""
+
+    def __init__(self, scope: Scope, handler: FetchHandler):
+        import threading
+        self._scope = scope
+        self._handler = handler
+        self._stop_evt = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _sample(self):
+        res = {}
+        for name, var in self._handler.var_dict.items():
+            v = self._scope.find_var(getattr(var, "name", var))
+            val = v.value() if v is not None and v.is_initialized() \
+                else None
+            res[name] = val.numpy() if isinstance(val, LoDTensor) else None
+        return res
+
+    def _loop(self):
+        while not self._stop_evt.wait(self._handler.period_secs):
+            self._handler.handler(self._sample())
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        # the loop ends and is joined before the final sample, so the
+        # handler is never called from two threads at once
+        self._stop_evt.set()
+        self._thread.join()
+        self._handler.handler(self._sample())
 
 
 def _to_fetch_names(fetch_list) -> List[str]:
@@ -246,6 +337,82 @@ def _scope_tensor(scope: Scope, name: str) -> Optional[torch.Tensor]:
             or not isinstance(v.value(), LoDTensor):
         return None
     return v.value().array
+
+
+# --------------------------------------------------------------------------
+# LoD (the TPU package's executor.py:282-335): variable-length sequence
+# offsets ride next to the tensors as host-side nested tuples. A compiled
+# plan's key holds its feeds' LoDs, so within a plan every LoD is fixed:
+# its first run finds them (``_Lods``), binds them into the attrs of the
+# ops that read them, and the later runs, the capture and the replays
+# compute no LoD at all (reference: framework/lod_tensor.h:104,
+# operator.cc:967, which re-infer LoD every step).
+# --------------------------------------------------------------------------
+def _normalize_lod(lod):
+    if not lod:
+        return None
+    return core.LoDKey(tuple(map(int, lvl)) for lvl in lod)
+
+
+def _op_needs_lod(op) -> bool:
+    if OPS.has(op.type):
+        return OPS.get(op.type).needs_lod
+    if op.type.endswith("_grad") and OPS.has(op.type[:-5]):
+        return OPS.get(op.type[:-5]).needs_lod
+    return False
+
+
+def _collect_in_lods(op, lookup):
+    return {slot: [lookup(n) for n in names]
+            for slot, names in op.inputs.items()}
+
+
+def _propagate_lods(op, outs, in_lods, set_lod, get_len):
+    """Apply kernel-declared output LoDs; else share the first lod-bearing
+    input's LoD with outputs of matching leading length (reference ShareLoD
+    default)."""
+    explicit = None
+    if isinstance(outs, dict):
+        explicit = outs.pop("_lod", None)
+    if explicit:
+        for slot, levels_list in explicit.items():
+            names = op.outputs.get(slot) or []
+            for n, lv in zip(names, levels_list):
+                set_lod(n, _normalize_lod(lv))
+        return
+    src = None
+    for slot, lods in in_lods.items():
+        for lv in lods:
+            if lv:
+                src = lv
+                break
+        if src:
+            break
+    if not src:
+        return
+    total = src[-1][-1]
+    for slot, names in op.outputs.items():
+        for n in names:
+            if get_len(n) == total:
+                set_lod(n, src)
+
+
+def _tensor_lod(val) -> Optional[tuple]:
+    """The normalized LoD of a scope value (None for no LoD)."""
+    return val.lod_key() if isinstance(val, LoDTensor) else None
+
+
+class _Lods:
+    """The LoD of a plan's names (name → levels or None): seeded from its
+    feeds and state, grown by its first run, in which each bound op finds
+    its inputs' LoDs here and records its outputs' (``_Step.run``); fixed
+    (``frozen``) after that run."""
+
+    __slots__ = ("env", "frozen")
+
+    def __init__(self, init):
+        self.env: Dict[str, Optional[tuple]] = dict(init)
+        self.frozen = False
 
 
 # --------------------------------------------------------------------------
@@ -585,12 +752,13 @@ class _Step:
     reads and writes, and the names to drop from the env after it."""
 
     __slots__ = ("kernel", "grad_of", "attrs", "ins", "outs", "frees",
-                 "wanted", "fwd_in", "reads", "writes")
+                 "wanted", "fwd_in", "reads", "writes", "op", "lods",
+                 "base_attrs")
 
-    def __init__(self, op, info, grad_of, attrs):
+    def __init__(self, op, info, grad_of, attrs, lods=None):
         self.kernel = info.kernel
         self.grad_of = grad_of
-        self.attrs = attrs
+        self.attrs = self.base_attrs = attrs
         self.ins = tuple((s, tuple(n)) for s, n in op.inputs.items())
         self.outs = tuple((s, tuple(n)) for s, n in op.outputs.items())
         self.frees = ()
@@ -598,8 +766,19 @@ class _Step:
         self.fwd_in = attrs.get("_fwd_in", list(op.inputs))
         self.reads = tuple(op.input_arg_names)
         self.writes = tuple(op.output_arg_names)
+        self.op = op
+        self.lods = lods  # the plan's _Lods; None in a loop body
 
     def run(self, env: Dict[str, torch.Tensor]):
+        lods = self.lods
+        tracing = lods is not None and not lods.frozen
+        if tracing:
+            in_lods = _collect_in_lods(self.op, lods.env.get)
+            if _op_needs_lod(self.op):
+                # bound for the plan's life: the LoD, and a cache for the
+                # device constants the kernel derives from it, filled now,
+                # before any capture
+                self.attrs = dict(self.base_attrs, _lod=in_lods, _lodc={})
         ins = {s: [env.get(n) for n in names] for s, names in self.ins}
         if self.grad_of is None:
             outs = self.kernel(ins, self.attrs)
@@ -612,6 +791,10 @@ class _Step:
             for n, v in zip(names, outs.get(slot) or []):
                 if v is not None and n != _EMPTY:
                     env[n] = v
+        if tracing:
+            _propagate_lods(self.op, outs, in_lods, lods.env.__setitem__,
+                            lambda n: env[n].shape[0] if n in env
+                            and env[n].dim() else None)
 
 
 class _CondStep:
@@ -740,9 +923,10 @@ class _CompiledBlock:
     kind = "compiled"
 
     def __init__(self, program: Program, feed_names, fetch_names,
-                 scope: Scope, seed: int, device, stream=None, pool=None):
+                 scope: Scope, seed: int, device, stream=None, pool=None,
+                 feed_lods=None):
         self._init_common(program, feed_names, fetch_names, scope, seed,
-                          device, stream, pool)
+                          device, stream, pool, feed_lods)
         ropt = getattr(program, "_recompute_opt", None)
         if ropt:
             from .recompute_lowering import build_plan
@@ -754,10 +938,14 @@ class _CompiledBlock:
         self._static_health: Optional[torch.Tensor] = None
 
     def _init_common(self, program: Program, feed_names, fetch_names,
-                     scope: Scope, seed: int, device, stream, pool):
+                     scope: Scope, seed: int, device, stream, pool,
+                     feed_lods=None):
         """The setup a compiled and a segmented block share: the names,
         the ops, the state and the guard (classified before anything
-        runs), the step keys and the run records."""
+        runs), the LoDs it starts from (its feeds', and its state's as the
+        scope holds them: ``_init_lods``), the step keys and the run
+        records. ``fetch_lods`` and ``out_lods`` (the written-back
+        state's) are the plan's LoDs, known after its first run."""
         self._scope_ref = weakref.ref(scope)
         self.program = program
         self.feed_names = tuple(feed_names)
@@ -766,6 +954,14 @@ class _CompiledBlock:
         self.ops = list(program.global_block().ops)
         self._classify_state(program, scope)
         self._init_guard(program, scope)
+        self._init_lods: Dict[str, tuple] = dict(feed_lods or {})
+        for n in self.mut_state + self.ro_state:
+            lv = _tensor_lod(scope.find_var(n).value())
+            if lv:
+                self._init_lods.setdefault(n, lv)
+        self.fetch_lods: List[Optional[tuple]] = [
+            self._init_lods.get(n) for n in self.fetch_names]
+        self.out_lods: Dict[str, Optional[tuple]] = {}
         self._remat_plan = None
         self._keys = _StepKeys(seed, _rng_indices(self.ops), device)
         self.last_health: Optional[torch.Tensor] = None
@@ -802,9 +998,10 @@ class _CompiledBlock:
             n for n in written if n in persistable
             and n not in self.mut_state and n not in self.feed_names))
 
-    def _bind(self, op, idx: int, keys=None):
+    def _bind(self, op, idx: int, keys=None, lods=None):
         """Op ``idx`` of its block bound to its kernel, attrs and key
-        (``keys``: its block's, the global block's by default). A
+        (``keys``: its block's, the global block's by default) and to the
+        plan's ``lods`` (``_Lods``; a loop body's carry none). A
         conditional binds its sub-block's ops into a ``_CondStep``,
         ``select_input`` is a ``_SelectStep``, and ``assign_value`` gets
         its constant made now, on the device, for the op to copy."""
@@ -812,7 +1009,7 @@ class _CompiledBlock:
         if op.type == "conditional_block":
             sub = op.attrs["sub_block"]
             skeys = _SubKeys(keys, sub, self.device)
-            return _CondStep(op, [self._bind(sop, j, skeys)
+            return _CondStep(op, [self._bind(sop, j, skeys, lods)
                                   for j, sop in enumerate(sub.ops)], skeys)
         if op.type == "select_input":
             return _SelectStep(op)
@@ -821,7 +1018,7 @@ class _CompiledBlock:
         if op.type == "assign_value":
             attrs = dict(attrs, _const=assign_value_tensor(op.attrs,
                                                            self.device))
-        return _Step(op, info, grad_of, attrs)
+        return _Step(op, info, grad_of, attrs, lods)
 
     def _build_plan(self) -> list:
         """Each op bound, in execution order (the program's, or the remat
@@ -829,7 +1026,9 @@ class _CompiledBlock:
         back nor read by the guard's health leaves the env after the last
         unit that reads or writes it. Under remat a segment's interior
         lives only inside its forward and its span."""
-        steps = [self._bind(op, i) for i, op in enumerate(self.ops)]
+        self._lods = _Lods(self._init_lods)
+        steps = [self._bind(op, i, lods=self._lods)
+                 for i, op in enumerate(self.ops)]
         if self._remat_plan is not None:
             from .recompute_lowering import schedule
             units = schedule(self._remat_plan,
@@ -958,6 +1157,8 @@ class _CompiledBlock:
         finally:
             self._keys.end()
         counter.add_(1)
+        if not self._lods.frozen:
+            self._freeze_lods(self._lods)
         fetches = []
         for n in self.fetch_names:
             if n not in env:
@@ -968,6 +1169,34 @@ class _CompiledBlock:
         health = (self._guard_epilogue(state, new, fetches, env)
                   if self._guard_active else None)
         return fetches, new, health
+
+    def _freeze_lods(self, lods: _Lods):
+        """After the plan's first run: its fetches' and written-back
+        state's LoDs, and no LoD work in any later run."""
+        lods.frozen = True
+        self.fetch_lods = [lods.env.get(n) for n in self.fetch_names]
+        self.out_lods = {n: lods.env.get(n)
+                         for n in self.mut_state + self.extra_writeback}
+
+    def _wrap(self, name: str, t: torch.Tensor) -> LoDTensor:
+        """``t`` as the scope's value of ``name``, with the LoD the plan
+        gives it."""
+        return LoDTensor(t, self.out_lods[name] if name in self.out_lods
+                         else self._init_lods.get(name))
+
+    def _fetched(self, fetched, return_numpy):
+        """The fetches as numpy arrays, or as LoDTensors with their LoD."""
+        if return_numpy:
+            return [LoDTensor(t).numpy() for t in fetched]
+        return [LoDTensor(t, lv) for t, lv in zip(fetched, self.fetch_lods)]
+
+    def _check_no_lod_fetch(self):
+        """A window cannot stack a fetch with LoD (the TPU package's
+        executor.py:1081)."""
+        if any(lv is not None for lv in self.fetch_lods):
+            raise NotImplementedError(
+                "n_steps > 1 cannot stack LoD-carrying fetches — fetch "
+                "dense vars or run per-step (n_steps=1)")
 
     def _read_state(self, scope: Scope) -> Dict[str, torch.Tensor]:
         state = {}
@@ -1006,9 +1235,7 @@ class _CompiledBlock:
             for t in fetched + ([] if health is None else [health]):
                 t.record_stream(cur)
         self.last_health = health
-        if return_numpy:
-            return [LoDTensor(t).numpy() for t in fetched]
-        return [LoDTensor(t) for t in fetched]
+        return self._fetched(fetched, return_numpy)
 
     def run_window(self, scope: Scope, feeds: Dict[str, torch.Tensor],
                    window_names: Sequence[str], n_steps: int,
@@ -1024,6 +1251,7 @@ class _CompiledBlock:
         Returns the fetches stacked [n_steps, ...]; each step's health
         (each step selects against its own pre-step state, so a bad step
         is discarded alone) goes to ``last_health`` as [n_steps]."""
+        self._check_no_lod_fetch()
         feeds = {n: t.to(self.device) for n, t in feeds.items()}
         stacked: List[torch.Tensor] = []
         healths = (torch.empty(n_steps, dtype=torch.bool, device=self.device)
@@ -1035,6 +1263,7 @@ class _CompiledBlock:
             fetched, health = (self._run_eager(scope, f)
                                if self._stream is None
                                else self._run_on_stream(scope, f))
+            self._check_no_lod_fetch()  # the LoDs of a plan's first run
             if not stacked:
                 stacked.extend(torch.empty((n_steps,) + tuple(t.shape),
                                            dtype=t.dtype, device=t.device)
@@ -1072,11 +1301,11 @@ class _CompiledBlock:
     def _run_eager(self, scope, feeds):
         dev_feeds = {n: t.to(self.device) for n, t in feeds.items()}
         for n, t in dev_feeds.items():
-            scope.var(n).set_value(LoDTensor(t))
+            scope.var(n).set_value(self._wrap(n, t))
         fetches, new, health = self._step(dev_feeds, self._read_state(scope),
                                           _step_counter(scope, self.device))
         for n, v in new.items():
-            scope.var(n).set_value(LoDTensor(v))
+            scope.var(n).set_value(self._wrap(n, v))
         self.stats["eager"] += 1
         self.last_exec = "eager"
         return fetches, health
@@ -1105,7 +1334,7 @@ class _CompiledBlock:
             for n, t in feeds.items()}
         for n, buf in self._static_feeds.items():
             buf.copy_(feeds[n])
-            scope.var(n).set_value(LoDTensor(buf))
+            scope.var(n).set_value(self._wrap(n, buf))
         state = self._read_state(scope)
         counter = _step_counter(scope, self.device)
         targets = dict(state)
@@ -1156,10 +1385,10 @@ class _CompiledBlock:
                     or cur.device != t.device:
                 return False
             t.copy_(cur)
-            v.set_value(LoDTensor(t))
+            v.set_value(self._wrap(n, t))
         for n, t in self._extra_targets.items():
             if _scope_tensor(scope, n) is not t:
-                scope.var(n).set_value(LoDTensor(t))
+                scope.var(n).set_value(self._wrap(n, t))
         return True
 
     def _drop_graph(self):
@@ -1236,7 +1465,8 @@ class _SegmentedBlock(_CompiledBlock):
     kind = "segmented"
 
     def __init__(self, program: Program, feed_names, fetch_names,
-                 scope: Scope, seed: int, device, stream=None, pool=None):
+                 scope: Scope, seed: int, device, stream=None, pool=None,
+                 feed_lods=None):
         from .ir import analyze_block_segments
         self.segments = _split_loops(analyze_block_segments(
             program.global_block().ops))
@@ -1249,18 +1479,20 @@ class _SegmentedBlock(_CompiledBlock):
             raise _NotSegmentable(f"only {n_compiled} compilable ops (< "
                                   "FLAGS_executor_seg_min_ops)")
         self._init_common(program, feed_names, fetch_names, scope, seed,
-                          device, stream, pool)
+                          device, stream, pool, feed_lods)
         self.stats["islands"] = 0
         # compiled loops: iterations run, body replays and captures, and
         # the last run's iterations by segment start
         self.loop_stats = {"iterations": 0, "body_replays": 0,
                            "body_captures": 0}
+        self._fell_back = False
         self.last_iterations: Dict[int, int] = {}
         self._plan_segments()
-        # the graphs, by segment start: (graph, static inputs, outputs,
-        # health flag); the state tensors they read and write; the keys
-        # a graph derived, alive for the later graphs that read them
-        self._rt: Dict[int, tuple] = {}
+        # the graphs, by (segment start, its inputs' LoD): (graph, static
+        # inputs, outputs, health flag); the state tensors they read and
+        # write; the keys a graph derived, alive for the later graphs that
+        # read them
+        self._rt: Dict[tuple, tuple] = {}
         self._targets: Dict[str, torch.Tensor] = {}
         self._held_keys: List[torch.Tensor] = []
 
@@ -1296,15 +1528,26 @@ class _SegmentedBlock(_CompiledBlock):
             seg.state_writes = tuple(n for n in seg.out_names
                                      if n in state_out)
             seg.guard_names = ()
-            seg.units = ()
             seg.loop = None
-            if seg.kind == "compiled":
-                steps = [self._bind(op, seg.start + j)
-                         for j, op in enumerate(seg.ops)]
-                set_liveness(steps, set(seg.out_names))
-                seg.units = tuple(steps)
-            elif seg.kind == "loop":
+            seg.plans = {}  # a compiled one's: its inputs' LoD → _SegPlan
+            if seg.kind == "loop":
                 seg.loop = self._plan_loop(seg.ops[0])
+
+    def _seg_plan(self, seg, lod_env) -> "_SegPlan":
+        """A compiled segment's ops bound for the LoD its inputs carry in
+        this run (the TPU package's per-segment LoD key,
+        executor.py:1280-1336), made at the first run that meets it."""
+        lkey = tuple((n, lod_env[n]) for n in seg.in_names
+                     if lod_env.get(n))
+        plan = seg.plans.get(lkey)
+        if plan is None:
+            lods = _Lods(dict(lkey))
+            steps = [self._bind(op, seg.start + j, lods=lods)
+                     for j, op in enumerate(seg.ops)]
+            set_liveness(steps, set(seg.out_names))
+            plan = seg.plans[lkey] = _SegPlan(tuple(steps), lods,
+                                              (seg.start, lkey))
+        return plan
 
     def _plan_loop(self, op) -> "_LoopPlan":
         """A compiled ``while``: its body bound as a plan of its own, keyed
@@ -1330,11 +1573,15 @@ class _SegmentedBlock(_CompiledBlock):
                                            if n in written)))
 
     # ---------------------------------------------------------- segments
-    def _seg_compute(self, seg, env):
-        """A compiled segment's ops over its inputs in ``env`` → (its
-        outputs, its health flag under the guard or None)."""
+    def _seg_compute(self, seg, plan, env):
+        """A compiled segment's ops (``plan``'s) over its inputs in ``env``
+        → (its outputs, its health flag under the guard or None). The
+        plan's first run records its outputs' LoDs."""
         local = {n: env[n] for n in seg.in_names if n in env}
-        exec_units(seg.units, local)
+        exec_units(plan.units, local)
+        if not plan.lods.frozen:
+            plan.lods.frozen = True
+            plan.out_lods = {n: plan.lods.env.get(n) for n in seg.out_names}
         outs = {n: local[n] for n in seg.out_names if n in local}
         if not self._guard_active:
             return outs, None
@@ -1344,7 +1591,7 @@ class _SegmentedBlock(_CompiledBlock):
                                     if v.is_floating_point())
         return outs, fused_health(list(outs.values()), self.device)
 
-    def _capture_segment(self, seg, env, stable, rt):
+    def _capture_segment(self, seg, plan, env, stable, rt):
         """Capture a compiled segment into a CUDA graph on the executor's
         stream and pool, then replay it (a capture does not execute). An
         input that is not ``stable`` (a feed, an island's output) gets a
@@ -1364,7 +1611,7 @@ class _SegmentedBlock(_CompiledBlock):
         in_place = []
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            outs, flag = self._seg_compute(seg, inputs)
+            outs, flag = self._seg_compute(seg, plan, inputs)
             if not self._guard_active:
                 for n in seg.state_writes:
                     t, v = self._targets.get(n), outs.get(n)
@@ -1383,28 +1630,29 @@ class _SegmentedBlock(_CompiledBlock):
             outs[n] = self._targets[n]
         if self._keys.keys is not None:
             self._held_keys.append(self._keys.keys)
-        rt[seg.start] = (graph, static_in, outs, flag)
+        rt[plan.key] = (graph, static_in, outs, flag)
         graph.replay()
         self.stats["replays"] += 1
         return outs, flag
 
-    def _replay_segment(self, seg, env):
-        graph, static_in, outs, flag = self._rt[seg.start]
+    def _replay_segment(self, plan, env):
+        graph, static_in, outs, flag = self._rt[plan.key]
         for n, buf in static_in.items():
             buf.copy_(env[n])
         graph.replay()
         self.stats["replays"] += 1
         return outs, flag
 
-    def _island(self, seg, env, scope) -> List[str]:
+    def _island(self, seg, env, lod_env, scope) -> List[str]:
         """An island op by op through the interpreter: the env values each
-        op reads go into the scope (no copy), its writes come back into
-        the env. → the names written."""
+        op reads go into the scope (no copy) with their LoD, its writes
+        come back into the env and their LoD into ``lod_env``. → the names
+        written."""
         written: List[str] = []
         for off, (op, reads, writes) in enumerate(seg.op_io):
             for n in reads:
                 if n in env:
-                    scope.var(n).set_value(LoDTensor(env[n]))
+                    scope.var(n).set_value(LoDTensor(env[n], lod_env.get(n)))
             names = _interpret_op(op, seg.start + off, scope, self._keys,
                                   self.device)
             if op.attrs.get("sub_block") is not None:
@@ -1415,6 +1663,9 @@ class _SegmentedBlock(_CompiledBlock):
                          and _scope_tensor(scope, n) is not env.get(n)]
             for n in names:
                 env[n] = _scope_tensor(scope, n)
+                lv = _tensor_lod(scope.find_var(n).value())
+                if lv:
+                    lod_env[n] = lv
                 written.append(n)
         self.stats["islands"] += 1
         return written
@@ -1530,7 +1781,11 @@ class _SegmentedBlock(_CompiledBlock):
     def _seg_step(self, scope, feeds, mode):
         """One step through the segments: ``mode`` "eager" (the CPU, and
         the GPU's warm-up), "capture" or "replay" → (fetches, health or
-        None)."""
+        None). A compiled segment whose inputs carry a LoD that no graph
+        of this block was captured for (an island wrote it, from values)
+        runs eagerly, and so does every compiled segment after it in the
+        step; the block's graphs are then dropped and the next run
+        captures anew (``_fell_back``)."""
         from .ir import fused_health
         dev_feeds = {n: t.to(self.device) for n, t in feeds.items()}
         counter = _step_counter(scope, self.device)
@@ -1539,7 +1794,9 @@ class _SegmentedBlock(_CompiledBlock):
                      for n in self.mut_state + self.ro_state}
         else:
             state = self._read_state(scope)
-        rt: Dict[int, tuple] = {}
+        rt: Dict[tuple, tuple] = {} if mode == "capture" else self._rt
+        lod_env: Dict[str, tuple] = dict(self._init_lods)
+        fell_back = False
         if mode == "capture":
             self._targets = dict(state)
             for n in self.extra_writeback:
@@ -1558,7 +1815,7 @@ class _SegmentedBlock(_CompiledBlock):
             for seg in self.segments:
                 if seg.kind == "island":
                     had_keys = self._keys.keys is not None
-                    written = self._island(seg, env, scope)
+                    written = self._island(seg, env, lod_env, scope)
                     if mode == "capture":
                         stable.difference_update(written)
                         if not had_keys:
@@ -1575,23 +1832,30 @@ class _SegmentedBlock(_CompiledBlock):
                         # a loop's outputs are its buffers only when it
                         # iterated: later graphs copy them in
                         stable.difference_update(outs)
-                elif mode == "eager":
-                    outs, flag = self._seg_compute(seg, env)
-                    env.update(outs)
-                elif mode == "capture":
-                    outs, flag = self._capture_segment(seg, env, stable, rt)
-                    env.update(outs)
-                    stable.update(outs)
                 else:
-                    outs, flag = self._replay_segment(seg, env)
+                    plan = self._seg_plan(seg, lod_env)
+                    fell_back = fell_back or (
+                        mode == "capture" and not plan.ran) or (
+                        mode == "replay" and plan.key not in rt)
+                    if mode == "eager" or fell_back:
+                        outs, flag = self._seg_compute(seg, plan, env)
+                        plan.ran = True
+                    elif mode == "capture":
+                        outs, flag = self._capture_segment(seg, plan, env,
+                                                           stable, rt)
+                        stable.update(outs)
+                    else:
+                        outs, flag = self._replay_segment(plan, env)
                     env.update(outs)
+                    lod_env.update((n, lv) for n, lv in plan.out_lods.items()
+                                   if lv)
                 if flag is not None:
                     flags.append(flag)
         except BaseException:
             if orig is not None:
                 # a guarded step promises its pre-step state on any failure
                 for n, t in orig.items():
-                    scope.var(n).set_value(LoDTensor(t))
+                    scope.var(n).set_value(self._wrap(n, t))
             raise
         finally:
             self._keys.end()
@@ -1601,6 +1865,7 @@ class _SegmentedBlock(_CompiledBlock):
             self._captured = dict(self._targets)
             self._captured[_RNG_COUNTER] = counter
         fetches = [env[n] for n in self.fetch_names]
+        self.fetch_lods = [lod_env.get(n) for n in self.fetch_names]
         health = None
         if self._guard_active:
             health = torch.stack([fused_health(fetches, self.device)]
@@ -1609,14 +1874,18 @@ class _SegmentedBlock(_CompiledBlock):
                if n in env}
         if self._guard_active:
             self._apply_discard(new, orig, health)
+        self.out_lods = {n: lod_env.get(n) for n in new}
         for n, v in new.items():
             t = self._targets.get(n) if mode != "eager" else None
             if t is not None and v is not t and v.shape == t.shape \
                     and v.dtype == t.dtype:
                 t.copy_(v)
                 v = t
-            if _scope_tensor(scope, n) is not v:
-                scope.var(n).set_value(LoDTensor(v))
+            if _scope_tensor(scope, n) is not v or self.out_lods[n]:
+                scope.var(n).set_value(self._wrap(n, v))
+        self._fell_back = fell_back and mode != "eager"
+        if self._fell_back:
+            self._drop_graph()
         return fetches, health
 
     def _run_on_stream(self, scope, feeds):
@@ -1635,6 +1904,9 @@ class _SegmentedBlock(_CompiledBlock):
             self._drop_graph()  # a state var changed shape, dtype or device
         mode = "replay" if self._rt else "capture"
         fetched, health = self._seg_step(scope, feeds, mode)
+        if self._fell_back:
+            mode = "eager"
+            self.stats["eager"] += 1
         self.last_exec = mode
         return fetched, health
 
@@ -1647,6 +1919,20 @@ class _SegmentedBlock(_CompiledBlock):
 
 
 _MAX_LOOP_ITERS = 10_000_000
+
+
+class _SegPlan:
+    """A compiled segment's ops bound for one LoD of its inputs: ``units``,
+    their ``lods`` (``_Lods``), ``key`` (segment start,
+    the LoD), ``ran`` (an eager run made its LoD constants, so it may be
+    captured) and ``out_lods``, its outputs' LoDs after its first run."""
+
+    __slots__ = ("units", "lods", "key", "ran", "out_lods")
+
+    def __init__(self, units, lods, key):
+        self.units, self.lods, self.key = units, lods, key
+        self.ran = False
+        self.out_lods: Dict[str, Optional[tuple]] = {}
 
 
 class _LoopPlan:
@@ -1805,6 +2091,7 @@ class Executor:
     it."""
 
     _rng_counters = weakref.WeakKeyDictionary()  # scope -> its steps
+    _LOD_PLANS_KEPT = 4  # feed-LoD plans that never captured, kept cached
 
     def __init__(self, place: Optional[Place] = None):
         self.place = CUDAPlace(0) if place is None else place
@@ -1814,6 +2101,8 @@ class Executor:
             # TF32 rounding of the operands
             torch.backends.cuda.matmul.allow_tf32 = False
         self._compiled_cache: Dict[tuple, _CompiledBlock] = {}
+        # the cache keys that hold a feed LoD, oldest first
+        self._lod_plan_keys: Dict[tuple, None] = {}
         # keys of blocks too small to segment → their scope (a weakref)
         self._unsegmentable: Dict[tuple, weakref.ref] = {}
         # program → (its _version, whether its global block compiles)
@@ -1847,6 +2136,7 @@ class Executor:
         memory pool and the cached feeds: once nothing else holds them,
         ``torch.cuda.empty_cache()`` can return their memory."""
         self._compiled_cache.clear()
+        self._lod_plan_keys.clear()
         self._unsegmentable.clear()
         self._last_block = None
         self._feed_cache.clear()
@@ -1935,12 +2225,8 @@ class Executor:
         elif feed and n_steps > 1:
             window_names = _window_feed_names(program, feed, n_steps)
         compiled = mode == "compiled" and self._is_compilable(program)
-        # a block that does not compile whole and is fed LoD runs
-        # interpreted, as it did before segments: they take dense feeds
         segmented = mode == "compiled" and not compiled \
-            and bool(core.globals_["FLAGS_executor_segmentation"]) \
-            and not any(isinstance(d, LoDTensor) and d.lod()
-                        for d in feed.values())
+            and bool(core.globals_["FLAGS_executor_segmentation"])
         check, action = _guard_flags()
         if (window_names and not compiled) or (
                 compiled and n_steps > 1 and check and action == "raise"):
@@ -2231,12 +2517,11 @@ class Executor:
         """A compiled (or ``segmented``) run through the cache of planned
         blocks; ``_INTERPRET`` when the block is too small to segment."""
         block = program.global_block()
+        feed_lods = {}
         for n, d in feed.items():
-            if isinstance(d, LoDTensor) and d.lod():
-                raise NotImplementedError(
-                    f"feed '{n}' carries LoD: the compiled step of "
-                    "paddle_tpu_torch takes dense feeds only (run with "
-                    "FLAGS_executor_mode=interpreted)")
+            lv = _tensor_lod(d)
+            if lv:
+                feed_lods[n] = lv
         feeds = {n: self._feed_value(block, n, d) for n, d in feed.items()}
         names = tuple(sorted(feeds))
         # a windowed feed's step shape is a slice's
@@ -2249,7 +2534,9 @@ class Executor:
                # builds a new one
                (core.globals_["FLAGS_check_nan_inf"],
                 core.globals_["FLAGS_nan_inf_action"]),
-               segmented and core.globals_["FLAGS_executor_seg_min_ops"])
+               segmented and core.globals_["FLAGS_executor_seg_min_ops"],
+               # the plan is fixed for its feeds' LoDs
+               tuple(sorted(feed_lods.items())))
         cb = self._compiled_cache.get(key)
         # an id() of a dead scope can be reused by a new one: validate
         if cb is None or cb._scope_ref() is not scope:
@@ -2261,14 +2548,17 @@ class Executor:
                 self._pool = torch.cuda.graph_pool_handle()
             if segmented:
                 cb = self._build_segmented(program, names, fetch_names,
-                                           scope, seed)
+                                           scope, seed, feed_lods)
                 if cb is None:
                     self._unsegmentable[key] = weakref.ref(scope)
                     return _INTERPRET
             else:
                 cb = _CompiledBlock(program, names, fetch_names, scope, seed,
-                                    self.device, self._stream, self._pool)
+                                    self.device, self._stream, self._pool,
+                                    feed_lods)
             self._compiled_cache[key] = cb
+            if feed_lods:
+                self._evict_lod_plans(key)
         self._last_block = cb
         if segmented:
             # a host loop: the islands act every step
@@ -2290,8 +2580,26 @@ class Executor:
             self._act_on_health(cb, program, scope, feeds, seed)
         return fetched
 
+    def _evict_lod_plans(self, new_key):
+        """A ragged epoch gives a new LoD, so a new plan, nearly every
+        batch; such a plan's first run is eager and it never captures. Of
+        the plans keyed by a feed LoD that have not captured, the
+        ``_LOD_PLANS_KEPT`` newest stay cached (a batch whose LoD comes
+        back soon captures on its second run); older ones are dropped
+        with what they hold on the device (their LoD constants), so the
+        cache and the card's memory do not grow with each batch."""
+        self._lod_plan_keys[new_key] = None
+        eager = [k for k in self._lod_plan_keys
+                 if k in self._compiled_cache
+                 and not self._compiled_cache[k].stats["captures"]]
+        for k in eager[:-self._LOD_PLANS_KEPT]:
+            del self._compiled_cache[k]
+        for k in list(self._lod_plan_keys):
+            if k not in self._compiled_cache:
+                del self._lod_plan_keys[k]
+
     def _build_segmented(self, program, feed_names, fetch_names, scope,
-                         seed) -> Optional[_SegmentedBlock]:
+                         seed, feed_lods=None) -> Optional[_SegmentedBlock]:
         """The segment plan of a block that is not compilable whole (the
         TPU package's executor.py:1606), or None when it has too few
         compilable ops: it then runs interpreted. Any other failure to
@@ -2300,7 +2608,7 @@ class Executor:
         try:
             return _SegmentedBlock(program, feed_names, fetch_names, scope,
                                    seed, self.device, self._stream,
-                                   self._pool)
+                                   self._pool, feed_lods)
         except _NotSegmentable:
             return None
 
@@ -2366,6 +2674,132 @@ class Executor:
             "interpreter re-run reproduced no non-finite op output: the "
             "fault did not replay")
 
+    # ------------------------------------------------------ dataset path
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, window_size=1,
+                           checkpoint_dir=None,
+                           checkpoint_every_n_steps=0, resume_from=None):
+        """One pass over a Dataset (reference: executor.py:1438
+        train_from_dataset, whose C++ MultiTrainer threads each run the
+        block; the TPU package's executor.py:2315): the native data feed
+        parses and batches the slot files on the host, and each batch, a
+        dict of LoDTensors, is one ``run`` of the block on the executor's
+        device. ``window_size=k`` stacks k consecutive batches into one
+        window run (``run(n_steps=k)``) when every value is dense and the
+        shapes agree; batches that carry LoD, as every int slot does, run
+        step by step. ``print_period`` prints the fetches every that many
+        steps as the TPU package does; ``fetch_handler`` samples vars from
+        a thread (``FetchHandler``). ``checkpoint_dir`` with
+        ``checkpoint_every_n_steps`` saves periodic atomic checkpoints of
+        this program (``set_auto_checkpoint``); ``resume_from`` restores
+        the newest valid one first (``resume_from``), so a killed run
+        relaunched on the same dataset continues bit for bit. ``thread``
+        and ``debug`` are accepted for the reference signature. → the last
+        step's fetches."""
+        if program is None:
+            program = default_main_program()
+        if checkpoint_dir and checkpoint_every_n_steps > 0:
+            self.set_auto_checkpoint(checkpoint_dir,
+                                     checkpoint_every_n_steps,
+                                     program=program, scope=scope)
+        if resume_from:
+            self.resume_from(resume_from, program=program, scope=scope)
+        return self._run_from_dataset(program, dataset, scope, fetch_list,
+                                      fetch_info, print_period,
+                                      fetch_handler, window_size)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, window_size=1):
+        """``train_from_dataset`` without checkpoints (reference:
+        executor.py infer_from_dataset): the program decides what a run
+        updates."""
+        return self._run_from_dataset(program, dataset, scope, fetch_list,
+                                      fetch_info, print_period,
+                                      fetch_handler, window_size)
+
+    @staticmethod
+    def _stack_dataset_window(feeds: List[Dict[str, Any]]):
+        """[{name: LoDTensor}] × k → a WindowBatch of [k, ...] stacks when
+        every value is LoD-free and the shapes agree across the window;
+        None otherwise (the batches then run one by one)."""
+        from .reader import _stack_window
+        try:
+            return _stack_window(feeds, len(feeds), len(feeds))
+        except (ValueError, KeyError):
+            return None
+
+    def _run_from_dataset(self, program, dataset, scope, fetch_list,
+                          fetch_info, print_period, fetch_handler=None,
+                          window_size=1):
+        if dataset is None:
+            raise ValueError("dataset must be provided")
+        if program is None:
+            program = default_main_program()
+        if scope is None:
+            scope = global_scope()
+        dataset._ensure_handle()
+        if dataset.get_memory_data_size() == 0:
+            dataset._load()
+        fetch_names = _to_fetch_names(fetch_list)
+        monitor = None
+        if fetch_handler is not None:
+            monitor = _FetchHandlerMonitor(scope, fetch_handler)
+            monitor.start()
+        step = 0
+        last = []
+
+        def report(vals, count=1):
+            # once a print_period: when a boundary falls in [step, step +
+            # count), labelled by the first step; a window reports its
+            # final step's values
+            if not (fetch_names and print_period):
+                return
+            off = step % print_period
+            if off != 0 and off + count <= print_period:
+                return
+            infos = fetch_info or fetch_names
+            msg = ", ".join(
+                f"{i}={np.asarray(v).reshape(-1)[-1]:.6f}"
+                for i, v in zip(infos, vals))
+            print(f"[train_from_dataset] step {step}: {msg}")
+
+        pending: List[Dict[str, Any]] = []
+
+        def flush():
+            nonlocal step, last
+            if not pending:
+                return
+            stacked = (self._stack_dataset_window(pending)
+                       if len(pending) > 1 else None)
+            if stacked is not None:
+                last = self.run(program, feed=stacked,
+                                fetch_list=fetch_list, scope=scope,
+                                n_steps=len(pending))
+                report(last, count=len(pending))
+                step += len(pending)
+            else:
+                for f in pending:
+                    last = self.run(program, feed=f, fetch_list=fetch_list,
+                                    scope=scope)
+                    report(last)
+                    step += 1
+            pending.clear()
+
+        try:
+            for feed in dataset._iter_batches():
+                pending.append(feed)
+                if len(pending) >= max(1, window_size):
+                    flush()
+            flush()
+        finally:
+            if monitor is not None:
+                monitor.stop()
+        return last
+
     # ------------------------------------------------------- interpreter
     def _run_interpreted(self, program, scope, feed, fetch_names,
                          return_numpy, seed, n_steps=1):
@@ -2375,7 +2809,8 @@ class Executor:
         block = program.global_block()
         for name, data in feed.items():
             scope.var(name).set_value(LoDTensor(
-                self._feed_value(block, name, data).to(self.device)))
+                self._feed_value(block, name, data).to(self.device),
+                data.lod() if isinstance(data, LoDTensor) else None))
         self._check_inputs(block, scope, set(feed))
         guard = self._interp_guard_cfg(program, set(feed), scope)
         check_ops = guard is not None and guard["check"] \
@@ -2553,20 +2988,45 @@ def _interpret_op(op, idx: int, scope: Scope, keys: _StepKeys, device,
             # a tensor array is read by its op from the scope
             vals.append(val.array if isinstance(val, LoDTensor) else None)
         ins[slot] = vals
+
+    def scope_lod(n):
+        v = scope.find_var(n)
+        if v is not None and v.is_initialized():
+            return _tensor_lod(v.value())
+        return None
+    in_lods = _collect_in_lods(op, scope_lod)
+    if _op_needs_lod(op):
+        attrs = dict(attrs, _lod=in_lods)
     if grad_of is None:
         outs = info.kernel(ins, attrs)
     else:
         outs = run_generic_grad(
             grad_of, ins, attrs, wanted_grad_slots=list(op.outputs),
             fwd_input_slots=attrs.get("_fwd_in", list(op.inputs)))
+    outs = outs or {}
     if check:
         _check_op_outputs_finite(op, idx, outs)
     written = []
     for slot, names in op.outputs.items():
-        for n, val in zip(names, (outs or {}).get(slot) or []):
+        for n, val in zip(names, outs.get(slot) or []):
             if val is not None and n != _EMPTY:
                 scope.var(n).set_value(LoDTensor(val))
                 written.append(n)
+
+    def set_scope_lod(n, lv):
+        v = scope.find_var(n)
+        if v is not None and v.is_initialized() \
+                and isinstance(v.value(), LoDTensor):
+            v.value().set_lod(lv or [])
+
+    def scope_len(n):
+        v = scope.find_var(n)
+        if v is not None and v.is_initialized() \
+                and isinstance(v.value(), LoDTensor) \
+                and v.value().array.dim():
+            return v.value().array.shape[0]
+        return None
+    _propagate_lods(op, outs, in_lods, set_scope_lod, scope_len)
     return written
 
 

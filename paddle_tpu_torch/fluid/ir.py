@@ -103,8 +103,8 @@ class BlockSegment:
 
     __slots__ = ("kind", "start", "ops", "island_reasons",
                  # filled by the executor's segment plan
-                 "in_names", "out_names", "state_writes", "units", "op_io",
-                 "guard_names", "loop")
+                 "in_names", "out_names", "state_writes", "op_io",
+                 "guard_names", "loop", "plans")
 
     def __init__(self, kind: str, start: int):
         self.kind = kind

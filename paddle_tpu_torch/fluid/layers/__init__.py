@@ -9,3 +9,4 @@ from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
+from .sequence_lod import *  # noqa: F401,F403

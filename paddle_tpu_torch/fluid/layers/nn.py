@@ -5,8 +5,10 @@ batch_norm, layer_norm, dropout, softmax, reshape, squeeze, unsqueeze,
 flatten, gather, topk, mean, reduce_sum, reduce_mean, one_hot,
 elementwise_add, _sub, _mul, _div, _max, _min, _pow and _mod, scale,
 clip, clip_by_norm, sign, pow, label_smooth, log_loss,
-add_position_encoding, autoincreased_step_counter and the logical_*
-layers."""
+add_position_encoding, autoincreased_step_counter, the logical_*
+layers, the parameterized activations (brelu, leaky_relu, soft_relu,
+swish, hard_swish, elu, relu6, stanh, hard_sigmoid), lod_reset,
+lod_append, im2sequence and cos_sim."""
 from __future__ import annotations
 
 import math
@@ -27,7 +29,9 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "clip", "clip_by_norm", "sign", "pow",
            "label_smooth", "log_loss", "add_position_encoding",
            "autoincreased_step_counter", "logical_and", "logical_or",
-           "logical_xor", "logical_not"]
+           "logical_xor", "logical_not", "brelu", "leaky_relu", "soft_relu",
+           "swish", "hard_swish", "elu", "relu6", "stanh", "hard_sigmoid",
+           "lod_reset", "lod_append", "im2sequence", "cos_sim"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -638,3 +642,100 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
             outputs={"Out": [counter]}, attrs={"step": float(step)})
         counter.stop_gradient = True
     return counter
+
+
+# --------------------------------------------------------------------------
+# parameterized activations (the TPU package's layers/nn.py:1390-1432)
+# --------------------------------------------------------------------------
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _act_layer("brelu", x, {"t_min": t_min, "t_max": t_max}, name)
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _act_layer("leaky_relu", x, {"alpha": alpha}, name)
+
+
+def soft_relu(x, threshold=40.0, name=None):
+    return _act_layer("soft_relu", x, {"threshold": threshold}, name)
+
+
+def swish(x, beta=1.0, name=None):
+    return _act_layer("swish", x, {"beta": beta}, name)
+
+
+def hard_swish(x, threshold=6.0, scale=6.0, offset=3.0, name=None):
+    return _act_layer("hard_swish", x,
+                      {"threshold": threshold, "scale": scale,
+                       "offset": offset}, name)
+
+
+def elu(x, alpha=1.0, name=None):
+    return _act_layer("elu", x, {"alpha": alpha}, name)
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _act_layer("relu6", x, {"threshold": threshold}, name)
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _act_layer("stanh", x, {"scale_a": scale_a, "scale_b": scale_b},
+                      name)
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _act_layer("hard_sigmoid", x, {"slope": slope, "offset": offset},
+                      name)
+
+
+# --------------------------------------------------------------------------
+# LoD layers (the TPU package's layers/nn.py:1053-1075, :1434, :1642)
+# --------------------------------------------------------------------------
+def lod_reset(x, y=None, target_lod=None):
+    """reference: layers/nn.py lod_reset — data unchanged, LoD replaced."""
+    if y is None and target_lod is None:
+        raise ValueError("lod_reset: either y or target_lod should be set")
+    helper = LayerHelper("lod_reset")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    if y is not None:
+        inputs["Y"] = [y]
+    helper.append_op(type="lod_reset", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"target_lod": list(target_lod or [])})
+    return out
+
+
+def lod_append(x, level):
+    helper = LayerHelper("lod_append")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="lod_append", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"level": list(level)})
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,
+                input_image_size=None, out_stride=1, name=None):
+    """reference: layers/nn.py im2sequence — image patches to a LoD
+    sequence."""
+    pads = [padding] * 4 if isinstance(padding, int) else list(padding)
+    if len(pads) == 2:
+        pads = pads * 2
+    helper = LayerHelper("im2sequence", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="im2sequence", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"kernels": _pair(filter_size),
+                            "strides": _pair(stride), "paddings": pads})
+    return out
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim", **locals())
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype)
+    ynorm = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out

@@ -32,9 +32,13 @@ stream loader does (``hand_out``, reader.py:544-549).
 ``DataLoader.from_stream`` is the unbounded loader whose state is one
 event offset, seeked on resume.
 
+``DataLoader.from_dataset`` is a loader over a ``fluid.dataset`` Dataset's
+batches, as the reference's DatasetLoader (the TPU package's raises
+ModuleNotFoundError: its reader.py:596 imports a module it does not have).
+
 Not ported (ROADMAP A4): ``use_multiprocess=True`` (a worker process and
-shared-memory transport) and ``from_dataset`` (``fluid/dataset.py``) raise
-``NotImplementedError`` rather than run another way.
+shared-memory transport) raises ``NotImplementedError`` rather than run
+another way.
 """
 from __future__ import annotations
 
@@ -511,6 +515,36 @@ class _StreamLoader(_GeneratorLoader):
         return self._offset
 
 
+class _DatasetLoader(_GeneratorLoader):
+    """``DataLoader.from_dataset`` (the reference's DatasetLoader,
+    reader.py): one feed dict of LoDTensors on the host a batch of the
+    dataset (``Dataset._iter_batches``, loaded into memory at the first
+    pass if it is not yet), in the dataset's order; ``drop_last`` drops a
+    last batch of fewer than ``batch_size`` instances. The loader's
+    position, windows and checkpoint state are the generator loader's."""
+
+    def __init__(self, dataset, places, drop_last=True):
+        if dataset is None:
+            raise ValueError("DataLoader.from_dataset: a dataset must be "
+                             "provided")
+        super().__init__([], capacity=2, drop_last=drop_last)
+        self._dataset = dataset
+        self._places = _first_place(places)
+        self._batch_fn = self._dataset_batches
+
+    def _dataset_batches(self):
+        ds = self._dataset
+        ds._ensure_handle()
+        if ds.get_memory_data_size() == 0:
+            ds._load()
+        for feed in ds._iter_batches():
+            t = next(iter(feed.values()))
+            n = len(t.lod()[0]) - 1 if t.lod() else len(t)
+            if self._drop_last and n < ds._batch_size:
+                continue
+            yield feed
+
+
 class DataLoader:
     @staticmethod
     def from_generator(feed_list=None, capacity=16, use_double_buffer=True,
@@ -529,9 +563,9 @@ class DataLoader:
 
     @staticmethod
     def from_dataset(dataset, places, drop_last=True):
-        raise NotImplementedError(
-            "DataLoader.from_dataset waits for fluid/dataset.py, which is "
-            "not ported to paddle_tpu_torch yet (ROADMAP A4)")
+        """A loader over a Dataset's batches (``_DatasetLoader``; the
+        reference's DatasetLoader, reader.py)."""
+        return _DatasetLoader(dataset, places, drop_last)
 
 
 class PyReader(_GeneratorLoader):

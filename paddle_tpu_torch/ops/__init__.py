@@ -8,7 +8,8 @@ the LR schedule's step counter) and Wide&Deep's (lookup_table, concat,
 sigmoid, log_loss, and the stateful auc and print), and the ops that
 saved and rewritten inference programs carry (feed, fetch, assign,
 transpose2, matmul, and the fused fc, fused_embedding_eltwise_layernorm,
-fused_fc_elementwise_layernorm and conv2d_fusion)."""
+fused_fc_elementwise_layernorm and conv2d_fusion), the LoD sequence ops,
+sequence_mask, cos_sim and the activations of the book's models."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
@@ -19,3 +20,4 @@ from . import attention_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import framework_ops  # noqa: F401
 from . import fused_ops      # noqa: F401
+from . import sequence_ops   # noqa: F401

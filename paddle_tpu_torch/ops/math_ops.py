@@ -3,7 +3,11 @@ far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
 elementwise_max, elementwise_min, elementwise_pow, elementwise_mod, mul,
 matmul, scale, increment, clip, clip_by_norm, squared_l2_norm, l1_norm,
 relu, sigmoid, gelu, square, ceil, floor, cos, exp, sqrt, rsqrt, abs,
-reciprocal, sign, pow, mean, sum, the reduce_* family, isfinite, the
+reciprocal, sign, pow, the other activations of the TPU package's table
+(tanh, logsigmoid, tanh_shrink, round, sin, acos, asin, atan, sinh, cosh,
+log, log1p, softplus, softsign, erf, leaky_relu, elu, selu, relu6, brelu,
+soft_relu, hard_sigmoid, hard_swish, swish, stanh, softshrink, hard_shrink,
+thresholded_relu), cos_sim, mean, sum, the reduce_* family, isfinite, the
 comparisons less_than, less_equal, greater_than, greater_equal, equal and
 not_equal, and logical_and, logical_or, logical_xor and logical_not).
 
@@ -235,6 +239,78 @@ _register_unary("reciprocal", lambda x: 1.0 / x)
 _register_unary("sign", torch.sign, no_grad=True)
 
 
+# the TPU package's _register_act table (activation_op.cc
+# REGISTER_ACTIVATION_OP): each attr is rounded to X's dtype where it meets
+# X; the clips are max/min pairs, as jnp.clip is, so a tie splits its grad
+def _register_act(name, fn, defaults=None, **kw):
+    defaults = dict(defaults or {})
+
+    @register_op(name, inputs=("X",), attr_defaults=defaults, **kw)
+    def _kernel(ins, attrs, _fn=fn):
+        x = first(ins, "X")
+
+        def a(k):
+            return scalar_as(attrs.get(k, defaults[k]), x.dtype)
+        return out(Out=_fn(x, a))
+    return _kernel
+
+
+def _zero(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _between(x, lo, hi):
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
+                         torch.full_like(x, hi))
+
+
+_register_act("tanh", lambda x, a: torch.tanh(x))
+_register_act("logsigmoid", lambda x, a: torch.nn.functional.logsigmoid(x))
+_register_act("tanh_shrink", lambda x, a: x - torch.tanh(x))
+_register_act("round", lambda x, a: torch.round(x), no_grad=True)
+_register_act("sin", lambda x, a: torch.sin(x))
+_register_act("acos", lambda x, a: torch.acos(x))
+_register_act("asin", lambda x, a: torch.asin(x))
+_register_act("atan", lambda x, a: torch.atan(x))
+_register_act("sinh", lambda x, a: torch.sinh(x))
+_register_act("cosh", lambda x, a: torch.cosh(x))
+_register_act("log", lambda x, a: torch.log(x))
+_register_act("log1p", lambda x, a: torch.log1p(x))
+_register_act("softplus", lambda x, a: torch.logaddexp(x, _zero(x)))
+_register_act("softsign", lambda x, a: x / (1 + torch.abs(x)))
+_register_act("erf", lambda x, a: torch.erf(x))
+_register_act("leaky_relu",
+              lambda x, a: torch.where(x >= 0, x, x * a("alpha")),
+              {"alpha": 0.02})
+_register_act("elu", lambda x, a: torch.where(
+    x > 0, x, a("alpha") * (torch.exp(x) - 1)), {"alpha": 1.0})
+_register_act("selu", lambda x, a: a("scale") * torch.where(
+    x > 0, x, a("alpha") * (torch.exp(x) - 1)),
+    {"scale": 1.0507009873554805, "alpha": 1.6732632423543772})
+_register_act("relu6", lambda x, a: _between(x, 0.0, a("threshold")),
+              {"threshold": 6.0})
+_register_act("brelu", lambda x, a: _between(x, a("t_min"), a("t_max")),
+              {"t_min": 0.0, "t_max": 24.0})
+_register_act("soft_relu", lambda x, a: torch.log1p(torch.exp(
+    _between(x, -a("threshold"), a("threshold")))), {"threshold": 40.0})
+_register_act("hard_sigmoid", lambda x, a: _between(
+    a("slope") * x + a("offset"), 0.0, 1.0), {"slope": 0.2, "offset": 0.5})
+_register_act("hard_swish", lambda x, a: x * _between(
+    x + a("offset"), 0.0, a("threshold")) / a("scale"),
+    {"threshold": 6.0, "scale": 6.0, "offset": 3.0})
+_register_act("swish", lambda x, a: x * torch.sigmoid(a("beta") * x),
+              {"beta": 1.0})
+_register_act("stanh", lambda x, a: a("scale_b") * torch.tanh(
+    a("scale_a") * x), {"scale_a": 0.67, "scale_b": 1.7159})
+_register_act("softshrink", lambda x, a: torch.where(
+    x > a("lambda"), x - a("lambda"), torch.where(
+        x < -a("lambda"), x + a("lambda"), _zero(x))), {"lambda": 0.5})
+_register_act("hard_shrink", lambda x, a: torch.where(
+    torch.abs(x) > a("threshold"), x, _zero(x)), {"threshold": 0.5})
+_register_act("thresholded_relu", lambda x, a: torch.where(
+    x > a("threshold"), x, _zero(x)), {"threshold": 1.0})
+
+
 @register_op("pow", inputs=("X",), attr_defaults={"factor": 1.0})
 def _pow(ins, attrs):
     return out(Out=first(ins, "X") ** attrs.get("factor", 1.0))
@@ -373,3 +449,14 @@ def _increment(ins, attrs):
     an int64 [1] that this op advances once a run)."""
     x = first(ins, "X")
     return out(Out=x + scalar_as(attrs.get("step", 1.0), x.dtype))
+
+
+@register_op("cos_sim", inputs=("X", "Y"))
+def _cos_sim(ins, attrs):
+    """Cosine similarity of X's and Y's rows over the last dim (a
+    one-row Y broadcasts), with the two norms."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    xn = torch.sqrt(torch.sum(torch.square(x), -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(torch.square(y), -1, keepdim=True))
+    xy = torch.sum(x * y, -1, keepdim=True)
+    return out(Out=xy / (xn * yn), XNorm=xn, YNorm=yn)

@@ -50,7 +50,7 @@ class OpInfo:
     __slots__ = ("type", "kernel", "infer_shape", "grad_maker", "no_grad",
                  "needs_rng", "needs_device", "stateful", "diff_input_slots",
                  "attr_defaults", "input_slots", "output_slots",
-                 "host_inputs")
+                 "host_inputs", "needs_lod")
 
     def __init__(self, type_: str):
         self.type = type_
@@ -67,6 +67,7 @@ class OpInfo:
         self.input_slots: Optional[Sequence[str]] = None
         self.output_slots: Optional[Sequence[str]] = None
         self.host_inputs: Sequence[str] = ()
+        self.needs_lod = False
 
 
 class OpInfoMap:
@@ -109,13 +110,22 @@ def resolve_base_info(op_type: str) -> Optional[OpInfo]:
 
 def register_op(type_: str, *, no_grad: bool = False, needs_rng: bool = False,
                 needs_device: bool = False, stateful: bool = False,
+                needs_lod: bool = False,
                 diff_inputs: Optional[Sequence[str]] = None,
                 infer_shape: Optional[Callable] = None,
                 attr_defaults: Optional[Dict[str, Any]] = None,
                 inputs: Optional[Sequence[str]] = None,
                 outputs: Optional[Sequence[str]] = None,
                 host_inputs: Optional[Sequence[str]] = None):
-    """Decorator registering a forward kernel under op name ``type_``."""
+    """Decorator registering a forward kernel under op name ``type_``.
+
+    ``needs_lod``: the kernel reads LoD (variable-length sequence)
+    metadata: the executor passes ``attrs["_lod"] = {slot: [levels|None]}``
+    (``levels`` a tuple of offset tuples, the finest last), host-side and
+    fixed for a plan, whose key holds the feeds' LoDs. A kernel may return
+    ``{"_lod": {out_slot: [levels|None]}}`` to set its outputs' LoD;
+    otherwise the executor shares the first LoD-bearing input's LoD with
+    each output of the same leading length (the reference's ShareLoD)."""
     def deco(fn: Callable):
         info = OPS.get_or_create(type_)
         info.kernel = fn
@@ -123,6 +133,7 @@ def register_op(type_: str, *, no_grad: bool = False, needs_rng: bool = False,
         info.needs_rng = needs_rng
         info.needs_device = needs_device
         info.stateful = stateful
+        info.needs_lod = needs_lod
         info.diff_input_slots = diff_inputs
         info.infer_shape = infer_shape
         info.attr_defaults = dict(attr_defaults or {})

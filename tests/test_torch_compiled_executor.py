@@ -16,7 +16,8 @@ runs only on the card: ``python3 chip_smoke.py``).
 - The contracts: state classification errors, intermediates absent from
   the scope but fetchable, the cache key, a replaced state var, the mode
   flag, per-step dropout masks, routing of a block with a host read, what
-  the compiled step refuses (LoD feeds; an unknown NaN guard action),
+  the compiled step refuses (a window's LoD fetch; an unknown NaN guard
+  action),
   the routing cache, and a compiled step with JAX blocked from the
   process.
 """
@@ -336,8 +337,9 @@ def test_mode_flag_routes_to_the_interpreter(mode):
 def test_compiled_step_refuses_what_it_does_not_lower(asked):
     """The NaN guard takes the actions raise, skip and rollback
     (tests/test_torch_numeric_guard.py): any other action is refused when
-    the block is built, rather than guard nothing. A LoD feed is refused
-    by the compiled step."""
+    the block is built, rather than guard nothing. A LoD feed is taken
+    (its plan keyed by the LoD), but a window cannot stack a fetch that
+    carries LoD and refuses it, as the TPU package does."""
     main, startup, loss = _mlp()
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     exe.run(startup, scope=scope)
@@ -353,9 +355,13 @@ def test_compiled_step_refuses_what_it_does_not_lower(asked):
             tcore.set_flag("FLAGS_nan_inf_action", "raise")
         return
     feed = _mlp_feed(0)
-    feed["x"] = tfluid.LoDTensor(torch.from_numpy(feed["x"]), [[0, 2, 6]])
+    n = feed["x"].shape[0]
+    feed["x"] = tfluid.LoDTensor(torch.from_numpy(feed["x"]), [[0, 2, n]])
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert exe._last_run_mode == "compiled"
     with pytest.raises(NotImplementedError, match="LoD"):
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        exe.run(main, feed=feed, fetch_list=[loss, "x"], scope=scope,
+                n_steps=2)
 
 
 def test_block_with_a_host_read_runs_interpreted():
@@ -391,8 +397,9 @@ def _reshape_by_shape_tensor(main, x):
 
 
 def test_lod_feed_to_a_block_that_runs_interpreted():
-    """The compiled step refuses LoD; a block routed to the interpreter
-    under the default flag takes a LoD feed as the interpreter does."""
+    """A block routed to the interpreter under the default flag (one
+    host-reading op: too small to segment) takes a LoD feed as the
+    interpreter does."""
     main = tfluid.Program()
     with tfluid.program_guard(main, tfluid.Program()):
         x = tfluid.data("x", [6])

@@ -707,14 +707,14 @@ def test_loop_schedule_rehearsed_with_a_fake_graph(monkeypatch):
     real_compute = texecutor._SegmentedBlock._seg_compute
     real_body = texecutor._SegmentedBlock._capture_body
 
-    def capture(self, seg, env, stable, rt):
+    def capture(self, seg, plan, env, stable, rt):
         seen = {n: env[n] for n in seg.in_names if n in env}
-        outs, flag = real_capture(self, seg, env, stable, rt)
-        graph, static_in, captured, _ = rt[seg.start]
+        outs, flag = real_capture(self, seg, plan, env, stable, rt)
+        graph, static_in, captured, _ = rt[plan.key]
         inputs = dict(seen, **static_in)
 
         def replay():
-            o, _ = real_compute(self, seg, inputs)
+            o, _ = real_compute(self, seg, plan, inputs)
             for n, t in captured.items():
                 t.copy_(o[n])
         graph.fn = replay

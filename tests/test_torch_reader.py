@@ -13,8 +13,8 @@ tests/test_streaming.py drive it:
   batches leaves the port's position at 4, where the TPU package's
   prefetching window stage has read 16 (a deliberate difference, ROADMAP
   C "carried");
-- ``use_multiprocess=True`` and ``from_dataset`` raise, and a loader with
-  no ``places`` raises on a host without CUDA.
+- ``use_multiprocess=True`` raises, ``from_dataset`` without a dataset
+  raises, and a loader with no ``places`` raises on a host without CUDA.
 """
 import time
 
@@ -308,9 +308,11 @@ def test_stream_loader_refuses_epoch_state():
 
 
 def test_multiprocess_and_from_dataset_raise():
+    """use_multiprocess is not ported and raises; from_dataset is (tests/
+    test_torch_dataset.py) and raises only without a dataset."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfluid.DataLoader.from_generator(capacity=2, use_multiprocess=True)
-    with pytest.raises(NotImplementedError, match="dataset"):
+    with pytest.raises(ValueError, match="dataset"):
         tfluid.DataLoader.from_dataset(None, tfluid.CPUPlace())
 
 

@@ -308,9 +308,10 @@ def test_all_island_block_stays_interpreted(capsys):
 
 
 def test_lod_feed_into_a_block_with_an_island_runs_interpreted(capsys):
-    """Segments take dense feeds: a block that does not compile whole and
-    is fed LoD runs interpreted, as it did before segmentation, with no
-    block planned, and trains as the interpreter does."""
+    """A block that does not compile whole and is fed LoD runs segmented
+    now (it ran interpreted while segments took dense feeds): its plan is
+    keyed by the feed's LoD, it trains as the interpreter does, bitwise,
+    and the island prints every step."""
     def run(mode):
         core.set_flag("FLAGS_executor_mode", mode)
         with fluid.unique_name.guard():
@@ -328,10 +329,11 @@ def test_lod_feed_into_a_block_with_an_island_runs_interpreted(capsys):
     with _segmentation(True):
         seg, exe, seg_state = run("compiled")
         interp, _, int_state = run("interpreted")
-    assert exe._last_run_mode == "interpreted"
-    # the startup's compiled block alone: no segment plan was built
-    assert all(cb.kind == "compiled"
-               for cb in exe._compiled_cache.values())
+    assert exe._last_run_mode == "segmented"
+    segmented = [k for k, cb in exe._compiled_cache.items()
+                 if cb.kind == "segmented"]
+    assert len(segmented) == 1 and segmented[0][-1] == (
+        ("x", ((0, 2, 6),)),)
     assert not exe._unsegmentable
     for a, b in zip(seg, interp):
         assert np.array_equal(a, b)
@@ -566,17 +568,17 @@ def test_graph_schedule_rehearsed_with_a_fake_graph(monkeypatch):
     real_capture = texecutor._SegmentedBlock._capture_segment
     real_compute = texecutor._SegmentedBlock._seg_compute
 
-    def capture(self, seg, env, stable, rt):
+    def capture(self, seg, plan, env, stable, rt):
         seen = {n: env[n] for n in seg.in_names if n in env}
-        outs, flag = real_capture(self, seg, env, stable, rt)
-        graph, static_in, captured, cflag = rt[seg.start]
+        outs, flag = real_capture(self, seg, plan, env, stable, rt)
+        graph, static_in, captured, cflag = rt[plan.key]
         inputs = dict(seen, **static_in)
         for n in seg.in_names:  # stable inputs are read where they were
             if n in seen and n not in static_in:
                 assert inputs[n] is env[n] or n in seg.state_writes
 
         def replay():
-            o, _ = real_compute(self, seg, inputs)
+            o, _ = real_compute(self, seg, plan, inputs)
             for n, t in captured.items():
                 t.copy_(o[n])
         graph.fn = replay
