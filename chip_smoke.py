@@ -453,6 +453,50 @@ Phases, each fatal on failure:
               cos_sim) against the CPU port. Every run of the phase,
               interpreted ones included, launches none of the twelve
               kernels: through the wrappers and in every graph.
+ 19. compiler — the v1.7 training-script front end. (a) ResNet-50 at
+              full width (models/resnet.py: 1000 classes, 224x224, f32,
+              Momentum 0.01, batch 64), the eval clone taken before the
+              optimizer as PaddleCV's script takes it: 3 steps each by
+              Executor.run, by CompiledProgram(main).with_data_parallel(
+              loss_name) and with a BuildStrategy with fuse_bn_act_ops
+              and fuse_elewise_add_act_ops, from one start, every fetch
+              bitwise alike (nothing fuses in the train program); the
+              eval clone compiled with share_vars_from the trained
+              program and the fuse strategy over 4 batches, its fused-op
+              census and the train program's equal to the TPU package's
+              passes' (CP_RESNET_CENSUS, tests/test_torch_compiler.py),
+              the fused program segmented around its 33 stateful
+              fused_batch_norm_act islands, its logits against the
+              unfused eval program's (bitwise or within rtol 1e-4, atol
+              1e-5, printed), fluid.metrics.Accuracy's eval() equal to
+              the sample-weighted mean of the fetched batch accuracies,
+              and under ExecutionStrategy(allow_mixed_compilation=False)
+              interpreted and bitwise alike. (b) The train phase's
+              BERT-base f32 step (dropout 0.1, input mask, batch 32): 3
+              steps by Executor.run, through
+              CompiledProgram.with_data_parallel(loss_name) with
+              ExecutionStrategy(), with allow_mixed_compilation=False
+              (the block has no island: it compiles whole, as in the TPU
+              package) and interpreted, from the same parameters: losses
+              and every persistable bitwise alike, (0, 0, 0, 0, 37, 0, 0,
+              0, 0, 24, 12, 12) launches a run (wrappers, graph, a trace
+              of one replay). (c) bench.py's longctx lane (causal bf16
+              attention, B = 1, H = 12, S = Sk = 8192, D = 64): the
+              streamed forward, dQ and dK/dV kernels against their plain
+              versions, each twice and bitwise alike (limits per output,
+              LONGCTX_TOL, each shown to fail a plain version with one
+              tile of the causal grid left out), each timed beside its bound, its plain version and
+              SDPA (is_causal; the backward as fwd+bwd minus fwd), the
+              port's and SDPA's fwd+bwd graph-replayed; then the lane
+              through paddle_tpu_torch.bench (its JSON line printed): (0,
+              0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0) launches a step through
+              the wrappers, and in a trace of a replay of the step's
+              graph. (d) bench.py's mnist_realdata loader (64
+              batches of 64) with use_multiprocess=True beside the thread
+              prefetch: batches bitwise the generator's, the losses of
+              two passes bitwise alike (a batch a run, and window(8)),
+              samples/s of each pass, cold and warm, no segment of this process left in /dev/shm. (e)
+              fluid.install_check.run_check() on the card.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -503,6 +547,10 @@ INTERP_WINDOW_S = 2.0         # seconds served per batch size, interpreted
 INTERP_STEPS = 8              # interpreted training steps (2 warm-up)
 TRACE_GUARD_S = 0.05          # host sleep between a traced window's edges
                               # and the kernels it counts
+TRACE_PAD = 256               # small kernels a trace's recorded cycle runs
+                              # before the kernels it counts: late in a
+                              # whole run a trace has lost the first 1 to 7
+                              # device records of that cycle (ROADMAP C2)
 GRAPH_TOL = 1e-6              # graph replay vs interpreted on the card,
                               # relative: the same kernels in the same
                               # order, so expected bit for bit
@@ -1840,8 +1888,11 @@ def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None,
     timestamps, moved to that clock, can sit a little off it: ``fn()``
     starts ``guard_s`` (TRACE_GUARD_S) after the window opens, and the
     window closes ``guard_s`` after ``fn()``'s last kernel has finished
-    (tools/trace_window_check.py measures both ways). ``fn()`` runs once,
-    in the one recorded cycle. ``timing``, a dict, receives where the
+    (tools/trace_window_check.py measures both ways). Late in a whole run
+    a trace has also lost the first 1 to 7 device records of its recorded
+    cycle (ROADMAP C2, cause not found), so that cycle runs TRACE_PAD
+    small kernels, none of ``names``, before ``fn()``. ``fn()`` runs
+    once, in the one recorded cycle. ``timing``, a dict, receives where the
     trace's device events sit on the host's clock (``_trace_timing``).
     ``warm``: what the warm-up cycle runs instead of the small kernel. A
     CUDA graph's first replay inside a profiler session can go
@@ -1852,6 +1903,7 @@ def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     guard_s = TRACE_GUARD_S if guard_s is None else guard_s
+    pad = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
@@ -1862,6 +1914,8 @@ def _device_kernel_counts(fn, names=DEVICE_KERNELS, guard_s=None,
         torch.cuda.synchronize()
         prof.step()
         time.sleep(guard_s)
+        for _ in range(TRACE_PAD):
+            pad.add_(1)
         fn()
         torch.cuda.synchronize()
         time.sleep(guard_s)
@@ -2893,21 +2947,35 @@ def _persistables(scope, program):
 
 
 def _train_steps(exe, main, loss, scope, feeds, want, runs, what,
-                 book=None):
+                 book=None, outs=None, segmented=False):
     """One compiled Executor.run a feed, each gated on its kernel
     launches (``_gate_run``) and booked in ``book`` when one is given →
-    (seconds of each run, losses)."""
+    (seconds of each run, losses). ``loss`` is the fetch, or a list of
+    fetches that starts with it; ``outs``, a list, receives each run's
+    fetches. With ``segmented`` a run of a block split around islands
+    is taken too, gated on no launch (``want`` is then NO_KERNELS) and
+    counted as "segmented"."""
     import numpy as np
+    fetch = list(loss) if isinstance(loss, (list, tuple)) else [loss]
     times, losses = [], []
     for feed in feeds:
         before = _launch_counts()
         t = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         times.append(time.perf_counter() - t)
         delta = tuple(a - b for a, b in zip(_launch_counts(), before))
-        runs[_gate_run(exe, delta, want, what)] += 1
+        if segmented and exe._last_run_mode == "segmented":
+            if want != NO_KERNELS or delta != NO_KERNELS:
+                raise AssertionError(f"{what} (segmented): launches "
+                                     f"through the wrappers {delta}, want "
+                                     f"{want}")
+            runs["segmented"] += 1
+        else:
+            runs[_gate_run(exe, delta, want, what)] += 1
         if book is not None:
             book.add(want)
+        if outs is not None:
+            outs.append(out)
         losses.append(float(out[0].reshape(-1)[0]))
         if not np.isfinite(losses[-1]):
             raise AssertionError(f"{what}: non-finite loss {losses[-1]}")
@@ -7148,10 +7216,622 @@ def phase_lod():
     return {"wrapper": wrapper, "executed": tuple(book.executed)}
 
 
+CP_TAG = "[compiler]"
+CP_RESNET_BATCH = 64          # bench.py's resnet lane batch, f32 here
+CP_IMAGE = 224                # ImageNet's 224x224 crops, 1000 classes
+CP_RESNET_LR = RESNET_FALL_LR  # where the f32 loss falls (bench.py's 0.1
+                               # rings at batch 64)
+CP_RESNET_STEPS = 3           # eager, capture, replay
+CP_EVAL_BATCHES = 4           # eval batches accumulated by Accuracy
+CP_BERT_STEPS = 3             # eager, capture, replay
+# the census of the fuse passes on the ResNet-50 programs (stem and 16
+# bottlenecks: 1 + 2·16 batch_norm + relu, 16 residual add + relu), the
+# TPU package's passes' on the same programs in
+# tests/test_torch_compiler.py; in the train program the grad ops read
+# every intermediate and nothing fuses
+CP_RESNET_CENSUS = {
+    "train": {"fused_batch_norm_act": 0, "fused_elemwise_activation": 0,
+              "batch_norm": 53, "relu": 49},
+    "eval": {"fused_batch_norm_act": 33, "fused_elemwise_activation": 16,
+             "batch_norm": 20, "relu": 0}}
+CP_FUSED_TOL = RESNET_PRED_TOL  # fused vs unfused eval logits, (rtol, atol)
+LONGCTX_WANT = (0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0)  # a longctx fwd+bwd
+LONGCTX_BOUND_MS = 0.365      # bench.py's 360.8 GFLOP at 989 TFLOP/s
+LONGCTX_BLOCK = 128           # rows of a tile, queries or keys
+# the streamed kernels against their f32 plain versions at the longctx
+# shape: lse by max|d|, each bf16 output by max|d| in a tile's rows of one
+# head over that tile's max|plain| (one bf16 ulp is 2^-8 to 2^-7 of it).
+# A plain version with one tile of the causal grid left out must fail
+# each (_longctx_skip_tile)
+LONGCTX_TOL = {"O": 2e-2, "lse": 1e-4, "dQ": 2e-2, "dK": 2e-2, "dV": 2e-2}
+MP_BATCH, MP_BATCHES, MP_K = 64, 64, 8  # bench.py's mnist_realdata lane
+
+
+def _cp_census(program):
+    types = [op.type for op in program.global_block().ops]
+    return {t: types.count(t) for t in CP_RESNET_CENSUS["train"]}
+
+
+def _cp_resnet_programs():
+    """models/resnet.py's ResNet-50 train step as PaddleCV's script builds
+    it: the eval clone taken before Momentum → (main, startup, test,
+    [loss, acc, logits])."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        img = fluid.data("image", shape=[3, CP_IMAGE, CP_IMAGE],
+                         dtype="float32")
+        label = fluid.data("label", shape=[1], dtype="int64")
+        pred = resnet.resnet(img, 1000, 50)
+        loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, label))
+        acc = fluid.layers.accuracy(pred, label)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(CP_RESNET_LR, momentum=0.9).minimize(loss)
+    startup.random_seed = main.random_seed = test.random_seed = SEED
+    return main, startup, test, [loss.name, acc.name, pred.name]
+
+
+def _cp_fuse_strategy():
+    from paddle_tpu_torch import fluid
+    bs = fluid.BuildStrategy()
+    bs.fuse_bn_act_ops = True
+    bs.fuse_elewise_add_act_ops = True
+    return bs
+
+
+def _cp_same(what, a, b):
+    import numpy as np
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if not np.array_equal(u, v):
+                raise AssertionError(f"{CP_TAG} {what}: run {i} fetch {j} "
+                                     "differs")
+    _log(f"{CP_TAG} {what}: {len(a)} runs, every fetch bitwise equal")
+
+
+def _cp_resnet(book):
+    """(a) ResNet-50 at batch 64 under CompiledProgram with BuildStrategy's
+    fuse passes, its eval clone with share_vars_from and
+    fluid.metrics.Accuracy."""
+    import collections
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    main, startup, test, fetch = _cp_resnet_programs()
+    rng = np.random.RandomState(SEED + 19)
+
+    def batch():
+        return {"image": rng.rand(CP_RESNET_BATCH, 3, CP_IMAGE,
+                                  CP_IMAGE).astype("float32"),
+                "label": rng.randint(0, 1000, (CP_RESNET_BATCH, 1))
+                .astype("int64")}
+    feeds = [batch() for _ in range(CP_RESNET_STEPS)]
+    evals = [batch() for _ in range(CP_EVAL_BATCHES)]
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe0, scope0 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe0.run(startup, scope=scope0)
+    init = _clone_scope(scope0, names, "cuda")
+    exe0.close()
+    del exe0, scope0
+    runs = {}
+    for how in ("plain", "compiled", "fused"):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = _clone_scope(init, names, "cuda")
+        if how == "plain":
+            prog = main
+        else:
+            prog = fluid.CompiledProgram(main).with_data_parallel(
+                loss_name=fetch[0],
+                build_strategy=_cp_fuse_strategy() if how == "fused"
+                else None)
+        t0 = time.perf_counter()
+        out, modes = [], collections.Counter()
+        times, losses = _train_steps(exe, prog, fetch[:2], scope, feeds,
+                                     NO_KERNELS, modes,
+                                     f"{CP_TAG} ResNet-50 {how}", book,
+                                     outs=out)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[how] = (out, exe, scope, prog)
+        _log(f"{CP_TAG} ResNet-50 batch {CP_RESNET_BATCH} f32, Momentum "
+             f"{CP_RESNET_LR}, {how}: {CP_RESNET_STEPS} compiled steps "
+             f"{dict(modes)} in {dt:.2f} s (ms a run " + ", ".join(
+                 f"{t * 1e3:.1f}" for t in times) + "), losses " +
+             " ".join(f"{x:.4f}" for x in losses))
+        if how != "fused":
+            exe.close()
+    _cp_same("ResNet-50 CompiledProgram.with_data_parallel (no build "
+             "strategy) vs Executor.run", runs["compiled"][0],
+             runs["plain"][0])
+    # nothing fuses in the train program, so the fused strategy's step is
+    # the plain one
+    _cp_same("ResNet-50 with fuse_bn_act_ops and fuse_elewise_add_act_ops "
+             "vs Executor.run", runs["fused"][0], runs["plain"][0])
+    _, exe, scope, train = runs["fused"]
+    census = {"train": _cp_census(train._program)}
+    ev = fluid.CompiledProgram(test.clone()).with_data_parallel(
+        share_vars_from=train, build_strategy=_cp_fuse_strategy())
+    metric = fluid.metrics.Accuracy()
+    fused, modes = [], collections.Counter()
+    t0 = time.perf_counter()
+    # no scope: the eval program reads the trained program's
+    _train_steps(exe, ev, fetch, None, evals, NO_KERNELS, modes,
+                 f"{CP_TAG} fused eval", outs=fused, segmented=True)
+    torch.cuda.synchronize()
+    ev_s = time.perf_counter() - t0
+    for got in fused:
+        metric.update(got[1], CP_RESNET_BATCH)
+    census["eval"] = _cp_census(ev._program)
+    if census != CP_RESNET_CENSUS:
+        raise AssertionError(f"{CP_TAG} fused census {census}, the TPU "
+                             f"package's passes give {CP_RESNET_CENSUS}")
+    _log(f"{CP_TAG} fused-op census, train {census['train']}, eval "
+         f"{census['eval']}: the TPU package's on the same programs")
+    # the stateful fused_batch_norm_act is an island: compiled segments
+    # (a CUDA graph each) around 33 islands
+    if modes != {"segmented": CP_EVAL_BATCHES}:
+        raise AssertionError(f"{CP_TAG} fused eval runs {dict(modes)}")
+    segs = exe._last_block.segments
+    n_islands = sum(s.kind == "island" for s in segs)
+    t0 = time.perf_counter()
+    plain = [exe.run(test, feed=f, fetch_list=fetch, scope=scope)
+             for f in evals]
+    plain_s = time.perf_counter() - t0
+    if exe._last_run_mode != "compiled":
+        raise AssertionError(f"{CP_TAG} unfused eval ran "
+                             f"{exe._last_run_mode}")
+    worst, bitwise = 0.0, True
+    for got, ref in zip(fused, plain):
+        a, b = got[2], ref[2]
+        bitwise &= bool(np.array_equal(a, b))
+        worst = max(worst, float(np.abs(a - b).max()))
+        if not np.allclose(a, b, rtol=CP_FUSED_TOL[0], atol=CP_FUSED_TOL[1]):
+            raise AssertionError(f"{CP_TAG} fused eval logits off the "
+                                 f"unfused ones by {worst:.3e}")
+    # a replayed batch of each, host clock, 3 runs
+    def per_batch(prog, **kw):
+        t = time.perf_counter()
+        for _ in range(3):
+            exe.run(prog, feed=evals[-1], fetch_list=fetch, **kw)
+        return (time.perf_counter() - t) / 3 * 1e3
+    fused_ms, plain_ms = per_batch(ev), per_batch(test, scope=scope)
+    accs = [float(g[1].reshape(-1)[0]) for g in fused]
+    mean = sum(a * CP_RESNET_BATCH for a in accs) / (
+        CP_RESNET_BATCH * len(accs))
+    if metric.eval() != mean:
+        raise AssertionError(f"{CP_TAG} Accuracy.eval() {metric.eval()} vs "
+                             f"the weighted mean {mean}")
+    # allow_mixed_compilation=False pins the mixed block to the interpreter
+    es = fluid.ExecutionStrategy()
+    es.allow_mixed_compilation = False
+    pinned = fluid.CompiledProgram(test.clone()).with_data_parallel(
+        share_vars_from=train, build_strategy=_cp_fuse_strategy(),
+        exec_strategy=es)
+    before = _launch_counts()
+    got = exe.run(pinned, feed=evals[0], fetch_list=fetch)
+    if exe._last_run_mode != "interpreted" or _delta(before) != NO_KERNELS:
+        raise AssertionError(f"{CP_TAG} allow_mixed_compilation=False ran "
+                             f"{exe._last_run_mode}")
+    _cp_same("fused eval, allow_mixed_compilation=False (interpreted) vs "
+             "segmented", [got], fused[:1])
+    _log(f"{CP_TAG} eval (the test clone, share_vars_from the trained "
+         f"program): {CP_EVAL_BATCHES} batches of {CP_RESNET_BATCH} in "
+         f"{ev_s:.3f} s, runs {dict(modes)} ({len(segs)} segments, {n_islands} "
+         f"islands; the unfused eval program, compiled whole, "
+         f"{plain_s:.3f} s, each with its eager run and capture); a "
+         f"replayed batch {fused_ms:.2f} ms fused (segmented), "
+         f"{plain_ms:.2f} ms unfused (one graph); logits fused vs "
+         f"unfused " +
+         ("bitwise equal" if bitwise else f"max|d| {worst:.3e}") +
+         f" (tol rtol {CP_FUSED_TOL[0]:g} atol {CP_FUSED_TOL[1]:g}); "
+         f"Accuracy.eval() {metric.eval():.6f} = the sample-weighted mean "
+         f"of the batches' {accs}")
+    exe.close()
+    return {"census": census, "bitwise_logits": bitwise}
+
+
+def _cp_bert(book):
+    """(b) The BERT-base f32 pretraining step at batch 32 through
+    CompiledProgram.with_data_parallel(loss_name) with
+    ExecutionStrategy(), against Executor.run from the same parameters;
+    with allow_mixed_compilation=False; through the interpreter."""
+    import collections
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    main, startup, loss = _pretrain_program(cfg, TRAIN_DROPOUT)
+    want = _step_want(main.global_block().ops, _attention_route(main))
+    if want != TRAIN_STEP_WANT:
+        raise AssertionError(f"{CP_TAG} BERT step wants {want}")
+    rng = np.random.RandomState(SEED + 20)
+    feeds = [_train_batch(rng, TRAIN_BATCH, cfg)
+             for _ in range(CP_BERT_STEPS)]
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe0, scope0 = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe0.run(startup, scope=scope0)
+    init = _clone_scope(scope0, names, "cuda")
+    exe0.close()
+    del exe0, scope0
+    es_pinned = fluid.ExecutionStrategy()
+    es_pinned.allow_mixed_compilation = False
+    results, state = {}, {}
+    for how in ("plain", "compiled", "pinned", "interpreted"):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = _clone_scope(init, names, "cuda")
+        prog = main if how == "plain" else \
+            fluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name,
+                exec_strategy=es_pinned if how == "pinned"
+                else fluid.ExecutionStrategy())
+        if how == "interpreted":
+            out = [_interpreted(exe, prog, f, [loss], scope, want, book,
+                                f"{CP_TAG} BERT-base interpreted")
+                   for f in feeds]
+            modes, times = {"interpreted": len(out)}, []
+        else:
+            out, modes = [], collections.Counter()
+            times, _ = _train_steps(exe, prog, loss, scope, feeds, want,
+                                    modes, f"{CP_TAG} BERT-base {how}",
+                                    book, outs=out)
+        results[how] = out
+        state[how] = _persistables(scope, main)
+        _log(f"{CP_TAG} BERT-base f32 step batch {TRAIN_BATCH}, {how}: "
+             f"runs {dict(modes)} (ms a run " + ", ".join(
+                 f"{t * 1e3:.1f}" for t in times) + "), losses " +
+             " ".join(f"{float(o[0].reshape(-1)[0]):.6f}" for o in out))
+        if how == "compiled":
+            # two more replays, the second in a trace (the first in its
+            # warm-up cycle, ROADMAP C2): the card ran the step's kernels
+            def replay():
+                exe.run(prog, feed=feeds[-1], fetch_list=[loss],
+                        scope=scope)
+            _check_trace(_device_kernel_counts(replay, warm=replay), want,
+                         "BERT-base step through CompiledProgram")
+            book.add(want, 2)
+        exe.close()
+    for how in ("compiled", "pinned", "interpreted"):
+        _cp_same(f"BERT-base {how} vs Executor.run", results[how],
+                 results["plain"])
+        _same_state(f"BERT-base {how} vs Executor.run after "
+                    f"{CP_BERT_STEPS} steps", state[how], state["plain"],
+                    tag=CP_TAG)
+    return results
+
+
+def _longctx_errs(got, want):
+    """Each longctx output of ``got`` against ``want`` (dicts keyed as
+    LONGCTX_TOL) → {name: (its measure against LONGCTX_TOL, max|d|)}:
+    lse by max|d|; O, dQ, dK and dV, each [B, H, S, D], by the largest
+    max|d| over max|want| of a tile of LONGCTX_BLOCK rows of one head."""
+    out = {}
+    for n, w in want.items():
+        d = (got[n].float() - w.float()).abs()
+        if n == "lse":
+            out[n] = (d.max().item(), d.max().item())
+            continue
+        tiles = (*w.shape[:2], w.shape[2] // LONGCTX_BLOCK, -1)
+        scale = w.float().abs().reshape(tiles).amax(-1).clamp_min(1e-30)
+        out[n] = ((d.reshape(tiles).amax(-1) / scale).max().item(),
+                  d.max().item())
+    return out
+
+
+def _longctx_skip_tile(q, k, v, do, sm, o, lse, dq, dk, dv, qt, kt):
+    """The plain outputs (o, lse, dq, dk, dv) of causal attention with the
+    scores of query tile ``qt`` on key tile ``kt`` < ``qt`` left out, as
+    kernels whose causal skip drops one tile more would give them: that
+    tile's share of each row's softmax taken out of O and lse, and its
+    terms out of dQ (those rows) and dK, dV (those keys), with the
+    forward's lse and delta, as the backward kernels read them."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    B, H = q.shape[:2]
+    qi = slice(qt * LONGCTX_BLOCK, (qt + 1) * LONGCTX_BLOCK)
+    kj = slice(kt * LONGCTX_BLOCK, (kt + 1) * LONGCTX_BLOCK)
+    qf, dof = q[:, :, qi].float(), do[:, :, qi].float()
+    kf, vf = k[:, :, kj].float(), v[:, :, kj].float()
+    lq = lse.reshape(B, H, -1)[:, :, qi, None]
+    p = torch.exp(qf @ kf.transpose(-1, -2) * sm - lq)
+    rest = 1 - p.sum(-1, keepdim=True)
+    o2, lse2, dq2, dk2, dv2 = (t.clone() for t in (o, lse, dq, dk, dv))
+    o2[:, :, qi] = ((o[:, :, qi].float() - p @ vf) / rest).to(o.dtype)
+    lse2.reshape(B, H, -1)[:, :, qi] = (lq + torch.log(rest))[..., 0]
+    delta = fa.bwd_delta(o, do).reshape(B, H, -1)[:, :, qi, None]
+    ds = p * (dof @ vf.transpose(-1, -2) - delta) * sm
+    dq2[:, :, qi] = (dq[:, :, qi].float() - ds @ kf).to(dq.dtype)
+    dk2[:, :, kj] = (dk[:, :, kj].float()
+                     - ds.transpose(-1, -2) @ qf).to(dk.dtype)
+    dv2[:, :, kj] = (dv[:, :, kj].float()
+                     - p.transpose(-1, -2) @ dof).to(dv.dtype)
+    return o2, lse2, dq2, dk2, dv2
+
+
+def _cp_longctx(fwd_rows, bwd_rows):
+    """(c)'s comparisons and timings: the streamed kernels at the longctx
+    shape against their plain versions, twice and bitwise alike, each
+    timed beside its bound, its plain version and SDPA. Launches here are
+    comparisons: the caller resets the counts after."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch import bench
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    shape = bench.LONGCTX
+    B_, H_, S_, D_ = (shape[k] for k in ("batch", "heads", "seq_len",
+                                         "head_dim"))
+    q, k, v = bench.longctx_inputs(device=torch.device("cuda", 0), **shape)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8192)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    sm = 1.0 / D_ ** 0.5
+    tail = (sm, True, 0.0, None, None)
+    if fa.fwd_route(q.shape, k.shape, q.dtype) != "streamed":
+        raise AssertionError(f"{CP_TAG} longctx does not take the streamed "
+                             "kernels")
+    what = f"bfloat16 B={B_} H={H_} S={S_} D={D_} causal no bias"
+    o, lse = fa.flash_attention_fwd_streamed_cuda(q, k, v, *tail)
+    o2, lse2 = fa.flash_attention_fwd_streamed_cuda(q, k, v, *tail)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{CP_TAG} streamed forward at {what}: two "
+                             "runs differ")
+    ref = fa.flash_attention_reference(q, k, v, *tail)
+    dq, stats = fa.flash_attention_bwd_dq_streamed_cuda(q, k, v, o, lse, do,
+                                                        *tail)
+    dk, dv = fa.flash_attention_bwd_dkdv_streamed_cuda(q, k, v, do, stats,
+                                                       *tail)
+    dq2, stats2 = fa.flash_attention_bwd_dq_streamed_cuda(q, k, v, o, lse,
+                                                          do, *tail)
+    dk2, dv2 = fa.flash_attention_bwd_dkdv_streamed_cuda(q, k, v, do, stats2,
+                                                         *tail)
+    if not all(torch.equal(a, b) for a, b in ((dq, dq2), (dk, dk2),
+                                              (dv, dv2))):
+        raise AssertionError(f"{CP_TAG} streamed backward at {what}: two "
+                             "runs differ")
+    delta = fa.bwd_delta(o, do)
+    want_q = fa.flash_attention_bwd_q_reference(q, k, v, do, lse, delta,
+                                                *tail)
+    want_kv = fa.flash_attention_bwd_kv_reference(q, k, v, do, lse, delta,
+                                                  *tail)
+    want = dict(zip(LONGCTX_TOL, (*ref, want_q, *want_kv)))
+    errs = _longctx_errs(dict(zip(LONGCTX_TOL, (o, lse, dq, dk, dv))),
+                         want)
+    qt = S_ // LONGCTX_BLOCK - 1
+    planted = _longctx_errs(dict(zip(LONGCTX_TOL, _longctx_skip_tile(
+        q, k, v, do, sm, *want.values(), qt, qt // 2))), want)
+    _log(f"[kernel] longctx {what} (twice, bitwise alike) against the plain "
+         f"versions: " + ", ".join(
+             f"{n} {errs[n][0]:.3e} (max|d| {errs[n][1]:.3e})"
+             for n in LONGCTX_TOL) + f"; with query tile {qt}'s scores on "
+         f"key tile {qt // 2} left out of the plain versions: " +
+         ", ".join(f"{n} {planted[n][0]:.3e}" for n in LONGCTX_TOL) +
+         "; limits " + ", ".join(f"{n} {t:g}" for n, t in
+                                 LONGCTX_TOL.items()))
+    for n, t in LONGCTX_TOL.items():
+        if not errs[n][0] <= t:
+            raise AssertionError(f"{CP_TAG} streamed {n} at {what}: "
+                                 f"{errs[n][0]:.3e} off its plain version, "
+                                 f"limit {t:g}")
+        if not planted[n][0] > t:
+            raise AssertionError(f"{CP_TAG} the {n} limit {t:g} passes a "
+                                 f"skipped tile ({planted[n][0]:.3e})")
+    err_f = max(errs["O"][1], errs["lse"][1])
+    e_q, e_k, e_v = (errs[n][1] for n in ("dQ", "dK", "dV"))
+    del ref, want, want_q, want_kv, dq2, dk2, dv2, stats2, o2, lse2
+    torch.cuda.empty_cache()
+    # times: each kernel graph-replayed, the plain versions issued from
+    # Python (a call holds S x S f32 matrices), SDPA's causal forward and
+    # backward (is_causal, its flash backend) graph-replayed
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              scale=sm)
+    sdpa_fwd = _cuda_ms(sdpa, iters=20)
+    sdpa_all = _cuda_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs),
+                                                    do), iters=20)
+    port_all = _cuda_ms(lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, *fa.flash_attention_cuda(q, k, v, *tail), do, *tail),
+        iters=20)
+    rows = {}
+    for name, fn, plain_fn, bnd in (
+            ("flash_attention_fwd_streamed",
+             lambda: fa.flash_attention_fwd_streamed_cuda(q, k, v, *tail),
+             lambda: fa.flash_attention_reference(q, k, v, *tail),
+             fwd_bound(B_, H_, S_, S_, D_, "bfloat16", False, True)),
+            ("flash_attention_bwd_dq_streamed",
+             lambda: fa.flash_attention_bwd_dq_streamed_cuda(
+                 q, k, v, o, lse, do, *tail),
+             lambda: fa.flash_attention_bwd_q_reference(
+                 q, k, v, do, lse, fa.bwd_delta(o, do), *tail),
+             _bwd_bound(B_, H_, S_, S_, D_, 6, "q_streamed", "bfloat16",
+                        False, True)),
+            ("flash_attention_bwd_dkdv_streamed",
+             lambda: fa.flash_attention_bwd_dkdv_streamed_cuda(
+                 q, k, v, do, stats, *tail),
+             lambda: fa.flash_attention_bwd_kv_reference(
+                 q, k, v, do, lse, delta, *tail),
+             _bwd_bound(B_, H_, S_, S_, D_, 8, "kv", "bfloat16", False,
+                        True))):
+        ms = _cuda_ms(fn, iters=20)
+        plain = _cuda_ms(plain_fn, iters=2, warmup=1, graph=False)
+        torch.cuda.empty_cache()
+        lib = sdpa_fwd if name.endswith("fwd_streamed") \
+            else sdpa_all - sdpa_fwd
+        err = err_f if name.endswith("fwd_streamed") else (
+            e_q if "dq" in name else max(e_k, e_v))
+        _log(f"[kernel] time {name} {what}: kernel {ms:.4f} ms, plain "
+             f"{plain:.4f} ms, SDPA {'forward' if lib is sdpa_fwd else 'backward (fwd+bwd minus fwd)'} "
+             f"(is_causal, graph-timed) {lib:.4f} ms, bound {bnd[0]:.4f} "
+             f"ms ({bnd[1]}: {bnd[2]} FLOP, {bnd[3]} B), "
+             f"{bnd[0] / ms:.1%} of it")
+        _check_bound(f"{name} {what}", ms, bnd[0])
+        row = dict(shape=what, ms=ms, plain_ms=plain, library_ms=lib,
+                   bound_ms=bnd[0], bound_by=bnd[1], max_abs_err=err)
+        rows[name] = row
+        (fwd_rows if name.endswith("fwd_streamed") else bwd_rows)[name][
+            "timings"].append(row)
+    _log(f"{CP_TAG} longctx fwd+bwd on the card, graph-replayed: the "
+         f"port's kernels {port_all:.4f} ms, SDPA (is_causal) "
+         f"{sdpa_all:.4f} ms, port/SDPA {port_all / sdpa_all:.3f}; bound "
+         f"{LONGCTX_BOUND_MS} ms (bench.py's 360.8 GFLOP at 989 TFLOP/s)")
+    return {"port_ms": port_all, "sdpa_ms": sdpa_all, "rows": rows}
+
+
+def _cp_longctx_lane(book):
+    """(c)'s main path: bench.py's longctx lane through
+    paddle_tpu_torch.bench (flash_attention's autograd function), its
+    launches counted, one step's in a trace."""
+    import torch
+    from paddle_tpu_torch import bench
+    before = _launch_counts()
+    res = bench.bench_longctx(device="cuda")
+    steps = 10  # bench_longctx's 2 warm-up steps and 8 timed
+    got = _delta(before)
+    if got != tuple(steps * w for w in LONGCTX_WANT):
+        raise AssertionError(f"{CP_TAG} longctx lane launched {got}, want "
+                             f"{steps} x {LONGCTX_WANT}")
+    book.add(LONGCTX_WANT, steps)
+    q, k, v = bench.longctx_inputs(device=torch.device("cuda", 0),
+                                   **bench.LONGCTX)
+    # the trace holds a replay of the step's graph, as every other gate's
+    # does
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            bench.longctx_step(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bench.longctx_step(q, k, v)
+    graph.replay()
+    timing = {}
+    counts = _device_kernel_counts(graph.replay, warm=graph.replay,
+                                   timing=timing)
+    _log(f"{CP_TAG} the longctx trace on the host's clock (ms): {timing}")
+    _check_trace(counts, LONGCTX_WANT, "a longctx fwd+bwd step's graph")
+    # 3 warm-ups and 3 replays ran the kernels (the capture none)
+    book.add(LONGCTX_WANT, 6)
+    print(json.dumps(res), flush=True)
+    _log(f"{CP_TAG} longctx lane: {res['value']} tokens/s, step "
+         f"{res['step_ms']} ms (CUDA events over 8 host-issued steps), "
+         f"{res['attn_tflops']} TFLOP/s of attention; bound "
+         f"{res['bound_ms']} ms, {res['bound_ms'] / res['step_ms']:.1%} of "
+         f"it; {res['device']}, {res['power_limit']}")
+    return res
+
+
+def _cp_loader(book):
+    """(d) bench.py's mnist_realdata lane's loader with use_multiprocess
+    beside the thread prefetch: batches and the losses of two passes
+    bitwise alike, samples/s of each pass (the first with the executor's
+    eager run and capture, the second warm), /dev/shm left as it was."""
+    import os
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import bench, fluid
+    batches = bench._mnist_batches(MP_BATCH, MP_BATCHES)
+    build = bench._mnist_realdata_build(256)
+    prefix = fluid.reader.segment_prefix()
+    shm_before = sorted(os.listdir("/dev/shm"))
+    res = {}
+    for mp in (False, True):
+        ldr = fluid.DataLoader.from_generator(capacity=4,
+                                              use_multiprocess=mp)
+        ldr.set_batch_generator(lambda: iter(batches),
+                                places=fluid.CUDAPlace(0))
+        seen = list(ldr)
+        if len(seen) != len(batches) or not all(
+                np.array_equal(s[n], b[n]) for s, b in zip(seen, batches)
+                for n in b):
+            raise AssertionError(f"{CP_TAG} loader (multiprocess {mp}): "
+                                 "batches differ from the generator's")
+        for windowed in (False, True):
+            main, startup, fetch = build()
+            exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+            exe.run(startup, scope=scope)
+            for warm in (False, True):
+                src = ldr.window(MP_K) if windowed else ldr
+                losses = []
+                t0 = time.perf_counter()
+                first = None
+                for f in src:
+                    if first is None:  # a worker's fork with its batch
+                        first = (time.perf_counter() - t0) * 1e3
+                    before = _launch_counts()
+                    out = exe.run(main, feed=f, fetch_list=fetch,
+                                  scope=scope)
+                    if _delta(before) != NO_KERNELS:
+                        raise AssertionError(f"{CP_TAG} the MLP launched "
+                                             f"{_delta(before)}")
+                    losses.append(np.asarray(out[0]).ravel())
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                res[mp, windowed, warm] = (np.concatenate(losses),
+                                           MP_BATCH * len(batches) / dt,
+                                           first)
+            exe.close()
+    for key in ((w, p) for w in (False, True) for p in (False, True)):
+        if not np.array_equal(res[(False, *key)][0], res[(True, *key)][0]):
+            raise AssertionError(f"{CP_TAG} a pass's losses differ between "
+                                 f"the loaders (window, warm: {key})")
+    shm_after = sorted(os.listdir("/dev/shm"))
+    leaked = [n for n in shm_after if n.startswith(prefix)]
+    if leaked:
+        raise AssertionError(f"{CP_TAG} the loaders left {leaked} in "
+                             "/dev/shm")
+
+    def line(windowed, warm):
+        t, m = res[False, windowed, warm], res[True, windowed, warm]
+        return (f"thread {t[1]:.1f}, multiprocess {m[1]:.1f} (x"
+                f"{m[1] / t[1]:.3f}; first batch after {t[2]:.1f} and "
+                f"{m[2]:.1f} ms)")
+    _log(f"{CP_TAG} mnist_realdata loader, {MP_BATCHES} batches of "
+         f"{MP_BATCH}: batches bitwise the generator's and the losses of "
+         f"two passes bitwise alike through both loaders; samples/s of a "
+         f"pass, the first with the executor's eager run and capture: " +
+         line(False, False) + f", window({MP_K}) " + line(True, False) +
+         "; the second pass, warm: " + line(False, True) +
+         f", window({MP_K}) " + line(True, True) + f"; /dev/shm held "
+         f"{len(shm_before)} entries before, {len(shm_after)} after, none "
+         f"of this process's")
+    return {k: v[1] for k, v in res.items()}
+
+
+def phase_compiler(fwd_rows, bwd_rows):
+    """Phase 19: the v1.7 training-script front end (the docstring's
+    phase 19). → the launches of its main paths: through the wrappers and
+    on the card."""
+    from paddle_tpu_torch import fluid
+    t0 = time.perf_counter()
+    longctx = _cp_longctx(fwd_rows, bwd_rows)
+    book = _CfBook()
+    _reset_launch_counts()
+    resnet = _cp_resnet(book)
+    _cp_bert(book)
+    lane = _cp_longctx_lane(book)
+    loader = _cp_loader(book)
+    before = _launch_counts()
+    loss = fluid.install_check.run_check()
+    if _delta(before) != NO_KERNELS:
+        raise AssertionError(f"{CP_TAG} run_check launched {_delta(before)}")
+    _log(f"{CP_TAG} fluid.install_check.run_check() on the card: loss "
+         f"{float(loss.reshape(-1)[0]):.6f}")
+    wrapper = _launch_counts()
+    _log(f"{CP_TAG} phase 19 in {time.perf_counter() - t0:.1f} s: launches "
+         f"through the wrappers {GATE_NAMES} {wrapper}, on the card "
+         f"{tuple(book.executed)}")
+    return {"wrapper": wrapper, "executed": tuple(book.executed),
+            "resnet": resnet, "longctx": longctx, "lane": lane,
+            "loader": loader}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -7192,6 +7872,7 @@ def main(argv=None) -> int:
     paths["control_flow"] = phase_control_flow(paths["train"]["p50_ms"])
     paths["optimizers"] = phase_optimizers(paths["train"]["p50_ms"])
     paths["lod"] = phase_lod()
+    paths["compiler"] = phase_compiler(fwd_rows, bwd_rows)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded
@@ -7257,6 +7938,7 @@ def main(argv=None) -> int:
                                  "tiled_ms", "pair_ms", "split_route_ms",
                                  "old_route_ms", "delta_ms")
                if k in r}))
+    _log(f"[card] phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

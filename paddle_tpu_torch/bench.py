@@ -2,7 +2,7 @@
 
     python3 -m paddle_tpu_torch.bench
         [bert|mnist|resnet|transformer|wide_deep|mnist_realdata|
-         mnist_guard|wide_deep_realdata] [--device cpu]
+         mnist_guard|wide_deep_realdata|longctx] [--device cpu]
 
 Each lane is the function of the same name in the repository's bench.py
 (the TPU package's), with what it configures ported unchanged: the model,
@@ -38,6 +38,25 @@ is all graph replays).
          ``ctr_reader(4096, seed=0)``: a warm window of 5 steps, then 20
          timed steps (the block runs segmented: a window is a host loop
          of single steps, its auc island acting every step).
+
+  longctx
+         the single-card half of bench.py's bench_longctx (:1653-1700):
+         causal bf16 attention at B = 1, H = 12, S = Sk = 8192, D = 64,
+         forward and backward through ``flash_attention``'s autograd
+         function (on the card the streamed kernels: 64 key tiles of
+         128, the masked half of the tiles skipped), the loss the sum
+         of O² in f32 plus the squared grads; q, k, v from
+         ``RandomState(0).randn · 0.3``. 8 fwd+bwd steps timed after 2,
+         CUDA events around them. Its line is bench.py's (``metric``
+         longctx_attention_tokens_per_sec, ``value`` in tokens/s,
+         ``seq_len``, ``heads``, ``head_dim``, ``mode``
+         flash_causal_1card, ``devices`` 1, ``step_ms``,
+         ``attn_tflops``: bench.py's 4·B·H·S²·D / 2 · 3.5 = 360.8 GFLOP
+         a step) with ``loss``, ``device`` and, on the card,
+         ``bound_ms`` (that count at 989 TFLOP/s of dense bf16: 0.365
+         ms). bench.py's CPU half,
+         ring attention over 8 devices, is ROADMAP A8; ``--device cpu``
+         runs the plain versions at S = 384, H = 2.
 
 The real-data lanes (bench.py:173-437, ``_realdata_pair``) train on
 distinct batches fed by ``fluid.DataLoader.from_generator``, one full pass
@@ -545,6 +564,89 @@ def bench_wide_deep(**kw) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the long-context attention lane (bench.py:1653-1700, its one-card half)
+LONGCTX = dict(batch=1, heads=12, seq_len=8192, head_dim=64)
+LONGCTX_CPU = dict(batch=1, heads=2, seq_len=384, head_dim=64)
+
+
+def longctx_flops(batch, heads, seq_len, head_dim) -> float:
+    """bench.py's count for a causal fwd+bwd: 4·B·H·S²·D FLOP of the
+    dense forward, halved for the mask, × 3.5 for the backward."""
+    return 4.0 * batch * heads * seq_len * seq_len * head_dim / 2.0 * 3.5
+
+
+def longctx_inputs(batch, heads, seq_len, head_dim, device):
+    """q, k, v [B, H, S, D] in bf16 from ``RandomState(0).randn · 0.3``
+    (bench.py's draw, one array after the other)."""
+    import torch
+    rng = np.random.RandomState(0)
+    return tuple(
+        torch.from_numpy(rng.randn(batch, heads, seq_len, head_dim) * 0.3)
+        .to(device=device, dtype=torch.bfloat16) for _ in range(3))
+
+
+def longctx_step(q, k, v):
+    """One step of the lane: causal attention of leaves q, k, v through
+    ``flash_attention``, the loss sum(O²) in f32, its grads by autograd,
+    → (loss + Σ sum(g²) in f32, loss, (dq, dk, dv))."""
+    import torch
+    from .ops.cuda.flash_attention import flash_attention
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sm = 1.0 / math.sqrt(q.shape[-1])
+    with torch.enable_grad():
+        loss = (flash_attention(q, k, v, sm, causal=True)
+                .to(torch.float32) ** 2).sum()
+        grads = torch.autograd.grad(loss, (q, k, v))
+    total = loss.detach() + sum((g.to(torch.float32) ** 2).sum()
+                                for g in grads)
+    return total, loss.detach(), grads
+
+
+def bench_longctx(iters=8, warmup=2, device="cuda") -> dict:
+    """The longctx lane's line (module docstring)."""
+    import torch
+    if device != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available on this host: the lanes "
+                           "run on the card, or on the CPU with --device "
+                           "cpu")
+    shape = LONGCTX if device != "cpu" else LONGCTX_CPU
+    dev = torch.device("cuda", 0) if device != "cpu" else torch.device("cpu")
+    q, k, v = longctx_inputs(device=dev, **shape)
+    for _ in range(warmup):
+        total = longctx_step(q, k, v)[0]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            total = longctx_step(q, k, v)[0]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            total = longctx_step(q, k, v)[0]
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+    flops = longctx_flops(**shape)
+    B, S = shape["batch"], shape["seq_len"]
+    res = {"metric": "longctx_attention_tokens_per_sec",
+           "value": round(B * S / (ms / 1e3), 1), "unit": "tokens/s",
+           "vs_baseline": 1.0, "seq_len": S, "heads": shape["heads"],
+           "head_dim": shape["head_dim"], "mode": "flash_causal_1card",
+           "devices": 1, "step_ms": round(ms, 4),
+           "attn_tflops": round(flops / (ms / 1e3) / 1e12, 3),
+           "loss": float(total)}
+    if device == "cpu":
+        res["device"] = "cpu"
+    else:
+        res["bound_ms"] = round(flops / H100_BF16_PEAK_FLOPS * 1e3, 4)
+        res["device"], res["power_limit"] = _card()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the real-data lanes: distinct batches through the DataLoader
 # ---------------------------------------------------------------------------
 def _realdata_pair(build_fn, batches, k, device, warmup=2):
@@ -799,7 +901,8 @@ LANES = {"bert": bench_bert_base, "mnist": bench_mnist_mlp,
          "wide_deep": bench_wide_deep,
          "mnist_realdata": bench_mnist_realdata,
          "mnist_guard": bench_mnist_realdata_guard,
-         "wide_deep_realdata": bench_wide_deep_realdata}
+         "wide_deep_realdata": bench_wide_deep_realdata,
+         "longctx": bench_longctx}
 
 
 def main(argv=None) -> int:

@@ -120,11 +120,9 @@ def _default_grad_op_descs(op: Operator, grad_map: Dict[str, str],
 def append_backward(loss: Variable, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """reference backward.py:1193 — returns [(param, grad_var), ...].
-    ``callbacks`` and ``checkpoints`` are accepted for the reference
-    signature; checkpoints (recompute) come in a later slice."""
-    if checkpoints:
-        raise NotImplementedError("append_backward: checkpoints (recompute) "
-                                  "come in a later slice")
+    ``callbacks`` and ``checkpoints`` are accepted and ignored, as in the
+    TPU package (its backward.py:150-152): recompute goes through
+    ``RecomputeOptimizer``, whose checkpoints the optimizer records."""
     program = loss.block.program
     block = loss.block
     no_grad = set()

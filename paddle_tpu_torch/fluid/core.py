@@ -12,8 +12,13 @@ Contents (this slice):
     the control-flow layers), Variable, hierarchical Scope.
   * the typed errors: EOFException (a drained non-iterable DataLoader),
     CheckpointError (a checkpoint that fails validation) and
-    NumericFaultError (the numeric fault plane).
-  * the FLAGS_ registry, limited to the flags the port reads.
+    NumericFaultError (the numeric fault plane), and the TPU package's
+    others (core.py:43-149) for the planes still to port, so that a
+    script's ``except`` clauses resolve.
+  * CUDAPinnedPlace (host memory) and SelectedRows (a row set of a dense
+    tensor).
+  * the FLAGS_ registry, limited to the flags the port reads, with
+    ``set_flags``.
 """
 from __future__ import annotations
 
@@ -37,9 +42,14 @@ __all__ = [
     "VarDesc", "Place", "CPUPlace", "CUDAPlace", "TPUPlace", "LoDTensor",
     "LoDTensorArray",
     "Variable", "Scope", "globals_", "get_flag", "set_flag",
+    "set_flags",
     "convert_np_dtype_to_dtype_", "dtype_to_np", "dtype_to_torch",
     "is_float_dtype", "global_scope", "BF16_HOST_DTYPE",
     "EOFException", "CheckpointError", "NumericFaultError",
+    "CUDAPinnedPlace", "SelectedRows", "is_compiled_with_cuda",
+    "WorkerDeadError", "RpcProtocolError", "SpillCorruptionError",
+    "StaleClusterViewError", "DeadlineExceededError", "OverloadedError",
+    "CircuitOpenError",
 ]
 
 
@@ -65,6 +75,53 @@ class NumericFaultError(FloatingPointError):
     configured, no intact checkpoint to restore or the rollback budget
     spent, or a ``raise`` whose interpreter re-run reproduced no
     non-finite op output."""
+
+
+# The typed errors of the planes still to port (the TPU package's
+# core.py:43-149: the PS plane and serving, ROADMAP A9). Nothing in the
+# port raises them yet.
+class WorkerDeadError(RuntimeError):
+    """A collective released because a participant was declared dead."""
+
+
+class RpcProtocolError(ConnectionError):
+    """The RPC wire framing is invalid; never retried."""
+
+
+class SpillCorruptionError(CheckpointError):
+    """A spill-log segment of an embedding table failed validation."""
+
+
+class StaleClusterViewError(RuntimeError):
+    """A PS data RPC reached a server that no longer owns the shard;
+    ``view_dict`` carries the server's current view (or None)."""
+
+    def __init__(self, msg: str, view=None):
+        super().__init__(msg)
+        self.view_dict = view
+
+
+class DeadlineExceededError(TimeoutError):
+    """A request's deadline expired before its work finished;
+    ``queue_wait_s`` is the time it waited admitted when that was in the
+    queue."""
+
+    def __init__(self, msg: str, queue_wait_s: float = None):
+        super().__init__(msg)
+        self.queue_wait_s = queue_wait_s
+
+
+class OverloadedError(RuntimeError):
+    """Serving's admission shed the request; ``retry_after_s`` is the
+    server's drain-time estimate."""
+
+    def __init__(self, msg: str, retry_after_s: float = 1.0):
+        super().__init__(msg)
+        self.retry_after_s = float(retry_after_s)
+
+
+class CircuitOpenError(ConnectionError):
+    """An endpoint's circuit breaker is open: calls fail fast."""
 
 
 # --------------------------------------------------------------------------
@@ -227,6 +284,19 @@ class CUDAPlace(Place):
 TPUPlace = CUDAPlace
 
 
+class CUDAPinnedPlace(CPUPlace):
+    """Page-locked host memory (reference place.h CUDAPinnedPlace): a
+    host place, as in the TPU package (core.py:300)."""
+
+    def __repr__(self):
+        return "CUDAPinnedPlace"
+
+
+def is_compiled_with_cuda() -> bool:
+    """True when this torch build sees a CUDA device."""
+    return torch.cuda.is_available()
+
+
 # --------------------------------------------------------------------------
 # Tensors
 # --------------------------------------------------------------------------
@@ -324,6 +394,49 @@ class LoDTensor:
 
     def __repr__(self):
         return f"LoDTensor(shape={self.shape()}, lod={self._lod})"
+
+
+class SelectedRows:
+    """A row set of a [height, ...] dense tensor: the value tensor's i-th
+    row is logical row ``rows[i]`` (reference: framework/selected_rows.h:32;
+    the TPU package's core.py:447). The port's embedding grads are dense;
+    this is the container the sparse path (ROADMAP A9) fills."""
+
+    __slots__ = ("_rows", "_height", "_value")
+
+    def __init__(self, rows=None, height: int = 0):
+        self._rows = list(rows) if rows is not None else []
+        self._height = int(height)
+        self._value = LoDTensor()
+
+    def rows(self):
+        return self._rows
+
+    def set_rows(self, rows):
+        self._rows = [int(r) for r in rows]
+
+    def height(self):
+        return self._height
+
+    def set_height(self, h):
+        self._height = int(h)
+
+    def get_tensor(self) -> LoDTensor:
+        return self._value
+
+    def sync_index(self):
+        pass
+
+    def to_dense(self) -> torch.Tensor:
+        """The dense [height, ...] tensor; repeated rows add up."""
+        val = self._value.array
+        dense = torch.zeros((self._height,) + tuple(val.shape[1:]),
+                            dtype=val.dtype, device=val.device)
+        idx = torch.as_tensor(self._rows, dtype=torch.long, device=val.device)
+        return dense.index_add_(0, idx, val)
+
+    def __repr__(self):
+        return f"SelectedRows(height={self._height}, nrows={len(self._rows)})"
 
 
 class LoDTensorArray(list):
@@ -456,6 +569,17 @@ class _GlobalFlags:
         # skips its host-to-device copy (the TPU package's flag,
         # core.py:1608)
         "FLAGS_feed_device_cache": True,
+        # the Program verifier at a program version's first compile
+        # (analysis.maybe_verify): "" off, "warn" logs each diagnostic,
+        # "error" also raises ProgramVerifyError on an error-severity one
+        # (the TPU package's core.py:1541)
+        "FLAGS_program_verify": "",
+        # the multiprocess DataLoader: how long the consumer waits for a
+        # batch before it checks that the worker process is alive, and
+        # how long it waits for the worker to exit at the iterator's end
+        # before it is killed (the TPU package's core.py:1619-1622)
+        "FLAGS_dataloader_worker_timeout": 5.0,
+        "FLAGS_dataloader_join_timeout": 5.0,
         # the numeric fault plane (the TPU package's core.py:1398-1417):
         # FLAGS_check_nan_inf reduces one health scalar a step (every
         # element of the param grads and the float fetches finite) and
@@ -515,3 +639,9 @@ def get_flag(name: str):
 
 def set_flag(name: str, value):
     globals_[name] = value
+
+
+def set_flags(d: Dict[str, Any]):
+    for k, v in d.items():
+        globals_[k] = v
+

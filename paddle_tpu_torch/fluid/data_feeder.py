@@ -35,6 +35,13 @@ class DataFeeder:
         {name: LoDTensor}. A var of LoD level 0 stacks its cells, reshaped
         to the var's shape past the batch dim when a cell lacks a dim; a
         var with LoD concatenates them, their lengths as its LoD."""
+        return self.to_tensors(self.feed_arrays(iterable))
+
+    def feed_arrays(self, iterable):
+        """``feed``'s columns on the host, with numpy alone: {name:
+        (ndarray, recursive sequence lengths or None)}. The multiprocess
+        DataLoader's worker runs this; ``to_tensors`` makes the
+        LoDTensors in the loader's process."""
         cols = [[] for _ in self.feed_names]
         for row in iterable:
             for i, cell in enumerate(row):
@@ -43,18 +50,26 @@ class DataFeeder:
         for name, dtype, shape, lod_level, col in zip(
                 self.feed_names, self.feed_dtypes, self.feed_shapes,
                 self.feed_lod_level, cols):
-            t = LoDTensor()
             if lod_level == 0:
                 arr = np.asarray(col, dtype=dtype)
                 if arr.ndim == len(shape) - 1 and -1 not in shape[1:]:
                     arr = arr.reshape([len(col)] + list(shape[1:]))
-                t.set(arr, self.place)
+                res[name] = (arr, None)
             else:
                 flat = np.concatenate(
                     [np.asarray(c, dtype=dtype).reshape(
                         -1, *np.asarray(c).shape[1:]) for c in col], axis=0)
-                t.set(flat, self.place)
-                t.set_recursive_sequence_lengths(
-                    [[len(np.asarray(c)) for c in col]])
+                res[name] = (flat, [[len(np.asarray(c)) for c in col]])
+        return res
+
+    def to_tensors(self, arrays):
+        """{name: (ndarray, lengths or None)} → {name: LoDTensor} on the
+        feeder's place."""
+        res = {}
+        for name, (arr, lengths) in arrays.items():
+            t = LoDTensor()
+            t.set(arr, self.place)
+            if lengths is not None:
+                t.set_recursive_sequence_lengths(lengths)
             res[name] = t
         return res

@@ -159,7 +159,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import core
+from . import analysis, core
+from .compiler import CompiledProgram
 from .core import CUDAPlace, LoDTensor, Place, Scope, global_scope
 from .framework import Program, Variable, default_main_program
 from .ir import op_island_reason, op_reads_host_values
@@ -175,6 +176,11 @@ __all__ = ["Executor", "FetchHandler", "HealthMonitor", "global_scope",
 _RNG_COUNTER = "@RNG_COUNTER@"
 _EMPTY = "@EMPTY@"  # append_backward's name for "no var in this slot"
 _MODES = ("compiled", "interpreted")
+# a capture refuses unsafe CUDA calls (an allocation, a synchronize) from
+# its own thread only: the DataLoader's prefetch thread pins and uploads
+# the next window while a step's graph is captured, which in the default
+# "global" mode invalidates the capture
+_CAPTURE_MODE = "thread_local"
 _GUARD_ACTIONS = ("raise", "skip", "rollback")
 _INTERPRET = object()  # _run_compiled: the block is too small to segment
 
@@ -1345,7 +1351,8 @@ class _CompiledBlock:
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode=_CAPTURE_MODE):
             fetches, new, health = self._step(self._static_feeds, state,
                                               counter)
             # the guard's select reads the pre-step state: every select
@@ -1610,7 +1617,8 @@ class _SegmentedBlock(_CompiledBlock):
         graph = torch.cuda.CUDAGraph()
         in_place = []
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode=_CAPTURE_MODE):
             outs, flag = self._seg_compute(seg, plan, inputs)
             if not self._guard_active:
                 for n in seg.state_writes:
@@ -1747,7 +1755,8 @@ class _SegmentedBlock(_CompiledBlock):
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                              capture_error_mode=_CAPTURE_MODE):
             lp.gouts = self._body_pass(lp, local)
         self.stats["capture_s"] += time.perf_counter() - t0
         self.loop_stats["body_captures"] += 1
@@ -2186,8 +2195,15 @@ class Executor:
         (its ``ready`` event) is waited for on the current stream first.
 
         A run ends with the periodic checkpoint of ``set_auto_checkpoint``
-        when the scope's steps crossed a boundary."""
+        when the scope's steps crossed a boundary.
+
+        A ``CompiledProgram`` runs through its ``_run`` (the TPU
+        package's executor.py:2059), which applies its BuildStrategy's
+        passes and calls back here with its program."""
         program = default_main_program() if program is None else program
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope, return_numpy,
+                                n_steps=n_steps)
         scope = global_scope() if scope is None else scope
         feed = {} if feed is None else feed
         fetch_names = _to_fetch_names(fetch_list)
@@ -2546,12 +2562,22 @@ class Executor:
             if self.device.type == "cuda" and self._stream is None:
                 self._stream = torch.cuda.Stream(self.device)
                 self._pool = torch.cuda.graph_pool_handle()
+            # the verifier's choke point: once a program version, at its
+            # first compile (FLAGS_program_verify)
+            analysis.maybe_verify(program, "executor", feed_names=names,
+                                  fetch_names=tuple(fetch_names),
+                                  scope=scope)
             if segmented:
                 cb = self._build_segmented(program, names, fetch_names,
                                            scope, seed, feed_lods)
                 if cb is None:
                     self._unsegmentable[key] = weakref.ref(scope)
                     return _INTERPRET
+                # the plan the segmented build made, against the program
+                analysis.maybe_verify(program, "executor-plan",
+                                      feed_names=names,
+                                      fetch_names=tuple(fetch_names),
+                                      segment_plan=cb.segments, scope=scope)
             else:
                 cb = _CompiledBlock(program, names, fetch_names, scope, seed,
                                     self.device, self._stream, self._pool,

@@ -30,7 +30,8 @@ from ..ops.registry import OPS, grad_var_name
 __all__ = [
     "Program", "Block", "Operator", "Variable", "Parameter",
     "default_main_program", "default_startup_program", "program_guard",
-    "cpu_places", "cuda_places", "grad_var_name",
+    "cpu_places", "cuda_places", "grad_var_name", "name_scope",
+    "device_guard", "in_dygraph_mode",
 ]
 
 
@@ -44,6 +45,26 @@ def cuda_places(device_ids: Optional[Sequence[int]] = None):
     if device_ids is None:
         device_ids = range(torch.cuda.device_count())
     return [core.CUDAPlace(i) for i in device_ids]
+
+
+def in_dygraph_mode() -> bool:
+    """False: the port has no dygraph mode yet (ROADMAP A7)."""
+    return False
+
+
+@contextlib.contextmanager
+def name_scope(prefix: Optional[str] = None):
+    """The reference's op-name grouping (framework.py:105 of the TPU
+    package): cosmetic, names nothing here."""
+    yield
+
+
+@contextlib.contextmanager
+def device_guard(device: Optional[str] = None):
+    """The reference's per-op placement (framework.py:110 of the TPU
+    package): one device runs the whole block here, so it places
+    nothing."""
+    yield
 
 
 # --------------------------------------------------------------------------

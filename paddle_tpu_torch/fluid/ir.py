@@ -20,9 +20,12 @@ delete_quant_dequant_op, multihead_matmul_fuse (v2 and the v1 name), the
 three conv folds, embedding_eltwise_layernorm, fc_gru, fc_lstm, fc,
 fc_elementwise_layernorm and identity_scale_op_clean. The ops fc_gru and
 fc_lstm emit (``fusion_gru``, ``fusion_lstm``) need LoD and are not
-registered yet. The other passes of the TPU package (skip_layernorm,
-fuse_bn_act, fuse_elewise_add_act, the seq* fusions, graph_viz, the
-absorbed no-ops and ``block_segmentation_pass``) are not ported yet.
+registered yet (ROADMAP A7). Every other pass of the TPU package is
+registered too: the two BuildStrategy fusions (fuse_elewise_add_act,
+fuse_bn_act; the ``CompiledProgram`` of compiler.py runs them),
+skip_layernorm, the three seq* fusions (their ops need LoD), graph_viz,
+graph_to_program, the absorbed passes (the identity here: the compiled
+step does their work) and ``block_segmentation_pass``.
 
 Also: ``fused_health``, the numeric fault plane's one health scalar a
 step, and the segment analysis of a block (ir.py:1308-1390):
@@ -430,6 +433,263 @@ def _scope_set(scope, name: str, arr: np.ndarray,
     from .core import LoDTensor
     t = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     scope.var(name).set_value(LoDTensor(t))
+
+
+# --------------------------------------------------------------------------
+# the training-side fusions BuildStrategy selects (the TPU package's
+# ir.py:679-746)
+# --------------------------------------------------------------------------
+@register_pass("fuse_elewise_add_act_pass")
+class FuseElewiseAddActPass(Pass):
+    """elementwise_add + {relu, tanh, sigmoid, scale} ->
+    fused_elemwise_activation (ir/fuse_elewise_add_act_pass.cc). Where a
+    grad op reads the add's output the intermediate is not internal to
+    the match, so nothing fuses: a program with backward ops keeps its
+    pairs, and its grads."""
+
+    _ACTS = ("relu", "tanh", "sigmoid", "scale")
+
+    def apply_impl(self, graph):
+        for act in self._ACTS:
+            pat = OpPattern([
+                ("elementwise_add", {"X": "$x", "Y": "$y"}, {"Out": "$mid"}),
+                (act, {"X": "$mid"}, {"Out": "$out"}),
+            ])
+            for m in pat.match(graph):
+                add_op, act_op = m["#0"], m["#1"]
+                axis = add_op.attr("axis")
+                if int(-1 if axis is None else axis) != -1:
+                    continue
+                attrs = {"functor_list": [act, "elementwise_add"],
+                         "axis": -1, "save_intermediate_out": False}
+                if act == "scale":
+                    if act_op.input("ScaleTensor"):
+                        continue  # a run-time scale is not an attr
+                    b = act_op.attr("bias")
+                    if float(0.0 if b is None else b) != 0.0:
+                        continue
+                    sc = act_op.attr("scale")
+                    attrs["scale"] = float(1.0 if sc is None else sc)
+                inter = graph.block.create_var(
+                    name=m["$out"] + ".fused_intermediate")
+                graph.fuse(m["#ops"], "fused_elemwise_activation",
+                           {"X": [m["$x"]], "Y": [m["$y"]]},
+                           {"Out": [m["$out"]],
+                            "IntermediateOut": [inter.name]}, attrs)
+        return graph
+
+
+@register_pass("fuse_bn_act_pass")
+class FuseBnActPass(Pass):
+    """batch_norm + relu -> fused_batch_norm_act (ir/fuse_bn_act_pass.cc).
+    In a training program the grad ops read batch_norm's Y, so it fuses
+    only in a program without them (the ``clone(for_test=True)``)."""
+
+    def apply_impl(self, graph):
+        pat = OpPattern([
+            ("batch_norm",
+             {"X": "$x", "Scale": "$scale", "Bias": "$bias",
+              "Mean": "$mean", "Variance": "$var"},
+             {"Y": "$y"}),
+            ("relu", {"X": "$y"}, {"Out": "$out"}),
+        ])
+        for m in pat.match(graph):
+            bn = m["#0"]
+            outs = {"Y": [m["$out"]]}
+            for slot in ("MeanOut", "VarianceOut", "SavedMean",
+                         "SavedVariance", "ReserveSpace"):
+                names = bn.output(slot)
+                if names:
+                    outs[slot] = names
+            attrs = {k: bn.attr(k) for k in
+                     ("momentum", "epsilon", "data_layout", "is_test",
+                      "use_global_stats") if bn.attr(k) is not None}
+            attrs["act_type"] = "relu"
+            graph.fuse(m["#ops"], "fused_batch_norm_act",
+                       {"X": [m["$x"]], "Scale": [m["$scale"]],
+                        "Bias": [m["$bias"]], "Mean": [m["$mean"]],
+                        "Variance": [m["$var"]]}, outs, attrs)
+        return graph
+
+
+# --------------------------------------------------------------------------
+# skip_layernorm and the LoD fusions (the TPU package's ir.py:532-677,
+# :1036), outside INFERENCE_PASSES: a pipeline names them
+# --------------------------------------------------------------------------
+@register_pass("skip_layernorm_fuse_pass")
+class SkipLayerNormFusePass(Pass):
+    """elementwise_add + layer_norm -> skip_layernorm (residual-add fused
+    into the norm; ir/skip_layernorm_fuse_pass.cc)."""
+
+    def apply_impl(self, graph):
+        pat = OpPattern([
+            ("elementwise_add", {"X": "$x", "Y": "$y"}, {"Out": "$add"}),
+            ("layer_norm", {"X": "$add", "Scale": "$s", "Bias": "$b"},
+             {"Y": "$out"}),
+        ])
+        for m in pat.match(graph):
+            ln = m["#1"]
+            add_var = graph.block._find_var_recursive(m["$add"])
+            shape = getattr(add_var, "shape", None) if add_var else None
+            if not shape or int(ln.attr("begin_norm_axis") or 1) != \
+                    len(shape) - 1:
+                continue  # skip_layernorm normalises the last axis only;
+                # no shape: legality unproven, no fusion
+            graph.fuse(m["#ops"], "skip_layernorm",
+                       {"X": [m["$x"]], "Y": [m["$y"]], "Scale": [m["$s"]],
+                        "Bias": [m["$b"]]},
+                       {"Out": [m["$out"]]},
+                       {"epsilon": float(ln.attr("epsilon") or 1e-5),
+                        "begin_norm_axis":
+                        int(ln.attr("begin_norm_axis") or 1)})
+        return graph
+
+
+@register_pass("seq_concat_fc_fuse_pass")
+class SeqConcatFcFusePass(Pass):
+    """sequence_expand(x_i, ref) fan-in + concat(axis=1) + fc ->
+    fusion_seqexpand_concat_fc (ir/seq_concat_fc_fuse_pass.cc) — the
+    reference's fused attention-input block: per-sequence rows broadcast
+    to each timestep of the reference sequence, concatenated, projected
+    through one fc."""
+
+    _ACTS = {"relu", "tanh", "sigmoid"}
+
+    def apply_impl(self, graph):
+        for concat in [op for op in graph.block.ops
+                       if op.type == "concat"]:
+            xs = list(concat.input("X"))
+            if len(xs) < 2 or concat.input("AxisTensor"):
+                continue
+            if int(concat.attr("axis") or 0) != 1:
+                continue
+            ref = xs[0]  # the LoD sequence every expand broadcasts to
+            expands, raw = [], []
+            ok = True
+            for n in xs[1:]:
+                prods = [op for op in graph.block.ops
+                         if n in op.output("Out")
+                         and op.type == "sequence_expand"]
+                if len(prods) != 1 or not graph.is_internal(n) \
+                        or len(graph.var_consumers(n)) != 1 \
+                        or prods[0].input("Y") != [ref]:
+                    ok = False
+                    break
+                expands.append(prods[0])
+                raw.append(prods[0].input("X")[0])
+            cat_out = concat.output("Out")[0]
+            consumers = graph.var_consumers(cat_out)
+            if not ok or not expands or len(consumers) != 1 \
+                    or consumers[0].type != "mul" \
+                    or not graph.is_internal(cat_out):
+                continue
+            mul = consumers[0]
+            if int(mul.attr("x_num_col_dims") or 1) != 1:
+                continue
+            matched = expands + [concat, mul]
+            out_name = mul.output("Out")[0]
+            bias = None
+            act = "identity"
+            nxt = graph.var_consumers(out_name)
+            if len(nxt) == 1 and nxt[0].type == "elementwise_add" \
+                    and graph.is_internal(out_name):
+                bv = graph.block._find_var_recursive(nxt[0].input("Y")[0])
+                if bv is not None and getattr(bv, "persistable", False):
+                    bias = nxt[0].input("Y")[0]
+                    matched.append(nxt[0])
+                    out_name = nxt[0].output("Out")[0]
+                    after = graph.var_consumers(out_name)
+                    if len(after) == 1 and after[0].type in self._ACTS \
+                            and graph.is_internal(out_name):
+                        act = after[0].type
+                        matched.append(after[0])
+                        out_name = after[0].output("Out")[0]
+            inputs = {"X": [ref] + raw,
+                      "FCWeight": [mul.input("Y")[0]]}
+            if bias is not None:
+                inputs["FCBias"] = [bias]
+            graph.fuse(matched, "fusion_seqexpand_concat_fc",
+                       inputs, {"Out": [out_name]},
+                       {"fc_activation": act})
+        return graph
+
+
+@register_pass("seqconv_eltadd_relu_fuse_pass")
+class SeqconvEltaddReluFusePass(Pass):
+    """sequence_conv + elementwise_add(bias) + relu ->
+    fusion_seqconv_eltadd_relu (ir/seqconv_eltadd_relu_fuse_pass.cc) —
+    the reference's fused CTR text-conv inference block."""
+
+    def apply_impl(self, graph):
+        pat = OpPattern([
+            ("sequence_conv", {"X": "$x", "Filter": "$f"}, {"Out": "$c"}),
+            ("elementwise_add", {"X": "$c", "Y": "$b"}, {"Out": "$cb"}),
+            ("relu", {"X": "$cb"}, {"Out": "$out"}),
+        ])
+        for m in pat.match(graph):
+            conv = m["#0"]
+            bias = graph.block._find_var_recursive(m["$b"])
+            if bias is None or not getattr(bias, "persistable", False):
+                continue
+            graph.fuse(list(m["#ops"]), "fusion_seqconv_eltadd_relu",
+                       {"X": [m["$x"]], "Filter": [m["$f"]],
+                        "Bias": [m["$b"]]},
+                       {"Out": [m["$out"]]},
+                       {k: conv.attr(k) for k in
+                        ("contextLength", "contextStart", "contextStride")
+                        if conv.attr(k) is not None})
+        return graph
+
+
+@register_pass("seqpool_concat_fuse_pass")
+class SeqpoolConcatFusePass(Pass):
+    """N sequence_pool (same SUM/AVERAGE pooltype) feeding one concat ->
+    fusion_seqpool_concat (ir/seqpool_concat_fuse_pass.cc). Hand-rolled
+    matching: the shape is a FAN-IN (N parallel producers into one
+    consumer), which the chain-based OpPattern doesn't express."""
+
+    def apply_impl(self, graph):
+        for concat in [op for op in graph.block.ops
+                       if op.type == "concat"]:
+            xs = list(concat.input("X"))
+            if len(xs) < 2:
+                continue
+            axis = concat.attr("axis")
+            if axis is None or int(axis) != 1:
+                continue  # the fused kernel concats pooled FEATURES
+            if concat.input("AxisTensor"):
+                continue  # runtime axis can't fold into a static attr
+            pools = []
+            ptype = None
+            ok = True
+            for n in xs:
+                prods = [op for op in graph.block.ops
+                         if n in op.output("Out")
+                         and op.type == "sequence_pool"]
+                if len(prods) != 1 or not graph.is_internal(n) \
+                        or len(graph.var_consumers(n)) != 1:
+                    ok = False
+                    break
+                p = prods[0]
+                pt = (p.attr("pooltype") or "SUM").upper()
+                if pt not in ("SUM", "AVERAGE") or \
+                        (ptype is not None and pt != ptype):
+                    ok = False
+                    break
+                if float(p.attr("pad_value") or 0.0) != 0.0:
+                    # empty sequences pool to pad_value; the fused
+                    # kernel has no pad_value leg
+                    ok = False
+                    break
+                ptype = pt
+                pools.append(p)
+            if not ok or not pools:
+                continue
+            graph.fuse(pools + [concat], "fusion_seqpool_concat",
+                       {"X": [p.input("X")[0] for p in pools]},
+                       {"Out": [concat.output("Out")[0]]},
+                       {"pooltype": ptype, "axis": 1})
+        return graph
 
 
 # --------------------------------------------------------------------------
@@ -926,6 +1186,139 @@ class EmbeddingEltwiseLayerNormFusePass(Pass):
                             "Scale": [m["$s"]], "Bias": [m["$b"]]},
                            {"Out": [m["$y"]]},
                            {"epsilon": float(ln.attr("epsilon") or 1e-5)})
+        return graph
+
+
+# --------------------------------------------------------------------------
+# tooling passes (the TPU package's ir.py:1120-1150)
+# --------------------------------------------------------------------------
+@register_pass("graph_viz_pass")
+class GraphVizPass(Pass):
+    """Write the graph as graphviz dot (ir/graph_viz_pass.cc) to the
+    attr 'graph_viz_path' (default: paddle_tpu_torch_graph.dot in the
+    temporary directory)."""
+
+    def apply_impl(self, graph):
+        import os
+        import tempfile
+        path = self.get("graph_viz_path", os.path.join(
+            tempfile.gettempdir(), "paddle_tpu_torch_graph.dot"))
+        lines = ["digraph G {"]
+        for i, op in enumerate(graph.all_op_nodes()):
+            lines.append(f'  op{i} [label="{op.type}" shape=box '
+                         'style=filled fillcolor=lightskyblue];')
+            for n in op.input_arg_names:
+                lines.append(f'  "{n}" -> op{i};')
+            for n in op.output_arg_names:
+                lines.append(f'  op{i} -> "{n}";')
+        lines.append("}")
+        with open(path, "w") as f:
+            f.write("\n".join(lines))
+        return graph
+
+
+@register_pass("graph_to_program_pass")
+class GraphToProgramPass(Pass):
+    """The identity: a Graph is a live view of its Program (the
+    reference's ir/graph_to_program_pass.cc exists because its Graph is a
+    structure of its own)."""
+
+
+# --------------------------------------------------------------------------
+# absorbed passes (the TPU package's ir.py:1152-1242): the reference's
+# pass names whose work the compiled step does here (one planned step a
+# block, one CUDA graph on the card, torch's caching allocator and the
+# graphs' shared pool for memory). Registered so that a reference
+# pipeline resolves; each is the identity.
+# --------------------------------------------------------------------------
+class AbsorbedPass(Pass):
+    """A pass whose job the compiled step does."""
+
+
+def _register_absorbed(name: str, note: str):
+    cls = type(name.title().replace("_", ""), (AbsorbedPass,),
+               {"note": note, "__doc__": note})
+    register_pass(name)(cls)
+
+
+_MEM = "memory planning; the caching allocator and the graphs' pool"
+_ONE_STEP = "ordering; one planned step, one CUDA graph"
+_MULTI = "multi-device graph building; ROADMAP A8"
+_UPDATE = "optimizer-op fusion; the update ops run inside the step's graph"
+_FUSE = "a micro-fusion; kernels are launched from the step's graph"
+_PLACE = "backend placement; one CUDA device"
+_CPU = "CPU-only (mkldnn, int8); not on this build"
+for _n, _note in {
+    "eager_deletion_pass": _MEM, "reference_count_pass": _MEM,
+    "buffer_shared_inplace_pass": _MEM,
+    "buffer_shared_cross_op_memory_reuse_pass": _MEM,
+    "memory_optimize_pass": _MEM, "inplace_op_pass": _MEM,
+    "while_op_eager_deletion_pass": _MEM,
+    "recurrent_op_eager_deletion_pass": _MEM,
+    "conditional_block_op_eager_deletion_pass": _MEM,
+    "all_reduce_deps_pass": _ONE_STEP,
+    "backward_optimizer_op_deps_pass": _ONE_STEP,
+    "sequential_execution_pass": _ONE_STEP,
+    "modify_op_lock_and_record_event_pass": _ONE_STEP,
+    "add_reader_dependency_pass": _ONE_STEP,
+    "runtime_context_cache_pass": _ONE_STEP,
+    "lock_free_optimize_pass": _ONE_STEP,
+    "fuse_all_reduce_op_pass": _MULTI, "coalesce_grad_tensor_pass": _MULTI,
+    "multi_batch_merge_pass": _MULTI, "multi_devices_check_pass": _MULTI,
+    "multi_devices_print_pass": _MULTI, "sync_batch_norm_pass": _MULTI,
+    "fuse_adam_op_pass": _UPDATE, "fuse_sgd_op_pass": _UPDATE,
+    "fuse_momentum_op_pass": _UPDATE,
+    "fuse_relu_depthwise_conv_pass": _FUSE,
+    "squared_mat_sub_fuse_pass": _FUSE, "repeated_fc_relu_fuse_pass": _FUSE,
+    "seqpool_cvm_concat_fuse_pass": _FUSE,
+    "transpose_flatten_concat_fuse_pass": _FUSE,
+    "shuffle_channel_detect_pass": _FUSE,
+    "matmul_transpose_reshape_fuse_pass": _FUSE,
+    "scale_matmul_fuse_pass": _FUSE, "fusion_group_pass": _FUSE,
+    "fuse_elewise_add_act_ops_pass_placeholder":
+        "see fuse_elewise_add_act_pass",
+    "cudnn_placement_pass": _PLACE, "mkldnn_placement_pass": _CPU,
+    "mkldnn_inplace_pass": _CPU, "conv_bias_mkldnn_fuse_pass": _CPU,
+    "conv3d_bias_mkldnn_fuse_pass": _CPU,
+    "conv_activation_mkldnn_fuse_pass": _CPU,
+    "conv_relu_mkldnn_fuse_pass": _CPU, "conv_relu6_mkldnn_fuse_pass": _CPU,
+    "conv_leaky_relu_mkldnn_fuse_pass": _CPU,
+    "conv_swish_mkldnn_fuse_pass": _CPU,
+    "conv_concat_relu_mkldnn_fuse_pass": _CPU,
+    "conv_elementwise_add_mkldnn_fuse_pass": _CPU,
+    "conv_transpose_bias_mkldnn_fuse_pass": _CPU,
+    "depthwise_conv_mkldnn_pass": _CPU, "fc_mkldnn_pass": _CPU,
+    "reshape_transpose_matmul_mkldnn_fuse_pass": _CPU,
+    "cpu_quantize_pass": _CPU, "cpu_quantize_placement_pass": _CPU,
+    "cpu_quantize_squash_pass": _CPU,
+    "conv_elementwise_add_fuse_pass": _FUSE,
+    "conv_elementwise_add_act_fuse_pass": _FUSE,
+    "conv_elementwise_add2_act_fuse_pass": _FUSE,
+    "conv_eltwiseadd_affine_channel_fuse_pass":
+        "covered by conv_affine_channel_fuse_pass",
+    "conv_transpose_bn_fuse_pass": _FUSE,
+    "conv_transpose_eltwiseadd_bn_fuse_pass": _FUSE,
+    "attention_lstm_fuse_pass": _FUSE, "embedding_fc_lstm_fuse_pass": _FUSE,
+    "mul_gru_fuse_pass": _FUSE, "mul_lstm_fuse_pass": _FUSE,
+    "quant_conv2d_dequant_fuse_pass": _CPU,
+}.items():
+    _register_absorbed(_n, _note)
+
+
+@register_pass("block_segmentation_pass")
+class BlockSegmentationPass(Pass):
+    """Analysis only: the compiled/island partition the executor's
+    segmented block would use for this block (``analyze_block_segments``
+    over its ops but feed and fetch), stored as the graph attr
+    'segments' and the program attr ``_segment_plan`` (a
+    ``segment_summary``). Changes nothing."""
+
+    def apply(self, graph: Graph) -> Graph:  # no drop_orphan_vars
+        ops = [op for op in graph.block.ops
+               if op.type not in ("feed", "fetch")]
+        summary = segment_summary(analyze_block_segments(ops))
+        graph.set("segments", summary)
+        graph.program._segment_plan = summary
         return graph
 
 

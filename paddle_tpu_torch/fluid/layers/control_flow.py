@@ -2,9 +2,10 @@
 control_flow.py; reference: python/paddle/fluid/layers/control_flow.py).
 So far: the comparisons, increment, the tensor arrays (create_array,
 array_write, array_read, array_length), While, while_loop, cond, case,
-switch_case, Switch, Print, Assert and is_empty. StaticRNN, DynamicRNN,
-IfElse and the LoD rank-table layers need LoD sequences and come with
-ROADMAP A7.
+switch_case, Switch, Print, Assert, is_empty and array_to_lod_tensor
+(its RankTable branch raises at run time). StaticRNN, DynamicRNN, IfElse
+and the LoD rank-table layers need LoD sequences and come with ROADMAP
+A7.
 
 A sub-block is built as the reference builds it: ``Program._create_block``
 makes it the current block, the layers called inside append to it, and
@@ -26,7 +27,7 @@ __all__ = [
     "While", "Switch", "increment", "array_write", "create_array",
     "less_than", "less_equal", "greater_than", "greater_equal", "equal",
     "not_equal", "array_read", "array_length", "cond", "Print", "Assert",
-    "is_empty", "case", "switch_case", "while_loop",
+    "is_empty", "case", "switch_case", "while_loop", "array_to_lod_tensor",
 ]
 
 
@@ -367,3 +368,18 @@ def is_empty(x, cond=None):
     helper.append_op(type="is_empty", inputs={"X": [x]},
                      outputs={"Out": [cond]})
     return cond
+
+
+def array_to_lod_tensor(x, table):
+    """The tensor array ``x`` joined into one tensor (reference:
+    layers/control_flow.py array_to_lod_tensor). With a ``table`` (a
+    LoDRankTable, DynamicRNN's) the op raises at run time, naming ROADMAP
+    A7; ``table=None`` joins the entries along axis 0."""
+    helper = LayerHelper("array_to_lod_tensor")
+    tmp = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x]}
+    if table is not None:
+        inputs["RankTable"] = [table]
+    helper.append_op(type="array_to_lod_tensor", inputs=inputs,
+                     outputs={"Out": [tmp]})
+    return tmp

@@ -31,7 +31,9 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "autoincreased_step_counter", "logical_and", "logical_or",
            "logical_xor", "logical_not", "brelu", "leaky_relu", "soft_relu",
            "swish", "hard_swish", "elu", "relu6", "stanh", "hard_sigmoid",
-           "lod_reset", "lod_append", "im2sequence", "cos_sim"]
+           "lod_reset", "lod_append", "im2sequence", "cos_sim", "mul",
+           "sum", "reduce_max", "reduce_min", "reduce_prod", "reduce_all",
+           "reduce_any", "uniform_random", "gaussian_random"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -448,6 +450,77 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
 
 def reduce_mean(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim, name)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    """reference: layers/nn.py mul — X flattened to 2-D at
+    ``x_num_col_dims`` times Y flattened at ``y_num_col_dims``."""
+    helper = LayerHelper("mul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = tuple(list(x.shape[:x_num_col_dims])
+                      + list(y.shape[y_num_col_dims:]))
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def sum(x):
+    """reference: layers/nn.py sum — the ``sum`` op over a Variable or a
+    list of them."""
+    from .tensor import sums
+    return sums(x if isinstance(x, (list, tuple)) else [x])
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0):
+    """reference: layers/nn.py uniform_random; no grad flows out."""
+    helper = LayerHelper("uniform_random")
+    dtype = convert_np_dtype_to_dtype_(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    if not any(isinstance(s, Variable) for s in shape):
+        out.shape = tuple(int(s) for s in shape)
+    helper.append_op(type="uniform_random", outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape
+                                      if not isinstance(s, Variable)],
+                            "min": float(min), "max": float(max),
+                            "seed": seed, "dtype": dtype})
+    out.stop_gradient = True
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    """reference: layers/nn.py gaussian_random; no grad flows out."""
+    helper = LayerHelper("gaussian_random")
+    dtype = convert_np_dtype_to_dtype_(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = tuple(int(s) for s in shape)
+    helper.append_op(type="gaussian_random", outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "mean": float(mean), "std": float(std),
+                            "seed": seed, "dtype": dtype})
+    out.stop_gradient = True
+    return out
 
 
 def one_hot(input, depth, allow_out_of_range=False):

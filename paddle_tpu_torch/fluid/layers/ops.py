@@ -1,7 +1,7 @@
 """Activation-style layer wrappers (counterpart of
 paddle_tpu/fluid/layers/ops.py; reference: python/paddle/fluid/layers/ops.py
 via layer_function_generator.py): the TPU package's generated activations
-but gelu and cumsum, and relu."""
+but cumsum, and relu."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -10,7 +10,8 @@ __all__ = ["relu", "sigmoid", "square", "exp", "ceil", "floor", "cos",
            "sqrt", "rsqrt", "abs", "reciprocal", "logsigmoid", "tanh",
            "atan", "tanh_shrink", "softshrink", "acos", "asin", "sin",
            "sinh", "cosh", "round", "softplus", "softsign", "erf",
-           "hard_shrink", "thresholded_relu", "log", "log1p", "selu"]
+           "hard_shrink", "thresholded_relu", "log", "log1p", "selu",
+           "gelu"]
 
 
 def _make_act(op_type, extra_attrs=()):
@@ -56,3 +57,4 @@ thresholded_relu = _make_act("thresholded_relu", ("threshold",))
 log = _make_act("log")
 log1p = _make_act("log1p")
 selu = _make_act("selu", ("scale", "alpha"))
+gelu = _make_act("gelu", ("approximate",))

@@ -1,7 +1,7 @@
 """Tensor layers (counterpart of paddle_tpu/fluid/layers/tensor.py;
 reference: python/paddle/fluid/layers/tensor.py). So far: assign, cast,
 concat, create_global_var, create_parameter, fill_constant, ones, zeros,
-sums, tensor_array_to_tensor, and ``math_op``, the helper of the Variable
+sums, tensor_array_to_tensor, isfinite, and ``math_op``, the helper of the Variable
 operators."""
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["assign", "cast", "concat", "create_global_var",
            "create_parameter", "fill_constant", "ones", "zeros", "sums",
-           "tensor_array_to_tensor"]
+           "tensor_array_to_tensor", "isfinite"]
 
 
 def _dtype(d):
@@ -192,3 +192,14 @@ def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
                      outputs={"Out": [out], "OutIndex": [idx]},
                      attrs={"axis": axis, "use_stack": use_stack})
     return out, idx
+
+
+def isfinite(x):
+    """One bool: every element of ``x`` finite (reference:
+    layers/tensor.py isfinite)."""
+    helper = LayerHelper("isfinite")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.BOOL)
+    out.shape = (1,)
+    helper.append_op(type="isfinite", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out

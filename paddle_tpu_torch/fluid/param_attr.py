@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from .initializer import Initializer, Xavier, Constant
 
-__all__ = ["ParamAttr"]
+__all__ = ["ParamAttr", "WeightNormParamAttr"]
 
 
 class ParamAttr:
@@ -57,3 +57,13 @@ class ParamAttr:
         if with_initializer:
             kw["initializer"] = self.initializer
         return kw
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A ParamAttr that records ``dim`` for weight normalization
+    (reference param_attr.py WeightNormParamAttr; the TPU package's
+    param_attr.py:61 records it and builds nothing more)."""
+
+    def __init__(self, dim=None, **kwargs):
+        super().__init__(**kwargs)
+        self.dim = dim

@@ -36,15 +36,31 @@ event offset, seeked on resume.
 batches, as the reference's DatasetLoader (the TPU package's raises
 ModuleNotFoundError: its reader.py:596 imports a module it does not have).
 
-Not ported (ROADMAP A4): ``use_multiprocess=True`` (a worker process and
-shared-memory transport) raises ``NotImplementedError`` rather than run
-another way.
+``use_multiprocess=True`` (the TPU package's reader.py:241-350) runs the
+generator in a forked worker process: each batch's arrays cross through
+``multiprocessing.shared_memory`` and only their metadata is pickled; the
+loader's process rebuilds the batch (a sample generator's LoDTensors on
+the loader's place, a batch generator's values as numpy arrays). The
+worker touches no torch and no device: a sample generator's columns are
+made by ``DataFeeder.feed_arrays`` there. At the iterator's end (drained,
+abandoned or failed) the worker is terminated, the segments it made but
+never handed over are unlinked by it, and the loader unlinks the ones in
+the queue while it waits for the worker to exit: no segment stays in
+/dev/shm.
 """
 from __future__ import annotations
 
+import _posixshmem
 import contextlib
+import math
+import mmap
+import os
 import queue
+import secrets
+import signal
 import threading
+import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -173,21 +189,139 @@ def _first_place(places):
     return places
 
 
+def _unlink_segment(name: str) -> None:
+    """Unlink the POSIX segment ``name`` if it exists, by name alone: a
+    segment the worker was making when it stopped may not have its size
+    yet, and attaching to it would fail."""
+    try:
+        _posixshmem.shm_unlink("/" + name)
+    except FileNotFoundError:
+        pass
+
+
+def segment_prefix() -> str:
+    """The name prefix of the shared-memory segments the multiprocess
+    loaders of this process make: /dev/shm shows whose a segment is."""
+    return f"psm_ptt{os.getpid()}_"
+
+
+def _unlink_prefixed(prefix: str) -> None:
+    """Unlink every segment in /dev/shm whose name starts with
+    ``prefix``: what a worker that died hard (killed, ``os._exit``) made
+    and never announced."""
+    if not os.path.isdir("/dev/shm"):
+        return
+    for name in os.listdir("/dev/shm"):
+        if name.startswith(prefix):
+            _unlink_segment(name)
+
+
+def _produce(host_fn, meta_q, prefix: str) -> None:
+    """The multiprocess loader's worker: each host batch's arrays into
+    POSIX shared-memory segments, their (name, shape, dtype, lengths)
+    into ``meta_q``; then ("done", None), or ("error", repr) when the
+    generator raises. A segment's name goes into ``pending`` before the
+    segment exists, and leaves it once its metadata is in the queue: on
+    SIGTERM the worker unlinks what ``pending`` holds, and exits. The
+    segments are made with ``shm_open`` itself, not ``SharedMemory``,
+    so that the resource tracker knows only the loader's attachments."""
+    pending = []
+
+    def cleanup(*_):
+        for name in pending:
+            _unlink_segment(name)
+        raise SystemExit(0)
+
+    def put_segment(a) -> str:
+        while True:
+            name = prefix + secrets.token_hex(8)
+            pending.append(name)
+            try:
+                fd = _posixshmem.shm_open(
+                    "/" + name, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+                break
+            except FileExistsError:
+                pending.pop()
+        try:
+            size = max(1, a.nbytes)
+            os.ftruncate(fd, size)
+            with mmap.mmap(fd, size) as m:
+                m[:a.nbytes] = a.reshape(-1).view(np.uint8)
+        finally:
+            os.close(fd)
+        return name
+
+    signal.signal(signal.SIGTERM, cleanup)
+    try:
+        for item in host_fn():
+            meta = {}
+            for name, v in item.items():
+                lengths = None
+                if isinstance(v, tuple):
+                    v, lengths = v
+                elif isinstance(v, LoDTensor):
+                    lengths = v.recursive_sequence_lengths() or None
+                    v = v.numpy()
+                a = np.ascontiguousarray(v)
+                meta[name] = (put_segment(a), a.shape, a.dtype.str, lengths)
+            meta_q.put(("batch", meta))
+            pending.clear()     # the loader owns them now
+        meta_q.put(("done", None))
+    except Exception as e:      # the generator's error, for the loader
+        meta_q.put(("error", repr(e)))
+
+
+def _take_segments(meta):
+    """{name: (ndarray, lengths)} read out of the segments ``meta`` names,
+    each unlinked after its copy."""
+    from multiprocessing import shared_memory
+    out = {}
+    for name, (seg_name, shape, dtype, lengths) in meta.items():
+        seg = shared_memory.SharedMemory(name=seg_name)
+        try:
+            arr = np.frombuffer(seg.buf, dtype=np.dtype(dtype),
+                                count=math.prod(shape)).reshape(shape).copy()
+        finally:
+            seg.close()
+            seg.unlink()
+        out[name] = (arr, lengths)
+    return out
+
+
+def _raw_batch(arrays):
+    """A batch generator's values as the worker sent them: numpy arrays,
+    and a LoDTensor on the host where the value had a LoD."""
+    out = {}
+    for name, (arr, lengths) in arrays.items():
+        if lengths is None:
+            out[name] = arr
+        else:
+            t = LoDTensor()
+            t.set(arr, core.CPUPlace())
+            t.set_recursive_sequence_lengths(lengths)
+            out[name] = t
+    return out
+
+
 class _GeneratorLoader:
     def __init__(self, feed_list, capacity=16, iterable=True,
                  return_list=False, use_multiprocess=False,
-                 drop_last=True):
-        if use_multiprocess:
-            raise NotImplementedError(
-                "DataLoader(use_multiprocess=True) is not ported to "
-                "paddle_tpu_torch yet (ROADMAP A4: the worker process and "
-                "its shared-memory transport); use the default thread "
-                "prefetch")
+                 drop_last=True, worker_timeout=None, join_timeout=None):
         self._feed_list = feed_list or []
         self._capacity = capacity
         self._iterable = iterable
         self._return_list = return_list
         self._drop_last = drop_last
+        # the worker process (use_multiprocess): its liveness and
+        # teardown timeouts (None: the FLAGS_dataloader_*_timeout values
+        # at iteration time), the generator it runs (host batches, numpy
+        # alone) and what the loader makes of a batch it sent
+        self._use_multiprocess = bool(use_multiprocess)
+        self._worker_timeout = worker_timeout
+        self._join_timeout = join_timeout
+        self._host_fn: Optional[Callable] = None
+        self._from_host: Optional[Callable] = None
+        self._mp_proc = None    # the last worker process
         self._batch_fn: Optional[Callable] = None
         self._places = None
         self._dtypes = self._feed_dtypes(self._feed_list)
@@ -235,7 +369,12 @@ class _GeneratorLoader:
         def fn():
             for sample_list in reader():
                 yield feeder.feed(sample_list)
+
+        def host_fn():
+            for sample_list in reader():
+                yield feeder.feed_arrays(sample_list)
         self._batch_fn = fn
+        self._host_fn, self._from_host = host_fn, feeder.to_tensors
         self._places = places
         return self
 
@@ -253,6 +392,7 @@ class _GeneratorLoader:
                         batch = (batch,)
                     yield {n: b for n, b in zip(names, batch)}
         self._batch_fn = fn
+        self._host_fn, self._from_host = fn, _raw_batch
         self._places = places
         return self
 
@@ -280,9 +420,80 @@ class _GeneratorLoader:
     def _iter_raw(self):
         if self._batch_fn is None:
             raise RuntimeError("DataLoader: no generator set")
+        if self._use_multiprocess:
+            return self._iter_multiprocess()
         if self._capacity <= 1:
             return self._batch_fn()
         return _iter_through_queue(self._batch_fn(), self._capacity)
+
+    def _iter_multiprocess(self):
+        """The batches from a forked worker process (``_produce``) through
+        shared memory (module docstring). Fork, so that the generator's
+        closure carries over. A worker that dies without its "done"
+        raises here once ``worker_timeout`` passes with nothing in the
+        queue; the segments it left are found by this iterator's name
+        prefix and unlinked."""
+        import multiprocessing as mp
+        ctx = mp.get_context("fork")
+        meta_q = ctx.Queue(max(1, self._capacity))
+        # one prefix an iterator: its leftovers are found by name
+        prefix = f"{segment_prefix()}{secrets.token_hex(4)}_"
+        proc = ctx.Process(target=_produce,
+                           args=(self._host_fn, meta_q, prefix),
+                           daemon=True)
+        with warnings.catch_warnings():
+            # fork under threads is deliberate: the worker runs the
+            # generator and numpy, no torch
+            warnings.simplefilter("ignore", DeprecationWarning)
+            warnings.simplefilter("ignore", RuntimeWarning)
+            proc.start()
+        self._mp_proc = proc
+        flags = core.globals_
+        liveness = float(self._worker_timeout if self._worker_timeout
+                         is not None
+                         else flags["FLAGS_dataloader_worker_timeout"])
+        join_s = float(self._join_timeout if self._join_timeout is not None
+                       else flags["FLAGS_dataloader_join_timeout"])
+
+        def drain():
+            while True:
+                try:
+                    kind, meta = meta_q.get(timeout=0.05)
+                except queue.Empty:
+                    return
+                if kind == "batch":
+                    for seg_name, _, _, _ in meta.values():
+                        _unlink_segment(seg_name)
+        try:
+            while True:
+                try:
+                    kind, meta = meta_q.get(timeout=liveness)
+                except queue.Empty:
+                    if not proc.is_alive():
+                        raise RuntimeError(
+                            "multiprocess DataLoader worker died without "
+                            f"posting 'done' (exitcode={proc.exitcode})")
+                    continue
+                if kind == "done":
+                    break
+                if kind == "error":
+                    raise RuntimeError(
+                        f"multiprocess DataLoader worker failed: {meta}")
+                yield self._from_host(_take_segments(meta))
+        finally:
+            proc.terminate()
+            # drain while the worker exits: its queue's last items must
+            # leave the pipe before it can, and their segments are ours
+            deadline = time.monotonic() + join_s
+            while proc.is_alive() and time.monotonic() < deadline:
+                drain()
+                proc.join(0.05)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            drain()
+            meta_q.close()
+            _unlink_prefixed(prefix)
 
     # -------------------------------------------------- checkpoint state
     def state_dict(self):
@@ -549,10 +760,13 @@ class DataLoader:
     @staticmethod
     def from_generator(feed_list=None, capacity=16, use_double_buffer=True,
                        iterable=True, return_list=False,
-                       use_multiprocess=False, drop_last=True):
+                       use_multiprocess=False, drop_last=True,
+                       worker_timeout=None, join_timeout=None):
         return _GeneratorLoader(feed_list, capacity, iterable, return_list,
                                 use_multiprocess=use_multiprocess,
-                                drop_last=drop_last)
+                                drop_last=drop_last,
+                                worker_timeout=worker_timeout,
+                                join_timeout=join_timeout)
 
     @staticmethod
     def from_stream(feed_list=None, batch_size=1, capacity=16):

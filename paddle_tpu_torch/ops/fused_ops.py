@@ -1,7 +1,10 @@
 """The fused ops that the inference passes emit and that serialized
 inference programs carry (counterpart of paddle_tpu/ops/fused_ops.py; so
-far: fc, fused_embedding_eltwise_layernorm, fused_fc_elementwise_layernorm
-and conv2d_fusion).
+far: fc, fused_embedding_eltwise_layernorm, fused_fc_elementwise_layernorm,
+conv2d_fusion, the training-side fusions BuildStrategy's passes emit,
+fused_elemwise_activation and fused_batch_norm_act, skip_layernorm, and
+the LoD fusions fusion_seqconv_eltadd_relu, fusion_seqpool_concat and
+fusion_seqexpand_concat_fc).
 
 Each is a composition of the port's own kernels with the reference's slot
 and attr contract (reference: operators/fc_op.cc,
@@ -14,7 +17,16 @@ computes what its unfused form computes:
     flag's default it is ``mul`` + ``elementwise_add`` bit for bit;
   * the layer norms are ``layer_norm``'s kernel over the last axis;
   * ``conv2d_fusion`` is ``conv2d``'s kernel (cuDNN with the pinned
-    flags, the bias added after), then the residual and the activation.
+    flags, the bias added after), then the residual and the activation;
+  * ``fused_elemwise_activation`` is the binary op's arithmetic and then
+    the unary one's (``relu`` as ``torch.maximum(x, 0)``, ``scale`` as a
+    product by the attr rounded to the dtype), and
+    ``fused_batch_norm_act`` is ``batch_norm``'s kernel and then the
+    activation. Their grads are the generic grad over torch autograd;
+  * ``skip_layernorm`` is ``layer_norm``'s kernel over X + Y; the LoD
+    fusions are the sequence ops' kernels (sequence_ops.py: the padded
+    pooling, the context-window gather) and then the add, the product or
+    the activation.
 """
 from __future__ import annotations
 
@@ -72,6 +84,67 @@ def _fc(ins, attrs):
     return out(Out=o.reshape(lead + (w.shape[1],)))
 
 
+# --------------------------------------------------------------------------
+# fused elementwise + activation (reference fused_elemwise_activation_op;
+# the TPU package's fused_ops.py:68) and batch_norm + activation (:98)
+# --------------------------------------------------------------------------
+_BINARY = {"elementwise_add": torch.add, "elementwise_sub": torch.sub,
+           "elementwise_mul": torch.mul}
+
+
+@register_op("fused_elemwise_activation", inputs=("X", "Y"),
+             diff_inputs=("X", "Y"),
+             attr_defaults={"functor_list": [], "axis": -1, "scale": 0.0,
+                            "save_intermediate_out": False})
+def _fused_elemwise_activation(ins, attrs):
+    """``functor_list`` [binary, unary] computes binary(x, unary(y));
+    [unary, binary] computes unary(binary(x, y)). IntermediateOut is the
+    inner result. Y of lower rank aligns to X at ``axis``."""
+    from .math_ops import scalar_as
+    x, y = first(ins, "X"), first(ins, "Y")
+    fl = list(attrs.get("functor_list") or [])
+    if len(fl) != 2:
+        raise ValueError("fused_elemwise_activation: functor_list must "
+                         f"hold [binary, unary] (either order), got {fl}")
+
+    def unary(name, v):
+        if name.startswith("scale"):
+            return v * scalar_as(attrs.get("scale", 1.0), v.dtype)
+        return _act(name, v)
+    axis = attrs.get("axis", -1)
+    yb = y
+    if y.dim() < x.dim():
+        ax = axis if axis >= 0 else x.dim() - y.dim()
+        shape = [1] * x.dim()
+        for i, n in enumerate(y.shape):
+            shape[ax + i] = n
+        yb = y.reshape(shape)
+    if fl[0] in _BINARY:
+        inter = unary(fl[1], yb)
+        o = _BINARY[fl[0]](x, inter)
+    else:
+        inter = _BINARY[fl[1]](x, yb)
+        o = unary(fl[0], inter)
+    return out(Out=o, IntermediateOut=inter)
+
+
+@register_op("fused_batch_norm_act",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             diff_inputs=("X", "Scale", "Bias"), stateful=True,
+             attr_defaults={"momentum": 0.9, "epsilon": 1e-5,
+                            "act_type": "relu", "is_test": False,
+                            "data_layout": "NCHW",
+                            "use_global_stats": False})
+def _fused_batch_norm_act(ins, attrs):
+    """``batch_norm``'s kernel, then ``act_type`` on Y. Registered
+    stateful, as in the TPU package: a block that holds it runs as
+    compiled segments around it (or interpreted)."""
+    from .nn_ops import _batch_norm
+    r = _batch_norm(ins, attrs)
+    r["Y"] = [_act(attrs.get("act_type", "relu"), r["Y"][0])]
+    return r
+
+
 @register_op("fused_embedding_eltwise_layernorm",
              inputs=("Ids", "Embs", "Bias", "Scale"),
              diff_inputs=("Embs", "Bias", "Scale"),
@@ -120,3 +193,97 @@ def _conv2d_fusion(ins, attrs):
     if res is not None:
         o = o + res
     return out(Output=_act(attrs.get("activation", "relu"), o))
+
+
+# --------------------------------------------------------------------------
+# skip_layernorm (the TPU package's fused_ops.py:185) and the LoD fusions
+# of the seq* passes (:276, :292, :364)
+# --------------------------------------------------------------------------
+@register_op("skip_layernorm", inputs=("X", "Y", "Scale", "Bias"),
+             diff_inputs=("X", "Y", "Scale", "Bias"),
+             attr_defaults={"epsilon": 1e-5, "begin_norm_axis": -1})
+def _skip_layernorm(ins, attrs):
+    """Out = layer_norm(X + Y) from ``begin_norm_axis`` (-1: the last
+    axis), statistics in f32."""
+    from .nn_ops import _layer_norm
+    o = first(ins, "X") + first(ins, "Y")
+    bna = int(attrs.get("begin_norm_axis", -1))
+    if bna < 0:
+        bna = o.dim() - 1
+    return out(Out=_layer_norm(
+        {"X": [o], "Scale": ins.get("Scale", [None]),
+         "Bias": ins.get("Bias", [None])},
+        {"epsilon": attrs.get("epsilon", 1e-5),
+         "begin_norm_axis": bna})["Y"][0])
+
+
+@register_op("fusion_seqconv_eltadd_relu", needs_lod=True,
+             inputs=("X", "Filter", "Bias"),
+             diff_inputs=("X", "Filter", "Bias"),
+             attr_defaults={"contextLength": 3, "contextStart": -1,
+                            "contextStride": 1})
+def _fusion_seqconv_eltadd_relu(ins, attrs):
+    """relu(sequence_conv(X, Filter) + Bias); ColMat is a [T, 1] zero
+    (the reference's im2col scratch)."""
+    from .sequence_ops import _sequence_conv
+    r = _sequence_conv(ins, attrs)
+    o = _act("relu", r["Out"][0] + first(ins, "Bias").reshape(1, -1))
+    return {"Out": [o], "ColMat": [o.new_zeros((o.shape[0], 1))],
+            "_lod": r["_lod"]}
+
+
+def _lod_part(attrs, slot, i, rows):
+    """Input ``i`` of ``slot``'s LoD levels (a tensor without one is one
+    sequence of ``rows`` rows) and a ``_lodc`` cache of its own."""
+    lods = (attrs.get("_lod") or {}).get(slot) or []
+    lv = lods[i] if i < len(lods) and lods[i] is not None else ((0, rows),)
+    sub = dict(attrs, _lod={slot: [lv]})
+    cache = attrs.get("_lodc")
+    if cache is not None:
+        sub["_lodc"] = cache.setdefault((slot, i), {})
+    return lv, sub
+
+
+@register_op("fusion_seqpool_concat", needs_lod=True, inputs=("X",),
+             attr_defaults={"pooltype": "SUM", "axis": 1})
+def _fusion_seqpool_concat(ins, attrs):
+    """Each X pooled per sequence (SUM or AVERAGE, ``sequence_pool``'s
+    kernel: an empty sequence pools to 0), concatenated along
+    ``axis``."""
+    from .sequence_ops import _sequence_pool
+    pools = []
+    for i, x in enumerate(seq(ins, "X")):
+        _, sub = _lod_part(attrs, "X", i, x.shape[0])
+        sub["pooltype"] = attrs.get("pooltype", "SUM")
+        sub["pad_value"] = 0.0
+        pools.append(_sequence_pool({"X": [x]}, sub)["Out"][0])
+    return out(Out=torch.cat(pools, dim=int(attrs.get("axis", 1))))
+
+
+@register_op("fusion_seqexpand_concat_fc", needs_lod=True,
+             inputs=("X", "FCWeight", "FCBias"),
+             diff_inputs=("FCWeight", "FCBias"),
+             attr_defaults={"fc_activation": "identity"})
+def _fusion_seqexpand_concat_fc(ins, attrs):
+    """X[0] [T, D0] carries the LoD; each other X [N, Di] has one row a
+    sequence, repeated over its sequence's rows; all concatenated on the
+    feature axis, then one fc and ``fc_activation``. FCOut is Out."""
+    import numpy as np
+    from .sequence_ops import _const, _rows
+    xs = seq(ins, "X")
+    lv, _ = _lod_part(attrs, "X", 0, xs[0].shape[0])
+    offs = np.asarray(lv[-1], np.int64)
+    row_of = _const(attrs, "seqexpand_rows",
+                    lambda: np.repeat(np.arange(len(offs) - 1),
+                                      offs[1:] - offs[:-1]), xs[0].device)
+    cat = torch.cat([xs[0]] + [_rows(x, row_of) for x in xs[1:]], dim=1)
+    o = torch.matmul(cat, first(ins, "FCWeight"))
+    b = first(ins, "FCBias")
+    if b is not None:
+        o = o + b.reshape(1, -1)
+    o = _act(attrs.get("fc_activation", "identity"), o)
+    res = {"Out": [o], "FCOut": [o]}
+    lods = (attrs.get("_lod") or {}).get("X") or []
+    if lods and lods[0] is not None:
+        res["_lod"] = {"Out": [lods[0]]}
+    return res

@@ -3,7 +3,11 @@ package's, pass by pass, on the programs tests/test_ir_passes.py builds:
 fc (:72), simplify + identity scale (:87), conv_bn (:175),
 conv_eltwiseadd_bn (:199), fc_elementwise_layernorm (:232, :301),
 embedding (:268, :318, :380), quant (:413), multihead (:596-706),
-protected fetches (:327) and the pipeline (:538).
+protected fetches (:327) and the pipeline (:538); and the passes outside
+the pipeline: fuse_elewise_add_act (:120-170, each functor),
+fuse_bn_act, skip_layernorm (:251) and the LoD fusions (:834-935, each
+package fed its own LoDTensors), with their ops registered as the TPU
+package registers them.
 
 Each program is built by both packages under the same names, the port's
 scope takes the TPU package's startup values, and after the pass: the op
@@ -490,3 +494,239 @@ def test_registry_holds_the_inference_passes():
     assert tir.INFERENCE_PASSES == jir.INFERENCE_PASSES
     with pytest.raises(ValueError):
         tir.get_pass("not_a_real_pass")
+
+
+# ------------------------------- the BuildStrategy fusions (ir.py:679-746)
+def test_fuse_elewise_add_act_pass():
+    """tests/test_ir_passes.py:140: add + relu fuse; the output at the
+    JAX test's rtol 1e-6, bitwise the unfused one on the port."""
+    def build(f):
+        x = f.data("x", shape=[4], dtype="float32")
+        y = f.data("y", shape=[4], dtype="float32")
+        return f.layers.relu(f.layers.elementwise_add(x, y))
+    j, t = _pair(build)
+    rng = np.random.RandomState(2)
+    feed = {"x": rng.randn(3, 4).astype("float32"),
+            "y": rng.randn(3, 4).astype("float32")}
+    before = t.run(feed)[0]
+    types = _check(j, t, feed, ["fuse_elewise_add_act_pass"], 1e-6, 0)
+    assert types == ["fused_elemwise_activation"]
+    np.testing.assert_array_equal(t.run(feed)[0], before)
+
+
+@pytest.mark.parametrize("act", ["relu", "tanh", "sigmoid", "scale"])
+def test_fuse_elewise_add_act_each_functor(act):
+    """Each unary the pass takes, with the reference's attrs
+    (functor_list, scale), against the TPU package's fused program."""
+    def build(f):
+        x = f.data("x", shape=[4], dtype="float32")
+        y = f.data("y", shape=[4], dtype="float32")
+        h = f.layers.elementwise_add(x, y)
+        if act == "scale":
+            return f.layers.scale(h, scale=1.5)
+        return getattr(f.layers, act)(h)
+    j, t = _pair(build)
+    rng = np.random.RandomState(12)
+    feed = {"x": rng.randn(3, 4).astype("float32"),
+            "y": rng.randn(3, 4).astype("float32")}
+    jp = j.apply(["fuse_elewise_add_act_pass"])
+    tp = t.apply(["fuse_elewise_add_act_pass"])
+    (jop,), (top,) = jp.global_block().ops, tp.global_block().ops
+    assert top.type == jop.type == "fused_elemwise_activation"
+    assert top.attrs == jop.attrs and top.inputs == jop.inputs \
+        and top.outputs == jop.outputs
+    np.testing.assert_allclose(t.run(feed, program=tp)[0],
+                               j.run(feed, program=jp)[0], rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_fuse_elewise_add_scale_zero_keeps_numerics():
+    """tests/test_ir_passes.py:120."""
+    def build(f):
+        x = f.data("x", shape=[4], dtype="float32")
+        y = f.data("y", shape=[4], dtype="float32")
+        h = f.layers.scale(f.layers.elementwise_add(x, y), scale=0.0)
+        return f.layers.elementwise_add(h, h)
+    j, t = _pair(build)
+    rng = np.random.RandomState(11)
+    feed = {"x": rng.randn(2, 4).astype("float32"),
+            "y": rng.randn(2, 4).astype("float32")}
+    _check(j, t, feed, ["fuse_elewise_add_act_pass"], 1e-6, 0)
+    np.testing.assert_array_equal(t.run(feed)[0], np.zeros((2, 4)))
+
+
+def test_fuse_elewise_add_act_skips_grad_consumed_intermediate():
+    """tests/test_ir_passes.py:157: with backward ops reading the add's
+    output nothing fuses, in either package."""
+    def build(f):
+        x = f.data("x", shape=[4], dtype="float32")
+        w = f.layers.create_parameter([4], "float32", name="w_fuse_t")
+        loss = f.layers.mean(f.layers.relu(f.layers.elementwise_add(x, w)))
+        f.optimizer.SGD(0.1).minimize(loss)
+        return loss
+    j, t = _pair(build)
+    n = len(t.types())
+    assert t.types(t.apply(["fuse_elewise_add_act_pass"])) \
+        == j.types(j.apply(["fuse_elewise_add_act_pass"]))
+    assert len(t.types()) == n
+
+
+def test_fuse_bn_act_pass():
+    """batch_norm (is_test) + relu → fused_batch_norm_act with the
+    reference's attrs; outputs at 1e-6 of the unfused and of the TPU
+    package's."""
+    def build(f):
+        img = f.data("img", shape=[3, 6, 6], dtype="float32")
+        c = f.layers.conv2d(img, num_filters=4, filter_size=3, padding=1,
+                            bias_attr=False)
+        return f.layers.batch_norm(c, act="relu", is_test=True)
+    j, t = _pair(build)
+    rng = np.random.RandomState(3)
+    _set_bn_stats((j, t), rng, 4)
+    feed = {"img": rng.randn(2, 3, 6, 6).astype(np.float32)}
+    types = _check(j, t, feed, ["fuse_bn_act_pass"], 1e-6, 1e-6)
+    assert types == ["conv2d", "fused_batch_norm_act"]
+    (bn,) = [op for op in t.main.global_block().ops
+             if op.type == "fused_batch_norm_act"]
+    assert bn.attrs["act_type"] == "relu" and bn.attrs["is_test"] is True
+
+
+# ------------------ skip_layernorm and the LoD fusions (ir.py:532-677, 1036)
+def test_skip_layernorm_fuse_numeric():
+    """tests/test_ir_passes.py:251."""
+    def build(f):
+        x = f.data("x", shape=[6], dtype="float32")
+        y = f.data("y", shape=[6], dtype="float32")
+        return f.layers.layer_norm(f.layers.elementwise_add(x, y),
+                                   begin_norm_axis=1)
+    j, t = _pair(build)
+    rng = np.random.RandomState(6)
+    feed = {"x": rng.randn(2, 6).astype("float32"),
+            "y": rng.randn(2, 6).astype("float32")}
+    assert _check(j, t, feed, ["skip_layernorm_fuse_pass"], 1e-5,
+                  1e-5) == ["skip_layernorm"]
+
+
+def _lod_feeds(rng, spec):
+    """``spec``: name → (rows, dim, lod or None); the same arrays as each
+    package's feed (a LoDTensor where a LoD is given)."""
+    jf, tf = {}, {}
+    for name, (rows, dim, lod) in spec.items():
+        a = rng.rand(rows, dim).astype("float32")
+        if lod is None:
+            jf[name] = tf[name] = a
+        else:
+            jf[name] = jcore.LoDTensor(a, lod=[list(lod)])
+            t = tfluid.LoDTensor()
+            t.set(a, tfluid.CPUPlace())
+            t.set_lod([list(lod)])
+            tf[name] = t
+    return jf, tf
+
+
+def _check_lod(j, t, feeds, passes, fused, rtol=1e-5, atol=1e-6):
+    """``_check`` with each package's own LoD feed: the op types after the
+    passes equal, ``fused`` among them, and the fused outputs within
+    (rtol, atol) of the unfused and of the TPU package's."""
+    jfeed, tfeed = feeds
+    before = t.run(tfeed)[0]
+    np.testing.assert_allclose(before, j.run(jfeed)[0], rtol=rtol,
+                               atol=atol)
+    jp, tp = j.apply(passes), t.apply(passes)
+    assert t.types(tp) == j.types(jp)
+    assert fused in t.types(tp), t.types(tp)
+    after = t.run(tfeed, program=tp)[0]
+    np.testing.assert_allclose(after, before, rtol=rtol, atol=atol)
+    np.testing.assert_allclose(after, j.run(jfeed, program=jp)[0],
+                               rtol=rtol, atol=atol)
+    return t.types(tp)
+
+
+def test_seqconv_eltadd_relu_fuse_pass_numeric():
+    """tests/test_ir_passes.py:834."""
+    def build(f):
+        x = f.layers.data("x", shape=[4], dtype="float32", lod_level=1)
+        return f.layers.sequence_conv(x, 6, filter_size=3, bias_attr=True,
+                                      act="relu")
+    j, t = _pair(build)
+    feeds = _lod_feeds(np.random.RandomState(2), {"x": (7, 4, (0, 3, 7))})
+    types = _check_lod(j, t, feeds, ["seqconv_eltadd_relu_fuse_pass"],
+                       "fusion_seqconv_eltadd_relu")
+    assert "sequence_conv" not in types and "relu" not in types
+
+
+@pytest.mark.parametrize("pooltype", ["sum", "average"])
+def test_seqpool_concat_fuse_pass_numeric(pooltype):
+    """tests/test_ir_passes.py:853, with an empty sequence in one input."""
+    def build(f):
+        a = f.layers.data("a", shape=[4], dtype="float32", lod_level=1)
+        b = f.layers.data("b", shape=[4], dtype="float32", lod_level=1)
+        return f.layers.concat([f.layers.sequence_pool(a, pooltype),
+                                f.layers.sequence_pool(b, pooltype)],
+                               axis=1)
+    j, t = _pair(build)
+    feeds = _lod_feeds(np.random.RandomState(3),
+                       {"a": (7, 4, (0, 3, 3, 7)), "b": (5, 4, (0, 2, 4, 5))})
+    types = _check_lod(j, t, feeds, ["seqpool_concat_fuse_pass"],
+                       "fusion_seqpool_concat")
+    assert "sequence_pool" not in types and "concat" not in types
+
+
+def test_seqpool_concat_fuse_skips_axis0_and_pad_value():
+    """tests/test_ir_passes.py:874: an axis-0 concat and a pad_value pool
+    do not fuse, in either package."""
+    def axis0(f):
+        a = f.layers.data("a", shape=[4], dtype="float32", lod_level=1)
+        b = f.layers.data("b", shape=[4], dtype="float32", lod_level=1)
+        return f.layers.concat([f.layers.sequence_pool(a, "sum"),
+                                f.layers.sequence_pool(b, "sum")], axis=0)
+
+    def pad(f):
+        a = f.layers.data("a", shape=[4], dtype="float32", lod_level=1)
+        b = f.layers.data("b", shape=[4], dtype="float32", lod_level=1)
+        return f.layers.concat(
+            [f.layers.sequence_pool(a, "sum", pad_value=7.0),
+             f.layers.sequence_pool(b, "sum", pad_value=7.0)], axis=1)
+    for build in (axis0, pad):
+        j, t = _pair(build)
+        for side in (j, t):
+            assert "sequence_pool" in side.types(
+                side.apply(["seqpool_concat_fuse_pass"]))
+
+
+def test_seq_concat_fc_fuse_pass_numeric():
+    """tests/test_ir_passes.py:914."""
+    def build(f):
+        s = f.layers.data("seq", shape=[4], dtype="float32", lod_level=1)
+        d1 = f.data("d1", shape=[3], dtype="float32")
+        d2 = f.data("d2", shape=[2], dtype="float32")
+        e1 = f.layers.sequence_expand(d1, s, ref_level=0)
+        e2 = f.layers.sequence_expand(d2, s, ref_level=0)
+        return f.layers.fc(f.layers.concat([s, e1, e2], axis=1), 5,
+                           act="relu")
+    j, t = _pair(build)
+    feeds = _lod_feeds(np.random.RandomState(5),
+                       {"seq": (7, 4, (0, 3, 7)), "d1": (2, 3, None),
+                        "d2": (2, 2, None)})
+    types = _check_lod(j, t, feeds, ["seq_concat_fc_fuse_pass"],
+                       "fusion_seqexpand_concat_fc")
+    assert "sequence_expand" not in types and "concat" not in types
+
+
+FUSED_OPS = ("fused_elemwise_activation", "fused_batch_norm_act",
+             "skip_layernorm", "fusion_seqconv_eltadd_relu",
+             "fusion_seqpool_concat", "fusion_seqexpand_concat_fc")
+
+
+@pytest.mark.parametrize("op", FUSED_OPS)
+def test_fused_op_registered_as_the_tpu_package(op):
+    """The ops the passes emit carry the TPU package's registration: no
+    grad, random key, stateful (fused_batch_norm_act: an island of a
+    segmented block), LoD, the differentiable slots and the defaults."""
+    from paddle_tpu.ops.registry import OPS as JOPS
+    from paddle_tpu_torch.ops.registry import OPS as TOPS
+    t, j = TOPS.get(op), JOPS.get(op)
+    for field in ("no_grad", "needs_rng", "stateful", "needs_lod",
+                  "attr_defaults"):
+        assert getattr(t, field) == getattr(j, field), field
+    assert list(t.diff_input_slots or ()) == list(j.diff_input_slots or ())

@@ -13,9 +13,15 @@ tests/test_streaming.py drive it:
   batches leaves the port's position at 4, where the TPU package's
   prefetching window stage has read 16 (a deliberate difference, ROADMAP
   C "carried");
-- ``use_multiprocess=True`` raises, ``from_dataset`` without a dataset
-  raises, and a loader with no ``places`` raises on a host without CUDA.
+- ``use_multiprocess=True`` (a forked worker, arrays through shared
+  memory) gives the thread loader's batches, LoD included, its windows,
+  state and resume position, and the same training losses, bitwise; it
+  leaves no segment in /dev/shm after a pass, an abandoned iterator, a
+  generator's error or a dead worker, and raises the last two;
+- ``from_dataset`` without a dataset raises, and a loader with no
+  ``places`` raises on a host without CUDA.
 """
+import os
 import time
 
 import numpy as np
@@ -75,6 +81,11 @@ def _loader(fluid, how, places, capacity=2, drop_last=True):
     main, feeds = _feed_vars(fluid)
     ldr = fluid.reader.DataLoader.from_generator(
         feed_list=feeds, capacity=capacity, drop_last=drop_last)
+    return _loader_gen(ldr, how, places, drop_last)
+
+
+def _loader_gen(ldr, how, places=None, drop_last=True):
+    places = tfluid.CPUPlace() if places is None else places
     if how == "batch":
         ldr.set_batch_generator(_gen, places=places)
     elif how == "sample":
@@ -307,11 +318,31 @@ def test_stream_loader_refuses_epoch_state():
             ldr.load_state_dict({"epoch": 0, "position": 4})
 
 
+def _segments():
+    """This process's multiprocess-loader segments in /dev/shm."""
+    prefix = tfluid.reader.segment_prefix()
+    return sorted(n for n in os.listdir("/dev/shm") if n.startswith(prefix))
+
+
+def _mp_loader(how, capacity=2, **kw):
+    main, feeds = _feed_vars(tfluid)
+    ldr = tfluid.reader.DataLoader.from_generator(
+        feed_list=feeds, capacity=capacity, use_multiprocess=True, **kw)
+    return _loader_gen(ldr, how)
+
+
 def test_multiprocess_and_from_dataset_raise():
-    """use_multiprocess is not ported and raises; from_dataset is (tests/
-    test_torch_dataset.py) and raises only without a dataset."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfluid.DataLoader.from_generator(capacity=2, use_multiprocess=True)
+    """use_multiprocess=True, which raised before it was ported, now runs
+    the generator in a worker process: its batches are the thread
+    loader's, bitwise, for each kind of generator, and it leaves no
+    segment in /dev/shm; from_dataset (tests/test_torch_dataset.py)
+    still raises without a dataset."""
+    for how in ("batch", "sample", "sample_list"):
+        want = list(_loader(tfluid, how, tfluid.CPUPlace()))
+        got = list(_mp_loader(how))
+        _assert_batches_equal(got, want)
+        assert type(got[0]["x"]) is type(want[0]["x"])
+    assert _segments() == []
     with pytest.raises(ValueError, match="dataset"):
         tfluid.DataLoader.from_dataset(None, tfluid.CPUPlace())
 
@@ -372,3 +403,137 @@ def test_window_feeds_executor_run():
                 for b in ldr]).ravel()
     assert got["window"].shape == (N,)
     np.testing.assert_array_equal(got["window"], got["single"])
+
+
+# ------------------------------------------------- the worker process
+@pytest.fixture
+def _one_thread():
+    """One intra-op thread for the bitwise training check: CPU products
+    under contended BLAS threads may split differently from call to
+    call."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_multiprocess_lod_batches_match_the_thread_loader():
+    """A sample generator of LoD samples: the worker makes the columns
+    with numpy, the loader the LoDTensors, with the thread loader's LoD."""
+    def build():
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.program_guard(main, startup):
+            a = tfluid.data("a", shape=[3], dtype="float32")
+            b = tfluid.data("b", shape=[1], dtype="int64", lod_level=1)
+        return [a, b]
+
+    def samples():
+        r = np.random.RandomState(0)
+        for _ in range(5):
+            yield [(r.rand(3).astype(np.float32),
+                    r.randint(0, 5, (r.randint(0, 4), 1)))
+                   for _ in range(4)]
+    got = {}
+    for mp in (False, True):
+        ldr = tfluid.DataLoader.from_generator(
+            feed_list=build(), capacity=2, use_multiprocess=mp)
+        ldr.set_sample_list_generator(samples, places=tfluid.CPUPlace())
+        got[mp] = list(ldr)
+    _assert_batches_equal(got[True], got[False])
+    for g, w in zip(got[True], got[False]):
+        assert g["b"].lod() == w["b"].lod()
+    assert _segments() == []
+
+
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_multiprocess_windows_state_and_resume(prefetch):
+    want = list(_loader(tfluid, "batch", tfluid.CPUPlace()).window(
+        4, drop_last=False, prefetch_to_device=prefetch))
+    ldr = _mp_loader("batch")
+    got = list(ldr.window(4, drop_last=False, prefetch_to_device=prefetch))
+    _assert_batches_equal(got, want)
+    assert [w.n_valid for w in got] == [w.n_valid for w in want]
+    assert ldr.state_dict() == {"epoch": 1, "position": 0}
+    it = iter(ldr)
+    for _ in range(4):
+        next(it)
+    state = ldr.state_dict()
+    assert state == {"epoch": 1, "position": 4}
+    it.close()
+    fresh = _mp_loader("batch")
+    fresh.load_state_dict(state)
+    assert [float(_host(b["x"])[0, 0]) for b in fresh] == [
+        4.0, 5.0, 6.0, 7.0, 8.0, 9.0]
+    assert fresh.state_dict() == {"epoch": 2, "position": 0}
+    assert _segments() == []
+
+
+def test_multiprocess_cleans_up_an_abandoned_iterator():
+    """The consumer stops after two batches of many, five times over: the
+    worker is stopped and every segment it made is unlinked, by it or by
+    the loader."""
+    def many():
+        for i in range(200):
+            yield {"x": np.full((64, 32), float(i), np.float32),
+                   "y": np.full((64, 1), i, np.int64)}
+    ldr = tfluid.DataLoader.from_generator(capacity=2, use_multiprocess=True)
+    ldr.set_batch_generator(many, places=tfluid.CPUPlace())
+    for _ in range(5):
+        it = iter(ldr)
+        assert float(_host(next(it)["x"])[0, 0]) == 0.0
+        next(it)
+        it.close()
+        ldr._mp_proc.join(10)
+        assert not ldr._mp_proc.is_alive()
+    assert _segments() == []
+
+
+def test_multiprocess_worker_errors_reach_the_consumer():
+    def bad():
+        yield {"x": np.zeros((2, 3), np.float32)}
+        raise IndexError("generator broke")
+
+    def dies():
+        yield {"x": np.zeros((2, 3), np.float32)}
+        os._exit(3)
+    for gen, match in ((bad, "generator broke"), (dies, "exitcode=3")):
+        ldr = tfluid.DataLoader.from_generator(
+            capacity=2, use_multiprocess=True, worker_timeout=0.2)
+        ldr.set_batch_generator(gen, places=tfluid.CPUPlace())
+        with pytest.raises(RuntimeError, match=match):
+            list(ldr)
+    assert _segments() == []
+
+
+def test_multiprocess_loader_trains_as_the_thread_loader(_one_thread):
+    """test_window_feeds_executor_run's model over the worker's batches
+    and windows: the losses of the thread loader's, bitwise."""
+    def build():
+        main, startup = tfluid.Program(), tfluid.Program()
+        main.random_seed = startup.random_seed = 3
+        with tfluid.unique_name.guard(), \
+                tfluid.program_guard(main, startup):
+            x = tfluid.data("x", shape=[3], dtype="float32")
+            y = tfluid.data("y", shape=[1], dtype="int64")
+            pred = tfluid.layers.fc(x, 5, act="softmax")
+            loss = tfluid.layers.mean(
+                tfluid.layers.cross_entropy(pred, y))
+            tfluid.optimizer.SGD(0.1).minimize(loss)
+        return main, startup, loss
+
+    got = {}
+    for mp in (False, True):
+        for how in ("window", "single"):
+            main, startup, loss = build()
+            exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+            exe.run(startup, scope=scope)
+            ldr = tfluid.DataLoader.from_generator(
+                feed_list=["x", "y"], capacity=2, use_multiprocess=mp)
+            ldr.set_batch_generator(_gen, places=tfluid.CPUPlace())
+            feeds = ldr.window(5) if how == "window" else ldr
+            got[mp, how] = np.concatenate([
+                exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]
+                for f in feeds]).ravel()
+    for how in ("window", "single"):
+        np.testing.assert_array_equal(got[True, how], got[False, how])
+    assert _segments() == []

@@ -126,8 +126,10 @@ def test_unported_options_raise():
     """use_amp and recompute are ported (tests/test_torch_amp.py,
     tests/test_torch_recompute.py), and so is the optimizer's grad_clip
     (tests/test_torch_optimizers.py): it builds its clip ops, where it
-    raised before it was ported; append_backward's checkpoints still
-    raise."""
+    raised before it was ported. append_backward's ``checkpoints`` and
+    ``callbacks``, which raised on the port, are accepted and ignored as
+    in the TPU package (its backward.py:150-152): both packages build the
+    same program with them as without them."""
     with tfluid.unique_name.guard():
         main, _, _, (loss,) = tbert.build_bert_pretrain_program(
             CFG, seq_len=S, use_amp=True, recompute=True)
@@ -139,10 +141,26 @@ def test_unported_options_raise():
         loss = tfluid.layers.mean(tfluid.layers.fc(x, 2))
         tfluid.optimizer.Adam(1e-3, grad_clip=tfluid.clip.GradientClipByNorm(
             1.0)).minimize(loss)
-        with pytest.raises(NotImplementedError, match="checkpoints"):
-            tfluid.append_backward(loss, checkpoints=[x])
     types = [op.type for op in main.global_block().ops]
     assert types.count("clip_by_norm") == 2
+
+    def build(fluid, **kw):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data("x", shape=[4], dtype="float32")
+            h = fluid.layers.fc(x, 3, act="relu")
+            loss = fluid.layers.mean(fluid.layers.fc(h, 2))
+            pg = fluid.append_backward(
+                loss, **{k: (v(h) if callable(v) else v)
+                         for k, v in kw.items()})
+        return main, [(p.name, g.name) for p, g in pg]
+
+    plain = build(tfluid)
+    opts = dict(checkpoints=lambda h: [h], callbacks=[lambda *a: None])
+    for fluid in (tfluid, jfluid):
+        main, pairs = build(fluid, **opts)
+        assert pairs == plain[1]
+        assert _canonical(main) == _canonical(plain[0])
 
 
 # ---------------------------------------------------------- per-op grads
