@@ -106,6 +106,17 @@ class LayerHelper:
         param.stop_gradient = stop_gradient
         return param
 
+    def get_parameter(self, name: str):
+        """The main program's parameter ``name`` (a layer that shares
+        another's parameter, as crf_decoding shares linear_chain_crf's)."""
+        param = self.main_program.global_block().vars.get(name)
+        if param is None:
+            raise ValueError(f"parameter '{name}' not found")
+        return param
+
+    def create_variable(self, *args, **kwargs):
+        return self.main_program.current_block().create_var(*args, **kwargs)
+
     def create_variable_for_type_inference(self, dtype,
                                            stop_gradient=False) -> Variable:
         return self.main_program.current_block().create_var(

@@ -10,3 +10,4 @@ from .tensor import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .sequence_lod import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403

@@ -8,10 +8,18 @@ clip, clip_by_norm, sign, pow, label_smooth, log_loss,
 add_position_encoding, autoincreased_step_counter, the logical_*
 layers, the parameterized activations (brelu, leaky_relu, soft_relu,
 swish, hard_swish, elu, relu6, stanh, hard_sigmoid), lod_reset,
-lod_append, im2sequence and cos_sim."""
+lod_append, im2sequence, cos_sim, the layers over the rest of
+tensor_ops (split, stack, unstack, unbind, slice, strided_slice,
+expand, expand_as, pad, pad2d, pad_constant_like, roll, gather_nd,
+scatter, scatter_nd, scatter_nd_add, index_select, index_sample,
+multiplex, where, shard_index, shape, size, rank, unique,
+unique_with_counts, sampling_id and the *_random_batch_size_like pair),
+linear_chain_crf and crf_decoding."""
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 from ..core import VarDesc, convert_np_dtype_to_dtype_
 from ..framework import Variable
@@ -19,21 +27,27 @@ from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
 from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
-           "layer_norm", "dropout", "softmax", "reshape", "squeeze",
-           "unsqueeze", "transpose", "matmul", "flatten", "gather", "topk",
-           "mean", "reduce_sum",
-           "reduce_mean", "one_hot", "elementwise_add", "elementwise_sub",
-           "elementwise_mul", "elementwise_div", "elementwise_max",
-           "elementwise_min", "elementwise_pow", "elementwise_mod", "scale",
-           "clip", "clip_by_norm", "sign", "pow",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
+           "dropout", "softmax", "reshape", "squeeze", "unsqueeze",
+           "transpose", "matmul", "flatten", "gather", "topk", "mean",
+           "reduce_sum", "reduce_mean", "one_hot", "elementwise_add",
+           "elementwise_sub", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "elementwise_min", "elementwise_pow",
+           "elementwise_mod", "scale", "clip", "clip_by_norm", "sign", "pow",
            "label_smooth", "log_loss", "add_position_encoding",
            "autoincreased_step_counter", "logical_and", "logical_or",
            "logical_xor", "logical_not", "brelu", "leaky_relu", "soft_relu",
            "swish", "hard_swish", "elu", "relu6", "stanh", "hard_sigmoid",
-           "lod_reset", "lod_append", "im2sequence", "cos_sim", "mul",
-           "sum", "reduce_max", "reduce_min", "reduce_prod", "reduce_all",
-           "reduce_any", "uniform_random", "gaussian_random"]
+           "lod_reset", "lod_append", "im2sequence", "cos_sim", "mul", "sum",
+           "reduce_max", "reduce_min", "reduce_prod", "reduce_all",
+           "reduce_any", "uniform_random", "gaussian_random", "expand",
+           "expand_as", "gather_nd", "gaussian_random_batch_size_like",
+           "index_sample", "index_select", "multiplex", "pad", "pad2d",
+           "pad_constant_like", "rank", "roll", "sampling_id", "scatter",
+           "scatter_nd", "scatter_nd_add", "shape", "shard_index", "size",
+           "slice", "split", "stack", "strided_slice", "unbind",
+           "uniform_random_batch_size_like", "unique", "unique_with_counts",
+           "unstack", "where", "linear_chain_crf", "crf_decoding"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -812,3 +826,388 @@ def cos_sim(X, Y):
                      outputs={"Out": [out], "XNorm": [xnorm],
                               "YNorm": [ynorm]})
     return out
+
+
+# --------------------------------------------------------------------------
+# the layers over the rest of tensor_ops, and the linear-chain CRF pair
+# --------------------------------------------------------------------------
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if not any(isinstance(t, Variable) for t in expand_times):
+        out.shape = tuple(s * t if s > 0 else -1
+                          for s, t in zip(x.shape, expand_times))
+    helper.append_op(type="expand", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"expand_times": [t if not isinstance(t, Variable)
+                                             else -1 for t in expand_times]})
+    return out
+
+
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = target_tensor.shape
+    helper.append_op(type="expand_as",
+                     inputs={"X": [x], "target_tensor": [target_tensor]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def gather_nd(input, index, name=None):
+    helper = LayerHelper("gather_nd", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = tuple(list(index.shape[:-1])
+                      + list(input.shape[index.shape[-1]:]))
+    helper.append_op(type="gather_nd", inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    helper = LayerHelper("gaussian_random_batch_size_like", **locals())
+    out = helper.create_variable_for_type_inference(
+        convert_np_dtype_to_dtype_(dtype))
+    helper.append_op(type="gaussian_random_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": float(mean),
+                            "std": float(std), "seed": seed,
+                            "dtype": convert_np_dtype_to_dtype_(dtype),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def index_sample(x, index):
+    helper = LayerHelper("index_sample")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = index.shape
+    helper.append_op(type="index_sample",
+                     inputs={"X": [x], "Index": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def index_select(input, index, dim=0):
+    helper = LayerHelper("index_select")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="index_select",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]}, attrs={"dim": dim})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    out.shape = inputs[0].shape
+    helper.append_op(type="multiplex",
+                     inputs={"X": list(inputs), "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = tuple(s + paddings[2 * i] + paddings[2 * i + 1]
+                      if s >= 0 else -1
+                      for i, s in enumerate(x.shape))
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings),
+                            "pad_value": float(pad_value)})
+    return out
+
+
+def pad2d(input, paddings=[0, 0, 0, 0], mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": float(pad_value),
+                            "data_format": data_format})
+    return out
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    helper = LayerHelper("pad_constant_like", **locals())
+    out = helper.create_variable_for_type_inference(y.dtype)
+    out.shape = x.shape
+    helper.append_op(type="pad_constant_like",
+                     inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+                     attrs={"pad_value": float(pad_value)})
+    return out
+
+
+def rank(input):
+    from .tensor import assign
+    return assign(np.asarray([len(input.shape)], np.int32))
+
+
+def roll(input, shifts, dims=None):
+    helper = LayerHelper("roll")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="roll", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"shifts": shifts if isinstance(shifts, list)
+                            else [shifts],
+                            "dims": dims if isinstance(dims, list)
+                            else ([dims] if dims is not None else [])})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("sampling_id", **locals())
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    out.shape = tuple(x.shape[:-1])  # one drawn id per distribution row
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"min": min, "max": max, "seed": seed})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper("scatter", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="scatter",
+                     inputs={"X": [input], "Ids": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]}, attrs={"overwrite": overwrite})
+    return out
+
+
+def scatter_nd(index, updates, shape, name=None):
+    from .tensor import fill_constant
+    zero = fill_constant(shape, updates.dtype, 0.0)
+    return scatter_nd_add(zero, index, updates, name)
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    helper = LayerHelper("scatter_nd_add", **locals())
+    out = helper.create_variable_for_type_inference(ref.dtype)
+    out.shape = ref.shape
+    helper.append_op(type="scatter_nd_add",
+                     inputs={"X": [ref], "Index": [index],
+                             "Updates": [updates]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper("shape")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.INT32)
+    out.shape = (len(input.shape),)
+    helper.append_op(type="shape", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    out.stop_gradient = True
+    return out
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    helper = LayerHelper("shard_index")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="shard_index", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"index_num": index_num, "nshards": nshards,
+                            "shard_id": shard_id,
+                            "ignore_value": ignore_value})
+    return out
+
+
+def size(input):
+    helper = LayerHelper("size")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    helper.append_op(type="size", inputs={"Input": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    shp = list(input.shape)
+    ok = all(not isinstance(s, Variable) for s in list(starts) + list(ends))
+    if ok:
+        for ax, s, e in zip(axes, starts, ends):
+            if shp[ax] < 0:
+                continue
+            d = shp[ax]
+            s2 = max(s + d, 0) if s < 0 else min(s, d)
+            e2 = max(e + d, 0) if e < 0 else min(e, d)
+            shp[ax] = max(e2 - s2, 0)
+        out.shape = tuple(shp)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends), "decrease_axis": [],
+                            "infer_flags": [1] * len(axes)})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", **locals())
+    dim = dim if dim >= 0 else dim + len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        sections = []
+        sizes = ([input.shape[dim] // n] * n if input.shape[dim] > 0
+                 else [-1] * n)
+    else:
+        sections = list(num_or_sections)
+        n = len(sections)
+        sizes = sections
+    outs = []
+    for i in range(n):
+        o = helper.create_variable_for_type_inference(input.dtype)
+        shp = list(input.shape)
+        shp[dim] = sizes[i] if not isinstance(sizes[i], Variable) else -1
+        o.shape = tuple(shp)
+        outs.append(o)
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs},
+                     attrs={"axis": dim, "num": 0 if sections else n,
+                            "sections": [s if not isinstance(s, Variable)
+                                         else -1 for s in sections]})
+    return outs
+
+
+def stack(x, axis=0):
+    helper = LayerHelper("stack")
+    x = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    shp = list(x[0].shape)
+    shp.insert(axis if axis >= 0 else len(shp) + axis + 1, len(x))
+    out.shape = tuple(shp)
+    helper.append_op(type="stack", inputs={"X": list(x)},
+                     outputs={"Y": [out]}, attrs={"axis": axis})
+    return out
+
+
+def strided_slice(input, axes, starts, ends, strides):
+    helper = LayerHelper("strided_slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="strided_slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends), "strides": list(strides),
+                            "decrease_axis": [],
+                            "infer_flags": [1] * len(axes)})
+    return out
+
+
+def unbind(input, axis=0):
+    helper = LayerHelper("unbind")
+    num = input.shape[axis]
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num)]
+    helper.append_op(type="unbind", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs={"axis": axis})
+    return outs
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    helper = LayerHelper("uniform_random_batch_size_like", **locals())
+    out = helper.create_variable_for_type_inference(
+        convert_np_dtype_to_dtype_(dtype))
+    helper.append_op(type="uniform_random_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "min": float(min),
+                            "max": float(max), "seed": seed,
+                            "dtype": convert_np_dtype_to_dtype_(dtype),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def unique(x, dtype="int32"):
+    helper = LayerHelper("unique")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(
+        convert_np_dtype_to_dtype_(dtype))
+    helper.append_op(type="unique", inputs={"X": [x]},
+                     outputs={"Out": [out], "Index": [index]},
+                     attrs={"dtype": convert_np_dtype_to_dtype_(dtype)})
+    return out, index
+
+
+def unique_with_counts(x, dtype="int32"):
+    helper = LayerHelper("unique_with_counts")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    index = helper.create_variable_for_type_inference(
+        convert_np_dtype_to_dtype_(dtype))
+    count = helper.create_variable_for_type_inference(
+        convert_np_dtype_to_dtype_(dtype))
+    helper.append_op(type="unique_with_counts", inputs={"X": [x]},
+                     outputs={"Out": [out], "Index": [index],
+                              "Count": [count]},
+                     attrs={"dtype": convert_np_dtype_to_dtype_(dtype)})
+    return out, index, count
+
+
+def unstack(x, axis=0, num=None):
+    helper = LayerHelper("unstack")
+    if num is None:
+        num = x.shape[axis]
+    outs = []
+    for _ in range(num):
+        o = helper.create_variable_for_type_inference(x.dtype)
+        shp = list(x.shape)
+        shp.pop(axis if axis >= 0 else len(shp) + axis)
+        o.shape = tuple(shp)
+        outs.append(o)
+    helper.append_op(type="unstack", inputs={"X": [x]}, outputs={"Y": outs},
+                     attrs={"axis": axis, "num": num})
+    return outs
+
+
+def where(condition):
+    helper = LayerHelper("where_index")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    helper.append_op(type="where_index", inputs={"Condition": [condition]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """reference: layers/nn.py linear_chain_crf — CRF NLL; Transition rows
+    [start; end; tags x tags]."""
+    helper = LayerHelper("linear_chain_crf", **locals())
+    dtype = helper.input_dtype()
+    num_tags = input.shape[-1]
+    transition = helper.create_parameter(attr=param_attr,
+                                         shape=[num_tags + 2, num_tags],
+                                         dtype=dtype)
+    ll = helper.create_variable_for_type_inference(dtype)
+    alpha = helper.create_variable_for_type_inference(dtype)
+    e_exps = helper.create_variable_for_type_inference(dtype)
+    t_exps = helper.create_variable_for_type_inference(dtype)
+    ll.shape = (-1, 1)
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [transition],
+                "Label": [label]},
+        outputs={"LogLikelihood": [ll], "Alpha": [alpha],
+                 "EmissionExps": [e_exps], "TransitionExps": [t_exps]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    from ..core import VarDesc
+    helper = LayerHelper("crf_decoding", **locals())
+    transition = helper.get_parameter(param_attr.name)
+    path = helper.create_variable_for_type_inference(
+        VarDesc.VarType.INT64)
+    inputs = {"Emission": [input], "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    return path

@@ -1,8 +1,10 @@
 """Tensor layers (counterpart of paddle_tpu/fluid/layers/tensor.py;
 reference: python/paddle/fluid/layers/tensor.py). So far: assign, cast,
 concat, create_global_var, create_parameter, fill_constant, ones, zeros,
-sums, tensor_array_to_tensor, isfinite, and ``math_op``, the helper of the Variable
-operators."""
+sums, tensor_array_to_tensor, isfinite, argmax, argmin, argsort,
+create_tensor, diag, eye, fill_constant_batch_size_like, has_inf,
+has_nan, linspace, ones_like, range, reverse, zeros_like, and
+``math_op``, the helper of the Variable operators."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,9 +14,11 @@ from ..framework import Variable
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ["assign", "cast", "concat", "create_global_var",
-           "create_parameter", "fill_constant", "ones", "zeros", "sums",
-           "tensor_array_to_tensor", "isfinite"]
+__all__ = ["assign", "cast", "concat", "create_global_var", "create_parameter",
+           "fill_constant", "ones", "zeros", "sums", "tensor_array_to_tensor",
+           "isfinite", "argmax", "argmin", "argsort", "create_tensor", "diag",
+           "eye", "fill_constant_batch_size_like", "has_inf", "has_nan",
+           "linspace", "ones_like", "reverse", "zeros_like", "range"]
 
 
 def _dtype(d):
@@ -202,4 +206,173 @@ def isfinite(x):
     out.shape = (1,)
     helper.append_op(type="isfinite", inputs={"X": [x]},
                      outputs={"Out": [out]})
+    return out
+
+
+# --------------------------------------------------------------------------
+# argmax .. range: the layers over the rest of tensor_ops
+# --------------------------------------------------------------------------
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    shp = list(x.shape)
+    if shp:
+        shp.pop(axis if axis >= 0 else len(shp) + axis)
+    out.shape = tuple(shp)
+    helper.append_op(type="arg_max", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    out.stop_gradient = True
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper("arg_min")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    helper.append_op(type="arg_min", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    out.stop_gradient = True
+    return out
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    helper = LayerHelper("argsort", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    ids = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    out.shape = ids.shape = input.shape
+    helper.append_op(type="argsort", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [ids]},
+                     attrs={"axis": axis, "descending": descending})
+    return out, ids
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(name=helper.name, dtype=_dtype(dtype),
+                                  persistable=persistable)
+
+
+def diag(diagonal):
+    helper = LayerHelper("diag")
+    out = helper.create_variable_for_type_inference(diagonal.dtype)
+    helper.append_op(type="diag", inputs={"Diagonal": [diagonal]},
+                     outputs={"Out": [out]})
+    out.stop_gradient = True
+    return out
+
+
+def eye(num_rows, num_columns=None, batch_shape=None, dtype="float32"):
+    helper = LayerHelper("eye")
+    dtype = _dtype(dtype)
+    num_columns = num_columns if num_columns is not None else num_rows
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = (num_rows, num_columns)
+    helper.append_op(type="eye", outputs={"Out": [out]},
+                     attrs={"num_rows": num_rows, "num_columns": num_columns,
+                            "dtype": dtype})
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  force_cpu=False):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=_dtype(dtype))
+    out.shape = tuple(shape)
+    out.stop_gradient = True
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": _dtype(dtype),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    return out
+
+
+def has_inf(x):
+    """True iff ``x`` contains an Inf (reference: isinf over AnyVisitor
+    — a NaN-only tensor reports False; NOT the same as ``not
+    isfinite``, which the old port conflated both helpers into)."""
+    helper = LayerHelper("isinf")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.BOOL)
+    out.shape = (1,)
+    helper.append_op(type="isinf", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def has_nan(x):
+    """True iff ``x`` contains a NaN (an Inf-only tensor reports
+    False)."""
+    helper = LayerHelper("isnan")
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.BOOL)
+    out.shape = (1,)
+    helper.append_op(type="isnan", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def linspace(start, stop, num, dtype):
+    helper = LayerHelper("linspace")
+    dtype = _dtype(dtype)
+
+    def _ensure(v, dt):
+        if isinstance(v, Variable):
+            return v
+        return fill_constant([1], dt, v)
+    start = _ensure(start, dtype)
+    stop = _ensure(stop, dtype)
+    num = _ensure(num, VarDesc.VarType.INT32)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="linspace",
+                     inputs={"Start": [start], "Stop": [stop], "Num": [num]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def ones_like(x, out=None):
+    helper = LayerHelper("ones_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"value": 1.0, "dtype": -1})
+    return out
+
+
+def reverse(x, axis):
+    if isinstance(axis, int):
+        axis = [axis]
+    helper = LayerHelper("reverse")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="reverse", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis})
+    return out
+
+
+def zeros_like(x, out=None):
+    helper = LayerHelper("zeros_like")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"value": 0.0, "dtype": -1})
+    return out
+
+
+def range(start, end, step, dtype):
+    helper = LayerHelper("range")
+    dtype = _dtype(dtype)
+
+    def _ensure(v):
+        if isinstance(v, Variable):
+            return v
+        return fill_constant([1], dtype, v)
+    start, end, step = _ensure(start), _ensure(end), _ensure(step)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="range",
+                     inputs={"Start": [start], "End": [end], "Step": [step]},
+                     outputs={"Out": [out]})
+    out.stop_gradient = True
     return out

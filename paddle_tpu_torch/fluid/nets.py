@@ -1,12 +1,13 @@
 """fluid.nets: composites over fluid.layers (counterpart of
 paddle_tpu/fluid/nets.py; reference: python/paddle/fluid/nets.py). So
-far: simple_img_conv_pool, img_conv_group and sequence_conv_pool; glu
-waits for the split op."""
+far: simple_img_conv_pool, img_conv_group, sequence_conv_pool and
+glu."""
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -68,3 +69,10 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                                     param_attr=param_attr, act=act,
                                     bias_attr=bias_attr)
     return layers.sequence_pool(conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: ``input`` split in two along ``dim``, a ·
+    sigmoid(b) (reference nets.py glu)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(a, layers.sigmoid(b))

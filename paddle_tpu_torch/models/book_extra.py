@@ -1,7 +1,8 @@
-"""The book's LoD and regression models (counterpart of
+"""The book's other models (counterpart of
 paddle_tpu/models/book_extra.py; reference: python/paddle/fluid/tests/
-book/ — test_fit_a_line.py, notest_understand_sentiment.py,
-test_recommender_system.py). Each builder returns (main, startup,
+book/ — test_fit_a_line.py, test_image_classification.py's VGG branch,
+notest_understand_sentiment.py, test_recommender_system.py,
+test_label_semantic_roles.py). Each build function returns (main, startup,
 feed_names, loss[, extras]) like the other model modules; the callers
 make the data (the TPU package's synthetic stand-ins live in
 paddle_tpu/dataset, which the port does not import)."""
@@ -10,8 +11,9 @@ from __future__ import annotations
 from .. import fluid
 from ..fluid import layers
 
-__all__ = ["build_fit_a_line", "convolution_net", "build_sentiment_program",
-           "build_recommender_program"]
+__all__ = ["build_fit_a_line", "vgg16", "build_vgg_cifar",
+           "convolution_net", "build_sentiment_program",
+           "build_recommender_program", "build_srl_crf_program"]
 
 
 # --------------------------------------------------------------------------
@@ -26,6 +28,56 @@ def build_fit_a_line(lr=0.01):
         loss = layers.mean(layers.square_error_cost(pred, y))
         fluid.optimizer.SGD(lr).minimize(loss)
     return main, startup, ["x", "y"], loss
+
+
+# --------------------------------------------------------------------------
+# VGG — the book's image_classification vgg branch (img_conv_group stacks)
+# --------------------------------------------------------------------------
+def vgg16(input, class_dim=10):
+    from ..fluid import nets
+
+    def group(inp, num, filters):
+        return nets.img_conv_group(
+            inp, conv_num_filter=[filters] * num, pool_size=2,
+            pool_stride=2, conv_act="relu", conv_with_batchnorm=True,
+            conv_batchnorm_drop_rate=0.0)
+
+    x = group(input, 2, 64)
+    x = group(x, 2, 128)
+    x = group(x, 3, 256)
+    x = group(x, 3, 512)
+    x = group(x, 3, 512)
+    x = layers.fc(x, 512, act=None)
+    x = layers.batch_norm(x, act="relu")
+    x = layers.fc(x, 512, act=None)
+    return layers.fc(x, class_dim, act="softmax")
+
+
+def build_vgg_cifar(class_dim=10, image_size=32, lr=1e-3, depth="small"):
+    """depth="small": a 2-group VGG for test-speed; "16": full VGG16."""
+    from ..fluid import nets
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.data("img", shape=[3, image_size, image_size],
+                         dtype="float32")
+        label = fluid.data("label", shape=[1], dtype="int64")
+        if depth == "16":
+            pred = vgg16(img, class_dim)
+        else:
+            x = nets.img_conv_group(img, conv_num_filter=[32, 32],
+                                    pool_size=2, pool_stride=2,
+                                    conv_act="relu",
+                                    conv_with_batchnorm=True)
+            x = nets.img_conv_group(x, conv_num_filter=[64, 64],
+                                    pool_size=2, pool_stride=2,
+                                    conv_act="relu",
+                                    conv_with_batchnorm=True)
+            x = layers.fc(x, 128, act="relu")
+            pred = layers.fc(x, class_dim, act="softmax")
+        loss = layers.mean(layers.cross_entropy(pred, label))
+        acc = layers.accuracy(pred, label)
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return main, startup, ["img", "label"], loss, acc
 
 
 # --------------------------------------------------------------------------
@@ -101,3 +153,28 @@ def build_recommender_program(n_users, n_movies, n_jobs=21, n_ages=7,
     feeds = ["user_id", "gender_id", "age_id", "job_id", "movie_id",
              "category_id", "movie_title", "score"]
     return main, startup, feeds, loss
+
+
+# --------------------------------------------------------------------------
+# label_semantic_roles — sequence tagging with a linear-chain CRF
+# --------------------------------------------------------------------------
+def build_srl_crf_program(word_dict_len, label_dict_len, emb=32, hidden=64,
+                          lr=1e-2):
+    """Simplified SRL tagger (test_label_semantic_roles.py shape): word
+    embeddings → fc stack → linear_chain_crf loss + crf_decoding."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        word = fluid.data("word", shape=[1], dtype="int64", lod_level=1)
+        target = fluid.data("target", shape=[1], dtype="int64", lod_level=1)
+        e = layers.embedding(word, size=[word_dict_len, emb])
+        e = layers.reshape(e, [-1, emb])
+        h = layers.fc(e, hidden, act="tanh")
+        feature = layers.fc(h, label_dict_len, act=None)
+        crf_cost = layers.linear_chain_crf(
+            input=feature, label=target,
+            param_attr=fluid.ParamAttr(name="crfw"))
+        loss = layers.mean(crf_cost)
+        decode = layers.crf_decoding(
+            input=feature, param_attr=fluid.ParamAttr(name="crfw"))
+        fluid.optimizer.SGD(lr).minimize(loss)
+    return main, startup, ["word", "target"], loss, decode

@@ -9,7 +9,10 @@ sigmoid, log_loss, and the stateful auc and print), and the ops that
 saved and rewritten inference programs carry (feed, fetch, assign,
 transpose2, matmul, and the fused fc, fused_embedding_eltwise_layernorm,
 fused_fc_elementwise_layernorm and conv2d_fusion), the LoD sequence ops,
-sequence_mask, cos_sim and the activations of the book's models."""
+sequence_mask, cos_sim and the activations of the book's models, the
+rest of tensor_ops' shape, gather/scatter, sorting and random ops, the
+fused lstm and lstm_unit, nce, hierarchical_sigmoid and the linear-chain
+CRF with its Viterbi decode."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
@@ -21,3 +24,5 @@ from . import optimizer_ops  # noqa: F401
 from . import framework_ops  # noqa: F401
 from . import fused_ops      # noqa: F401
 from . import sequence_ops   # noqa: F401
+from . import rnn_ops         # noqa: F401
+from . import loss_extra_ops  # noqa: F401

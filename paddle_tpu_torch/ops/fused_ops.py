@@ -269,14 +269,15 @@ def _fusion_seqexpand_concat_fc(ins, attrs):
     sequence, repeated over its sequence's rows; all concatenated on the
     feature axis, then one fc and ``fc_activation``. FCOut is Out."""
     import numpy as np
-    from .sequence_ops import _const, _rows
+    from .sequence_ops import _const
+    from .tensor_ops import take_rows
     xs = seq(ins, "X")
     lv, _ = _lod_part(attrs, "X", 0, xs[0].shape[0])
     offs = np.asarray(lv[-1], np.int64)
     row_of = _const(attrs, "seqexpand_rows",
                     lambda: np.repeat(np.arange(len(offs) - 1),
                                       offs[1:] - offs[:-1]), xs[0].device)
-    cat = torch.cat([xs[0]] + [_rows(x, row_of) for x in xs[1:]], dim=1)
+    cat = torch.cat([xs[0]] + [take_rows(x, row_of) for x in xs[1:]], dim=1)
     o = torch.matmul(cat, first(ins, "FCWeight"))
     b = first(ins, "FCBias")
     if b is not None:

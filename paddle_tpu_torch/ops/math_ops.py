@@ -7,7 +7,8 @@ reciprocal, sign, pow, the other activations of the TPU package's table
 (tanh, logsigmoid, tanh_shrink, round, sin, acos, asin, atan, sinh, cosh,
 log, log1p, softplus, softsign, erf, leaky_relu, elu, selu, relu6, brelu,
 soft_relu, hard_sigmoid, hard_swish, swish, stanh, softshrink, hard_shrink,
-thresholded_relu), cos_sim, mean, sum, the reduce_* family, isfinite, the
+thresholded_relu), cos_sim, mean, sum, the reduce_* family, isfinite,
+isnan, isinf, the
 comparisons less_than, less_equal, greater_than, greater_equal, equal and
 not_equal, and logical_and, logical_or, logical_xor and logical_not).
 
@@ -392,6 +393,18 @@ _register_reduce("reduce_any", _over(torch.any))
 def _isfinite(ins, attrs):
     """[1] bool: every element of X finite."""
     return out(Out=torch.all(torch.isfinite(first(ins, "X"))).reshape((1,)))
+
+
+@register_op("isnan", inputs=("X",), no_grad=True)
+def _isnan(ins, attrs):
+    """[1] bool: some element of X is a NaN (an Inf is not)."""
+    return out(Out=torch.any(torch.isnan(first(ins, "X"))).reshape((1,)))
+
+
+@register_op("isinf", inputs=("X",), no_grad=True)
+def _isinf(ins, attrs):
+    """[1] bool: some element of X is an Inf (a NaN is not)."""
+    return out(Out=torch.any(torch.isinf(first(ins, "X"))).reshape((1,)))
 
 
 # --------------------------------------------------------------------------

@@ -15,23 +15,17 @@ import torch.nn.functional as F
 from .cuda import dropout as cuda_dropout
 from .math_ops import bf16_matmul_enabled, scalar_as
 from .registry import register_grad_maker, register_op, first, out
+from .tensor_ops import take_rows
 
 
 # --------------------------------------------------------------------------
 # embedding
 # --------------------------------------------------------------------------
 def _lookup(w, ids, padding_idx):
-    """Rows ``ids`` of ``w``, written so that autograd sums a repeated
-    id's rows in an order that does not change from run to run: on the
-    card advanced indexing, whose grad is ``index_put_(accumulate=True)``
-    (sorted); on the CPU ``index_select``, whose grad is ``index_add_``
-    (index order), where ``index_put_`` splits the rows over threads
-    (tensor_ops.scatter_rows_add)."""
-    if w.is_cuda:
-        o = w[ids.long()]
-    else:
-        o = w.index_select(0, ids.long().reshape(-1)).reshape(
-            tuple(ids.shape) + tuple(w.shape[1:]))
+    """Rows ``ids`` of ``w`` by ``tensor_ops.take_rows`` (a repeated id's
+    rows summed in a fixed order in the grad), the ``padding_idx`` rows
+    zero."""
+    o = take_rows(w, ids)
     if padding_idx is not None and padding_idx >= 0:
         o = torch.where((ids == padding_idx)[..., None],
                         torch.zeros((), dtype=o.dtype, device=o.device), o)
@@ -43,7 +37,7 @@ def _lookup(w, ids, padding_idx):
                             "is_distributed": False, "remote_prefetch": False})
 def _lookup_table(ins, attrs):
     """The v1 op: Ids [..., 1], the trailing 1 squeezed; its grad is
-    ``_lookup``'s, the rows summed in a fixed order on the card."""
+    ``_lookup``'s, the rows summed in a fixed order."""
     w, ids = first(ins, "W"), first(ins, "Ids")
     pad = attrs.get("padding_idx", -1)
     return out(Out=_lookup(w, ids.squeeze(-1), pad if pad >= 0 else None))

@@ -106,6 +106,20 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     return (bits24(key, shape).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
+def randint(key: torch.Tensor, shape, low: int, high: int) -> torch.Tensor:
+    """int64 uniform on [low, high): the 24 bits scaled to the span
+    (exact in int64 for a span below 2^39; each value's share within
+    2^-24 · span of 1/span)."""
+    span = max(int(high) - int(low), 1)
+    return int(low) + ((bits24(key, shape) * span) >> 24)
+
+
+def subkey(key: torch.Tensor, i: int) -> torch.Tensor:
+    """The ``i``-th key derived from ``key`` (an op's draws after its
+    first: ``jax.random.fold_in``'s place)."""
+    return hash32(key ^ hash32_int(i))
+
+
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """float32 standard normal by Box-Muller over two halves of one
     draw."""

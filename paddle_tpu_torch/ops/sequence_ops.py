@@ -17,10 +17,9 @@ by returning ``{"_lod": {slot: [levels|None]}}``.
 Sums run in an order that does not change from run to run, so a compiled
 step is bitwise the interpreter's on the card: pooling pads the sequences
 to [n, max_len] and reduces over the padded axis; gathers index rows
-(``_rows``), whose grad on the card is the sorted
-``index_put_(accumulate=True)`` and on the CPU ``index_select``'s
-``index_add_`` in index order (tensor_ops.scatter_rows_add), never an
-atomic ``index_add_``.
+(``tensor_ops.take_rows``), whose grad on the card is the sorted
+``index_put_(accumulate=True)`` and on the CPU ``index_add_`` in index
+order (tensor_ops.scatter_rows_add), never an atomic ``index_add_``.
 
 Ops whose output size depends on tensor values (``sequence_slice``,
 ``sequence_erase``) are stateful, as in the TPU package, and
@@ -35,7 +34,7 @@ import torch
 
 from .math_ops import scalar_as
 from .registry import register_grad_maker, register_op, first, out, seq
-from .tensor_ops import scatter_rows_add
+from .tensor_ops import scatter_rows_add, take_rows
 
 _INT32_MAX = 2 ** 31 - 1  # jax.ops.segment_min's identity for an empty one
 
@@ -109,15 +108,6 @@ def _once(make):
     return part
 
 
-def _rows(x, idx):
-    """``x[idx]`` over rows, ``idx`` an int64 tensor of any shape; the
-    grad sums a repeated row in a fixed order (module docstring)."""
-    if x.is_cuda:
-        return x[idx]
-    return x.index_select(0, idx.reshape(-1)).reshape(
-        tuple(idx.shape) + tuple(x.shape[1:]))
-
-
 def _bcast(m, ndim):
     """A [n] or [n, k] mask or vector shaped to broadcast over trailing
     feature dims up to ``ndim``."""
@@ -166,7 +156,7 @@ def _sequence_pool(ins, attrs):
             idx = _const(attrs, "pool_idx", lambda: pad[0], dev)
             valid = _bcast(_const(attrs, "pool_valid", lambda: pad[1], dev),
                            x.dim() + 1)
-            g = _rows(x, idx)
+            g = take_rows(x, idx)
             if ptype == "MAX":
                 o = torch.where(valid, g, torch.full(
                     (), float("-inf"), dtype=x.dtype, device=dev)).amax(1)
@@ -190,7 +180,7 @@ def _sequence_pool(ins, attrs):
         pick = offs[:-1] if ptype == "FIRST" else offs[1:] - 1
         idx = _const(attrs, "pool_pick",
                      lambda: np.where(lens > 0, pick, 0), dev)
-        o = _rows(x, idx)
+        o = take_rows(x, idx)
     else:
         raise ValueError(f"sequence_pool: unknown pooltype {ptype}")
     if np.any(lens == 0):
@@ -226,14 +216,14 @@ def _sequence_softmax(ins, attrs):
         return {"Out": [x], "_lod": {"Out": [levels]}}
     idx = _const(attrs, "sm_idx", lambda: pad[0], dev)
     valid = _const(attrs, "sm_valid", lambda: pad[1], dev)
-    g = torch.where(valid, _rows(flat, idx), torch.full(
+    g = torch.where(valid, take_rows(flat, idx), torch.full(
         (), torch.finfo(x.dtype).min, dtype=x.dtype, device=dev))
     y = torch.softmax(g, dim=1).reshape(-1)
 
     def back():
         segs = _seg_ids(offs)
         return segs * maxlen + (np.arange(len(segs)) - offs[:-1][segs])
-    y = _rows(y, _const(attrs, "sm_back", back, dev))
+    y = take_rows(y, _const(attrs, "sm_back", back, dev))
     return {"Out": [y.reshape(x.shape)], "_lod": {"Out": [levels]}}
 
 
@@ -265,7 +255,7 @@ def _sequence_expand(ins, attrs):
             parts.append(rows)
             new_lens.append(len(rows))
     idx = np.concatenate(parts) if parts else np.zeros(0, np.int64)
-    o = _rows(x, _const(attrs, "expand", lambda: idx, x.device))
+    o = take_rows(x, _const(attrs, "expand", lambda: idx, x.device))
     new_lod = (_offsets_from_lens(np.asarray(new_lens, np.int64)),)
     return {"Out": [o], "_lod": {"Out": [new_lod]}}
 
@@ -278,7 +268,7 @@ def _sequence_expand_as(ins, attrs):
     if len(rep) != x.shape[0]:
         raise ValueError("sequence_expand_as: Y must have one sequence per "
                          "row of X")
-    o = _rows(x, _const(attrs, "expand_as",
+    o = take_rows(x, _const(attrs, "expand_as",
                         lambda: np.repeat(np.arange(x.shape[0]), rep),
                         x.device))
     return {"Out": [o],
@@ -309,8 +299,8 @@ def _sequence_concat(ins, attrs):
             total += len(rows)
         new_lens.append(total)
     idx = np.concatenate(parts).astype(np.int64)
-    o = _rows(torch.cat(list(xs), 0), _const(attrs, "concat", lambda: idx,
-                                             xs[0].device))
+    o = take_rows(torch.cat(list(xs), 0),
+                  _const(attrs, "concat", lambda: idx, xs[0].device))
     return {"Out": [o],
             "_lod": {"Out": [(_offsets_from_lens(np.asarray(new_lens)),)]}}
 
@@ -343,7 +333,7 @@ def _sequence_conv(ins, attrs):
     part = _once(window)
     idx = _const(attrs, "conv_idx", lambda: part(0), x.device)
     mask = _const(attrs, "conv_mask", lambda: part(1), x.device)
-    patches = torch.where(mask[..., None], _rows(x, idx), torch.zeros(
+    patches = torch.where(mask[..., None], take_rows(x, idx), torch.zeros(
         (), dtype=x.dtype, device=x.device))
     o = patches.reshape(T, clen * D) @ filt
     return {"Out": [o], "_lod": {"Out": [levels]}}
@@ -380,7 +370,7 @@ def _sequence_pad(ins, attrs):
     idx = _const(attrs, "pad_idx", index, dev)
     valid = _const(attrs, "pad_valid",
                    lambda: np.arange(plen)[None, :] < lens[:, None], dev)
-    o = torch.where(_bcast(valid, x.dim() + 1), _rows(x, idx),
+    o = torch.where(_bcast(valid, x.dim() + 1), take_rows(x, idx),
                     pad_value.to(x.dtype))
     length = _const(attrs, "pad_lens", lambda: lens.astype(np.int64), dev)
     return {"Out": [o], "Length": [length],
@@ -465,7 +455,7 @@ def _sequence_reverse(ins, attrs):
         return np.concatenate([np.arange(offs[i + 1] - 1, offs[i] - 1, -1)
                                for i in range(len(offs) - 1)]).astype(
                                    np.int64)
-    o = _rows(x, _const(attrs, "reverse", index, x.device))
+    o = take_rows(x, _const(attrs, "reverse", index, x.device))
     return {"Y": [o], "_lod": {"Y": [levels]}}
 
 
@@ -490,7 +480,7 @@ def _slice_indices(ins, attrs, op_name):
 def _sequence_slice(ins, attrs):
     x = first(ins, "X")
     idx, new_lens = _slice_indices(ins, attrs, "sequence_slice")
-    o = _rows(x, torch.from_numpy(idx).to(x.device))
+    o = take_rows(x, torch.from_numpy(idx).to(x.device))
     return {"Out": [o],
             "_lod": {"Out": [(_offsets_from_lens(new_lens),)]}}
 
@@ -556,7 +546,7 @@ def _sequence_enumerate(ins, attrs):
     part = _once(window)
     idx = _const(attrs, "enum_idx", lambda: part(0), x.device)
     mask = _const(attrs, "enum_mask", lambda: part(1), x.device)
-    vals = _rows(x.reshape(-1), idx)
+    vals = take_rows(x.reshape(-1), idx)
     o = torch.where(mask, vals, torch.full(
         (), attrs.get("pad_value", 0), dtype=vals.dtype, device=x.device))
     return {"Out": [o], "_lod": {"Out": [levels]}}

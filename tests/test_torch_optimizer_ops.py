@@ -123,8 +123,10 @@ def test_the_registry_has_the_optimizer_stacks_ops():
         assert t.attr_defaults == j.attr_defaults, op
     # 123 with the optimizer stack; then 49 more: the 19 LoD sequence ops,
     # sequence_mask, cos_sim and 28 activations; then 6 fused ops (the
-    # BuildStrategy fusions, skip_layernorm and the three LoD fusions)
-    assert len(TOPS.all_op_types()) == 123 + 49 + 6
+    # BuildStrategy fusions, skip_layernorm and the three LoD fusions);
+    # then 61: tensor_ops' 53, isinf, isnan, lstm, lstm_unit, nce,
+    # hierarchical_sigmoid, linear_chain_crf and crf_decoding
+    assert len(TOPS.all_op_types()) == 123 + 49 + 6 + 61
 
 
 @pytest.mark.parametrize("lo,hi", [(-0.5, 0.5), (0.0, 2.0), (-3.0, -1.0)])
