@@ -535,6 +535,43 @@ Phases, each fatal on failure:
               (decorate(), batch 64, Momentum 0.01) beside the same
               program in f32: step p50 of each and of phase 10's bf16
               lane. None of (b)-(e) or AMP launches a counted kernel.
+ 21. rnn    — the recurrences, each model at its source's widths with
+              random weights from a seed, f32, through Executor.run
+              compiled (segmented around the islands where the program
+              holds stateful ops), every run's launches gated (none of
+              the twelve kernels), the first runs bitwise the
+              interpreter's. (a) The book's stacked-LSTM sentiment net
+              (chapter 6 stacked_lstm_net: dict 5,147, emb 128, HID_DIM
+              512, 3 dynamic_lstm alternating is_reverse, max pools, 2
+              classes, Adagrad 0.002, batch 128 reviews): 10 steps on one
+              batch as phase 20 runs them (loss falling, step p50, peak
+              memory), 10 ragged batches (each a new LoD, eager, the
+              plans and the card's memory bounded), 2 steps against the
+              CPU port at batch 8; saved and served by AnalysisPredictor
+              (census RNN_SENT_CENSUS: fc_lstm_fuse_pass leaves it
+              unfused, as the TPU package's passes do), request p50,
+              outputs against Executor.run. (b) The book's chapter 8
+              translator as v1.7 wrote it (dicts 30,000, word_dim =
+              hidden = decoder 512, a bidirectional GRUCell encoder under
+              layers.rnn, the additive-attention GRUCell decoder, 50
+              tokens, batch 64, softmax_with_cross_entropy masked by the
+              padding, Adam 1e-3): 10 steps, the CPU port at batch 2;
+              BeamSearchDecoder (beam 4, bos 0, eos 1) through
+              dynamic_decode for 64 steps over the tiled encoder: decode
+              p50, each step's top-k against the CPU port's at batch 2
+              (equal but near-ties within 1e-5 relative, counted). (c)
+              The legacy LoD path at (b)'s widths: the encoder (fc
+              without bias into dynamic_gru, 64 sources of 10-50 tokens)
+              served with fusion_gru (census LG_ENC_CENSUS); fusion_lstm
+              served at (a)'s widths (RNN_FUSED_CENSUS); the DynamicRNN
+              scorer (gru_unit, need_reorder memory, static_input) over
+              64 ragged references, segmented (its while in the
+              interpreter, a step's batch the rank table's prefix), the
+              CPU port at batch 2; the contrib TrainingDecoder (StaticRNN,
+              gru_unit) 10 steps and the CPU port at batch 2; the contrib
+              BeamSearchDecoder's step program run from the host 32
+              steps at beam 4 and beam_search_decode, the CPU port at
+              batch 2 from the card's beam state.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -7914,7 +7951,7 @@ def _md_fixed(fn):
 
 
 def _md_train(book, what, main, startup, fetch, feed, want,
-              finite=(), overshoots=False):
+              finite=(), overshoots=False, tag=MD_TAG, keep_scope=False):
     """MD_STEPS steps of ``main`` on one fixed ``feed`` on the card,
     compiled: the first MD_LOCK in lock step with the interpreter
     (``_lock_step``: fetches and persistables bitwise), each run's
@@ -7923,7 +7960,8 @@ def _md_train(book, what, main, startup, fetch, feed, want,
     from the first step to the last, or with ``overshoots`` (a run whose
     updates overshoot on the repeated batch, its every loss held to the
     CPU port's by ``_md_card_vs_cpu``) below the first at some step; the
-    fetches at ``finite`` (indices) are finite. → its readings: losses,
+    fetches at ``finite`` (indices) are finite; ``tag`` heads its lines.
+    → its readings (with ``keep_scope`` the trained scope too): losses,
     replay p50 (ms), peak memory (bytes, with what was allocated before
     the program's startup)."""
     import numpy as np
@@ -7940,31 +7978,31 @@ def _md_train(book, what, main, startup, fetch, feed, want,
     for i in range(MD_LOCK):
         out, _, kind, dt, _ = _lock_step((exe, scope), (iexe, iscope), main,
                                          feed, fetch, want, book,
-                                         f"{what} step {i}", MD_TAG)
+                                         f"{what} step {i}", tag)
         kinds.append(kind)
         losses.append(float(out[0].reshape(-1)[0]))
         if kind == "replay":
             times.append(dt)
     iexe.close()
     if tuple(kinds) != MD_LOCK_EXECS:
-        raise AssertionError(f"{MD_TAG} {what}: runs {kinds}")
+        raise AssertionError(f"{tag} {what}: runs {kinds}")
     for i in range(MD_LOCK, MD_STEPS):
         before = _launch_counts()
         t = time.perf_counter()
         out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         times.append(time.perf_counter() - t)
         if _gate_run(exe, _delta(before), want,
-                     f"{MD_TAG} {what} step {i}") != "replay":
-            raise AssertionError(f"{MD_TAG} {what}: step {i} did not replay")
+                     f"{tag} {what} step {i}") != "replay":
+            raise AssertionError(f"{tag} {what}: step {i} did not replay")
         book.add(want)
         losses.append(float(out[0].reshape(-1)[0]))
         for k in finite:
             if not np.isfinite(out[k]).all():
-                raise AssertionError(f"{MD_TAG} {what}: fetch {k} is not "
+                raise AssertionError(f"{tag} {what}: fetch {k} is not "
                                      "finite")
     falls = (min(losses[1:]) if overshoots else losses[-1]) < losses[0]
     if not np.isfinite(losses).all() or not falls:
-        raise AssertionError(f"{MD_TAG} {what}: the loss did not fall: "
+        raise AssertionError(f"{tag} {what}: the loss did not fall: "
                              f"{losses}")
 
     def replay():
@@ -7975,7 +8013,7 @@ def _md_train(book, what, main, startup, fetch, feed, want,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     p50 = float(np.median(times)) * 1e3
-    _log(f"{MD_TAG} {what}: {MD_STEPS} steps on one batch ("
+    _log(f"{tag} {what}: {MD_STEPS} steps on one batch ("
          f"{' '.join(kinds)}, then replays), the first {MD_LOCK} bitwise "
          f"the interpreter's, loss " + " ".join(f"{x:.4f}" for x in losses)
          + f"; step p50 {p50:.3f} ms over {len(times)} replays, peak "
@@ -7983,8 +8021,11 @@ def _md_train(book, what, main, startup, fetch, feed, want,
          f"above the {base / 2**30:.3f} GiB held before) on {_card_line()}"
          f"; launches a step {want} -> ok")
     exe.close()
-    return {"losses": losses, "p50_ms": p50, "peak_gib": peak / 2**30,
-            "net_gib": (peak - base) / 2**30}
+    res = {"losses": losses, "p50_ms": p50, "peak_gib": peak / 2**30,
+           "net_gib": (peak - base) / 2**30}
+    if keep_scope:
+        res["scope"] = scope
+    return res
 
 
 def _md_noise_grads(block):
@@ -8026,7 +8067,8 @@ def _md_grads_agree(names, gpu, cpu, noise, conv):
 
 
 def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
-                    conv=False, steps=MD_CHECK_STEPS, adaptive=False):
+                    conv=False, steps=MD_CHECK_STEPS, adaptive=False,
+                    tag=MD_TAG, noise=()):
     """``steps`` steps on the card and by the port on the CPU from the
     card's startup values and step counter (so the random ops draw
     alike). The first also fetches every parameter's grad, held by
@@ -8037,14 +8079,16 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
     turns rounding noise on a near-zero grad into a step of ±lr), a
     later loss may instead be within KINK_L2_TOL of how far the updates
     moved the CPU's loss from its first: the first update's grads may
-    differ by that much. → the card's fetches of the last step."""
+    differ by that much. ``noise``: more grads that are 0 but for
+    rounding, held as the ``_md_noise_grads``. → the card's fetches of
+    the last step."""
     import numpy as np
     from paddle_tpu_torch import fluid
     names = [v.name for v in main.list_vars() if v.persistable]
     block = main.global_block()
     grads = [p.name + "@GRAD" for p in block.all_parameters()
              if block.has_var(p.name + "@GRAD")]
-    noise = _md_noise_grads(block)
+    noise = _md_noise_grads(block) | set(noise)
     before = _launch_counts()
     exe, scope = _fresh(main, startup)
     cpu_exe = fluid.Executor(fluid.CPUPlace())
@@ -8074,21 +8118,23 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
             bad.append(f"step {i + 1}'s loss")
     rule = (f"relative L2 within {KINK_L2_TOL:g}" if conv else
             f"max|d| within {GRAD_TOL:g} of max|grad|")
-    _log(f"{MD_TAG} {what}, card vs CPU, {steps} steps from one start: "
+    _log(f"{tag} {what}, card vs CPU, {steps} steps from one start: "
          "loss " + ", ".join(f"{g:.6f} vs {c:.6f}" for g, c in pairs)
          + f" (tol {LOSS_TOL:g} relative" + (
              f", or {KINK_L2_TOL:g} of the move from the first"
              if conv or adaptive else "")
          + f"); the first step's {len(grads)} parameter grads, {rule} ("
-         f"{len(noise)} biases before a batch norm within {GRAD_TOL:g} of "
-         f"the largest grad, {top:.3e}): the worst {worst[1]} at "
+         f"{len(noise)} grads that are 0 but for rounding"
+         + (f" ({', '.join(sorted(noise))})" if 0 < len(noise) <= 2 else "")
+         + f" within {GRAD_TOL:g} of the largest grad, {top:.3e}): the "
+         f"worst {worst[1]} at "
          f"{worst[0]:.3f} of its limit" + "".join(
              f"; fetch {k} {tuple(first[k].shape)} " + (
                  "DIFFERS" if f"fetch {k}" in bad else "equal")
              for k in exact)
          + f" -> {'FAIL ' + ', '.join(bad[:8]) if bad else 'ok'}")
     if bad:
-        raise AssertionError(f"{MD_TAG} {what}: the card disagrees with the "
+        raise AssertionError(f"{tag} {what}: the card disagrees with the "
                              f"CPU: {', '.join(bad[:8])}")
     return gpu
 
@@ -8335,6 +8381,1000 @@ def phase_models(lane_ms):
     return {"wrapper": wrapper, "executed": tuple(book.executed), **res}
 
 
+# --------------------------------------------------------------------------
+# phase 21: the recurrences. The two book programs and the legacy LoD
+# path are user programs built from fluid.layers: each builder takes the
+# ``fluid`` module (the port's, or the TPU package's in the parity tests)
+# and builds the same ops in both.
+# --------------------------------------------------------------------------
+RNN_TAG = "[rnn]"
+RNN_EMB = 128                 # (a) stacked_lstm_net (book chapter 6,
+RNN_HID = 512                 # understand_sentiment): emb 128, HID_DIM
+RNN_STACKED = 3               # 512 (LSTM hidden 128), STACKED_NUM 3
+RNN_LR = 0.002                # the chapter's Adagrad rate
+RNN_BATCH = 128               # reviews a batch
+MT_DICT = 30000               # (b) machine_translation (book chapter 8,
+MT_HID = 512                  # v1.7): source and target dicts, word_dim =
+MT_BATCH = 64                 # hidden_dim = decoder_size, batch
+MT_LEN = 50                   # source and target padded to
+MT_BEAM = 4                   # BeamSearchDecoder's beam, bos and eos
+MT_BOS, MT_EOS = 0, 1
+MT_MAX_STEP = 64              # dynamic_decode's steps (the book's 256)
+MT_LR = 1e-3                  # Adam
+# (a)'s served program after the inference passes, as the TPU package's
+# passes leave it (tests/test_torch_rnn_layers.py): fc_lstm_fuse_pass
+# fuses no projection (each has a bias and more than one reader), the
+# first one's mul + add become an fc
+RNN_SENT_CENSUS = {"lookup_table": 1, "fc": 1, "dynamic_lstm": 3, "mul": 6,
+                   "sum": 3, "elementwise_add": 3, "sequence_pool": 2,
+                   "softmax": 1}
+# and rnn_lstm_classifier's: its bias-free projection fused
+RNN_FUSED_CENSUS = {"lookup_table": 1, "fusion_lstm": 1, "sequence_pool": 1,
+                    "fc": 1, "softmax": 1}
+LG_LENS = (10, 50)            # (c) ragged source and reference lengths
+LG_BEAM_STEPS = 32            # host-stepped beam steps
+
+
+def rnn_sentiment_program(fluid, dict_dim=LOD_VOCAB, emb_dim=RNN_EMB,
+                          hid_dim=RNN_HID, stacked_num=RNN_STACKED,
+                          class_dim=2, lr=RNN_LR):
+    """(a) The book's stacked_lstm_net (chapter 6, understand_sentiment):
+    an embedding, fc to ``hid_dim`` and a dynamic_lstm of size ``hid_dim``
+    (hidden hid_dim / 4), then ``stacked_num - 1`` more fc + dynamic_lstm
+    pairs over the last pair, every second one reversed, max-pooled fc
+    and LSTM outputs into a softmax fc; Adagrad ``lr``. → (main,
+    startup, the test clone taken before the optimizer, the prediction,
+    loss, accuracy)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = fluid.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = fluid.data("label", shape=[1], dtype="int64")
+        emb = layers.embedding(words, size=[dict_dim, emb_dim],
+                               is_sparse=True)
+        fc1 = layers.fc(emb, hid_dim)
+        lstm1, _ = layers.dynamic_lstm(fc1, size=hid_dim)
+        inputs = [fc1, lstm1]
+        for i in range(2, stacked_num + 1):
+            fc = layers.fc(inputs, hid_dim)
+            lstm, _ = layers.dynamic_lstm(fc, size=hid_dim,
+                                          is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        fc_last = layers.sequence_pool(inputs[0], "max")
+        lstm_last = layers.sequence_pool(inputs[1], "max")
+        pred = layers.fc([fc_last, lstm_last], class_dim, act="softmax")
+        loss = layers.mean(layers.cross_entropy(pred, label))
+        acc = layers.accuracy(pred, label)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adagrad(lr).minimize(loss)
+    return main, startup, test, pred, loss, acc
+
+
+def rnn_lstm_classifier(fluid, dict_dim=LOD_VOCAB, emb_dim=RNN_EMB,
+                        hid_dim=RNN_HID, class_dim=2):
+    """An inference program at (a)'s widths whose LSTM reads a bias-free
+    projection alone (what fc_lstm_fuse_pass fuses into fusion_lstm):
+    embedding, fc(bias_attr=False), dynamic_lstm, max pool, softmax fc.
+    → (main, startup, the prediction)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = fluid.data("words", shape=[1], dtype="int64", lod_level=1)
+        emb = layers.embedding(words, size=[dict_dim, emb_dim])
+        lstm, _ = layers.dynamic_lstm(layers.fc(emb, hid_dim,
+                                                bias_attr=False),
+                                      size=hid_dim)
+        pred = layers.fc(layers.sequence_pool(lstm, "max"), class_dim,
+                         act="softmax")
+    return main, startup, pred
+
+
+class _MtDecoderCell:
+    """The book's chapter 8 decoder cell: additive attention over the
+    encoder (an fc of the state added to the encoder's projection, a
+    size-1 fc, the padding mask, softmax, the weighted sum), its context
+    joined to the step input, then a GRUCell. The attention expands the
+    state over the static source length ``src_len``."""
+
+    def __init__(self, fluid, hidden, src_len):
+        self.fluid, self.hidden, self.src_len = fluid, hidden, src_len
+        self.gru = fluid.layers.GRUCell(hidden, name="mt_dec_gru")
+
+    def __call__(self, step_input, hidden, encoder_output=None,
+                 encoder_output_proj=None, encoder_padding_mask=None):
+        layers, P = self.fluid.layers, self.fluid.ParamAttr
+        proj = layers.unsqueeze(layers.fc(
+            hidden, self.hidden, param_attr=P(name="mt_att_state_w"),
+            bias_attr=False), [1])
+        mixed = layers.elementwise_add(
+            encoder_output_proj, layers.expand(proj, [1, self.src_len, 1]))
+        scores = layers.squeeze(layers.fc(
+            mixed, 1, num_flatten_dims=2, param_attr=P(name="mt_att_v"),
+            bias_attr=False), [2])
+        scores = layers.softmax(layers.elementwise_add(
+            scores, encoder_padding_mask))
+        context = layers.reduce_sum(layers.elementwise_mul(
+            encoder_output, scores, axis=0), dim=1)
+        return self.gru(layers.concat([step_input, context], axis=1),
+                        hidden)
+
+
+def _mt_encoder(fluid, src, src_len, dict_dim, hidden, max_len):
+    """The bidirectional GRU encoder (two GRUCells under layers.rnn), its
+    projection for the attention, the padding mask (-1e9 past a
+    source's length) and the decoder's initial state (an fc with tanh of
+    the two final states)."""
+    layers, P = fluid.layers, fluid.ParamAttr
+    emb = layers.embedding(src, size=[dict_dim, hidden],
+                           param_attr=P(name="mt_src_emb"))
+    fwd, fwd_state = layers.rnn(layers.GRUCell(hidden, name="mt_enc_fwd"),
+                                emb)
+    bwd, bwd_state = layers.rnn(layers.GRUCell(hidden, name="mt_enc_bwd"),
+                                emb, is_reverse=True)
+    enc = layers.concat([fwd, bwd], axis=2)
+    enc_proj = layers.fc(enc, hidden, num_flatten_dims=2,
+                         param_attr=P(name="mt_enc_proj_w"), bias_attr=False)
+    mask = layers.sequence_mask(src_len, maxlen=max_len, dtype="float32")
+    pad = layers.scale(mask, scale=1e9, bias=-1e9)
+    init = layers.fc(layers.concat([fwd_state, bwd_state], axis=1), hidden,
+                     act="tanh", param_attr=P(name="mt_init_w"),
+                     bias_attr=P(name="mt_init_b"))
+    return enc, enc_proj, pad, init
+
+
+def _mt_output(fluid, x, dict_dim):
+    P = fluid.ParamAttr
+    return fluid.layers.fc(x, dict_dim, num_flatten_dims=len(x.shape) - 1,
+                           param_attr=P(name="mt_out_w"),
+                           bias_attr=P(name="mt_out_b"))
+
+
+def _mt_trg_embed(fluid, ids, dict_dim, hidden):
+    return fluid.layers.embedding(ids, size=[dict_dim, hidden],
+                                  param_attr=fluid.ParamAttr(
+                                      name="mt_trg_emb"))
+
+
+def mt_train_program(fluid, dict_dim=MT_DICT, hidden=MT_HID,
+                     max_len=MT_LEN, lr=MT_LR):
+    """(b) The book's chapter 8 translator as v1.7 wrote it, trained
+    teacher-forced through layers.rnn: softmax_with_cross_entropy over
+    the target dict, masked by the target padding, summed over the
+    tokens and divided by their count; Adam ``lr``. Feeds: src, src_len,
+    trg (the decoder's inputs), trg_next [B, T, 1] (its labels),
+    trg_len. → (main, startup, loss)."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data("src", shape=[max_len], dtype="int64")
+        src_len = fluid.data("src_len", shape=[], dtype="int64")
+        trg = fluid.data("trg", shape=[max_len], dtype="int64")
+        trg_next = fluid.data("trg_next", shape=[max_len, 1], dtype="int64")
+        trg_len = fluid.data("trg_len", shape=[], dtype="int64")
+        enc, enc_proj, pad, init = _mt_encoder(fluid, src, src_len,
+                                               dict_dim, hidden, max_len)
+        cell = _MtDecoderCell(fluid, hidden, max_len)
+        dec, _ = layers.rnn(cell, _mt_trg_embed(fluid, trg, dict_dim, hidden),
+                            initial_states=init, encoder_output=enc,
+                            encoder_output_proj=enc_proj,
+                            encoder_padding_mask=pad)
+        logits = _mt_output(fluid, dec, dict_dim)
+        ce = layers.squeeze(layers.softmax_with_cross_entropy(
+            logits, trg_next), [2])
+        mask = layers.sequence_mask(trg_len, maxlen=max_len,
+                                    dtype="float32")
+        loss = layers.elementwise_div(
+            layers.reduce_sum(layers.elementwise_mul(ce, mask)),
+            layers.reduce_sum(mask))
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss
+
+
+def mt_decode_program(fluid, dict_dim=MT_DICT, hidden=MT_HID,
+                      max_len=MT_LEN, beam=MT_BEAM, max_step=MT_MAX_STEP):
+    """(b)'s beam decode: the encoder, its outputs, projection and padding
+    mask tiled to B·beam rows (unsqueeze, expand, reshape, as
+    dynamic_decode tiles its states), then BeamSearchDecoder (bos
+    MT_BOS, eos MT_EOS) through dynamic_decode for ``max_step`` steps.
+    Its parameters are the training program's, by name. → (main,
+    startup, predicted ids [B, max_step, beam], final scores [B, beam])."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data("src", shape=[max_len], dtype="int64")
+        src_len = fluid.data("src_len", shape=[], dtype="int64")
+        enc, enc_proj, pad, init = _mt_encoder(fluid, src, src_len,
+                                               dict_dim, hidden, max_len)
+
+        def tile(x, shape):
+            t = layers.expand(layers.unsqueeze(x, [1]),
+                              [1, beam] + [1] * len(shape))
+            return layers.reshape(t, [-1] + shape)
+        cell = _MtDecoderCell(fluid, hidden, max_len)
+        decoder = layers.BeamSearchDecoder(
+            cell, MT_BOS, MT_EOS, beam,
+            embedding_fn=lambda ids: _mt_trg_embed(fluid, ids, dict_dim,
+                                                   hidden),
+            output_fn=lambda x: _mt_output(fluid, x, dict_dim))
+        ids, scores = layers.dynamic_decode(
+            decoder, inits=init, max_step_num=max_step,
+            encoder_output=tile(enc, [max_len, 2 * hidden]),
+            encoder_output_proj=tile(enc_proj, [max_len, hidden]),
+            encoder_padding_mask=tile(pad, [max_len]))
+    return main, startup, ids, scores
+
+
+def _lg_encoder(fluid, src, dict_dim, hidden):
+    """(c)'s encoder: an embedding, fc(bias_attr=False) to 3·hidden into
+    dynamic_gru (what fc_gru_fuse_pass fuses), its sequence_last_step
+    through an fc with tanh. → [B, hidden]."""
+    layers, P = fluid.layers, fluid.ParamAttr
+    emb = layers.embedding(src, size=[dict_dim, hidden],
+                           param_attr=P(name="lg_src_emb"))
+    proj = layers.fc(emb, 3 * hidden, param_attr=P(name="lg_proj_w"),
+                     bias_attr=False)
+    gru = layers.dynamic_gru(proj, hidden, param_attr=P(name="lg_gru_w"),
+                             bias_attr=P(name="lg_gru_b"))
+    return layers.fc(layers.sequence_last_step(gru), hidden, act="tanh",
+                     param_attr=P(name="lg_enc_w"),
+                     bias_attr=P(name="lg_enc_b"))
+
+
+def lg_encoder_program(fluid, dict_dim=MT_DICT, hidden=MT_HID):
+    """(c)'s encoder alone (its inference program). → (main, startup,
+    the encoder vector)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data("lsrc", shape=[1], dtype="int64", lod_level=1)
+        enc = _lg_encoder(fluid, src, dict_dim, hidden)
+    return main, startup, enc
+
+
+def lg_score_program(fluid, dict_dim=MT_DICT, hidden=MT_HID):
+    """(c)'s DynamicRNN decoder, forward only: over each reference's
+    tokens a gru_unit step from an fc of the token's embedding and the
+    encoder vector (a static_input), the memory booted from the encoder
+    vector (need_reorder), then the output fc and each next token's
+    softmax_with_cross_entropy summed over the reference. → (main,
+    startup, the scores [B, 1], the step outputs)."""
+    layers, P = fluid.layers, fluid.ParamAttr
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data("lsrc", shape=[1], dtype="int64", lod_level=1)
+        trg = fluid.data("ltrg", shape=[1], dtype="int64", lod_level=1)
+        nxt = fluid.data("ltrg_next", shape=[1], dtype="int64", lod_level=1)
+        enc = _lg_encoder(fluid, src, dict_dim, hidden)
+        emb = layers.embedding(trg, size=[dict_dim, hidden],
+                               param_attr=P(name="lg_trg_emb"))
+        drnn = layers.DynamicRNN()
+        with drnn.block():
+            # the arrays' entries carry no static shape: fc reads its
+            # input's width from it
+            word = layers.reshape(drnn.step_input(emb), [-1, hidden])
+            ctx = layers.reshape(drnn.static_input(enc), [-1, hidden])
+            mem = drnn.memory(init=enc, need_reorder=True)
+            x = layers.fc([word, ctx], 3 * hidden,
+                          param_attr=[P(name="lg_dec_x_w"),
+                                      P(name="lg_dec_c_w")],
+                          bias_attr=False)
+            h, _, _ = layers.gru_unit(x, mem, 3 * hidden,
+                                      param_attr=P(name="lg_dec_gru_w"),
+                                      bias_attr=P(name="lg_dec_gru_b"))
+            drnn.update_memory(mem, h)
+            drnn.output(h)
+        hs = layers.reshape(drnn(), [-1, hidden])
+        logits = layers.fc(hs, dict_dim, param_attr=P(name="lg_out_w"),
+                           bias_attr=P(name="lg_out_b"))
+        scores = layers.sequence_pool(
+            layers.softmax_with_cross_entropy(logits, nxt), "sum")
+    return main, startup, scores, hs
+
+
+def _contrib_decoder(fluid):
+    """``fluid.contrib.decoder`` of the package ``fluid`` belongs to."""
+    import importlib
+    return importlib.import_module(fluid.__name__ + ".contrib.decoder")
+
+
+def _lg_state_cell(fluid, boot, hidden):
+    """The contrib StateCell of (c)'s decoders: state h booted from
+    ``boot``, updated by gru_unit over an fc of the input x."""
+    layers, P = fluid.layers, fluid.ParamAttr
+    dec = _contrib_decoder(fluid)
+    cell = dec.StateCell(inputs={"x": None},
+                         states={"h": dec.InitState(init=boot)},
+                         out_state="h")
+
+    @cell.state_updater
+    def _update(c):
+        g = layers.fc(c.get_input("x"), 3 * hidden,
+                      param_attr=P(name="lg_td_in_w"), bias_attr=False)
+        h, _, _ = layers.gru_unit(g, c.get_state("h"), 3 * hidden,
+                                  param_attr=P(name="lg_td_gru_w"),
+                                  bias_attr=P(name="lg_td_gru_b"))
+        c.set_state("h", h)
+    return cell
+
+
+def lg_train_program(fluid, dict_dim=MT_DICT, hidden=MT_HID,
+                     max_len=MT_LEN, lr=MT_LR):
+    """(c)'s contrib TrainingDecoder over StaticRNN, booted by the LoD
+    encoder: the padded targets time-major, the StateCell's gru_unit a
+    step, the output fc, softmax_with_cross_entropy masked by the
+    padding; Adam ``lr``. → (main, startup, loss)."""
+    layers, P = fluid.layers, fluid.ParamAttr
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = fluid.data("lsrc", shape=[1], dtype="int64", lod_level=1)
+        trg = fluid.data("ttrg", shape=[max_len, -1], dtype="int64",
+                         append_batch_size=False)
+        nxt = fluid.data("ttrg_next", shape=[max_len, -1, 1], dtype="int64",
+                         append_batch_size=False)
+        mask = fluid.data("ttrg_mask", shape=[max_len, -1], dtype="float32",
+                          append_batch_size=False)
+        enc = _lg_encoder(fluid, src, dict_dim, hidden)
+        emb = layers.embedding(trg, size=[dict_dim, hidden],
+                               param_attr=P(name="lg_trg_emb"))
+        cell = _lg_state_cell(fluid, enc, hidden)
+        decoder = _contrib_decoder(fluid).TrainingDecoder(cell)
+        with decoder.block():
+            cell.compute_state({"x": decoder.step_input(emb)})
+            decoder.output(cell.out_state())
+        logits = layers.fc(decoder(), dict_dim, num_flatten_dims=2,
+                           param_attr=P(name="lg_out_w"),
+                           bias_attr=P(name="lg_out_b"))
+        ce = layers.squeeze(layers.softmax_with_cross_entropy(logits, nxt),
+                            [2])
+        loss = layers.elementwise_div(
+            layers.reduce_sum(layers.elementwise_mul(ce, mask)),
+            layers.reduce_sum(mask))
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return main, startup, loss
+
+
+def lg_beam_program(fluid, dict_dim=MT_DICT, hidden=MT_HID, beam=MT_BEAM):
+    """(c)'s contrib BeamSearchDecoder: ``decode()`` builds one beam step
+    (the embedding of the previous ids, the StateCell, the output fc,
+    softmax, top-k, the accumulated log-probabilities, beam_search),
+    which the caller runs from the host once a step. Feeds: bs_ids and
+    bs_scores (two-level LoD), bs_h (the state of each row). → (main,
+    startup, selected ids, selected scores, parent rows, the new state of
+    every row)."""
+    layers, P = fluid.layers, fluid.ParamAttr
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.data("bs_ids", shape=[1], dtype="int64", lod_level=2)
+        scores = fluid.data("bs_scores", shape=[1], dtype="float32",
+                            lod_level=2)
+        h = fluid.data("bs_h", shape=[hidden], dtype="float32")
+        cell = _lg_state_cell(fluid, h, hidden)
+        bsd = _contrib_decoder(fluid).BeamSearchDecoder(
+            cell, ids, scores, target_dict_dim=dict_dim, word_dim=hidden,
+            beam_size=beam, end_id=MT_EOS)
+
+        @bsd.embedding
+        def _embed(x):
+            return layers.embedding(x, size=[dict_dim, hidden],
+                                    param_attr=P(name="lg_trg_emb"))
+
+        @bsd.scoring
+        def _score(state):
+            return layers.fc(state, dict_dim, param_attr=P(name="lg_out_w"),
+                             bias_attr=P(name="lg_out_b"))
+        sel_ids, sel_scores, parent = bsd.decode()
+    return main, startup, sel_ids, sel_scores, parent, cell.out_state()
+
+
+RNN_CHECK_BATCH = 8           # (a) card vs CPU
+MT_CHECK_BATCH = 2            # (b), (c) card vs CPU
+RNN_RAGGED = 10               # (a) ragged batches, a new LoD each
+RNN_TIMED = 20                # requests or runs timed, replayed
+BEAM_REL = 1e-5               # a beam choice whose score is within this
+#                               share of the next candidate's: a near-tie
+LG_SCORE_TOL = (1e-4, 1e-5)   # (c) the scorer, card vs CPU (rtol, atol)
+RNN_EXECS = ("eager", "capture", "replay")
+# (c)'s served encoder after the passes (tests/test_torch_rnn_layers.py):
+# fc_gru_fuse_pass turned its mul + dynamic_gru into fusion_gru
+LG_ENC_CENSUS = {"lookup_table": 1, "fusion_gru": 1, "sequence_pool": 1,
+                 "fc": 1, "tanh": 1}
+
+
+def _rnn_memory():
+    import torch
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _rnn_gate(exe, before, mode, what, book):
+    """The last run of ``exe`` ran in ``mode`` ("compiled", "segmented"
+    or "interpreted"), launched none of the twelve kernels through the
+    wrappers and recorded none in its graphs. → how it executed."""
+    delta = _delta(before)
+    if mode == "compiled":
+        kind = _gate_run(exe, delta, NO_KERNELS, what)
+    elif mode == "interpreted":
+        if exe._last_run_mode != mode or any(delta):
+            raise AssertionError(f"{what} ran {exe._last_run_mode} with "
+                                 f"launches {delta}, want {mode} and none")
+        kind = mode
+    else:
+        if exe._last_run_mode != mode:
+            raise AssertionError(f"{what} ran {exe._last_run_mode}, want "
+                                 f"{mode}")
+        cb = exe._last_block
+        graph = tuple(cb.graph_launches.get(k, 0) for k in KERNELS)
+        if any(delta) or any(graph):
+            raise AssertionError(f"{what}: launches through the wrappers "
+                                 f"{delta}, in the graphs {graph}")
+        kind = cb.last_exec
+    book.add(NO_KERNELS)
+    return kind
+
+
+def _rnn_lock(run, interp, main, feed, fetch, mode, book, what):
+    """One run of ``main`` on ``run`` (executor, scope) gated on ``mode``,
+    then the interpreter's on ``interp`` from the same state: every fetch
+    and its LoD bitwise alike. → (the fetches as LoDTensors, how the run
+    executed, its seconds)."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import core
+    exe, scope = run
+    before = _launch_counts()
+    t = time.perf_counter()
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    dt = time.perf_counter() - t
+    kind = _rnn_gate(exe, before, mode, f"{RNN_TAG} {what}", book)
+    old = core.globals_["FLAGS_executor_mode"]
+    core.set_flag("FLAGS_executor_mode", "interpreted")
+    before = _launch_counts()
+    try:
+        iout = interp[0].run(main, feed=feed, fetch_list=fetch,
+                             scope=interp[1], return_numpy=False)
+    finally:
+        core.set_flag("FLAGS_executor_mode", old)
+    if _delta(before) != NO_KERNELS:
+        raise AssertionError(f"{RNN_TAG} {what}, interpreted: launched "
+                             f"{_delta(before)}")
+    book.add(NO_KERNELS)
+    for i, (a, c) in enumerate(zip(out, iout)):
+        if not np.array_equal(a.numpy(), c.numpy()) or a.lod() != c.lod():
+            raise AssertionError(f"{RNN_TAG} {what}: fetch {i} compiled "
+                                 "and interpreted differ")
+    return out, kind, dt
+
+
+def _rnn_serve(book, what, main, startup, target, feed, census, tmp):
+    """``main`` saved with ``target`` from its startup values and served
+    by AnalysisPredictor: the census after the passes, every request gated
+    (eager, capture, then replays), RNN_TIMED replays timed, the outputs
+    against the unfused program's Executor.run within PRED_TOL. → the
+    request p50 (ms)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid, inference
+    exe, scope = _fresh(main, startup)
+    d = os.path.join(tmp, f"rnn{len(os.listdir(tmp))}")
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, list(feed), [target], exe, main)
+    pred = inference.create_predictor(inference.Config(d))
+    got = _census(pred._program)
+    if got != census:
+        raise AssertionError(f"{RNN_TAG} {what}: census {got}, want "
+                             f"{census}")
+    _on_card(pred, what)
+    kinds, times = [], []
+    for i in range(len(RNN_EXECS) + RNN_TIMED):
+        before = _launch_counts()
+        t = time.perf_counter()
+        outs = pred.run([feed[n] for n in pred.get_input_names()])
+        times.append(time.perf_counter() - t)
+        kinds.append(_rnn_gate(pred._exe, before, "compiled",
+                               f"{RNN_TAG} {what} request {i}", book))
+    if tuple(kinds[:3]) != RNN_EXECS or set(kinds[3:]) != {"replay"}:
+        raise AssertionError(f"{RNN_TAG} {what}: requests ran {kinds}")
+    ref = exe.run(main, feed=feed, fetch_list=[target], scope=scope,
+                  use_prune=True)
+    book.add(NO_KERNELS)
+    same = np.array_equal(outs[0], ref[0])
+    err = float(np.abs(outs[0] - ref[0]).max())
+    ok = np.allclose(outs[0], ref[0], rtol=PRED_TOL[0], atol=PRED_TOL[1])
+    p50 = float(np.median(times[3:])) * 1e3
+    _log(f"{RNN_TAG} {what}: served by AnalysisPredictor, after the "
+         f"passes {got}; requests {' '.join(kinds[:4])} ..., p50 "
+         f"{p50:.3f} ms over {RNN_TIMED} replays on {_card_line()}; "
+         f"outputs vs the unfused program's Executor.run: "
+         + ("bitwise equal" if same else f"max|d| {err:.3e}")
+         + f" (rtol {PRED_TOL[0]:g}, atol {PRED_TOL[1]:g}) -> "
+         + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"{RNN_TAG} {what}: served outputs disagree")
+    pred._exe.close()
+    exe.close()
+    return p50
+
+
+def _rnn_sentiment(book, tmp):
+    """(a) The book's stacked-LSTM sentiment net (the docstring's phase
+    21 (a)). → its readings."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, test, pred, loss, acc = _md_fixed(
+        lambda: rnn_sentiment_program(
+            fluid, LOD_VOCAB, RNN_EMB, RNN_HID, RNN_STACKED))
+    rng = np.random.RandomState(SEED + 30)
+    fixed = _sentiment_batch(rng, RNN_BATCH)
+    res = _md_train(book, f"(a) stacked-LSTM sentiment net batch "
+                    f"{RNN_BATCH} ({len(fixed[0])} words)", main, startup,
+                    [loss, acc], _lod_feed(fixed), NO_KERNELS, tag=RNN_TAG)
+    # ragged batches: a new LoD a step, each run eagerly, the cache of
+    # plans and the card's memory bounded
+    exe, scope = _fresh(main, startup)
+    mem, times, losses = [_rnn_memory()], [], []
+    for i in range(RNN_RAGGED):
+        feed = _lod_feed(_sentiment_batch(rng, RNN_BATCH))
+        before = _launch_counts()
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        times.append(time.perf_counter() - t)
+        if _rnn_gate(exe, before, "compiled", f"{RNN_TAG} (a) ragged step "
+                     f"{i}", book) != "eager":
+            raise AssertionError(f"{RNN_TAG} (a) a new LoD did not run "
+                                 "eagerly")
+        losses.append(float(out[0].reshape(-1)[0]))
+        if i == RNN_RAGGED // 2 - 1:
+            mem.append(_rnn_memory())
+    mem.append(_rnn_memory())
+    lod_keys = [k for k in exe._compiled_cache if k[-1]]
+    consts = [t for st in exe._compiled_cache[lod_keys[-1]]._units
+              for t in (st.attrs.get("_lodc") or {}).values()]
+    const_bytes = sum(t.numel() * t.element_size() for t in consts)
+    kept = fluid.Executor._LOD_PLANS_KEPT
+    if not np.isfinite(losses).all() or len(lod_keys) > kept + 1 \
+            or mem[2] - mem[1] > (kept + 1) * const_bytes:
+        raise AssertionError(f"{RNN_TAG} (a) ragged steps: losses {losses}, "
+                             f"{len(lod_keys)} LoD plans, memory {mem}")
+    new_p50 = float(np.median(times)) * 1e3
+    _log(f"{RNN_TAG} (a) {RNN_RAGGED} ragged batches of {RNN_BATCH}, each "
+         f"a new LoD run eagerly: step p50 {new_p50:.3f} ms, losses "
+         + " ".join(f"{x:.4f}" for x in losses) + f"; {len(lod_keys)} LoD "
+         f"plans cached (kept {kept}), one holds {const_bytes} B of LoD "
+         f"constants; device memory {mem[0]} B before, {mem[1]} after "
+         f"{RNN_RAGGED // 2}, {mem[2]} after all on {_card_line()} -> ok")
+    exe.close()
+    _md_card_vs_cpu(book, f"(a) stacked-LSTM sentiment net batch "
+                    f"{RNN_CHECK_BATCH}", main, startup, [loss],
+                    _lod_feed(_sentiment_batch(rng, RNN_CHECK_BATCH)),
+                    adaptive=True, tag=RNN_TAG)
+    words = _lod_feed(_sentiment_batch(rng, RNN_BATCH))["words"]
+    req = _rnn_serve(book, f"(a) stacked-LSTM sentiment net, a request of "
+                     f"{RNN_BATCH} reviews", test, startup, pred,
+                     {"words": words}, RNN_SENT_CENSUS, tmp)
+    m, s, p = _md_fixed(lambda: rnn_lstm_classifier(
+        fluid, LOD_VOCAB, RNN_EMB, RNN_HID))
+    fused = _rnn_serve(book, f"(c) fusion_lstm: a bias-free projection into "
+                       f"dynamic_lstm at (a)'s widths, {RNN_BATCH} reviews",
+                       m, s, p, {"words": words}, RNN_FUSED_CENSUS, tmp)
+    return dict(res, ragged_p50_ms=new_p50, request_p50_ms=req,
+                fusion_lstm_request_p50_ms=fused)
+
+
+def _mt_feed(rng, bs, decode=False):
+    """A batch of ``bs`` pairs padded to MT_LEN: lengths drawn in
+    LG_LENS, word ids from 2 (0 and 1 are bos and eos), eos closing each
+    target."""
+    import numpy as np
+    lo, hi = LG_LENS
+    src_len = rng.randint(lo, hi + 1, bs).astype(np.int64)
+    feed = {"src": rng.randint(2, MT_DICT, (bs, MT_LEN)).astype(np.int64),
+            "src_len": src_len}
+    if decode:
+        return feed
+    trg_len = rng.randint(lo, hi + 1, bs).astype(np.int64)
+    trg = rng.randint(2, MT_DICT, (bs, MT_LEN)).astype(np.int64)
+    trg[:, 0] = MT_BOS
+    nxt = np.concatenate([trg[:, 1:], np.full((bs, 1), MT_EOS)], 1)
+    nxt[np.arange(bs), trg_len - 1] = MT_EOS
+    feed.update(trg=trg, trg_next=nxt[..., None].astype(np.int64),
+                trg_len=trg_len)
+    return feed
+
+
+def _beam_steps_agree(what, card, cpu, scores_cpu, beam):
+    """Each step's choices on the card against the CPU's, row by row:
+    equal, or a near-tie (the card's choices scored by the CPU within
+    BEAM_REL of the CPU's own, elementwise), after which the row's later
+    steps are not compared (the beams differ). ``card``, ``cpu``: each
+    step's chosen indices [B, beam]; ``scores_cpu``: the CPU's candidate
+    scores [B, n] a step. → (rows that stayed equal, near-ties)."""
+    import numpy as np
+    rows = card[0].shape[0]
+    alive, near = set(range(rows)), 0
+    for t, (g, c, x) in enumerate(zip(card, cpu, scores_cpu)):
+        for b in sorted(alive):
+            if np.array_equal(g[b], c[b]):
+                continue
+            mine, theirs = x[b][g[b]], x[b][c[b]]
+            lim = BEAM_REL * np.abs(theirs)
+            if not (np.abs(mine - theirs) <= lim).all():
+                raise AssertionError(
+                    f"{RNN_TAG} {what}: step {t} row {b} chose {g[b]} on the "
+                    f"card, {c[b]} on the CPU, scores {mine} vs {theirs}")
+            near += 1
+            alive.discard(b)
+    return alive, near
+
+
+def _mt_decode(book, trained, feed, check_feed):
+    """(b)'s beam decode on the card (the docstring's phase 21 (b)), with
+    the parameters of ``trained``, the scope of (b)'s 10 steps (they
+    share their names). → the decode p50 (ms)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, ids, scores = _md_fixed(lambda: mt_decode_program(
+        fluid, MT_DICT, MT_HID, MT_LEN, MT_BEAM, MT_MAX_STEP))
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = _clone_scope(trained, names, "cuda")
+    iexe = fluid.Executor(fluid.CUDAPlace(0))
+    iscope = _clone_scope(scope, names, "cuda")
+    kinds, times = [], []
+    for i in range(len(RNN_EXECS)):
+        out, kind, dt = _rnn_lock((exe, scope), (iexe, iscope), main, feed,
+                                  [ids, scores], "compiled", book,
+                                  f"(b) decode run {i}")
+        kinds.append(kind)
+    iexe.close()
+    for i in range(RNN_TIMED // 2):
+        before = _launch_counts()
+        t = time.perf_counter()
+        got = exe.run(main, feed=feed, fetch_list=[ids, scores], scope=scope)
+        times.append(time.perf_counter() - t)
+        kinds.append(_rnn_gate(exe, before, "compiled",
+                               f"{RNN_TAG} (b) decode run", book))
+    if tuple(kinds[:3]) != RNN_EXECS or set(kinds[3:]) != {"replay"}:
+        raise AssertionError(f"{RNN_TAG} (b) decode runs {kinds}")
+
+    def replay():
+        exe.run(main, feed=feed, fetch_list=[ids, scores], scope=scope)
+    _check_trace(_device_kernel_counts(replay, warm=replay), NO_KERNELS,
+                 "(b) beam decode")
+    book.add(NO_KERNELS, 2)
+    p, s = got
+    bs = feed["src"].shape[0]
+    if p.shape != (bs, MT_MAX_STEP, MT_BEAM) or p.min() < 0 \
+            or p.max() >= MT_DICT or not (np.diff(s, axis=1) <= 1e-6).all():
+        raise AssertionError(f"{RNN_TAG} (b) decode: ids {p.shape} in "
+                             f"[{p.min()}, {p.max()}], scores {s[:2]}")
+    p50 = float(np.median(times)) * 1e3
+    # the card against the CPU at MT_CHECK_BATCH: each step's top-k
+    topks = [op for op in main.global_block().ops if op.type == "top_k"]
+    fetch = [ids, scores] + [op.output("Indices")[0] for op in topks]
+    gpu = exe.run(main, feed=check_feed, fetch_list=fetch, scope=scope)
+    book.add(NO_KERNELS)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = cpu_exe.run(main, feed=check_feed, fetch_list=fetch + [
+        op.input("X")[0] for op in topks],
+        scope=_clone_scope(scope, names, "cpu"))
+    n = len(topks)
+    alive, near = _beam_steps_agree("(b) beam decode", gpu[2:2 + n],
+                                    cpu[2:2 + n], cpu[2 + n:], MT_BEAM)
+    keep = sorted(alive)
+    same_ids = np.array_equal(gpu[0][keep], cpu[0][keep])
+    score_ok = np.allclose(gpu[1][keep], cpu[1][keep], rtol=LOSS_TOL,
+                           atol=0)
+    _log(f"{RNN_TAG} (b) beam decode (beam {MT_BEAM}, {MT_MAX_STEP} steps, "
+         f"bos {MT_BOS}, eos {MT_EOS}) of {bs} sources: runs "
+         f"{' '.join(kinds[:4])} ..., the first {len(RNN_EXECS)} bitwise the "
+         f"interpreter's; decode p50 {p50:.3f} ms over {RNN_TIMED // 2} "
+         f"replays on {_card_line()}; card vs CPU at batch "
+         f"{check_feed['src'].shape[0]}: {n} top-k steps, {near} near-ties "
+         f"(within {BEAM_REL:g} relative), rows {keep} equal throughout: "
+         f"ids {'equal' if same_ids else 'DIFFER'}, final scores "
+         f"{'within' if score_ok else 'NOT within'} {LOSS_TOL:g} relative "
+         f"-> {'ok' if same_ids and score_ok else 'FAIL'}")
+    if not (same_ids and score_ok):
+        raise AssertionError(f"{RNN_TAG} (b) decode: card vs CPU")
+    exe.close()
+    return {"decode_p50_ms": p50, "near_ties": near}
+
+
+def _rnn_translator(book):
+    """(b) The book's chapter 8 translator (the docstring's phase 21
+    (b)). → its readings."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, loss = _md_fixed(lambda: mt_train_program(
+        fluid, MT_DICT, MT_HID, MT_LEN))
+    rng = np.random.RandomState(SEED + 31)
+    res = _md_train(book, f"(b) GRU translator batch {MT_BATCH}, "
+                    f"{MT_LEN} tokens", main, startup, [loss],
+                    _mt_feed(rng, MT_BATCH), NO_KERNELS, tag=RNN_TAG,
+                    keep_scope=True)
+    trained = res.pop("scope")
+    # the book's attention adds the state's projection to every source
+    # position's alike, and softmax takes out a shift: the grad of that
+    # projection's weight is 0 but for rounding
+    _md_card_vs_cpu(book, f"(b) GRU translator batch {MT_CHECK_BATCH}",
+                    main, startup, [loss], _mt_feed(rng, MT_CHECK_BATCH),
+                    adaptive=True, tag=RNN_TAG,
+                    noise={"mt_att_state_w@GRAD"})
+    res.update(_mt_decode(book, trained, _mt_feed(rng, MT_BATCH, decode=True),
+                          _mt_feed(rng, MT_CHECK_BATCH, decode=True)))
+    return res
+
+
+def _lg_lod(rng, bs):
+    """``bs`` ragged sequences of LG_LENS tokens: (ids [T, 1], offsets)."""
+    import numpy as np
+    lens = rng.randint(LG_LENS[0], LG_LENS[1] + 1, bs)
+    offs = [0] + [int(x) for x in np.cumsum(lens)]
+    return rng.randint(2, MT_DICT, (offs[-1], 1)).astype(np.int64), offs
+
+
+def _lod_tensor(ids, offs):
+    import torch
+    from paddle_tpu_torch import fluid
+    return fluid.LoDTensor(torch.from_numpy(ids), [offs])
+
+
+def _lg_score_feed(rng, bs):
+    import numpy as np
+    src, soffs = _lg_lod(rng, bs)
+    trg, toffs = _lg_lod(rng, bs)
+    nxt = np.concatenate([trg[1:], [[MT_EOS]]]).astype(np.int64)
+    nxt[np.asarray(toffs[1:]) - 1] = MT_EOS
+    return {"lsrc": _lod_tensor(src, soffs), "ltrg": _lod_tensor(trg, toffs),
+            "ltrg_next": _lod_tensor(nxt, toffs)}
+
+
+def _lg_scorer(book, rng):
+    """(c) The DynamicRNN scorer, forward only: segmented around its
+    islands (the rank table, the arrays, the ``while``, run by the
+    interpreter), eager, capture and replays, each bitwise the
+    interpreter's; card vs CPU. → its run p50 (ms)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, scores, hs = _md_fixed(lambda: lg_score_program(
+        fluid, MT_DICT, MT_HID))
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe, scope = _fresh(main, startup)
+    iexe = fluid.Executor(fluid.CUDAPlace(0))
+    iscope = _clone_scope(scope, names, "cuda")
+    feed = _lg_score_feed(rng, MT_BATCH)
+    kinds, times = [], []
+    for i in range(len(RNN_EXECS) + 2):
+        out, kind, dt = _rnn_lock((exe, scope), (iexe, iscope), main, feed,
+                                  [scores, hs], "segmented", book,
+                                  f"(c) DynamicRNN scorer run {i}")
+        kinds.append(kind)
+        if i >= len(RNN_EXECS):
+            times.append(dt)
+    iexe.close()
+    if tuple(kinds[:3]) != RNN_EXECS or set(kinds[3:]) != {"replay"}:
+        raise AssertionError(f"{RNN_TAG} (c) scorer runs {kinds}")
+    cb = exe._last_block
+    islands = sum(s.kind == "island" for s in cb.segments)
+    for i in range(RNN_TIMED // 2):
+        before = _launch_counts()
+        t = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[scores, hs], scope=scope)
+        times.append(time.perf_counter() - t)
+        _rnn_gate(exe, before, "segmented", f"{RNN_TAG} (c) scorer run",
+                  book)
+    s = out[0].numpy()
+    if s.shape != (MT_BATCH, 1) or not np.isfinite(s).all():
+        raise AssertionError(f"{RNN_TAG} (c) scores {s.shape}")
+    check = _lg_score_feed(rng, MT_CHECK_BATCH)
+    gpu = exe.run(main, feed=check, fetch_list=[scores, hs], scope=scope)
+    book.add(NO_KERNELS)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=check, fetch_list=[scores, hs],
+        scope=_clone_scope(scope, names, "cpu"))
+    errs = [float(np.abs(a - b).max()) for a, b in zip(gpu, cpu)]
+    ok = all(np.allclose(a, b, rtol=LG_SCORE_TOL[0], atol=LG_SCORE_TOL[1])
+             for a, b in zip(gpu, cpu))
+    p50 = float(np.median(times)) * 1e3
+    _log(f"{RNN_TAG} (c) DynamicRNN scorer (gru_unit, need_reorder memory, "
+         f"static_input) over {MT_BATCH} references of "
+         f"{LG_LENS[0]}-{LG_LENS[1]} tokens: segmented, {len(cb.segments)} "
+         f"segments ({islands} islands, the while in the interpreter: each "
+         f"step's batch is its rank-table prefix), runs {' '.join(kinds)}, "
+         f"each bitwise the interpreter's; run p50 {p50:.3f} ms on "
+         f"{_card_line()}; card vs CPU at batch {MT_CHECK_BATCH}: scores "
+         f"max|d| {errs[0]:.3e}, step outputs {errs[1]:.3e} (rtol "
+         f"{LG_SCORE_TOL[0]:g}, atol {LG_SCORE_TOL[1]:g}) -> "
+         + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"{RNN_TAG} (c) scorer: card vs CPU")
+    exe.close()
+    return p50
+
+
+def _lg_beam(book, rng):
+    """(c) The contrib BeamSearchDecoder's step program run from the host
+    LG_BEAM_STEPS steps over MT_BATCH sources (each step in lock step with
+    the interpreter), beam_search_decode's backtrace; the card against
+    the CPU at MT_CHECK_BATCH, each step from the card's beam state. → the
+    step p50 (ms)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    tmain, tstart, _ = _md_fixed(lambda: lg_train_program(
+        fluid, MT_DICT, MT_HID, MT_LEN))
+    emain, _, enc = _md_fixed(lambda: lg_encoder_program(
+        fluid, MT_DICT, MT_HID))
+    bmain, _, sel_ids, sel_sc, parent, new_h = _md_fixed(
+        lambda: lg_beam_program(fluid, MT_DICT, MT_HID, MT_BEAM))
+    names = [v.name for v in tmain.list_vars() if v.persistable]
+    exe, scope = _fresh(tmain, tstart)
+    iexe = fluid.Executor(fluid.CUDAPlace(0))
+    iscope = _clone_scope(scope, names, "cuda")
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cscope = _clone_scope(scope, names, "cpu")
+    fetch = [sel_ids, sel_sc, parent, new_h]
+    acc = [op for op in bmain.global_block().ops
+           if op.type == "beam_search"][0].input("scores")[0]
+
+    def start(bs):
+        src, offs = _lg_lod(rng, bs)
+        (h,) = exe.run(emain, feed={"lsrc": _lod_tensor(src, offs)},
+                       fetch_list=[enc], scope=scope)
+        lod = [list(range(bs + 1))] * 2
+        return (np.full((bs, 1), MT_BOS, np.int64), np.zeros((bs, 1),
+                np.float32), lod, h)
+
+    def feed_of(state):
+        ids, sc, lod, h = state
+        return {"bs_ids": fluid.LoDTensor(torch.from_numpy(ids), lod),
+                "bs_scores": fluid.LoDTensor(torch.from_numpy(sc), lod),
+                "bs_h": h}
+
+    def advance(out):
+        ids, sc, par, h = out
+        return (ids.numpy(), sc.numpy(), ids.lod(),
+                h.numpy()[par.numpy().astype(np.int64)])
+    state, steps, times = start(MT_BATCH), [], []
+    for t in range(LG_BEAM_STEPS):
+        out, kind, dt = _rnn_lock((exe, scope), (iexe, iscope), bmain,
+                                  feed_of(state), fetch,
+                                  _lg_beam_mode(bmain), book,
+                                  f"(c) beam step {t}")
+        times.append(dt)
+        steps.append(out)
+        state = advance(out)
+    iexe.close()
+    # beam_search_decode over the steps' selections
+    dmain = fluid.Program()
+    with fluid.program_guard(dmain, fluid.Program()):
+        block = dmain.global_block()
+        arrs = [block.create_var(
+            name=n, type=fluid.core.VarDesc.VarType.LOD_TENSOR_ARRAY,
+            dtype=d) for n, d in (("lg_step_ids", "int64"),
+                                  ("lg_step_scores", "float32"))]
+        sent_ids, sent_sc = fluid.layers.beam_search_decode(
+            arrs[0], arrs[1], MT_BEAM, MT_EOS)
+    for k, a in enumerate(arrs):
+        arr = scope.var(a.name).get_lod_tensor_array()
+        arr.clear()
+        arr.extend(s[k] for s in steps)
+    sid, ssc = exe.run(dmain, fetch_list=[sent_ids, sent_sc], scope=scope,
+                       return_numpy=False)
+    lod = sid.lod()
+    hyps = len(lod[1]) - 1
+    if len(lod[0]) != MT_BATCH + 1 or hyps != lod[0][-1] \
+            or sid.numpy().min() < 0 or sid.numpy().max() >= MT_DICT:
+        raise AssertionError(f"{RNN_TAG} (c) beam_search_decode: LoD "
+                             f"{[len(x) for x in lod]}")
+    # the card against the CPU from the card's state, step by step
+    state, near, equal = start(MT_CHECK_BATCH), 0, 0
+    for t in range(LG_BEAM_STEPS):
+        f = feed_of(state)
+        g = exe.run(bmain, feed=f, fetch_list=fetch, scope=scope,
+                    return_numpy=False)
+        book.add(NO_KERNELS)
+        c = cpu_exe.run(bmain, feed=f, fetch_list=fetch, scope=cscope,
+                        return_numpy=False)
+        gi, ci = g[0].numpy().reshape(-1), c[0].numpy().reshape(-1)
+        gs, cs_ = g[1].numpy().reshape(-1), c[1].numpy().reshape(-1)
+        if g[0].lod() == c[0].lod() and np.array_equal(gi, ci):
+            equal += 1
+        elif len(gs) == len(cs_) and (np.abs(np.sort(gs) - np.sort(cs_))
+                                      <= BEAM_REL * np.abs(np.sort(cs_))
+                                      ).all():
+            near += 1
+        else:
+            raise AssertionError(f"{RNN_TAG} (c) beam step {t}: card "
+                                 f"{gi} {gs}, CPU {ci} {cs_}")
+        state = advance(g)
+    p50 = float(np.median(times)) * 1e3
+    _log(f"{RNN_TAG} (c) contrib BeamSearchDecoder (beam {MT_BEAM}): "
+         f"{LG_BEAM_STEPS} host-stepped steps over {MT_BATCH} sources "
+         f"({_lg_beam_mode(bmain)}), each bitwise the interpreter's, step "
+         f"p50 {p50:.3f} ms on {_card_line()}; beam_search_decode: {hyps} "
+         f"hypotheses, {len(sid.numpy())} tokens; card vs CPU at batch "
+         f"{MT_CHECK_BATCH} from the card's beam state: {equal} steps "
+         f"equal, {near} near-ties (scores within {BEAM_REL:g} relative) "
+         f"-> ok")
+    exe.close()
+    return p50
+
+
+def _lg_beam_mode(main):
+    """How Executor.run runs the beam step program: "segmented" when its
+    compiled ops reach FLAGS_executor_seg_min_ops, else "interpreted"."""
+    from paddle_tpu_torch.fluid import core
+    from paddle_tpu_torch.fluid.ir import op_island_reason
+    n = sum(op_island_reason(op) is None for op in main.global_block().ops)
+    return ("segmented" if n >= int(core.globals_[
+        "FLAGS_executor_seg_min_ops"]) else "interpreted")
+
+
+def _rnn_legacy(book, tmp):
+    """(c) The legacy LoD path at (b)'s widths (the docstring's phase 21
+    (c)). → its readings."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    rng = np.random.RandomState(SEED + 32)
+    src, offs = _lg_lod(rng, MT_BATCH)
+    m, s, e = _md_fixed(lambda: lg_encoder_program(
+        fluid, MT_DICT, MT_HID))
+    enc = _rnn_serve(book, f"(c) encoder (fc_gru_fuse_pass), {MT_BATCH} "
+                     "sources", m, s, e, {"lsrc": _lod_tensor(src, offs)},
+                     LG_ENC_CENSUS, tmp)
+    score = _lg_scorer(book, rng)
+    main, startup, loss = _md_fixed(lambda: lg_train_program(
+        fluid, MT_DICT, MT_HID, MT_LEN))
+
+    def train_feed(bs):
+        src, offs = _lg_lod(rng, bs)
+        lens = rng.randint(LG_LENS[0], LG_LENS[1] + 1, bs)
+        return {"lsrc": _lod_tensor(src, offs),
+                "ttrg": rng.randint(2, MT_DICT, (MT_LEN, bs)).astype(
+                    np.int64),
+                "ttrg_next": rng.randint(2, MT_DICT, (MT_LEN, bs, 1)).astype(
+                    np.int64),
+                "ttrg_mask": (np.arange(MT_LEN)[:, None] < lens[None, :]
+                              ).astype(np.float32)}
+    res = _md_train(book, f"(c) contrib TrainingDecoder (StaticRNN, "
+                    f"gru_unit) batch {MT_BATCH}, {MT_LEN} steps", main,
+                    startup, [loss], train_feed(MT_BATCH), NO_KERNELS,
+                    tag=RNN_TAG)
+    _md_card_vs_cpu(book, f"(c) contrib TrainingDecoder batch "
+                    f"{MT_CHECK_BATCH}", main, startup, [loss],
+                    train_feed(MT_CHECK_BATCH), adaptive=True, tag=RNN_TAG)
+    beam = _lg_beam(book, rng)
+    return dict(res, encoder_request_p50_ms=enc, scorer_p50_ms=score,
+                beam_step_p50_ms=beam)
+
+
+def phase_rnn():
+    """Phase 21: the recurrences (the docstring's phase 21). → the
+    launches of its main paths: through the wrappers and on the card."""
+    import tempfile
+    book = _CfBook()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"sentiment": _rnn_sentiment(book, tmp),
+               "translator": _rnn_translator(book),
+               "legacy": _rnn_legacy(book, tmp)}
+    wrapper = _launch_counts()
+    if any(wrapper) or any(book.executed):
+        raise AssertionError(f"{RNN_TAG} phase 21 launched {wrapper}, on the "
+                             f"card {book.executed}")
+    _log(f"{RNN_TAG} phase 21 in {time.perf_counter() - t0:.1f} s: step p50 "
+         f"(a) {res['sentiment']['p50_ms']:.3f} ms, request "
+         f"{res['sentiment']['request_p50_ms']:.3f} ms; (b) "
+         f"{res['translator']['p50_ms']:.3f} ms, decode "
+         f"{res['translator']['decode_p50_ms']:.3f} ms; (c) training "
+         f"{res['legacy']['p50_ms']:.3f} ms, scorer "
+         f"{res['legacy']['scorer_p50_ms']:.3f} ms, beam step "
+         f"{res['legacy']['beam_step_p50_ms']:.3f} ms; launches through the "
+         f"wrappers {GATE_NAMES} {wrapper}, on the card "
+         f"{tuple(book.executed)}")
+    return {"wrapper": wrapper, "executed": tuple(book.executed), **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -8382,6 +9422,7 @@ def main(argv=None) -> int:
     paths["lod"] = phase_lod()
     paths["compiler"] = phase_compiler(fwd_rows, bwd_rows)
     paths["models"] = phase_models(paths["resnet"]["lane"]["step_ms"])
+    paths["rnn"] = phase_rnn()
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded
@@ -8448,9 +9489,9 @@ def main(argv=None) -> int:
                                  "old_route_ms", "delta_ms")
                if k in r}))
     # a trace gate fails when its trace came up short (ROADMAP C2)
-    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-20, each "
+    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-21, each "
          "holding its gate's kernels: none came up short")
-    _log(f"[card] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
+    _log(f"[card] phases 1-21 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -445,6 +445,23 @@ class LoDTensorArray(list):
     and join its entries on the host, through the interpreter."""
 
 
+class LoDRankTable:
+    """The sequences of one LoD level sorted by length, longest first, ties
+    in sequence order (reference: framework/lod_rank_table.h): ``items``
+    are (sequence index, length) pairs, ``level`` the LoD level they come
+    from. Made on the host from a LoD, which is host metadata: no device
+    read."""
+
+    __slots__ = ("items", "level")
+
+    def __init__(self, items=None, level=0):
+        self.items = list(items or [])
+        self.level = level
+
+    def __repr__(self):
+        return f"LoDRankTable({self.items})"
+
+
 # --------------------------------------------------------------------------
 # Variable / Scope (reference: framework/variable.h:26, scope.h:46)
 # --------------------------------------------------------------------------
@@ -468,6 +485,14 @@ class Variable:
         if self._holder is None:
             self._holder = LoDTensorArray()
         if not isinstance(self._holder, LoDTensorArray):
+            raise TypeError(f"variable holds {type(self._holder).__name__}")
+        return self._holder
+
+    def get_lod_rank_table(self) -> LoDRankTable:
+        """The variable's rank table, made empty at first use."""
+        if self._holder is None:
+            self._holder = LoDRankTable()
+        if not isinstance(self._holder, LoDRankTable):
             raise TypeError(f"variable holds {type(self._holder).__name__}")
         return self._holder
 

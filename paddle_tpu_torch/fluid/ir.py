@@ -18,11 +18,13 @@ predictor's pipeline) is here, in its order, with
 ``apply_inference_passes``: is_test, simplify_with_basic_ops,
 delete_quant_dequant_op, multihead_matmul_fuse (v2 and the v1 name), the
 three conv folds, embedding_eltwise_layernorm, fc_gru, fc_lstm, fc,
-fc_elementwise_layernorm and identity_scale_op_clean. The ops fc_gru and
-fc_lstm emit (``fusion_gru``, ``fusion_lstm``) need LoD and are not
-registered yet (ROADMAP A7). Every other pass of the TPU package is
-registered too: the two BuildStrategy fusions (fuse_elewise_add_act,
-fuse_bn_act; the ``CompiledProgram`` of compiler.py runs them),
+fc_elementwise_layernorm and identity_scale_op_clean. fc_gru and fc_lstm
+fold a bias-free projection (a ``mul`` read by the recurrence alone) into
+``fusion_gru`` / ``fusion_lstm`` (ops/fused_ops.py), whose ``XX`` output
+is the mul's; an fc with a bias is left unfused. Every other pass of the
+TPU package is registered too: the two BuildStrategy fusions
+(fuse_elewise_add_act, fuse_bn_act; the ``CompiledProgram`` of
+compiler.py runs them),
 skip_layernorm, the three seq* fusions (their ops need LoD), graph_viz,
 graph_to_program, the absorbed passes (the identity here: the compiled
 step does their work) and ``block_segmentation_pass``.
@@ -72,10 +74,15 @@ def fused_health(values, device=None) -> torch.Tensor:
 
 def op_reads_host_values(op) -> bool:
     """An op whose kernel reads the VALUES of a connected ``host_inputs``
-    slot (registry) cannot be replayed by a CUDA graph."""
+    slot (registry; a function of the op gives the slots that op reads)
+    cannot be replayed by a CUDA graph."""
     info = resolve_base_info(op.type)
-    return info is not None and any(op.inputs.get(s)
-                                    for s in info.host_inputs)
+    if info is None:
+        return False
+    slots = info.host_inputs
+    if callable(slots):
+        slots = slots(op)
+    return any(op.inputs.get(s) for s in slots)
 
 
 def op_island_reason(op) -> Optional[str]:

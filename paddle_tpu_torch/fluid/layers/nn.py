@@ -33,7 +33,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm", "layer_norm",
            "reduce_sum", "reduce_mean", "one_hot", "elementwise_add",
            "elementwise_sub", "elementwise_mul", "elementwise_div",
            "elementwise_max", "elementwise_min", "elementwise_pow",
-           "elementwise_mod", "scale", "clip", "clip_by_norm", "sign", "pow",
+           "elementwise_mod", "elementwise_floordiv", "scale", "clip",
+           "clip_by_norm", "sign", "pow",
            "label_smooth", "log_loss", "add_position_encoding",
            "autoincreased_step_counter", "logical_and", "logical_or",
            "logical_xor", "logical_not", "brelu", "leaky_relu", "soft_relu",
@@ -599,6 +600,10 @@ def elementwise_pow(x, y, axis=-1, act=None, name=None):
 
 def elementwise_mod(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_mod", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_floordiv", x, y, axis, act, name)
 
 
 def clip(x, min, max, name=None):

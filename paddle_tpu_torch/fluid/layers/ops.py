@@ -1,7 +1,7 @@
 """Activation-style layer wrappers (counterpart of
 paddle_tpu/fluid/layers/ops.py; reference: python/paddle/fluid/layers/ops.py
-via layer_function_generator.py): the TPU package's generated activations
-but cumsum, and relu."""
+via layer_function_generator.py): the TPU package's generated activations,
+relu and cumsum."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -11,7 +11,7 @@ __all__ = ["relu", "sigmoid", "square", "exp", "ceil", "floor", "cos",
            "atan", "tanh_shrink", "softshrink", "acos", "asin", "sin",
            "sinh", "cosh", "round", "softplus", "softsign", "erf",
            "hard_shrink", "thresholded_relu", "log", "log1p", "selu",
-           "gelu"]
+           "gelu", "cumsum"]
 
 
 def _make_act(op_type, extra_attrs=()):
@@ -58,3 +58,14 @@ log = _make_act("log")
 log1p = _make_act("log1p")
 selu = _make_act("selu", ("scale", "alpha"))
 gelu = _make_act("gelu", ("approximate",))
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    """The running sum of ``x`` along ``axis`` (the cumsum op)."""
+    helper = LayerHelper("cumsum", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="cumsum", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"axis": axis, "exclusive": exclusive,
+                            "reverse": reverse})
+    return out

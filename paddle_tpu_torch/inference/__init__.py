@@ -303,11 +303,14 @@ class AnalysisPredictor:
 
     def run(self, inputs: Optional[List[np.ndarray]] = None):
         """One request: ``inputs`` in ``get_input_names()`` order, or what
-        the input handles were given. → the outputs in
+        the input handles were given; a ``LoDTensor`` input keeps its LoD
+        (a sequence model's words). → the outputs in
         ``get_output_names()`` order, as numpy arrays."""
+        from ..fluid.core import LoDTensor
         if inputs is not None:
             for name, arr in zip(self._feed_names, inputs):
-                self._inputs[name] = np.asarray(arr)
+                self._inputs[name] = (arr if isinstance(arr, LoDTensor)
+                                      else np.asarray(arr))
         missing = [n for n in self._feed_names if n not in self._inputs]
         if missing:
             raise KeyError(f"inputs not set: {missing}")

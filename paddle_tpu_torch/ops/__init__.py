@@ -12,7 +12,10 @@ fused_fc_elementwise_layernorm and conv2d_fusion), the LoD sequence ops,
 sequence_mask, cos_sim and the activations of the book's models, the
 rest of tensor_ops' shape, gather/scatter, sorting and random ops, the
 fused lstm and lstm_unit, nce, hierarchical_sigmoid and the linear-chain
-CRF with its Viterbi decode."""
+CRF with its Viterbi decode, the LoD recurrences (dynamic_lstm,
+dynamic_lstmp, dynamic_gru, gru_unit and the fused fusion_gru and
+fusion_lstm), the beam searches' ops and the DynamicRNN-era LoD control
+ops."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
@@ -26,3 +29,4 @@ from . import fused_ops      # noqa: F401
 from . import sequence_ops   # noqa: F401
 from . import rnn_ops         # noqa: F401
 from . import loss_extra_ops  # noqa: F401
+from . import lod_control_ops  # noqa: F401

@@ -1,8 +1,8 @@
 """Framework op kernels (counterpart of paddle_tpu/ops/framework_ops.py).
 So far: feed, fetch, print, assert, the control flow (while,
-conditional_block, select_input, select_output) and the tensor-array ops
+conditional_block, select_input, select_output), the tensor-array ops
 (write_to_array, read_from_array, lod_array_length,
-tensor_array_to_tensor, array_to_lod_tensor).
+tensor_array_to_tensor, array_to_lod_tensor) and rnn_memory_helper.
 
 A stateful op runs only in the interpreter (as a whole interpreted block,
 or as an island of a segmented one), which passes it its Operator as
@@ -25,6 +25,7 @@ package's compiled path does), so these kernels run only when a caller
 interprets such a block op by op over a scope that holds the lists."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .registry import first, out, register_op, seq
@@ -201,10 +202,35 @@ def _tensor_array_to_tensor(ins, attrs):
 
 @register_op("array_to_lod_tensor", stateful=True, no_grad=True)
 def _array_to_lod_tensor(ins, attrs):
-    """The entries joined along axis 0. With a RankTable (the sequences of
-    a DynamicRNN) it needs LoD, which comes with ROADMAP A7."""
-    if attrs["_op"].input("RankTable"):
-        raise NotImplementedError(
-            "array_to_lod_tensor with a RankTable needs LoD sequences, "
-            "which come with the DynamicRNN slice (ROADMAP A7)")
-    return out(Out=torch.cat([t.array for t in _array(attrs, "X")], 0))
+    """The entries joined along axis 0. With a RankTable (a DynamicRNN's
+    outputs, lod_tensor_to_array's inverse: row r of entry t is step t of
+    the rank-r sequence) the sequences are put back together in their
+    original order, with their LoD: one row gather of the joined entries,
+    whose index is made on the host from the rank table."""
+    from .tensor_ops import take_rows
+    arr = _array(attrs, "X")
+    if not attrs["_op"].input("RankTable"):
+        return out(Out=torch.cat([t.array for t in arr], 0))
+    if not arr:
+        raise ValueError("array_to_lod_tensor: empty array")
+    op, scope = attrs["_op"], attrs["_scope"]
+    items = scope.find_var(op.input("RankTable")[0]).get_lod_rank_table().items
+    start, at = [], 0  # where each entry's rows begin in the joined tensor
+    for t in arr:
+        start.append(at)
+        at += t.array.shape[0]
+    rows, lens = [], [0] * len(items)
+    for r, (i, n) in sorted(enumerate(items), key=lambda e: e[1][0]):
+        rows.extend(start[t] + r for t in range(n))
+        lens[i] = n
+    lod = tuple(int(v) for v in np.concatenate([[0], np.cumsum(lens)]))
+    joined = torch.cat([t.array for t in arr], 0)
+    idx = torch.tensor(rows, dtype=torch.int64).to(joined.device)
+    return {"Out": [take_rows(joined, idx)], "_lod": {"Out": [(lod,)]}}
+
+
+@register_op("rnn_memory_helper", inputs=("X",))
+def _rnn_memory_helper(ins, attrs):
+    """Out = X (reference rnn_memory_helper_op.cc: a recurrence's memory
+    passed on)."""
+    return out(Out=first(ins, "X"))

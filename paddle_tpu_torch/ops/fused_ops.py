@@ -4,7 +4,8 @@ far: fc, fused_embedding_eltwise_layernorm, fused_fc_elementwise_layernorm,
 conv2d_fusion, the training-side fusions BuildStrategy's passes emit,
 fused_elemwise_activation and fused_batch_norm_act, skip_layernorm, and
 the LoD fusions fusion_seqconv_eltadd_relu, fusion_seqpool_concat and
-fusion_seqexpand_concat_fc).
+fusion_seqexpand_concat_fc, and the recurrences fc_gru_fuse_pass and
+fc_lstm_fuse_pass emit, fusion_gru and fusion_lstm).
 
 Each is a composition of the port's own kernels with the reference's slot
 and attr contract (reference: operators/fc_op.cc,
@@ -26,7 +27,10 @@ computes what its unfused form computes:
   * ``skip_layernorm`` is ``layer_norm``'s kernel over X + Y; the LoD
     fusions are the sequence ops' kernels (sequence_ops.py: the padded
     pooling, the context-window gather) and then the add, the product or
-    the activation.
+    the activation;
+  * ``fusion_gru`` and ``fusion_lstm`` are ``mul``'s product X·WeightX
+    (their ``XX`` output, the mul's output in the unfused program) and
+    then ``dynamic_gru``'s or ``dynamic_lstm``'s kernel over it.
 """
 from __future__ import annotations
 
@@ -288,3 +292,47 @@ def _fusion_seqexpand_concat_fc(ins, attrs):
     if lods and lods[0] is not None:
         res["_lod"] = {"Out": [lods[0]]}
     return res
+
+
+# --------------------------------------------------------------------------
+# the fused recurrences (reference: fused/fusion_gru_op.cc,
+# fusion_lstm_op.cc): the input projection folded in
+# --------------------------------------------------------------------------
+def _projected(ins, attrs):
+    """(XX = X·WeightX by mul's kernel, the recurrence's ins and attrs
+    over it: Input XX with X's LoD, Weight WeightH)."""
+    from .math_ops import _mul
+    xx = _mul({"X": ins["X"], "Y": ins["WeightX"]}, {})["Out"][0]
+    rins = dict(ins, Input=[xx], Weight=ins.get("WeightH"))
+    lod = dict(attrs.get("_lod") or {})
+    lod["Input"] = lod.get("X")
+    return xx, rins, dict(attrs, _lod=lod), (lod.get("X") or [None])[0]
+
+
+@register_op("fusion_gru", needs_lod=True,
+             inputs=("X", "WeightX", "WeightH", "Bias", "H0"),
+             diff_inputs=("X", "WeightX", "WeightH", "Bias", "H0"),
+             attr_defaults={"is_reverse": False, "origin_mode": False,
+                            "use_seq": True, "activation": "tanh",
+                            "gate_activation": "sigmoid"})
+def _fusion_gru(ins, attrs):
+    from .rnn_ops import _dynamic_gru
+    xx, rins, rattrs, lod = _projected(ins, attrs)
+    h = _dynamic_gru(rins, rattrs)["Hidden"][0]
+    return {"Hidden": [h], "XX": [xx], "_lod": {"Hidden": [lod],
+                                                "XX": [lod]}}
+
+
+@register_op("fusion_lstm", needs_lod=True,
+             inputs=("X", "WeightX", "WeightH", "Bias", "H0", "C0"),
+             diff_inputs=("X", "WeightX", "WeightH", "Bias", "H0", "C0"),
+             attr_defaults={"use_peepholes": False, "is_reverse": False,
+                            "gate_activation": "sigmoid",
+                            "cell_activation": "tanh",
+                            "candidate_activation": "tanh"})
+def _fusion_lstm(ins, attrs):
+    from .rnn_ops import _dyn_lstm_common
+    xx, rins, rattrs, lod = _projected(ins, attrs)
+    h, c = _dyn_lstm_common(rins, rattrs)
+    return {"Hidden": [h], "Cell": [c], "XX": [xx],
+            "_lod": {"Hidden": [lod], "Cell": [lod], "XX": [lod]}}

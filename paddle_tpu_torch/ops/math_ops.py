@@ -1,6 +1,7 @@
 """Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
 far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
-elementwise_max, elementwise_min, elementwise_pow, elementwise_mod, mul,
+elementwise_max, elementwise_min, elementwise_pow, elementwise_mod,
+elementwise_floordiv, cumsum, mul,
 matmul, scale, increment, clip, clip_by_norm, squared_l2_norm, l1_norm,
 relu, sigmoid, gelu, square, ceil, floor, cos, exp, sqrt, rsqrt, abs,
 reciprocal, sign, pow, the other activations of the TPU package's table
@@ -86,6 +87,9 @@ _register_elementwise("elementwise_pow", lambda x, y: x ** y)
 # Python's sign convention (the divisor's), as jnp's ``%``: torch.remainder
 # follows it, torch.fmod does not (an int32 step mod k in GradientMerge)
 _register_elementwise("elementwise_mod", torch.remainder)
+# floor division, jnp's ``//`` (torch's rounding_mode="floor")
+_register_elementwise("elementwise_floordiv",
+                      lambda x, y: torch.div(x, y, rounding_mode="floor"))
 
 
 def _register_cmp(name, fn):
@@ -473,3 +477,24 @@ def _cos_sim(ins, attrs):
     yn = torch.sqrt(torch.sum(torch.square(y), -1, keepdim=True))
     xy = torch.sum(x * y, -1, keepdim=True)
     return out(Out=xy / (xn * yn), XNorm=xn, YNorm=yn)
+
+
+@register_op("cumsum", inputs=("X",),
+             attr_defaults={"axis": -1, "flatten": False, "exclusive": False,
+                            "reverse": False})
+def _cumsum(ins, attrs):
+    """The running sum along ``axis`` (of X flattened with ``flatten``),
+    from the end with ``reverse``; ``exclusive`` takes each element's own
+    value off again, as the TPU kernel does."""
+    x = first(ins, "X")
+    if attrs.get("flatten", False):
+        x = x.reshape(-1)
+    ax = int(attrs.get("axis", -1))
+    if attrs.get("reverse", False):
+        x = x.flip(ax)
+    o = torch.cumsum(x, dim=ax)
+    if attrs.get("exclusive", False):
+        o = o - x
+    if attrs.get("reverse", False):
+        o = o.flip(ax)
+    return out(Out=o)

@@ -11,7 +11,9 @@ the TPU package's registry.py:48-71): ``stateful`` (side effects beyond
 its outputs: the block runs interpreted) and ``host_inputs`` (input slots
 whose VALUES the kernel reads on the host, such as a shape tensor: a
 block that connects one of them runs interpreted, since a CUDA graph
-cannot replay a host read).
+cannot replay a host read; ``host_inputs`` may instead be a function of
+the op that gives the slots it reads, for a kernel that reads a slot's
+values only under some attrs).
 
 Gradients (counterpart of the TPU package's registry.py:201-321): by
 default an op's grad is derived mechanically from its forward kernel.
@@ -116,7 +118,7 @@ def register_op(type_: str, *, no_grad: bool = False, needs_rng: bool = False,
                 attr_defaults: Optional[Dict[str, Any]] = None,
                 inputs: Optional[Sequence[str]] = None,
                 outputs: Optional[Sequence[str]] = None,
-                host_inputs: Optional[Sequence[str]] = None):
+                host_inputs=None):
     """Decorator registering a forward kernel under op name ``type_``.
 
     ``needs_lod``: the kernel reads LoD (variable-length sequence)
@@ -139,7 +141,8 @@ def register_op(type_: str, *, no_grad: bool = False, needs_rng: bool = False,
         info.attr_defaults = dict(attr_defaults or {})
         info.input_slots = inputs
         info.output_slots = outputs
-        info.host_inputs = tuple(host_inputs or ())
+        info.host_inputs = (host_inputs if callable(host_inputs)
+                            else tuple(host_inputs or ()))
         return fn
     return deco
 

@@ -622,14 +622,24 @@ def _im2sequence(ins, attrs):
 # --------------------------------------------------------------------------
 # sequence_mask (the TPU package's nn_extra_ops.py:147)
 # --------------------------------------------------------------------------
+def _sequence_mask_host_reads(op):
+    """The slots sequence_mask reads on the host: MaxLenTensor, and X when
+    no static ``maxlen`` gives the width."""
+    if op.inputs.get("MaxLenTensor"):
+        return ("MaxLenTensor",)
+    maxlen = op.attrs.get("maxlen", -1)
+    return ("X",) if maxlen is None or maxlen < 0 else ()
+
+
 @register_op("sequence_mask", inputs=("X", "MaxLenTensor"), no_grad=True,
-             host_inputs=("X", "MaxLenTensor"),
+             host_inputs=_sequence_mask_host_reads,
              attr_defaults={"maxlen": -1, "out_dtype": 3})
 def _sequence_mask(ins, attrs):
     """Y[..., j] = j < X[...], over j < maxlen: the attr, MaxLenTensor's
-    value, or, when neither is set, X's largest value. The width can
-    depend on X's values, which are read on the host: the op runs in the
-    interpreter."""
+    value, or, when neither is set, X's largest value. A width that
+    depends on values (MaxLenTensor's, or X's) is read on the host: the
+    op then runs in the interpreter; with a static ``maxlen`` it
+    compiles."""
     from ..fluid.core import dtype_to_torch
     x = first(ins, "X")
     mt = first(ins, "MaxLenTensor")

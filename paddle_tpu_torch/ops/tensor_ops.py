@@ -283,12 +283,14 @@ def _gather(ins, attrs):
              host_inputs=("K",), attr_defaults={"k": 1})
 def _top_k(ins, attrs):
     """The k largest along the last axis, descending, with their int64
-    indices (the var's dtype). ``K``, a tensor, overrides the attr and is
-    read on the host."""
+    indices (the var's dtype), ties to the lower index (``lax.top_k``'s
+    order, which ``torch.topk`` does not promise on the card: a stable
+    sort's first k, as ``top_k_v2``). ``K``, a tensor, overrides the attr
+    and is read on the host."""
     x, kt = first(ins, "X"), first(ins, "K")
     k = int(kt.reshape(()).item()) if kt is not None else attrs.get("k", 1)
-    vals, idx = torch.topk(x, k, dim=-1, largest=True, sorted=True)
-    return out(Out=vals, Indices=idx)
+    idx = _stable_order(x, -1, True)[..., :k]
+    return out(Out=torch.gather(x, -1, idx), Indices=idx)
 
 
 def _one_hot(x, ins, attrs):

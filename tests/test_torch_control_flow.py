@@ -258,6 +258,9 @@ def test_select_input_and_output_match_the_tpu_package(mask):
 
 
 def test_array_to_lod_tensor_with_a_rank_table_names_a7():
+    """The RankTable branch (ROADMAP A7's DynamicRNN slice) joins the
+    sequences back in their order with their LoD; an empty array
+    raises."""
     op = TOPS.get("array_to_lod_tensor")
 
     class _Op:
@@ -266,8 +269,16 @@ def test_array_to_lod_tensor_with_a_rank_table_names_a7():
         def input(self, slot):
             return self.inputs.get(slot, [])
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        op.kernel({}, {"_op": _Op(), "_scope": tfluid.Scope()})
+    scope = tfluid.Scope()
+    scope.var("t").set_value(tcore.LoDRankTable([(1, 2), (0, 1)]))
+    with pytest.raises(ValueError, match="empty array"):
+        op.kernel({}, {"_op": _Op(), "_scope": scope})
+    arr = scope.var("a").get_lod_tensor_array()
+    arr.append(tfluid.LoDTensor(torch.tensor([[1.0], [2.0]])))
+    arr.append(tfluid.LoDTensor(torch.tensor([[3.0]])))
+    out = op.kernel({}, {"_op": _Op(), "_scope": scope})
+    assert out["_lod"] == {"Out": [((0, 1, 3),)]}
+    assert out["Out"][0].reshape(-1).tolist() == [2.0, 1.0, 3.0]
 
 
 def test_assert_raises_on_a_false_condition():

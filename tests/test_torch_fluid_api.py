@@ -172,8 +172,9 @@ def test_array_to_lod_tensor_joins_an_array_and_refuses_a_rank_table():
     got = exe.run(tm, fetch_list=[out], scope=scope)[0]
     np.testing.assert_array_equal(got, np.repeat([0.0, 1.0, 2.0], 2)[
         :, None].repeat(3, 1).astype(np.float32))
-    # with a rank table: the same op and slots as the TPU package's layer,
-    # which the port's op refuses at run time
+    # with a rank table: the same op and slots as the TPU package's layer;
+    # row r of entry t goes back as step t of the rank-r sequence, the
+    # sequences in their order
     jm, _, (jout, jarr) = _build(jfluid, lambda f: build(f, True))
     (jop,) = [op for op in jm.global_block().ops
               if op.type == "array_to_lod_tensor"]
@@ -188,9 +189,10 @@ def test_array_to_lod_tensor_joins_an_array_and_refuses_a_rank_table():
     assert top.type == jop.type and sorted(top.inputs) == sorted(jop.inputs)
     exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     exe.run(ts, scope=scope)
-    scope.var("rank_table").set_value(tcore.LoDTensor(torch.zeros(1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        exe.run(tm, fetch_list=[out], scope=scope)
+    scope.var("rank_table").set_value(tcore.LoDRankTable([(1, 3), (0, 3)]))
+    (got,) = exe.run(tm, fetch_list=[out], scope=scope, return_numpy=False)
+    assert got.lod() == [[0, 3, 6]]
+    np.testing.assert_array_equal(got.numpy()[:, 0], [0.0, 1, 2, 0, 1, 2])
 
 
 def test_flags_round_trip_as_the_tpu_package():

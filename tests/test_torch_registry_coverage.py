@@ -37,26 +37,20 @@ REMAINDER = frozenset({
     "split_ids",
     # paddle_tpu/ops/framework_ops.py
     "delete_var", "fake_init", "get_tensor_from_selected_rows", "load",
-    "load_combine", "merge_selected_rows", "py_func", "rnn_memory_helper",
-    "save", "save_combine",
+    "load_combine", "merge_selected_rows", "py_func", "save", "save_combine",
     # paddle_tpu/ops/fused_ops.py
     "attention_lstm", "conv2d_inception_fusion", "fused_embedding_fc_lstm",
-    "fused_embedding_seq_pool", "fusion_group", "fusion_gru", "fusion_lstm",
-    "fusion_repeated_fc_relu", "fusion_seqpool_cvm_concat",
-    "fusion_squared_mat_sub", "fusion_transpose_flatten_concat",
-    # paddle_tpu/ops/lod_control_ops.py
-    "conditional_block_infer", "lod_rank_table", "lod_tensor_to_array",
-    "max_sequence_len", "merge_lod_tensor", "merge_lod_tensor_infer",
-    "recurrent", "reorder_lod_tensor_by_rank", "shrink_rnn_memory",
-    "split_lod_tensor",
+    "fused_embedding_seq_pool", "fusion_group", "fusion_repeated_fc_relu",
+    "fusion_seqpool_cvm_concat", "fusion_squared_mat_sub",
+    "fusion_transpose_flatten_concat",
     # paddle_tpu/ops/loss_extra_ops.py
     "center_loss", "ctc_align", "edit_distance", "grid_sampler", "random_crop",
     "sampled_softmax_with_cross_entropy", "spectral_norm",
     "teacher_student_sigmoid_loss", "warpctc",
     # paddle_tpu/ops/math_ops.py
-    "addmm", "allclose", "bmm", "cholesky", "cumsum", "dist", "dot",
-    "elementwise_floordiv", "frobenius_norm", "inverse", "kron", "logsumexp",
-    "matmul_v2", "maximum", "minus", "mv", "p_norm", "prelu", "trace",
+    "addmm", "allclose", "bmm", "cholesky", "dist", "dot", "frobenius_norm",
+    "inverse", "kron", "logsumexp", "matmul_v2", "maximum", "minus", "mv",
+    "p_norm", "prelu", "trace",
     # paddle_tpu/ops/metrics_misc_ops.py
     "batch_fc", "chunk_eval", "coalesce_tensor", "detection_map", "fill",
     "fill_zeros_like2", "filter_by_instag", "get_places",
@@ -95,9 +89,6 @@ REMAINDER = frozenset({
     "fake_quantize_abs_max", "fake_quantize_dequantize_abs_max",
     "fake_quantize_dequantize_moving_average_abs_max",
     "fake_quantize_moving_average_abs_max", "fake_quantize_range_abs_max",
-    # paddle_tpu/ops/rnn_ops.py
-    "beam_search", "beam_search_decode", "dynamic_gru", "dynamic_lstm",
-    "dynamic_lstmp", "gather_tree", "gru", "gru_unit", "lstmp",
     # paddle_tpu/ops/vision_ops.py
     "affine_grid", "bicubic_interp", "conv3d_transpose", "conv_shift", "crop",
     "crop_tensor", "deformable_conv", "deformable_conv_v1",
