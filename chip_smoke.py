@@ -216,8 +216,8 @@ Phases, each fatal on failure:
               place, each run (0, 0, 0, 0, 0, 0, 0, 0, 0, 18, 0, 0)
               launches (the f32 forward) and one upload
               (the mutated array; the other feeds cache hits); then the
-              CPU port decodes greedily from the card's weights and on its
-              tokens (teacher forcing) the card's logits at every
+              CPU port runs once from the card's weights on the card's
+              tokens (teacher forcing): the card's logits at every
               position hold to the CPU's within 1e-3 of the largest.
               Then bench's transformer lane (``python3 -m
               paddle_tpu_torch.bench transformer``), its JSON line
@@ -572,6 +572,54 @@ Phases, each fatal on failure:
               BeamSearchDecoder's step program run from the host 32
               steps at beam 4 and beam_search_decode, the CPU port at
               batch 2 from the card's beam state.
+
+ 22. vision — the vision and loss op batch, each program at its
+              source's widths with random weights from a seed, f32,
+              through Executor.run compiled (CRNN-CTC segmented around
+              its islands), every run's launches gated, the first 3
+              steps of 10 on one fixed batch in lock step with the
+              interpreter (fetches and persistables bitwise), a trace of
+              one step, each program's losses falling; then card vs CPU
+              over 2 steps from one start (``_md_card_vs_cpu``: conv
+              nets' grads in relative L2 within KINK_L2_TOL). (a)
+              CycleGAN (Zhu et al. 2017 appendix 7.2: 256x256, batch 1,
+              ResNet-9-block generators with reflection padding,
+              instance_norm and conv2d_transpose u-layers, 70x70
+              PatchGAN discriminators, LSGAN losses, cycle L1 x 10, Adam
+              2e-4 / beta1 0.5): a step is three runs (the generators',
+              then each discriminator's on the generators' fakes), the
+              card vs the CPU at 64x64. (b) DeepLabv3+ (Chen et al.
+              2018: aligned Xception-65 at output stride 16, ASPP at
+              rates 6, 12, 18 with image pooling, dropout 0.1, the
+              decoder; Cityscapes shapes: 19 classes, 769x769 crops,
+              batch 4, labels in 16x16 blocks with a tenth ignored (255);
+              Momentum 0.9 under polynomial_decay, L2Decay 4e-5): the
+              dropout kernel (0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0) a
+              step, and against its plain version at the step's shape
+              ([4, 256, 49, 49]); the eval clone's mean_iou at batch 4
+              timed, and equal on the card and the CPU at 129x129; the
+              card vs the CPU at 129x129, batch 2, with one middle-flow
+              block, step 1 from one start (grads and the update), step 2
+              from the card's state (at random weights the net is
+              chaotic: DL_CHECK_MIDDLE). (c) CRNN-CTC (PaddleCV ocr_recognition
+              crnn_ctc_model: 1x48x512, four conv groups of 16-128, a 2x2
+              pool after each, im2sequence, fc 3x200 into dynamic_gru
+              forward and reverse, 95 classes and the blank, warpctc
+              norm_by_times, Momentum 1e-3; batch 32, labels of 3-12):
+              segmented (warpctc reads its Label on the host; ctc_align
+              and edit_distance are islands), its segments and islands
+              counted; the greedy decode and edit distance timed; the
+              card vs the CPU at batch 8 with the decoded ids and
+              distances equal. (d) Every op type of the batch
+              (``_vs_battery``) on the card against the CPU port, forward
+              and generic grad; every layer in one program
+              (``vision_layers_program``) 3 runs bitwise the
+              interpreter's; a frozen-BN program (conv2d + affine_channel)
+              served by AnalysisPredictor after
+              conv_affine_channel_fuse_pass against its unfused
+              Executor.run. The path's launches are those of the three
+              programs' training, the eval and the decode, counted from
+              zero; the checks' launches are counted apart.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -1825,6 +1873,29 @@ def _nan_bias_routes(gen):
                                      f"in the bias ({where})")
 
 
+def _dropout_agrees(dk, x, key, rate, up, what, tag="[kernel]"):
+    """The dropout kernel (module ``dk``) against its plain version on
+    ``x``: the masks equal and the output within DROPOUT_TOL of its
+    largest, or it fails. → max|d out|."""
+    import torch
+    o, m = dk.dropout_cuda(x, key, rate, up)
+    ro, rm = dk.dropout_reference(x, key, rate, up)
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    e = (o.float() - ro.float()).abs().max().item()
+    scale = ro.float().abs().max().item()
+    ok = torch.equal(m, rm) and e <= DROPOUT_TOL * scale
+    _log(f"{tag} dropout {what} {tuple(x.shape)}: masks "
+         f"{'equal' if torch.equal(m, rm) else 'DIFFER'}, kept "
+         f"{m.float().mean().item():.4f}, max|d out| {e:.3e} of max "
+         f"{scale:.3e} (tol {DROPOUT_TOL:g} relative) -> "
+         f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dropout kernel disagrees with its plain "
+                             f"version: {what}")
+    return e
+
+
 def phase_kernel_dropout():
     """The dropout kernel against its plain version on the card: the mask
     exactly and the output within DROPOUT_TOL, at the training step's
@@ -1850,20 +1921,7 @@ def phase_kernel_dropout():
             x = x[offset:]
         key = torch.tensor([0xC0FFEE + 7919 * i], dtype=torch.int64,
                            device="cuda")
-        o, m = dk.dropout_cuda(x, key, rate, up)
-        ro, rm = dk.dropout_reference(x, key, rate, up)
-        torch.cuda.synchronize()
-        e = (o.float() - ro.float()).abs().max().item()
-        scale = ro.float().abs().max().item()
-        ok = torch.equal(m, rm) and e <= DROPOUT_TOL * scale
-        _log(f"[kernel] dropout {what} {tuple(x.shape)}: masks "
-             f"{'equal' if torch.equal(m, rm) else 'DIFFER'}, kept "
-             f"{m.float().mean().item():.4f}, max|d out| {e:.3e} of max "
-             f"{scale:.3e} (tol {DROPOUT_TOL:g} relative) -> "
-             f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"dropout kernel disagrees with its plain "
-                                 f"version: {what}")
+        e = _dropout_agrees(dk, x, key, rate, up, what)
         if dt == torch.float32 and offset is None:
             err = max(err, e)
     xs = [torch.randn(shape, generator=gen, device="cuda")
@@ -4114,8 +4172,8 @@ def _wmt_decode(profile=False):
     self-attention 80 x 80). Gates: every run compiled with (0, ..., 18, 0)
     launches, each run re-feeds the mutated target array (an upload, the
     other feeds cache hits), a trace of one replay. Then the CPU port
-    decodes greedily from the same weights, and on its tokens (a
-    teacher-forced prefix) the card's logits at every position against
+    runs once from the same weights on the card's tokens (a
+    teacher-forced prefix): the card's logits at every position against
     the CPU's. → (wrapper launches, executed launches)."""
     import numpy as np
     from paddle_tpu_torch import fluid
@@ -4178,8 +4236,9 @@ def _wmt_decode(profile=False):
          f"{np.percentile(ms, 99):.3f} ms, "
          f"{WMT_DECODE_BATCH / (np.percentile(ms, 50) / 1e3):.1f} tokens/s; "
          f"each run uploaded only the mutated trg_ids")
-    # the CPU port from the card's weights: its own greedy tokens, then
-    # both sides' logits on those tokens
+    # the CPU port from the card's weights, one run on the card's tokens
+    # (teacher forcing): both sides' logits at every position, and the
+    # CPU's own choice after each of the card's prefixes
     cpu_scope = fluid.Scope()
     for v in main.global_block().vars.values():
         if v.persistable:
@@ -4187,22 +4246,21 @@ def _wmt_decode(profile=False):
                 scope.find_var(v.name).value().array.cpu()))
     cpu_exe = fluid.Executor(fluid.CPUPlace())
     t = time.perf_counter()
-    cpu_trg = _greedy(cpu_exe, main, logits, cpu_scope, src, smask,
-                      np.zeros_like(trg))
-    cpu_s = time.perf_counter() - t
-    fed = {"src_ids": src, "src_mask": smask, "trg_ids": cpu_trg}
-    card_l, = exe.run(main, feed=fed, fetch_list=[logits], scope=scope)
-    cpu_l, = cpu_exe.run(main, feed=fed, fetch_list=[logits],
+    card_l, = exe.run(main, feed=feed, fetch_list=[logits], scope=scope)
+    cpu_l, = cpu_exe.run(main, feed=feed, fetch_list=[logits],
                          scope=cpu_scope)
+    cpu_s = time.perf_counter() - t
     err = float(np.abs(card_l - cpu_l).max())
     scale = float(np.abs(cpu_l).max())
-    same = float((trg == cpu_trg).mean())
-    _log(f"[transformer] decode logits on the CPU port's greedy tokens "
-         f"({n_runs} CPU runs, {cpu_s:.1f} s): card vs CPU max|d| "
+    picks = cpu_l.reshape(trg.shape + (-1,))[:, :-1].argmax(-1)
+    same = float((picks == trg[:, 1:]).mean())
+    _log(f"[transformer] decode logits on the card's greedy tokens (one "
+         f"CPU run, {cpu_s:.1f} s): card vs CPU max|d| "
          f"{err:.3e} of max|logit| {scale:.3e} over all "
          f"{WMT_DECODE_OUT} positions (tol {WMT_LOGIT_TOL:g} of it); the "
-         f"card's own greedy tokens equal the CPU's at {same:.1%} of "
-         f"positions (random weights: an argmax flips on rounding)")
+         f"CPU's argmax after each of the card's prefixes is the card's "
+         f"token at {same:.1%} of positions (random weights: an argmax "
+         f"flips on rounding)")
     if not err <= WMT_LOGIT_TOL * scale:
         raise AssertionError("decode logits on the card disagree with the "
                              "CPU's")
@@ -5574,23 +5632,35 @@ def _interpreted(iexe, main, feed, fetch, scope, want, book, what):
     return out
 
 
+def _gate_mode(exe, before, want, what, book, mode="compiled"):
+    """The last run of ``exe`` (launches since ``before``) gated in
+    ``mode`` and booked: compiled by ``_gate_run`` on ``want``, segmented
+    by ``_rnn_gate`` (none of the kernels). → how it executed."""
+    if mode == "compiled":
+        kind = _gate_run(exe, _delta(before), want, what)
+        book.add(want)
+        return kind
+    if want != NO_KERNELS:
+        raise AssertionError(f"{what}: a {mode} gate counts no kernel")
+    return _rnn_gate(exe, before, mode, what, book)
+
+
 def _lock_step(run, interp, main, feed, fetch, want, book, what, tag,
-               extra=()):
-    """One step of ``main`` compiled on ``run`` (executor, scope), gated
-    on ``want`` (``_gate_run``), then interpreted on ``interp`` from the
-    same state (``_interpreted``): each fetch and every persistable
-    bitwise alike. ``extra`` is fetched from the interpreter alone. →
-    (the compiled fetches, the interpreted fetches with ``extra`` after
-    them, how the compiled run executed, its seconds, the compiled
-    persistables)."""
+               extra=(), mode="compiled"):
+    """One step of ``main`` on ``run`` (executor, scope), compiled or
+    segmented (``mode``) and gated on ``want`` (``_gate_mode``), then
+    interpreted on ``interp`` from the same state (``_interpreted``):
+    each fetch and every persistable bitwise alike. ``extra`` is fetched
+    from the interpreter alone. → (the fetches of ``run``, the
+    interpreted fetches with ``extra`` after them, how the run executed,
+    its seconds, its persistables)."""
     import numpy as np
     exe, scope = run
     before = _launch_counts()
     t = time.perf_counter()
     out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
     dt = time.perf_counter() - t
-    kind = _gate_run(exe, _delta(before), want, f"{tag} {what}")
-    book.add(want)
+    kind = _gate_mode(exe, before, want, f"{tag} {what}", book, mode)
     iout = _interpreted(interp[0], main, feed, list(fetch) + list(extra),
                         interp[1], want, book, f"{tag} {what}")
     for i, (a, c) in enumerate(zip(out, iout)):
@@ -7950,81 +8020,110 @@ def _md_fixed(fn):
     return built
 
 
-def _md_train(book, what, main, startup, fetch, feed, want,
+def _md_run(main, fetch, feed):
+    """``_md_train``'s runs for one program on one fixed feed."""
+    return [(main, fetch, lambda outs: feed)]
+
+
+def _md_train(book, what, runs, starts, want, mode="compiled",
               finite=(), overshoots=False, tag=MD_TAG, keep_scope=False):
-    """MD_STEPS steps of ``main`` on one fixed ``feed`` on the card,
-    compiled: the first MD_LOCK in lock step with the interpreter
-    (``_lock_step``: fetches and persistables bitwise), each run's
-    launches gated on ``want``, then two more replays, the second in a
-    trace that must hold ``want``. Gates: the loss (first fetch) falls
-    from the first step to the last, or with ``overshoots`` (a run whose
-    updates overshoot on the repeated batch, its every loss held to the
-    CPU port's by ``_md_card_vs_cpu``) below the first at some step; the
-    fetches at ``finite`` (indices) are finite; ``tag`` heads its lines.
-    → its readings (with ``keep_scope`` the trained scope too): losses,
-    replay p50 (ms), peak memory (bytes, with what was allocated before
-    the program's startup)."""
+    """MD_STEPS steps on one fixed batch on the card, ``mode`` "compiled"
+    or "segmented", from the ``starts`` (startup programs) run into one
+    scope. A step runs each (main, fetch, feed_fn) of ``runs`` once in
+    turn, ``feed_fn`` given the fetches of the step's runs before it.
+    The first MD_LOCK steps run in lock step with the interpreter
+    (``_lock_step``: fetches and persistables bitwise), every run's
+    launches gated on ``want`` (``_gate_mode``), then two more replays of
+    a step, the second in a trace that must hold ``want`` for each run.
+    Gates: each run executes eager, capture, then replays; each run's
+    loss (its first fetch) falls from the first step to the last, or
+    with ``overshoots`` (a run whose updates overshoot on the repeated
+    batch, its every loss held to the CPU port's by ``_md_card_vs_cpu``)
+    below the first at some step; the first run's fetches at ``finite``
+    (indices) are finite; ``tag`` heads its lines. → its readings (with
+    ``keep_scope`` the executor, to be closed, and the trained scope
+    too): losses by run, the step's p50 (ms) over the replayed steps,
+    peak memory (bytes, with what was allocated before the startup)."""
     import numpy as np
     import torch
     from paddle_tpu_torch import fluid
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    names = [v.name for v in main.list_vars() if v.persistable]
-    exe, scope = _fresh(main, startup)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    for s in starts:
+        exe.run(s, scope=scope)
+    names = sorted({v.name for m, _, _ in runs for v in m.list_vars()
+                    if v.persistable})
     iexe = fluid.Executor(fluid.CUDAPlace(0))
     iscope = _clone_scope(scope, names, "cuda")
-    losses, kinds, times = [], [], []
-    for i in range(MD_LOCK):
-        out, _, kind, dt, _ = _lock_step((exe, scope), (iexe, iscope), main,
-                                         feed, fetch, want, book,
-                                         f"{what} step {i}", tag)
-        kinds.append(kind)
-        losses.append(float(out[0].reshape(-1)[0]))
-        if kind == "replay":
+    losses = [[] for _ in runs]
+    kinds = [[] for _ in runs]
+    times = []
+    for i in range(MD_STEPS):
+        outs, feeds, dt = [], [], 0.0
+        for j, (main, fetch, feed_fn) in enumerate(runs):
+            feeds.append(feed_fn(outs))
+            w = f"{what} step {i}" + (f" run {j}" if len(runs) > 1 else "")
+            if i < MD_LOCK:
+                out, _, kind, t, _ = _lock_step(
+                    (exe, scope), (iexe, iscope), main, feeds[j], fetch,
+                    want, book, w, tag, mode=mode)
+            else:
+                before = _launch_counts()
+                t = time.perf_counter()
+                out = exe.run(main, feed=feeds[j], fetch_list=fetch,
+                              scope=scope)
+                t = time.perf_counter() - t
+                kind = _gate_mode(exe, before, want, f"{tag} {w}", book,
+                                  mode)
+            kinds[j].append(kind)
+            outs.append(out)
+            dt += t
+            losses[j].append(float(np.asarray(out[0]).reshape(-1)[0]))
+            if j == 0 and i >= MD_LOCK:
+                for k in finite:
+                    if not np.isfinite(out[k]).all():
+                        raise AssertionError(f"{tag} {what}: fetch {k} is "
+                                             "not finite")
+        if all(k[-1] == "replay" for k in kinds):
             times.append(dt)
     iexe.close()
-    if tuple(kinds) != MD_LOCK_EXECS:
+    runs_as = tuple(MD_LOCK_EXECS) + ("replay",) * (MD_STEPS - MD_LOCK)
+    if any(tuple(k) != runs_as for k in kinds):
         raise AssertionError(f"{tag} {what}: runs {kinds}")
-    for i in range(MD_LOCK, MD_STEPS):
-        before = _launch_counts()
-        t = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-        times.append(time.perf_counter() - t)
-        if _gate_run(exe, _delta(before), want,
-                     f"{tag} {what} step {i}") != "replay":
-            raise AssertionError(f"{tag} {what}: step {i} did not replay")
-        book.add(want)
-        losses.append(float(out[0].reshape(-1)[0]))
-        for k in finite:
-            if not np.isfinite(out[k]).all():
-                raise AssertionError(f"{tag} {what}: fetch {k} is not "
-                                     "finite")
-    falls = (min(losses[1:]) if overshoots else losses[-1]) < losses[0]
-    if not np.isfinite(losses).all() or not falls:
-        raise AssertionError(f"{tag} {what}: the loss did not fall: "
-                             f"{losses}")
+    for j, ls in enumerate(losses):
+        falls = (min(ls[1:]) if overshoots else ls[-1]) < ls[0]
+        if not np.isfinite(ls).all() or not falls:
+            raise AssertionError(f"{tag} {what}: the loss"
+                                 + (f" of run {j}" if len(runs) > 1 else "")
+                                 + f" did not fall: {ls}")
 
-    def replay():
-        exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
-    _check_trace(_device_kernel_counts(replay, warm=replay), want,
-                 f"{what} step")
-    book.add(want, 2)
+    def step():
+        for (main, fetch, _), f in zip(runs, feeds):
+            exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+    n = len(runs)
+    _check_trace(_device_kernel_counts(step, warm=step),
+                 tuple(n * k for k in want), f"{what} step")
+    book.add(want, 2 * n)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     p50 = float(np.median(times)) * 1e3
-    _log(f"{tag} {what}: {MD_STEPS} steps on one batch ("
-         f"{' '.join(kinds)}, then replays), the first {MD_LOCK} bitwise "
-         f"the interpreter's, loss " + " ".join(f"{x:.4f}" for x in losses)
-         + f"; step p50 {p50:.3f} ms over {len(times)} replays, peak "
-         f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
-         f"above the {base / 2**30:.3f} GiB held before) on {_card_line()}"
-         f"; launches a step {want} -> ok")
-    exe.close()
+    _log(f"{tag} {what}: {MD_STEPS} steps on one batch"
+         + (f", {n} runs a step" if n > 1 else "")
+         + f" ({' '.join(MD_LOCK_EXECS)}, then replays, {mode}), the first "
+         f"{MD_LOCK} bitwise the interpreter's, loss "
+         + "; ".join(" ".join(f"{x:.4f}" for x in ls) for ls in losses)
+         + f"; step p50 {p50:.3f} ms over {len(times)} replayed steps, "
+         f"peak memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+         f"GiB above the {base / 2**30:.3f} GiB held before) on "
+         f"{_card_line()}; launches a run {want} -> ok")
     res = {"losses": losses, "p50_ms": p50, "peak_gib": peak / 2**30,
            "net_gib": (peak - base) / 2**30}
     if keep_scope:
-        res["scope"] = scope
+        res.update(exe=exe, scope=scope)
+    else:
+        exe.close()
     return res
 
 
@@ -8068,7 +8167,7 @@ def _md_grads_agree(names, gpu, cpu, noise, conv):
 
 def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
                     conv=False, steps=MD_CHECK_STEPS, adaptive=False,
-                    tag=MD_TAG, noise=()):
+                    tag=MD_TAG, noise=(), resync=False):
     """``steps`` steps on the card and by the port on the CPU from the
     card's startup values and step counter (so the random ops draw
     alike). The first also fetches every parameter's grad, held by
@@ -8080,8 +8179,14 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
     later loss may instead be within KINK_L2_TOL of how far the updates
     moved the CPU's loss from its first: the first update's grads may
     differ by that much. ``noise``: more grads that are 0 but for
-    rounding, held as the ``_md_noise_grads``. → the card's fetches of
-    the last step."""
+    rounding, held as the ``_md_noise_grads``. ``resync``, for a net
+    whose rounding differences part the card and the CPU within a step,
+    as they part the card from itself with the input one ulp up
+    (DL_CHECK_MIDDLE): the first step's update, each parameter's move
+    from the one start, is held as its grad (the learning rate, momentum
+    and weight decay as each side applied them); each later step starts
+    the CPU from the card's state, its loss within LOSS_TOL. → the
+    card's fetches of the last step."""
     import numpy as np
     from paddle_tpu_torch import fluid
     names = [v.name for v in main.list_vars() if v.persistable]
@@ -8093,8 +8198,18 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
     exe, scope = _fresh(main, startup)
     cpu_exe = fluid.Executor(fluid.CPUPlace())
     cpu_scope = _clone_scope(scope, names, "cpu")
+    start = _persistables(scope, main) if resync else None
     pairs = []
     for i in range(steps):
+        if i == 1 and resync:
+            card, cpu = _persistables(scope, main), \
+                _persistables(cpu_scope, main)
+            moves = [[(s[g[:-5]].double().cpu() - start[g[:-5]].double()
+                       .cpu()).numpy() for g in grads] for s in (card, cpu)]
+            mbad, mworst, _ = _md_grads_agree(grads, *moves, noise, conv)
+            bad += [f"{g[:-5]}'s update" for g in mbad]
+        if i and resync:
+            cpu_scope = _clone_scope(scope, names, "cpu")
         f = list(fetch) + (grads if i == 0 else [])
         gpu = exe.run(main, feed=feed, fetch_list=f, scope=scope)
         cpu = cpu_exe.run(main, feed=feed, fetch_list=f, scope=cpu_scope)
@@ -8112,7 +8227,7 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
     c0 = pairs[0][1]
     for i, (g, c) in enumerate(pairs):
         lim = LOSS_TOL * abs(c)
-        if i and (conv or adaptive):
+        if i and (conv or adaptive) and not resync:
             lim = max(lim, KINK_L2_TOL * abs(c - c0))
         if not abs(g - c) <= lim:
             bad.append(f"step {i + 1}'s loss")
@@ -8122,13 +8237,17 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
          "loss " + ", ".join(f"{g:.6f} vs {c:.6f}" for g, c in pairs)
          + f" (tol {LOSS_TOL:g} relative" + (
              f", or {KINK_L2_TOL:g} of the move from the first"
-             if conv or adaptive else "")
+             if (conv or adaptive) and not resync else "")
+         + ("; each later step from the card's state" if resync else "")
          + f"); the first step's {len(grads)} parameter grads, {rule} ("
          f"{len(noise)} grads that are 0 but for rounding"
          + (f" ({', '.join(sorted(noise))})" if 0 < len(noise) <= 2 else "")
          + f" within {GRAD_TOL:g} of the largest grad, {top:.3e}): the "
          f"worst {worst[1]} at "
-         f"{worst[0]:.3f} of its limit" + "".join(
+         f"{worst[0]:.3f} of its limit" + (
+             f"; its update, each parameter's move, as its grad: the worst "
+             f"{mworst[1][:-5]}'s at {mworst[0]:.3f} of its limit"
+             if resync else "") + "".join(
              f"; fetch {k} {tuple(first[k].shape)} " + (
                  "DIFFERS" if f"fetch {k}" in bad else "equal")
              for k in exact)
@@ -8161,9 +8280,9 @@ def _md_se_resnext(book):
     groups = sorted({op.attr("groups") for op in ops if op.type == "conv2d"})
     rng = np.random.RandomState(SEED + 20)
     res = _md_train(book, f"(a) SE-ResNeXt-50 batch {MD_SE_BATCH} f32",
-                    main, startup, [loss, acc],
-                    _md_images(rng, MD_SE_BATCH, MD_IMAGE, MD_SE_CLASSES),
-                    want)
+                    _md_run(main, [loss, acc], _md_images(
+                        rng, MD_SE_BATCH, MD_IMAGE, MD_SE_CLASSES)),
+                    [startup], want)
     _md_card_vs_cpu(book, f"(a) SE-ResNeXt-50 batch {MD_CHECK_BATCH} "
                     "(dropout 0.5: the kernel's mask is its plain version's)",
                     main, startup, [loss],
@@ -8188,8 +8307,9 @@ def _md_vgg(book):
     def batch(bs):
         return {"img": rng.rand(bs, 3, 32, 32).astype("float32"),
                 "label": rng.randint(0, 10, (bs, 1)).astype("int64")}
-    res = _md_train(book, f"(b) VGG16 batch {MD_VGG_BATCH}", main, startup,
-                    [loss, acc], batch(MD_VGG_BATCH), NO_KERNELS)
+    res = _md_train(book, f"(b) VGG16 batch {MD_VGG_BATCH}",
+                    _md_run(main, [loss, acc], batch(MD_VGG_BATCH)),
+                    [startup], NO_KERNELS)
     _md_card_vs_cpu(book, f"(b) VGG16 batch {MD_CHECK_BATCH}", main,
                     startup, [loss], batch(MD_CHECK_BATCH), conv=True,
                     adaptive=True)
@@ -8215,8 +8335,8 @@ def _md_ptb(book):
     # (tests/test_torch_models_a7.py::test_ptb_lm_ten_steps_at_sgd_1); so
     # each of the 10 losses is held to the CPU port's at full width
     res = _md_train(book, f"(c) PTB LSTM LM large batch {MD_PTB_BATCH}",
-                    main, startup, fetch, feed, NO_KERNELS, finite=(1, 2),
-                    overshoots=True)
+                    _md_run(main, fetch, feed), [startup], NO_KERNELS,
+                    finite=(1, 2), overshoots=True)
     got = _md_card_vs_cpu(book, f"(c) PTB LSTM LM large batch "
                           f"{MD_PTB_BATCH}", main, startup, fetch, feed,
                           steps=MD_STEPS)
@@ -8243,7 +8363,8 @@ def _md_word2vec(book):
     feed = {n: rng.randint(0, MD_W2V_DICT, (MD_W2V_BATCH, 1)).astype(
         "int64") for n in feeds}
     out["ngram"] = _md_train(book, f"(d) N-gram LM batch {MD_W2V_BATCH}",
-                             main, startup, [loss], feed, NO_KERNELS)
+                             _md_run(main, [loss], feed), [startup],
+                             NO_KERNELS)
     _md_card_vs_cpu(book, "(d) N-gram LM", main, startup, [loss], feed)
     for kind in ("nce", "hsigmoid"):
         main, startup, feeds, loss = _md_fixed(
@@ -8258,8 +8379,8 @@ def _md_word2vec(book):
                    if op.type == "nce"][0]
             fetch.append(nce.output("SampleLabels")[0])
         out[kind] = _md_train(book, f"(d) skip-gram {kind} batch "
-                              f"{MD_W2V_BATCH}", main, startup, fetch, feed,
-                              NO_KERNELS)
+                              f"{MD_W2V_BATCH}", _md_run(main, fetch, feed),
+                              [startup], NO_KERNELS)
         # the negatives are counter-hash draws: the card draws the CPU's
         _md_card_vs_cpu(book, f"(d) skip-gram {kind}", main, startup, fetch,
                         feed, exact=(1,) if kind == "nce" else (),
@@ -8294,8 +8415,9 @@ def _md_srl(book):
     rng = np.random.RandomState(SEED + 24)
     feed = _md_srl_batch(rng, MD_SRL_BATCH)
     res = _md_train(book, f"(e) SRL tagger batch {MD_SRL_BATCH} sentences "
-                    f"({feed['word'].array.shape[0]} words)", main, startup,
-                    [loss, decode], feed, NO_KERNELS)
+                    f"({feed['word'].array.shape[0]} words)",
+                    _md_run(main, [loss, decode], feed), [startup],
+                    NO_KERNELS)
     got = _md_card_vs_cpu(book, "(e) SRL tagger, the Viterbi decode", main,
                           startup, [loss, decode], feed, exact=(1,))
     tags = got[1].reshape(-1)
@@ -8346,8 +8468,9 @@ def _md_amp(book, lane_ms):
             raise AssertionError(f"{MD_TAG} AMP ResNet-50: {casts} casts")
         what = "AMP (bf16)" if amp else "f32"
         out[what] = _md_train(book, f"ResNet-50 {what} batch "
-                              f"{MD_AMP_BATCH}, {casts} casts", main,
-                              startup, [loss], feed, NO_KERNELS)
+                              f"{MD_AMP_BATCH}, {casts} casts",
+                              _md_run(main, [loss], feed), [startup],
+                              NO_KERNELS)
     amp_ms, f32_ms = out["AMP (bf16)"]["p50_ms"], out["f32"]["p50_ms"]
     _log(f"{MD_TAG} AMP on ResNet-50 batch {MD_AMP_BATCH}: step p50 "
          f"{amp_ms:.3f} ms under decorate() against {f32_ms:.3f} ms in f32 "
@@ -8904,8 +9027,9 @@ def _rnn_sentiment(book, tmp):
     rng = np.random.RandomState(SEED + 30)
     fixed = _sentiment_batch(rng, RNN_BATCH)
     res = _md_train(book, f"(a) stacked-LSTM sentiment net batch "
-                    f"{RNN_BATCH} ({len(fixed[0])} words)", main, startup,
-                    [loss, acc], _lod_feed(fixed), NO_KERNELS, tag=RNN_TAG)
+                    f"{RNN_BATCH} ({len(fixed[0])} words)",
+                    _md_run(main, [loss, acc], _lod_feed(fixed)), [startup],
+                    NO_KERNELS, tag=RNN_TAG)
     # ragged batches: a new LoD a step, each run eagerly, the cache of
     # plans and the card's memory bounded
     exe, scope = _fresh(main, startup)
@@ -9087,9 +9211,10 @@ def _rnn_translator(book):
         fluid, MT_DICT, MT_HID, MT_LEN))
     rng = np.random.RandomState(SEED + 31)
     res = _md_train(book, f"(b) GRU translator batch {MT_BATCH}, "
-                    f"{MT_LEN} tokens", main, startup, [loss],
-                    _mt_feed(rng, MT_BATCH), NO_KERNELS, tag=RNN_TAG,
-                    keep_scope=True)
+                    f"{MT_LEN} tokens",
+                    _md_run(main, [loss], _mt_feed(rng, MT_BATCH)),
+                    [startup], NO_KERNELS, tag=RNN_TAG, keep_scope=True)
+    res.pop("exe").close()
     trained = res.pop("scope")
     # the book's attention adds the state's projection to every source
     # position's alike, and softmax takes out a shift: the grad of that
@@ -9336,9 +9461,9 @@ def _rnn_legacy(book, tmp):
                 "ttrg_mask": (np.arange(MT_LEN)[:, None] < lens[None, :]
                               ).astype(np.float32)}
     res = _md_train(book, f"(c) contrib TrainingDecoder (StaticRNN, "
-                    f"gru_unit) batch {MT_BATCH}, {MT_LEN} steps", main,
-                    startup, [loss], train_feed(MT_BATCH), NO_KERNELS,
-                    tag=RNN_TAG)
+                    f"gru_unit) batch {MT_BATCH}, {MT_LEN} steps",
+                    _md_run(main, [loss], train_feed(MT_BATCH)), [startup],
+                    NO_KERNELS, tag=RNN_TAG)
     _md_card_vs_cpu(book, f"(c) contrib TrainingDecoder batch "
                     f"{MT_CHECK_BATCH}", main, startup, [loss],
                     train_feed(MT_CHECK_BATCH), adaptive=True, tag=RNN_TAG)
@@ -9375,6 +9500,1103 @@ def phase_rnn():
     return {"wrapper": wrapper, "executed": tuple(book.executed), **res}
 
 
+
+# --------------------------------------------------------------------------
+# phase 22: the vision and loss op batch. CycleGAN, DeepLabv3+ and CRNN-CTC
+# are user programs built from fluid.layers: each builder takes the
+# ``fluid`` module (the port's, or the TPU package's in the parity tests),
+# a depth and a width scale, and builds the same ops in both. Neither
+# package gives pad2d's or conv2d_transpose's output a static shape, so
+# the programs reshape to it where a later layer reads it.
+# --------------------------------------------------------------------------
+VS_TAG = "[vision]"
+GAN_IMAGE = 256               # (a) CycleGAN (Zhu et al. 2017, appendix 7.2):
+GAN_BLOCKS = 9                # 256x256, ResNet-9-block generators, 70x70
+GAN_LR = 2e-4                 # PatchGAN discriminators, Adam 2e-4 with
+GAN_BETA1 = 0.5               # beta1 0.5, batch 1, LSGAN losses, cycle
+GAN_CYCLE = 10.0              # L1 with lambda 10
+DL_CLASSES = 19               # (b) DeepLabv3+ (Chen et al. 2018) on
+DL_CROP = 769                 # Cityscapes shapes: 19 classes, 769x769
+DL_BATCH = 4                  # crops, batch 4, aligned Xception-65 at
+DL_MIDDLE = 16                # output stride 16 (16 middle-flow blocks)
+DL_LR = 0.01                  # Momentum 0.9 under polynomial_decay power
+DL_DECAY_STEPS = 90000        # 0.9 (PaddleCV's deeplabv3+ schedule),
+DL_L2 = 4e-5                  # L2Decay 4e-5, dropout 0.1 after the ASPP
+DL_DROPOUT = 0.1              # projection; label 255 ignored
+DL_IGNORE = 255
+DL_CHECK_CROP = 129           # card vs CPU at 129x129, batch 2, one
+DL_CHECK_MIDDLE = 1           # middle-flow block, its first update held
+                              # and each later step from the card's
+                              # state: at random weights the net is
+                              # chaotic, the image one ulp up parts the
+                              # card from itself as far as from the CPU
+                              # (PERF.md)
+CRNN_SHAPE = (1, 48, 512)     # (c) CRNN-CTC (PaddleCV ocr_recognition's
+CRNN_CLASSES = 95             # crnn_ctc_model.py): grayscale 48x512, 95
+CRNN_HID = 200                # classes and the blank, GRU 200 each way,
+CRNN_BATCH = 32               # batch 32, labels of 3-12 symbols,
+CRNN_LABEL = (3, 12)          # Momentum 1e-3 / 0.9 with L2Decay 4e-4
+CRNN_LR = 1e-3
+CRNN_L2 = 4e-4
+
+
+def _w(width, c):
+    return max(1, int(round(c * width)))
+
+
+def _gan_attr(fluid, name, std=0.02):
+    return fluid.ParamAttr(name=name,
+                           initializer=fluid.initializer.Normal(0.0, std))
+
+
+def _gan_in(fluid, x, name, act):
+    """instance_norm, then ReLU or a leaky ReLU of slope 0.2."""
+    x = fluid.layers.instance_norm(
+        x, param_attr=fluid.ParamAttr(name=name + "_in_scale"),
+        bias_attr=fluid.ParamAttr(name=name + "_in_offset"))
+    if act == "relu":
+        return fluid.layers.relu(x)
+    return fluid.layers.leaky_relu(x, 0.2)
+
+
+def _gan_reflect(fluid, x, pad, shape):
+    """x padded by reflection, reshaped to its static shape."""
+    n, c, h, w = shape
+    y = fluid.layers.pad2d(x, [pad] * 4, mode="reflect")
+    return fluid.layers.reshape(y, [n, c, h + 2 * pad, w + 2 * pad])
+
+
+def gan_generator(fluid, x, name, batch, image, blocks, width):
+    """The ResNet generator: c7s1-64, d128, d256, ``blocks`` x R256, u128,
+    u64, c7s1-3 (reflection padding, instance_norm, conv2d_transpose 3x3
+    stride 2 to twice the size for the u-layers), tanh out."""
+    L = fluid.layers
+    c1, c2, c3 = _w(width, 64), _w(width, 128), _w(width, 256)
+
+    def conv(v, tag, nf, k, s, p, bias=False):
+        return L.conv2d(v, nf, k, stride=s, padding=p,
+                        param_attr=_gan_attr(fluid, f"{name}_{tag}_w"),
+                        bias_attr=(fluid.ParamAttr(name=f"{name}_{tag}_b")
+                                   if bias else False))
+
+    y = _gan_reflect(fluid, x, 3, (batch, 3, image, image))
+    y = _gan_in(fluid, conv(y, "c0", c1, 7, 1, 0), f"{name}_c0", "relu")
+    y = _gan_in(fluid, conv(y, "d1", c2, 3, 2, 1), f"{name}_d1", "relu")
+    y = _gan_in(fluid, conv(y, "d2", c3, 3, 2, 1), f"{name}_d2", "relu")
+    q = image // 4
+    for i in range(blocks):
+        r = _gan_reflect(fluid, y, 1, (batch, c3, q, q))
+        r = _gan_in(fluid, conv(r, f"r{i}a", c3, 3, 1, 0), f"{name}_r{i}a",
+                    "relu")
+        r = _gan_reflect(fluid, r, 1, (batch, c3, q, q))
+        r = fluid.layers.instance_norm(
+            conv(r, f"r{i}b", c3, 3, 1, 0),
+            param_attr=fluid.ParamAttr(name=f"{name}_r{i}b_in_scale"),
+            bias_attr=fluid.ParamAttr(name=f"{name}_r{i}b_in_offset"))
+        y = L.elementwise_add(y, r)
+    for tag, nf, size in (("u1", c2, image // 2), ("u2", c1, image)):
+        y = L.conv2d_transpose(
+            y, nf, output_size=[size, size], filter_size=3, padding=1,
+            stride=2, param_attr=_gan_attr(fluid, f"{name}_{tag}_w"),
+            bias_attr=False)
+        y = L.reshape(y, [batch, nf, size, size])
+        y = _gan_in(fluid, y, f"{name}_{tag}", "relu")
+    y = _gan_reflect(fluid, y, 3, (batch, c1, image, image))
+    return L.tanh(conv(y, "out", 3, 7, 1, 0, bias=True))
+
+
+def gan_discriminator(fluid, x, name, width):
+    """The 70x70 PatchGAN: C64 (no norm), C128, C256 (4x4 stride 2),
+    C512 (stride 1), each with a leaky ReLU 0.2, then a 4x4 conv to one
+    channel."""
+    L = fluid.layers
+
+    def conv(v, tag, nf, s, bias):
+        return L.conv2d(v, nf, 4, stride=s, padding=1,
+                        param_attr=_gan_attr(fluid, f"{name}_{tag}_w"),
+                        bias_attr=(fluid.ParamAttr(name=f"{name}_{tag}_b")
+                                   if bias else False))
+
+    y = L.leaky_relu(conv(x, "c64", _w(width, 64), 2, True), 0.2)
+    for tag, nf, s in (("c128", 128, 2), ("c256", 256, 2), ("c512", 512, 1)):
+        y = _gan_in(fluid, conv(y, tag, _w(width, nf), s, False),
+                    f"{name}_{tag}", "leaky")
+    return conv(y, "out", 1, 1, True)
+
+
+def _gan_params(program, prefixes):
+    return [p.name for p in program.global_block().all_parameters()
+            if p.name.split("_")[0] in prefixes]
+
+
+def _gan_mse_to(fluid, x, value):
+    return fluid.layers.mse_loss(
+        x, fluid.layers.fill_constant(list(x.shape), "float32", value))
+
+
+def cyclegan_programs(fluid, depth=GAN_BLOCKS, width=1.0, batch=1,
+                      image=GAN_IMAGE, lr=GAN_LR):
+    """(a) CycleGAN: generators gA (A to B) and gB (B to A) of ``depth``
+    residual blocks, discriminators dA and dB, channels times ``width``.
+    Three programs, a training step running each once in turn: the
+    generators' (LSGAN losses against 1 through both discriminators plus
+    GAN_CYCLE times the two cycle L1s; Adam over gA and gB), then dA's and
+    dB's (half the LSGAN losses of the real images against 1 and of the
+    generators' fakes, fed, against 0; Adam over each one's own). The
+    parameters are shared by name. → ({"g", "da", "db"}: (main, startup,
+    loss, ...)); g also returns the fakes fed to da and db."""
+    L = fluid.layers
+    shape = [batch, 3, image, image]
+
+    def program(build):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            return (main, startup) + build(main)
+
+    def adam(loss, main, prefixes):
+        fluid.optimizer.Adam(lr, beta1=GAN_BETA1).minimize(
+            loss, parameter_list=_gan_params(main, prefixes))
+
+    def gen(main):
+        a = L.data("real_A", shape, append_batch_size=False)
+        b = L.data("real_B", shape, append_batch_size=False)
+        fake_b = gan_generator(fluid, a, "gA", batch, image, depth, width)
+        fake_a = gan_generator(fluid, b, "gB", batch, image, depth, width)
+        cyc_a = gan_generator(fluid, fake_b, "gB", batch, image, depth,
+                              width)
+        cyc_b = gan_generator(fluid, fake_a, "gA", batch, image, depth,
+                              width)
+        gan = L.elementwise_add(
+            _gan_mse_to(fluid, gan_discriminator(fluid, fake_b, "dB",
+                                                 width), 1.0),
+            _gan_mse_to(fluid, gan_discriminator(fluid, fake_a, "dA",
+                                                 width), 1.0))
+        cyc = L.elementwise_add(
+            L.reduce_mean(L.abs(L.elementwise_sub(cyc_a, a))),
+            L.reduce_mean(L.abs(L.elementwise_sub(cyc_b, b))))
+        loss = L.elementwise_add(gan, L.scale(cyc, GAN_CYCLE))
+        adam(loss, main, ("gA", "gB"))
+        return loss, fake_a, fake_b
+
+    def disc(name, real, fake):
+        def build(main):
+            r = L.data(real, shape, append_batch_size=False)
+            f = L.data(fake, shape, append_batch_size=False)
+            loss = L.scale(L.elementwise_add(
+                _gan_mse_to(fluid, gan_discriminator(fluid, r, name, width),
+                            1.0),
+                _gan_mse_to(fluid, gan_discriminator(fluid, f, name, width),
+                            0.0)), 0.5)
+            adam(loss, main, (name,))
+            return (loss,)
+        return build
+
+    return {"g": program(gen),
+            "da": program(disc("dA", "real_A", "fake_A")),
+            "db": program(disc("dB", "real_B", "fake_B"))}
+
+
+def _dl_conv_bn(fluid, x, nf, k, s=1, dilation=1, groups=1, act="relu"):
+    """conv (no bias, same padding) + batch_norm (+ ReLU)."""
+    y = fluid.layers.conv2d(
+        x, nf, k, stride=s, padding=dilation * (k // 2), dilation=dilation,
+        groups=groups, bias_attr=False,
+        param_attr=fluid.ParamAttr(
+            initializer=fluid.initializer.Normal(0.0, 0.09)))
+    return fluid.layers.batch_norm(y, act=act)
+
+
+def _dl_sep(fluid, x, nf, s=1, dilation=1, act="relu"):
+    """Depthwise separable 3x3: the depthwise conv with BN and ReLU, the
+    1x1 pointwise conv with BN (and ReLU), as the aligned Xception of
+    DeepLabv3+ adds them."""
+    c = x.shape[1]
+    y = _dl_conv_bn(fluid, x, c, 3, s, dilation, groups=c)
+    return _dl_conv_bn(fluid, y, nf, 1, act=act)
+
+
+def _dl_block(fluid, x, widths, stride, dilation=1, skip="conv"):
+    """An Xception block: three separable convs (the last at ``stride``)
+    and a shortcut (a 1x1 conv with BN at ``stride``, or the identity).
+    → (the output, the second conv's output: the decoder's low-level
+    features)."""
+    y = x
+    mids = []
+    for i, nf in enumerate(widths):
+        y = _dl_sep(fluid, y, nf, stride if i == 2 else 1, dilation,
+                    act="relu" if i < 2 else None)
+        mids.append(y)
+    short = x if skip == "identity" else _dl_conv_bn(
+        fluid, x, widths[-1], 1, stride, act=None)
+    return fluid.layers.relu(fluid.layers.elementwise_add(y, short)), \
+        mids[1]
+
+
+def deeplab_program(fluid, depth=DL_MIDDLE, width=1.0, crop=DL_CROP,
+                    classes=DL_CLASSES, lr=DL_LR):
+    """(b) DeepLabv3+: the aligned Xception-65 at output stride 16
+    (entry flow 32, 64, blocks of 128, 256 and 728; ``depth`` middle-flow
+    blocks of 728; exit flow 728-1024-1024 and 1536-1536-2048 at dilation
+    2), channels times ``width``; ASPP (image pooling by reduce_mean, a
+    1x1 conv and resize_bilinear; a 1x1 and three separable 3x3 atrous
+    branches at rates 6, 12, 18; all 256) projected to 256 with dropout
+    DL_DROPOUT; the decoder (low-level features to 48, the encoder
+    upsampled x4, two 3x3 convs of 256, a 1x1 conv to the classes,
+    upsampled x4 to the crop). The loss: softmax_with_cross_entropy over
+    the NHWC-flattened logits with ignore_index DL_IGNORE, summed over
+    the valid pixels' count. Momentum 0.9 under polynomial_decay(power
+    0.9), L2Decay DL_L2. The eval clone (taken before the optimizer)
+    computes mean_iou. → (main, startup, eval clone, loss, mean IoU,
+    wrong, correct)."""
+    L = fluid.layers
+    cw = lambda c: _w(width, c)  # noqa: E731
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.data("image", [3, crop, crop], "float32")
+        label = fluid.data("label", [1, crop, crop], "int64")
+        y = _dl_conv_bn(fluid, img, cw(32), 3, 2)
+        y = _dl_conv_bn(fluid, y, cw(64), 3)
+        y, _ = _dl_block(fluid, y, [cw(128)] * 3, 2)
+        y, low = _dl_block(fluid, y, [cw(256)] * 3, 2)
+        y, _ = _dl_block(fluid, y, [cw(728)] * 3, 2)
+        for _ in range(depth):
+            y, _ = _dl_block(fluid, y, [cw(728)] * 3, 1, skip="identity")
+        y, _ = _dl_block(fluid, y, [cw(728), cw(1024), cw(1024)], 1, 2)
+        for nf in (1536, 1536, 2048):
+            y = _dl_sep(fluid, y, cw(nf), dilation=2)
+        fh = y.shape[2]
+        pool = L.reduce_mean(y, dim=[2, 3], keep_dim=True)
+        pool = _dl_conv_bn(fluid, pool, cw(256), 1)
+        branches = [L.resize_bilinear(pool, out_shape=[fh, fh]),
+                    _dl_conv_bn(fluid, y, cw(256), 1)]
+        branches += [_dl_sep(fluid, y, cw(256), dilation=r)
+                     for r in (6, 12, 18)]
+        enc = _dl_conv_bn(fluid, L.concat(branches, axis=1), cw(256), 1)
+        enc = L.dropout(enc, DL_DROPOUT,
+                        dropout_implementation="upscale_in_train")
+        lh = low.shape[2]
+        dec = L.concat([L.resize_bilinear(enc, out_shape=[lh, lh]),
+                        _dl_conv_bn(fluid, low, cw(48), 1)], axis=1)
+        dec = _dl_conv_bn(fluid, dec, cw(256), 3)
+        dec = _dl_conv_bn(fluid, dec, cw(256), 3)
+        logit = L.conv2d(dec, classes, 1)
+        logit = L.resize_bilinear(logit, out_shape=[crop, crop])
+        flat = L.reshape(L.transpose(logit, [0, 2, 3, 1]), [-1, classes])
+        lbl = L.reshape(label, [-1, 1])
+        ce = L.softmax_with_cross_entropy(flat, lbl, ignore_index=DL_IGNORE)
+        valid = L.cast(L.less_than(
+            L.cast(lbl, "float32"),
+            L.fill_constant([1], "float32", float(classes))), "float32")
+        valid.stop_gradient = True
+        loss = L.elementwise_div(L.reduce_sum(ce), L.reduce_sum(valid))
+        pred = L.argmax(logit, axis=1)
+        miou, wrong, correct = L.mean_iou(pred, L.reshape(label, [-1, crop,
+                                                                  crop]),
+                                          classes)
+        test = main.clone(for_test=True)
+        sched = L.polynomial_decay(lr, DL_DECAY_STEPS, power=0.9)
+        fluid.optimizer.Momentum(
+            sched, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(DL_L2)).minimize(loss)
+    return main, startup, test, loss, miou, wrong, correct
+
+
+def crnn_program(fluid, width=1.0, hidden=CRNN_HID, classes=CRNN_CLASSES,
+                 shape=CRNN_SHAPE, lr=CRNN_LR):
+    """(c) CRNN-CTC: four groups of two 3x3 convs (16, 32, 64, 128 filters
+    times ``width``) with BN and ReLU, each group then a 2x2 max pool;
+    im2sequence over the remaining height; two fc of 3 x ``hidden`` into
+    dynamic_gru forward and reverse (candidate ReLU); an fc of both to
+    ``classes`` + 1; warpctc with the blank last and norm_by_times,
+    summed. ctc_greedy_decoder's ids scored by edit_distance against the
+    label. Momentum ``lr`` / 0.9 with L2Decay CRNN_L2. → (main, startup,
+    the summed loss, the decoded ids, the distances)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.data("pixel", list(shape), "float32")
+        label = fluid.data("label", [1], "int32", lod_level=1)
+        y = img
+        for nf in (16, 32, 64, 128):
+            for _ in range(2):
+                y = L.batch_norm(L.conv2d(y, _w(width, nf), 3, padding=1,
+                                          bias_attr=False), act="relu")
+            y = L.pool2d(y, 2, "max", 2)
+        feat = y.shape[1] * y.shape[2]
+        seq = L.reshape(L.im2sequence(y, filter_size=[y.shape[2], 1],
+                                      stride=[1, 1]), [-1, feat])
+        init = fluid.initializer.Normal(0.0, 0.02)
+        grus = [L.dynamic_gru(
+            L.fc(seq, 3 * hidden, param_attr=fluid.ParamAttr(
+                initializer=init), bias_attr=False),
+            hidden, is_reverse=rev, candidate_activation="relu",
+            param_attr=fluid.ParamAttr(initializer=init),
+            bias_attr=fluid.ParamAttr(initializer=init))
+            for rev in (False, True)]
+        logits = L.fc(grus, classes + 1,
+                      param_attr=fluid.ParamAttr(initializer=init))
+        cost = L.warpctc(logits, label, blank=classes, norm_by_times=True)
+        loss = L.reduce_sum(cost)
+        decoded = L.ctc_greedy_decoder(logits, blank=classes)
+        dist, _ = L.edit_distance(decoded, L.cast(label, "int64"),
+                                  normalized=False)
+        fluid.optimizer.Momentum(
+            lr, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(CRNN_L2)).minimize(loss)
+    return main, startup, loss, decoded, dist
+
+
+
+def _vs_x(rng, *shape):
+    return rng.normal(size=shape).astype("float32")
+
+
+def _vs_battery():
+    """(d) One case of every op type phase 22's batch registers: (op type,
+    its inputs as numpy arrays, attrs, the ``_lod`` attr or None, the
+    slots its generic grad is taken for). Made from a seed; the parity
+    tests run the same cases against the TPU package."""
+    import numpy as np
+    r = np.random.RandomState(SEED + 22)
+    x = lambda *s: _vs_x(r, *s)  # noqa: E731
+    x4, x5 = x(2, 6, 5, 4), x(2, 3, 6, 5, 4)
+    s6, b6 = x(6) + 1.0, x(6)
+
+    def probs(*s):
+        e = np.exp(x(*s))
+        return (e / e.sum(-1, keepdims=True)).astype("float32")
+
+    def spd(n):
+        a = x(n, n)
+        return (a @ a.T + n * np.eye(n)).astype("float32")
+
+    lbl = np.array([[1], [0], [3], [2], [3]], "int64")
+    ctc_lod = {"Logits": [((0, 7, 12, 21),)], "Label": [((0, 3, 5, 9),)]}
+    miou_lbl = r.randint(0, 5, (2, 8, 8)).astype("int32")
+    miou_lbl[r.rand(2, 8, 8) < 0.3] = 255
+    cases = [
+        # nn_ops: the losses
+        ("log_softmax", {"X": [x(3, 4, 5)]}, {"axis": 1}, None, ["X"]),
+        ("cross_entropy2", {"X": [probs(5, 4)], "Label": [lbl]}, {}, None,
+         ["X"]),
+        ("sigmoid_cross_entropy_with_logits",
+         {"X": [x(4, 3)], "Label": [np.array(
+             [[1, 0, -1], [0, 1, 1], [-1, -1, 0], [1, 1, 0]], "float32")]},
+         {"ignore_index": -1, "normalize": True}, None, ["X"]),
+        ("bce_loss", {"X": [1 / (1 + np.exp(-x(4, 3)))],
+                      "Label": [(x(4, 3) > 0).astype("float32")]}, {}, None,
+         ["X"]),
+        ("huber_loss", {"X": [x(5, 1)], "Y": [x(5, 1)]}, {"delta": 0.6},
+         None, ["X"]),
+        ("smooth_l1_loss", {"X": [x(4, 3, 2)], "Y": [x(4, 3, 2)],
+                            "InsideWeight": [np.abs(x(4, 3, 2))],
+                            "OutsideWeight": [np.abs(x(4, 3, 2))]},
+         {"sigma": 1.5}, None, ["X"]),
+        ("kldiv_loss", {"X": [x(3, 4)], "Target": [probs(3, 4)]},
+         {"reduction": "batchmean"}, None, ["X"]),
+        ("hinge_loss", {"Logits": [x(5, 1)],
+                        "Labels": [(x(5, 1) > 0).astype("float32")]}, {},
+         None, ["Logits"]),
+        ("rank_loss", {"Label": [(x(5, 1) > 0).astype("float32")],
+                       "Left": [x(5, 1)], "Right": [x(5, 1)]}, {}, None,
+         ["Left", "Right"]),
+        ("margin_rank_loss", {"Label": [np.sign(x(5, 1))], "X1": [x(5, 1)],
+                              "X2": [x(5, 1)]}, {"margin": 0.1}, None,
+         ["X1", "X2"]),
+        ("nll_loss", {"X": [np.log(probs(5, 4))], "Label": [lbl[:, 0]],
+                      "Weight": [np.abs(x(4))]}, {}, None, ["X"]),
+        ("mse_loss", {"X": [x(4, 3)], "Y": [x(4, 3)]}, {}, None, ["X", "Y"]),
+        ("bpr_loss", {"X": [x(5, 4)], "Label": [lbl]}, {}, None, ["X"]),
+        # nn_ops: the norms
+        ("instance_norm", {"X": [x4], "Scale": [s6], "Bias": [b6]}, {},
+         None, ["X", "Scale", "Bias"]),
+        ("group_norm", {"X": [x4], "Scale": [s6], "Bias": [b6]},
+         {"groups": 3}, None, ["X", "Scale", "Bias"]),
+        ("norm", {"X": [x(3, 5, 4)]}, {"axis": 1}, None, ["X"]),
+        ("data_norm", {"X": [x(4, 3)], "BatchSize": [np.full(3, 8.0,
+                                                              "float32")],
+                       "BatchSum": [x(3)],
+                       "BatchSquareSum": [np.abs(x(3)) + 4.0]}, {}, None,
+         ["X"]),
+        ("lrn", {"X": [x4]}, {"n": 5, "k": 1.0, "alpha": 1e-2}, None,
+         ["X"]),
+        ("sync_batch_norm", {"X": [x4], "Scale": [s6], "Bias": [b6],
+                             "Mean": [np.zeros(6, "float32")],
+                             "Variance": [np.ones(6, "float32")]}, {}, None,
+         ["X", "Scale", "Bias"]),
+        # nn_ops: convolution and pooling
+        ("conv3d", {"Input": [x(2, 3, 5, 6, 4)], "Filter": [x(4, 3, 3, 2, 3)]},
+         {"strides": [1, 2, 1], "paddings": [1, 0, 1]}, None,
+         ["Input", "Filter"]),
+        ("conv2d_transpose", {"Input": [x(2, 4, 5, 6)],
+                              "Filter": [x(4, 3, 3, 3)]},
+         {"strides": [2, 2], "paddings": [1, 1], "output_size": [10, 12]},
+         None, ["Input", "Filter"]),
+        ("pool3d", {"X": [x5]}, {"pooling_type": "avg", "ksize": [3, 2, 2],
+                                 "strides": [1, 2, 1],
+                                 "paddings": [1, 1, 0]}, None, ["X"]),
+        ("max_pool2d_with_index", {"X": [x(2, 3, 7, 6)]},
+         {"ksize": [3, 2], "strides": [2, 2], "paddings": [1, 0]}, None,
+         ["X"]),
+        ("max_pool3d_with_index", {"X": [x5]},
+         {"ksize": [2, 2, 2], "strides": [2, 2, 1], "paddings": [0, 1, 1]},
+         None, ["X"]),
+        # nn_ops: resize and rearrangement
+        ("nearest_interp", {"X": [x(2, 3, 5, 7)]},
+         {"out_h": 9, "out_w": 12, "align_corners": False}, None, ["X"]),
+        ("bilinear_interp", {"X": [x(2, 3, 5, 7)]},
+         {"out_h": 9, "out_w": 12, "align_corners": True}, None, ["X"]),
+        ("pixel_shuffle", {"X": [x(2, 8, 3, 4)]}, {"upscale_factor": 2},
+         None, ["X"]),
+        ("space_to_depth", {"X": [x(2, 3, 4, 6)]}, {"blocksize": 2}, None,
+         ["X"]),
+        ("shuffle_channel", {"X": [x4]}, {"group": 3}, None, ["X"]),
+        # math_ops
+        ("matmul_v2", {"X": [x(2, 3, 4)], "Y": [x(2, 5, 4)]},
+         {"trans_y": True}, None, ["X", "Y"]),
+        ("bmm", {"X": [x(2, 3, 4)], "Y": [x(2, 4, 5)]}, {}, None, ["X", "Y"]),
+        ("dot", {"X": [x(3, 4)], "Y": [x(3, 4)]}, {}, None, ["X", "Y"]),
+        ("mv", {"X": [x(3, 4)], "Vec": [x(4)]}, {}, None, ["X", "Vec"]),
+        ("addmm", {"Input": [x(3, 5)], "X": [x(3, 4)], "Y": [x(4, 5)]},
+         {"Alpha": 0.5, "Beta": 2.0}, None, ["Input", "X", "Y"]),
+        ("kron", {"X": [x(2, 3)], "Y": [x(3, 2)]}, {}, None, ["X", "Y"]),
+        ("trace", {"Input": [x(3, 4, 5)]}, {"offset": 1, "axis1": 1,
+                                           "axis2": 2}, None, ["Input"]),
+        ("logsumexp", {"X": [x(3, 4, 5)]}, {"axis": [1, 2]}, None, ["X"]),
+        ("frobenius_norm", {"X": [x(3, 4, 5)]}, {"dim": [1, 2]}, None,
+         ["X"]),
+        ("p_norm", {"X": [np.abs(x(3, 4)) + 0.1]}, {"porder": 3.0,
+                                                    "axis": 1}, None, ["X"]),
+        ("dist", {"X": [x(3, 4)], "Y": [x(3, 4)]}, {"p": 2.0}, None,
+         ["X", "Y"]),
+        ("prelu", {"X": [x4], "Alpha": [x(6)]}, {"mode": "channel"}, None,
+         ["X", "Alpha"]),
+        ("maximum", {"X": [x(3, 4)], "Y": [x(3, 4)]}, {}, None, ["X", "Y"]),
+        ("minus", {"X": [x(3, 4)], "Y": [x(3, 4)]}, {}, None, ["X", "Y"]),
+        ("allclose", {"Input": [x(3, 4)], "Other": [x(3, 4)]},
+         {"atol": 3.0}, None, []),
+        ("inverse", {"Input": [spd(4)]}, {}, None, ["Input"]),
+        ("cholesky", {"X": [spd(4)]}, {"upper": True}, None, ["X"]),
+        # nn_extra_ops
+        ("maxout", {"X": [x4]}, {"groups": 3}, None, ["X"]),
+        ("affine_channel", {"X": [x4], "Scale": [s6], "Bias": [b6]}, {},
+         None, ["X", "Scale", "Bias"]),
+        ("bilinear_tensor_product", {"X": [x(3, 4)], "Y": [x(3, 5)],
+                                     "Weight": [x(2, 4, 5)],
+                                     "Bias": [x(1, 2)]}, {}, None,
+         ["X", "Y", "Weight", "Bias"]),
+        ("cvm", {"X": [np.abs(x(4, 5)) * 3], "CVM": [x(4, 2)]}, {}, None,
+         ["X"]),
+        ("fsp", {"X": [x(2, 3, 4, 5)], "Y": [x(2, 4, 4, 5)]}, {}, None,
+         ["X", "Y"]),
+        ("temporal_shift", {"X": [x(6, 8, 3, 2)]}, {"seg_num": 3}, None,
+         ["X"]),
+        ("unfold", {"X": [x(2, 3, 6, 5)]},
+         {"kernel_sizes": [3, 2], "strides": [2, 1],
+          "paddings": [1, 0, 1, 1], "dilations": [1, 2]}, None, ["X"]),
+        ("mean_iou", {"Predictions": [r.randint(0, 5, (2, 8, 8))
+                                      .astype("int32")],
+                      "Labels": [miou_lbl]}, {"num_classes": 5}, None, []),
+        ("row_conv", {"X": [x(2, 6, 4)], "Filter": [x(3, 4)]}, {}, None,
+         ["X", "Filter"]),
+        ("sigmoid_focal_loss", {"X": [x(5, 4)],
+                                "Label": [np.array([[0], [1], [4], [2], [3]],
+                                                   "int32")],
+                                "FgNum": [np.array([3], "int32")]}, {}, None,
+         ["X"]),
+        ("iou_similarity", {"X": [np.sort(np.abs(x(3, 4)), -1)],
+                            "Y": [np.sort(np.abs(x(5, 4)), -1)]}, {}, None,
+         []),
+        ("pad_constant_batch_size_like", {"X": [x(4, 3)], "Y": [x(2, 3)]},
+         {}, None, ["Y"]),
+        ("squared_l2_distance", {"X": [x(4, 3, 2)], "Y": [x(4, 3, 2)]}, {},
+         None, ["X", "Y"]),
+        # loss_extra_ops
+        ("warpctc", {"Logits": [x(21, 6) * 2],
+                     "Label": [r.randint(1, 6, (9, 1)).astype("int32")]},
+         {"norm_by_times": True}, ctc_lod, ["Logits"]),
+        ("ctc_align", {"Input": [np.array([0, 1, 1, 0, 2, 2, 2, 0, 3, 0, 0,
+                                           0, 4, 4], "int32")[:, None]]},
+         {"blank": 0}, {"Input": [((0, 9, 12, 14),)]}, []),
+        ("edit_distance", {"Hyps": [np.array([1, 2, 3, 4, 5, 5, 1, 2],
+                                             "int64")[:, None]],
+                           "Refs": [np.array([1, 3, 3, 5, 5, 2, 1],
+                                             "int64")[:, None]]},
+         {"normalized": False}, {"Hyps": [((0, 4, 6, 8),)],
+                                 "Refs": [((0, 3, 5, 7),)]}, []),
+        ("center_loss", {"X": [x(6, 4)], "Label": [np.array(
+            [[0], [2], [2], [1], [0], [2]], "int64")], "Centers": [x(3, 4)],
+            "CenterUpdateRate": [np.array([0.3], "float32")]}, {}, None,
+         ["X"]),
+        ("grid_sampler", {"X": [x(2, 3, 5, 6)],
+                          "Grid": [r.uniform(-1.2, 1.2, (2, 4, 3, 2))
+                                   .astype("float32")]}, {}, None,
+         ["X", "Grid"]),
+        ("spectral_norm", {"Weight": [x(4, 3, 2)], "U": [x(4)], "V": [x(6)]},
+         {"power_iters": 2}, None, ["Weight"]),
+        ("teacher_student_sigmoid_loss",
+         {"X": [x(6, 1) * 10], "Label": [np.array(
+             [[1], [0], [-1.3], [-2.0], [1], [-1.0]], "float32")]}, {},
+         None, ["X"]),
+        # the random ops draw alike on the card and the CPU from one key
+        ("random_crop", {"X": [x(2, 3, 7, 6)]}, {"shape": [4, 3]}, None, []),
+        ("sampled_softmax_with_cross_entropy",
+         {"Logits": [x(6, 9)], "Label": [np.arange(6)[:, None] % 9]},
+         {"num_samples": 5}, None, ["Logits"]),
+        ("py_func", {"X": [x(3, 4), x(4)]},
+         {"forward_callable_id": _vs_py_func_id()}, None, []),
+    ]
+    return cases
+
+
+_VS_PY_FUNC = []
+
+
+def _vs_py_func_id():
+    """The id of the battery's py_func callable (x·2 + y, and x's row
+    sums) in the port's py_func registry, registered once."""
+    from paddle_tpu_torch.fluid.layers.py_func_registry import \
+        register_callable
+    if not _VS_PY_FUNC:
+        _VS_PY_FUNC.append(register_callable(
+            lambda a, b: [a * 2 + b, a.sum(1)]))
+    return _VS_PY_FUNC[0]
+
+
+def vision_layers_program(fluid, random=True):
+    """(d) Every layer of the batch over a batch of 2, in one program:
+    the inputs are parameters, so each layer's grad reaches them; the
+    loss is the sum of every float output's mean, under SGD. ``random``
+    adds the layers that draw (random_crop,
+    sampled_softmax_with_cross_entropy), which the TPU package draws
+    otherwise. No layer reads a tensor on the host. → (main, startup,
+    loss, the outputs)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+
+    def param(name, shape, std=1.0, positive=False):
+        init = (fluid.initializer.Uniform(0.5, 1.5) if positive
+                else fluid.initializer.Normal(0.0, std))
+        return L.create_parameter(shape, "float32", name=name,
+                                  default_initializer=init)
+
+    with fluid.program_guard(main, startup):
+        x = param("vs_x", [2, 4, 8, 8])
+        x5 = L.reshape(x, [2, 4, 2, 4, 8])
+        x2 = L.reshape(x, [2, 256])
+        x3 = L.reshape(x, [2, 32, 8])
+        p8, q2 = param("vs_p8", [2, 8]), param("vs_q2", [2, 2])
+        a1, b1 = param("vs_a1", [2, 1]), param("vs_b1", [2, 1])
+        lbl = L.data("vs_label", [2, 1], False, "int64")
+        seg = L.data("vs_seg", [2, 8, 8], False, "int32")
+        outs = [
+            L.conv2d_transpose(x, 3, output_size=[16, 16], filter_size=3,
+                               stride=2, padding=1),
+            L.conv3d(x5, 2, 3, padding=1),
+            L.pool3d(x5, 2, "avg", 2),
+            L.adaptive_pool3d(x5, [2, 2, 4], "max"),
+            L.adaptive_pool3d(x5, [2, 2, 2], require_index=True)[0],
+            L.adaptive_pool2d(x, [2, 4], "avg"),
+            L.instance_norm(x), L.group_norm(x, 2), L.data_norm(x2),
+            L.lrn(x, n=3), L.l2_normalize(x2, 1),
+            L.image_resize(x, [5, 6]),
+            L.resize_bilinear(x, [16, 12], align_corners=False,
+                              align_mode=0),
+            L.resize_nearest(x, scale=2.0), L.image_resize_short(x, 4),
+            L.interpolate(x, [3, 3], resample="NEAREST"),
+            L.pixel_shuffle(x, 2), L.space_to_depth(x, 2),
+            L.shuffle_channel(x, 2), L.prelu(x, "channel"),
+            L.prelu(x, "element"), L.maxout(x, 2),
+            L.affine_channel(x, scale=param("vs_s", [4], positive=True),
+                             bias=param("vs_b", [4])),
+            L.bilinear_tensor_product(x2, x2, 3),
+            L.continuous_value_model(L.abs(x2), param("vs_cvm", [2, 2])),
+            L.fsp_matrix(x, x), L.row_conv(x3, 2),
+            L.temporal_shift(x, 2), L.unfold(x, [2, 3], 2),
+            L.grid_sampler(x, L.tanh(param("vs_grid", [2, 5, 6, 2]))),
+            L.spectral_norm(param("vs_w", [4, 3, 2]), power_iters=2),
+            L.smooth_l1(x2, L.scale(x2, 0.5)),
+            L.dice_loss(L.softmax(p8), lbl),
+            L.sigmoid_cross_entropy_with_logits(
+                x2, L.cast(L.greater_than(x2, L.scale(x2, 0.0)),
+                           "float32")),
+            L.rank_loss(L.cast(lbl, "float32"), a1, b1),
+            L.margin_rank_loss(L.scale(L.cast(lbl, "float32"), 1.0, -1.0),
+                               a1, b1),
+            L.huber_loss(x2, L.scale(x2, 0.3), 0.5),
+            L.kldiv_loss(x2, L.softmax(L.scale(x2, 2.0))),
+            L.mse_loss(x2, L.scale(x2, 0.5)),
+            L.bpr_loss(p8, lbl),
+            L.center_loss(x2, lbl, 3, 0.1),
+            L.teacher_student_sigmoid_loss(a1, b1),
+            L.npair_loss(p8, L.scale(p8, 0.5), L.softmax(q2)),
+        ]
+        pred = L.argmax(x, axis=1)
+        miou = L.mean_iou(L.cast(pred, "int32"), seg, 4)
+        if random:
+            outs += [L.random_crop(x, [5, 6]),
+                     L.sampled_softmax_with_cross_entropy(x2, lbl, 4)]
+        loss = L.sums([L.reduce_mean(o) for o in outs])
+        fluid.optimizer.SGD(0.01).minimize(loss)
+    return main, startup, loss, outs + list(miou)
+
+
+
+AFFINE_CONVS = 3              # (d) the frozen-BN program's conv layers
+
+
+def affine_channel_program(fluid, width=1.0, image=224):
+    """(d) A Detectron-style frozen-BN stem served for inference: three
+    conv2d (no bias) each followed by affine_channel (the frozen batch
+    norm's scale and shift as parameters) and ReLU, a max pool between,
+    then global average pooling and an fc. conv_affine_channel_fuse_pass
+    folds each affine_channel into its conv. → (main, startup, the
+    prediction)."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        y = fluid.data("image", [3, image, image], "float32")
+        for i, (nf, k, s) in enumerate(((64, 7, 2), (64, 3, 1),
+                                        (256, 3, 1))):
+            y = L.conv2d(y, _w(width, nf), k, stride=s, padding=k // 2,
+                         bias_attr=False)
+            c = _w(width, nf)
+            y = L.affine_channel(
+                y, scale=L.create_parameter(
+                    [c], "float32", name=f"ac{i}_scale",
+                    default_initializer=fluid.initializer.Uniform(0.5,
+                                                                  1.5)),
+                bias=L.create_parameter([c], "float32", name=f"ac{i}_bias"),
+                act="relu")
+            if i == 0:
+                y = L.pool2d(y, 3, "max", 2, 1)
+        pred = L.fc(L.pool2d(y, global_pooling=True, pool_type="avg"), 10)
+    return main, startup, pred
+
+
+
+GAN_CHECK_IMAGE = 64          # (a) card vs CPU at 64x64
+VS_WIDTH = 1.0                # the three programs' width scale (published)
+CRNN_CHECK_BATCH = 8          # (c) card vs CPU at batch 8
+VS_EVAL_RUNS = 6              # eval or decode runs timed, after 3
+
+
+def _vs_seeded(programs):
+    for p in programs:
+        p.random_seed = SEED
+    return programs
+
+
+def _vs_timed(book, exe, scope, main, feed, fetch, mode, what):
+    """3 + VS_EVAL_RUNS runs of ``main`` (eager, capture, replays), each
+    gated; → (the last fetches, the p50 of the timed runs in ms)."""
+    import numpy as np
+    times, kinds = [], []
+    for _ in range(3 + VS_EVAL_RUNS):
+        before = _launch_counts()
+        t = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        times.append(time.perf_counter() - t)
+        kinds.append(_gate_mode(exe, before, NO_KERNELS, f"{VS_TAG} {what}",
+                                book, mode))
+    if kinds[-1] != "replay":
+        raise AssertionError(f"{VS_TAG} {what}: runs {kinds}")
+    return out, float(np.median(times[3:])) * 1e3
+
+
+def _vs_gan(book):
+    """(a) CycleGAN at 256x256 (the docstring's phase 22 (a)), trained."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    with fluid.unique_name.guard():
+        built = cyclegan_programs(fluid, GAN_BLOCKS, VS_WIDTH, 1, GAN_IMAGE)
+    _vs_seeded([p for k in built for p in built[k][:2]])
+    g, da, db = built["g"], built["da"], built["db"]
+    ops = g[0].global_block().ops
+    n_in = sum(op.type == "instance_norm" for op in ops)
+    n_tr = sum(op.type == "conv2d_transpose" for op in ops)
+    rng = np.random.RandomState(SEED + 30)
+    imgs = {k: rng.uniform(-1, 1, (1, 3, GAN_IMAGE, GAN_IMAGE)).astype(
+        "float32") for k in ("real_A", "real_B")}
+    runs = [(g[0], [g[2], g[3], g[4]], lambda outs: imgs),
+            (da[0], [da[2]], lambda outs: {"real_A": imgs["real_A"],
+                                            "fake_A": outs[0][1]}),
+            (db[0], [db[2]], lambda outs: {"real_B": imgs["real_B"],
+                                            "fake_B": outs[0][2]})]
+    res = _md_train(book, f"(a) CycleGAN {GAN_IMAGE}x{GAN_IMAGE} batch 1, "
+                    f"{GAN_BLOCKS} residual blocks", runs,
+                    [g[1], da[1], db[1]], NO_KERNELS, tag=VS_TAG)
+    _log(f"{VS_TAG} (a) the generators' program: {n_in} instance_norm and "
+         f"{n_tr} conv2d_transpose ops (and their grads) ran in its "
+         f"compiled step, {len(ops)} ops")
+    return res
+
+
+def _vs_gan_check(book):
+    """(a) CycleGAN's generators and discriminator A, card against CPU at
+    GAN_CHECK_IMAGE."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    with fluid.unique_name.guard():
+        small = cyclegan_programs(fluid, GAN_BLOCKS, VS_WIDTH, 1,
+                                  GAN_CHECK_IMAGE)
+    _vs_seeded([p for k in small for p in small[k][:2]])
+    crng = np.random.RandomState(SEED + 31)
+    cimgs = {k: crng.uniform(-1, 1, (1, 3, GAN_CHECK_IMAGE,
+                                     GAN_CHECK_IMAGE)).astype("float32")
+             for k in ("real_A", "real_B", "fake_A")}
+    _md_card_vs_cpu(book, f"(a) CycleGAN generators {GAN_CHECK_IMAGE}x"
+                    f"{GAN_CHECK_IMAGE}", small["g"][0], small["g"][1],
+                    [small["g"][2]], {k: cimgs[k] for k in ("real_A",
+                                                             "real_B")},
+                    conv=True, adaptive=True, tag=VS_TAG)
+    _md_card_vs_cpu(book, f"(a) CycleGAN discriminator A "
+                    f"{GAN_CHECK_IMAGE}x{GAN_CHECK_IMAGE}", small["da"][0],
+                    small["da"][1], [small["da"][2]],
+                    {k: cimgs[k] for k in ("real_A", "fake_A")}, conv=True,
+                    adaptive=True, tag=VS_TAG)
+
+
+def _dl_feed(rng, bs, crop):
+    """Images of noise and labels in blocks of 16x16 pixels (regions, as
+    a segmentation's labels come), a tenth of the blocks ignored
+    (DL_IGNORE)."""
+    import numpy as np
+    n = -(-crop // 16)
+    label = rng.randint(0, DL_CLASSES, (bs, 1, n, n)).astype("int64")
+    label[rng.rand(*label.shape) < 0.1] = DL_IGNORE
+    label = label.repeat(16, 2).repeat(16, 3)[:, :, :crop, :crop]
+    return {"image": rng.normal(size=(bs, 3, crop, crop)).astype("float32"),
+            "label": np.ascontiguousarray(label)}
+
+
+def _vs_deeplab(book):
+    """(b) DeepLabv3+ on Cityscapes shapes (the docstring's phase 22
+    (b)), trained, then its eval clone. → its readings and the shape its
+    dropout op takes."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    built = _md_fixed(lambda: deeplab_program(fluid, DL_MIDDLE, VS_WIDTH,
+                                              DL_CROP, DL_CLASSES, DL_LR))
+    main, startup, test, loss, miou, wrong, correct = built
+    test.random_seed = SEED
+    block = main.global_block()
+    want = _step_want(block.ops, "split", forwards=0)
+    if want != (0, 0, 0, 0, 1) + (0,) * 7:
+        raise AssertionError(f"{VS_TAG} (b) DeepLabv3+: a step would launch "
+                             f"{want}")
+    drop = next(op for op in block.ops if op.type == "dropout")
+    rng = np.random.RandomState(SEED + 32)
+    feed = _dl_feed(rng, DL_BATCH, DL_CROP)
+    res = _md_train(book, f"(b) DeepLabv3+ {DL_CROP}x{DL_CROP} batch "
+                    f"{DL_BATCH}, Xception-65", _md_run(main, [loss], feed),
+                    [startup], want, tag=VS_TAG, keep_scope=True)
+    exe = res.pop("exe")
+    out, res["eval_p50_ms"] = _vs_timed(
+        book, exe, res.pop("scope"), test, feed, [miou, wrong, correct],
+        "compiled", "(b) the eval clone")
+    exe.close()
+    _log(f"{VS_TAG} (b) the eval clone at batch {DL_BATCH}: mean IoU "
+         f"{float(out[0].numpy()[0]):.4f}, p50 {res['eval_p50_ms']:.3f} ms "
+         f"on {_card_line()}")
+    res["dropout_shape"] = (DL_BATCH,) + tuple(
+        block.var(drop.input("X")[0]).shape[1:])
+    return res
+
+
+def _vs_deeplab_check(book, dropout_shape):
+    """(b) DeepLabv3+'s checks: the dropout kernel against its plain
+    version at the shape the step gives it, then card against CPU at
+    DL_CHECK_CROP with DL_CHECK_MIDDLE middle-flow blocks, 2 steps from
+    one start, and the eval clone's mean_iou."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops.cuda import dropout as dk
+    gen = torch.Generator(device=VS_CARD).manual_seed(SEED + 38)
+    x = torch.randn(dropout_shape, generator=gen, device=VS_CARD)
+    key = torch.tensor([SEED + 38], dtype=torch.int64, device=VS_CARD)
+    before = _launch_counts()
+    _dropout_agrees(dk, x, key, DL_DROPOUT, True,
+                    f"(b) DeepLabv3+'s dropout rate {DL_DROPOUT:g}", VS_TAG)
+    book.add(_delta(before))
+    small = _md_fixed(lambda: deeplab_program(
+        fluid, DL_CHECK_MIDDLE, VS_WIDTH, DL_CHECK_CROP, DL_CLASSES, DL_LR))
+    small[2].random_seed = SEED
+    cfeed = _dl_feed(np.random.RandomState(SEED + 33), MD_CHECK_BATCH,
+                     DL_CHECK_CROP)
+    _md_card_vs_cpu(book, f"(b) DeepLabv3+ {DL_CHECK_CROP}x{DL_CHECK_CROP} "
+                    f"batch {MD_CHECK_BATCH}, {DL_CHECK_MIDDLE} middle-flow "
+                    "block (dropout: the kernel's mask is its plain "
+                    "version's)", small[0], small[1], [small[3]], cfeed,
+                    conv=True, tag=VS_TAG, resync=True)
+    _vs_eval_exact(book, small, cfeed)
+
+
+def _vs_eval_exact(book, built, feed):
+    """The eval clone of ``built`` on the card and by the CPU port from
+    the same start on one batch: mean IoU, wrong and correct equal."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, test = built[:3]
+    fetch = list(built[4:7])
+    names = [v.name for v in main.list_vars() if v.persistable]
+    before = _launch_counts()
+    exe, scope = _fresh(main, startup)
+    card = exe.run(test, feed=feed, fetch_list=fetch, scope=scope)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=feed, fetch_list=fetch,
+        scope=_clone_scope(scope, names, "cpu"))
+    book.add(_delta(before))
+    exe.close()
+    same = all(np.array_equal(a, b) for a, b in zip(card, cpu))
+    _log(f"{VS_TAG} (b) the eval clone's mean_iou on the card and the CPU "
+         f"from one start: mean IoU {card[0][0]:.6f} vs {cpu[0][0]:.6f}, "
+         f"wrong {card[1].tolist()}, correct {card[2].tolist()} -> "
+         + ("equal" if same else "DIFFER"))
+    if not same:
+        raise AssertionError(f"{VS_TAG} (b) mean_iou: the card and the CPU "
+                             "differ")
+
+
+def _crnn_feed(rng, bs):
+    import numpy as np
+    shape, classes, lens = CRNN_SHAPE, CRNN_CLASSES, CRNN_LABEL
+    n = rng.randint(lens[0], lens[1] + 1, bs)
+    offs = [0] + [int(x) for x in np.cumsum(n)]
+    return {"pixel": rng.normal(size=(bs,) + tuple(shape)).astype(
+        "float32"), "label": _lod_tensor(rng.randint(
+            0, classes, (offs[-1], 1)).astype("int32"), offs)}
+
+
+def _vs_crnn(book):
+    """(c) CRNN-CTC (the docstring's phase 22 (c)), trained, then its
+    decode."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, loss, decoded, dist = _md_fixed(
+        lambda: crnn_program(fluid, VS_WIDTH, CRNN_HID, CRNN_CLASSES,
+                             CRNN_SHAPE))
+    rng = np.random.RandomState(SEED + 34)
+    feed = _crnn_feed(rng, CRNN_BATCH)
+    res = _md_train(book, f"(c) CRNN-CTC {CRNN_SHAPE} batch {CRNN_BATCH}",
+                    _md_run(main, [loss, dist], feed), [startup],
+                    NO_KERNELS, mode="segmented", tag=VS_TAG,
+                    keep_scope=True)
+    exe, scope = res.pop("exe"), res.pop("scope")
+    sb = exe._last_block
+    kinds = [s.kind for s in sb.segments]
+    res["segments"] = kinds.count("compiled")
+    res["islands"] = kinds.count("island")
+    reasons = sorted({r for s in sb.segments if s.kind == "island"
+                      for r in (s.island_reasons or ())})
+    _log(f"{VS_TAG} (c) a CRNN-CTC step runs {res['segments']} compiled "
+         f"segments and {res['islands']} islands ({', '.join(reasons)}): "
+         f"{' '.join(kinds)}")
+    test = main.clone(for_test=True)
+    out, res["decode_p50_ms"] = _vs_timed(
+        book, exe, scope, test, feed, [decoded, dist], "segmented",
+        "(c) the decode")
+    _log(f"{VS_TAG} (c) greedy decode and edit distance at batch "
+         f"{CRNN_BATCH}: {out[0].numpy().shape[0]} ids, mean distance "
+         f"{float(out[1].numpy().mean()):.3f}, p50 "
+         f"{res['decode_p50_ms']:.3f} ms on {_card_line()}")
+    exe.close()
+    return res
+
+
+def _vs_crnn_check(book):
+    """(c) CRNN-CTC card against CPU at CRNN_CHECK_BATCH: the losses, the
+    grads, the decoded ids and the distances."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, loss, decoded, dist = _md_fixed(
+        lambda: crnn_program(fluid, VS_WIDTH, CRNN_HID, CRNN_CLASSES,
+                             CRNN_SHAPE))
+    cfeed = _crnn_feed(np.random.RandomState(SEED + 35), CRNN_CHECK_BATCH)
+    _md_card_vs_cpu(book, f"(c) CRNN-CTC batch {CRNN_CHECK_BATCH}, the "
+                    "decoded ids and distances", main, startup,
+                    [loss, decoded, dist], cfeed, exact=(1, 2), conv=True,
+                    tag=VS_TAG)
+
+
+def _vs_battery_run(book):
+    """(d) Every op type of the batch on the card against the CPU port
+    (``_vs_battery``'s cases): each output (integers exactly, floats at
+    VS_TOL) and, where it has one, the generic grad under a seeded output
+    grad. None launches a counted kernel. → how many cases."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import rng as oprng
+    from paddle_tpu_torch.ops.registry import OPS, run_generic_grad
+    before = _launch_counts()
+    worst = (0.0, "")
+    cases = _vs_battery()
+    for op_type, ins, attrs, lod, diff in cases:
+        info = OPS.get(op_type)
+        got = {}
+        for dev in (VS_CARD, "cpu"):
+            a = dict(info.attr_defaults, **attrs)
+            if lod is not None:
+                a["_lod"] = lod
+            a["_device"] = torch.device(dev)
+            a["_rng"] = lambda d=dev: oprng.fixed_key(SEED, d)
+            t_ins = {s: [torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                         for v in vals] for s, vals in ins.items()}
+            o = info.kernel(t_ins, a)
+            res = {k: [v.detach().cpu().numpy() for v in vals]
+                   for k, vals in o.items() if not k.startswith("_")}
+            if diff:
+                g = np.random.RandomState(SEED)
+                for k, vals in res.items():
+                    if vals[0].dtype.kind == "f":
+                        t_ins[k + "@GRAD"] = [torch.from_numpy(
+                            g.normal(size=v.shape).astype(v.dtype)).to(dev)
+                            for v in vals]
+                grads = run_generic_grad(op_type, t_ins, a,
+                                         [s + "@GRAD" for s in diff],
+                                         list(ins))
+                res.update({k: [v.detach().cpu().numpy() for v in vals]
+                            for k, vals in grads.items()})
+            got[dev] = res
+        for k, vals in got["cpu"].items():
+            for i, (c, gpu) in enumerate(zip(vals, got[VS_CARD][k])):
+                what = f"{op_type} {k}[{i}]"
+                if c.dtype.kind != "f":
+                    ok = np.array_equal(c, gpu)
+                    err = 0.0 if ok else np.inf
+                else:
+                    ok = np.allclose(gpu, c, rtol=VS_TOL[0], atol=VS_TOL[1],
+                                     equal_nan=True)
+                    err = float(np.nanmax(np.abs(gpu - c))) if c.size else 0.
+                worst = max(worst, (err, what))
+                if not ok:
+                    raise AssertionError(f"{VS_TAG} (d) {what}: the card and "
+                                         f"the CPU differ by {err:.3e}")
+    if _delta(before) != NO_KERNELS:
+        raise AssertionError(f"{VS_TAG} (d) the battery launched "
+                             f"{_delta(before)}")
+    _log(f"{VS_TAG} (d) {len(cases)} op types on the card against the CPU "
+         f"port, forward and generic grads (rtol {VS_TOL[0]:g}, atol "
+         f"{VS_TOL[1]:g}; integers exactly): the largest difference "
+         f"{worst[0]:.3e} ({worst[1]}) -> ok")
+    return len(cases)
+
+
+def _vs_programs(book):
+    """(d) The capturable layers in one program (``vision_layers_program``)
+    trained 3 steps on the card in lock step with the interpreter, and
+    the frozen-BN program served through the predictor after
+    conv_affine_channel_fuse_pass against its unfused Executor.run."""
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch import fluid, inference
+    main, startup, loss, outs = _md_fixed(
+        lambda: vision_layers_program(fluid))
+    rng = np.random.RandomState(SEED + 36)
+    seg = rng.randint(0, 4, (2, 8, 8)).astype("int32")
+    seg[rng.rand(2, 8, 8) < 0.2] = 255
+    feed = {"vs_label": np.array([[1], [2]], "int64"), "vs_seg": seg}
+    exe, scope = _fresh(main, startup)
+    iexe = fluid.Executor(fluid.CUDAPlace(0))
+    iscope = _clone_scope(scope, [v.name for v in main.list_vars()
+                                  if v.persistable], "cuda")
+    kinds = [_lock_step((exe, scope), (iexe, iscope), main, feed,
+                        [loss] + list(outs), NO_KERNELS, book,
+                        f"(d) the layers' program step {i}", VS_TAG)[2]
+             for i in range(MD_LOCK)]
+    if tuple(kinds) != MD_LOCK_EXECS:
+        raise AssertionError(f"{VS_TAG} (d) the layers' program ran {kinds}")
+    types = sorted({op.type for op in main.global_block().ops})
+    _log(f"{VS_TAG} (d) the layers' program ({len(outs)} outputs, "
+         f"{len(types)} op types): {' '.join(kinds)}, each bitwise the "
+         "interpreter's -> ok")
+    exe.close()
+    iexe.close()
+    amain, astart, pred = _md_fixed(lambda: affine_channel_program(fluid))
+    img = np.random.RandomState(SEED + 37).normal(
+        size=(8, 3, 224, 224)).astype("float32")
+    exe, scope = _fresh(amain, astart)
+    plain = exe.run(amain, feed={"image": img}, fetch_list=[pred],
+                    scope=scope)[0]
+    with tempfile.TemporaryDirectory() as d:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["image"], [pred], exe, amain)
+        p = inference.create_predictor(inference.Config(d))
+        census = _census(p._program)
+        if "affine_channel" in census or \
+                census.get("conv2d_fusion") != AFFINE_CONVS:
+            raise AssertionError(f"{VS_TAG} (d) the served frozen-BN "
+                                 f"program: census {census}")
+        kinds, times = [], []
+        for _ in range(3 + VS_EVAL_RUNS):
+            before = _launch_counts()
+            t = time.perf_counter()
+            served = p.run([img])[0]
+            times.append(time.perf_counter() - t)
+            kinds.append(_gate_mode(p._exe, before, NO_KERNELS,
+                                    f"{VS_TAG} (d) a served request", book))
+        p._exe.close()
+    exe.close()
+    err = float(np.abs(served - plain).max())
+    ok = np.allclose(served, plain, rtol=RESNET_PRED_TOL[0],
+                     atol=RESNET_PRED_TOL[1])
+    _log(f"{VS_TAG} (d) the frozen-BN program served after "
+         f"conv_affine_channel_fuse_pass (census {census}), batch 8 at "
+         f"224x224: requests {' '.join(kinds[:4])} ..., p50 "
+         f"{float(np.median(times[3:])) * 1e3:.3f} ms on {_card_line()}; "
+         f"against the unfused program's Executor.run max|d| {err:.3e} "
+         f"(rtol {RESNET_PRED_TOL[0]:g}, atol {RESNET_PRED_TOL[1]:g}: the "
+         "folded weights round otherwise) -> "
+         + ("ok" if ok else "FAIL"))
+    if not ok or kinds[-1] != "replay":
+        raise AssertionError(f"{VS_TAG} (d) the served frozen-BN program")
+
+
+VS_TOL = (1e-4, 1e-5)         # (d) an op on the card against the CPU port
+VS_CARD = "cuda"              # (d) the battery's card
+
+
+def phase_vision():
+    """Phase 22: the vision and loss op batch (the docstring's phase 22).
+    The main path, counted from zero: the three programs trained at their
+    widths, DeepLabv3+'s eval and CRNN's decode. Then, counted apart, the
+    checks: card against CPU, the dropout kernel at DeepLabv3+'s shape,
+    the op battery and the two programs of (d). → the main path's
+    launches: through the wrappers and on the card."""
+    book, checks = _CfBook(), _CfBook()
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    res = {"cyclegan": _vs_gan(book), "deeplab": _vs_deeplab(book),
+           "crnn": _vs_crnn(book)}
+    wrapper, ran = _launch_counts(), tuple(book.executed)
+    _reset_launch_counts()
+    _vs_gan_check(checks)
+    _vs_deeplab_check(checks, res["deeplab"]["dropout_shape"])
+    _vs_crnn_check(checks)
+    res["battery"] = _vs_battery_run(checks)
+    _vs_programs(checks)
+    checked = _launch_counts()
+    # the dropout kernel is DeepLabv3+'s alone: its steps, its interpreted
+    # ones, and in the checks its card-vs-CPU steps and the kernel's own
+    for counts in (wrapper, ran, checked, checks.executed):
+        if any(counts[:4]) or any(counts[5:]) or not ran[4]:
+            raise AssertionError(f"{VS_TAG} phase 22 launched {wrapper}, on "
+                                 f"the card {ran}; its checks {checked}, "
+                                 f"on the card {tuple(checks.executed)}")
+    _log(f"{VS_TAG} phase 22 in {time.perf_counter() - t0:.1f} s: step p50 "
+         + ", ".join(f"{k} {res[k]['p50_ms']:.3f} ms"
+                     for k in ("cyclegan", "deeplab", "crnn"))
+         + f"; DeepLabv3+ eval {res['deeplab']['eval_p50_ms']:.3f} ms, "
+         f"CRNN decode {res['crnn']['decode_p50_ms']:.3f} ms; the main "
+         f"path's launches through the wrappers {GATE_NAMES} {wrapper}, on "
+         f"the card {ran}; the checks' apart: {checked}, on the card "
+         f"{tuple(checks.executed)}")
+    return {"wrapper": wrapper, "executed": ran,
+            "check_executed": tuple(checks.executed), **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -9398,31 +10620,43 @@ def main(argv=None) -> int:
          f"{core.BF16_HOST_DTYPE}" + (
              "" if core.BF16_HOST_DTYPE.name == "bfloat16"
              else " (ml_dtypes is not installed)"))
-    phase_build()
-    fwd_rows = phase_kernel()
-    bwd_rows = phase_kernel_bwd()
-    phase_attention_routes()
-    drop_row = phase_kernel_dropout()
-    paths = {"serve": phase_slice(profile=args.profile),
-             "train": phase_train(profile=args.profile),
-             "window": phase_window(),
-             "lane": phase_lane(profile=args.profile)}
-    paths["remat"] = phase_remat(paths["lane"]["bert"],
-                                 profile=args.profile)
-    paths["amp"] = phase_amp(paths["train"], profile=args.profile)
-    paths["guard"] = phase_guard()
-    paths["resnet"] = phase_resnet(profile=args.profile)
-    paths["transformer"] = phase_transformer(profile=args.profile)
-    paths["lane512"] = phase_lane512(profile=args.profile)
-    paths["wide_deep"] = phase_wide_deep(profile=args.profile)
-    paths["predictor"] = phase_predictor(profile=args.profile)
-    paths["resume"] = phase_resume()
-    paths["control_flow"] = phase_control_flow(paths["train"]["p50_ms"])
-    paths["optimizers"] = phase_optimizers(paths["train"]["p50_ms"])
-    paths["lod"] = phase_lod()
-    paths["compiler"] = phase_compiler(fwd_rows, bwd_rows)
-    paths["models"] = phase_models(paths["resnet"]["lane"]["step_ms"])
-    paths["rnn"] = phase_rnn()
+    seconds = {}
+
+    def timed(fn, *a, **k):
+        # each phase's seconds, so that a slow run shows where it went
+        t = time.perf_counter()
+        out = fn(*a, **k)
+        seconds[fn.__name__] = round(time.perf_counter() - t, 1)
+        _log(f"[time] {fn.__name__} in {seconds[fn.__name__]} s")
+        return out
+    timed(phase_build)
+    fwd_rows = timed(phase_kernel)
+    bwd_rows = timed(phase_kernel_bwd)
+    timed(phase_attention_routes)
+    drop_row = timed(phase_kernel_dropout)
+    paths = {"serve": timed(phase_slice, profile=args.profile),
+             "train": timed(phase_train, profile=args.profile),
+             "window": timed(phase_window),
+             "lane": timed(phase_lane, profile=args.profile)}
+    paths["remat"] = timed(phase_remat, paths["lane"]["bert"],
+                           profile=args.profile)
+    paths["amp"] = timed(phase_amp, paths["train"], profile=args.profile)
+    paths["guard"] = timed(phase_guard)
+    paths["resnet"] = timed(phase_resnet, profile=args.profile)
+    paths["transformer"] = timed(phase_transformer, profile=args.profile)
+    paths["lane512"] = timed(phase_lane512, profile=args.profile)
+    paths["wide_deep"] = timed(phase_wide_deep, profile=args.profile)
+    paths["predictor"] = timed(phase_predictor, profile=args.profile)
+    paths["resume"] = timed(phase_resume)
+    paths["control_flow"] = timed(phase_control_flow,
+                                  paths["train"]["p50_ms"])
+    paths["optimizers"] = timed(phase_optimizers, paths["train"]["p50_ms"])
+    paths["lod"] = timed(phase_lod)
+    paths["compiler"] = timed(phase_compiler, fwd_rows, bwd_rows)
+    paths["models"] = timed(phase_models,
+                            paths["resnet"]["lane"]["step_ms"])
+    paths["rnn"] = timed(phase_rnn)
+    paths["vision"] = timed(phase_vision)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded
@@ -9489,9 +10723,10 @@ def main(argv=None) -> int:
                                  "old_route_ms", "delta_ms")
                if k in r}))
     # a trace gate fails when its trace came up short (ROADMAP C2)
-    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-21, each "
+    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-22, each "
          "holding its gate's kernels: none came up short")
-    _log(f"[card] phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    _log(f"[card] phases 1-22 in {time.perf_counter() - t_start:.1f} s: "
+         + ", ".join(f"{k} {v}" for k, v in seconds.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,11 @@ expand, expand_as, pad, pad2d, pad_constant_like, roll, gather_nd,
 scatter, scatter_nd, scatter_nd_add, index_select, index_sample,
 multiplex, where, shard_index, shape, size, rank, unique,
 unique_with_counts, sampling_id and the *_random_batch_size_like pair),
-linear_chain_crf and crf_decoding."""
+linear_chain_crf and crf_decoding, and the vision and loss batch at the
+end of the file (conv3d, conv2d_transpose, the 3-d and adaptive pools,
+the other norms, the resizes, prelu, the nn_extra_ops layers, mean_iou,
+py_func, ctc_greedy_decoder, ...). The layers over
+paddle_tpu/ops/vision_ops.py raise NotImplementedError (ROADMAP A7)."""
 from __future__ import annotations
 
 import math
@@ -1216,3 +1220,580 @@ def crf_decoding(input, param_attr, label=None, length=None):
     helper.append_op(type="crf_decoding", inputs=inputs,
                      outputs={"ViterbiPath": [path]})
     return path
+
+
+# --------------------------------------------------------------------------
+# the vision and loss batch: the layers over nn_ops' convolutions, pools,
+# norms and resizes, math_ops' prelu, nn_extra_ops, loss_extra_ops'
+# grid_sampler, spectral_norm, random_crop and ctc_align, and py_func.
+# As in the TPU package, conv3d, conv2d_transpose, pool3d and pad2d give
+# their output no static shape: a layer that reads one (a norm's channel
+# count, a bias's size) needs a ``reshape`` to it first.
+# --------------------------------------------------------------------------
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCDHW"):
+    """reference: layers/nn.py conv3d — the conv3d op (Filter OIDHW), the
+    bias over dim 1, the activation."""
+    helper = LayerHelper("conv3d", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    ksize = _pair(filter_size, 3)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_filters, input.shape[1] // groups] + ksize, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv3d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": _pair(stride, 3), "paddings": _pair(padding, 3),
+               "dilations": _pair(dilation, 3), "groups": groups,
+               "use_cudnn": use_cudnn, "padding_algorithm": "EXPLICIT",
+               "data_format": data_format})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None, data_format="NCHW"):
+    """reference: layers/nn.py conv2d_transpose — the transposed conv
+    (Filter [in_c, num_filters/g, kh, kw]); without ``filter_size`` the
+    kernel is what makes ``output_size``."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    stride = _pair(stride)
+    dilation = _pair(dilation)
+    padding = _pair(padding)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("conv2d_transpose needs output_size or "
+                             "filter_size")
+        output_size = _pair(output_size)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in (0, 1)]
+    else:
+        filter_size = _pair(filter_size)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[input.shape[1], num_filters // groups] + filter_size,
+        dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups, "use_cudnn": use_cudnn,
+               "output_size": list(_pair(output_size)) if output_size
+               else [],
+               "padding_algorithm": "EXPLICIT", "data_format": data_format})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCDHW"):
+    helper = LayerHelper("pool3d", **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(
+        type="pool3d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": _pair(pool_size, 3),
+               "global_pooling": global_pooling,
+               "strides": _pair(pool_stride, 3),
+               "paddings": _pair(pool_padding, 3), "use_cudnn": use_cudnn,
+               "ceil_mode": ceil_mode, "exclusive": exclusive,
+               "data_format": data_format, "padding_algorithm": "EXPLICIT"})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """pool2d with ``adaptive``: bins that divide the input."""
+    helper = LayerHelper("adaptive_pool2d", **locals())
+    ksize = _pair(pool_size)
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    out.shape = (input.shape[0], input.shape[1], ksize[0], ksize[1])
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": ksize, "adaptive": True,
+               "strides": [1, 1], "paddings": [0, 0],
+               "global_pooling": False, "data_format": "NCHW",
+               "padding_algorithm": "EXPLICIT"})
+    return out
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """pool3d with ``adaptive``, or with ``require_index``
+    max_pool3d_with_index and its Mask."""
+    helper = LayerHelper("adaptive_pool3d", **locals())
+    ksize = _pair(pool_size, 3)
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    out.shape = (input.shape[0], input.shape[1]) + tuple(ksize)
+    if require_index:
+        if pool_type != "max":
+            raise ValueError("require_index needs pool_type='max'")
+        mask = helper.create_variable_for_type_inference(
+            VarDesc.VarType.INT32)
+        mask.shape = out.shape
+        helper.append_op(
+            type="max_pool3d_with_index", inputs={"X": [input]},
+            outputs={"Out": [out], "Mask": [mask]},
+            attrs={"ksize": ksize, "adaptive": True,
+                   "strides": [1, 1, 1], "paddings": [0, 0, 0]})
+        return out, mask
+    helper.append_op(
+        type="pool3d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": ksize, "adaptive": True,
+               "strides": [1, 1, 1], "paddings": [0, 0, 0],
+               "global_pooling": False, "data_format": "NCDHW",
+               "padding_algorithm": "EXPLICIT"})
+    return out
+
+
+def _norm_outputs(helper, dtype, input, names):
+    outs = {n: [helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)] for n in names}
+    y = helper.create_variable_for_type_inference(dtype)
+    y.shape = input.shape
+    return y, outs
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    """reference: layers/nn.py instance_norm — a scale (ones) and a bias
+    over dim 1."""
+    helper = LayerHelper("instance_norm", **locals())
+    dtype = helper.input_dtype()
+    c = input.shape[1]
+    scale = helper.create_parameter(attr=helper.param_attr, shape=[c],
+                                    dtype=dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(attr=helper.bias_attr, shape=[c],
+                                   dtype=dtype, is_bias=True)
+    out, outs = _norm_outputs(helper, dtype, input,
+                              ("SavedMean", "SavedVariance"))
+    helper.append_op(type="instance_norm",
+                     inputs={"X": [input], "Scale": [scale], "Bias": [bias]},
+                     outputs=dict(outs, Y=[out]), attrs={"epsilon": epsilon})
+    return out
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    """reference: layers/nn.py group_norm — ``param_attr`` / ``bias_attr``
+    False leave the scale / bias out."""
+    helper = LayerHelper("group_norm", **locals())
+    dtype = helper.input_dtype()
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    if param_attr is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            attr=helper.param_attr, shape=[c], dtype=dtype,
+            default_initializer=Constant(1.0))]
+    if bias_attr is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[c], dtype=dtype, is_bias=True)]
+    out, outs = _norm_outputs(helper, dtype, input, ("Mean", "Variance"))
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs=dict(outs, Y=[out]),
+                     attrs={"epsilon": epsilon, "groups": groups,
+                            "data_layout": data_layout})
+    return helper.append_activation(out)
+
+
+def data_norm(input, act=None, epsilon=1e-5, param_attr=None,
+              data_layout="NCHW", in_place=False, name=None,
+              moving_mean_name=None, moving_variance_name=None,
+              do_model_average_for_mean_and_var=True):
+    """reference: layers/nn.py data_norm — BatchSize and BatchSquareSum
+    start at 1e4, BatchSum at 0."""
+    helper = LayerHelper("data_norm", **locals())
+    dtype = helper.input_dtype()
+    c = input.shape[-1]
+    stats = {slot: helper.create_parameter(
+        attr=ParamAttr(initializer=Constant(v)), shape=[c], dtype=dtype)
+        for slot, v in (("BatchSize", 1e4), ("BatchSum", 0.0),
+                        ("BatchSquareSum", 1e4))}
+    out, outs = _norm_outputs(helper, dtype, input, ("Means", "Scales"))
+    helper.append_op(type="data_norm",
+                     inputs=dict({k: [v] for k, v in stats.items()},
+                                 X=[input]),
+                     outputs=dict(outs, Y=[out]), attrs={"epsilon": epsilon})
+    return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None,
+        data_format="NCHW"):
+    helper = LayerHelper("lrn", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta,
+                            "data_format": data_format})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / √(Σ x² + ε) along ``axis`` (the norm op)."""
+    helper = LayerHelper("l2_normalize", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": 1 if axis is None else axis,
+                            "epsilon": epsilon})
+    return out
+
+
+def _vision_ops_pending(name):
+    raise NotImplementedError(
+        f"{name}: its op is in paddle_tpu/ops/vision_ops.py, which the port "
+        "has not ported yet (ROADMAP A7, vision_ops with the detection "
+        "modules)")
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", actual_shape=None, align_corners=True,
+                 align_mode=1, data_format="NCHW"):
+    """reference: layers/nn.py image_resize — bilinear_interp or
+    nearest_interp to ``out_shape`` (a list, or a Variable read on the
+    host at run time) or by ``scale``. TRILINEAR and BICUBIC are
+    vision_ops.py's ops, not ported yet."""
+    resample = resample.upper()
+    if resample not in ("BILINEAR", "NEAREST"):
+        _vision_ops_pending(f"image_resize(resample={resample!r})")
+    helper = LayerHelper("image_resize", **locals())
+    op_type = {"BILINEAR": "bilinear_interp",
+               "NEAREST": "nearest_interp"}[resample]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"align_corners": align_corners, "align_mode": align_mode,
+             "interp_method": op_type.split("_")[0],
+             "data_layout": data_format}
+    inputs = {"X": [input]}
+    if out_shape is not None:
+        if isinstance(out_shape, Variable):
+            inputs["OutSize"] = [out_shape]
+            attrs.update({"out_h": -1, "out_w": -1, "scale": 0.0})
+        else:
+            attrs.update({"out_h": int(out_shape[0]),
+                          "out_w": int(out_shape[1]), "scale": 0.0})
+            out.shape = (input.shape[0], input.shape[1],
+                         int(out_shape[0]), int(out_shape[1]))
+    else:
+        attrs.update({"out_h": -1, "out_w": -1, "scale": float(scale)})
+    helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]},
+                     attrs=attrs)
+    return out
+
+
+interpolate = image_resize
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1,
+                    data_format="NCHW"):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        actual_shape, align_corners, align_mode, data_format)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True, data_format="NCHW"):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        actual_shape, align_corners, 1, data_format)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     actual_shape=None, align_corners=True, align_mode=1,
+                     data_format="NCDHW"):
+    _vision_ops_pending("resize_trilinear")
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so that the short side is ``out_short_len``, keeping the
+    aspect (the long side rounded)."""
+    hw = list(input.shape[2:4])
+    short = hw.index(min(hw))
+    out_shape = list(hw)
+    out_shape[short] = out_short_len
+    out_shape[1 - short] = int(round(hw[1 - short] * out_short_len
+                                     / hw[short]))
+    return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def _one_op(op_type, ins, attrs=None, out_slot="Out", shape=None,
+            dtype=None, name=None):
+    """One op of ``op_type`` with one new output, in the dtype of the
+    first input (or ``dtype``) and with ``shape`` if given."""
+    helper = LayerHelper(op_type, name=name)
+    first_in = next(iter(ins.values()))[0]
+    out = helper.create_variable_for_type_inference(dtype or first_in.dtype)
+    if shape is not None:
+        out.shape = tuple(shape)
+    helper.append_op(type=op_type, inputs=ins, outputs={out_slot: [out]},
+                     attrs=attrs or {})
+    return out
+
+
+def pixel_shuffle(x, upscale_factor):
+    return _one_op("pixel_shuffle", {"X": [x]},
+                   {"upscale_factor": upscale_factor})
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _one_op("space_to_depth", {"X": [x]}, {"blocksize": blocksize},
+                   name=name)
+
+
+def shuffle_channel(x, group, name=None):
+    return _one_op("shuffle_channel", {"X": [x]}, {"group": group},
+                   shape=x.shape, name=name)
+
+
+def maxout(x, groups, name=None, axis=1):
+    return _one_op("maxout", {"X": [x]}, {"groups": groups, "axis": axis},
+                   name=name)
+
+
+def fsp_matrix(x, y):
+    return _one_op("fsp", {"X": [x], "Y": [y]})
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _one_op("cvm", {"X": [input], "CVM": [cvm]}, {"use_cvm": use_cvm},
+                   out_slot="Y")
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _one_op("temporal_shift", {"X": [x]},
+                   {"seg_num": seg_num, "shift_ratio": shift_ratio},
+                   shape=x.shape, name=name)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    return _one_op("unfold", {"X": [x]},
+                   {"kernel_sizes": _pair(kernel_sizes),
+                    "strides": _pair(strides),
+                    "paddings": _pair(paddings, 4)
+                    if isinstance(paddings, int) else list(paddings),
+                    "dilations": _pair(dilations)}, out_slot="Y", name=name)
+
+
+def grid_sampler(x, grid, name=None):
+    return _one_op("grid_sampler", {"X": [x], "Grid": [grid]},
+                   out_slot="Output", shape=x.shape, name=name)
+
+
+def random_crop(x, shape, seed=None):
+    return _one_op("random_crop", {"X": [x]},
+                   {"shape": list(shape), "seed": int(seed) if seed else 0})
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """x where x > 0, else α·x: α one scalar (``all``), one a channel
+    (``channel``) or one an element (``element``), 0.25 at first."""
+    helper = LayerHelper("prelu", **locals())
+    alpha_shape = {"channel": [x.shape[1]],
+                   "element": list(x.shape[1:])}.get(mode, [1])
+    alpha = helper.create_parameter(attr=helper.param_attr,
+                                    shape=alpha_shape, dtype=x.dtype,
+                                    default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None,
+                   act=None):
+    helper = LayerHelper("affine_channel", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="affine_channel",
+                     inputs={"X": [x], "Scale": [scale], "Bias": [bias]},
+                     outputs={"Out": [out]},
+                     attrs={"data_layout": data_layout})
+    return helper.append_activation(out)
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None, param_attr=None,
+                            bias_attr=None):
+    """out[:, k] = xᵀ·W[k]·y (+ a [1, size] bias)."""
+    helper = LayerHelper("bilinear_tensor_product", **locals())
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[size, x.shape[1], y.shape[1]],
+                                dtype=x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = (x.shape[0], size)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if helper.bias_attr:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, size], dtype=x.dtype,
+            is_bias=True)]
+    helper.append_op(type="bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", **locals())
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[future_context_size + 1, input.shape[-1]], dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="row_conv", inputs={"X": [input], "Filter": [w]},
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    """weight / σ with U and V, Normal(0, 1) vectors that take no grad."""
+    helper = LayerHelper("spectral_norm", **locals())
+    dtype = weight.dtype
+    h = weight.shape[dim]
+    w_dims = math.prod(d for i, d in enumerate(weight.shape) if i != dim)
+    u, v = (helper.create_parameter(attr=None, shape=[n], dtype=dtype,
+                                    default_initializer=Normal(0.0, 1.0))
+            for n in (h, w_dims))
+    u.stop_gradient = v.stop_gradient = True
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = weight.shape
+    helper.append_op(type="spectral_norm",
+                     inputs={"Weight": [weight], "U": [u], "V": [v]},
+                     outputs={"Out": [out]},
+                     attrs={"dim": dim, "power_iters": power_iters,
+                            "eps": eps})
+    return out
+
+
+def mean_iou(input, label, num_classes):
+    """(mean IoU f32 [1], wrong int32 [k], correct int32 [k])."""
+    helper = LayerHelper("mean_iou")
+    iou = helper.create_variable_for_type_inference(VarDesc.VarType.FP32)
+    wrong, correct = (helper.create_variable_for_type_inference(
+        VarDesc.VarType.INT32) for _ in range(2))
+    helper.append_op(type="mean_iou",
+                     inputs={"Predictions": [input], "Labels": [label]},
+                     outputs={"OutMeanIou": [iou], "OutWrong": [wrong],
+                              "OutCorrect": [correct]},
+                     attrs={"num_classes": num_classes})
+    return iou, wrong, correct
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    loss.shape = (x.shape[0], 1)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return loss
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 − 2·|X∩Y| / (|X| + |Y| + ε) a sample, over the one-hot label,
+    averaged."""
+    label = one_hot(label, depth=input.shape[-1])
+    dims = list(range(1, len(input.shape)))
+    inse = reduce_sum(input * label, dim=dims)
+    denom = reduce_sum(input, dim=dims) + reduce_sum(label, dim=dims)
+    return mean(1 - inse * 2 / (denom + epsilon))
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """An op that calls ``func`` on x's values as numpy arrays on the host
+    and writes its results to ``out`` (Variables made by the caller).
+    ``backward_func`` is recorded but never called: the op has no grad,
+    as in the TPU package."""
+    from .py_func_registry import register_callable
+    helper = LayerHelper("py_func")
+    fid = register_callable(func)
+    bid = register_callable(backward_func) if backward_func else -1
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    helper.append_op(type="py_func", inputs={"X": list(xs)},
+                     outputs={"Out": list(outs)},
+                     attrs={"forward_callable_id": fid,
+                            "backward_callable_id": bid})
+    return out
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0,
+                       name=None):
+    """Greedy CTC decode: each step's top class (topk), then ctc_align
+    merges repeats and drops blanks (reference: layers/nn.py
+    ctc_greedy_decoder). LoD mode (no ``input_length``): LoD [T, C] in,
+    LoD [Tout, 1] ids out. Padding mode: [N, T, C] and its lengths [N, 1]
+    in, (padded ids [N, T], their lengths [N, 1]) out."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    _, idx = topk(input, k=1)
+    ctc_out = helper.create_variable_for_type_inference(
+        VarDesc.VarType.INT64)
+    if input_length is None:
+        helper.append_op(type="ctc_align", inputs={"Input": [idx]},
+                         outputs={"Output": [ctc_out]},
+                         attrs={"merge_repeated": True, "blank": blank})
+        ctc_out.shape = (-1, 1)
+        return ctc_out
+    ctc_out_len = helper.create_variable_for_type_inference(
+        VarDesc.VarType.INT64)
+    helper.append_op(type="ctc_align",
+                     inputs={"Input": [squeeze(idx, [2])],
+                             "InputLength": [input_length]},
+                     outputs={"Output": [ctc_out],
+                              "OutputLength": [ctc_out_len]},
+                     attrs={"merge_repeated": True, "blank": blank,
+                            "padding_value": padding_value})
+    ctc_out.shape = tuple(input.shape[:-1])
+    ctc_out_len.shape = (-1, 1)
+    return ctc_out, ctc_out_len
+
+
+def _pending(name):
+    def layer(*args, **kwargs):
+        _vision_ops_pending(name)
+    layer.__name__ = name
+    layer.__doc__ = (f"{name}: over an op of paddle_tpu/ops/vision_ops.py, "
+                     "not ported yet (raises NotImplementedError).")
+    return layer
+
+
+conv3d_transpose = _pending("conv3d_transpose")
+affine_grid = _pending("affine_grid")
+crop = _pending("crop")
+crop_tensor = _pending("crop_tensor")
+deformable_conv = _pending("deformable_conv")
+deformable_roi_pooling = _pending("deformable_roi_pooling")
+inplace_abn = _pending("inplace_abn")
+prroi_pool = _pending("prroi_pool")
+psroi_pool = _pending("psroi_pool")
+similarity_focus = _pending("similarity_focus")
+
+__all__ += [
+    "conv3d", "conv2d_transpose", "pool3d", "adaptive_pool2d",
+    "adaptive_pool3d", "instance_norm", "group_norm", "data_norm", "lrn",
+    "l2_normalize", "image_resize", "interpolate", "resize_bilinear",
+    "resize_nearest", "resize_trilinear", "image_resize_short",
+    "pixel_shuffle", "space_to_depth", "shuffle_channel", "maxout",
+    "fsp_matrix", "continuous_value_model", "temporal_shift", "unfold",
+    "grid_sampler", "random_crop", "prelu", "affine_channel",
+    "bilinear_tensor_product", "row_conv", "spectral_norm", "mean_iou",
+    "smooth_l1", "dice_loss", "py_func", "ctc_greedy_decoder",
+    "conv3d_transpose", "affine_grid", "crop", "crop_tensor",
+    "deformable_conv", "deformable_roi_pooling", "inplace_abn",
+    "prroi_pool", "psroi_pool", "similarity_focus"]

@@ -2,7 +2,8 @@
 So far: feed, fetch, print, assert, the control flow (while,
 conditional_block, select_input, select_output), the tensor-array ops
 (write_to_array, read_from_array, lod_array_length,
-tensor_array_to_tensor, array_to_lod_tensor) and rnn_memory_helper.
+tensor_array_to_tensor, array_to_lod_tensor), rnn_memory_helper and
+py_func.
 
 A stateful op runs only in the interpreter (as a whole interpreted block,
 or as an island of a segmented one), which passes it its Operator as
@@ -99,6 +100,31 @@ def _assert(ins, attrs):
                 if x is not None]
         raise AssertionError(f"Assert failed; data={data}")
     return {}
+
+
+@register_op("py_func", stateful=True, no_grad=True, needs_device=True,
+             attr_defaults={"forward_callable_id": 0,
+                            "backward_callable_id": -1,
+                            "backward_skip_vars": []})
+def _py_func(ins, attrs):
+    """The Python callable ``forward_callable_id`` on the X tensors as
+    numpy arrays, on the host (an island); its results become the Out
+    tensors on the executor's device, a float64 result as float32, as
+    the TPU package's jnp.asarray gives it. The op has no grad in the
+    TPU package, so ``backward_callable_id`` is never called."""
+    from ..fluid.layers.py_func_registry import get_callable
+    res = get_callable(attrs["forward_callable_id"])(
+        *[x.detach().cpu().numpy() for x in seq(ins, "X")])
+    if not isinstance(res, (list, tuple)):
+        res = [res]
+    outs = []
+    for r in res:
+        a = np.asarray(r)
+        if a.dtype == np.float64:
+            a = a.astype(np.float32)
+        outs.append(torch.from_numpy(np.ascontiguousarray(a))
+                    .to(attrs["_device"]))
+    return out(Out=outs)
 
 
 # --------------------------------------------------------------------------

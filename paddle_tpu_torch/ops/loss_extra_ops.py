@@ -1,7 +1,14 @@
 """Sampled and structured losses (counterpart of
-paddle_tpu/ops/loss_extra_ops.py; reference: operators/nce_op.cc,
-hierarchical_sigmoid_op.cc, linear_chain_crf_op.cc, crf_decoding_op.cc).
-So far: nce, hierarchical_sigmoid, linear_chain_crf and crf_decoding.
+paddle_tpu/ops/loss_extra_ops.py: every op type it registers; reference:
+operators/nce_op.cc, hierarchical_sigmoid_op.cc, linear_chain_crf_op.cc,
+crf_decoding_op.cc, warpctc_op.cc, ctc_align_op.cc, edit_distance_op.cc,
+sample_logits_op.cc, center_loss_op.cc, grid_sampler_op.cc,
+spectral_norm_op.cc, random_crop_op.cc,
+teacher_student_sigmoid_loss_op.cc): nce, hierarchical_sigmoid,
+linear_chain_crf, crf_decoding, warpctc, ctc_align, edit_distance,
+sampled_softmax_with_cross_entropy, center_loss, grid_sampler,
+spectral_norm, random_crop and teacher_student_sigmoid_loss. ctc_align
+and edit_distance run on the host, islands of a segmented step.
 
 Row gathers whose grads add repeated rows (a class drawn twice, a tag
 pair seen twice) go through ``tensor_ops.take_rows``, whose grad sums
@@ -20,7 +27,8 @@ import torch
 from . import rng
 from .registry import register_op, first, out
 from .sequence_ops import _const, _padded, _require_lod, _offs
-from .tensor_ops import take_rows
+from .math_ops import scalar_as
+from .tensor_ops import scatter_rows_add, take_rows
 
 
 def _softplus(x):
@@ -199,3 +207,322 @@ def _crf_decoding(ins, attrs):
     if label is not None:
         path = (path == label.reshape(-1, 1)).to(torch.int64)
     return {"ViterbiPath": [path], "_lod": {"ViterbiPath": [levels]}}
+
+
+# --------------------------------------------------------------------------
+# CTC (reference: warpctc_op.cc, ctc_align_op.cc, edit_distance_op.cc)
+# --------------------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def _lse(a, b):
+    """log(e^a + e^b) with NEG_INF for "unreachable", as the TPU kernel's
+    ``lse`` (loss_extra_ops.py:81-85) computes it. Where both are
+    unreachable the log's argument is 1, not 0: the value is NEG_INF
+    either way, but the grad is 0 where the TPU kernel's is 0/0 = NaN."""
+    m = torch.maximum(a, b)
+    dead = m <= NEG_INF
+    m_safe = torch.where(dead, torch.zeros_like(m), m)
+    s = torch.exp(a - m_safe) + torch.exp(b - m_safe)
+    r = m_safe + torch.log(torch.where(dead, torch.ones_like(s), s))
+    return torch.where(dead, torch.full_like(r, NEG_INF), r)
+
+
+def _lod_offs(attrs, slot):
+    levels = (attrs.get("_lod") or {}).get(slot)
+    if not levels or levels[0] is None:
+        return None
+    return _offs(levels[0])
+
+
+@register_op("warpctc", needs_lod=True, diff_inputs=["Logits"],
+             host_inputs=("Label",),
+             attr_defaults={"blank": 0, "norm_by_times": False})
+def _warpctc(ins, attrs):
+    """The CTC loss of each LoD sequence of Logits [T, C] against its
+    Label sequence: the log-domain α recursion over the extended labels
+    (a blank around each), the sequences padded to [N, Tm] and each one's
+    α frozen past its end, Tm steps unrolled here. ``norm_by_times``
+    divides by the sequence's length. Label is read on the host (a host
+    input: the op runs as an island of a segmented step). A label that
+    its sequence cannot hold gives −NEG_INF = 1e30, as the TPU kernel.
+    The emissions are gathered by ``take_rows``: a label's repeated
+    classes add their grads in a fixed order."""
+    logits, label = first(ins, "Logits"), first(ins, "Label")
+    blank = int(attrs.get("blank", 0))
+    l_offs = _lod_offs(attrs, "Logits")
+    lab_offs = _lod_offs(attrs, "Label")
+    if l_offs is None or lab_offs is None:
+        raise ValueError("warpctc: Logits and Label must carry LoD")
+    dev = logits.device
+    nc = logits.shape[-1]
+    idx, valid = _padded(l_offs)
+    n, tm = idx.shape
+    t_lens = l_offs[1:] - l_offs[:-1]
+    lab_lens = lab_offs[1:] - lab_offs[:-1]
+    labels = label.reshape(-1).cpu().numpy()
+    lm = int(lab_lens.max()) if n else 0
+    s = 2 * lm + 1
+    ext = np.full((n, s), blank, np.int64)
+    for i in range(n):
+        ext[i, 1:2 * int(lab_lens[i]):2] = \
+            labels[lab_offs[i]:lab_offs[i + 1]]
+    skip = np.zeros((n, s), bool)
+    skip[:, 2:] = (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])
+    # emission rows: (sequence i, step t, extended label s) -> class row
+    rows = ((np.arange(n)[:, None, None] * tm
+             + np.arange(tm)[None, :, None]) * nc + ext[:, None, :])
+    logp = torch.log_softmax(logits, -1)
+    lp = torch.where(torch.from_numpy(valid).to(dev)[..., None],
+                     take_rows(logp, torch.from_numpy(idx).to(dev)),
+                     torch.zeros((), dtype=logp.dtype, device=dev))
+    emit = take_rows(lp.reshape(-1, 1), torch.from_numpy(rows).to(dev))
+    emit = emit[..., 0]                                   # [N, Tm, S]
+    skip_t = torch.from_numpy(skip).to(dev)
+    lens_t = torch.from_numpy(t_lens).to(dev)
+    neg = torch.full((n, 1), NEG_INF, dtype=logp.dtype, device=dev)
+    has_label = torch.from_numpy(lab_lens > 0).to(dev)[:, None]
+    alpha = torch.cat([emit[:, 0, :1],
+                       torch.where(has_label, emit[:, 0, 1:2], neg),
+                       neg.expand(n, s - 2)], 1)
+    for t in range(1, tm):
+        prev1 = torch.cat([neg, alpha[:, :-1]], 1)
+        prev2 = torch.cat([neg, neg, alpha[:, :-2]], 1)
+        a = _lse(alpha, prev1)
+        a = torch.where(skip_t, _lse(a, prev2), a)
+        alpha = torch.where((t < lens_t)[:, None], a + emit[:, t], alpha)
+    last = torch.from_numpy(2 * lab_lens).to(dev)[:, None]
+    ll = _lse(torch.gather(alpha, 1, last)[:, 0],
+              torch.gather(alpha, 1, torch.clamp(last - 1, min=0))[:, 0])
+    loss = -ll
+    if attrs.get("norm_by_times", False):
+        loss = loss / lens_t.to(loss.dtype)
+    return {"Loss": [loss.reshape(-1, 1)], "_lod": {"Loss": [None]}}
+
+
+def _merge_drop(seq, blank, merge):
+    """The ids of ``seq`` with each run of repeats merged (``merge``)
+    and the blanks dropped."""
+    kept, prev = [], None
+    for v in seq:
+        if merge and prev is not None and v == prev:
+            continue
+        prev = v
+        if v != blank:
+            kept.append(int(v))
+    return kept
+
+
+@register_op("ctc_align", needs_lod=True, no_grad=True, stateful=True,
+             host_inputs=("InputLength",),
+             attr_defaults={"blank": 0, "merge_repeated": True,
+                            "padding_value": 0})
+def _ctc_align(ins, attrs):
+    """CTC's greedy decode on the host (an island): repeats merged, blanks
+    dropped. With InputLength, padded [N, T] in, padded Output and
+    OutputLength out; else LoD [T, 1] in and out, an empty result a row
+    of −1 (reference: ctc_align_op.cc). Int32 ids, as the TPU kernel
+    gives them."""
+    x_t = first(ins, "Input")
+    dev = x_t.device
+    blank = int(attrs.get("blank", 0))
+    merge = bool(attrs.get("merge_repeated", True))
+    in_len = first(ins, "InputLength")
+    x = x_t.cpu().numpy()
+    if in_len is not None:
+        lens = in_len.reshape(-1).cpu().numpy().astype(np.int64)
+        n, t = x.shape[0], x.shape[-1]
+        res = np.full((n, t), int(attrs.get("padding_value", 0)), np.int32)
+        res_lens = np.zeros((n, 1), np.int64)
+        for i, row in enumerate(x.reshape(n, t)):
+            kept = _merge_drop(row[:int(lens[i])], blank, merge)
+            res[i, :len(kept)] = kept
+            res_lens[i, 0] = len(kept)
+        return {"Output": [torch.from_numpy(res).to(dev)],
+                "OutputLength": [torch.from_numpy(res_lens).to(dev)],
+                "_lod": {"Output": [None], "OutputLength": [None]}}
+    x = x.reshape(-1)
+    offs = _offs(_require_lod(attrs, "Input", "ctc_align"))
+    rows, lens = [], []
+    for i in range(len(offs) - 1):
+        kept = _merge_drop(x[offs[i]:offs[i + 1]], blank, merge) or [-1]
+        rows.extend(kept)
+        lens.append(len(kept))
+    lod0 = tuple(int(v) for v in np.concatenate([[0], np.cumsum(lens)]))
+    return {"Output": [torch.from_numpy(np.asarray(rows, np.int32)
+                                        .reshape(-1, 1)).to(dev)],
+            "_lod": {"Output": [(lod0,)]}}
+
+
+def _levenshtein(a, b):
+    dp = np.arange(len(b) + 1, dtype=np.int64)
+    for x in a:
+        prev = dp.copy()
+        dp[0] = prev[0] + 1
+        for j in range(1, len(b) + 1):
+            dp[j] = min(prev[j] + 1, dp[j - 1] + 1,
+                        prev[j - 1] + (x != b[j - 1]))
+    return int(dp[-1])
+
+
+@register_op("edit_distance", needs_lod=True, no_grad=True, stateful=True,
+             attr_defaults={"normalized": False})
+def _edit_distance(ins, attrs):
+    """The Levenshtein distance of each Hyps sequence to its Refs sequence
+    on the host (an island), over the reference's length with
+    ``normalized`` (reference: edit_distance_op.cc)."""
+    hyp_t = first(ins, "Hyps")
+    hyp = hyp_t.reshape(-1).cpu().numpy()
+    ref = first(ins, "Refs").reshape(-1).cpu().numpy()
+    h_offs = _offs(_require_lod(attrs, "Hyps", "edit_distance"))
+    r_offs = _offs(_require_lod(attrs, "Refs", "edit_distance"))
+    n = len(h_offs) - 1
+    dists = np.zeros((n, 1), np.float32)
+    for i in range(n):
+        b = ref[r_offs[i]:r_offs[i + 1]]
+        d = float(_levenshtein(hyp[h_offs[i]:h_offs[i + 1]], b))
+        if attrs.get("normalized", False) and len(b):
+            d /= len(b)
+        dists[i, 0] = d
+    dev = hyp_t.device
+    return out(Out=torch.from_numpy(dists).to(dev),
+               SequenceNum=torch.full((1,), n, dtype=torch.int64,
+                                      device=dev))
+
+
+# --------------------------------------------------------------------------
+# sampled softmax and the remaining losses and nn ops of the module
+# --------------------------------------------------------------------------
+@register_op("sampled_softmax_with_cross_entropy", needs_rng=True,
+             diff_inputs=["Logits"],
+             attr_defaults={"num_samples": 5, "seed": 0,
+                            "use_customized_samples": False})
+def _sampled_softmax(ins, attrs):
+    """Softmax cross entropy over each row's true class and
+    ``num_samples`` classes drawn uniformly from the op's key
+    (ops/rng.py; the TPU package draws from jax.random). The columns are
+    gathered by ``take_rows``: a class drawn twice adds its grads in a
+    fixed order."""
+    logits, label = first(ins, "Logits"), first(ins, "Label")
+    n, v = logits.shape
+    samples = rng.randint(attrs["_rng"](), (n, int(attrs["num_samples"])),
+                          0, v)
+    cols = torch.cat([label.reshape(n, 1).long(), samples], 1)
+    rows = torch.arange(n, device=logits.device)[:, None] * v + cols
+    sub = take_rows(logits.reshape(-1, 1), rows)[..., 0]
+    return out(Loss=(-torch.log_softmax(sub, -1)[:, 0]).reshape(n, 1))
+
+
+@register_op("center_loss", diff_inputs=["X"],
+             attr_defaults={"cluster_num": 2, "alpha": 0.1,
+                            "need_update": True})
+def _center_loss(ins, attrs):
+    """½‖x − c_label‖² a row, and with ``need_update`` the centers moved by
+    rate·Σ diff / (count + 1) (reference: center_loss_op.cc; the rate
+    from CenterUpdateRate, else the ``alpha`` attr). The sums over a
+    class's rows add in a fixed order (``scatter_rows_add``)."""
+    x = first(ins, "X")
+    label = first(ins, "Label").reshape(-1).long()
+    centers, lr = first(ins, "Centers"), first(ins, "CenterUpdateRate")
+    alpha = lr.reshape(-1)[0] if lr is not None \
+        else scalar_as(attrs.get("alpha", 0.1), x.dtype)
+    diff = x - take_rows(centers, label)
+    loss = 0.5 * (diff * diff).sum(-1, keepdim=True)
+    new_centers = centers
+    if attrs.get("need_update", True):
+        c = centers.shape[0]
+        counts = scatter_rows_add(c, label, torch.ones_like(diff[:, 0])) \
+            + 1.0
+        delta = scatter_rows_add(c, label, diff)
+        new_centers = centers + alpha * delta / counts[:, None]
+    return out(Loss=loss, SampleCenterDiff=diff, CentersOut=new_centers)
+
+
+@register_op("grid_sampler", diff_inputs=["X", "Grid"],
+             attr_defaults={"align_corners": True, "mode": "bilinear",
+                            "padding_mode": "zeros"})
+def _grid_sampler(ins, attrs):
+    """Bilinear sampling of X [N, C, H, W] at Grid [N, Ho, Wo, 2] (x, y in
+    [−1, 1], the corners aligned), a neighbour outside X read as 0; the
+    other attrs are not read, as in the TPU kernel. The neighbours are
+    rows of X as [N·H·W, C] gathered by ``take_rows``, whose grad adds a
+    pixel's repeats in a fixed order."""
+    x, grid = first(ins, "X"), first(ins, "Grid")
+    n, c, h, w = x.shape
+    gx = (grid[..., 0] + 1) * (w - 1) / 2
+    gy = (grid[..., 1] + 1) * (h - 1) / 2
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    lx, ly = gx - x0, gy - y0
+    pixels = x.permute(0, 2, 3, 1).reshape(n * h * w, c)
+    base = torch.arange(n, device=x.device)[:, None, None] * (h * w)
+
+    def at(yy, xx):
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        yc = torch.clamp(yy, 0, h - 1).long()
+        xc = torch.clamp(xx, 0, w - 1).long()
+        return take_rows(pixels, base + yc * w + xc) \
+            * inside[..., None].to(x.dtype)
+
+    o = (at(y0, x0) * ((1 - ly) * (1 - lx))[..., None]
+         + at(y0, x0 + 1) * ((1 - ly) * lx)[..., None]
+         + at(y0 + 1, x0) * (ly * (1 - lx))[..., None]
+         + at(y0 + 1, x0 + 1) * (ly * lx)[..., None])
+    return out(Output=o.movedim(-1, 1))
+
+
+@register_op("spectral_norm", diff_inputs=["Weight"],
+             attr_defaults={"dim": 0, "power_iters": 1, "eps": 1e-12})
+def _spectral_norm(ins, attrs):
+    """Weight / σ, σ = uᵀ·W·v after ``power_iters`` power iterations from U
+    and V on W with ``dim`` first, flattened to a matrix; u and v carry
+    no grad (reference: spectral_norm_op.cc)."""
+    w = first(ins, "Weight")
+    u, v = first(ins, "U").reshape(-1), first(ins, "V").reshape(-1)
+    dim = int(attrs.get("dim", 0))
+    eps = float(attrs.get("eps", 1e-12))
+    mat = w.movedim(dim, 0).reshape(w.shape[dim], -1)
+    with torch.no_grad():
+        m = mat.detach()
+        for _ in range(int(attrs.get("power_iters", 1))):
+            v = m.T @ u
+            v = v / (torch.linalg.vector_norm(v) + eps)
+            u = m @ v
+            u = u / (torch.linalg.vector_norm(u) + eps)
+    return out(Out=w / (u @ mat @ v))
+
+
+@register_op("random_crop", needs_rng=True, no_grad=True,
+             attr_defaults={"shape": [], "startup_seed": 0})
+def _random_crop(ins, attrs):
+    """A window of ``shape`` over X's last dims at offsets drawn uniformly
+    from the op's key (ops/rng.py, one subkey a dim; the TPU package
+    draws from jax.random), taken on the device by ``index_select`` so
+    no offset is read on the host."""
+    x = first(ins, "X")
+    shape = [int(s) for s in attrs["shape"]]
+    key = attrs["_rng"]()
+    lead = x.dim() - len(shape)
+    o = x
+    for i, s in enumerate(shape):
+        d = lead + i
+        start = rng.randint(rng.subkey(key, i), (1,), 0, x.shape[d] - s + 1)
+        o = o.index_select(d, start + torch.arange(s, device=x.device))
+    return out(Out=o)
+
+
+@register_op("teacher_student_sigmoid_loss", diff_inputs=["X"],
+             attr_defaults={"soft_max_up_bound": 15.0,
+                            "soft_max_lower_bound": -15.0})
+def _teacher_student_sigmoid_loss(ins, attrs):
+    """Sigmoid cross entropy against a hard label (label ≥ 0: 1 when it is
+    positive) or a teacher's soft score (label < 0 holds −score − 1), x
+    clipped to the bounds first (reference:
+    teacher_student_sigmoid_loss_op.cc)."""
+    x = first(ins, "X").reshape(-1)
+    label = first(ins, "Label").reshape(-1)
+    lo, hi = (torch.full((), attrs[k], dtype=x.dtype, device=x.device)
+              for k in ("soft_max_lower_bound", "soft_max_up_bound"))
+    x = torch.minimum(torch.maximum(x, lo), hi)
+    hard = _softplus(x) - x * (label > 0).to(x.dtype)
+    soft = _softplus(x) - x * (-(label + 1.0))
+    return out(Y=torch.where(label < 0, soft, hard).reshape(-1, 1))

@@ -1,17 +1,10 @@
-"""Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py; so
-far: elementwise_add, elementwise_sub, elementwise_mul, elementwise_div,
-elementwise_max, elementwise_min, elementwise_pow, elementwise_mod,
-elementwise_floordiv, cumsum, mul,
-matmul, scale, increment, clip, clip_by_norm, squared_l2_norm, l1_norm,
-relu, sigmoid, gelu, square, ceil, floor, cos, exp, sqrt, rsqrt, abs,
-reciprocal, sign, pow, the other activations of the TPU package's table
-(tanh, logsigmoid, tanh_shrink, round, sin, acos, asin, atan, sinh, cosh,
-log, log1p, softplus, softsign, erf, leaky_relu, elu, selu, relu6, brelu,
-soft_relu, hard_sigmoid, hard_swish, swish, stanh, softshrink, hard_shrink,
-thresholded_relu), cos_sim, mean, sum, the reduce_* family, isfinite,
-isnan, isinf, the
-comparisons less_than, less_equal, greater_than, greater_equal, equal and
-not_equal, and logical_and, logical_or, logical_xor and logical_not).
+"""Dense math op kernels (counterpart of paddle_tpu/ops/math_ops.py:
+every op type it registers): the elementwise family, the comparisons and
+logical ops, mul, matmul, matmul_v2, bmm, dot, mv, addmm and kron, the
+activations of the TPU package's table with prelu, the reductions,
+logsumexp, the norms (squared_l2_norm, l1_norm, frobenius_norm, p_norm,
+dist), scale, clip, clip_by_norm, increment, cumsum, trace, cos_sim,
+maximum, minus, isfinite, isnan, isinf, allclose, inverse and cholesky.
 
 Semantics follow the reference op contracts:
   * elementwise_* broadcast: Y aligns to X at ``axis`` (default -1 =
@@ -498,3 +491,153 @@ def _cumsum(ins, attrs):
     if attrs.get("reverse", False):
         o = o.flip(ax)
     return out(Out=o)
+
+
+# --------------------------------------------------------------------------
+# the products, norms and linear algebra of the TPU package's math_ops.py
+# (its products are plain jnp outside any Pallas kernel, so here they are
+# torch.matmul, under FLAGS_use_bf16_matmul where the TPU kernel's _mm is)
+# --------------------------------------------------------------------------
+@register_op("matmul_v2", inputs=("X", "Y"),
+             attr_defaults={"trans_x": False, "trans_y": False})
+def _matmul_v2(ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    if attrs.get("trans_x", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("trans_y", False):
+        y = y.transpose(-1, -2)
+    return out(Out=_mm(x, y))
+
+
+@register_op("bmm", inputs=("X", "Y"))
+def _bmm(ins, attrs):
+    return out(Out=_mm(first(ins, "X"), first(ins, "Y")))
+
+
+@register_op("dot", inputs=("X", "Y"))
+def _dot(ins, attrs):
+    x, y = first(ins, "X"), first(ins, "Y")
+    return out(Out=torch.sum(x * y, -1, keepdim=x.dim() == 1))
+
+
+@register_op("mv", inputs=("X", "Vec"))
+def _mv(ins, attrs):
+    return out(Out=torch.matmul(first(ins, "X"), first(ins, "Vec")))
+
+
+@register_op("addmm", inputs=("Input", "X", "Y"),
+             attr_defaults={"Alpha": 1.0, "Beta": 1.0})
+def _addmm(ins, attrs):
+    inp, x, y = first(ins, "Input"), first(ins, "X"), first(ins, "Y")
+    return out(Out=scalar_as(attrs.get("Beta", 1.0), inp.dtype) * inp
+               + scalar_as(attrs.get("Alpha", 1.0), x.dtype)
+               * torch.matmul(x, y))
+
+
+@register_op("kron", inputs=("X", "Y"))
+def _kron(ins, attrs):
+    return out(Out=torch.kron(first(ins, "X"), first(ins, "Y")))
+
+
+@register_op("trace", inputs=("Input",),
+             attr_defaults={"offset": 0, "axis1": 0, "axis2": 1})
+def _trace(ins, attrs):
+    return out(Out=torch.diagonal(
+        first(ins, "Input"), offset=attrs.get("offset", 0),
+        dim1=attrs.get("axis1", 0), dim2=attrs.get("axis2", 1)).sum(-1))
+
+
+@register_op("logsumexp", inputs=("X",),
+             attr_defaults={"axis": [0], "keepdim": False,
+                            "reduce_all": False})
+def _logsumexp(ins, attrs):
+    x = first(ins, "X")
+    axes = tuple(range(x.dim())) if attrs.get("reduce_all") else tuple(
+        int(d) % x.dim() for d in (attrs.get("axis") or [0]))
+    o = torch.logsumexp(x, dim=axes, keepdim=attrs.get("keepdim", False))
+    return out(Out=o.reshape((1,)) if o.dim() == 0 else o)
+
+
+@register_op("frobenius_norm", inputs=("X",),
+             attr_defaults={"dim": [0], "keep_dim": False,
+                            "reduce_all": False})
+def _frobenius_norm(ins, attrs):
+    x = first(ins, "X")
+    o = torch.sqrt(_over(torch.sum)(torch.square(x), _reduce_axes(x, attrs),
+                                    attrs.get("keep_dim", False)))
+    return out(Out=o.reshape((1,)) if o.dim() == 0 else o)
+
+
+@register_op("p_norm", inputs=("X",),
+             attr_defaults={"porder": 2.0, "axis": -1, "epsilon": 1e-12,
+                            "keepdim": False})
+def _p_norm(ins, attrs):
+    """(Σ|x|^p)^(1/p) along ``axis`` (``epsilon`` unused, as in the TPU
+    kernel)."""
+    x = first(ins, "X")
+    p = attrs.get("porder", 2.0)
+    return out(Out=torch.sum(torch.abs(x) ** p, int(attrs.get("axis", -1)),
+                             keepdim=attrs.get("keepdim", False))
+               ** (1.0 / p))
+
+
+@register_op("dist", inputs=("X", "Y"), attr_defaults={"p": 2.0})
+def _dist(ins, attrs):
+    """The p-norm of X − Y flattened: p = 0 counts the nonzero elements,
+    p = inf takes the largest."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    p = attrs.get("p", 2.0)
+    d = torch.abs(x - y).reshape(-1)
+    if p == 0:
+        o = (d != 0).sum().to(x.dtype)
+    elif math.isinf(p):
+        o = torch.amax(d)
+    else:
+        o = torch.sum(d ** p) ** (1.0 / p)
+    return out(Out=o.reshape((1,)))
+
+
+@register_op("prelu", inputs=("X", "Alpha"), attr_defaults={"mode": "all"})
+def _prelu(ins, attrs):
+    """x where x > 0, else alpha·x: one alpha (``all``), one a channel
+    (``channel``, dim 1) or one an element of a sample (``element``)."""
+    x, alpha = first(ins, "X"), first(ins, "Alpha")
+    mode = attrs.get("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "element":
+        alpha = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return out(Out=torch.where(x > 0, x, alpha * x))
+
+
+@register_op("maximum", inputs=("X", "Y"))
+def _maximum(ins, attrs):
+    return out(Out=torch.maximum(first(ins, "X"), first(ins, "Y")))
+
+
+@register_op("minus", inputs=("X", "Y"))
+def _minus(ins, attrs):
+    return out(Out=first(ins, "X") - first(ins, "Y"))
+
+
+@register_op("allclose", inputs=("Input", "Other"), no_grad=True,
+             attr_defaults={"rtol": 1e-5, "atol": 1e-8, "equal_nan": False})
+def _allclose(ins, attrs):
+    """[1] bool on the inputs' device: |a − b| ≤ atol + rtol·|b| at every
+    element."""
+    return out(Out=torch.isclose(
+        first(ins, "Input"), first(ins, "Other"),
+        rtol=attrs.get("rtol", 1e-5), atol=attrs.get("atol", 1e-8),
+        equal_nan=attrs.get("equal_nan", False)).all().reshape((1,)))
+
+
+@register_op("inverse", inputs=("Input",))
+def _inverse(ins, attrs):
+    return out(Output=torch.linalg.inv(first(ins, "Input")))
+
+
+@register_op("cholesky", inputs=("X",), attr_defaults={"upper": False})
+def _cholesky(ins, attrs):
+    lo = torch.linalg.cholesky(first(ins, "X"))
+    return out(Out=lo.transpose(-1, -2) if attrs.get("upper", False)
+               else lo)

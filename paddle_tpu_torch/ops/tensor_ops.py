@@ -757,21 +757,47 @@ def _pad(ins, attrs):
         x, _torch_pads(pairs), value=attrs.get("pad_value", 0.0)))
 
 
+def take_index(x, dim, idx):
+    """``x`` at positions ``idx`` (an int64 vector) of ``dim``, through
+    ``take_rows``: a position taken twice adds its grads in a fixed
+    order (autograd's ``index_add_`` adds with atomics on the card)."""
+    return take_rows(x.movedim(dim, 0), idx).movedim(0, dim)
+
+
+def _border_index(n, before, after, mode, device):
+    """The source positions of a dim of ``n`` padded by ``before`` and
+    ``after``: its reflection without the edge, or the edge repeated."""
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "reflect":
+        i = i.abs()
+        return torch.where(i > n - 1, 2 * (n - 1) - i, i)
+    return i.clamp(0, n - 1)
+
+
 @register_op("pad2d", inputs=("X",),
              attr_defaults={"paddings": [0, 0, 0, 0], "mode": "constant",
                             "pad_value": 0.0, "data_format": "NCHW"})
 def _pad2d(ins, attrs):
     """H and W padded by (top, bottom, left, right): a constant, the
-    reflection without the edge, or the edge repeated."""
+    reflection without the edge, or the edge repeated. The reflection
+    and the edge gather rows and columns (``take_index``), so their grad
+    adds in a fixed order, where ``F.pad``'s adds with atomics on the
+    card."""
     x = first(ins, "X")
     p = [int(v) for v in attrs["paddings"]]
-    mode = {"constant": "constant", "reflect": "reflect",
-            "edge": "replicate"}[attrs.get("mode", "constant")]
+    mode = attrs.get("mode", "constant")
     nhwc = attrs.get("data_format", "NCHW") != "NCHW"
     if nhwc:
         x = x.permute(0, 3, 1, 2)
-    kw = {"value": attrs.get("pad_value", 0.0)} if mode == "constant" else {}
-    o = torch.nn.functional.pad(x, [p[2], p[3], p[0], p[1]], mode=mode, **kw)
+    if mode == "constant":
+        o = torch.nn.functional.pad(x, [p[2], p[3], p[0], p[1]],
+                                    value=attrs.get("pad_value", 0.0))
+    else:
+        for dim, (a, b) in ((2, p[:2]), (3, p[2:])):
+            if a or b:
+                x = take_index(x, dim, _border_index(x.shape[dim], a, b,
+                                                     mode, x.device))
+        o = x
     return out(Out=o.permute(0, 2, 3, 1) if nhwc else o)
 
 

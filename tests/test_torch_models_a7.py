@@ -532,7 +532,10 @@ def test_chip_smoke_phase_20_rehearsed(monkeypatch):
 
     def gate(exe, delta, want, what):
         assert exe._last_run_mode == "compiled", what
-        n = runs[id(exe._last_block)] = runs.get(id(exe._last_block), 0) + 1
+        # the block is held, so that a later block cannot take its id
+        seen = runs.setdefault(id(exe._last_block), [exe._last_block, 0])
+        seen[1] += 1
+        n = seen[1]
         return ("eager", "capture")[n - 1] if n <= 2 else "replay"
     monkeypatch.setattr(cs, "_gate_run", gate)
     monkeypatch.setattr(cs, "_interpreted", lambda iexe, main, feed, fetch,

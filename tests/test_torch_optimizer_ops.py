@@ -127,8 +127,10 @@ def test_the_registry_has_the_optimizer_stacks_ops():
     # then 61: tensor_ops' 53, isinf, isnan, lstm, lstm_unit, nce,
     # hierarchical_sigmoid, linear_chain_crf and crf_decoding; then 24:
     # the 9 left of rnn_ops, the 10 LoD control ops, fusion_gru,
-    # fusion_lstm, rnn_memory_helper, cumsum and elementwise_floordiv
-    assert len(TOPS.all_op_types()) == 123 + 49 + 6 + 61 + 24
+    # fusion_lstm, rnn_memory_helper, cumsum and elementwise_floordiv;
+    # then 69: the rest of nn_ops (29), math_ops (17), nn_extra_ops (13)
+    # and loss_extra_ops (9), and py_func
+    assert len(TOPS.all_op_types()) == 123 + 49 + 6 + 61 + 24 + 69
 
 
 @pytest.mark.parametrize("lo,hi", [(-0.5, 0.5), (0.0, 2.0), (-3.0, -1.0)])

@@ -37,20 +37,12 @@ REMAINDER = frozenset({
     "split_ids",
     # paddle_tpu/ops/framework_ops.py
     "delete_var", "fake_init", "get_tensor_from_selected_rows", "load",
-    "load_combine", "merge_selected_rows", "py_func", "save", "save_combine",
+    "load_combine", "merge_selected_rows", "save", "save_combine",
     # paddle_tpu/ops/fused_ops.py
     "attention_lstm", "conv2d_inception_fusion", "fused_embedding_fc_lstm",
     "fused_embedding_seq_pool", "fusion_group", "fusion_repeated_fc_relu",
     "fusion_seqpool_cvm_concat", "fusion_squared_mat_sub",
     "fusion_transpose_flatten_concat",
-    # paddle_tpu/ops/loss_extra_ops.py
-    "center_loss", "ctc_align", "edit_distance", "grid_sampler", "random_crop",
-    "sampled_softmax_with_cross_entropy", "spectral_norm",
-    "teacher_student_sigmoid_loss", "warpctc",
-    # paddle_tpu/ops/math_ops.py
-    "addmm", "allclose", "bmm", "cholesky", "dist", "dot", "frobenius_norm",
-    "inverse", "kron", "logsumexp", "matmul_v2", "maximum", "minus", "mv",
-    "p_norm", "prelu", "trace",
     # paddle_tpu/ops/metrics_misc_ops.py
     "batch_fc", "chunk_eval", "coalesce_tensor", "detection_map", "fill",
     "fill_zeros_like2", "filter_by_instag", "get_places",
@@ -61,19 +53,6 @@ REMAINDER = frozenset({
     "tree_conv", "var_conv_2d",
     # paddle_tpu/ops/misc_ops.py
     "hash",
-    # paddle_tpu/ops/nn_extra_ops.py
-    "affine_channel", "bilinear_tensor_product", "cvm", "fsp",
-    "iou_similarity", "maxout", "mean_iou", "pad_constant_batch_size_like",
-    "row_conv", "sigmoid_focal_loss", "squared_l2_distance", "temporal_shift",
-    "unfold",
-    # paddle_tpu/ops/nn_ops.py
-    "bce_loss", "bilinear_interp", "bpr_loss", "conv2d_transpose", "conv3d",
-    "cross_entropy2", "data_norm", "group_norm", "hinge_loss", "huber_loss",
-    "instance_norm", "kldiv_loss", "log_softmax", "lrn", "margin_rank_loss",
-    "max_pool2d_with_index", "max_pool3d_with_index", "mse_loss",
-    "nearest_interp", "nll_loss", "norm", "pixel_shuffle", "pool3d",
-    "rank_loss", "shuffle_channel", "sigmoid_cross_entropy_with_logits",
-    "smooth_l1_loss", "space_to_depth", "sync_batch_norm",
     # paddle_tpu/ops/ps_quant_misc_ops.py
     "create_custom_reader", "create_double_buffer_reader", "create_py_reader",
     "cudnn_lstm", "dequantize", "dequantize_abs_max", "dequantize_log", "dgc",

@@ -474,7 +474,10 @@ def test_chip_smoke_phase_21_rehearsed(monkeypatch):
         assert exe._last_run_mode == mode, (what, exe._last_run_mode)
         if mode == "interpreted":
             return mode
-        n = runs[id(exe._last_block)] = runs.get(id(exe._last_block), 0) + 1
+        # the block is held, so that a later block cannot take its id
+        seen = runs.setdefault(id(exe._last_block), [exe._last_block, 0])
+        seen[1] += 1
+        n = seen[1]
         return ("eager", "capture")[n - 1] if n <= 2 else "replay"
     monkeypatch.setattr(cs, "_gate_run", lambda exe, delta, want, what:
                         kind(exe, "compiled", what))
