@@ -620,6 +620,53 @@ Phases, each fatal on failure:
               Executor.run. The path's launches are those of the three
               programs' training, the eval and the decode, counted from
               zero; the checks' launches are counted apart.
+ 23. det    — the detection batch, each program at its source's widths
+              with random weights from a seed, f32, synthetic images and
+              ground truth from a seed (COCO-like: 1-20 boxes an image;
+              VOC-like: 1-6), 10 steps on one fixed batch, the first 3 in
+              lock step with the interpreter (fetches and persistables
+              bitwise), a trace of one step, each loss falling; the eval
+              programs timed (3 runs, then DET_EVAL_RUNS). (a) YOLOv3
+              (PaddleDetection configs/yolov3_darknet.yml, release/0.2;
+              Redmon & Farhadi 2018): DarkNet-53, 608x608, batch 8, 80
+              classes, 50 boxes at most, the nine anchors and three
+              masks, Momentum 0.9 with L2Decay 5e-4 at 1e-3 (the warm-up
+              cut); yolov3_loss is pure, so a step is one CUDA-graph
+              replay; the eval program (yolo_box a head, multiclass_nms:
+              score 0.01, top 1000, keep 100, NMS 0.45, no background)
+              timed with the NMS island's share, saved and served by
+              AnalysisPredictor at batch 1. (b) MobileNet-SSD (PaddleCV
+              ssd/mobilenet_ssd.py, models 1.7; PaddleDetection
+              ssd_mobilenet_v1_voc.yml): 300x300, batch 32, 21 classes,
+              multi_box_head over the 19 ... 1 maps (1917 priors),
+              ssd_loss as the TPU package builds it, RMSProp 1e-3 with
+              L2Decay 5e-5; segmented (bipartite_match and target_assign
+              are islands); the eval program (detection_output,
+              detection_map 11point) timed. (c) Faster R-CNN R50-FPN
+              (PaddleDetection faster_rcnn_r50_fpn_1x.yml): one image,
+              800x1333 padded to 800x1344 (batch 1 is forced: the
+              reference's collect_fpn_proposals merges a batch into one
+              sequence), frozen BN as affine_channel (the residual
+              branches' last scale 0.25: random weights), stem and res2
+              frozen, FPN P2-P6 of 256, anchors 32-512, rpn_target_assign
+              (256, 0.7 / 0.3), generate_proposals a level (2000 /
+              2000), collect, generate_proposal_labels (512, 0.25 at
+              0.5), distribute (level 4 at 224), roi_align 7x7 (ratio
+              2), two fc of 1024, 81 classes, Momentum 0.9 with L2Decay
+              1e-4 at 0.02 / 16; the samplers' seeds pinned; segmented,
+              each step's proposals new LoDs (a new plan where they
+              change: the steps' kinds and times reported); the eval
+              program (box_decoder_and_assign, box_clip, multiclass_nms)
+              timed. Then, counted apart, card vs CPU at small sizes
+              (YOLO_CHECK, SSD_CHECK, FRCN_CHECK: ``_md_card_vs_cpu``
+              under an ``IslandTape``: each CPU island takes the card's
+              inputs and must give the card's outputs exactly, the CPU
+              goes on from them, the selections that parted on the CPU's
+              own inputs counted; losses, step 1's grads by the conv
+              nets' rule, the eval programs' outputs), and (d) the 44 op
+              types (``_det_battery``) on the card against the CPU port,
+              the host ops' outputs exactly. Twelve kernels: 0 launches,
+              wrappers, graphs and traces.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -8026,7 +8073,8 @@ def _md_run(main, fetch, feed):
 
 
 def _md_train(book, what, runs, starts, want, mode="compiled",
-              finite=(), overshoots=False, tag=MD_TAG, keep_scope=False):
+              finite=(), overshoots=False, tag=MD_TAG, keep_scope=False,
+              new_plans=False):
     """MD_STEPS steps on one fixed batch on the card, ``mode`` "compiled"
     or "segmented", from the ``starts`` (startup programs) run into one
     scope. A step runs each (main, fetch, feed_fn) of ``runs`` once in
@@ -8040,10 +8088,15 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
     with ``overshoots`` (a run whose updates overshoot on the repeated
     batch, its every loss held to the CPU port's by ``_md_card_vs_cpu``)
     below the first at some step; the first run's fetches at ``finite``
-    (indices) are finite; ``tag`` heads its lines. → its readings (with
-    ``keep_scope`` the executor, to be closed, and the trained scope
-    too): losses by run, the step's p50 (ms) over the replayed steps,
-    peak memory (bytes, with what was allocated before the startup)."""
+    (indices) are finite; ``tag`` heads its lines. ``new_plans``: a
+    segmented step whose islands give new LoDs as the weights move runs
+    as a new plan where they change, so how each step ran is reported,
+    not gated, and every step after the lock is timed. → its readings
+    (with ``keep_scope`` the executor, to be closed, and the trained
+    scope too): losses by run, the step's p50 (ms) over the replayed
+    steps (every step after the lock with ``new_plans``), peak memory
+    (bytes, with what was allocated before the startup), how each run
+    of each step ran and each step's ms."""
     import numpy as np
     import torch
     from paddle_tpu_torch import fluid
@@ -8059,7 +8112,7 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
     iscope = _clone_scope(scope, names, "cuda")
     losses = [[] for _ in runs]
     kinds = [[] for _ in runs]
-    times = []
+    times, step_ms = [], []
     for i in range(MD_STEPS):
         outs, feeds, dt = [], [], 0.0
         for j, (main, fetch, feed_fn) in enumerate(runs):
@@ -8086,11 +8139,13 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
                     if not np.isfinite(out[k]).all():
                         raise AssertionError(f"{tag} {what}: fetch {k} is "
                                              "not finite")
-        if all(k[-1] == "replay" for k in kinds):
+        step_ms.append(dt * 1e3)
+        if all(k[-1] == "replay" for k in kinds) or (new_plans and
+                                                    i >= MD_LOCK):
             times.append(dt)
     iexe.close()
     runs_as = tuple(MD_LOCK_EXECS) + ("replay",) * (MD_STEPS - MD_LOCK)
-    if any(tuple(k) != runs_as for k in kinds):
+    if not new_plans and any(tuple(k) != runs_as for k in kinds):
         raise AssertionError(f"{tag} {what}: runs {kinds}")
     for j, ls in enumerate(losses):
         falls = (min(ls[1:]) if overshoots else ls[-1]) < ls[0]
@@ -8111,15 +8166,19 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
     p50 = float(np.median(times)) * 1e3
     _log(f"{tag} {what}: {MD_STEPS} steps on one batch"
          + (f", {n} runs a step" if n > 1 else "")
-         + f" ({' '.join(MD_LOCK_EXECS)}, then replays, {mode}), the first "
+         + (f" ({' '.join(kinds[0])}, {mode})" if new_plans else
+            f" ({' '.join(MD_LOCK_EXECS)}, then replays, {mode})")
+         + ", the first "
          f"{MD_LOCK} bitwise the interpreter's, loss "
          + "; ".join(" ".join(f"{x:.4f}" for x in ls) for ls in losses)
-         + f"; step p50 {p50:.3f} ms over {len(times)} replayed steps, "
+         + f"; step p50 {p50:.3f} ms over {len(times)} "
+         + ("steps after them" if new_plans else "replayed steps") + ", "
          f"peak memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
          f"GiB above the {base / 2**30:.3f} GiB held before) on "
          f"{_card_line()}; launches a run {want} -> ok")
     res = {"losses": losses, "p50_ms": p50, "peak_gib": peak / 2**30,
-           "net_gib": (peak - base) / 2**30}
+           "net_gib": (peak - base) / 2**30, "kinds": kinds,
+           "step_ms": step_ms}
     if keep_scope:
         res.update(exe=exe, scope=scope)
     else:
@@ -8139,18 +8198,22 @@ def _md_noise_grads(block):
             and a.input("Y")[0] in params}
 
 
-def _md_grads_agree(names, gpu, cpu, noise, conv):
+def _md_grads_agree(names, gpu, cpu, noise, conv, tiny=False):
     """Each grad of ``names`` on the card against the CPU's: max|d|
     within GRAD_TOL of its max|grad|, or for a conv net (``conv``) within
     KINK_L2_TOL in relative L2; the ``_md_noise_grads`` within GRAD_TOL
-    of the largest grad of all (``noise``). → (names that disagree, (the
-    worst share of its limit, its name), the largest grad)."""
+    of the largest grad of all (``noise``), and with ``tiny`` so is every
+    grad whose max|grad| is itself within GRAD_TOL of the largest (a
+    batch norm scale's grad at a random start, a sum that cancels to
+    1e-5 of the step's grads, rounds as they do). → (names that
+    disagree, (the worst share of its limit, its name), the largest
+    grad)."""
     import numpy as np
     top = max(float(np.abs(b).max()) for b in cpu)
     bad, worst = [], (-1.0, "")
     for name, a, b in zip(names, gpu, cpu):
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        if name in noise:
+        if name in noise or (tiny and np.abs(b).max() <= GRAD_TOL * top):
             err, lim = float(np.abs(a - b).max()), GRAD_TOL * top
         elif conv:
             err = float(np.linalg.norm(a - b))
@@ -8167,7 +8230,8 @@ def _md_grads_agree(names, gpu, cpu, noise, conv):
 
 def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
                     conv=False, steps=MD_CHECK_STEPS, adaptive=False,
-                    tag=MD_TAG, noise=(), resync=False):
+                    tag=MD_TAG, noise=(), resync=False, tape=None,
+                    tiny=False):
     """``steps`` steps on the card and by the port on the CPU from the
     card's startup values and step counter (so the random ops draw
     alike). The first also fetches every parameter's grad, held by
@@ -8186,9 +8250,12 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
     from the one start, is held as its grad (the learning rate, momentum
     and weight decay as each side applied them); each later step starts
     the CPU from the card's state, its loss within LOSS_TOL. → the
-    card's fetches of the last step."""
+    card's fetches of the last step. ``tape`` (an ``IslandTape``)
+    records the host ops of each card step and the CPU's step replays
+    them. ``tiny``: ``_md_grads_agree``'s."""
     import numpy as np
     from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops.registry import OPS
     names = [v.name for v in main.list_vars() if v.persistable]
     block = main.global_block()
     grads = [p.name + "@GRAD" for p in block.all_parameters()
@@ -8206,19 +8273,25 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
                 _persistables(cpu_scope, main)
             moves = [[(s[g[:-5]].double().cpu() - start[g[:-5]].double()
                        .cpu()).numpy() for g in grads] for s in (card, cpu)]
-            mbad, mworst, _ = _md_grads_agree(grads, *moves, noise, conv)
+            mbad, mworst, _ = _md_grads_agree(grads, *moves, noise, conv,
+                                              tiny)
             bad += [f"{g[:-5]}'s update" for g in mbad]
         if i and resync:
             cpu_scope = _clone_scope(scope, names, "cpu")
         f = list(fetch) + (grads if i == 0 else [])
-        gpu = exe.run(main, feed=feed, fetch_list=f, scope=scope)
-        cpu = cpu_exe.run(main, feed=feed, fetch_list=f, scope=cpu_scope)
+        with (tape.recording(OPS, _det_card_np) if tape
+              else contextlib.nullcontext()):
+            gpu = exe.run(main, feed=feed, fetch_list=f, scope=scope)
+        with (tape.replaying(OPS, _det_cpu_from_np, _det_card_np) if tape
+              else contextlib.nullcontext()):
+            cpu = cpu_exe.run(main, feed=feed, fetch_list=f,
+                              scope=cpu_scope)
         pairs.append((float(gpu[0].reshape(-1)[0]),
                       float(cpu[0].reshape(-1)[0])))
         if i == 0:
             n = len(fetch)
             bad, worst, top = _md_grads_agree(grads, gpu[n:], cpu[n:],
-                                              noise, conv)
+                                              noise, conv, tiny)
             bad += [f"fetch {k}" for k in exact
                     if not np.array_equal(gpu[k], cpu[k])]
             first = gpu
@@ -8242,6 +8315,7 @@ def _md_card_vs_cpu(book, what, main, startup, fetch, feed, exact=(),
          + f"); the first step's {len(grads)} parameter grads, {rule} ("
          f"{len(noise)} grads that are 0 but for rounding"
          + (f" ({', '.join(sorted(noise))})" if 0 < len(noise) <= 2 else "")
+         + (", and the grads whose max|grad| is as small," if tiny else "")
          + f" within {GRAD_TOL:g} of the largest grad, {top:.3e}): the "
          f"worst {worst[1]} at "
          f"{worst[0]:.3f} of its limit" + (
@@ -10187,22 +10261,28 @@ def _vs_seeded(programs):
     return programs
 
 
-def _vs_timed(book, exe, scope, main, feed, fetch, mode, what):
-    """3 + VS_EVAL_RUNS runs of ``main`` (eager, capture, replays), each
-    gated; → (the last fetches, the p50 of the timed runs in ms)."""
+def _vs_timed(book, exe, scope, main, feed, fetch, mode, what, tag=VS_TAG,
+              runs=None, clock=()):
+    """3 + ``runs`` (VS_EVAL_RUNS by default) runs of ``main`` (eager,
+    capture, replays), each gated, the timed ones under
+    ``_det_host_clock(clock)``; → (the last fetches, the p50 of the
+    timed runs in ms, the clocked host ops' share of their wall time)."""
     import numpy as np
-    times, kinds = [], []
-    for _ in range(3 + VS_EVAL_RUNS):
-        before = _launch_counts()
-        t = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
-                      return_numpy=False)
-        times.append(time.perf_counter() - t)
-        kinds.append(_gate_mode(exe, before, NO_KERNELS, f"{VS_TAG} {what}",
+    times, kinds, host = [], [], 0.0
+    for i in range(3 + (VS_EVAL_RUNS if runs is None else runs)):
+        with _det_host_clock(clock if i >= 3 else ()) as spent:
+            before = _launch_counts()
+            t = time.perf_counter()
+            out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            times.append(time.perf_counter() - t)
+        host += spent["seconds"]
+        kinds.append(_gate_mode(exe, before, NO_KERNELS, f"{tag} {what}",
                                 book, mode))
     if kinds[-1] != "replay":
-        raise AssertionError(f"{VS_TAG} {what}: runs {kinds}")
-    return out, float(np.median(times[3:])) * 1e3
+        raise AssertionError(f"{tag} {what}: runs {kinds}")
+    return (out, float(np.median(times[3:])) * 1e3,
+            host / sum(times[3:]))
 
 
 def _vs_gan(book):
@@ -10293,7 +10373,7 @@ def _vs_deeplab(book):
                     f"{DL_BATCH}, Xception-65", _md_run(main, [loss], feed),
                     [startup], want, tag=VS_TAG, keep_scope=True)
     exe = res.pop("exe")
-    out, res["eval_p50_ms"] = _vs_timed(
+    out, res["eval_p50_ms"], _ = _vs_timed(
         book, exe, res.pop("scope"), test, feed, [miou, wrong, correct],
         "compiled", "(b) the eval clone")
     exe.close()
@@ -10395,7 +10475,7 @@ def _vs_crnn(book):
          f"segments and {res['islands']} islands ({', '.join(reasons)}): "
          f"{' '.join(kinds)}")
     test = main.clone(for_test=True)
-    out, res["decode_p50_ms"] = _vs_timed(
+    out, res["decode_p50_ms"], _ = _vs_timed(
         book, exe, scope, test, feed, [decoded, dist], "segmented",
         "(c) the decode")
     _log(f"{VS_TAG} (c) greedy decode and edit distance at batch "
@@ -10421,18 +10501,20 @@ def _vs_crnn_check(book):
                     tag=VS_TAG)
 
 
-def _vs_battery_run(book):
+def _vs_battery_run(book, cases=None, tag=VS_TAG, exact=()):
     """(d) Every op type of the batch on the card against the CPU port
-    (``_vs_battery``'s cases): each output (integers exactly, floats at
-    VS_TOL) and, where it has one, the generic grad under a seeded output
-    grad. None launches a counted kernel. → how many cases."""
+    (``cases``, by default ``_vs_battery``'s): each output (integers
+    exactly, floats at VS_TOL, or exactly for the op types in ``exact``)
+    and, where it has one, the generic grad under a seeded output grad.
+    None launches a counted kernel. ``tag`` heads the lines. → how many
+    cases."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops import rng as oprng
     from paddle_tpu_torch.ops.registry import OPS, run_generic_grad
     before = _launch_counts()
     worst = (0.0, "")
-    cases = _vs_battery()
+    cases = _vs_battery() if cases is None else cases
     for op_type, ins, attrs, lod, diff in cases:
         info = OPS.get(op_type)
         got = {}
@@ -10463,8 +10545,9 @@ def _vs_battery_run(book):
         for k, vals in got["cpu"].items():
             for i, (c, gpu) in enumerate(zip(vals, got[VS_CARD][k])):
                 what = f"{op_type} {k}[{i}]"
-                if c.dtype.kind != "f":
-                    ok = np.array_equal(c, gpu)
+                if c.dtype.kind != "f" or op_type in exact:
+                    ok = c.shape == gpu.shape and np.array_equal(
+                        c, gpu, equal_nan=c.dtype.kind == "f")
                     err = 0.0 if ok else np.inf
                 else:
                     ok = np.allclose(gpu, c, rtol=VS_TOL[0], atol=VS_TOL[1],
@@ -10472,15 +10555,17 @@ def _vs_battery_run(book):
                     err = float(np.nanmax(np.abs(gpu - c))) if c.size else 0.
                 worst = max(worst, (err, what))
                 if not ok:
-                    raise AssertionError(f"{VS_TAG} (d) {what}: the card and "
+                    raise AssertionError(f"{tag} (d) {what}: the card and "
                                          f"the CPU differ by {err:.3e}")
     if _delta(before) != NO_KERNELS:
-        raise AssertionError(f"{VS_TAG} (d) the battery launched "
+        raise AssertionError(f"{tag} (d) the battery launched "
                              f"{_delta(before)}")
-    _log(f"{VS_TAG} (d) {len(cases)} op types on the card against the CPU "
+    _log(f"{tag} (d) {len(cases)} op types on the card against the CPU "
          f"port, forward and generic grads (rtol {VS_TOL[0]:g}, atol "
-         f"{VS_TOL[1]:g}; integers exactly): the largest difference "
-         f"{worst[0]:.3e} ({worst[1]}) -> ok")
+         f"{VS_TOL[1]:g}; integers"
+         + (f" and the {len(exact)} host ops' outputs" if exact else "")
+         + f" exactly): the largest difference {worst[0]:.3e} ({worst[1]})"
+         " -> ok")
     return len(cases)
 
 
@@ -10597,6 +10682,1144 @@ def phase_vision():
             "check_executed": tuple(checks.executed), **res}
 
 
+
+# --------------------------------------------------------------------------
+# phase 23: the detection batch
+# --------------------------------------------------------------------------
+DET_TAG = "[det]"
+YOLO_IMAGE = 608              # (a) YOLOv3 DarkNet-53 (PaddleDetection
+YOLO_BATCH = 8                # configs/yolov3_darknet.yml, release/0.2;
+YOLO_CLASSES = 80             # Redmon & Farhadi 2018): 608x608, batch 8,
+YOLO_BOXES = 50               # 80 classes, 50 ground-truth boxes at most,
+YOLO_STAGES = (1, 2, 8, 8, 4)  # DarkNet-53's residual blocks a stage
+YOLO_ANCHORS = (10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326)
+YOLO_MASKS = ((6, 7, 8), (3, 4, 5), (0, 1, 2))  # the 32, 16, 8 heads
+YOLO_LR = 1e-3                # Momentum 0.9 with L2Decay 5e-4 (the
+YOLO_L2 = 5e-4                # warm-up's 4000 steps cut)
+SSD_IMAGE = 300               # (b) MobileNet-SSD on VOC (PaddleCV
+SSD_BATCH = 32                # ssd/mobilenet_ssd.py, models release 1.7;
+SSD_CLASSES = 21              # PaddleDetection ssd_mobilenet_v1_voc.yml):
+SSD_BLOCKS = 5                # 300x300, batch 32, 21 classes; the five
+SSD_LR = 1e-3                 # 512-wide blocks at 19x19; RMSProp 1e-3
+SSD_L2 = 5e-5                 # with L2Decay 5e-5 (ssd/train.py)
+SSD_BOXES = (1, 6)            # VOC-like ground truth: 1-6 boxes an image
+FRCN_IMAGE = (800, 1344)      # (c) Faster R-CNN R50-FPN (PaddleDetection
+FRCN_STAGES = (3, 4, 6, 3)    # faster_rcnn_r50_fpn_1x.yml): one image,
+FRCN_CLASSES = 81             # 800x1333 padded to 1344, 81 classes,
+FRCN_LR = 0.02 / 16           # Momentum 0.9 with L2Decay 1e-4: the
+FRCN_L2 = 1e-4                # config's 0.02 at 16 images scaled to one
+                              # (the warm-up cut); COCO-like ground truth,
+FRCN_BOXES = (1, 20)          # 1-20 boxes
+FRCN_PROPOSALS = (2000, 1000)  # pre- and post-NMS a level, train and test
+FRCN_ROIS = 512               # RoIs sampled an image for the box head
+FRCN_BRANCH_SCALE = 0.25      # a residual branch's frozen scale at start
+FRCN_SEEDS = {"rpn_target_assign": 11, "generate_proposal_labels": 12}
+
+
+def _yolo_conv(fluid, x, nf, k, s=1):
+    """DarkNet's conv: no bias, batch_norm, leaky_relu 0.1."""
+    y = fluid.layers.conv2d(
+        x, nf, k, stride=s, padding=(k - 1) // 2, bias_attr=False,
+        param_attr=fluid.ParamAttr(
+            initializer=fluid.initializer.Normal(0.0, 0.01)))
+    return fluid.layers.leaky_relu(fluid.layers.batch_norm(y), alpha=0.1)
+
+
+def yolov3_program(fluid, depth=YOLO_STAGES, width=1.0, image=YOLO_IMAGE,
+                   classes=YOLO_CLASSES, boxes=YOLO_BOXES, lr=YOLO_LR):
+    """(a) YOLOv3: DarkNet-53 (a 3x3 conv of 32, then five stages of a
+    stride-2 3x3 conv and ``depth[i]`` residual blocks of a 1x1 and a 3x3
+    conv, 64 to 1024 channels times ``width``); three heads at strides
+    32, 16 and 8, each five convs alternating 1x1 (512, 256, 128) and
+    3x3, a 3x3 tip and a 1x1 conv with bias to 3 x (5 + classes), the
+    route of each upsampled x2 (resize_nearest) into the next; a
+    yolov3_loss a head over the nine anchors and its mask, their means
+    summed. Momentum 0.9 with L2Decay YOLO_L2. The eval program (a clone
+    for test before the loss): yolo_box a head (conf 0.01), the boxes
+    joined and multiclass_nms (score 0.01, nms_top_k 1000, keep_top_k
+    100, threshold 0.45, no background, pixel boxes). → (main, startup,
+    eval program, loss, the NMS output)."""
+    L = fluid.layers
+    cw = lambda c: _w(width, c)  # noqa: E731
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.data("image", [3, image, image], "float32")
+        gt_box = fluid.data("gt_box", [boxes, 4], "float32")
+        gt_label = fluid.data("gt_label", [boxes], "int32")
+        y = _yolo_conv(fluid, img, cw(32), 3)
+        feats = []
+        for i, n in enumerate(depth):
+            c = 64 << i
+            y = _yolo_conv(fluid, y, cw(c), 3, 2)
+            for _ in range(n):
+                r = _yolo_conv(fluid, _yolo_conv(fluid, y, cw(c // 2), 1),
+                               cw(c), 3)
+                y = L.elementwise_add(y, r)
+            feats.append(y)
+        heads, route = [], None
+        for feat, c in zip(feats[:1:-1], (512, 256, 128)):
+            if route is not None:
+                r = _yolo_conv(fluid, route, cw(c), 1)
+                r = L.resize_nearest(r, out_shape=[feat.shape[2],
+                                                   feat.shape[3]])
+                feat = L.concat([r, feat], axis=1)
+            y = feat
+            for _ in range(2):
+                y = _yolo_conv(fluid, _yolo_conv(fluid, y, cw(c), 1),
+                               cw(2 * c), 3)
+            route = _yolo_conv(fluid, y, cw(c), 1)
+            tip = _yolo_conv(fluid, route, cw(2 * c), 3)
+            heads.append(L.conv2d(
+                tip, 3 * (5 + classes), 1,
+                param_attr=fluid.ParamAttr(
+                    initializer=fluid.initializer.Normal(0.0, 0.01))))
+        test = main.clone(for_test=True)
+        loss = L.sums([L.reduce_mean(L.yolov3_loss(
+            h, gt_box, gt_label, list(YOLO_ANCHORS), list(m), classes, 0.7,
+            32 >> i)) for i, (h, m) in enumerate(zip(heads, YOLO_MASKS))])
+        fluid.optimizer.Momentum(
+            lr, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(YOLO_L2)).minimize(loss)
+    with fluid.program_guard(test, fluid.Program()):
+        im_size = fluid.data("im_size", [2], "int32")
+        bs, ss = [], []
+        for i, (h, m) in enumerate(zip(heads, YOLO_MASKS)):
+            b, s = L.yolo_box(test.global_block().var(h.name), im_size,
+                              [YOLO_ANCHORS[2 * a + k] for a in m
+                               for k in (0, 1)], classes, 0.01, 32 >> i)
+            bs.append(b)
+            ss.append(L.transpose(s, [0, 2, 1]))
+        pred = L.multiclass_nms(L.concat(bs, axis=1), L.concat(ss, axis=2),
+                                0.01, 1000, 100, 0.45, normalized=False,
+                                background_label=-1)
+    return main, startup, test, loss, pred
+
+
+def _ssd_conv_bn(fluid, x, nf, k, s, groups=1):
+    y = fluid.layers.conv2d(x, nf, k, stride=s, padding=(k - 1) // 2,
+                            groups=groups, bias_attr=False)
+    return fluid.layers.batch_norm(y, act="relu")
+
+
+def _ssd_separable(fluid, x, c_in, c_out, s, cw):
+    """MobileNet's depthwise 3x3 (groups = its channels) and pointwise
+    1x1, each with BN and ReLU."""
+    y = _ssd_conv_bn(fluid, x, cw(c_in), 3, s, groups=cw(c_in))
+    return _ssd_conv_bn(fluid, y, cw(c_out), 1, 1)
+
+
+def ssd_program(fluid, depth=SSD_BLOCKS, width=1.0, image=SSD_IMAGE,
+                classes=SSD_CLASSES, lr=SSD_LR):
+    """(b) MobileNet-SSD: MobileNet v1 times ``width`` (``depth`` of its
+    five 512-wide separable blocks at 19x19), four extra blocks (a 1x1
+    then a stride-2 3x3 conv: 256-512, 128-256, 128-256, 64-128);
+    multi_box_head over the 19, 10, 5, 3, 2 and 1 maps (min_sizes 60 ...
+    285, max_sizes [[], 150 ... 300], aspect ratios [2] then [2, 3],
+    flip: 1917 priors at 300x300); ssd_loss as the TPU package builds it,
+    summed. RMSProp with L2Decay SSD_L2. The eval program (a clone for
+    test before the loss): detection_output of the softmax scores (NMS
+    0.45) and detection_map (11point, difficult ground truth left out)
+    against the label rows [label, difficult, box]. → (main, startup,
+    eval program, loss, the detections, the mAP)."""
+    L = fluid.layers
+    cw = lambda c: _w(width, c)  # noqa: E731
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.data("image", [3, image, image], "float32")
+        gt_box = fluid.data("gt_box", [4], "float32", lod_level=1)
+        gt_label = fluid.data("gt_label", [1], "int32", lod_level=1)
+        difficult = fluid.data("gt_difficult", [1], "int32", lod_level=1)
+        y = _ssd_conv_bn(fluid, img, cw(32), 3, 2)
+        for c_in, c_out, s in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                               (128, 256, 2), (256, 256, 1),
+                               (256, 512, 2)):
+            y = _ssd_separable(fluid, y, c_in, c_out, s, cw)
+        for _ in range(depth):
+            y = _ssd_separable(fluid, y, 512, 512, 1, cw)
+        maps = [y]
+        y = _ssd_separable(fluid, y, 512, 1024, 2, cw)
+        maps.append(_ssd_separable(fluid, y, 1024, 1024, 1, cw))
+        for c1, c2 in ((256, 512), (128, 256), (128, 256), (64, 128)):
+            y = _ssd_conv_bn(fluid, maps[-1], cw(c1), 1, 1)
+            maps.append(_ssd_conv_bn(fluid, y, cw(c2), 3, 2))
+        locs, confs, box, var = L.multi_box_head(
+            maps, img, image, classes,
+            [[2.0]] + [[2.0, 3.0]] * 5, min_ratio=20, max_ratio=90,
+            min_sizes=[60.0, 105.0, 150.0, 195.0, 240.0, 285.0],
+            max_sizes=[[], 150.0, 195.0, 240.0, 285.0, 300.0], flip=True,
+            offset=0.5)
+        test = main.clone(for_test=True)
+        loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label, box,
+                                       var))
+        fluid.optimizer.RMSProp(
+            lr, regularization=fluid.regularizer.L2Decay(SSD_L2)).minimize(
+                loss)
+    with fluid.program_guard(test, fluid.Program()):
+        v = test.global_block().var
+        dets = L.detection_output(v(locs.name), L.softmax(v(confs.name)),
+                                  v(box.name), v(var.name),
+                                  nms_threshold=0.45)
+        label = L.concat([L.cast(v(gt_label.name), "float32"),
+                          L.cast(v(difficult.name), "float32"),
+                          v(gt_box.name)], axis=1)
+        m_ap = L.detection_map(dets, label, classes, 0, 0.5, False,
+                               ap_version="11point")
+    return main, startup, test, loss, dets, m_ap
+
+
+def _frcn_conv_affine(fluid, x, nf, k, s=1, act="relu", frozen=False,
+                      scale=1.0):
+    """ResNet's conv (no bias) and its frozen BN as affine_channel (scale
+    and bias not trained, as PaddleDetection's affine_channel norm; the
+    scale starts at ``scale``); ``frozen``: the conv's filter not trained
+    either (freeze_at 2)."""
+    L = fluid.layers
+    y = L.conv2d(x, nf, k, stride=s, padding=(k - 1) // 2, bias_attr=False,
+                 param_attr=fluid.ParamAttr(
+                     trainable=not frozen,
+                     initializer=fluid.initializer.Normal(
+                         0.0, (2.0 / (x.shape[1] * k * k)) ** 0.5)))
+    gamma = L.create_parameter([nf], "float32", attr=fluid.ParamAttr(
+        trainable=False, initializer=fluid.initializer.Constant(scale)))
+    beta = L.create_parameter([nf], "float32", attr=fluid.ParamAttr(
+        trainable=False, initializer=fluid.initializer.Constant(0.0)))
+    y = L.affine_channel(y, gamma, beta)
+    return L.relu(y) if act == "relu" else y
+
+
+def _frcn_bottleneck(fluid, x, c, s, cw, frozen):
+    """A bottleneck (1x1, 3x3 at stride ``s``, 1x1 to 4c) and its
+    shortcut; the branch's last frozen scale starts at FRCN_BRANCH_SCALE,
+    so that 16 residual blocks of random filters keep the activations'
+    scale, as a trained net's frozen BN does (from random weights with
+    scales of 1 each block doubles the variance: a loss of 1.7e3 at
+    init, then NaN)."""
+    y = _frcn_conv_affine(fluid, x, cw(c), 1, 1, frozen=frozen)
+    y = _frcn_conv_affine(fluid, y, cw(c), 3, s, frozen=frozen)
+    y = _frcn_conv_affine(fluid, y, cw(4 * c), 1, act=None, frozen=frozen,
+                          scale=FRCN_BRANCH_SCALE)
+    short = x if x.shape[1] == cw(4 * c) and s == 1 else _frcn_conv_affine(
+        fluid, x, cw(4 * c), 1, s, act=None, frozen=frozen)
+    return fluid.layers.relu(fluid.layers.elementwise_add(y, short))
+
+
+def _frcn_levels(fluid, feats, cw):
+    """FPN: 1x1 laterals to 256 (times the width), the top-down sum with
+    x2 nearest upsampling, 3x3 outputs; P6 a stride-2 1x1 max pool of P5.
+    → [P2, P3, P4, P5, P6]."""
+    L = fluid.layers
+    lat = [L.conv2d(f, cw(256), 1) for f in feats]
+    tops = [lat[-1]]
+    for lt in lat[-2::-1]:
+        up = L.resize_nearest(tops[-1], out_shape=[lt.shape[2],
+                                                   lt.shape[3]])
+        tops.append(L.elementwise_add(lt, up))
+    outs = [L.conv2d(t, cw(256), 3, padding=1) for t in tops[::-1]]
+    return outs + [L.pool2d(outs[-1], 1, "max", 2)]
+
+
+def faster_rcnn_program(fluid, depth=FRCN_STAGES, width=1.0,
+                        image=FRCN_IMAGE, classes=FRCN_CLASSES, lr=FRCN_LR,
+                        proposals=FRCN_PROPOSALS, rois=FRCN_ROIS):
+    """(c) Faster R-CNN with FPN: ResNet-50 (``depth`` bottlenecks a
+    stage, widths times ``width``) with frozen BN as affine_channel, the
+    stem and res2 frozen; FPN P2-P6 of 256; an RPN head shared by the
+    levels (3x3 conv, then 1x1 to 3 objectness logits and 12 deltas),
+    anchors 32-512 at ratios 0.5, 1, 2 (variances 1); rpn_target_assign
+    over the levels' anchors (256 an image, 0.5 foreground, 0.7 / 0.3),
+    its sigmoid loss meaned and its smooth L1 (sigma 3) over 256;
+    generate_proposals a level (pre- and post-NMS ``proposals[0]``, 2000
+    in training, NMS 0.7), collect_fpn_proposals (as many),
+    generate_proposal_labels (``rois`` an image, 512,
+    0.25 foreground at 0.5, weights 0.1, 0.1, 0.2, 0.2), then
+    distribute_fpn_proposals (P2-P5, level 4 at 224), roi_align 7x7 on
+    each level (sampling ratio 2), the RoIs put back in order; two fc of
+    1024 and the classifier and box regressor over ``classes``; softmax
+    loss meaned and smooth L1 (sigma 1) meaned. Momentum 0.9 with
+    L2Decay FRCN_L2. The samplers' seeds are pinned (FRCN_SEEDS), so
+    each run draws alike. The eval program (built alike, with
+    ``proposals[1]``, 1000 in test): box_decoder_and_assign picks each RoI's best-class box,
+    box_clip, then multiclass_nms (score 0.05, keep 100, NMS 0.5, pixel
+    boxes). → (main, startup, eval program, loss, the NMS output)."""
+    import numpy as np
+    L = fluid.layers
+    cw = lambda c: _w(width, c)  # noqa: E731
+    h, w = image
+
+    def backbone_and_rpn(train):
+        img = fluid.data("image", [3, h, w], "float32")
+        im_info = fluid.data("im_info", [3], "float32")
+        y = _frcn_conv_affine(fluid, img, cw(64), 7, 2, frozen=True)
+        y = L.pool2d(y, 3, "max", 2, pool_padding=1)
+        feats = []
+        for i, n in enumerate(depth):
+            for b in range(n):
+                y = _frcn_bottleneck(fluid, y, 64 << i,
+                                     2 if b == 0 and i else 1, cw, i == 0)
+            feats.append(y)
+        levels = _frcn_levels(fluid, feats, cw)
+        rpn = {}
+        shared = [fluid.ParamAttr(name=f"rpn_{k}.w") for k in
+                  ("conv", "cls", "box")]
+        biases = [fluid.ParamAttr(name=f"rpn_{k}.b") for k in
+                  ("conv", "cls", "box")]
+        for li, p in enumerate(levels):
+            t = L.conv2d(p, cw(256), 3, padding=1, act="relu",
+                         param_attr=shared[0], bias_attr=biases[0])
+            cls = L.conv2d(t, 3, 1, param_attr=shared[1], bias_attr=biases[1])
+            box = L.conv2d(t, 12, 1, param_attr=shared[2], bias_attr=biases[2])
+            anc, var = L.anchor_generator(
+                p, [32.0 * 2 ** li], [0.5, 1.0, 2.0], [1.0] * 4,
+                [4.0 * 2 ** li] * 2)
+            rpn.setdefault("cls", []).append(cls)
+            rpn.setdefault("box", []).append(box)
+            rpn.setdefault("anchor", []).append(anc)
+            rpn.setdefault("var", []).append(var)
+            pre = proposals[0 if train else 1]
+            rois, probs = L.generate_proposals(
+                L.sigmoid(cls), box, im_info, anc, var, pre, pre, 0.7, 0.0)
+            rpn.setdefault("rois", []).append(rois)
+            rpn.setdefault("probs", []).append(probs)
+        fpn_rois = L.collect_fpn_proposals(rpn["rois"], rpn["probs"], 2, 6,
+                                           proposals[0 if train else 1])
+        return img, im_info, levels, rpn, fpn_rois
+
+    def roi_head(levels, rois):
+        multi, restore = L.distribute_fpn_proposals(rois, 2, 5, 4, 224)
+        pooled = [L.roi_align(p, r, 7, 7, 1.0 / (4 << i), 2)
+                  for i, (p, r) in enumerate(zip(levels[:4], multi))]
+        feat = L.gather(L.concat(pooled, axis=0), restore)
+        fc = L.fc(L.fc(feat, cw(1024), act="relu"), cw(1024), act="relu")
+        cls = L.fc(fc, classes, param_attr=fluid.ParamAttr(
+            initializer=fluid.initializer.Normal(0.0, 0.01)))
+        box = L.fc(fc, 4 * classes, param_attr=fluid.ParamAttr(
+            initializer=fluid.initializer.Normal(0.0, 0.001)))
+        return cls, box
+
+    def flat(vs, k):
+        return L.concat([L.reshape(L.transpose(v, [0, 2, 3, 1]), [0, -1, k])
+                         for v in vs], axis=1)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img, im_info, levels, rpn, fpn_rois = backbone_and_rpn(True)
+        gt_box = fluid.data("gt_box", [4], "float32", lod_level=1)
+        gt_class = fluid.data("gt_class", [1], "int32", lod_level=1)
+        is_crowd = fluid.data("is_crowd", [1], "int32", lod_level=1)
+        anchors = L.concat([L.reshape(a, [-1, 4]) for a in rpn["anchor"]],
+                           axis=0)
+        avars = L.concat([L.reshape(v, [-1, 4]) for v in rpn["var"]], axis=0)
+        score, loc, s_tgt, l_tgt, l_w = L.rpn_target_assign(
+            flat(rpn["box"], 4), flat(rpn["cls"], 1), anchors, avars,
+            gt_box, is_crowd, im_info, 256, 0.0, 0.5, 0.7, 0.3, True)
+        s_tgt = L.cast(s_tgt, "float32")
+        s_tgt.stop_gradient = True
+        rpn_cls = L.reduce_mean(L.sigmoid_cross_entropy_with_logits(score,
+                                                                    s_tgt))
+        rpn_box = L.scale(L.reduce_sum(L.smooth_l1(loc, l_tgt, l_w, l_w,
+                                                   3.0)), 1.0 / 256)
+        rois, labels, b_tgt, b_in, b_out = L.generate_proposal_labels(
+            fpn_rois, gt_class, is_crowd, gt_box, im_info, rois, 0.25, 0.5,
+            0.5, 0.0, [0.1, 0.1, 0.2, 0.2], classes, True)
+        cls, box = roi_head(levels, rois)
+        ce = L.reduce_mean(L.softmax_with_cross_entropy(
+            cls, L.cast(labels, "int64")))
+        reg = L.reduce_mean(L.smooth_l1(box, b_tgt, b_in, b_out, 1.0))
+        loss = L.sums([rpn_cls, rpn_box, ce, reg])
+        fluid.optimizer.Momentum(
+            lr, momentum=0.9,
+            regularization=fluid.regularizer.L2Decay(FRCN_L2)).minimize(loss)
+    for op in main.global_block().ops:
+        if op.type in FRCN_SEEDS:
+            op._set_attr("seed", FRCN_SEEDS[op.type])
+    test = fluid.Program()
+    # names counted afresh: the eval program's parameters are the main's
+    with fluid.unique_name.guard(), \
+            fluid.program_guard(test, fluid.Program()):
+        img, im_info, levels, _, fpn_rois = backbone_and_rpn(False)
+        cls, box = roi_head(levels, fpn_rois)
+        prob = L.softmax(cls)
+        pvar = L.assign(np.asarray([0.1, 0.1, 0.2, 0.2], "float32"))
+        _, best = L.box_decoder_and_assign(fpn_rois, pvar, box, prob, 4.135)
+        best = L.box_clip(best, im_info)
+        pred = L.multiclass_nms(
+            L.reshape(best, [1, -1, 4]),
+            L.transpose(L.reshape(prob, [1, -1, classes]), [0, 2, 1]),
+            0.05, -1, 100, 0.5, normalized=False, background_label=0)
+    return main, startup, test, loss, pred
+
+
+def _det_boxes(rng, n, w, h, lo=0.02, hi=0.5):
+    """``n`` random valid xyxy boxes inside w x h, sides lo to hi of it."""
+    import numpy as np
+    bw = rng.uniform(lo, hi, n) * w
+    bh = rng.uniform(lo, hi, n) * h
+    x1 = rng.uniform(0, 1, n) * (w - bw)
+    y1 = rng.uniform(0, 1, n) * (h - bh)
+    return np.stack([x1, y1, x1 + bw, y1 + bh], 1).astype("float32")
+
+
+def yolo_feed(rng, bs, image=YOLO_IMAGE, classes=YOLO_CLASSES,
+              boxes=YOLO_BOXES, per_image=FRCN_BOXES):
+    """Images in [0, 1) and COCO-like ground truth: 1-20 boxes an image
+    (``per_image``) as relative (cx, cy, w, h), padded with zero rows to
+    ``boxes``; labels in [0, classes)."""
+    import numpy as np
+    gt = np.zeros((bs, boxes, 4), "float32")
+    lab = np.zeros((bs, boxes), "int32")
+    for i in range(bs):
+        n = min(rng.randint(per_image[0], per_image[1] + 1), boxes)
+        b = _det_boxes(rng, n, 1.0, 1.0)
+        gt[i, :n] = np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3])
+                              / 2, b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], 1)
+        lab[i, :n] = rng.randint(0, classes, n)
+    return {"image": rng.uniform(0, 1, (bs, 3, image, image)).astype(
+        "float32"), "gt_box": gt, "gt_label": lab}
+
+
+def ssd_feed(rng, bs, image=SSD_IMAGE, classes=SSD_CLASSES,
+             per_image=SSD_BOXES):
+    """Images in [0, 1) and VOC-like ground truth: 1-6 normalized xyxy
+    boxes an image (LoD), labels in [1, classes), a tenth difficult."""
+    import numpy as np
+    n = rng.randint(per_image[0], per_image[1] + 1, bs)
+    offs = [0] + [int(v) for v in np.cumsum(n)]
+    t = offs[-1]
+    return {"image": rng.uniform(0, 1, (bs, 3, image, image)).astype(
+                "float32"),
+            "gt_box": (_det_boxes(rng, t, 1.0, 1.0, 0.05, 0.6), offs),
+            "gt_label": (rng.randint(1, classes, (t, 1)).astype("int32"),
+                         offs),
+            "gt_difficult": ((rng.rand(t, 1) < 0.1).astype("int32"), offs)}
+
+
+def frcn_feed(rng, image=FRCN_IMAGE, classes=FRCN_CLASSES,
+              per_image=FRCN_BOXES):
+    """One image: its content (h, w − 11 of the padded size, as 800x1333
+    in 800x1344) in [0, 1), COCO-like ground truth of 1-20 pixel boxes
+    within it, labels in [1, classes), none crowd."""
+    import numpy as np
+    h, w = image
+    cw = w - 11 if w > 64 else w
+    n = rng.randint(per_image[0], per_image[1] + 1)
+    img = np.zeros((1, 3, h, w), "float32")
+    img[:, :, :, :cw] = rng.uniform(0, 1, (1, 3, h, cw))
+    offs = [0, n]
+    return {"image": img,
+            "im_info": np.array([[h, cw, 1.0]], "float32"),
+            "gt_box": (_det_boxes(rng, n, cw, h, 0.04, 0.4), offs),
+            "gt_class": (rng.randint(1, classes, (n, 1)).astype("int32"),
+                         offs),
+            "is_crowd": (np.zeros((n, 1), "int32"), offs)}
+
+
+# the detection batch's host ops: islands, selections with data-dependent
+# sizes (ops/detection_ops.py, detection_train_ops.py, metrics_misc_ops.py)
+DET_HOST_OPS = (
+    "bipartite_match", "target_assign", "multiclass_nms", "multiclass_nms2",
+    "roi_pool", "generate_proposals", "distribute_fpn_proposals",
+    "collect_fpn_proposals", "rpn_target_assign", "retinanet_target_assign",
+    "retinanet_detection_output", "locality_aware_nms", "mine_hard_examples",
+    "generate_proposal_labels", "generate_mask_labels",
+    "roi_perspective_transform", "detection_map")
+
+
+class IslandTape:
+    """The host ops' calls of one run, replayed into another: where the
+    dense layers before a selection (NMS, top-k, matching, sampling)
+    round otherwise on two sides (the card and the CPU, or two
+    packages), a near-tie can part their selections, and everything
+    after differs. ``recording(ops, to_np)`` patches the kernels of
+    DET_HOST_OPS in the registry ``ops`` to keep each call's inputs,
+    LoD and outputs as numpy. ``replaying(ops, from_np, to_np)`` patches
+    another registry's: each call takes the next record of its op type,
+    runs its own kernel on the RECORDED inputs, which must give the
+    recorded outputs exactly (the island held exactly), and returns
+    that; it also runs the kernel on its own inputs, and counts the
+    selections that parted (``parted``: integers or LoD other than the
+    record's, or floats beyond ``rtol``, ``atol``: a gathered payload
+    rounds as its inputs do) and the float inputs' largest relative L2
+    from the record (``input_rel_l2``), so that the dense parts before
+    an island are held too. ``rewind()`` replays the records again (a
+    second run of the same step)."""
+
+    def __init__(self, rtol=1e-4, atol=1e-5):
+        self.rtol, self.atol = rtol, atol
+        self.records = {}
+        self.cursor = {}
+        self.parted = 0
+        self.held = 0
+        self.input_rel_l2 = 0.0
+
+    def rewind(self):
+        self.cursor = {}
+
+    @contextlib.contextmanager
+    def _patched(self, ops, make):
+        saved = {}
+        for t in DET_HOST_OPS:
+            if ops.has(t):
+                info = ops.get(t)
+                saved[t] = info.kernel
+                info.kernel = make(t, info.kernel)
+        try:
+            yield self
+        finally:
+            for t, k in saved.items():
+                ops.get(t).kernel = k
+
+    def recording(self, ops, to_np):
+        def make(t, orig):
+            def kernel(ins, attrs):
+                outs = orig(ins, attrs)
+                self.records.setdefault(t, []).append((
+                    {s: [None if v is None else to_np(v) for v in vals]
+                     for s, vals in ins.items()},
+                    attrs.get("_lod"), _tape_outs(outs, to_np)))
+                return outs
+            return kernel
+        return self._patched(ops, make)
+
+    def replaying(self, ops, from_np, to_np):
+        import numpy as np
+
+        def make(t, orig):
+            def kernel(ins, attrs):
+                k = self.cursor.get(t, 0)
+                self.cursor[t] = k + 1
+                rec_ins, rec_lod, rec_outs = self.records[t][k]
+                own = _tape_outs(orig(ins, attrs), to_np)
+                self.parted += not own.close(rec_outs, self.rtol, self.atol)
+                for s, vals in ins.items():
+                    for v, r in zip(vals, rec_ins.get(s) or []):
+                        if v is None or r is None or r.dtype.kind != "f":
+                            continue
+                        a = np.asarray(to_np(v), np.float64)
+                        b = np.asarray(r, np.float64)
+                        err = (float(np.linalg.norm(a - b)
+                                     / max(np.linalg.norm(b), 1e-30))
+                               if a.shape == b.shape else np.inf)
+                        self.input_rel_l2 = max(self.input_rel_l2, err)
+                mine_ins = {s: [None if r is None else from_np(r, v)
+                                for r, v in zip(rec_ins[s], vals)]
+                            for s, vals in ins.items()}
+                a2 = dict(attrs)
+                if "_lod" in attrs:
+                    a2["_lod"] = rec_lod
+                outs = orig(mine_ins, a2)
+                if _tape_outs(outs, to_np) != rec_outs:
+                    raise AssertionError(f"{t}: the island's outputs on the "
+                                         "recorded inputs differ from the "
+                                         "record")
+                self.held += 1
+                return outs
+            return kernel
+        return self._patched(ops, make)
+
+
+class _TapeOuts:
+    """A host op's outputs as numpy, compared exactly (values, shapes and
+    LoD; not dtypes: the TPU package keeps int64 as int32)."""
+
+    def __init__(self, arrays, lod):
+        self.arrays, self.lod = arrays, lod
+
+    def __eq__(self, other):
+        return self.close(other, 0.0, 0.0)
+
+    def close(self, other, rtol, atol):
+        """Equal but for floats within ``rtol``, ``atol``."""
+        import numpy as np
+        if self.lod != other.lod or self.arrays.keys() != \
+                other.arrays.keys():
+            return False
+        for k in self.arrays:
+            a, b = self.arrays[k], other.arrays[k]
+            if len(a) != len(b) or any(x.shape != y.shape for x, y in
+                                       zip(a, b)):
+                return False
+            for x, y in zip(a, b):
+                if x.dtype.kind == "f":
+                    if not np.allclose(x, y, rtol=rtol, atol=atol,
+                                       equal_nan=True):
+                        return False
+                elif not np.array_equal(x, y):
+                    return False
+        return True
+
+
+def _tape_outs(outs, to_np):
+    return _TapeOuts({k: [to_np(v) for v in vals] for k, vals in outs.items()
+                      if not k.startswith("_")}, outs.get("_lod"))
+
+
+def _det_battery():
+    """(d) One case of each of the batch's 44 op types: (op type, its
+    inputs as numpy arrays, attrs, the ``_lod`` attr or None, the slots
+    its generic grad is taken for). Made from a seed; the parity tests
+    run the same cases against the TPU package."""
+    import numpy as np
+    from paddle_tpu_torch.ops import detection_ops as det
+    r = np.random.RandomState(SEED + 23)
+    x = lambda *s: _vs_x(r, *s)  # noqa: E731
+
+    def boxes(n, size=1.0, lo=0.05):
+        return _det_boxes(r, n, size, size, lo, 0.5)
+    i32 = lambda v: np.asarray(v, "int32")  # noqa: E731
+    anchors = det._anchor_np(6, 8, {
+        "anchor_sizes": [16.0, 32.0], "aspect_ratios": [0.5, 1.0, 2.0],
+        "stride": [8.0, 8.0], "variances": [0.1] * 4})[0].reshape(-1, 4)
+    gt, gt_lod = boxes(5, 60.0, 0.2), ((0, 3, 5),)
+    rois = boxes(6, 16.0, 0.1)
+    roi_lod = {"ROIs": [((0, 2, 6),)]}
+    nms_scores = r.rand(2, 4, 40).astype("float32")
+    nms_scores[r.rand(2, 4, 40) < 0.3] = 0.5                # ties
+    nms_boxes = np.stack([boxes(40) for _ in range(2)])
+    polys = r.uniform(5, 50, (9, 2)).astype("float32")
+    yolo_gt = np.zeros((2, 6, 4), "float32")
+    yolo_gt[:, :4] = np.concatenate([r.uniform(0.1, 0.9, (2, 4, 2)),
+                                     r.uniform(0.05, 0.5, (2, 4, 2))], -1)
+    det_rows = np.concatenate([r.randint(1, 5, (7, 1)),
+                               np.round(r.rand(7, 1) * 8) / 8,
+                               boxes(7, 50.0, 0.2)], 1).astype("float32")
+    map_gt = np.concatenate([r.randint(1, 5, (5, 1)),
+                             (r.rand(5, 1) < 0.3), boxes(5, 50.0, 0.2)],
+                            1).astype("float32")
+    cases = [
+        # detection_ops: the generators and the pure ops
+        ("prior_box", {"Input": [x(1, 4, 3, 4)], "Image": [x(1, 3, 12, 16)]},
+         {"min_sizes": [2.0, 4.0], "max_sizes": [3.0, 6.0],
+          "aspect_ratios": [2.0, 3.0], "flip": True, "clip": True}, None,
+         []),
+        ("density_prior_box", {"Input": [x(1, 2, 2, 3)],
+                               "Image": [x(1, 3, 16, 24)]},
+         {"densities": [2, 1], "fixed_sizes": [4.0, 8.0],
+          "fixed_ratios": [1.0, 2.0]}, None, []),
+        ("anchor_generator", {"Input": [x(1, 2, 3, 4)]},
+         {"anchor_sizes": [32.0, 64.0], "stride": [8.0, 8.0]}, None, []),
+        ("box_coder", {"PriorBox": [boxes(7)], "TargetBox": [boxes(5)]},
+         {"variance": [0.1, 0.1, 0.2, 0.2]}, None, ["TargetBox"]),
+        ("box_clip", {"Input": [r.uniform(-5, 40, (5, 4)).astype(
+            "float32")], "ImInfo": [np.array([[20, 30, 1.0], [16, 12, 2.0]],
+                                             "float32")]},
+         {}, {"Input": [((0, 2, 5),)]}, ["Input"]),
+        ("yolo_box", {"X": [x(2, 27, 5, 6)], "ImgSize": [i32([[40, 48],
+                                                             [33, 50]])]},
+         {"anchors": [4, 5, 6, 9, 11, 8], "class_num": 4,
+          "conf_thresh": 0.3, "downsample_ratio": 8}, None, []),
+        ("yolov3_loss", {"X": [x(2, 27, 4, 4) * 0.5], "GTBox": [yolo_gt],
+                         "GTLabel": [r.randint(0, 4, (2, 6)).astype(
+                             "int32")]},
+         {"anchors": list(YOLO_ANCHORS), "anchor_mask": [0, 1, 2],
+          "class_num": 4, "downsample_ratio": 8}, None, ["X"]),
+        ("roi_align", {"X": [x(2, 3, 8, 10)], "ROIs": [rois]},
+         {"pooled_height": 2, "pooled_width": 3, "spatial_scale": 0.5,
+          "sampling_ratio": 2}, roi_lod, ["X"]),
+        # detection_ops: the host ops
+        ("bipartite_match", {"DistMat": [np.round(r.rand(5, 9) * 4) / 4]},
+         {"match_type": "per_prediction", "dist_threshold": 0.4},
+         {"DistMat": [((0, 3, 5),)]}, []),
+        ("target_assign", {"X": [x(5, 6, 4)], "MatchIndices": [i32(
+            r.randint(-1, 2, (2, 6)))]}, {}, {"X": [((0, 3, 5),)]}, []),
+        ("multiclass_nms", {"BBoxes": [nms_boxes], "Scores": [nms_scores]},
+         {"score_threshold": 0.1, "nms_top_k": 30, "keep_top_k": 25,
+          "nms_threshold": 0.3, "nms_eta": 0.9}, {}, []),
+        ("multiclass_nms2", {"BBoxes": [nms_boxes * 60],
+                             "Scores": [nms_scores]},
+         {"score_threshold": 0.2, "nms_top_k": 20, "keep_top_k": 10,
+          "nms_threshold": 0.5, "normalized": False,
+          "background_label": -1}, {}, []),
+        ("roi_pool", {"X": [x(2, 3, 8, 10)], "ROIs": [rois]},
+         {"pooled_height": 3, "pooled_width": 2, "spatial_scale": 0.5},
+         roi_lod, []),
+        ("generate_proposals", {
+            "Scores": [r.rand(1, 3, 4, 5).astype("float32")],
+            "BboxDeltas": [x(1, 12, 4, 5) * 0.5],
+            "ImInfo": [np.array([[32, 40, 1.0]], "float32")],
+            "Anchors": [det._anchor_np(4, 5, {
+                "anchor_sizes": [8.0, 16.0, 32.0], "aspect_ratios": [1.0],
+                "stride": [8.0, 8.0], "variances": [1.0] * 4})[0]],
+            "Variances": [np.full((4, 5, 3, 4), 0.5, "float32")]},
+         {"pre_nms_topN": 40, "post_nms_topN": 15, "nms_thresh": 0.5,
+          "min_size": 2.0}, None, []),
+        ("distribute_fpn_proposals", {"FpnRois": [boxes(30, 600.0, 0.01)]},
+         {"min_level": 2, "max_level": 5, "refer_level": 4,
+          "refer_scale": 224}, {"FpnRois": [((0, 18, 30),)]}, []),
+        ("collect_fpn_proposals", {
+            "MultiLevelRois": [boxes(5, 300.0), boxes(7, 300.0)],
+            "MultiLevelScores": [r.rand(5, 1).astype("float32"),
+                                 r.rand(7, 1).astype("float32")]},
+         {"post_nms_topN": 9}, {}, []),
+        # detection_train_ops
+        ("rpn_target_assign", {
+            "Anchor": [anchors], "GtBoxes": [gt],
+            "IsCrowd": [np.zeros((5, 1), "int32")],
+            "ImInfo": [np.array([[48, 64, 1.0]] * 2, "float32")]},
+         {"seed": 7, "rpn_batch_size_per_im": 32},
+         {"GtBoxes": [gt_lod]}, []),
+        ("retinanet_target_assign", {
+            "Anchor": [anchors], "GtBoxes": [gt],
+            "GtLabels": [r.randint(1, 5, (5, 1)).astype("int32")],
+            "IsCrowd": [np.zeros((5, 1), "int32")],
+            "ImInfo": [np.array([[48, 64, 1.0]] * 2, "float32")]},
+         {}, {"GtBoxes": [gt_lod]}, []),
+        ("retinanet_detection_output", {
+            "BBoxes": [x(2, 12, 4) * 0.3, x(2, 6, 4) * 0.3],
+            "Scores": [r.rand(2, 12, 4).astype("float32"),
+                       r.rand(2, 6, 4).astype("float32")],
+            "Anchors": [boxes(12, 50.0, 0.2), boxes(6, 50.0, 0.2)],
+            "ImInfo": [np.array([[50, 50, 1.0]] * 2, "float32")]},
+         {"score_threshold": 0.3, "nms_top_k": 10, "keep_top_k": 12,
+          "nms_threshold": 0.4}, {}, []),
+        ("locality_aware_nms", {
+            "BBoxes": [(np.repeat(boxes(6, 40.0, 0.2), 4, 0)
+                        + r.uniform(-1, 1, (24, 4)).astype("float32"))[
+                            None]],
+            "Scores": [r.rand(1, 2, 24).astype("float32")]},
+         {"score_threshold": 0.2, "nms_threshold": 0.3}, {}, []),
+        ("box_decoder_and_assign", {
+            "PriorBox": [boxes(5, 50.0, 0.2)],
+            "PriorBoxVar": [np.array([0.1, 0.1, 0.2, 0.2], "float32")],
+            "TargetBox": [x(5, 12)], "BoxScore": [r.rand(5, 3).astype(
+                "float32")]}, {"box_clip": 1.0}, None, []),
+        ("mine_hard_examples", {
+            "ClsLoss": [r.rand(3, 20).astype("float32")],
+            "LocLoss": [r.rand(3, 20).astype("float32")],
+            "MatchIndices": [i32(np.where(r.rand(3, 20) < 0.5, -1,
+                                          r.randint(0, 3, (3, 20))))],
+            "MatchDist": [r.rand(3, 20).astype("float32")]},
+         {"mining_type": "hard_example", "sample_size": 4}, {}, []),
+        ("generate_proposal_labels", {
+            "RpnRois": [boxes(40, 60.0, 0.1)],
+            "GtClasses": [r.randint(1, 6, (5, 1)).astype("int32")],
+            "IsCrowd": [np.zeros((5, 1), "int32")], "GtBoxes": [gt],
+            "ImInfo": [np.array([[60, 60, 1.0]] * 2, "float32")]},
+         {"seed": 3, "batch_size_per_im": 24, "class_nums": 6,
+          "fg_thresh": 0.3},
+         {"RpnRois": [((0, 25, 40),)], "GtBoxes": [gt_lod],
+          "GtClasses": [gt_lod]}, []),
+        ("generate_mask_labels", {
+            "ImInfo": [np.array([[60, 60, 1.0]] * 2, "float32")],
+            "GtClasses": [i32([[1], [2], [3]])],
+            "IsCrowd": [np.zeros((3, 1), "int32")], "GtSegms": [polys],
+            "Rois": [boxes(7, 60.0, 0.2)],
+            "LabelsInt32": [i32([[2], [0], [1], [3], [0], [1], [2]])]},
+         {"num_classes": 4, "resolution": 6},
+         {"GtSegms": [((0, 2, 3, 4), (0, 3, 5, 7, 9))],
+          "GtClasses": [((0, 2, 3),)], "Rois": [((0, 4, 7),)]}, []),
+        ("roi_perspective_transform", {
+            "X": [x(2, 2, 10, 12)],
+            "ROIs": [np.array([[1, 1, 8, 2, 9, 7, 2, 8],
+                               [0, 0, 11, 0, 11, 9, 0, 9],
+                               [3, 2, 6, 1, 7, 5, 2, 6]], "float32")]},
+         {"transformed_height": 4, "transformed_width": 5},
+         {"ROIs": [((0, 2, 3),)]}, []),
+        ("detection_map", {"DetectRes": [det_rows], "Label": [map_gt]},
+         {"class_num": 5, "overlap_threshold": 0.4,
+          "evaluate_difficult": False},
+         {"DetectRes": [((0, 4, 7),)], "Label": [((0, 3, 5),)]}, []),
+        # vision_ops
+        ("crop", {"X": [x(3, 5, 6)], "Y": [x(2, 3, 4)],
+                  "Offsets": [i32([1, 2, 1])]}, {}, None, ["X"]),
+        ("crop_tensor", {"X": [x(2, 4, 5, 6)]},
+         {"shape": [2, 2, -1, 3], "offsets": [0, 2, 0, 3]}, None, ["X"]),
+        ("affine_grid", {"Theta": [x(2, 2, 3)]},
+         {"output_shape": [2, 3, 5, 4], "align_corners": False}, None,
+         ["Theta"]),
+        ("unpool", {"X": [x(2, 3, 3, 3)], "Indices": [i32(
+            r.randint(0, 36, (2, 3, 3, 3)))]}, {}, None, ["X"]),
+        ("spp", {"X": [x(2, 3, 7, 9)]}, {"pyramid_height": 3}, None, ["X"]),
+        ("psroi_pool", {"X": [x(2, 12, 8, 8)], "ROIs": [rois]},
+         {"output_channels": 3, "spatial_scale": 0.5, "pooled_height": 2,
+          "pooled_width": 2}, roi_lod, ["X"]),
+        ("prroi_pool", {"X": [x(2, 3, 8, 8)], "ROIs": [rois]},
+         {"spatial_scale": 0.5, "pooled_height": 3, "pooled_width": 2},
+         roi_lod, ["X"]),
+        ("conv3d_transpose", {"Input": [x(1, 2, 3, 4, 4)],
+                              "Filter": [x(2, 3, 2, 3, 2)],
+                              "Bias": [x(3)]},
+         {"strides": [2, 2, 2], "paddings": [1, 1, 1]}, None,
+         ["Input", "Filter", "Bias"]),
+        ("depthwise_conv2d_transpose", {"Input": [x(1, 4, 5, 5)],
+                                        "Filter": [x(4, 1, 3, 3)]},
+         {"groups": 4, "strides": [2, 2], "paddings": [1, 1]}, None,
+         ["Input", "Filter"]),
+        ("deformable_conv", {
+            "Input": [x(2, 4, 6, 6)], "Offset": [x(2, 36, 6, 6) * 1.5],
+            "Mask": [r.rand(2, 18, 6, 6).astype("float32")],
+            "Filter": [x(6, 2, 3, 3)]},
+         {"paddings": [1, 1], "groups": 2, "deformable_groups": 2}, None,
+         ["Input", "Offset", "Mask", "Filter"]),
+        ("deformable_conv_v1", {"Input": [x(2, 4, 6, 6)],
+                                "Offset": [x(2, 18, 6, 6) * 1.5],
+                                "Filter": [x(6, 4, 3, 3)]},
+         {"paddings": [1, 1]}, None, ["Input", "Offset", "Filter"]),
+        ("deformable_psroi_pooling", {
+            "Input": [x(2, 8, 8, 8)], "ROIs": [rois],
+            "Trans": [x(6, 2, 2, 2) * 0.3]},
+         {"spatial_scale": 0.5, "output_dim": 2, "group_size": [2, 2],
+          "pooled_height": 2, "pooled_width": 2, "part_size": [2, 2],
+          "sample_per_part": 2, "trans_std": 0.2}, roi_lod,
+         ["Input", "Trans"]),
+        ("conv_shift", {"X": [x(3, 7)], "Y": [x(3, 3)]}, {}, None,
+         ["X", "Y"]),
+        ("bicubic_interp", {"X": [x(1, 2, 5, 6)]},
+         {"out_h": 8, "out_w": 9}, None, ["X"]),
+        ("trilinear_interp", {"X": [x(1, 2, 3, 4, 5)]},
+         {"out_d": 4, "out_h": 6, "out_w": 7, "align_corners": False,
+          "align_mode": 0}, None, ["X"]),
+        ("similarity_focus", {"X": [x(2, 3, 4, 5)]},
+         {"axis": 1, "indexes": [0, 2]}, None, []),
+        ("polygon_box_transform", {"Input": [x(1, 4, 3, 3)]}, {}, None,
+         ["Input"]),
+        ("inplace_abn", {"X": [x(2, 3, 4, 4)], "Scale": [x(3)],
+                         "Bias": [x(3)], "Mean": [np.zeros(3, "float32")],
+                         "Variance": [np.ones(3, "float32")]},
+         {"activation": "leaky_relu", "alpha": 0.3}, None,
+         ["X", "Scale", "Bias"]),
+    ]
+    return cases
+
+
+DET_WIDTH = 1.0               # the three programs' width scale (published)
+DET_EVAL_RUNS = 2             # eval runs or requests timed, after 3
+YOLO_CHECK = dict(depth=(0, 0, 0, 0, 0), width=0.25, image=96)
+SSD_CHECK = dict(depth=1, width=0.25)
+FRCN_CHECK = dict(depth=(1, 1, 1, 1), width=0.25, image=(256, 384),
+                  proposals=(300, 150), rois=128)
+DET_CHECK_BATCH = 2           # (a), (b) card vs CPU; (c) is one image
+
+
+def _det_tensors(feed):
+    """A feed's (array, offsets) pairs as LoDTensors."""
+    return {k: _lod_tensor(*v) if isinstance(v, tuple) else v
+            for k, v in feed.items()}
+
+
+@contextlib.contextmanager
+def _det_host_clock(types):
+    """The host seconds of the kernels of ``types`` while in the block:
+    each call starts after the card has finished the work queued before
+    it (the island's copy to the host would wait for it), so the clock
+    reads the island alone. Yields a dict: seconds, calls."""
+    import torch
+    from paddle_tpu_torch.ops.registry import OPS
+    spent = {"seconds": 0.0, "calls": 0}
+    saved = {t: OPS.get(t).kernel for t in types}
+
+    def clocked(orig):
+        def kernel(ins, attrs):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return orig(ins, attrs)
+            finally:
+                spent["seconds"] += time.perf_counter() - t
+                spent["calls"] += 1
+        return kernel
+    for t, k in saved.items():
+        OPS.get(t).kernel = clocked(k)
+    try:
+        yield spent
+    finally:
+        for t, k in saved.items():
+            OPS.get(t).kernel = k
+
+
+def _det_segments(exe):
+    """(compiled segments, islands, the islands' op types) of the last
+    segmented step of ``exe``."""
+    sb = exe._last_block
+    kinds = [s.kind for s in sb.segments]
+    ops = sorted({op.type for s in sb.segments if s.kind == "island"
+                  for op in s.ops})
+    return kinds.count("compiled"), kinds.count("island"), ops
+
+
+def _det_yolo(book):
+    """(a) YOLOv3 (the docstring's phase 23 (a)): 10 steps, a step one
+    CUDA-graph replay; its eval program timed with the NMS island's
+    share; the eval program saved and served at batch 1."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, test, loss, pred = _md_fixed(
+        lambda: yolov3_program(fluid, YOLO_STAGES, DET_WIDTH, YOLO_IMAGE,
+                               YOLO_CLASSES))
+    test.random_seed = SEED
+    feed = yolo_feed(np.random.RandomState(SEED + 40), YOLO_BATCH,
+                     YOLO_IMAGE, YOLO_CLASSES)
+    res = _md_train(book, f"(a) YOLOv3 DarkNet-53 {YOLO_IMAGE}x{YOLO_IMAGE} "
+                    f"batch {YOLO_BATCH}, {YOLO_CLASSES} classes",
+                    _md_run(main, [loss], feed), [startup], NO_KERNELS,
+                    tag=DET_TAG, keep_scope=True)
+    exe, scope = res.pop("exe"), res.pop("scope")
+    # _md_train gated each step compiled: its whole block one CUDA graph
+    if exe._last_run_mode != "compiled" or res["kinds"][0][-1] != "replay":
+        raise AssertionError(f"{DET_TAG} (a) the last step ran "
+                             f"{exe._last_run_mode}, {res['kinds']}")
+    _log(f"{DET_TAG} (a) a YOLOv3 step is one CUDA-graph replay (the "
+         f"compiled path, the last {MD_STEPS - MD_LOCK} steps replays)")
+    efeed = {"image": feed["image"],
+             "im_size": np.full((YOLO_BATCH, 2), YOLO_IMAGE, "int32")}
+    out, res["eval_p50_ms"], res["nms_share"] = _vs_timed(
+        book, exe, scope, test, efeed, [pred], "segmented",
+        "(a) the eval program", DET_TAG, DET_EVAL_RUNS, ("multiclass_nms",))
+    dets = out[0].numpy()
+    seg = _det_segments(exe)
+    _log(f"{DET_TAG} (a) the eval program at batch {YOLO_BATCH} "
+         f"({seg[0]} compiled segments, {seg[1]} islands: "
+         f"{', '.join(seg[2])}): {dets.shape[0]} rows, LoD "
+         f"{out[0].lod()[0][:4]}..., p50 {res['eval_p50_ms']:.3f} ms, the "
+         f"NMS island {100 * res['nms_share']:.1f} % of it, on "
+         f"{_card_line()}")
+    res["predictor_p50_ms"] = _det_serve(book, exe, scope, test, efeed,
+                                         pred)
+    exe.close()
+    return res
+
+
+def _det_serve(book, exe, scope, test, efeed, pred):
+    """(a)'s eval program saved by save_inference_model and served by
+    AnalysisPredictor at batch 1, as PaddleDetection's export_model then
+    infer: 3 + DET_EVAL_RUNS requests, gated. → their p50 in ms."""
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch import fluid, inference
+    one = [efeed["image"][:1], efeed["im_size"][:1]]
+    with tempfile.TemporaryDirectory() as d:
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(d, ["image", "im_size"], [pred],
+                                          exe, test)
+        p = inference.create_predictor(inference.Config(d))
+        kinds, times = [], []
+        for _ in range(3 + DET_EVAL_RUNS):
+            before = _launch_counts()
+            t = time.perf_counter()
+            served = p.run(one)[0]
+            times.append(time.perf_counter() - t)
+            kinds.append(_gate_mode(p._exe, before, NO_KERNELS,
+                                    f"{DET_TAG} (a) a served request", book,
+                                    "segmented"))
+        p._exe.close()
+    served = np.asarray(served)
+    p50 = float(np.median(times[3:])) * 1e3
+    ok = kinds[-1] == "replay" and np.isfinite(served).all() and \
+        served.shape[-1] in (1, 6)
+    _log(f"{DET_TAG} (a) the eval program served by AnalysisPredictor at "
+         f"batch 1: requests {' '.join(kinds)}, {served.shape[0]} rows of "
+         f"{served.shape[-1]}, p50 {p50:.3f} ms on {_card_line()} -> "
+         + ("ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError(f"{DET_TAG} (a) the served eval program")
+    return p50
+
+
+def _det_ssd(book):
+    """(b) MobileNet-SSD (the docstring's phase 23 (b)): 10 steps
+    segmented around its islands, then its eval program (detection_output
+    and detection_map) timed."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, test, loss, dets, m_ap = _md_fixed(
+        lambda: ssd_program(fluid, SSD_BLOCKS, DET_WIDTH, SSD_IMAGE))
+    test.random_seed = SEED
+    feed = _det_tensors(ssd_feed(np.random.RandomState(SEED + 41),
+                                 SSD_BATCH, SSD_IMAGE))
+    res = _md_train(book, f"(b) MobileNet-SSD {SSD_IMAGE}x{SSD_IMAGE} batch "
+                    f"{SSD_BATCH}, {SSD_CLASSES} classes",
+                    _md_run(main, [loss], feed), [startup], NO_KERNELS,
+                    mode="segmented", tag=DET_TAG, keep_scope=True)
+    exe, scope = res.pop("exe"), res.pop("scope")
+    res["segments"], res["islands"], ops = _det_segments(exe)
+    _log(f"{DET_TAG} (b) a MobileNet-SSD step runs {res['segments']} "
+         f"compiled segments and {res['islands']} islands ("
+         f"{', '.join(ops)})")
+    out, res["eval_p50_ms"], res["nms_share"] = _vs_timed(
+        book, exe, scope, test, feed, [dets, m_ap], "segmented",
+        "(b) the eval program", DET_TAG, DET_EVAL_RUNS,
+        ("multiclass_nms", "detection_map"))
+    _log(f"{DET_TAG} (b) the eval program at batch {SSD_BATCH}: "
+         f"{out[0].numpy().shape[0]} detections, mAP "
+         f"{float(out[1].numpy()[0]):.4f}, p50 {res['eval_p50_ms']:.3f} ms, "
+         f"the NMS and mAP islands {100 * res['nms_share']:.1f} % of it, on "
+         f"{_card_line()}")
+    exe.close()
+    return res
+
+
+def _det_frcn(book):
+    """(c) Faster R-CNN R50-FPN (the docstring's phase 23 (c)): 10 steps
+    segmented around its islands, each step's proposals new LoDs (a new
+    plan where they change), then its eval program timed."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, test, loss, pred = _md_fixed(
+        lambda: faster_rcnn_program(fluid, FRCN_STAGES, DET_WIDTH,
+                                    FRCN_IMAGE, proposals=FRCN_PROPOSALS,
+                                    rois=FRCN_ROIS))
+    test.random_seed = SEED
+    feed = _det_tensors(frcn_feed(np.random.RandomState(SEED + 42),
+                                  FRCN_IMAGE))
+    h, w = FRCN_IMAGE
+    res = _md_train(book, f"(c) Faster R-CNN R50-FPN {h}x{w} batch 1, "
+                    f"{FRCN_CLASSES} classes", _md_run(main, [loss], feed),
+                    [startup], NO_KERNELS, mode="segmented", tag=DET_TAG,
+                    keep_scope=True, new_plans=True)
+    exe, scope = res.pop("exe"), res.pop("scope")
+    res["segments"], res["islands"], ops = _det_segments(exe)
+    kinds, ms = res["kinds"][0], res["step_ms"]
+    new = [t for k, t in zip(kinds, ms) if k != "replay"]
+    rep = [t for k, t in zip(kinds, ms) if k == "replay"]
+    res["new_plan_p50_ms"] = float(np.median(new)) if new else None
+    res["replay_p50_ms"] = float(np.median(rep)) if rep else None
+    _log(f"{DET_TAG} (c) a Faster R-CNN step runs {res['segments']} "
+         f"compiled segments and {res['islands']} islands ("
+         f"{', '.join(ops)}); the steps ran {' '.join(kinds)}: new-plan "
+         f"steps p50 " + (f"{res['new_plan_p50_ms']:.3f} ms" if new else
+                          "none") + ", replayed " + (
+             f"{res['replay_p50_ms']:.3f} ms" if rep else "none")
+         + f" on {_card_line()}")
+    efeed = {k: feed[k] for k in ("image", "im_info")}
+    out, res["eval_p50_ms"], res["nms_share"] = _vs_timed(
+        book, exe, scope, test, efeed, [pred], "segmented",
+        "(c) the eval program", DET_TAG, DET_EVAL_RUNS,
+        ("generate_proposals", "multiclass_nms"))
+    _log(f"{DET_TAG} (c) the eval program: {out[0].numpy().shape[0]} rows, "
+         f"p50 {res['eval_p50_ms']:.3f} ms, the proposal and NMS islands "
+         f"{100 * res['nms_share']:.1f} % of it, on {_card_line()}")
+    exe.close()
+    return res
+
+
+def _det_card_np(v):
+    return v.detach().cpu().numpy()
+
+
+def _det_cpu_from_np(a, like):
+    import numpy as np
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(like.dtype) if isinstance(like, torch.Tensor) else t
+
+
+def _det_check(book, what, built, fetch, feed, eval_feed, eval_fetch):
+    """Card against CPU from one start at a small size
+    (``_md_card_vs_cpu``: the losses, step 1's grads by the conv nets'
+    rule) under an ``IslandTape``: each host op of the CPU's runs takes
+    the card's inputs and must give the card's outputs exactly, and the
+    CPU goes on from them, so a selection parted by a near-tie cannot
+    part what follows; the selections that parted on the CPU's own
+    inputs are counted. Then the eval program on both from one start (the
+    startup's values), under the tape too. → (islands held, parted)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops.registry import OPS
+    main, startup, test = built[:3]
+    tape = IslandTape()
+    before = _launch_counts()
+    _md_card_vs_cpu(book, what, main, startup, fetch, feed, conv=True,
+                    tag=DET_TAG, tape=tape, tiny=True)
+    names = [v.name for v in main.list_vars() if v.persistable]
+    exe, scope = _fresh(main, startup)
+    with tape.recording(OPS, _det_card_np):
+        card = exe.run(test, feed=eval_feed, fetch_list=eval_fetch,
+                       scope=scope)
+    with tape.replaying(OPS, _det_cpu_from_np, _det_card_np):
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            test, feed=eval_feed, fetch_list=eval_fetch,
+            scope=_clone_scope(scope, names, "cpu"))
+    exe.close()
+    book.add(_delta(before))
+    same = all(np.allclose(a, b, rtol=LOSS_TOL, atol=LOSS_TOL)
+               for a, b in zip(card, cpu))
+    ok = same and tape.input_rel_l2 <= KINK_L2_TOL
+    _log(f"{DET_TAG} {what}: {tape.held} island calls held exactly on the "
+         f"card's inputs, {tape.parted} selections parted on the CPU's own "
+         f"inputs, the islands' float inputs within relative L2 "
+         f"{tape.input_rel_l2:.3e} of the card's (limit {KINK_L2_TOL:g}); "
+         f"the eval program's outputs {[tuple(a.shape) for a in card]} "
+         + ("equal" if same else "DIFFER") + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{DET_TAG} {what}: the eval program or the "
+                             "islands' inputs differ")
+    return tape.held, tape.parted
+
+
+def _det_checks(book):
+    """Card against CPU for each program at its check size (YOLO_CHECK,
+    SSD_CHECK, FRCN_CHECK). → {program: (islands held, parted)}."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    res = {}
+    built = _md_fixed(lambda: yolov3_program(fluid, **YOLO_CHECK))
+    feed = yolo_feed(np.random.RandomState(SEED + 43), DET_CHECK_BATCH,
+                     YOLO_CHECK["image"])
+    res["yolov3"] = _det_check(
+        book, f"(a) YOLOv3 {YOLO_CHECK['image']}x{YOLO_CHECK['image']} batch "
+        f"{DET_CHECK_BATCH}, width {YOLO_CHECK['width']:g}, no residual "
+        "blocks", built, [built[3]], feed,
+        {"image": feed["image"], "im_size": np.full(
+            (DET_CHECK_BATCH, 2), YOLO_CHECK["image"], "int32")},
+        [built[4]])
+    built = _md_fixed(lambda: ssd_program(fluid, **SSD_CHECK))
+    feed = _det_tensors(ssd_feed(np.random.RandomState(SEED + 44),
+                                 DET_CHECK_BATCH,
+                                 SSD_CHECK.get("image", SSD_IMAGE)))
+    res["ssd"] = _det_check(
+        book, f"(b) MobileNet-SSD batch {DET_CHECK_BATCH}, width "
+        f"{SSD_CHECK['width']:g}, {SSD_CHECK['depth']} block at 19x19",
+        built, [built[3]], feed, feed, [built[4], built[5]])
+    built = _md_fixed(lambda: faster_rcnn_program(fluid, **FRCN_CHECK))
+    feed = _det_tensors(frcn_feed(np.random.RandomState(SEED + 45),
+                                  FRCN_CHECK["image"]))
+    h, w = FRCN_CHECK["image"]
+    res["faster_rcnn"] = _det_check(
+        book, f"(c) Faster R-CNN {h}x{w}, width {FRCN_CHECK['width']:g}, one "
+        "bottleneck a stage", built, [built[3]], feed,
+        {k: feed[k] for k in ("image", "im_info")}, [built[4]])
+    return res
+
+
+def phase_detection():
+    """Phase 23: the detection batch (the docstring's phase 23). The main
+    path, counted from zero: the three programs trained at their
+    published widths and their eval programs, and (a)'s predictor. Then,
+    counted apart, the checks: card against CPU under the island tape
+    and the op battery. → the main path's launches: through the wrappers
+    and on the card."""
+    book, checks = _CfBook(), _CfBook()
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    res = {"yolov3": _det_yolo(book), "ssd": _det_ssd(book),
+           "faster_rcnn": _det_frcn(book)}
+    wrapper, ran = _launch_counts(), tuple(book.executed)
+    _reset_launch_counts()
+    res["checks"] = _det_checks(checks)
+    res["battery"] = _vs_battery_run(checks, _det_battery(), tag=DET_TAG,
+                                     exact=DET_HOST_OPS)
+    checked = _launch_counts()
+    for counts in (wrapper, ran, checked, tuple(checks.executed)):
+        if any(counts):
+            raise AssertionError(f"{DET_TAG} phase 23 launched {wrapper}, on "
+                                 f"the card {ran}; its checks {checked}, on "
+                                 f"the card {tuple(checks.executed)}")
+    parted = sum(p for _, p in res["checks"].values())
+    _log(f"{DET_TAG} phase 23 in {time.perf_counter() - t0:.1f} s: step p50 "
+         + ", ".join(f"{k} {res[k]['p50_ms']:.3f} ms"
+                     for k in ("yolov3", "ssd", "faster_rcnn"))
+         + "; eval p50 " + ", ".join(f"{k} {res[k]['eval_p50_ms']:.3f} ms"
+                                     for k in ("yolov3", "ssd",
+                                               "faster_rcnn"))
+         + f"; YOLOv3 served at batch 1 {res['yolov3']['predictor_p50_ms']:.3f}"
+         f" ms; {parted} selections parted card vs CPU; the main path's "
+         f"launches through the wrappers {GATE_NAMES} {wrapper}, on the card "
+         f"{ran}; the checks' apart: {checked}, on the card "
+         f"{tuple(checks.executed)}")
+    return {"wrapper": wrapper, "executed": ran,
+            "check_executed": tuple(checks.executed), **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -10657,6 +11880,7 @@ def main(argv=None) -> int:
                             paths["resnet"]["lane"]["step_ms"])
     paths["rnn"] = timed(phase_rnn)
     paths["vision"] = timed(phase_vision)
+    paths["detection"] = timed(phase_detection)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded
@@ -10723,9 +11947,9 @@ def main(argv=None) -> int:
                                  "old_route_ms", "delta_ms")
                if k in r}))
     # a trace gate fails when its trace came up short (ROADMAP C2)
-    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-22, each "
+    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-23, each "
          "holding its gate's kernels: none came up short")
-    _log(f"[card] phases 1-22 in {time.perf_counter() - t_start:.1f} s: "
+    _log(f"[card] phases 1-23 in {time.perf_counter() - t_start:.1f} s: "
          + ", ".join(f"{k} {v}" for k, v in seconds.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -541,8 +541,12 @@ def _resolve(op, idx: int):
     if OPS.has(otype):
         return OPS.get(otype), None, idx
     if otype.endswith("_grad") and OPS.has(otype[:-5]):
-        return OPS.get(otype[:-5]), otype[:-5], \
-            int(op.attrs.get("_fwd_idx", idx))
+        base = OPS.get(otype[:-5])
+        if base.stateful:
+            # a stateful op's grad is its registered grad op or none, as
+            # in the TPU package's executor (roi_pool_grad raises there)
+            raise NotImplementedError(f"op '{otype}' is not implemented")
+        return base, otype[:-5], int(op.attrs.get("_fwd_idx", idx))
     raise NotImplementedError(f"op '{otype}' is not implemented in "
                               "paddle_tpu_torch yet")
 
@@ -1403,6 +1407,16 @@ class _CompiledBlock:
         self._static_fetch, self._static_feeds = [], {}
         self._static_health = None
         self._captured, self._extra_targets = {}, {}
+        self._renew_pool()
+
+    def _renew_pool(self):
+        """A new memory pool for the next capture: once the dropped
+        graphs were the last users of the old one, the caching allocator
+        keeps it while its tensors live (a state target, a fetched
+        output) but refuses a new capture into it (``use_count > 0`` in
+        ``beginAllocateToPool``)."""
+        if self._pool is not None:
+            self._pool = torch.cuda.graph_pool_handle()
 
 
 # --------------------------------------------------------------------------
@@ -1925,6 +1939,7 @@ class _SegmentedBlock(_CompiledBlock):
         for seg in self.segments:
             if seg.loop is not None:
                 seg.loop.drop()
+        self._renew_pool()
 
 
 _MAX_LOOP_ITERS = 10_000_000

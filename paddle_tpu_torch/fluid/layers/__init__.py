@@ -11,3 +11,5 @@ from .learning_rate_scheduler import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .sequence_lod import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
+from . import detection  # noqa: F401
+from .detection import *  # noqa: F401,F403

@@ -17,8 +17,10 @@ unique_with_counts, sampling_id and the *_random_batch_size_like pair),
 linear_chain_crf and crf_decoding, and the vision and loss batch at the
 end of the file (conv3d, conv2d_transpose, the 3-d and adaptive pools,
 the other norms, the resizes, prelu, the nn_extra_ops layers, mean_iou,
-py_func, ctc_greedy_decoder, ...). The layers over
-paddle_tpu/ops/vision_ops.py raise NotImplementedError (ROADMAP A7)."""
+py_func, ctc_greedy_decoder, ...), and the layers over vision_ops and
+the RoI ops (conv3d_transpose, resize_trilinear, affine_grid, crop,
+crop_tensor, deformable_conv, deformable_roi_pooling, inplace_abn,
+prroi_pool, psroi_pool, similarity_focus, roi_pool, roi_align)."""
 from __future__ import annotations
 
 import math
@@ -1452,26 +1454,17 @@ def l2_normalize(x, axis, epsilon=1e-12, name=None):
     return out
 
 
-def _vision_ops_pending(name):
-    raise NotImplementedError(
-        f"{name}: its op is in paddle_tpu/ops/vision_ops.py, which the port "
-        "has not ported yet (ROADMAP A7, vision_ops with the detection "
-        "modules)")
-
-
 def image_resize(input, out_shape=None, scale=None, name=None,
                  resample="BILINEAR", actual_shape=None, align_corners=True,
                  align_mode=1, data_format="NCHW"):
-    """reference: layers/nn.py image_resize — bilinear_interp or
-    nearest_interp to ``out_shape`` (a list, or a Variable read on the
-    host at run time) or by ``scale``. TRILINEAR and BICUBIC are
-    vision_ops.py's ops, not ported yet."""
-    resample = resample.upper()
-    if resample not in ("BILINEAR", "NEAREST"):
-        _vision_ops_pending(f"image_resize(resample={resample!r})")
+    """reference: layers/nn.py image_resize — bilinear_interp,
+    nearest_interp or trilinear_interp to ``out_shape`` (a list, or a
+    Variable read on the host at run time) or by ``scale``. As in the TPU
+    package, ``resample`` has no BICUBIC (a KeyError there and here),
+    and TRILINEAR takes the 2-d sizes (out_h, out_w)."""
     helper = LayerHelper("image_resize", **locals())
-    op_type = {"BILINEAR": "bilinear_interp",
-               "NEAREST": "nearest_interp"}[resample]
+    op_type = {"BILINEAR": "bilinear_interp", "NEAREST": "nearest_interp",
+               "TRILINEAR": "trilinear_interp"}[resample.upper()]
     out = helper.create_variable_for_type_inference(input.dtype)
     attrs = {"align_corners": align_corners, "align_mode": align_mode,
              "interp_method": op_type.split("_")[0],
@@ -1512,7 +1505,28 @@ def resize_nearest(input, out_shape=None, scale=None, name=None,
 def resize_trilinear(input, out_shape=None, scale=None, name=None,
                      actual_shape=None, align_corners=True, align_mode=1,
                      data_format="NCDHW"):
-    _vision_ops_pending("resize_trilinear")
+    helper = LayerHelper("resize_trilinear", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"align_corners": align_corners, "align_mode": align_mode,
+             "interp_method": "trilinear", "data_layout": data_format}
+    inputs = {"X": [input]}
+    if out_shape is not None:
+        if isinstance(out_shape, Variable):
+            inputs["OutSize"] = [out_shape]
+            attrs.update({"out_d": -1, "out_h": -1, "out_w": -1,
+                          "scale": 0.0})
+        else:
+            attrs.update({"out_d": int(out_shape[0]),
+                          "out_h": int(out_shape[1]),
+                          "out_w": int(out_shape[2]), "scale": 0.0})
+            out.shape = (input.shape[0], input.shape[1]) + tuple(
+                int(s) for s in out_shape)
+    else:
+        attrs.update({"out_d": -1, "out_h": -1, "out_w": -1,
+                      "scale": float(scale)})
+    helper.append_op(type="trilinear_interp", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
 
 
 def image_resize_short(input, out_short_len, resample="BILINEAR"):
@@ -1764,25 +1778,258 @@ def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0,
     return ctc_out, ctc_out_len
 
 
-def _pending(name):
-    def layer(*args, **kwargs):
-        _vision_ops_pending(name)
-    layer.__name__ = name
-    layer.__doc__ = (f"{name}: over an op of paddle_tpu/ops/vision_ops.py, "
-                     "not ported yet (raises NotImplementedError).")
-    return layer
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,
+             spatial_scale=1.0, rois_lod=None):
+    helper = LayerHelper("roi_pool", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    argmax = helper.create_variable_for_type_inference(VarDesc.VarType.INT32)
+    out.shape = (-1, input.shape[1], pooled_height, pooled_width)
+    helper.append_op(type="roi_pool",
+                     inputs={"X": [input], "ROIs": [rois]},
+                     outputs={"Out": [out], "Argmax": [argmax]},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale})
+    return out
 
 
-conv3d_transpose = _pending("conv3d_transpose")
-affine_grid = _pending("affine_grid")
-crop = _pending("crop")
-crop_tensor = _pending("crop_tensor")
-deformable_conv = _pending("deformable_conv")
-deformable_roi_pooling = _pending("deformable_roi_pooling")
-inplace_abn = _pending("inplace_abn")
-prroi_pool = _pending("prroi_pool")
-psroi_pool = _pending("psroi_pool")
-similarity_focus = _pending("similarity_focus")
+def roi_align(input, rois, pooled_height=1, pooled_width=1,
+              spatial_scale=1.0, sampling_ratio=-1, name=None,
+              rois_lod=None):
+    helper = LayerHelper("roi_align", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (-1, input.shape[1], pooled_height, pooled_width)
+    helper.append_op(type="roi_align",
+                     inputs={"X": [input], "ROIs": [rois]},
+                     outputs={"Out": [out]},
+                     attrs={"pooled_height": pooled_height,
+                            "pooled_width": pooled_width,
+                            "spatial_scale": spatial_scale,
+                            "sampling_ratio": sampling_ratio})
+    return out
+
+
+def crop(x, shape=None, offsets=None, name=None):
+    return crop_tensor(x, shape, offsets, name)
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    helper = LayerHelper("crop_tensor", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    attrs = {}
+    if isinstance(shape, (list, tuple)):
+        attrs["shape"] = [int(s) for s in shape]
+        out.shape = tuple(attrs["shape"])
+    if isinstance(offsets, (list, tuple)):
+        attrs["offsets"] = [int(o) for o in offsets]
+    elif offsets is None:
+        attrs["offsets"] = [0] * len(x.shape)
+    helper.append_op(type="crop_tensor", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    helper = LayerHelper("similarity_focus", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = input.shape
+    helper.append_op(type="similarity_focus", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axis": axis, "indexes": list(indexes)})
+    return out
+
+
+def inplace_abn(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+                param_attr=None, bias_attr=None, data_layout="NCHW",
+                name=None, moving_mean_name=None, moving_variance_name=None,
+                do_model_average_for_mean_and_var=True,
+                use_global_stats=False, act_alpha=1.0):
+    """batch_norm fused with an in-place activation (reference
+    inplace_abn_op.cc; memory aliasing is XLA's concern on TPU)."""
+    helper = LayerHelper("inplace_abn", **locals())
+    dtype = helper.input_dtype()
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale_p = helper.create_parameter(attr=helper.param_attr, shape=[c],
+                                      dtype=dtype,
+                                      default_initializer=Constant(1.0))
+    bias_p = helper.create_parameter(attr=helper.bias_attr, shape=[c],
+                                     dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                       trainable=False), shape=[c], dtype=dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                       trainable=False), shape=[c], dtype=dtype)
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = input.shape
+    helper.append_op(
+        type="inplace_abn",
+        inputs={"X": [input], "Scale": [scale_p], "Bias": [bias_p],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats,
+               "activation": act or "identity", "alpha": act_alpha})
+    return out
+
+
+def conv3d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None, data_format="NCDHW"):
+    helper = LayerHelper("conv3d_transpose", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    stride = _pair(stride, 3)
+    dilation = _pair(dilation, 3)
+    padding = _pair(padding, 3)
+    in_c = input.shape[1]
+    if filter_size is None:
+        assert output_size is not None
+        output_size = _pair(output_size, 3)
+        filter_size = [
+            (output_size[i] - (input.shape[2 + i] - 1) * stride[i]
+             + 2 * padding[i] - 1) // dilation[i] + 1 for i in (0, 1, 2)]
+    else:
+        filter_size = _pair(filter_size, 3)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[in_c, num_filters // groups] + list(filter_size), dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    out.shape = (input.shape[0], num_filters) + tuple(
+        output_size if output_size else (
+            (input.shape[2 + i] - 1) * stride[i] - 2 * padding[i]
+            + dilation[i] * (filter_size[i] - 1) + 1 for i in (0, 1, 2)))
+    helper.append_op(
+        type="conv3d_transpose", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups, "use_cudnn": use_cudnn,
+               "output_size": list(_pair(output_size, 3)) if output_size
+               else [],
+               "padding_algorithm": "EXPLICIT", "data_format": data_format})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def affine_grid(theta, out_shape, name=None):
+    helper = LayerHelper("affine_grid", **locals())
+    out = helper.create_variable_for_type_inference(theta.dtype)
+    inputs = {"Theta": [theta]}
+    attrs = {"align_corners": True}
+    if isinstance(out_shape, Variable):
+        inputs["OutputShape"] = [out_shape]
+    else:
+        attrs["output_shape"] = [int(s) for s in out_shape]
+        out.shape = (out_shape[0], out_shape[2], out_shape[3], 2)
+    helper.append_op(type="affine_grid", inputs=inputs,
+                     outputs={"Output": [out]}, attrs=attrs)
+    return out
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale, pooled_height,
+               pooled_width, name=None):
+    helper = LayerHelper("psroi_pool", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out.shape = (-1, output_channels, pooled_height, pooled_width)
+    helper.append_op(type="psroi_pool",
+                     inputs={"X": [input], "ROIs": [rois]},
+                     outputs={"Out": [out]},
+                     attrs={"output_channels": output_channels,
+                            "spatial_scale": spatial_scale,
+                            "pooled_height": pooled_height,
+                            "pooled_width": pooled_width})
+    return out
+
+
+def prroi_pool(input, rois, spatial_scale=1.0, pooled_height=1,
+               pooled_width=1, batch_roi_nums=None, name=None):
+    helper = LayerHelper("prroi_pool", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": [input], "ROIs": [rois]}
+    if batch_roi_nums is not None:
+        inputs["BatchRoINums"] = [batch_roi_nums]
+    out.shape = (-1, input.shape[1], pooled_height, pooled_width)
+    helper.append_op(type="prroi_pool", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"spatial_scale": spatial_scale,
+                            "pooled_height": pooled_height,
+                            "pooled_width": pooled_width})
+    return out
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=None,
+                    deformable_groups=None, im2col_step=None,
+                    param_attr=None, bias_attr=None, modulated=True,
+                    name=None):
+    helper = LayerHelper("deformable_conv", **locals())
+    dtype = helper.input_dtype()
+    groups = groups or 1
+    deformable_groups = deformable_groups or 1
+    filter_size = _pair(filter_size)
+    w = helper.create_parameter(
+        attr=helper.param_attr,
+        shape=[num_filters, input.shape[1] // groups] + list(filter_size),
+        dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    st, pd, dl = _pair(stride), _pair(padding), _pair(dilation)
+    out.shape = (input.shape[0], num_filters) + tuple(
+        (input.shape[2 + i] + 2 * pd[i] - (dl[i] * (filter_size[i] - 1) + 1))
+        // st[i] + 1 for i in (0, 1))
+    attrs = {"strides": _pair(stride), "paddings": _pair(padding),
+             "dilations": _pair(dilation), "groups": groups,
+             "deformable_groups": deformable_groups,
+             "im2col_step": im2col_step or 64}
+    if modulated and mask is None:
+        raise ValueError(
+            "deformable_conv: mask is required when modulated=True "
+            "(pass modulated=False for the v1 op)")
+    if modulated:
+        helper.append_op(
+            type="deformable_conv",
+            inputs={"Input": [input], "Offset": [offset], "Mask": [mask],
+                    "Filter": [w]},
+            outputs={"Output": [out]}, attrs=attrs)
+    else:
+        helper.append_op(
+            type="deformable_conv_v1",
+            inputs={"Input": [input], "Offset": [offset], "Filter": [w]},
+            outputs={"Output": [out]}, attrs=attrs)
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def deformable_roi_pooling(input, rois, trans, no_trans=False,
+                           spatial_scale=1.0, group_size=[1, 1],
+                           pooled_height=1, pooled_width=1, part_size=None,
+                           sample_per_part=1, trans_std=0.1, position_sensitive=False,
+                           name=None):
+    helper = LayerHelper("deformable_roi_pooling", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    top_count = helper.create_variable_for_type_inference(input.dtype)
+    part_size = part_size or [pooled_height, pooled_width]
+    output_dim = (input.shape[1] // (group_size[0] * group_size[1])
+                  if position_sensitive else input.shape[1])
+    helper.append_op(
+        type="deformable_psroi_pooling",
+        inputs={"Input": [input], "ROIs": [rois], "Trans": [trans]},
+        outputs={"Output": [out], "TopCount": [top_count]},
+        attrs={"no_trans": no_trans, "spatial_scale": spatial_scale,
+               "output_dim": output_dim, "group_size": list(group_size),
+               "pooled_height": pooled_height, "pooled_width": pooled_width,
+               "part_size": list(part_size),
+               "sample_per_part": sample_per_part, "trans_std": trans_std})
+    return out
+
 
 __all__ += [
     "conv3d", "conv2d_transpose", "pool3d", "adaptive_pool2d",
@@ -1796,4 +2043,5 @@ __all__ += [
     "smooth_l1", "dice_loss", "py_func", "ctc_greedy_decoder",
     "conv3d_transpose", "affine_grid", "crop", "crop_tensor",
     "deformable_conv", "deformable_roi_pooling", "inplace_abn",
-    "prroi_pool", "psroi_pool", "similarity_focus"]
+    "prroi_pool", "psroi_pool", "similarity_focus", "roi_pool",
+    "roi_align"]

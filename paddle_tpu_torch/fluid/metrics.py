@@ -172,7 +172,11 @@ class EditDistance(MetricBase):
 
 
 class DetectionMAP:
+    """Raises, as the TPU package's DetectionMAP does (its metrics.py:170),
+    with its reason. The op is ported: ``layers.detection_map`` appends
+    detection_map with its accumulated state."""
+
     def __init__(self, *a, **k):
         raise NotImplementedError(
-            "DetectionMAP needs the detection ops, which are not ported to "
-            "paddle_tpu_torch yet (ROADMAP A7)")
+            "DetectionMAP: detection batch pending (the TPU package's "
+            "DetectionMAP raises the same; use layers.detection_map)")

@@ -15,7 +15,9 @@ fused lstm and lstm_unit, nce, hierarchical_sigmoid and the linear-chain
 CRF with its Viterbi decode, the LoD recurrences (dynamic_lstm,
 dynamic_lstmp, dynamic_gru, gru_unit and the fused fusion_gru and
 fusion_lstm), the beam searches' ops and the DynamicRNN-era LoD control
-ops."""
+ops, and the detection batch: the detection and detection-training ops,
+detection_map and the second vision batch (RoI pooling, deformable and
+transposed 3d convolutions, the bicubic and trilinear resizes, ...)."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
@@ -30,3 +32,7 @@ from . import sequence_ops   # noqa: F401
 from . import rnn_ops         # noqa: F401
 from . import loss_extra_ops  # noqa: F401
 from . import lod_control_ops  # noqa: F401
+from . import detection_ops   # noqa: F401
+from . import detection_train_ops  # noqa: F401
+from . import metrics_misc_ops  # noqa: F401
+from . import vision_ops      # noqa: F401

@@ -129,8 +129,9 @@ def test_the_registry_has_the_optimizer_stacks_ops():
     # the 9 left of rnn_ops, the 10 LoD control ops, fusion_gru,
     # fusion_lstm, rnn_memory_helper, cumsum and elementwise_floordiv;
     # then 69: the rest of nn_ops (29), math_ops (17), nn_extra_ops (13)
-    # and loss_extra_ops (9), and py_func
-    assert len(TOPS.all_op_types()) == 123 + 49 + 6 + 61 + 24 + 69
+    # and loss_extra_ops (9), and py_func; then 44: vision_ops (18),
+    # detection_ops (16), detection_train_ops (9) and detection_map
+    assert len(TOPS.all_op_types()) == 123 + 49 + 6 + 61 + 24 + 69 + 44
 
 
 @pytest.mark.parametrize("lo,hi", [(-0.5, 0.5), (0.0, 2.0), (-3.0, -1.0)])

@@ -19,16 +19,6 @@ REMAINDER = frozenset({
     "c_allreduce_min", "c_allreduce_prod", "c_allreduce_sum", "c_broadcast",
     "c_comm_init", "c_comm_init_all", "c_gen_nccl_id", "c_reducescatter",
     "c_sync_calc_stream", "c_sync_comm_stream", "gen_nccl_id", "nccl",
-    # paddle_tpu/ops/detection_ops.py
-    "anchor_generator", "bipartite_match", "box_clip", "box_coder",
-    "collect_fpn_proposals", "density_prior_box", "distribute_fpn_proposals",
-    "generate_proposals", "multiclass_nms", "multiclass_nms2", "prior_box",
-    "roi_align", "roi_pool", "target_assign", "yolo_box", "yolov3_loss",
-    # paddle_tpu/ops/detection_train_ops.py
-    "box_decoder_and_assign", "generate_mask_labels",
-    "generate_proposal_labels", "locality_aware_nms", "mine_hard_examples",
-    "retinanet_detection_output", "retinanet_target_assign",
-    "roi_perspective_transform", "rpn_target_assign",
     # paddle_tpu/ops/distributed_ops.py
     "checkpoint_notify", "distributed_lookup_table",
     "distributed_lookup_table_grad", "fetch_barrier", "geo_sgd_send",
@@ -44,7 +34,7 @@ REMAINDER = frozenset({
     "fusion_seqpool_cvm_concat", "fusion_squared_mat_sub",
     "fusion_transpose_flatten_concat",
     # paddle_tpu/ops/metrics_misc_ops.py
-    "batch_fc", "chunk_eval", "coalesce_tensor", "detection_map", "fill",
+    "batch_fc", "chunk_eval", "coalesce_tensor", "fill",
     "fill_zeros_like2", "filter_by_instag", "get_places",
     "match_matrix_tensor", "modified_huber_loss", "partial_concat",
     "partial_sum", "positive_negative_pair", "precision_recall",
@@ -68,12 +58,6 @@ REMAINDER = frozenset({
     "fake_quantize_abs_max", "fake_quantize_dequantize_abs_max",
     "fake_quantize_dequantize_moving_average_abs_max",
     "fake_quantize_moving_average_abs_max", "fake_quantize_range_abs_max",
-    # paddle_tpu/ops/vision_ops.py
-    "affine_grid", "bicubic_interp", "conv3d_transpose", "conv_shift", "crop",
-    "crop_tensor", "deformable_conv", "deformable_conv_v1",
-    "deformable_psroi_pooling", "depthwise_conv2d_transpose", "inplace_abn",
-    "polygon_box_transform", "prroi_pool", "psroi_pool", "similarity_focus",
-    "spp", "trilinear_interp", "unpool",
 })
 
 # grad op types the port registers under their own name where the TPU
