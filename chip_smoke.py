@@ -667,6 +667,51 @@ Phases, each fatal on failure:
               types (``_det_battery``) on the card against the CPU port,
               the host ops' outputs exactly. Twelve kernels: 0 launches,
               wrappers, graphs and traces.
+ 24. lay    — the rest of fluid.layers: the legacy reader, the save and
+              load ops, the metric and misc ops, the CTR fusions and
+              fluid.contrib.layers, each program a user program of this
+              file's (``bert_reader_program``, ``srl_chunk_program``,
+              ``ctr_contrib_program``, ``c8_program``,
+              ``distributions_program``). (a) BERT-base pretraining as
+              the bert lane runs it (bench.py:463: 12 layers, hidden 768,
+              S = 128, batch 256, bf16 products, dropout 0, Adam 1e-4)
+              with its inputs declared as the reference's v1.7 BERT
+              train.py declares them (py_reader with use_double_buffer,
+              double_buffer, read_file), 10 steps fed by iterating the
+              reader over a batch generator from a seed and the same
+              batches through ``feed=`` from the same start: each loss
+              and every persistable bitwise alike, each step one graph
+              replay after the capture, the lane's launches (0, 0, 0, 12,
+              0, 24, 0, ...) a step by the wrappers, the graphs and a
+              trace; the step p50 both ways; every persistable saved by a
+              program of one save_combine op (the file byte for byte
+              save_persistables') and loaded by one of one load_combine
+              into a fresh scope, bitwise; one parameter through save,
+              load, layers.load, delete_var and fake_init. (b) The book's
+              label_semantic_roles tagger at phase 20's widths, 5 steps
+              (the first 3 bitwise the interpreter's), its eval clone
+              with crf_decoding and chunk_eval (IOB, 29 chunk types) timed
+              with the island's share, its precision, recall and F1, and
+              the island's outputs equal to the CPU port's chunk_eval on
+              the card's decoded tags. (c) A CTR net over
+              fluid.contrib.layers at the repo's Wide&Deep widths
+              (paddle_tpu/models/wide_deep.py:58: 13 dense features, 26
+              slots of 1e4 ids, embedding 16, tower 400-400-400) at the
+              wide_deep lane's batch (4096): fused_embedding_seq_pool a
+              slot (one id a slot), fusion_repeated_fc_relu, batch_fc,
+              ctr_metric_bundle and auc, Adam 1e-3; segmented around
+              auc, 10 steps on one batch, the first 3 bitwise the
+              interpreter's, the loss falling. Then, counted apart: (d)
+              the 47 op types on the card against the CPU port
+              (``_lay_battery`` and ``_lay_scope_ops``: outputs and
+              generic grads within VS_TOL, the host ops exactly, the save
+              files byte for byte, the stubs raising); (e) ROADMAP C8:
+              OutSize and Offsets connected, bilinear_interp and crop
+              islands of a segmented step, bitwise the interpreter; (f)
+              Normal's and Uniform's 2^20 draws within 5 standard errors
+              of their laws' mean and variance, every log_prob, entropy
+              and KL within 1e-6 relative of the CPU port's. (b)-(f)
+              launch none of the twelve kernels.
 
 Output: the card's name and power limit first, results as lines of text,
 then one JSON line {"kernels": [...]} (per kernel, ``launches`` and
@@ -8074,11 +8119,12 @@ def _md_run(main, fetch, feed):
 
 def _md_train(book, what, runs, starts, want, mode="compiled",
               finite=(), overshoots=False, tag=MD_TAG, keep_scope=False,
-              new_plans=False):
-    """MD_STEPS steps on one fixed batch on the card, ``mode`` "compiled"
-    or "segmented", from the ``starts`` (startup programs) run into one
-    scope. A step runs each (main, fetch, feed_fn) of ``runs`` once in
-    turn, ``feed_fn`` given the fetches of the step's runs before it.
+              new_plans=False, steps=None):
+    """``steps`` (MD_STEPS by default) steps on one fixed batch on the
+    card, ``mode`` "compiled" or "segmented", from the ``starts``
+    (startup programs) run into one scope. A step runs each (main,
+    fetch, feed_fn) of ``runs`` once in turn, ``feed_fn`` given the
+    fetches of the step's runs before it.
     The first MD_LOCK steps run in lock step with the interpreter
     (``_lock_step``: fetches and persistables bitwise), every run's
     launches gated on ``want`` (``_gate_mode``), then two more replays of
@@ -8100,6 +8146,7 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
     import numpy as np
     import torch
     from paddle_tpu_torch import fluid
+    steps = MD_STEPS if steps is None else steps
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -8113,7 +8160,7 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
     losses = [[] for _ in runs]
     kinds = [[] for _ in runs]
     times, step_ms = [], []
-    for i in range(MD_STEPS):
+    for i in range(steps):
         outs, feeds, dt = [], [], 0.0
         for j, (main, fetch, feed_fn) in enumerate(runs):
             feeds.append(feed_fn(outs))
@@ -8144,7 +8191,7 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
                                                     i >= MD_LOCK):
             times.append(dt)
     iexe.close()
-    runs_as = tuple(MD_LOCK_EXECS) + ("replay",) * (MD_STEPS - MD_LOCK)
+    runs_as = tuple(MD_LOCK_EXECS) + ("replay",) * (steps - MD_LOCK)
     if not new_plans and any(tuple(k) != runs_as for k in kinds):
         raise AssertionError(f"{tag} {what}: runs {kinds}")
     for j, ls in enumerate(losses):
@@ -8164,7 +8211,7 @@ def _md_train(book, what, runs, starts, want, mode="compiled",
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     p50 = float(np.median(times)) * 1e3
-    _log(f"{tag} {what}: {MD_STEPS} steps on one batch"
+    _log(f"{tag} {what}: {steps} steps on one batch"
          + (f", {n} runs a step" if n > 1 else "")
          + (f" ({' '.join(kinds[0])}, {mode})" if new_plans else
             f" ({' '.join(MD_LOCK_EXECS)}, then replays, {mode})")
@@ -11820,6 +11867,914 @@ def phase_detection():
             "check_executed": tuple(checks.executed), **res}
 
 
+# --------------------------------------------------------------------------
+# phase 24: the rest of fluid.layers
+# --------------------------------------------------------------------------
+LAY_TAG = "[lay]"
+LAY_BERT_BATCH = 256          # (a) the bert lane's batch (bench.py:463),
+LAY_BERT_STEPS = 10           # bf16 products, dropout 0, Adam 1e-4
+LAY_READER_CAPACITY = 4       # the v1.7 BERT train.py's py_reader capacity
+LAY_SRL_STEPS = 5             # (b) the SRL tagger's steps
+LAY_EVAL_RUNS = 5             # (b) eval runs timed after 3
+CTR_DENSE = 13                # (c) the repo's Wide&Deep widths
+CTR_SLOTS = 26                # (paddle_tpu/models/wide_deep.py:58): 13 dense
+CTR_DIM = int(1e4)            # features, 26 slots of 1e4 ids, embedding 16,
+CTR_EMB = 16                  # the deep tower 400-400-400, Adam 1e-3, at the
+CTR_HIDDEN = (400, 400, 400)  # wide_deep lane's batch (WD_BATCH)
+CTR_BFC = 64                  # batch_fc's width before the logit
+CTR_LR = 1e-3
+LAY_DRAWS = 2 ** 20           # (f) draws a distribution
+LAY_SE = 5.0                  # (f) mean and variance within 5 standard errors
+LAY_DIST_TOL = 1e-6           # (f) log_prob, entropy, KL: card vs CPU, rel.
+
+
+def bert_reader_program(fluid, bert, cfg, seq_len=S, lr=1e-4):
+    """(a) The bert lane's pretraining step (``build_bert_pretrain_program``'s
+    ops: the encoder, the masked positions gathered, the vocabulary fc,
+    softmax cross-entropy, its mean, Adam; dropout 0) with its inputs
+    declared as the reference's v1.7 BERT train.py declares them:
+    ``py_reader`` with ``use_double_buffer``, ``double_buffer`` and
+    ``read_file``. → (main, startup, reader, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        reader = fluid.layers.py_reader(
+            capacity=LAY_READER_CAPACITY,
+            shapes=[[-1, seq_len]] * 3 + [[-1, 1]] * 2,
+            dtypes=["int64"] * 5, lod_levels=[0] * 5, name="train_reader",
+            use_double_buffer=True)
+        reader = fluid.layers.double_buffer(reader)
+        src, pos, sent, mask_pos, mask_label = fluid.layers.read_file(reader)
+        x = bert.bert_embedding(src, pos, sent, cfg, 0.0)
+        enc = bert.encoder(x, cfg["layers"], cfg["hidden"], cfg["heads"],
+                           cfg["ffn"], 0.0)
+        flat = fluid.layers.reshape(enc, [-1, cfg["hidden"]])
+        logits = fluid.layers.fc(fluid.layers.gather(flat, mask_pos),
+                                 cfg["vocab_size"])
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, mask_label))
+        fluid.optimizer.Adam(lr).minimize(loss)
+    return main, startup, reader, loss
+
+
+def srl_chunk_program(fluid, word_dict_len, label_dict_len, emb=32,
+                      hidden=512, lr=1e-2):
+    """(b) The book's label_semantic_roles tagger as phase 20 builds it
+    (``book_extra.build_srl_crf_program``: embedding, fc tanh, fc to the
+    tags, linear_chain_crf and crf_decoding sharing crfw; SGD), and its
+    eval clone (taken before ``minimize``) with the book's ``chunk_eval``
+    on the decoded tags: IOB, ceil((label_dict_len - 1) / 2) chunk
+    types. → (main, startup, test, loss, decode, the six chunk_eval
+    outputs)."""
+    import math
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        word = fluid.data("word", shape=[1], dtype="int64", lod_level=1)
+        target = fluid.data("target", shape=[1], dtype="int64", lod_level=1)
+        e = layers.embedding(word, size=[word_dict_len, emb])
+        e = layers.reshape(e, [-1, emb])
+        h = layers.fc(e, hidden, act="tanh")
+        feature = layers.fc(h, label_dict_len, act=None)
+        loss = layers.mean(layers.linear_chain_crf(
+            input=feature, label=target,
+            param_attr=fluid.ParamAttr(name="crfw")))
+        decode = layers.crf_decoding(
+            input=feature, param_attr=fluid.ParamAttr(name="crfw"))
+        test = main.clone(for_test=True)
+        fluid.optimizer.SGD(lr).minimize(loss)
+    with fluid.program_guard(test, fluid.Program()):
+        tb = test.global_block()
+        chunk = layers.chunk_eval(
+            input=tb.var(decode.name), label=tb.var("target"),
+            chunk_scheme="IOB",
+            num_chunk_types=int(math.ceil((label_dict_len - 1) / 2.0)))
+    return main, startup, test, loss, decode, chunk
+
+
+def _fused_deep_tower(fluid, x, in_dim, hidden):
+    """``fusion_repeated_fc_relu`` over ``hidden`` widths: its W and Bias
+    parameters made as ``fc`` would name them, the op appended by hand (no
+    layer of either package builds it)."""
+    block = fluid.default_main_program().current_block()
+    ws, bs, dims = [], [], (in_dim,) + tuple(hidden)
+    for j, (d, h) in enumerate(zip(dims[:-1], dims[1:])):
+        ws.append(fluid.layers.create_parameter(
+            [d, h], "float32", name=f"ctr_tower_w_{j}",
+            default_initializer=fluid.initializer.Normal(0.0, d ** -0.5)))
+        bs.append(fluid.layers.create_parameter(
+            [h], "float32", name=f"ctr_tower_b_{j}", is_bias=True,
+            default_initializer=fluid.initializer.Constant(0.0)))
+    new = lambda: block.create_var(  # noqa: E731
+        name=fluid.unique_name.generate("ctr_tower"), dtype=x.dtype)
+    out, relus = new(), [new() for _ in hidden[:-1]]
+    block.append_op(type="fusion_repeated_fc_relu",
+                    inputs={"X": [x], "W": ws, "Bias": bs},
+                    outputs={"Out": [out], "ReluOut": relus})
+    return out
+
+
+def ctr_contrib_program(fluid, dense=CTR_DENSE, slots=CTR_SLOTS,
+                        sparse_dim=CTR_DIM, emb=CTR_EMB, hidden=CTR_HIDDEN,
+                        bfc=CTR_BFC, lr=CTR_LR):
+    """(c) A CTR net over ``fluid.contrib.layers``: each slot (one id, LoD
+    level 1) through ``fused_embedding_seq_pool``, the dense features and
+    the pooled slots into the deep tower (``fusion_repeated_fc_relu``),
+    ``batch_fc`` as the last layer before the logit, sigmoid and log loss
+    under Adam; the metrics ``ctr_metric_bundle`` and ``auc`` in the
+    step. → (main, startup, feed names, loss, auc, the bundle's six
+    sums)."""
+    layers, contrib = fluid.layers, fluid.contrib.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        xd = fluid.data("dense", shape=[dense], dtype="float32")
+        ids = [fluid.data(f"slot_{i}", shape=[1], dtype="int64",
+                          lod_level=1) for i in range(slots)]
+        label = fluid.data("label", shape=[1], dtype="int64")
+        pooled = [contrib.fused_embedding_seq_pool(
+            s, size=[sparse_dim, emb], param_attr=fluid.ParamAttr(
+                name=f"ctr_emb_{i}",
+                initializer=fluid.initializer.Normal(0.0, 0.01)))
+            for i, s in enumerate(ids)]
+        deep = _fused_deep_tower(fluid, layers.concat([xd] + pooled, axis=1),
+                                 dense + slots * emb, hidden)
+        top = contrib.batch_fc(
+            layers.reshape(deep, [1, -1, hidden[-1]]), [1, hidden[-1], bfc],
+            fluid.ParamAttr(name="ctr_bfc_w", initializer=fluid.initializer
+                            .Normal(0.0, hidden[-1] ** -0.5)),
+            [1, 1, bfc], fluid.ParamAttr(
+                name="ctr_bfc_b", initializer=fluid.initializer.Constant(0.0)))
+        logit = layers.fc(layers.reshape(top, [-1, bfc]), 1,
+                          param_attr="ctr_out_w", bias_attr="ctr_out_b")
+        prob = layers.sigmoid(logit)
+        labelf = layers.cast(label, "float32")
+        loss = layers.mean(layers.log_loss(prob, labelf))
+        auc, _ = layers.auc(layers.concat([1.0 - prob, prob], axis=1), label)
+        bundle = contrib.ctr_metric_bundle(prob, labelf)
+        fluid.optimizer.Adam(lr).minimize(loss)
+    feeds = ["dense"] + [f"slot_{i}" for i in range(slots)] + ["label"]
+    return main, startup, feeds, loss, auc, list(bundle)
+
+
+def ctr_feed(fluid_mod, batch, dense=CTR_DENSE, slots=CTR_SLOTS,
+             sparse_dim=CTR_DIM, seed=SEED):
+    """One batch of the repo's synthetic CTR data (``wide_deep.ctr_reader``:
+    the label tied to a few slots' ids and the dense part), each slot one
+    id a row as a LoDTensor of ``fluid_mod``."""
+    from paddle_tpu_torch.models import wide_deep
+    feed = wide_deep.ctr_reader(batch, dense, slots, sparse_dim, seed)()
+    offs = [list(range(batch + 1))]
+    for i in range(slots):
+        t = fluid_mod.LoDTensor()
+        t.set(feed[f"slot_{i}"], fluid_mod.CPUPlace())
+        t.set_lod(offs)
+        feed[f"slot_{i}"] = t
+    return feed
+
+
+def c8_program(fluid):
+    """(e) ROADMAP C8 on the card: a tensor the step computes connected to
+    bilinear_interp's OutSize and to crop's Offsets, compiled ops on
+    either side. → (main, startup, the output)."""
+    import numpy as np
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", shape=[2, 3, 8, 8], dtype="float32",
+                       append_batch_size=False)
+        h = fluid.layers.scale(x, 2.0)
+        size = fluid.layers.assign(np.array([12, 10], "int32"))
+        off = fluid.layers.assign(np.array([0, 1, 2, 3], "int32"))
+        block = main.global_block()
+        r = block.create_var(name="c8_resized", dtype="float32")
+        block.append_op(type="bilinear_interp",
+                        inputs={"X": [h], "OutSize": [size]},
+                        outputs={"Out": [r]}, attrs={"align_corners": False})
+        c = block.create_var(name="c8_cropped", dtype="float32")
+        block.append_op(type="crop", inputs={"X": [r], "Offsets": [off]},
+                        outputs={"Out": [c]}, attrs={"shape": [2, 2, 9, 6]})
+        y = fluid.layers.tanh(fluid.layers.scale(c, 0.5))
+    return main, startup, y
+
+
+def distributions_program(fluid, draws=LAY_DRAWS, seed=SEED):
+    """(f) The four distributions of ``fluid.layers``: Normal(1.5, 2) and
+    Uniform(-1, 3) sampled ``draws`` times (Categorical and
+    MultivariateNormalDiag have no ``sample`` in the TPU package), each
+    one's log_prob at a fed value, entropy, and the KL of the two
+    Categoricals and of the two MultivariateNormalDiags. → (main,
+    startup, {name: var})."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        c = lambda v: layers.fill_constant([1], "float32", v)  # noqa: E731
+        value = fluid.data("value", shape=[6], dtype="float32",
+                           append_batch_size=False)
+        logits = fluid.data("logits", shape=[4, 5], dtype="float32",
+                            append_batch_size=False)
+        logits2 = fluid.data("logits2", shape=[4, 5], dtype="float32",
+                             append_batch_size=False)
+        loc = fluid.data("loc", shape=[3], dtype="float32",
+                         append_batch_size=False)
+        scale = fluid.data("scale", shape=[3, 3], dtype="float32",
+                           append_batch_size=False)
+        normal = layers.Normal(c(1.5), c(2.0))
+        uniform = layers.Uniform(c(-1.0), c(3.0))
+        cat, cat2 = layers.Categorical(logits), layers.Categorical(logits2)
+        mvn = layers.MultivariateNormalDiag(loc, scale)
+        mvn2 = layers.MultivariateNormalDiag(
+            layers.scale(loc, 0.5), layers.scale(scale, 1.5))
+        out = {"normal_sample": normal.sample([draws], seed=seed),
+               "uniform_sample": uniform.sample([draws], seed=seed + 1),
+               "normal_log_prob": normal.log_prob(value),
+               "normal_entropy": normal.entropy(),
+               "uniform_log_prob": uniform.log_prob(value),
+               "uniform_entropy": uniform.entropy(),
+               "categorical_entropy": cat.entropy(),
+               "categorical_kl": cat.kl_divergence(cat2),
+               "mvn_entropy": mvn.entropy(),
+               "mvn_kl": mvn.kl_divergence(mvn2)}
+    return main, startup, out
+
+
+def distributions_feed(rng):
+    import numpy as np
+    return {"value": rng.uniform(-0.9, 2.9, 6).astype("float32"),
+            "logits": rng.normal(size=(4, 5)).astype("float32"),
+            "logits2": rng.normal(size=(4, 5)).astype("float32"),
+            "loc": rng.normal(size=3).astype("float32"),
+            "scale": np.diag(rng.uniform(0.5, 2.0, 3)).astype("float32")}
+
+
+def _lay_bert_batches(cfg, n, bs=LAY_BERT_BATCH, seed=SEED + 24):
+    """``n`` batches of the bert lane's kind (bench.run_bert_base's
+    feed_of: 15 % of the positions masked), as the reader's lists in
+    read_file's order."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n_mask = max(1, int(bs * S * 0.15))
+    return [[rng.randint(0, cfg["vocab_size"], (bs, S)).astype("int64"),
+             np.tile(np.arange(S), (bs, 1)).astype("int64"),
+             np.zeros((bs, S), "int64"),
+             rng.randint(0, bs * S, (n_mask, 1)).astype("int64"),
+             rng.randint(0, cfg["vocab_size"], (n_mask, 1)).astype("int64")]
+            for _ in range(n)]
+
+
+def _lay_bert_run(book, main, startup, loss, feeds, want, what):
+    """LAY_BERT_STEPS compiled steps from the startup, each gated on the
+    lane's launches (``_gate_run``: eager, capture, then replays), then one
+    more replay traced; under the caller's ``_lane_flags``. → (losses,
+    step ms, how each ran, the executor, the scope)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    exe, scope = _fresh(main, startup)
+    losses, times, kinds = [], [], []
+    last = None
+    for i, f in enumerate(feeds):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, = exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        kinds.append(_gate_run(exe, _delta(before), want,
+                               f"{LAY_TAG} (a) {what} step {i}"))
+        book.add(want)
+        losses.append(np.asarray(out).reshape(-1)[0])
+        last = f
+    if tuple(kinds) != ("eager", "capture") + ("replay",) * (
+            LAY_BERT_STEPS - 2):
+        raise AssertionError(f"{LAY_TAG} (a) {what} ran {kinds}")
+    cb = exe._last_block
+
+    def one_step():
+        before = _launch_counts()
+        exe.run(main, feed=last, fetch_list=[loss], scope=scope)
+        if exe._last_block is not cb or _gate_run(
+                exe, _delta(before), want,
+                f"{LAY_TAG} (a) {what} traced step") != "replay":
+            raise AssertionError(f"{LAY_TAG} (a) {what}: the traced step "
+                                 "was not a replay")
+    _check_trace(_device_kernel_counts(one_step), want,
+                 f"{LAY_TAG} (a) {what} step")
+    book.add(want)
+    return np.asarray(losses), times, kinds, exe, scope
+
+
+def _lay_save_round_trip(main, exe, scope, tmp):
+    """(a) Every persistable saved by a hand-built program of one
+    ``save_combine`` op (``fluid.io.save_vars``' order), loaded by one of
+    one ``load_combine`` into a fresh scope, bitwise; the file byte for
+    byte ``fluid.io.save_persistables(filename=...)``'s; then one
+    parameter through ``save``, ``load``, ``layers.load``, ``delete_var``
+    and ``fake_init``. → (the bytes written, seconds to save, to load)."""
+    import os
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import io as fio
+    names = [v.name for v in main.list_vars() if fio._is_persistable(v)]
+    got = _persistables(scope, main)
+    if sorted(got) != sorted(names):
+        raise AssertionError(f"{LAY_TAG} (a) persistables {len(got)} "
+                             f"initialized of {len(names)}")
+
+    def program(ops):
+        prog = fluid.Program()
+        block = prog.global_block()
+        for n in names + ["lay_w", "lay_z"]:
+            block.create_var(name=n, persistable=True)
+        for t, ins, outs, attrs in ops:
+            block.append_op(type=t, inputs=ins, outputs=outs, attrs=attrs)
+        return prog
+    path = os.path.join(tmp, "all")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run(program([("save_combine", {"X": names}, {},
+                      {"file_path": path})]), scope=scope)
+    t1 = time.perf_counter()
+    fresh = fluid.Scope()
+    exe.run(program([("load_combine", {}, {"Out": names},
+                      {"file_path": path})]), scope=fresh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _same_state("(a) save_combine then load_combine into a fresh scope",
+                _persistables(fresh, main), got, tag=LAY_TAG)
+    with fluid.scope_guard(scope):
+        fio.save_persistables(exe, tmp, main, filename="persistables")
+    with open(path, "rb") as f, \
+            open(os.path.join(tmp, "persistables"), "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{LAY_TAG} (a) the save_combine file is "
+                                 "not save_persistables' file")
+    # one parameter through the single-var ops
+    w = main.global_block().all_parameters()[0].name
+    one = os.path.join(tmp, "one")
+    exe.run(program([("save", {"X": [w]}, {}, {"file_path": one}),
+                     ("load", {}, {"Out": ["lay_w"]}, {"file_path": one})]),
+            scope=scope)
+    via_layer = fluid.Program()
+    with fluid.program_guard(via_layer, fluid.Program()):
+        v = via_layer.global_block().create_var(name="lay_w2",
+                                                persistable=True)
+        fluid.layers.load(v, one)
+    exe.run(via_layer, scope=scope)
+    shape = list(got[w].shape)
+    exe.run(program([("delete_var", {"X": ["lay_w"]}, {}, {}),
+                     ("fake_init", {}, {"Out": ["lay_z"]},
+                      {"shape": shape, "dtype": 5})]), scope=scope)
+    ok = (torch.equal(scope.find_var("lay_w2").value().array, got[w])
+          and scope.find_var("lay_w") is None
+          and torch.equal(scope.find_var("lay_z").value().array,
+                          torch.zeros_like(got[w])))
+    _log(f"{LAY_TAG} (a) {w} through save, load, layers.load, delete_var "
+         f"and fake_init -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{LAY_TAG} (a) the single-var ops")
+    return os.path.getsize(path), t1 - t0, t2 - t1
+
+
+def _lay_bert(book):
+    """(a) BERT-base pretraining through the legacy reader (the
+    docstring's phase 24 (a)): the bert lane's program, batch and flags,
+    LAY_BERT_STEPS steps fed by iterating the ``py_reader`` over a batch
+    generator, the same batches through ``feed=`` from the same start,
+    each step's loss and every persistable bitwise alike; the lane's
+    launches a step; the save round trips."""
+    import numpy as np
+    import tempfile
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base_config()
+    with _lane_flags():
+        with fluid.unique_name.guard():
+            main, startup, reader, loss = bert_reader_program(fluid, bert,
+                                                              cfg)
+        main.random_seed = startup.random_seed = SEED
+        want = _step_want(main.global_block().ops, "fused")
+        if want != LANE_STEP_WANT:
+            raise AssertionError(f"{LAY_TAG} (a) want {want} a step, not "
+                                 f"the lane's {LANE_STEP_WANT}")
+        batches = _lay_bert_batches(cfg, LAY_BERT_STEPS)
+        names = [v.name for v in fluid.layers.read_file(reader)]
+        reader.decorate_batch_generator(lambda: iter(batches),
+                                        places=fluid.CUDAPlace(0))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = {}
+        for how, feeds in (("py_reader", reader()),
+                           ("feed=", [dict(zip(names, b))
+                                      for b in batches])):
+            losses, times, kinds, exe, scope = _lay_bert_run(
+                book, main, startup, loss, feeds, want, how)
+            got[how] = (losses, _persistables(scope, main), times)
+            if how == "py_reader":
+                peak = torch.cuda.max_memory_allocated() - base
+                with tempfile.TemporaryDirectory(prefix="chip_smoke_lay_") \
+                        as tmp:
+                    nbytes, save_s, load_s = _lay_save_round_trip(
+                        main, exe, scope, tmp)
+            _drop(exe)
+            del scope
+    a, b = got["py_reader"], got["feed="]
+    if not np.array_equal(a[0], b[0]):
+        raise AssertionError(f"{LAY_TAG} (a) losses through the reader "
+                             f"{a[0]} against feed= {b[0]}")
+    _same_state(f"(a) after {LAY_BERT_STEPS} steps, through the reader "
+                "against feed=", a[1], b[1], tag=LAY_TAG)
+    if not np.isfinite(a[0]).all():   # a new random batch each step: the
+        raise AssertionError(          # loss stays near log(vocab)
+            f"{LAY_TAG} (a) losses {a[0]}")
+    p50 = {k: float(np.median(v[2][2:])) for k, v in got.items()}
+    _log(f"{LAY_TAG} (a) BERT-base bf16 batch {LAY_BERT_BATCH} through "
+         f"py_reader / double_buffer / read_file: {LAY_BERT_STEPS} steps "
+         f"({' '.join(kinds)}), losses "
+         + " ".join(f"{x:.4f}" for x in a[0]) + " bitwise the feed= run's; "
+         f"step p50 {p50['py_reader']:.3f} ms through the reader, "
+         f"{p50['feed=']:.3f} ms through feed= (over the "
+         f"{LAY_BERT_STEPS - 2} replays); peak {peak / 2**30:.3f} GiB net; "
+         f"launches a step {want}; save_combine {nbytes / 2**30:.3f} GiB in "
+         f"{save_s:.2f} s, load_combine {load_s:.2f} s, on {_card_line()}")
+    return {"p50_ms": p50["py_reader"], "feed_p50_ms": p50["feed="],
+            "losses": a[0].tolist(), "peak_gib": peak / 2**30,
+            "save_gib": nbytes / 2**30, "save_s": save_s, "load_s": load_s}
+
+
+def _lay_srl(book):
+    """(b) The book's SRL tagger (the docstring's phase 24 (b)): phase
+    20's widths, LAY_SRL_STEPS steps on one batch (the first 3 bitwise the
+    interpreter's), then the eval clone with ``chunk_eval`` (segmented:
+    chunk_eval is a host island) timed; its precision, recall and F1, and
+    the island's six outputs equal to the CPU port's chunk_eval on the
+    card's decoded tags."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.ops.registry import OPS
+    main, startup, test, loss, decode, chunk = _md_fixed(
+        lambda: srl_chunk_program(fluid, **MD_SRL))
+    test.random_seed = SEED
+    rng = np.random.RandomState(SEED + 24)
+    feed = _md_srl_batch(rng, MD_SRL_BATCH)
+    res = _md_train(book, f"(b) SRL tagger batch {MD_SRL_BATCH} sentences "
+                    f"({feed['word'].array.shape[0]} words)",
+                    _md_run(main, [loss], feed), [startup], NO_KERNELS,
+                    tag=LAY_TAG, keep_scope=True, steps=LAY_SRL_STEPS)
+    exe, scope = res.pop("exe"), res.pop("scope")
+    fetch = [decode] + list(chunk)
+    _, eval_p50, island_share = _vs_timed(
+        book, exe, scope, test, feed, fetch, "segmented",
+        "(b) the eval clone with chunk_eval", tag=LAY_TAG,
+        runs=LAY_EVAL_RUNS, clock=("chunk_eval",))
+    out = exe.run(test, feed=feed, fetch_list=fetch, scope=scope)
+    exe.close()
+    tags, lod = out[0], [list(feed["word"].lod()[0])]
+    op = [o for o in test.global_block().ops if o.type == "chunk_eval"][0]
+    info = OPS.get("chunk_eval")
+    attrs = dict(info.attr_defaults, **op.attrs,
+                 _lod={"Inference": [(tuple(lod[0]),)],
+                       "Label": [(tuple(lod[0]),)]})
+    cpu = info.kernel({"Inference": [torch.from_numpy(np.asarray(tags))],
+                       "Label": [feed["target"].array.cpu()]}, attrs)
+    for slot, card in zip(("Precision", "Recall", "F1-Score",
+                           "NumInferChunks", "NumLabelChunks",
+                           "NumCorrectChunks"), out[1:]):
+        c = cpu[slot][0].numpy()
+        if c.dtype != np.asarray(card).dtype or not np.array_equal(c, card):
+            raise AssertionError(f"{LAY_TAG} (b) chunk_eval {slot}: card "
+                                 f"{card}, the CPU port {c}")
+    p, r, f1, ni, nl, nc = (np.asarray(v).reshape(-1)[0] for v in out[1:])
+    _log(f"{LAY_TAG} (b) the eval clone: p50 {eval_p50:.3f} ms, the "
+         f"chunk_eval island {100 * island_share:.1f} % of it; chunk_eval "
+         f"(IOB, {op.attr('num_chunk_types')} chunk types) on the card: "
+         f"precision {p:.6f}, recall {r:.6f}, F1 {f1:.6f} ({nc} of {ni} "
+         f"inferred chunks right, {nl} labelled); the six outputs equal the "
+         "CPU port's on the card's decoded tags -> ok")
+    res.update(eval_p50_ms=eval_p50, island_share=island_share,
+               precision=float(p), recall=float(r), f1=float(f1))
+    return res
+
+
+def _lay_ctr(book):
+    """(c) The CTR net over fluid.contrib.layers (the docstring's phase
+    24 (c)): 10 steps on one batch of the wide_deep lane's size,
+    segmented (auc is a host island), the first 3 bitwise the
+    interpreter's, the loss falling; the step p50 and peak memory."""
+    from paddle_tpu_torch import fluid
+    main, startup, _, loss, auc, bundle = _md_fixed(
+        lambda: ctr_contrib_program(fluid))
+    census = {t: sum(op.type == t for op in main.global_block().ops)
+              for t in ("fused_embedding_seq_pool", "fusion_repeated_fc_relu",
+                        "batch_fc", "auc")}
+    if census != {"fused_embedding_seq_pool": CTR_SLOTS,
+                  "fusion_repeated_fc_relu": 1, "batch_fc": 1, "auc": 1}:
+        raise AssertionError(f"{LAY_TAG} (c) ops {census}")
+    feed = ctr_feed(fluid, WD_BATCH)
+    res = _md_train(book, f"(c) CTR over fluid.contrib.layers batch "
+                    f"{WD_BATCH}, {CTR_SLOTS} slots of {CTR_DIM} ids",
+                    _md_run(main, [loss, auc] + bundle, feed), [startup],
+                    NO_KERNELS, mode="segmented", tag=LAY_TAG)
+    return res
+
+
+def _lay_battery():
+    """(d) One case of each of the kernel-level op types of this batch
+    (metrics_misc_ops' 22, the five computing fused ops, hash and
+    cudnn_lstm): (op type, inputs, attrs, the ``_lod`` attr or None, the
+    slots its generic grad is taken for). Made from a seed; the parity
+    tests run the same cases against the TPU package."""
+    import numpy as np
+    r = np.random.RandomState(SEED + 24)
+    x = lambda *s: _vs_x(r, *s)  # noqa: E731
+    lod = lambda *n: (tuple(int(v) for v in np.concatenate(  # noqa: E731
+        [[0], np.cumsum(n)])),)
+    i64 = lambda v: np.asarray(v, "int64")  # noqa: E731
+    lens = [7, 0, 1, 12, 5]
+    tags = r.randint(0, 7, (25, 1)).astype("int64")
+    rows, cols, ic = [3, 1, 4], [4, 1, 3], 2
+    n_img = sum(ic * a * b for a, b in zip(rows, cols))
+    trows, tcols = [2, 1, 3], [3, 0, 4]
+    n_pair = sum(2 * a * b for a, b in zip(trows, tcols))
+    rlod = {"X": [lod(n_img)], "ROW": [lod(*rows)], "COLUMN": [lod(*cols)]}
+    tlod = {"X": [lod(n_pair)], "ROW": [lod(*trows)],
+            "COLUMN": [lod(*tcols)]}
+    zeros = lambda n: np.zeros((n, 1), "float32")  # noqa: E731
+    labels = r.randint(0, 30, (6, 2)).astype("int64")
+    B, T, I, H = 2, 3, 4, 5
+    return [
+        ("chunk_eval", {"Inference": [np.where(r.rand(25, 1) < 0.7, tags,
+                                               r.randint(0, 7, (25, 1)))],
+                        "Label": [tags]},
+         {"chunk_scheme": "IOB", "num_chunk_types": 3},
+         {"Inference": [lod(*lens)], "Label": [lod(*lens)]}, []),
+        ("precision_recall", {"MaxProbs": [r.rand(20, 1).astype("float32")],
+                              "Indices": [r.randint(0, 4, (20, 1))],
+                              "Labels": [r.randint(0, 4, (20, 1))],
+                              "StatesInfo": [r.randint(0, 9, (4, 4))
+                                             .astype("float32")]},
+         {"class_number": 4}, None, []),
+        ("positive_negative_pair",
+         {"Score": [np.round(r.rand(20, 1), 1).astype("float32")],
+          "Label": [r.randint(0, 3, (20, 1)).astype("float32")],
+          "QueryID": [r.randint(0, 3, (20, 1))]}, {}, None, []),
+        ("modified_huber_loss", {"X": [x(12, 1) * 2],
+                                 "Y": [r.randint(0, 2, (12, 1))
+                                       .astype("float32")]},
+         {}, None, ["X"]),
+        ("partial_concat", {"X": [x(3, 5), x(3, 5)]},
+         {"start_index": 1, "length": 3}, None, ["X"]),
+        ("partial_sum", {"X": [x(3, 5), x(3, 5), x(3, 5)]},
+         {"start_index": -3, "length": 2}, None, ["X"]),
+        ("batch_fc", {"Input": [x(3, 4, 5)], "W": [x(3, 5, 6)],
+                      "Bias": [x(3, 1, 6)]}, {}, None,
+         ["Input", "W", "Bias"]),
+        ("shuffle_batch", {"X": [x(16, 3)]}, {}, None, ["X"]),
+        ("fill", {}, {"value": [1.5, -2.0, 3.25, 4.0], "shape": [2, 2]},
+         None, []),
+        ("fill_zeros_like2", {"X": [x(3, 2)]}, {}, None, []),
+        ("get_places", {}, {"device_count": 2}, None, []),
+        ("coalesce_tensor", {"Input": [x(2, 3), x(4)]}, {}, None,
+         ["Input"]),
+        ("sample_logits", {"Logits": [x(6, 50)], "Labels": [labels]},
+         {"num_samples": 8}, None, ["Logits"]),
+        ("filter_by_instag", {"Ins": [x(6, 3)],
+                              "Ins_tag": [i64([[1], [4], [2], [9], [4],
+                                               [7]])],
+                              "Filter_tag": [i64([4, 7])]},
+         {}, {"Ins": [lod(6)]}, ["Ins"]),
+        ("tdm_child", {"X": [i64([[1], [2], [3], [0]])],
+                       "TreeInfo": [np.array(
+                           [[0, 0, 0, 0, 0], [1, 0, 0, 2, 3],
+                            [2, 1, 1, 0, 0], [0, 1, 1, 4, 0],
+                            [4, 2, 3, 0, 0]], "int32")]},
+         {"child_nums": 2}, None, []),
+        ("tdm_sampler", {"X": [i64([[0], [1], [2]])],
+                         "Travel": [np.array([[1, 3, 9], [2, 6, 12],
+                                              [0, 5, 10]], "int32")],
+                         "Layer": [np.arange(1, 15, dtype="int32")]},
+         {"neg_samples_num_list": [1, 3, 4],
+          "layer_offset_lod": [0, 2, 7, 14]}, None, []),
+        ("rank_attention", {"X": [x(4, 4)],
+                            "RankOffset": [np.array(
+                                [[1, 2, 0, 3, 1, 0, 0], [2, 1, 0, 2, 0, 3, 0],
+                                 [0, 0, 0, 0, 0, 0, 0],
+                                 [3, 3, 1, 3, 2, 1, 1]], "int32")],
+                            "RankParam": [x(36, 2)]},
+         {"MaxRank": 3}, None, ["X", "RankParam"]),
+        ("tree_conv", {"NodesVector": [x(2, 5, 4)],
+                       "EdgeSet": [np.array(
+                           [[[0, 1], [0, 2], [1, 3], [1, 4], [0, 0]],
+                            [[0, 1], [1, 2], [2, 3], [0, 0], [0, 0]]],
+                           "int32")],
+                       "Filter": [x(4, 3, 2, 3)]}, {}, None,
+         ["NodesVector", "Filter"]),
+        ("match_matrix_tensor", {"X": [x(8, 4)], "Y": [x(6, 5)],
+                                 "W": [x(4, 2, 5)]},
+         {"dim_t": 2}, {"X": [lod(3, 0, 1, 4)], "Y": [lod(2, 3, 1, 0)]},
+         ["X", "Y", "W"]),
+        ("var_conv_2d", {"X": [x(n_img, 1)], "ROW": [zeros(sum(rows))],
+                         "COLUMN": [zeros(sum(cols))], "W": [x(3, ic * 9)]},
+         {"InputChannel": ic, "OutputChannel": 3, "StrideH": 1,
+          "StrideW": 2}, rlod, ["X", "W"]),
+        ("pyramid_hash", {"X": [r.randint(0, 5000, (9, 1))],
+                          "W": [x(100, 1)]},
+         {"num_emb": 8, "rand_len": 4, "space_len": 100,
+          "pyramid_layer": 3}, {"X": [lod(4, 1, 0, 4)]}, ["W"]),
+        ("sequence_topk_avg_pooling",
+         {"X": [x(n_pair, 1)], "ROW": [zeros(sum(trows))],
+          "COLUMN": [zeros(sum(tcols))]},
+         {"topks": [1, 2, 5], "channel_num": 2}, tlod, ["X"]),
+        ("fused_embedding_seq_pool", {"W": [x(30, 4)],
+                                      "Ids": [r.randint(0, 30, (9, 1))]},
+         {}, {"Ids": [lod(4, 0, 1, 4)]}, ["W"]),
+        ("fusion_repeated_fc_relu", {"X": [x(5, 6)], "W": [x(6, 7), x(7, 3)],
+                                     "Bias": [x(7), x(3)]}, {}, None,
+         ["X", "W", "Bias"]),
+        ("fusion_seqpool_cvm_concat", {"X": [x(9, 5), x(9, 4) + 1.0],
+                                       "CVM": [x(3, 2)]},
+         {}, {"X": [lod(4, 0, 5), lod(2, 3, 4)]}, []),
+        ("fusion_squared_mat_sub", {"X": [x(4, 5)], "Y": [x(5, 3)]},
+         {"scalar": 0.5}, None, ["X", "Y"]),
+        ("fusion_transpose_flatten_concat", {"X": [x(2, 3, 4, 5),
+                                                   x(2, 3, 2, 5)]},
+         {"trans_axis": [0, 2, 3, 1], "flatten_axis": 1, "concat_axis": 1},
+         None, []),
+        ("hash", {"X": [r.randint(-2**31, 2**31, (20, 3))]},
+         {"num_hash": 3, "mod_by": 1000}, None, []),
+        ("cudnn_lstm", {"Input": [x(B, T, I)],
+                        "W": [x(I * 4 * H + H * 4 * H + 8 * H) * 0.1],
+                        "InitH": [np.zeros((1, B, H), "float32")],
+                        "InitC": [np.zeros((1, B, H), "float32")]},
+         {"hidden_size": H, "num_layers": 1, "input_size": I,
+          "is_test": True}, None, ["Input", "W"]),
+    ]
+
+
+LAY_HOST_OPS = ("chunk_eval", "precision_recall", "positive_negative_pair",
+                "filter_by_instag", "tdm_child", "tdm_sampler", "get_places",
+                "coalesce_tensor", "fill", "hash", "shuffle_batch")
+LAY_STUBS = ("tensorrt_engine", "lite_engine", "fusion_group",
+             "conv2d_inception_fusion", "attention_lstm",
+             "fused_embedding_fc_lstm")
+
+
+def _lay_scope_ops():
+    """(d) The op types that work on the scope, on the card against the
+    CPU port: the save ops' files byte for byte, the loads, delete_var,
+    fake_init and the SelectedRows ops' results exactly, the reader ops
+    through the interpreter's op step; the stubs raise on the card. →
+    how many op types."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import core
+    from paddle_tpu_torch.fluid.executor import _interpret_op
+    from paddle_tpu_torch.ops.registry import OPS
+    r = np.random.RandomState(SEED + 241)
+    w = r.normal(size=(3, 5)).astype("float32")
+    seq = r.normal(size=(5, 2)).astype("float32")
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lay_") as tmp:
+        for dev, place in ((VS_CARD, fluid.CUDAPlace(0)),
+                           ("cpu", fluid.CPUPlace())):
+            d = os.path.join(tmp, dev)
+            scope = core.Scope()
+            scope.var("w").get_tensor().set(w, place)
+            t = scope.var("seq").get_tensor()
+            t.set(seq, place)
+            t.set_lod([[0, 1, 2], [0, 2, 5]])
+            sr = scope.var("sr").get_selected_rows()
+            sr.set_rows([7, 2, 7, 0, 2, 7, 9])
+            sr.set_height(10)
+            sr.get_tensor().set(r.normal(size=(7, 4)).astype("float32")
+                                if dev == VS_CARD else res[VS_CARD]["srv"],
+                                place)
+            prog = fluid.Program()
+            block = prog.global_block()
+            for n in ("w", "seq", "w2", "seq2", "w3", "sr", "m", "mt", "z"):
+                block.create_var(name=n, persistable=True)
+            for t_, i, o, a in (
+                    ("save", {"X": ["w"]}, {}, {"file_path": d + "/w",
+                                                "save_as_fp16": True}),
+                    ("save_combine", {"X": ["w", "seq"]}, {},
+                     {"file_path": d + "/all"}),
+                    ("load_combine", {}, {"Out": ["w2", "seq2"]},
+                     {"file_path": d + "/all"}),
+                    ("load", {}, {"Out": ["w3"]}, {"file_path": d + "/w"}),
+                    ("delete_var", {"X": ["w"]}, {}, {}),
+                    ("fake_init", {}, {"Out": ["z"]}, {"shape": [2, 3],
+                                                       "dtype": 3}),
+                    ("merge_selected_rows", {"X": ["sr"]}, {"Out": ["m"]},
+                     {}),
+                    ("get_tensor_from_selected_rows", {"X": ["m"]},
+                     {"Out": ["mt"]}, {})):
+                block.append_op(type=t_, inputs=i, outputs=o, attrs=a)
+            fluid.Executor(place).run(prog, scope=scope)
+            host = lambda n: scope.find_var(n).value().numpy()  # noqa: E731
+            out = {"srv": sr.get_tensor().numpy(), "w_gone":
+                   scope.find_var("w") is None,
+                   "m_rows": scope.find_var("m").value().rows()}
+            out.update({n: host(n) for n in ("w2", "seq2", "w3", "z", "mt")})
+            out["lod"] = scope.find_var("seq2").value().lod()
+            for f in ("w", "all"):
+                with open(os.path.join(d, f), "rb") as fh:
+                    out["file_" + f] = fh.read()
+            # the reader ops
+            rs = core.Scope()
+
+            class _Queue:
+                items = [(np.ones((2, 2), "float32"), np.arange(3))]
+
+                def pop(self):
+                    return self.items.pop(0) if self.items else None
+            rs.var("queue").set_value(_Queue())
+            rb = fluid.Program().global_block()
+            ops = [rb.append_op(type="create_py_reader",
+                                inputs={"blocking_queue": ["queue"]},
+                                outputs={"Out": ["r0"]}),
+                   rb.append_op(type="create_double_buffer_reader",
+                                inputs={"UnderlyingReader": ["r0"]},
+                                outputs={"Out": ["r1"]}),
+                   rb.append_op(type="create_custom_reader",
+                                inputs={"UnderlyingReader": ["r1"]},
+                                outputs={"Out": ["r2"]}),
+                   rb.append_op(type="read", inputs={"Reader": ["r2"]},
+                                outputs={"Out": ["a", "b"]})]
+            for i, op in enumerate(ops):
+                _interpret_op(op, i, rs, None, torch.device(dev))
+            try:
+                _interpret_op(ops[-1], 3, rs, None, torch.device(dev))
+                raise AssertionError(f"{LAY_TAG} (d) read past the end")
+            except StopIteration:
+                pass
+            a = rs.find_var("a").value().array
+            if a.device.type != dev:
+                raise AssertionError(f"{LAY_TAG} (d) read put its batch on "
+                                     f"{a.device}")
+            out["read"] = (a.cpu().numpy(),
+                           rs.find_var("b").value().array.cpu().numpy())
+            res[dev] = out
+    card, cpu = res[VS_CARD], res["cpu"]
+    for k in cpu:
+        c, g = cpu[k], card[k]
+        same = (all(np.array_equal(x, y) for x, y in zip(c, g))
+                if isinstance(c, tuple) else
+                np.array_equal(c, g) if isinstance(c, np.ndarray) else c == g)
+        if not same:
+            raise AssertionError(f"{LAY_TAG} (d) {k}: the card and the CPU "
+                                 "differ")
+    if not (card["w_gone"] and np.array_equal(card["w2"], w)
+            and card["m_rows"] == [0, 2, 7, 9]):
+        raise AssertionError(f"{LAY_TAG} (d) the scope ops' results")
+    for t_ in LAY_STUBS:
+        try:
+            OPS.get(t_).kernel({"X": [torch.zeros(1, device=VS_CARD)]},
+                               {"_device": torch.device(VS_CARD)})
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{LAY_TAG} (d) {t_} did not raise")
+    return 12 + len(LAY_STUBS)
+
+
+def _lay_c8(book):
+    """(e) ROADMAP C8 on the card: OutSize and Offsets connected, the
+    step segmented with bilinear_interp and crop its islands, 3 runs
+    bitwise the interpreter's."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, y = c8_program(fluid)
+    x = np.random.RandomState(SEED + 242).normal(
+        size=(2, 3, 8, 8)).astype("float32")
+    exe, scope = _fresh(main, startup)
+    iexe = fluid.Executor(fluid.CUDAPlace(0))
+    kinds = []
+    for i in range(3):
+        before = _launch_counts()
+        out, = exe.run(main, feed={"x": x}, fetch_list=[y], scope=scope)
+        kinds.append(_rnn_gate(exe, before, "segmented",
+                               f"{LAY_TAG} (e) run {i}", book))
+        ref, = _interpreted(iexe, main, {"x": x}, [y], scope, NO_KERNELS,
+                            book, f"{LAY_TAG} (e) run {i}")
+        if not np.array_equal(out, ref):
+            raise AssertionError(f"{LAY_TAG} (e) run {i}: segmented and "
+                                 "interpreted differ")
+    islands = [(op.type, why) for s in exe._last_block.segments
+               if s.kind == "island"
+               for op, why in zip(s.ops, s.island_reasons)]
+    exe.close()
+    iexe.close()
+    want = [("bilinear_interp", "host_inputs"), ("crop", "host_inputs")]
+    if islands != want:
+        raise AssertionError(f"{LAY_TAG} (e) islands {islands}")
+    _log(f"{LAY_TAG} (e) C8: OutSize and Offsets connected, segmented "
+         f"({' '.join(kinds)}), islands {islands}, output {out.shape} "
+         "bitwise the interpreter's -> ok")
+    return {"kinds": kinds, "islands": islands}
+
+
+def _lay_distributions():
+    """(f) The distributions on the card: Normal's and Uniform's 2^20
+    draws' mean and variance within LAY_SE standard errors of the law's;
+    every log_prob, entropy and KL within LAY_DIST_TOL of the CPU port's
+    (relative)."""
+    import numpy as np
+    from paddle_tpu_torch import fluid
+    main, startup, outs = distributions_program(fluid)
+    feed = distributions_feed(np.random.RandomState(SEED + 243))
+    names = list(outs)
+    got = {}
+    for dev, place in (("card", fluid.CUDAPlace(0)),
+                       ("cpu", fluid.CPUPlace())):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup, scope=scope)
+        got[dev] = dict(zip(names, exe.run(main, feed=feed, scope=scope,
+                                           fetch_list=list(outs.values()))))
+        exe.close()
+    moments = []
+    for name, mean, var, m4 in (("normal_sample", 1.5, 4.0, 3 * 16.0),
+                                ("uniform_sample", 1.0, 16 / 12,
+                                 4 ** 4 / 80)):
+        s = np.asarray(got["card"][name], np.float64).reshape(-1)
+        n = s.size
+        dm = abs(s.mean() - mean) / np.sqrt(var / n)
+        dv = abs(s.var() - var) / np.sqrt((m4 - var * var) / n)
+        moments.append((name, n, dm, dv))
+        if n != LAY_DRAWS or dm > LAY_SE or dv > LAY_SE:
+            raise AssertionError(f"{LAY_TAG} (f) {name}: {n} draws, mean "
+                                 f"{dm:.2f} and variance {dv:.2f} standard "
+                                 "errors off")
+    worst = (0.0, "")
+    for name in names:
+        if name.endswith("_sample"):
+            continue
+        c, g = (np.asarray(got[d][name], np.float64) for d in ("cpu", "card"))
+        err = float(np.max(np.abs(g - c) / np.maximum(np.abs(c), 1e-30)))
+        worst = max(worst, (err, name))
+        if err > LAY_DIST_TOL:
+            raise AssertionError(f"{LAY_TAG} (f) {name}: card vs CPU "
+                                 f"{err:.3e} relative")
+    _log(f"{LAY_TAG} (f) distributions: "
+         + "; ".join(f"{n} {k} draws, mean {dm:.2f} and variance {dv:.2f} "
+                     "standard errors from the law's" for n, k, dm, dv
+                     in moments)
+         + f"; log_prob, entropy, KL card vs CPU within {worst[0]:.3e} "
+         f"relative ({worst[1]}) -> ok")
+    return {"moments": moments, "worst_rel": worst[0]}
+
+
+def phase_layers_rest():
+    """Phase 24: the rest of fluid.layers (the docstring's phase 24). The
+    main path, counted from zero: (a) BERT-base through the legacy
+    reader with its save round trips, (b) the SRL tagger and its
+    chunk_eval, (c) the CTR net over fluid.contrib.layers. Then, counted
+    apart, the checks: (d) the batch's 47 op types on the card against
+    the CPU port, (e) C8, (f) the distributions. → the main path's
+    launches: through the wrappers and on the card."""
+    from paddle_tpu_torch.fluid import core
+    book, checks = _CfBook(), _CfBook()
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    res = {"bert": _lay_bert(book)}
+    lane = tuple(book.executed)
+    res["srl"] = _lay_srl(book)
+    res["ctr"] = _lay_ctr(book)
+    wrapper, ran = _launch_counts(), tuple(book.executed)
+    if ran != lane:
+        raise AssertionError(f"{LAY_TAG} (b), (c) ran {ran} against (a)'s "
+                             f"{lane}: want none of the twelve kernels")
+    _reset_launch_counts()
+    min_ops = core.globals_["FLAGS_executor_seg_min_ops"]
+    core.set_flag("FLAGS_executor_seg_min_ops", 1)   # (e) is 5 ops
+    try:
+        res["c8"] = _lay_c8(checks)
+    finally:
+        core.set_flag("FLAGS_executor_seg_min_ops", min_ops)
+    res["battery"] = _vs_battery_run(checks, _lay_battery(), tag=LAY_TAG,
+                                     exact=LAY_HOST_OPS) + _lay_scope_ops()
+    res["distributions"] = _lay_distributions()
+    checked = _launch_counts()
+    if any(checked) or any(checks.executed):
+        raise AssertionError(f"{LAY_TAG} the checks launched {checked}, on "
+                             f"the card {tuple(checks.executed)}")
+    if res["battery"] != 47:
+        raise AssertionError(f"{LAY_TAG} (d) {res['battery']} op types, "
+                             "want 47")
+    _log(f"{LAY_TAG} phase 24 in {time.perf_counter() - t0:.1f} s: (a) "
+         f"step p50 {res['bert']['p50_ms']:.3f} ms through py_reader, "
+         f"{res['bert']['feed_p50_ms']:.3f} ms through feed=; (b) "
+         f"{res['srl']['p50_ms']:.3f} ms, F1 {res['srl']['f1']:.4f}; (c) "
+         f"{res['ctr']['p50_ms']:.3f} ms, {res['ctr']['net_gib']:.3f} GiB "
+         f"net; (d) {res['battery']} op types; the main path's launches "
+         f"through the wrappers {GATE_NAMES} {wrapper}, on the card {ran}; "
+         f"the checks' apart: {checked}, on the card "
+         f"{tuple(checks.executed)}")
+    return {"wrapper": wrapper, "executed": ran,
+            "check_executed": tuple(checks.executed), **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true")
@@ -11881,6 +12836,7 @@ def main(argv=None) -> int:
     paths["rnn"] = timed(phase_rnn)
     paths["vision"] = timed(phase_vision)
     paths["detection"] = timed(phase_detection)
+    paths["layers_rest"] = timed(phase_layers_rest)
     # launches: what the card ran over the main paths of this run, each
     # path counted from zero just before it (launches_by_path: warm-ups
     # and captures through the wrappers, each replay as its graph recorded
@@ -11947,9 +12903,9 @@ def main(argv=None) -> int:
                                  "old_route_ms", "delta_ms")
                if k in r}))
     # a trace gate fails when its trace came up short (ROADMAP C2)
-    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-23, each "
+    _log(f"[C2] {len(TRACES)} profiler traces in phases 1-24, each "
          "holding its gate's kernels: none came up short")
-    _log(f"[card] phases 1-23 in {time.perf_counter() - t_start:.1f} s: "
+    _log(f"[card] phases 1-24 in {time.perf_counter() - t_start:.1f} s: "
          + ", ".join(f"{k} {v}" for k, v in seconds.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -480,6 +480,14 @@ class Variable:
             raise TypeError(f"variable holds {type(self._holder).__name__}")
         return self._holder
 
+    def get_selected_rows(self) -> SelectedRows:
+        """The variable's row set, made empty at first use."""
+        if self._holder is None:
+            self._holder = SelectedRows()
+        if not isinstance(self._holder, SelectedRows):
+            raise TypeError(f"variable holds {type(self._holder).__name__}")
+        return self._holder
+
     def get_lod_tensor_array(self) -> LoDTensorArray:
         """The variable's tensor array, made empty at first use."""
         if self._holder is None:

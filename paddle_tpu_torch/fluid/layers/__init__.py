@@ -13,3 +13,7 @@ from .sequence_lod import *  # noqa: F401,F403
 from .rnn import *  # noqa: F401,F403
 from . import detection  # noqa: F401
 from .detection import *  # noqa: F401,F403
+from . import distributions  # noqa: F401
+from .distributions import (Uniform, Normal, Categorical,  # noqa: F401
+                            MultivariateNormalDiag)
+from .tensor import math_op  # noqa: F401

@@ -2045,3 +2045,92 @@ __all__ += [
     "deformable_conv", "deformable_roi_pooling", "inplace_abn",
     "prroi_pool", "psroi_pool", "similarity_focus", "roi_pool",
     "roi_align"]
+
+
+# --------------------------------------------------------------------------
+# the last names of the TPU package's layers/nn.py (nn.py:540, :1162,
+# :1207, :1255, :1263, :2060, :2086)
+# --------------------------------------------------------------------------
+def concat_(input, axis=0, name=None):
+    from .tensor import concat
+    return concat(input, axis, name)
+
+
+def cast_(x, dtype):
+    from .tensor import cast
+    return cast(x, dtype)
+
+
+def hash(input, hash_size, num_hash=1, name=None):
+    """[N, num_hash, 1] buckets in [0, hash_size) of each row of ids (the
+    ``hash`` op: the TPU package's 32-bit mix, not xxhash)."""
+    helper = LayerHelper("hash", name=name)
+    out = helper.create_variable_for_type_inference(VarDesc.VarType.INT64)
+    helper.append_op(type="hash", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"mod_by": hash_size, "num_hash": num_hash})
+    return out
+
+
+def merge_selected_rows(x, name=None):
+    helper = LayerHelper("merge_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="merge_selected_rows", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    helper = LayerHelper("get_tensor_from_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="get_tensor_from_selected_rows", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """(precision, recall, f1, num_infer, num_label, num_correct) of the
+    chunks of ``input``'s tags against ``label``'s (the ``chunk_eval``
+    op, a host op: its counts come back int32, as the TPU kernel's)."""
+    helper = LayerHelper("chunk_eval")
+    f32, i64 = VarDesc.VarType.FP32, VarDesc.VarType.INT64
+    outs = {slot: helper.create_variable_for_type_inference(dt)
+            for slot, dt in (("Precision", f32), ("Recall", f32),
+                             ("F1-Score", f32), ("NumInferChunks", i64),
+                             ("NumLabelChunks", i64),
+                             ("NumCorrectChunks", i64))}
+    inputs = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        inputs["SeqLength"] = [seq_length]
+    helper.append_op(
+        type="chunk_eval", inputs=inputs,
+        outputs={k: [v] for k, v in outs.items()},
+        attrs={"num_chunk_types": num_chunk_types,
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    return tuple(outs.values())
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod, out_val_if_empty=0):
+    """(out, loss_weight, index_map) of the ``filter_by_instag`` op: the
+    rows whose tag is in ``filter_tag`` kept, the others zeroed."""
+    helper = LayerHelper("filter_by_instag")
+    out = helper.create_variable_for_type_inference(ins.dtype)
+    loss_weight = helper.create_variable_for_type_inference(
+        VarDesc.VarType.FP32)
+    index_map = helper.create_variable_for_type_inference(
+        VarDesc.VarType.INT64)
+    helper.append_op(
+        type="filter_by_instag",
+        inputs={"Ins": [ins], "Ins_tag": [ins_tag],
+                "Filter_tag": [filter_tag]},
+        outputs={"Out": [out], "LossWeight": [loss_weight],
+                 "IndexMap": [index_map]},
+        attrs={"is_lod": is_lod, "out_val_if_empty": out_val_if_empty})
+    return out, loss_weight, index_map
+
+
+__all__ += ["concat_", "cast_", "hash", "merge_selected_rows",
+            "get_tensor_from_selected_rows", "chunk_eval",
+            "filter_by_instag"]

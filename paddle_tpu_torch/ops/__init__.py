@@ -17,7 +17,9 @@ dynamic_lstmp, dynamic_gru, gru_unit and the fused fusion_gru and
 fusion_lstm), the beam searches' ops and the DynamicRNN-era LoD control
 ops, and the detection batch: the detection and detection-training ops,
 detection_map and the second vision batch (RoI pooling, deformable and
-transposed 3d convolutions, the bicubic and trilinear resizes, ...)."""
+transposed 3d convolutions, the bicubic and trilinear resizes, ...),
+and the rest of the one-card op library: the save and load ops, hash,
+the legacy reader ops, the metric and misc batch and the CTR fusions."""
 from .registry import OPS, register_op  # noqa: F401
 
 from . import math_ops       # noqa: F401
@@ -36,3 +38,5 @@ from . import detection_ops   # noqa: F401
 from . import detection_train_ops  # noqa: F401
 from . import metrics_misc_ops  # noqa: F401
 from . import vision_ops      # noqa: F401
+from . import misc_ops        # noqa: F401
+from . import ps_quant_misc_ops  # noqa: F401

@@ -1,9 +1,11 @@
 """Framework op kernels (counterpart of paddle_tpu/ops/framework_ops.py).
-So far: feed, fetch, print, assert, the control flow (while,
+All of them: feed, fetch, print, assert, the control flow (while,
 conditional_block, select_input, select_output), the tensor-array ops
 (write_to_array, read_from_array, lod_array_length,
-tensor_array_to_tensor, array_to_lod_tensor), rnn_memory_helper and
-py_func.
+tensor_array_to_tensor, array_to_lod_tensor), rnn_memory_helper,
+py_func, the save and load ops (save, load, save_combine, load_combine:
+the files of ``fluid.io``'s serializer, byte for byte the TPU
+package's), delete_var, fake_init and the two SelectedRows ops.
 
 A stateful op runs only in the interpreter (as a whole interpreted block,
 or as an island of a segmented one), which passes it its Operator as
@@ -260,3 +262,135 @@ def _rnn_memory_helper(ins, attrs):
     """Out = X (reference rnn_memory_helper_op.cc: a recurrence's memory
     passed on)."""
     return out(Out=first(ins, "X"))
+
+
+# --------------------------------------------------------------------------
+# save / load (reference: save_op.cc, load_op.cc, save_combine_op.cc,
+# load_combine_op.cc): the tensor stream of fluid/io.py's serializer
+# --------------------------------------------------------------------------
+def _scope_tensor(attrs, name):
+    return attrs["_scope"].find_var(name).get_tensor()
+
+
+def _write_file(path, blobs):
+    import os
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        for b in blobs:
+            f.write(b)
+
+
+def _read_file(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@register_op("save", stateful=True, no_grad=True,
+             attr_defaults={"overwrite": True, "save_as_fp16": False,
+                            "file_path": ""})
+def _save(ins, attrs):
+    """X's tensor written to ``file_path`` (its directory made); with
+    ``overwrite`` False an existing file raises, as the TPU kernel's."""
+    import os
+    from ..fluid.io import _serialize_lod_tensor
+    path = attrs["file_path"]
+    if os.path.exists(path) and not attrs.get("overwrite", True):
+        raise RuntimeError(f"{path} exists and overwrite is False")
+    t = _scope_tensor(attrs, attrs["_op"].input("X")[0])
+    _write_file(path, [_serialize_lod_tensor(
+        t, attrs.get("save_as_fp16", False))])
+    return {}
+
+
+@register_op("load", stateful=True, no_grad=True, needs_device=True,
+             attr_defaults={"file_path": "", "load_as_fp16": False})
+def _load(ins, attrs):
+    """Out read from ``file_path``, on the executor's device (the TPU
+    kernel ignores ``load_as_fp16``, and so does this one)."""
+    from ..fluid.io import _deserialize_lod_tensor
+    t = _deserialize_lod_tensor(_read_file(attrs["file_path"]),
+                                device=attrs["_device"])
+    attrs["_scope"].var(attrs["_op"].output("Out")[0]).set_value(t)
+    return {}
+
+
+@register_op("save_combine", stateful=True, no_grad=True,
+             attr_defaults={"overwrite": True, "save_as_fp16": False,
+                            "file_path": ""})
+def _save_combine(ins, attrs):
+    """The X tensors one after another in one file (as the TPU kernel,
+    which does not read ``overwrite`` here)."""
+    from ..fluid.io import _serialize_lod_tensor
+    fp16 = attrs.get("save_as_fp16", False)
+    _write_file(attrs["file_path"],
+                [_serialize_lod_tensor(_scope_tensor(attrs, n), fp16)
+                 for n in attrs["_op"].input("X")])
+    return {}
+
+
+@register_op("load_combine", stateful=True, no_grad=True, needs_device=True,
+             attr_defaults={"file_path": "", "load_as_fp16": False,
+                            "model_from_memory": False})
+def _load_combine(ins, attrs):
+    """The Out tensors read in order from one file, on the executor's
+    device."""
+    from ..fluid.io import _deserialize_lod_tensor_stream
+    names = attrs["_op"].output("Out")
+    tensors = _deserialize_lod_tensor_stream(
+        _read_file(attrs["file_path"]), len(names), device=attrs["_device"])
+    for name, t in zip(names, tensors):
+        attrs["_scope"].var(name).set_value(t)
+    return {}
+
+
+@register_op("delete_var", stateful=True, no_grad=True)
+def _delete_var(ins, attrs):
+    """The X vars erased from the scope."""
+    for n in attrs["_op"].input("X"):
+        attrs["_scope"].erase(n)
+    return {}
+
+
+@register_op("fake_init", stateful=True, no_grad=True, needs_device=True,
+             attr_defaults={"shape": [], "dtype": 5})
+def _fake_init(ins, attrs):
+    """Out initialized as zeros of ``shape`` and ``dtype`` (reference
+    fake_init_op.cc leaves the memory unset; zeros, as the TPU kernel's,
+    keep it deterministic)."""
+    from ..fluid.core import LoDTensor, dtype_to_torch
+    shape = [int(v) for v in attrs.get("shape", [])]
+    attrs["_scope"].var(attrs["_op"].output("Out")[0]).set_value(LoDTensor(
+        torch.zeros(shape, dtype=dtype_to_torch(attrs.get("dtype", 5)),
+                    device=attrs["_device"])))
+    return {}
+
+
+@register_op("get_tensor_from_selected_rows", stateful=True, no_grad=True)
+def _get_tensor_from_selected_rows(ins, attrs):
+    """Out = X's value tensor (its rows, not the dense [height, ...])."""
+    from ..fluid.core import LoDTensor
+    op, scope = attrs["_op"], attrs["_scope"]
+    sr = scope.find_var(op.input("X")[0]).get_selected_rows()
+    scope.var(op.output("Out")[0]).set_value(
+        LoDTensor(sr.get_tensor().array))
+    return {}
+
+
+@register_op("merge_selected_rows", stateful=True, no_grad=True)
+def _merge_selected_rows(ins, attrs):
+    """Out: X's rows sorted and made unique, the values of a repeated row
+    summed in X's order (``np.unique`` and ``np.add.at``, as the TPU
+    kernel: ``scatter_rows_add`` adds in index order on the CPU)."""
+    from .tensor_ops import scatter_rows_add
+    op, scope = attrs["_op"], attrs["_scope"]
+    sr = scope.find_var(op.input("X")[0]).get_selected_rows()
+    val = sr.get_tensor().array
+    uniq, inv = np.unique(np.asarray(sr.rows(), np.int64),
+                          return_inverse=True)
+    merged = scatter_rows_add(
+        len(uniq), torch.from_numpy(inv.reshape(-1)).to(val.device), val)
+    o = scope.var(op.output("Out")[0]).get_selected_rows()
+    o.set_rows(uniq.tolist())
+    o.set_height(sr.height())
+    o.get_tensor()._array = merged
+    return {}

@@ -5,7 +5,12 @@ conv2d_fusion, the training-side fusions BuildStrategy's passes emit,
 fused_elemwise_activation and fused_batch_norm_act, skip_layernorm, and
 the LoD fusions fusion_seqconv_eltadd_relu, fusion_seqpool_concat and
 fusion_seqexpand_concat_fc, and the recurrences fc_gru_fuse_pass and
-fc_lstm_fuse_pass emit, fusion_gru and fusion_lstm).
+fc_lstm_fuse_pass emit, fusion_gru and fusion_lstm; the CTR fusions
+fused_embedding_seq_pool, fusion_repeated_fc_relu,
+fusion_seqpool_cvm_concat, fusion_squared_mat_sub and
+fusion_transpose_flatten_concat; and the four that only raise, as the TPU
+package's do: fusion_group, conv2d_inception_fusion, attention_lstm and
+fused_embedding_fc_lstm).
 
 Each is a composition of the port's own kernels with the reference's slot
 and attr contract (reference: operators/fc_op.cc,
@@ -30,7 +35,11 @@ computes what its unfused form computes:
     the activation;
   * ``fusion_gru`` and ``fusion_lstm`` are ``mul``'s product X·WeightX
     (their ``XX`` output, the mul's output in the unfused program) and
-    then ``dynamic_gru``'s or ``dynamic_lstm``'s kernel over it.
+    then ``dynamic_gru``'s or ``dynamic_lstm``'s kernel over it;
+  * ``fused_embedding_seq_pool`` is a row gather of W (``take_rows``: its
+    grad into W adds in a fixed order) pooled by ``sequence_pool``'s SUM;
+    the CTR fusions are products, the pooling and the TPU kernels'
+    arithmetic in the same order.
 """
 from __future__ import annotations
 
@@ -336,3 +345,112 @@ def _fusion_lstm(ins, attrs):
     h, c = _dyn_lstm_common(rins, rattrs)
     return {"Hidden": [h], "Cell": [c], "XX": [xx],
             "_lod": {"Hidden": [lod], "Cell": [lod], "XX": [lod]}}
+
+
+# --------------------------------------------------------------------------
+# the CTR fusions (reference: fused/fused_embedding_seq_pool_op.cc,
+# fusion_repeated_fc_relu_op.cc, fusion_seqpool_cvm_concat_op.cc,
+# fusion_squared_mat_sub_op.cc, fusion_transpose_flatten_concat_op.cc)
+# --------------------------------------------------------------------------
+def _pool(x, attrs, slot, i, pooltype):
+    """Input ``i`` of ``slot`` pooled per sequence by ``sequence_pool``'s
+    kernel (an empty sequence pools to 0)."""
+    from .sequence_ops import _sequence_pool
+    _, sub = _lod_part(attrs, slot, i, x.shape[0])
+    sub["pooltype"] = pooltype
+    sub["pad_value"] = 0.0
+    return _sequence_pool({"X": [x]}, sub)["Out"][0]
+
+
+@register_op("fused_embedding_seq_pool", inputs=("W", "Ids"),
+             diff_inputs=("W",), needs_lod=True,
+             attr_defaults={"combiner": "sum", "is_sparse": False})
+def _fused_embedding_seq_pool(ins, attrs):
+    """W's rows at Ids, summed per sequence of Ids' LoD. As the TPU
+    kernel, ``combiner`` is always a sum and a ``padding_idx`` attr is
+    not read."""
+    from .tensor_ops import take_rows
+    w, ids = first(ins, "W"), first(ins, "Ids")
+    emb = take_rows(w, ids.reshape(-1))
+    lods = (attrs.get("_lod") or {}).get("Ids") or []
+    sub = dict(attrs, _lod={"X": lods})
+    return out(Out=_pool(emb, sub, "X", 0, "SUM"))
+
+
+@register_op("fusion_repeated_fc_relu", inputs=("X", "W", "Bias"),
+             diff_inputs=("X", "W", "Bias"))
+def _fusion_repeated_fc_relu(ins, attrs):
+    """relu(h·W_i + Bias_i) for each (W_i, Bias_i) in turn; ReluOut the
+    outputs before the last."""
+    h = first(ins, "X")
+    relu_outs = []
+    for w, b in zip(seq(ins, "W"), seq(ins, "Bias")):
+        h = _act("relu", torch.matmul(h, w) + b.reshape(1, -1))
+        relu_outs.append(h)
+    return {"Out": [h], "ReluOut": relu_outs[:-1]}
+
+
+@register_op("fusion_seqpool_cvm_concat", needs_lod=True,
+             inputs=("X", "CVM"),
+             attr_defaults={"pooltype": "SUM", "use_cvm": True, "axis": 1})
+def _fusion_seqpool_cvm_concat(ins, attrs):
+    """Each X pooled per sequence, then its show and click columns (the
+    first two) as log(max(s, 0) + 1) with ``use_cvm``, else dropped; all
+    joined along ``axis``. As the TPU kernel, CVM is not read."""
+    pieces = []
+    for i, x in enumerate(seq(ins, "X")):
+        s = _pool(x, attrs, "X", i, attrs.get("pooltype", "SUM"))
+        if attrs.get("use_cvm", True):
+            show_clk = torch.log(torch.clamp(s[:, :2], min=0.0) + 1.0)
+            s = torch.cat([show_clk, s[:, 2:]], dim=1)
+        else:
+            s = s[:, 2:]
+        pieces.append(s)
+    return out(Out=torch.cat(pieces, dim=int(attrs.get("axis", 1))))
+
+
+@register_op("fusion_squared_mat_sub", inputs=("X", "Y"),
+             diff_inputs=("X", "Y"), attr_defaults={"scalar": 1.0})
+def _fusion_squared_mat_sub(ins, attrs):
+    """scalar · ((X·Y)² − X²·Y²), with the squares as outputs."""
+    x, y = first(ins, "X"), first(ins, "Y")
+    xy = torch.matmul(x, y)
+    sq = torch.matmul(x * x, y * y)
+    return {"Out": [attrs.get("scalar", 1.0) * (xy * xy - sq)],
+            "SquaredX": [x * x], "SquaredY": [y * y], "SquaredXY": [xy * xy]}
+
+
+@register_op("fusion_transpose_flatten_concat", inputs=("X",),
+             attr_defaults={"trans_axis": [0, 1, 2, 3], "flatten_axis": 1,
+                            "concat_axis": 1})
+def _fusion_transpose_flatten_concat(ins, attrs):
+    """Each X transposed by ``trans_axis``, flattened to 2-d at
+    ``flatten_axis``, all joined along ``concat_axis``."""
+    ta = [int(a) for a in attrs.get("trans_axis")]
+    fa = int(attrs.get("flatten_axis", 1))
+    pieces = []
+    for x in seq(ins, "X"):
+        t = x.permute(ta)
+        pieces.append(t.reshape(math.prod(t.shape[:fa]), -1))
+    return out(Out=torch.cat(pieces, dim=int(attrs.get("concat_axis", 1))))
+
+
+def _codegen_stub(name, why):
+    @register_op(name, no_grad=True)
+    def _stub(ins, attrs):
+        raise NotImplementedError(
+            f"{name}: {why} The port's CUDA graphs run the unfused ops, "
+            "and no pass of the port emits this op.")
+    return _stub
+
+
+_codegen_stub("fusion_group", "runtime-compiled CUDA elementwise group "
+              "(ir/fusion_group/code_generator.cc).")
+_codegen_stub("conv2d_inception_fusion",
+              "cuDNN-specific 4-branch inception kernel.")
+_codegen_stub("attention_lstm", "x86-JIT fused attention LSTM "
+              "(attention_lstm_op.cc); use the attention layers and "
+              "dynamic_lstm.")
+_codegen_stub("fused_embedding_fc_lstm", "x86 fused embedding, fc and lstm "
+              "(fused_embedding_fc_lstm_op.cc); use lookup_table and "
+              "fusion_lstm.")

@@ -1053,8 +1053,9 @@ def _max_pool3d_with_index(ins, attrs):
 def _interp_size(ins, attrs, x):
     """(out_h, out_w): OutSize, else SizeTensor, else Scale (tensor or
     attr) times X's size, else the attrs. A tensor is read on the host,
-    as the TPU kernel reads it (its registration declares no host
-    input)."""
+    as the TPU kernel reads it; the registrations declare these slots
+    ``host_inputs`` (the TPU package's declare none), so a connected one
+    makes the op an island rather than a host read in a CUDA graph."""
     ost = first(ins, "OutSize")
     if ost is not None:
         v = ost.reshape(-1).tolist()
@@ -1070,6 +1071,9 @@ def _interp_size(ins, attrs, x):
     return attrs.get("out_h", -1), attrs.get("out_w", -1)
 
 
+INTERP_HOST_INPUTS = ("OutSize", "SizeTensor", "Scale")
+
+
 def _i32_ratio(n, num, den, dev):
     """f32(i·num) / f32(den) for i < n, as the TPU kernel's int32
     ``jnp.arange(n) * num / den`` divides."""
@@ -1079,6 +1083,7 @@ def _i32_ratio(n, num, den, dev):
 
 @register_op("nearest_interp", inputs=("X", "OutSize", "SizeTensor", "Scale"),
              diff_inputs=("X",),
+             host_inputs=INTERP_HOST_INPUTS,
              attr_defaults={"out_h": -1, "out_w": -1, "scale": 0.0,
                             "interp_method": "nearest",
                             "align_corners": True, "align_mode": 1,
@@ -1119,6 +1124,7 @@ def _bilinear_src(n_out, n_in, ac, am, dev):
 @register_op("bilinear_interp",
              inputs=("X", "OutSize", "SizeTensor", "Scale"),
              diff_inputs=("X",),
+             host_inputs=INTERP_HOST_INPUTS,
              attr_defaults={"out_h": -1, "out_w": -1, "scale": 0.0,
                             "interp_method": "bilinear",
                             "align_corners": True, "align_mode": 1,

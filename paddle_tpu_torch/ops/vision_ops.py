@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .nn_ops import (_Conv, _bf16_operands, _conv2d_transpose, _conv_padding,
-                     _i32_ratio, _interp_size)
+                     INTERP_HOST_INPUTS, _i32_ratio, _interp_size)
 from .detection_ops import roi_batch_ids
 from .registry import register_op, first, seq, out
 from .tensor_ops import scatter_rows_add, take_index, take_rows
@@ -44,6 +44,7 @@ def _crop_impl(x, offsets, shape):
 
 
 @register_op("crop", inputs=("X", "Y", "Offsets"), diff_inputs=("X",),
+             host_inputs=("Offsets",),
              attr_defaults={"offsets": [], "shape": []})
 def _crop(ins, attrs):
     """X's window of Y's shape (else the ``shape`` attr) at the Offsets
@@ -60,6 +61,8 @@ def _crop(ins, attrs):
 @register_op("crop_tensor", inputs=("X", "Shape", "Offsets", "ShapeTensor",
                                     "OffsetsTensor"),
              diff_inputs=("X",),
+             host_inputs=("Shape", "Offsets", "ShapeTensor",
+                          "OffsetsTensor"),
              attr_defaults={"offsets": [], "shape": []})
 def _crop_tensor(ins, attrs):
     """``crop`` with the shape and offsets from a tensor or from scalar
@@ -87,6 +90,7 @@ def _crop_tensor(ins, attrs):
 # --------------------------------------------------------------------------
 @register_op("affine_grid", inputs=("Theta", "OutputShape"),
              diff_inputs=("Theta",),
+             host_inputs=("OutputShape",),
              attr_defaults={"output_shape": [], "align_corners": True})
 def _affine_grid(ins, attrs):
     """Theta [N, 2, 3] applied to the [-1, 1] grid of the output shape
@@ -509,6 +513,7 @@ def _cubic_w(t, a=-0.75):
 
 @register_op("bicubic_interp", inputs=("X", "OutSize", "SizeTensor", "Scale"),
              diff_inputs=("X",),
+             host_inputs=INTERP_HOST_INPUTS,
              attr_defaults={"out_h": -1, "out_w": -1, "scale": 0.0,
                             "interp_method": "bicubic", "align_corners": True,
                             "align_mode": 1, "data_layout": "NCHW"})
@@ -550,6 +555,7 @@ def _bicubic_interp(ins, attrs):
 @register_op("trilinear_interp",
              inputs=("X", "OutSize", "SizeTensor", "Scale"),
              diff_inputs=("X",),
+             host_inputs=INTERP_HOST_INPUTS,
              attr_defaults={"out_d": -1, "out_h": -1, "out_w": -1,
                             "scale": 0.0, "interp_method": "trilinear",
                             "align_corners": True, "align_mode": 1,

@@ -39,6 +39,7 @@ from paddle_tpu_torch.fluid.param_bridge import set_params_from_numpy
 from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.ops.registry import OPS as TOPS
 from paddle_tpu_torch.ops.registry import run_generic_grad as t_generic_grad
+from tests.test_torch_models_a7 import _to_jax_scope
 
 CFG = dict(vocab_size=128, hidden=64, layers=3, heads=4, ffn=128,
            max_len=16, type_vocab=2)
@@ -217,10 +218,12 @@ def test_amp_runtime_dtypes_match_jax(mode):
     mode("interpreted")
     jm, js, jf = _bert(jfluid, jbert)
     tm, ts, tf = _bert(tfluid, tbert)
-    jscope, jexe = jfluid.Scope(), jfluid.Executor(jfluid.CPUPlace())
-    jexe.run(js, scope=jscope)
     tscope, texe = tfluid.Scope(), tfluid.Executor(tfluid.CPUPlace())
     texe.run(ts, scope=tscope)
+    # the TPU package starts from the port's startup values
+    jscope, jexe = jfluid.Scope(), jfluid.Executor(jfluid.CPUPlace())
+    _to_jax_scope(tscope, [v.name for v in jm.global_block().vars.values()
+                           if v.persistable], jscope)
     feed = _bert_feed(0)
     jexe.run(jm, feed=feed, fetch_list=jf, scope=jscope)
     texe.run(tm, feed=feed, fetch_list=tf, scope=tscope)
@@ -265,10 +268,16 @@ def test_amp_decorate_trains_bf16():
 
 def test_amp_bert_matches_jax_and_compiled_matches_interpreted(mode):
     jm, js, jf = _bert(jfluid, jbert)
+    # one start for all: the port's startup values, put on the TPU
+    # package's CPU device (``_to_jax_scope``: its step compiles once)
+    tm, ts, tf = _bert(tfluid, tbert)
+    tscope = tfluid.Scope()
+    tfluid.Executor(tfluid.CPUPlace()).run(ts, scope=tscope)
+    names = [v.name for v in jm.global_block().vars.values() if v.persistable]
     jscope, jexe = jfluid.Scope(), jfluid.Executor(jfluid.CPUPlace())
-    jexe.run(js, scope=jscope)
-    arrays = {v.name: np.asarray(jscope.find_var(v.name).get_tensor())
-              for v in jm.global_block().vars.values() if v.persistable}
+    _to_jax_scope(tscope, names, jscope)
+    arrays = {n: tscope.find_var(n).value().numpy() for n in names
+              if tscope.find_var(n) is not None}
     jl = [float(jexe.run(jm, feed=_bert_feed(i), fetch_list=jf,
                          scope=jscope)[0][0]) for i in range(3)]
     got = {}

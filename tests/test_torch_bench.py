@@ -4,7 +4,8 @@ with ``--device cpu`` prints one JSON line in bench.py's form with the
 documented keys (the bert and resnet lanes at bench.py's CPU smoke
 configurations);
 without ``--device cpu`` on a host without CUDA it prints the lane's
-error line and exits non-zero. bench.py's switches of the bert lane
+error line and exits non-zero (the six lanes' entry points run in turn
+in one process, with ``--device cpu`` and without). bench.py's switches of the bert lane
 (PADDLE_TPU_BENCH_BATCH, _SEQ, _RECOMPUTE) reach its program and its feed,
 and the line says whether it recomputes. What the lanes measure on the
 card is chip_smoke.py's (its lane and remat phases)."""
@@ -26,6 +27,53 @@ KEYS = {"metric", "value", "unit", "vs_baseline", "batch", "steps",
         "step_ms", "device", "executor_mode", "timed_window", "loss"}
 
 
+# each lane before ``--`` through the entry point in turn in one process,
+# as ``python -m`` runs it with the arguments after ``--``, each followed
+# by a line with its exit code
+RUN_EACH = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['paddle_tpu'] = None\n"
+            "cut = sys.argv.index('--')\n"
+            "lanes, args = sys.argv[1:cut], sys.argv[cut + 1:]\n"
+            "for lane in lanes:\n"
+            "    sys.argv = ['bench', lane] + args\n"
+            "    try:\n"
+            "        runpy.run_module('paddle_tpu_torch.bench',"
+            " run_name='__main__')\n"
+            "        code = 0\n"
+            "    except SystemExit as e:\n"
+            "        code = e.code\n"
+            "    print('rc', code, flush=True)\n")
+LANES = ("bert", "mnist", "resnet", "mnist_realdata", "mnist_guard",
+         "wide_deep_realdata")
+
+
+def _bench_each(*args):
+    """Each lane of LANES with ``args``, one after another in one process
+    on a host without CUDA (the imports paid once): {lane: (exit code,
+    its JSON line, the process's stderr)}."""
+    env = dict(os.environ, OMP_NUM_THREADS="4", CUDA_VISIBLE_DEVICES="")
+    p = subprocess.run([sys.executable, "-c", RUN_EACH, *LANES, "--", *args],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=900)
+    lines = p.stdout.strip().splitlines()
+    assert p.returncode == 0 and len(lines) == 2 * len(LANES), \
+        (p.stdout, p.stderr[-2000:])
+    return {lane: (int(lines[2 * i + 1].split()[1]),
+                   json.loads(lines[2 * i]), p.stderr)
+            for i, lane in enumerate(LANES)}
+
+
+@pytest.fixture(scope="module")
+def no_card():
+    return _bench_each()
+
+
+@pytest.fixture(scope="module")
+def on_the_cpu():
+    return _bench_each("--device", "cpu")
+
+
 def _bench(*args, **env_vars):
     env = dict(os.environ, OMP_NUM_THREADS="4", CUDA_VISIBLE_DEVICES="",
                **env_vars)
@@ -40,8 +88,8 @@ def _bench(*args, **env_vars):
     ("bert", "bert_base_samples_per_sec_per_chip", 8),
     ("mnist", "mnist_mlp_samples_per_sec", 256),
     ("resnet", "resnet50_samples_per_sec_per_chip", 8)])
-def test_lane_on_the_cpu(lane, metric, batch):
-    rc, res, err = _bench(lane, "--device", "cpu")
+def test_lane_on_the_cpu(lane, metric, batch, on_the_cpu):
+    rc, res, err = on_the_cpu[lane]
     assert rc == 0, err[-2000:]
     assert KEYS <= set(res), res
     assert res["metric"] == metric and res["unit"] == "samples/s"
@@ -63,8 +111,8 @@ def test_lane_on_the_cpu(lane, metric, batch):
 
 
 @pytest.mark.parametrize("lane", ["bert", "mnist", "resnet"])
-def test_lane_without_a_card_fails(lane):
-    rc, res, err = _bench(lane)
+def test_lane_without_a_card_fails(lane, no_card):
+    rc, res, _ = no_card[lane]
     assert rc == 1
     assert res["metric"] == f"{lane}_error" and res["unit"] == "error"
     assert "CUDA is not available" in res["error"]
@@ -123,12 +171,12 @@ def test_bert_lane_switches_reach_the_program(monkeypatch, recompute):
     ("mnist_realdata", "mnist_mlp_realdata_samples_per_sec", 64),
     ("mnist_guard", "mnist_realdata_guard_samples_per_sec", 64),
     ("wide_deep_realdata", "wide_deep_realdata_samples_per_sec", 256)])
-def test_realdata_lane_on_the_cpu(lane, metric, batch):
+def test_realdata_lane_on_the_cpu(lane, metric, batch, on_the_cpu):
     """bench.py's real-data lanes (bench.py:265, :307, :402) on the CPU:
     one JSON line in bench.py's form, a window of 8 whose losses agree
     with 8 single runs (mnist_guard: guard off and on bitwise alike), and
     no device metric."""
-    rc, res, err = _bench(lane, "--device", "cpu")
+    rc, res, err = on_the_cpu[lane]
     assert rc == 0, err[-2000:]
     assert res["metric"] == metric and res["unit"] == "samples/s"
     assert res["batch"] == batch and res["device"] == "cpu"
@@ -148,8 +196,8 @@ def test_realdata_lane_on_the_cpu(lane, metric, batch):
 
 @pytest.mark.parametrize("lane", ["mnist_realdata", "mnist_guard",
                                   "wide_deep_realdata"])
-def test_realdata_lane_without_a_card_fails(lane):
-    rc, res, err = _bench(lane)
+def test_realdata_lane_without_a_card_fails(lane, no_card):
+    rc, res, _ = no_card[lane]
     assert rc == 1
     assert res["metric"] == f"{lane}_error" and res["unit"] == "error"
     assert "CUDA is not available" in res["error"]

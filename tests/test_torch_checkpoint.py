@@ -106,7 +106,19 @@ def _jax(build, *args):
     main, startup, loss = build(jfluid, *args)
     exe, scope = jfluid.Executor(jfluid.CPUPlace()), jcore.Scope()
     exe.run(startup, scope=scope)
+    _on_device(scope, main)
     return main, startup, loss, exe, scope
+
+
+def _on_device(scope, program):
+    """The TPU package's persistables put on its CPU device: arrays that
+    carry their device's sharding, as a step's outputs do, so that the
+    step compiles once rather than again at its second run."""
+    for v in program.list_vars():
+        sv = scope.find_var(v.name) if v.persistable else None
+        if sv is not None and sv.is_initialized():
+            t = sv.get_tensor()
+            t.set(np.asarray(t.array), jfluid.CPUPlace())
 
 
 def _loss(exe, main, feed, loss, scope):
@@ -349,6 +361,7 @@ def test_checkpoint_resumes_in_the_other_package(tmp_path, direction):
                                global_step=3)
         with jfluid.scope_guard(jscope):
             m = jfluid.load_checkpoint(jexe, ckdir, jm, scope=jscope)
+        _on_device(jscope, jm)
         loader = (jexe, jm, jl, jscope)
         assert jfluid.Executor._rng_counters[jscope] == 3
     assert m["global_step"] == 3 and m["rng_counter"] == 3

@@ -4,7 +4,8 @@ chip_smoke.py's user programs of phase 23 (``yolov3_program``,
 ``ssd_program``, ``faster_rcnn_program``), built in both packages:
 
 - at full width the same op types and parameters;
-- at a small depth and width, from the TPU package's start: step 1's
+- at a small depth and width, from one start (the port's startup
+  values in both packages): step 1's
   loss at rtol 1e-4; every parameter's grad, and the update it makes
   (each parameter's move), by chip_smoke's rules for card against CPU
   (``_md_grads_agree``: max|d| within GRAD_TOL of the grad's max|grad|,
@@ -149,7 +150,7 @@ def _held(what, names, port, ref, block, conv):
 
 
 def step_and_eval(name):
-    """Step 1 of ``name`` in both packages from the TPU package's start
+    """Step 1 of ``name`` in both packages from one start
     (``_TapedPair``): the loss, every grad and each parameter's move;
     then, but for Faster R-CNN, the eval program from the updated state.
     → the selections that parted on the port's own inputs."""
@@ -157,7 +158,7 @@ def step_and_eval(name):
     j, t = _both(build, **kw)
     mode = "compiled" if name == "yolov3" else "segmented"
     conv = name != "yolov3"
-    pair = _TapedPair([j[1]], [t[1]], _persistables(j[0]))
+    pair = _TapedPair([t[1]], _persistables(j[0]))
     block = t[0].global_block()
     params = [p.name for p in block.all_parameters()
               if block.has_var(p.name + "@GRAD")]

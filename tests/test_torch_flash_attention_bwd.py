@@ -23,6 +23,8 @@ lands one bf16 ulp apart — 2^-8 relative, 0.0156 at |grad| = 4 (measured:
 keep_mask_reference, in test_torch_flash_attention.py), so the dropout
 cases take the same tolerances.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,17 +62,29 @@ def _inputs(B, H, S, Sk, D, bias_kind, seed=0):
     return q, k, v, do, bias
 
 
+@functools.lru_cache(maxsize=None)
+def _grads_fn(sm, causal, rate):
+    """The TPU package's ``jax.vjp`` of ``flash_attention`` (its forward
+    and both backward pallas_calls) as one ``jax.jit``, its bias and
+    dropout seed traced: XLA compiles the interpreted kernels' grid loops
+    once for each shape, dtype and bias kind, where eager dispatch runs
+    them primitive by primitive. Every caller runs it under ``_interpret``
+    (the interpreter, blocks of BLOCK), which its traces bake in."""
+    def grads(q, k, v, do, bias, seed):
+        def f(q_, k_, v_):
+            return fa.flash_attention(q_, k_, v_, sm, causal,
+                                      dropout_rate=rate, dropout_seed=seed,
+                                      bias=bias)
+        return jax.vjp(f, q, k, v)[1](do)
+    return jax.jit(grads)
+
+
 def _jax_grads(q, k, v, do, bias, sm, causal, rate, dt):
     seed = jnp.asarray([SEED], jnp.int32) if rate else None
     jb = None if bias is None else jnp.asarray(bias)
-
-    def f(q_, k_, v_):
-        return fa.flash_attention(q_, k_, v_, sm, causal, dropout_rate=rate,
-                                  dropout_seed=seed, bias=jb)
-    prim = [jnp.asarray(a).astype(dt) for a in (q, k, v)]
-    _, vjp = jax.vjp(f, *prim)
+    prim = [jnp.asarray(a).astype(dt) for a in (q, k, v, do)]
     return [np.asarray(g.astype(jnp.float32))
-            for g in vjp(jnp.asarray(do).astype(dt))]
+            for g in _grads_fn(float(sm), causal, rate)(*prim, jb, seed)]
 
 
 def _port_grads(q, k, v, do, bias, sm, causal, rate, dt):

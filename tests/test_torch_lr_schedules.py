@@ -34,8 +34,8 @@ from paddle_tpu.models import bert as jbert
 from paddle_tpu_torch import fluid as tfluid
 from paddle_tpu_torch.fluid import core as tcore
 from paddle_tpu_torch.fluid import executor as texecutor
-from paddle_tpu_torch.fluid.param_bridge import set_params_from_numpy
 from paddle_tpu_torch.models import bert as tbert
+from tests.test_torch_models_a7 import _to_jax_scope
 
 RUNS = 20
 LR = 0.1
@@ -261,17 +261,19 @@ def test_bert_with_the_schedule_matches_the_tpu_package():
         t for t in types if t.endswith("_grad") and t.split("_grad")[0] in (
             "conditional_block", "less_than", "logical_and", "logical_not",
             "increment", "elementwise_min", "assign")}
-    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
-    jexe.run(js, scope=jscope)
-    # the floats: the TPU package keeps the int64 counter as int32 (JAX
-    # without x64); both startups set it to -1
-    arrays = {v.name: np.asarray(jscope.find_var(v.name).get_tensor())
-              for v in jm.global_block().vars.values() if v.persistable}
-    arrays = {n: a for n, a in arrays.items() if a.dtype.kind == "f"}
+    # one start: the port's startup values (the int64 counter, -1, as the
+    # TPU package's int32: JAX without x64) on the TPU package's device
+    # (``_to_jax_scope``: its step compiles once)
     tcore.set_flag("FLAGS_executor_mode", "compiled")
     texe, tscope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     texe.run(ts, scope=tscope)
-    set_params_from_numpy(tscope, arrays)
+    jexe, jscope = jfluid.Executor(jfluid.CPUPlace()), jfluid.Scope()
+    names = [v.name for v in jm.global_block().vars.values()
+             if v.persistable]
+    _to_jax_scope(tscope, names, jscope)
+    # the floats, compared at the end
+    arrays = [n for n in names if tscope.find_var(n) is not None
+              and tscope.find_var(n).value().array.is_floating_point()]
     jl, tl, jr, tr = [], [], [], []
     for step in range(8):
         feed = _bert_feed(step)

@@ -7,8 +7,8 @@ tagger, word2vec.py, ptb_lm.py; fluid/nets.py glu; AMP on ResNet):
   224x224, VGG16, the PTB "large" LM, the N-gram and skip-gram LMs at the
   book's dict 2048, the SRL tagger at label_semantic_roles' 44,068 words
   and 59 labels);
-- each of the five programs trains 2 steps in both packages from the TPU
-  package's startup parameters (set_params_from_numpy), at small sizes:
+- each of the five programs trains 2 steps in both packages from the
+  port's startup parameters (``_to_jax_scope``), at small sizes:
   SE-ResNeXt-50 at 32x32, 10 classes, batch 4, Nesterov Momentum 0.01
   (at lr 0.1 and batch 2 both packages diverge, ROADMAP C); VGG at
   depth "small"; the PTB LM at hidden 32, 2 layers, 8 steps; the N-gram
@@ -111,16 +111,14 @@ def _jax_values(jscope, names, tscope):
 
 
 def _start_alike(jmain, jstart, tstart):
-    """Both startups run; the port's scope gets the TPU package's values.
-    → (jexe, jscope, texe, tscope, iscope): iscope a copy of tscope for
-    the port's interpreter."""
+    """The port's startup runs, and the TPU package's scope takes its
+    values (``_to_jax_scope``). → (jexe, jscope, texe, tscope, iscope):
+    iscope a copy of tscope for the port's interpreter."""
     jexe, jscope = jfluid.Executor(), jcore.Scope()
     texe, tscope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
     names = _persistables(jmain)
-    with jfluid.scope_guard(jscope):
-        jexe.run(jstart)
     texe.run(tstart, scope=tscope)
-    set_params_from_numpy(tscope, _jax_values(jscope, names, tscope))
+    _to_jax_scope(tscope, names, jscope)
     iscope = tfluid.Scope()
     for n in names + ["@RNG_COUNTER@"]:
         v = tscope.find_var(n)
@@ -128,6 +126,20 @@ def _start_alike(jmain, jstart, tstart):
             iscope.var(n).set_value(tfluid.LoDTensor(
                 v.value().array.clone()))
     return jexe, jscope, texe, tscope, iscope
+
+
+def _to_jax_scope(tscope, names, jscope):
+    """The port's values of ``names`` into the TPU package's scope, put
+    on its CPU device. Both packages then start from one state without
+    the TPU package's startup program, which XLA compiles on its own (9 s
+    for SE-ResNeXt-50), and its step compiles once: arrays put on a
+    device carry their sharding, where a startup's results carry none
+    and make the second step compile again."""
+    for n in names:
+        v = tscope.find_var(n)
+        if v is not None and v.is_initialized():
+            jscope.var(n).get_tensor().set(v.value().numpy(),
+                                           jfluid.CPUPlace())
 
 
 def _t_feed(feed):

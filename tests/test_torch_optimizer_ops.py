@@ -130,8 +130,11 @@ def test_the_registry_has_the_optimizer_stacks_ops():
     # fusion_lstm, rnn_memory_helper, cumsum and elementwise_floordiv;
     # then 69: the rest of nn_ops (29), math_ops (17), nn_extra_ops (13)
     # and loss_extra_ops (9), and py_func; then 44: vision_ops (18),
-    # detection_ops (16), detection_train_ops (9) and detection_map
-    assert len(TOPS.all_op_types()) == 123 + 49 + 6 + 61 + 24 + 69 + 44
+    # detection_ops (16), detection_train_ops (9) and detection_map; then
+    # 47: framework_ops' 8, hash, the 4 reader ops, cudnn_lstm, the 2
+    # engine stubs, metrics_misc_ops' 22 and fused_ops' 9
+    assert len(TOPS.all_op_types()) == \
+        123 + 49 + 6 + 61 + 24 + 69 + 44 + 47
 
 
 @pytest.mark.parametrize("lo,hi", [(-0.5, 0.5), (0.0, 2.0), (-3.0, -1.0)])

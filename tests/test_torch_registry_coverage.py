@@ -25,34 +25,15 @@ REMAINDER = frozenset({
     "lazy_table_init", "listen_and_serv", "merge_ids", "ps_round",
     "pslib_pull_sparse", "pslib_push_sparse", "recv", "send", "send_barrier",
     "split_ids",
-    # paddle_tpu/ops/framework_ops.py
-    "delete_var", "fake_init", "get_tensor_from_selected_rows", "load",
-    "load_combine", "merge_selected_rows", "save", "save_combine",
-    # paddle_tpu/ops/fused_ops.py
-    "attention_lstm", "conv2d_inception_fusion", "fused_embedding_fc_lstm",
-    "fused_embedding_seq_pool", "fusion_group", "fusion_repeated_fc_relu",
-    "fusion_seqpool_cvm_concat", "fusion_squared_mat_sub",
-    "fusion_transpose_flatten_concat",
-    # paddle_tpu/ops/metrics_misc_ops.py
-    "batch_fc", "chunk_eval", "coalesce_tensor", "fill",
-    "fill_zeros_like2", "filter_by_instag", "get_places",
-    "match_matrix_tensor", "modified_huber_loss", "partial_concat",
-    "partial_sum", "positive_negative_pair", "precision_recall",
-    "pyramid_hash", "rank_attention", "sample_logits",
-    "sequence_topk_avg_pooling", "shuffle_batch", "tdm_child", "tdm_sampler",
-    "tree_conv", "var_conv_2d",
-    # paddle_tpu/ops/misc_ops.py
-    "hash",
     # paddle_tpu/ops/ps_quant_misc_ops.py
-    "create_custom_reader", "create_double_buffer_reader", "create_py_reader",
-    "cudnn_lstm", "dequantize", "dequantize_abs_max", "dequantize_log", "dgc",
+    "dequantize", "dequantize_abs_max", "dequantize_log", "dgc",
     "dgc_clip_by_norm", "dgc_momentum", "fake_channel_wise_dequantize_max_abs",
-    "fl_listen_and_serv", "lite_engine", "lookup_sparse_table",
-    "lookup_table_dequant", "moving_average_abs_max_scale", "prefetch",
-    "pull_box_sparse", "pull_sparse", "pull_sparse_v2", "push_box_sparse",
-    "push_dense", "push_sparse", "push_sparse_v2", "quantize", "read",
-    "recv_save", "ref_by_trainer_id", "requantize", "run_program",
-    "split_byref", "split_selected_rows", "tensorrt_engine",
+    "fl_listen_and_serv", "lookup_sparse_table", "lookup_table_dequant",
+    "moving_average_abs_max_scale", "prefetch", "pull_box_sparse",
+    "pull_sparse", "pull_sparse_v2", "push_box_sparse", "push_dense",
+    "push_sparse", "push_sparse_v2", "quantize", "recv_save",
+    "ref_by_trainer_id", "requantize", "run_program", "split_byref",
+    "split_selected_rows",
     # paddle_tpu/ops/quant_ops.py
     "fake_channel_wise_quantize_abs_max", "fake_dequantize_max_abs",
     "fake_quantize_abs_max", "fake_quantize_dequantize_abs_max",

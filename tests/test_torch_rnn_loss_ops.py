@@ -32,6 +32,7 @@ from paddle_tpu.ops.registry import run_generic_grad as j_generic_grad
 import paddle_tpu_torch.ops  # noqa: F401
 from paddle_tpu_torch.ops.registry import OPS as TOPS
 from paddle_tpu_torch.ops.registry import run_generic_grad as t_generic_grad
+from tests.test_torch_vision_ops import _jitted
 
 RTOL, ATOL = 1e-5, 1e-6
 KEY = 4242
@@ -51,8 +52,9 @@ def _x(shape, seed=0, scale=1.0):
 
 
 def _kernels(op_type, ins, attrs, lods=None):
-    """Both kernels on numpy ``ins``. → (port ins, port attrs, port outs,
-    TPU ins, TPU attrs, TPU outs)."""
+    """Both kernels on numpy ``ins``, the TPU package's compiled by XLA as
+    its compiled step runs it (``_jitted``). → (port ins, port attrs,
+    port outs, TPU ins, TPU attrs, TPU outs)."""
     tattrs = dict(TOPS.get(op_type).attr_defaults, **attrs)
     jattrs = dict(JOPS.get(op_type).attr_defaults, **attrs)
     if lods is not None:
@@ -64,7 +66,8 @@ def _kernels(op_type, ins, attrs, lods=None):
             for s, v in ins.items()}
     jins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
     tout = TOPS.get(op_type).kernel(tins, tattrs)
-    jout = JOPS.get(op_type).kernel(jins, jattrs)
+    with _jitted(op_type):
+        jout = JOPS.get(op_type).kernel(jins, jattrs)
     return tins, tattrs, tout, jins, jattrs, jout
 
 
@@ -92,7 +95,8 @@ def _compare(op_type, ins, attrs, lods=None, slots=None, grad_of=None,
         wanted = [s + "@GRAD" for s in grad_of]
         fwd = list(ins)
         tg = t_generic_grad(op_type, tins, tattrs, wanted, fwd)
-        jg = j_generic_grad(op_type, jins, jattrs, wanted, fwd)
+        with _jitted(op_type):
+            jg = j_generic_grad(op_type, jins, jattrs, wanted, fwd)
         for s in wanted:
             np.testing.assert_allclose(tg[s][0].numpy(), np.asarray(jg[s][0]),
                                        rtol=RTOL, atol=ATOL, err_msg=s)

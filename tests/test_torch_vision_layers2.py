@@ -125,7 +125,7 @@ def test_the_layers_in_both_packages():
     j, t = _both(vision2_layers_program)
     assert [op.type for op in t[0].global_block().ops] == \
         [op.type for op in j[0].global_block().ops]
-    pair = _Pair([j[1]], [t[1]], _persistables(j[0]))
+    pair = _Pair([t[1]], _persistables(j[0]))
     feed = _layers_feed(np.random.RandomState(12))
     for step in range(2):
         jo, to = pair.run(j[0], t[0], feed, [j[2]] + list(j[3]),

@@ -21,6 +21,9 @@ math_ops.py's 17 (matmul_v2 ... cholesky) and nn_extra_ops.py's 13
 - the resizes' every ``align_corners`` / ``align_mode`` branch;
 - the registration flags as the TPU package registers them.
 """
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,13 +71,54 @@ def _attrs(ops, op_type, attrs):
     return dict(ops.get(op_type).attr_defaults, **attrs)
 
 
+_HOST_READS = (jax.errors.ConcretizationTypeError,
+               jax.errors.TracerArrayConversionError,
+               jax.errors.TracerIntegerConversionError,
+               jax.errors.TracerBoolConversionError)
+
+
+@contextlib.contextmanager
+def _jitted(op_type, jit=True):
+    """With ``jit``, the TPU package's kernel of ``op_type`` under
+    ``jax.jit`` while the block runs (its forward and the generic grad's
+    re-run of it), its attrs static, as the TPU package's compiled step
+    runs it: XLA compiles the kernel once, where eager dispatch compiles
+    each primitive (XLA's fusions may round a last bit otherwise). The
+    ``_``-prefixed entries of its result (``_lod``) are the values its
+    trace computed on the host. A kernel that reads an input's values on
+    the host runs eagerly."""
+    info = JOPS.get(op_type)
+    kernel = info.kernel
+    if not jit:
+        yield
+        return
+
+    def jitted(ins, attrs):
+        host = {}
+
+        def arrays(i):
+            out = kernel(i, attrs)
+            host.update((k, v) for k, v in out.items() if k.startswith("_"))
+            return {k: v for k, v in out.items() if not k.startswith("_")}
+        try:
+            return dict(jax.jit(arrays)(ins), **host)
+        except _HOST_READS:
+            return kernel(ins, attrs)
+    info.kernel = jitted
+    try:
+        yield
+    finally:
+        info.kernel = kernel
+
+
 def run_both(op_type, ins, attrs=None, grad=True, grad_seed=7, tol=None,
-             lod=None, diff=None):
+             lod=None, diff=None, jit=False):
     """Both packages' kernels on numpy ``ins`` (slot → list of arrays):
     every output compared (integers exactly, floats at ``tol``), then
     with ``grad`` the generic grads of the ``diff`` slots (all the input
-    slots by default). ``lod``: the ``_lod`` attr of a LoD op. → the
-    port's outputs."""
+    slots by default). ``lod``: the ``_lod`` attr of a LoD op. ``jit``:
+    the TPU package's kernel compiled by XLA (``_jitted``), else eager. →
+    the port's outputs."""
     rtol, atol = tol or (RTOL, ATOL)
     attrs = dict(attrs or {})
     if lod is not None:
@@ -85,7 +129,8 @@ def run_both(op_type, ins, attrs=None, grad=True, grad_seed=7, tol=None,
             for s, v in ins.items()}
     jins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
     tout = TOPS.get(op_type).kernel(tins, tattrs)
-    jout = JOPS.get(op_type).kernel(jins, jattrs)
+    with _jitted(op_type, jit):
+        jout = JOPS.get(op_type).kernel(jins, jattrs)
     assert {k for k in tout if not k.startswith("_")} == \
         {k for k in jout if not k.startswith("_")}
     r = np.random.RandomState(grad_seed)
@@ -112,7 +157,8 @@ def run_both(op_type, ins, attrs=None, grad=True, grad_seed=7, tol=None,
         slots = list(diff or ins)
         wanted = [s + "@GRAD" for s in slots]
         tg = t_generic_grad(op_type, tins, tattrs, wanted, list(ins))
-        jg = j_generic_grad(op_type, jins, jattrs, wanted, list(ins))
+        with _jitted(op_type, jit):
+            jg = j_generic_grad(op_type, jins, jattrs, wanted, list(ins))
         assert any(v is not None for s in jg for v in jg[s])
         for slot in jg:
             for t, j in zip(tg.get(slot) or [], jg[slot]):
@@ -124,6 +170,12 @@ def run_both(op_type, ins, attrs=None, grad=True, grad_seed=7, tol=None,
     return tout
 
 
+# ROADMAP C8: the port declares the slots these kernels read on the host,
+# where the TPU package declares none, so a connected one is an island
+C8_HOST_INPUTS = {"nearest_interp": ("OutSize", "SizeTensor", "Scale"),
+                  "bilinear_interp": ("OutSize", "SizeTensor", "Scale")}
+
+
 def test_every_op_registered_with_the_reference_flags():
     for t in NEW_OPS:
         ti, ji = TOPS.get(t), JOPS.get(t)
@@ -131,7 +183,8 @@ def test_every_op_registered_with_the_reference_flags():
             assert getattr(ti, flag) == getattr(ji, flag), (t, flag)
         assert list(ti.diff_input_slots or []) == \
             list(ji.diff_input_slots or []), t
-        assert tuple(ti.host_inputs) == tuple(ji.host_inputs), t
+        assert tuple(ti.host_inputs) == C8_HOST_INPUTS.get(
+            t, tuple(ji.host_inputs)), t
 
 
 # ------------------------------------------------------------- norms

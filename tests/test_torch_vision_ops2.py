@@ -49,6 +49,16 @@ def _x(*shape, seed=0):
     return np.random.RandomState(seed).normal(size=shape).astype(np.float32)
 
 
+# ROADMAP C8: the port declares the slots these kernels read on the host,
+# where the TPU package declares none, so a connected one is an island
+C8_HOST_INPUTS = {
+    "crop": ("Offsets",),
+    "crop_tensor": ("Shape", "Offsets", "ShapeTensor", "OffsetsTensor"),
+    "affine_grid": ("OutputShape",),
+    "bicubic_interp": ("OutSize", "SizeTensor", "Scale"),
+    "trilinear_interp": ("OutSize", "SizeTensor", "Scale")}
+
+
 @pytest.mark.parametrize("op_type", VISION_OPS)
 def test_registered_with_the_reference_flags(op_type):
     ti, ji = TOPS.get(op_type), JOPS.get(op_type)
@@ -56,7 +66,8 @@ def test_registered_with_the_reference_flags(op_type):
         assert getattr(ti, flag) == getattr(ji, flag), flag
     assert list(ti.diff_input_slots or []) == list(ji.diff_input_slots or [])
     assert tuple(ti.input_slots or ()) == tuple(ji.input_slots or ())
-    assert tuple(ti.host_inputs) == tuple(ji.host_inputs)
+    assert tuple(ti.host_inputs) == C8_HOST_INPUTS.get(
+        op_type, tuple(ji.host_inputs))
     assert ti.attr_defaults == ji.attr_defaults
 
 
@@ -217,3 +228,95 @@ def test_inplace_abn(act):
            "Variance": [np.ones(3, np.float32)]}
     run_both("inplace_abn", ins, {"activation": act, "alpha": 0.3},
              tol=TOL, diff=["X", "Scale", "Bias"])
+
+
+# ------------------------------------------------------- C8 host inputs
+# each of the seven ops with a host slot connected to a tensor the step
+# computes: (op, data shape, its slot, the tensors fed to the slot, attrs)
+C8_CASES = [
+    ("nearest_interp", [2, 3, 4, 5], "OutSize",
+     [np.array([6, 7], np.int32)], {"align_corners": False}),
+    ("bilinear_interp", [2, 3, 4, 5], "SizeTensor",
+     [np.array([7], np.int32), np.array([3], np.int32)], {}),
+    ("bicubic_interp", [2, 3, 4, 5], "Scale",
+     [np.array([1.5], np.float32)], {"align_corners": False}),
+    ("trilinear_interp", [1, 2, 3, 4, 5], "OutSize",
+     [np.array([4, 5, 3], np.int32)], {}),
+    ("crop", [2, 3, 6, 7], "Offsets", [np.array([0, 1, 2, 3], np.int32)],
+     {"shape": [2, 2, 3, 4]}),
+    ("crop_tensor", [2, 3, 6, 7], "Shape",
+     [np.array([1, 2, 4, 5], np.int32)], {"offsets": [1, 0, 2, 1]}),
+    ("affine_grid", [2, 2, 3], "OutputShape",
+     [np.array([2, 1, 5, 6], np.int32)], {}),
+]
+
+
+def _c8_program(fluid, op_type, shape, slot, values, attrs, connect):
+    """x · 2 → the op (its slot connected to ``assign``s of ``values``,
+    or only the attrs) → · 3: compiled ops on both sides of it."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.data("x", shape=shape, dtype="float32",
+                       append_batch_size=False)
+        h = fluid.layers.scale(x, 2.0)
+        block = main.global_block()
+        x_slot = "Theta" if op_type == "affine_grid" else "X"
+        ins = {x_slot: [h]}
+        if connect:
+            ins[slot] = [fluid.layers.assign(v) for v in values]
+        else:   # the same sizes as attrs
+            v = [int(a) for v in values for a in v.reshape(-1)]
+            if slot in ("OutSize", "SizeTensor"):
+                attrs = dict(attrs, **dict(zip(
+                    ("out_d", "out_h", "out_w")[-len(v):], v)))
+            else:
+                attrs = dict(attrs, **{
+                    "Scale": {"scale": float(values[0][0])},
+                    "Offsets": {"offsets": v}, "Shape": {"shape": v},
+                    "OutputShape": {"output_shape": v}}[slot])
+        y = block.create_var(name="y", dtype="float32")
+        block.append_op(type=op_type, inputs=ins, attrs=attrs, outputs={
+            "Output" if op_type == "affine_grid" else "Out": [y]})
+        z = fluid.layers.scale(y, 3.0)
+    return main, startup, z
+
+
+@pytest.mark.parametrize("case", C8_CASES, ids=[c[0] for c in C8_CASES])
+def test_c8_host_slot_connected_runs_segmented_bitwise(case):
+    """ROADMAP C8: a connected host slot makes the op an island of a
+    segmented step (its value read on the host between two compiled
+    segments), bitwise the interpreter; unconnected, the step compiles
+    whole and gives the same."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import core
+    op_type, shape, slot, values, attrs = case
+    x = _x(*shape, seed=3)
+    saved = {k: core.globals_[k] for k in ("FLAGS_executor_mode",
+                                           "FLAGS_executor_seg_min_ops")}
+    core.set_flag("FLAGS_executor_seg_min_ops", 1)
+    got = {}
+    try:
+        for connect in (True, False):
+            main, startup, z = _c8_program(fluid, op_type, shape, slot,
+                                           values, attrs, connect)
+            for mode in ("interpreted", "compiled"):
+                core.set_flag("FLAGS_executor_mode", mode)
+                exe = fluid.Executor(fluid.CPUPlace())
+                with fluid.scope_guard(core.Scope()):
+                    exe.run(startup)
+                    outs = [exe.run(main, feed={"x": x}, fetch_list=[z])[0]
+                            for _ in range(3)]
+                got[connect, mode] = (outs, exe._last_run_mode)
+            if connect:
+                reasons = [r for s in exe._last_block.segments
+                           if s.kind == "island" for r in s.island_reasons]
+                assert reasons == ["host_inputs"], reasons
+    finally:
+        for k, v in saved.items():
+            core.set_flag(k, v)
+    assert got[True, "compiled"][1] == "segmented"
+    assert got[False, "compiled"][1] == "compiled"
+    want = got[True, "interpreted"][0][0]
+    for key, (outs, _) in got.items():
+        for o in outs:
+            assert o.shape == want.shape and np.array_equal(o, want), key
